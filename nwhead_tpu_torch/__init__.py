@@ -1,0 +1,76 @@
+"""nwhead_tpu_torch — the Nadaraya-Watson head framework in PyTorch and CUDA.
+
+Port of ``nwhead_tpu/__init__.py`` for one NVIDIA Hopper GPU. The JAX package
+``nwhead_tpu`` stays the reference; this package imports neither it nor jax.
+Plain tensor code is PyTorch; the fused NW head over a prepared support bank
+runs on a CUDA kernel written for ``sm_90a`` (``csrc/nw_prepared.cu``), built
+with ``nvcc`` at first use and bound with ``ctypes`` (``ops/_cuda.py``).
+
+The slice ported so far is the serving path: ResNet featurizer ->
+``NWNet.precompute`` -> ``prepare_support`` -> ``NWNet.make_serving_fn``.
+"""
+
+__version__ = "0.1.0"
+
+from nwhead_tpu_torch.ops.kernels import KERNEL_NAMES, get_kernel
+from nwhead_tpu_torch.ops.nw import nw_log_probs
+
+
+def capabilities() -> dict:
+    """What this process can run: torch and CUDA versions, the visible CUDA
+    devices, ``nvcc``, and whether the kernel library for the current
+    sources is already built. A CPU-only process reports no device."""
+    import torch
+
+    from nwhead_tpu_torch.ops import _cuda
+
+    has_cuda = torch.cuda.is_available()
+    count = torch.cuda.device_count() if has_cuda else 0
+    return {
+        "torch": torch.__version__,
+        "torch_cuda": torch.version.cuda,
+        "cuda_available": has_cuda,
+        "device_count": count,
+        "devices": [torch.cuda.get_device_name(i) for i in range(count)],
+        "capability": (
+            list(torch.cuda.get_device_capability(0)) if count else None
+        ),
+        "nvcc": _cuda.find_nvcc(),
+        "kernels_built": _cuda.library_path().exists(),
+    }
+
+
+def __getattr__(name):
+    """Lazy top-level exports (keep ``import nwhead_tpu_torch`` light)."""
+    if name in ("NWNet", "NWModel"):
+        from nwhead_tpu_torch.nw import net
+
+        return getattr(net, name)
+    if name == "NWHead":
+        from nwhead_tpu_torch.nw.head import NWHead
+
+        return NWHead
+    if name == "load_model":
+        from nwhead_tpu_torch.models import load_model
+
+        return load_model
+    if name in ("prepare_support", "nw_fused_from_prepared"):
+        from nwhead_tpu_torch.ops import fused_nw
+
+        return getattr(fused_nw, name)
+    raise AttributeError(name)
+
+
+__all__ = [
+    "capabilities",
+    "get_kernel",
+    "KERNEL_NAMES",
+    "nw_log_probs",
+    "prepare_support",
+    "nw_fused_from_prepared",
+    "NWNet",
+    "NWModel",
+    "NWHead",
+    "load_model",
+    "__version__",
+]

@@ -1,0 +1,1 @@
+"""Subpackage of nwhead_tpu_torch."""

@@ -1,0 +1,138 @@
+"""NW-head serving CLI of the port: build the server, time requests.
+
+Port of the serving path of the root ``serve.py`` (``build_server``,
+``latency_bench``) with the synthetic datasets of ``train.py``. Weights are
+random, from ``--seed``. Run as::
+
+    python -m nwhead_tpu_torch.serve --dataset synthetic_cub --arch resnet18 \
+        --batch_size 64 --latency_bench
+
+``--device`` defaults to ``cuda``; with no CUDA device that is an error, and
+the CPU must be asked for (``--device cpu``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from nwhead_tpu_torch.data.datasets import make_synthetic_dataset
+from nwhead_tpu_torch.models import load_model
+from nwhead_tpu_torch.nw.net import NWNet
+
+
+def build_datasets(args):
+    """(train, val) for ``--dataset``: ``synthetic`` (64/32 images of 32 px,
+    4 classes) or ``synthetic_cub`` (the CUB-200 recipe's scale: 5994/1000
+    images of 224 px, 200 classes, about 3.6 GB of f32)."""
+    if args.dataset == "synthetic":
+        return (make_synthetic_dataset(n=64, n_classes=4, size=32, seed=args.seed),
+                make_synthetic_dataset(n=32, n_classes=4, size=32, seed=args.seed + 1))
+    if args.dataset == "synthetic_cub":
+        return (make_synthetic_dataset(n=5994, n_classes=200, size=224, seed=args.seed,
+                                       class_patterns=0.25),
+                make_synthetic_dataset(n=1000, n_classes=200, size=224, seed=args.seed + 1,
+                                       class_patterns=0.25))
+    raise NotImplementedError(
+        f"dataset {args.dataset!r} is not ported yet (ROADMAP.md queue 1, item 6)"
+    )
+
+
+def device_info(device: torch.device) -> dict:
+    """The device's name and, for a GPU, its power limit as nvidia-smi
+    reports it (times depend on it)."""
+    if device.type != "cuda":
+        return {"name": "cpu", "power_limit": None}
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    limit = subprocess.run(
+        ["nvidia-smi", f"--id={index}", "--query-gpu=power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip() or None
+    return {"name": torch.cuda.get_device_name(index), "power_limit": limit}
+
+
+def build_server(args, train_ds) -> NWNet:
+    """An ``NWNet`` with random weights from ``--seed``, its full support
+    bank featurized and prepared."""
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device is visible (pass --device cpu to run on the CPU)")
+    featurizer = load_model(args.arch, device=device,
+                            generator=torch.Generator().manual_seed(args.seed))
+    net = NWNet(
+        featurizer, train_ds.num_classes, support_dataset=train_ds, device=device,
+        kernel_type=args.kernel_type, n_shot_full=args.n_shot_full,
+        head_precision=args.head_precision,
+    )
+    t0 = time.perf_counter()
+    net.precompute()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    print(f"Support bank prepared: {len(net.full_y)} items, "
+          f"{time.perf_counter() - t0:.1f}s (one-time)")
+    return net
+
+
+def latency_bench(net: NWNet, val_ds, args) -> dict:
+    """Wall-clock latency per request of ``--batch_size`` images, host
+    arrays in, log-probs back on the host: the time a caller sees."""
+    bs = args.batch_size
+    n = min(args.bench_batches, max(1, len(val_ds) // bs))
+    serve = net.make_serving_fn()
+    warm = val_ds.gather(np.arange(bs) % len(val_ds))
+    for _ in range(3):
+        serve(warm).cpu()
+    lat = []
+    for i in range(n):
+        batch = val_ds.gather((np.arange(bs) + i * bs) % len(val_ds))
+        t0 = time.perf_counter()
+        serve(batch).cpu()  # readback: the request is complete
+        lat.append(time.perf_counter() - t0)
+    lat_ms = np.asarray(lat) * 1e3
+    report = {
+        "batch_size": bs,
+        "batches": n,
+        "p50_ms": float(np.percentile(lat_ms, 50)),
+        "p95_ms": float(np.percentile(lat_ms, 95)),
+        "mean_ms": float(lat_ms.mean()),
+        "queries_per_sec": bs / float(np.median(lat)),
+        "head_precision": args.head_precision,
+        "device": device_info(net.device),
+    }
+    print(json.dumps(report))
+    return report
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="NW head serving (PyTorch/CUDA port)")
+    p.add_argument("--dataset", required=True, choices=["synthetic", "synthetic_cub"])
+    p.add_argument("--arch", default="resnet18")
+    p.add_argument("--batch_size", type=int, default=64)
+    p.add_argument("--kernel_type", default="euclidean")
+    p.add_argument("--n_shot_full", type=int, default=100)
+    p.add_argument("--head_precision", default="f32", choices=["f32", "bf16"])
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--latency_bench", action="store_true")
+    p.add_argument("--bench_batches", type=int, default=50)
+    p.add_argument("--device", default="cuda",
+                   help="torch device; 'cuda' (default) fails without a GPU")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if not args.latency_bench:
+        raise SystemExit("pass --latency_bench")
+    train_ds, val_ds = build_datasets(args)
+    net = build_server(args, train_ds)
+    return {"latency": latency_bench(net, val_ds, args)}
+
+
+if __name__ == "__main__":
+    main()
