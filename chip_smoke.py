@@ -10,42 +10,105 @@ package beside it. With one, in order:
 
 1. prints the card (nvidia-smi name and power limit, compute capability) and
    ``nwhead_tpu_torch.capabilities()``;
-2. builds the CUDA kernel library from ``nwhead_tpu_torch/csrc`` with nvcc
-   and prints the build time and ptxas's register/shared-memory report;
-3. kernel phase: the prepared NW head kernel against its plain PyTorch
+2. builds the CUDA kernel libraries from ``nwhead_tpu_torch/csrc`` (one nvcc
+   per source, all at once) and prints the build time and ptxas's
+   register/shared-memory report;
+3. K2 kernel phase: the prepared NW head kernel against its plain PyTorch
    version, all five similarity kernels, f32 and bf16 banks with masked rows,
    at the CUB-200 shape (B=64, S=5994, D=512, C=200), at B=256, at a ragged
    B=37 and at C=10; times kernel and plain version with CUDA events;
-4. slice phase: ``python -m nwhead_tpu_torch.serve --dataset synthetic_cub
+4. serving phase: ``python -m nwhead_tpu_torch.serve --dataset synthetic_cub
    --arch resnet18 --batch_size 64 --latency_bench``, through the serve
-   module's functions, with an f32 and then a bf16 head. It checks that the
-   kernel was launched, and that the served log-probs equal the plain head's
-   on the same features;
-5. prints the nvidia-smi line, a JSON line of per-kernel results, and as the
+   module's functions, with an f32 and then a bf16 head. It checks that K2
+   was launched, and that the served log-probs equal the plain head's on the
+   same features;
+5. K1/K3 kernel phase: the raw fused forward (K1) and its backward (K3, dq
+   and ds) against their plain versions, all five similarity kernels, f32
+   and bf16, masked rows holding NaN, at the training episode's shape (B=8,
+   S=1200, D=512, C=200), at B=64, S=5994, at a ragged B=37, S=1001, at
+   C=10 and at the episode's shape with six queries copied into the
+   support, clip's scale gradient included; times each at the episode's
+   shape;
+6. training phase: ``python -m nwhead_tpu_torch.train --dataset
+   synthetic_cub --arch resnet18 --batch_size 8 --n_shot 6 --lr 1e-2
+   --num_epochs 1 --num_steps_per_epoch 10 --num_val_steps_per_epoch 10``
+   through the module's functions (eval in the random and full modes, then
+   10 steps on 1,208-image batches). It checks that K1, dq and ds launched
+   once per step and K2 in the full-mode eval, that every loss is finite
+   and the weights moved, that the first step's head through the kernels
+   equals the plain versions on the same features, and that K2 at the
+   eval's batch of 8 equals its plain version. It prints the time of the
+   steps split into featurizer and head by CUDA events recorded from hooks
+   inside them, and the peak device memory. Then 3 steps with a bf16 head,
+   and 3 steps of the
+   canonical ``--n_way 10 --n_shot 1`` recipe, which is too small for the
+   fused head and must launch no K1;
+7. prints the nvidia-smi line, a JSON line of per-kernel results, and as the
    last line ``{"ok": true, "device": {...}}``.
+
+Kernel times are device times: CUDA events around each call, queued behind
+a spin kernel so that the host's overhead does not count, L2 flushed before
+each call, median of 30.
+
+Bounds in the JSON line: the larger of the bytes the call must move (each
+input read once, each output written once) over 3.35 TB/s and its score
+products (2 flops per multiply-add) over 67 TFLOP/s for f32 inputs (the rate
+outside the tensor cores) or 989 TFLOP/s for bf16, the H100 SXM's published
+peaks. The softmax's exponentials are not counted.
 """
 
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 
 # Tolerances of kernel vs plain PyTorch on the card: f32 as the JAX kernel is
-# held to its naive op (tests/test_pallas_nw.py); bf16 banks differ from the
-# plain version only in the f32 summation order of bf16 products.
+# held to its naive op (tests/test_pallas_nw.py); bf16 inputs differ from the
+# plain version only in the f32 summation order of bf16 products. Gradients
+# are held relative to their largest value: near-coincident pairs make
+# t = dscore / dist large where the plain and kernel distances differ by
+# rounding, and the t s - q sum(t) terms cancel only up to rounding. Where a
+# query is also a support row, the reference is the plain version in f64
+# (see check_raw_kernels).
 TOL = {"f32": dict(rtol=2e-4, atol=2e-4), "bf16": dict(rtol=0.0, atol=2e-3)}
+GRAD_REL = {"f32": 1e-3, "bf16": 2e-2}
 KERNEL_CASES = (  # name, B, S, D, C
     ("cub_b64", 64, 5994, 512, 200),
     ("cub_b256", 256, 5994, 512, 200),
     ("ragged_b37", 37, 5994, 512, 200),
     ("c10_b64", 64, 5994, 512, 10),
+    ("eval_b8", 8, 5800, 512, 200),  # the training run's full-mode eval batch
 )
-SOURCE = "nwhead_tpu_torch/csrc/nw_prepared.cu"
-REPLACES = "nwhead_tpu/ops/pallas_nw.py:820"
+RAW_CASES = (  # name, B, S, D, C, queries copied into the support; the first
+    ("episode_b8", 8, 1200, 512, 200, 0),  # is the training episode's shape
+    ("head_raw_b64", 64, 5994, 512, 200, 0),
+    ("ragged_b37", 37, 1001, 512, 200, 0),
+    ("c10_b8", 8, 1200, 512, 10, 0),
+    ("dup_b8", 8, 1200, 512, 200, 6),
+)
+PREPARED_SOURCE = "nwhead_tpu_torch/csrc/nw_prepared.cu"
+FUSED_SOURCE = "nwhead_tpu_torch/csrc/nw_fused.cu"
+REPLACES = {
+    "nw_prepared": "nwhead_tpu/ops/pallas_nw.py:820",
+    "nw_fwd": "nwhead_tpu/ops/pallas_nw.py:579",
+    "nw_bwd_dq": "nwhead_tpu/ops/pallas_nw.py:1749",
+    "nw_bwd_ds": "nwhead_tpu/ops/pallas_nw.py:1788",
+}
+TRAIN_ARGV = [
+    "--dataset", "synthetic_cub", "--arch", "resnet18", "--batch_size", "8", "--n_shot", "6",
+    "--lr", "1e-2", "--num_epochs", "1", "--num_steps_per_epoch", "10",
+    "--num_val_steps_per_epoch", "10",
+]
+TRAIN_STEPS = 10
+# H100 SXM published peaks (NVIDIA data sheet; dense, 700 W).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
 
 
 def nvidia_smi_line() -> str:
@@ -60,9 +123,31 @@ def within(got, want, rtol, atol) -> bool:
     return bool(((got - want).abs() <= atol + rtol * want.abs()).all())
 
 
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want|, in f32."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+def bound(n_bytes: float, flops: float, prec: str) -> dict:
+    """The least time of a call on this card's published peaks, and which
+    of bytes or operations sets it."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[prec]
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+# Cycles of the spin kernel queued before each timed call, about 2 ms: the
+# host queues the call (its Python wrapper, the plain version's many small
+# kernels) while the card spins, so the events time the card's work alone.
+SPIN_CYCLES = 4_000_000
+
+
 def time_ms(fn, flush, n=30) -> float:
     """Median device time of one call, with L2 flushed before each (the
-    serving loop runs the featurizer between head calls), by CUDA events."""
+    training and serving loops run the featurizer between head calls), by
+    CUDA events around the call, queued behind a spin kernel so that host
+    overhead does not count."""
     import torch
 
     for _ in range(3):
@@ -71,6 +156,7 @@ def time_ms(fn, flush, n=30) -> float:
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
     for i in range(n):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         starts[i].record()
         fn()
         ends[i].record()
@@ -79,8 +165,8 @@ def time_ms(fn, flush, n=30) -> float:
 
 
 def kernel_phase(flush) -> dict:
-    """Kernel vs plain at each case; returns per-precision max |err| and the
-    CUB B=64 euclidean times."""
+    """K2 vs plain at each case; returns per-precision max |err|, the CUB
+    B=64 euclidean times and that call's bound."""
     import torch
 
     from nwhead_tpu_torch.ops.fused_nw import (
@@ -118,14 +204,18 @@ def kernel_phase(flush) -> dict:
                         lambda: nw_prepared_cuda(qc, prep, scale, mode, C), flush)
                     res[prec]["plain_ms"] = time_ms(
                         lambda: _nw_prepared_plain(qc, prep, scale, mode, C), flush)
+                    item = prep.s.element_size()
+                    res[prec].update(bound(
+                        (B * D + S * D) * item + 4 * (2 * S + 1 + B * C), 2 * B * S * D, prec))
                     print(f"time {case} {kernel} {prec}: kernel {res[prec]['ms']:.4f} ms, "
-                          f"plain {res[prec]['plain_ms']:.4f} ms")
+                          f"plain {res[prec]['plain_ms']:.4f} ms, "
+                          f"bound {res[prec]['bound_ms']:.4f} ms ({res[prec]['bound_by']})")
     return res
 
 
-def slice_phase() -> dict:
+def slice_phase(datasets) -> dict:
     """The serving CLI's path at the CUB recipe's scale, f32 then bf16 head.
-    Returns the kernel's launch count and the latency report per head."""
+    Returns K2's launch count and the latency report per head."""
     import torch
 
     from nwhead_tpu_torch import serve
@@ -137,9 +227,7 @@ def slice_phase() -> dict:
         "--dataset", "synthetic_cub", "--arch", "resnet18", "--batch_size", "64",
         "--latency_bench",
     ])
-    t0 = time.perf_counter()
-    train_ds, val_ds = serve.build_datasets(args)
-    print(f"datasets built in {time.perf_counter() - t0:.1f}s")
+    train_ds, val_ds = datasets
     out = {}
     for prec in TOL:
         args.head_precision = prec
@@ -180,6 +268,347 @@ def slice_phase() -> dict:
     return out
 
 
+def check_raw_kernels(qn, sn, labels, scale, mode, C, g, prec, where: str,
+                      check_dscale: bool = False, dup_queries=None) -> dict:
+    """K1, dq and ds on one input against the plain versions (and, with
+    ``check_dscale``, clip's scale gradient ``sum(q dq) / scale``); raises
+    on a disagreement. ``dup_queries`` (a tensor of indices, maybe empty)
+    says that queries may coincide with support rows, those indices exactly:
+    then the plain versions run in f64, because in f32 the distance of such
+    a pair is the rounding residue of |q|^2 - 2 q.s + |s|^2, up to
+    sqrt(eps |q|^2), while the kernels sum all three in one order and get
+    exactly 0; in l2 mode those queries' maximum score ``m`` must be
+    exactly 0. Returns each kernel's max |err|."""
+    import torch
+
+    from nwhead_tpu_torch.ops import fused_nw as F
+
+    exact = dup_queries is not None
+    rq, rs = (qn.double(), sn.double()) if exact else (qn, sn)
+    out, m, l = F.nw_fwd_cuda(qn, sn, labels, scale, mode, C)
+    want = [x.float() for x in F._nw_fwd_plain(rq, rs, labels, scale, mode, C)]
+    u = (g * torch.exp(-want[0])).contiguous()
+    r = torch.sum(u * (torch.exp(want[0]) - 1e-12), dim=-1, keepdim=True)
+    dq = F.nw_bwd_dq_cuda(qn, sn, labels, u, r, want[1], want[2], scale, mode, C)
+    ds = F.nw_bwd_ds_cuda(qn, sn, labels, u, r, want[1], want[2], scale, mode, C)
+    dq_p, ds_p = F._nw_bwd_plain(rq, rs, labels, u, r, want[1], want[2], scale, mode, C)
+    torch.cuda.synchronize()
+    l_tol = dict(rtol=2e-3 if prec == "bf16" else 2e-4, atol=1e-6)
+    fwd_ok = (bool(torch.isfinite(out).all()) and within(out, want[0], **TOL[prec])
+              and within(m, want[1], **TOL[prec]) and within(l, want[2], **l_tol))
+    dup = ""
+    if exact:
+        dup = f", {dup_queries.numel()} of {qn.shape[0]} queries coincide with support rows"
+        if mode == "l2" and dup_queries.numel():
+            m_dup = m[dup_queries]
+            fwd_ok = fwd_ok and bool((m_dup == 0).all())
+            dup += f" (their kernel m max|.| {float(m_dup.abs().max()):.1e})"
+    rel = {"dq": rel_err(dq, dq_p), "ds": rel_err(ds, ds_p)}
+    grads_ok = (bool(torch.isfinite(dq).all() and torch.isfinite(ds).all())
+                and bool((ds[labels < 0] == 0).all())
+                and max(rel.values()) <= GRAD_REL[prec])
+    dscale = ""
+    if check_dscale:
+        ds_k = torch.sum(qn.float() * dq.float()) / scale
+        ds_pl = torch.sum(qn.float() * dq_p.float()) / scale
+        rel["dscale"] = rel_err(ds_k, ds_pl)
+        grads_ok = grads_ok and rel["dscale"] <= GRAD_REL[prec]
+        dscale = f", dscale rel {rel['dscale']:.2e}"
+    errs = {"nw_fwd": float((out - want[0]).abs().max()),
+            "nw_bwd_dq": float((dq.float() - dq_p.float()).abs().max()),
+            "nw_bwd_ds": float((ds.float() - ds_p.float()).abs().max())}
+    ok = fwd_ok and grads_ok
+    print(f"raw {where} {prec}{' (f64 reference)' if exact else ''}: out max|err| "
+          f"{errs['nw_fwd']:.3e}, m {float((m - want[1]).abs().max()):.3e}, dq rel "
+          f"{rel['dq']:.2e}, ds rel {rel['ds']:.2e}{dscale}{dup} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"K1/K3 disagree with the plain versions: {where} {prec}")
+    return errs
+
+
+def raw_kernel_phase(flush) -> dict:
+    """K1 and K3 vs plain at each raw case, all five kernels, f32 and bf16,
+    masked rows holding NaN; times them at the training episode's shape
+    (and prints the B=64 times). Returns, per kernel and precision, max
+    |err|, kernel and plain ms and the bound."""
+    import torch
+
+    from nwhead_tpu_torch.ops import fused_nw as F
+    from nwhead_tpu_torch.ops.kernels import KERNEL_NAMES
+
+    dev = torch.device("cuda")
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    res = {k: {p: {"max_abs_err": 0.0} for p in TOL} for k in ("nw_fwd", "nw_bwd_dq", "nw_bwd_ds")}
+    for ci, (case, B, S, D, C, n_dup) in enumerate(RAW_CASES):
+        rng = np.random.default_rng(100 + ci)
+        q = torch.from_numpy(rng.standard_normal((B, D), np.float32)).to(dev)
+        s = torch.from_numpy(rng.standard_normal((S, D), np.float32)).to(dev)
+        valid = rng.random(S) > 0.03
+        valid[0] = True
+        # Rows that will hold copies of the first n_dup queries (unmasked).
+        dup_rows = torch.from_numpy(rng.choice(np.flatnonzero(valid), n_dup, replace=False)).to(dev)
+        s[torch.from_numpy(~valid).to(dev)] = float("nan")
+        labels = torch.from_numpy(
+            np.where(valid, rng.integers(0, C, size=S), -1).astype(np.int32)).to(dev)
+        g = torch.from_numpy(rng.standard_normal((B, C), np.float32)).to(dev)
+        for kernel in KERNEL_NAMES:
+            params = {"logit_scale": torch.tensor(1.3, device=dev)} if kernel == "clip" else {}
+            for prec in TOL:
+                mode, scale, qn, sn = F._resolve_mode(kernel, params, q.to(dtypes[prec]),
+                                                      s.to(dtypes[prec]))
+                qn, sn = qn.to(sn.dtype).contiguous(), sn.contiguous()
+                dups = None
+                if n_dup:  # copied after normalizing, so the kernel's inputs coincide
+                    sn = sn.clone()
+                    sn[dup_rows] = qn[:n_dup]
+                    dups = torch.arange(n_dup, device=dev)
+                errs = check_raw_kernels(qn, sn, labels, scale, mode, C, g, prec,
+                                         f"{case} {kernel}", check_dscale=kernel == "clip",
+                                         dup_queries=dups)
+                for k, e in errs.items():
+                    res[k][prec]["max_abs_err"] = max(res[k][prec]["max_abs_err"], e)
+                if kernel == "euclidean" and ci < 2:
+                    timed = _time_raw(flush, qn, sn, labels, scale, mode, C, g, prec)
+                    print(f"time raw {case} {prec}: " + ", ".join(
+                        f"{k} kernel {v['ms']:.4f} ms / plain {v['plain_ms']:.4f} ms / "
+                        f"bound {v['bound_ms']:.4f} ms ({v['bound_by']})"
+                        for k, v in timed.items()))
+                    if ci == 0:
+                        for k, v in timed.items():
+                            res[k][prec].update(v)
+    return res
+
+
+def _time_raw(flush, qn, sn, labels, scale, mode, C, g, prec) -> dict:
+    """K1, dq and ds kernel times and their plain versions', with each
+    call's bound."""
+    import torch
+
+    from nwhead_tpu_torch.ops import fused_nw as F
+
+    out, m, l = F._nw_fwd_plain(qn, sn, labels, scale, mode, C)
+    u = (g * torch.exp(-out)).contiguous()
+    r = torch.sum(u * (torch.exp(out) - 1e-12), dim=-1, keepdim=True)
+    args = (qn, sn, labels, u, r, m, l, scale, mode, C)
+    (B, D), S, item = qn.shape, sn.shape[0], sn.element_size()
+    inputs = (B + S) * D * item + 4 * (S + 1)  # q, s, labels, scale
+    per_query = 4 * B * (C + 3)  # u, r, m, l
+    return {
+        "nw_fwd": {"ms": time_ms(lambda: F.nw_fwd_cuda(qn, sn, labels, scale, mode, C), flush),
+                   "plain_ms": time_ms(lambda: F._nw_fwd_plain(qn, sn, labels, scale, mode, C),
+                                       flush),
+                   **bound(inputs + 4 * B * (C + 2), 2 * B * S * D + 2 * S * D, prec)},
+        "nw_bwd_dq": {"ms": time_ms(lambda: F.nw_bwd_dq_cuda(*args), flush),
+                      "plain_ms": time_ms(lambda: F._nw_bwd_dq_plain(*args), flush),
+                      **bound(inputs + per_query + B * D * item, 4 * B * S * D + 2 * S * D, prec)},
+        "nw_bwd_ds": {"ms": time_ms(lambda: F.nw_bwd_ds_cuda(*args), flush),
+                      "plain_ms": time_ms(lambda: F._nw_bwd_ds_plain(*args), flush),
+                      **bound(inputs + per_query + S * D * item, 4 * B * S * D + 2 * S * D, prec)},
+    }
+
+
+RAW_WRAPPERS = ("nw_fwd_cuda", "nw_bwd_dq_cuda", "nw_bwd_ds_cuda")
+
+
+def _counts(names=("nw_prepared_cuda",) + RAW_WRAPPERS, reset: bool = False) -> dict:
+    from nwhead_tpu_torch.ops import fused_nw as F
+
+    out = {n: getattr(F, n).launches for n in names}
+    if reset:
+        for n in names:
+            getattr(F, n).launches = 0
+    return out
+
+
+class StepTimer:
+    """CUDA events recorded by hooks inside the training steps themselves:
+    featurizer forward (its pre-hook to its hook), head forward, head
+    backward (from the gradient of the log-probs to that of the features)
+    and featurizer backward (to the gradient of the stem's first weight,
+    the last one autograd computes). Passes without autograd (the evals)
+    are not recorded; the optimizer update is outside every span."""
+
+    def __init__(self, model):
+        import torch
+
+        self.torch, self.steps = torch, []
+        stem = next(model.featurizer.parameters())
+        self.handles = [
+            model.featurizer.register_forward_pre_hook(self._start),
+            model.featurizer.register_forward_hook(self._tap("feat_fwd", "feat_bwd_start")),
+            model.head.register_forward_pre_hook(self._mark("head_fwd_start")),
+            model.head.register_forward_hook(self._tap("head_fwd", "head_bwd_start")),
+            stem.register_hook(lambda grad: self._record("feat_bwd")),
+        ]
+
+    def _record(self, key):
+        if self.steps and key not in self.steps[-1]:
+            self.steps[-1][key] = self.torch.cuda.Event(enable_timing=True)
+            self.steps[-1][key].record()
+
+    def _start(self, module, inputs):
+        if self.torch.is_grad_enabled():
+            self.steps.append({})
+            self._record("feat_fwd_start")
+
+    def _mark(self, key):
+        def hook(module, inputs):
+            if self.torch.is_grad_enabled():
+                self._record(key)
+        return hook
+
+    def _tap(self, key, grad_key):
+        """Forward hook: marks the end of the forward and, on the output's
+        gradient, the start of the next backward span."""
+        def hook(module, inputs, output):
+            if self.torch.is_grad_enabled():
+                self._record(key)
+                output.register_hook(lambda grad: self._record(grad_key))
+        return hook
+
+    def split(self) -> dict:
+        """Medians over the steps after the first (cuDNN set-up), in ms."""
+        self.torch.cuda.synchronize()
+        for h in self.handles:
+            h.remove()
+
+        def ms(e, a, b):
+            return e[a].elapsed_time(e[b])
+
+        rows = [(ms(e, "feat_fwd_start", "feat_fwd") + ms(e, "feat_bwd_start", "feat_bwd"),
+                 ms(e, "head_fwd_start", "head_fwd") + ms(e, "head_bwd_start", "feat_bwd_start"),
+                 ms(e, "feat_fwd_start", "feat_bwd")) for e in self.steps[1:]]
+        feat_ms, head_ms, step_ms = np.median(np.asarray(rows), axis=0)
+        return {"featurizer_ms": float(feat_ms), "head_ms": float(head_ms),
+                "step_ms": float(step_ms), "steps": len(rows)}
+
+
+def training_phase(datasets, workdir: str) -> dict:
+    """The training CLI's path at the slice configuration; then a bf16 head
+    and the canonical n_way 10 recipe. Returns launch counts, parity errors
+    and times."""
+    import torch
+
+    from nwhead_tpu_torch import train
+    from nwhead_tpu_torch.ops import fused_nw as F
+
+    argv = TRAIN_ARGV + ["--models_dir", workdir, "--log_interval", "1000"]
+    args, trainer, start = train.setup(argv, datasets=datasets)
+    net = trainer.net
+    captured = {}
+
+    def capture(module, inputs, output):
+        if "q" not in captured and torch.is_grad_enabled() and inputs[1].dim() == 2:
+            captured.update(q=inputs[0].detach().clone(), s=inputs[1].detach().clone(),
+                            sy=inputs[2].detach().clone())
+
+    handle = net.model.head.register_forward_hook(capture)
+    timer = StepTimer(net.model)
+    before = {n: p.detach().clone() for n, p in net.model.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _counts(reset=True)
+    t0 = time.perf_counter()
+    train.run_epochs(args, trainer, start)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    handle.remove()
+    split = timer.split()
+    print(f"train f32: launches {launches}; {len(trainer.step_losses)} steps in "
+          f"{trainer.train_seconds:.2f}s ({trainer.train_seconds / TRAIN_STEPS * 1e3:.1f} ms/step, "
+          f"first step included); eval + train {wall:.2f}s; peak device memory "
+          f"{peak / 2**30:.2f} GiB; losses {['%.4f' % v for v in trainer.step_losses]}")
+    print(f"train step split (CUDA events from hooks in the run's steps, median of steps "
+          f"2-{split['steps'] + 1}): featurizer fwd+bwd {split['featurizer_ms']:.2f} ms, head "
+          f"fwd+bwd {split['head_ms']:.3f} ms, step {split['step_ms']:.2f} ms (optimizer "
+          f"update not included)")
+    for name in RAW_WRAPPERS:
+        if launches[name] != TRAIN_STEPS:
+            raise AssertionError(f"{name} launched {launches[name]} times in "
+                                 f"{TRAIN_STEPS} training steps")
+    if launches["nw_prepared_cuda"] == 0:
+        raise AssertionError("the full-mode eval never launched K2")
+    if len(trainer.step_losses) != TRAIN_STEPS or not np.isfinite(trainer.step_losses).all():
+        raise AssertionError(f"losses {trainer.step_losses}")
+    if split["steps"] != TRAIN_STEPS - 1:
+        raise AssertionError(f"the step timer saw {split['steps'] + 1} steps")
+    moved = sum(not torch.equal(p.detach(), before[n]) for n, p in net.model.named_parameters())
+    if moved == 0:
+        raise AssertionError("no parameter changed in training")
+    S = captured["s"].shape[0]
+    print(f"first step: query {tuple(captured['q'].shape)}, support {tuple(captured['s'].shape)}; "
+          f"{moved} of {len(before)} parameter tensors moved")
+    if S != net.support_train.support_size() or not net.model.head.takes_fused(
+            captured["q"], captured["s"]):
+        raise AssertionError(f"the episode ({S} rows) did not take the fused head")
+
+    # The first step's head, through the kernels and the plain versions. A
+    # query drawn into its own episode has the same features as its support
+    # row, so the reference is the plain version in f64.
+    mode, scale, qn, sn = F._resolve_mode(net.kernel_type, net.model.head.kernel_params(),
+                                          captured["q"], captured["s"])
+    qn, sn = qn.contiguous(), sn.contiguous()
+    dups = torch.nonzero((qn[:, None, :] == sn[None, :, :]).all(-1).any(1)).flatten()
+    g = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (qn.shape[0], net.n_classes), np.float32)).to(net.device)
+    errs = check_raw_kernels(qn, sn, captured["sy"].to(torch.int32), scale.detach(), mode,
+                             net.n_classes, g, "f32", "first-step", dup_queries=dups)
+
+    # K2 at the full-mode eval's batch against its plain version.
+    x = trainer.val_dataset.gather(np.arange(trainer.batch_size))
+    got = net.predict(x, "full")
+    with torch.inference_mode():
+        prep = net._prepared_full
+        feats = net.model.featurize(torch.as_tensor(x).to(net.device))
+        mode, scale, qn, _ = F._resolve_mode(net.kernel_type, net.model.head.kernel_params(),
+                                             feats)
+        plain = F._nw_prepared_plain(qn.to(prep.s.dtype), prep, scale, mode, net.n_classes)
+    torch.cuda.synchronize()
+    eval_err = float((got - plain).abs().max())
+    print(f"full-mode eval batch: B={got.shape[0]}, bank S={prep.s.shape[0]}; K2 vs plain "
+          f"max|err| {eval_err:.3e}")
+    if (tuple(got.shape) != (trainer.batch_size, net.n_classes)
+            or not bool(torch.isfinite(got).all()) or not within(got, plain, **TOL["f32"])):
+        raise AssertionError("the full-mode eval's K2 disagrees with the plain version")
+    out = {"launches": {"f32": launches}, "errs": errs, "eval_err": eval_err, "split": split,
+           "peak_bytes": peak, "ms_per_step": trainer.train_seconds / TRAIN_STEPS,
+           "losses": trainer.step_losses}
+    del trainer, net, captured, timer
+    torch.cuda.empty_cache()
+
+    # bf16 head: the same path with the head's features in bf16.
+    args, trainer, _ = train.setup(argv + ["--head_precision", "bf16"], datasets=datasets)
+    _counts(reset=True)
+    trainer.train_epoch(num_steps=3)
+    torch.cuda.synchronize()
+    out["launches"]["bf16"] = _counts()
+    print(f"train bf16 head: launches {out['launches']['bf16']}; losses "
+          f"{['%.4f' % v for v in trainer.step_losses]}")
+    if any(out["launches"]["bf16"][n] != 3 for n in RAW_WRAPPERS):
+        raise AssertionError("the bf16 head did not launch K1/K3 once per step")
+    if not np.isfinite(trainer.step_losses).all():
+        raise AssertionError(f"bf16 losses {trainer.step_losses}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # The canonical recipe: 10-row episodes take the naive head.
+    args, trainer, _ = train.setup(
+        argv[:argv.index("--n_shot")] + ["--n_way", "10", "--n_shot", "1"]
+        + argv[argv.index("--n_shot") + 2:], datasets=datasets)
+    _counts(reset=True)
+    trainer.train_epoch(num_steps=3)
+    torch.cuda.synchronize()
+    naive = _counts()
+    print(f"train n_way 10: launches {naive}; losses {['%.4f' % v for v in trainer.step_losses]}")
+    if naive["nw_fwd_cuda"] != 0 or not np.isfinite(trainer.step_losses).all():
+        raise AssertionError("the n_way 10 recipe launched K1 or lost finiteness")
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -187,6 +616,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
     import nwhead_tpu_torch
+    from nwhead_tpu_torch import train
     from nwhead_tpu_torch.ops import _cuda
 
     print(nvidia_smi_line())
@@ -195,29 +625,57 @@ def main() -> int:
           f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     print(f"capabilities: {json.dumps(nwhead_tpu_torch.capabilities())}")
 
-    info = _cuda.build()
-    print(f"build: {'cached' if info['cached'] else 'compiled'} in "
-          f"{info['seconds']:.1f}s -> {info['path']}")
-    for line in info["ptxas"].splitlines():
-        if any(k in line for k in ("Compiling entry", "registers", "spill", "smem")):
-            print(f"  ptxas: {line.strip()}")
+    t0 = time.perf_counter()
+    for name, info in _cuda.build().items():
+        print(f"build {name}: {'cached' if info['cached'] else 'compiled'} in "
+              f"{info['seconds']:.1f}s -> {info['path']}")
+        for line in info["ptxas"].splitlines():
+            if any(k in line for k in ("Compiling entry", "registers", "spill", "smem")):
+                print(f"  ptxas: {line.strip()}")
+    print(f"build wall time {time.perf_counter() - t0:.1f}s")
     lib = _cuda.load_library()
-    print(f"  shared memory per pass-1 block: {lib.nw_prepared_smem_bytes(200)} bytes "
-          f"(dynamic) at C=200; largest C on this card: {lib.nw_prepared_max_classes(0)}")
+    fused = _cuda.load_library("nw_fused")
+    print(f"  shared memory per K2 pass-1 block: {lib.nw_prepared_smem_bytes(200)} bytes "
+          f"(dynamic) at C=200; largest C on this card: {lib.nw_prepared_max_classes(0)}; "
+          f"K3 dq block {fused.nw_fused_smem_bytes(1, 512)} bytes at D=512 (largest D "
+          f"{fused.nw_fused_dq_max_features(0)}), ds block {fused.nw_fused_smem_bytes(2, 64)} "
+          f"bytes at B=64 (largest B {fused.nw_fused_ds_max_batch(0)})")
 
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")  # 256 MB > L2
     kern = kernel_phase(flush)
+    raw = raw_kernel_phase(flush)
     del flush
-    sl = slice_phase()
+    t0 = time.perf_counter()
+    args = train.Parser().parse_args(TRAIN_ARGV)
+    datasets = train.build_datasets(args)
+    print(f"datasets built in {time.perf_counter() - t0:.1f}s")
+    sl = slice_phase(datasets)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        tr = training_phase(datasets, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
     print(nvidia_smi_line())
-    print(json.dumps({"kernels": [
-        {"name": f"nw_prepared_{p}", "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES, "launches": sl[p]["launches"],
-         "max_abs_err": max(kern[p]["max_abs_err"], sl[p]["served_err"]),
-         "ms": kern[p]["ms"], "plain_ms": kern[p]["plain_ms"]}
+    entries = [
+        {"name": f"nw_prepared_{p}", "route": "cuda", "source": PREPARED_SOURCE,
+         "replaces": REPLACES["nw_prepared"], "launches": sl[p]["launches"],
+         "max_abs_err": max(kern[p]["max_abs_err"], sl[p]["served_err"],
+                            tr["eval_err"] if p == "f32" else 0.0),
+         "ms": kern[p]["ms"], "plain_ms": kern[p]["plain_ms"], "bound_ms": kern[p]["bound_ms"],
+         "bound_by": kern[p]["bound_by"], "library_ms": None}
         for p in TOL
-    ]}))
+    ]
+    for k in ("nw_fwd", "nw_bwd_dq", "nw_bwd_ds"):
+        for p in TOL:
+            r = raw[k][p]
+            err = max(r["max_abs_err"], tr["errs"][k]) if p == "f32" else r["max_abs_err"]
+            entries.append({
+                "name": f"{k}_{p}", "route": "cuda", "source": FUSED_SOURCE,
+                "replaces": REPLACES[k], "launches": tr["launches"][p][f"{k}_cuda"],
+                "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None})
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

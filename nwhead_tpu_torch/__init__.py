@@ -2,12 +2,15 @@
 
 Port of ``nwhead_tpu/__init__.py`` for one NVIDIA Hopper GPU. The JAX package
 ``nwhead_tpu`` stays the reference; this package imports neither it nor jax.
-Plain tensor code is PyTorch; the fused NW head over a prepared support bank
-runs on a CUDA kernel written for ``sm_90a`` (``csrc/nw_prepared.cu``), built
-with ``nvcc`` at first use and bound with ``ctypes`` (``ops/_cuda.py``).
+Plain tensor code is PyTorch; the fused NW head runs on CUDA kernels written
+for ``sm_90a`` (``csrc/nw_fused.cu``: the raw forward K1 and its backward K3;
+``csrc/nw_prepared.cu``: the prepared-bank forward K2), built with ``nvcc`` at
+first use and bound with ``ctypes`` (``ops/_cuda.py``).
 
-The slice ported so far is the serving path: ResNet featurizer ->
-``NWNet.precompute`` -> ``prepare_support`` -> ``NWNet.make_serving_fn``.
+The slices ported so far: episodic training (``python -m
+nwhead_tpu_torch.train``: ResNet featurizer -> ``NWModel.forward`` -> fused
+head K1/K3 -> ``NWTrainer``) and serving (``NWNet.precompute`` ->
+``prepare_support`` -> ``NWNet.make_serving_fn``, K2).
 """
 
 __version__ = "0.1.0"
@@ -18,8 +21,8 @@ from nwhead_tpu_torch.ops.nw import nw_log_probs
 
 def capabilities() -> dict:
     """What this process can run: torch and CUDA versions, the visible CUDA
-    devices, ``nvcc``, and whether the kernel library for the current
-    sources is already built. A CPU-only process reports no device."""
+    devices, ``nvcc``, and which kernel libraries are already built for the
+    current sources. A CPU-only process reports no device."""
     import torch
 
     from nwhead_tpu_torch.ops import _cuda
@@ -36,7 +39,8 @@ def capabilities() -> dict:
             list(torch.cuda.get_device_capability(0)) if count else None
         ),
         "nvcc": _cuda.find_nvcc(),
-        "kernels_built": _cuda.library_path().exists(),
+        "kernels_built": {src.stem: _cuda.library_path(src.stem).exists()
+                          for src in _cuda.sources()},
     }
 
 
@@ -54,7 +58,7 @@ def __getattr__(name):
         from nwhead_tpu_torch.models import load_model
 
         return load_model
-    if name in ("prepare_support", "nw_fused_from_prepared"):
+    if name in ("prepare_support", "nw_fused_from_prepared", "nw_fused_log_probs"):
         from nwhead_tpu_torch.ops import fused_nw
 
         return getattr(fused_nw, name)
@@ -68,6 +72,7 @@ __all__ = [
     "nw_log_probs",
     "prepare_support",
     "nw_fused_from_prepared",
+    "nw_fused_log_probs",
     "NWNet",
     "NWModel",
     "NWHead",

@@ -9,6 +9,10 @@ becomes a torchvision-named ``state_dict``.
   ``mean``/``var`` -> ``running_mean``/``running_var``;
 * ``layerK_i/{conv1,bn1,conv2,bn2,ds_conv,ds_bn}`` ->
   ``layerK.i.{conv1,bn1,conv2,bn2,downsample.0,downsample.1}``.
+
+``jax_to_torch_nwmodel`` converts a whole ``NWModel`` tree: the featurizer,
+the optional ``proj`` Dense layer (kernel ``(in, out)`` -> Linear weight
+``(out, in)``) and the head's ``logit_scale``.
 """
 
 from __future__ import annotations
@@ -68,3 +72,20 @@ def jax_to_torch_head(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     kernels) as a ``state_dict`` for ``nwhead_tpu_torch.nw.head.NWHead``."""
     return {k: torch.tensor(np.asarray(v, np.float32)) for k, v in params_np.items()
             if k == "logit_scale"}
+
+
+def jax_to_torch_nwmodel(variables_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX ``NWModel`` tree ``{'params': {featurizer, proj?, head?},
+    'batch_stats': {featurizer}}`` -> ``state_dict`` for
+    ``nwhead_tpu_torch.nw.net.NWModel``."""
+    params = variables_np["params"]
+    sd = {f"featurizer.{k}": v for k, v in jax_to_torch_resnet({
+        "params": params["featurizer"],
+        "batch_stats": variables_np.get("batch_stats", {}).get("featurizer", {}),
+    }).items()}
+    if "proj" in params:
+        sd["proj.weight"] = torch.from_numpy(
+            np.ascontiguousarray(np.asarray(params["proj"]["kernel"], np.float32).T))
+        sd["proj.bias"] = torch.from_numpy(np.asarray(params["proj"]["bias"], np.float32).copy())
+    sd.update({f"head.{k}": v for k, v in jax_to_torch_head(params.get("head", {})).items()})
+    return sd

@@ -1,15 +1,16 @@
 """Headless ResNet (BasicBlock family) in PyTorch.
 
-Port of ``nwhead_tpu/models/resnet.py`` for the serving slice: ``BasicBlock``,
-``ResNet`` with the 7x7/s2 stem, ``resnet10`` and ``resnet18``. ``forward``
-takes NHWC float images, as the JAX model does, and returns pooled
-``(B, 512)`` features.
+Port of ``nwhead_tpu/models/resnet.py``: ``BasicBlock``, ``ResNet`` with the
+7x7/s2 stem, ``resnet10`` and ``resnet18``. ``forward`` takes NHWC float
+images, as the JAX model does, and returns pooled ``(B, 512)`` features.
 
 Conventions kept from the JAX model: torch-style explicit paddings (3 for the
 7x7 stem, 1 for 3x3 convs), BatchNorm eps 1e-5, the 3x3/s2/p1 max-pool, the
 global average pool taken in f32, Kaiming-normal fan-out conv init and BN
-weight 1 / bias 0. Submodule names follow torchvision (``layer1.0.conv1``,
-``layer1.0.downsample.0``), so torchvision state dicts load as they are.
+weight 1 / bias 0, and BatchNorm running statistics updated in train mode
+as flax updates them (``BatchNorm2d`` below). Submodule names follow
+torchvision (``layer1.0.conv1``, ``layer1.0.downsample.0``), so torchvision
+state dicts load as they are.
 """
 
 from __future__ import annotations
@@ -17,7 +18,28 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train mode updates ``running_var`` with the
+    biased batch variance, as flax's ``BatchNorm`` does (torch's own update
+    uses the unbiased one; the normalized output is the same). In train
+    mode it normalizes by the batch statistics through ``F.batch_norm``
+    without running statistics, then updates them from ``torch.var_mean``
+    outside autograd. Momentum 0.1 is flax's 0.9."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return out
 
 
 def conv3x3(in_planes: int, planes: int, stride: int = 1) -> nn.Conv2d:
@@ -36,15 +58,15 @@ class BasicBlock(nn.Module):
     def __init__(self, in_planes: int, planes: int, stride: int = 1) -> None:
         super().__init__()
         self.conv1 = conv3x3(in_planes, planes, stride)
-        self.bn1 = nn.BatchNorm2d(planes, eps=1e-5)
+        self.bn1 = BatchNorm2d(planes, eps=1e-5)
         self.relu = nn.ReLU(inplace=True)
         self.conv2 = conv3x3(planes, planes)
-        self.bn2 = nn.BatchNorm2d(planes, eps=1e-5)
+        self.bn2 = BatchNorm2d(planes, eps=1e-5)
         self.downsample = None
         if stride != 1 or in_planes != planes * self.expansion:
             self.downsample = nn.Sequential(
                 conv1x1(in_planes, planes * self.expansion, stride),
-                nn.BatchNorm2d(planes * self.expansion, eps=1e-5),
+                BatchNorm2d(planes * self.expansion, eps=1e-5),
             )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -68,7 +90,7 @@ class ResNet(nn.Module):
         super().__init__()
         self.block = block
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64, eps=1e-5)
+        self.bn1 = BatchNorm2d(64, eps=1e-5)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         in_planes = 64

@@ -2,10 +2,9 @@
 
 Port of ``nwhead_tpu/nw/head.py``. The head is the op from
 ``nwhead_tpu_torch.ops``; the module holds clip's learnable ``logit_scale``
-and gives the network one place to choose between the naive op
-(``forward``) and the fused serving path over a prepared bank
-(``from_prepared``). The fused raw-feature path of the training forward
-(kernel K1) is a later slice.
+and gives the network one place to choose between the naive op, the fused
+raw-feature path (kernels K1/K3, differentiable: the training forward) and
+the fused serving path over a prepared bank (K2, ``from_prepared``).
 """
 
 from __future__ import annotations
@@ -17,19 +16,27 @@ import torch
 from torch import nn
 
 from nwhead_tpu_torch.ops import nw as nw_ops
-from nwhead_tpu_torch.ops.fused_nw import PreparedSupport, nw_fused_from_prepared
+from nwhead_tpu_torch.ops.fused_nw import (
+    PreparedSupport, nw_fused_from_prepared, nw_fused_log_probs,
+)
+from nwhead_tpu_torch.ops.kernels import KERNEL_NAMES
 
 
 class NWHead(nn.Module):
     """``precision`` is ``'f32'`` or ``'bf16'``: a bf16 head rounds the
-    features to bf16 before the distance, on both paths."""
+    features to bf16 before the distance, on every path. With ``use_fused``,
+    a 2-D query against a 2-D support of at least ``fused_min_support`` rows
+    takes the fused kernels; anything else the naive op."""
 
     def __init__(self, n_classes: int, kernel_type: str = "euclidean",
-                 precision: str = "f32") -> None:
+                 precision: str = "f32", use_fused: bool = True,
+                 fused_min_support: int = 1024) -> None:
         super().__init__()
         self.n_classes = n_classes
         self.kernel_type = kernel_type
         self.precision = precision
+        self.use_fused = use_fused
+        self.fused_min_support = fused_min_support
         if kernel_type == "clip":
             self.logit_scale = nn.Parameter(
                 torch.tensor(math.log(1.0 / 0.07), dtype=torch.float32)
@@ -40,6 +47,12 @@ class NWHead(nn.Module):
             return {"logit_scale": self.logit_scale}
         return {}
 
+    def takes_fused(self, qfeat: torch.Tensor, sfeat: torch.Tensor) -> bool:
+        """Whether ``forward`` dispatches these shapes to the fused kernels."""
+        return (self.use_fused and sfeat.shape[-2] >= self.fused_min_support
+                and sfeat.dim() == 2 and qfeat.dim() == 2
+                and self.kernel_type in KERNEL_NAMES)
+
     def forward(
         self,
         qfeat: torch.Tensor,
@@ -47,7 +60,13 @@ class NWHead(nn.Module):
         sy: torch.Tensor,
         support_mask: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        """Naive head: ``log(probs + 1e-12)``, shape ``(B, n_classes)``."""
+        """``log(probs + 1e-12)``, shape ``(B, n_classes)``."""
+        if self.takes_fused(qfeat, sfeat):
+            return nw_fused_log_probs(
+                qfeat, sfeat, sy, self.n_classes, kernel=self.kernel_type,
+                kernel_params=self.kernel_params(), support_mask=support_mask,
+                precision=self.precision,
+            )
         if self.precision == "bf16":
             qfeat = qfeat.to(torch.bfloat16).to(torch.float32)
             sfeat = sfeat.to(torch.bfloat16).to(torch.float32)

@@ -1,17 +1,18 @@
-"""Support-set index math for the full-mode bank.
+"""Support-set engine: episodic sampling, balanced full banks, environments.
 
-Port of the full-bank part of ``nwhead_tpu/nw/support.py``: the label
-buckets, the class-balanced ``FullDataset`` bank indices, the environment
-bookkeeping, and ``SupportSetEval`` holding the full bank. Numpy, as in the
-JAX package, so the same indices come out. The other eval modes (random,
-cluster, ensemble, knn, hnsw) and the episodic samplers are later slices
-(ROADMAP.md queue 1, items 5 and 8).
+Port of ``nwhead_tpu/nw/support.py``: the label buckets, the class-balanced
+``FullDataset`` bank indices, the environment bookkeeping, the episodic
+sampler, ``SupportSetTrain`` (random and IRM episodes) and
+``SupportSetEval`` with the full bank and the random mode's sampler over
+it. Numpy, as in the JAX package, with the same seeding chain, so the same
+indices come out in the same order. The cluster, ensemble, knn and hnsw
+eval modes are later slices (ROADMAP.md queue 1, item 8).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +39,62 @@ def balanced_full_indices(targets: Sequence[int], n_shot_full: int) -> np.ndarra
     for l in per_class:
         keys += l[:n]
     return np.asarray(keys, dtype=np.int64)
+
+
+class EpisodicSampler:
+    """Uniform-class episodic support sampler (the reference's
+    ``InfiniteUniformClassLoader.next(qy)``), in index space.
+
+    With ``n_way`` set, an episode holds every query class plus
+    ``n_way - len(qy)`` other classes drawn uniformly without the query
+    classes, ``n_shot`` items per class without replacement; without
+    ``n_way`` it takes every class. The order is the JAX package's: the
+    drawn classes first, then the query classes."""
+
+    def __init__(self, targets: Sequence[int], n_shot: int, n_way: Optional[int] = None,
+                 seed: Optional[int] = None) -> None:
+        self.indices = [np.asarray(l) for l in get_separated_indices(targets)]
+        self.n_classes = len(self.indices)
+        self.n_shot = n_shot
+        self.n_way = n_way
+        if n_way and n_way > self.n_classes:
+            raise ValueError(f"n_way={n_way} exceeds the {self.n_classes} classes")
+        self.rng = np.random.default_rng(seed)
+        uniq = sorted(set(np.asarray(targets).tolist()))
+        self._label_of_class = np.asarray(uniq)
+        total = sum(len(l) for l in self.indices)
+        self._class_of_index = np.empty(total, dtype=np.int64)
+        for c, l in enumerate(self.indices):
+            self._class_of_index[l] = c
+
+    def sample(self, qy: Optional[np.ndarray] = None) -> Tuple[np.ndarray, np.ndarray]:
+        """One episode: ``(support_indices, support_labels)``."""
+        if self.n_way:
+            if qy is None:
+                raise ValueError("n_way sampling needs the query labels")
+            qy = np.asarray(qy)
+            if len(qy) > self.n_way:
+                raise ValueError(f"{len(qy)} query labels for n_way={self.n_way}")
+            n_extra = self.n_way - len(qy)
+            if n_extra > 0:
+                probs = np.ones(self.n_classes)
+                probs[qy] = 0
+                total = probs.sum()
+                if total == 0:
+                    # Every class is a query class already: uniform over all.
+                    probs[:] = 1.0 / self.n_classes
+                else:
+                    probs /= total
+                subclasses = self.rng.choice(self.n_classes, size=n_extra, replace=False, p=probs)
+            else:
+                subclasses = np.empty(0, dtype=np.int64)
+            class_rows = [self.indices[i] for i in np.concatenate([subclasses, qy])]
+        else:
+            class_rows = self.indices
+        support_idxs = np.stack(
+            [self.rng.choice(row, size=self.n_shot, replace=False) for row in class_rows]
+        ).flatten()
+        return support_idxs, self._label_of_class[self._class_of_index[support_idxs]]
 
 
 @dataclass
@@ -77,20 +134,102 @@ class Environments:
         return np.nonzero(self.env_array == env_id)[0]
 
 
-class SupportSetEval:
-    """Inference-time support artifacts, full mode: per-environment balanced
-    bank indices, and the featurized bank once ``build_infer_iters`` ran."""
+class SupportSetTrain:
+    """Training-time support sampling. ``train_type='random'``: one
+    episodic sampler over the whole dataset, conditioned on the query
+    labels. ``'irm'``: one sampler per environment, and each step draws its
+    whole support from one environment picked uniformly. Every sampler's
+    seed is drawn from this object's own generator, in the JAX package's
+    order."""
 
     def __init__(
         self,
         targets_or_list,
         n_classes: int,
-        n_shot_full: int = 100,
+        train_type: str = "random",
+        n_shot: int = 1,
+        n_way: Optional[int] = None,
         env_array: Optional[Sequence[int]] = None,
+        seed: Optional[int] = None,
     ) -> None:
         self.envs = Environments.build(targets_or_list, env_array)
         self.n_classes = n_classes
+        self.train_type = train_type
+        self.n_shot = n_shot
+        self.n_way = n_way
+        self._rng = np.random.default_rng(seed)
+        self.sampler: Optional[EpisodicSampler] = None
+        self._env_samplers: List[EpisodicSampler] = []
+        self._env_index_maps: List[np.ndarray] = []
+        if train_type == "random":
+            self.sampler = EpisodicSampler(self.envs.targets, n_shot, n_way, seed=self._seed())
+        elif train_type == "irm":
+            for e in self.envs.env_ids:
+                idx = self.envs.env_indices(e)
+                self._env_samplers.append(
+                    EpisodicSampler(self.envs.targets[idx], n_shot, seed=self._seed()))
+                self._env_index_maps.append(idx)
+        else:
+            raise ValueError(f"train_type must be 'random' or 'irm', got {train_type}")
+
+    def _seed(self) -> int:
+        return int(self._rng.integers(0, 2**31 - 1))
+
+    def _samplers(self) -> List[EpisodicSampler]:
+        return self._env_samplers if self.train_type == "irm" else [self.sampler]
+
+    def rng_state(self) -> dict:
+        """JSON-able state of every generator (the environment picker and
+        each sampler's), so a resumed run draws the same episodes."""
+        return {"outer": self._rng.bit_generator.state,
+                "samplers": [s.rng.bit_generator.state for s in self._samplers()]}
+
+    def set_rng_state(self, state: dict) -> None:
+        samplers = self._samplers()
+        if len(state["samplers"]) != len(samplers):
+            raise ValueError(f"sampler-state count mismatch: checkpoint has "
+                             f"{len(state['samplers'])}, this run has {len(samplers)}")
+        self._rng.bit_generator.state = state["outer"]
+        for s, st in zip(samplers, state["samplers"]):
+            s.rng.bit_generator.state = st
+
+    def support_size(self) -> int:
+        """Rows per episode (the same on every step)."""
+        if self.train_type == "irm":
+            return self.n_classes * self.n_shot
+        return (self.n_way or self.n_classes) * self.n_shot
+
+    def get_support(self, qy: Optional[np.ndarray] = None):
+        """One episode: ``(dataset_indices, labels, environment per row)``."""
+        if self.train_type == "irm":
+            e = int(self._rng.integers(0, self.envs.n_envs))
+            local_idx, labels = self._env_samplers[e].sample()
+            idx = self._env_index_maps[e][local_idx]
+            return idx, labels, np.full(len(idx), self.envs.env_ids[e])
+        idx, labels = self.sampler.sample(qy)
+        return idx, labels, self.envs.env_array[idx]
+
+
+class SupportSetEval:
+    """Inference-time support artifacts: per-environment balanced bank
+    indices, and once ``build_infer_iters`` ran, the featurized full bank
+    and the random mode's episodic sampler over it (rebuilt from ``seed`` at
+    every ``build_infer_iters``, as the JAX package does)."""
+
+    def __init__(
+        self,
+        targets_or_list,
+        n_classes: int,
+        n_shot_random: int = 1,
+        n_shot_full: int = 100,
+        env_array: Optional[Sequence[int]] = None,
+        seed: Optional[int] = None,
+    ) -> None:
+        self.envs = Environments.build(targets_or_list, env_array)
+        self.n_classes = n_classes
+        self.n_shot_random = n_shot_random
         self.n_shot_full = n_shot_full
+        self.seed = seed
         self.full_bank_indices: List[np.ndarray] = []
         for e in self.envs.env_ids:
             idx = self.envs.env_indices(e)
@@ -101,14 +240,20 @@ class SupportSetEval:
         """Install the featurized full bank (rows in the order of the
         concatenated ``full_bank_indices``); ``sfeat`` stays on its device."""
         self.full_feat = sfeat
-        self.full_y = torch.as_tensor(np.asarray(sy), dtype=torch.int64, device=sfeat.device)
+        self._full_y_np = np.asarray(sy)
+        self.full_y = torch.as_tensor(self._full_y_np, dtype=torch.int64, device=sfeat.device)
+        self.random_sampler = EpisodicSampler(self._full_y_np, self.n_shot_random, seed=self.seed)
 
     def get_support(self, mode: str):
         """Support features and labels for an inference mode."""
-        if mode != "full":
+        if mode not in ("random", "full"):
             raise NotImplementedError(
                 f"mode {mode!r} is not ported yet (ROADMAP.md queue 1, item 8)"
             )
         if not hasattr(self, "full_feat"):
             raise AttributeError("Did you run precompute()?")
+        if mode == "random":
+            idx, _ = self.random_sampler.sample()
+            idx_t = torch.as_tensor(idx, device=self.full_feat.device)
+            return self.full_feat[idx_t], self.full_y[idx_t]
         return self.full_feat, self.full_y

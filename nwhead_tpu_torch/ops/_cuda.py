@@ -1,9 +1,12 @@
 """Build and load the package's CUDA kernels.
 
-``csrc/nw_prepared.cu`` has a plain C interface. It is compiled with
-``nvcc`` for ``sm_90a`` into ``nwhead_tpu_torch/build/`` at first use, named
-by a hash of the source and the flags (so an edited source rebuilds), and
-loaded with ``ctypes``. Every pointer and the stream pass as ``c_void_p``.
+Every ``csrc/*.cu`` source has a plain C interface and becomes its own
+shared library, compiled with ``nvcc`` for ``sm_90a`` into
+``nwhead_tpu_torch/build/`` at first use and loaded with ``ctypes``. Every
+pointer and the stream pass as ``c_void_p``. The libraries are named by one
+hash of all of ``csrc/`` (``*.cu`` and the shared ``*.cuh`` headers) and the
+flags, so an edit to any source or header rebuilds them. A build starts one
+``nvcc`` per source, all at once.
 
 Nothing is built or loaded when this module is imported.
 """
@@ -18,15 +21,40 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict, List, Optional
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "nw_prepared.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 )
+
+_VP, _I32 = ctypes.c_void_p, ctypes.c_int
+# library -> {C function: (argtypes, restype)}
+_API = {
+    "nw_prepared": {
+        "nw_prepared_forward": ([_VP] * 9 + [_I32] * 8 + [_VP], _I32),
+        "nw_prepared_query_tile": ([], _I32),
+        "nw_prepared_support_tile": ([], _I32),
+        "nw_prepared_smem_bytes": ([_I32], _I32),
+        "nw_prepared_max_classes": ([_I32], _I32),
+        "nw_prepared_error_string": ([_I32], ctypes.c_char_p),
+    },
+    "nw_fused": {
+        "nw_fused_forward": ([_VP] * 10 + [_I32] * 8 + [_VP], _I32),
+        "nw_fused_bwd_dq": ([_VP] * 11 + [_I32] * 8 + [_VP], _I32),
+        "nw_fused_bwd_ds": ([_VP] * 9 + [_I32] * 6 + [_VP], _I32),
+        "nw_fused_query_tile": ([], _I32),
+        "nw_fused_support_tile": ([], _I32),
+        "nw_fused_max_classes": ([_I32], _I32),
+        "nw_fused_dq_max_features": ([_I32], _I32),
+        "nw_fused_ds_max_batch": ([_I32], _I32),
+        "nw_fused_smem_bytes": ([_I32, _I32], _I32),
+        "nw_fused_error_string": ([_I32], ctypes.c_char_p),
+    },
+}
 
 
 def find_nvcc() -> Optional[str]:
@@ -40,21 +68,41 @@ def find_nvcc() -> Optional[str]:
     return None
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libnw_prepared_{digest.hexdigest()[:16]}.so"
+def sources() -> List[Path]:
+    """The ``.cu`` sources, one library each."""
+    return sorted(CSRC.glob("*.cu"))
 
 
-def build() -> dict:
-    """Compile the kernel library unless this source's build exists.
-    Returns the path, whether it was cached, the seconds the compile took,
-    and ``ptxas -v``'s report (registers, shared memory, spills)."""
-    path = library_path()
-    log = path.with_suffix(".ptxas.txt")
-    if path.exists():
-        return {"path": str(path), "cached": True, "seconds": 0.0,
-                "ptxas": log.read_text() if log.exists() else ""}
+def _digest() -> str:
+    h = hashlib.sha256()
+    for p in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str = "nw_prepared") -> Path:
+    return BUILD_DIR / f"lib{name}_{_digest()}.so"
+
+
+def build() -> Dict[str, dict]:
+    """Compile every library whose build for the current sources is missing,
+    one ``nvcc`` per source, all started together. Returns, per library,
+    its path, whether it was cached, the seconds its compile took, and
+    ``ptxas -v``'s report (registers, shared memory, spills)."""
+    out: Dict[str, dict] = {}
+    todo = []
+    for src in sources():
+        path = library_path(src.stem)
+        log = path.with_suffix(".ptxas.txt")
+        if path.exists():
+            out[src.stem] = {"path": str(path), "cached": True, "seconds": 0.0,
+                             "ptxas": log.read_text() if log.exists() else ""}
+        else:
+            todo.append((src, path, log))
+    if not todo:
+        return out
     nvcc = find_nvcc()
     if nvcc is None:
         raise RuntimeError(
@@ -62,38 +110,40 @@ def build() -> dict:
             "the CUDA kernels cannot be built"
         )
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
-    )
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    log.write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
-    return {"path": str(path), "cached": False, "seconds": seconds,
-            "ptxas": proc.stdout + proc.stderr}
+    procs = []
+    for src, path, log in todo:
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        procs.append((src, path, log, tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )))
+    failed = []
+    for src, path, log, tmp, proc in procs:
+        stdout, stderr = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{src.name} ({proc.returncode}):\n{stdout}\n{stderr}")
+            continue
+        log.write_text(stdout + stderr)
+        os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
+        out[src.stem] = {"path": str(path), "cached": False, "seconds": seconds,
+                         "ptxas": stdout + stderr}
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return out
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build if needed, load once per process, and declare the C API."""
+def load_library(name: str = "nw_prepared") -> ctypes.CDLL:
+    """Build if needed, load ``lib<name>`` once per process, and declare
+    its C API."""
+    if name not in _API:
+        raise ValueError(f"no kernel library {name!r} (have {sorted(_API)})")
     build()
-    lib = ctypes.CDLL(str(library_path()))
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.nw_prepared_forward.argtypes = [vp] * 9 + [i32] * 8 + [vp]
-    lib.nw_prepared_forward.restype = i32
-    lib.nw_prepared_query_tile.argtypes = []
-    lib.nw_prepared_query_tile.restype = i32
-    lib.nw_prepared_support_tile.argtypes = []
-    lib.nw_prepared_support_tile.restype = i32
-    lib.nw_prepared_smem_bytes.argtypes = [i32]
-    lib.nw_prepared_smem_bytes.restype = i32
-    lib.nw_prepared_max_classes.argtypes = [i32]
-    lib.nw_prepared_max_classes.restype = i32
-    lib.nw_prepared_error_string.argtypes = [i32]
-    lib.nw_prepared_error_string.restype = ctypes.c_char_p
+    lib = ctypes.CDLL(str(library_path(name)))
+    for fn, (argtypes, restype) in _API[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
     return lib

@@ -1,31 +1,37 @@
-"""Fused NW head over a prepared support bank: the serving path.
+"""Fused NW head: the raw differentiable path (training) and the prepared
+serving path.
 
-Port of the serving half of ``nwhead_tpu/ops/pallas_nw.py``
-(``prepare_support``, ``_resolve_mode``, ``nw_fused_from_prepared`` and the
-Pallas kernel ``_nw_prepared_kernel`` behind ``_prepared_call``). It holds
-no Pallas: the kernel is CUDA C++ for Hopper (``csrc/nw_prepared.cu``),
-built and loaded by ``ops/_cuda.py``.
+Port of ``nwhead_tpu/ops/pallas_nw.py``: ``prepare_support``,
+``_resolve_mode``, ``nw_fused_log_probs`` with its custom VJP, and
+``nw_fused_from_prepared``. It holds no Pallas: the kernels are CUDA C++
+for Hopper, built and loaded by ``ops/_cuda.py``:
+
+* K1 ``csrc/nw_fused.cu`` ``nw_fused_forward`` (TPU ``_nw_fwd_kernel``):
+  raw features in, log-probs and the softmax statistics ``(m, l)`` out;
+* K3 ``csrc/nw_fused.cu`` ``nw_fused_bwd_dq`` / ``nw_fused_bwd_ds`` (TPU
+  ``_nw_bwd_dq_kernel`` / ``_nw_bwd_ds_kernel``): the backward, recomputing
+  the scores from ``(m, l)``;
+* K2 ``csrc/nw_prepared.cu`` (TPU ``_nw_prepared_kernel``): the forward
+  over a bank normalized and packed once by ``prepare_support``.
 
 ``prepare_support`` normalizes the bank once for its kernel, zeroes masked
 rows, precomputes the self-norms ``s2`` (l2 modes; ``1e30`` on masked rows)
 and stores the labels with ``-1`` for masked rows. Every call then streams
 the bank once: score -> online softmax -> label sum -> ``log(acc/l + 1e-12)``.
 
-Two implementations of that pass sit side by side:
-
-* ``_nw_prepared_plain`` — plain PyTorch at full f32 (``torch.matmul``). The
-  CPU path and the oracle the CUDA kernel is held to.
-* ``nw_prepared_cuda`` — the wrapper of the CUDA kernel. It counts its
-  launches in ``nw_prepared_cuda.launches``.
-
-``nw_fused_from_prepared`` picks one from the query tensor's device: a CPU
+Each kernel has a wrapper that counts its launches (``.launches``) and a
+plain PyTorch version of the same function (``_nw_fwd_plain``,
+``_nw_bwd_dq_plain``, ``_nw_bwd_ds_plain``, or both passes at once in
+``_nw_bwd_plain``, ``_nw_prepared_plain``; full f32 products). A CPU
 tensor goes to the plain version, a CUDA tensor to the kernel. There is no
 fallback between them: a kernel that cannot be built or launched raises.
 
 Left out of the port, as TPU layout workarounds that change no value: the
-lane/sublane label pair, the one-hot matmul and its class window, 128-lane
-padding of D, ``meta_stream`` and the query pre-doubling. The int8/int4
-banks (K4/K5), tile selection and partial outputs (K6) are later slices.
+lane/sublane label pair, the one-hot matmuls (label sum and the ``u[y]``
+gather), the class window, 128-lane padding of D, the ones-vector column
+sum, ``meta_stream`` and the query pre-doubling. The int8/int4 banks
+(K4/K5), tile selection and partial outputs (K1 ``partials=True``, K6) are
+later slices.
 """
 
 from __future__ import annotations
@@ -151,29 +157,126 @@ def prepare_support(
     return prep
 
 
-def _nw_prepared_plain(
-    q: torch.Tensor, prep: PreparedSupport, scale: torch.Tensor, mode: str,
-    n_classes: int,
-) -> torch.Tensor:
-    """The kernel's function in plain PyTorch, at full f32: ``q`` already in
-    the bank's dtype, products and softmax state in f32."""
-    qf, sf = q.to(torch.float32), prep.s.to(torch.float32)
+def _scores_plain(qf, sf, s2, labels, scale, mode):
+    """The f32 score matrix ``(B, S)`` of the fused kernels, masked rows
+    ``_NEG_INF``, and (l2 mode) the distances, else ``None``."""
     dot = torch.matmul(qf, sf.T)
+    dist = None
     if mode == "l2":
         q2 = torch.sum(qf * qf, dim=1, keepdim=True)
-        score = -torch.sqrt(torch.clamp(q2 - 2.0 * dot + prep.s2[None, :], min=0.0))
+        dist = torch.sqrt(torch.clamp(q2 - 2.0 * dot + s2[None, :], min=0.0))
+        score = -dist
     else:
         score = dot * scale
-    valid = prep.labels >= 0
-    score = torch.where(valid[None, :], score, _NEG_INF)
+    return torch.where((labels >= 0)[None, :], score, _NEG_INF), dist
+
+
+def _softmax_pass_plain(score, labels, n_classes):
+    """``(out, m, l)`` of the online-softmax pass, computed at once."""
     m = torch.max(score, dim=1, keepdim=True).values
     m_safe = torch.where(m > _NEG_INF / 2, m, 0.0)
     p = torch.where(score > _NEG_INF / 2, torch.exp(score - m_safe), 0.0)
     l = torch.sum(p, dim=1, keepdim=True)
     # Masked rows carry p == 0; they sum into a spare column that is dropped.
-    cls = torch.where(valid, prep.labels, n_classes).long()
-    acc = torch.zeros(q.shape[0], n_classes + 1, device=q.device).index_add_(1, cls, p)
-    return torch.log(acc[:, :n_classes] / torch.clamp(l, min=1e-30) + LOG_FLOOR)
+    cls = torch.where(labels >= 0, labels, n_classes).long()
+    acc = torch.zeros(score.shape[0], n_classes + 1, dtype=score.dtype,
+                      device=score.device).index_add_(1, cls, p)
+    out = torch.log(acc[:, :n_classes] / torch.clamp(l, min=1e-30) + LOG_FLOOR)
+    return out, m, l
+
+
+def _nw_prepared_plain(
+    q: torch.Tensor, prep: PreparedSupport, scale: torch.Tensor, mode: str,
+    n_classes: int,
+) -> torch.Tensor:
+    """K2's function in plain PyTorch, at full f32: ``q`` already in the
+    bank's dtype, products and softmax state in f32."""
+    score, _ = _scores_plain(q.to(torch.float32), prep.s.to(torch.float32), prep.s2,
+                             prep.labels, scale, mode)
+    return _softmax_pass_plain(score, prep.labels, n_classes)[0]
+
+
+def _plain_float(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in the plain versions' arithmetic: f32, or f64 for f64 inputs
+    (an f64 evaluation of the same formula is the exact reference where
+    a query coincides with a support row, whose f32 distance is rounding
+    residue)."""
+    return x.to(torch.float64 if x.dtype == torch.float64 else torch.float32)
+
+
+def _raw_support_plain(s: torch.Tensor, labels: torch.Tensor):
+    """Raw rows in f32 (see ``_plain_float``) with masked rows zeroed (by
+    selection: they may hold NaN), and their self-norms."""
+    sf = torch.where((labels >= 0)[:, None], _plain_float(s), 0.0)
+    return sf, torch.sum(sf * sf, dim=1)
+
+
+def _nw_fwd_plain(
+    q: torch.Tensor, s: torch.Tensor, labels: torch.Tensor, scale: torch.Tensor,
+    mode: str, n_classes: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1's function in plain PyTorch: ``(out (B, C), m (B, 1), l (B, 1))``
+    in f32 (see ``_plain_float``) from raw ``q (B, D)`` and ``s (S, D)`` of
+    one dtype."""
+    sf, s2 = _raw_support_plain(s, labels)
+    score, _ = _scores_plain(_plain_float(q), sf, s2, labels, scale, mode)
+    return _softmax_pass_plain(score, labels, n_classes)
+
+
+def _bwd_pair_weights_plain(q, s, labels, u, r, m, l, scale, mode):
+    """K3's recompute in plain PyTorch: ``(qf, sf, t)`` with the inputs in
+    f32 (see ``_plain_float``; masked rows zeroed) and the ``(B, S)`` weight of each pair in the
+    gradient, ``dscore / dist`` in l2 mode (0 where ``dist == 0``), else
+    ``dscore``. The scores come from the saved ``(m, l)`` (each ``(B, 1)``);
+    ``u (B, C)`` and ``r (B, 1)`` from the upstream gradient."""
+    qf = _plain_float(q)
+    sf, s2 = _raw_support_plain(s, labels)
+    score, dist = _scores_plain(qf, sf, s2, labels, scale, mode)
+    m_safe = torch.where(m > _NEG_INF / 2, m, 0.0)
+    p = torch.where(score > _NEG_INF / 2, torch.exp(score - m_safe), 0.0)
+    w = p / torch.clamp(l, min=1e-30)
+    uy = u[:, labels.clamp(min=0).long()]  # u[b, y_j]; masked rows have w == 0
+    dscore = w * (uy - r)
+    if mode != "l2":
+        return qf, sf, dscore
+    pos = dist > 0.0
+    return qf, sf, torch.where(pos, dscore / torch.where(pos, dist, 1.0), 0.0)
+
+
+def _dq_from_weights(qf, sf, t, scale, mode):
+    if mode == "l2":
+        return torch.matmul(t, sf) - qf * torch.sum(t, dim=1, keepdim=True)
+    return scale * torch.matmul(t, sf)
+
+
+def _ds_from_weights(qf, sf, t, scale, mode):
+    if mode == "l2":
+        return torch.matmul(t.T, qf) - sf * torch.sum(t, dim=0)[:, None]
+    return scale * torch.matmul(t.T, qf)
+
+
+def _nw_bwd_plain(
+    q: torch.Tensor, s: torch.Tensor, labels: torch.Tensor, u: torch.Tensor,
+    r: torch.Tensor, m: torch.Tensor, l: torch.Tensor, scale: torch.Tensor,
+    mode: str, n_classes: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's function in plain PyTorch: ``(dq, ds)`` in the inputs' dtype
+    (see ``_bwd_pair_weights_plain``). Masked rows get a zero gradient."""
+    qf, sf, t = _bwd_pair_weights_plain(q, s, labels, u, r, m, l, scale, mode)
+    return (_dq_from_weights(qf, sf, t, scale, mode).to(q.dtype),
+            _ds_from_weights(qf, sf, t, scale, mode).to(s.dtype))
+
+
+def _nw_bwd_dq_plain(q, s, labels, u, r, m, l, scale, mode, n_classes) -> torch.Tensor:
+    """K3's dq pass alone in plain PyTorch."""
+    qf, sf, t = _bwd_pair_weights_plain(q, s, labels, u, r, m, l, scale, mode)
+    return _dq_from_weights(qf, sf, t, scale, mode).to(q.dtype)
+
+
+def _nw_bwd_ds_plain(q, s, labels, u, r, m, l, scale, mode, n_classes) -> torch.Tensor:
+    """K3's ds pass alone in plain PyTorch."""
+    qf, sf, t = _bwd_pair_weights_plain(q, s, labels, u, r, m, l, scale, mode)
+    return _ds_from_weights(qf, sf, t, scale, mode).to(s.dtype)
 
 
 def _split_rows(n_rows: int, n_query_tiles: int, n_sms: int, tile: int) -> Tuple[int, int]:
@@ -244,6 +347,226 @@ def nw_prepared_cuda(
 
 
 nw_prepared_cuda.launches = 0
+
+
+def _check_raw(name: str, q: torch.Tensor, s: torch.Tensor, tensors) -> None:
+    """The checks every raw-path wrapper makes before its launch."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {q.device}")
+    if q.dim() != 2 or s.dim() != 2 or q.shape[1] != s.shape[1] or 0 in (*q.shape, *s.shape):
+        raise ValueError(f"{name}: query {tuple(q.shape)} and support {tuple(s.shape)} "
+                         "must be non-empty (B, D) and (S, D)")
+    if q.dtype != s.dtype or s.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"query {q.dtype} / support {s.dtype}: need one of f32, bf16")
+    for arg, t, dt in [("query", q, s.dtype), ("support", s, s.dtype), *tensors]:
+        if t.device != q.device or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} needs contiguous {dt} on {q.device}, "
+                             f"got {t.dtype} on {t.device}")
+
+
+def _launch(lib, fn: str, *args) -> None:
+    rc = getattr(lib, fn)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{fn} kernel launch failed: {lib.nw_fused_error_string(rc).decode()}")
+
+
+def _fused_library(q: torch.Tensor):
+    """The K1/K3 library, the device index and the card's SM count."""
+    lib = _cuda.load_library("nw_fused")
+    n_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    return lib, q.device.index or 0, n_sms
+
+
+def nw_fwd_cuda(
+    q: torch.Tensor, s: torch.Tensor, labels: torch.Tensor, scale: torch.Tensor,
+    mode: str, n_classes: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch K1 (``csrc/nw_fused.cu``) on the current stream: pass 1 over
+    (query tiles x support splits) writes partials, pass 2 merges them into
+    ``out (B, C)`` and the statistics ``m, l (B, 1)``."""
+    _check_raw("nw_fwd_cuda", q, s, [("labels", labels, torch.int32),
+                                     ("scale", scale, torch.float32)])
+    lib, dev, n_sms = _fused_library(q)
+    if n_classes < 1 or n_classes > lib.nw_fused_max_classes(dev):
+        raise ValueError(f"n_classes={n_classes} is beyond what the kernel's "
+                         "shared-memory accumulator holds on this device")
+    (B, D), S = q.shape, s.shape[0]
+    rows, n_splits = _split_rows(S, math.ceil(B / lib.nw_fused_query_tile()), n_sms,
+                                 lib.nw_fused_support_tile())
+    f32 = dict(dtype=torch.float32, device=q.device)
+    m_part, l_part = torch.empty((n_splits, B), **f32), torch.empty((n_splits, B), **f32)
+    acc_part = torch.empty((n_splits, B, n_classes), **f32)
+    out, m, l = torch.empty((B, n_classes), **f32), torch.empty(B, **f32), torch.empty(B, **f32)
+    with torch.cuda.device(q.device):
+        _launch(lib, "nw_fused_forward", q.data_ptr(), s.data_ptr(), labels.data_ptr(),
+                scale.data_ptr(), m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
+                out.data_ptr(), m.data_ptr(), l.data_ptr(), B, S, D, n_classes,
+                int(mode == "l2"), int(s.dtype == torch.bfloat16), n_splits, rows,
+                torch.cuda.current_stream(q.device).cuda_stream)
+    nw_fwd_cuda.launches += 1
+    return out, m[:, None], l[:, None]
+
+
+nw_fwd_cuda.launches = 0
+
+
+def _bwd_tensors(q, u, r, m, l, n_classes):
+    """The f32 per-query inputs of K3, flattened and checked."""
+    B = q.shape[0]
+    if u.shape != (B, n_classes) or r.numel() != B or m.numel() != B or l.numel() != B:
+        raise ValueError(f"u {tuple(u.shape)}, r/m/l need ({B}, {n_classes}) and {B} values")
+    r, m, l = (t.reshape(-1).contiguous() for t in (r, m, l))
+    return [("u", u, torch.float32), ("r", r, torch.float32), ("m", m, torch.float32),
+            ("l", l, torch.float32)]
+
+
+def nw_bwd_dq_cuda(
+    q: torch.Tensor, s: torch.Tensor, labels: torch.Tensor, u: torch.Tensor,
+    r: torch.Tensor, m: torch.Tensor, l: torch.Tensor, scale: torch.Tensor,
+    mode: str, n_classes: int,
+) -> torch.Tensor:
+    """Launch K3's dq pass (``csrc/nw_fused.cu``): per-split partials over
+    (query tiles x support splits), then their sum in a fixed order.
+    Returns ``dq (B, D)`` in ``q``'s dtype."""
+    per_query = _bwd_tensors(q, u, r, m, l, n_classes)
+    _check_raw("nw_bwd_dq_cuda", q, s, [("labels", labels, torch.int32),
+                                        ("scale", scale, torch.float32), *per_query])
+    lib, dev, n_sms = _fused_library(q)
+    (B, D), S = q.shape, s.shape[0]
+    if D > lib.nw_fused_dq_max_features(dev):
+        raise ValueError(f"D={D} is beyond the dq pass's shared-memory accumulator")
+    rows, n_splits = _split_rows(S, math.ceil(B / lib.nw_fused_query_tile()), n_sms,
+                                 lib.nw_fused_support_tile())
+    ts = torch.empty((n_splits, B, D), dtype=torch.float32, device=q.device)
+    tsum = torch.empty((n_splits, B), dtype=torch.float32, device=q.device)
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        _launch(lib, "nw_fused_bwd_dq", q.data_ptr(), s.data_ptr(), labels.data_ptr(),
+                *(t.data_ptr() for _, t, _ in per_query), scale.data_ptr(), ts.data_ptr(),
+                tsum.data_ptr(), dq.data_ptr(), B, S, D, n_classes, int(mode == "l2"),
+                int(s.dtype == torch.bfloat16), n_splits, rows,
+                torch.cuda.current_stream(q.device).cuda_stream)
+    nw_bwd_dq_cuda.launches += 1
+    return dq
+
+
+nw_bwd_dq_cuda.launches = 0
+
+
+def nw_bwd_ds_cuda(
+    q: torch.Tensor, s: torch.Tensor, labels: torch.Tensor, u: torch.Tensor,
+    r: torch.Tensor, m: torch.Tensor, l: torch.Tensor, scale: torch.Tensor,
+    mode: str, n_classes: int,
+) -> torch.Tensor:
+    """Launch K3's ds pass (``csrc/nw_fused.cu``): one block per 64 support
+    rows, each looping over every query tile. Returns ``ds (S, D)`` in
+    ``s``'s dtype."""
+    per_query = _bwd_tensors(q, u, r, m, l, n_classes)
+    _check_raw("nw_bwd_ds_cuda", q, s, [("labels", labels, torch.int32),
+                                        ("scale", scale, torch.float32), *per_query])
+    lib, dev, _ = _fused_library(q)
+    (B, D), S = q.shape, s.shape[0]
+    if B > lib.nw_fused_ds_max_batch(dev):
+        raise ValueError(f"B={B} is beyond the ds pass's shared-memory buffer")
+    ds = torch.empty_like(s)
+    with torch.cuda.device(q.device):
+        _launch(lib, "nw_fused_bwd_ds", q.data_ptr(), s.data_ptr(), labels.data_ptr(),
+                *(t.data_ptr() for _, t, _ in per_query), scale.data_ptr(), ds.data_ptr(),
+                B, S, D, n_classes, int(mode == "l2"), int(s.dtype == torch.bfloat16),
+                torch.cuda.current_stream(q.device).cuda_stream)
+    nw_bwd_ds_cuda.launches += 1
+    return ds
+
+
+nw_bwd_ds_cuda.launches = 0
+
+
+class _NWFusedCore(torch.autograd.Function):
+    """``out = log(acc/l + 1e-12)`` over raw features, differentiable in
+    ``q``, ``s`` and ``scale`` (the custom VJP ``_nw_fused_core`` of the JAX
+    package). Forward: K1, saving ``(m, l)``. Backward: ``u = g e^-out`` and
+    ``r = sum_c u (e^out - 1e-12)`` here, then K3 for ``dq`` and ``ds``; in
+    dot mode ``dscale = sum(q dq) / scale``."""
+
+    @staticmethod
+    def forward(ctx, q, s, scale, labels, mode, n_classes):
+        fwd = _nw_fwd_plain if q.device.type == "cpu" else nw_fwd_cuda
+        out, m, l = fwd(q, s, labels, scale, mode, n_classes)
+        ctx.save_for_backward(q, s, scale, labels, out, m, l)
+        ctx.mode, ctx.n_classes = mode, n_classes
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, s, scale, labels, out, m, l = ctx.saved_tensors
+        u = (g * torch.exp(-out)).to(torch.float32).contiguous()
+        r = torch.sum(u * (torch.exp(out) - LOG_FLOOR), dim=-1, keepdim=True)
+        args = (q, s, labels, u, r, m, l, scale, ctx.mode, ctx.n_classes)
+        if q.device.type == "cpu":
+            dq, ds = _nw_bwd_plain(*args)
+        else:
+            dq, ds = nw_bwd_dq_cuda(*args), nw_bwd_ds_cuda(*args)
+        dscale = None
+        if ctx.needs_input_grad[2]:
+            dscale = (torch.sum(q.to(torch.float32) * dq.to(torch.float32)) / scale
+                      if ctx.mode == "dot" else torch.zeros_like(scale))
+        return dq, ds, dscale, None, None, None
+
+
+def nw_fused_log_probs(
+    qfeat: torch.Tensor,
+    sfeat,
+    sy=None,
+    n_classes: Optional[int] = None,
+    *,
+    kernel: str = "euclidean",
+    kernel_params: Optional[Dict[str, Any]] = None,
+    support_mask: Optional[torch.Tensor] = None,
+    precision: Optional[str] = None,
+) -> torch.Tensor:
+    """Fused NW head: ``log(softmax(kernel(q, s)) @ onehot(sy) + 1e-12)``.
+
+    The contract of ``nw_log_probs`` restricted to 2-D shared support,
+    differentiable in ``q``, ``s`` and clip's ``logit_scale``. ``sfeat`` may
+    be a ``PreparedSupport`` (``sy`` is then ignored): the inference-only
+    serving path (K2). ``precision='bf16'`` casts both feature sets to bf16
+    before the kernel normalization; products and softmax stay f32 and the
+    gradients come back through the cast."""
+    if isinstance(sfeat, PreparedSupport):
+        if n_classes is None:
+            raise ValueError("n_classes is required with a PreparedSupport")
+        if support_mask is not None:
+            raise ValueError("support_mask must be baked in at prepare_support time "
+                             "(the prepared bank's labels already encode the mask)")
+        bank = {torch.float32: "f32", torch.bfloat16: "bf16"}[sfeat.s.dtype]
+        if precision is not None and precision != bank:
+            raise ValueError(f"precision={precision!r} but the prepared bank is {bank} "
+                             "— pass precision= to prepare_support instead")
+        return nw_fused_from_prepared(qfeat, sfeat, n_classes, kernel=kernel,
+                                      kernel_params=kernel_params)
+    if sy is None or n_classes is None:
+        raise ValueError("the raw fused path needs the support labels and n_classes")
+    precision = precision or "f32"
+    if precision not in _PRECISIONS:
+        raise ValueError(f"the raw fused path runs at f32 or bf16, got {precision!r}")
+    if qfeat.dim() != 2 or sfeat.dim() != 2 or qfeat.shape[1] != sfeat.shape[1]:
+        raise ValueError(f"the fused head takes 2-D query (B, D) and support (S, D), got "
+                         f"{tuple(qfeat.shape)} and {tuple(sfeat.shape)}")
+    labels = torch.as_tensor(sy, device=sfeat.device).to(torch.int32)
+    if labels.shape != (sfeat.shape[0],):
+        raise ValueError(f"{tuple(labels.shape)} labels for {sfeat.shape[0]} support rows")
+    if support_mask is not None:
+        valid = torch.as_tensor(support_mask, device=sfeat.device) > 0
+        labels = torch.where(valid, labels, torch.full_like(labels, -1))
+        # Masked rows may hold NaN: zero them by selection before the
+        # normalization, whose backward would turn their 0 gradient into NaN.
+        sfeat = torch.where(valid[:, None], sfeat, torch.zeros((), dtype=sfeat.dtype,
+                                                               device=sfeat.device))
+    if precision == "bf16":
+        qfeat, sfeat = qfeat.to(torch.bfloat16), sfeat.to(torch.bfloat16)
+    mode, scale, qn, sn = _resolve_mode(kernel, kernel_params or {}, qfeat, sfeat)
+    return _NWFusedCore.apply(qn.to(sn.dtype).contiguous(), sn.contiguous(), scale,
+                              labels.contiguous(), mode, n_classes)
 
 
 def nw_fused_from_prepared(

@@ -59,7 +59,8 @@ def device_info(device: torch.device) -> dict:
 
 def build_server(args, train_ds) -> NWNet:
     """An ``NWNet`` with random weights from ``--seed``, its full support
-    bank featurized and prepared."""
+    bank featurized and prepared for the fused head whatever its size (the
+    JAX serving CLI's ``fused_min_support=1``)."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is visible (pass --device cpu to run on the CPU)")
@@ -68,7 +69,7 @@ def build_server(args, train_ds) -> NWNet:
     net = NWNet(
         featurizer, train_ds.num_classes, support_dataset=train_ds, device=device,
         kernel_type=args.kernel_type, n_shot_full=args.n_shot_full,
-        head_precision=args.head_precision,
+        head_precision=args.head_precision, fused_min_support=1,
     )
     t0 = time.perf_counter()
     net.precompute()

@@ -21,6 +21,9 @@ MODULES = (
     "nwhead_tpu_torch.models", "nwhead_tpu_torch.models.convert",
     "nwhead_tpu_torch.nw.head", "nwhead_tpu_torch.nw.net", "nwhead_tpu_torch.nw.support",
     "nwhead_tpu_torch.data.datasets", "nwhead_tpu_torch.serve",
+    "nwhead_tpu_torch.ops.metrics", "nwhead_tpu_torch.data.pipeline",
+    "nwhead_tpu_torch.train", "nwhead_tpu_torch.train.trainer",
+    "nwhead_tpu_torch.train.config", "nwhead_tpu_torch.train.checkpoint",
 )
 
 
@@ -29,7 +32,7 @@ def test_import_pulls_in_no_jax():
         "import importlib, json, sys\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
         "import nwhead_tpu_torch as p\n"
-        "p.NWNet, p.NWHead, p.load_model, p.prepare_support\n"
+        "p.NWNet, p.NWHead, p.load_model, p.prepare_support, p.nw_fused_log_probs\n"
         "print(json.dumps(sorted(m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'nwhead_tpu', 'sklearn', 'triton'))))\n"
     )
@@ -47,7 +50,8 @@ def test_capabilities_report_no_gpu_on_a_cpu_host():
     assert caps["cuda_available"] is False
     assert caps["device_count"] == 0 and caps["devices"] == []
     assert caps["capability"] is None
-    assert caps["kernels_built"] in (True, False)
+    assert set(caps["kernels_built"]) == {"nw_fused", "nw_prepared"}
+    assert all(v in (True, False) for v in caps["kernels_built"].values())
     assert json.dumps(caps)  # plain data, printable as JSON
 
 
@@ -68,16 +72,24 @@ def test_cuda_request_without_a_gpu_is_an_error():
 
 
 def test_kernel_build_is_keyed_by_source_and_needs_nvcc(monkeypatch, tmp_path):
-    """The library name carries a hash of the source and flags; without
-    nvcc the build raises instead of falling back."""
-    src = tmp_path / "k.cu"
-    src.write_text("// a\n")
-    monkeypatch.setattr(_cuda, "SOURCE", src)
+    """One library per ``.cu`` source, named by a hash of every source and
+    header in ``csrc/`` and the flags, so editing a shared header rebuilds
+    them all; without nvcc the build raises instead of falling back."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text("// a\n")
+    (csrc / "k2.cu").write_text("// c\n")
+    (csrc / "common.cuh").write_text("// h\n")
+    monkeypatch.setattr(_cuda, "CSRC", csrc)
     monkeypatch.setattr(_cuda, "BUILD_DIR", tmp_path / "build")
-    first = _cuda.library_path()
-    assert first.parent == tmp_path / "build" and first.name.startswith("libnw_prepared_")
-    src.write_text("// b\n")
-    assert _cuda.library_path() != first
+    assert [p.name for p in _cuda.sources()] == ["k.cu", "k2.cu"]
+    first = _cuda.library_path("k")
+    assert first.parent == tmp_path / "build" and first.name.startswith("libk_")
+    (csrc / "k.cu").write_text("// b\n")
+    second = _cuda.library_path("k")
+    assert second != first
+    (csrc / "common.cuh").write_text("// h2\n")
+    assert _cuda.library_path("k") != second
     monkeypatch.setattr(_cuda, "find_nvcc", lambda: None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _cuda.build()

@@ -50,7 +50,8 @@ def test_serving_fn_matches_jax(kernel, precision):
 
     tnet = NWNet(load_model("resnet10", device="cpu"), 4,
                  support_dataset=tdata.make_synthetic_dataset(n=64, n_classes=4, size=32, seed=0),
-                 device="cpu", kernel_type=kernel, head_precision=precision)
+                 device="cpu", kernel_type=kernel, head_precision=precision,
+                 fused_min_support=1)
     tnet.model.featurizer.load_state_dict(jax_to_torch_resnet({
         "params": variables["params"]["featurizer"],
         "batch_stats": variables["batch_stats"]["featurizer"]}))
@@ -62,8 +63,8 @@ def test_serving_fn_matches_jax(kernel, precision):
     assert got.shape == (16, 4) and np.isfinite(got).all()
     np.testing.assert_allclose(got, want, atol=2e-3)
     np.testing.assert_array_equal(got.argmax(1), want.argmax(1))
-    # predict('full') is the same prepared path; the other modes are not ported.
-    np.testing.assert_allclose(torch.exp(tnet.predict(x)).numpy(), got, atol=1e-6)
+    # predict('full') is the same prepared path; cluster/ensemble/knn/hnsw are not ported.
+    np.testing.assert_allclose(torch.exp(tnet.predict(x, mode="full")).numpy(), got, atol=1e-6)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tnet.predict(x, mode="knn")
     # normalize=(mean, std) on uint8 pixels == the float path on (x/255 - mean)/std.
