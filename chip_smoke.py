@@ -16,20 +16,38 @@ package beside it. With one, in order:
 3. K2 kernel phase: the prepared NW head kernel against its plain PyTorch
    version, all five similarity kernels, f32 and bf16 banks with masked rows,
    at the CUB-200 shape (B=64, S=5994, D=512, C=200), at B=256, at a ragged
-   B=37 and at C=10; times kernel and plain version with CUDA events;
-4. serving phase: ``python -m nwhead_tpu_torch.serve --dataset synthetic_cub
-   --arch resnet18 --batch_size 64 --latency_bench``, through the serve
-   module's functions, with an f32 and then a bf16 head. It checks that K2
-   was launched, and that the served log-probs equal the plain head's on the
-   same features;
-5. K1/K3 kernel phase: the raw fused forward (K1) and its backward (K3, dq
+   B=37, at C=10, at the training eval's B=8 and at the ViT-S/14 bank's
+   D=384; times kernel and plain version with CUDA events;
+4. K1/K3 kernel phase: the raw fused forward (K1) and its backward (K3, dq
    and ds) against their plain versions, all five similarity kernels, f32
    and bf16, masked rows holding NaN, at the training episode's shape (B=8,
    S=1200, D=512, C=200), at B=64, S=5994, at a ragged B=37, S=1001, at
    C=10 and at the episode's shape with six queries copied into the
    support, clip's scale gradient included; times each at the episode's
    shape;
-6. training phase: ``python -m nwhead_tpu_torch.train --dataset
+5. ViT kernel phase: K7 (attention off the packed qkv) f32 and bf16 at
+   ViT-S/14's B=64, N=257, H=6, hd=64, at a ragged N=197, at N=1370 and at
+   ViT-B/14's 12 heads; the K9 forward (fused MLP) f32 and bf16 at M=16,448
+   tokens, D=384, D_h=1,536 and at a ragged M; K10 and K11 (the bf16
+   attention and MLP half-blocks) at B=64 with every combination of the
+   LayerNorm, LayerScale and residual folds; each against its plain
+   version, timed at the serving shape, K7 beside
+   ``F.scaled_dot_product_attention`` on the same data;
+6. ResNet serving phase: ``python -m nwhead_tpu_torch.serve --dataset
+   synthetic_cub --arch resnet18 --batch_size 64 --latency_bench``, through the serve
+   module's functions, with an f32 and then a bf16 head. It checks that K2
+   was launched, and that the served log-probs equal the plain head's on the
+   same features;
+7. ViT serving phase: ``python -m nwhead_tpu_torch.serve --dataset
+   synthetic_cub --arch vit_s14 --batch_size 64 --latency_bench`` with
+   ``--featurizer_precision bf16_fused``, with ``--fused_inference`` and
+   with ``--fused_inference --bf16``, through the serve module's functions,
+   LayerScale gammas set to values of order 1 before the bank is built. It
+   checks the launches per request (K10 and K11 12 times, or K7 and K9 12
+   times, and K2 once), the served features against the plain featurizer
+   and the served log-probs against the plain head on the same images, and
+   prints p50, p95, queries/s, the bank's seconds and peak device memory;
+8. training phase: ``python -m nwhead_tpu_torch.train --dataset
    synthetic_cub --arch resnet18 --batch_size 8 --n_shot 6 --lr 1e-2
    --num_epochs 1 --num_steps_per_epoch 10 --num_val_steps_per_epoch 10``
    through the module's functions (eval in the random and full modes, then
@@ -43,7 +61,7 @@ package beside it. With one, in order:
    and 3 steps of the
    canonical ``--n_way 10 --n_shot 1`` recipe, which is too small for the
    fused head and must launch no K1;
-7. prints the nvidia-smi line, a JSON line of per-kernel results, and as the
+9. prints the nvidia-smi line, a JSON line of per-kernel results, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 Kernel times are device times: CUDA events around each call, queued behind
@@ -51,14 +69,18 @@ a spin kernel so that the host's overhead does not count, L2 flushed before
 each call, median of 30.
 
 Bounds in the JSON line: the larger of the bytes the call must move (each
-input read once, each output written once) over 3.35 TB/s and its score
-products (2 flops per multiply-add) over 67 TFLOP/s for f32 inputs (the rate
-outside the tensor cores) or 989 TFLOP/s for bf16, the H100 SXM's published
-peaks. The softmax's exponentials are not counted.
+input read once, each output written once) over 3.35 TB/s and its products
+(2 flops per multiply-add: scores, attention, the MLP's and projections'
+matrix products) over 67 TFLOP/s for f32 inputs (the rate outside the
+tensor cores) or 989 TFLOP/s for bf16, the H100 SXM's published peaks. The
+exponentials, GELUs and LayerNorms are not counted.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
+import itertools
 import json
 import shutil
 import subprocess
@@ -84,6 +106,7 @@ KERNEL_CASES = (  # name, B, S, D, C
     ("ragged_b37", 37, 5994, 512, 200),
     ("c10_b64", 64, 5994, 512, 10),
     ("eval_b8", 8, 5800, 512, 200),  # the training run's full-mode eval batch
+    ("vit_b64", 64, 5800, 384, 200),  # the ViT-S/14 serving bank
 )
 RAW_CASES = (  # name, B, S, D, C, queries copied into the support; the first
     ("episode_b8", 8, 1200, 512, 200, 0),  # is the training episode's shape
@@ -408,15 +431,26 @@ def _time_raw(flush, qn, sn, labels, scale, mode, C, g, prec) -> dict:
 
 
 RAW_WRAPPERS = ("nw_fwd_cuda", "nw_bwd_dq_cuda", "nw_bwd_ds_cuda")
+VIT_WRAPPERS = ("attention_qkv_cuda", "attention_block_bf16_cuda", "mlp_cuda",
+                "mlp_block_bf16_cuda")
+WRAPPERS = ("nw_prepared_cuda",) + RAW_WRAPPERS + VIT_WRAPPERS
 
 
-def _counts(names=("nw_prepared_cuda",) + RAW_WRAPPERS, reset: bool = False) -> dict:
-    from nwhead_tpu_torch.ops import fused_nw as F
+def _wrapper(name: str):
+    from nwhead_tpu_torch.ops import fused_attn, fused_mlp, fused_nw
 
-    out = {n: getattr(F, n).launches for n in names}
+    for module in (fused_nw, fused_attn, fused_mlp):
+        if hasattr(module, name):
+            return getattr(module, name)
+    raise KeyError(name)
+
+
+def _counts(names=WRAPPERS, reset: bool = False) -> dict:
+    """Every kernel wrapper's launch count (then set to 0 with ``reset``)."""
+    out = {n: _wrapper(n).launches for n in names}
     if reset:
         for n in names:
-            getattr(F, n).launches = 0
+            _wrapper(n).launches = 0
     return out
 
 
@@ -609,6 +643,320 @@ def training_phase(datasets, workdir: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# ViT serving: K7, K9, K10 and K11.
+# ---------------------------------------------------------------------------
+
+ATTN_SOURCE = "nwhead_tpu_torch/csrc/vit_attn.cu"
+MLP_SOURCE = "nwhead_tpu_torch/csrc/vit_mlp.cu"
+VIT_REPLACES = {
+    "attention_qkv": "nwhead_tpu/ops/pallas_attn.py:68",
+    "mlp": "nwhead_tpu/ops/pallas_mlp.py:43",
+    "attention_block_bf16": "nwhead_tpu/ops/pallas_attn.py:376",
+    "mlp_block_bf16": "nwhead_tpu/ops/pallas_mlp.py:206",
+}
+# ViT-S/14 serving at B=64, 224 px: N = 16 * 16 + 1 tokens, D = 384, 6
+# heads of 64, MLP 1,536.
+VIT_B, VIT_N, VIT_D, VIT_H, VIT_DH = 64, 257, 384, 6, 1536
+ATTN_CASES = (  # name, B, N, H, hd; the first is the serving shape, timed
+    ("vit_s14_b64", VIT_B, VIT_N, VIT_H, 64),
+    ("ragged_n197", VIT_B, 197, VIT_H, 64),
+    ("n1370_b16", 16, 1370, VIT_H, 64),  # DINOv2's native 518 px grid
+    ("vit_b14_b64", VIT_B, VIT_N, 12, 64),
+)
+MLP_CASES = (("vit_s14_b64", VIT_B * VIT_N), ("ragged_m1001", 1001))  # name, M
+VIT_SERVE_ARGV = ["--dataset", "synthetic_cub", "--arch", "vit_s14", "--batch_size", "64",
+                  "--latency_bench"]
+VIT_CONFIGS = (  # name, extra flags, kernels launched 12 times per request
+    ("bf16_fused", ["--featurizer_precision", "bf16_fused"],
+     ("attention_block_bf16_cuda", "mlp_block_bf16_cuda")),
+    ("fused_inference", ["--fused_inference"], ("attention_qkv_cuda", "mlp_cuda")),
+    ("fused_inference_bf16", ["--fused_inference", "--bf16"], ("attention_qkv_cuda", "mlp_cuda")),
+)
+GAMMA_SEED = 11
+
+
+# Served bf16 features against the plain featurizer: 24 bf16 half-blocks
+# whose products are summed in another order than cuBLAS sums them flip
+# single bf16 roundings that carry through the residual stream. The same
+# plain graph on the card and on the CPU differ by 1.3e-2 of max|plain|
+# (cosine 0.99996; H100, chip_smoke.py's ViT serving phase prints it on
+# every run), so 1e-2 cannot hold for any implementation; 3e-2 with the
+# cosine at 0.9999.
+FEATURE_BF16_REL = 3e-2
+
+
+def vit_agree(got, want, prec: str, bf16_rel: float = 1e-2):
+    """Kernel (or served) values against the plain version's: f32 within
+    1e-4 of max|plain|; bf16 within ``bf16_rel`` of max|plain| (a kernel's
+    sums run in another order than cuBLAS's, so a bf16 rounding may flip by
+    one ulp) and cosine >= 0.9999. Returns (ok, max |err|, relative error,
+    cosine)."""
+    import torch
+
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max())
+    rel = err / max(float(want.abs().max()), 1e-30)
+    cos = float(torch.nn.functional.cosine_similarity(got.flatten(), want.flatten(), dim=0))
+    ok = bool(torch.isfinite(got).all()) and (
+        rel <= 1e-4 if prec == "f32" else rel <= bf16_rel and cos >= 0.9999)
+    return ok, err, rel, cos
+
+
+@contextlib.contextmanager
+def plain_vit_kernels():
+    """The ViT ops' kernel wrappers swapped for their plain versions (same
+    signatures), so that a module run on the card computes the plain
+    function; restored on exit."""
+    from nwhead_tpu_torch.ops import fused_attn as FA
+    from nwhead_tpu_torch.ops import fused_mlp as FM
+
+    swaps = [(FA, "attention_qkv_cuda", FA._attention_qkv_plain),
+             (FA, "attention_block_bf16_cuda", FA._attention_block_bf16_plain),
+             (FM, "mlp_cuda", FM._mlp_plain), (FM, "mlp_block_bf16_cuda", FM._mlp_block_bf16_plain)]
+    saved = [getattr(m, n) for m, n, _ in swaps]
+    try:
+        for m, n, plain in swaps:
+            setattr(m, n, plain)
+        yield
+    finally:
+        for (m, n, _), fn in zip(swaps, saved):
+            setattr(m, n, fn)
+
+
+def _vit_record(res: dict, key: str, err: float) -> None:
+    res.setdefault(key, {"max_abs_err": 0.0})
+    res[key]["max_abs_err"] = max(res[key]["max_abs_err"], err)
+
+
+def _vit_timed(res, key, flush, kernel, plain, n_bytes, flops, prec, library=None) -> None:
+    res[key].update(ms=time_ms(kernel, flush), plain_ms=time_ms(plain, flush),
+                    library_ms=None if library is None else time_ms(library, flush),
+                    **bound(n_bytes, flops, prec))
+    r = res[key]
+    lib = "" if library is None else f", library {r['library_ms']:.4f} ms"
+    print(f"time {key}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms{lib}, "
+          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+def vit_kernel_phase(flush) -> dict:
+    """K7 and K9 (f32 and bf16) and K10, K11 (bf16, every fold) against
+    their plain versions on the card; times each at the ViT-S/14 serving
+    shape, K7 beside ``F.scaled_dot_product_attention`` on the same data.
+    Returns, per entry, max |err|, kernel, plain and library ms and the
+    bound."""
+    import torch
+    import torch.nn.functional as TF
+
+    from nwhead_tpu_torch.ops import fused_attn as FA
+    from nwhead_tpu_torch.ops import fused_mlp as FM
+
+    dev = torch.device("cuda")
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    res: dict = {}
+    for ci, (case, B, N, H, hd) in enumerate(ATTN_CASES):
+        qkv32 = torch.from_numpy(np.random.default_rng(200 + ci).standard_normal(
+            (B, N, 3 * H * hd), np.float32)).to(dev)
+        for prec, dt in dtypes.items():
+            qkv, key = qkv32.to(dt), f"attention_qkv_{prec}"
+            got = FA.attention_qkv_cuda(qkv, H, hd ** -0.5)
+            want = FA._attention_qkv_plain(qkv, H, hd ** -0.5)
+            torch.cuda.synchronize()
+            ok, err, rel, cos = vit_agree(got, want, prec)
+            print(f"K7 {case} {prec}: max|err| {err:.3e}, rel {rel:.2e}, cos {cos:.7f} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"K7 disagrees with its plain version: {case} {prec}")
+            _vit_record(res, key, err)
+            if ci == 0:
+                q, k, v = (t.permute(0, 2, 1, 3).contiguous()
+                           for t in qkv.reshape(B, N, 3, H, hd).unbind(2))
+                item = qkv.element_size()
+                _vit_timed(res, key, flush, lambda: FA.attention_qkv_cuda(qkv, H, hd ** -0.5),
+                           lambda: FA._attention_qkv_plain(qkv, H, hd ** -0.5),
+                           4 * B * N * H * hd * item, 4 * B * H * N * N * hd, prec,
+                           library=lambda: TF.scaled_dot_product_attention(q, k, v))
+    D, Dh = VIT_D, VIT_DH
+    rng = np.random.default_rng(300)
+    w1, b1, w2, b2, ln_s, ln_b, gamma = (torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+        rng.standard_normal((D, Dh)) / np.sqrt(D), 0.1 * rng.standard_normal(Dh),
+        rng.standard_normal((Dh, D)) / np.sqrt(Dh), 0.1 * rng.standard_normal(D),
+        1.0 + 0.2 * rng.standard_normal(D), 0.1 * rng.standard_normal(D),
+        rng.uniform(0.5, 1.5, D)))
+    for ci, (case, M) in enumerate(MLP_CASES):
+        x32 = torch.from_numpy(np.random.default_rng(400 + ci).standard_normal(
+            (M, D), np.float32)).to(dev)
+        for prec, dt in dtypes.items():
+            args, key = (x32.to(dt), w1.to(dt), b1, w2.to(dt), b2), f"mlp_{prec}"
+            got, want = FM.mlp_cuda(*args), FM._mlp_plain(*args)
+            torch.cuda.synchronize()
+            ok, err, rel, cos = vit_agree(got, want, prec)
+            print(f"K9 {case} {prec}: max|err| {err:.3e}, rel {rel:.2e}, cos {cos:.7f} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"K9 disagrees with its plain version: {case} {prec}")
+            _vit_record(res, key, err)
+            if ci == 0:
+                item = x32.to(dt).element_size()
+                _vit_timed(res, key, flush, lambda: FM.mlp_cuda(*args),
+                           lambda: FM._mlp_plain(*args),
+                           2 * M * D * item + 2 * D * Dh * item + 4 * (Dh + D), 4 * M * D * Dh,
+                           prec)
+    # K10 and K11 at the serving shape, every fold on and off (bf16 only).
+    bf = torch.bfloat16
+    M = VIT_B * VIT_N
+    x = torch.from_numpy(np.random.default_rng(500).standard_normal(
+        (VIT_B, VIT_N, D), np.float32)).to(dev, bf)
+    w_qkv, b_qkv, w_proj, b_proj = (torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+        rng.standard_normal((D, 3 * D)) / np.sqrt(D), 0.1 * rng.standard_normal(3 * D),
+        rng.standard_normal((D, D)) / np.sqrt(D), 0.1 * rng.standard_normal(D)))
+    scale = (D // VIT_H) ** -0.5
+    for ln, ls, resid in itertools.product([False, True], repeat=3):
+        folds = (ln_s if ln else None, ln_b if ln else None, 1e-6,
+                 gamma.to(bf) if ls else None, resid)
+        a_args = (x, w_qkv.to(bf), b_qkv, w_proj.to(bf), b_proj, VIT_H, scale) + folds
+        m_args = (x.reshape(M, D), w1.to(bf), b1, w2.to(bf), b2) + folds
+        where = f"ln={int(ln)} ls={int(ls)} residual={int(resid)}"
+        for key, kernel, plain, args in (
+                ("attention_block_bf16", FA.attention_block_bf16_cuda,
+                 FA._attention_block_bf16_plain, a_args),
+                ("mlp_block_bf16", FM.mlp_block_bf16_cuda, FM._mlp_block_bf16_plain, m_args)):
+            got, want = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            ok, err, rel, cos = vit_agree(got, want, "bf16")
+            print(f"{key} B={VIT_B} N={VIT_N} {where}: max|err| {err:.3e}, rel {rel:.2e}, "
+                  f"cos {cos:.7f} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{key} disagrees with its plain version: {where}")
+            _vit_record(res, key, err)
+            if ln and ls and resid:  # the serving path's folds
+                if key == "attention_block_bf16":
+                    n_bytes = 4 * M * D + 2 * 4 * D * D + 4 * 4 * D + 8 * D + 2 * D
+                    flops = 8 * M * D * D + 4 * VIT_B * VIT_H * VIT_N * VIT_N * (D // VIT_H)
+                else:
+                    n_bytes = 4 * M * D + 2 * 2 * D * Dh + 4 * (Dh + D) + 8 * D + 2 * D
+                    flops = 4 * M * D * Dh
+                _vit_timed(res, key, flush, lambda k=kernel, a=args: k(*a),
+                           lambda p=plain, a=args: p(*a), n_bytes, flops, "bf16")
+    return res
+
+
+def _set_gammas(net) -> None:
+    """LayerScale gammas of order 1 (uniform in [0.5, 1.5], seeded), in
+    place of the init's 1e-5, under which every block adds almost nothing
+    and a wrong K10 or K11 would pass every comparison."""
+    import torch
+
+    rng = np.random.default_rng(GAMMA_SEED)
+    with torch.no_grad():
+        for blk in net.model.featurizer.blocks:
+            for g in (blk.ls1_gamma, blk.ls2_gamma):
+                g.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, g.shape[0]).astype(np.float32)))
+
+
+def vit_serving_phase(datasets) -> dict:
+    """The two ViT serving commands (and ``--fused_inference --bf16``)
+    through the serve module's functions, with LayerScale gammas of order 1
+    set before the featurizer is fused and the bank built. For each: launch
+    counts per request and over the latency run, served features against
+    the plain featurizer on the same images, served log-probs against the
+    plain head, p50 / p95 / queries/s, the bank's seconds and peak device
+    memory."""
+    import torch
+
+    from nwhead_tpu_torch import serve
+    from nwhead_tpu_torch.ops.fused_nw import _nw_prepared_plain, _resolve_mode
+
+    train_ds, val_ds = datasets
+    out = {}
+    for name, flags, kernels in VIT_CONFIGS:
+        args = serve.parse_args(VIT_SERVE_ARGV + flags)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        net = serve.build_server(args, train_ds, edit=_set_gammas)
+        print(f"vit {name}: LayerScale gammas set to U[0.5, 1.5] (seed {GAMMA_SEED}) before "
+              "precompute, in place of the init's 1e-5")
+        serve_fn = net.make_serving_fn()
+        x = val_ds.gather(np.arange(args.batch_size))
+        expect = {n: 0 for n in WRAPPERS}
+        expect.update({n: 12 for n in kernels}, nw_prepared_cuda=1)
+        _counts(reset=True)
+        served = serve_fn(x)
+        torch.cuda.synchronize()
+        per_request = _counts()
+        _counts(reset=True)
+        report = serve.latency_bench(net, val_ds, args)
+        torch.cuda.synchronize()
+        launches = _counts()
+        peak = torch.cuda.max_memory_allocated()
+        requests = report["batches"] + 3  # the latency run's warm-up requests count too
+        print(f"vit {name}: launches per request {per_request}; over the latency run's "
+              f"{requests} requests {launches}")
+        if per_request != expect or launches != {n: c * requests for n, c in expect.items()}:
+            raise AssertionError(f"{name}: launches {per_request} per request, want {expect}")
+        with torch.inference_mode():
+            xt = torch.from_numpy(x).to(net.device)
+            feats = net._featurize_eval(xt)
+            with plain_vit_kernels():
+                plain_feats = net._featurize_eval(xt)
+            prep = net._prepared_full
+            mode, scale, qn, _ = _resolve_mode(net.kernel_type, net.model.head.kernel_params(),
+                                               feats)
+            plain = _nw_prepared_plain(qn.to(prep.s.dtype), prep, scale, mode, net.n_classes)
+        torch.cuda.synchronize()
+        prec = "bf16" if name != "fused_inference" else "f32"
+        # The noise floor: the same plain featurizer on the CPU, 8 images.
+        with torch.inference_mode():
+            module = (net.model.featurizer if net.serving_featurizer is None
+                      else net.serving_featurizer)
+            cpu_feats = copy.deepcopy(module).cpu()(torch.from_numpy(x[:8]))
+        _, _, floor_rel, floor_cos = vit_agree(plain_feats[:8].cpu(), cpu_feats, prec)
+        f_ok, f_err, f_rel, f_cos = vit_agree(feats, plain_feats, prec, FEATURE_BF16_REL)
+        lp_err = float((served - plain).abs().max())
+        lp_ok = (tuple(served.shape) == (args.batch_size, net.n_classes)
+                 and bool(torch.isfinite(served).all()) and within(served, plain, **TOL["f32"]))
+        print(f"vit {name}: features (B={feats.shape[0]}, D={feats.shape[1]}) vs the plain "
+              f"featurizer max|err| {f_err:.3e}, rel {f_rel:.2e}, cos {f_cos:.7f} "
+              f"{'ok' if f_ok else 'FAIL'} (the plain featurizer on the card vs on the CPU, 8 "
+              f"images: rel {floor_rel:.2e}, cos {floor_cos:.7f}); log-probs vs the plain head "
+              f"max|err| {lp_err:.3e} {'ok' if lp_ok else 'FAIL'}; bank S={prep.s.shape[0]} D={prep.s.shape[1]} "
+              f"prepared in {net.precompute_seconds:.2f}s; p50 {report['p50_ms']:.3f} ms, "
+              f"p95 {report['p95_ms']:.3f} ms, {report['queries_per_sec']:.1f} q/s; peak device "
+              f"memory {peak / 2**30:.2f} GiB")
+        if not (f_ok and lp_ok):
+            raise AssertionError(f"{name}: served features or log-probs disagree")
+        out[name] = {"launches": launches, "per_request": per_request, "report": report,
+                     "feature_err": f_err, "logprob_err": lp_err,
+                     "precompute_s": net.precompute_seconds, "peak_bytes": peak}
+        del net, serve_fn
+        torch.cuda.empty_cache()
+    return out
+
+
+def vit_entries(kern: dict, served: dict) -> list:
+    """The ``kernels`` JSON entries of K7, K9, K10 and K11: launches from
+    the serving configuration that runs each."""
+    runs = {  # entry: (serving configuration, wrapper, kernel)
+        "attention_qkv_f32": ("fused_inference", "attention_qkv_cuda", "attention_qkv"),
+        "attention_qkv_bf16": ("fused_inference_bf16", "attention_qkv_cuda", "attention_qkv"),
+        "mlp_f32": ("fused_inference", "mlp_cuda", "mlp"),
+        "mlp_bf16": ("fused_inference_bf16", "mlp_cuda", "mlp"),
+        "attention_block_bf16": ("bf16_fused", "attention_block_bf16_cuda",
+                                 "attention_block_bf16"),
+        "mlp_block_bf16": ("bf16_fused", "mlp_block_bf16_cuda", "mlp_block_bf16"),
+    }
+    entries = []
+    for key, (config, wrapper, kernel) in runs.items():
+        r = kern[key]
+        entries.append({
+            "name": key, "route": "cuda",
+            "source": ATTN_SOURCE if "attention" in key else MLP_SOURCE,
+            "replaces": VIT_REPLACES[kernel], "launches": served[config]["launches"][wrapper],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -642,14 +990,27 @@ def main() -> int:
           f"bytes at B=64 (largest B {fused.nw_fused_ds_max_batch(0)})")
 
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")  # 256 MB > L2
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' products in full f32
+    phase_s = {}
+    t0 = time.perf_counter()
     kern = kernel_phase(flush)
     raw = raw_kernel_phase(flush)
+    phase_s["K1-K3 kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vit_kern = vit_kernel_phase(flush)
+    phase_s["ViT kernels"] = time.perf_counter() - t0
     del flush
     t0 = time.perf_counter()
     args = train.Parser().parse_args(TRAIN_ARGV)
     datasets = train.build_datasets(args)
     print(f"datasets built in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     sl = slice_phase(datasets)
+    phase_s["ResNet serving"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vit_served = vit_serving_phase(datasets)
+    phase_s["ViT serving"] = time.perf_counter() - t0
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         tr = training_phase(datasets, workdir)
@@ -675,6 +1036,7 @@ def main() -> int:
                 "replaces": REPLACES[k], "launches": tr["launches"][p][f"{k}_cuda"],
                 "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None})
+    entries += vit_entries(vit_kern, vit_served)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,9 +10,17 @@ becomes a torchvision-named ``state_dict``.
 * ``layerK_i/{conv1,bn1,conv2,bn2,ds_conv,ds_bn}`` ->
   ``layerK.i.{conv1,bn1,conv2,bn2,downsample.0,downsample.1}``.
 
-``jax_to_torch_nwmodel`` converts a whole ``NWModel`` tree: the featurizer,
-the optional ``proj`` Dense layer (kernel ``(in, out)`` -> Linear weight
-``(out, in)``) and the head's ``logit_scale``.
+``jax_to_torch_vit`` does the same for the flax ``VisionTransformer``:
+
+* Dense kernels ``(in, out)`` -> Linear weights ``(out, in)``;
+* the patch-embedding conv kernel HWIO -> OIHW;
+* LayerNorm ``scale``/``bias`` -> ``weight``/``bias``;
+* ``block{i}/...`` -> ``blocks.{i}....``; ``cls_token``, ``pos_embed``,
+  ``ls1_gamma`` and ``ls2_gamma`` as named.
+
+``jax_to_torch_nwmodel`` converts a whole ``NWModel`` tree: the featurizer
+(a ResNet with its ``batch_stats``, or a ViT, which has none), the optional
+``proj`` Dense layer and the head's ``logit_scale``.
 """
 
 from __future__ import annotations
@@ -67,6 +75,45 @@ def jax_to_torch_resnet(variables_np: Mapping[str, Any]) -> Dict[str, torch.Tens
     return sd
 
 
+def _dense(sd: Dict[str, torch.Tensor], name: str, p: Mapping[str, Any]) -> None:
+    sd[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(np.asarray(p["kernel"]).T))
+    sd[f"{name}.bias"] = torch.from_numpy(np.asarray(p["bias"]).copy())
+
+
+def _norm(sd: Dict[str, torch.Tensor], name: str, p: Mapping[str, Any]) -> None:
+    sd[f"{name}.weight"] = torch.from_numpy(np.asarray(p["scale"]).copy())
+    sd[f"{name}.bias"] = torch.from_numpy(np.asarray(p["bias"]).copy())
+
+
+def jax_to_torch_vit(variables_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ``VisionTransformer`` ``{'params': ...}`` (numpy leaves) ->
+    ``state_dict`` for ``nwhead_tpu_torch.models.vit.VisionTransformer``."""
+    params = variables_np["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    pe = params["patch_embed"]
+    sd["patch_embed.weight"] = torch.from_numpy(
+        np.ascontiguousarray(np.asarray(pe["kernel"]).transpose(3, 2, 0, 1)))
+    sd["patch_embed.bias"] = torch.from_numpy(np.asarray(pe["bias"]).copy())
+    for name in ("cls_token", "pos_embed"):
+        sd[name] = torch.from_numpy(np.asarray(params[name]).copy())
+    _norm(sd, "norm", params["norm"])
+    blocks = sorted((k for k in params if re.fullmatch(r"block\d+", k)), key=lambda k: int(k[5:]))
+    for i, key in enumerate(blocks):
+        if key != f"block{i}":
+            raise KeyError(f"ViT blocks are not numbered 0..{len(blocks) - 1}: {blocks}")
+        bp, pre = params[key], f"blocks.{i}"
+        _norm(sd, f"{pre}.norm1", bp["norm1"])
+        _norm(sd, f"{pre}.norm2", bp["norm2"])
+        _dense(sd, f"{pre}.attn.qkv", bp["attn"]["qkv"])
+        _dense(sd, f"{pre}.attn.proj", bp["attn"]["proj"])
+        _dense(sd, f"{pre}.mlp.fc1", bp["mlp"]["fc1"])
+        _dense(sd, f"{pre}.mlp.fc2", bp["mlp"]["fc2"])
+        for g in ("ls1_gamma", "ls2_gamma"):
+            if g in bp:
+                sd[f"{pre}.{g}"] = torch.from_numpy(np.asarray(bp[g]).copy())
+    return sd
+
+
 def jax_to_torch_head(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """The NW head's parameters (clip's ``logit_scale``; none for the other
     kernels) as a ``state_dict`` for ``nwhead_tpu_torch.nw.head.NWHead``."""
@@ -77,15 +124,18 @@ def jax_to_torch_head(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 def jax_to_torch_nwmodel(variables_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """A JAX ``NWModel`` tree ``{'params': {featurizer, proj?, head?},
     'batch_stats': {featurizer}}`` -> ``state_dict`` for
-    ``nwhead_tpu_torch.nw.net.NWModel``."""
+    ``nwhead_tpu_torch.nw.net.NWModel``; a ViT featurizer has no
+    ``batch_stats``."""
     params = variables_np["params"]
-    sd = {f"featurizer.{k}": v for k, v in jax_to_torch_resnet({
-        "params": params["featurizer"],
-        "batch_stats": variables_np.get("batch_stats", {}).get("featurizer", {}),
-    }).items()}
+    if "patch_embed" in params["featurizer"]:
+        feat = jax_to_torch_vit({"params": params["featurizer"]})
+    else:
+        feat = jax_to_torch_resnet({
+            "params": params["featurizer"],
+            "batch_stats": variables_np.get("batch_stats", {}).get("featurizer", {}),
+        })
+    sd = {f"featurizer.{k}": v for k, v in feat.items()}
     if "proj" in params:
-        sd["proj.weight"] = torch.from_numpy(
-            np.ascontiguousarray(np.asarray(params["proj"]["kernel"], np.float32).T))
-        sd["proj.bias"] = torch.from_numpy(np.asarray(params["proj"]["bias"], np.float32).copy())
+        _dense(sd, "proj", params["proj"])
     sd.update({f"head.{k}": v for k, v in jax_to_torch_head(params.get("head", {})).items()})
     return sd

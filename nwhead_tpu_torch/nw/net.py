@@ -8,7 +8,8 @@ that BatchNorm sees both and gradients reach the support features.
 (``support_train``, ``forward``), builds the full-mode support bank
 (``precompute``), prepares it for the fused head when it is large enough,
 and predicts in the ``random`` and ``full`` modes (``predict``,
-``make_serving_fn``). The cluster, ensemble, knn and hnsw modes,
+``make_serving_fn``). ``fuse_featurizer`` swaps the eval and serving
+featurizer of a ViT for the bf16 fused-serving graph (K10/K11). The cluster, ensemble, knn and hnsw modes,
 incremental bank edits and sharding are later slices (ROADMAP.md queue 1,
 items 7, 8 and 10).
 
@@ -145,6 +146,8 @@ class NWNet:
             )
         self._prepared_full: Optional[PreparedSupport] = None
         self._prepared_pos: Optional[np.ndarray] = None  # bank row -> prepared row
+        # Eval/serving featurizer set by fuse_featurizer (None: the model's).
+        self.serving_featurizer: Optional[nn.Module] = None
 
     # -- training forward ------------------------------------------------------
 
@@ -174,6 +177,34 @@ class NWNet:
         )
         return log_probs, isin
 
+    # -- serving featurizer ----------------------------------------------------
+
+    def fuse_featurizer(self) -> None:
+        """Swap the eval and serving featurizer for the bf16 fused-serving
+        graph (``models/serving_vit.py``: K10 and K11 per block) built from
+        the current weights, with no calibration. ``proj`` still applies.
+        Training (``forward``) keeps the float featurizer. The prepared bank
+        is dropped: run ``precompute`` after this, so that the bank and the
+        queries come from the same featurizer. ViT only; serving only."""
+        from nwhead_tpu_torch.models.serving_vit import fuse_vit_serving
+        from nwhead_tpu_torch.models.vit import VisionTransformer
+
+        if not isinstance(self.model.featurizer, VisionTransformer):
+            raise NotImplementedError(
+                "fuse_featurizer is the ViT bf16 fused-serving path; a "
+                f"{type(self.model.featurizer).__name__} backbone has none (its int8 "
+                "path, quantize_featurizer, is ROADMAP.md queue 1, item 9)")
+        self.serving_featurizer = fuse_vit_serving(self.model.featurizer)
+        self._prepared_full = self._prepared_pos = None
+
+    def _featurize_eval(self, x: torch.Tensor) -> torch.Tensor:
+        """Features of the eval and serving paths: the fused serving
+        featurizer when there is one (then ``proj``), else the model's."""
+        if self.serving_featurizer is None:
+            return self.model.featurize(x)
+        f = self.serving_featurizer(x)
+        return f if self.model.proj is None else self.model.proj(f)
+
     # -- precompute ------------------------------------------------------------
 
     @torch.inference_mode()
@@ -201,7 +232,7 @@ class NWNet:
             if n < bs:
                 imgs = np.concatenate([imgs, np.zeros((bs - n, *imgs.shape[1:]), np.float32)])
             x = torch.from_numpy(imgs).to(self.device)
-            out.append(self.model.featurize(x)[:n])
+            out.append(self._featurize_eval(x)[:n])
         return torch.cat(out)
 
     def _build_serving_banks(self) -> None:
@@ -256,7 +287,7 @@ class NWNet:
             x = torch.as_tensor(x).to(device)
             if mean is not None:
                 x = (x.to(torch.float32) * (1.0 / 255.0) - mean) / std
-            return model.predict_from_prepared(model.featurize(x), self._prepared_full)
+            return model.predict_from_prepared(self._featurize_eval(x), self._prepared_full)
 
         return serve
 
@@ -267,7 +298,7 @@ class NWNet:
         bank (K2) when there is one, else the head over the whole bank."""
         self.model.eval()
         support = self.support_eval.get_support(mode)  # raises for modes not ported
-        qfeat = self.model.featurize(torch.as_tensor(x).to(self.device))
+        qfeat = self._featurize_eval(torch.as_tensor(x).to(self.device))
         if mode == "full" and self._prepared_full is not None:
             return self.model.predict_from_prepared(qfeat, self._prepared_full)
         return self.model.head(qfeat, *support)

@@ -31,9 +31,22 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 )
 
-_VP, _I32 = ctypes.c_void_p, ctypes.c_int
+_VP, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # library -> {C function: (argtypes, restype)}
 _API = {
+    "vit_attn": {
+        "vit_attention_forward": ([_VP, _VP] + [_I32] * 4 + [_F32, _I32, _VP], _I32),
+        "vit_attention_block_bf16": (
+            [_VP] * 3 + [_F32] + [_VP] * 5 + [_I32] + [_VP] * 3 + [_I32] * 4 + [_F32, _VP],
+            _I32),
+        "vit_attn_error_string": ([_I32], ctypes.c_char_p),
+    },
+    "vit_mlp": {
+        "vit_mlp_forward": ([_VP] * 3 + [_F32] + [_VP] * 5 + [_I32, _VP] + [_I32] * 5 + [_VP],
+                            _I32),
+        "vit_mlp_max_out": ([], _I32),
+        "vit_mlp_error_string": ([_I32], ctypes.c_char_p),
+    },
     "nw_prepared": {
         "nw_prepared_forward": ([_VP] * 9 + [_I32] * 8 + [_VP], _I32),
         "nw_prepared_query_tile": ([], _I32),

@@ -1,0 +1,241 @@
+"""Fused ViT attention: multi-head attention off the packed qkv (K7) and the
+bf16 attention half-block (K10).
+
+Port of ``nwhead_tpu/ops/pallas_attn.py``: ``fused_attention_qkv`` (forward
+only) and ``fused_attention_block_bf16`` (``quant=False``). The kernels are
+CUDA C++ for Hopper in ``csrc/vit_attn.cu``, built and loaded by
+``ops/_cuda.py``:
+
+* K7 ``vit_attention_forward`` (TPU ``_attn_qkv_kernel``): per head
+  ``softmax(q k^T * scale) v`` with the softmax in f32, f32 or bf16;
+* K10 ``vit_attention_block_bf16`` (TPU ``_attn_int8_kernel`` with
+  ``quant=False``): [LayerNorm ->] qkv -> attention -> proj [-> *
+  LayerScale] [-> + x] in bf16, three launches through device memory.
+
+Each kernel has a wrapper that counts its launches (``.launches``) and a
+plain PyTorch version of the same function (``_attention_qkv_plain``,
+``_attention_block_bf16_plain``) that follows the TPU kernel's single pass
+and its rounding points: probabilities normalized in f32, then rounded to
+v's dtype before the PV product. A CPU tensor goes to the plain version, a
+CUDA tensor to the kernel, with no fallback between them.
+
+Left out as TPU workarounds that change no value: the VMEM budget tests
+(``_select_k_chunk``, ``_bf16_attn_k_chunk``) and the ``_FLASH_CHUNK``
+switch; the kernels take any N. K7's backward (K8) is not ported yet, so
+``fused_attention_qkv`` refuses inputs that require grad.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from nwhead_tpu_torch.ops import _cuda
+
+_BF16 = torch.bfloat16
+_HEAD_DIMS = (32, 64, 128)  # head widths the CUDA kernel is built for
+
+
+def _layer_norm_f32(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                    eps: float) -> torch.Tensor:
+    """The JAX kernels' LayerNorm in f32: biased variance, ``(x - mean) *
+    rsqrt(var + eps) * scale + bias``."""
+    xf = x.to(torch.float32)
+    mean = xf.mean(-1, keepdim=True)
+    var = torch.square(xf - mean).mean(-1, keepdim=True)
+    return (xf - mean) * torch.rsqrt(var + eps) * scale.to(torch.float32) + bias.to(torch.float32)
+
+
+def _heads_attention_f32(qkv: torch.Tensor, num_heads: int, scale: float,
+                         p_dtype: torch.dtype) -> torch.Tensor:
+    """``(B, N, 3D)`` qkv -> the f32 attention output ``(B, N, D)``: per
+    head f32 scores ``q k^T * scale``, the softmax in f32, probabilities
+    rounded to ``p_dtype``, the PV product summed in f32."""
+    B, N, three_d = qkv.shape
+    D = three_d // 3
+    hd = D // num_heads
+    x = qkv.to(torch.float32).reshape(B, N, 3, num_heads, hd)
+    q, k, v = (x[:, :, i].permute(0, 2, 1, 3) for i in range(3))  # (B, H, N, hd)
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    probs = (p / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)).to(p_dtype).to(torch.float32)
+    return torch.matmul(probs, v).permute(0, 2, 1, 3).reshape(B, N, D)
+
+
+def _attention_qkv_plain(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+    """K7's function in plain PyTorch: ``(B, N, 3D)`` -> ``(B, N, D)`` in
+    qkv's dtype."""
+    return _heads_attention_f32(qkv, num_heads, scale, qkv.dtype).to(qkv.dtype)
+
+
+def _check_cuda(name: str, tensors) -> torch.device:
+    """Every tensor contiguous on one CUDA device with its dtype; returns
+    the device."""
+    device = tensors[0][1].device
+    if device.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {device}")
+    for arg, t, dt in tensors:
+        if t.device != device or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} needs contiguous {dt} on {device}, "
+                             f"got {t.dtype} on {t.device}")
+    return device
+
+
+def _launch(lib, fn: str, *args) -> None:
+    rc = getattr(lib, fn)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{fn} kernel launch failed: {lib.vit_attn_error_string(rc).decode()}")
+
+
+def attention_qkv_cuda(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+    """Launch K7 (``csrc/vit_attn.cu``) on the current stream: ``(B, N,
+    3D)`` f32 or bf16 -> ``(B, N, D)``. Raises on anything the kernel does
+    not take."""
+    if qkv.dim() != 3 or qkv.shape[2] % (3 * num_heads) or 0 in qkv.shape:
+        raise ValueError(f"qkv {tuple(qkv.shape)} is not (B, N, 3 H hd) for H={num_heads}")
+    if qkv.dtype not in (torch.float32, _BF16):
+        raise ValueError(f"qkv {qkv.dtype}: need f32 or bf16")
+    device = _check_cuda("attention_qkv_cuda", [("qkv", qkv, qkv.dtype)])
+    B, N, three_d = qkv.shape
+    hd = three_d // (3 * num_heads)
+    if hd not in _HEAD_DIMS:
+        raise ValueError(f"head width {hd}: the kernel is built for {_HEAD_DIMS}")
+    out = torch.empty((B, N, three_d // 3), dtype=qkv.dtype, device=device)
+    lib = _cuda.load_library("vit_attn")
+    with torch.cuda.device(device):
+        _launch(lib, "vit_attention_forward", qkv.data_ptr(), out.data_ptr(), B, N, num_heads,
+                hd, float(scale), int(qkv.dtype == _BF16),
+                torch.cuda.current_stream(device).cuda_stream)
+    attention_qkv_cuda.launches += 1
+    return out
+
+
+attention_qkv_cuda.launches = 0
+
+
+def fused_attention_qkv(qkv: torch.Tensor, num_heads: int, *,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Attention straight off the qkv projection (K7, forward only).
+
+    ``qkv``: ``(B, N, 3, H, hd)`` as reshaped from the fused qkv Dense
+    output (or already flat ``(B, N, 3 H hd)``). Returns ``(B, N, H hd)``
+    in qkv's dtype. Raises ``NotImplementedError`` where autograd would
+    record it (grad enabled, qkv requires grad): the backward is kernel K8,
+    not ported yet."""
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        raise NotImplementedError(
+            "fused_attention_qkv has no backward yet: its kernel K8 is not ported "
+            "(ROADMAP.md queue 2); use attn_impl='xla' to differentiate")
+    if qkv.dim() == 5:
+        B, N, three, H, hd = qkv.shape
+        if three != 3 or H != num_heads:
+            raise ValueError(f"qkv {tuple(qkv.shape)} is not (B, N, 3, {num_heads}, hd)")
+        qkv = qkv.reshape(B, N, 3 * H * hd)
+    hd = qkv.shape[-1] // (3 * num_heads)
+    sc = float(scale) if scale is not None else 1.0 / math.sqrt(hd)
+    if qkv.device.type == "cpu":
+        return _attention_qkv_plain(qkv, num_heads, sc)
+    return attention_qkv_cuda(qkv.contiguous(), num_heads, sc)
+
+
+def _attention_block_bf16_plain(
+    x: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch.Tensor, w_proj: torch.Tensor,
+    b_proj: torch.Tensor, num_heads: int, scale: float, ln_scale: Optional[torch.Tensor],
+    ln_bias: Optional[torch.Tensor], ln_eps: float, layerscale: Optional[torch.Tensor],
+    residual: bool,
+) -> torch.Tensor:
+    """K10's function in plain PyTorch, with the TPU kernel's bf16 rounding
+    points: LN output, qkv, probabilities, the attention output before
+    proj, proj's output before ``* ls`` and each of ``* ls`` and ``+ x``."""
+    B, N, D = x.shape
+    h = x.to(torch.float32)
+    if ln_scale is not None:
+        h = _layer_norm_f32(h, ln_scale, ln_bias, ln_eps)
+    h = h.to(_BF16).to(torch.float32)
+    qkv = (torch.matmul(h, w_qkv.to(torch.float32)) + b_qkv.to(torch.float32)).to(_BF16)
+    att = _heads_attention_f32(qkv, num_heads, scale, _BF16).to(_BF16).to(torch.float32)
+    out = (torch.matmul(att, w_proj.to(torch.float32)) + b_proj.to(torch.float32)).to(_BF16)
+    if layerscale is not None:
+        out = out * layerscale.to(_BF16)
+    if residual:
+        out = x + out
+    return out
+
+
+def attention_block_bf16_cuda(
+    x: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch.Tensor, w_proj: torch.Tensor,
+    b_proj: torch.Tensor, num_heads: int, scale: float, ln_scale: Optional[torch.Tensor],
+    ln_bias: Optional[torch.Tensor], ln_eps: float, layerscale: Optional[torch.Tensor],
+    residual: bool,
+) -> torch.Tensor:
+    """Launch K10 (``csrc/vit_attn.cu``) on the current stream: three
+    stages through bf16 scratch ``qkv (B, N, 3D)`` and ``att (B, N, D)``.
+    Takes the operands in the dtypes ``fused_attention_block_bf16`` casts
+    them to; raises on anything else."""
+    if x.dim() != 3 or x.shape[2] % num_heads or 0 in x.shape:
+        raise ValueError(f"x {tuple(x.shape)} is not (B, N, D) with D a multiple of {num_heads}")
+    B, N, D = x.shape
+    if D // num_heads not in _HEAD_DIMS:
+        raise ValueError(f"head width {D // num_heads}: the kernel is built for {_HEAD_DIMS}")
+    f32 = torch.float32
+    checked = [("x", x, _BF16), ("w_qkv", w_qkv, _BF16), ("b_qkv", b_qkv, f32),
+               ("w_proj", w_proj, _BF16), ("b_proj", b_proj, f32)]
+    if ln_scale is not None:
+        checked += [("ln_scale", ln_scale, f32), ("ln_bias", ln_bias, f32)]
+    if layerscale is not None:
+        checked.append(("layerscale", layerscale, _BF16))
+    device = _check_cuda("attention_block_bf16_cuda", checked)
+    shapes = {"w_qkv": (D, 3 * D), "b_qkv": (3 * D,), "w_proj": (D, D), "b_proj": (D,),
+              "ln_scale": (D,), "ln_bias": (D,), "layerscale": (D,)}
+    for arg, t, _ in checked[1:]:
+        if tuple(t.shape) != shapes[arg]:
+            raise ValueError(f"{arg} {tuple(t.shape)}: need {shapes[arg]} for D={D}")
+    qkv = torch.empty((B, N, 3 * D), dtype=_BF16, device=device)
+    att = torch.empty((B, N, D), dtype=_BF16, device=device)
+    out = torch.empty_like(x)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    lib = _cuda.load_library("vit_attn")
+    with torch.cuda.device(device):
+        _launch(lib, "vit_attention_block_bf16", x.data_ptr(), ptr(ln_scale), ptr(ln_bias),
+                float(ln_eps), w_qkv.data_ptr(), b_qkv.data_ptr(), w_proj.data_ptr(),
+                b_proj.data_ptr(), ptr(layerscale), int(residual), qkv.data_ptr(),
+                att.data_ptr(), out.data_ptr(), B, N, D, num_heads, float(scale),
+                torch.cuda.current_stream(device).cuda_stream)
+    attention_block_bf16_cuda.launches += 1
+    return out
+
+
+attention_block_bf16_cuda.launches = 0
+
+
+def fused_attention_block_bf16(
+    x: torch.Tensor, w_qkv: torch.Tensor, qkv_bias: torch.Tensor, w_proj: torch.Tensor,
+    proj_bias: torch.Tensor, num_heads: int, *, scale: Optional[float] = None,
+    ln_scale: Optional[torch.Tensor] = None, ln_bias: Optional[torch.Tensor] = None,
+    ln_eps: float = 1e-6, layerscale: Optional[torch.Tensor] = None, residual: bool = False,
+) -> torch.Tensor:
+    """The float-serving attention half-block (K10, inference only):
+    ``[LN ->] x w_qkv + b -> attention -> @ w_proj + b [-> * layerscale]
+    [-> + x]`` with bf16 weights, f32 products and softmax, bf16 out.
+    ``x (B, N, D)``; ``w_qkv (D, 3D)``, ``w_proj (D, D)`` as the JAX
+    function takes them. Returns ``(B, N, D)`` bf16."""
+    D = x.shape[-1]
+    f32 = torch.float32
+
+    def vec(t, dt):
+        return None if t is None else t.to(dt).reshape(-1).contiguous()
+
+    args = (x.to(_BF16).contiguous(), w_qkv.to(_BF16).contiguous(), vec(qkv_bias, f32),
+            w_proj.to(_BF16).contiguous(), vec(proj_bias, f32), num_heads,
+            float(scale) if scale is not None else 1.0 / math.sqrt(D // num_heads),
+            vec(ln_scale, f32), vec(ln_bias, f32), float(ln_eps), vec(layerscale, _BF16),
+            bool(residual))
+    if x.device.type == "cpu":
+        return _attention_block_bf16_plain(*args)
+    return attention_block_bf16_cuda(*args)

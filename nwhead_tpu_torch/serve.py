@@ -6,6 +6,14 @@ random, from ``--seed``. Run as::
 
     python -m nwhead_tpu_torch.serve --dataset synthetic_cub --arch resnet18 \
         --batch_size 64 --latency_bench
+    python -m nwhead_tpu_torch.serve --dataset synthetic_cub --arch vit_s14 \
+        --featurizer_precision bf16_fused --batch_size 64 --latency_bench
+    python -m nwhead_tpu_torch.serve --dataset synthetic_cub --arch vit_s14 \
+        --fused_inference --batch_size 64 --latency_bench
+
+``--featurizer_precision bf16_fused`` serves a ViT through the bf16
+fused-serving graph (K10/K11 per block); ``--fused_inference`` runs a ViT's
+attention and MLP on K7 and K9; ``--bf16`` computes a ViT in bf16.
 
 ``--device`` defaults to ``cuda``; with no CUDA device that is an error, and
 the CPU must be asked for (``--device cpu``).
@@ -22,7 +30,7 @@ import numpy as np
 import torch
 
 from nwhead_tpu_torch.data.datasets import make_synthetic_dataset
-from nwhead_tpu_torch.models import load_model
+from nwhead_tpu_torch.models import VIT_NAMES, load_model
 from nwhead_tpu_torch.nw.net import NWNet
 
 
@@ -57,26 +65,64 @@ def device_info(device: torch.device) -> dict:
     return {"name": torch.cuda.get_device_name(index), "power_limit": limit}
 
 
-def build_server(args, train_ds) -> NWNet:
-    """An ``NWNet`` with random weights from ``--seed``, its full support
-    bank featurized and prepared for the fused head whatever its size (the
-    JAX serving CLI's ``fused_min_support=1``)."""
+def featurizer_options(args) -> dict:
+    """``load_model`` options from the featurizer flags; refuses what is
+    not ported or does not apply (the JAX CLI's message for
+    ``--fused_inference`` on a CNN)."""
+    vit = args.arch in VIT_NAMES
+    if args.featurizer_precision == "int8":
+        raise NotImplementedError(
+            "--featurizer_precision int8 (models/quantize.py, kernels K10/K11 int8) is not "
+            "ported yet (ROADMAP.md queue 1, item 9)")
+    if args.featurizer_precision == "bf16_fused" and not vit:
+        raise NotImplementedError(
+            "--featurizer_precision bf16_fused is the ViT fused-serving graph; a ResNet's "
+            "int8 path is not ported yet (ROADMAP.md queue 1, item 9)")
+    if args.fused_inference and not vit:
+        raise SystemExit("--fused_inference applies to ViT archs only")
+    if args.bf16 and not vit:
+        raise NotImplementedError(
+            "--bf16 on a ResNet (the bf16 backbone) is not ported yet (ROADMAP.md queue 1, "
+            "item 9)")
+    opts = {}
+    if args.bf16:
+        opts["dtype"] = torch.bfloat16
+    if args.fused_inference:
+        opts.update(attn_impl="fused", mlp_impl="fused")
+    return opts
+
+
+def build_server(args, train_ds, edit=None) -> NWNet:
+    """An ``NWNet`` with random weights from ``--seed``, its featurizer
+    fused for ``--featurizer_precision bf16_fused``, its full support bank
+    featurized and prepared for the fused head whatever its size (the JAX
+    serving CLI's ``fused_min_support=1``). ``edit(net)``, when given, runs
+    before the featurizer is fused and the bank built (``chip_smoke.py``
+    sets the LayerScale gammas there). The bank's seconds are kept in
+    ``net.precompute_seconds``."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is visible (pass --device cpu to run on the CPU)")
     featurizer = load_model(args.arch, device=device,
-                            generator=torch.Generator().manual_seed(args.seed))
+                            generator=torch.Generator().manual_seed(args.seed),
+                            **featurizer_options(args))
     net = NWNet(
         featurizer, train_ds.num_classes, support_dataset=train_ds, device=device,
         kernel_type=args.kernel_type, n_shot_full=args.n_shot_full,
         head_precision=args.head_precision, fused_min_support=1,
     )
+    if edit is not None:
+        edit(net)
+    if args.featurizer_precision == "bf16_fused":
+        net.fuse_featurizer()
+        print("Fused featurizer (bf16 serving graph, LN/residual folded)")
     t0 = time.perf_counter()
     net.precompute()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    net.precompute_seconds = time.perf_counter() - t0
     print(f"Support bank prepared: {len(net.full_y)} items, "
-          f"{time.perf_counter() - t0:.1f}s (one-time)")
+          f"{net.precompute_seconds:.1f}s (one-time)")
     return net
 
 
@@ -103,6 +149,10 @@ def latency_bench(net: NWNet, val_ds, args) -> dict:
         "p95_ms": float(np.percentile(lat_ms, 95)),
         "mean_ms": float(lat_ms.mean()),
         "queries_per_sec": bs / float(np.median(lat)),
+        "arch": args.arch,
+        "featurizer_precision": args.featurizer_precision,
+        "fused_inference": bool(args.fused_inference),
+        "bf16": bool(args.bf16),
         "head_precision": args.head_precision,
         "device": device_info(net.device),
     }
@@ -118,6 +168,11 @@ def parse_args(argv=None):
     p.add_argument("--kernel_type", default="euclidean")
     p.add_argument("--n_shot_full", type=int, default=100)
     p.add_argument("--head_precision", default="f32", choices=["f32", "bf16"])
+    p.add_argument("--featurizer_precision", default="f32", choices=["f32", "int8", "bf16_fused"],
+                   help="bf16_fused: a ViT's bf16 fused-serving graph (int8 is not ported)")
+    p.add_argument("--fused_inference", action="store_true",
+                   help="a ViT's attention and MLP on the fused kernels K7 and K9")
+    p.add_argument("--bf16", action="store_true", help="compute a ViT featurizer in bf16")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--latency_bench", action="store_true")
     p.add_argument("--bench_batches", type=int, default=50)
@@ -130,6 +185,7 @@ def main(argv=None):
     args = parse_args(argv)
     if not args.latency_bench:
         raise SystemExit("pass --latency_bench")
+    featurizer_options(args)  # refuse before the datasets are drawn
     train_ds, val_ds = build_datasets(args)
     net = build_server(args, train_ds)
     return {"latency": latency_bench(net, val_ds, args)}

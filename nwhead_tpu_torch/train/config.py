@@ -12,6 +12,8 @@ import json
 import os
 from pprint import pprint
 
+from nwhead_tpu_torch.models import VIT_NAMES
+
 # Datasets read from image files; they need a download and the image
 # transforms, neither of which the port has yet.
 FILE_DATASETS = ("bird", "dog", "flower", "aircraft", "cifar10", "cifar100")
@@ -152,6 +154,8 @@ def check_ported(args) -> None:
             args.workers != 8 or args.decoder != "native",
         f"--head_precision {args.head_precision} (int8/int4 banks, K4/K5; ROADMAP.md "
         "queue 2)": args.head_precision in ("int8", "int4"),
+        f"--arch {args.arch} in training (the ViT training slice: kernels K8 and the K9 "
+        "backward; ROADMAP.md queue 2)": args.arch in VIT_NAMES,
     }
     for flag, hit in refused.items():
         if hit:

@@ -23,7 +23,8 @@ torch.set_num_threads(1)
 
 TOL = {"f32": dict(rtol=2e-4, atol=2e-4), "bf16": dict(rtol=0.0, atol=5e-3)}
 # (B, S, D, C): C <= 128 keeps input order; C > 128 sorts rows by class.
-CASES = {"c7": (5, 300, 40, 7), "c150": (5, 400, 24, 150)}
+CASES = {"c7": (5, 300, 40, 7), "c150": (5, 400, 24, 150),
+         "d384": (4, 200, 384, 9)}  # ViT-S/14's feature width
 
 
 def _inputs(case, seed=0):
@@ -152,10 +153,12 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 @pytest.mark.gpu
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
 @pytest.mark.parametrize("shape", [(64, 5994, 512, 200), (37, 5994, 512, 10), (1, 1, 3, 1),
-                                   (17, 65, 33, 129), (300, 1000, 100, 7)])
+                                   (17, 65, 33, 129), (300, 1000, 100, 7),
+                                   (64, 5800, 384, 200)])
 def test_cuda_kernel_matches_plain(precision, shape):
     """On the card: the CUDA kernel vs the plain version, all five kernels,
-    masked rows, at the CUB-200 shape and at ragged ones (D off the 32-wide
+    masked rows, at the CUB-200 shape, at the ViT-S/14 bank's (D=384) and
+    at ragged ones (D off the 32-wide
     chunk, S off the 64-row tile, one row, one class); f32 rtol=atol=2e-4,
     bf16 atol=2e-3."""
     if not torch.cuda.is_available():

@@ -24,6 +24,8 @@ MODULES = (
     "nwhead_tpu_torch.ops.metrics", "nwhead_tpu_torch.data.pipeline",
     "nwhead_tpu_torch.train", "nwhead_tpu_torch.train.trainer",
     "nwhead_tpu_torch.train.config", "nwhead_tpu_torch.train.checkpoint",
+    "nwhead_tpu_torch.ops.fused_attn", "nwhead_tpu_torch.ops.fused_mlp",
+    "nwhead_tpu_torch.models.vit", "nwhead_tpu_torch.models.serving_vit",
 )
 
 
@@ -50,7 +52,7 @@ def test_capabilities_report_no_gpu_on_a_cpu_host():
     assert caps["cuda_available"] is False
     assert caps["device_count"] == 0 and caps["devices"] == []
     assert caps["capability"] is None
-    assert set(caps["kernels_built"]) == {"nw_fused", "nw_prepared"}
+    assert set(caps["kernels_built"]) == {"nw_fused", "nw_prepared", "vit_attn", "vit_mlp"}
     assert all(v in (True, False) for v in caps["kernels_built"].values())
     assert json.dumps(caps)  # plain data, printable as JSON
 
