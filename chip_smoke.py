@@ -47,7 +47,14 @@ package beside it. With one, in order:
    times, and K2 once), the served features against the plain featurizer
    and the served log-probs against the plain head on the same images, and
    prints p50, p95, queries/s, the bank's seconds and peak device memory;
-8. training phase: ``python -m nwhead_tpu_torch.train --dataset
+8. ViT training kernel phase: K8 (the attention backward) f32 and bf16 at
+   ViT-S/14's B=64, N=257, H=6, hd=64, at a ragged N=197, at N=1370 with
+   B=8, at ViT-B/14's 12 heads and at 12 heads of 32, every part of dqkv;
+   the K9 backward (all five gradients) f32 and bf16 at M=16,448 and at a
+   ragged M=1,001; each against its plain version within ``GRAD_REL`` of
+   max|plain|, timed at B=64, K8 beside the backward of
+   ``F.scaled_dot_product_attention`` on the same q, k, v and dO;
+9. training phase: ``python -m nwhead_tpu_torch.train --dataset
    synthetic_cub --arch resnet18 --batch_size 8 --n_shot 6 --lr 1e-2
    --num_epochs 1 --num_steps_per_epoch 10 --num_val_steps_per_epoch 10``
    through the module's functions (eval in the random and full modes, then
@@ -61,7 +68,20 @@ package beside it. With one, in order:
    and 3 steps of the
    canonical ``--n_way 10 --n_shot 1`` recipe, which is too small for the
    fused head and must launch no K1;
-9. prints the nvidia-smi line, a JSON line of per-kernel results, and as the
+10. ViT training phase: ``--arch vit_s14`` with the same episode (``--lr
+   1e-3``, 10 steps, 3 eval batches) through ``train.setup(...,
+   featurizer_kwargs={"attn_impl": "fused", "mlp_impl": "fused"})`` and
+   ``train.run_epochs``, LayerScale gammas of order 1. It checks that K8,
+   the K9 backward, K1, dq and ds launched 12, 12, 1, 1 and 1 times per
+   step and K2 in the full-mode eval, that every loss is finite and every
+   block's qkv, proj, fc1 and fc2 weights moved, and holds K8 and the K9
+   backward to their plain versions on one block's tensors of the first
+   step. It prints the step time split by CUDA events, each featurizer
+   kernel's time at the step's own shapes against the step, and the peak
+   device memory; compares every parameter gradient of the fused featurizer with
+   the plain (``xla``) one on a small episode (``--n_way 4 --n_shot 1``);
+   then trains 3 steps with ``--bf16``;
+11. prints the nvidia-smi line, a JSON line of per-kernel results, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 Kernel times are device times: CUDA events around each call, queued behind
@@ -73,7 +93,9 @@ input read once, each output written once) over 3.35 TB/s and its products
 (2 flops per multiply-add: scores, attention, the MLP's and projections'
 matrix products) over 67 TFLOP/s for f32 inputs (the rate outside the
 tensor cores) or 989 TFLOP/s for bf16, the H100 SXM's published peaks. The
-exponentials, GELUs and LayerNorms are not counted.
+exponentials, GELUs and LayerNorms are not counted. The backward kernels
+count the products their function needs (five for K8 and for the K9
+backward), not the recomputations a kernel adds.
 """
 
 from __future__ import annotations
@@ -114,6 +136,7 @@ RAW_CASES = (  # name, B, S, D, C, queries copied into the support; the first
     ("ragged_b37", 37, 1001, 512, 200, 0),
     ("c10_b8", 8, 1200, 512, 10, 0),
     ("dup_b8", 8, 1200, 512, 200, 6),
+    ("episode_d384", 8, 1200, 384, 200, 0),  # the ViT-S/14 training episode
 )
 PREPARED_SOURCE = "nwhead_tpu_torch/csrc/nw_prepared.cu"
 FUSED_SOURCE = "nwhead_tpu_torch/csrc/nw_fused.cu"
@@ -432,7 +455,7 @@ def _time_raw(flush, qn, sn, labels, scale, mode, C, g, prec) -> dict:
 
 RAW_WRAPPERS = ("nw_fwd_cuda", "nw_bwd_dq_cuda", "nw_bwd_ds_cuda")
 VIT_WRAPPERS = ("attention_qkv_cuda", "attention_block_bf16_cuda", "mlp_cuda",
-                "mlp_block_bf16_cuda")
+                "mlp_block_bf16_cuda", "attention_qkv_bwd_cuda", "mlp_bwd_cuda")
 WRAPPERS = ("nw_prepared_cuda",) + RAW_WRAPPERS + VIT_WRAPPERS
 
 
@@ -466,7 +489,10 @@ class StepTimer:
         import torch
 
         self.torch, self.steps = torch, []
-        stem = next(model.featurizer.parameters())
+        # A ViT's first parameter is cls_token, whose gradient comes before
+        # the patch embedding's; the stem is the first op either way.
+        patch_embed = getattr(model.featurizer, "patch_embed", None)
+        stem = next((patch_embed or model.featurizer).parameters())
         self.handles = [
             model.featurizer.register_forward_pre_hook(self._start),
             model.featurizer.register_forward_hook(self._tap("feat_fwd", "feat_bwd_start")),
@@ -957,6 +983,323 @@ def vit_entries(kern: dict, served: dict) -> list:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# ViT training: K8 and the K9 backward.
+# ---------------------------------------------------------------------------
+
+ATTN_BWD_SOURCE = "nwhead_tpu_torch/csrc/vit_attn_bwd.cu"
+MLP_BWD_SOURCE = "nwhead_tpu_torch/csrc/vit_mlp_bwd.cu"
+VIT_BWD_REPLACES = {
+    "attention_qkv_bwd": "nwhead_tpu/ops/pallas_attn.py:120",
+    "mlp_bwd": "nwhead_tpu/ops/pallas_mlp.py:61",
+}
+ATTN_BWD_CASES = ATTN_CASES[:2] + (  # name, B, N, H, hd; the first is timed
+    ("n1370_b8", 8, 1370, VIT_H, 64),
+    ATTN_CASES[3],
+    ("hd32_b64", VIT_B, VIT_N, 12, 32),
+)
+FUSED = {"attn_impl": "fused", "mlp_impl": "fused"}
+VIT_TRAIN_ARGV = [
+    "--dataset", "synthetic_cub", "--arch", "vit_s14", "--batch_size", "8", "--n_shot", "6",
+    "--lr", "1e-3", "--num_epochs", "1", "--num_steps_per_epoch", "10",
+    "--num_val_steps_per_epoch", "3",
+]
+VIT_BLOCKS = 12
+# Per training step: each block's backward kernels once, the fused head once.
+VIT_STEP_LAUNCHES = {"attention_qkv_bwd_cuda": VIT_BLOCKS, "mlp_bwd_cuda": VIT_BLOCKS,
+                     "nw_fwd_cuda": 1, "nw_bwd_dq_cuda": 1, "nw_bwd_ds_cuda": 1}
+
+
+def check_grads(got, want, prec: str, names, where: str) -> float:
+    """Each gradient within ``GRAD_REL[prec]`` of its plain version's max,
+    finite, with the plain version's shape and dtype; raises otherwise.
+    Returns the largest max |err|."""
+    import torch
+
+    rels, worst = [], 0.0
+    for name, a, b in zip(names, got, want):
+        ok = (a.shape == b.shape and a.dtype == b.dtype and bool(torch.isfinite(a).all()))
+        rel = rel_err(a, b)
+        rels.append(f"{name} {rel:.2e}")
+        worst = max(worst, float((a.float() - b.float()).abs().max()))
+        if not ok or rel > GRAD_REL[prec]:
+            raise AssertionError(f"{where} {prec}: {name} disagrees with the plain version "
+                                 f"(rel {rel:.2e})")
+    print(f"{where} {prec}: rel " + ", ".join(rels) + " ok")
+    return worst
+
+
+def _qkv_parts(t, D):
+    return [t[..., i * D:(i + 1) * D] for i in range(3)]
+
+
+def vit_train_kernel_phase(flush) -> dict:
+    """K8 and the K9 backward (f32 and bf16) against their plain versions on
+    the card; times each at B=64, K8 beside the SDPA backward. Returns, per
+    entry, max |err|, kernel, plain and library ms and the bound."""
+    import torch
+    import torch.nn.functional as TF
+
+    from nwhead_tpu_torch.ops import fused_attn as FA
+    from nwhead_tpu_torch.ops import fused_mlp as FM
+
+    dev = torch.device("cuda")
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    res: dict = {}
+    for ci, (case, B, N, H, hd) in enumerate(ATTN_BWD_CASES):
+        rng = np.random.default_rng(600 + ci)
+        qkv32 = torch.from_numpy(rng.standard_normal((B, N, 3 * H * hd), np.float32)).to(dev)
+        g32 = torch.from_numpy(rng.standard_normal((B, N, H * hd), np.float32)).to(dev)
+        for prec, dt in dtypes.items():
+            qkv, g, key = qkv32.to(dt), g32.to(dt), f"attention_qkv_bwd_{prec}"
+            got = FA.attention_qkv_bwd_cuda(qkv, g, H, hd ** -0.5)
+            want = FA._attention_qkv_bwd_plain(qkv, g, H, hd ** -0.5)
+            torch.cuda.synchronize()
+            err = check_grads(_qkv_parts(got, H * hd), _qkv_parts(want, H * hd), prec,
+                              ("dq", "dk", "dv"), f"K8 {case}")
+            _vit_record(res, key, err)
+            if ci == 0:
+                q, k, v = (t.permute(0, 2, 1, 3).contiguous().requires_grad_(True)
+                           for t in qkv.reshape(B, N, 3, H, hd).unbind(2))
+                out = TF.scaled_dot_product_attention(q, k, v)
+                g_heads = g.reshape(B, N, H, hd).permute(0, 2, 1, 3).contiguous()
+                item = qkv.element_size()
+                _vit_timed(res, key, flush, lambda: FA.attention_qkv_bwd_cuda(qkv, g, H, hd ** -0.5),
+                           lambda: FA._attention_qkv_bwd_plain(qkv, g, H, hd ** -0.5),
+                           7 * B * N * H * hd * item, 10 * B * H * N * N * hd, prec,
+                           library=lambda: torch.autograd.grad(out, (q, k, v), g_heads,
+                                                               retain_graph=True))
+                del q, k, v, out
+    D, Dh = VIT_D, VIT_DH
+    rng = np.random.default_rng(700)
+    w1, b1, w2, b2 = (torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+        rng.standard_normal((D, Dh)) / np.sqrt(D), 0.1 * rng.standard_normal(Dh),
+        rng.standard_normal((Dh, D)) / np.sqrt(Dh), 0.1 * rng.standard_normal(D)))
+    for ci, (case, M) in enumerate(MLP_CASES):
+        rng = np.random.default_rng(800 + ci)
+        x32 = torch.from_numpy(rng.standard_normal((M, D), np.float32)).to(dev)
+        g32 = torch.from_numpy(rng.standard_normal((M, D), np.float32)).to(dev)
+        for prec, dt in dtypes.items():
+            args = (x32.to(dt), w1.to(dt), b1, w2.to(dt), b2, g32.to(dt))
+            key = f"mlp_bwd_{prec}"
+            got, want = FM.mlp_bwd_cuda(*args), FM._mlp_bwd_plain(*args)
+            torch.cuda.synchronize()
+            err = check_grads(got, want, prec, ("dx", "dw1", "db1", "dw2", "db2"),
+                              f"K9 backward {case}")
+            _vit_record(res, key, err)
+            if ci == 0:
+                item = x32.to(dt).element_size()
+                _vit_timed(res, key, flush, lambda: FM.mlp_bwd_cuda(*args),
+                           lambda: FM._mlp_bwd_plain(*args),
+                           3 * M * D * item + 4 * D * Dh * item + 4 * (2 * Dh + D),
+                           10 * M * D * Dh, prec)
+    return res
+
+
+def _capture_first(module, name: str, store: dict):
+    """Stand in for ``module.name`` (a kernel wrapper), calling it, and copy
+    the first call's arguments into ``store``, tensors to host memory (so
+    that the run's peak device memory is its own); returns the function
+    that puts the wrapper back. The wrapper counts its launches into
+    whatever its module holds under its name, so the stand-in carries the
+    count while it is in place and hands it back."""
+    import torch
+
+    wrapper = getattr(module, name)
+
+    def capturing(*args):
+        if not store:
+            store["args"] = tuple(a.detach().cpu() if torch.is_tensor(a) else a for a in args)
+        return wrapper(*args)
+
+    def restore():
+        wrapper.launches = capturing.launches
+        setattr(module, name, wrapper)
+
+    capturing.launches = wrapper.launches
+    setattr(module, name, capturing)
+    return restore
+
+
+def vit_training_phase(datasets, workdir: str) -> dict:
+    """The ViT training path on the kernels: 10 steps of the ``n_shot 6``
+    episode with the fused impls, launch counts, moved weights, K8 and the
+    K9 backward on the first step's tensors, the step split and peak
+    memory; then the fused featurizer's gradients against the plain one's
+    on a small episode, and 3 steps with ``--bf16``."""
+    import torch
+
+    from nwhead_tpu_torch import train
+    from nwhead_tpu_torch.ops import fused_attn as FA
+    from nwhead_tpu_torch.ops import fused_mlp as FM
+    from nwhead_tpu_torch.ops import metrics as M
+
+    argv = VIT_TRAIN_ARGV + ["--models_dir", workdir, "--log_interval", "1000"]
+    args, trainer, start = train.setup(argv, datasets=datasets, featurizer_kwargs=FUSED)
+    net = trainer.net
+    _set_gammas(net)
+    print(f"vit train: LayerScale gammas set to U[0.5, 1.5] (seed {GAMMA_SEED})")
+    timer = StepTimer(net.model)
+    blocks = net.model.featurizer.blocks
+    watched = {f"blocks.{i}.{m}": b.get_submodule(m).weight for i, b in enumerate(blocks)
+               for m in ("attn.qkv", "attn.proj", "mlp.fc1", "mlp.fc2")}
+    before = {n: w.detach().clone() for n, w in watched.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _counts(reset=True)
+    attn_in, mlp_in = {}, {}
+    restore = [_capture_first(FA, "attention_qkv_bwd_cuda", attn_in),
+               _capture_first(FM, "mlp_bwd_cuda", mlp_in)]
+    try:
+        t0 = time.perf_counter()
+        train.run_epochs(args, trainer, start)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for r in restore:
+            r()
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    split = timer.split()
+    losses = trainer.step_losses
+    print(f"vit train f32: launches {launches}; {len(losses)} steps in "
+          f"{trainer.train_seconds:.2f}s ({trainer.train_seconds / TRAIN_STEPS * 1e3:.1f} ms/step, "
+          f"first step included); eval + train {wall:.2f}s; peak device memory "
+          f"{peak / 2**30:.2f} GiB; losses {['%.4f' % v for v in losses]}")
+    print(f"vit train step split (CUDA events from hooks in the run's steps, median of steps "
+          f"2-{split['steps'] + 1}): featurizer fwd+bwd {split['featurizer_ms']:.2f} ms, head "
+          f"fwd+bwd {split['head_ms']:.3f} ms, step {split['step_ms']:.2f} ms (optimizer "
+          f"update not included)")
+    for name, per_step in VIT_STEP_LAUNCHES.items():
+        if launches[name] != per_step * TRAIN_STEPS:
+            raise AssertionError(f"{name} launched {launches[name]} times in {TRAIN_STEPS} "
+                                 f"ViT training steps, want {per_step} per step")
+    if launches["nw_prepared_cuda"] == 0:
+        raise AssertionError("the ViT full-mode eval never launched K2")
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"ViT losses {losses}")
+    if split["steps"] != TRAIN_STEPS - 1:
+        raise AssertionError(f"the step timer saw {split['steps'] + 1} ViT steps")
+    still = [n for n, w in watched.items() if torch.equal(w.detach(), before[n])]
+    if still:
+        raise AssertionError(f"block weights that did not move: {still}")
+    print(f"vit train: all {len(watched)} qkv/proj/fc1/fc2 weights of the {len(blocks)} "
+          "blocks moved")
+
+    # K8 and the K9 backward on the first step's tensors (the last block's,
+    # the first backward of the run) against their plain versions.
+    dev = net.device
+    qkv, g, H, scale = (a.to(dev) if torch.is_tensor(a) else a for a in attn_in.pop("args"))
+    D = qkv.shape[-1] // 3
+    got = FA.attention_qkv_bwd_cuda(qkv, g, H, scale)
+    want = FA._attention_qkv_bwd_plain(qkv, g, H, scale)
+    torch.cuda.synchronize()
+    errs = {"attention_qkv_bwd": check_grads(_qkv_parts(got, D), _qkv_parts(want, D), "f32",
+                                             ("dq", "dk", "dv"),
+                                             f"K8 on the first step's qkv {tuple(qkv.shape)}")}
+    del got, want
+    torch.cuda.empty_cache()
+    # Each featurizer kernel's device time at the step's own shapes, times
+    # its launches per step, against the step.
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    step_ms = {"K7": time_ms(lambda: FA.attention_qkv_cuda(qkv, H, scale), flush, n=5),
+               "K8": time_ms(lambda: FA.attention_qkv_bwd_cuda(qkv, g, H, scale), flush, n=5)}
+    del qkv, g
+    m_args = tuple(a.to(dev) for a in mlp_in.pop("args"))
+    got, want = FM.mlp_bwd_cuda(*m_args), FM._mlp_bwd_plain(*m_args)
+    torch.cuda.synchronize()
+    errs["mlp_bwd"] = check_grads(got, want, "f32", ("dx", "dw1", "db1", "dw2", "db2"),
+                                  f"K9 backward on the first step's x {tuple(m_args[0].shape)}")
+    del got, want
+    torch.cuda.empty_cache()
+    step_ms["K9"] = time_ms(lambda: FM.mlp_cuda(*m_args[:5]), flush, n=5)
+    step_ms["K9 backward"] = time_ms(lambda: FM.mlp_bwd_cuda(*m_args), flush, n=5)
+    kernels_ms = VIT_BLOCKS * sum(step_ms.values())
+    print(f"vit train kernels at the step's shapes (median of 5): " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in step_ms.items()) + f"; {VIT_BLOCKS} x their sum = "
+        f"{kernels_ms:.1f} ms of the {split['step_ms']:.1f} ms step "
+        f"({kernels_ms / split['step_ms']:.2f})")
+    out = {"launches": {"f32": launches}, "errs": errs, "split": split, "peak_bytes": peak,
+           "ms_per_step": trainer.train_seconds / TRAIN_STEPS, "losses": losses,
+           "kernel_step_ms": step_ms}
+    del trainer, net, timer, m_args, watched, before, flush
+    torch.cuda.empty_cache()
+
+    # Every parameter gradient of the fused featurizer against the plain one
+    # (xla impls) on one small episode, where the plain path fits.
+    small = argv[:argv.index("--n_shot")] + ["--n_way", "4", "--n_shot", "1"] + \
+        argv[argv.index("--n_shot") + 2:]
+    grads = []
+    for kwargs in (FUSED, None):
+        _, tr, _ = train.setup(small, datasets=datasets, featurizer_kwargs=kwargs)
+        _set_gammas(tr.net)
+        x, y = tr.train_dataset.gather(np.arange(4)), tr.train_dataset.targets[:4]
+        log_probs, _ = tr.net.forward(x, y)
+        loss = M.nll_loss(log_probs, torch.as_tensor(y, device=tr.net.device))
+        params = dict(tr.net.model.featurizer.named_parameters())
+        grads.append(dict(zip(params, torch.autograd.grad(loss, list(params.values())))))
+        del tr, log_probs, loss, params
+    # The final LayerNorm's bias shifts query and support features alike, so
+    # the euclidean head gives it a gradient of 0 up to rounding: it is held
+    # against the largest gradient of all, every other tensor against its own.
+    top = max(float(t.abs().max()) for t in grads[1].values())
+
+    def rel_of(n):
+        diff = float((grads[0][n] - grads[1][n]).abs().max())
+        return diff / (top if n == "norm.bias" else max(float(grads[1][n].abs().max()), 1e-30))
+
+    worst = max(grads[1], key=rel_of)
+    rel = rel_of(worst)
+    print(f"vit fused vs xla featurizer gradients (n_way 4, n_shot 1, 4 queries): "
+          f"{len(grads[0])} tensors, worst {worst} rel {rel:.2e}, norm.bias "
+          f"{rel_of('norm.bias'):.2e} of the largest gradient "
+          f"{'ok' if rel <= GRAD_REL['f32'] else 'FAIL'}")
+    if rel > GRAD_REL["f32"] or not all(bool(torch.isfinite(t).all()) for t in grads[0].values()):
+        raise AssertionError("the fused featurizer's gradients disagree with the plain one's")
+    out["fused_vs_xla_rel"] = rel
+    del grads
+    torch.cuda.empty_cache()
+
+    # bf16 featurizer: 3 steps, each kernel of the path once per block per step.
+    torch.cuda.reset_peak_memory_stats()
+    _, trainer, _ = train.setup(argv + ["--bf16"], datasets=datasets, featurizer_kwargs=FUSED)
+    _set_gammas(trainer.net)
+    _counts(reset=True)
+    trainer.train_epoch(num_steps=3)
+    torch.cuda.synchronize()
+    bf = _counts()
+    out["launches"]["bf16"] = bf
+    print(f"vit train bf16: launches {bf}; losses {['%.4f' % v for v in trainer.step_losses]}; "
+          f"{trainer.train_seconds / 3 * 1e3:.1f} ms/step (first step included); peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    want_bf = {n: 3 * c for n, c in VIT_STEP_LAUNCHES.items()}
+    want_bf.update(attention_qkv_cuda=3 * VIT_BLOCKS, mlp_cuda=3 * VIT_BLOCKS)
+    if any(bf[n] != c for n, c in want_bf.items()) or not np.isfinite(trainer.step_losses).all():
+        raise AssertionError(f"bf16 ViT training: launches {bf}, want {want_bf}; losses "
+                             f"{trainer.step_losses}")
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def vit_train_entries(kern: dict, tr: dict) -> list:
+    """The ``kernels`` JSON entries of K8 and the K9 backward: launches from
+    the ViT training runs (f32: 10 steps, bf16: 3)."""
+    entries = []
+    for kernel, wrapper, source in (("attention_qkv_bwd", "attention_qkv_bwd_cuda", ATTN_BWD_SOURCE),
+                                    ("mlp_bwd", "mlp_bwd_cuda", MLP_BWD_SOURCE)):
+        for prec in ("f32", "bf16"):
+            r = kern[f"{kernel}_{prec}"]
+            err = max(r["max_abs_err"], tr["errs"][kernel]) if prec == "f32" else r["max_abs_err"]
+            entries.append({
+                "name": f"{kernel}_{prec}", "route": "cuda", "source": source,
+                "replaces": VIT_BWD_REPLACES[kernel], "launches": tr["launches"][prec][wrapper],
+                "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"]})
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -999,6 +1342,9 @@ def main() -> int:
     t0 = time.perf_counter()
     vit_kern = vit_kernel_phase(flush)
     phase_s["ViT kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vit_train_kern = vit_train_kernel_phase(flush)
+    phase_s["ViT training kernels"] = time.perf_counter() - t0
     del flush
     t0 = time.perf_counter()
     args = train.Parser().parse_args(TRAIN_ARGV)
@@ -1010,12 +1356,17 @@ def main() -> int:
     t0 = time.perf_counter()
     vit_served = vit_serving_phase(datasets)
     phase_s["ViT serving"] = time.perf_counter() - t0
-    print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
+        t0 = time.perf_counter()
         tr = training_phase(datasets, workdir)
+        phase_s["ResNet training"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        vit_tr = vit_training_phase(datasets, workdir)
+        phase_s["ViT training"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     print(nvidia_smi_line())
     entries = [
@@ -1037,6 +1388,7 @@ def main() -> int:
                 "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None})
     entries += vit_entries(vit_kern, vit_served)
+    entries += vit_train_entries(vit_train_kern, vit_tr)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,13 +6,15 @@ Plain tensor code is PyTorch; the fused NW head and the ViT's fused layers
 run on CUDA kernels written for ``sm_90a`` (``csrc/nw_fused.cu``: the raw
 forward K1 and its backward K3; ``csrc/nw_prepared.cu``: the prepared-bank
 forward K2; ``csrc/vit_attn.cu``: ViT attention K7 and the bf16 attention
-half-block K10; ``csrc/vit_mlp.cu``: the fused MLP forward K9 and the bf16
-MLP half-block K11), built with ``nvcc`` at first use and bound with
-``ctypes`` (``ops/_cuda.py``).
+half-block K10; ``csrc/vit_attn_bwd.cu``: K7's backward K8;
+``csrc/vit_mlp.cu``: the fused MLP forward K9 and the bf16 MLP half-block
+K11; ``csrc/vit_mlp_bwd.cu``: the K9 backward), built with ``nvcc`` at
+first use and bound with ``ctypes`` (``ops/_cuda.py``).
 
 The slices ported so far: episodic training (``python -m
-nwhead_tpu_torch.train``: ResNet featurizer -> ``NWModel.forward`` -> fused
-head K1/K3 -> ``NWTrainer``) and serving (``NWNet.precompute`` ->
+nwhead_tpu_torch.train``: ResNet or ViT featurizer -> ``NWModel.forward``
+-> fused head K1/K3 -> ``NWTrainer``; a ViT with the fused impls trains on
+K7/K8 and the K9 forward and backward) and serving (``NWNet.precompute`` ->
 ``prepare_support`` -> ``NWNet.make_serving_fn``, K2) with a ResNet or a ViT
 featurizer (``--fused_inference``: K7/K9; ``NWNet.fuse_featurizer``, the
 bf16 serving graph: K10/K11).

@@ -47,9 +47,6 @@
 
 namespace vit {
 
-constexpr int kTile = 64;          // queries per block, keys per chunk
-constexpr int kTileStride = kTile + 4;  // padded row stride (floats) of the staged tiles
-
 template <int kHd>
 constexpr size_t attention_smem_bytes() {
   return sizeof(float) * (2 * kHd * kTileStride      // Q^T, K^T

@@ -1,6 +1,7 @@
-// Device code shared by the ViT kernels (vit_attn.cu, vit_mlp.cu): dtype
-// conversion and rounding, warp reductions, the LayerNorm statistics of a
-// row, the exact GELU, and the register-tiled FFMA product step.
+// Device code shared by the ViT kernels (vit_attn.cu, vit_attn_bwd.cu,
+// vit_mlp.cu, vit_mlp_bwd.cu): dtype conversion and rounding, warp
+// reductions, the LayerNorm statistics of a row, the exact GELU, the
+// register-tiled FFMA product step and the attention kernels' tile shape.
 //
 // Every product here is an f32 FMA on values widened from the inputs' dtype
 // (f32 or bf16): a bf16 x bf16 product is exact in f32, so the bf16 paths
@@ -21,6 +22,10 @@ namespace vit {
 constexpr int kThreads = 256;  // every ViT kernel runs 8 warps
 constexpr int kWarps = kThreads / 32;
 constexpr float kNeg = -FLT_MAX;  // jnp.finfo(float32).min, the JAX kernels' "-inf"
+constexpr int kTile = 64;          // attention: queries per block, keys per chunk
+constexpr int kTileStride = kTile + 4;  // padded row stride (floats) of the staged tiles
+
+__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }

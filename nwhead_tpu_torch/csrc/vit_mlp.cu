@@ -33,8 +33,6 @@ namespace vit {
 constexpr int kHidden = 128;  // hidden units per chunk
 constexpr int kSlice = 16;    // K rows per staged weight slice
 
-__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
 template <int kRows, int kGroups>
 size_t mlp_smem_bytes(int d_in) {
   constexpr int kStride = kWarps * kRows + 4;

@@ -12,9 +12,9 @@ returns the final-LayerNorm CLS token ``(B, embed_dim)`` in f32.
 * pre-norm blocks, LayerNorm eps 1e-6, LayerScale (init 1e-5 as DINOv2).
 
 ``attn_impl``/``mlp_impl``: ``'xla'`` (plain PyTorch, the JAX default's
-name) or ``'fused'`` (K7 and the K9 forward, ``ops/fused_attn.py`` and
-``ops/fused_mlp.py``; forward only until K8 and the K9 backward are
-ported). The qkv, proj and patch-embedding products stay ``F.linear`` and
+name) or ``'fused'`` (``ops/fused_attn.py`` and ``ops/fused_mlp.py``: K7
+and K9 forward, K8 and the K9 backward, so a fused ViT trains too). The
+qkv, proj and patch-embedding products stay ``F.linear`` and
 ``F.conv2d`` on both, as the JAX model left them to XLA. ``dtype``: None
 (f32) or ``torch.bfloat16``, which computes in bf16 from f32 parameters as
 flax's ``dtype`` does (LayerNorm statistics and the softmax in f32).

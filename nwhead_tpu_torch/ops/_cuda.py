@@ -41,6 +41,15 @@ _API = {
             _I32),
         "vit_attn_error_string": ([_I32], ctypes.c_char_p),
     },
+    "vit_attn_bwd": {
+        "vit_attention_backward": ([_VP] * 4 + [_I32] * 4 + [_F32, _I32, _VP], _I32),
+        "vit_attn_bwd_error_string": ([_I32], ctypes.c_char_p),
+    },
+    "vit_mlp_bwd": {
+        "vit_mlp_backward": ([_VP] * 13 + [_I32] * 6 + [_VP], _I32),
+        "vit_mlp_bwd_splits": ([_I32], _I32),
+        "vit_mlp_bwd_error_string": ([_I32], ctypes.c_char_p),
+    },
     "vit_mlp": {
         "vit_mlp_forward": ([_VP] * 3 + [_F32] + [_VP] * 5 + [_I32, _VP] + [_I32] * 5 + [_VP],
                             _I32),

@@ -1,28 +1,36 @@
-"""Fused ViT attention: multi-head attention off the packed qkv (K7) and the
-bf16 attention half-block (K10).
+"""Fused ViT attention: multi-head attention off the packed qkv (K7), its
+backward (K8), and the bf16 attention half-block (K10).
 
 Port of ``nwhead_tpu/ops/pallas_attn.py``: ``fused_attention_qkv`` (forward
-only) and ``fused_attention_block_bf16`` (``quant=False``). The kernels are
-CUDA C++ for Hopper in ``csrc/vit_attn.cu``, built and loaded by
-``ops/_cuda.py``:
+and backward) and ``fused_attention_block_bf16`` (``quant=False``). The
+kernels are CUDA C++ for Hopper, built and loaded by ``ops/_cuda.py``:
 
-* K7 ``vit_attention_forward`` (TPU ``_attn_qkv_kernel``): per head
-  ``softmax(q k^T * scale) v`` with the softmax in f32, f32 or bf16;
-* K10 ``vit_attention_block_bf16`` (TPU ``_attn_int8_kernel`` with
-  ``quant=False``): [LayerNorm ->] qkv -> attention -> proj [-> *
-  LayerScale] [-> + x] in bf16, three launches through device memory.
+* K7 ``vit_attention_forward`` (``csrc/vit_attn.cu``, TPU
+  ``_attn_qkv_kernel``): per head ``softmax(q k^T * scale) v`` with the
+  softmax in f32, f32 or bf16;
+* K8 ``vit_attention_backward`` (``csrc/vit_attn_bwd.cu``, TPU
+  ``_attn_qkv_bwd_kernel`` and ``_attn_qkv_chunked_bwd_kernel``): the
+  attention VJP from qkv and dO alone, probabilities recomputed;
+* K10 ``vit_attention_block_bf16`` (``csrc/vit_attn.cu``, TPU
+  ``_attn_int8_kernel`` with ``quant=False``): [LayerNorm ->] qkv ->
+  attention -> proj [-> * LayerScale] [-> + x] in bf16, three launches
+  through device memory.
 
 Each kernel has a wrapper that counts its launches (``.launches``) and a
 plain PyTorch version of the same function (``_attention_qkv_plain``,
-``_attention_block_bf16_plain``) that follows the TPU kernel's single pass
-and its rounding points: probabilities normalized in f32, then rounded to
-v's dtype before the PV product. A CPU tensor goes to the plain version, a
-CUDA tensor to the kernel, with no fallback between them.
+``_attention_qkv_bwd_plain``, ``_attention_block_bf16_plain``) that follows
+the TPU kernel's single pass and its rounding points: probabilities
+normalized in f32, then rounded to v's dtype before the PV product (and
+before dV in the backward). ``fused_attention_qkv`` is a
+``torch.autograd.Function`` that saves only qkv, as the JAX custom VJP
+does. A CPU tensor goes to the plain versions, a CUDA tensor to the
+kernels, with no fallback between them.
 
 Left out as TPU workarounds that change no value: the VMEM budget tests
 (``_select_k_chunk``, ``_bf16_attn_k_chunk``) and the ``_FLASH_CHUNK``
-switch; the kernels take any N. K7's backward (K8) is not ported yet, so
-``fused_attention_qkv`` refuses inputs that require grad.
+switch; the kernels take any N. The chunked TPU backward, which JAX runs
+only past N of about 2,950, takes delta from the output built on rounded
+probabilities; the port follows the single pass at every N.
 """
 
 from __future__ import annotations
@@ -71,6 +79,32 @@ def _attention_qkv_plain(qkv: torch.Tensor, num_heads: int, scale: float) -> tor
     return _heads_attention_f32(qkv, num_heads, scale, qkv.dtype).to(qkv.dtype)
 
 
+def _attention_qkv_bwd_plain(qkv: torch.Tensor, dout: torch.Tensor, num_heads: int,
+                             scale: float) -> torch.Tensor:
+    """K8's function in plain PyTorch, the TPU single pass
+    (``_attn_qkv_bwd_kernel``) with its rounding points: ``(B, N, 3D)`` qkv
+    and ``(B, N, D)`` dO (rounded to qkv's dtype) -> dqkv ``(B, N, 3D)`` in
+    qkv's dtype. P in f32; ``P`` rounded to v's dtype for dV = P^T dO;
+    dP = dO v^T in f32; delta = rowsum(dP * P) on the f32 P; dS = P (dP -
+    delta) rounded to q's dtype; dQ = dS k * scale, dK = dS^T q * scale."""
+    B, N, three_d = qkv.shape
+    D = three_d // 3
+    hd = D // num_heads
+    dt, f32 = qkv.dtype, torch.float32
+    x = qkv.to(f32).reshape(B, N, 3, num_heads, hd)
+    q, k, v = (x[:, :, i].permute(0, 2, 1, 3) for i in range(3))  # (B, H, N, hd)
+    do = dout.to(dt).to(f32).reshape(B, N, num_heads, hd).permute(0, 2, 1, 3)
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = e / torch.clamp(e.sum(-1, keepdim=True), min=1e-30)
+    dv = torch.matmul(p.to(dt).to(f32).transpose(-1, -2), do)
+    dp = torch.matmul(do, v.transpose(-1, -2))
+    ds = (p * (dp - (dp * p).sum(-1, keepdim=True))).to(dt).to(f32)
+    dq = torch.matmul(ds, k) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q) * scale
+    return torch.cat([g.to(dt).permute(0, 2, 1, 3).reshape(B, N, D) for g in (dq, dk, dv)], -1)
+
+
 def _check_cuda(name: str, tensors) -> torch.device:
     """Every tensor contiguous on one CUDA device with its dtype; returns
     the device."""
@@ -84,6 +118,19 @@ def _check_cuda(name: str, tensors) -> torch.device:
     return device
 
 
+def _qkv_shape(name: str, qkv: torch.Tensor, num_heads: int):
+    """``(B, N, hd)`` of a ``(B, N, 3 H hd)`` f32 or bf16 qkv with hd a
+    width the kernels are built for; raises otherwise."""
+    if qkv.dim() != 3 or qkv.shape[2] % (3 * num_heads) or 0 in qkv.shape:
+        raise ValueError(f"{name}: qkv {tuple(qkv.shape)} is not (B, N, 3 H hd) for H={num_heads}")
+    if qkv.dtype not in (torch.float32, _BF16):
+        raise ValueError(f"{name}: qkv {qkv.dtype}: need f32 or bf16")
+    hd = qkv.shape[2] // (3 * num_heads)
+    if hd not in _HEAD_DIMS:
+        raise ValueError(f"{name}: head width {hd}: the kernel is built for {_HEAD_DIMS}")
+    return qkv.shape[0], qkv.shape[1], hd
+
+
 def _launch(lib, fn: str, *args) -> None:
     rc = getattr(lib, fn)(*args)
     if rc != 0:
@@ -94,16 +141,9 @@ def attention_qkv_cuda(qkv: torch.Tensor, num_heads: int, scale: float) -> torch
     """Launch K7 (``csrc/vit_attn.cu``) on the current stream: ``(B, N,
     3D)`` f32 or bf16 -> ``(B, N, D)``. Raises on anything the kernel does
     not take."""
-    if qkv.dim() != 3 or qkv.shape[2] % (3 * num_heads) or 0 in qkv.shape:
-        raise ValueError(f"qkv {tuple(qkv.shape)} is not (B, N, 3 H hd) for H={num_heads}")
-    if qkv.dtype not in (torch.float32, _BF16):
-        raise ValueError(f"qkv {qkv.dtype}: need f32 or bf16")
+    B, N, hd = _qkv_shape("attention_qkv_cuda", qkv, num_heads)
     device = _check_cuda("attention_qkv_cuda", [("qkv", qkv, qkv.dtype)])
-    B, N, three_d = qkv.shape
-    hd = three_d // (3 * num_heads)
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"head width {hd}: the kernel is built for {_HEAD_DIMS}")
-    out = torch.empty((B, N, three_d // 3), dtype=qkv.dtype, device=device)
+    out = torch.empty((B, N, num_heads * hd), dtype=qkv.dtype, device=device)
     lib = _cuda.load_library("vit_attn")
     with torch.cuda.device(device):
         _launch(lib, "vit_attention_forward", qkv.data_ptr(), out.data_ptr(), B, N, num_heads,
@@ -116,19 +156,63 @@ def attention_qkv_cuda(qkv: torch.Tensor, num_heads: int, scale: float) -> torch
 attention_qkv_cuda.launches = 0
 
 
+def attention_qkv_bwd_cuda(qkv: torch.Tensor, dout: torch.Tensor, num_heads: int,
+                           scale: float) -> torch.Tensor:
+    """Launch K8 (``csrc/vit_attn_bwd.cu``) on the current stream: ``(B, N,
+    3D)`` qkv and ``(B, N, D)`` dO, both f32 or both bf16 -> dqkv ``(B, N,
+    3D)`` in qkv's dtype. Per-row f32 statistics (max, sum, delta) go
+    through a ``(3, B, H, N)`` scratch tensor. Raises on anything the kernel
+    does not take."""
+    B, N, hd = _qkv_shape("attention_qkv_bwd_cuda", qkv, num_heads)
+    if tuple(dout.shape) != (B, N, num_heads * hd):
+        raise ValueError(f"attention_qkv_bwd_cuda: dout {tuple(dout.shape)}: need "
+                         f"{(B, N, num_heads * hd)}")
+    device = _check_cuda("attention_qkv_bwd_cuda",
+                         [("qkv", qkv, qkv.dtype), ("dout", dout, qkv.dtype)])
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty((3, B, num_heads, N), dtype=torch.float32, device=device)
+    lib = _cuda.load_library("vit_attn_bwd")
+    with torch.cuda.device(device):
+        rc = lib.vit_attention_backward(
+            qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), B, N, num_heads,
+            hd, float(scale), int(qkv.dtype == _BF16), torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"vit_attention_backward kernel launch failed: "
+                           f"{lib.vit_attn_bwd_error_string(rc).decode()}")
+    attention_qkv_bwd_cuda.launches += 1
+    return dqkv
+
+
+attention_qkv_bwd_cuda.launches = 0
+
+
+class _AttentionQKV(torch.autograd.Function):
+    """K7 forward, K8 backward; saves only qkv (``_attn_qkv_core``'s VJP)."""
+
+    @staticmethod
+    def forward(ctx, qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+        ctx.save_for_backward(qkv)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        if qkv.device.type == "cpu":
+            return _attention_qkv_plain(qkv, num_heads, scale)
+        return attention_qkv_cuda(qkv, num_heads, scale)
+
+    @staticmethod
+    def backward(ctx, dout: torch.Tensor):
+        (qkv,) = ctx.saved_tensors
+        dout = dout.to(qkv.dtype).contiguous()
+        bwd = _attention_qkv_bwd_plain if qkv.device.type == "cpu" else attention_qkv_bwd_cuda
+        return bwd(qkv, dout, ctx.num_heads, ctx.scale), None, None
+
+
 def fused_attention_qkv(qkv: torch.Tensor, num_heads: int, *,
                         scale: Optional[float] = None) -> torch.Tensor:
-    """Attention straight off the qkv projection (K7, forward only).
+    """Attention straight off the qkv projection (K7; differentiable, its
+    backward is K8, which recomputes the probabilities from qkv).
 
     ``qkv``: ``(B, N, 3, H, hd)`` as reshaped from the fused qkv Dense
     output (or already flat ``(B, N, 3 H hd)``). Returns ``(B, N, H hd)``
-    in qkv's dtype. Raises ``NotImplementedError`` where autograd would
-    record it (grad enabled, qkv requires grad): the backward is kernel K8,
-    not ported yet."""
-    if torch.is_grad_enabled() and qkv.requires_grad:
-        raise NotImplementedError(
-            "fused_attention_qkv has no backward yet: its kernel K8 is not ported "
-            "(ROADMAP.md queue 2); use attn_impl='xla' to differentiate")
+    in qkv's dtype."""
     if qkv.dim() == 5:
         B, N, three, H, hd = qkv.shape
         if three != 3 or H != num_heads:
@@ -136,9 +220,7 @@ def fused_attention_qkv(qkv: torch.Tensor, num_heads: int, *,
         qkv = qkv.reshape(B, N, 3 * H * hd)
     hd = qkv.shape[-1] // (3 * num_heads)
     sc = float(scale) if scale is not None else 1.0 / math.sqrt(hd)
-    if qkv.device.type == "cpu":
-        return _attention_qkv_plain(qkv, num_heads, sc)
-    return attention_qkv_cuda(qkv.contiguous(), num_heads, sc)
+    return _AttentionQKV.apply(qkv.contiguous(), num_heads, sc)
 
 
 def _attention_block_bf16_plain(

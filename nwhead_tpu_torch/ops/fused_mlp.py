@@ -1,21 +1,25 @@
-"""Fused transformer MLP: the forward of ``fc1 -> exact GELU -> fc2`` (K9)
-and the bf16 MLP half-block (K11).
+"""Fused transformer MLP: ``fc1 -> exact GELU -> fc2`` forward (K9), its
+backward (the K9 backward) and the bf16 MLP half-block (K11).
 
-Port of ``nwhead_tpu/ops/pallas_mlp.py``: ``fused_mlp`` (forward only) and
-``fused_mlp_block_bf16`` (``quant=False``). Both run one CUDA C++ kernel
-for Hopper, ``csrc/vit_mlp.cu`` ``vit_mlp_forward`` (TPU ``_mlp_kernel``
-and ``_mlp_int8_kernel``), in which the hidden activation never leaves the
-chip; K11 adds the optional LayerNorm before fc1 and the LayerScale and
-residual after fc2.
+Port of ``nwhead_tpu/ops/pallas_mlp.py``: ``fused_mlp`` (forward and
+backward) and ``fused_mlp_block_bf16`` (``quant=False``). The forwards run
+one CUDA C++ kernel for Hopper, ``csrc/vit_mlp.cu`` ``vit_mlp_forward``
+(TPU ``_mlp_kernel`` and ``_mlp_int8_kernel``), in which the hidden
+activation never leaves the chip; K11 adds the optional LayerNorm before
+fc1 and the LayerScale and residual after fc2. The backward is
+``csrc/vit_mlp_bwd.cu`` ``vit_mlp_backward`` (TPU ``_mlp_bwd_kernel``): h
+recomputed per token tile, dx, then the weight and bias gradients summed
+over all tokens in a fixed order.
 
 Each kernel has a wrapper that counts its launches (``.launches``) and a
-plain PyTorch version (``_mlp_plain``, ``_mlp_block_bf16_plain``) with the
-TPU kernel's rounding points. The exact GELU uses ``torch.erf`` here and
-``erff`` in the kernel; the JAX kernels use an approximation of erf
+plain PyTorch version (``_mlp_plain``, ``_mlp_bwd_plain``,
+``_mlp_block_bf16_plain``) with the TPU kernel's rounding points.
+``fused_mlp`` is a ``torch.autograd.Function`` that saves its inputs, as
+the JAX custom VJP does. The exact GELU uses ``torch.erf`` here and
+``erff`` in the kernels; the JAX kernels use an approximation of erf
 (Abramowitz & Stegun 7.1.26, absolute error 1.5e-7), which the tests'
-tolerances cover. A CPU tensor goes to the plain version, a CUDA tensor to
-the kernel, with no fallback between them. The backward of K9 is not
-ported yet, so ``fused_mlp`` refuses inputs that require grad.
+tolerances cover. A CPU tensor goes to the plain versions, a CUDA tensor to
+the kernels, with no fallback between them.
 """
 
 from __future__ import annotations
@@ -50,6 +54,29 @@ def _mlp_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Te
     return _mlp_f32(x, w1, b1, w2, b2, x.dtype).to(x.dtype)
 
 
+_INV_SQRT_2PI = 0.3989422804014327
+
+
+def _mlp_bwd_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                   b2: torch.Tensor, dout: torch.Tensor):
+    """The K9 backward in plain PyTorch (``_mlp_bwd_kernel``'s rounding
+    points) on ``(M, D_in)`` x and ``(M, D_out)`` dO (rounded to x's
+    dtype): h recomputed in f32; cdf = (1 + erf(h / sqrt 2)) / 2; g = h cdf
+    rounded to x's dtype; dg = dO w2^T in f32; dh = dg (cdf + h phi(h))
+    rounded to x's dtype; dx = dh w1^T in x's dtype; dw1 = x^T dh, dw2 =
+    g^T dO, db1 = sum dh, db2 = sum dO, summed in f32, in the weights' and
+    biases' dtypes. Returns ``(dx, dw1, db1, dw2, db2)``."""
+    dt, f32 = x.dtype, torch.float32
+    xf, do = x.to(f32), dout.to(dt).to(f32)
+    h = torch.matmul(xf, w1.to(f32)) + b1.to(f32)
+    cdf = 0.5 * (1.0 + torch.erf(h * (1.0 / math.sqrt(2.0))))
+    g = (h * cdf).to(dt).to(f32)
+    dg = torch.matmul(do, w2.to(f32).t())
+    dh = (dg * (cdf + h * torch.exp(-0.5 * h * h) * _INV_SQRT_2PI)).to(dt).to(f32)
+    return (torch.matmul(dh, w1.to(f32).t()).to(dt), torch.matmul(xf.t(), dh).to(w1.dtype),
+            dh.sum(0).to(b1.dtype), torch.matmul(g.t(), do).to(w2.dtype), do.sum(0).to(b2.dtype))
+
+
 def _mlp_block_bf16_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                           w2: torch.Tensor, b2: torch.Tensor, ln_scale=None, ln_bias=None,
                           ln_eps=1e-6, layerscale=None, residual=False) -> torch.Tensor:
@@ -67,10 +94,11 @@ def _mlp_block_bf16_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     return out
 
 
-def _mlp_launch(name: str, x, w1, b1, w2, b2, ln_scale, ln_bias, ln_eps, layerscale,
-                residual) -> torch.Tensor:
-    """Check the operands and launch ``vit_mlp_forward`` on the current
-    stream."""
+def _check_mlp(name: str, x, w1, b1, w2, b2, *extra) -> torch.device:
+    """Check an MLP kernel's operands, x ``(M, D_in)`` f32 or bf16, the
+    weights in x's dtype, the biases f32, and each ``(arg, tensor, dtype)``
+    of ``extra`` (``ln_scale``, ``ln_bias``, ``layerscale``, ``dout``): one
+    CUDA device, contiguous, shapes that fit x's. Returns the device."""
     if x.dim() != 2 or 0 in x.shape or x.dtype not in (torch.float32, _BF16):
         raise ValueError(f"{name}: x {tuple(x.shape)} {x.dtype} is not a non-empty "
                          "(M, D_in) f32 or bf16")
@@ -78,17 +106,29 @@ def _mlp_launch(name: str, x, w1, b1, w2, b2, ln_scale, ln_bias, ln_eps, layersc
     d_h, d_out = w1.shape[-1], w2.shape[-1]
     f32 = torch.float32
     checked = [("x", x, x.dtype), ("w1", w1, x.dtype), ("b1", b1, f32), ("w2", w2, x.dtype),
-               ("b2", b2, f32)]
-    if ln_scale is not None:
-        checked += [("ln_scale", ln_scale, f32), ("ln_bias", ln_bias, f32)]
-    if layerscale is not None:
-        checked.append(("layerscale", layerscale, x.dtype))
+               ("b2", b2, f32), *extra]
     device = _check_cuda(name, checked)
     shapes = {"w1": (d_in, d_h), "b1": (d_h,), "w2": (d_h, d_out), "b2": (d_out,),
-              "ln_scale": (d_in,), "ln_bias": (d_in,), "layerscale": (d_out,)}
+              "ln_scale": (d_in,), "ln_bias": (d_in,), "layerscale": (d_out,),
+              "dout": (M, d_out)}
     for arg, t, _ in checked[1:]:
         if tuple(t.shape) != shapes[arg]:
             raise ValueError(f"{name}: {arg} {tuple(t.shape)}, need {shapes[arg]}")
+    return device
+
+
+def _mlp_launch(name: str, x, w1, b1, w2, b2, ln_scale, ln_bias, ln_eps, layerscale,
+                residual) -> torch.Tensor:
+    """Check the operands and launch ``vit_mlp_forward`` on the current
+    stream."""
+    extra = []
+    if ln_scale is not None:
+        extra += [("ln_scale", ln_scale, torch.float32), ("ln_bias", ln_bias, torch.float32)]
+    if layerscale is not None:
+        extra.append(("layerscale", layerscale, x.dtype))
+    device = _check_mlp(name, x, w1, b1, w2, b2, *extra)
+    M, d_in = x.shape
+    d_h, d_out = w1.shape[-1], w2.shape[-1]
     if residual and d_out != d_in:
         raise ValueError("residual=True requires D_out == D_in")
     lib = _cuda.load_library("vit_mlp")
@@ -136,6 +176,54 @@ def mlp_block_bf16_cuda(x, w1, b1, w2, b2, ln_scale=None, ln_bias=None, ln_eps=1
 mlp_block_bf16_cuda.launches = 0
 
 
+def mlp_bwd_cuda(x, w1, b1, w2, b2, dout):
+    """Launch the K9 backward (``csrc/vit_mlp_bwd.cu``) on ``(M, D_in)`` x
+    and ``(M, D_out)`` dO in x's dtype (weights too, biases f32). Scratch:
+    g and dh ``(M, D_h)`` in x's dtype and the per-split weight-gradient
+    partials in f32. Returns ``(dx, dw1, db1, dw2, db2)``."""
+    device = _check_mlp("mlp_bwd_cuda", x, w1, b1, w2, b2, ("dout", dout, x.dtype))
+    M, d_in = x.shape
+    d_h, d_out = w1.shape[-1], w2.shape[-1]
+    f32 = torch.float32
+    lib = _cuda.load_library("vit_mlp_bwd")
+    splits = lib.vit_mlp_bwd_splits(M)
+    dx, g, dh = (torch.empty((M, n), dtype=x.dtype, device=device) for n in (d_in, d_h, d_h))
+    dw1, dw2 = torch.empty_like(w1), torch.empty_like(w2)
+    db1, db2 = torch.empty_like(b1), torch.empty_like(b2)
+    partials = torch.empty(splits * ((d_in + 1) * d_h + (d_h + 1) * d_out), dtype=f32,
+                           device=device)
+    with torch.cuda.device(device):
+        rc = lib.vit_mlp_backward(
+            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), dout.data_ptr(),
+            dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(),
+            g.data_ptr(), dh.data_ptr(), partials.data_ptr(), M, d_in, d_h, d_out, splits,
+            int(x.dtype == _BF16), torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"vit_mlp_backward kernel launch failed: "
+                           f"{lib.vit_mlp_bwd_error_string(rc).decode()}")
+    mlp_bwd_cuda.launches += 1
+    return dx, dw1, db1, dw2, db2
+
+
+mlp_bwd_cuda.launches = 0
+
+
+class _MLP(torch.autograd.Function):
+    """K9 forward, K9 backward; saves ``(x, w1, b1, w2, b2)`` as
+    ``_mlp_core_fwd`` does."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        return (_mlp_plain if x.device.type == "cpu" else mlp_cuda)(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x = ctx.saved_tensors[0]
+        bwd = _mlp_bwd_plain if x.device.type == "cpu" else mlp_bwd_cuda
+        return bwd(*ctx.saved_tensors, dout.to(x.dtype).contiguous())
+
+
 def _flat(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.reshape(-1, x.shape[-1]).to(dtype).contiguous()
 
@@ -143,19 +231,14 @@ def _flat(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
               b2: torch.Tensor) -> torch.Tensor:
     """``gelu(x w1 + b1) w2 + b2`` with the hidden activation kept on the
-    chip (K9, forward only). ``x (..., D_in)``, ``w1 (D_in, D_h)``, ``w2
-    (D_h, D_out)`` as the JAX function takes them; the weights run in x's
-    dtype, the biases in f32. Raises ``NotImplementedError`` where autograd
-    would record it (grad enabled, an input that requires grad): K9's
-    backward is not ported yet."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1, b1, w2, b2)):
-        raise NotImplementedError(
-            "fused_mlp has no backward yet: the K9 backward (_mlp_bwd_kernel) is not "
-            "ported (ROADMAP.md queue 2); use mlp_impl='xla' to differentiate")
+    chip (K9; differentiable, its backward recomputes h). ``x (..., D_in)``,
+    ``w1 (D_in, D_h)``, ``w2 (D_h, D_out)`` as the JAX function takes them;
+    the weights run in x's dtype, the biases in f32, and their gradients
+    reach the caller's tensors through those casts."""
     dt = x.dtype
-    args = (_flat(x, dt), w1.to(dt).contiguous(), b1.to(torch.float32).reshape(-1).contiguous(),
-            w2.to(dt).contiguous(), b2.to(torch.float32).reshape(-1).contiguous())
-    out = (_mlp_plain if x.device.type == "cpu" else mlp_cuda)(*args)
+    out = _MLP.apply(_flat(x, dt), w1.to(dt).contiguous(),
+                     b1.to(torch.float32).reshape(-1).contiguous(), w2.to(dt).contiguous(),
+                     b2.to(torch.float32).reshape(-1).contiguous())
     return out.reshape(*x.shape[:-1], w2.shape[-1])
 
 

@@ -11,6 +11,13 @@ reaches the fused kernels K1/K3 (every one of the 200 classes, 6 shots:
     python -m nwhead_tpu_torch.train --dataset synthetic_cub --arch resnet18 \\
         --batch_size 8 --n_shot 6 --lr 1e-2
 
+``--arch vit_s14`` (``dinov2_vits14``, ``vit_s16``) trains the ViT on its
+plain ``xla`` impls, as the JAX CLI does, optionally in bf16 (``--bf16``).
+The library path ``setup(argv, featurizer_kwargs={"attn_impl": "fused",
+"mlp_impl": "fused"})`` trains it on the kernels K7/K8 and K9 forward and
+backward, as JAX's ``load_model(name, attn_impl="fused", mlp_impl="fused")``
+does.
+
 ``--device`` defaults to ``cuda``; with no CUDA device that is an error, and
 the CPU must be asked for (``--device cpu``).
 """
@@ -50,15 +57,20 @@ def build_datasets(args):
                               "(ROADMAP.md queue 1, item 6)")
 
 
-def build_network(args, train_dataset) -> NWNet:
+def build_network(args, train_dataset, **featurizer_kwargs) -> NWNet:
     """The backbone, with random weights from ``--seed``, and the NW
-    network on ``--device``."""
+    network on ``--device``. ``featurizer_kwargs`` go to ``load_model`` (a
+    ViT's ``attn_impl='fused', mlp_impl='fused'`` trains on K7/K8 and the
+    K9 forward and backward); ``--bf16`` adds ``dtype=torch.bfloat16``."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is visible "
                          "(pass --device cpu to run on the CPU)")
+    if args.bf16:
+        featurizer_kwargs = {"dtype": torch.bfloat16, **featurizer_kwargs}
     featurizer = load_model(args.arch, device=device,
-                            generator=torch.Generator().manual_seed(args.seed))
+                            generator=torch.Generator().manual_seed(args.seed),
+                            **featurizer_kwargs)
     return NWNet(
         featurizer, train_dataset.num_classes, support_dataset=train_dataset, device=device,
         feat_dim=featurizer.feat_dim, proj_dim=args.proj_dim, kernel_type=args.kernel_type,
@@ -67,15 +79,16 @@ def build_network(args, train_dataset) -> NWNet:
     )
 
 
-def setup(argv=None, datasets=None):
+def setup(argv=None, datasets=None, featurizer_kwargs=None):
     """Parse the flags, build datasets (unless ``datasets=(train, val)``
-    gives them), network and trainer, and resume from the newest checkpoint
-    with ``--resume``: ``(args, trainer, start_epoch)``."""
+    gives them), network (``featurizer_kwargs`` go to ``load_model``) and
+    trainer, and resume from the newest checkpoint with ``--resume``:
+    ``(args, trainer, start_epoch)``."""
     args = Parser().parse(argv)
     if args.seed > 0:
         np.random.seed(args.seed)
     train_ds, val_ds = datasets if datasets is not None else build_datasets(args)
-    network = build_network(args, train_ds)
+    network = build_network(args, train_ds, **(featurizer_kwargs or {}))
     trainer = NWTrainer(
         network, train_ds, val_ds, lr=args.lr, batch_size=args.batch_size,
         milestones=args.scheduler_milestones, gamma=args.scheduler_gamma,

@@ -2,7 +2,8 @@
 (``nwhead_tpu/train/config.py``), ``--x/--no_x`` boolean pairs, ``key=value``
 kwargs, the hyperparameter-encoding run directory and its ``args.txt``,
 plus ``--device``. ``check_ported`` refuses, naming the ROADMAP item, every
-flag value this port does not run yet.
+flag value this port does not run yet, and the ViTs the JAX CLI does not
+train (``vit_b14``, ``vit_l14``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,9 @@ from nwhead_tpu_torch.models import VIT_NAMES
 # transforms, neither of which the port has yet.
 FILE_DATASETS = ("bird", "dog", "flower", "aircraft", "cifar10", "cifar100")
 ARRAY_DATASETS = ("synthetic", "synthetic_cub", "digits")
+# The ViTs the JAX training CLI builds (train.py:126); it refuses the rest.
+TRAINED_VITS = ("vit_s14", "dinov2_vits14", "vit_s16")
+UNTRAINED_VITS = tuple(n for n in VIT_NAMES if n not in TRAINED_VITS)
 
 
 def parse_bool(v: str) -> bool:
@@ -144,7 +148,8 @@ def check_ported(args) -> None:
         "--mesh (sharded training; ROADMAP.md queue 1, item 10)": args.mesh,
         "--pretrained_path (checkpoints need a download; ROADMAP.md queue 1, item 9)":
             args.pretrained_path,
-        "--bf16 (the bf16 backbone; ROADMAP.md queue 1, item 9)": args.bf16,
+        f"--bf16 with --arch {args.arch} (the bf16 BatchNorm backbone; ROADMAP.md queue 1, "
+        "item 9)": args.bf16 and args.arch not in VIT_NAMES,
         "--train_method fchead (nw/fc.py and FCTrainer; ROADMAP.md queue 1, item 6)":
             args.train_method != "nwhead",
         "--use_wandb (ROADMAP.md queue 1, item 6)": args.use_wandb,
@@ -154,12 +159,13 @@ def check_ported(args) -> None:
             args.workers != 8 or args.decoder != "native",
         f"--head_precision {args.head_precision} (int8/int4 banks, K4/K5; ROADMAP.md "
         "queue 2)": args.head_precision in ("int8", "int4"),
-        f"--arch {args.arch} in training (the ViT training slice: kernels K8 and the K9 "
-        "backward; ROADMAP.md queue 2)": args.arch in VIT_NAMES,
     }
     for flag, hit in refused.items():
         if hit:
             raise NotImplementedError(f"{flag} is not ported yet")
+    if args.arch in UNTRAINED_VITS:
+        raise NotImplementedError(f"--arch {args.arch}: the training CLI takes the ViTs "
+                                  f"{TRAINED_VITS}, as the JAX CLI does")
     if args.dataset not in ARRAY_DATASETS:
         raise NotImplementedError(f"dataset {args.dataset!r} is not ported "
                                   f"(ported: {', '.join(ARRAY_DATASETS)})")

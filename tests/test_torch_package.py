@@ -52,7 +52,8 @@ def test_capabilities_report_no_gpu_on_a_cpu_host():
     assert caps["cuda_available"] is False
     assert caps["device_count"] == 0 and caps["devices"] == []
     assert caps["capability"] is None
-    assert set(caps["kernels_built"]) == {"nw_fused", "nw_prepared", "vit_attn", "vit_mlp"}
+    assert set(caps["kernels_built"]) == {"nw_fused", "nw_prepared", "vit_attn", "vit_attn_bwd",
+                                          "vit_mlp", "vit_mlp_bwd"}
     assert all(v in (True, False) for v in caps["kernels_built"].values())
     assert json.dumps(caps)  # plain data, printable as JSON
 

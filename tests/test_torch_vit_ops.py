@@ -12,11 +12,17 @@ the card.
   ``torch.erf``; the JAX kernels' erf approximation (absolute error
   1.5e-7) is inside every tolerance here.
 
+The autograd Functions of K7 and K9 on CPU tensors run the plain K8 and K9
+backward and match autograd through the plain forwards; their JAX
+comparisons are in ``tests/test_torch_vit_train_ops.py``.
+
 The CUDA kernels are tested on the card only (marker ``gpu``): each against
 its plain version in its working dtype, f32 at 1e-4 of max|plain|, bf16 at
 cosine >= 0.9999 and 1e-2 of max|plain| (the kernels round the online
 softmax's unnormalized probabilities, and bf16 rounding flips propagate
-through the half-blocks). The GPU machine has no jax, so this module imports
+through the half-blocks); K8 and the K9 backward at 1e-3 (f32) and 2e-2
+(bf16) of each gradient's max|plain|, and a ViT-S block trained through
+them against the plain block. The GPU machine has no jax, so this module imports
 the JAX package inside the tests that compare with it, and the GPU tests run
 there with ``python -m pytest --noconftest -m gpu tests/test_torch_vit_ops.py``.
 """
@@ -210,23 +216,39 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     x, w1, b1, w2, b2 = map(torch.from_numpy, _mlp_inputs(4, 64, 128))
     with pytest.raises(ValueError, match="CUDA"):
         FM.mlp_cuda(x, w1, b1, w2, b2)
+    with pytest.raises(ValueError, match="CUDA"):
+        FM.mlp_bwd_cuda(x, w1, b1, w2, b2, torch.zeros(4, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        FA.attention_qkv_bwd_cuda(qkv, torch.zeros(1, 4, 64), 2, 0.125)
     bf = torch.bfloat16
     with pytest.raises(ValueError, match="CUDA"):
         FM.mlp_block_bf16_cuda(x.to(bf), w1.to(bf), b1, w2.to(bf), b2, residual=True)
 
 
-def test_inputs_that_require_grad_are_refused():
-    """K7 and K9 are forward-only until K8 and the K9 backward are ported:
-    an input that requires grad raises on every device, naming them."""
-    qkv = torch.zeros(1, 4, 3, 2, 32, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="K8"):
-        FA.fused_attention_qkv(qkv, 2)
-    x, w1, b1, w2, b2 = map(torch.from_numpy, _mlp_inputs(4, 64, 128))
-    w1.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="K9 backward"):
-        FM.fused_mlp(x, w1, b1, w2, b2)
-    with torch.no_grad():  # no grad recorded: the forward runs
-        assert FM.fused_mlp(x, w1.detach(), b1, w2, b2).shape == (4, 64)
+def test_gradients_flow_through_the_functions():
+    """K7 and K9 are ``torch.autograd.Function``s: on CPU tensors their
+    backward is the plain K8 and K9 backward, which equal autograd through
+    the plain forward (f32, 1e-5 of max|grad|), and gradients reach f32
+    weights through the transposes and casts ``models/vit.py`` applies.
+    No kernel is launched."""
+    before = (FA.attention_qkv_bwd_cuda.launches, FM.mlp_bwd_cuda.launches)
+    qkv = torch.from_numpy(_attn_inputs(2, 9, 2, 32)).requires_grad_(True)
+    g = torch.from_numpy(np.random.default_rng(1).standard_normal((2, 9, 64), np.float32))
+    (got,) = torch.autograd.grad(FA.fused_attention_qkv(qkv, 2), qkv, g)
+    flat = qkv.detach().reshape(2, 9, 192).requires_grad_(True)
+    (want,) = torch.autograd.grad(FA._attention_qkv_plain(flat, 2, 32 ** -0.5), flat, g)
+    assert got.shape == (2, 9, 3, 2, 32)
+    assert _rel_err(_f32(got).reshape(2, 9, 192), _f32(want)) <= 1e-5
+    x, w1, b1, w2, b2 = map(torch.from_numpy, _mlp_inputs(11, 64, 128))
+    w1t, w2t = w1.t().contiguous().requires_grad_(True), w2.t().contiguous().requires_grad_(True)
+    ins = [x.requires_grad_(True), w1t, b1.requires_grad_(True), w2t, b2.requires_grad_(True)]
+    gy = torch.from_numpy(np.random.default_rng(2).standard_normal((11, 64), np.float32))
+    got = torch.autograd.grad(FM.fused_mlp(x, w1t.t(), b1, w2t.t(), b2), ins, gy)
+    want = torch.autograd.grad(FM._mlp_plain(x, w1t.t(), b1, w2t.t(), b2), ins, gy)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        assert _rel_err(_f32(a), _f32(b)) <= 1e-5
+    assert (FA.attention_qkv_bwd_cuda.launches, FM.mlp_bwd_cuda.launches) == before
 
 
 # --- on the card -------------------------------------------------------------
@@ -331,3 +353,88 @@ def test_cuda_mlp_block_bf16_matches_plain(ln, ls, residual):
     torch.cuda.synchronize()
     assert FM.mlp_block_bf16_cuda.launches == before + 1
     _card_check(got, want, "bf16")
+
+
+# The backward kernels against their plain versions: gradients within 1e-3
+# (f32) or 2e-2 (bf16) of max|plain| (bf16: dS, dh and P are rounded to
+# bf16, and a sum in another order can flip one rounding).
+GRAD_REL = {"f32": 1e-3, "bf16": 2e-2}
+
+
+def _grad_check(got, want, prec):
+    got, want = got.float(), want.float()
+    assert bool(torch.isfinite(got).all())
+    rel = float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+    assert rel <= GRAD_REL[prec], rel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(64, 257, 6, 64), (8, 197, 6, 64), (8, 1370, 6, 64),
+                                   (4, 257, 12, 64), (3, 50, 2, 32), (2, 70, 2, 128)])
+def test_cuda_attention_qkv_bwd_matches_plain(shape, prec):
+    dev = _need_gpu()
+    B, N, H, hd = shape
+    dt = _dtype(prec)
+    qkv = torch.from_numpy(_attn_inputs(*shape)).to(dev, dt).reshape(B, N, 3 * H * hd)
+    g = torch.from_numpy(np.random.default_rng(9).standard_normal((B, N, H * hd), np.float32))
+    g = g.to(dev, dt)
+    before = FA.attention_qkv_bwd_cuda.launches
+    got = FA.attention_qkv_bwd_cuda(qkv, g, H, hd ** -0.5)
+    want = FA._attention_qkv_bwd_plain(qkv, g, H, hd ** -0.5)
+    torch.cuda.synchronize()
+    assert FA.attention_qkv_bwd_cuda.launches == before + 1
+    assert got.shape == qkv.shape and got.dtype == dt
+    D = H * hd
+    for part in range(3):  # dq, dk, dv each against its own max
+        _grad_check(got[..., part * D:(part + 1) * D], want[..., part * D:(part + 1) * D], prec)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(16448, 384, 1536, 384), (1001, 384, 1536, 384),
+                                   (514, 768, 3072, 768), (100, 1024, 4096, 1024),
+                                   (37, 64, 100, 200)])
+def test_cuda_mlp_bwd_matches_plain(shape, prec):
+    dev = _need_gpu()
+    M, D, Dh, D_out = shape
+    x, w1, b1, w2, b2 = (torch.from_numpy(a).to(dev) for a in _mlp_inputs(M, D, Dh, D_out=D_out))
+    dt = _dtype(prec)
+    g = torch.from_numpy(np.random.default_rng(8).standard_normal((M, D_out), np.float32))
+    args = (x.to(dt), w1.to(dt), b1, w2.to(dt), b2, g.to(dev, dt))
+    before = FM.mlp_bwd_cuda.launches
+    got = FM.mlp_bwd_cuda(*args)
+    want = FM._mlp_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert FM.mlp_bwd_cuda.launches == before + 1
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        _grad_check(a, b, prec)
+
+
+@pytest.mark.gpu
+def test_cuda_vit_block_trains_on_the_kernels():
+    """A ViT-S block in f32 with the fused impls on the card: one backward
+    launches K8 and the K9 backward once each, and every parameter gradient
+    agrees with the plain (xla) block's within 1e-3 of its max."""
+    from nwhead_tpu_torch.models.vit import Block
+
+    dev = _need_gpu()
+    gen = torch.Generator().manual_seed(0)
+    blocks = [Block(384, 6, layerscale_init=1.0, attn_impl=impl, mlp_impl=impl)
+              for impl in ("fused", "xla")]
+    for p in blocks[0].parameters():
+        p.data.normal_(0.0, 0.05, generator=gen)
+    blocks[1].load_state_dict(blocks[0].state_dict())
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((4, 257, 384), np.float32))
+    before = (FA.attention_qkv_bwd_cuda.launches, FM.mlp_bwd_cuda.launches)
+    grads = []
+    for blk in blocks:
+        blk.to(dev)
+        out = blk(x.to(dev))
+        grads.append(torch.autograd.grad(out.float().square().sum(), list(blk.parameters())))
+    torch.cuda.synchronize()
+    assert (FA.attention_qkv_bwd_cuda.launches, FM.mlp_bwd_cuda.launches) == tuple(
+        n + 1 for n in before)
+    for a, b in zip(*grads):
+        _grad_check(a, b, "f32")

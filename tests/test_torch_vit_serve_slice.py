@@ -5,7 +5,8 @@ weights (a small ViT: patch 8, D=64, depth 2, 2 heads, LayerScale gammas
 of order 1, with and without a projection) on the ``synthetic`` dataset at
 32 px. Probabilities agree within atol=2e-3 (measured 1.6e-4) with equal
 argmax. Also the serve CLI with ``--featurizer_precision bf16_fused`` on the
-CPU, and the refusals of what is not ported."""
+CPU, the refusals of what is not ported, and which ViTs the training CLI
+takes."""
 
 import json
 import os
@@ -129,10 +130,24 @@ def test_fuse_featurizer_refuses_a_resnet():
 
 
 @pytest.mark.parametrize("arch", ["vit_s14", "dinov2_vits14", "vit_s16"])
-def test_trainer_refuses_the_vits(arch, tmp_path):
+def test_trainer_takes_the_vits(arch, tmp_path):
+    """The training CLI takes the ViTs the JAX CLI trains, with and without
+    ``--bf16``."""
     from nwhead_tpu_torch.train.config import Parser
 
-    with pytest.raises(NotImplementedError, match="K8"):
+    for extra in ([], ["--bf16"]):
+        args = Parser().parse(["--dataset", "synthetic", "--arch", arch, "--device", "cpu",
+                               "--models_dir", str(tmp_path), *extra])
+        assert args.arch == arch and args.bf16 == bool(extra)
+
+
+@pytest.mark.parametrize("arch", ["vit_b14", "vit_l14"])
+def test_trainer_refuses_the_vits(arch, tmp_path):
+    """``vit_b14`` and ``vit_l14`` are refused in training, as the JAX CLI
+    refuses them (``train.py:126``)."""
+    from nwhead_tpu_torch.train.config import Parser
+
+    with pytest.raises(NotImplementedError, match=arch):
         Parser().parse(["--dataset", "synthetic", "--arch", arch, "--device", "cpu",
                         "--models_dir", str(tmp_path)])
 
