@@ -33,20 +33,15 @@ package beside it. With one, in order:
    LayerNorm, LayerScale and residual folds; each against its plain
    version, timed at the serving shape, K7 beside
    ``F.scaled_dot_product_attention`` on the same data;
-6. ResNet serving phase: ``python -m nwhead_tpu_torch.serve --dataset
-   synthetic_cub --arch resnet18 --batch_size 64 --latency_bench``, through the serve
-   module's functions, with an f32 and then a bf16 head. It checks that K2
-   was launched, and that the served log-probs equal the plain head's on the
-   same features;
-7. ViT serving phase: ``python -m nwhead_tpu_torch.serve --dataset
-   synthetic_cub --arch vit_s14 --batch_size 64 --latency_bench`` with
-   ``--featurizer_precision bf16_fused``, with ``--fused_inference`` and
-   with ``--fused_inference --bf16``, through the serve module's functions,
-   LayerScale gammas set to values of order 1 before the bank is built. It
-   checks the launches per request (K10 and K11 12 times, or K7 and K9 12
-   times, and K2 once), the served features against the plain featurizer
-   and the served log-probs against the plain head on the same images, and
-   prints p50, p95, queries/s, the bank's seconds and peak device memory;
+6. K4/K5 kernel phase: the int8 and int4 prepared heads against the plain
+   version (integer products exact), all five similarity kernels, masked
+   rows holding NaN, at the CUB-200 shape, the ViT-S/14 bank's D=384, the
+   training eval's B=8 and a ragged B=37, S=1001, D=509 (off the word for
+   int8, off the 8-wide int4 pair), C=150 (class-sorted); timed at the CUB
+   shape;
+7. K10/K11 int8 kernel phase: the int8 attention and MLP half-blocks at
+   B=64, N=257, D=384 (M=16,448 tokens) with every combination of the
+   folds, against their plain versions, timed with the serving folds;
 8. ViT training kernel phase: K8 (the attention backward) f32 and bf16 at
    ViT-S/14's B=64, N=257, H=6, hd=64, at a ragged N=197, at N=1370 with
    B=8, at ViT-B/14's 12 heads and at 12 heads of 32, every part of dqkv;
@@ -54,35 +49,57 @@ package beside it. With one, in order:
    ragged M=1,001; each against its plain version within ``GRAD_REL`` of
    max|plain|, timed at B=64, K8 beside the backward of
    ``F.scaled_dot_product_attention`` on the same q, k, v and dO;
-9. training phase: ``python -m nwhead_tpu_torch.train --dataset
-   synthetic_cub --arch resnet18 --batch_size 8 --n_shot 6 --lr 1e-2
-   --num_epochs 1 --num_steps_per_epoch 10 --num_val_steps_per_epoch 10``
-   through the module's functions (eval in the random and full modes, then
-   10 steps on 1,208-image batches). It checks that K1, dq and ds launched
-   once per step and K2 in the full-mode eval, that every loss is finite
-   and the weights moved, that the first step's head through the kernels
-   equals the plain versions on the same features, and that K2 at the
-   eval's batch of 8 equals its plain version. It prints the time of the
-   steps split into featurizer and head by CUDA events recorded from hooks
-   inside them, and the peak device memory. Then 3 steps with a bf16 head,
-   and 3 steps of the
-   canonical ``--n_way 10 --n_shot 1`` recipe, which is too small for the
-   fused head and must launch no K1;
-10. ViT training phase: ``--arch vit_s14`` with the same episode (``--lr
-   1e-3``, 10 steps, 3 eval batches) through ``train.setup(...,
-   featurizer_kwargs={"attn_impl": "fused", "mlp_impl": "fused"})`` and
-   ``train.run_epochs``, LayerScale gammas of order 1. It checks that K8,
-   the K9 backward, K1, dq and ds launched 12, 12, 1, 1 and 1 times per
-   step and K2 in the full-mode eval, that every loss is finite and every
-   block's qkv, proj, fc1 and fc2 weights moved, and holds K8 and the K9
-   backward to their plain versions on one block's tensors of the first
-   step. It prints the step time split by CUDA events, each featurizer
-   kernel's time at the step's own shapes against the step, and the peak
-   device memory; compares every parameter gradient of the fused featurizer with
-   the plain (``xla``) one on a small episode (``--n_way 4 --n_shot 1``);
-   then trains 3 steps with ``--bf16``;
-11. prints the nvidia-smi line, a JSON line of per-kernel results, and as the
-   last line ``{"ok": true, "device": {...}}``.
+9. ResNet serving phase: ``python -m nwhead_tpu_torch.serve --dataset
+   synthetic_cub --arch resnet18 --batch_size 64 --latency_bench``, through the serve
+   module's functions, with an f32, a bf16, an int8 and an int4 head. It
+   checks that the bank's kernel (K2, K4 or K5) was launched, and that the
+   served log-probs equal the plain head's on the same features;
+10. ViT serving phase: ``python -m nwhead_tpu_torch.serve --dataset
+    synthetic_cub --arch vit_s14 --batch_size 64 --latency_bench`` with
+    ``--featurizer_precision bf16_fused``, with ``--fused_inference`` and
+    with ``--fused_inference --bf16``, through the serve module's functions,
+    LayerScale gammas set to values of order 1 before the bank is built. It
+    checks the launches per request (K10 and K11 12 times, or K7 and K9 12
+    times, and K2 once), the served features against the plain featurizer
+    and the served log-probs against the plain head on the same images, and
+    prints p50, p95, queries/s, the bank's seconds and peak device memory;
+11. ViT int8 serving phase: ``python -m nwhead_tpu_torch.serve --dataset
+    synthetic_cub --arch vit_s14 --featurizer_precision int8 --head_precision
+    int8 --batch_size 64 --latency_bench`` and the same with ``--head_precision
+    int4``, calibrated on 256 training images, gammas as in 10. It checks the
+    launches per request (K10 int8 and K11 int8 12 times, K4 or K5 once), the
+    served features against the plain quantized featurizer and the served
+    log-probs against the plain head, and prints p50, p95, queries/s, the
+    calibration's and the bank's seconds and peak device memory;
+12. training phase: ``python -m nwhead_tpu_torch.train --dataset
+    synthetic_cub --arch resnet18 --batch_size 8 --n_shot 6 --lr 1e-2
+    --num_epochs 1 --num_steps_per_epoch 10 --num_val_steps_per_epoch 10``
+    through the module's functions (eval in the random and full modes, then
+    10 steps on 1,208-image batches). It checks that K1, dq and ds launched
+    once per step and K2 in the full-mode eval, that every loss is finite
+    and the weights moved, that the first step's head through the kernels
+    equals the plain versions on the same features, and that K2 at the
+    eval's batch of 8 equals its plain version. It prints the time of the
+    steps split into featurizer and head by CUDA events recorded from hooks
+    inside them, and the peak device memory. Then 3 steps with a bf16 head,
+    and 3 steps of the
+    canonical ``--n_way 10 --n_shot 1`` recipe, which is too small for the
+    fused head and must launch no K1;
+13. ViT training phase: ``--arch vit_s14`` with the same episode (``--lr
+    1e-3``, 10 steps, 3 eval batches) through ``train.setup(...,
+    featurizer_kwargs={"attn_impl": "fused", "mlp_impl": "fused"})`` and
+    ``train.run_epochs``, LayerScale gammas of order 1. It checks that K8,
+    the K9 backward, K1, dq and ds launched 12, 12, 1, 1 and 1 times per
+    step and K2 in the full-mode eval, that every loss is finite and every
+    block's qkv, proj, fc1 and fc2 weights moved, and holds K8 and the K9
+    backward to their plain versions on one block's tensors of the first
+    step. It prints the step time split by CUDA events, each featurizer
+    kernel's time at the step's own shapes against the step, and the peak
+    device memory; compares every parameter gradient of the fused featurizer with
+    the plain (``xla``) one on a small episode (``--n_way 4 --n_shot 1``);
+    then trains 3 steps with ``--bf16``;
+14. prints the nvidia-smi line, a JSON line of per-kernel results, and as the
+    last line ``{"ok": true, "device": {...}}``.
 
 Kernel times are device times: CUDA events around each call, queued behind
 a spin kernel so that the host's overhead does not count, L2 flushed before
@@ -90,9 +107,11 @@ each call, median of 30.
 
 Bounds in the JSON line: the larger of the bytes the call must move (each
 input read once, each output written once) over 3.35 TB/s and its products
-(2 flops per multiply-add: scores, attention, the MLP's and projections'
-matrix products) over 67 TFLOP/s for f32 inputs (the rate outside the
-tensor cores) or 989 TFLOP/s for bf16, the H100 SXM's published peaks. The
+(2 operations per multiply-add: scores, attention, the MLP's and
+projections' matrix products) over 67 TFLOP/s for f32 inputs (the rate
+outside the tensor cores), 989 TFLOP/s for bf16 or 1,979 TOP/s for int8,
+the H100 SXM's published peaks; a kernel with int8 and bf16 products (K10
+int8) adds the two times. The
 exponentials, GELUs and LayerNorms are not counted. The backward kernels
 count the products their function needs (five for K8 and for the K9
 backward), not the recomputations a kernel adds.
@@ -154,7 +173,7 @@ TRAIN_ARGV = [
 TRAIN_STEPS = 10
 # H100 SXM published peaks (NVIDIA data sheet; dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
 
 
 def nvidia_smi_line() -> str:
@@ -175,10 +194,12 @@ def rel_err(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
 
 
-def bound(n_bytes: float, flops: float, prec: str) -> dict:
+def bound(n_bytes: float, flops: float, prec: str, **more_ops: float) -> dict:
     """The least time of a call on this card's published peaks, and which
-    of bytes or operations sets it."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[prec]
+    of bytes or operations sets it; ``more_ops`` adds operations at other
+    precisions' peaks (``bf16=...``)."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[prec] + sum(n / PEAK_FLOPS[p] for p, n in more_ops.items())
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -259,15 +280,32 @@ def kernel_phase(flush) -> dict:
     return res
 
 
+# The prepared head's kernel wrapper for each bank precision.
+HEAD_WRAPPERS = {"f32": "nw_prepared_cuda", "bf16": "nw_prepared_cuda",
+                 "int8": "nw_prepared_int8_cuda", "int4": "nw_prepared_int4_cuda"}
+# K4/K5 vs plain: the integer products are exact on both sides, so the f32
+# bound holds.
+HEAD_TOL = {**TOL, "int8": TOL["f32"], "int4": TOL["f32"]}
+
+
+def plain_head(net, feats):
+    """The plain prepared head on ``feats`` against the net's bank: the query
+    normalized and cast or quantized as the serving path does it."""
+    from nwhead_tpu_torch.ops import fused_nw as F
+
+    prep = net._prepared_full
+    q, scale, mode, qscale = F._prepared_query(feats, prep, net.kernel_type,
+                                               net.model.head.kernel_params())
+    return F._nw_prepared_plain(q, prep, scale, mode, net.n_classes, qscale)
+
+
 def slice_phase(datasets) -> dict:
-    """The serving CLI's path at the CUB recipe's scale, f32 then bf16 head.
-    Returns K2's launch count and the latency report per head."""
+    """The serving CLI's path at the CUB recipe's scale with an f32, bf16,
+    int8 and int4 head. Returns the bank kernel's launch count and the
+    latency report per head."""
     import torch
 
     from nwhead_tpu_torch import serve
-    from nwhead_tpu_torch.ops.fused_nw import (
-        _nw_prepared_plain, _resolve_mode, nw_prepared_cuda,
-    )
 
     args = serve.parse_args([
         "--dataset", "synthetic_cub", "--arch", "resnet18", "--batch_size", "64",
@@ -275,13 +313,13 @@ def slice_phase(datasets) -> dict:
     ])
     train_ds, val_ds = datasets
     out = {}
-    for prec in TOL:
+    for prec in HEAD_TOL:
         args.head_precision = prec
-        nw_prepared_cuda.launches = 0
+        _counts(reset=True)
         net = serve.build_server(args, train_ds)
         report = serve.latency_bench(net, val_ds, args)
         torch.cuda.synchronize()
-        launches = nw_prepared_cuda.launches
+        launches = _counts()[HEAD_WRAPPERS[prec]]
         if launches == 0:
             raise AssertionError(f"{prec}: the serving path never launched the kernel")
 
@@ -289,11 +327,7 @@ def slice_phase(datasets) -> dict:
         served = net.make_serving_fn()(x)
         with torch.inference_mode():
             prep = net._prepared_full
-            feats = net.model.featurize(torch.from_numpy(x).to(net.device))
-            mode, scale, qn, _ = _resolve_mode(
-                net.kernel_type, net.model.head.kernel_params(), feats)
-            plain = _nw_prepared_plain(qn.to(prep.s.dtype), prep, scale, mode,
-                                       net.n_classes)
+            plain = plain_head(net, net.model.featurize(torch.from_numpy(x).to(net.device)))
         torch.cuda.synchronize()
         err = float((served - plain).abs().max())
         mass = float((served.exp().sum(1) - 1).abs().max())
@@ -306,7 +340,7 @@ def slice_phase(datasets) -> dict:
             raise AssertionError(f"served shape {tuple(served.shape)}")
         if not bool(torch.isfinite(served).all()):
             raise AssertionError("served log-probs are not finite")
-        if not within(served, plain, **TOL[prec]) or mass > 1e-3:
+        if not within(served, plain, **HEAD_TOL[prec]) or mass > 1e-3:
             raise AssertionError(f"{prec}: served log-probs disagree with the plain head")
         out[prec] = {"launches": launches, "report": report, "served_err": err}
         del net
@@ -455,8 +489,10 @@ def _time_raw(flush, qn, sn, labels, scale, mode, C, g, prec) -> dict:
 
 RAW_WRAPPERS = ("nw_fwd_cuda", "nw_bwd_dq_cuda", "nw_bwd_ds_cuda")
 VIT_WRAPPERS = ("attention_qkv_cuda", "attention_block_bf16_cuda", "mlp_cuda",
-                "mlp_block_bf16_cuda", "attention_qkv_bwd_cuda", "mlp_bwd_cuda")
-WRAPPERS = ("nw_prepared_cuda",) + RAW_WRAPPERS + VIT_WRAPPERS
+                "mlp_block_bf16_cuda", "attention_qkv_bwd_cuda", "mlp_bwd_cuda",
+                "attention_block_int8_cuda", "mlp_block_int8_cuda")
+WRAPPERS = ("nw_prepared_cuda", "nw_prepared_int8_cuda", "nw_prepared_int4_cuda") + \
+    RAW_WRAPPERS + VIT_WRAPPERS
 
 
 def _wrapper(name: str):
@@ -621,10 +657,7 @@ def training_phase(datasets, workdir: str) -> dict:
     got = net.predict(x, "full")
     with torch.inference_mode():
         prep = net._prepared_full
-        feats = net.model.featurize(torch.as_tensor(x).to(net.device))
-        mode, scale, qn, _ = F._resolve_mode(net.kernel_type, net.model.head.kernel_params(),
-                                             feats)
-        plain = F._nw_prepared_plain(qn.to(prep.s.dtype), prep, scale, mode, net.n_classes)
+        plain = plain_head(net, net.model.featurize(torch.as_tensor(x).to(net.device)))
     torch.cuda.synchronize()
     eval_err = float((got - plain).abs().max())
     print(f"full-mode eval batch: B={got.shape[0]}, bank S={prep.s.shape[0]}; K2 vs plain "
@@ -693,12 +726,19 @@ ATTN_CASES = (  # name, B, N, H, hd; the first is the serving shape, timed
 MLP_CASES = (("vit_s14_b64", VIT_B * VIT_N), ("ragged_m1001", 1001))  # name, M
 VIT_SERVE_ARGV = ["--dataset", "synthetic_cub", "--arch", "vit_s14", "--batch_size", "64",
                   "--latency_bench"]
-VIT_CONFIGS = (  # name, extra flags, kernels launched 12 times per request
+VIT_CONFIGS = (  # name, extra flags, kernels launched 12 times per request, the head's
     ("bf16_fused", ["--featurizer_precision", "bf16_fused"],
-     ("attention_block_bf16_cuda", "mlp_block_bf16_cuda")),
-    ("fused_inference", ["--fused_inference"], ("attention_qkv_cuda", "mlp_cuda")),
-    ("fused_inference_bf16", ["--fused_inference", "--bf16"], ("attention_qkv_cuda", "mlp_cuda")),
+     ("attention_block_bf16_cuda", "mlp_block_bf16_cuda"), "nw_prepared_cuda"),
+    ("fused_inference", ["--fused_inference"], ("attention_qkv_cuda", "mlp_cuda"),
+     "nw_prepared_cuda"),
+    ("fused_inference_bf16", ["--fused_inference", "--bf16"], ("attention_qkv_cuda", "mlp_cuda"),
+     "nw_prepared_cuda"),
 )
+# The int8 serving stack: calibrated on the serve CLI's default 256 images.
+VIT_INT8_CONFIGS = tuple(
+    (f"int8_{head}", ["--featurizer_precision", "int8", "--head_precision", head],
+     ("attention_block_int8_cuda", "mlp_block_int8_cuda"), HEAD_WRAPPERS[head])
+    for head in ("int8", "int4"))
 GAMMA_SEED = 11
 
 
@@ -739,7 +779,9 @@ def plain_vit_kernels():
 
     swaps = [(FA, "attention_qkv_cuda", FA._attention_qkv_plain),
              (FA, "attention_block_bf16_cuda", FA._attention_block_bf16_plain),
-             (FM, "mlp_cuda", FM._mlp_plain), (FM, "mlp_block_bf16_cuda", FM._mlp_block_bf16_plain)]
+             (FA, "attention_block_int8_cuda", FA._attention_block_int8_plain),
+             (FM, "mlp_cuda", FM._mlp_plain), (FM, "mlp_block_bf16_cuda", FM._mlp_block_bf16_plain),
+             (FM, "mlp_block_int8_cuda", FM._mlp_block_int8_plain)]
     saved = [getattr(m, n) for m, n, _ in swaps]
     try:
         for m, n, plain in swaps:
@@ -867,6 +909,176 @@ def vit_kernel_phase(flush) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# The int8 serving stack: K4, K5, K10 int8 and K11 int8.
+# ---------------------------------------------------------------------------
+
+QUANT_CASES = (  # name, B, S, D, C; the first is timed
+    ("cub_b64", 64, 5994, 512, 200),
+    ("vit_b64", 64, 5800, 384, 200),  # the ViT-S/14 serving bank
+    ("eval_b8", 8, 5800, 512, 200),  # the training run's full-mode eval batch
+    ("ragged_d509", 37, 1001, 509, 150),  # D off the int8 word and the int4 pair
+)
+QUANT_REPLACES = "nwhead_tpu/ops/pallas_nw.py:820"
+VIT_INT8_REPLACES = {"attention_block_int8": "nwhead_tpu/ops/pallas_attn.py:376",
+                     "mlp_block_int8": "nwhead_tpu/ops/pallas_mlp.py:206"}
+
+
+def quant_kernel_phase(flush) -> dict:
+    """K4 and K5 against the plain version at each case, all five kernels,
+    masked rows holding NaN; times each at the CUB B=64 euclidean case.
+    Returns, per precision, max |err|, kernel and plain ms and the bound."""
+    import warnings
+
+    import torch
+
+    from nwhead_tpu_torch.ops import fused_nw as F
+    from nwhead_tpu_torch.ops.kernels import KERNEL_NAMES
+
+    dev = torch.device("cuda")
+    res = {p: {"max_abs_err": 0.0} for p in ("int8", "int4")}
+    for ci, (case, B, S, D, C) in enumerate(QUANT_CASES):
+        rng = np.random.default_rng(900 + ci)
+        q = torch.from_numpy(rng.standard_normal((B, D), np.float32)).to(dev)
+        s = torch.from_numpy(rng.standard_normal((S, D), np.float32)).to(dev)
+        sy = rng.integers(0, C, size=S)
+        valid = rng.random(S) > 0.03
+        valid[0] = True
+        s[torch.from_numpy(~valid).to(dev)] = float("nan")
+        mask = torch.from_numpy(valid.astype(np.float32))
+        for kernel in KERNEL_NAMES:
+            params = {"logit_scale": torch.tensor(1.3, device=dev)} if kernel == "clip" else {}
+            for prec in res:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")  # int4 + dotproduct warns
+                    prep = F.prepare_support(s, sy, C, kernel=kernel, support_mask=mask,
+                                             precision=prec)
+                args = F._prepared_query(q, prep, kernel, params)
+                args = (args[0], prep, args[1], args[2], C, args[3])
+                wrapper = getattr(F, HEAD_WRAPPERS[prec])
+                got, want = wrapper(*args), F._nw_prepared_plain(*args)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                ok = bool(torch.isfinite(got).all()) and within(got, want, **HEAD_TOL[prec])
+                print(f"kernel {case} {kernel} {prec}: max|err| {err:.3e} "
+                      f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"kernel disagrees with plain: {case} {kernel} {prec}")
+                res[prec]["max_abs_err"] = max(res[prec]["max_abs_err"], err)
+                if ci == 0 and kernel == "euclidean":
+                    Dp = args[0].shape[1]
+                    res[prec].update(
+                        ms=time_ms(lambda: wrapper(*args), flush),
+                        plain_ms=time_ms(lambda: F._nw_prepared_plain(*args), flush),
+                        # q8, the bank, s2, sscale and labels, qscale, out
+                        **bound(B * Dp + prep.s.numel() + 12 * S + 4 * B + 4 * B * C,
+                                2 * B * S * Dp, "int8"))
+                    r = res[prec]
+                    print(f"time {case} {kernel} {prec}: kernel {r['ms']:.4f} ms, plain "
+                          f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+    return res
+
+
+def _qdense(rng, din, dout):
+    """Random int8 weights quantized per output channel, as quantize_vit
+    does, their scales and a bias (numpy)."""
+    w = (rng.standard_normal((din, dout)) / np.sqrt(din)).astype(np.float32)
+    scale = (np.abs(w).max(0) / np.float32(127.0)).astype(np.float32)
+    return (np.clip(np.round(w / scale), -127, 127).astype(np.int8), scale,
+            (0.1 * rng.standard_normal(dout)).astype(np.float32))
+
+
+def vit_int8_kernel_phase(flush) -> dict:
+    """K10 int8 and K11 int8 at the ViT-S/14 serving shape (B=64, N=257,
+    D=384), every combination of the folds, against their plain versions;
+    timed with the serving path's folds. Activation scales are each input's
+    amax / 127, as calibration sets them."""
+    import torch
+
+    from nwhead_tpu_torch.ops import fused_attn as FA
+    from nwhead_tpu_torch.ops import fused_mlp as FM
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    D, Dh, H = VIT_D, VIT_DH, VIT_H
+    M = VIT_B * VIT_N
+    rng = np.random.default_rng(1000)
+    to = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    (wq, sq, bq), (wp, sp, bp), (w1, s1, b1), (w2, s2, b2) = (
+        [to(a) for a in _qdense(rng, i, o)] for i, o in ((D, 3 * D), (D, D), (D, Dh), (Dh, D)))
+    ln_s, ln_b, gamma = (to(a.astype(np.float32)) for a in (
+        1.0 + 0.2 * rng.standard_normal(D), 0.1 * rng.standard_normal(D),
+        rng.uniform(0.5, 1.5, D)))
+    x = to(np.random.default_rng(1001).standard_normal((VIT_B, VIT_N, D), np.float32)).to(bf)
+    scale = (D // H) ** -0.5
+    res: dict = {}
+    for ln, ls, resid in itertools.product([False, True], repeat=3):
+        h = FA._layer_norm_f32(x, ln_s, ln_b, 1e-6).to(bf) if ln else x
+        a_in = float(h.float().abs().max()) / 127.0
+        # Attention outputs and GELU outputs stay within a few units here.
+        a_att, a_fc2 = 3.0 / 127.0, 4.0 / 127.0
+        folds = (ln_s if ln else None, ln_b if ln else None, 1e-6,
+                 gamma.to(bf) if ls else None, resid)
+        a_args = (x, wq, sq, bq, a_in, wp, sp, bp, a_att, H, scale) + folds
+        m_args = (x.reshape(M, D), w1, s1, b1, a_in, w2, s2, b2, a_fc2) + folds
+        where = f"ln={int(ln)} ls={int(ls)} residual={int(resid)}"
+        for key, kernel, plain, args in (
+                ("attention_block_int8", FA.attention_block_int8_cuda,
+                 FA._attention_block_int8_plain, a_args),
+                ("mlp_block_int8", FM.mlp_block_int8_cuda, FM._mlp_block_int8_plain, m_args)):
+            got, want = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            ok, err, rel, cos = vit_agree(got, want, "bf16")
+            equal = float((got == want).float().mean())
+            print(f"{key} B={VIT_B} N={VIT_N} {where}: max|err| {err:.3e}, rel {rel:.2e}, "
+                  f"cos {cos:.7f}, bit-equal {equal:.4f} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{key} disagrees with its plain version: {where}")
+            _vit_record(res, key, err)
+            if ln and ls and resid:  # the serving path's folds
+                vecs = 4 * 2 * D + 2 * D  # LN affine f32, LayerScale bf16
+                if key == "attention_block_int8":
+                    n_bytes = 4 * M * D + 4 * D * D + 4 * 2 * (3 * D + D) + vecs
+                    b = bound(n_bytes, 8 * M * D * D, "int8",
+                              bf16=4 * VIT_B * H * VIT_N * VIT_N * (D // H))
+                else:
+                    n_bytes = 4 * M * D + 2 * D * Dh + 4 * 2 * (Dh + D) + vecs
+                    b = bound(n_bytes, 4 * M * D * Dh, "int8")
+                res[key].update(ms=time_ms(lambda k=kernel, a=args: k(*a), flush),
+                                plain_ms=time_ms(lambda p=plain, a=args: p(*a), flush),
+                                library_ms=None, **b)
+                r = res[key]
+                print(f"time {key}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                      f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return res
+
+
+def quant_entries(quant: dict, vit_int8: dict, served: dict, resnet: dict) -> list:
+    """The ``kernels`` JSON entries of K4, K5, K10 int8 and K11 int8:
+    launches from the ViT int8 serving runs (K4 and the half-blocks from
+    ``--head_precision int8``, K5 from ``int4``); max |err| over the kernel
+    phases and the served heads."""
+    entries = []
+    for prec in ("int8", "int4"):
+        r, run = quant[prec], served[f"int8_{prec}"]
+        entries.append({
+            "name": f"nw_prepared_{prec}", "route": "cuda", "source": PREPARED_SOURCE,
+            "replaces": QUANT_REPLACES, "launches": run["launches"][HEAD_WRAPPERS[prec]],
+            "max_abs_err": max(r["max_abs_err"], run["logprob_err"], resnet[prec]["served_err"]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None})
+    for key, wrapper, source in (("attention_block_int8", "attention_block_int8_cuda",
+                                  ATTN_SOURCE),
+                                 ("mlp_block_int8", "mlp_block_int8_cuda", MLP_SOURCE)):
+        r = vit_int8[key]
+        entries.append({
+            "name": key, "route": "cuda", "source": source, "replaces": VIT_INT8_REPLACES[key],
+            "launches": served["int8_int8"]["launches"][wrapper], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None})
+    return entries
+
+
 def _set_gammas(net) -> None:
     """LayerScale gammas of order 1 (uniform in [0.5, 1.5], seeded), in
     place of the init's 1e-5, under which every block adds almost nothing
@@ -880,22 +1092,23 @@ def _set_gammas(net) -> None:
                 g.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, g.shape[0]).astype(np.float32)))
 
 
-def vit_serving_phase(datasets) -> dict:
-    """The two ViT serving commands (and ``--fused_inference --bf16``)
-    through the serve module's functions, with LayerScale gammas of order 1
-    set before the featurizer is fused and the bank built. For each: launch
-    counts per request and over the latency run, served features against
-    the plain featurizer on the same images, served log-probs against the
-    plain head, p50 / p95 / queries/s, the bank's seconds and peak device
-    memory."""
+def vit_serving_phase(datasets, configs=VIT_CONFIGS) -> dict:
+    """ViT serving commands through the serve module's functions
+    (``VIT_CONFIGS``: the bf16 fused graph, ``--fused_inference`` and
+    ``--fused_inference --bf16``; ``VIT_INT8_CONFIGS``: the int8 stack with
+    an int8 and an int4 head), with LayerScale gammas of order 1 set before
+    the featurizer is fused or quantized and the bank built. For each:
+    launch counts per request and over the latency run, served features
+    against the plain featurizer on the same images, served log-probs
+    against the plain head, p50 / p95 / queries/s, the calibration's and
+    the bank's seconds and peak device memory."""
     import torch
 
     from nwhead_tpu_torch import serve
-    from nwhead_tpu_torch.ops.fused_nw import _nw_prepared_plain, _resolve_mode
 
     train_ds, val_ds = datasets
     out = {}
-    for name, flags, kernels in VIT_CONFIGS:
+    for name, flags, kernels, head in configs:
         args = serve.parse_args(VIT_SERVE_ARGV + flags)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -905,7 +1118,7 @@ def vit_serving_phase(datasets) -> dict:
         serve_fn = net.make_serving_fn()
         x = val_ds.gather(np.arange(args.batch_size))
         expect = {n: 0 for n in WRAPPERS}
-        expect.update({n: 12 for n in kernels}, nw_prepared_cuda=1)
+        expect.update({n: 12 for n in kernels}, **{head: 1})
         _counts(reset=True)
         served = serve_fn(x)
         torch.cuda.synchronize()
@@ -926,9 +1139,7 @@ def vit_serving_phase(datasets) -> dict:
             with plain_vit_kernels():
                 plain_feats = net._featurize_eval(xt)
             prep = net._prepared_full
-            mode, scale, qn, _ = _resolve_mode(net.kernel_type, net.model.head.kernel_params(),
-                                               feats)
-            plain = _nw_prepared_plain(qn.to(prep.s.dtype), prep, scale, mode, net.n_classes)
+            plain = plain_head(net, feats)
         torch.cuda.synchronize()
         prec = "bf16" if name != "fused_inference" else "f32"
         # The noise floor: the same plain featurizer on the CPU, 8 images.
@@ -945,15 +1156,18 @@ def vit_serving_phase(datasets) -> dict:
               f"featurizer max|err| {f_err:.3e}, rel {f_rel:.2e}, cos {f_cos:.7f} "
               f"{'ok' if f_ok else 'FAIL'} (the plain featurizer on the card vs on the CPU, 8 "
               f"images: rel {floor_rel:.2e}, cos {floor_cos:.7f}); log-probs vs the plain head "
-              f"max|err| {lp_err:.3e} {'ok' if lp_ok else 'FAIL'}; bank S={prep.s.shape[0]} D={prep.s.shape[1]} "
-              f"prepared in {net.precompute_seconds:.2f}s; p50 {report['p50_ms']:.3f} ms, "
+              f"max|err| {lp_err:.3e} {'ok' if lp_ok else 'FAIL'}; calibration "
+              f"{net.calibration_seconds:.2f}s; bank S={prep.s.shape[0]} {prep.s.dtype} "
+              f"{tuple(prep.s.shape)} prepared in {net.precompute_seconds:.2f}s; p50 "
+              f"{report['p50_ms']:.3f} ms, "
               f"p95 {report['p95_ms']:.3f} ms, {report['queries_per_sec']:.1f} q/s; peak device "
               f"memory {peak / 2**30:.2f} GiB")
         if not (f_ok and lp_ok):
             raise AssertionError(f"{name}: served features or log-probs disagree")
         out[name] = {"launches": launches, "per_request": per_request, "report": report,
                      "feature_err": f_err, "logprob_err": lp_err,
-                     "precompute_s": net.precompute_seconds, "peak_bytes": peak}
+                     "precompute_s": net.precompute_seconds,
+                     "calibration_s": net.calibration_seconds, "peak_bytes": peak}
         del net, serve_fn
         torch.cuda.empty_cache()
     return out
@@ -1343,6 +1557,10 @@ def main() -> int:
     vit_kern = vit_kernel_phase(flush)
     phase_s["ViT kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    quant = quant_kernel_phase(flush)
+    vit_int8_kern = vit_int8_kernel_phase(flush)
+    phase_s["K4/K5, K10/K11 int8 kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     vit_train_kern = vit_train_kernel_phase(flush)
     phase_s["ViT training kernels"] = time.perf_counter() - t0
     del flush
@@ -1356,6 +1574,9 @@ def main() -> int:
     t0 = time.perf_counter()
     vit_served = vit_serving_phase(datasets)
     phase_s["ViT serving"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vit_int8_served = vit_serving_phase(datasets, VIT_INT8_CONFIGS)
+    phase_s["ViT int8 serving"] = time.perf_counter() - t0
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         t0 = time.perf_counter()
@@ -1389,6 +1610,7 @@ def main() -> int:
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None})
     entries += vit_entries(vit_kern, vit_served)
     entries += vit_train_entries(vit_train_kern, vit_tr)
+    entries += quant_entries(quant, vit_int8_kern, vit_int8_served, sl)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

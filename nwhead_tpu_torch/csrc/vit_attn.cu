@@ -42,6 +42,21 @@
 // Each stage keeps the TPU kernel's bf16 rounding points. Its bound at
 // B = 64: 25.9 GFLOP over 989 TFLOP/s (26 us) in bf16; the products run on
 // FFMA here, at most 67 TFLOP/s.
+//
+// K10 int8 replaces the same TPU kernel with quant=True (the launch of
+// fused_attention_qkv_int8): stages 1 and 3 become ln_gemm_i8_kernel, which
+// quantizes its (LayerNorm'd, bf16-rounded) input as it stages it,
+// clip(rint(x * (1/a)), -127, 127), multiplies int8 codes by the int8
+// weights with __dp4a into int32 sums, and dequantizes in the epilogue as
+// acc * (a * w_scale[c]) + bias[c] (two roundings, no FMA, as the TPU
+// kernel computes it), then rounds to bf16; its LayerNorm statistics are
+// row_stats_f64's, which the plain version reproduces exactly, since a
+// normalized value whose bf16 rounding flips can move a code and with it a
+// whole token downstream. Stage 2 is K7 in bf16, as on the
+// TPU (bf16 score and PV products, f32 softmax). Its bound at B = 64: the
+// projections' 19.4 G int8 operations over 1,979 TOP/s (10 us) and the
+// attention's 6.5 GFLOP over 989 TFLOP/s (7 us); __dp4a runs at the card's
+// integer rate, far below the tensor cores'.
 
 #include "vit_common.cuh"
 
@@ -313,6 +328,130 @@ ln_gemm_kernel(const T* __restrict__ A, const float* __restrict__ ln_g,
   }
 }
 
+// The int8 ln_gemm: out (M, n_out) bf16 = dequant([LN](A) codes W) + bias,
+// then [* ls] [+ resid], each rounded to bf16. A (M, K) bf16, K a multiple
+// of 4; W (K, n_out) int8; w_scale, bias (n_out,) f32. A block computes 64
+// rows x 128 columns, each thread 8 rows x 4 columns in int32, from K slices
+// of 32 staged in shared memory as words of four codes along K: A's rows
+// quantized as they load, W's columns packed from four rows.
+constexpr int kQGemmWords = 8;  // 32-bit words (4 K values each) per staged slice
+
+__global__ void __launch_bounds__(kThreads)
+ln_gemm_i8_kernel(const __nv_bfloat16* __restrict__ A, const float* __restrict__ ln_g,
+                  const float* __restrict__ ln_b, float eps, float inv_a, float a,
+                  const int8_t* __restrict__ W, const float* __restrict__ w_scale,
+                  const float* __restrict__ bias, const __nv_bfloat16* __restrict__ ls,
+                  const __nv_bfloat16* __restrict__ resid, __nv_bfloat16* __restrict__ out,
+                  int M, int K, int n_out) {
+  using bf = __nv_bfloat16;
+  __shared__ __align__(16) int at[kQGemmWords * kGemmStride];
+  __shared__ __align__(16) int ws[kQGemmWords * kGemmCols];
+  __shared__ float mean_s[kGemmRows], rstd_s[kGemmRows];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int m0 = blockIdx.x * kGemmRows;
+  const int n0 = blockIdx.y * kGemmCols;
+  constexpr int kRows = kGemmRows / kWarps;
+
+  if (ln_g != nullptr) {
+    for (int rr = 0; rr < kRows; ++rr) {
+      const int r = warp * kRows + rr;
+      float mean = 0.f, rstd = 1.f;
+      if (m0 + r < M) row_stats_f64(A + static_cast<size_t>(m0 + r) * K, K, eps, mean, rstd);
+      if (lane == 0) {
+        mean_s[r] = mean;
+        rstd_s[r] = rstd;
+      }
+    }
+  }
+  int acc[kRows][4];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0;
+
+  for (int k0 = 0; k0 < K; k0 += 4 * kQGemmWords) {
+    __syncthreads();  // the previous slice is consumed (and the LN statistics written)
+#pragma unroll
+    for (int u = 0; u < kGemmRows * kQGemmWords / kThreads; ++u) {
+      const int idx = tid + u * kThreads;
+      const int r = idx / kQGemmWords, kw = idx % kQGemmWords;
+      const int row = m0 + r, k = k0 + 4 * kw;
+      int c[4] = {0, 0, 0, 0};
+      if (row < M && k < K) {  // K % 4 == 0: the word is whole
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float v = to_float(A[static_cast<size_t>(row) * K + k + e]);
+          if (ln_g != nullptr) {
+            v = ln_bf16(v, mean_s[r], rstd_s[r], ln_g[k + e], ln_b[k + e]);
+          }
+          c[e] = quantize_i8(v, inv_a);
+        }
+      }
+      at[kw * kGemmStride + r] = pack4(c[0], c[1], c[2], c[3]);
+    }
+#pragma unroll
+    for (int u = 0; u < kQGemmWords * kGemmCols / kThreads; ++u) {
+      const int idx = tid + u * kThreads;
+      const int kw = idx / kGemmCols, col = n0 + idx % kGemmCols;
+      const int k = k0 + 4 * kw;
+      int c[4] = {0, 0, 0, 0};
+      if (k < K && col < n_out) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[e] = W[static_cast<size_t>(k + e) * n_out + col];
+      }
+      ws[idx] = pack4(c[0], c[1], c[2], c[3]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kw = 0; kw < kQGemmWords; ++kw) {
+      const int4 a0 = *reinterpret_cast<const int4*>(at + kw * kGemmStride + warp * kRows);
+      const int4 a1 = *reinterpret_cast<const int4*>(at + kw * kGemmStride + warp * kRows + 4);
+      const int4 b = *reinterpret_cast<const int4*>(ws + kw * kGemmCols + 4 * lane);
+      const int av[kRows] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        acc[i][0] = __dp4a(av[i], b.x, acc[i][0]);
+        acc[i][1] = __dp4a(av[i], b.y, acc[i][1]);
+        acc[i][2] = __dp4a(av[i], b.z, acc[i][2]);
+        acc[i][3] = __dp4a(av[i], b.w, acc[i][3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int row = m0 + warp * kRows + i;
+    if (row >= M) continue;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int col = n0 + 4 * lane + c;
+      if (col >= n_out) continue;
+      const size_t at_out = static_cast<size_t>(row) * n_out + col;
+      const float deq = __fmul_rn(__int2float_rn(acc[i][c]), __fmul_rn(a, w_scale[col]));
+      float v = round_to<bf>(__fadd_rn(deq, bias[col]));
+      if (ls != nullptr) v = round_to<bf>(v * to_float(ls[col]));
+      if (resid != nullptr) v = round_to<bf>(to_float(resid[at_out]) + v);
+      out[at_out] = from_float<bf>(v);
+    }
+  }
+}
+
+inline cudaError_t ln_gemm_i8(cudaStream_t stream, const void* A, const void* ln_g,
+                              const void* ln_b, float eps, float inv_a, float a, const void* W,
+                              const void* w_scale, const void* bias, const void* ls,
+                              const void* resid, void* out, int M, int K, int n_out) {
+  using bf = __nv_bfloat16;
+  const dim3 grid((M + kGemmRows - 1) / kGemmRows, (n_out + kGemmCols - 1) / kGemmCols);
+  ln_gemm_i8_kernel<<<grid, kThreads, 0, stream>>>(
+      static_cast<const bf*>(A), static_cast<const float*>(ln_g), static_cast<const float*>(ln_b),
+      eps, inv_a, a, static_cast<const int8_t*>(W), static_cast<const float*>(w_scale),
+      static_cast<const float*>(bias), static_cast<const bf*>(ls), static_cast<const bf*>(resid),
+      static_cast<bf*>(out), M, K, n_out);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t ln_gemm(cudaStream_t stream, const void* A, const void* ln_g, const void* ln_b,
                     float eps, const void* W, const void* bias, const void* ls, const void* resid,
@@ -369,6 +508,34 @@ int vit_attention_block_bf16(const void* x, const void* ln_g, const void* ln_b, 
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(vit::ln_gemm<bf>(st, att, nullptr, nullptr, eps, w_proj, b_proj, ls,
                                            residual ? x : nullptr, out, M, D, D));
+}
+
+// K10 int8: x (B, N, D) bf16, D a multiple of 4; ln_g, ln_b (D,) f32 or both
+// null; w_qkv (D, 3D) and w_proj (D, D) int8 with per-column scales s_qkv
+// (3D,) and s_proj (D,) f32; b_qkv (3D,), b_proj (D,) f32; inv_a_* and a_*
+// the activation scales' reciprocals and the scales; ls (D,) bf16 or null;
+// residual != 0 adds x. qkv (B, N, 3D) and att (B, N, D) bf16 scratch; out
+// (B, N, D) bf16. Three launches on `stream`.
+int vit_attention_block_int8(const void* x, const void* ln_g, const void* ln_b, float eps,
+                             const void* w_qkv, const void* s_qkv, const void* b_qkv,
+                             float inv_a_qkv, float a_qkv, const void* w_proj,
+                             const void* s_proj, const void* b_proj, float inv_a_proj,
+                             float a_proj, const void* ls, int residual, void* qkv, void* att,
+                             void* out, int B, int N, int D, int H, float scale, void* stream) {
+  if (B <= 0 || N <= 0 || H <= 0 || D % H != 0 || D % 4 != 0 ||
+      (ln_g == nullptr) != (ln_b == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int M = B * N;
+  cudaError_t err = vit::ln_gemm_i8(st, x, ln_g, ln_b, eps, inv_a_qkv, a_qkv, w_qkv, s_qkv, b_qkv,
+                                    nullptr, nullptr, qkv, M, D, 3 * D);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = vit::attention<__nv_bfloat16>(st, qkv, att, B, N, H, D / H, scale);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(vit::ln_gemm_i8(st, att, nullptr, nullptr, eps, inv_a_proj, a_proj,
+                                          w_proj, s_proj, b_proj, ls, residual ? x : nullptr,
+                                          out, M, D, D));
 }
 
 }  // extern "C"

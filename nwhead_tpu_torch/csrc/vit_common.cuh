@@ -1,7 +1,8 @@
 // Device code shared by the ViT kernels (vit_attn.cu, vit_attn_bwd.cu,
 // vit_mlp.cu, vit_mlp_bwd.cu): dtype conversion and rounding, warp
 // reductions, the LayerNorm statistics of a row, the exact GELU, the
-// register-tiled FFMA product step and the attention kernels' tile shape.
+// register-tiled FFMA product step, the int8 kernels' activation codes and
+// the attention kernels' tile shape.
 //
 // Every product here is an f32 FMA on values widened from the inputs' dtype
 // (f32 or bf16): a bf16 x bf16 product is exact in f32, so the bf16 paths
@@ -16,6 +17,7 @@
 
 #include <cfloat>
 #include <cstddef>
+#include <cstdint>
 
 namespace vit {
 
@@ -72,10 +74,72 @@ __device__ __forceinline__ void row_stats(const T* __restrict__ row, int n, floa
   rstd = 1.f / sqrtf(warp_sum(v) / static_cast<float>(n) + eps);
 }
 
+// The LayerNorm statistics of the int8 kernels (K10 int8, K11 int8), where
+// one bf16 rounding of a normalized value that flips moves an activation
+// code, and a moved code changes a whole token downstream. The sums run in
+// f64 (the sum of a row of bf16 values is exact there), and mean and 1 /
+// sqrt(var + eps) are each rounded once to f32, so the plain version, which
+// computes them the same way, gets the same f32 values whatever the order
+// of its sums.
+template <typename T>
+__device__ __forceinline__ void row_stats_f64(const T* __restrict__ row, int n, float eps,
+                                              float& mean, float& rstd) {
+  const int lane = threadIdx.x & 31;
+  double s = 0.0;
+  for (int k = lane; k < n; k += 32) s += static_cast<double>(to_float(row[k]));
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  mean = static_cast<float>(s / n);
+  double v = 0.0;
+  for (int k = lane; k < n; k += 32) {
+    const double d = __fsub_rn(to_float(row[k]), mean);
+    v = fma(d, d, v);
+  }
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  rstd = static_cast<float>(1.0 / sqrt(v / n + static_cast<double>(eps)));
+}
+
+// One normalized value of the int8 kernels, rounded to bf16: ((x - mean) *
+// rstd) * g + b with every operation rounded (no FMA), as PyTorch computes
+// the plain version's expression.
+__device__ __forceinline__ float ln_bf16(float x, float mean, float rstd, float g, float b) {
+  return round_to<__nv_bfloat16>(
+      __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(x, mean), rstd), g), b));
+}
+
 // Exact (erf) GELU in f32, CUDA's erff (the JAX kernels use an
 // approximation of erf with an absolute error of 1.5e-7).
 __device__ __forceinline__ float gelu_exact(float h) {
   return 0.5f * h * (1.f + erff(h * 0.70710678118654752f));
+}
+
+// An activation code as the JAX int8 kernels compute it (int8 modes of K10
+// and K11): x times the reciprocal of its scale, rounded half to even
+// (rintf, as jnp.round; not roundf), clipped to [-127, 127].
+__device__ __forceinline__ int quantize_i8(float x, float inv_a) {
+  return static_cast<int>(fminf(fmaxf(rintf(__fmul_rn(x, inv_a)), -127.f), 127.f));
+}
+
+// Four int8 codes in one 32-bit word, the first in the low byte.
+__device__ __forceinline__ int pack4(int c0, int c1, int c2, int c3) {
+  return static_cast<int>((c0 & 0xFF) | ((c1 & 0xFF) << 8) | ((c2 & 0xFF) << 16) |
+                          (static_cast<unsigned>(c3 & 0xFF) << 24));
+}
+
+// The exact GELU of the TPU int8 MLP kernel (pallas_mlp.py:_erf, used by
+// K11 int8): erf by Abramowitz & Stegun 7.1.26, absolute error 1.5e-7, in
+// the TPU kernel's order of operations, each rounded (no FMA) as the plain
+// version's are: its output is rounded to an activation code.
+__device__ __forceinline__ float gelu_as(float h) {
+  const float x = __fmul_rn(h, 0.70710678118654752f);
+  const float ax = fabsf(x);
+  const float t = __fdiv_rn(1.f, __fadd_rn(1.f, __fmul_rn(0.3275911f, ax)));
+  float poly = __fadd_rn(-1.453152027f, __fmul_rn(t, 1.061405429f));
+  poly = __fadd_rn(1.421413741f, __fmul_rn(t, poly));
+  poly = __fadd_rn(-0.284496736f, __fmul_rn(t, poly));
+  poly = __fmul_rn(t, __fadd_rn(0.254829592f, __fmul_rn(t, poly)));
+  const float sign = x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
+  const float erf = __fmul_rn(sign, __fsub_rn(1.f, __fmul_rn(poly, expf(-__fmul_rn(ax, ax)))));
+  return __fmul_rn(__fmul_rn(0.5f, h), __fadd_rn(1.f, erf));
 }
 
 // kRows consecutive floats from shared memory (16-byte aligned for

@@ -25,6 +25,20 @@
 // 384, D_h = 1,536): 4 M D D_h = 38.8 GFLOP, 0.58 ms at the 67 TFLOP/s f32
 // rate and 39 us at the 989 TFLOP/s bf16 tensor-core rate, which this
 // first FFMA version cannot reach; wgmma and TMA are later work.
+//
+// K11 int8 replaces pallas_mlp.py:_mlp_int8_kernel with quant=True (the
+// launch of fused_mlp_int8), mlp_i8_kernel below: the same tiling with both
+// products on int8 codes. The x tile is quantized as it loads (after the
+// LayerNorm with row_stats_f64's statistics, rounded to bf16),
+// clip(rint(x * (1/a1)), -127, 127), four codes a 32-bit word along D_in;
+// fc1 runs __dp4a into int32 sums; each hidden unit
+// is dequantized, acc * (a1 * s1) + b1, through the TPU kernel's GELU (erf by
+// Abramowitz & Stegun) in f32, and requantized by 1/a2 into the hidden chunk
+// in shared memory, a lane's four units one word; fc2 runs __dp4a into the
+// int32 register accumulator, dequantized once at the end, acc * (a2 * s2) +
+// b2, rounded to bf16, then the bf16 tail (LayerScale, residual) of the bf16
+// mode. Bound at M = 16,448: 38.8 G int8 operations over 1,979 TOP/s (20
+// us); __dp4a runs at the card's integer rate, far below it.
 
 #include "vit_common.cuh"
 
@@ -158,6 +172,196 @@ mlp_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
   }
 }
 
+// K11 int8's shared memory: x codes, a W1 slice, the hidden chunk's codes
+// and a W2 slice, all as 32-bit words of four codes.
+template <int kRows, int kGroups>
+size_t mlp_i8_smem_bytes(int d_in) {
+  constexpr int kStride = kWarps * kRows + 4;
+  return sizeof(int) * (static_cast<size_t>(round_up(d_in, kSlice) / 4) * kStride  // x codes^T
+                        + kSlice / 4 * kHidden                                      // W1 slice
+                        + kHidden / 4 * kStride                                     // hidden^T
+                        + kSlice / 4 * kHidden * kGroups);                          // W2 slice
+}
+
+// grid (ceil(M / TM)), 256 threads; d_in a multiple of 4. ln_g == nullptr:
+// no LayerNorm; ls may be null; residual needs d_out == d_in.
+template <int kRows, int kGroups>
+__global__ void __launch_bounds__(kThreads, 1)
+mlp_i8_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ ln_g,
+              const float* __restrict__ ln_b, float eps, float inv_a1, float a1,
+              const int8_t* __restrict__ w1, const float* __restrict__ s1,
+              const float* __restrict__ b1, float inv_a2, float a2,
+              const int8_t* __restrict__ w2, const float* __restrict__ s2,
+              const float* __restrict__ b2, const __nv_bfloat16* __restrict__ ls, int residual,
+              __nv_bfloat16* __restrict__ out, int M, int d_in, int d_h, int d_out) {
+  using bf = __nv_bfloat16;
+  constexpr int kTm = kWarps * kRows;
+  constexpr int kStride = kTm + 4;
+  constexpr int kOutCols = kHidden * kGroups;
+  constexpr int kSliceW = kSlice / 4;  // words per staged slice
+  const int in_words = round_up(d_in, kSlice) / 4;
+  extern __shared__ int4 smem_i4[];
+  int* xt = reinterpret_cast<int*>(smem_i4);
+  int* w1s = xt + static_cast<size_t>(in_words) * kStride;
+  int* ht = w1s + kSliceW * kHidden;
+  int* w2s = ht + kHidden / 4 * kStride;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int m0 = blockIdx.x * kTm;
+  const int r0 = warp * kRows;
+
+  for (int rr = 0; rr < kRows; ++rr) {
+    const int r = r0 + rr;
+    const bool valid = m0 + r < M;
+    const bf* row = x + static_cast<size_t>(m0 + r) * d_in;
+    float mean = 0.f, rstd = 1.f;
+    if (ln_g != nullptr && valid) row_stats_f64(row, d_in, eps, mean, rstd);
+    for (int kw = lane; kw < in_words; kw += 32) {
+      int c[4] = {0, 0, 0, 0};
+      if (valid && 4 * kw < d_in) {  // d_in % 4 == 0: the word is whole
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int k = 4 * kw + e;
+          float v = to_float(row[k]);
+          if (ln_g != nullptr) v = ln_bf16(v, mean, rstd, ln_g[k], ln_b[k]);
+          c[e] = quantize_i8(v, inv_a1);
+        }
+      }
+      xt[kw * kStride + r] = pack4(c[0], c[1], c[2], c[3]);
+    }
+  }
+
+  int acc[kRows][4 * kGroups];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int c = 0; c < 4 * kGroups; ++c) acc[i][c] = 0;
+
+  for (int h0 = 0; h0 < d_h; h0 += kHidden) {
+    int hacc[kRows][4];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) hacc[i][c] = 0;
+    for (int k0 = 0; k0 < d_in; k0 += kSlice) {
+      __syncthreads();  // the previous W1 slice (and hidden chunk) is consumed
+#pragma unroll
+      for (int u = 0; u < kSliceW * kHidden / kThreads; ++u) {
+        const int idx = tid + u * kThreads;
+        const int kw = idx / kHidden, hc = h0 + idx % kHidden;
+        const int k = k0 + 4 * kw;
+        int c[4] = {0, 0, 0, 0};
+        if (k < d_in && hc < d_h) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) c[e] = w1[static_cast<size_t>(k + e) * d_h + hc];
+        }
+        w1s[idx] = pack4(c[0], c[1], c[2], c[3]);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kw = 0; kw < kSliceW; ++kw) {
+        const int* a = xt + (k0 / 4 + kw) * kStride + r0;
+        const int4 b = *reinterpret_cast<const int4*>(w1s + kw * kHidden + 4 * lane);
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          hacc[i][0] = __dp4a(a[i], b.x, hacc[i][0]);
+          hacc[i][1] = __dp4a(a[i], b.y, hacc[i][1]);
+          hacc[i][2] = __dp4a(a[i], b.z, hacc[i][2]);
+          hacc[i][3] = __dp4a(a[i], b.w, hacc[i][3]);
+        }
+      }
+    }
+    // Every thread passed a barrier after the last fc2 read of ht. Lane l
+    // holds hidden units 4 l .. 4 l + 3: one word of codes per row.
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      int c[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hc = h0 + 4 * lane + e;
+        if (hc < d_h) {
+          const float deq = __fmul_rn(__int2float_rn(hacc[i][e]), __fmul_rn(a1, s1[hc]));
+          c[e] = quantize_i8(gelu_as(__fadd_rn(deq, b1[hc])), inv_a2);
+        }
+      }
+      ht[lane * kStride + r0 + i] = pack4(c[0], c[1], c[2], c[3]);
+    }
+    for (int k0 = 0; k0 < kHidden && h0 + k0 < d_h; k0 += kSlice) {
+      __syncthreads();  // the hidden chunk is written; the previous W2 slice consumed
+      for (int idx = tid; idx < kSliceW * kOutCols; idx += kThreads) {
+        const int kw = idx / kOutCols, col = idx % kOutCols;
+        const int hr = h0 + k0 + 4 * kw;
+        int c[4] = {0, 0, 0, 0};
+        if (col < d_out) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (hr + e < d_h) c[e] = w2[static_cast<size_t>(hr + e) * d_out + col];
+          }
+        }
+        w2s[idx] = pack4(c[0], c[1], c[2], c[3]);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kw = 0; kw < kSliceW; ++kw) {
+        const int* a = ht + (k0 / 4 + kw) * kStride + r0;
+#pragma unroll
+        for (int j = 0; j < kGroups; ++j) {
+          const int4 b = *reinterpret_cast<const int4*>(w2s + kw * kOutCols + 4 * lane + 128 * j);
+#pragma unroll
+          for (int i = 0; i < kRows; ++i) {
+            acc[i][4 * j] = __dp4a(a[i], b.x, acc[i][4 * j]);
+            acc[i][4 * j + 1] = __dp4a(a[i], b.y, acc[i][4 * j + 1]);
+            acc[i][4 * j + 2] = __dp4a(a[i], b.z, acc[i][4 * j + 2]);
+            acc[i][4 * j + 3] = __dp4a(a[i], b.w, acc[i][4 * j + 3]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int row = m0 + r0 + i;
+    if (row >= M) continue;
+#pragma unroll
+    for (int j = 0; j < kGroups; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = 4 * lane + kHidden * j + c;
+        if (col >= d_out) continue;
+        const float deq = __fmul_rn(__int2float_rn(acc[i][4 * j + c]), __fmul_rn(a2, s2[col]));
+        float v = round_to<bf>(__fadd_rn(deq, b2[col]));
+        if (ls != nullptr) v = round_to<bf>(v * to_float(ls[col]));
+        if (residual) v = round_to<bf>(to_float(x[static_cast<size_t>(row) * d_in + col]) + v);
+        out[static_cast<size_t>(row) * d_out + col] = from_float<bf>(v);
+      }
+    }
+  }
+}
+
+template <int kRows, int kGroups>
+cudaError_t launch_mlp_i8(cudaStream_t stream, const void* x, const void* ln_g,
+                          const void* ln_b, float eps, float inv_a1, float a1, const void* w1,
+                          const void* s1, const void* b1, float inv_a2, float a2, const void* w2,
+                          const void* s2, const void* b2, const void* ls, int residual,
+                          void* out, int M, int d_in, int d_h, int d_out) {
+  using bf = __nv_bfloat16;
+  const size_t smem = mlp_i8_smem_bytes<kRows, kGroups>(d_in);
+  if (smem > smem_optin()) return cudaErrorInvalidConfiguration;
+  const cudaError_t err = allow_smem(mlp_i8_kernel<kRows, kGroups>, smem);
+  if (err != cudaSuccess) return err;
+  const int grid = (M + kWarps * kRows - 1) / (kWarps * kRows);
+  mlp_i8_kernel<kRows, kGroups><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf*>(x), static_cast<const float*>(ln_g), static_cast<const float*>(ln_b),
+      eps, inv_a1, a1, static_cast<const int8_t*>(w1), static_cast<const float*>(s1),
+      static_cast<const float*>(b1), inv_a2, a2, static_cast<const int8_t*>(w2),
+      static_cast<const float*>(s2), static_cast<const float*>(b2), static_cast<const bf*>(ls),
+      residual, static_cast<bf*>(out), M, d_in, d_h, d_out);
+  return cudaGetLastError();
+}
+
 template <typename T, int kRows, int kGroups>
 cudaError_t launch_mlp(cudaStream_t stream, const void* x, const void* ln_g, const void* ln_b,
                        float eps, const void* w1, const void* b1, const void* w2, const void* b2,
@@ -195,6 +399,25 @@ cudaError_t mlp(cudaStream_t stream, const void* x, const void* ln_g, const void
   return cudaErrorInvalidValue;
 }
 
+// K11 int8's tile shape for an output width, as mlp's.
+inline cudaError_t mlp_i8(cudaStream_t stream, const void* x, const void* ln_g, const void* ln_b,
+                          float eps, float inv_a1, float a1, const void* w1, const void* s1,
+                          const void* b1, float inv_a2, float a2, const void* w2, const void* s2,
+                          const void* b2, const void* ls, int residual, void* out, int M,
+                          int d_in, int d_h, int d_out) {
+  const int groups = (d_out + kHidden - 1) / kHidden;
+#define VIT_MLP_I8(R, G)                                                                         \
+  launch_mlp_i8<R, G>(stream, x, ln_g, ln_b, eps, inv_a1, a1, w1, s1, b1, inv_a2, a2, w2, s2, b2, \
+                      ls, residual, out, M, d_in, d_h, d_out)
+  if (groups <= 1) return VIT_MLP_I8(8, 1);
+  if (groups <= 2) return VIT_MLP_I8(8, 2);
+  if (groups <= 3) return VIT_MLP_I8(8, 3);
+  if (groups <= 6) return VIT_MLP_I8(4, 6);
+  if (groups <= 8) return VIT_MLP_I8(2, 8);
+#undef VIT_MLP_I8
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace vit
 
 extern "C" {
@@ -223,6 +446,25 @@ int vit_mlp_forward(const void* x, const void* ln_g, const void* ln_b, float eps
                                      M, d_in, d_h, d_out)
            : vit::mlp<float>(st, x, ln_g, ln_b, eps, w1, b1, w2, b2, ls, residual, out, M, d_in,
                              d_h, d_out));
+}
+
+// K11 int8: x (M, d_in) bf16, d_in a multiple of 4; w1 (d_in, d_h) and w2
+// (d_h, d_out) int8 with per-column scales s1 (d_h,), s2 (d_out,) f32; b1,
+// b2, ln_g, ln_b f32; inv_a* and a* the activation scales' reciprocals and
+// the scales; ls (d_out,) bf16 or null; out (M, d_out) bf16. Launches on
+// `stream`, does not synchronize, returns cudaGetLastError().
+int vit_mlp_int8_forward(const void* x, const void* ln_g, const void* ln_b, float eps,
+                         const void* w1, const void* s1, const void* b1, float inv_a1, float a1,
+                         const void* w2, const void* s2, const void* b2, float inv_a2, float a2,
+                         const void* ls, int residual, void* out, int M, int d_in, int d_h,
+                         int d_out, void* stream) {
+  if (M <= 0 || d_in <= 0 || d_h <= 0 || d_out <= 0 || d_in % 4 != 0 ||
+      (residual && d_in != d_out) || (ln_g == nullptr) != (ln_b == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(vit::mlp_i8(static_cast<cudaStream_t>(stream), x, ln_g, ln_b, eps,
+                                      inv_a1, a1, w1, s1, b1, inv_a2, a2, w2, s2, b2, ls,
+                                      residual, out, M, d_in, d_h, d_out));
 }
 
 }  // extern "C"

@@ -21,6 +21,13 @@ becomes a torchvision-named ``state_dict``.
 ``jax_to_torch_nwmodel`` converts a whole ``NWModel`` tree: the featurizer
 (a ResNet with its ``batch_stats``, or a ViT, which has none), the optional
 ``proj`` Dense layer and the head's ``logit_scale``.
+
+``jax_to_torch_quantized_vit`` carries a JAX ``QuantizedViT``
+(``nwhead_tpu/models/quantize.py``: int8 kernels ``(in, out)`` as they are,
+their scales, the activation scales as floats, the bf16 HWIO patch kernel
+to OIHW) into the port's ``QuantizedViT``, so that both run on identical
+int8 weights and scales. It reads the arrays with ``np.asarray`` and
+imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -139,3 +146,30 @@ def jax_to_torch_nwmodel(variables_np: Mapping[str, Any]) -> Dict[str, torch.Ten
         _dense(sd, "proj", params["proj"])
     sd.update({f"head.{k}": v for k, v in jax_to_torch_head(params.get("head", {})).items()})
     return sd
+
+
+def _np32(a) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a, np.float32).copy())
+
+
+def jax_to_torch_quantized_vit(q: Any):
+    """A JAX ``QuantizedViT`` (or any object with its fields: ``patch_w``
+    HWIO, ``patch_b``, ``cls_token``, ``pos_embed``, ``patch_size``,
+    ``num_heads``, ``blocks`` of ``QViTBlock`` fields, ``final_norm``) ->
+    ``nwhead_tpu_torch.models.quantize.QuantizedViT`` on the CPU."""
+    from nwhead_tpu_torch.models.quantize import QDense, QuantizedViT, QViTBlock
+
+    def dense(d) -> QDense:
+        return QDense(torch.from_numpy(np.asarray(d.wq, np.int8).copy()), _np32(d.w_scale),
+                      _np32(d.bias), float(np.asarray(d.act_scale, np.float32)))
+
+    def maybe(t):
+        return None if t is None else _np32(t)
+
+    blocks = [QViTBlock((_np32(b.norm1.scale), _np32(b.norm1.bias)), dense(b.qkv),
+                        dense(b.proj), maybe(b.ls1), (_np32(b.norm2.scale), _np32(b.norm2.bias)),
+                        dense(b.fc1), dense(b.fc2), maybe(b.ls2)) for b in q.blocks]
+    patch_w = np.ascontiguousarray(np.asarray(q.patch_w, np.float32).transpose(3, 2, 0, 1))
+    return QuantizedViT(torch.from_numpy(patch_w), _np32(q.patch_b), _np32(q.cls_token),
+                        _np32(q.pos_embed), _np32(q.final_norm.scale), _np32(q.final_norm.bias),
+                        int(q.patch_size), int(q.num_heads), blocks).eval()

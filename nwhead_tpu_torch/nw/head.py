@@ -4,7 +4,8 @@ Port of ``nwhead_tpu/nw/head.py``. The head is the op from
 ``nwhead_tpu_torch.ops``; the module holds clip's learnable ``logit_scale``
 and gives the network one place to choose between the naive op, the fused
 raw-feature path (kernels K1/K3, differentiable: the training forward) and
-the fused serving path over a prepared bank (K2, ``from_prepared``).
+the fused serving path over a prepared bank (K2, K4 or K5 by the bank's
+precision, ``from_prepared``).
 """
 
 from __future__ import annotations
@@ -23,8 +24,11 @@ from nwhead_tpu_torch.ops.kernels import KERNEL_NAMES
 
 
 class NWHead(nn.Module):
-    """``precision`` is ``'f32'`` or ``'bf16'``: a bf16 head rounds the
-    features to bf16 before the distance, on every path. With ``use_fused``,
+    """``precision`` is ``'f32'``, ``'bf16'``, ``'int8'`` or ``'int4'``: a
+    bf16 head rounds the features to bf16 before the distance, on every
+    path; int8 and int4 quantize the prepared serving bank (K4, K5,
+    ``from_prepared``) and run at f32 on raw features, in training too, as
+    the JAX head does. With ``use_fused``,
     a 2-D query against a 2-D support of at least ``fused_min_support`` rows
     takes the fused kernels; anything else the naive op."""
 

@@ -6,10 +6,12 @@ episodic training forward, query and support in one featurizer batch so
 that BatchNorm sees both and gradients reach the support features.
 ``NWNet`` is the host-side orchestrator: it samples training episodes
 (``support_train``, ``forward``), builds the full-mode support bank
-(``precompute``), prepares it for the fused head when it is large enough,
-and predicts in the ``random`` and ``full`` modes (``predict``,
-``make_serving_fn``). ``fuse_featurizer`` swaps the eval and serving
-featurizer of a ViT for the bf16 fused-serving graph (K10/K11). The cluster, ensemble, knn and hnsw modes,
+(``precompute``), prepares it for the fused head when it is large enough
+(f32/bf16: K2; ``head_precision`` int8/int4: K4/K5), and predicts in the
+``random`` and ``full`` modes (``predict``, ``make_serving_fn``).
+``fuse_featurizer`` swaps the eval and serving featurizer of a ViT for the
+bf16 fused-serving graph (K10/K11), ``quantize_featurizer`` for the int8
+one (K10/K11 int8). The cluster, ensemble, knn and hnsw modes,
 incremental bank edits and sharding are later slices (ROADMAP.md queue 1,
 items 7, 8 and 10).
 
@@ -146,7 +148,8 @@ class NWNet:
             )
         self._prepared_full: Optional[PreparedSupport] = None
         self._prepared_pos: Optional[np.ndarray] = None  # bank row -> prepared row
-        # Eval/serving featurizer set by fuse_featurizer (None: the model's).
+        # Eval/serving featurizer set by fuse_featurizer or quantize_featurizer
+        # (None: the model's).
         self.serving_featurizer: Optional[nn.Module] = None
 
     # -- training forward ------------------------------------------------------
@@ -193,13 +196,30 @@ class NWNet:
             raise NotImplementedError(
                 "fuse_featurizer is the ViT bf16 fused-serving path; a "
                 f"{type(self.model.featurizer).__name__} backbone has none (its int8 "
-                "path, quantize_featurizer, is ROADMAP.md queue 1, item 9)")
+                "PTQ through quantize_featurizer is not ported yet: ROADMAP.md queue 1, "
+                "item 9)")
         self.serving_featurizer = fuse_vit_serving(self.model.featurizer)
         self._prepared_full = self._prepared_pos = None
 
+    def quantize_featurizer(self, calib_images, calib_batch: int = 64) -> None:
+        """Swap the eval and serving featurizer for the int8 post-training-
+        quantized one (``models/quantize.py``: K10 int8 and K11 int8 per ViT
+        block), its activation scales calibrated on ``calib_images`` (NHWC,
+        post-transform) from the current weights. ``proj`` still applies.
+        Training (``forward``) keeps the float featurizer. The prepared bank
+        is dropped: run ``precompute`` after this, so that the bank is built
+        from the same quantized features as the queries. ViTs only so far
+        (a ResNet raises); serving only."""
+        from nwhead_tpu_torch.models.quantize import quantize_featurizer
+
+        self.serving_featurizer = quantize_featurizer(self.model.featurizer, calib_images,
+                                                      calib_batch)
+        self._prepared_full = self._prepared_pos = None
+
     def _featurize_eval(self, x: torch.Tensor) -> torch.Tensor:
-        """Features of the eval and serving paths: the fused serving
-        featurizer when there is one (then ``proj``), else the model's."""
+        """Features of the eval and serving paths: the fused or quantized
+        serving featurizer when there is one (then ``proj``), else the
+        model's."""
         if self.serving_featurizer is None:
             return self.model.featurize(x)
         f = self.serving_featurizer(x)
@@ -295,7 +315,8 @@ class NWNet:
     def predict(self, x, mode: str = "random") -> torch.Tensor:
         """Log-probs for a batch of images, in eval mode. ``random``: the
         head over an episode drawn from the bank; ``full``: the prepared
-        bank (K2) when there is one, else the head over the whole bank."""
+        bank (K2, K4 or K5) when there is one, else the head over the whole
+        bank."""
         self.model.eval()
         support = self.support_eval.get_support(mode)  # raises for modes not ported
         qfeat = self._featurize_eval(torch.as_tensor(x).to(self.device))

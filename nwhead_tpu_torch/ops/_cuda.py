@@ -39,6 +39,9 @@ _API = {
         "vit_attention_block_bf16": (
             [_VP] * 3 + [_F32] + [_VP] * 5 + [_I32] + [_VP] * 3 + [_I32] * 4 + [_F32, _VP],
             _I32),
+        "vit_attention_block_int8": (
+            [_VP] * 3 + [_F32] + [_VP] * 3 + [_F32] * 2 + [_VP] * 3 + [_F32] * 2 + [_VP, _I32]
+            + [_VP] * 3 + [_I32] * 4 + [_F32, _VP], _I32),
         "vit_attn_error_string": ([_I32], ctypes.c_char_p),
     },
     "vit_attn_bwd": {
@@ -53,11 +56,14 @@ _API = {
     "vit_mlp": {
         "vit_mlp_forward": ([_VP] * 3 + [_F32] + [_VP] * 5 + [_I32, _VP] + [_I32] * 5 + [_VP],
                             _I32),
+        "vit_mlp_int8_forward": ([_VP] * 3 + [_F32] + [_VP] * 3 + [_F32] * 2 + [_VP] * 3
+                                 + [_F32] * 2 + [_VP, _I32, _VP] + [_I32] * 4 + [_VP], _I32),
         "vit_mlp_max_out": ([], _I32),
         "vit_mlp_error_string": ([_I32], ctypes.c_char_p),
     },
     "nw_prepared": {
         "nw_prepared_forward": ([_VP] * 9 + [_I32] * 8 + [_VP], _I32),
+        "nw_prepared_quant_forward": ([_VP] * 10 + [_I32] * 8 + [_VP], _I32),
         "nw_prepared_query_tile": ([], _I32),
         "nw_prepared_support_tile": ([], _I32),
         "nw_prepared_smem_bytes": ([_I32], _I32),

@@ -1,9 +1,10 @@
 """Fused ViT attention: multi-head attention off the packed qkv (K7), its
-backward (K8), and the bf16 attention half-block (K10).
+backward (K8), and the bf16 and int8 attention half-blocks (K10).
 
 Port of ``nwhead_tpu/ops/pallas_attn.py``: ``fused_attention_qkv`` (forward
-and backward) and ``fused_attention_block_bf16`` (``quant=False``). The
-kernels are CUDA C++ for Hopper, built and loaded by ``ops/_cuda.py``:
+and backward), ``fused_attention_block_bf16`` (``quant=False``) and
+``fused_attention_qkv_int8`` (``quant=True``). The kernels are CUDA C++ for
+Hopper, built and loaded by ``ops/_cuda.py``:
 
 * K7 ``vit_attention_forward`` (``csrc/vit_attn.cu``, TPU
   ``_attn_qkv_kernel``): per head ``softmax(q k^T * scale) v`` with the
@@ -14,11 +15,16 @@ kernels are CUDA C++ for Hopper, built and loaded by ``ops/_cuda.py``:
 * K10 ``vit_attention_block_bf16`` (``csrc/vit_attn.cu``, TPU
   ``_attn_int8_kernel`` with ``quant=False``): [LayerNorm ->] qkv ->
   attention -> proj [-> * LayerScale] [-> + x] in bf16, three launches
-  through device memory.
+  through device memory;
+* K10 int8 ``vit_attention_block_int8`` (``csrc/vit_attn.cu``, TPU
+  ``_attn_int8_kernel`` with ``quant=True``): the same with both
+  projections quantize -> int8 product -> dequantize + bias (per-tensor
+  activation scales, per-channel weight scales), the attention in bf16.
 
 Each kernel has a wrapper that counts its launches (``.launches``) and a
 plain PyTorch version of the same function (``_attention_qkv_plain``,
-``_attention_qkv_bwd_plain``, ``_attention_block_bf16_plain``) that follows
+``_attention_qkv_bwd_plain``, ``_attention_block_bf16_plain``,
+``_attention_block_int8_plain``, whose integer products are exact) that follows
 the TPU kernel's single pass and its rounding points: probabilities
 normalized in f32, then rounded to v's dtype before the PV product (and
 before dV in the backward). ``fused_attention_qkv`` is a
@@ -54,6 +60,38 @@ def _layer_norm_f32(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     mean = xf.mean(-1, keepdim=True)
     var = torch.square(xf - mean).mean(-1, keepdim=True)
     return (xf - mean) * torch.rsqrt(var + eps) * scale.to(torch.float32) + bias.to(torch.float32)
+
+
+def _layer_norm_int8(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                     eps: float) -> torch.Tensor:
+    """The int8 kernels' LayerNorm (``row_stats_f64`` in ``csrc/vit_common.cuh``):
+    mean and variance summed in f64 and each of mean and ``1 / sqrt(var + eps)``
+    rounded once to f32, so that the kernels, which sum in another order,
+    get the same f32 values; then ``((x - mean) * rstd) * scale + bias`` in
+    f32. The JAX kernels' f32 statistics differ from these by rounding."""
+    f64 = torch.float64
+    xf = x.to(torch.float32)
+    mean = xf.to(f64).mean(-1, keepdim=True).to(torch.float32)
+    d = xf - mean
+    eps32 = float(torch.tensor(eps, dtype=torch.float32))  # the kernels take eps in f32
+    rstd = (1.0 / torch.sqrt(torch.square(d.to(f64)).mean(-1, keepdim=True) + eps32))
+    return d * rstd.to(torch.float32) * scale.to(torch.float32) + bias.to(torch.float32)
+
+
+def quantize_act(x: torch.Tensor, act_scale: float) -> torch.Tensor:
+    """Activation codes as the JAX int8 kernels compute them, in f32:
+    ``clip(round(x * (1 / a)), -127, 127)``, a multiply by the reciprocal
+    (rounded once to f32), rounding half to even."""
+    return torch.clamp(torch.round(x.to(torch.float32) * (1.0 / act_scale)), -127, 127)
+
+
+def int8_dense_f32(codes: torch.Tensor, wq: torch.Tensor, act_scale: float,
+                   w_scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """``codes @ wq`` as the int32 product of the kernels (exact here: an f64
+    product of integers below 2^53), then ``acc * (a * w_scale) + bias`` in
+    f32, the product of scales first (``pallas_attn.py:419-426``)."""
+    acc = torch.matmul(codes.to(torch.float64), wq.to(torch.float64)).to(torch.float32)
+    return acc * (act_scale * w_scale.to(torch.float32)) + bias.to(torch.float32)
 
 
 def _heads_attention_f32(qkv: torch.Tensor, num_heads: int, scale: float,
@@ -247,6 +285,68 @@ def _attention_block_bf16_plain(
     return out
 
 
+def _attention_block_int8_plain(
+    x: torch.Tensor, w_qkv: torch.Tensor, s_qkv: torch.Tensor, b_qkv: torch.Tensor,
+    a_qkv: float, w_proj: torch.Tensor, s_proj: torch.Tensor, b_proj: torch.Tensor,
+    a_proj: float, num_heads: int, scale: float, ln_scale: Optional[torch.Tensor],
+    ln_bias: Optional[torch.Tensor], ln_eps: float, layerscale: Optional[torch.Tensor],
+    residual: bool,
+) -> torch.Tensor:
+    """K10 int8's function in plain PyTorch: [LN (``_layer_norm_int8``),
+    rounded to bf16 ->] quantize by ``1/a_qkv`` -> int8 qkv product ->
+    dequantize + bias -> bf16 -> the bf16 attention (K7's) -> the output
+    rounded to bf16 -> quantize by ``1/a_proj`` -> int8 proj product ->
+    dequantize + bias -> bf16 [-> * ls] [-> + x], as ``_attn_int8_kernel``
+    rounds them."""
+    h = x.to(torch.float32)
+    if ln_scale is not None:
+        h = _layer_norm_int8(h, ln_scale, ln_bias, ln_eps).to(_BF16).to(torch.float32)
+    qkv = int8_dense_f32(quantize_act(h, a_qkv), w_qkv, a_qkv, s_qkv, b_qkv).to(_BF16)
+    att = _heads_attention_f32(qkv, num_heads, scale, _BF16).to(_BF16)
+    out = int8_dense_f32(quantize_act(att, a_proj), w_proj, a_proj, s_proj, b_proj).to(_BF16)
+    if layerscale is not None:
+        out = out * layerscale.to(_BF16)
+    if residual:
+        out = x + out
+    return out
+
+
+def _check_block(name: str, x: torch.Tensor, num_heads: int, wdt: torch.dtype, w_qkv, b_qkv,
+                 w_proj, b_proj, ln_scale, ln_bias, layerscale, scales=()) -> torch.device:
+    """Check an attention half-block's operands: x ``(B, N, D)`` bf16 with a
+    head width the kernel takes, weights ``wdt``, the rest f32 but the bf16
+    LayerScale, each of its shape. Returns the device."""
+    if x.dim() != 3 or x.shape[2] % num_heads or 0 in x.shape:
+        raise ValueError(f"x {tuple(x.shape)} is not (B, N, D) with D a multiple of {num_heads}")
+    D = x.shape[2]
+    if D // num_heads not in _HEAD_DIMS:
+        raise ValueError(f"head width {D // num_heads}: the kernel is built for {_HEAD_DIMS}")
+    f32 = torch.float32
+    checked = [("x", x, _BF16), ("w_qkv", w_qkv, wdt), ("b_qkv", b_qkv, f32),
+               ("w_proj", w_proj, wdt), ("b_proj", b_proj, f32), *scales]
+    if ln_scale is not None:
+        checked += [("ln_scale", ln_scale, f32), ("ln_bias", ln_bias, f32)]
+    if layerscale is not None:
+        checked.append(("layerscale", layerscale, _BF16))
+    device = _check_cuda(name, checked)
+    shapes = {"w_qkv": (D, 3 * D), "b_qkv": (3 * D,), "w_proj": (D, D), "b_proj": (D,),
+              "s_qkv": (3 * D,), "s_proj": (D,), "ln_scale": (D,), "ln_bias": (D,),
+              "layerscale": (D,)}
+    for arg, t, _ in checked[1:]:
+        if tuple(t.shape) != shapes[arg]:
+            raise ValueError(f"{arg} {tuple(t.shape)}: need {shapes[arg]} for D={D}")
+    return device
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _vec(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
+    """A per-channel operand flattened, contiguous, in ``dtype`` (None stays)."""
+    return None if t is None else t.to(dtype).reshape(-1).contiguous()
+
+
 def attention_block_bf16_cuda(
     x: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch.Tensor, w_proj: torch.Tensor,
     b_proj: torch.Tensor, num_heads: int, scale: float, ln_scale: Optional[torch.Tensor],
@@ -257,36 +357,17 @@ def attention_block_bf16_cuda(
     stages through bf16 scratch ``qkv (B, N, 3D)`` and ``att (B, N, D)``.
     Takes the operands in the dtypes ``fused_attention_block_bf16`` casts
     them to; raises on anything else."""
-    if x.dim() != 3 or x.shape[2] % num_heads or 0 in x.shape:
-        raise ValueError(f"x {tuple(x.shape)} is not (B, N, D) with D a multiple of {num_heads}")
+    device = _check_block("attention_block_bf16_cuda", x, num_heads, _BF16, w_qkv, b_qkv,
+                          w_proj, b_proj, ln_scale, ln_bias, layerscale)
     B, N, D = x.shape
-    if D // num_heads not in _HEAD_DIMS:
-        raise ValueError(f"head width {D // num_heads}: the kernel is built for {_HEAD_DIMS}")
-    f32 = torch.float32
-    checked = [("x", x, _BF16), ("w_qkv", w_qkv, _BF16), ("b_qkv", b_qkv, f32),
-               ("w_proj", w_proj, _BF16), ("b_proj", b_proj, f32)]
-    if ln_scale is not None:
-        checked += [("ln_scale", ln_scale, f32), ("ln_bias", ln_bias, f32)]
-    if layerscale is not None:
-        checked.append(("layerscale", layerscale, _BF16))
-    device = _check_cuda("attention_block_bf16_cuda", checked)
-    shapes = {"w_qkv": (D, 3 * D), "b_qkv": (3 * D,), "w_proj": (D, D), "b_proj": (D,),
-              "ln_scale": (D,), "ln_bias": (D,), "layerscale": (D,)}
-    for arg, t, _ in checked[1:]:
-        if tuple(t.shape) != shapes[arg]:
-            raise ValueError(f"{arg} {tuple(t.shape)}: need {shapes[arg]} for D={D}")
     qkv = torch.empty((B, N, 3 * D), dtype=_BF16, device=device)
     att = torch.empty((B, N, D), dtype=_BF16, device=device)
     out = torch.empty_like(x)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     lib = _cuda.load_library("vit_attn")
     with torch.cuda.device(device):
-        _launch(lib, "vit_attention_block_bf16", x.data_ptr(), ptr(ln_scale), ptr(ln_bias),
+        _launch(lib, "vit_attention_block_bf16", x.data_ptr(), _ptr(ln_scale), _ptr(ln_bias),
                 float(ln_eps), w_qkv.data_ptr(), b_qkv.data_ptr(), w_proj.data_ptr(),
-                b_proj.data_ptr(), ptr(layerscale), int(residual), qkv.data_ptr(),
+                b_proj.data_ptr(), _ptr(layerscale), int(residual), qkv.data_ptr(),
                 att.data_ptr(), out.data_ptr(), B, N, D, num_heads, float(scale),
                 torch.cuda.current_stream(device).cuda_stream)
     attention_block_bf16_cuda.launches += 1
@@ -294,6 +375,46 @@ def attention_block_bf16_cuda(
 
 
 attention_block_bf16_cuda.launches = 0
+
+
+def attention_block_int8_cuda(
+    x: torch.Tensor, w_qkv: torch.Tensor, s_qkv: torch.Tensor, b_qkv: torch.Tensor,
+    a_qkv: float, w_proj: torch.Tensor, s_proj: torch.Tensor, b_proj: torch.Tensor,
+    a_proj: float, num_heads: int, scale: float, ln_scale: Optional[torch.Tensor],
+    ln_bias: Optional[torch.Tensor], ln_eps: float, layerscale: Optional[torch.Tensor],
+    residual: bool,
+) -> torch.Tensor:
+    """Launch K10 int8 (``csrc/vit_attn.cu``) on the current stream: three
+    stages through bf16 scratch ``qkv (B, N, 3D)`` and ``att (B, N, D)``,
+    both projections on int8 codes. Takes the operands in the dtypes
+    ``fused_attention_qkv_int8`` casts them to (int8 weights ``(D, 3D)``,
+    ``(D, D)``, f32 per-channel scales and biases); raises on anything
+    else."""
+    f32 = torch.float32
+    device = _check_block("attention_block_int8_cuda", x, num_heads, torch.int8, w_qkv, b_qkv,
+                          w_proj, b_proj, ln_scale, ln_bias, layerscale,
+                          [("s_qkv", s_qkv, f32), ("s_proj", s_proj, f32)])
+    B, N, D = x.shape
+    if D % 4:
+        raise ValueError(f"attention_block_int8_cuda: D={D} is not a multiple of 4")
+    qkv = torch.empty((B, N, 3 * D), dtype=_BF16, device=device)
+    att = torch.empty((B, N, D), dtype=_BF16, device=device)
+    out = torch.empty_like(x)
+    lib = _cuda.load_library("vit_attn")
+    with torch.cuda.device(device):
+        # The reciprocals in double, rounded once to f32, as the JAX kernel's
+        # Python-float ``1.0 / a`` is.
+        _launch(lib, "vit_attention_block_int8", x.data_ptr(), _ptr(ln_scale), _ptr(ln_bias),
+                float(ln_eps), w_qkv.data_ptr(), s_qkv.data_ptr(), b_qkv.data_ptr(),
+                1.0 / a_qkv, float(a_qkv), w_proj.data_ptr(), s_proj.data_ptr(),
+                b_proj.data_ptr(), 1.0 / a_proj, float(a_proj), _ptr(layerscale),
+                int(residual), qkv.data_ptr(), att.data_ptr(), out.data_ptr(), B, N, D,
+                num_heads, float(scale), torch.cuda.current_stream(device).cuda_stream)
+    attention_block_int8_cuda.launches += 1
+    return out
+
+
+attention_block_int8_cuda.launches = 0
 
 
 def fused_attention_block_bf16(
@@ -310,14 +431,38 @@ def fused_attention_block_bf16(
     D = x.shape[-1]
     f32 = torch.float32
 
-    def vec(t, dt):
-        return None if t is None else t.to(dt).reshape(-1).contiguous()
-
-    args = (x.to(_BF16).contiguous(), w_qkv.to(_BF16).contiguous(), vec(qkv_bias, f32),
-            w_proj.to(_BF16).contiguous(), vec(proj_bias, f32), num_heads,
+    args = (x.to(_BF16).contiguous(), w_qkv.to(_BF16).contiguous(), _vec(qkv_bias, f32),
+            w_proj.to(_BF16).contiguous(), _vec(proj_bias, f32), num_heads,
             float(scale) if scale is not None else 1.0 / math.sqrt(D // num_heads),
-            vec(ln_scale, f32), vec(ln_bias, f32), float(ln_eps), vec(layerscale, _BF16),
+            _vec(ln_scale, f32), _vec(ln_bias, f32), float(ln_eps), _vec(layerscale, _BF16),
             bool(residual))
     if x.device.type == "cpu":
         return _attention_block_bf16_plain(*args)
     return attention_block_bf16_cuda(*args)
+
+
+def fused_attention_qkv_int8(
+    x: torch.Tensor, wq_qkv: torch.Tensor, qkv_w_scale: torch.Tensor, qkv_bias: torch.Tensor,
+    qkv_act_scale, wq_proj: torch.Tensor, proj_w_scale: torch.Tensor,
+    proj_bias: torch.Tensor, proj_act_scale, num_heads: int, *,
+    scale: Optional[float] = None, ln_scale: Optional[torch.Tensor] = None,
+    ln_bias: Optional[torch.Tensor] = None, ln_eps: float = 1e-6,
+    layerscale: Optional[torch.Tensor] = None, residual: bool = False,
+) -> torch.Tensor:
+    """The quantized-serving attention half-block (K10 int8, inference
+    only): ``[LN ->] QDense(qkv) -> attention -> QDense(proj) [-> *
+    layerscale] [-> + x]``. ``x (B, N, D)``; ``wq_* (D_in, D_out)`` int8 with
+    per-output-channel ``*_w_scale``; ``*_act_scale`` the calibrated
+    per-tensor input scales (Python floats). Returns ``(B, N, D)`` bf16."""
+    D = x.shape[-1]
+    f32 = torch.float32
+
+    args = (x.to(_BF16).contiguous(), wq_qkv.to(torch.int8).contiguous(), _vec(qkv_w_scale, f32),
+            _vec(qkv_bias, f32), float(qkv_act_scale), wq_proj.to(torch.int8).contiguous(),
+            _vec(proj_w_scale, f32), _vec(proj_bias, f32), float(proj_act_scale), num_heads,
+            float(scale) if scale is not None else 1.0 / math.sqrt(D // num_heads),
+            _vec(ln_scale, f32), _vec(ln_bias, f32), float(ln_eps), _vec(layerscale, _BF16),
+            bool(residual))
+    if x.device.type == "cpu":
+        return _attention_block_int8_plain(*args)
+    return attention_block_int8_cuda(*args)

@@ -1,25 +1,31 @@
 """Fused transformer MLP: ``fc1 -> exact GELU -> fc2`` forward (K9), its
-backward (the K9 backward) and the bf16 MLP half-block (K11).
+backward (the K9 backward) and the bf16 and int8 MLP half-blocks (K11).
 
 Port of ``nwhead_tpu/ops/pallas_mlp.py``: ``fused_mlp`` (forward and
-backward) and ``fused_mlp_block_bf16`` (``quant=False``). The forwards run
-one CUDA C++ kernel for Hopper, ``csrc/vit_mlp.cu`` ``vit_mlp_forward``
-(TPU ``_mlp_kernel`` and ``_mlp_int8_kernel``), in which the hidden
-activation never leaves the chip; K11 adds the optional LayerNorm before
-fc1 and the LayerScale and residual after fc2. The backward is
+backward), ``fused_mlp_block_bf16`` (``quant=False``) and
+``fused_mlp_int8`` (``quant=True``). The float forwards run one CUDA C++
+kernel for Hopper, ``csrc/vit_mlp.cu`` ``vit_mlp_forward`` (TPU
+``_mlp_kernel`` and ``_mlp_int8_kernel``), in which the hidden activation
+never leaves the chip; K11 adds the optional LayerNorm before fc1 and the
+LayerScale and residual after fc2. K11 int8 is ``vit_mlp_int8_forward`` in
+the same source: both products on int8 codes with calibrated activation
+scales, the hidden chunk requantized on chip. The backward is
 ``csrc/vit_mlp_bwd.cu`` ``vit_mlp_backward`` (TPU ``_mlp_bwd_kernel``): h
 recomputed per token tile, dx, then the weight and bias gradients summed
 over all tokens in a fixed order.
 
 Each kernel has a wrapper that counts its launches (``.launches``) and a
 plain PyTorch version (``_mlp_plain``, ``_mlp_bwd_plain``,
-``_mlp_block_bf16_plain``) with the TPU kernel's rounding points.
+``_mlp_block_bf16_plain``, ``_mlp_block_int8_plain``, whose integer
+products are exact) with the TPU kernel's rounding points.
 ``fused_mlp`` is a ``torch.autograd.Function`` that saves its inputs, as
 the JAX custom VJP does. The exact GELU uses ``torch.erf`` here and
 ``erff`` in the kernels; the JAX kernels use an approximation of erf
 (Abramowitz & Stegun 7.1.26, absolute error 1.5e-7), which the tests'
-tolerances cover. A CPU tensor goes to the plain versions, a CUDA tensor to
-the kernels, with no fallback between them.
+tolerances cover. The int8 mode, whose GELU output is rounded to codes,
+uses the JAX kernel's approximation in both versions (``_gelu_as``). A
+CPU tensor goes to the plain versions, a CUDA tensor to the kernels, with
+no fallback between them.
 """
 
 from __future__ import annotations
@@ -30,13 +36,26 @@ from typing import Optional
 import torch
 
 from nwhead_tpu_torch.ops import _cuda
-from nwhead_tpu_torch.ops.fused_attn import _check_cuda, _layer_norm_f32
+from nwhead_tpu_torch.ops.fused_attn import (
+    _check_cuda, _layer_norm_f32, _layer_norm_int8, _ptr, _vec, int8_dense_f32, quantize_act,
+)
 
 _BF16 = torch.bfloat16
 
 
 def _gelu_exact(h: torch.Tensor) -> torch.Tensor:
     return 0.5 * h * (1.0 + torch.erf(h * (1.0 / math.sqrt(2.0))))
+
+
+def _gelu_as(h: torch.Tensor) -> torch.Tensor:
+    """The exact GELU of the TPU int8 MLP kernel, erf by Abramowitz & Stegun
+    7.1.26 (``pallas_mlp.py:_erf``), in its order of operations, f32."""
+    x = h * (0.5 ** 0.5)
+    ax = torch.abs(x)
+    t = 1.0 / (1.0 + 0.3275911 * ax)
+    poly = t * (0.254829592 + t * (-0.284496736 + t * (1.421413741 + t * (
+        -1.453152027 + t * 1.061405429))))
+    return 0.5 * h * (1.0 + torch.sign(x) * (1.0 - poly * torch.exp(-ax * ax)))
 
 
 def _mlp_f32(x: torch.Tensor, w1, b1, w2, b2, dtype: torch.dtype) -> torch.Tensor:
@@ -94,10 +113,32 @@ def _mlp_block_bf16_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     return out
 
 
-def _check_mlp(name: str, x, w1, b1, w2, b2, *extra) -> torch.device:
+def _mlp_block_int8_plain(x: torch.Tensor, w1: torch.Tensor, s1: torch.Tensor,
+                          b1: torch.Tensor, a1: float, w2: torch.Tensor, s2: torch.Tensor,
+                          b2: torch.Tensor, a2: float, ln_scale=None, ln_bias=None, ln_eps=1e-6,
+                          layerscale=None, residual=False) -> torch.Tensor:
+    """K11 int8's function in plain PyTorch on ``(M, D_in)`` bf16: [LN
+    (``_layer_norm_int8``), rounded to bf16 ->] quantize by ``1/a1`` ->
+    int8 fc1 -> dequantize + bias -> GELU (f32, ``_gelu_as``) -> quantize
+    by ``1/a2`` -> int8 fc2 -> dequantize + bias -> bf16 [-> * ls] [-> +
+    x]; the integer products exact."""
+    h = x
+    if ln_scale is not None:
+        h = _layer_norm_int8(x, ln_scale, ln_bias, ln_eps).to(_BF16)
+    g = _gelu_as(int8_dense_f32(quantize_act(h, a1), w1, a1, s1, b1))
+    out = int8_dense_f32(quantize_act(g, a2), w2, a2, s2, b2).to(_BF16)
+    if layerscale is not None:
+        out = out * layerscale.to(_BF16)
+    if residual:
+        out = x + out
+    return out
+
+
+def _check_mlp(name: str, x, w1, b1, w2, b2, *extra, wdt=None) -> torch.device:
     """Check an MLP kernel's operands, x ``(M, D_in)`` f32 or bf16, the
-    weights in x's dtype, the biases f32, and each ``(arg, tensor, dtype)``
-    of ``extra`` (``ln_scale``, ``ln_bias``, ``layerscale``, ``dout``): one
+    weights in ``wdt`` (default x's dtype; int8 for K11 int8), the biases
+    f32, and each ``(arg, tensor, dtype)`` of ``extra`` (``ln_scale``,
+    ``ln_bias``, ``layerscale``, ``dout``, the int8 weights' scales): one
     CUDA device, contiguous, shapes that fit x's. Returns the device."""
     if x.dim() != 2 or 0 in x.shape or x.dtype not in (torch.float32, _BF16):
         raise ValueError(f"{name}: x {tuple(x.shape)} {x.dtype} is not a non-empty "
@@ -105,12 +146,13 @@ def _check_mlp(name: str, x, w1, b1, w2, b2, *extra) -> torch.device:
     M, d_in = x.shape
     d_h, d_out = w1.shape[-1], w2.shape[-1]
     f32 = torch.float32
-    checked = [("x", x, x.dtype), ("w1", w1, x.dtype), ("b1", b1, f32), ("w2", w2, x.dtype),
+    wdt = wdt or x.dtype
+    checked = [("x", x, x.dtype), ("w1", w1, wdt), ("b1", b1, f32), ("w2", w2, wdt),
                ("b2", b2, f32), *extra]
     device = _check_cuda(name, checked)
     shapes = {"w1": (d_in, d_h), "b1": (d_h,), "w2": (d_h, d_out), "b2": (d_out,),
-              "ln_scale": (d_in,), "ln_bias": (d_in,), "layerscale": (d_out,),
-              "dout": (M, d_out)}
+              "s1": (d_h,), "s2": (d_out,), "ln_scale": (d_in,), "ln_bias": (d_in,),
+              "layerscale": (d_out,), "dout": (M, d_out)}
     for arg, t, _ in checked[1:]:
         if tuple(t.shape) != shapes[arg]:
             raise ValueError(f"{name}: {arg} {tuple(t.shape)}, need {shapes[arg]}")
@@ -118,36 +160,47 @@ def _check_mlp(name: str, x, w1, b1, w2, b2, *extra) -> torch.device:
 
 
 def _mlp_launch(name: str, x, w1, b1, w2, b2, ln_scale, ln_bias, ln_eps, layerscale,
-                residual) -> torch.Tensor:
+                residual, quant=None) -> torch.Tensor:
     """Check the operands and launch ``vit_mlp_forward`` on the current
-    stream."""
+    stream, or with ``quant = (s1, a1, s2, a2)`` (int8 weights, their
+    per-channel scales and the activation scales) ``vit_mlp_int8_forward``."""
     extra = []
     if ln_scale is not None:
         extra += [("ln_scale", ln_scale, torch.float32), ("ln_bias", ln_bias, torch.float32)]
     if layerscale is not None:
         extra.append(("layerscale", layerscale, x.dtype))
-    device = _check_mlp(name, x, w1, b1, w2, b2, *extra)
+    if quant is not None:
+        extra += [("s1", quant[0], torch.float32), ("s2", quant[2], torch.float32)]
+    device = _check_mlp(name, x, w1, b1, w2, b2, *extra,
+                        wdt=None if quant is None else torch.int8)
     M, d_in = x.shape
     d_h, d_out = w1.shape[-1], w2.shape[-1]
     if residual and d_out != d_in:
         raise ValueError("residual=True requires D_out == D_in")
+    if quant is not None and d_in % 4:
+        raise ValueError(f"{name}: needs D_in a multiple of 4, got {d_in}")
     lib = _cuda.load_library("vit_mlp")
     if d_out > lib.vit_mlp_max_out():
         raise ValueError(f"{name}: D_out={d_out} is beyond the kernel's {lib.vit_mlp_max_out()}")
     out = torch.empty((M, d_out), dtype=x.dtype, device=device)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+    stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        rc = lib.vit_mlp_forward(
-            x.data_ptr(), ptr(ln_scale), ptr(ln_bias), float(ln_eps), w1.data_ptr(),
-            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), ptr(layerscale), int(residual),
-            out.data_ptr(), M, d_in, d_h, d_out, int(x.dtype == _BF16),
-            torch.cuda.current_stream(device).cuda_stream)
+        if quant is None:
+            rc = lib.vit_mlp_forward(
+                x.data_ptr(), _ptr(ln_scale), _ptr(ln_bias), float(ln_eps), w1.data_ptr(),
+                b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), _ptr(layerscale), int(residual),
+                out.data_ptr(), M, d_in, d_h, d_out, int(x.dtype == _BF16), stream)
+        else:
+            # The reciprocals in double, rounded once to f32, as the JAX
+            # kernel's Python-float ``1.0 / a`` is.
+            s1, a1, s2, a2 = quant
+            rc = lib.vit_mlp_int8_forward(
+                x.data_ptr(), _ptr(ln_scale), _ptr(ln_bias), float(ln_eps), w1.data_ptr(),
+                s1.data_ptr(), b1.data_ptr(), 1.0 / a1, float(a1), w2.data_ptr(), s2.data_ptr(),
+                b2.data_ptr(), 1.0 / a2, float(a2), _ptr(layerscale), int(residual),
+                out.data_ptr(), M, d_in, d_h, d_out, stream)
     if rc != 0:
-        raise RuntimeError(f"vit_mlp_forward kernel launch failed: "
-                           f"{lib.vit_mlp_error_string(rc).decode()}")
+        raise RuntimeError(f"{name} kernel launch failed: {lib.vit_mlp_error_string(rc).decode()}")
     return out
 
 
@@ -174,6 +227,22 @@ def mlp_block_bf16_cuda(x, w1, b1, w2, b2, ln_scale=None, ln_bias=None, ln_eps=1
 
 
 mlp_block_bf16_cuda.launches = 0
+
+
+def mlp_block_int8_cuda(x, w1, s1, b1, a1, w2, s2, b2, a2, ln_scale=None, ln_bias=None,
+                        ln_eps=1e-6, layerscale=None, residual=False) -> torch.Tensor:
+    """Launch K11 int8 (``csrc/vit_mlp.cu``) on ``(M, D_in)`` bf16 with int8
+    weights ``w1 (D_in, D_h)``, ``w2 (D_h, D_out)``, their f32 per-channel
+    scales and the Python-float activation scales ``a1``, ``a2``."""
+    if x.dtype != _BF16:
+        raise ValueError(f"mlp_block_int8_cuda takes bf16, got {x.dtype}")
+    out = _mlp_launch("mlp_block_int8_cuda", x, w1, b1, w2, b2, ln_scale, ln_bias, ln_eps,
+                      layerscale, residual, quant=(s1, a1, s2, a2))
+    mlp_block_int8_cuda.launches += 1
+    return out
+
+
+mlp_block_int8_cuda.launches = 0
 
 
 def mlp_bwd_cuda(x, w1, b1, w2, b2, dout):
@@ -252,11 +321,30 @@ def fused_mlp_block_bf16(
     products, bf16 out. Returns ``(..., D_out)`` bf16."""
     f32 = torch.float32
 
-    def vec(t, dt):
-        return None if t is None else t.to(dt).reshape(-1).contiguous()
-
-    args = (_flat(x, _BF16), w1.to(_BF16).contiguous(), vec(b1, f32), w2.to(_BF16).contiguous(),
-            vec(b2, f32), vec(ln_scale, f32), vec(ln_bias, f32), float(ln_eps),
-            vec(layerscale, _BF16), bool(residual))
+    args = (_flat(x, _BF16), w1.to(_BF16).contiguous(), _vec(b1, f32), w2.to(_BF16).contiguous(),
+            _vec(b2, f32), _vec(ln_scale, f32), _vec(ln_bias, f32), float(ln_eps),
+            _vec(layerscale, _BF16), bool(residual))
     out = (_mlp_block_bf16_plain if x.device.type == "cpu" else mlp_block_bf16_cuda)(*args)
     return out.reshape(*x.shape[:-1], w2.shape[-1])
+
+
+def fused_mlp_int8(
+    x: torch.Tensor, wq1: torch.Tensor, w1_scale: torch.Tensor, b1: torch.Tensor, act_scale1,
+    wq2: torch.Tensor, w2_scale: torch.Tensor, b2: torch.Tensor, act_scale2, *,
+    ln_scale: Optional[torch.Tensor] = None, ln_bias: Optional[torch.Tensor] = None,
+    ln_eps: float = 1e-6, layerscale: Optional[torch.Tensor] = None, residual: bool = False,
+) -> torch.Tensor:
+    """The quantized-serving MLP half-block (K11 int8, inference only): [LN
+    ->] QDense(fc1) -> exact GELU -> QDense(fc2) [-> * layerscale] [-> +
+    x], the hidden activation's codes kept on the chip. ``wq* (D_in,
+    D_out)`` int8 with per-output-channel ``w*_scale``; ``act_scale*`` the
+    calibrated per-tensor input scales (Python floats). Returns ``(...,
+    D_out)`` bf16."""
+    f32 = torch.float32
+
+    args = (_flat(x, _BF16), wq1.to(torch.int8).contiguous(), _vec(w1_scale, f32), _vec(b1, f32),
+            float(act_scale1), wq2.to(torch.int8).contiguous(), _vec(w2_scale, f32), _vec(b2, f32),
+            float(act_scale2), _vec(ln_scale, f32), _vec(ln_bias, f32), float(ln_eps),
+            _vec(layerscale, _BF16), bool(residual))
+    out = (_mlp_block_int8_plain if x.device.type == "cpu" else mlp_block_int8_cuda)(*args)
+    return out.reshape(*x.shape[:-1], wq2.shape[-1])

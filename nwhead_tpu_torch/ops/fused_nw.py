@@ -11,32 +11,45 @@ for Hopper, built and loaded by ``ops/_cuda.py``:
 * K3 ``csrc/nw_fused.cu`` ``nw_fused_bwd_dq`` / ``nw_fused_bwd_ds`` (TPU
   ``_nw_bwd_dq_kernel`` / ``_nw_bwd_ds_kernel``): the backward, recomputing
   the scores from ``(m, l)``;
-* K2 ``csrc/nw_prepared.cu`` (TPU ``_nw_prepared_kernel``): the forward
-  over a bank normalized and packed once by ``prepare_support``.
+* K2 ``csrc/nw_prepared.cu`` ``nw_prepared_forward`` (TPU
+  ``_nw_prepared_kernel``): the forward over a bank normalized and packed
+  once by ``prepare_support``, f32 or bf16;
+* K4 and K5 ``csrc/nw_prepared.cu`` ``nw_prepared_quant_forward`` (TPU
+  ``_nw_prepared_kernel`` with ``quant=True`` / ``quant4=True``): the same
+  over an int8 bank, or an int4 bank of two codes a byte, against a query
+  quantized per row; int32 dot products, dequantized by the query's and the
+  row's scales.
 
 ``prepare_support`` normalizes the bank once for its kernel, zeroes masked
-rows, precomputes the self-norms ``s2`` (l2 modes; ``1e30`` on masked rows)
-and stores the labels with ``-1`` for masked rows. Every call then streams
-the bank once: score -> online softmax -> label sum -> ``log(acc/l + 1e-12)``.
+rows, quantizes it per row for ``int8``/``int4`` (symmetric, ``amax/127``
+or ``amax/7``, codes ``round(x / scale)``), precomputes the self-norms
+``s2`` (l2 modes; of the dequantized bank for int8/int4; ``1e30`` on masked
+rows) and stores the labels with ``-1`` for masked rows. Every call then
+streams the bank once: score -> online softmax -> label sum ->
+``log(acc/l + 1e-12)``.
 
 Each kernel has a wrapper that counts its launches (``.launches``) and a
 plain PyTorch version of the same function (``_nw_fwd_plain``,
 ``_nw_bwd_dq_plain``, ``_nw_bwd_ds_plain``, or both passes at once in
-``_nw_bwd_plain``, ``_nw_prepared_plain``; full f32 products). A CPU
-tensor goes to the plain version, a CUDA tensor to the kernel. There is no
+``_nw_bwd_plain``, ``_nw_prepared_plain``; full f32 products, and for the
+quantized banks the integer dot products exactly, in f64). A CPU tensor
+goes to the plain version, a CUDA tensor to the kernel. There is no
 fallback between them: a kernel that cannot be built or launched raises.
 
 Left out of the port, as TPU layout workarounds that change no value: the
 lane/sublane label pair, the one-hot matmuls (label sum and the ``u[y]``
-gather), the class window, 128-lane padding of D, the ones-vector column
-sum, ``meta_stream`` and the query pre-doubling. The int8/int4 banks
-(K4/K5), tile selection and partial outputs (K1 ``partials=True``, K6) are
-later slices.
+gather), the class window, 128-lane padding of D (an int8 bank pads D to a
+multiple of 4, an int4 bank to a multiple of 8, so that rows and packed
+halves are whole 32-bit words), the ones-vector column sum,
+``meta_stream``, the query pre-doubling and the int4 unpack variants.
+Tile selection and partial outputs (K1 ``partials=True``, K6) are later
+slices.
 """
 
 from __future__ import annotations
 
 import math
+import warnings
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -51,6 +64,12 @@ from nwhead_tpu_torch.ops.nw import LOG_FLOOR
 _NEG_INF = float(torch.finfo(torch.float32).min)
 _MASK_S2 = 1e30  # self-norm of a masked row (l2 modes)
 _PRECISIONS = {"f32": torch.float32, "bf16": torch.bfloat16}
+# Quantized banks: precision -> (stored dtype, largest code, D padded to a
+# multiple of). The int4 bank is stored as uint8, two codes a byte: the
+# dtype marks it, as in the JAX package.
+_QUANT = {"int8": (torch.int8, 127.0, 4), "int4": (torch.uint8, 7.0, 8)}
+_BANK_PRECISION = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8",
+                   torch.uint8: "int4"}
 # kernel -> (mode, L2-normalize the features first)
 _MODES = {
     "euclidean": ("l2", False),
@@ -67,9 +86,13 @@ class PreparedSupport(NamedTuple):
     Rows may be permuted (class-sorted when C > 128); ``prepare_support(...,
     return_order=True)`` returns the permutation."""
 
-    s: torch.Tensor  # (S, D) f32 or bf16, normalized per kernel, masked rows 0
+    # (S, D) f32 or bf16, normalized per kernel, masked rows 0; int8: (S,
+    # D_pad) codes; int4: (S, D_pad / 2) uint8, byte j = (code[j + D_pad/2]
+    # << 4) | (code[j] + 8).
+    s: torch.Tensor
     s2: Optional[torch.Tensor]  # (S,) f32 self-norms (l2 modes), 1e30 if masked
     labels: torch.Tensor  # (S,) int32, -1 = masked
+    sscale: Optional[torch.Tensor] = None  # (S,) f32 row scales of an int8/int4 bank
 
 
 def _resolve_mode(
@@ -113,14 +136,23 @@ def prepare_support(
     ``return_order=True`` also returns that permutation as an int64 numpy
     array (``order[j]`` = input row stored at prepared row ``j``), or
     ``None`` when rows kept their input order.
+
+    ``precision='int8'`` / ``'int4'`` quantize each normalized row
+    symmetrically (``pallas_nw.py:343-362``): scale ``amax/127`` (or
+    ``amax/7``; 1 for an all-zero row), codes ``clip(round(x / scale))``;
+    the int4 codes are packed two a byte (``_int4_pack``).
     """
-    if precision in ("int8", "int4"):
-        raise NotImplementedError(
-            f"precision={precision!r} banks are not ported yet "
-            "(ROADMAP.md queue 2, K4/K5)"
-        )
-    if precision not in _PRECISIONS:
+    if precision not in _PRECISIONS and precision not in _QUANT:
         raise ValueError(f"unknown precision {precision!r}")
+    if precision == "int4" and kernel == "dotproduct":
+        # As the JAX package warns (pallas_nw.py:278-288): raw dot scores are
+        # unbounded, so 4-bit feature noise goes straight into the softmax.
+        warnings.warn(
+            "int4 serving banks amplify quantization noise under the raw "
+            "dotproduct kernel; prefer precision='int8' there (euclidean/"
+            "cosine/clip are fine at int4).",
+            stacklevel=2,
+        )
     if sfeat.dim() != 2 or sfeat.shape[0] == 0:
         raise ValueError(f"support must be a non-empty (S, D) array, got {tuple(sfeat.shape)}")
     device = sfeat.device
@@ -139,22 +171,99 @@ def prepare_support(
         order = np.argsort(np.where(mask_np > 0, sy_np, n_classes), kind="stable")
         sfeat = sfeat[torch.as_tensor(order, device=device)]
         sy_np, mask_np = sy_np[order], mask_np[order]
-    # bf16 banks round before the kernel normalization, as the JAX package does.
-    s = sfeat.to(_PRECISIONS[precision])
+    # bf16 banks round before the kernel normalization, as the JAX package
+    # does; quantized banks are normalized in f32.
+    s = sfeat.to(_PRECISIONS.get(precision, torch.float32))
     mode, _, _, s = _resolve_mode(kernel, {"logit_scale": 0.0}, s[:1], s)
     valid = torch.as_tensor(mask_np > 0, device=device)
     # Masked rows may hold anything, NaN included; where, not multiply.
     s = torch.where(valid[:, None], s, torch.zeros((), dtype=s.dtype, device=device))
-    s2 = None
-    if mode == "l2":
+    s2 = sscale = None
+    if precision in _QUANT:
+        s, sscale, s2 = _quantize_bank(s, precision)
+        s2 = s2 if mode == "l2" else None
+    elif mode == "l2":
         sf = s.to(torch.float32)
-        s2 = torch.where(valid, torch.sum(sf * sf, dim=1),
-                         torch.full((), _MASK_S2, device=device))
+        s2 = torch.sum(sf * sf, dim=1)
+    if mode == "l2":
+        s2 = torch.where(valid, s2, torch.full((), _MASK_S2, device=device))
     labels = torch.as_tensor(np.where(mask_np > 0, sy_np, -1).astype(np.int32), device=device)
-    prep = PreparedSupport(s=s.contiguous(), s2=s2, labels=labels)
+    prep = PreparedSupport(s=s.contiguous(), s2=s2, labels=labels, sscale=sscale)
     if return_order:
         return prep, (None if order is None else order.astype(np.int64))
     return prep
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def _quantize_bank(s: torch.Tensor, precision: str):
+    """``(codes, scale (S,), s2 (S,))`` of a normalized f32 bank with masked
+    rows zeroed: int8 codes ``(S, D_pad)``, or int4 codes packed into
+    ``(S, D_pad / 2)`` uint8. ``s2`` is the dequantized rows' self-norm,
+    summed as the JAX package sums it: ``sum((code * scale)^2)`` for int8,
+    ``sum(code^2) * scale * scale`` for int4."""
+    _, top, multiple = _QUANT[precision]
+    sf = torch.nn.functional.pad(s, (0, _round_up(s.shape[1], multiple) - s.shape[1]))
+    amax = torch.amax(torch.abs(sf), dim=1)
+    # int4: the JAX package's jitted ``amax / 7`` runs as XLA rewrites it,
+    # a multiply by f32(1/7); int8's eager ``amax / 127`` stays a division.
+    step = amax / top if precision == "int8" else amax * (1.0 / top)
+    scale = torch.where(amax > 0, step, torch.ones((), device=s.device))
+    # A division, not a multiply by the reciprocal: the codes at .5 are JAX's.
+    codes = torch.clamp(torch.round(sf / scale[:, None]), -top, top)
+    if precision == "int8":
+        return codes.to(torch.int8), scale, torch.sum((codes * scale[:, None]) ** 2, dim=1)
+    return _int4_pack(codes), scale, torch.sum(codes ** 2, dim=1) * scale * scale
+
+
+def _int4_pack(codes: torch.Tensor) -> torch.Tensor:
+    """``(S, D_pad)`` codes in [-7, 7] -> ``(S, D_pad / 2)`` uint8: features
+    ``j`` and ``j + D_pad/2`` share byte ``j``, the low nibble biased by 8
+    (``pallas_nw.py:211-240``)."""
+    c = codes.to(torch.int32)
+    half = c.shape[1] // 2
+    return (((c[:, half:] & 0xF) << 4) | (c[:, :half] + 8)).to(torch.uint8)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """The ``(S, D_pad)`` int8 codes of a packed int4 bank."""
+    b = packed.to(torch.int32)
+    hi = (b >> 4) & 0xF
+    return torch.cat([(b & 0xF) - 8, hi - ((hi & 8) << 1)], dim=1).to(torch.int8)
+
+
+def bank_codes(prep: PreparedSupport) -> torch.Tensor:
+    """The ``(S, D_pad)`` int8 codes of an int8 or int4 bank."""
+    return unpack_int4(prep.s) if prep.s.dtype == torch.uint8 else prep.s
+
+
+def _bank_width(prep: PreparedSupport) -> int:
+    """The features a query needs for this bank (D_pad for int8/int4)."""
+    return prep.s.shape[1] * (2 if prep.s.dtype == torch.uint8 else 1)
+
+
+def _quantize_query(q: torch.Tensor, width: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(q8 (B, width) int8, qscale (B,) f32)``: each normalized f32 query
+    padded to the bank's width and quantized symmetrically to 127 levels
+    (for int4 banks too, ``pallas_nw.py:1328-1333``), by a division."""
+    qf = torch.nn.functional.pad(q.to(torch.float32), (0, width - q.shape[1]))
+    amax = torch.amax(torch.abs(qf), dim=1)
+    qscale = torch.where(amax > 0, amax / 127.0, torch.ones((), device=q.device))
+    return torch.clamp(torch.round(qf / qscale[:, None]), -127, 127).to(torch.int8), qscale
+
+
+def _prepared_query(qfeat: torch.Tensor, prepared: PreparedSupport, kernel: str = "euclidean",
+                    kernel_params: Optional[Dict[str, Any]] = None):
+    """``(q, scale, mode, qscale)``: a query batch as the bank's kernel takes
+    it. The query is normalized in f32, then cast to the bank's dtype, or
+    for an int8/int4 bank quantized (``qscale`` its scales, else None)."""
+    mode, scale, qn, _ = _resolve_mode(kernel, kernel_params or {}, qfeat)
+    if prepared.sscale is None:
+        return qn.to(prepared.s.dtype), scale, mode, None
+    q8, qscale = _quantize_query(qn, _bank_width(prepared))
+    return q8, scale, mode, qscale
 
 
 def _scores_plain(qf, sf, s2, labels, scale, mode):
@@ -185,14 +294,38 @@ def _softmax_pass_plain(score, labels, n_classes):
     return out, m, l
 
 
+def _quant_scores_plain(q8, qscale, prep, scale, mode):
+    """K4/K5's score matrix ``(B, S)``, masked rows ``_NEG_INF``: the int32
+    dot product (exact: an f64 product of integers below 2^53), then
+    ``dot * qcol * sscale`` in f32 with ``qcol = qscale`` (l2) or ``qscale *
+    scale`` (dot: the similarity scale folded into the query's column,
+    ``pallas_nw.py:1334-1344``). l2: ``-sqrt(max(q2 - 2 dot + s2, 0))``
+    with ``q2`` the dequantized query's norm."""
+    dot_i = torch.matmul(q8.to(torch.float64), bank_codes(prep).to(torch.float64).T)
+    qcol = qscale if mode == "l2" else qscale * scale
+    dot = dot_i.to(torch.float32) * qcol[:, None] * prep.sscale[None, :]
+    if mode == "l2":
+        qd = q8.to(torch.float32) * qscale[:, None]
+        q2 = torch.sum(qd * qd, dim=1, keepdim=True)
+        score = -torch.sqrt(torch.clamp(q2 - 2.0 * dot + prep.s2[None, :], min=0.0))
+    else:
+        score = dot
+    return torch.where((prep.labels >= 0)[None, :], score, _NEG_INF)
+
+
 def _nw_prepared_plain(
     q: torch.Tensor, prep: PreparedSupport, scale: torch.Tensor, mode: str,
-    n_classes: int,
+    n_classes: int, qscale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K2's function in plain PyTorch, at full f32: ``q`` already in the
-    bank's dtype, products and softmax state in f32."""
-    score, _ = _scores_plain(q.to(torch.float32), prep.s.to(torch.float32), prep.s2,
-                             prep.labels, scale, mode)
+    bank's dtype, products and softmax state in f32. For an int8/int4 bank
+    (K4/K5) ``q`` is the int8 query and ``qscale`` its scales
+    (``_prepared_query``)."""
+    if prep.sscale is not None:
+        score = _quant_scores_plain(q, qscale, prep, scale, mode)
+    else:
+        score, _ = _scores_plain(q.to(torch.float32), prep.s.to(torch.float32), prep.s2,
+                                 prep.labels, scale, mode)
     return _softmax_pass_plain(score, prep.labels, n_classes)[0]
 
 
@@ -291,35 +424,48 @@ def _split_rows(n_rows: int, n_query_tiles: int, n_sms: int, tile: int) -> Tuple
     return rows, math.ceil(n_rows / rows)
 
 
-def nw_prepared_cuda(
-    q: torch.Tensor, prep: PreparedSupport, scale: torch.Tensor, mode: str,
-    n_classes: int,
-) -> torch.Tensor:
-    """Launch the CUDA kernel (``csrc/nw_prepared.cu``) on the current
+def _prepared_launch(name: str, q: torch.Tensor, prep: PreparedSupport, scale: torch.Tensor,
+                     mode: str, n_classes: int, qscale: Optional[torch.Tensor],
+                     bank_dtypes, query_dtype) -> torch.Tensor:
+    """Check a prepared-bank kernel's operands and launch it on the current
     stream: pass 1 writes per-split partials (m, l, acc), pass 2 merges them
-    and takes the log. Raises on anything the kernel does not take."""
+    and takes the log. ``qscale`` goes with an int8/int4 bank only."""
     if q.device.type != "cuda":
-        raise ValueError(f"nw_prepared_cuda needs CUDA tensors, got {q.device}")
+        raise ValueError(f"{name} needs CUDA tensors, got {q.device}")
     s, labels, s2 = prep.s, prep.labels, prep.s2
-    if q.dim() != 2 or q.shape[1] != s.shape[1] or q.shape[0] == 0:
+    if s.dtype not in bank_dtypes or q.dtype != query_dtype:
+        banks = " or ".join(_BANK_PRECISION[d] for d in bank_dtypes)
+        raise ValueError(f"{name}: query {q.dtype} / bank {s.dtype}: need one of {banks} "
+                         f"for the bank and a {query_dtype} query")
+    if q.dim() != 2 or q.shape[1] != _bank_width(prep) or q.shape[0] == 0:
         raise ValueError(f"query {tuple(q.shape)} does not match bank {tuple(s.shape)}")
-    if q.dtype != s.dtype or s.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"query {q.dtype} / bank {s.dtype}: need one of f32, bf16")
+    quant = prep.sscale is not None
+    if quant != (qscale is not None):
+        raise ValueError(f"{name}: qscale goes with an int8/int4 bank, and only with one")
     l2 = mode == "l2"
     if l2 and s2 is None:
         raise ValueError("l2 mode needs the bank's self-norms")
+    B, D = q.shape
+    S = s.shape[0]
     checked = [("bank", s, s.dtype), ("labels", labels, torch.int32),
                ("scale", scale, torch.float32)] + ([("s2", s2, torch.float32)] if l2 else [])
-    for name, t, dt in checked:
+    if quant:
+        # The similarity scale rides in the query's dequant column (dot mode).
+        qcol = (qscale if l2 else qscale * scale).contiguous()
+        checked += [("qscale", qcol, torch.float32), ("sscale", prep.sscale, torch.float32)]
+        if qcol.shape != (B,) or prep.sscale.shape != (S,):
+            raise ValueError(f"{name}: qscale {tuple(qcol.shape)} / sscale "
+                             f"{tuple(prep.sscale.shape)} for B={B}, S={S}")
+        if q.data_ptr() % 4 or s.data_ptr() % 4:
+            raise ValueError(f"{name}: query and bank must start on a 4-byte boundary")
+    for arg, t, dt in checked:
         if t.device != q.device or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"{name}: need contiguous {dt} on {q.device}, "
+            raise ValueError(f"{name}: {arg} needs contiguous {dt} on {q.device}, "
                              f"got {t.dtype} on {t.device}")
     lib = _cuda.load_library()
     if n_classes < 1 or n_classes > lib.nw_prepared_max_classes(q.device.index or 0):
         raise ValueError(f"n_classes={n_classes} is beyond what the kernel's "
                          "shared-memory accumulator holds on this device")
-    B, D = q.shape
-    S = s.shape[0]
     q = q.contiguous()
     n_tiles_q = math.ceil(B / lib.nw_prepared_query_tile())
     n_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
@@ -329,24 +475,70 @@ def nw_prepared_cuda(
     l_part = torch.empty((n_splits, B), **f32)
     acc_part = torch.empty((n_splits, B, n_classes), **f32)
     out = torch.empty((B, n_classes), **f32)
+    partials = (m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(), out.data_ptr())
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        rc = lib.nw_prepared_forward(
-            q.data_ptr(), s.data_ptr(), s2.data_ptr() if l2 else None,
-            labels.data_ptr(), scale.data_ptr(),
-            m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
-            out.data_ptr(), B, S, D, n_classes, int(l2),
-            int(s.dtype == torch.bfloat16), n_splits, rows,
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+        if quant:
+            rc = lib.nw_prepared_quant_forward(
+                q.data_ptr(), s.data_ptr(), s2.data_ptr() if l2 else None, labels.data_ptr(),
+                qcol.data_ptr(), prep.sscale.data_ptr(), *partials, B, S, D, n_classes,
+                int(l2), int(s.dtype == torch.uint8), n_splits, rows, stream)
+        else:
+            rc = lib.nw_prepared_forward(
+                q.data_ptr(), s.data_ptr(), s2.data_ptr() if l2 else None,
+                labels.data_ptr(), scale.data_ptr(), *partials, B, S, D, n_classes, int(l2),
+                int(s.dtype == torch.bfloat16), n_splits, rows, stream)
     if rc != 0:
         raise RuntimeError(
-            f"nw_prepared kernel launch failed: {lib.nw_prepared_error_string(rc).decode()}"
+            f"{name} kernel launch failed: {lib.nw_prepared_error_string(rc).decode()}"
         )
+    return out
+
+
+def nw_prepared_cuda(
+    q: torch.Tensor, prep: PreparedSupport, scale: torch.Tensor, mode: str,
+    n_classes: int, qscale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Launch K2 (``csrc/nw_prepared.cu``) over an f32 or bf16 bank, ``q``
+    in the bank's dtype. Raises on anything the kernel does not take."""
+    out = _prepared_launch("nw_prepared_cuda", q, prep, scale, mode, n_classes, qscale,
+                           (torch.float32, torch.bfloat16), prep.s.dtype)
     nw_prepared_cuda.launches += 1
     return out
 
 
 nw_prepared_cuda.launches = 0
+
+
+def nw_prepared_int8_cuda(
+    q: torch.Tensor, prep: PreparedSupport, scale: torch.Tensor, mode: str,
+    n_classes: int, qscale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Launch K4 (``csrc/nw_prepared.cu``) over an int8 bank: ``q`` the int8
+    query ``(B, D_pad)`` and ``qscale`` its scales (``_prepared_query``)."""
+    out = _prepared_launch("nw_prepared_int8_cuda", q, prep, scale, mode, n_classes, qscale,
+                           (torch.int8,), torch.int8)
+    nw_prepared_int8_cuda.launches += 1
+    return out
+
+
+nw_prepared_int8_cuda.launches = 0
+
+
+def nw_prepared_int4_cuda(
+    q: torch.Tensor, prep: PreparedSupport, scale: torch.Tensor, mode: str,
+    n_classes: int, qscale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Launch K5 (``csrc/nw_prepared.cu``) over an int4 bank (uint8, two
+    codes a byte, unpacked on chip): ``q`` the int8 query ``(B, D_pad)``
+    and ``qscale`` its scales."""
+    out = _prepared_launch("nw_prepared_int4_cuda", q, prep, scale, mode, n_classes, qscale,
+                           (torch.uint8,), torch.int8)
+    nw_prepared_int4_cuda.launches += 1
+    return out
+
+
+nw_prepared_int4_cuda.launches = 0
 
 
 def _check_raw(name: str, q: torch.Tensor, s: torch.Tensor, tensors) -> None:
@@ -529,16 +721,18 @@ def nw_fused_log_probs(
     The contract of ``nw_log_probs`` restricted to 2-D shared support,
     differentiable in ``q``, ``s`` and clip's ``logit_scale``. ``sfeat`` may
     be a ``PreparedSupport`` (``sy`` is then ignored): the inference-only
-    serving path (K2). ``precision='bf16'`` casts both feature sets to bf16
-    before the kernel normalization; products and softmax stay f32 and the
-    gradients come back through the cast."""
+    serving path (K2, K4, K5). ``precision='bf16'`` casts both feature sets
+    to bf16 before the kernel normalization; products and softmax stay f32
+    and the gradients come back through the cast. ``'int8'`` and ``'int4'``
+    quantize prepared banks only: on raw features they run at f32, as the
+    JAX package's raw path does (``pallas_nw.py:2073-2077``)."""
     if isinstance(sfeat, PreparedSupport):
         if n_classes is None:
             raise ValueError("n_classes is required with a PreparedSupport")
         if support_mask is not None:
             raise ValueError("support_mask must be baked in at prepare_support time "
                              "(the prepared bank's labels already encode the mask)")
-        bank = {torch.float32: "f32", torch.bfloat16: "bf16"}[sfeat.s.dtype]
+        bank = _BANK_PRECISION[sfeat.s.dtype]
         if precision is not None and precision != bank:
             raise ValueError(f"precision={precision!r} but the prepared bank is {bank} "
                              "— pass precision= to prepare_support instead")
@@ -547,8 +741,8 @@ def nw_fused_log_probs(
     if sy is None or n_classes is None:
         raise ValueError("the raw fused path needs the support labels and n_classes")
     precision = precision or "f32"
-    if precision not in _PRECISIONS:
-        raise ValueError(f"the raw fused path runs at f32 or bf16, got {precision!r}")
+    if precision not in _PRECISIONS and precision not in _QUANT:
+        raise ValueError(f"unknown precision {precision!r}")
     if qfeat.dim() != 2 or sfeat.dim() != 2 or qfeat.shape[1] != sfeat.shape[1]:
         raise ValueError(f"the fused head takes 2-D query (B, D) and support (S, D), got "
                          f"{tuple(qfeat.shape)} and {tuple(sfeat.shape)}")
@@ -579,9 +773,11 @@ def nw_fused_from_prepared(
 ) -> torch.Tensor:
     """Fused NW log-probs ``(B, C)`` over a ``prepare_support`` bank.
     Inference only. The query is normalized in f32, then cast to the
-    bank's dtype."""
-    mode, scale, qn, _ = _resolve_mode(kernel, kernel_params or {}, qfeat)
-    q = qn.to(prepared.s.dtype)
+    bank's dtype, or quantized for an int8/int4 bank; the bank's dtype
+    picks the kernel (K2, K4 or K5)."""
+    q, scale, mode, qscale = _prepared_query(qfeat, prepared, kernel, kernel_params)
     if q.device.type == "cpu":
-        return _nw_prepared_plain(q, prepared, scale, mode, n_classes)
-    return nw_prepared_cuda(q, prepared, scale, mode, n_classes)
+        return _nw_prepared_plain(q, prepared, scale, mode, n_classes, qscale)
+    wrapper = {torch.int8: nw_prepared_int8_cuda,
+               torch.uint8: nw_prepared_int4_cuda}.get(prepared.s.dtype, nw_prepared_cuda)
+    return wrapper(q, prepared, scale, mode, n_classes, qscale)

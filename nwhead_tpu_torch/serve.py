@@ -10,10 +10,16 @@ random, from ``--seed``. Run as::
         --featurizer_precision bf16_fused --batch_size 64 --latency_bench
     python -m nwhead_tpu_torch.serve --dataset synthetic_cub --arch vit_s14 \
         --fused_inference --batch_size 64 --latency_bench
+    python -m nwhead_tpu_torch.serve --dataset synthetic_cub --arch vit_s14 \
+        --featurizer_precision int8 --head_precision int8 --batch_size 64 --latency_bench
 
 ``--featurizer_precision bf16_fused`` serves a ViT through the bf16
-fused-serving graph (K10/K11 per block); ``--fused_inference`` runs a ViT's
-attention and MLP on K7 and K9; ``--bf16`` computes a ViT in bf16.
+fused-serving graph (K10/K11 per block); ``--featurizer_precision int8``
+through the int8 post-training-quantized one (K10 int8 and K11 int8 per
+block), calibrated on the first ``--calib_images`` training images before
+the bank is built; ``--fused_inference`` runs a ViT's attention and MLP on
+K7 and K9; ``--bf16`` computes a ViT in bf16. ``--head_precision`` picks the
+prepared bank: f32 or bf16 (K2), int8 (K4) or int4 (K5).
 
 ``--device`` defaults to ``cuda``; with no CUDA device that is an error, and
 the CPU must be asked for (``--device cpu``).
@@ -70,10 +76,10 @@ def featurizer_options(args) -> dict:
     not ported or does not apply (the JAX CLI's message for
     ``--fused_inference`` on a CNN)."""
     vit = args.arch in VIT_NAMES
-    if args.featurizer_precision == "int8":
+    if args.featurizer_precision == "int8" and not vit:
         raise NotImplementedError(
-            "--featurizer_precision int8 (models/quantize.py, kernels K10/K11 int8) is not "
-            "ported yet (ROADMAP.md queue 1, item 9)")
+            "--featurizer_precision int8 of a ResNet (its int8 PTQ) is not ported yet "
+            "(ROADMAP.md queue 1, item 9); the ViTs' is")
     if args.featurizer_precision == "bf16_fused" and not vit:
         raise NotImplementedError(
             "--featurizer_precision bf16_fused is the ViT fused-serving graph; a ResNet's "
@@ -94,11 +100,14 @@ def featurizer_options(args) -> dict:
 
 def build_server(args, train_ds, edit=None) -> NWNet:
     """An ``NWNet`` with random weights from ``--seed``, its featurizer
-    fused for ``--featurizer_precision bf16_fused``, its full support bank
-    featurized and prepared for the fused head whatever its size (the JAX
-    serving CLI's ``fused_min_support=1``). ``edit(net)``, when given, runs
-    before the featurizer is fused and the bank built (``chip_smoke.py``
-    sets the LayerScale gammas there). The bank's seconds are kept in
+    fused for ``--featurizer_precision bf16_fused`` or quantized and
+    calibrated on the first ``--calib_images`` training images for
+    ``int8``, its full support bank featurized and prepared for the fused
+    head whatever its size (the JAX serving CLI's ``fused_min_support=1``).
+    ``edit(net)``, when given, runs before the featurizer is fused or
+    quantized and the bank built (``chip_smoke.py`` sets the LayerScale
+    gammas there). The calibration's and the bank's seconds are kept in
+    ``net.calibration_seconds`` (0 without calibration) and
     ``net.precompute_seconds``."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -113,7 +122,17 @@ def build_server(args, train_ds, edit=None) -> NWNet:
     )
     if edit is not None:
         edit(net)
-    if args.featurizer_precision == "bf16_fused":
+    net.calibration_seconds = 0.0
+    if args.featurizer_precision == "int8":
+        t0 = time.perf_counter()
+        n_cal = min(args.calib_images, len(train_ds))
+        net.quantize_featurizer(train_ds.gather(np.arange(n_cal)))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        net.calibration_seconds = time.perf_counter() - t0
+        print(f"Quantized featurizer (int8 PTQ, {n_cal} calibration images, "
+              f"{net.calibration_seconds:.1f}s)")
+    elif args.featurizer_precision == "bf16_fused":
         net.fuse_featurizer()
         print("Fused featurizer (bf16 serving graph, LN/residual folded)")
     t0 = time.perf_counter()
@@ -167,9 +186,13 @@ def parse_args(argv=None):
     p.add_argument("--batch_size", type=int, default=64)
     p.add_argument("--kernel_type", default="euclidean")
     p.add_argument("--n_shot_full", type=int, default=100)
-    p.add_argument("--head_precision", default="f32", choices=["f32", "bf16"])
+    p.add_argument("--head_precision", default="f32", choices=["f32", "bf16", "int8", "int4"],
+                   help="the prepared bank: f32/bf16 (K2), int8 (K4) or int4 (K5)")
     p.add_argument("--featurizer_precision", default="f32", choices=["f32", "int8", "bf16_fused"],
-                   help="bf16_fused: a ViT's bf16 fused-serving graph (int8 is not ported)")
+                   help="int8: a ViT's int8 post-training-quantized graph (K10/K11 int8); "
+                        "bf16_fused: a ViT's bf16 fused-serving graph (K10/K11)")
+    p.add_argument("--calib_images", type=int, default=256,
+                   help="training images that calibrate --featurizer_precision int8")
     p.add_argument("--fused_inference", action="store_true",
                    help="a ViT's attention and MLP on the fused kernels K7 and K9")
     p.add_argument("--bf16", action="store_true", help="compute a ViT featurizer in bf16")

@@ -103,7 +103,9 @@ class Parser(argparse.ArgumentParser):
         self.add_argument("--train_type", type=str, default="random",
                           choices=["random", "irm"])
         self.add_argument("--head_precision", type=str, default="f32",
-                          choices=["f32", "bf16", "int8", "int4"])
+                          choices=["f32", "bf16", "int8", "int4"],
+                          help="int8/int4 quantize the full-mode eval's prepared bank (K4/K5); "
+                               "training runs the head at f32 then, as the JAX CLI does")
 
         # Weights & Biases
         self.add_bool_arg("use_wandb", False)
@@ -157,8 +159,6 @@ def check_ported(args) -> None:
         "data/transforms.py; ROADMAP.md queue 1, item 6)": args.dataset in FILE_DATASETS,
         "--workers/--decoder (image-file decoding; ROADMAP.md queue 1, item 6)":
             args.workers != 8 or args.decoder != "native",
-        f"--head_precision {args.head_precision} (int8/int4 banks, K4/K5; ROADMAP.md "
-        "queue 2)": args.head_precision in ("int8", "int4"),
     }
     for flag, hit in refused.items():
         if hit:

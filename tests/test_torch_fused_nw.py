@@ -131,8 +131,8 @@ def test_plain_head_matches_jax_prepared(kernel, case, precision):
 def test_prepare_support_rejects_what_is_not_ported():
     s = torch.zeros(4, 3)
     sy = torch.tensor([0, 1, 0, 1])
-    for precision in ("int8", "int4"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for precision in ("int2", "fp8"):
+        with pytest.raises(ValueError, match="unknown precision"):
             tfused.prepare_support(s, sy, 2, precision=precision)
     with pytest.raises(ValueError, match="out of range"):
         tfused.prepare_support(s, sy, 1)

@@ -243,7 +243,7 @@ def test_cli_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("flags", [["--mesh", "2,2"], ["--bf16"], ["--train_method", "fchead"],
                                    ["--use_wandb"], ["--workers", "4"],
-                                   ["--head_precision", "int8"]])
+                                   ["--pretrained_path", "weights.npz"]])
 def test_cli_refuses_what_is_not_ported(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_setup(["--device", "cpu", *CLI, "--models_dir", str(tmp_path), *flags])

@@ -107,7 +107,7 @@ def test_serve_builds_the_fused_inference_server_on_cpu():
 
 
 @pytest.mark.parametrize("argv,error,match", [
-    (["--featurizer_precision", "int8", "--arch", "vit_s16"], NotImplementedError,
+    (["--featurizer_precision", "int8", "--arch", "resnet10"], NotImplementedError,
      "queue 1, item 9"),
     (["--fused_inference", "--arch", "resnet10"], SystemExit, "ViT archs only"),
     (["--featurizer_precision", "bf16_fused", "--arch", "resnet10"], NotImplementedError,
