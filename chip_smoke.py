@@ -49,12 +49,28 @@ package beside it. With one, in order:
    ragged M=1,001; each against its plain version within ``GRAD_REL`` of
    max|plain|, timed at B=64, K8 beside the backward of
    ``F.scaled_dot_product_attention`` on the same q, k, v and dO;
-9. ResNet serving phase: ``python -m nwhead_tpu_torch.serve --dataset
+9. K6 kernel phase: a 1,048,576-row, D=512, C=1,000 bank of Gaussian class
+   centres plus noise (drawn with numpy from a fixed seed) built by
+   ``prepare_support_ivf`` at 1,024-row tiles (cluster order, k-means on the
+   card) at f32, bf16, int8 and int4; a skewed batch (64 queries of 4
+   classes, n_probe 8, one union) and a diverse one (64 classes, n_probe 4,
+   group_b 16). K6 against ``_nw_prepared_sel_plain``; the union's rows,
+   its bound, top-1 agreement and the largest probability difference
+   against the exact head; K6, its plain version and the full pass (K2, K4
+   or K5) over the same bank timed; at full probe K6 equals the full pass
+   within 2e-4;
+10. ResNet serving phase: ``python -m nwhead_tpu_torch.serve --dataset
    synthetic_cub --arch resnet18 --batch_size 64 --latency_bench``, through the serve
    module's functions, with an f32, a bf16, an int8 and an int4 head. It
    checks that the bank's kernel (K2, K4 or K5) was launched, and that the
    served log-probs equal the plain head's on the same features;
-10. ViT serving phase: ``python -m nwhead_tpu_torch.serve --dataset
+11. IVF serving phase: the same command with ``--serve_mode ivf``, with
+    ``--ivf_probe auto`` (calibrated on 256 validation images),
+    ``--ivf_probe 2 --ivf_group 16``, ``--ivf_probe 1 --head_precision
+    int8``, and at bf16 and int4. It counts K6's launches in each run and
+    checks the served log-probs against the plain selected head on the
+    features the request used;
+12. ViT serving phase: ``python -m nwhead_tpu_torch.serve --dataset
     synthetic_cub --arch vit_s14 --batch_size 64 --latency_bench`` with
     ``--featurizer_precision bf16_fused``, with ``--fused_inference`` and
     with ``--fused_inference --bf16``, through the serve module's functions,
@@ -63,7 +79,7 @@ package beside it. With one, in order:
     times, and K2 once), the served features against the plain featurizer
     and the served log-probs against the plain head on the same images, and
     prints p50, p95, queries/s, the bank's seconds and peak device memory;
-11. ViT int8 serving phase: ``python -m nwhead_tpu_torch.serve --dataset
+13. ViT int8 serving phase: ``python -m nwhead_tpu_torch.serve --dataset
     synthetic_cub --arch vit_s14 --featurizer_precision int8 --head_precision
     int8 --batch_size 64 --latency_bench`` and the same with ``--head_precision
     int4``, calibrated on 256 training images, gammas as in 10. It checks the
@@ -71,7 +87,7 @@ package beside it. With one, in order:
     served features against the plain quantized featurizer and the served
     log-probs against the plain head, and prints p50, p95, queries/s, the
     calibration's and the bank's seconds and peak device memory;
-12. training phase: ``python -m nwhead_tpu_torch.train --dataset
+14. training phase: ``python -m nwhead_tpu_torch.train --dataset
     synthetic_cub --arch resnet18 --batch_size 8 --n_shot 6 --lr 1e-2
     --num_epochs 1 --num_steps_per_epoch 10 --num_val_steps_per_epoch 10``
     through the module's functions (eval in the random and full modes, then
@@ -85,7 +101,7 @@ package beside it. With one, in order:
     and 3 steps of the
     canonical ``--n_way 10 --n_shot 1`` recipe, which is too small for the
     fused head and must launch no K1;
-13. ViT training phase: ``--arch vit_s14`` with the same episode (``--lr
+15. ViT training phase: ``--arch vit_s14`` with the same episode (``--lr
     1e-3``, 10 steps, 3 eval batches) through ``train.setup(...,
     featurizer_kwargs={"attn_impl": "fused", "mlp_impl": "fused"})`` and
     ``train.run_epochs``, LayerScale gammas of order 1. It checks that K8,
@@ -98,7 +114,7 @@ package beside it. With one, in order:
     device memory; compares every parameter gradient of the fused featurizer with
     the plain (``xla``) one on a small episode (``--n_way 4 --n_shot 1``);
     then trains 3 steps with ``--bf16``;
-14. prints the nvidia-smi line, a JSON line of per-kernel results, and as the
+16. prints the nvidia-smi line, a JSON line of per-kernel results, and as the
     last line ``{"ok": true, "device": {...}}``.
 
 Kernel times are device times: CUDA events around each call, queued behind
@@ -491,8 +507,9 @@ RAW_WRAPPERS = ("nw_fwd_cuda", "nw_bwd_dq_cuda", "nw_bwd_ds_cuda")
 VIT_WRAPPERS = ("attention_qkv_cuda", "attention_block_bf16_cuda", "mlp_cuda",
                 "mlp_block_bf16_cuda", "attention_qkv_bwd_cuda", "mlp_bwd_cuda",
                 "attention_block_int8_cuda", "mlp_block_int8_cuda")
+SEL_WRAPPERS = ("nw_prepared_sel_cuda", "nw_prepared_sel_quant_cuda")
 WRAPPERS = ("nw_prepared_cuda", "nw_prepared_int8_cuda", "nw_prepared_int4_cuda") + \
-    RAW_WRAPPERS + VIT_WRAPPERS
+    RAW_WRAPPERS + VIT_WRAPPERS + SEL_WRAPPERS
 
 
 def _wrapper(name: str):
@@ -1079,6 +1096,249 @@ def quant_entries(quant: dict, vit_int8: dict, served: dict, resnet: dict) -> li
     return entries
 
 
+# ---------------------------------------------------------------------------
+# IVF-pruned serving: K6 (the prepared head over the tiles a list names).
+# ---------------------------------------------------------------------------
+
+IVF_REPLACES = "nwhead_tpu/ops/pallas_nw.py:820"
+IVF_BANK = (1 << 20, 512, 1000, 1024)  # rows, D, classes, rows per tile: 1,024 tiles
+IVF_SEED = 6
+IVF_NOISE = 0.5  # noise per feature around unit-Gaussian class centres
+IVF_BATCHES = (  # name, classes drawn from, n_probe, group_b; B = 64, the first is timed
+    ("skewed", 4, 8, None),
+    ("diverse", 64, 4, 16),
+)
+# The tile-selected head's wrapper for each bank precision.
+SEL_WRAPPER = {"f32": "nw_prepared_sel_cuda", "bf16": "nw_prepared_sel_cuda",
+               "int8": "nw_prepared_sel_quant_cuda", "int4": "nw_prepared_sel_quant_cuda"}
+IVF_SERVE_ARGV = ["--dataset", "synthetic_cub", "--arch", "resnet18", "--batch_size", "64",
+                  "--serve_mode", "ivf", "--latency_bench"]
+IVF_CONFIGS = (  # name, flags; each bank precision once
+    ("auto", ["--ivf_probe", "auto"]),
+    ("p2_g16", ["--ivf_probe", "2", "--ivf_group", "16"]),
+    ("p1_int8", ["--ivf_probe", "1", "--head_precision", "int8"]),
+    ("p2_g16_bf16", ["--ivf_probe", "2", "--ivf_group", "16", "--head_precision", "bf16"]),
+    ("p1_int4", ["--ivf_probe", "1", "--head_precision", "int4"]),
+)
+
+
+def _ivf_bank_features(dev):
+    """The kernel phase's bank, drawn from ``IVF_SEED`` with numpy: class
+    centres N(0, 1) per feature, rows their class centre plus N(0, 0.5^2)
+    noise, uniform labels. Filled on the card in chunks of 131,072 rows.
+    Returns ``(features (S, D) f32 on dev, labels (S,), centres)``."""
+    import torch
+
+    S, D, C, _ = IVF_BANK
+    rng = np.random.default_rng(IVF_SEED)
+    cents = rng.standard_normal((C, D), dtype=np.float32)
+    sy = rng.integers(0, C, S)
+    s = torch.empty((S, D), dtype=torch.float32, device=dev)
+    for lo in range(0, S, 1 << 17):
+        hi = min(S, lo + (1 << 17))
+        noise = rng.standard_normal((hi - lo, D), dtype=np.float32)
+        s[lo:hi] = torch.from_numpy(cents[sy[lo:hi]] + np.float32(IVF_NOISE) * noise).to(dev)
+    return s, sy, cents
+
+
+def _sel_bound(tsel, block_s: int, group_b: int, D: int, prec: str, B: int, C: int) -> dict:
+    """K6's least time for this list: each selected tile's rows read once
+    (features, label, self-norm, a quantized bank's row scale), the queries
+    and the output once; a group's products against its own union only."""
+    rows = (tsel.reshape(-1, tsel.shape[-1]) >= 0).sum(1).double().cpu().numpy() * block_s
+    row_bytes = {"f32": 4 * D, "bf16": 2 * D, "int8": D + 4, "int4": D // 2 + 4}[prec] + 8
+    q_bytes = B * D * {"f32": 4, "bf16": 2, "int8": 1, "int4": 1}[prec]
+    flops = float(2 * group_b * rows.sum() * D)
+    b = bound(float(rows.sum()) * row_bytes + q_bytes + 4 * B * C, flops,
+              "int8" if prec == "int4" else prec)
+    b["union_rows"] = int(rows.sum())
+    b["bytes_ms"] = (float(rows.sum()) * row_bytes + q_bytes + 4 * B * C) / HBM_BYTES_PER_S * 1e3
+    return b
+
+
+def ivf_kernel_phase(flush) -> dict:
+    """K6 on a 1,048,576-row, D=512, C=1,000 clustered bank built by
+    ``prepare_support_ivf`` at 1,024-row tiles (1,024 tiles, cluster order:
+    k-means on the card) at f32, bf16, int8 and int4, for a skewed batch
+    (64 queries of 4 classes, n_probe 8, one union) and a diverse one (64
+    classes, n_probe 4, group_b 16). Each against ``_nw_prepared_sel_plain``
+    (the head tolerances), top-1 agreement and the largest probability
+    difference against the exact head (K2, K4 or K5 over the whole bank),
+    K6, its plain version and that full pass timed; at full probe K6 equals
+    the full pass within 2e-4. Returns per precision the skewed batch's
+    numbers (timed) and max |err|."""
+    import torch
+
+    from nwhead_tpu_torch.ops import fused_nw as F
+    from nwhead_tpu_torch.ops import ivf as I
+
+    dev = torch.device("cuda")
+    S, D, C, block_s = IVF_BANK
+    t0 = time.perf_counter()
+    s, sy, cents = _ivf_bank_features(dev)
+    rng = np.random.default_rng(IVF_SEED + 1)
+    queries = {}
+    for name, n_cls, _, _ in IVF_BATCHES:
+        qy = rng.choice(C, n_cls, replace=False)[rng.integers(0, n_cls, 64)] if n_cls < 64 \
+            else rng.choice(C, 64, replace=False)
+        noise = np.float32(IVF_NOISE) * rng.standard_normal((64, D), dtype=np.float32)
+        queries[name] = torch.from_numpy(cents[qy] + noise).to(dev)
+    torch.cuda.synchronize()
+    print(f"ivf bank: S={S} D={D} C={C} drawn in {time.perf_counter() - t0:.1f}s")
+    res = {}
+    for prec in SEL_WRAPPER:
+        t0 = time.perf_counter()
+        ivf = I.prepare_support_ivf(s, sy, C, precision=prec, block_s=block_s)
+        torch.cuda.synchronize()
+        n_tiles = ivf.cents.shape[0]
+        print(f"ivf {prec}: bank {tuple(ivf.prep.s.shape)} {ivf.prep.s.dtype}, {n_tiles} tiles "
+              f"of {ivf.prep.block_s}, built in {time.perf_counter() - t0:.1f}s")
+        wrapper = getattr(F, SEL_WRAPPER[prec])
+        full = getattr(F, HEAD_WRAPPERS[prec])
+        r = res[prec] = {"max_abs_err": 0.0}
+        for name, _, n_probe, group_b in IVF_BATCHES:
+            q = queries[name]
+            qk, tsel, inv = I._ivf_route(q, ivf, kernel="euclidean", kernel_params=None,
+                                         n_probe=n_probe, group_b=group_b)
+            qq, scale, mode, qscale = F._prepared_query(qk, ivf.prep)
+            args = (qq, ivf.prep, scale, mode, C, qscale)
+            got = wrapper(*args, tsel)
+            want = F._nw_prepared_sel_plain(*args, tsel)
+            exact = F.nw_fused_from_prepared(q, ivf.prep, C)
+            torch.cuda.synchronize()
+            routed = got if inv is None else got[inv][:q.shape[0]]
+            err = float((got - want).abs().max())
+            ok = bool(torch.isfinite(got).all()) and within(got, want, **HEAD_TOL[prec])
+            agree = float((routed.argmax(1) == exact.argmax(1)).float().mean())
+            pdiff = float((routed.exp() - exact.exp()).abs().max())
+            b = _sel_bound(tsel, block_s, group_b or q.shape[0], D, prec, q.shape[0], C)
+            timed = dict(
+                ms=time_ms(lambda: wrapper(*args, tsel), flush),
+                plain_ms=time_ms(lambda: F._nw_prepared_sel_plain(*args, tsel), flush),
+                full_ms=time_ms(lambda: full(*args), flush))
+            print(f"ivf {prec} {name} (n_probe {n_probe}, group_b {group_b}): list "
+                  f"{tuple(tsel.shape)}, union {b['union_rows']} rows of {S}; vs plain "
+                  f"max|err| {err:.3e} {'ok' if ok else 'FAIL'}; top-1 agreement with the "
+                  f"exact head {agree:.4f}, max prob diff {pdiff:.2e}; K6 {timed['ms']:.4f} ms, "
+                  f"plain {timed['plain_ms']:.4f} ms, full pass {timed['full_ms']:.4f} ms; "
+                  f"bytes bound {b['bytes_ms']:.4f} ms, bound {b['bound_ms']:.4f} ms "
+                  f"({b['bound_by']})")
+            if not ok:
+                raise AssertionError(f"K6 disagrees with plain: {prec} {name}")
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            r[name] = {"agreement": agree, "prob_diff": pdiff, **timed, **b}
+        # Full probe: every tile, ascending, is the full pass.
+        qk, tsel, _ = I._ivf_route(queries["skewed"], ivf, kernel="euclidean",
+                                   kernel_params=None, n_probe=n_tiles, group_b=None)
+        qq, scale, mode, qscale = F._prepared_query(qk, ivf.prep)
+        got = wrapper(qq, ivf.prep, scale, mode, C, qscale, tsel)
+        want = full(qq, ivf.prep, scale, mode, C, qscale)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        print(f"ivf {prec} full probe ({tuple(tsel.shape)}): K6 vs the full pass max|err| "
+              f"{err:.3e} {'ok' if within(got, want, 2e-4, 2e-4) else 'FAIL'}")
+        if not within(got, want, 2e-4, 2e-4):
+            raise AssertionError(f"K6 at full probe differs from the full pass: {prec}")
+        del ivf
+        torch.cuda.empty_cache()
+    del s
+    torch.cuda.empty_cache()
+    return res
+
+
+class _FeatureTap:
+    """The featurizer's last output, recorded by a forward hook (the
+    features a serving call used)."""
+
+    def __init__(self, module):
+        self.out = None
+        self.handle = module.register_forward_hook(self._hook)
+
+    def _hook(self, module, inputs, output):
+        self.out = output
+
+
+def ivf_serving_phase(datasets) -> dict:
+    """``python -m nwhead_tpu_torch.serve --dataset synthetic_cub --arch
+    resnet18 --serve_mode ivf --latency_bench`` through the serve module's
+    functions, once per ``IVF_CONFIGS`` entry. Counts K6's launches over the
+    run (bank, calibration and requests), checks the served log-probs
+    against the plain selected head on the features the request used, and
+    prints p50 / p95 / queries/s and the resolved knobs."""
+    import torch
+
+    from nwhead_tpu_torch import serve
+    from nwhead_tpu_torch.ops import fused_nw as F
+    from nwhead_tpu_torch.ops import ivf as I
+
+    train_ds, val_ds = datasets
+    out = {}
+    for name, flags in IVF_CONFIGS:
+        args = serve.parse_args(IVF_SERVE_ARGV + flags)
+        t0 = time.perf_counter()
+        _counts(reset=True)
+        net = serve.build_server(args, train_ds, val_ds=val_ds)
+        report = serve.latency_bench(net, val_ds, args)
+        torch.cuda.synchronize()
+        launches = _counts()
+        wrapper = SEL_WRAPPER[args.head_precision]
+        if launches[wrapper] == 0:
+            raise AssertionError(f"ivf {name}: the serving path never launched K6")
+        tap = _FeatureTap(net.model.featurizer)
+        x = val_ds.gather(np.arange(args.batch_size))
+        served = net.make_serving_fn(mode="ivf")(x)
+        tap.handle.remove()
+        with torch.inference_mode():
+            ivf = net._ivf_bank()
+            params = net.model.head.kernel_params()
+            qk, tsel, inv = I._ivf_route(tap.out, ivf, kernel=net.kernel_type,
+                                         kernel_params=params,
+                                         n_probe=min(net.ivf_n_probe, ivf.cents.shape[0]),
+                                         group_b=net.ivf_group_b)
+            q, scale, mode, qscale = F._prepared_query(qk, ivf.prep, net.kernel_type, params)
+            plain = F._nw_prepared_sel_plain(q, ivf.prep, scale, mode, net.n_classes, qscale,
+                                             tsel)
+            plain = plain if inv is None else plain[inv][:args.batch_size]
+        torch.cuda.synchronize()
+        err = float((served - plain).abs().max())
+        ok = (tuple(served.shape) == (args.batch_size, net.n_classes)
+              and bool(torch.isfinite(served).all())
+              and within(served, plain, **HEAD_TOL[args.head_precision]))
+        seconds = time.perf_counter() - t0
+        print(f"ivf serving {name}: bank {ivf.cents.shape[0]} tiles of {ivf.prep.block_s} "
+              f"({args.head_precision}); n_probe {net.ivf_n_probe}, group_b {net.ivf_group_b}; "
+              f"K6 launches {launches[wrapper]} (full-pass kernels "
+              f"{launches[HEAD_WRAPPERS[args.head_precision]]}); served vs plain max|err| "
+              f"{err:.3e} {'ok' if ok else 'FAIL'}; p50 {report['p50_ms']:.3f} ms, p95 "
+              f"{report['p95_ms']:.3f} ms, {report['queries_per_sec']:.1f} q/s; {seconds:.1f}s")
+        if not ok:
+            raise AssertionError(f"ivf {name}: served log-probs disagree with the plain head")
+        out[name] = {"launches": launches[wrapper], "precision": args.head_precision,
+                     "report": report, "served_err": err}
+        del net
+        torch.cuda.empty_cache()
+    return out
+
+
+def ivf_entries(kern: dict, served: dict) -> list:
+    """The ``kernels`` JSON entries of K6, one per bank precision: launches
+    from the IVF serving runs at that precision, times and bound from the
+    kernel phase's skewed batch (its full pass over the same bank as
+    ``full_ms``), max |err| over both phases."""
+    entries = []
+    for prec, r in kern.items():
+        runs = [v for v in served.values() if v["precision"] == prec]
+        sk = r["skewed"]
+        entries.append({
+            "name": f"nw_prepared_sel_{prec}", "route": "cuda", "source": PREPARED_SOURCE,
+            "replaces": IVF_REPLACES, "launches": sum(v["launches"] for v in runs),
+            "max_abs_err": max([r["max_abs_err"]] + [v["served_err"] for v in runs]),
+            "ms": sk["ms"], "plain_ms": sk["plain_ms"], "bound_ms": sk["bound_ms"],
+            "bound_by": sk["bound_by"], "library_ms": None, "full_ms": sk["full_ms"],
+            "union_rows": sk["union_rows"], "diverse_ms": r["diverse"]["ms"]})
+    return entries
+
+
 def _set_gammas(net) -> None:
     """LayerScale gammas of order 1 (uniform in [0.5, 1.5], seeded), in
     place of the init's 1e-5, under which every block adds almost nothing
@@ -1563,6 +1823,9 @@ def main() -> int:
     t0 = time.perf_counter()
     vit_train_kern = vit_train_kernel_phase(flush)
     phase_s["ViT training kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ivf_kern = ivf_kernel_phase(flush)
+    phase_s["K6 kernels"] = time.perf_counter() - t0
     del flush
     t0 = time.perf_counter()
     args = train.Parser().parse_args(TRAIN_ARGV)
@@ -1571,6 +1834,9 @@ def main() -> int:
     t0 = time.perf_counter()
     sl = slice_phase(datasets)
     phase_s["ResNet serving"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ivf_served = ivf_serving_phase(datasets)
+    phase_s["IVF serving"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     vit_served = vit_serving_phase(datasets)
     phase_s["ViT serving"] = time.perf_counter() - t0
@@ -1611,6 +1877,7 @@ def main() -> int:
     entries += vit_entries(vit_kern, vit_served)
     entries += vit_train_entries(vit_train_kern, vit_tr)
     entries += quant_entries(quant, vit_int8_kern, vit_int8_served, sl)
+    entries += ivf_entries(ivf_kern, ivf_served)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,8 @@ Port of ``nwhead_tpu/__init__.py`` for one NVIDIA Hopper GPU. The JAX package
 Plain tensor code is PyTorch; the fused NW head and the ViT's fused layers
 run on CUDA kernels written for ``sm_90a`` (``csrc/nw_fused.cu``: the raw
 forward K1 and its backward K3; ``csrc/nw_prepared.cu``: the prepared-bank
-forward K2; ``csrc/vit_attn.cu``: ViT attention K7 and the bf16 attention
+forward K2, its int8/int4 modes K4/K5 and its tile-selected pass K6;
+``csrc/vit_attn.cu``: ViT attention K7 and the bf16 attention
 half-block K10; ``csrc/vit_attn_bwd.cu``: K7's backward K8;
 ``csrc/vit_mlp.cu``: the fused MLP forward K9 and the bf16 MLP half-block
 K11; ``csrc/vit_mlp_bwd.cu``: the K9 backward), built with ``nvcc`` at
@@ -17,7 +18,9 @@ nwhead_tpu_torch.train``: ResNet or ViT featurizer -> ``NWModel.forward``
 K7/K8 and the K9 forward and backward) and serving (``NWNet.precompute`` ->
 ``prepare_support`` -> ``NWNet.make_serving_fn``, K2) with a ResNet or a ViT
 featurizer (``--fused_inference``: K7/K9; ``NWNet.fuse_featurizer``, the
-bf16 serving graph: K10/K11).
+bf16 serving graph: K10/K11), int8/int4 banks (K4/K5) and IVF-pruned
+serving (``ops/ivf.py``, ``--serve_mode ivf``: K6 over the bank tiles a
+batch routes to).
 """
 
 __version__ = "0.1.0"

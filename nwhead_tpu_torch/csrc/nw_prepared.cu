@@ -50,7 +50,30 @@
 // tile, per byte and exactly (__vsub4 borrows nothing across bytes), so
 // both banks share one inner loop. Tensor-core int8 (mma.sync / wgmma s8)
 // is later work.
+//
+// K6 replaces the same TPU kernel with tile_sel (n_sel > 0,
+// nwhead_tpu/ops/pallas_nw.py:850-856, :969-975): the pass of K2 (f32/bf16
+// banks) or K4/K5 (int8/int4 banks) over only the bank tiles a list names,
+// for IVF-pruned serving (nwhead_tpu_torch/ops/ivf.py). The bank is tiled
+// in block_s rows (a multiple of 128); slot r of the list names bank tile
+// tile_sel[r], -1 an empty slot. The list is one row shared by the batch, or
+// one row per group of queries (grouped routing), and a query tile of 16
+// reads row blockIdx.x / qtiles_per_row: the wrapper pads each group to
+// whole query tiles. What bounds it is what bounds K2/K4/K5, over the
+// union's rows instead of the bank's. The design is K2's, over slot-order
+// rows: slot-order row v is bank row tile_sel[v / block_s] * block_s +
+// v % block_s, and a 64-row score tile never straddles two slots, so an
+// empty slot (or an id past the bank) skips the whole tile,
+// block-uniformly, and leaves the running state as it was. The split
+// count comes from n_sel, a static shape: nothing is read back to the
+// host, so how many slots hold a tile is known only here. The union's ids
+// come first in the list (ascending, -1 padding after them), so split p
+// takes score tiles p, p + n_splits, p + 2 n_splits, ...: a union of any
+// size spreads over every split, where ranges of slots would leave it to
+// the first few. Pass 2 is the same exact merge. K2/K4/K5's own kernels
+// are untouched.
 
+#include <climits>
 #include <cstdint>
 
 #include "nw_common.cuh"
@@ -294,6 +317,139 @@ cudaError_t launch_quant_forward(cudaStream_t stream, const void* q, const void*
   return cudaGetLastError();
 }
 
+// K6 pass 1: K2's (kQuant false, T float or bf16) or K4/K5's (kQuant true,
+// T int8, kInt4 for the packed bank) block over the selected tiles: split
+// blockIdx.y takes every gridDim.y-th score tile of the slot-order rows
+// (see the note above).
+template <typename T, bool kQuant, bool kInt4>
+__global__ void __launch_bounds__(kThreads, 4)
+nw_sel_partials_kernel(const T* __restrict__ q, const void* __restrict__ s,
+                       const float* __restrict__ s2, const int* __restrict__ labels,
+                       const float* __restrict__ scale_ptr, const float* __restrict__ qcol,
+                       const float* __restrict__ sscale, const int* __restrict__ tile_sel,
+                       int n_sel, int qtiles_per_row, int n_tiles, int block_s, int l2_mode,
+                       int B, int D, int C, float* __restrict__ m_out,
+                       float* __restrict__ l_out, float* __restrict__ acc_out) {
+  extern __shared__ float4 smem4[];
+  float* acc = reinterpret_cast<float*>(smem4);
+  float* tile = acc + kQueryTile * C;
+  float* prob = tile + kTileSmemFloats;
+  float* q2 = prob + kQueryTile * kSupportTile;
+  float* m_run = q2 + kQueryTile;
+  float* l_run = m_run + kQueryTile;
+  int* tile_labels = reinterpret_cast<int*>(l_run + kQueryTile);
+
+  const int tid = threadIdx.x;
+  const int b0 = blockIdx.x * kQueryTile;
+  const int split = blockIdx.y;
+  const int n_score_tiles = n_sel * (block_s / kSupportTile);
+  const int* sel = tile_sel + static_cast<size_t>(blockIdx.x / qtiles_per_row) * n_sel;
+
+  for (int i = tid; i < kQueryTile * C; i += kThreads) acc[i] = 0.f;
+  if constexpr (kQuant) {
+    // |q|^2 of the dequantized queries (l2 mode), one warp per query, as K4.
+    const int lane = tid & 31;
+    for (int b = tid >> 5; b < kQueryTile; b += kWarps) {
+      float sum = 0.f;
+      if (l2_mode && b0 + b < B) {
+        const T* row = q + static_cast<size_t>(b0 + b) * D;
+        const float qs = qcol[b0 + b];
+        for (int k = lane; k < D; k += 32) {
+          const float v = static_cast<float>(row[k]) * qs;
+          sum = fmaf(v, v, sum);
+        }
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) q2[b] = sum;
+    }
+  } else {
+    query_norms(q, b0, B, D, q2);
+  }
+  if (tid < kQueryTile) {
+    m_run[tid] = kNeg;
+    l_run[tid] = 0.f;
+  }
+  __syncthreads();
+
+  const int tq = tid / kThreadsPerQuery;
+  const int tr = tid % kThreadsPerQuery;
+  float mult = 0.f;  // the similarity scale (float banks) or the query's dequant column
+  if constexpr (kQuant) {
+    mult = b0 + tq < B ? qcol[b0 + tq] : 0.f;
+  } else {
+    mult = *scale_ptr;
+  }
+
+  for (int v = split; v < n_score_tiles; v += gridDim.y) {
+    const int v0 = v * kSupportTile;
+    const int id = sel[v0 / block_s];
+    if (id < 0 || id >= n_tiles) continue;  // empty slot: every thread skips the tile
+    const int t0 = id * block_s + v0 % block_s;
+    const int t_end = t0 + kSupportTile;
+    load_tile_labels(labels, t0, t_end, tile_labels);
+    float dot[kRowsPerThread];
+    if constexpr (kQuant) {
+      int idot[kRowsPerThread];
+      quant_tile_dots<kInt4>(reinterpret_cast<const int*>(q), static_cast<const unsigned*>(s),
+                             b0, B, t0, t_end, D / 4, kInt4 ? D / 8 : D / 4,
+                             reinterpret_cast<int*>(tile), idot);
+#pragma unroll
+      for (int r = 0; r < kRowsPerThread; ++r) {
+        // (dot * qcol) * sscale, the TPU kernel's order.
+        dot[r] = __int2float_rn(idot[r]) * mult * sscale[t0 + tr + kThreadsPerQuery * r];
+      }
+    } else {
+      tile_dots<false>(q, static_cast<const T*>(s), b0, B, t0, t_end, D, labels, false,
+                       nullptr, tile, dot);
+    }
+#pragma unroll
+    for (int r = 0; r < kRowsPerThread; ++r) {
+      const int j = tr + kThreadsPerQuery * r;
+      float score = kNeg;
+      if (tile_labels[j] >= 0) {
+        if (l2_mode) {
+          score = -l2_dist(q2[tq], dot[r], s2[t0 + j]);
+        } else {
+          score = kQuant ? dot[r] : dot[r] * mult;
+        }
+      }
+      prob[tq * kSupportTile + j] = score;
+    }
+    __syncthreads();
+    softmax_label_step(prob, tile_labels, acc, C, m_run, l_run);
+  }
+  store_partials(acc, m_run, l_run, b0, B, C, split, m_out, l_out, acc_out);
+}
+
+template <typename T, bool kQuant, bool kInt4>
+cudaError_t launch_sel_forward(cudaStream_t stream, const void* q, const void* s, const void* s2,
+                               const void* labels, const void* scale, const void* qcol,
+                               const void* sscale, const void* tile_sel, int n_sel,
+                               int qtiles_per_row, int n_tiles, int block_s, int l2_mode, int B,
+                               int D, int C, int n_splits, void* m_part, void* l_part,
+                               void* acc_part, void* out) {
+  const dim3 grid((B + kQueryTile - 1) / kQueryTile, n_splits);
+  const size_t smem = partials_smem_bytes(C);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        nw_sel_partials_kernel<T, kQuant, kInt4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  nw_sel_partials_kernel<T, kQuant, kInt4><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), s, static_cast<const float*>(s2), static_cast<const int*>(labels),
+      static_cast<const float*>(scale), static_cast<const float*>(qcol),
+      static_cast<const float*>(sscale), static_cast<const int*>(tile_sel), n_sel,
+      qtiles_per_row, n_tiles, block_s, l2_mode, B, D, C, static_cast<float*>(m_part), static_cast<float*>(l_part), static_cast<float*>(acc_part));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  nw_merge_kernel<<<B, kMergeThreads, n_splits * sizeof(float), stream>>>(
+      static_cast<const float*>(m_part), static_cast<const float*>(l_part),
+      static_cast<const float*>(acc_part), n_splits, B, C, static_cast<float*>(out), nullptr,
+      nullptr);
+  return cudaGetLastError();
+}
+
 }  // namespace nw
 
 extern "C" {
@@ -372,6 +528,59 @@ int nw_prepared_quant_forward(const void* q, const void* s, const void* s2, cons
            : nw::launch_quant_forward<false>(st, q, s, s2, labels, qcol, sscale, l2_mode, B, S,
                                              D, C, n_splits, rows_per_split, m_part, l_part,
                                              acc_part, out));
+}
+
+// K6: the pass of nw_prepared_forward (bank 0 f32, 1 bf16) or
+// nw_prepared_quant_forward (bank 2 int8, 3 int4) over the bank tiles that
+// tile_sel names. The bank has n_tiles * block_s rows, block_s a multiple of
+// 64; tile_sel is (n_rows, n_sel) int32, -1 = empty slot (an id outside
+// [0, n_tiles) is skipped too); query tile i (16 queries) reads row
+// i / qtiles_per_row. scale (1,) f32 goes with a float bank; qcol (B,) and
+// sscale (n_tiles * block_s,) f32 with a quantized one, as in those entry
+// points. n_splits splits share the n_sel * block_s / 64 score tiles of
+// slot-order rows in turn; partials m, l (n_splits, B), acc (n_splits, B,
+// C) and out (B, C) as nw_prepared_forward's. Launches on `stream`, does
+// not synchronize, returns cudaGetLastError().
+int nw_prepared_sel_forward(const void* q, const void* s, const void* s2, const void* labels,
+                            const void* scale, const void* qcol, const void* sscale,
+                            const void* tile_sel, void* m_part, void* l_part, void* acc_part,
+                            void* out, int B, int D, int C, int l2_mode, int bank, int n_sel,
+                            int qtiles_per_row, int n_tiles, int block_s, int n_splits,
+                            void* stream) {
+  const bool quant = bank == 2 || bank == 3;
+  if (bank < 0 || bank > 3 || B <= 0 || D <= 0 || C <= 0 || n_sel <= 0 || block_s <= 0 ||
+      block_s % nw::kSupportTile != 0 || n_tiles <= 0 || qtiles_per_row <= 0 ||
+      static_cast<long long>(n_sel) * block_s > INT_MAX ||
+      static_cast<long long>(n_tiles) * block_s > INT_MAX || n_splits <= 0 ||
+      n_splits > 48 * 1024 / static_cast<int>(sizeof(float)) || tile_sel == nullptr || (l2_mode && s2 == nullptr) ||
+      (quant ? (qcol == nullptr || sscale == nullptr || D % (bank == 3 ? 8 : 4) != 0 ||
+                reinterpret_cast<uintptr_t>(q) % 4 != 0 || reinterpret_cast<uintptr_t>(s) % 4 != 0)
+             : scale == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int device = 0;
+  const cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (C > nw::max_forward_classes(device)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (bank) {
+    case 0:
+      return static_cast<int>(nw::launch_sel_forward<float, false, false>(
+          st, q, s, s2, labels, scale, qcol, sscale, tile_sel, n_sel, qtiles_per_row, n_tiles,
+          block_s, l2_mode, B, D, C, n_splits, m_part, l_part, acc_part, out));
+    case 1:
+      return static_cast<int>(nw::launch_sel_forward<__nv_bfloat16, false, false>(
+          st, q, s, s2, labels, scale, qcol, sscale, tile_sel, n_sel, qtiles_per_row, n_tiles,
+          block_s, l2_mode, B, D, C, n_splits, m_part, l_part, acc_part, out));
+    case 2:
+      return static_cast<int>(nw::launch_sel_forward<int8_t, true, false>(
+          st, q, s, s2, labels, scale, qcol, sscale, tile_sel, n_sel, qtiles_per_row, n_tiles,
+          block_s, l2_mode, B, D, C, n_splits, m_part, l_part, acc_part, out));
+    default:
+      return static_cast<int>(nw::launch_sel_forward<int8_t, true, true>(
+          st, q, s, s2, labels, scale, qcol, sscale, tile_sel, n_sel, qtiles_per_row, n_tiles,
+          block_s, l2_mode, B, D, C, n_splits, m_part, l_part, acc_part, out));
+  }
 }
 
 }  // extern "C"

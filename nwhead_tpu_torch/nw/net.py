@@ -7,13 +7,14 @@ that BatchNorm sees both and gradients reach the support features.
 ``NWNet`` is the host-side orchestrator: it samples training episodes
 (``support_train``, ``forward``), builds the full-mode support bank
 (``precompute``), prepares it for the fused head when it is large enough
-(f32/bf16: K2; ``head_precision`` int8/int4: K4/K5), and predicts in the
-``random`` and ``full`` modes (``predict``, ``make_serving_fn``).
-``fuse_featurizer`` swaps the eval and serving featurizer of a ViT for the
-bf16 fused-serving graph (K10/K11), ``quantize_featurizer`` for the int8
-one (K10/K11 int8). The cluster, ensemble, knn and hnsw modes,
-incremental bank edits and sharding are later slices (ROADMAP.md queue 1,
-items 7, 8 and 10).
+(f32/bf16: K2; ``head_precision`` int8/int4: K4/K5), and predicts
+(``predict``, ``make_serving_fn``) in the ``random`` and ``full`` modes and
+in mode ``ivf``, over the bank tiles a batch routes to (``ops/ivf.py``, K6;
+``calibrate_ivf`` sets its knobs). ``fuse_featurizer`` swaps the eval and
+serving featurizer of a ViT for the bf16 fused-serving graph (K10/K11),
+``quantize_featurizer`` for the int8 one (K10/K11 int8). The cluster,
+ensemble, knn and hnsw modes, incremental bank edits and sharding are later
+slices (ROADMAP.md queue 1, items 4, 6, 9 and 2).
 
 Numerics: on a CUDA device ``NWNet`` turns TF32 off for the process
 (``torch.backends.cudnn.allow_tf32`` and
@@ -25,6 +26,7 @@ digits, which would break parity with the f32 JAX featurizer.
 from __future__ import annotations
 
 import math
+import warnings
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -34,6 +36,13 @@ from torch import nn
 from nwhead_tpu_torch.nw.head import NWHead
 from nwhead_tpu_torch.nw.support import SupportSetEval, SupportSetTrain
 from nwhead_tpu_torch.ops.fused_nw import PreparedSupport, prepare_support
+from nwhead_tpu_torch.ops.ivf import (
+    IVFAutoConfig,
+    IVFPrepared,
+    ivf_auto_config,
+    nw_fused_ivf_log_probs,
+    prepare_support_ivf,
+)
 from nwhead_tpu_torch.ops.kernels import KERNEL_NAMES
 
 
@@ -93,7 +102,10 @@ class NWNet:
     for the fused head (K2) when ``use_fused`` and it holds at least
     ``fused_min_support`` rows; otherwise full mode runs the head over the
     raw bank features. ``seed`` seeds the episodic samplers (as in the JAX
-    package) and the projection's init.
+    package) and the projection's init. ``ivf_n_probe`` (an int, or
+    ``"auto"``: calibrated on the first ``ivf`` batch or by
+    ``calibrate_ivf``), ``ivf_n_clusters`` and ``ivf_group_b`` are the knobs
+    of mode ``ivf`` (``ops/ivf.py``).
     """
 
     def __init__(
@@ -118,6 +130,9 @@ class NWNet:
         head_precision: str = "f32",
         seed: int = 0,
         precompute_batch: int = 128,
+        ivf_n_probe: Union[int, str] = 32,
+        ivf_n_clusters: Optional[int] = None,
+        ivf_group_b: Optional[int] = None,
     ) -> None:
         self.device = torch.device(device)
         if self.device.type == "cuda":
@@ -130,6 +145,9 @@ class NWNet:
         self.debug_mode = debug_mode
         self.support_dataset = support_dataset
         self.precompute_batch = precompute_batch
+        self.ivf_n_probe = ivf_n_probe
+        self.ivf_n_clusters = ivf_n_clusters
+        self.ivf_group_b = ivf_group_b
         self.model = NWModel(
             featurizer, n_classes, kernel_type, head_precision, proj_dim=proj_dim,
             feat_dim=feat_dim, use_fused=use_fused, fused_min_support=fused_min_support,
@@ -148,6 +166,9 @@ class NWNet:
             )
         self._prepared_full: Optional[PreparedSupport] = None
         self._prepared_pos: Optional[np.ndarray] = None  # bank row -> prepared row
+        # (full_feat it was built from, IVF bank): rebuilt when precompute
+        # replaces the bank features.
+        self._ivf_cache = None
         # Eval/serving featurizer set by fuse_featurizer or quantize_featurizer
         # (None: the model's).
         self.serving_featurizer: Optional[nn.Module] = None
@@ -199,7 +220,7 @@ class NWNet:
                 "PTQ through quantize_featurizer is not ported yet: ROADMAP.md queue 1, "
                 "item 9)")
         self.serving_featurizer = fuse_vit_serving(self.model.featurizer)
-        self._prepared_full = self._prepared_pos = None
+        self._prepared_full = self._prepared_pos = self._ivf_cache = None
 
     def quantize_featurizer(self, calib_images, calib_batch: int = 64) -> None:
         """Swap the eval and serving featurizer for the int8 post-training-
@@ -214,7 +235,7 @@ class NWNet:
 
         self.serving_featurizer = quantize_featurizer(self.model.featurizer, calib_images,
                                                       calib_batch)
-        self._prepared_full = self._prepared_pos = None
+        self._prepared_full = self._prepared_pos = self._ivf_cache = None
 
     def _featurize_eval(self, x: torch.Tensor) -> torch.Tensor:
         """Features of the eval and serving paths: the fused or quantized
@@ -261,7 +282,7 @@ class NWNet:
         its prepared row (``prepare_support`` may sort rows by class)."""
         self.full_feat = self.support_eval.full_feat
         self.full_y = self.support_eval.full_y
-        self._prepared_full = self._prepared_pos = None
+        self._prepared_full = self._prepared_pos = self._ivf_cache = None
         head = self.model.head
         S = len(self.full_y)
         if not (head.use_fused and S >= head.fused_min_support
@@ -280,21 +301,95 @@ class NWNet:
 
     # -- inference -------------------------------------------------------------
 
+    # -- IVF ---------------------------------------------------------------------
+
+    def _ivf_bank(self) -> IVFPrepared:
+        """The IVF bank of the current full-bank features (built from
+        ``full_feat``/``full_y`` at ``head_precision``), built once and
+        cached against ``full_feat``."""
+        if getattr(self, "full_feat", None) is None:
+            raise ValueError("mode='ivf' needs precompute() first")
+        if self._ivf_cache is not None and self._ivf_cache[0] is self.full_feat:
+            return self._ivf_cache[1]
+        ivf = prepare_support_ivf(
+            self.full_feat, self.full_y, self.n_classes, kernel=self.kernel_type,
+            precision=self.model.head.precision, n_clusters=self.ivf_n_clusters)
+        self._ivf_cache = (self.full_feat, ivf)
+        return ivf
+
+    def _ivf_head(self, qfeat: torch.Tensor, ivf: IVFPrepared, n_probe: int,
+                  group_b: Optional[int]) -> torch.Tensor:
+        return nw_fused_ivf_log_probs(
+            qfeat, ivf, self.n_classes, kernel=self.kernel_type,
+            kernel_params=self.model.head.kernel_params(),
+            n_probe=min(n_probe, ivf.cents.shape[0]), group_b=group_b)
+
+    def _ivf_predict(self, x) -> torch.Tensor:
+        """IVF-pruned predict over the cached IVF bank; with ``ivf_n_probe
+        == "auto"`` this first batch is the calibration sample."""
+        ivf = self._ivf_bank()
+        qfeat = self._featurize_eval(torch.as_tensor(x).to(self.device))
+        if self.ivf_n_probe == "auto":
+            self.calibrate_ivf(qfeat=qfeat)
+        return self._ivf_head(qfeat, ivf, self.ivf_n_probe, self.ivf_group_b)
+
+    @torch.inference_mode()
+    def calibrate_ivf(self, x=None, qfeat=None, target_agree: float = 0.999,
+                      **auto_kwargs) -> IVFAutoConfig:
+        """Calibrate the IVF knobs against the exact head on a
+        traffic-representative sample (``ops.ivf.ivf_auto_config``), pin
+        ``ivf_n_probe``/``ivf_group_b`` and return the chosen point with its
+        measured agreement. Pass images ``x`` (featurized as the serving
+        path does) or features ``qfeat``. An ``ivf_group_b`` set by the user
+        is the grouping candidate; calibration decides whether it engages."""
+        if qfeat is None:
+            if x is None:
+                raise ValueError("pass x (images) or qfeat (features)")
+            self.model.eval()
+            qfeat = self._featurize_eval(torch.as_tensor(x).to(self.device))
+        if qfeat.shape[0] < 32:
+            warnings.warn(
+                f"calibrate_ivf on only {qfeat.shape[0]} queries: the pinned (n_probe, "
+                "group_b) is only as good as the sample; calibrate on a serving-sized "
+                "representative batch", stacklevel=2)
+        if isinstance(self.ivf_group_b, int) and "group_b" not in auto_kwargs:
+            auto_kwargs["group_b"] = self.ivf_group_b
+        cfg = ivf_auto_config(qfeat, self._ivf_bank(), self.n_classes, kernel=self.kernel_type,
+                              kernel_params=self.model.head.kernel_params(),
+                              target_agree=target_agree, **auto_kwargs)
+        self.ivf_n_probe, self.ivf_group_b = cfg.n_probe, cfg.group_b
+        return cfg
+
+    # -- inference -------------------------------------------------------------
+
     def make_serving_fn(self, normalize=None, mode: str = "full"):
-        """The per-request callable of the prepared full-mode path:
-        ``(B, H, W, C) images -> (B, n_classes) log-probs`` composing
-        normalize -> featurize -> prepared head. Accepts numpy arrays or
-        tensors on any device and returns a tensor on ``self.device``.
-        ``normalize=(mean, std)`` applies ``(x/255 - mean)/std`` first (for
-        uint8 pixels). The bank is read at call time, so a later
-        ``precompute`` reaches existing serving callables."""
+        """The per-request callable: ``(B, H, W, C) images -> (B, n_classes)
+        log-probs`` composing normalize -> featurize -> head, the prepared
+        full-mode head (``mode="full"``) or the IVF-pruned one (``"ivf"``,
+        its knobs fixed now: an unresolved ``ivf_n_probe="auto"`` raises).
+        Accepts numpy arrays or tensors on any device and returns a tensor
+        on ``self.device``. ``normalize=(mean, std)`` applies ``(x/255 -
+        mean)/std`` first (for uint8 pixels). The bank is read at call time,
+        so a later ``precompute`` reaches existing serving callables."""
+        if mode not in ("full", "ivf"):
+            raise ValueError(f"make_serving_fn serves modes 'full' and 'ivf', got {mode!r}")
         if mode == "ivf":
-            raise NotImplementedError("mode 'ivf' is not ported yet (ROADMAP.md queue 1, item 8)")
-        if mode != "full":
-            raise ValueError(f"make_serving_fn serves mode 'full', got {mode!r}")
-        if self._prepared_full is None:
+            self._ivf_bank()  # built now: errors come early
+            if self.ivf_n_probe == "auto":
+                raise ValueError(
+                    "ivf_n_probe='auto' is unresolved: call calibrate_ivf(x=...) on "
+                    "representative traffic before make_serving_fn(mode='ivf') (the serving "
+                    "callable fixes the knobs)")
+            n_probe, group_b = self.ivf_n_probe, self.ivf_group_b
+
+            def head(qfeat):
+                return self._ivf_head(qfeat, self._ivf_bank(), n_probe, group_b)
+        elif self._prepared_full is None:
             raise ValueError("make_serving_fn needs the prepared full-mode bank: run "
                              "precompute() with use_fused and at least fused_min_support rows")
+        else:
+            def head(qfeat):
+                return self.model.predict_from_prepared(qfeat, self._prepared_full)
         mean = std = None
         if normalize is not None:
             mean = torch.as_tensor(normalize[0], dtype=torch.float32, device=self.device)
@@ -307,7 +402,7 @@ class NWNet:
             x = torch.as_tensor(x).to(device)
             if mean is not None:
                 x = (x.to(torch.float32) * (1.0 / 255.0) - mean) / std
-            return model.predict_from_prepared(self._featurize_eval(x), self._prepared_full)
+            return head(self._featurize_eval(x))
 
         return serve
 
@@ -316,8 +411,11 @@ class NWNet:
         """Log-probs for a batch of images, in eval mode. ``random``: the
         head over an episode drawn from the bank; ``full``: the prepared
         bank (K2, K4 or K5) when there is one, else the head over the whole
-        bank."""
+        bank; ``ivf``: the IVF-pruned head (K6) over the tiles the batch
+        routes to."""
         self.model.eval()
+        if mode == "ivf":
+            return self._ivf_predict(x)
         support = self.support_eval.get_support(mode)  # raises for modes not ported
         qfeat = self._featurize_eval(torch.as_tensor(x).to(self.device))
         if mode == "full" and self._prepared_full is not None:

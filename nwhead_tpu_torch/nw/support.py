@@ -6,7 +6,7 @@ sampler, ``SupportSetTrain`` (random and IRM episodes) and
 ``SupportSetEval`` with the full bank and the random mode's sampler over
 it. Numpy, as in the JAX package, with the same seeding chain, so the same
 indices come out in the same order. The cluster, ensemble, knn and hnsw
-eval modes are later slices (ROADMAP.md queue 1, item 8).
+eval modes are later slices (ROADMAP.md queue 1, items 4 and 6).
 """
 
 from __future__ import annotations
@@ -248,7 +248,8 @@ class SupportSetEval:
         """Support features and labels for an inference mode."""
         if mode not in ("random", "full"):
             raise NotImplementedError(
-                f"mode {mode!r} is not ported yet (ROADMAP.md queue 1, item 8)"
+                f"mode {mode!r} has no support set here: cluster is ROADMAP.md queue 1, "
+                "item 4; knn, hnsw and ensemble item 6; ivf is NWNet.predict(mode='ivf')"
             )
         if not hasattr(self, "full_feat"):
             raise AttributeError("Did you run precompute()?")

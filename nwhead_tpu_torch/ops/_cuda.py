@@ -64,6 +64,7 @@ _API = {
     "nw_prepared": {
         "nw_prepared_forward": ([_VP] * 9 + [_I32] * 8 + [_VP], _I32),
         "nw_prepared_quant_forward": ([_VP] * 10 + [_I32] * 8 + [_VP], _I32),
+        "nw_prepared_sel_forward": ([_VP] * 12 + [_I32] * 10 + [_VP], _I32),
         "nw_prepared_query_tile": ([], _I32),
         "nw_prepared_support_tile": ([], _I32),
         "nw_prepared_smem_bytes": ([_I32], _I32),

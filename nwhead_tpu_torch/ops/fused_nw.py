@@ -18,7 +18,11 @@ for Hopper, built and loaded by ``ops/_cuda.py``:
   ``_nw_prepared_kernel`` with ``quant=True`` / ``quant4=True``): the same
   over an int8 bank, or an int4 bank of two codes a byte, against a query
   quantized per row; int32 dot products, dequantized by the query's and the
-  row's scales.
+  row's scales;
+* K6 ``csrc/nw_prepared.cu`` ``nw_prepared_sel_forward`` (TPU
+  ``_nw_prepared_kernel`` with ``tile_sel``): K2/K4/K5's pass over only the
+  bank tiles a list names (IVF-pruned serving, ``ops/ivf.py``), one list for
+  the batch or one per query group.
 
 ``prepare_support`` normalizes the bank once for its kernel, zeroes masked
 rows, quantizes it per row for ``int8``/``int4`` (symmetric, ``amax/127``
@@ -31,8 +35,9 @@ streams the bank once: score -> online softmax -> label sum ->
 Each kernel has a wrapper that counts its launches (``.launches``) and a
 plain PyTorch version of the same function (``_nw_fwd_plain``,
 ``_nw_bwd_dq_plain``, ``_nw_bwd_ds_plain``, or both passes at once in
-``_nw_bwd_plain``, ``_nw_prepared_plain``; full f32 products, and for the
-quantized banks the integer dot products exactly, in f64). A CPU tensor
+``_nw_bwd_plain``, ``_nw_prepared_plain``, ``_nw_prepared_sel_plain``; full
+f32 products, and for the quantized banks the integer dot products exactly,
+in f64). A CPU tensor
 goes to the plain version, a CUDA tensor to the kernel. There is no
 fallback between them: a kernel that cannot be built or launched raises.
 
@@ -42,8 +47,7 @@ gather), the class window, 128-lane padding of D (an int8 bank pads D to a
 multiple of 4, an int4 bank to a multiple of 8, so that rows and packed
 halves are whole 32-bit words), the ones-vector column sum,
 ``meta_stream``, the query pre-doubling and the int4 unpack variants.
-Tile selection and partial outputs (K1 ``partials=True``, K6) are later
-slices.
+Partial outputs (K1 and K6 ``partials=True``) are a later slice.
 """
 
 from __future__ import annotations
@@ -84,7 +88,9 @@ class PreparedSupport(NamedTuple):
     """A support bank prepared once for repeated fused inference.
 
     Rows may be permuted (class-sorted when C > 128); ``prepare_support(...,
-    return_order=True)`` returns the permutation."""
+    return_order=True)`` returns the permutation. A bank prepared with
+    ``block_s`` is padded with masked rows to whole tiles: tile ``t`` is rows
+    ``[t * block_s, (t + 1) * block_s)``, the unit ``tile_sel`` names."""
 
     # (S, D) f32 or bf16, normalized per kernel, masked rows 0; int8: (S,
     # D_pad) codes; int4: (S, D_pad / 2) uint8, byte j = (code[j + D_pad/2]
@@ -93,6 +99,7 @@ class PreparedSupport(NamedTuple):
     s2: Optional[torch.Tensor]  # (S,) f32 self-norms (l2 modes), 1e30 if masked
     labels: torch.Tensor  # (S,) int32, -1 = masked
     sscale: Optional[torch.Tensor] = None  # (S,) f32 row scales of an int8/int4 bank
+    block_s: Optional[int] = None  # rows per tile (a multiple of 128), or None: untiled
 
 
 def _resolve_mode(
@@ -126,6 +133,8 @@ def prepare_support(
     kernel: str = "euclidean",
     support_mask: Optional[torch.Tensor] = None,
     precision: str = "f32",
+    block_s: Optional[int] = None,
+    keep_order: bool = False,
     return_order: bool = False,
 ):
     """Normalize and pack a support bank for ``nw_fused_from_prepared``.
@@ -141,6 +150,13 @@ def prepare_support(
     symmetrically (``pallas_nw.py:343-362``): scale ``amax/127`` (or
     ``amax/7``; 1 for an all-zero row), codes ``clip(round(x / scale))``;
     the int4 codes are packed two a byte (``_int4_pack``).
+
+    ``block_s`` tiles the bank for ``tile_sel``: the tile size becomes
+    ``min(round_up(block_s, 128), round_up(S, 128))``, as the JAX package
+    resolves it, and the bank is padded to whole tiles with masked rows
+    (label -1, zero features, self-norm ``1e30``, scale 1).
+    ``keep_order=True`` skips the class sort (the JAX package's
+    ``window="keep"``): ``prepare_support_ivf`` has ordered the rows already.
     """
     if precision not in _PRECISIONS and precision not in _QUANT:
         raise ValueError(f"unknown precision {precision!r}")
@@ -166,11 +182,19 @@ def prepare_support(
     if sy_np.max() >= n_classes:
         raise ValueError(f"label {int(sy_np.max())} out of range for n_classes={n_classes}")
     order = None
-    if n_classes > 128:
+    if n_classes > 128 and not keep_order:
         # Stable sort by class, masked rows last (pallas_nw.py:298-310).
         order = np.argsort(np.where(mask_np > 0, sy_np, n_classes), kind="stable")
         sfeat = sfeat[torch.as_tensor(order, device=device)]
         sy_np, mask_np = sy_np[order], mask_np[order]
+    if block_s is not None:
+        # Whole tiles of masked rows (pallas_nw.py:321-325).
+        S = sfeat.shape[0]
+        block_s = min(_round_up(block_s, 128), _round_up(S, 128))
+        pad = _round_up(S, block_s) - S
+        sfeat = torch.nn.functional.pad(sfeat, (0, 0, 0, pad))
+        sy_np = np.concatenate([sy_np, np.zeros(pad, np.int64)])
+        mask_np = np.concatenate([mask_np, np.zeros(pad, np.float32)])
     # bf16 banks round before the kernel normalization, as the JAX package
     # does; quantized banks are normalized in f32.
     s = sfeat.to(_PRECISIONS.get(precision, torch.float32))
@@ -188,7 +212,8 @@ def prepare_support(
     if mode == "l2":
         s2 = torch.where(valid, s2, torch.full((), _MASK_S2, device=device))
     labels = torch.as_tensor(np.where(mask_np > 0, sy_np, -1).astype(np.int32), device=device)
-    prep = PreparedSupport(s=s.contiguous(), s2=s2, labels=labels, sscale=sscale)
+    prep = PreparedSupport(s=s.contiguous(), s2=s2, labels=labels, sscale=sscale,
+                           block_s=block_s)
     if return_order:
         return prep, (None if order is None else order.astype(np.int64))
     return prep
@@ -329,6 +354,51 @@ def _nw_prepared_plain(
     return _softmax_pass_plain(score, prep.labels, n_classes)[0]
 
 
+def _sel_rows(tile_sel: torch.Tensor, B: int) -> Tuple[torch.Tensor, int]:
+    """``tile_sel`` as ``(n_groups, n_sel)`` int32 rows, and the queries of
+    each group: one row shared by the batch, or one per ``B / n_groups``
+    consecutive queries."""
+    sel = tile_sel.to(torch.int32)
+    if sel.dim() == 1:
+        sel = sel[None]
+    if sel.dim() != 2 or 0 in sel.shape:
+        raise ValueError(f"tile_sel must be (n_sel,) or (n_groups, n_sel), got "
+                         f"{tuple(tile_sel.shape)}")
+    if B % sel.shape[0]:
+        raise ValueError(f"{sel.shape[0]} tile_sel rows do not split {B} queries into "
+                         "equal groups")
+    return sel, B // sel.shape[0]
+
+
+def _nw_prepared_sel_plain(
+    q: torch.Tensor, prep: PreparedSupport, scale: torch.Tensor, mode: str,
+    n_classes: int, qscale: Optional[torch.Tensor], tile_sel: torch.Tensor,
+) -> torch.Tensor:
+    """K6's function in plain PyTorch: for each query group,
+    ``_nw_prepared_plain`` over the rows of its selected tiles gathered in
+    slot order. A ``-1`` slot, or an id outside the bank, adds only masked
+    rows. Shapes are static: nothing is read back to the host."""
+    if prep.block_s is None:
+        raise ValueError("tile_sel needs a bank prepared with block_s")
+    sel, group_b = _sel_rows(tile_sel, q.shape[0])
+    n_tiles = prep.labels.shape[0] // prep.block_s
+    offsets = torch.arange(prep.block_s, device=q.device)
+    outs = []
+    for g in range(sel.shape[0]):
+        ids = sel[g].to(q.device).long()
+        live = (ids >= 0) & (ids < n_tiles)
+        rows = (torch.where(live, ids, 0)[:, None] * prep.block_s + offsets).reshape(-1)
+        keep = live[:, None].expand(-1, prep.block_s).reshape(-1)
+        sub = PreparedSupport(
+            s=prep.s[rows], s2=None if prep.s2 is None else prep.s2[rows],
+            labels=torch.where(keep, prep.labels[rows], -1),
+            sscale=None if prep.sscale is None else prep.sscale[rows])
+        part = slice(g * group_b, (g + 1) * group_b)
+        outs.append(_nw_prepared_plain(q[part], sub, scale, mode, n_classes,
+                                       None if qscale is None else qscale[part]))
+    return torch.cat(outs)
+
+
 def _plain_float(x: torch.Tensor) -> torch.Tensor:
     """``x`` in the plain versions' arithmetic: f32, or f64 for f64 inputs
     (an f64 evaluation of the same formula is the exact reference where
@@ -424,12 +494,11 @@ def _split_rows(n_rows: int, n_query_tiles: int, n_sms: int, tile: int) -> Tuple
     return rows, math.ceil(n_rows / rows)
 
 
-def _prepared_launch(name: str, q: torch.Tensor, prep: PreparedSupport, scale: torch.Tensor,
-                     mode: str, n_classes: int, qscale: Optional[torch.Tensor],
-                     bank_dtypes, query_dtype) -> torch.Tensor:
-    """Check a prepared-bank kernel's operands and launch it on the current
-    stream: pass 1 writes per-split partials (m, l, acc), pass 2 merges them
-    and takes the log. ``qscale`` goes with an int8/int4 bank only."""
+def _check_prepared(name: str, q: torch.Tensor, prep: PreparedSupport, scale: torch.Tensor,
+                    mode: str, n_classes: int, qscale: Optional[torch.Tensor], bank_dtypes,
+                    query_dtype):
+    """The checks of a prepared-bank kernel's operands. Returns the library
+    and, for an int8/int4 bank, the query's dequant column (else None)."""
     if q.device.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {q.device}")
     s, labels, s2 = prep.s, prep.labels, prep.s2
@@ -445,8 +514,9 @@ def _prepared_launch(name: str, q: torch.Tensor, prep: PreparedSupport, scale: t
     l2 = mode == "l2"
     if l2 and s2 is None:
         raise ValueError("l2 mode needs the bank's self-norms")
-    B, D = q.shape
+    B = q.shape[0]
     S = s.shape[0]
+    qcol = None
     checked = [("bank", s, s.dtype), ("labels", labels, torch.int32),
                ("scale", scale, torch.float32)] + ([("s2", s2, torch.float32)] if l2 else [])
     if quant:
@@ -466,16 +536,34 @@ def _prepared_launch(name: str, q: torch.Tensor, prep: PreparedSupport, scale: t
     if n_classes < 1 or n_classes > lib.nw_prepared_max_classes(q.device.index or 0):
         raise ValueError(f"n_classes={n_classes} is beyond what the kernel's "
                          "shared-memory accumulator holds on this device")
+    return lib, qcol
+
+
+def _partials(n_splits: int, B: int, n_classes: int, device):
+    """Pass 1's scratch (m, l, acc per split) and the output ``(B, C)``:
+    the four tensors and their pointers."""
+    f32 = dict(dtype=torch.float32, device=device)
+    bufs = (torch.empty((n_splits, B), **f32), torch.empty((n_splits, B), **f32),
+            torch.empty((n_splits, B, n_classes), **f32), torch.empty((B, n_classes), **f32))
+    return bufs, tuple(t.data_ptr() for t in bufs)
+
+
+def _prepared_launch(name: str, q: torch.Tensor, prep: PreparedSupport, scale: torch.Tensor,
+                     mode: str, n_classes: int, qscale: Optional[torch.Tensor],
+                     bank_dtypes, query_dtype) -> torch.Tensor:
+    """Check a prepared-bank kernel's operands and launch it on the current
+    stream: pass 1 writes per-split partials (m, l, acc), pass 2 merges them
+    and takes the log. ``qscale`` goes with an int8/int4 bank only."""
+    lib, qcol = _check_prepared(name, q, prep, scale, mode, n_classes, qscale, bank_dtypes,
+                                query_dtype)
+    s, labels, s2 = prep.s, prep.labels, prep.s2
+    quant, l2 = qcol is not None, mode == "l2"
+    (B, D), S = q.shape, s.shape[0]
     q = q.contiguous()
     n_tiles_q = math.ceil(B / lib.nw_prepared_query_tile())
     n_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     rows, n_splits = _split_rows(S, n_tiles_q, n_sms, lib.nw_prepared_support_tile())
-    f32 = dict(dtype=torch.float32, device=q.device)
-    m_part = torch.empty((n_splits, B), **f32)
-    l_part = torch.empty((n_splits, B), **f32)
-    acc_part = torch.empty((n_splits, B, n_classes), **f32)
-    out = torch.empty((B, n_classes), **f32)
-    partials = (m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(), out.data_ptr())
+    (*_, out), partials = _partials(n_splits, B, n_classes, q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         if quant:
@@ -539,6 +627,91 @@ def nw_prepared_int4_cuda(
 
 
 nw_prepared_int4_cuda.launches = 0
+
+# Bank dtype -> the ``bank`` code of nw_prepared_sel_forward.
+_SEL_BANK = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.uint8: 3}
+
+
+def _prepared_sel_launch(name: str, q: torch.Tensor, prep: PreparedSupport,
+                         scale: torch.Tensor, mode: str, n_classes: int,
+                         qscale: Optional[torch.Tensor], tile_sel: torch.Tensor, bank_dtypes,
+                         query_dtype) -> torch.Tensor:
+    """Check K6's operands and launch it on the current stream. A 16-query
+    tile of the kernel reads one ``tile_sel`` row, so under grouped routing
+    each group is padded to whole query tiles with copies of its last query
+    (dropped from the output). The split count comes from ``n_sel``, a
+    static shape, as K2's comes from the bank's rows; the splits take the
+    score tiles in turn, so the union spreads over all of them. Nothing is
+    read back from the card."""
+    lib, qcol = _check_prepared(name, q, prep, scale, mode, n_classes, qscale, bank_dtypes,
+                                query_dtype)
+    tile = lib.nw_prepared_support_tile()
+    if prep.block_s is None or prep.block_s % tile:
+        raise ValueError(f"{name}: tile_sel needs a bank prepared with block_s")
+    if tile_sel.device != q.device:
+        raise ValueError(f"{name}: tile_sel on {tile_sel.device}, queries on {q.device}")
+    sel, group_b = _sel_rows(tile_sel, q.shape[0])
+    n_groups, n_sel = sel.shape
+    qt = lib.nw_prepared_query_tile()
+    group_pad = _round_up(group_b, qt) if n_groups > 1 else group_b
+    if group_pad != group_b:
+        pick = (torch.arange(n_groups, device=q.device)[:, None] * group_b
+                + torch.arange(group_pad, device=q.device).clamp(max=group_b - 1)).reshape(-1)
+        q = q[pick]
+        qcol = None if qcol is None else qcol[pick]
+    q, sel = q.contiguous(), sel.contiguous()
+    B, D = q.shape
+    n_query_tiles = math.ceil(B / qt)
+    qtiles_per_row = group_pad // qt if n_groups > 1 else n_query_tiles
+    n_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    _, n_splits = _split_rows(n_sel * prep.block_s, n_query_tiles, n_sms, tile)
+    (*_, out), partials = _partials(n_splits, B, n_classes, q.device)
+    l2 = mode == "l2"
+    with torch.cuda.device(q.device):
+        rc = lib.nw_prepared_sel_forward(
+            q.data_ptr(), prep.s.data_ptr(), prep.s2.data_ptr() if l2 else None,
+            prep.labels.data_ptr(), scale.data_ptr(), None if qcol is None else qcol.data_ptr(),
+            None if qcol is None else prep.sscale.data_ptr(), sel.data_ptr(), *partials, B, D,
+            n_classes, int(l2), _SEL_BANK[prep.s.dtype], n_sel, qtiles_per_row,
+            prep.labels.shape[0] // prep.block_s, prep.block_s, n_splits,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"{name} kernel launch failed: {lib.nw_prepared_error_string(rc).decode()}")
+    if group_pad != group_b:
+        out = out.reshape(n_groups, group_pad, n_classes)[:, :group_b].reshape(-1, n_classes)
+    return out
+
+
+def nw_prepared_sel_cuda(
+    q: torch.Tensor, prep: PreparedSupport, scale: torch.Tensor, mode: str,
+    n_classes: int, qscale: Optional[torch.Tensor], tile_sel: torch.Tensor,
+) -> torch.Tensor:
+    """Launch K6 (``csrc/nw_prepared.cu``) over the tiles ``tile_sel`` names
+    of an f32 or bf16 bank, ``q`` in the bank's dtype."""
+    out = _prepared_sel_launch("nw_prepared_sel_cuda", q, prep, scale, mode, n_classes, qscale,
+                               tile_sel, (torch.float32, torch.bfloat16), prep.s.dtype)
+    nw_prepared_sel_cuda.launches += 1
+    return out
+
+
+nw_prepared_sel_cuda.launches = 0
+
+
+def nw_prepared_sel_quant_cuda(
+    q: torch.Tensor, prep: PreparedSupport, scale: torch.Tensor, mode: str,
+    n_classes: int, qscale: Optional[torch.Tensor], tile_sel: torch.Tensor,
+) -> torch.Tensor:
+    """Launch K6 (``csrc/nw_prepared.cu``) over the tiles ``tile_sel`` names
+    of an int8 or int4 bank: ``q`` the int8 query ``(B, D_pad)`` and
+    ``qscale`` its scales (``_prepared_query``)."""
+    out = _prepared_sel_launch("nw_prepared_sel_quant_cuda", q, prep, scale, mode, n_classes,
+                               qscale, tile_sel, (torch.int8, torch.uint8), torch.int8)
+    nw_prepared_sel_quant_cuda.launches += 1
+    return out
+
+
+nw_prepared_sel_quant_cuda.launches = 0
 
 
 def _check_raw(name: str, q: torch.Tensor, s: torch.Tensor, tensors) -> None:
@@ -770,12 +943,23 @@ def nw_fused_from_prepared(
     *,
     kernel: str = "euclidean",
     kernel_params: Optional[Dict[str, Any]] = None,
+    tile_sel: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Fused NW log-probs ``(B, C)`` over a ``prepare_support`` bank.
     Inference only. The query is normalized in f32, then cast to the
     bank's dtype, or quantized for an int8/int4 bank; the bank's dtype
-    picks the kernel (K2, K4 or K5)."""
+    picks the kernel (K2, K4 or K5).
+
+    ``tile_sel`` (a bank prepared with ``block_s``) streams only the listed
+    tiles (K6; ``-1`` = an empty slot): int32 ``(n_sel,)`` for the whole
+    batch, or ``(n_groups, n_sel)`` with one row per ``B / n_groups``
+    consecutive queries (grouped routing, ``ops/ivf.py``)."""
     q, scale, mode, qscale = _prepared_query(qfeat, prepared, kernel, kernel_params)
+    if tile_sel is not None:
+        if q.device.type == "cpu":
+            return _nw_prepared_sel_plain(q, prepared, scale, mode, n_classes, qscale, tile_sel)
+        wrapper = nw_prepared_sel_cuda if qscale is None else nw_prepared_sel_quant_cuda
+        return wrapper(q, prepared, scale, mode, n_classes, qscale, tile_sel)
     if q.device.type == "cpu":
         return _nw_prepared_plain(q, prepared, scale, mode, n_classes, qscale)
     wrapper = {torch.int8: nw_prepared_int8_cuda,

@@ -50,7 +50,13 @@ def ece(softmaxes, labels, n_bins: int = 15) -> torch.Tensor:
     softmaxes, labels = _t(softmaxes), _t(labels)
     confidences, predictions = torch.max(softmaxes, dim=1)
     accuracies = (predictions == labels.to(predictions.device)).to(torch.float32)
-    boundaries = torch.linspace(0.0, 1.0, n_bins + 1, device=softmaxes.device)
+    # jnp.linspace's edges, not torch.linspace's (six of 16 f32 edges differ
+    # by an ulp, and a confidence on an edge then changes bins): i * f32(1/n)
+    # in f32, the last edge exactly 1.
+    boundaries = torch.arange(n_bins + 1, dtype=torch.float32) * torch.tensor(
+        1.0 / n_bins, dtype=torch.float32)
+    boundaries[-1] = 1.0
+    boundaries = boundaries.to(softmaxes.device)
     in_bin = ((confidences[None, :] > boundaries[:-1, None])
               & (confidences[None, :] <= boundaries[1:, None])).to(torch.float32)
     counts = torch.sum(in_bin, dim=1)

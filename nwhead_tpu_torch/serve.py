@@ -12,6 +12,8 @@ random, from ``--seed``. Run as::
         --fused_inference --batch_size 64 --latency_bench
     python -m nwhead_tpu_torch.serve --dataset synthetic_cub --arch vit_s14 \
         --featurizer_precision int8 --head_precision int8 --batch_size 64 --latency_bench
+    python -m nwhead_tpu_torch.serve --dataset synthetic_cub --arch resnet18 \
+        --serve_mode ivf --ivf_probe auto --batch_size 64 --latency_bench
 
 ``--featurizer_precision bf16_fused`` serves a ViT through the bf16
 fused-serving graph (K10/K11 per block); ``--featurizer_precision int8``
@@ -19,7 +21,11 @@ through the int8 post-training-quantized one (K10 int8 and K11 int8 per
 block), calibrated on the first ``--calib_images`` training images before
 the bank is built; ``--fused_inference`` runs a ViT's attention and MLP on
 K7 and K9; ``--bf16`` computes a ViT in bf16. ``--head_precision`` picks the
-prepared bank: f32 or bf16 (K2), int8 (K4) or int4 (K5).
+prepared bank: f32 or bf16 (K2), int8 (K4) or int4 (K5). ``--serve_mode ivf``
+serves through the IVF-pruned head (``ops/ivf.py``, K6 over the bank tiles
+each batch routes to): ``--ivf_probe`` tiles per query (``auto``: calibrated
+against the exact head on ``min(256, len(val))`` validation images before
+the timed loop), ``--ivf_group`` queries per routed group.
 
 ``--device`` defaults to ``cuda``; with no CUDA device that is an error, and
 the CPU must be asked for (``--device cpu``).
@@ -98,7 +104,7 @@ def featurizer_options(args) -> dict:
     return opts
 
 
-def build_server(args, train_ds, edit=None) -> NWNet:
+def build_server(args, train_ds, edit=None, val_ds=None) -> NWNet:
     """An ``NWNet`` with random weights from ``--seed``, its featurizer
     fused for ``--featurizer_precision bf16_fused`` or quantized and
     calibrated on the first ``--calib_images`` training images for
@@ -108,7 +114,11 @@ def build_server(args, train_ds, edit=None) -> NWNet:
     quantized and the bank built (``chip_smoke.py`` sets the LayerScale
     gammas there). The calibration's and the bank's seconds are kept in
     ``net.calibration_seconds`` (0 without calibration) and
-    ``net.precompute_seconds``."""
+    ``net.precompute_seconds``. ``--serve_mode ivf --ivf_probe auto``
+    calibrates the IVF knobs on the first ``min(256, len(val_ds))``
+    validation images."""
+    if args.serve_mode == "ivf" and args.ivf_probe == "auto" and val_ds is None:
+        raise ValueError("--ivf_probe auto calibrates on validation images: pass val_ds")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is visible (pass --device cpu to run on the CPU)")
@@ -119,6 +129,7 @@ def build_server(args, train_ds, edit=None) -> NWNet:
         featurizer, train_ds.num_classes, support_dataset=train_ds, device=device,
         kernel_type=args.kernel_type, n_shot_full=args.n_shot_full,
         head_precision=args.head_precision, fused_min_support=1,
+        ivf_n_probe=args.ivf_probe, ivf_group_b=args.ivf_group,
     )
     if edit is not None:
         edit(net)
@@ -142,6 +153,14 @@ def build_server(args, train_ds, edit=None) -> NWNet:
     net.precompute_seconds = time.perf_counter() - t0
     print(f"Support bank prepared: {len(net.full_y)} items, "
           f"{net.precompute_seconds:.1f}s (one-time)")
+    if args.serve_mode == "ivf" and args.ivf_probe == "auto":
+        # Before any serving callable fixes the knobs (make_serving_fn
+        # raises on an unresolved 'auto').
+        n_cal = min(256, len(val_ds))
+        cfg = net.calibrate_ivf(x=val_ds.gather(np.arange(n_cal)))
+        print(f"IVF auto-calibrated on {n_cal} val queries: n_probe={cfg.n_probe} "
+              f"group_b={cfg.group_b} top-1 agreement {cfg.agreement:.4f} "
+              f"(route diversity {cfg.route_diversity})")
     return net
 
 
@@ -150,7 +169,7 @@ def latency_bench(net: NWNet, val_ds, args) -> dict:
     arrays in, log-probs back on the host: the time a caller sees."""
     bs = args.batch_size
     n = min(args.bench_batches, max(1, len(val_ds) // bs))
-    serve = net.make_serving_fn()
+    serve = net.make_serving_fn(mode=args.serve_mode)
     warm = val_ds.gather(np.arange(bs) % len(val_ds))
     for _ in range(3):
         serve(warm).cpu()
@@ -173,8 +192,11 @@ def latency_bench(net: NWNet, val_ds, args) -> dict:
         "fused_inference": bool(args.fused_inference),
         "bf16": bool(args.bf16),
         "head_precision": args.head_precision,
+        "serve_mode": args.serve_mode,
         "device": device_info(net.device),
     }
+    if args.serve_mode == "ivf":
+        report.update(ivf_probe=net.ivf_n_probe, ivf_group=net.ivf_group_b)
     print(json.dumps(report))
     return report
 
@@ -196,6 +218,17 @@ def parse_args(argv=None):
     p.add_argument("--fused_inference", action="store_true",
                    help="a ViT's attention and MLP on the fused kernels K7 and K9")
     p.add_argument("--bf16", action="store_true", help="compute a ViT featurizer in bf16")
+    p.add_argument("--serve_mode", default="full", choices=["full", "ivf"],
+                   help="the head per request: 'full' streams the whole prepared bank "
+                        "(exact); 'ivf' routes each batch to its top tiles and streams only "
+                        "those (K6)")
+    p.add_argument("--ivf_probe", type=lambda v: v if v == "auto" else int(v), default=32,
+                   help="--serve_mode ivf: routed tiles per query before the batch union "
+                        "(at least the bank's tile count reproduces full mode); 'auto' "
+                        "calibrates it against the exact head on validation images")
+    p.add_argument("--ivf_group", type=int, default=None,
+                   help="--serve_mode ivf: route-sort each batch and give every IVF_GROUP "
+                        "queries their own tile union (default: one union per batch)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--latency_bench", action="store_true")
     p.add_argument("--bench_batches", type=int, default=50)
@@ -210,7 +243,7 @@ def main(argv=None):
         raise SystemExit("pass --latency_bench")
     featurizer_options(args)  # refuse before the datasets are drawn
     train_ds, val_ds = build_datasets(args)
-    net = build_server(args, train_ds)
+    net = build_server(args, train_ds, val_ds=val_ds)
     return {"latency": latency_bench(net, val_ds, args)}
 
 

@@ -134,3 +134,30 @@ def test_nw_head_forward_matches_jax_module(kernel, precision):
     with torch.no_grad():
         got = thead(torch.from_numpy(q), torch.from_numpy(s), torch.from_numpy(sy)).numpy()
     np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("n_bins", [10, 15, 20])
+def test_ece_bins_match_jax_on_the_edges(n_bins):
+    """The port's ECE bin edges are ``jnp.linspace``'s: confidences placed
+    exactly on every edge fall in the same bins, so the ECE is JAX's. With 15
+    bins, probabilities [[0.6, 0.4], [0.58, 0.42]] and labels [0, 1] give
+    0.0900 (``torch.linspace``'s edges gave 0.4900)."""
+    from nwhead_tpu.ops import metrics as jmetrics
+    from nwhead_tpu_torch.ops import metrics as tmetrics
+
+    edges = np.asarray(jnp.linspace(0.0, 1.0, n_bins + 1))
+    conf = np.concatenate([edges[1:], np.nextafter(edges[1:-1], 2.0, dtype=np.float32)])
+    conf = np.clip(conf, 0.5, 1.0).astype(np.float32)  # the top class of two
+    probs = np.stack([conf, 1.0 - conf], axis=1)
+    labels = (np.arange(len(conf)) % 3 == 0).astype(np.int32)
+    got = float(tmetrics.ece(torch.from_numpy(probs), torch.from_numpy(labels), n_bins))
+    # Equal up to the f32 summation order; a confidence in another bin moves
+    # the ECE by orders of magnitude more.
+    assert got == pytest.approx(float(jmetrics.ece(jnp.asarray(probs), jnp.asarray(labels),
+                                                   n_bins)), rel=1e-6, abs=1e-7)
+    if n_bins == 15:
+        probs = np.array([[0.6, 0.4], [0.58, 0.42]], np.float32)
+        got = float(tmetrics.ece(torch.from_numpy(probs), torch.tensor([0, 1]), 15))
+        assert got == pytest.approx(float(jmetrics.ece(jnp.asarray(probs),
+                                                       jnp.asarray([0, 1]), 15)), abs=1e-7)
+        assert got == pytest.approx(0.09, abs=1e-6)
