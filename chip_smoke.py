@@ -59,6 +59,26 @@ package beside it. With one, in order:
    against the exact head; K6, its plain version and the full pass (K2, K4
    or K5) over the same bank timed; at full probe K6 equals the full pass
    within 2e-4;
+9a. partials and K12 kernel phase: K1 ``partials=True`` against its plain
+    version, all five kernels, f32 and bf16, masked rows holding NaN and an
+    all-masked support, at the training episode's shape, at B=64, S=5,994
+    and at a streamed chunk's (B=64, 65,536 rows, C=1,000); K2/K4/K5
+    ``partials=True`` at the CUB shape, every kernel and bank precision, and
+    K6 ``partials=True`` there over a list of 1,024-row tiles with empty
+    slots; K12 (``fused_attention``, K7 over the packed q, k, v) f32 and bf16 at
+    ViT-S/14's B=64, H=6, N=257, hd=64 and at N=197, timed beside
+    ``F.scaled_dot_product_attention``;
+9b. sharded serving phase, on the K6 phase's bank with its last 48,576
+    rows masked, per bank precision: the unsharded full pass and its
+    partials route (held to its plain version); ``ShardedSupportBank`` on
+    ``make_mesh(1, 4, devices=[cuda:0] * 4)`` with ``ivf=True``, its full
+    predict (four partials launches) against the full pass within 2e-4
+    (bf16 2e-3), both timed; its routed predict at ``ivf_n_probe=8`` on the
+    skewed batch (four K6 ``partials=True`` launches; top-1 agreement and
+    the largest probability difference against the exact head; one shard's
+    list held to its plain version); at f32, ``nw_streaming_log_probs`` over
+    the same rows from the host in 16 chunks of 65,536 (K1 ``partials=True``
+    16 times) against the full pass;
 10. ResNet serving phase: ``python -m nwhead_tpu_torch.serve --dataset
    synthetic_cub --arch resnet18 --batch_size 64 --latency_bench``, through the serve
    module's functions, with an f32, a bf16, an int8 and an int4 head. It
@@ -69,7 +89,10 @@ package beside it. With one, in order:
     ``--ivf_probe 2 --ivf_group 16``, ``--ivf_probe 1 --head_precision
     int8``, and at bf16 and int4. It counts K6's launches in each run and
     checks the served log-probs against the plain selected head on the
-    features the request used;
+    features the request used; then ``--mesh 1,1`` with an f32 and an int8
+    head: one K2 or K4 ``partials=True`` launch per request and no
+    finalizing head, the served log-probs against the plain partials on the
+    one shard, merged;
 12. ViT serving phase: ``python -m nwhead_tpu_torch.serve --dataset
     synthetic_cub --arch vit_s14 --batch_size 64 --latency_bench`` with
     ``--featurizer_precision bf16_fused``, with ``--fused_inference`` and
@@ -508,8 +531,12 @@ VIT_WRAPPERS = ("attention_qkv_cuda", "attention_block_bf16_cuda", "mlp_cuda",
                 "mlp_block_bf16_cuda", "attention_qkv_bwd_cuda", "mlp_bwd_cuda",
                 "attention_block_int8_cuda", "mlp_block_int8_cuda")
 SEL_WRAPPERS = ("nw_prepared_sel_cuda", "nw_prepared_sel_quant_cuda")
+PARTIALS_WRAPPERS = ("nw_fwd_partials_cuda", "nw_prepared_partials_cuda",
+                     "nw_prepared_partials_int8_cuda", "nw_prepared_partials_int4_cuda",
+                     "nw_prepared_sel_partials_cuda", "nw_prepared_sel_partials_quant_cuda",
+                     "fused_attention_cuda")
 WRAPPERS = ("nw_prepared_cuda", "nw_prepared_int8_cuda", "nw_prepared_int4_cuda") + \
-    RAW_WRAPPERS + VIT_WRAPPERS + SEL_WRAPPERS
+    RAW_WRAPPERS + VIT_WRAPPERS + SEL_WRAPPERS + PARTIALS_WRAPPERS
 
 
 def _wrapper(name: str):
@@ -1156,7 +1183,23 @@ def _sel_bound(tsel, block_s: int, group_b: int, D: int, prec: str, B: int, C: i
     return b
 
 
-def ivf_kernel_phase(flush) -> dict:
+def _ivf_queries(cents, dev) -> dict:
+    """The batches of ``IVF_BATCHES``, drawn from ``IVF_SEED + 1``: 64
+    queries each, their class centre plus N(0, 0.5^2) noise."""
+    import torch
+
+    C, D = cents.shape
+    rng = np.random.default_rng(IVF_SEED + 1)
+    queries = {}
+    for name, n_cls, _, _ in IVF_BATCHES:
+        qy = rng.choice(C, n_cls, replace=False)[rng.integers(0, n_cls, 64)] if n_cls < 64 \
+            else rng.choice(C, 64, replace=False)
+        noise = np.float32(IVF_NOISE) * rng.standard_normal((64, D), dtype=np.float32)
+        queries[name] = torch.from_numpy(cents[qy] + noise).to(dev)
+    return queries
+
+
+def ivf_kernel_phase(flush, bank) -> dict:
     """K6 on a 1,048,576-row, D=512, C=1,000 clustered bank built by
     ``prepare_support_ivf`` at 1,024-row tiles (1,024 tiles, cluster order:
     k-means on the card) at f32, bf16, int8 and int4, for a skewed batch
@@ -1165,8 +1208,9 @@ def ivf_kernel_phase(flush) -> dict:
     (the head tolerances), top-1 agreement and the largest probability
     difference against the exact head (K2, K4 or K5 over the whole bank),
     K6, its plain version and that full pass timed; at full probe K6 equals
-    the full pass within 2e-4. Returns per precision the skewed batch's
-    numbers (timed) and max |err|."""
+    the full pass within 2e-4. ``bank`` is ``_ivf_bank_features``'s.
+    Returns per precision the skewed batch's numbers (timed) and max
+    |err|."""
     import torch
 
     from nwhead_tpu_torch.ops import fused_nw as F
@@ -1174,17 +1218,8 @@ def ivf_kernel_phase(flush) -> dict:
 
     dev = torch.device("cuda")
     S, D, C, block_s = IVF_BANK
-    t0 = time.perf_counter()
-    s, sy, cents = _ivf_bank_features(dev)
-    rng = np.random.default_rng(IVF_SEED + 1)
-    queries = {}
-    for name, n_cls, _, _ in IVF_BATCHES:
-        qy = rng.choice(C, n_cls, replace=False)[rng.integers(0, n_cls, 64)] if n_cls < 64 \
-            else rng.choice(C, 64, replace=False)
-        noise = np.float32(IVF_NOISE) * rng.standard_normal((64, D), dtype=np.float32)
-        queries[name] = torch.from_numpy(cents[qy] + noise).to(dev)
-    torch.cuda.synchronize()
-    print(f"ivf bank: S={S} D={D} C={C} drawn in {time.perf_counter() - t0:.1f}s")
+    s, sy, cents = bank
+    queries = _ivf_queries(cents, dev)
     res = {}
     for prec in SEL_WRAPPER:
         t0 = time.perf_counter()
@@ -1241,8 +1276,6 @@ def ivf_kernel_phase(flush) -> dict:
             raise AssertionError(f"K6 at full probe differs from the full pass: {prec}")
         del ivf
         torch.cuda.empty_cache()
-    del s
-    torch.cuda.empty_cache()
     return res
 
 
@@ -1336,6 +1369,439 @@ def ivf_entries(kern: dict, served: dict) -> list:
             "ms": sk["ms"], "plain_ms": sk["plain_ms"], "bound_ms": sk["bound_ms"],
             "bound_by": sk["bound_by"], "library_ms": None, "full_ms": sk["full_ms"],
             "union_rows": sk["union_rows"], "diverse_ms": r["diverse"]["ms"]})
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# Support-sharded serving: K1 and K2/K4/K5/K6 partials=True, and K12 over K7.
+# ---------------------------------------------------------------------------
+
+PARTIAL_CASES = (  # name, B, S, D, C, kernels; the last is a streamed chunk's shape, timed
+    ("episode_b8", 8, 1200, 512, 200, None),
+    ("head_raw_b64", 64, 5994, 512, 200, None),
+    ("stream_chunk", 64, 65_536, 512, 1000, ("euclidean",)),
+)
+# Partials held to their plain versions: rtol = atol, bf16 as its log-probs.
+PARTIALS_TOL = {"f32": 2e-4, "bf16": 2e-3, "int8": 2e-4, "int4": 2e-4}
+PARTIALS_WRAPPER = {"f32": "nw_prepared_partials_cuda", "bf16": "nw_prepared_partials_cuda",
+                    "int8": "nw_prepared_partials_int8_cuda",
+                    "int4": "nw_prepared_partials_int4_cuda"}
+SEL_PARTIALS_WRAPPER = {"f32": "nw_prepared_sel_partials_cuda",
+                        "bf16": "nw_prepared_sel_partials_cuda",
+                        "int8": "nw_prepared_sel_partials_quant_cuda",
+                        "int4": "nw_prepared_sel_partials_quant_cuda"}
+K12_CASES = (("vit_s14_b64", VIT_B, VIT_H, VIT_N, 64), ("ragged_n197", VIT_B, VIT_H, 197, 64))
+K12_REPLACES = "nwhead_tpu/ops/pallas_attn.py:44"
+SHARDS = 4  # support shards on the one card
+SHARD_LIVE = 1_000_000  # rows of the million-row bank served; the last 48,576 are masked
+SHARD_PROBE = 8
+STREAM_CHUNK = 65_536  # rows a host chunk: 16 chunks, the last padded with masked rows
+MESH_SERVE_ARGV = ["--dataset", "synthetic_cub", "--arch", "resnet18", "--batch_size", "64",
+                   "--mesh", "1,1", "--latency_bench"]
+MESH_CONFIGS = (("f32", []), ("int8", ["--head_precision", "int8"]))
+
+
+def partials_agree(got, want, prec: str):
+    """Kernel partials ``(m, l, acc)`` against the plain version's, each
+    within ``PARTIALS_TOL``; a query with no valid row must read the same
+    (the finite -inf, 0, 0) on both. Returns (ok, max |err|)."""
+    import torch
+
+    tol = PARTIALS_TOL[prec]
+    ok = all(bool(torch.isfinite(g).all()) and within(g, w, tol, tol) for g, w in zip(got, want))
+    return ok, max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+
+def _timed(res: dict, flush, kernel, plain, n_bytes, flops, prec, fin=None, **more) -> None:
+    """Kernel and plain ms, more keys' ms (name -> fn) and the bound into
+    ``res``. With ``fin``, the finalizing route on the same inputs, kernel
+    and ``fin`` are timed in turns (kernel, fin, fin, kernel) and each reads
+    the mean of its two medians (``fin_ms``)."""
+    if fin is None:
+        res["ms"] = time_ms(kernel, flush)
+    else:
+        k1, f1, f2, k2 = (time_ms(fn, flush) for fn in (kernel, fin, fin, kernel))
+        res.update(ms=(k1 + k2) / 2, fin_ms=(f1 + f2) / 2)
+    res.update(plain_ms=time_ms(plain, flush), **{k: time_ms(fn, flush) for k, fn in more.items()},
+               **bound(n_bytes, flops, prec))
+
+
+def sharded_kernel_phase(flush) -> dict:
+    """K1 ``partials=True`` against its plain version, all five kernels,
+    f32 and bf16, masked rows holding NaN, at the training episode's shape
+    (B=8, S=1,200), at B=64, S=5,994 and at a streamed chunk's (B=64,
+    65,536 rows, C=1,000), and an all-masked support; K2/K4/K5
+    ``partials=True`` at the CUB shape, all five kernels and every bank
+    precision, and K6 ``partials=True`` there over the list [3, -1, 0, 5,
+    -1] of 1,024-row tiles; K12 (K7 over the packed q, k, v) f32 and bf16
+    at ViT-S/14's B=64, H=6, N=257, hd=64 and at N=197. Each timed beside its plain
+    version (the finalizing K1/K2/K4/K5 as ``fin_ms``, SDPA beside K12).
+    Returns per wrapper and precision max |err|, times and bound."""
+    import warnings
+
+    import torch
+    import torch.nn.functional as TF
+
+    from nwhead_tpu_torch.ops import fused_attn as FA
+    from nwhead_tpu_torch.ops import fused_nw as F
+    from nwhead_tpu_torch.ops.kernels import KERNEL_NAMES
+
+    dev = torch.device("cuda")
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    res = {"nw_fwd_partials": {p: {"max_abs_err": 0.0} for p in dtypes},
+           "nw_prepared_partials": {p: {"max_abs_err": 0.0} for p in PARTIALS_WRAPPER},
+           "nw_prepared_sel_partials": {p: {"max_abs_err": 0.0} for p in PARTIALS_WRAPPER},
+           "fused_attention": {p: {"max_abs_err": 0.0} for p in dtypes}}
+    for ci, (case, B, S, D, C, kernels) in enumerate(PARTIAL_CASES):
+        rng = np.random.default_rng(1300 + ci)
+        q = torch.from_numpy(rng.standard_normal((B, D), np.float32)).to(dev)
+        s = torch.from_numpy(rng.standard_normal((S, D), np.float32)).to(dev)
+        valid = rng.random(S) > 0.03
+        s[torch.from_numpy(~valid).to(dev)] = float("nan")
+        labels = torch.from_numpy(
+            np.where(valid, rng.integers(0, C, size=S), -1).astype(np.int32)).to(dev)
+        for kernel in kernels or KERNEL_NAMES:
+            params = {"logit_scale": torch.tensor(1.3, device=dev)} if kernel == "clip" else {}
+            for prec, dt in dtypes.items():
+                mode, scale, qn, sn = F._resolve_mode(kernel, params, q.to(dt), s.to(dt))
+                qn, sn = qn.to(sn.dtype).contiguous(), sn.contiguous()
+                for lab in (labels, torch.full_like(labels, -1)) if ci == 0 else (labels,):
+                    args = (qn, sn, lab, scale, mode, C)
+                    got, want = F.nw_fwd_partials_cuda(*args), F._nw_fwd_partials_plain(*args)
+                    torch.cuda.synchronize()
+                    ok, err = partials_agree(got, want, prec)
+                    where = f"{case} {kernel} {prec}{' all masked' if lab is not labels else ''}"
+                    print(f"K1 partials {where}: max|err| {err:.3e} {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(f"K1 partials disagree with plain: {where}")
+                    r = res["nw_fwd_partials"][prec]
+                    r["max_abs_err"] = max(r["max_abs_err"], err)
+                if kernel == "euclidean" and ci > 0:
+                    args = (qn, sn, labels, scale, mode, C)
+                    t = {}
+                    _timed(t, flush, lambda: F.nw_fwd_partials_cuda(*args),
+                           lambda: F._nw_fwd_partials_plain(*args),
+                           (B + S) * D * sn.element_size() + 4 * (S + 1) + 4 * B * (C + 2),
+                           2 * B * S * D + 2 * S * D, prec,
+                           fin=lambda: F.nw_fwd_cuda(*args))
+                    print(f"time K1 partials {case} {prec}: kernel {t['ms']:.4f} ms (finalizing "
+                          f"K1 {t['fin_ms']:.4f}), plain {t['plain_ms']:.4f} ms, bound "
+                          f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+                    res["nw_fwd_partials"][prec][case] = t
+                    if case == "stream_chunk":
+                        res["nw_fwd_partials"][prec].update(t)
+    # K2/K4/K5 partials at the CUB shape; K6 partials over a list of its
+    # 1,024-row tiles with empty slots.
+    B, S, D, C = 64, 5994, 512, 200
+    rng = np.random.default_rng(1400)
+    q = torch.from_numpy(rng.standard_normal((B, D), np.float32)).to(dev)
+    s = torch.from_numpy(rng.standard_normal((S, D), np.float32)).to(dev)
+    sy = rng.integers(0, C, size=S)
+    valid = rng.random(S) > 0.03
+    s[torch.from_numpy(~valid).to(dev)] = float("nan")
+    mask = torch.from_numpy(valid.astype(np.float32))
+    for kernel in KERNEL_NAMES:
+        params = {"logit_scale": torch.tensor(1.3, device=dev)} if kernel == "clip" else {}
+        for prec, name in PARTIALS_WRAPPER.items():
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # int4 + dotproduct warns
+                prep = F.prepare_support(s, sy, C, kernel=kernel, support_mask=mask,
+                                         precision=prec)
+                tiled = F.prepare_support(s, sy, C, kernel=kernel, support_mask=mask,
+                                          precision=prec, block_s=1024)
+            qq, scale, mode, qscale = F._prepared_query(q, prep, kernel, params)
+            args = (qq, prep, scale, mode, C, qscale)
+            wrapper = getattr(F, name)
+            got, want = wrapper(*args), F._nw_prepared_plain(*args, partials=True)
+            tsel = torch.tensor([3, -1, 0, 5, -1], dtype=torch.int32, device=dev)
+            sargs = (*F._prepared_query(q, tiled, kernel, params), tsel)
+            sargs = (sargs[0], tiled, sargs[1], sargs[2], C, sargs[3], tsel)
+            sel = getattr(F, SEL_PARTIALS_WRAPPER[prec])
+            got_sel = sel(*sargs)
+            want_sel = F._nw_prepared_sel_plain(*sargs, partials=True)
+            torch.cuda.synchronize()
+            ok, err = partials_agree(got, want, prec)
+            ok_sel, err_sel = partials_agree(got_sel, want_sel, prec)
+            print(f"K2/K4/K5 partials cub_b64 {kernel} {prec}: max|err| {err:.3e} "
+                  f"{'ok' if ok else 'FAIL'}; K6 partials over tiles [3, -1, 0, 5, -1] "
+                  f"max|err| {err_sel:.3e} {'ok' if ok_sel else 'FAIL'}")
+            if not (ok and ok_sel):
+                raise AssertionError(f"prepared partials disagree with plain: {kernel} {prec}")
+            r = res["nw_prepared_partials"][prec]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            rs = res["nw_prepared_sel_partials"][prec]
+            rs["max_abs_err"] = max(rs["max_abs_err"], err_sel)
+            if kernel == "euclidean":
+                Dp, item = qq.shape[1], prep.s.element_size()
+                n_bytes = B * Dp * qq.element_size() + prep.s.numel() * item + 4 * (
+                    (3 if qscale is not None else 2) * S + 1 + B * (C + 2))
+                fin = getattr(F, HEAD_WRAPPERS[prec])
+                _timed(r, flush, lambda: wrapper(*args),
+                       lambda: F._nw_prepared_plain(*args, partials=True), n_bytes,
+                       2 * B * S * Dp, "int8" if qscale is not None else prec,
+                       fin=lambda: fin(*args))
+                print(f"time K2/K4/K5 partials cub_b64 {prec}: kernel {r['ms']:.4f} ms "
+                      f"(finalizing {r['fin_ms']:.4f}), plain {r['plain_ms']:.4f} ms, bound "
+                      f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    # K12 over K7.
+    for ci, (case, B, H, N, hd) in enumerate(K12_CASES):
+        rng = np.random.default_rng(1500 + ci)
+        qkv32 = [torch.from_numpy(rng.standard_normal((B, H, N, hd), np.float32)).to(dev)
+                 for _ in range(3)]
+        for prec, dt in dtypes.items():
+            q, k, v = (t.to(dt) for t in qkv32)
+            got, want = FA.fused_attention_cuda(q, k, v, hd ** -0.5), \
+                FA._attention_plain(q, k, v, hd ** -0.5)
+            torch.cuda.synchronize()
+            ok, err, rel, cos = vit_agree(got, want, prec)
+            print(f"K12 {case} {prec}: max|err| {err:.3e}, rel {rel:.2e}, cos {cos:.7f} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"K12 disagrees with its plain version: {case} {prec}")
+            r = res["fused_attention"][prec]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if ci == 0:
+                _timed(r, flush, lambda: FA.fused_attention_cuda(q, k, v, hd ** -0.5),
+                       lambda: FA._attention_plain(q, k, v, hd ** -0.5),
+                       4 * B * H * N * hd * q.element_size(), 4 * B * H * N * N * hd, prec,
+                       library_ms=lambda: TF.scaled_dot_product_attention(q, k, v))
+                print(f"time K12 {case} {prec}: kernel {r['ms']:.4f} ms, plain "
+                      f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, bound "
+                      f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return res
+
+
+def sharded_serving_phase(flush, bank) -> dict:
+    """The million-row bank (``bank``, the K6 phase's; its last 48,576 rows
+    masked) served four ways, per bank precision: (1) the unsharded full
+    pass (K2/K4/K5), whose partials route is held to its plain version and
+    timed; (2) ``ShardedSupportBank`` on ``make_mesh(1, 4, devices=[cuda:0]
+    * 4)`` (four shards of 250,000 rows, ``ivf=True``), its full predict
+    (four K2/K4/K5 ``partials=True`` launches and the merge) held to the
+    full pass within 2e-4 (bf16 2e-3) and timed beside it; (3) its routed
+    predict on the skewed batch at ``ivf_n_probe=8`` (four K6 ``partials=True``
+    launches): top-1 agreement and the largest probability difference
+    against the exact head, one shard's routed list held to its plain
+    version and timed; (4) at f32, ``nw_streaming_log_probs`` over the same
+    rows from the host in 16 chunks of 65,536 (K1 ``partials=True`` 16
+    times) against the full pass. Returns per precision the launches,
+    errors and times."""
+    import torch
+
+    from nwhead_tpu_torch.nw.streaming import nw_streaming_log_probs
+    from nwhead_tpu_torch.ops import fused_nw as F
+    from nwhead_tpu_torch.ops import ivf as I
+    from nwhead_tpu_torch.parallel import ShardedSupportBank, make_mesh
+
+    dev = torch.device("cuda")
+    s, sy, cents = bank
+    S, D, C, _ = IVF_BANK
+    queries = _ivf_queries(cents, dev)
+    q, skewed = queries["skewed"], queries["skewed"]
+    mask = torch.zeros(S)
+    mask[:SHARD_LIVE] = 1.0
+    mesh = make_mesh(1, SHARDS, devices=[dev] * SHARDS)
+    res = {}
+    for prec, name in PARTIALS_WRAPPER.items():
+        r = res[prec] = {}
+        t0 = time.perf_counter()
+        prep = F.prepare_support(s, sy, C, precision=prec, support_mask=mask)
+        qq, scale, mode, qscale = F._prepared_query(q, prep)
+        args = (qq, prep, scale, mode, C, qscale)
+        wrapper, full = getattr(F, name), getattr(F, HEAD_WRAPPERS[prec])
+        got, want = wrapper(*args), F._nw_prepared_plain(*args, partials=True)
+        exact = full(*args)
+        torch.cuda.synchronize()
+        ok, err = partials_agree(got, want, prec)
+        print(f"sharded {prec}: unsharded bank prepared in {time.perf_counter() - t0:.1f}s; "
+              f"K2/K4/K5 partials over {S} rows vs plain max|err| {err:.3e} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"prepared partials disagree with plain on the bank: {prec}")
+        item, Dp = prep.s.element_size(), qq.shape[1]
+        _timed(r, flush, lambda: wrapper(*args),
+               lambda: F._nw_prepared_plain(*args, partials=True),
+               64 * Dp * qq.element_size() + prep.s.numel() * item + 4 * (
+                   (3 if qscale is not None else 2) * S + 1 + 64 * (C + 2)),
+               2 * 64 * SHARD_LIVE * Dp, "int8" if qscale is not None else prec,
+               fin=lambda: full(*args))
+        r["max_abs_err"] = err
+        t0 = time.perf_counter()
+        sharded = ShardedSupportBank.build(s[:SHARD_LIVE], sy[:SHARD_LIVE], mesh, C,
+                                           precision=prec, use_prepared=True, ivf=True)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        predict, routed = sharded.predict_fn(), sharded.predict_fn(ivf_n_probe=SHARD_PROBE)
+        _counts(reset=True)
+        out = predict(q)
+        torch.cuda.synchronize()
+        r["launches"] = _counts()[name]
+        out_err = float((out - exact).abs().max())
+        tol = HEAD_TOL[prec]
+        ok = (r["launches"] == SHARDS and tuple(out.shape) == (64, C)
+              and bool(torch.isfinite(out).all()) and within(out, exact, **tol))
+        r.update(sharded_err=out_err, sharded_ms=time_ms(lambda: predict(q), flush),
+                 build_s=build_s)
+        r["full_ms"] = r["fin_ms"]
+        print(f"sharded {prec}: {SHARDS} shards of {sharded.local} rows built in {build_s:.1f}s; "
+              f"full predict {r['launches']} launches, vs the unsharded full pass max|err| "
+              f"{out_err:.3e} {'ok' if ok else 'FAIL'}; sharded {r['sharded_ms']:.4f} ms, "
+              f"unsharded {r['full_ms']:.4f} ms, partials kernel {r['ms']:.4f} ms")
+        if not ok:
+            raise AssertionError(f"the sharded bank disagrees with the full pass: {prec}")
+        # Routed: each shard's own tiles, K6 partials.
+        sel_name = SEL_PARTIALS_WRAPPER[prec]
+        _counts(reset=True)
+        out = routed(skewed)
+        torch.cuda.synchronize()
+        r["sel_launches"] = _counts()[sel_name]
+        agree = float((out.argmax(1) == exact.argmax(1)).float().mean())
+        pdiff = float((out.exp() - exact.exp()).abs().max())
+        shard = sharded.shards[0][dev].ivf
+        qk, tsel, _ = I._ivf_route(skewed, shard, kernel="euclidean", kernel_params=None,
+                                   n_probe=SHARD_PROBE, group_b=None)
+        sq, scale, mode, qscale = F._prepared_query(qk, shard.prep)
+        sargs = (sq, shard.prep, scale, mode, C, qscale, tsel)
+        sel = getattr(F, sel_name)
+        got, want = sel(*sargs), F._nw_prepared_sel_plain(*sargs, partials=True)
+        torch.cuda.synchronize()
+        ok, sel_err = partials_agree(got, want, prec)
+        b = _sel_bound(tsel, shard.prep.block_s, 64, D, prec, 64, C)
+        r["sel"] = dict(max_abs_err=sel_err, ms=time_ms(lambda: sel(*sargs), flush),
+                        plain_ms=time_ms(lambda: F._nw_prepared_sel_plain(*sargs, partials=True),
+                                         flush), routed_ms=time_ms(lambda: routed(skewed), flush),
+                        agreement=agree, prob_diff=pdiff, **b)
+        print(f"sharded {prec} routed (n_probe {SHARD_PROBE}): {r['sel_launches']} K6 partials "
+              f"launches; top-1 agreement with the exact head {agree:.4f}, max prob diff "
+              f"{pdiff:.2e}; shard 0's list {tuple(tsel.shape)}, union {b['union_rows']} rows, "
+              f"vs plain max|err| {sel_err:.3e} {'ok' if ok else 'FAIL'}; K6 partials "
+              f"{r['sel']['ms']:.4f} ms, plain {r['sel']['plain_ms']:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}); routed predict "
+              f"{r['sel']['routed_ms']:.4f} ms")
+        if not ok or r["sel_launches"] != SHARDS:
+            raise AssertionError(f"K6 partials on a shard's routed list: {prec}")
+        if prec == "f32":
+            host = s[:SHARD_LIVE].cpu().numpy()
+            chunks = [(host[i:i + STREAM_CHUNK], sy[i:min(i + STREAM_CHUNK, SHARD_LIVE)])
+                      for i in range(0, SHARD_LIVE, STREAM_CHUNK)]
+            seconds = []
+            for rep in range(2):
+                _counts(reset=True)
+                t0 = time.perf_counter()
+                out = nw_streaming_log_probs(q, chunks, C, chunk_size=STREAM_CHUNK)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+                if rep == 0:
+                    stream_launches = _counts()["nw_fwd_partials_cuda"]
+            err = float((out - exact).abs().max())
+            ok = stream_launches == len(chunks) and within(out, exact, 2e-4, 2e-4)
+            r["stream"] = {"launches": stream_launches, "chunks": len(chunks), "err": err,
+                           "seconds": seconds}
+            print(f"streaming: {len(chunks)} host chunks of {STREAM_CHUNK} rows, K1 partials "
+                  f"{stream_launches} launches, vs the full pass max|err| {err:.3e} "
+                  f"{'ok' if ok else 'FAIL'}; {seconds[0]:.3f} s, then {seconds[1]:.3f} s")
+            if not ok:
+                raise AssertionError("streaming disagrees with the full pass")
+            del host, chunks
+        del prep, sharded, predict, routed
+        torch.cuda.empty_cache()
+    return res
+
+
+def mesh_serving_phase(datasets) -> dict:
+    """``python -m nwhead_tpu_torch.serve --dataset synthetic_cub --arch
+    resnet18 --batch_size 64 --mesh 1,1 --latency_bench`` through the serve
+    module's functions with an f32 and an int8 head: one prepared partials
+    launch (K2 or K4 ``partials=True``) per request and no finalizing head,
+    the served log-probs against the plain head's partials on the shard,
+    merged, on the features the request used."""
+    import torch
+
+    from nwhead_tpu_torch import serve
+    from nwhead_tpu_torch.ops import fused_nw as F
+    from nwhead_tpu_torch.parallel import merge_partials
+
+    train_ds, val_ds = datasets
+    out = {}
+    for prec, flags in MESH_CONFIGS:
+        args = serve.parse_args(MESH_SERVE_ARGV + flags)
+        _counts(reset=True)
+        net = serve.build_server(args, train_ds)
+        report = serve.latency_bench(net, val_ds, args)
+        torch.cuda.synchronize()
+        counts = _counts()
+        launches, requests = counts[PARTIALS_WRAPPER[prec]], report["batches"] + 3
+        tap = _FeatureTap(net.model.featurizer)
+        x = val_ds.gather(np.arange(args.batch_size))
+        served = net.make_serving_fn()(x)
+        tap.handle.remove()
+        with torch.inference_mode():
+            (shard,) = net.sharded_bank.shards[0].values()
+            params = net.model.head.kernel_params()
+            qq, scale, mode, qscale = F._prepared_query(tap.out, shard.ivf.prep, net.kernel_type,
+                                                        params)
+            plain = merge_partials([F._nw_prepared_plain(qq, shard.ivf.prep, scale, mode,
+                                                         net.n_classes, qscale, partials=True)])
+        torch.cuda.synchronize()
+        err = float((served - plain).abs().max())
+        ok = (launches == requests and counts[HEAD_WRAPPERS[prec]] == 0
+              and tuple(served.shape) == (args.batch_size, net.n_classes)
+              and bool(torch.isfinite(served).all()) and within(served, plain, **HEAD_TOL[prec])
+              and report["mesh"] == {"data": 1, "support": 1, "model": 1})
+        print(f"mesh serving {prec} (--mesh 1,1): bank {net.sharded_bank.capacity} rows in one "
+              f"shard; {launches} partials launches for {requests} requests, finalizing head "
+              f"{counts[HEAD_WRAPPERS[prec]]}; served vs plain max|err| {err:.3e} "
+              f"{'ok' if ok else 'FAIL'}; p50 {report['p50_ms']:.3f} ms, p95 "
+              f"{report['p95_ms']:.3f} ms, {report['queries_per_sec']:.1f} q/s")
+        if not ok:
+            raise AssertionError(f"mesh serving {prec}: launches or served log-probs wrong")
+        out[prec] = {"launches": launches, "report": report, "served_err": err}
+        del net
+        torch.cuda.empty_cache()
+    return out
+
+
+def sharded_entries(kern: dict, served: dict, mesh: dict) -> list:
+    """The ``kernels`` JSON entries of K1 ``partials=True`` (launches: the
+    streaming run; times at a streamed chunk's shape), K2/K4/K5
+    ``partials=True`` (launches: the sharded bank's full predict and the
+    ``--mesh 1,1`` serving runs; times at the CUB shape), K6
+    ``partials=True`` (launches: the routed sharded predict; times on one
+    shard's routed list) and K12 (no main path runs it; SDPA as the
+    library call)."""
+    common = dict(route="cuda", library_ms=None)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+    entries = []
+    for prec, r in kern["nw_fwd_partials"].items():
+        stream = served["f32"]["stream"]
+        entries.append({"name": f"nw_fwd_partials_{prec}", "source": FUSED_SOURCE,
+                        "replaces": REPLACES["nw_fwd"],
+                        "launches": stream["launches"] if prec == "f32" else 0,
+                        "max_abs_err": r["max_abs_err"], **{k: r[k] for k in keys}, **common,
+                        "fin_ms": r["fin_ms"], "head_raw_b64_ms": r["head_raw_b64"]["ms"],
+                        "head_raw_b64_fin_ms": r["head_raw_b64"]["fin_ms"]})
+    for prec, r in kern["nw_prepared_partials"].items():
+        sv = served[prec]
+        runs = mesh[prec]["launches"] if prec in mesh else 0
+        entries.append({"name": f"nw_prepared_partials_{prec}", "source": PREPARED_SOURCE,
+                        "replaces": REPLACES["nw_prepared"], "launches": sv["launches"] + runs,
+                        "max_abs_err": max(r["max_abs_err"], sv["max_abs_err"],
+                                           mesh[prec]["served_err"] if prec in mesh else 0.0),
+                        **{k: r[k] for k in keys}, **common, "fin_ms": r["fin_ms"],
+                        "bank_1m_ms": sv["ms"], "bank_1m_full_ms": sv["full_ms"],
+                        "sharded_1m_ms": sv["sharded_ms"]})
+        sel = sv["sel"]
+        entries.append({"name": f"nw_prepared_sel_partials_{prec}", "source": PREPARED_SOURCE,
+                        "replaces": IVF_REPLACES, "launches": sv["sel_launches"],
+                        "max_abs_err": max(sel["max_abs_err"],
+                                           kern["nw_prepared_sel_partials"][prec]["max_abs_err"]),
+                        **{k: sel[k] for k in keys}, **common,
+                        "union_rows": sel["union_rows"], "routed_ms": sel["routed_ms"]})
+    for prec, r in kern["fused_attention"].items():
+        entries.append({"name": f"fused_attention_{prec}", "route": "cuda",
+                        "source": ATTN_SOURCE, "replaces": K12_REPLACES, "launches": 0,
+                        "max_abs_err": r["max_abs_err"], **{k: r[k] for k in keys},
+                        "library_ms": r["library_ms"]})
     return entries
 
 
@@ -1824,9 +2290,20 @@ def main() -> int:
     vit_train_kern = vit_train_kernel_phase(flush)
     phase_s["ViT training kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    ivf_kern = ivf_kernel_phase(flush)
+    bank = _ivf_bank_features(torch.device("cuda"))
+    torch.cuda.synchronize()
+    print(f"million-row bank: {tuple(bank[0].shape)}, C={IVF_BANK[2]}, drawn in "
+          f"{time.perf_counter() - t0:.1f}s")
+    ivf_kern = ivf_kernel_phase(flush, bank)
     phase_s["K6 kernels"] = time.perf_counter() - t0
-    del flush
+    t0 = time.perf_counter()
+    sharded_kern = sharded_kernel_phase(flush)
+    phase_s["partials and K12 kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sharded_served = sharded_serving_phase(flush, bank)
+    phase_s["sharded serving and streaming"] = time.perf_counter() - t0
+    del flush, bank
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     args = train.Parser().parse_args(TRAIN_ARGV)
     datasets = train.build_datasets(args)
@@ -1837,6 +2314,9 @@ def main() -> int:
     t0 = time.perf_counter()
     ivf_served = ivf_serving_phase(datasets)
     phase_s["IVF serving"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh_served = mesh_serving_phase(datasets)
+    phase_s["--mesh 1,1 serving"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     vit_served = vit_serving_phase(datasets)
     phase_s["ViT serving"] = time.perf_counter() - t0
@@ -1878,6 +2358,7 @@ def main() -> int:
     entries += vit_train_entries(vit_train_kern, vit_tr)
     entries += quant_entries(quant, vit_int8_kern, vit_int8_served, sl)
     entries += ivf_entries(ivf_kern, ivf_served)
+    entries += sharded_entries(sharded_kern, sharded_served, mesh_served)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,9 +5,10 @@ Port of ``nwhead_tpu/__init__.py`` for one NVIDIA Hopper GPU. The JAX package
 Plain tensor code is PyTorch; the fused NW head and the ViT's fused layers
 run on CUDA kernels written for ``sm_90a`` (``csrc/nw_fused.cu``: the raw
 forward K1 and its backward K3; ``csrc/nw_prepared.cu``: the prepared-bank
-forward K2, its int8/int4 modes K4/K5 and its tile-selected pass K6;
-``csrc/vit_attn.cu``: ViT attention K7 and the bf16 attention
-half-block K10; ``csrc/vit_attn_bwd.cu``: K7's backward K8;
+forward K2, its int8/int4 modes K4/K5 and its tile-selected pass K6, each
+also unfinalized (``partials=True``, as is K1); ``csrc/vit_attn.cu``: ViT
+attention K7 (and K12, attention over separate q, k, v, through it) and
+the bf16 attention half-block K10; ``csrc/vit_attn_bwd.cu``: K7's backward K8;
 ``csrc/vit_mlp.cu``: the fused MLP forward K9 and the bf16 MLP half-block
 K11; ``csrc/vit_mlp_bwd.cu``: the K9 backward), built with ``nvcc`` at
 first use and bound with ``ctypes`` (``ops/_cuda.py``).
@@ -20,7 +21,10 @@ K7/K8 and the K9 forward and backward) and serving (``NWNet.precompute`` ->
 featurizer (``--fused_inference``: K7/K9; ``NWNet.fuse_featurizer``, the
 bf16 serving graph: K10/K11), int8/int4 banks (K4/K5) and IVF-pruned
 serving (``ops/ivf.py``, ``--serve_mode ivf``: K6 over the bank tiles a
-batch routes to).
+batch routes to), support-sharded serving (``parallel``: a bank split over
+a mesh's devices, each shard's partials merged exactly; ``NWNet(mesh=...)``,
+``--mesh``) and a host-resident bank streamed in chunks
+(``nw/streaming.py``).
 """
 
 __version__ = "0.1.0"
@@ -72,6 +76,14 @@ def __getattr__(name):
         from nwhead_tpu_torch.ops import fused_nw
 
         return getattr(fused_nw, name)
+    if name == "parallel":
+        import importlib
+
+        return importlib.import_module("nwhead_tpu_torch.parallel")
+    if name in ("make_mesh", "ShardedSupportBank"):
+        from nwhead_tpu_torch import parallel
+
+        return getattr(parallel, name)
     raise AttributeError(name)
 
 
@@ -87,5 +99,8 @@ __all__ = [
     "NWModel",
     "NWHead",
     "load_model",
+    "parallel",
+    "make_mesh",
+    "ShardedSupportBank",
     "__version__",
 ]

@@ -366,8 +366,14 @@ __device__ __forceinline__ float split_sum(const float* __restrict__ x, size_t s
 }
 
 // Forward pass 2: one block per query; exact merge of the splits (as
-// nwhead_tpu/parallel/sharded_bank.py:merge_partials does), then the log.
-// m_final / l_final (may be null) receive the merged softmax statistics.
+// nwhead_tpu/parallel/sharded_bank.py:merge_partials does), then, with
+// kFinalize, the log. m_final / l_final (may be null) receive the merged
+// softmax statistics. Without kFinalize, out receives the merged label sums
+// unfinalized (relative to m_final, as l_final is): the partials a caller
+// merges across support shards (K1/K2/K4/K5/K6 partials=True). The
+// finalizing instantiation compiles as the kernel did before the partials
+// route existed.
+template <bool kFinalize>
 __global__ void __launch_bounds__(kMergeThreads)
 nw_merge_kernel(const float* __restrict__ m_in, const float* __restrict__ l_in,
                 const float* __restrict__ acc_in, int n_splits, int B, int C,
@@ -383,16 +389,47 @@ nw_merge_kernel(const float* __restrict__ m_in, const float* __restrict__ l_in,
   }
   __syncthreads();
   const float l_g = split_sum<true>(l_in + b, B, n_splits, weight);
+  if constexpr (!kFinalize) {
+    // Written before the class loop: written after it (as the finalizing
+    // instantiation does), the partials route ran a few microseconds slower
+    // than the finalizing one on an H100, its l sum left to thread 0 after
+    // the loop.
+    if (threadIdx.x == 0 && m_final != nullptr) {
+      m_final[b] = m_g;
+      l_final[b] = l_g;
+    }
+  }
   const float inv_l = 1.f / fmaxf(l_g, 1e-30f);
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
     const float a = split_sum<true>(acc_in + static_cast<size_t>(b) * C + c,
                                     static_cast<size_t>(B) * C, n_splits, weight);
-    out[static_cast<size_t>(b) * C + c] = logf(a * inv_l + kLogFloor);
+    out[static_cast<size_t>(b) * C + c] = kFinalize ? logf(a * inv_l + kLogFloor) : a;
   }
-  if (threadIdx.x == 0 && m_final != nullptr) {
+  if (kFinalize && threadIdx.x == 0 && m_final != nullptr) {
     m_final[b] = m_g;
     l_final[b] = l_g;
   }
+}
+
+// Forward pass 2 on `stream`: the merged partials unfinalized (partials:
+// out receives acc, m_final / l_final the statistics) or the log-probs.
+inline cudaError_t launch_merge(cudaStream_t stream, bool partials, const void* m_part,
+                                const void* l_part, const void* acc_part, int n_splits, int B,
+                                int C, void* out, void* m_final, void* l_final) {
+  const size_t smem = n_splits * sizeof(float);
+  const float* m_in = static_cast<const float*>(m_part);
+  const float* l_in = static_cast<const float*>(l_part);
+  const float* acc_in = static_cast<const float*>(acc_part);
+  if (partials) {
+    nw_merge_kernel<false><<<B, kMergeThreads, smem, stream>>>(
+        m_in, l_in, acc_in, n_splits, B, C, static_cast<float*>(out),
+        static_cast<float*>(m_final), static_cast<float*>(l_final));
+  } else {
+    nw_merge_kernel<true><<<B, kMergeThreads, smem, stream>>>(
+        m_in, l_in, acc_in, n_splits, B, C, static_cast<float*>(out),
+        static_cast<float*>(m_final), static_cast<float*>(l_final));
+  }
+  return cudaGetLastError();
 }
 
 // Pass 1 then pass 2 of the forward on `stream`; returns cudaGetLastError().
@@ -401,7 +438,7 @@ cudaError_t launch_forward(cudaStream_t stream, const void* q, const void* s, co
                            const void* labels, const void* scale, int l2_mode, int B, int S,
                            int D, int C, int n_splits, int rows_per_split, void* m_part,
                            void* l_part, void* acc_part, void* out, void* m_final,
-                           void* l_final) {
+                           void* l_final, bool partials) {
   const dim3 grid((B + kQueryTile - 1) / kQueryTile, n_splits);
   const size_t smem = partials_smem_bytes(C);
   if (smem > 48 * 1024) {
@@ -415,13 +452,10 @@ cudaError_t launch_forward(cudaStream_t stream, const void* q, const void* s, co
       static_cast<const int*>(labels), static_cast<const float*>(scale), l2_mode, B, S, D, C,
       rows_per_split, static_cast<float*>(m_part), static_cast<float*>(l_part),
       static_cast<float*>(acc_part));
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  nw_merge_kernel<<<B, kMergeThreads, n_splits * sizeof(float), stream>>>(
-      static_cast<const float*>(m_part), static_cast<const float*>(l_part),
-      static_cast<const float*>(acc_part), n_splits, B, C, static_cast<float*>(out),
-      static_cast<float*>(m_final), static_cast<float*>(l_final));
-  return cudaGetLastError();
+  return launch_merge(stream, partials, m_part, l_part, acc_part, n_splits, B, C, out, m_final,
+                      l_final);
 }
 
 // The shape checks both forward entry points share.

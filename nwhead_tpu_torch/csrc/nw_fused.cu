@@ -390,11 +390,13 @@ const char* nw_fused_error_string(int code) {
 
 // K1. q (B, D), s (S, D) in f32 or bf16 (bf16 != 0); labels (S,) int32, -1 =
 // masked; scale (1,) f32; partials m, l (n_splits, B) and acc (n_splits, B, C)
-// f32 scratch; out (B, C), m_final, l_final (B,) f32.
+// f32 scratch; out (B, C), m_final, l_final (B,) f32. partials != 0 (K1
+// partials=True, the per-shard pass of a sharded bank): out receives the
+// merged label sums unfinalized, relative to m_final as l_final is.
 int nw_fused_forward(const void* q, const void* s, const void* labels, const void* scale,
                      void* m_part, void* l_part, void* acc_part, void* out, void* m_final,
                      void* l_final, int B, int S, int D, int C, int l2_mode, int bf16,
-                     int n_splits, int rows_per_split, void* stream) {
+                     int n_splits, int rows_per_split, int partials, void* stream) {
   int device = 0;
   if (!forward_args_ok(B, S, D, C, n_splits, rows_per_split) || m_final == nullptr ||
       l_final == nullptr || !current_device(&device) || C > max_forward_classes(device)) {
@@ -404,10 +406,11 @@ int nw_fused_forward(const void* q, const void* s, const void* labels, const voi
   return static_cast<int>(
       bf16 ? launch_forward<__nv_bfloat16, true>(st, q, s, nullptr, labels, scale, l2_mode, B,
                                                  S, D, C, n_splits, rows_per_split, m_part,
-                                                 l_part, acc_part, out, m_final, l_final)
+                                                 l_part, acc_part, out, m_final, l_final,
+                                                 partials != 0)
            : launch_forward<float, true>(st, q, s, nullptr, labels, scale, l2_mode, B, S, D, C,
                                          n_splits, rows_per_split, m_part, l_part, acc_part,
-                                         out, m_final, l_final));
+                                         out, m_final, l_final, partials != 0));
 }
 
 // K3 dq. u (B, C), r, m, l (B,) f32 from the forward and the upstream

@@ -294,7 +294,8 @@ cudaError_t launch_quant_forward(cudaStream_t stream, const void* q, const void*
                                  const void* s2, const void* labels, const void* qcol,
                                  const void* sscale, int l2_mode, int B, int S, int D, int C,
                                  int n_splits, int rows_per_split, void* m_part, void* l_part,
-                                 void* acc_part, void* out) {
+                                 void* acc_part, void* out, void* m_final, void* l_final,
+                                 bool partials) {
   const dim3 grid((B + kQueryTile - 1) / kQueryTile, n_splits);
   const size_t smem = partials_smem_bytes(C);
   if (smem > 48 * 1024) {
@@ -310,11 +311,8 @@ cudaError_t launch_quant_forward(cudaStream_t stream, const void* q, const void*
       static_cast<float*>(m_part), static_cast<float*>(l_part), static_cast<float*>(acc_part));
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  nw_merge_kernel<<<B, kMergeThreads, n_splits * sizeof(float), stream>>>(
-      static_cast<const float*>(m_part), static_cast<const float*>(l_part),
-      static_cast<const float*>(acc_part), n_splits, B, C, static_cast<float*>(out), nullptr,
-      nullptr);
-  return cudaGetLastError();
+  return launch_merge(stream, partials, m_part, l_part, acc_part, n_splits, B, C, out, m_final,
+                      l_final);
 }
 
 // K6 pass 1: K2's (kQuant false, T float or bf16) or K4/K5's (kQuant true,
@@ -427,7 +425,8 @@ cudaError_t launch_sel_forward(cudaStream_t stream, const void* q, const void* s
                                const void* sscale, const void* tile_sel, int n_sel,
                                int qtiles_per_row, int n_tiles, int block_s, int l2_mode, int B,
                                int D, int C, int n_splits, void* m_part, void* l_part,
-                               void* acc_part, void* out) {
+                               void* acc_part, void* out, void* m_final, void* l_final,
+                               bool partials) {
   const dim3 grid((B + kQueryTile - 1) / kQueryTile, n_splits);
   const size_t smem = partials_smem_bytes(C);
   if (smem > 48 * 1024) {
@@ -440,14 +439,12 @@ cudaError_t launch_sel_forward(cudaStream_t stream, const void* q, const void* s
       static_cast<const T*>(q), s, static_cast<const float*>(s2), static_cast<const int*>(labels),
       static_cast<const float*>(scale), static_cast<const float*>(qcol),
       static_cast<const float*>(sscale), static_cast<const int*>(tile_sel), n_sel,
-      qtiles_per_row, n_tiles, block_s, l2_mode, B, D, C, static_cast<float*>(m_part), static_cast<float*>(l_part), static_cast<float*>(acc_part));
+      qtiles_per_row, n_tiles, block_s, l2_mode, B, D, C, static_cast<float*>(m_part),
+      static_cast<float*>(l_part), static_cast<float*>(acc_part));
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  nw_merge_kernel<<<B, kMergeThreads, n_splits * sizeof(float), stream>>>(
-      static_cast<const float*>(m_part), static_cast<const float*>(l_part),
-      static_cast<const float*>(acc_part), n_splits, B, C, static_cast<float*>(out), nullptr,
-      nullptr);
-  return cudaGetLastError();
+  return launch_merge(stream, partials, m_part, l_part, acc_part, n_splits, B, C, out, m_final,
+                      l_final);
 }
 
 }  // namespace nw
@@ -473,14 +470,18 @@ const char* nw_prepared_error_string(int code) {
 // q (B, D), s (S, D) in f32 or bf16 (bf16 != 0); s2 (S,) f32 (l2 mode only,
 // may be null otherwise); labels (S,) int32, -1 = masked; scale (1,) f32;
 // partials m, l (n_splits, B) and acc (n_splits, B, C) f32 scratch; out (B, C)
-// f32. Launches on `stream`, does not synchronize, returns cudaGetLastError().
+// f32. partials != 0: out receives the merged label sums unfinalized and
+// m_final, l_final (B,) f32 the softmax statistics they are relative to
+// (the partials=True route; an all-masked query gives -FLT_MAX, 0, 0);
+// otherwise out receives the log-probs and m_final, l_final may be null.
+// Launches on `stream`, does not synchronize, returns cudaGetLastError().
 int nw_prepared_forward(const void* q, const void* s, const void* s2,
                         const void* labels, const void* scale, void* m_part,
-                        void* l_part, void* acc_part, void* out, int B, int S,
-                        int D, int C, int l2_mode, int bf16, int n_splits,
-                        int rows_per_split, void* stream) {
+                        void* l_part, void* acc_part, void* out, void* m_final,
+                        void* l_final, int B, int S, int D, int C, int l2_mode, int bf16,
+                        int n_splits, int rows_per_split, int partials, void* stream) {
   if (!nw::forward_args_ok(B, S, D, C, n_splits, rows_per_split) ||
-      (l2_mode && s2 == nullptr)) {
+      (l2_mode && s2 == nullptr) || (partials && (m_final == nullptr || l_final == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int device = 0;
@@ -491,11 +492,11 @@ int nw_prepared_forward(const void* q, const void* s, const void* s2,
   return static_cast<int>(
       bf16 ? nw::launch_forward<__nv_bfloat16, false>(st, q, s, s2, labels, scale, l2_mode, B,
                                                       S, D, C, n_splits, rows_per_split,
-                                                      m_part, l_part, acc_part, out, nullptr,
-                                                      nullptr)
+                                                      m_part, l_part, acc_part, out, m_final,
+                                                      l_final, partials != 0)
            : nw::launch_forward<float, false>(st, q, s, s2, labels, scale, l2_mode, B, S, D, C,
                                               n_splits, rows_per_split, m_part, l_part,
-                                              acc_part, out, nullptr, nullptr));
+                                              acc_part, out, m_final, l_final, partials != 0));
 }
 
 // K4 (int4 == 0) and K5 (int4 != 0): q (B, D) int8 codes, D the padded
@@ -503,15 +504,16 @@ int nw_prepared_forward(const void* q, const void* s, const void* s2,
 // (S, D / 2) packed int4 bytes; s2 (S,) f32 (l2 mode only, may be null
 // otherwise); labels (S,) int32, -1 = masked; qcol (B,) f32 the query's
 // dequant scale (times the similarity scale in dot mode); sscale (S,) f32
-// the rows' scales; partials and out as nw_prepared_forward's. q and s start
-// on 4-byte boundaries. Launches on `stream`, does not synchronize, returns
-// cudaGetLastError().
+// the rows' scales; partials, out, m_final, l_final and partials as
+// nw_prepared_forward's. q and s start on 4-byte boundaries. Launches on
+// `stream`, does not synchronize, returns cudaGetLastError().
 int nw_prepared_quant_forward(const void* q, const void* s, const void* s2, const void* labels,
                               const void* qcol, const void* sscale, void* m_part, void* l_part,
-                              void* acc_part, void* out, int B, int S, int D, int C,
-                              int l2_mode, int int4, int n_splits, int rows_per_split,
-                              void* stream) {
+                              void* acc_part, void* out, void* m_final, void* l_final, int B,
+                              int S, int D, int C, int l2_mode, int int4, int n_splits,
+                              int rows_per_split, int partials, void* stream) {
   if (!nw::forward_args_ok(B, S, D, C, n_splits, rows_per_split) || D % (int4 ? 8 : 4) != 0 ||
+      (partials && (m_final == nullptr || l_final == nullptr)) ||
       (l2_mode && s2 == nullptr) || reinterpret_cast<uintptr_t>(q) % 4 != 0 ||
       reinterpret_cast<uintptr_t>(s) % 4 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -524,10 +526,10 @@ int nw_prepared_quant_forward(const void* q, const void* s, const void* s2, cons
   return static_cast<int>(
       int4 ? nw::launch_quant_forward<true>(st, q, s, s2, labels, qcol, sscale, l2_mode, B, S, D,
                                             C, n_splits, rows_per_split, m_part, l_part,
-                                            acc_part, out)
+                                            acc_part, out, m_final, l_final, partials != 0)
            : nw::launch_quant_forward<false>(st, q, s, s2, labels, qcol, sscale, l2_mode, B, S,
                                              D, C, n_splits, rows_per_split, m_part, l_part,
-                                             acc_part, out));
+                                             acc_part, out, m_final, l_final, partials != 0));
 }
 
 // K6: the pass of nw_prepared_forward (bank 0 f32, 1 bf16) or
@@ -539,16 +541,18 @@ int nw_prepared_quant_forward(const void* q, const void* s, const void* s2, cons
 // sscale (n_tiles * block_s,) f32 with a quantized one, as in those entry
 // points. n_splits splits share the n_sel * block_s / 64 score tiles of
 // slot-order rows in turn; partials m, l (n_splits, B), acc (n_splits, B,
-// C) and out (B, C) as nw_prepared_forward's. Launches on `stream`, does
-// not synchronize, returns cudaGetLastError().
+// C), out (B, C), m_final, l_final and partials as nw_prepared_forward's
+// (empty slots and masked-only tiles leave a query at -FLT_MAX, 0, 0).
+// Launches on `stream`, does not synchronize, returns cudaGetLastError().
 int nw_prepared_sel_forward(const void* q, const void* s, const void* s2, const void* labels,
                             const void* scale, const void* qcol, const void* sscale,
                             const void* tile_sel, void* m_part, void* l_part, void* acc_part,
-                            void* out, int B, int D, int C, int l2_mode, int bank, int n_sel,
-                            int qtiles_per_row, int n_tiles, int block_s, int n_splits,
-                            void* stream) {
+                            void* out, void* m_final, void* l_final, int B, int D, int C,
+                            int l2_mode, int bank, int n_sel, int qtiles_per_row, int n_tiles,
+                            int block_s, int n_splits, int partials, void* stream) {
   const bool quant = bank == 2 || bank == 3;
   if (bank < 0 || bank > 3 || B <= 0 || D <= 0 || C <= 0 || n_sel <= 0 || block_s <= 0 ||
+      (partials && (m_final == nullptr || l_final == nullptr)) ||
       block_s % nw::kSupportTile != 0 || n_tiles <= 0 || qtiles_per_row <= 0 ||
       static_cast<long long>(n_sel) * block_s > INT_MAX ||
       static_cast<long long>(n_tiles) * block_s > INT_MAX || n_splits <= 0 ||
@@ -567,19 +571,23 @@ int nw_prepared_sel_forward(const void* q, const void* s, const void* s2, const 
     case 0:
       return static_cast<int>(nw::launch_sel_forward<float, false, false>(
           st, q, s, s2, labels, scale, qcol, sscale, tile_sel, n_sel, qtiles_per_row, n_tiles,
-          block_s, l2_mode, B, D, C, n_splits, m_part, l_part, acc_part, out));
+          block_s, l2_mode, B, D, C, n_splits, m_part, l_part, acc_part, out, m_final, l_final,
+          partials != 0));
     case 1:
       return static_cast<int>(nw::launch_sel_forward<__nv_bfloat16, false, false>(
           st, q, s, s2, labels, scale, qcol, sscale, tile_sel, n_sel, qtiles_per_row, n_tiles,
-          block_s, l2_mode, B, D, C, n_splits, m_part, l_part, acc_part, out));
+          block_s, l2_mode, B, D, C, n_splits, m_part, l_part, acc_part, out, m_final, l_final,
+          partials != 0));
     case 2:
       return static_cast<int>(nw::launch_sel_forward<int8_t, true, false>(
           st, q, s, s2, labels, scale, qcol, sscale, tile_sel, n_sel, qtiles_per_row, n_tiles,
-          block_s, l2_mode, B, D, C, n_splits, m_part, l_part, acc_part, out));
+          block_s, l2_mode, B, D, C, n_splits, m_part, l_part, acc_part, out, m_final, l_final,
+          partials != 0));
     default:
       return static_cast<int>(nw::launch_sel_forward<int8_t, true, true>(
           st, q, s, s2, labels, scale, qcol, sscale, tile_sel, n_sel, qtiles_per_row, n_tiles,
-          block_s, l2_mode, B, D, C, n_splits, m_part, l_part, acc_part, out));
+          block_s, l2_mode, B, D, C, n_splits, m_part, l_part, acc_part, out, m_final, l_final,
+          partials != 0));
   }
 }
 

@@ -4,7 +4,7 @@ Port of ``nwhead_tpu/models/__init__.py`` for the slices ported so far:
 ``resnet10`` and ``resnet18``; the ViTs ``vit_s14`` (and its reference name
 ``dinov2_vits14``), ``vit_b14``, ``vit_l14`` and ``vit_s16``. The other JAX
 backbones (deeper ResNets, ResNeXt, the CIFAR variants, DenseNet) are later
-slices (ROADMAP.md queue 1, items 5 and 9).
+slices (ROADMAP.md queue 1, items 7 and 8).
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ def load_model(
     if name not in _REGISTRY:
         raise NotImplementedError(
             f"backbone {name!r} is not ported yet (ported: {MODEL_NAMES}; "
-            "the rest are ROADMAP.md queue 1, items 5 and 9)"
+            "the rest are ROADMAP.md queue 1, item 7)"
         )
     unknown = set(kwargs) - set(_VIT_OPTIONS if name in VIT_NAMES else ())
     if unknown:

@@ -14,7 +14,7 @@ two kernels: K10 int8 (``fused_attention_qkv_int8``) and K11 int8
 ``ServingViT``'s.
 
 ResNet/ResNeXt and DenseNet quantization and the ``save_quantized`` /
-``load_quantized`` artifacts are later slices (ROADMAP.md queue 1, item 9).
+``load_quantized`` artifacts are later slices (ROADMAP.md queue 1, item 8).
 Serving only.
 """
 
@@ -212,4 +212,4 @@ def quantize_featurizer(model: nn.Module, calib_images, calib_batch: int = 64) -
         return quantize_vit(model, calib_images, calib_batch)
     raise NotImplementedError(
         f"quantize_featurizer of a {type(model).__name__} (the ResNet/ResNeXt and DenseNet "
-        "int8 PTQ) is not ported yet (ROADMAP.md queue 1, item 9); the ViTs are")
+        "int8 PTQ) is not ported yet (ROADMAP.md queue 1, item 8); the ViTs are")

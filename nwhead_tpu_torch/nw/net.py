@@ -12,9 +12,12 @@ that BatchNorm sees both and gradients reach the support features.
 in mode ``ivf``, over the bank tiles a batch routes to (``ops/ivf.py``, K6;
 ``calibrate_ivf`` sets its knobs). ``fuse_featurizer`` swaps the eval and
 serving featurizer of a ViT for the bf16 fused-serving graph (K10/K11),
-``quantize_featurizer`` for the int8 one (K10/K11 int8). The cluster,
-ensemble, knn and hnsw modes, incremental bank edits and sharding are later
-slices (ROADMAP.md queue 1, items 4, 6, 9 and 2).
+``quantize_featurizer`` for the int8 one (K10/K11 int8). With a ``mesh``
+(``parallel/mesh.py``), ``precompute`` splits the bank over the mesh's
+support axis instead (``parallel.ShardedSupportBank``) and modes ``full``
+and ``ivf`` serve from the shards. The cluster, ensemble, knn and hnsw
+modes and incremental bank edits are later slices (ROADMAP.md queue 1,
+items 4, 6 and 9).
 
 Numerics: on a CUDA device ``NWNet`` turns TF32 off for the process
 (``torch.backends.cudnn.allow_tf32`` and
@@ -44,6 +47,7 @@ from nwhead_tpu_torch.ops.ivf import (
     prepare_support_ivf,
 )
 from nwhead_tpu_torch.ops.kernels import KERNEL_NAMES
+from nwhead_tpu_torch.parallel import Mesh, ShardedSupportBank
 
 
 class NWModel(nn.Module):
@@ -105,7 +109,9 @@ class NWNet:
     package) and the projection's init. ``ivf_n_probe`` (an int, or
     ``"auto"``: calibrated on the first ``ivf`` batch or by
     ``calibrate_ivf``), ``ivf_n_clusters`` and ``ivf_group_b`` are the knobs
-    of mode ``ivf`` (``ops/ivf.py``).
+    of mode ``ivf`` (``ops/ivf.py``). ``mesh`` shards the full bank over its
+    support axis: no single-device prepared bank is built then, and the
+    batch of a full or ivf predict splits over its data axis.
     """
 
     def __init__(
@@ -133,6 +139,7 @@ class NWNet:
         ivf_n_probe: Union[int, str] = 32,
         ivf_n_clusters: Optional[int] = None,
         ivf_group_b: Optional[int] = None,
+        mesh: Optional[Mesh] = None,
     ) -> None:
         self.device = torch.device(device)
         if self.device.type == "cuda":
@@ -148,6 +155,7 @@ class NWNet:
         self.ivf_n_probe = ivf_n_probe
         self.ivf_n_clusters = ivf_n_clusters
         self.ivf_group_b = ivf_group_b
+        self.mesh = mesh
         self.model = NWModel(
             featurizer, n_classes, kernel_type, head_precision, proj_dim=proj_dim,
             feat_dim=feat_dim, use_fused=use_fused, fused_min_support=fused_min_support,
@@ -169,6 +177,9 @@ class NWNet:
         # (full_feat it was built from, IVF bank): rebuilt when precompute
         # replaces the bank features.
         self._ivf_cache = None
+        # The support-sharded bank (with a mesh) and its full-mode predict.
+        self.sharded_bank: Optional[ShardedSupportBank] = None
+        self._sharded_predict = None
         # Eval/serving featurizer set by fuse_featurizer or quantize_featurizer
         # (None: the model's).
         self.serving_featurizer: Optional[nn.Module] = None
@@ -218,9 +229,9 @@ class NWNet:
                 "fuse_featurizer is the ViT bf16 fused-serving path; a "
                 f"{type(self.model.featurizer).__name__} backbone has none (its int8 "
                 "PTQ through quantize_featurizer is not ported yet: ROADMAP.md queue 1, "
-                "item 9)")
+                "item 8)")
         self.serving_featurizer = fuse_vit_serving(self.model.featurizer)
-        self._prepared_full = self._prepared_pos = self._ivf_cache = None
+        self._drop_serving_banks()
 
     def quantize_featurizer(self, calib_images, calib_batch: int = 64) -> None:
         """Swap the eval and serving featurizer for the int8 post-training-
@@ -235,7 +246,7 @@ class NWNet:
 
         self.serving_featurizer = quantize_featurizer(self.model.featurizer, calib_images,
                                                       calib_batch)
-        self._prepared_full = self._prepared_pos = self._ivf_cache = None
+        self._drop_serving_banks()
 
     def _featurize_eval(self, x: torch.Tensor) -> torch.Tensor:
         """Features of the eval and serving paths: the fused or quantized
@@ -276,14 +287,34 @@ class NWNet:
             out.append(self._featurize_eval(x)[:n])
         return torch.cat(out)
 
+    def _drop_serving_banks(self) -> None:
+        """Forget every bank built from the current features (prepared,
+        IVF, sharded): a featurizer swap or a new ``precompute`` replaces
+        them."""
+        self._prepared_full = self._prepared_pos = self._ivf_cache = None
+        self.sharded_bank = self._sharded_predict = None
+
     def _build_serving_banks(self) -> None:
         """Prepare the full bank for the fused head when ``use_fused`` and it
         holds at least ``fused_min_support`` rows, and map each bank row to
-        its prepared row (``prepare_support`` may sort rows by class)."""
+        its prepared row (``prepare_support`` may sort rows by class). With
+        a mesh, build the sharded bank instead (JAX ``net.py:641-670``):
+        prepared at the head's precision with a routing index a shard when
+        the kernel is a fused one, else raw f32."""
         self.full_feat = self.support_eval.full_feat
         self.full_y = self.support_eval.full_y
-        self._prepared_full = self._prepared_pos = self._ivf_cache = None
+        self._drop_serving_banks()
         head = self.model.head
+        if self.mesh is not None:
+            fused_ok = head.use_fused and self.kernel_type in KERNEL_NAMES
+            self.sharded_bank = ShardedSupportBank.build(
+                self.full_feat, self.full_y, self.mesh, self.n_classes,
+                kernel=self.kernel_type, precision=head.precision if fused_ok else "f32",
+                use_prepared=None if fused_ok else False, ivf=fused_ok)
+            # Trained kernel parameters (clip's logit_scale) ride along.
+            self._sharded_predict = self.sharded_bank.predict_fn(
+                kernel_params=head.kernel_params())
+            return
         S = len(self.full_y)
         if not (head.use_fused and S >= head.fused_min_support
                 and self.kernel_type in KERNEL_NAMES):
@@ -324,9 +355,35 @@ class NWNet:
             kernel_params=self.model.head.kernel_params(),
             n_probe=min(n_probe, ivf.cents.shape[0]), group_b=group_b)
 
+    def _sharded_ivf_fn(self):
+        """Under a mesh: the sharded bank's routed predict (each shard routes
+        against its own tiles), built once per bank."""
+        bank = self.sharded_bank
+        if bank is None or not bank.ivf:
+            raise ValueError(
+                "mode='ivf' under a mesh needs the prepared sharded bank with its routing "
+                "index (a fused kernel on the card, or a reduced-precision head); "
+                + ("run precompute() first" if bank is None else
+                   "this bank was built without one"))
+        if self._ivf_cache is not None and self._ivf_cache[0] is bank:
+            return self._ivf_cache[1]
+        if self.ivf_n_probe == "auto":
+            raise ValueError(
+                "ivf_n_probe='auto' is single-device only; under a mesh pick it explicitly "
+                "(calibrate on a single-device build of the same bank — per-shard routed "
+                "recall is a superset of the global route)")
+        fn = bank.predict_fn(kernel_params=self.model.head.kernel_params(),
+                             ivf_n_probe=self.ivf_n_probe)
+        self._ivf_cache = (bank, fn)
+        return fn
+
     def _ivf_predict(self, x) -> torch.Tensor:
         """IVF-pruned predict over the cached IVF bank; with ``ivf_n_probe
-        == "auto"`` this first batch is the calibration sample."""
+        == "auto"`` this first batch is the calibration sample. Under a
+        mesh, the sharded bank's routed predict."""
+        if self.mesh is not None:
+            fn = self._sharded_ivf_fn()
+            return fn(self._featurize_eval(torch.as_tensor(x).to(self.device)))
         ivf = self._ivf_bank()
         qfeat = self._featurize_eval(torch.as_tensor(x).to(self.device))
         if self.ivf_n_probe == "auto":
@@ -373,7 +430,19 @@ class NWNet:
         so a later ``precompute`` reaches existing serving callables."""
         if mode not in ("full", "ivf"):
             raise ValueError(f"make_serving_fn serves modes 'full' and 'ivf', got {mode!r}")
-        if mode == "ivf":
+        if self.mesh is not None:
+            if self._sharded_predict is None:
+                raise ValueError("make_serving_fn under a mesh needs the sharded bank: run "
+                                 "precompute() first")
+            if mode == "ivf":
+                self._sharded_ivf_fn()  # errors come early
+
+            def head(qfeat):
+                # Read at call time, so a later precompute reaches this callable.
+                if mode == "ivf":
+                    return self._sharded_ivf_fn()(qfeat)
+                return self._sharded_predict(qfeat)
+        elif mode == "ivf":
             self._ivf_bank()  # built now: errors come early
             if self.ivf_n_probe == "auto":
                 raise ValueError(
@@ -412,12 +481,15 @@ class NWNet:
         head over an episode drawn from the bank; ``full``: the prepared
         bank (K2, K4 or K5) when there is one, else the head over the whole
         bank; ``ivf``: the IVF-pruned head (K6) over the tiles the batch
-        routes to."""
+        routes to. Under a mesh both go through the sharded bank (its
+        shards' partials, K1 or K2/K4/K5/K6 ``partials=True``)."""
         self.model.eval()
         if mode == "ivf":
             return self._ivf_predict(x)
         support = self.support_eval.get_support(mode)  # raises for modes not ported
         qfeat = self._featurize_eval(torch.as_tensor(x).to(self.device))
+        if mode == "full" and self._sharded_predict is not None:
+            return self._sharded_predict(qfeat)
         if mode == "full" and self._prepared_full is not None:
             return self.model.predict_from_prepared(qfeat, self._prepared_full)
         return self.model.head(qfeat, *support)

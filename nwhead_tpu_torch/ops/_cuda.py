@@ -62,9 +62,9 @@ _API = {
         "vit_mlp_error_string": ([_I32], ctypes.c_char_p),
     },
     "nw_prepared": {
-        "nw_prepared_forward": ([_VP] * 9 + [_I32] * 8 + [_VP], _I32),
-        "nw_prepared_quant_forward": ([_VP] * 10 + [_I32] * 8 + [_VP], _I32),
-        "nw_prepared_sel_forward": ([_VP] * 12 + [_I32] * 10 + [_VP], _I32),
+        "nw_prepared_forward": ([_VP] * 11 + [_I32] * 9 + [_VP], _I32),
+        "nw_prepared_quant_forward": ([_VP] * 12 + [_I32] * 9 + [_VP], _I32),
+        "nw_prepared_sel_forward": ([_VP] * 14 + [_I32] * 11 + [_VP], _I32),
         "nw_prepared_query_tile": ([], _I32),
         "nw_prepared_support_tile": ([], _I32),
         "nw_prepared_smem_bytes": ([_I32], _I32),
@@ -72,7 +72,7 @@ _API = {
         "nw_prepared_error_string": ([_I32], ctypes.c_char_p),
     },
     "nw_fused": {
-        "nw_fused_forward": ([_VP] * 10 + [_I32] * 8 + [_VP], _I32),
+        "nw_fused_forward": ([_VP] * 10 + [_I32] * 9 + [_VP], _I32),
         "nw_fused_bwd_dq": ([_VP] * 11 + [_I32] * 8 + [_VP], _I32),
         "nw_fused_bwd_ds": ([_VP] * 9 + [_I32] * 6 + [_VP], _I32),
         "nw_fused_query_tile": ([], _I32),

@@ -1,5 +1,6 @@
 """Fused ViT attention: multi-head attention off the packed qkv (K7), its
-backward (K8), and the bf16 and int8 attention half-blocks (K10).
+backward (K8), the bf16 and int8 attention half-blocks (K10), and attention
+over separate q, k, v (K12).
 
 Port of ``nwhead_tpu/ops/pallas_attn.py``: ``fused_attention_qkv`` (forward
 and backward), ``fused_attention_block_bf16`` (``quant=False``) and
@@ -19,11 +20,17 @@ Hopper, built and loaded by ``ops/_cuda.py``:
 * K10 int8 ``vit_attention_block_int8`` (``csrc/vit_attn.cu``, TPU
   ``_attn_int8_kernel`` with ``quant=True``): the same with both
   projections quantize -> int8 product -> dequantize + bias (per-tensor
-  activation scales, per-channel weight scales), the attention in bf16.
+  activation scales, per-channel weight scales), the attention in bf16;
+* K12 ``fused_attention`` (TPU ``_attn_kernel``, ``pallas_attn.py:44``,
+  inference only): ``softmax(q k^T * scale) v`` over ``(B, H, N, hd)`` q, k
+  and v. On the card a wrapper over K7: q, k and v are packed into K7's
+  ``(B, N, 3 H hd)`` layout (one copy), K7 runs, and its ``(B, N, H hd)``
+  output is unpacked. The TPU kernel's ``n_valid`` masks only its padding
+  of N to 16 rows; K7 takes any N, so nothing is masked.
 
 Each kernel has a wrapper that counts its launches (``.launches``) and a
 plain PyTorch version of the same function (``_attention_qkv_plain``,
-``_attention_qkv_bwd_plain``, ``_attention_block_bf16_plain``,
+``_attention_qkv_bwd_plain``, ``_attention_plain``, ``_attention_block_bf16_plain``,
 ``_attention_block_int8_plain``, whose integer products are exact) that follows
 the TPU kernel's single pass and its rounding points: probabilities
 normalized in f32, then rounded to v's dtype before the PV product (and
@@ -175,23 +182,87 @@ def _launch(lib, fn: str, *args) -> None:
         raise RuntimeError(f"{fn} kernel launch failed: {lib.vit_attn_error_string(rc).decode()}")
 
 
-def attention_qkv_cuda(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
-    """Launch K7 (``csrc/vit_attn.cu``) on the current stream: ``(B, N,
-    3D)`` f32 or bf16 -> ``(B, N, D)``. Raises on anything the kernel does
-    not take."""
-    B, N, hd = _qkv_shape("attention_qkv_cuda", qkv, num_heads)
-    device = _check_cuda("attention_qkv_cuda", [("qkv", qkv, qkv.dtype)])
+def _attention_launch(name: str, qkv: torch.Tensor, num_heads: int,
+                      scale: float) -> torch.Tensor:
+    """Check K7's operand and launch it on the current stream."""
+    B, N, hd = _qkv_shape(name, qkv, num_heads)
+    device = _check_cuda(name, [("qkv", qkv, qkv.dtype)])
     out = torch.empty((B, N, num_heads * hd), dtype=qkv.dtype, device=device)
     lib = _cuda.load_library("vit_attn")
     with torch.cuda.device(device):
         _launch(lib, "vit_attention_forward", qkv.data_ptr(), out.data_ptr(), B, N, num_heads,
                 hd, float(scale), int(qkv.dtype == _BF16),
                 torch.cuda.current_stream(device).cuda_stream)
+    return out
+
+
+def attention_qkv_cuda(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+    """Launch K7 (``csrc/vit_attn.cu``) on the current stream: ``(B, N,
+    3D)`` f32 or bf16 -> ``(B, N, D)``. Raises on anything the kernel does
+    not take."""
+    out = _attention_launch("attention_qkv_cuda", qkv, num_heads, scale)
     attention_qkv_cuda.launches += 1
     return out
 
 
 attention_qkv_cuda.launches = 0
+
+
+def _pack_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``(B, H, N, hd)`` q, k, v -> K7's ``(B, N, 3 H hd)`` layout, one copy."""
+    B, H, N, hd = q.shape
+    return torch.stack((q, k, v), dim=2).permute(0, 3, 2, 1, 4).reshape(B, N, 3 * H * hd)
+
+
+def _unpack_heads(out: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """K7's ``(B, N, H hd)`` output -> ``(B, H, N, hd)``."""
+    B, N, D = out.shape
+    return out.reshape(B, N, num_heads, D // num_heads).permute(0, 2, 1, 3).contiguous()
+
+
+def _check_qkv_split(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}: "
+                         "need three (B, H, N, hd) arrays of one shape")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{name}: q, k and v need one dtype, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+
+
+def _attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     scale: float) -> torch.Tensor:
+    """K12's function in plain PyTorch: K7's plain version on the packed
+    q, k, v (f32 scores and softmax, probabilities rounded to v's dtype, the
+    PV product summed in f32), ``(B, H, N, hd)`` in q's dtype."""
+    _check_qkv_split("_attention_plain", q, k, v)
+    return _unpack_heads(_attention_qkv_plain(_pack_qkv(q, k, v), q.shape[1], scale), q.shape[1])
+
+
+def fused_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         scale: float) -> torch.Tensor:
+    """Launch K12 as K7 (``csrc/vit_attn.cu``) on the packed q, k, v:
+    ``(B, H, N, hd)`` f32 or bf16, hd in {32, 64, 128}; returns the same
+    shape in q's dtype."""
+    _check_qkv_split("fused_attention_cuda", q, k, v)
+    out = _attention_launch("fused_attention_cuda", _pack_qkv(q, k, v), q.shape[1], scale)
+    fused_attention_cuda.launches += 1
+    return _unpack_heads(out, q.shape[1])
+
+
+fused_attention_cuda.launches = 0
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Self-attention ``softmax(q k^T * scale) v`` (K12, the JAX package's
+    ``fused_attention``): q, k, v ``(B, H, N, hd)``, the result the same
+    shape in q's dtype; ``scale`` defaults to ``1 / sqrt(hd)``. Inference
+    only: nothing is recorded for autograd."""
+    sc = float(scale) if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    with torch.no_grad():
+        if q.device.type == "cpu":
+            return _attention_plain(q, k, v, sc)
+        return fused_attention_cuda(q, k, v, sc)
 
 
 def attention_qkv_bwd_cuda(qkv: torch.Tensor, dout: torch.Tensor, num_heads: int,

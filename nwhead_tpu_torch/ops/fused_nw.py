@@ -24,6 +24,18 @@ for Hopper, built and loaded by ``ops/_cuda.py``:
   bank tiles a list names (IVF-pruned serving, ``ops/ivf.py``), one list for
   the batch or one per query group.
 
+K1 and K2/K4/K5/K6 also run unfinalized (TPU ``partials=True``:
+``nw_fused_partials``, ``nw_fused_from_prepared(partials=True)``): the same
+pass 1, then a merge of the splits that stops before the log and returns
+``(m, l, acc)``, which a support-sharded bank (``parallel/sharded_bank.py``)
+or a host-streamed one (``nw/streaming.py``) merges across its shards or
+chunks. Each has its own wrapper and launch count (``nw_fwd_partials_cuda``,
+``nw_prepared_partials_cuda``, ``nw_prepared_partials_int8_cuda``,
+``nw_prepared_partials_int4_cuda``, ``nw_prepared_sel_partials_cuda``,
+``nw_prepared_sel_partials_quant_cuda``) and plain version
+(``_nw_fwd_partials_plain``, ``_nw_prepared_plain(partials=True)``,
+``_nw_prepared_sel_plain(partials=True)``).
+
 ``prepare_support`` normalizes the bank once for its kernel, zeroes masked
 rows, quantizes it per row for ``int8``/``int4`` (symmetric, ``amax/127``
 or ``amax/7``, codes ``round(x / scale)``), precomputes the self-norms
@@ -47,7 +59,6 @@ gather), the class window, 128-lane padding of D (an int8 bank pads D to a
 multiple of 4, an int4 bank to a multiple of 8, so that rows and packed
 halves are whole 32-bit words), the ones-vector column sum,
 ``meta_stream``, the query pre-doubling and the int4 unpack variants.
-Partial outputs (K1 and K6 ``partials=True``) are a later slice.
 """
 
 from __future__ import annotations
@@ -305,8 +316,10 @@ def _scores_plain(qf, sf, s2, labels, scale, mode):
     return torch.where((labels >= 0)[None, :], score, _NEG_INF), dist
 
 
-def _softmax_pass_plain(score, labels, n_classes):
-    """``(out, m, l)`` of the online-softmax pass, computed at once."""
+def _softmax_partials_plain(score, labels, n_classes):
+    """``(m, l, acc)`` of the online-softmax pass, computed at once: the
+    largest score (``_NEG_INF`` where every row is masked), and the
+    normalizer and label sums relative to it."""
     m = torch.max(score, dim=1, keepdim=True).values
     m_safe = torch.where(m > _NEG_INF / 2, m, 0.0)
     p = torch.where(score > _NEG_INF / 2, torch.exp(score - m_safe), 0.0)
@@ -315,8 +328,13 @@ def _softmax_pass_plain(score, labels, n_classes):
     cls = torch.where(labels >= 0, labels, n_classes).long()
     acc = torch.zeros(score.shape[0], n_classes + 1, dtype=score.dtype,
                       device=score.device).index_add_(1, cls, p)
-    out = torch.log(acc[:, :n_classes] / torch.clamp(l, min=1e-30) + LOG_FLOOR)
-    return out, m, l
+    return m, l, acc[:, :n_classes]
+
+
+def _softmax_pass_plain(score, labels, n_classes):
+    """``(out, m, l)`` of the online-softmax pass, computed at once."""
+    m, l, acc = _softmax_partials_plain(score, labels, n_classes)
+    return torch.log(acc / torch.clamp(l, min=1e-30) + LOG_FLOOR), m, l
 
 
 def _quant_scores_plain(q8, qscale, prep, scale, mode):
@@ -340,17 +358,20 @@ def _quant_scores_plain(q8, qscale, prep, scale, mode):
 
 def _nw_prepared_plain(
     q: torch.Tensor, prep: PreparedSupport, scale: torch.Tensor, mode: str,
-    n_classes: int, qscale: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    n_classes: int, qscale: Optional[torch.Tensor] = None, partials: bool = False,
+):
     """K2's function in plain PyTorch, at full f32: ``q`` already in the
     bank's dtype, products and softmax state in f32. For an int8/int4 bank
     (K4/K5) ``q`` is the int8 query and ``qscale`` its scales
-    (``_prepared_query``)."""
+    (``_prepared_query``). ``partials=True``: ``(m (B, 1), l (B, 1), acc
+    (B, C))`` unfinalized instead of the log-probs."""
     if prep.sscale is not None:
         score = _quant_scores_plain(q, qscale, prep, scale, mode)
     else:
         score, _ = _scores_plain(q.to(torch.float32), prep.s.to(torch.float32), prep.s2,
                                  prep.labels, scale, mode)
+    if partials:
+        return _softmax_partials_plain(score, prep.labels, n_classes)
     return _softmax_pass_plain(score, prep.labels, n_classes)[0]
 
 
@@ -373,11 +394,14 @@ def _sel_rows(tile_sel: torch.Tensor, B: int) -> Tuple[torch.Tensor, int]:
 def _nw_prepared_sel_plain(
     q: torch.Tensor, prep: PreparedSupport, scale: torch.Tensor, mode: str,
     n_classes: int, qscale: Optional[torch.Tensor], tile_sel: torch.Tensor,
-) -> torch.Tensor:
+    partials: bool = False,
+):
     """K6's function in plain PyTorch: for each query group,
     ``_nw_prepared_plain`` over the rows of its selected tiles gathered in
     slot order. A ``-1`` slot, or an id outside the bank, adds only masked
-    rows. Shapes are static: nothing is read back to the host."""
+    rows. Shapes are static: nothing is read back to the host.
+    ``partials=True`` returns ``(m, l, acc)`` as ``_nw_prepared_plain``
+    does."""
     if prep.block_s is None:
         raise ValueError("tile_sel needs a bank prepared with block_s")
     sel, group_b = _sel_rows(tile_sel, q.shape[0])
@@ -395,7 +419,9 @@ def _nw_prepared_sel_plain(
             sscale=None if prep.sscale is None else prep.sscale[rows])
         part = slice(g * group_b, (g + 1) * group_b)
         outs.append(_nw_prepared_plain(q[part], sub, scale, mode, n_classes,
-                                       None if qscale is None else qscale[part]))
+                                       None if qscale is None else qscale[part], partials))
+    if partials:
+        return tuple(torch.cat(parts) for parts in zip(*outs))
     return torch.cat(outs)
 
 
@@ -424,6 +450,17 @@ def _nw_fwd_plain(
     sf, s2 = _raw_support_plain(s, labels)
     score, _ = _scores_plain(_plain_float(q), sf, s2, labels, scale, mode)
     return _softmax_pass_plain(score, labels, n_classes)
+
+
+def _nw_fwd_partials_plain(
+    q: torch.Tensor, s: torch.Tensor, labels: torch.Tensor, scale: torch.Tensor,
+    mode: str, n_classes: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1 ``partials=True`` in plain PyTorch: ``(m (B, 1), l (B, 1), acc (B,
+    C))`` unfinalized, from the inputs of ``_nw_fwd_plain``."""
+    sf, s2 = _raw_support_plain(s, labels)
+    score, _ = _scores_plain(_plain_float(q), sf, s2, labels, scale, mode)
+    return _softmax_partials_plain(score, labels, n_classes)
 
 
 def _bwd_pair_weights_plain(q, s, labels, u, r, m, l, scale, mode):
@@ -539,21 +576,32 @@ def _check_prepared(name: str, q: torch.Tensor, prep: PreparedSupport, scale: to
     return lib, qcol
 
 
-def _partials(n_splits: int, B: int, n_classes: int, device):
-    """Pass 1's scratch (m, l, acc per split) and the output ``(B, C)``:
-    the four tensors and their pointers."""
+def _partials(n_splits: int, B: int, n_classes: int, device, partials: bool = False):
+    """Pass 1's scratch (m, l, acc per split), the output ``(B, C)`` and,
+    with ``partials``, the merged statistics ``m, l (B,)``: the six tensors
+    (the last two None without ``partials``) and their pointers."""
     f32 = dict(dtype=torch.float32, device=device)
+    stats = (torch.empty(B, **f32), torch.empty(B, **f32)) if partials else (None, None)
     bufs = (torch.empty((n_splits, B), **f32), torch.empty((n_splits, B), **f32),
-            torch.empty((n_splits, B, n_classes), **f32), torch.empty((B, n_classes), **f32))
-    return bufs, tuple(t.data_ptr() for t in bufs)
+            torch.empty((n_splits, B, n_classes), **f32), torch.empty((B, n_classes), **f32),
+            *stats)
+    return bufs, tuple(None if t is None else t.data_ptr() for t in bufs)
+
+
+def _launch_result(bufs, partials: bool):
+    """A forward launch's result from ``_partials``' tensors: the log-probs,
+    or with ``partials`` ``(m (B, 1), l (B, 1), acc (B, C))``."""
+    out, m, l = bufs[3:]
+    return (m[:, None], l[:, None], out) if partials else out
 
 
 def _prepared_launch(name: str, q: torch.Tensor, prep: PreparedSupport, scale: torch.Tensor,
                      mode: str, n_classes: int, qscale: Optional[torch.Tensor],
-                     bank_dtypes, query_dtype) -> torch.Tensor:
+                     bank_dtypes, query_dtype, partials: bool = False):
     """Check a prepared-bank kernel's operands and launch it on the current
     stream: pass 1 writes per-split partials (m, l, acc), pass 2 merges them
-    and takes the log. ``qscale`` goes with an int8/int4 bank only."""
+    and takes the log, or with ``partials`` returns the merged ``(m, l,
+    acc)`` unfinalized. ``qscale`` goes with an int8/int4 bank only."""
     lib, qcol = _check_prepared(name, q, prep, scale, mode, n_classes, qscale, bank_dtypes,
                                 query_dtype)
     s, labels, s2 = prep.s, prep.labels, prep.s2
@@ -563,24 +611,24 @@ def _prepared_launch(name: str, q: torch.Tensor, prep: PreparedSupport, scale: t
     n_tiles_q = math.ceil(B / lib.nw_prepared_query_tile())
     n_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     rows, n_splits = _split_rows(S, n_tiles_q, n_sms, lib.nw_prepared_support_tile())
-    (*_, out), partials = _partials(n_splits, B, n_classes, q.device)
+    bufs, ptrs = _partials(n_splits, B, n_classes, q.device, partials)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         if quant:
             rc = lib.nw_prepared_quant_forward(
                 q.data_ptr(), s.data_ptr(), s2.data_ptr() if l2 else None, labels.data_ptr(),
-                qcol.data_ptr(), prep.sscale.data_ptr(), *partials, B, S, D, n_classes,
-                int(l2), int(s.dtype == torch.uint8), n_splits, rows, stream)
+                qcol.data_ptr(), prep.sscale.data_ptr(), *ptrs, B, S, D, n_classes,
+                int(l2), int(s.dtype == torch.uint8), n_splits, rows, int(partials), stream)
         else:
             rc = lib.nw_prepared_forward(
                 q.data_ptr(), s.data_ptr(), s2.data_ptr() if l2 else None,
-                labels.data_ptr(), scale.data_ptr(), *partials, B, S, D, n_classes, int(l2),
-                int(s.dtype == torch.bfloat16), n_splits, rows, stream)
+                labels.data_ptr(), scale.data_ptr(), *ptrs, B, S, D, n_classes, int(l2),
+                int(s.dtype == torch.bfloat16), n_splits, rows, int(partials), stream)
     if rc != 0:
         raise RuntimeError(
             f"{name} kernel launch failed: {lib.nw_prepared_error_string(rc).decode()}"
         )
-    return out
+    return _launch_result(bufs, partials)
 
 
 def nw_prepared_cuda(
@@ -628,6 +676,52 @@ def nw_prepared_int4_cuda(
 
 nw_prepared_int4_cuda.launches = 0
 
+
+def nw_prepared_partials_cuda(
+    q: torch.Tensor, prep: PreparedSupport, scale: torch.Tensor, mode: str,
+    n_classes: int, qscale: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2 ``partials=True`` (``csrc/nw_prepared.cu``, the unfinalized
+    merge): ``(m (B, 1), l (B, 1), acc (B, C))`` over an f32 or bf16 bank,
+    ``q`` in the bank's dtype."""
+    out = _prepared_launch("nw_prepared_partials_cuda", q, prep, scale, mode, n_classes,
+                           qscale, (torch.float32, torch.bfloat16), prep.s.dtype, True)
+    nw_prepared_partials_cuda.launches += 1
+    return out
+
+
+nw_prepared_partials_cuda.launches = 0
+
+
+def nw_prepared_partials_int8_cuda(
+    q: torch.Tensor, prep: PreparedSupport, scale: torch.Tensor, mode: str,
+    n_classes: int, qscale: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4 ``partials=True``: ``(m, l, acc)`` over an int8 bank, ``q`` the
+    int8 query and ``qscale`` its scales."""
+    out = _prepared_launch("nw_prepared_partials_int8_cuda", q, prep, scale, mode, n_classes,
+                           qscale, (torch.int8,), torch.int8, True)
+    nw_prepared_partials_int8_cuda.launches += 1
+    return out
+
+
+nw_prepared_partials_int8_cuda.launches = 0
+
+
+def nw_prepared_partials_int4_cuda(
+    q: torch.Tensor, prep: PreparedSupport, scale: torch.Tensor, mode: str,
+    n_classes: int, qscale: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K5 ``partials=True``: ``(m, l, acc)`` over an int4 bank, ``q`` the
+    int8 query and ``qscale`` its scales."""
+    out = _prepared_launch("nw_prepared_partials_int4_cuda", q, prep, scale, mode, n_classes,
+                           qscale, (torch.uint8,), torch.int8, True)
+    nw_prepared_partials_int4_cuda.launches += 1
+    return out
+
+
+nw_prepared_partials_int4_cuda.launches = 0
+
 # Bank dtype -> the ``bank`` code of nw_prepared_sel_forward.
 _SEL_BANK = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.uint8: 3}
 
@@ -635,14 +729,14 @@ _SEL_BANK = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.uint8: 3}
 def _prepared_sel_launch(name: str, q: torch.Tensor, prep: PreparedSupport,
                          scale: torch.Tensor, mode: str, n_classes: int,
                          qscale: Optional[torch.Tensor], tile_sel: torch.Tensor, bank_dtypes,
-                         query_dtype) -> torch.Tensor:
+                         query_dtype, partials: bool = False):
     """Check K6's operands and launch it on the current stream. A 16-query
     tile of the kernel reads one ``tile_sel`` row, so under grouped routing
     each group is padded to whole query tiles with copies of its last query
     (dropped from the output). The split count comes from ``n_sel``, a
     static shape, as K2's comes from the bank's rows; the splits take the
     score tiles in turn, so the union spreads over all of them. Nothing is
-    read back from the card."""
+    read back from the card. ``partials`` as in ``_prepared_launch``."""
     lib, qcol = _check_prepared(name, q, prep, scale, mode, n_classes, qscale, bank_dtypes,
                                 query_dtype)
     tile = lib.nw_prepared_support_tile()
@@ -665,22 +759,26 @@ def _prepared_sel_launch(name: str, q: torch.Tensor, prep: PreparedSupport,
     qtiles_per_row = group_pad // qt if n_groups > 1 else n_query_tiles
     n_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     _, n_splits = _split_rows(n_sel * prep.block_s, n_query_tiles, n_sms, tile)
-    (*_, out), partials = _partials(n_splits, B, n_classes, q.device)
+    bufs, ptrs = _partials(n_splits, B, n_classes, q.device, partials)
     l2 = mode == "l2"
     with torch.cuda.device(q.device):
         rc = lib.nw_prepared_sel_forward(
             q.data_ptr(), prep.s.data_ptr(), prep.s2.data_ptr() if l2 else None,
             prep.labels.data_ptr(), scale.data_ptr(), None if qcol is None else qcol.data_ptr(),
-            None if qcol is None else prep.sscale.data_ptr(), sel.data_ptr(), *partials, B, D,
+            None if qcol is None else prep.sscale.data_ptr(), sel.data_ptr(), *ptrs, B, D,
             n_classes, int(l2), _SEL_BANK[prep.s.dtype], n_sel, qtiles_per_row,
-            prep.labels.shape[0] // prep.block_s, prep.block_s, n_splits,
+            prep.labels.shape[0] // prep.block_s, prep.block_s, n_splits, int(partials),
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"{name} kernel launch failed: {lib.nw_prepared_error_string(rc).decode()}")
+    result = _launch_result(bufs, partials)
     if group_pad != group_b:
-        out = out.reshape(n_groups, group_pad, n_classes)[:, :group_b].reshape(-1, n_classes)
-    return out
+        def unpad(t):
+            return t.reshape(n_groups, group_pad, -1)[:, :group_b].reshape(n_groups * group_b, -1)
+
+        result = tuple(map(unpad, result)) if partials else unpad(result)
+    return result
 
 
 def nw_prepared_sel_cuda(
@@ -714,6 +812,39 @@ def nw_prepared_sel_quant_cuda(
 nw_prepared_sel_quant_cuda.launches = 0
 
 
+def nw_prepared_sel_partials_cuda(
+    q: torch.Tensor, prep: PreparedSupport, scale: torch.Tensor, mode: str,
+    n_classes: int, qscale: Optional[torch.Tensor], tile_sel: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K6 ``partials=True`` over the tiles ``tile_sel`` names of an f32 or
+    bf16 bank: ``(m, l, acc)`` unfinalized; a query whose tiles hold no
+    valid row gets ``(_NEG_INF, 0, 0)``."""
+    out = _prepared_sel_launch("nw_prepared_sel_partials_cuda", q, prep, scale, mode,
+                               n_classes, qscale, tile_sel, (torch.float32, torch.bfloat16),
+                               prep.s.dtype, True)
+    nw_prepared_sel_partials_cuda.launches += 1
+    return out
+
+
+nw_prepared_sel_partials_cuda.launches = 0
+
+
+def nw_prepared_sel_partials_quant_cuda(
+    q: torch.Tensor, prep: PreparedSupport, scale: torch.Tensor, mode: str,
+    n_classes: int, qscale: Optional[torch.Tensor], tile_sel: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K6 ``partials=True`` over the tiles ``tile_sel`` names of an int8 or
+    int4 bank: ``q`` the int8 query and ``qscale`` its scales."""
+    out = _prepared_sel_launch("nw_prepared_sel_partials_quant_cuda", q, prep, scale, mode,
+                               n_classes, qscale, tile_sel, (torch.int8, torch.uint8),
+                               torch.int8, True)
+    nw_prepared_sel_partials_quant_cuda.launches += 1
+    return out
+
+
+nw_prepared_sel_partials_quant_cuda.launches = 0
+
+
 def _check_raw(name: str, q: torch.Tensor, s: torch.Tensor, tensors) -> None:
     """The checks every raw-path wrapper makes before its launch."""
     if q.device.type != "cuda":
@@ -742,15 +873,13 @@ def _fused_library(q: torch.Tensor):
     return lib, q.device.index or 0, n_sms
 
 
-def nw_fwd_cuda(
-    q: torch.Tensor, s: torch.Tensor, labels: torch.Tensor, scale: torch.Tensor,
-    mode: str, n_classes: int,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch K1 (``csrc/nw_fused.cu``) on the current stream: pass 1 over
+def _fwd_launch(name: str, q: torch.Tensor, s: torch.Tensor, labels: torch.Tensor,
+                scale: torch.Tensor, mode: str, n_classes: int, partials: bool):
+    """Check K1's operands and launch it on the current stream: pass 1 over
     (query tiles x support splits) writes partials, pass 2 merges them into
-    ``out (B, C)`` and the statistics ``m, l (B, 1)``."""
-    _check_raw("nw_fwd_cuda", q, s, [("labels", labels, torch.int32),
-                                     ("scale", scale, torch.float32)])
+    ``(out (B, C), m (B, 1), l (B, 1))``, ``out`` the log-probs, or with
+    ``partials`` the label sums unfinalized."""
+    _check_raw(name, q, s, [("labels", labels, torch.int32), ("scale", scale, torch.float32)])
     lib, dev, n_sms = _fused_library(q)
     if n_classes < 1 or n_classes > lib.nw_fused_max_classes(dev):
         raise ValueError(f"n_classes={n_classes} is beyond what the kernel's "
@@ -767,12 +896,36 @@ def nw_fwd_cuda(
                 scale.data_ptr(), m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
                 out.data_ptr(), m.data_ptr(), l.data_ptr(), B, S, D, n_classes,
                 int(mode == "l2"), int(s.dtype == torch.bfloat16), n_splits, rows,
-                torch.cuda.current_stream(q.device).cuda_stream)
-    nw_fwd_cuda.launches += 1
+                int(partials), torch.cuda.current_stream(q.device).cuda_stream)
     return out, m[:, None], l[:, None]
 
 
+def nw_fwd_cuda(
+    q: torch.Tensor, s: torch.Tensor, labels: torch.Tensor, scale: torch.Tensor,
+    mode: str, n_classes: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch K1 (``csrc/nw_fused.cu``): ``(out (B, C), m (B, 1), l (B,
+    1))``, the log-probs and the softmax statistics the backward needs."""
+    out = _fwd_launch("nw_fwd_cuda", q, s, labels, scale, mode, n_classes, False)
+    nw_fwd_cuda.launches += 1
+    return out
+
+
 nw_fwd_cuda.launches = 0
+
+
+def nw_fwd_partials_cuda(
+    q: torch.Tensor, s: torch.Tensor, labels: torch.Tensor, scale: torch.Tensor,
+    mode: str, n_classes: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch K1 ``partials=True`` (``csrc/nw_fused.cu``, the unfinalized
+    merge): ``(m (B, 1), l (B, 1), acc (B, C))`` from raw features."""
+    acc, m, l = _fwd_launch("nw_fwd_partials_cuda", q, s, labels, scale, mode, n_classes, True)
+    nw_fwd_partials_cuda.launches += 1
+    return m, l, acc
+
+
+nw_fwd_partials_cuda.launches = 0
 
 
 def _bwd_tensors(q, u, r, m, l, n_classes):
@@ -944,7 +1097,8 @@ def nw_fused_from_prepared(
     kernel: str = "euclidean",
     kernel_params: Optional[Dict[str, Any]] = None,
     tile_sel: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    partials: bool = False,
+):
     """Fused NW log-probs ``(B, C)`` over a ``prepare_support`` bank.
     Inference only. The query is normalized in f32, then cast to the
     bank's dtype, or quantized for an int8/int4 bank; the bank's dtype
@@ -953,15 +1107,67 @@ def nw_fused_from_prepared(
     ``tile_sel`` (a bank prepared with ``block_s``) streams only the listed
     tiles (K6; ``-1`` = an empty slot): int32 ``(n_sel,)`` for the whole
     batch, or ``(n_groups, n_sel)`` with one row per ``B / n_groups``
-    consecutive queries (grouped routing, ``ops/ivf.py``)."""
+    consecutive queries (grouped routing, ``ops/ivf.py``).
+
+    ``partials=True`` returns the online softmax's statistics ``(m (B, 1),
+    l (B, 1), acc (B, C))`` unfinalized, for a merge across support shards
+    (``parallel/sharded_bank.py``): ``m`` the largest score, ``l`` and
+    ``acc`` relative to it; a query that meets no valid row gets
+    ``(_NEG_INF, 0, 0)``."""
     q, scale, mode, qscale = _prepared_query(qfeat, prepared, kernel, kernel_params)
     if tile_sel is not None:
         if q.device.type == "cpu":
-            return _nw_prepared_sel_plain(q, prepared, scale, mode, n_classes, qscale, tile_sel)
-        wrapper = nw_prepared_sel_cuda if qscale is None else nw_prepared_sel_quant_cuda
+            return _nw_prepared_sel_plain(q, prepared, scale, mode, n_classes, qscale, tile_sel,
+                                          partials)
+        if partials:
+            wrapper = (nw_prepared_sel_partials_cuda if qscale is None
+                       else nw_prepared_sel_partials_quant_cuda)
+        else:
+            wrapper = nw_prepared_sel_cuda if qscale is None else nw_prepared_sel_quant_cuda
         return wrapper(q, prepared, scale, mode, n_classes, qscale, tile_sel)
     if q.device.type == "cpu":
-        return _nw_prepared_plain(q, prepared, scale, mode, n_classes, qscale)
-    wrapper = {torch.int8: nw_prepared_int8_cuda,
-               torch.uint8: nw_prepared_int4_cuda}.get(prepared.s.dtype, nw_prepared_cuda)
+        return _nw_prepared_plain(q, prepared, scale, mode, n_classes, qscale, partials)
+    if partials:
+        wrapper = {torch.int8: nw_prepared_partials_int8_cuda,
+                   torch.uint8: nw_prepared_partials_int4_cuda}.get(prepared.s.dtype,
+                                                                    nw_prepared_partials_cuda)
+    else:
+        wrapper = {torch.int8: nw_prepared_int8_cuda,
+                   torch.uint8: nw_prepared_int4_cuda}.get(prepared.s.dtype, nw_prepared_cuda)
     return wrapper(q, prepared, scale, mode, n_classes, qscale)
+
+
+@torch.no_grad()
+def nw_fused_partials(
+    qfeat: torch.Tensor,
+    sfeat: torch.Tensor,
+    sy,
+    n_classes: int,
+    *,
+    kernel: str = "euclidean",
+    kernel_params: Optional[Dict[str, Any]] = None,
+    support_mask: Optional[torch.Tensor] = None,
+    precision: str = "f32",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The raw fused pass unfinalized (K1 ``partials=True``, the JAX
+    package's ``nw_fused_partials``): ``(m (B, 1), l (B, 1), acc (B, C))``
+    of one support shard, as ``nw_fused_from_prepared(partials=True)``
+    gives them. Masked rows (``support_mask == 0``) may hold anything and
+    score ``_NEG_INF``. ``precision='bf16'`` casts both feature sets before
+    the kernel normalization. Inference only: nothing is recorded for
+    autograd."""
+    if precision not in _PRECISIONS:
+        raise ValueError(f"nw_fused_partials runs at f32 or bf16, got {precision!r}")
+    labels = torch.as_tensor(sy, device=sfeat.device).to(torch.int32)
+    if support_mask is not None:
+        valid = torch.as_tensor(support_mask, device=sfeat.device) > 0
+        labels = torch.where(valid, labels, torch.full_like(labels, -1))
+        sfeat = torch.where(valid[:, None], sfeat, torch.zeros((), dtype=sfeat.dtype,
+                                                               device=sfeat.device))
+    qfeat, sfeat = qfeat.to(_PRECISIONS[precision]), sfeat.to(_PRECISIONS[precision])
+    mode, scale, qn, sn = _resolve_mode(kernel, kernel_params or {}, qfeat, sfeat)
+    args = (qn.to(sn.dtype).contiguous(), sn.contiguous(), labels.contiguous(), scale, mode,
+            n_classes)
+    if qn.device.type == "cpu":
+        return _nw_fwd_partials_plain(*args)
+    return nw_fwd_partials_cuda(*args)

@@ -278,7 +278,8 @@ def nw_fused_ivf_log_probs(
     kernel_params: Optional[Dict[str, Any]] = None,
     n_probe: int = 32,
     group_b: Optional[int] = None,
-) -> torch.Tensor:
+    partials: bool = False,
+):
     """IVF-pruned NW log-probs ``(B, C)``: route, then stream only the
     selected tiles through the prepared head (K6 on the card).
 
@@ -286,12 +287,19 @@ def nw_fused_ivf_log_probs(
     ``group_b=None``: one union for the whole batch (skewed traffic);
     ``group_b=g``: the batch is route-sorted and each block of ``g`` queries
     gets its own union, outputs restored to input order. ``n_probe >=
-    n_tiles`` reproduces full mode in both shapes."""
+    n_tiles`` reproduces full mode in both shapes.
+
+    ``partials=True`` returns the head's ``(m, l, acc)`` unfinalized (K6
+    ``partials=True``), for one shard of a sharded bank; it takes one union
+    for the batch, so it refuses ``group_b`` (the JAX package's sharded
+    path never passes one)."""
+    if partials and group_b is not None:
+        raise ValueError("partials=True routes the batch to one union: pass no group_b")
     B = qfeat.shape[0]
     q, tsel, inv = _ivf_route(qfeat, ivf, kernel=kernel, kernel_params=kernel_params,
                               n_probe=n_probe, group_b=group_b)
     out = nw_fused_from_prepared(q, ivf.prep, n_classes, kernel=kernel,
-                                 kernel_params=kernel_params, tile_sel=tsel)
+                                 kernel_params=kernel_params, tile_sel=tsel, partials=partials)
     return out if inv is None else out[inv][:B]
 
 

@@ -14,6 +14,8 @@ random, from ``--seed``. Run as::
         --featurizer_precision int8 --head_precision int8 --batch_size 64 --latency_bench
     python -m nwhead_tpu_torch.serve --dataset synthetic_cub --arch resnet18 \
         --serve_mode ivf --ivf_probe auto --batch_size 64 --latency_bench
+    python -m nwhead_tpu_torch.serve --dataset synthetic_cub --arch resnet18 \
+        --mesh 1,1 --batch_size 64 --latency_bench
 
 ``--featurizer_precision bf16_fused`` serves a ViT through the bf16
 fused-serving graph (K10/K11 per block); ``--featurizer_precision int8``
@@ -25,7 +27,12 @@ prepared bank: f32 or bf16 (K2), int8 (K4) or int4 (K5). ``--serve_mode ivf``
 serves through the IVF-pruned head (``ops/ivf.py``, K6 over the bank tiles
 each batch routes to): ``--ivf_probe`` tiles per query (``auto``: calibrated
 against the exact head on ``min(256, len(val))`` validation images before
-the timed loop), ``--ivf_group`` queries per routed group.
+the timed loop), ``--ivf_group`` queries per routed group. ``--mesh
+N_DATA,N_SUPPORT`` serves from a support-sharded bank
+(``parallel.ShardedSupportBank``) on a mesh of the first ``N_DATA *
+N_SUPPORT`` CUDA devices, or with ``--device cpu`` of that many virtual CPU
+devices; the batch splits over the data axis, and each shard runs the
+head's partials (K2/K4/K5 ``partials=True``, K6 under ``--serve_mode ivf``).
 
 ``--device`` defaults to ``cuda``; with no CUDA device that is an error, and
 the CPU must be asked for (``--device cpu``).
@@ -35,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import time
 
@@ -44,6 +52,7 @@ import torch
 from nwhead_tpu_torch.data.datasets import make_synthetic_dataset
 from nwhead_tpu_torch.models import VIT_NAMES, load_model
 from nwhead_tpu_torch.nw.net import NWNet
+from nwhead_tpu_torch.parallel import make_mesh
 
 
 def build_datasets(args):
@@ -59,7 +68,7 @@ def build_datasets(args):
                 make_synthetic_dataset(n=1000, n_classes=200, size=224, seed=args.seed + 1,
                                        class_patterns=0.25))
     raise NotImplementedError(
-        f"dataset {args.dataset!r} is not ported yet (ROADMAP.md queue 1, item 6)"
+        f"dataset {args.dataset!r} is not ported yet (ROADMAP.md queue 1, item 11)"
     )
 
 
@@ -85,23 +94,42 @@ def featurizer_options(args) -> dict:
     if args.featurizer_precision == "int8" and not vit:
         raise NotImplementedError(
             "--featurizer_precision int8 of a ResNet (its int8 PTQ) is not ported yet "
-            "(ROADMAP.md queue 1, item 9); the ViTs' is")
+            "(ROADMAP.md queue 1, item 8); the ViTs' is")
     if args.featurizer_precision == "bf16_fused" and not vit:
         raise NotImplementedError(
             "--featurizer_precision bf16_fused is the ViT fused-serving graph; a ResNet's "
-            "int8 path is not ported yet (ROADMAP.md queue 1, item 9)")
+            "int8 path is not ported yet (ROADMAP.md queue 1, item 8)")
     if args.fused_inference and not vit:
         raise SystemExit("--fused_inference applies to ViT archs only")
     if args.bf16 and not vit:
         raise NotImplementedError(
             "--bf16 on a ResNet (the bf16 backbone) is not ported yet (ROADMAP.md queue 1, "
-            "item 9)")
+            "item 7)")
     opts = {}
     if args.bf16:
         opts["dtype"] = torch.bfloat16
     if args.fused_inference:
         opts.update(attn_impl="fused", mlp_impl="fused")
     return opts
+
+
+def build_mesh(args, device: torch.device):
+    """``--mesh N_DATA,N_SUPPORT[,N_MODEL]`` as a mesh (None when unset), as
+    the JAX CLI parses it (``train.py:build_mesh``): the first ``n`` CUDA
+    devices, or ``n`` copies of the CPU with ``--device cpu`` (the virtual
+    devices of the JAX package's CPU meshes)."""
+    if not args.mesh:
+        return None
+    dims = [int(x) for x in args.mesh.split(",")]
+    if len(dims) not in (2, 3) or min(dims) < 1:
+        raise ValueError(f"--mesh {args.mesh}: need N_DATA,N_SUPPORT[,N_MODEL]")
+    n = math.prod(dims)
+    if device.type == "cuda":
+        if n > torch.cuda.device_count():
+            raise ValueError(f"--mesh {args.mesh} needs {n} devices, have "
+                             f"{torch.cuda.device_count()}")
+        return make_mesh(*dims, devices=[torch.device("cuda", i) for i in range(n)])
+    return make_mesh(*dims, devices=[device] * n)
 
 
 def build_server(args, train_ds, edit=None, val_ds=None) -> NWNet:
@@ -116,12 +144,14 @@ def build_server(args, train_ds, edit=None, val_ds=None) -> NWNet:
     ``net.calibration_seconds`` (0 without calibration) and
     ``net.precompute_seconds``. ``--serve_mode ivf --ivf_probe auto``
     calibrates the IVF knobs on the first ``min(256, len(val_ds))``
-    validation images."""
+    validation images. ``--mesh`` attaches a mesh: the bank is sharded over
+    its support axis."""
     if args.serve_mode == "ivf" and args.ivf_probe == "auto" and val_ds is None:
         raise ValueError("--ivf_probe auto calibrates on validation images: pass val_ds")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is visible (pass --device cpu to run on the CPU)")
+    mesh = build_mesh(args, device)
     featurizer = load_model(args.arch, device=device,
                             generator=torch.Generator().manual_seed(args.seed),
                             **featurizer_options(args))
@@ -129,7 +159,7 @@ def build_server(args, train_ds, edit=None, val_ds=None) -> NWNet:
         featurizer, train_ds.num_classes, support_dataset=train_ds, device=device,
         kernel_type=args.kernel_type, n_shot_full=args.n_shot_full,
         head_precision=args.head_precision, fused_min_support=1,
-        ivf_n_probe=args.ivf_probe, ivf_group_b=args.ivf_group,
+        ivf_n_probe=args.ivf_probe, ivf_group_b=args.ivf_group, mesh=mesh,
     )
     if edit is not None:
         edit(net)
@@ -151,7 +181,8 @@ def build_server(args, train_ds, edit=None, val_ds=None) -> NWNet:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     net.precompute_seconds = time.perf_counter() - t0
-    print(f"Support bank prepared: {len(net.full_y)} items, "
+    sharded = "" if mesh is None else f" in {mesh.shape['support']} shards on mesh {mesh.shape}"
+    print(f"Support bank prepared: {len(net.full_y)} items{sharded}, "
           f"{net.precompute_seconds:.1f}s (one-time)")
     if args.serve_mode == "ivf" and args.ivf_probe == "auto":
         # Before any serving callable fixes the knobs (make_serving_fn
@@ -193,6 +224,7 @@ def latency_bench(net: NWNet, val_ds, args) -> dict:
         "bf16": bool(args.bf16),
         "head_precision": args.head_precision,
         "serve_mode": args.serve_mode,
+        "mesh": None if net.mesh is None else net.mesh.shape,
         "device": device_info(net.device),
     }
     if args.serve_mode == "ivf":
@@ -229,6 +261,9 @@ def parse_args(argv=None):
     p.add_argument("--ivf_group", type=int, default=None,
                    help="--serve_mode ivf: route-sort each batch and give every IVF_GROUP "
                         "queries their own tile union (default: one union per batch)")
+    p.add_argument("--mesh", default=None,
+                   help="'N_DATA,N_SUPPORT[,N_MODEL]': serve from a bank sharded over "
+                        "N_SUPPORT devices, the batch split over N_DATA (N_MODEL must be 1)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--latency_bench", action="store_true")
     p.add_argument("--bench_batches", type=int, default=50)

@@ -54,7 +54,7 @@ def build_datasets(args):
     if args.dataset == "digits":
         return make_digits_dataset(True), make_digits_dataset(False)
     raise NotImplementedError(f"dataset {args.dataset!r} is not ported yet "
-                              "(ROADMAP.md queue 1, item 6)")
+                              "(ROADMAP.md queue 1, item 11)")
 
 
 def build_network(args, train_dataset, **featurizer_kwargs) -> NWNet:

@@ -147,17 +147,17 @@ def check_ported(args) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item for every flag
     value the port does not run yet; none is ignored."""
     refused = {
-        "--mesh (sharded training; ROADMAP.md queue 1, item 10)": args.mesh,
-        "--pretrained_path (checkpoints need a download; ROADMAP.md queue 1, item 9)":
+        "--mesh (data-parallel training; ROADMAP.md queue 1, item 14)": args.mesh,
+        "--pretrained_path (a local checkpoint file; ROADMAP.md queue 1, item 7)":
             args.pretrained_path,
         f"--bf16 with --arch {args.arch} (the bf16 BatchNorm backbone; ROADMAP.md queue 1, "
-        "item 9)": args.bf16 and args.arch not in VIT_NAMES,
-        "--train_method fchead (nw/fc.py and FCTrainer; ROADMAP.md queue 1, item 6)":
+        "item 7)": args.bf16 and args.arch not in VIT_NAMES,
+        "--train_method fchead (nw/fc.py and FCTrainer; ROADMAP.md queue 1, item 10)":
             args.train_method != "nwhead",
-        "--use_wandb (ROADMAP.md queue 1, item 6)": args.use_wandb,
+        "--use_wandb (ROADMAP.md queue 1, item 13)": args.use_wandb,
         f"--dataset {args.dataset} (image-file datasets need a download and "
-        "data/transforms.py; ROADMAP.md queue 1, item 6)": args.dataset in FILE_DATASETS,
-        "--workers/--decoder (image-file decoding; ROADMAP.md queue 1, item 6)":
+        "data/transforms.py; ROADMAP.md queue 1, item 11)": args.dataset in FILE_DATASETS,
+        "--workers/--decoder (image-file decoding; ROADMAP.md queue 1, item 11)":
             args.workers != 8 or args.decoder != "native",
     }
     for flag, hit in refused.items():

@@ -13,7 +13,8 @@ Port of ``NWTrainer`` from ``nwhead_tpu/train/trainer.py``:
 * an in-memory, transform-free training set lives on the device and a step
   ships only indices; other datasets go through pinned-buffer prefetch;
 * loss and accuracy stay on the device and are read once per epoch;
-* eval per mode over the validation set, its tail batch padded, ECE over
+* eval per mode over the validation set, its tail batch padded (row 0 on
+  the device path, zero images on the host path, as in the JAX package), ECE over
   the epoch's concatenated probabilities x100; ``eval_all_modes`` returns
   full-mode accuracy, the best-checkpoint key.
 
@@ -52,7 +53,8 @@ def multistep_lr(base_lr: float, milestones: Sequence[int], gamma: float,
 def _eval_indices(n: int, batch_size: int, num_steps: Optional[int]):
     """Sequential eval batches of ``batch_size`` rows, the tail padded with
     row 0 (padding rows are dropped from every metric): ``(padded indices,
-    indices of the real rows)``."""
+    indices of the real rows)``. The device path's batches, as the JAX
+    package pads its device-resident eval set."""
     for count, start in enumerate(range(0, n, batch_size)):
         if num_steps is not None and count >= num_steps:
             return
@@ -60,6 +62,20 @@ def _eval_indices(n: int, batch_size: int, num_steps: Optional[int]):
         padded = np.zeros(batch_size, np.int64)
         padded[:len(idx)] = idx
         yield padded, idx
+
+
+def _host_eval_batches(ds, batch_size: int, num_steps: Optional[int]):
+    """The host path's eval batches: ``(images (batch_size, H, W, C) f32,
+    labels of the real rows)``, the tail padded with zero images, as the
+    JAX package's ``_padded_eval_batches`` pads it (in knn and hnsw mode a
+    padding row's neighbours join the batch's support, so the padding is
+    part of the result)."""
+    for _, idx in _eval_indices(len(ds), batch_size, num_steps):
+        img = np.asarray(ds.gather(idx), np.float32)
+        if len(idx) < batch_size:
+            img = np.concatenate([img, np.zeros((batch_size - len(idx), *img.shape[1:]),
+                                                np.float32)])
+        yield img, np.asarray(ds.targets[idx])
 
 
 class NWTrainer:
@@ -188,14 +204,12 @@ class NWTrainer:
         ds = self.val_dataset
         device = self.net.device
         images = device_images(ds, device)
-        batches = _eval_indices(len(ds), self.batch_size, num_steps)
         if images is not None:
             stream = ((images[torch.from_numpy(padded).to(device)], ds.targets[idx])
-                      for padded, idx in batches)
+                      for padded, idx in _eval_indices(len(ds), self.batch_size, num_steps))
         else:
-            stream = prefetch_to_device(
-                ((np.asarray(ds.gather(padded), np.float32), np.asarray(ds.targets[idx]))
-                 for padded, idx in batches), device, size=prefetch)
+            stream = prefetch_to_device(_host_eval_batches(ds, self.batch_size, num_steps),
+                                        device, size=prefetch)
         probs_all, gts = [], []
         for img, label in stream:
             label = torch.as_tensor(label).to(device)

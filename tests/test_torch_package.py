@@ -26,6 +26,8 @@ MODULES = (
     "nwhead_tpu_torch.train.config", "nwhead_tpu_torch.train.checkpoint",
     "nwhead_tpu_torch.ops.fused_attn", "nwhead_tpu_torch.ops.fused_mlp",
     "nwhead_tpu_torch.models.vit", "nwhead_tpu_torch.models.serving_vit",
+    "nwhead_tpu_torch.parallel", "nwhead_tpu_torch.parallel.mesh",
+    "nwhead_tpu_torch.parallel.sharded_bank", "nwhead_tpu_torch.nw.streaming",
 )
 
 
@@ -35,6 +37,7 @@ def test_import_pulls_in_no_jax():
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
         "import nwhead_tpu_torch as p\n"
         "p.NWNet, p.NWHead, p.load_model, p.prepare_support, p.nw_fused_log_probs\n"
+        "p.parallel, p.make_mesh, p.ShardedSupportBank\n"
         "print(json.dumps(sorted(m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'nwhead_tpu', 'sklearn', 'triton'))))\n"
     )
@@ -42,6 +45,25 @@ def test_import_pulls_in_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_package_import_stays_light():
+    """The top-level exports load on first use: importing the package pulls
+    in neither the sharded-serving modules nor the model code."""
+    code = (
+        "import json, sys\n"
+        "import nwhead_tpu_torch as p\n"
+        "before = sorted(m for m in sys.modules if m.startswith(('nwhead_tpu_torch.parallel',"
+        " 'nwhead_tpu_torch.nw', 'nwhead_tpu_torch.models')))\n"
+        "mesh = p.make_mesh(1, 2, devices=['cpu', 'cpu'])\n"
+        "print(json.dumps([before, mesh.shape, 'nwhead_tpu_torch.parallel' in sys.modules]))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    before, shape, loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert before == [] and loaded
+    assert shape == {"data": 1, "support": 2, "model": 1}
 
 
 def test_capabilities_report_no_gpu_on_a_cpu_host():

@@ -358,5 +358,5 @@ def test_quantize_featurizer_refuses_a_resnet():
     from nwhead_tpu_torch.nw.net import NWNet
 
     net = NWNet(load_model("resnet10", device="cpu"), 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
         net.quantize_featurizer(np.zeros((2, 32, 32, 3), np.float32))

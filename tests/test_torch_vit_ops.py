@@ -6,6 +6,9 @@ the card.
   rtol=atol=1e-4 (measured: 3.1e-7 of max|JAX| and 6.0e-7 absolute), bf16
   at one bf16 ulp of max|JAX| (2^-7 relative; measured 0: the same bf16
   values), ragged N and M.
+* K12 ``fused_attention`` (separate ``(B, H, N, hd)`` q, k, v; K7 over the
+  packed q, k, v on the card) at the same tolerances, N ragged against the
+  JAX kernel's padding to 16 rows.
 * K10 ``fused_attention_block_bf16`` and K11 ``fused_mlp_block_bf16``,
   every combination of the LayerNorm, LayerScale and residual folds, at
   the same bf16 tolerance (measured 0). The GELU of the port is
@@ -254,6 +257,27 @@ def test_gradients_flow_through_the_functions():
 # --- on the card -------------------------------------------------------------
 
 
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 3, 37, 32), (1, 2, 50, 64)])
+def test_fused_attention_plain_matches_jax(shape, prec):
+    """K12 ``fused_attention`` over separate ``(B, H, N, hd)`` q, k, v
+    against JAX's (interpret mode), N ragged against its padding to 16
+    rows: f32 within 1e-4 of max|JAX|, bf16 within one bf16 ulp of it."""
+    import jax.numpy as jnp
+
+    from nwhead_tpu.ops.pallas_attn import fused_attention as jax_attn
+
+    rng = np.random.default_rng(3)
+    q, k, v = (rng.standard_normal(shape).astype(np.float32) for _ in range(3))
+    want = jax_attn(*(jnp.asarray(x).astype(_jnp_dtype(prec)) for x in (q, k, v)))
+    got = FA.fused_attention(*(torch.from_numpy(x).to(_dtype(prec)) for x in (q, k, v)))
+    assert got.shape == shape and got.dtype == _dtype(prec)
+    assert _rel_err(_f32(got), _f32(want)) <= (1e-4 if prec == "f32" else BF16_REL)
+    scaled = FA.fused_attention(*(torch.from_numpy(x) for x in (q, k, v)), scale=0.3)
+    want = jax_attn(*(jnp.asarray(x) for x in (q, k, v)), scale=0.3)
+    assert _rel_err(_f32(scaled), _f32(want)) <= 1e-4
+
+
 def _need_gpu():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (and nvcc to build the kernels)")
@@ -286,6 +310,29 @@ def test_cuda_attention_qkv_matches_plain(shape, prec):
     torch.cuda.synchronize()
     assert FA.attention_qkv_cuda.launches == before + 1
     _card_check(got, want, prec)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(64, 6, 257, 64), (8, 6, 197, 64), (3, 2, 50, 32),
+                                   (2, 2, 70, 128)])
+def test_cuda_fused_attention_matches_plain(shape, prec):
+    """K12 on the card (K7 over the packed q, k, v) against its plain
+    version; a head width K7 is not built for raises."""
+    dev = _need_gpu()
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, _dtype(prec))
+               for _ in range(3))
+    before = FA.fused_attention_cuda.launches, FA.attention_qkv_cuda.launches
+    got = FA.fused_attention(q, k, v)
+    want = FA._attention_plain(q, k, v, shape[-1] ** -0.5)
+    torch.cuda.synchronize()
+    assert (FA.fused_attention_cuda.launches, FA.attention_qkv_cuda.launches) == \
+        (before[0] + 1, before[1])
+    assert got.shape == shape and got.dtype == q.dtype
+    _card_check(got, want, prec)
+    with pytest.raises(ValueError, match="head width"):
+        FA.fused_attention(q[..., :16], k[..., :16], v[..., :16])
 
 
 @pytest.mark.gpu

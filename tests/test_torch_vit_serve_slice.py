@@ -108,11 +108,11 @@ def test_serve_builds_the_fused_inference_server_on_cpu():
 
 @pytest.mark.parametrize("argv,error,match", [
     (["--featurizer_precision", "int8", "--arch", "resnet10"], NotImplementedError,
-     "queue 1, item 9"),
+     "queue 1, item 8"),
     (["--fused_inference", "--arch", "resnet10"], SystemExit, "ViT archs only"),
     (["--featurizer_precision", "bf16_fused", "--arch", "resnet10"], NotImplementedError,
      "ViT"),
-    (["--bf16", "--arch", "resnet10"], NotImplementedError, "queue 1, item 9"),
+    (["--bf16", "--arch", "resnet10"], NotImplementedError, "queue 1, item 7"),
 ])
 def test_serve_refuses_what_is_not_ported(argv, error, match):
     args = serve.parse_args(["--device", "cpu", "--dataset", "synthetic", "--latency_bench"]
