@@ -137,12 +137,35 @@ package beside it. With one, in order:
     device memory; compares every parameter gradient of the fused featurizer with
     the plain (``xla``) one on a small episode (``--n_way 4 --n_shot 1``);
     then trains 3 steps with ``--bf16``;
-16. prints the nvidia-smi line, a JSON line of per-kernel results, and as the
+16. lab kernel phase: K13/L4 ``stream`` and L1 ``stream_reduce``
+    (``csrc/lab_stream.cu``) at bench.py's 12,288 and 196,608 rows of
+    D=512 against their plain versions (the reduce at block_s 1,024, 2,048
+    and 4,096, both modes), timed with the L2 flushed (GB/s and the share of
+    3.35 TB/s; the 12,288-row bank also unflushed, L2-resident),
+    failing if the flushed 403 MB read runs above 1.05 x 3.35 TB/s or the
+    touch_only reduce takes under 0.9 of the full one (either means bytes
+    were skipped); L1 ``fused_variant`` (``csrc/lab_nw.cu``) at the CUB
+    shape, the f32, f32s2, x3, split and bf16 variants, against its plain
+    version and the naive op, timed beside K1; L3 ``manual_fused`` at B=64
+    and B=8, f32 and bf16 banks, block_s 1,024 and 2,048, against its plain
+    version and timed in turns with K2 on the same bank; L2 ``fused_blocks``
+    (``csrc/lab_blocks.cu``) at (64, 56, 56, 64) bf16, two blocks, against
+    its plain version and the port's ``BasicBlock``s, timed beside cuDNN's
+    bf16 layer1;
+17. lab phase: ``python -m nwhead_tpu_torch.labs.<lab>`` for ``kernel_lab
+    --quick``, ``manual_pipe_lab``, ``prepared_lab``, ``roofline_lab`` and
+    ``block_lab`` (their ``main``, in this process), each exiting 0, every
+    lab kernel and variant launched;
+18. prints the nvidia-smi line, a JSON line of per-kernel results, and as the
     last line ``{"ok": true, "device": {...}}``.
 
 Kernel times are device times: CUDA events around each call, queued behind
 a spin kernel so that the host's overhead does not count, L2 flushed before
-each call, median of 30.
+each call by zeroing a 256 MB buffer, median of 30. The lab kernel phase
+times by the labs' harness (``nwhead_tpu_torch.labs.timing``): cases in
+turns, median of 15, the L2 flushed by a read, so that no dirty line is
+written back during the call; it also reads K1 and K2 at the CUB shape by
+both methods, which shows how far the zero flush moves the K1-K12 times.
 
 Bounds in the JSON line: the larger of the bytes the call must move (each
 input read once, each output written once) over 3.35 TB/s and its products
@@ -1646,7 +1669,8 @@ def sharded_serving_phase(flush, bank) -> dict:
         print(f"sharded {prec}: {SHARDS} shards of {sharded.local} rows built in {build_s:.1f}s; "
               f"full predict {r['launches']} launches, vs the unsharded full pass max|err| "
               f"{out_err:.3e} {'ok' if ok else 'FAIL'}; sharded {r['sharded_ms']:.4f} ms, "
-              f"unsharded {r['full_ms']:.4f} ms, partials kernel {r['ms']:.4f} ms")
+              f"unsharded {r['full_ms']:.4f} ms, partials kernel {r['ms']:.4f} ms (plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, {r['bound_by']})")
         if not ok:
             raise AssertionError(f"the sharded bank disagrees with the full pass: {prec}")
         # Routed: each shard's own tiles, K6 partials.
@@ -1789,6 +1813,7 @@ def sharded_entries(kern: dict, served: dict, mesh: dict) -> list:
                                            mesh[prec]["served_err"] if prec in mesh else 0.0),
                         **{k: r[k] for k in keys}, **common, "fin_ms": r["fin_ms"],
                         "bank_1m_ms": sv["ms"], "bank_1m_full_ms": sv["full_ms"],
+                        "bank_1m_plain_ms": sv["plain_ms"], "bank_1m_bound_ms": sv["bound_ms"],
                         "sharded_1m_ms": sv["sharded_ms"]})
         sel = sv["sel"]
         entries.append({"name": f"nw_prepared_sel_partials_{prec}", "source": PREPARED_SOURCE,
@@ -2240,6 +2265,422 @@ def vit_train_entries(kern: dict, tr: dict) -> list:
     return entries
 
 
+LAB_STREAM_SOURCE = "nwhead_tpu_torch/csrc/lab_stream.cu"
+LAB_NW_SOURCE = "nwhead_tpu_torch/csrc/lab_nw.cu"
+LAB_BLOCKS_SOURCE = "nwhead_tpu_torch/csrc/lab_blocks.cu"
+# The TPU kernels; "stream" is K13 and also L4 (scripts/prepared_lab.py:70,
+# scripts/roofline_lab.py:51, scripts/bigbank_lab.py:69).
+LAB_REPLACES = {
+    "stream": "bench.py:122",
+    "stream_reduce": "scripts/kernel_lab.py:103",
+    "fused_variant": "scripts/kernel_lab.py:304",
+    "manual_fused": "scripts/manual_pipe_lab.py:127",
+    "fused_blocks": "scripts/block_lab.py:191",
+}
+STREAM_ROWS = (12288, 196608)  # bench.py's two banks: 25.2 MB (fits the L2), 403 MB
+STREAM_SEED = 8
+# A flushed read above the card's rate means the kernel skipped bytes; so does a
+# touch_only reduce much faster than the full one (both read every byte).
+STREAM_RATE_LIMIT = 1.05 * HBM_BYTES_PER_S
+TOUCH_FULL_MIN = 0.9
+LAB_B, LAB_S, LAB_D, LAB_C = 64, 5994, 512, 200  # the labs' CUB shape
+LAB_CYCLES = 15
+MANUAL_CASES = tuple((prec, b, bs) for prec in ("f32", "bf16") for b in (64, 8)
+                     for bs in (1024, 2048))  # the first of each precision is the entry's
+BLOCKS_SHAPE = (64, 56, 56, 64)  # ResNet-18's layer1 at B=64
+LAB_RUNS = (("kernel_lab", ["--quick"]), ("manual_pipe_lab", []), ("prepared_lab", []),
+            ("roofline_lab", []), ("block_lab", []))
+
+
+def lab_variants() -> dict:
+    """fused_variant's entries, name -> (dist, agg, cast, block_s), from
+    ``kernel_lab.DECOMPOSITION``, each named by the option it changes."""
+    from nwhead_tpu_torch.labs.kernel_lab import DECOMPOSITION
+
+    out = {}
+    for v in DECOMPOSITION:
+        dist, agg, cast = v["dist"], v["agg"], v.get("cast", "f32")
+        out["bf16" if cast == "bf16" else "split" if agg == "split" else dist] = (
+            dist, agg, cast, v["block_s"])
+    return out
+
+
+def lab_times(cases) -> dict:
+    """ms per call of each ``(name, fn)`` case by the labs' harness
+    (``labs.timing.interleaved_time``): in turns, median of ``LAB_CYCLES``,
+    the L2 flushed by a read."""
+    from nwhead_tpu_torch.labs.timing import interleaved_time
+
+    t = interleaved_time([(name, fn, ()) for name, fn in cases], cycles=LAB_CYCLES)
+    return {name: s * 1e3 for name, s in t.items()}
+
+
+def stream_phase() -> dict:
+    """K13/L4 ``stream`` and L1 ``stream_reduce`` at bench.py's 12,288 and
+    196,608 rows of D=512: against their plain versions (rtol 1e-5 of the
+    sum of |x| added; at 12,288 rows the reduce at every block_s of
+    ``kernel_lab.STREAM_SETTINGS``, both modes), then timed by ``lab_times``:
+    GB/s and the share of 3.35 TB/s; at 12,288 rows also unflushed
+    (L2-resident); at 196,608 rows the full and touch_only reduces in the
+    same loop. Fails if the flushed 403 MB rate is above 1.05 x 3.35 TB/s,
+    or touch_only takes under 0.9 of the full reduce: either means bytes
+    were skipped."""
+    import torch
+
+    from nwhead_tpu_torch.labs import stream as L
+    from nwhead_tpu_torch.labs.kernel_lab import STREAM_SETTINGS
+    from nwhead_tpu_torch.labs.timing import interleaved_time
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(STREAM_SEED)
+    res = {"stream": {"max_abs_err": 0.0}, "stream_reduce": {"max_abs_err": 0.0}}
+    bs = L.STREAM_BLOCK_S
+    for rows in STREAM_ROWS:
+        s = torch.randn((rows, LAB_D), generator=gen, device=dev)
+        sizes = sorted({b for b, _ in STREAM_SETTINGS}) if rows == STREAM_ROWS[0] else [bs]
+        checks = [("stream", bs, True, L.stream_cuda(s))] + [
+            ("stream_reduce", b, touch, L.stream_reduce_cuda(s, b, touch))
+            for b in sizes for touch in (False, True)]
+        torch.cuda.synchronize()
+        for name, b, touch, got in checks:
+            ok, err = L.plain_agreement(got, s, b, touch)
+            print(f"lab {name} rows={rows} block_s={b} touch_only={touch}: max|err| {err:.3e} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name} disagrees with its plain version at {rows} rows, "
+                                     f"block_s {b}, touch_only {touch}")
+            res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+        n_bytes = L.stream_bytes(s)
+        # One PyTorch call with stream's output: it reads rows 0-7 of each
+        # tile, 1/256 of the bank, so it is no yardstick of the read rate.
+        tiles = s[:n_bytes // (4 * LAB_D)].view(-1, bs, LAB_D)
+        cases = [("stream", lambda: L.stream_cuda(s)), ("plain", lambda: L._stream_plain(s)),
+                 ("library", lambda: tiles[:, :L.TOUCH_ROWS].sum(0))]
+        if rows == STREAM_ROWS[-1]:
+            cases += [("full", lambda: L.stream_reduce_cuda(s, bs, False)),
+                      ("touch", lambda: L.stream_reduce_cuda(s, bs, True)),
+                      ("full_plain", lambda: L._stream_reduce_plain(s, bs)),
+                      ("full_library", lambda: torch.sum(s, dim=0, keepdim=True))]
+        t = lab_times(cases)
+        r = res["stream"][rows] = {"bytes": n_bytes, "ms": t["stream"], "plain_ms": t["plain"],
+                                   "library_ms": t["library"]}
+        r.update(bound(n_bytes + 8 * LAB_D * 4, (n_bytes // (4 * bs)) * 8, "f32"))
+        r["gbps"] = n_bytes / r["ms"] / 1e6
+        line = (f"lab stream rows={rows} ({n_bytes / 1e6:.1f} MB): {r['ms']:.4f} ms L2 flushed, "
+                f"{r['gbps']:.1f} GB/s, {r['gbps'] * 1e9 / HBM_BYTES_PER_S:.3f} of 3.35 TB/s "
+                f"(bound {r['bound_ms']:.4f} ms); plain {r['plain_ms']:.4f} ms, rows 0-7 "
+                f"by torch.sum {r['library_ms']:.4f} ms")
+        if rows == STREAM_ROWS[0]:
+            r["l2_ms"] = interleaved_time([("stream", L.stream_cuda, (s,))], cycles=LAB_CYCLES,
+                                          flush=False)["stream"] * 1e3
+            line += (f"; L2-resident (unflushed) {r['l2_ms']:.4f} ms, "
+                     f"{n_bytes / r['l2_ms'] / 1e6:.1f} GB/s")
+        print(line)
+        if rows == STREAM_ROWS[-1]:
+            if n_bytes / (r["ms"] * 1e-3) > STREAM_RATE_LIMIT:
+                raise AssertionError(f"stream read {r['gbps']:.1f} GB/s from HBM, above 1.05 x "
+                                     "3.35 TB/s: the kernel skipped bytes")
+            f = res["stream_reduce"]
+            f.update(ms=t["full"], touch_ms=t["touch"], rows=rows, plain_ms=t["full_plain"],
+                     library_ms=t["full_library"],
+                     **bound(n_bytes + LAB_D * 4, n_bytes // 4, "f32"))
+            ratio = f["touch_ms"] / f["ms"]
+            print(f"lab stream_reduce rows={rows}: full {f['ms']:.4f} ms, touch_only "
+                  f"{f['touch_ms']:.4f} ms (ratio {ratio:.3f}), plain {f['plain_ms']:.4f} ms, "
+                  f"torch.sum {f['library_ms']:.4f} ms, bound {f['bound_ms']:.4f} ms")
+            if ratio < TOUCH_FULL_MIN:
+                raise AssertionError(f"touch_only takes {ratio:.3f} of the full reduce (under "
+                                     f"{TOUCH_FULL_MIN}): the kernel skipped bytes")
+        del s, tiles
+    return res
+
+
+def _flush_methods(flush, name: str, fn, before_ms: float, read_ms: float) -> float:
+    """``fn``'s ms by ``time_ms`` (the ``zero_`` flush of the K1-K12 rows):
+    the mean of ``before_ms``, taken before ``lab_times`` read ``read_ms``
+    (the read flush), and one more median taken now; prints both."""
+    zero_ms = (before_ms + time_ms(fn, flush)) / 2
+    print(f"flush methods, {name}: {zero_ms:.4f} ms with the zero_ flush (time_ms), "
+          f"{read_ms:.4f} ms with the read flush (lab_times), ratio {zero_ms / read_ms:.3f}")
+    return zero_ms
+
+
+def variant_phase(flush, stream_gbps: float) -> dict:
+    """L1 ``fused_variant`` at the CUB shape (B=64, S=5,994, D=512, C=200),
+    each variant of ``kernel_lab.DECOMPOSITION`` at its block_s and the
+    f32s2 variant also at 512, against its plain version (f32 rtol=atol
+    2e-4, bf16 atol 2e-3) and the naive op; the variants, their plain
+    versions and K1 on the same features timed in one ``lab_times`` loop,
+    with ``frac_vs_stream``; K1 also by ``time_ms``, before and after."""
+    import torch
+
+    from nwhead_tpu_torch.labs import kernel_lab as KL
+    from nwhead_tpu_torch.ops import fused_nw as F
+    from nwhead_tpu_torch.ops.nw import nw_log_probs
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    B, S, D, C = LAB_B, LAB_S, LAB_D, LAB_C
+    q = torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32)).to(dev)
+    bank = torch.from_numpy(rng.standard_normal((S, D)).astype(np.float32)).to(dev)
+    sy = torch.from_numpy(rng.integers(0, C, size=S).astype(np.int32)).to(dev)
+    naive = nw_log_probs(q, bank, sy, C)
+    scale = torch.ones(1, device=dev)
+
+    def k1():
+        return F.nw_fwd_cuda(q, bank, sy, scale, "l2", C)
+
+    k1_before = time_ms(k1, flush)
+    res, cases, sizes = {}, [("K1", k1)], {}
+    for name, (dist, agg, cast, block_s) in lab_variants().items():
+        r = res[name] = {"max_abs_err": 0.0}
+        qc, sc = (q, bank) if cast == "f32" else (q.bfloat16(), bank.bfloat16())
+        x = KL.variant_inputs(qc, sc, dist)
+        want = KL._fused_variant_plain(qc, sc, sy, C, dist, agg)
+        for bs in ((block_s, 512) if name == "f32s2" else (block_s,)):
+            got = KL.fused_variant_cuda(x, sy, C, dist, agg, bs)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            rel = float(torch.max(torch.abs(got - naive) / (torch.abs(naive) + 1e-6)))
+            ok = bool(torch.isfinite(got).all()) and within(got, want, **TOL[cast])
+            print(f"lab fused_variant {name} block_s={bs}: max|err| vs plain {err:.3e} "
+                  f"{'ok' if ok else 'FAIL'}; relerr vs the naive op {rel:.2e}")
+            if not ok:
+                raise AssertionError(f"fused_variant {name} disagrees with its plain version")
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+        cases += [(name, lambda x=x, v=(dist, agg, block_s): KL.fused_variant_cuda(
+                      x, sy, C, v[0], v[1], v[2])),
+                  (f"{name} plain", lambda a=(qc, sc, sy, C, dist, agg): KL._fused_variant_plain(
+                      *a))]
+        item = 2 if cast == "bf16" else 4
+        sizes[name] = ((B + S) * D * item + 4 * (S + B * C) + (4 * S if dist != "f32" else 0),
+                       2 * B * S * D * (3 if dist == "x3" else 1),
+                       "bf16" if cast == "bf16" or dist == "x3" else "f32")
+    t = lab_times(cases)
+    res["k1_ms"] = t["K1"]
+    res["k1_zero_flush_ms"] = _flush_methods(flush, "K1 f32 at the CUB shape", k1, k1_before,
+                                             t["K1"])
+    for name, (n_bytes, n_ops, prec) in sizes.items():
+        r = res[name]
+        r.update(ms=t[name], plain_ms=t[f"{name} plain"], **bound(n_bytes, n_ops, prec))
+        r["frac_vs_stream"] = S * D * 4 / (stream_gbps * 1e9) / (r["ms"] * 1e-3)
+        print(f"lab fused_variant {name}: kernel {r['ms']:.4f} ms (K1 {res['k1_ms']:.4f} ms), "
+              f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"frac_vs_stream {r['frac_vs_stream']:.3f}")
+    return res
+
+
+def manual_phase(flush, stream_gbps: float) -> dict:
+    """L3 ``manual_fused`` at the CUB shape, B=64 and B=8, f32 and bf16
+    banks prepared with block_s 1,024 and 2,048: against its plain version
+    (``TOL``); every case beside K2 on the same bank, and the plain version
+    at each precision's first case, timed in one ``lab_times`` loop, with
+    ``frac_vs_stream``; K2 of the first case also by ``time_ms``."""
+    import torch
+
+    from nwhead_tpu_torch.labs import manual_pipe_lab as MP
+    from nwhead_tpu_torch.ops import fused_nw as F
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    B, S, D, C = LAB_B, LAB_S, LAB_D, LAB_C
+    q = torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32)).to(dev)
+    bank = torch.from_numpy(rng.standard_normal((S, D)).astype(np.float32)).to(dev)
+    sy = rng.integers(0, C, size=S).astype(np.int32)
+    scale = torch.ones(1, device=dev)
+    res = {prec: {"max_abs_err": 0.0, "cases": {}} for prec in TOL}
+    cases, first = [], {}
+    for prec, b, block_s in MANUAL_CASES:
+        r = res[prec]
+        prep = F.prepare_support(bank, sy, C, precision=prec, block_s=block_s)
+        qc = q[:b].to(prep.s.dtype).contiguous()
+        got, want = MP.manual_fused_cuda(qc, prep, C), MP._manual_fused_plain(qc, prep, C)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        ok = bool(torch.isfinite(got).all()) and within(got, want, **TOL[prec])
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        print(f"lab manual_fused {prec} B={b} block_s={block_s}: max|err| {err:.3e} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"manual_fused disagrees with its plain version: {prec} B={b}")
+        key = f"b{b}_bs{block_s}"
+        args = (qc, prep)
+        cases += [((prec, key), lambda a=args: MP.manual_fused_cuda(*a, C)),
+                  ((prec, key, "K2"), lambda a=args: F.nw_prepared_cuda(*a, scale, "l2", C))]
+        if prec not in first:
+            first[prec] = key
+            cases.append(((prec, "plain"), lambda a=args: MP._manual_fused_plain(*a, C)))
+            r.update(bound(b * D * prep.s.element_size() + prep.s.numel() * prep.s.element_size()
+                           + 4 * (2 * S + b * C), 2 * b * S * D, prec))
+        r["cases"][key] = {"bank_bytes": prep.s.numel() * prep.s.element_size()}
+    k2_first = dict(cases)[("f32", first["f32"], "K2")]
+    k2_before = time_ms(k2_first, flush)
+    t = lab_times(cases)
+    for prec, r in res.items():
+        for key, c in r["cases"].items():
+            c.update(ms=t[(prec, key)], k2_ms=t[(prec, key, "K2")])
+            c["frac_vs_stream"] = c.pop("bank_bytes") / (stream_gbps * 1e9) / (c["ms"] * 1e-3)
+            print(f"lab manual_fused {prec} {key}: {c['ms']:.4f} ms, K2 on the same bank "
+                  f"{c['k2_ms']:.4f} ms, frac_vs_stream {c['frac_vs_stream']:.3f}")
+        c = r["cases"][first[prec]]
+        r.update(ms=c["ms"], k2_ms=c["k2_ms"], frac_vs_stream=c["frac_vs_stream"],
+                 plain_ms=t[(prec, "plain")])
+    res["f32"]["k2_zero_flush_ms"] = _flush_methods(
+        flush, f"K2 f32 at the CUB shape ({first['f32']})", k2_first, k2_before,
+        res["f32"]["k2_ms"])
+    return res
+
+
+def blocks_phase() -> dict:
+    """L2 ``fused_blocks`` at (64, 56, 56, 64) bf16, two blocks: against its
+    plain version (1e-2 of max|plain|, cosine 0.9999) on random folded
+    weights, and on the port's ``BasicBlock``s folded by
+    ``fold_basic_block`` against the blocks themselves in bf16 (2e-2, as the
+    lab); timed by ``lab_times`` beside its plain version and cuDNN running
+    those two blocks (bf16, channels_last)."""
+    import copy
+
+    import torch
+
+    from nwhead_tpu_torch.labs import block_lab as BL
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(9)
+    B, H, W, C = BLOCKS_SHAPE
+    x = torch.from_numpy(rng.standard_normal(BLOCKS_SHAPE).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    blocks = BL.random_blocks(C, 2, rng, dev)
+    w, b = BL.pack_weights([f for blk in blocks for f in BL.fold_basic_block(blk)])
+    w, b = w.to(dev), b.to(dev)
+    got, want = BL.fused_blocks_cuda(x, w, b), BL._fused_blocks_plain(x, w, b)
+    bf_blocks = [copy.deepcopy(blk).to(torch.bfloat16) for blk in blocks]
+    with torch.no_grad():
+        ref = BL.layer_reference(bf_blocks, x)
+    torch.cuda.synchronize()
+    gf, wf = got.float().flatten(), want.float().flatten()
+    rel, ref_rel = BL.rel_to_max(got, want), BL.rel_to_max(got, ref)
+    cos = float(torch.nn.functional.cosine_similarity(gf, wf, dim=0))
+    ok = bool(torch.isfinite(gf).all()) and rel <= 1e-2 and cos >= 0.9999 and ref_rel <= 2e-2
+    print(f"lab fused_blocks {BLOCKS_SHAPE}: vs plain {rel:.3e} of max, cosine {cos:.7f}; vs the "
+          f"port's BasicBlocks in bf16 {ref_rel:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("fused_blocks disagrees with its plain version or the BasicBlocks")
+
+    def cudnn():
+        with torch.no_grad():
+            return BL.layer_reference(bf_blocks, x)
+
+    t = lab_times([("kernel", lambda: BL.fused_blocks_cuda(x, w, b)),
+                   ("plain", lambda: BL._fused_blocks_plain(x, w, b)), ("cudnn", cudnn)])
+    convs = 4 * 2 * B * H * W * 9 * C * C
+    r = {"max_abs_err": float((gf - wf).abs().max()), "rel_to_max": rel, "cosine": cos,
+         "ref_rel": ref_rel, "ms": t["kernel"], "plain_ms": t["plain"],
+         "cudnn_layer1_ms": t["cudnn"],
+         **bound(2 * 2 * B * H * W * C + w.numel() * 2 + b.numel() * 4, convs, "bf16")}
+    print(f"lab fused_blocks: kernel {r['ms']:.4f} ms, cuDNN layer1 {r['cudnn_layer1_ms']:.4f} "
+          f"ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+          f"{convs / (r['ms'] * 1e-3) / 1e12:.1f} TFLOP/s")
+    return r
+
+
+def lab_kernel_phase(flush) -> dict:
+    """The lab kernels against their plain versions and timed by the labs'
+    harness: K13/L4 and L1's stream, L1 fused_variant, L3 manual_fused, L2
+    fused_blocks. ``flush`` serves ``time_ms``'s readings of K1 and K2
+    beside the harness's, which measure what the flush method moves."""
+    res = {"stream": stream_phase()}
+    gbps = res["stream"]["stream"][STREAM_ROWS[0]]["gbps"]  # the labs' flushed yardstick
+    res["fused_variant"] = variant_phase(flush, gbps)
+    res["manual_fused"] = manual_phase(flush, gbps)
+    res["fused_blocks"] = blocks_phase()
+    return res
+
+
+def lab_phase() -> dict:
+    """The labs as a user runs them, ``python -m nwhead_tpu_torch.labs.<lab>``
+    (their ``main``, in this process so that the launches count):
+    ``kernel_lab --quick``, ``manual_pipe_lab``, ``prepared_lab``,
+    ``roofline_lab`` and ``block_lab``, each exiting 0. Every lab kernel
+    (and every fused_variant and manual_fused variant) must launch."""
+    import importlib
+
+    from nwhead_tpu_torch.labs import LAB_KERNELS, lab_wrapper
+    from nwhead_tpu_torch.labs.kernel_lab import variant_key
+
+    for kernel in LAB_KERNELS:
+        w = lab_wrapper(kernel)
+        w.launches = 0
+        if hasattr(w, "by_variant"):
+            w.by_variant.clear()
+    seconds = {}
+    for lab, argv in LAB_RUNS:
+        t0 = time.perf_counter()
+        print(f"--- python -m nwhead_tpu_torch.labs.{lab} {' '.join(argv)}", flush=True)
+        rc = importlib.import_module(f"nwhead_tpu_torch.labs.{lab}").main(argv)
+        seconds[lab] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"nwhead_tpu_torch.labs.{lab} exited {rc}")
+    launches = {k: lab_wrapper(k).launches for k in LAB_KERNELS}
+    by_variant = {k: dict(lab_wrapper(k).by_variant) for k in ("fused_variant", "manual_fused")}
+    want_variants = {"fused_variant": [variant_key(*v[:3]) for v in lab_variants().values()],
+                     "manual_fused": list(TOL)}
+    missing = [k for k, n in launches.items() if n == 0] + [
+        f"{k} {v}" for k, vs in want_variants.items() for v in vs if not by_variant[k].get(v)]
+    print(f"lab launches: {launches}; by variant: {by_variant}; seconds: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    if missing:
+        raise AssertionError(f"the labs launched no {missing}")
+    return {"launches": launches, "by_variant": by_variant, "seconds": seconds}
+
+
+def lab_entries(kern: dict, labs: dict) -> list:
+    """The ``kernels`` JSON entries of the lab kernels: launches from the
+    lab phase; times from the lab kernel phase (stream at 196,608 rows,
+    the others at the CUB shape or layer1 at B=64)."""
+    from nwhead_tpu_torch.labs.kernel_lab import variant_key
+
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+    st = kern["stream"]
+    big, small = st["stream"][STREAM_ROWS[-1]], st["stream"][STREAM_ROWS[0]]
+    entries = [
+        {"name": "stream_f32", "route": "cuda", "source": LAB_STREAM_SOURCE,
+         "replaces": LAB_REPLACES["stream"], "launches": labs["launches"]["stream"],
+         "max_abs_err": st["stream"]["max_abs_err"], **{k: big[k] for k in keys},
+         "library_ms": big["library_ms"], "gbps": big["gbps"],
+         "rows_12288_ms": small["ms"], "rows_12288_l2_resident_ms": small["l2_ms"]},
+        {"name": "stream_reduce_f32", "route": "cuda", "source": LAB_STREAM_SOURCE,
+         "replaces": LAB_REPLACES["stream_reduce"], "launches": labs["launches"]["stream_reduce"],
+         "max_abs_err": st["stream_reduce"]["max_abs_err"],
+         **{k: st["stream_reduce"][k] for k in keys + ("library_ms", "touch_ms")}},
+    ]
+    fv = kern["fused_variant"]
+    for name, v in lab_variants().items():
+        r = fv[name]
+        entries.append({"name": f"fused_variant_{name}", "route": "cuda", "source": LAB_NW_SOURCE,
+                        "replaces": LAB_REPLACES["fused_variant"],
+                        "launches": labs["by_variant"]["fused_variant"].get(variant_key(*v[:3]), 0),
+                        "max_abs_err": r["max_abs_err"], **{k: r[k] for k in keys},
+                        "library_ms": None, "k1_ms": fv["k1_ms"],
+                        "k1_zero_flush_ms": fv["k1_zero_flush_ms"],
+                        "frac_vs_stream": r["frac_vs_stream"]})
+    for prec, r in kern["manual_fused"].items():
+        entries.append({"name": f"manual_fused_{prec}", "route": "cuda", "source": LAB_NW_SOURCE,
+                        "replaces": LAB_REPLACES["manual_fused"],
+                        "launches": labs["by_variant"]["manual_fused"].get(prec, 0),
+                        "max_abs_err": r["max_abs_err"], **{k: r[k] for k in keys},
+                        "library_ms": None, "k2_ms": r["k2_ms"],
+                        "frac_vs_stream": r["frac_vs_stream"], "cases": r["cases"],
+                        **({"k2_zero_flush_ms": r["k2_zero_flush_ms"]}
+                           if "k2_zero_flush_ms" in r else {})})
+    r = kern["fused_blocks"]
+    entries.append({"name": "fused_blocks_bf16", "route": "cuda", "source": LAB_BLOCKS_SOURCE,
+                    "replaces": LAB_REPLACES["fused_blocks"],
+                    "launches": labs["launches"]["fused_blocks"], "max_abs_err": r["max_abs_err"],
+                    **{k: r[k] for k in keys}, "library_ms": None,
+                    "cudnn_layer1_ms": r["cudnn_layer1_ms"]})
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -2302,6 +2743,12 @@ def main() -> int:
     t0 = time.perf_counter()
     sharded_served = sharded_serving_phase(flush, bank)
     phase_s["sharded serving and streaming"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lab_kern = lab_kernel_phase(flush)
+    phase_s["lab kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    labs = lab_phase()
+    phase_s["labs"] = time.perf_counter() - t0
     del flush, bank
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2359,6 +2806,7 @@ def main() -> int:
     entries += quant_entries(quant, vit_int8_kern, vit_int8_served, sl)
     entries += ivf_entries(ivf_kern, ivf_served)
     entries += sharded_entries(sharded_kern, sharded_served, mesh_served)
+    entries += lab_entries(lab_kern, labs)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

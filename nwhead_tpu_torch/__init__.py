@@ -25,6 +25,12 @@ batch routes to), support-sharded serving (``parallel``: a bank split over
 a mesh's devices, each shard's partials merged exactly; ``NWNet(mesh=...)``,
 ``--mesh``) and a host-resident bank streamed in chunks
 (``nw/streaming.py``).
+
+The kernel labs and the HBM yardstick (``labs``, loaded on first use:
+``python -m nwhead_tpu_torch.labs.<lab>``) run K13/L4 ``stream`` and L1
+``stream_reduce`` (``csrc/lab_stream.cu``), L1 ``fused_variant`` and L3
+``manual_fused`` (``csrc/lab_nw.cu``) and L2 ``fused_blocks``
+(``csrc/lab_blocks.cu``).
 """
 
 __version__ = "0.1.0"
@@ -36,9 +42,11 @@ from nwhead_tpu_torch.ops.nw import nw_log_probs
 def capabilities() -> dict:
     """What this process can run: torch and CUDA versions, the visible CUDA
     devices, ``nvcc``, and which kernel libraries are already built for the
-    current sources. A CPU-only process reports no device."""
+    current sources, and the labs' kernels with their libraries. A CPU-only
+    process reports no device."""
     import torch
 
+    from nwhead_tpu_torch.labs import LAB_KERNELS
     from nwhead_tpu_torch.ops import _cuda
 
     has_cuda = torch.cuda.is_available()
@@ -55,6 +63,7 @@ def capabilities() -> dict:
         "nvcc": _cuda.find_nvcc(),
         "kernels_built": {src.stem: _cuda.library_path(src.stem).exists()
                           for src in _cuda.sources()},
+        "lab_kernels": dict(LAB_KERNELS),
     }
 
 
@@ -76,10 +85,10 @@ def __getattr__(name):
         from nwhead_tpu_torch.ops import fused_nw
 
         return getattr(fused_nw, name)
-    if name == "parallel":
+    if name in ("parallel", "labs"):
         import importlib
 
-        return importlib.import_module("nwhead_tpu_torch.parallel")
+        return importlib.import_module(f"nwhead_tpu_torch.{name}")
     if name in ("make_mesh", "ShardedSupportBank"):
         from nwhead_tpu_torch import parallel
 
@@ -100,6 +109,7 @@ __all__ = [
     "NWHead",
     "load_model",
     "parallel",
+    "labs",
     "make_mesh",
     "ShardedSupportBank",
     "__version__",

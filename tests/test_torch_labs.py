@@ -1,0 +1,429 @@
+"""The port's kernel labs and HBM yardstick (``nwhead_tpu_torch/labs/``)
+against the JAX package's ``bench.py`` and ``scripts/`` labs.
+
+The same seeded numpy inputs go through the JAX lab function and the
+port's counterpart on the CPU, where the port runs its plain versions and
+the Pallas kernels run in interpret mode: ``stream_reduce``,
+``fused_variant`` and ``bench._stream_case`` through ``pl.pallas_call``
+wrapped to pass ``interpret=True`` (they take no ``interpret`` argument),
+``manual_fused`` and ``fused_blocks`` through their own ``interpret=True``.
+``bench.py`` and ``scripts/`` are imported by path, inside the tests: the
+card's machine has no jax.
+
+Tolerances: the stream sums within rtol 1e-5 of the sum of |x| they add;
+``fused_variant`` and ``manual_fused`` log-probs within 2e-5 (bf16 casts
+and banks: 1e-4 and 2e-3), the same f32 sums in another order;
+``fused_blocks`` within 1e-2 of max|JAX output|, since a bf16
+intermediate may round one ulp apart where the f32 sums' order differs.
+
+The CUDA kernels are held to their plain versions on the card only (marker
+``gpu``): ``python -m pytest --noconftest -m gpu tests/test_torch_labs.py``.
+"""
+
+import contextlib
+import importlib.util
+import os
+import runpy
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from nwhead_tpu_torch import labs
+from nwhead_tpu_torch.labs import block_lab, kernel_lab, manual_pipe_lab
+from nwhead_tpu_torch.labs import stream as lab_stream
+from nwhead_tpu_torch.ops.fused_nw import prepare_support
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+LABS = ("kernel_lab", "manual_pipe_lab", "prepared_lab", "roofline_lab", "block_lab")
+
+
+def _script(relpath: str):
+    """Import ``bench.py`` or a ``scripts/`` lab by path; ``sys.path`` as it
+    was afterwards (the labs insert the repository and ``scripts/``)."""
+    saved = list(sys.path)
+    sys.path[:0] = [REPO, os.path.join(REPO, "scripts")]
+    try:
+        name = "_jax_lab_" + os.path.basename(relpath)[:-3]
+        spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, relpath))
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        return module
+    finally:
+        sys.path[:] = saved
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    """``pl.pallas_call`` passing ``interpret=True``, for the lab kernels
+    that take no ``interpret`` argument."""
+    from jax.experimental import pallas as pl
+
+    real = pl.pallas_call
+
+    def call(*args, **kwargs):
+        kwargs["interpret"] = True
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(pl, "pallas_call", call)
+
+
+def _np(x):
+    return np.asarray(x, dtype=np.float32)
+
+
+def _nw_inputs(seed=0, B=5, S=1100, D=40, C=7, masked=0.1):
+    """Raw NW lab inputs with a ragged S and masked rows (label -1)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, D)).astype(np.float32)
+    s = rng.standard_normal((S, D)).astype(np.float32)
+    sy = rng.integers(0, C, size=S).astype(np.int32)
+    sy[rng.random(S) < masked] = -1
+    return q, s, sy, C
+
+
+# --- K13 / L4 stream and L1 stream_reduce --------------------------------
+
+
+@pytest.mark.parametrize("where", ["bench", "roofline_lab"])
+def test_stream_matches_the_jax_yardstick(interpret, where):
+    """``stream_case`` draws the bench's bank from the same generator, and
+    ``stream(s).mean()`` is the JAX kernel's mean."""
+    if where == "bench":
+        (_, fn, args), nbytes = _script("bench.py")._stream_case(np.random.default_rng(3),
+                                                                 D=128, rows=4096)
+    else:
+        (_, fn, args), nbytes = _script("scripts/roofline_lab.py").stream_case(
+            np.random.default_rng(3), 4096, 128)
+    want = float(fn(*args, 0.0))
+    (name, port_fn, (s,)), port_bytes = lab_stream.stream_case(np.random.default_rng(3), D=128,
+                                                               rows=4096, device="cpu")
+    assert name == "stream" and port_bytes == nbytes == 4096 * 128 * 4
+    np.testing.assert_array_equal(s.numpy(), _np(args[0]))
+    got = float(port_fn(s))
+    assert got == pytest.approx(float(lab_stream.stream(s).mean()))
+    assert got == pytest.approx(want, rel=1e-5)
+
+
+@pytest.mark.parametrize("touch_only", [False, True])
+@pytest.mark.parametrize("block_s", [512, 1024])
+def test_stream_reduce_matches_kernel_lab(interpret, block_s, touch_only):
+    import jax.numpy as jnp
+
+    lab = _script("scripts/kernel_lab.py")
+    x = np.random.default_rng(1).standard_normal((3 * block_s + 40, 128)).astype(np.float32)
+    want = _np(lab.stream_reduce(jnp.asarray(x), block_s, touch_only))
+    got = lab_stream.stream_reduce(torch.from_numpy(x), block_s, touch_only).numpy()
+    assert got.shape == want.shape == ((8 if touch_only else 1), 128)
+    tiles = np.abs(x[:3 * block_s]).reshape(3, block_s, 128)
+    scale = tiles[:, :8].sum(0) if touch_only else tiles.sum((0, 1))[None]
+    assert np.all(np.abs(got - want) <= 1e-5 * scale)
+
+
+def test_stream_refuses_what_it_cannot_read():
+    s = torch.zeros(100, 64)
+    with pytest.raises(ValueError, match="whole tile"):
+        lab_stream.stream_reduce(s, 128)
+    with pytest.raises(ValueError, match="CUDA"):
+        lab_stream.stream_cuda(torch.zeros(2048, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        lab_stream.stream_reduce_cuda(torch.zeros(2048, 64), 1024, True)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        lab_stream._chunk_rows(1001, 64, 32768)
+    assert lab_stream._chunk_rows(2048, 512, 32768) == 8
+    assert lab_stream._chunk_rows(2048, 128, 32768) == 32
+    assert lab_stream._chunks_per_block(96, 256, 132) == 32  # 768 blocks over 132 SMs
+
+
+@pytest.mark.parametrize("touch_only", [False, True])
+def test_plain_agreement_flags_a_wrong_sum(touch_only):
+    s = torch.from_numpy(np.random.default_rng(4).standard_normal((1024, 64)).astype(np.float32))
+    want = lab_stream._stream_reduce_plain(s, 256, touch_only)
+    assert lab_stream.plain_agreement(want.clone(), s, 256, touch_only) == (True, 0.0)
+    off = want.clone()
+    off[0, 3] += 1e-2  # one tile's row missed is far more than this
+    ok, err = lab_stream.plain_agreement(off, s, 256, touch_only)
+    assert not ok and err == pytest.approx(1e-2, rel=1e-3)
+    off[0, 3] = float("nan")
+    assert not lab_stream.plain_agreement(off, s, 256, touch_only)[0]
+
+
+@pytest.mark.parametrize("kernel", sorted(labs.LAB_KERNELS))
+def test_lab_wrapper_is_the_counted_kernel_wrapper(kernel):
+    from nwhead_tpu_torch.ops import _cuda
+
+    w = labs.lab_wrapper(kernel)
+    assert w.__name__.endswith("_cuda") and isinstance(w.launches, int)
+    assert labs.LAB_KERNELS[kernel] in {src.stem for src in _cuda.sources()}
+
+
+# --- L1 fused_variant --------------------------------------------------------
+
+
+@pytest.mark.parametrize("cast", ["f32", "bf16"])
+@pytest.mark.parametrize("agg", ["f32", "split"])
+@pytest.mark.parametrize("dist", ["f32", "f32s2", "x3"])
+def test_fused_variant_matches_kernel_lab(interpret, dist, agg, cast):
+    """Every distance and aggregation option, both casts, at ``block_s``
+    512 over a ragged bank with masked rows; the TPU label layout (``wide``
+    or ``compact``) alternates and changes nothing in the port."""
+    import jax.numpy as jnp
+
+    lab = _script("scripts/kernel_lab.py")
+    q, s, sy, C = _nw_inputs()
+    labels = "wide" if (dist, agg) in (("f32", "f32"), ("x3", "split"), ("f32s2", "f32")) \
+        else "compact"
+    opts = dict(labels=labels, dist=dist, agg=agg, block_s=512, cast=cast)
+    want = _np(lab.fused_variant(jnp.asarray(q), jnp.asarray(s), jnp.asarray(sy), C, **opts))
+    got = kernel_lab.fused_variant(torch.from_numpy(q), torch.from_numpy(s), torch.from_numpy(sy),
+                                   C, **opts).numpy()
+    tol = 1e-4 if cast == "bf16" else 2e-5
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("probe", [dict(labels="none"), dict(dist="skip"), dict(agg="skip")])
+def test_fused_variant_refuses_the_timing_probes(probe):
+    q, s, sy, C = _nw_inputs(B=2, S=64, D=8)
+    with pytest.raises(ValueError, match="timing probe"):
+        kernel_lab.fused_variant(torch.from_numpy(q), torch.from_numpy(s), torch.from_numpy(sy),
+                                 C, **probe)
+
+
+def test_fused_variant_inputs_and_refusals():
+    """The x3 operands split the bank as the TPU lab does; the kernel
+    wrapper refuses CPU tensors; ``mm_prec``/``agg_prec`` change nothing."""
+    q, s, sy, C = _nw_inputs(B=3, S=200, D=16)
+    qt, st = torch.from_numpy(q), torch.from_numpy(s)
+    x = kernel_lab.variant_inputs(qt, st, "x3")
+    assert x.s.dtype == x.s_lo.dtype == torch.bfloat16 and x.q.dtype == torch.float32
+    torch.testing.assert_close(x.s.float() + x.s_lo.float(), st, rtol=0, atol=1e-4)
+    torch.testing.assert_close(x.s2, (st * st).sum(1))
+    assert x.cast == "f32" and kernel_lab.variant_inputs(qt.bfloat16(), st.bfloat16(),
+                                                         "f32").cast == "bf16"
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel_lab.fused_variant_cuda(x, torch.from_numpy(sy), C, "x3", "f32", 512)
+    base = kernel_lab.fused_variant(qt, st, sy, C)
+    hi = kernel_lab.fused_variant(qt, st, sy, C, mm_prec="highest", agg_prec="high")
+    torch.testing.assert_close(base, hi, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="mm_prec"):
+        kernel_lab.fused_variant(qt, st, sy, C, mm_prec="fastest")
+
+
+# --- L3 manual_fused ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("block_s", [512, 1024])
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_manual_fused_matches_manual_pipe_lab(precision, block_s):
+    import jax.numpy as jnp
+
+    from nwhead_tpu.ops import pallas_nw
+
+    lab = _script("scripts/manual_pipe_lab.py")
+    q, s, sy, C = _nw_inputs(seed=2, B=6, S=1500, D=64, C=9, masked=0.0)
+    jprep = pallas_nw.prepare_support(jnp.asarray(s), jnp.asarray(sy), C, block_s=block_s,
+                                      precision=precision)
+    # The lab unpacks four fields (s, s2, lane labels, sublane labels); the
+    # JAX PreparedSupport has grown to six since, and the lab is kept as it
+    # was, so it is handed the first four.
+    want = _np(lab.manual_fused(jnp.asarray(q), tuple(jprep[:4]), C, interpret=True))
+    prep = prepare_support(torch.from_numpy(s), sy, C, precision=precision, block_s=block_s)
+    got = manual_pipe_lab.manual_fused(torch.from_numpy(q), prep, C).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-5 if precision == "f32" else 2e-3)
+
+
+def test_manual_fused_refuses_untiled_banks_and_cpu_launches():
+    q, s, sy, C = _nw_inputs(B=2, S=300, D=16, masked=0.0)
+    with pytest.raises(ValueError, match="block_s"):
+        manual_pipe_lab.manual_fused(torch.from_numpy(q), prepare_support(torch.from_numpy(s),
+                                                                           sy, C), C)
+    prep = prepare_support(torch.from_numpy(s), sy, C, block_s=128)
+    with pytest.raises(ValueError, match="CUDA"):
+        manual_pipe_lab.manual_fused_cuda(torch.from_numpy(q), prep, C)
+
+
+# --- L2 fused_blocks ---------------------------------------------------------
+
+
+def _block_weights(rng, C, n_blocks):
+    """Per conv: HWIO weights and BN scale, bias, mean, var as numpy f32."""
+    convs = []
+    for _ in range(2 * n_blocks):
+        w = (rng.standard_normal((3, 3, C, C)) * (2.0 / (9 * C)) ** 0.5).astype(np.float32)
+        bn = [rng.uniform(0.5, 1.5, C), rng.normal(0, 0.2, C), rng.normal(0, 0.2, C),
+              rng.normal(0.3, 0.2, C) ** 2 + 0.5]
+        convs.append((w, *[a.astype(np.float32) for a in bn]))
+    return convs
+
+
+@pytest.mark.parametrize("n_blocks", [1, 2])
+def test_fused_blocks_matches_block_lab(n_blocks):
+    """B=2, C=16 at the lab's 56 x 56: each package folds the same numpy
+    weights and BN statistics with its own ``fold_bn`` and packs them."""
+    import jax.numpy as jnp
+
+    lab = _script("scripts/block_lab.py")
+    rng = np.random.default_rng(4)
+    C = 16
+    x = rng.standard_normal((2, 56, 56, C)).astype(np.float32)
+    convs = _block_weights(rng, C, n_blocks)
+    jw, jb = lab.pack_weights([lab.fold_bn(*c) for c in convs])
+    xj = jnp.asarray(x).astype(jnp.bfloat16)
+    want = _np(lab.fused_blocks(xj, jw, jb, n_blocks=n_blocks, interpret=True).astype(jnp.float32))
+    w, b = block_lab.pack_weights([block_lab.fold_bn(*c) for c in convs])
+    got = block_lab.fused_blocks(torch.from_numpy(x).to(torch.bfloat16), w, b,
+                                 n_blocks=n_blocks).float().numpy()
+    assert got.shape == want.shape == x.shape
+    assert np.max(np.abs(got - want)) <= 1e-2 * np.max(np.abs(want))
+
+
+def test_fold_flax_blocks_packs_the_block_lab_weights():
+    """``fold_flax_blocks`` on flax ``BasicBlock.init`` variables (batch
+    statistics drawn so the fold is exercised) gives the TPU lab's folded
+    weights, tap by tap, and its biases."""
+    import jax
+    import jax.numpy as jnp
+
+    from nwhead_tpu.models.resnet import BasicBlock
+
+    lab = _script("scripts/block_lab.py")
+    rng = np.random.default_rng(5)
+    C = 16
+    variables = []
+    for i in range(2):
+        v = BasicBlock(planes=C, dtype=jnp.bfloat16).init(
+            jax.random.PRNGKey(i), jnp.zeros((1, 8, 8, C)), train=False)
+        v = jax.tree_util.tree_map(np.asarray, v)
+        for bn in ("bn1", "bn2"):
+            v["batch_stats"][bn] = {"mean": rng.normal(0, 0.2, C).astype(np.float32),
+                                    "var": (rng.normal(0.3, 0.2, C) ** 2 + 0.5).astype(np.float32)}
+        variables.append(v)
+    w, b = block_lab.fold_flax_blocks(variables)
+    folded = [lab.fold_bn(v["params"][c]["kernel"], v["params"][n]["scale"],
+                          v["params"][n]["bias"], v["batch_stats"][n]["mean"],
+                          v["batch_stats"][n]["var"])
+              for v in variables for c, n in (("conv1", "bn1"), ("conv2", "bn2"))]
+    jw, jb = lab.pack_weights(folded)  # im2col: (2n, C_out, 9 C_in)
+    jw = _np(jnp.asarray(jw, jnp.float32)).reshape(4, C, 9, C).transpose(0, 2, 3, 1)
+    np.testing.assert_array_equal(w.float().numpy(), jw)
+    np.testing.assert_array_equal(b.numpy(), _np(jb)[:, 0, :])
+
+
+def test_fold_basic_block_folds_the_port_block():
+    """The port's eval-mode BasicBlocks in f32 against the plain
+    ``fused_blocks`` on their folded, bf16-packed weights (2e-2 of max, as
+    the TPU lab holds its kernel to flax)."""
+    rng = np.random.default_rng(6)
+    blocks = block_lab.random_blocks(8, 2, rng, "cpu")
+    w, b = block_lab.pack_weights([f for blk in blocks for f in block_lab.fold_basic_block(blk)])
+    x = torch.from_numpy(rng.standard_normal((2, 12, 12, 8)).astype(np.float32)).to(
+        torch.bfloat16)
+    with torch.no_grad():
+        want = block_lab.layer_reference(blocks, x.float())
+    got = block_lab.fused_blocks(x, w, b)
+    assert block_lab.rel_to_max(got, want) < 2e-2
+    with pytest.raises(ValueError, match="pack_weights"):
+        block_lab.fused_blocks(x, w[:2], b)
+    with pytest.raises(ValueError, match="CUDA"):
+        block_lab.fused_blocks_cuda(x, w, b)
+
+
+# --- the lab CLIs -----------------------------------------------------------
+
+
+# runpy warns that the module is imported already (this file imports it).
+@pytest.mark.filterwarnings("ignore:.*found in sys.modules after import of package:RuntimeWarning")
+@pytest.mark.parametrize("argv", [[lab] for lab in LABS] + [["kernel_lab", "--interleave"]],
+                         ids=lambda a: " ".join(a))
+def test_lab_cli_runs_on_the_cpu(argv, monkeypatch, capsys):
+    """``python -m nwhead_tpu_torch.labs.<lab> --device cpu --tiny``, run
+    in this process: parity checked, timing not measured, exit 0."""
+    monkeypatch.setattr(sys, "argv", [argv[0], *argv[1:], "--device", "cpu", "--tiny"])
+    with pytest.raises(SystemExit) as done:
+        runpy.run_module(f"nwhead_tpu_torch.labs.{argv[0]}", run_name="__main__",
+                         alter_sys=True)
+    assert done.value.code == 0, capsys.readouterr()
+    assert "timing not measured" in capsys.readouterr().out
+
+
+def test_lab_cli_without_a_card_is_an_error(monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    from nwhead_tpu_torch.labs import roofline_lab
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        roofline_lab.main(["--tiny"])
+
+
+# --- the kernels on the card -------------------------------------------------
+
+
+@contextlib.contextmanager
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (and nvcc to build the kernels)")
+    yield torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,D", [(12288, 512), (4096, 128), (6144, 384)])
+def test_cuda_stream_matches_plain(rows, D):
+    with _card() as dev:
+        s = torch.from_numpy(np.random.default_rng(0).standard_normal((rows, D)).astype(
+            np.float32)).to(dev)
+        for block_s in sorted({bs for bs, _ in kernel_lab.STREAM_SETTINGS}):
+            for touch in (False, True):
+                got = lab_stream.stream_reduce_cuda(s, block_s, touch)
+                assert lab_stream.plain_agreement(got, s, block_s, touch)[0], (block_s, touch)
+        torch.testing.assert_close(lab_stream.stream_cuda(s), lab_stream._stream_plain(s),
+                                   rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", kernel_lab.DECOMPOSITION + (
+    dict(labels="wide", dist="x3", agg="split", block_s=512, block_b=64),))
+def test_cuda_fused_variant_matches_plain(variant):
+    with _card() as dev:
+        for B, S, D, C in ((64, 5994, 512, 200), (5, 1100, 40, 7)):
+            q, s, sy, _ = _nw_inputs(B=B, S=S, D=D, C=C)
+            qt, st = torch.from_numpy(q).to(dev), torch.from_numpy(s).to(dev)
+            got = kernel_lab.fused_variant(qt, st, torch.from_numpy(sy), C, **variant)
+            cast = variant.get("cast", "f32")
+            qc, sc = (qt, st) if cast == "f32" else (qt.bfloat16(), st.bfloat16())
+            want = kernel_lab._fused_variant_plain(qc, sc, torch.from_numpy(sy).to(dev), C,
+                                                   variant["dist"], variant["agg"])
+            torch.testing.assert_close(got, want, rtol=0, atol=2e-4 if cast == "f32" else 2e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("block_s", [1024, 2048])
+def test_cuda_manual_fused_matches_plain(precision, block_s):
+    with _card() as dev:
+        for B, S, D, C in ((64, 5994, 512, 200), (8, 5994, 512, 200), (5, 1500, 72, 9)):
+            q, s, sy, _ = _nw_inputs(B=B, S=S, D=D, C=C)
+            prep = prepare_support(torch.from_numpy(s).to(dev), sy, C, precision=precision,
+                                   block_s=block_s)
+            qc = torch.from_numpy(q).to(dev, prep.s.dtype)
+            got = manual_pipe_lab.manual_fused_cuda(qc, prep, C)
+            want = manual_pipe_lab._manual_fused_plain(qc, prep, C)
+            torch.testing.assert_close(got, want, rtol=0,
+                                       atol=2e-4 if precision == "f32" else 2e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,n_blocks", [((4, 56, 56, 64), 2), ((2, 56, 56, 16), 1),
+                                            ((3, 20, 13, 32), 2)])
+def test_cuda_fused_blocks_matches_plain(shape, n_blocks):
+    with _card() as dev:
+        rng = np.random.default_rng(7)
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)
+        w, b = block_lab.pack_weights([block_lab.fold_bn(*c)
+                                       for c in _block_weights(rng, shape[-1], n_blocks)])
+        w, b = w.to(dev), b.to(dev)
+        got = block_lab.fused_blocks_cuda(x, w, b, n_blocks)
+        want = block_lab._fused_blocks_plain(x, w, b, n_blocks)
+        assert block_lab.rel_to_max(got, want) <= 1e-2

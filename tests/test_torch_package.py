@@ -28,6 +28,10 @@ MODULES = (
     "nwhead_tpu_torch.models.vit", "nwhead_tpu_torch.models.serving_vit",
     "nwhead_tpu_torch.parallel", "nwhead_tpu_torch.parallel.mesh",
     "nwhead_tpu_torch.parallel.sharded_bank", "nwhead_tpu_torch.nw.streaming",
+    "nwhead_tpu_torch.labs", "nwhead_tpu_torch.labs.timing", "nwhead_tpu_torch.labs.stream",
+    "nwhead_tpu_torch.labs.kernel_lab", "nwhead_tpu_torch.labs.manual_pipe_lab",
+    "nwhead_tpu_torch.labs.prepared_lab", "nwhead_tpu_torch.labs.roofline_lab",
+    "nwhead_tpu_torch.labs.block_lab",
 )
 
 
@@ -37,9 +41,10 @@ def test_import_pulls_in_no_jax():
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
         "import nwhead_tpu_torch as p\n"
         "p.NWNet, p.NWHead, p.load_model, p.prepare_support, p.nw_fused_log_probs\n"
-        "p.parallel, p.make_mesh, p.ShardedSupportBank\n"
+        "p.parallel, p.make_mesh, p.ShardedSupportBank, p.labs\n"
         "print(json.dumps(sorted(m for m in sys.modules"
-        " if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'nwhead_tpu', 'sklearn', 'triton'))))\n"
+        " if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'nwhead_tpu', 'sklearn', 'triton',"
+        " 'scripts', 'bench', 'timing'))))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
@@ -54,7 +59,7 @@ def test_package_import_stays_light():
         "import json, sys\n"
         "import nwhead_tpu_torch as p\n"
         "before = sorted(m for m in sys.modules if m.startswith(('nwhead_tpu_torch.parallel',"
-        " 'nwhead_tpu_torch.nw', 'nwhead_tpu_torch.models')))\n"
+        " 'nwhead_tpu_torch.nw', 'nwhead_tpu_torch.models', 'nwhead_tpu_torch.labs')))\n"
         "mesh = p.make_mesh(1, 2, devices=['cpu', 'cpu'])\n"
         "print(json.dumps([before, mesh.shape, 'nwhead_tpu_torch.parallel' in sys.modules]))\n"
     )
@@ -75,7 +80,11 @@ def test_capabilities_report_no_gpu_on_a_cpu_host():
     assert caps["device_count"] == 0 and caps["devices"] == []
     assert caps["capability"] is None
     assert set(caps["kernels_built"]) == {"nw_fused", "nw_prepared", "vit_attn", "vit_attn_bwd",
-                                          "vit_mlp", "vit_mlp_bwd"}
+                                          "vit_mlp", "vit_mlp_bwd", "lab_stream", "lab_nw",
+                                          "lab_blocks"}
+    assert caps["lab_kernels"] == {"stream": "lab_stream", "stream_reduce": "lab_stream",
+                                   "fused_variant": "lab_nw", "manual_fused": "lab_nw",
+                                   "fused_blocks": "lab_blocks"}
     assert all(v in (True, False) for v in caps["kernels_built"].values())
     assert json.dumps(caps)  # plain data, printable as JSON
 
