@@ -26,13 +26,15 @@ package beside it. With one, in order:
    support, clip's scale gradient included; times each at the episode's
    shape;
 5. ViT kernel phase: K7 (attention off the packed qkv) f32 and bf16 at
-   ViT-S/14's B=64, N=257, H=6, hd=64, at a ragged N=197, at N=1370 and at
-   ViT-B/14's 12 heads; the K9 forward (fused MLP) f32 and bf16 at M=16,448
+   ViT-S/14's B=64, N=257, H=6, hd=64, at a ragged N=197, at N=1370, at
+   ViT-B/14's 12 heads and at the edges of its tiles (N of 1, 8, 16, 17,
+   64 and 65, hd 32, 64 and 128, B=2); the K9 forward (fused MLP) f32 and bf16 at M=16,448
    tokens, D=384, D_h=1,536 and at a ragged M; K10 and K11 (the bf16
    attention and MLP half-blocks) at B=64 with every combination of the
    LayerNorm, LayerScale and residual folds; each against its plain
    version, timed at the serving shape, K7 beside
-   ``F.scaled_dot_product_attention`` on the same data;
+   ``F.scaled_dot_product_attention`` on the same data, by ``time_ms`` and
+   again in turns with it by the labs' harness (L2 flushed by a read);
 6. K4/K5 kernel phase: the int8 and int4 prepared heads against the plain
    version (integer products exact), all five similarity kernels, masked
    rows holding NaN, at the CUB-200 shape, the ViT-S/14 bank's D=384, the
@@ -41,14 +43,19 @@ package beside it. With one, in order:
    shape;
 7. K10/K11 int8 kernel phase: the int8 attention and MLP half-blocks at
    B=64, N=257, D=384 (M=16,448 tokens) with every combination of the
-   folds, against their plain versions, timed with the serving folds;
+   folds, against their plain versions, timed with the serving folds; and
+   the plain int8 attention chain with its scores rounded exactly (an f64
+   sum) against itself, which shows why K10 int8's attention stage keeps
+   the plain version's summation order;
 8. ViT training kernel phase: K8 (the attention backward) f32 and bf16 at
    ViT-S/14's B=64, N=257, H=6, hd=64, at a ragged N=197, at N=1370 with
-   B=8, at ViT-B/14's 12 heads and at 12 heads of 32, every part of dqkv;
+   B=8, at ViT-B/14's 12 heads, at 12 heads of 32 and at K7's tile edges,
+   every part of dqkv;
    the K9 backward (all five gradients) f32 and bf16 at M=16,448 and at a
    ragged M=1,001; each against its plain version within ``GRAD_REL`` of
    max|plain|, timed at B=64, K8 beside the backward of
-   ``F.scaled_dot_product_attention`` on the same q, k, v and dO;
+   ``F.scaled_dot_product_attention`` on the same q, k, v and dO (by
+   ``time_ms`` and in turns, as K7);
 9. K6 kernel phase: a 1,048,576-row, D=512, C=1,000 bank of Gaussian class
    centres plus noise (drawn with numpy from a fixed seed) built by
    ``prepare_support_ivf`` at 1,024-row tiles (cluster order, k-means on the
@@ -65,9 +72,9 @@ package beside it. With one, in order:
     and at a streamed chunk's (B=64, 65,536 rows, C=1,000); K2/K4/K5
     ``partials=True`` at the CUB shape, every kernel and bank precision, and
     K6 ``partials=True`` there over a list of 1,024-row tiles with empty
-    slots; K12 (``fused_attention``, K7 over the packed q, k, v) f32 and bf16 at
-    ViT-S/14's B=64, H=6, N=257, hd=64 and at N=197, timed beside
-    ``F.scaled_dot_product_attention``;
+    slots; K12 (``fused_attention``, K7's kernel on q, k, v by their
+    strides) f32 and bf16 at ViT-S/14's B=64, H=6, N=257, hd=64 and at
+    N=197, timed beside ``F.scaled_dot_product_attention``;
 9b. sharded serving phase, on the K6 phase's bank with its last 48,576
     rows masked, per bank precision: the unsharded full pass and its
     partials route (held to its plain version); ``ShardedSupportBank`` on
@@ -784,12 +791,22 @@ VIT_REPLACES = {
 # ViT-S/14 serving at B=64, 224 px: N = 16 * 16 + 1 tokens, D = 384, 6
 # heads of 64, MLP 1,536.
 VIT_B, VIT_N, VIT_D, VIT_H, VIT_DH = 64, 257, 384, 6, 1536
+# The edges of K7's and K8's tiles (64-row blocks of four 16-row warps,
+# 8-key score tiles, 16-key bf16 PV steps) at every head width, small B.
+ATTN_EDGE_CASES = (  # name, B, N, H, hd
+    ("edge_n1_hd32", 2, 1, 2, 32),
+    ("edge_n8_hd128", 2, 8, 2, 128),
+    ("edge_n16_hd64", 2, 16, 2, 64),
+    ("edge_n17_hd32", 2, 17, 2, 32),
+    ("edge_n64_hd128", 2, 64, 2, 128),
+    ("edge_n65_hd64", 2, 65, 2, 64),
+)
 ATTN_CASES = (  # name, B, N, H, hd; the first is the serving shape, timed
     ("vit_s14_b64", VIT_B, VIT_N, VIT_H, 64),
     ("ragged_n197", VIT_B, 197, VIT_H, 64),
     ("n1370_b16", 16, 1370, VIT_H, 64),  # DINOv2's native 518 px grid
     ("vit_b14_b64", VIT_B, VIT_N, 12, 64),
-)
+) + ATTN_EDGE_CASES
 MLP_CASES = (("vit_s14_b64", VIT_B * VIT_N), ("ragged_m1001", 1001))  # name, M
 VIT_SERVE_ARGV = ["--dataset", "synthetic_cub", "--arch", "vit_s14", "--batch_size", "64",
                   "--latency_bench"]
@@ -807,6 +824,7 @@ VIT_INT8_CONFIGS = tuple(
      ("attention_block_int8_cuda", "mlp_block_int8_cuda"), HEAD_WRAPPERS[head])
     for head in ("int8", "int4"))
 GAMMA_SEED = 11
+TURNS_KEYS = ("turns_ms", "turns_library_ms")  # K7 and K8 beside SDPA in turns, read flush
 
 
 # Served bf16 features against the plain featurizer: 24 bf16 half-blocks
@@ -874,6 +892,17 @@ def _vit_timed(res, key, flush, kernel, plain, n_bytes, flops, prec, library=Non
           f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
+def _turns_with_library(r: dict, name: str, kernel, library_name: str, library) -> None:
+    """Time a kernel in turns with its PyTorch yardstick by the labs'
+    harness (``lab_times``: the L2 flushed by a read) beside ``time_ms``'s
+    reading; adds ``turns_ms`` and ``turns_library_ms`` to ``r``."""
+    t = lab_times([(name, kernel), (library_name, library)])
+    r.update(turns_ms=t[name], turns_library_ms=t[library_name])
+    print(f"time {name} in turns with {library_name} (read flush): kernel {t[name]:.4f} ms, "
+          f"{library_name} {t[library_name]:.4f} ms ({t[name] / t[library_name]:.2f}x); "
+          f"time_ms: kernel {r['ms']:.4f} ms, {library_name} {r['library_ms']:.4f} ms")
+
+
 def vit_kernel_phase(flush) -> dict:
     """K7 and K9 (f32 and bf16) and K10, K11 (bf16, every fold) against
     their plain versions on the card; times each at the ViT-S/14 serving
@@ -911,6 +940,9 @@ def vit_kernel_phase(flush) -> dict:
                            lambda: FA._attention_qkv_plain(qkv, H, hd ** -0.5),
                            4 * B * N * H * hd * item, 4 * B * H * N * N * hd, prec,
                            library=lambda: TF.scaled_dot_product_attention(q, k, v))
+                _turns_with_library(res[key], "K7",
+                                    lambda: FA.attention_qkv_cuda(qkv, H, hd ** -0.5),
+                                    "SDPA", lambda: TF.scaled_dot_product_attention(q, k, v))
     D, Dh = VIT_D, VIT_DH
     rng = np.random.default_rng(300)
     w1, b1, w2, b2, ln_s, ln_b, gamma = (torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
@@ -1117,7 +1149,35 @@ def vit_int8_kernel_phase(flush) -> dict:
                 r = res[key]
                 print(f"time {key}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                       f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    # Why K10 int8's attention stage sums the scores in cuBLAS's order: the
+    # plain chain with its scores rounded exactly (an f64 sum) against the
+    # plain chain itself, at the folds without LayerNorm.
+    a_in = float(x.float().abs().max()) / 127.0
+    qkv = FA.int8_dense_f32(FA.quantize_act(x, a_in), wq, a_in, sq, bq).to(bf)
+    want = FA._attention_block_int8_plain(x, wq, sq, bq, a_in, wp, sp, bp, 3.0 / 127.0, H, scale,
+                                          None, None, 1e-6, None, False)
+    att = _attention_exact_scores(qkv, H, scale).to(bf)
+    got = FA.int8_dense_f32(FA.quantize_act(att, 3.0 / 127.0), wp, 3.0 / 127.0, sp, bp).to(bf)
+    _, err, rel, cos = vit_agree(got, want, "bf16")
+    print(f"the K10 int8 chain with exactly rounded attention scores vs the plain chain (ln=0 "
+          f"ls=0 residual=0): max|err| {err:.3e}, rel {rel:.2e}, cos {cos:.7f}, bit-equal "
+          f"{float((got == want).float().mean()):.4f} (a kernel is held to 1e-2)")
     return res
+
+
+def _attention_exact_scores(qkv, num_heads: int, scale: float):
+    """K7's plain function on bf16 qkv with every score q . k rounded once
+    from an f64 sum (no f32 summation order at all); the f32 output."""
+    import torch
+
+    B, N, three_d = qkv.shape
+    hd = three_d // 3 // num_heads
+    x = qkv.to(torch.float32).reshape(B, N, 3, num_heads, hd)
+    q, k, v = (x[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+    s = torch.matmul(q.double(), k.transpose(-1, -2).double()).to(torch.float32) * scale
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = (e / torch.clamp(e.sum(-1, keepdim=True), min=1e-30)).to(qkv.dtype).to(torch.float32)
+    return torch.matmul(p, v).permute(0, 2, 1, 3).reshape(B, N, num_heads * hd)
 
 
 def quant_entries(quant: dict, vit_int8: dict, served: dict, resnet: dict) -> list:
@@ -1456,9 +1516,10 @@ def sharded_kernel_phase(flush) -> dict:
     65,536 rows, C=1,000), and an all-masked support; K2/K4/K5
     ``partials=True`` at the CUB shape, all five kernels and every bank
     precision, and K6 ``partials=True`` there over the list [3, -1, 0, 5,
-    -1] of 1,024-row tiles; K12 (K7 over the packed q, k, v) f32 and bf16
-    at ViT-S/14's B=64, H=6, N=257, hd=64 and at N=197. Each timed beside its plain
-    version (the finalizing K1/K2/K4/K5 as ``fin_ms``, SDPA beside K12).
+    -1] of 1,024-row tiles; K12 (K7's kernel on q, k, v by their strides)
+    f32 and bf16 at ViT-S/14's B=64, H=6, N=257, hd=64 and at N=197. Each
+    timed beside its plain version (the finalizing K1/K2/K4/K5 as
+    ``fin_ms``, SDPA beside K12).
     Returns per wrapper and precision max |err|, times and bound."""
     import warnings
 
@@ -1944,7 +2005,8 @@ def vit_entries(kern: dict, served: dict) -> list:
             "source": ATTN_SOURCE if "attention" in key else MLP_SOURCE,
             "replaces": VIT_REPLACES[kernel], "launches": served[config]["launches"][wrapper],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **{t: r[t] for t in TURNS_KEYS if t in r}})
     return entries
 
 
@@ -1962,7 +2024,7 @@ ATTN_BWD_CASES = ATTN_CASES[:2] + (  # name, B, N, H, hd; the first is timed
     ("n1370_b8", 8, 1370, VIT_H, 64),
     ATTN_CASES[3],
     ("hd32_b64", VIT_B, VIT_N, 12, 32),
-)
+) + ATTN_EDGE_CASES
 FUSED = {"attn_impl": "fused", "mlp_impl": "fused"}
 VIT_TRAIN_ARGV = [
     "--dataset", "synthetic_cub", "--arch", "vit_s14", "--batch_size", "8", "--n_shot", "6",
@@ -2029,11 +2091,15 @@ def vit_train_kernel_phase(flush) -> dict:
                 out = TF.scaled_dot_product_attention(q, k, v)
                 g_heads = g.reshape(B, N, H, hd).permute(0, 2, 1, 3).contiguous()
                 item = qkv.element_size()
+                sdpa_bwd = lambda: torch.autograd.grad(out, (q, k, v), g_heads,  # noqa: E731
+                                                       retain_graph=True)
                 _vit_timed(res, key, flush, lambda: FA.attention_qkv_bwd_cuda(qkv, g, H, hd ** -0.5),
                            lambda: FA._attention_qkv_bwd_plain(qkv, g, H, hd ** -0.5),
                            7 * B * N * H * hd * item, 10 * B * H * N * N * hd, prec,
-                           library=lambda: torch.autograd.grad(out, (q, k, v), g_heads,
-                                                               retain_graph=True))
+                           library=sdpa_bwd)
+                _turns_with_library(res[key], "K8",
+                                    lambda: FA.attention_qkv_bwd_cuda(qkv, g, H, hd ** -0.5),
+                                    "SDPA backward", sdpa_bwd)
                 del q, k, v, out
     D, Dh = VIT_D, VIT_DH
     rng = np.random.default_rng(700)
@@ -2261,7 +2327,7 @@ def vit_train_entries(kern: dict, tr: dict) -> list:
                 "replaces": VIT_BWD_REPLACES[kernel], "launches": tr["launches"][prec][wrapper],
                 "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": r["library_ms"]})
+                "library_ms": r["library_ms"], **{t: r[t] for t in TURNS_KEYS if t in r}})
     return entries
 
 

@@ -1,14 +1,15 @@
 // Device code shared by the ViT kernels (vit_attn.cu, vit_attn_bwd.cu,
 // vit_mlp.cu, vit_mlp_bwd.cu): dtype conversion and rounding, warp
 // reductions, the LayerNorm statistics of a row, the exact GELU, the
-// register-tiled FFMA product step, the int8 kernels' activation codes and
-// the attention kernels' tile shape.
+// register-tiled FFMA product step of the MLP kernels and of K10's
+// projections, and the int8 kernels' activation codes.
 //
-// Every product here is an f32 FMA on values widened from the inputs' dtype
-// (f32 or bf16): a bf16 x bf16 product is exact in f32, so the bf16 paths
-// differ from the plain PyTorch versions (bf16 values, f32 products and
-// sums) only in the order of the f32 sums. Tensor cores (wgmma) and TMA
-// are left for later: these are the simple first versions of the kernels.
+// fma_tile's products are f32 FMAs on values widened from the inputs'
+// dtype (f32 or bf16): a bf16 x bf16 product is exact in f32, so those
+// paths differ from the plain PyTorch versions (bf16 values, f32 products
+// and sums) only in the order of the f32 sums, and they run at the card's
+// 67 TFLOP/s f32 rate, not on its tensor cores. The attention kernels (K7,
+// K8) take the tensor cores through vit_mma.cuh.
 
 #pragma once
 
@@ -24,8 +25,6 @@ namespace vit {
 constexpr int kThreads = 256;  // every ViT kernel runs 8 warps
 constexpr int kWarps = kThreads / 32;
 constexpr float kNeg = -FLT_MAX;  // jnp.finfo(float32).min, the JAX kernels' "-inf"
-constexpr int kTile = 64;          // attention: queries per block, keys per chunk
-constexpr int kTileStride = kTile + 4;  // padded row stride (floats) of the staged tiles
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 

@@ -31,11 +31,13 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 )
 
-_VP, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_VP, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # library -> {C function: (argtypes, restype)}
 _API = {
     "vit_attn": {
         "vit_attention_forward": ([_VP, _VP] + [_I32] * 4 + [_F32, _I32, _VP], _I32),
+        "vit_attention_forward_strided": ([_VP] * 4 + [_I32] * 4 + [_I64] * 6 + [_F32, _I32, _VP],
+                                          _I32),
         "vit_attention_block_bf16": (
             [_VP] * 3 + [_F32] + [_VP] * 5 + [_I32] + [_VP] * 3 + [_I32] * 4 + [_F32, _VP],
             _I32),

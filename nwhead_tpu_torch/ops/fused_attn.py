@@ -9,10 +9,12 @@ Hopper, built and loaded by ``ops/_cuda.py``:
 
 * K7 ``vit_attention_forward`` (``csrc/vit_attn.cu``, TPU
   ``_attn_qkv_kernel``): per head ``softmax(q k^T * scale) v`` with the
-  softmax in f32, f32 or bf16;
+  softmax in f32, f32 or bf16, its products on the tensor cores
+  (``csrc/vit_mma.cuh``: bf16 on ``mma.sync``, f32 on 3xTF32);
 * K8 ``vit_attention_backward`` (``csrc/vit_attn_bwd.cu``, TPU
   ``_attn_qkv_bwd_kernel`` and ``_attn_qkv_chunked_bwd_kernel``): the
-  attention VJP from qkv and dO alone, probabilities recomputed;
+  attention VJP from qkv and dO alone, probabilities recomputed, on the
+  same tensor-core path;
 * K10 ``vit_attention_block_bf16`` (``csrc/vit_attn.cu``, TPU
   ``_attn_int8_kernel`` with ``quant=False``): [LayerNorm ->] qkv ->
   attention -> proj [-> * LayerScale] [-> + x] in bf16, three launches
@@ -20,13 +22,16 @@ Hopper, built and loaded by ``ops/_cuda.py``:
 * K10 int8 ``vit_attention_block_int8`` (``csrc/vit_attn.cu``, TPU
   ``_attn_int8_kernel`` with ``quant=True``): the same with both
   projections quantize -> int8 product -> dequantize + bias (per-tensor
-  activation scales, per-channel weight scales), the attention in bf16;
+  activation scales, per-channel weight scales), the attention in bf16 on
+  FFMA with the scores summed in the plain version's order (the int8 codes
+  of its output flip when the scores are summed in another order, and the
+  int8 stack's limits hold only with that order);
 * K12 ``fused_attention`` (TPU ``_attn_kernel``, ``pallas_attn.py:44``,
   inference only): ``softmax(q k^T * scale) v`` over ``(B, H, N, hd)`` q, k
-  and v. On the card a wrapper over K7: q, k and v are packed into K7's
-  ``(B, N, 3 H hd)`` layout (one copy), K7 runs, and its ``(B, N, H hd)``
-  output is unpacked. The TPU kernel's ``n_valid`` masks only its padding
-  of N to 16 rows; K7 takes any N, so nothing is masked.
+  and v. On the card K7's kernel through ``vit_attention_forward_strided``,
+  which reads q, k, v and writes the output by their batch, head and token
+  strides: no copy. The TPU kernel's ``n_valid`` masks only its padding of
+  N to 16 rows; K7 takes any N, so nothing is masked.
 
 Each kernel has a wrapper that counts its launches (``.launches``) and a
 plain PyTorch version of the same function (``_attention_qkv_plain``,
@@ -182,25 +187,18 @@ def _launch(lib, fn: str, *args) -> None:
         raise RuntimeError(f"{fn} kernel launch failed: {lib.vit_attn_error_string(rc).decode()}")
 
 
-def _attention_launch(name: str, qkv: torch.Tensor, num_heads: int,
-                      scale: float) -> torch.Tensor:
-    """Check K7's operand and launch it on the current stream."""
-    B, N, hd = _qkv_shape(name, qkv, num_heads)
-    device = _check_cuda(name, [("qkv", qkv, qkv.dtype)])
+def attention_qkv_cuda(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+    """Launch K7 (``csrc/vit_attn.cu``) on the current stream: ``(B, N,
+    3D)`` f32 or bf16 -> ``(B, N, D)``. Raises on anything the kernel does
+    not take."""
+    B, N, hd = _qkv_shape("attention_qkv_cuda", qkv, num_heads)
+    device = _check_cuda("attention_qkv_cuda", [("qkv", qkv, qkv.dtype)])
     out = torch.empty((B, N, num_heads * hd), dtype=qkv.dtype, device=device)
     lib = _cuda.load_library("vit_attn")
     with torch.cuda.device(device):
         _launch(lib, "vit_attention_forward", qkv.data_ptr(), out.data_ptr(), B, N, num_heads,
                 hd, float(scale), int(qkv.dtype == _BF16),
                 torch.cuda.current_stream(device).cuda_stream)
-    return out
-
-
-def attention_qkv_cuda(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
-    """Launch K7 (``csrc/vit_attn.cu``) on the current stream: ``(B, N,
-    3D)`` f32 or bf16 -> ``(B, N, D)``. Raises on anything the kernel does
-    not take."""
-    out = _attention_launch("attention_qkv_cuda", qkv, num_heads, scale)
     attention_qkv_cuda.launches += 1
     return out
 
@@ -209,7 +207,8 @@ attention_qkv_cuda.launches = 0
 
 
 def _pack_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """``(B, H, N, hd)`` q, k, v -> K7's ``(B, N, 3 H hd)`` layout, one copy."""
+    """``(B, H, N, hd)`` q, k, v -> K7's ``(B, N, 3 H hd)`` layout (the
+    plain version's input), one copy."""
     B, H, N, hd = q.shape
     return torch.stack((q, k, v), dim=2).permute(0, 3, 2, 1, 4).reshape(B, N, 3 * H * hd)
 
@@ -240,13 +239,28 @@ def _attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def fused_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          scale: float) -> torch.Tensor:
-    """Launch K12 as K7 (``csrc/vit_attn.cu``) on the packed q, k, v:
-    ``(B, H, N, hd)`` f32 or bf16, hd in {32, 64, 128}; returns the same
-    shape in q's dtype."""
-    _check_qkv_split("fused_attention_cuda", q, k, v)
-    out = _attention_launch("fused_attention_cuda", _pack_qkv(q, k, v), q.shape[1], scale)
+    """Launch K12, K7's kernel (``csrc/vit_attn.cu``) given q, k, v and the
+    output by their strides: ``(B, H, N, hd)`` f32 or bf16, contiguous, hd
+    in {32, 64, 128}; returns the same shape in q's dtype. Raises on
+    anything the kernel does not take."""
+    name = "fused_attention_cuda"
+    _check_qkv_split(name, q, k, v)
+    if 0 in q.shape:
+        raise ValueError(f"{name}: q {tuple(q.shape)} is empty")
+    if q.dtype not in (torch.float32, _BF16):
+        raise ValueError(f"{name}: q {q.dtype}: need f32 or bf16")
+    B, H, N, hd = q.shape
+    if hd not in _HEAD_DIMS:
+        raise ValueError(f"{name}: head width {hd}: the kernel is built for {_HEAD_DIMS}")
+    device = _check_cuda(name, [("q", q, q.dtype), ("k", k, q.dtype), ("v", v, q.dtype)])
+    out = torch.empty_like(q)
+    lib = _cuda.load_library("vit_attn")
+    with torch.cuda.device(device):
+        _launch(lib, "vit_attention_forward_strided", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), B, N, H, hd, *q.stride()[:3], *out.stride()[:3], float(scale),
+                int(q.dtype == _BF16), torch.cuda.current_stream(device).cuda_stream)
     fused_attention_cuda.launches += 1
-    return _unpack_heads(out, q.shape[1])
+    return out
 
 
 fused_attention_cuda.launches = 0
@@ -269,8 +283,8 @@ def attention_qkv_bwd_cuda(qkv: torch.Tensor, dout: torch.Tensor, num_heads: int
                            scale: float) -> torch.Tensor:
     """Launch K8 (``csrc/vit_attn_bwd.cu``) on the current stream: ``(B, N,
     3D)`` qkv and ``(B, N, D)`` dO, both f32 or both bf16 -> dqkv ``(B, N,
-    3D)`` in qkv's dtype. Per-row f32 statistics (max, sum, delta) go
-    through a ``(3, B, H, N)`` scratch tensor. Raises on anything the kernel
+    3D)`` in qkv's dtype. Per-row f32 statistics (the softmax's log-sum-exp
+    in base 2, delta) go through a ``(2, B, H, N)`` scratch tensor. Raises on anything the kernel
     does not take."""
     B, N, hd = _qkv_shape("attention_qkv_bwd_cuda", qkv, num_heads)
     if tuple(dout.shape) != (B, N, num_heads * hd):
@@ -279,7 +293,7 @@ def attention_qkv_bwd_cuda(qkv: torch.Tensor, dout: torch.Tensor, num_heads: int
     device = _check_cuda("attention_qkv_bwd_cuda",
                          [("qkv", qkv, qkv.dtype), ("dout", dout, qkv.dtype)])
     dqkv = torch.empty_like(qkv)
-    stats = torch.empty((3, B, num_heads, N), dtype=torch.float32, device=device)
+    stats = torch.empty((2, B, num_heads, N), dtype=torch.float32, device=device)
     lib = _cuda.load_library("vit_attn_bwd")
     with torch.cuda.device(device):
         rc = lib.vit_attention_backward(

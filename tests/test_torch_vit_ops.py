@@ -21,11 +21,14 @@ comparisons are in ``tests/test_torch_vit_train_ops.py``.
 
 The CUDA kernels are tested on the card only (marker ``gpu``): each against
 its plain version in its working dtype, f32 at 1e-4 of max|plain|, bf16 at
-cosine >= 0.9999 and 1e-2 of max|plain| (the kernels round the online
-softmax's unnormalized probabilities, and bf16 rounding flips propagate
-through the half-blocks); K8 and the K9 backward at 1e-3 (f32) and 2e-2
-(bf16) of each gradient's max|plain|, and a ViT-S block trained through
-them against the plain block. The GPU machine has no jax, so this module imports
+cosine >= 0.9999 and 1e-2 of max|plain| (the kernels sum in another order
+than cuBLAS, so a bf16 rounding of a probability or an output may flip,
+and flips propagate through the half-blocks); K8 and the K9 backward at
+1e-3 (f32) and 2e-2 (bf16) of each gradient's max|plain|, and a ViT-S
+block trained through them against the plain block. K7, K8 and K12 also
+run at the edges of their tiles (``EDGE_SHAPES``: N of 1 to 1,370, every
+head width, one batch row and 64), and K8 in bf16 must repeat bit for
+bit. The GPU machine has no jax, so this module imports
 the JAX package inside the tests that compare with it, and the GPU tests run
 there with ``python -m pytest --noconftest -m gpu tests/test_torch_vit_ops.py``.
 """
@@ -104,7 +107,8 @@ def _check(got, want, prec):
 
 
 @pytest.mark.parametrize("prec", ["f32", "bf16"])
-@pytest.mark.parametrize("shape", [(2, 17, 2, 32), (1, 50, 2, 64)])
+@pytest.mark.parametrize("shape", [(2, 17, 2, 32), (1, 50, 2, 64), (2, 1, 2, 32), (1, 65, 2, 64),
+                                   (1, 17, 2, 128)])
 def test_attention_qkv_plain_matches_jax(shape, prec):
     import jax.numpy as jnp
 
@@ -285,6 +289,14 @@ def _need_gpu():
     return torch.device("cuda")
 
 
+# The tile edges of K7, K8 and K12 (64-row blocks of four 16-row warps,
+# 32- and 64-row steps, 8-key score tiles, 16-key bf16 PV steps): N on and
+# off each edge, every head width, one batch row and a full batch.
+# (B, N, H, hd).
+EDGE_SHAPES = [(B, N, 2, hd) for B in (1, 64) for N in (1, 8, 16, 17, 64, 65, 257, 1370)
+               for hd in (32, 64, 128)]
+
+
 def _card_check(got, want, prec):
     got, want = got.float(), want.float()
     assert bool(torch.isfinite(got).all())
@@ -299,7 +311,8 @@ def _card_check(got, want, prec):
 @pytest.mark.gpu
 @pytest.mark.parametrize("prec", ["f32", "bf16"])
 @pytest.mark.parametrize("shape", [(64, 257, 6, 64), (8, 197, 6, 64), (2, 1370, 6, 64),
-                                   (4, 257, 12, 64), (3, 50, 2, 32), (2, 70, 2, 128)])
+                                   (4, 257, 12, 64), (3, 50, 2, 32), (2, 70, 2, 128)]
+                         + EDGE_SHAPES)
 def test_cuda_attention_qkv_matches_plain(shape, prec):
     dev = _need_gpu()
     B, N, H, hd = shape
@@ -315,10 +328,10 @@ def test_cuda_attention_qkv_matches_plain(shape, prec):
 @pytest.mark.gpu
 @pytest.mark.parametrize("prec", ["f32", "bf16"])
 @pytest.mark.parametrize("shape", [(64, 6, 257, 64), (8, 6, 197, 64), (3, 2, 50, 32),
-                                   (2, 2, 70, 128)])
+                                   (2, 2, 70, 128)] + [(B, H, N, hd) for B, N, H, hd in EDGE_SHAPES])
 def test_cuda_fused_attention_matches_plain(shape, prec):
-    """K12 on the card (K7 over the packed q, k, v) against its plain
-    version; a head width K7 is not built for raises."""
+    """K12 on the card (K7's kernel on q, k, v by their strides) against
+    its plain version; a head width K7 is not built for raises."""
     dev = _need_gpu()
     rng = np.random.default_rng(4)
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, _dtype(prec))
@@ -418,7 +431,8 @@ def _grad_check(got, want, prec):
 @pytest.mark.gpu
 @pytest.mark.parametrize("prec", ["f32", "bf16"])
 @pytest.mark.parametrize("shape", [(64, 257, 6, 64), (8, 197, 6, 64), (8, 1370, 6, 64),
-                                   (4, 257, 12, 64), (3, 50, 2, 32), (2, 70, 2, 128)])
+                                   (4, 257, 12, 64), (3, 50, 2, 32), (2, 70, 2, 128)]
+                         + EDGE_SHAPES)
 def test_cuda_attention_qkv_bwd_matches_plain(shape, prec):
     dev = _need_gpu()
     B, N, H, hd = shape
@@ -435,6 +449,24 @@ def test_cuda_attention_qkv_bwd_matches_plain(shape, prec):
     D = H * hd
     for part in range(3):  # dq, dk, dv each against its own max
         _grad_check(got[..., part * D:(part + 1) * D], want[..., part * D:(part + 1) * D], prec)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(64, 257, 6, 64), (2, 1370, 2, 128), (3, 65, 2, 32)])
+def test_cuda_attention_qkv_bwd_repeats_bitwise(shape):
+    """K8 in bf16 run twice on the same inputs gives the same dqkv bit for
+    bit: every output element has one owner and its sums a fixed order (no
+    atomics)."""
+    dev = _need_gpu()
+    B, N, H, hd = shape
+    bf = torch.bfloat16
+    qkv = torch.from_numpy(_attn_inputs(*shape)).to(dev, bf).reshape(B, N, 3 * H * hd)
+    g = torch.from_numpy(np.random.default_rng(9).standard_normal((B, N, H * hd), np.float32))
+    g = g.to(dev, bf)
+    first = FA.attention_qkv_bwd_cuda(qkv, g, H, hd ** -0.5)
+    second = FA.attention_qkv_bwd_cuda(qkv, g, H, hd ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.gpu

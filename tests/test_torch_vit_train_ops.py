@@ -71,7 +71,8 @@ def _jax_attn_grad(qkv, g, H, prec):
 
 
 @pytest.mark.parametrize("prec", ["f32", "bf16"])
-@pytest.mark.parametrize("shape", [(2, 17, 2, 32), (1, 65, 6, 64)])
+@pytest.mark.parametrize("shape", [(2, 17, 2, 32), (1, 65, 6, 64), (2, 1, 2, 32), (1, 17, 2, 128),
+                                   (1, 65, 2, 32)])
 def test_attention_bwd_plain_matches_jax(shape, prec):
     B, N, H, hd = shape
     qkv, g = _attn_case(*shape)
