@@ -28,8 +28,9 @@ package beside it. With one, in order:
 5. ViT kernel phase: K7 (attention off the packed qkv) f32 and bf16 at
    ViT-S/14's B=64, N=257, H=6, hd=64, at a ragged N=197, at N=1370, at
    ViT-B/14's 12 heads and at the edges of its tiles (N of 1, 8, 16, 17,
-   64 and 65, hd 32, 64 and 128, B=2); the K9 forward (fused MLP) f32 and bf16 at M=16,448
-   tokens, D=384, D_h=1,536 and at a ragged M; K10 and K11 (the bf16
+   64 and 65, hd 32, 64 and 128, B=2); the K9 forward (fused MLP) f32 and
+   bf16 at M=16,448 tokens, D=384, D_h=1,536, at a ragged M and at
+   ViT-B/14's width (D=768, D_h=3,072, timed); K10 and K11 (the bf16
    attention and MLP half-blocks) at B=64 with every combination of the
    LayerNorm, LayerScale and residual folds; each against its plain
    version, timed at the serving shape, K7 beside
@@ -51,8 +52,9 @@ package beside it. With one, in order:
    ViT-S/14's B=64, N=257, H=6, hd=64, at a ragged N=197, at N=1370 with
    B=8, at ViT-B/14's 12 heads, at 12 heads of 32 and at K7's tile edges,
    every part of dqkv;
-   the K9 backward (all five gradients) f32 and bf16 at M=16,448 and at a
-   ragged M=1,001; each against its plain version within ``GRAD_REL`` of
+   the K9 backward (all five gradients) f32 and bf16 at M=16,448, at a
+   ragged M=1,001 and at ViT-B/14's width (timed); each against its plain
+   version within ``GRAD_REL`` of
    max|plain|, timed at B=64, K8 beside the backward of
    ``F.scaled_dot_product_attention`` on the same q, k, v and dO (by
    ``time_ms`` and in turns, as K7);
@@ -143,7 +145,9 @@ package beside it. With one, in order:
     kernel's time at the step's own shapes against the step, and the peak
     device memory; compares every parameter gradient of the fused featurizer with
     the plain (``xla``) one on a small episode (``--n_way 4 --n_shot 1``);
-    then trains 3 steps with ``--bf16``;
+    then trains 3 steps with ``--bf16``, steps 2-3 timed by CUDA events, the
+    K9 backward held to its plain version on one block's tensors of the
+    first bf16 step, K9 and the K9 backward timed at its shapes;
 16. lab kernel phase: K13/L4 ``stream`` and L1 ``stream_reduce``
     (``csrc/lab_stream.cu``) at bench.py's 12,288 and 196,608 rows of
     D=512 against their plain versions (the reduce at block_s 1,024, 2,048
@@ -177,10 +181,11 @@ both methods, which shows how far the zero flush moves the K1-K12 times.
 Bounds in the JSON line: the larger of the bytes the call must move (each
 input read once, each output written once) over 3.35 TB/s and its products
 (2 operations per multiply-add: scores, attention, the MLP's and
-projections' matrix products) over 67 TFLOP/s for f32 inputs (the rate
-outside the tensor cores), 989 TFLOP/s for bf16 or 1,979 TOP/s for int8,
-the H100 SXM's published peaks; a kernel with int8 and bf16 products (K10
-int8) adds the two times. The
+projections' matrix products) over 165 TFLOP/s for f32 inputs (three TF32
+passes at the published 495 TFLOP/s: the least time in which this card
+gives a product within f32's limits, as the 3xTF32 kernels K7-K9 do), 989
+TFLOP/s for bf16 or 1,979 TOP/s for int8, the H100 SXM's published peaks;
+a kernel with int8 and bf16 products (K10 int8) adds the two times. The
 exponentials, GELUs and LayerNorms are not counted. The backward kernels
 count the products their function needs (five for K8 and for the K9
 backward), not the recomputations a kernel adds.
@@ -240,9 +245,10 @@ TRAIN_ARGV = [
     "--num_val_steps_per_epoch", "10",
 ]
 TRAIN_STEPS = 10
-# H100 SXM published peaks (NVIDIA data sheet; dense, 700 W).
+# H100 SXM published peaks (NVIDIA data sheet; dense, 700 W); f32 as three
+# TF32 passes (495 TFLOP/s / 3), the 3xTF32 route to f32-exact products.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
+PEAK_FLOPS = {"f32": 495e12 / 3, "bf16": 989e12, "int8": 1979e12}
 
 
 def nvidia_smi_line() -> str:
@@ -808,6 +814,7 @@ ATTN_CASES = (  # name, B, N, H, hd; the first is the serving shape, timed
     ("vit_b14_b64", VIT_B, VIT_N, 12, 64),
 ) + ATTN_EDGE_CASES
 MLP_CASES = (("vit_s14_b64", VIT_B * VIT_N), ("ragged_m1001", 1001))  # name, M
+VIT_B14_MLP = (768, 3072)  # ViT-B/14's D, D_h: K9 takes two column blocks there
 VIT_SERVE_ARGV = ["--dataset", "synthetic_cub", "--arch", "vit_s14", "--batch_size", "64",
                   "--latency_bench"]
 VIT_CONFIGS = (  # name, extra flags, kernels launched 12 times per request, the head's
@@ -892,6 +899,47 @@ def _vit_timed(res, key, flush, kernel, plain, n_bytes, flops, prec, library=Non
           f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
+def _mlp_vit_b(res: dict, flush, backward: bool) -> None:
+    """K9 (or its backward) at ViT-B/14's width and the serving M against
+    its plain version, f32 and bf16, timed (``mlp_vit_b_*`` entries, not
+    part of the kernels line)."""
+    import torch
+
+    from nwhead_tpu_torch.ops import fused_mlp as FM
+
+    dev = torch.device("cuda")
+    D, Dh = VIT_B14_MLP
+    M = VIT_B * VIT_N
+    rng = np.random.default_rng(310)
+    x, w1, b1, w2, b2, go = (torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+        rng.standard_normal((M, D)), rng.standard_normal((D, Dh)) / np.sqrt(D),
+        0.1 * rng.standard_normal(Dh), rng.standard_normal((Dh, D)) / np.sqrt(Dh),
+        0.1 * rng.standard_normal(D), rng.standard_normal((M, D))))
+    for prec, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        args = (x.to(dt), w1.to(dt), b1, w2.to(dt), b2) + ((go.to(dt),) if backward else ())
+        kernel, plain = (FM.mlp_bwd_cuda, FM._mlp_bwd_plain) if backward else \
+            (FM.mlp_cuda, FM._mlp_plain)
+        key = f"mlp{'_bwd' if backward else ''}_vit_b_{prec}"
+        got, want = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        name = (f"K9{' backward' if backward else ''} at ViT-B/14's width "
+                f"(M={M}, D={D}, D_h={Dh})")
+        if backward:
+            err = check_grads(got, want, prec, ("dx", "dw1", "db1", "dw2", "db2"), name)
+        else:
+            ok, err, rel, cos = vit_agree(got, want, prec)
+            print(f"{name} {prec}: max|err| {err:.3e}, rel {rel:.2e}, cos {cos:.7f} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name} disagrees with its plain version: {prec}")
+        del got, want
+        _vit_record(res, key, err)
+        item = x.to(dt).element_size()
+        n_bytes = (3 if backward else 2) * M * D * item + (4 if backward else 2) * D * Dh * item
+        _vit_timed(res, key, flush, lambda: kernel(*args), lambda: plain(*args), n_bytes,
+                   (10 if backward else 4) * M * D * Dh, prec)
+
+
 def _turns_with_library(r: dict, name: str, kernel, library_name: str, library) -> None:
     """Time a kernel in turns with its PyTorch yardstick by the labs'
     harness (``lab_times``: the L2 flushed by a read) beside ``time_ms``'s
@@ -969,6 +1017,7 @@ def vit_kernel_phase(flush) -> dict:
                            lambda: FM._mlp_plain(*args),
                            2 * M * D * item + 2 * D * Dh * item + 4 * (Dh + D), 4 * M * D * Dh,
                            prec)
+    _mlp_vit_b(res, flush, backward=False)
     # K10 and K11 at the serving shape, every fold on and off (bf16 only).
     bf = torch.bfloat16
     M = VIT_B * VIT_N
@@ -2124,6 +2173,7 @@ def vit_train_kernel_phase(flush) -> dict:
                            lambda: FM._mlp_bwd_plain(*args),
                            3 * M * D * item + 4 * D * Dh * item + 4 * (2 * Dh + D),
                            10 * M * D * Dh, prec)
+    _mlp_vit_b(res, flush, backward=True)
     return res
 
 
@@ -2157,7 +2207,9 @@ def vit_training_phase(datasets, workdir: str) -> dict:
     episode with the fused impls, launch counts, moved weights, K8 and the
     K9 backward on the first step's tensors, the step split and peak
     memory; then the fused featurizer's gradients against the plain one's
-    on a small episode, and 3 steps with ``--bf16``."""
+    on a small episode, and 3 steps with ``--bf16`` (steps 2-3 split, the
+    K9 backward on the first bf16 step's tensors, K9 and the K9 backward
+    timed at its shapes)."""
     import torch
 
     from nwhead_tpu_torch import train
@@ -2291,24 +2343,58 @@ def vit_training_phase(datasets, workdir: str) -> dict:
     del grads
     torch.cuda.empty_cache()
 
-    # bf16 featurizer: 3 steps, each kernel of the path once per block per step.
+    # bf16 featurizer: 3 steps, each kernel of the path once per block per
+    # step, steps 2-3 timed by CUDA events; the K9 backward held to its plain
+    # version on one block's tensors of the first step, and K9 and the K9
+    # backward timed at the step's shapes.
     torch.cuda.reset_peak_memory_stats()
     _, trainer, _ = train.setup(argv + ["--bf16"], datasets=datasets, featurizer_kwargs=FUSED)
     _set_gammas(trainer.net)
+    timer = StepTimer(trainer.net.model)
     _counts(reset=True)
-    trainer.train_epoch(num_steps=3)
-    torch.cuda.synchronize()
+    mlp_in = {}
+    restore = _capture_first(FM, "mlp_bwd_cuda", mlp_in)
+    try:
+        trainer.train_epoch(num_steps=3)
+        torch.cuda.synchronize()
+    finally:
+        restore()
     bf = _counts()
+    split_bf = timer.split()
     out["launches"]["bf16"] = bf
+    out["split_bf16"] = split_bf
     print(f"vit train bf16: launches {bf}; losses {['%.4f' % v for v in trainer.step_losses]}; "
-          f"{trainer.train_seconds / 3 * 1e3:.1f} ms/step (first step included); peak device "
-          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          f"{trainer.train_seconds / 3 * 1e3:.1f} ms/step (first step included); steps 2-3 by "
+          f"CUDA events: featurizer fwd+bwd {split_bf['featurizer_ms']:.2f} ms, head fwd+bwd "
+          f"{split_bf['head_ms']:.3f} ms, step {split_bf['step_ms']:.2f} ms (optimizer update "
+          f"not included); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     want_bf = {n: 3 * c for n, c in VIT_STEP_LAUNCHES.items()}
     want_bf.update(attention_qkv_cuda=3 * VIT_BLOCKS, mlp_cuda=3 * VIT_BLOCKS)
     if any(bf[n] != c for n, c in want_bf.items()) or not np.isfinite(trainer.step_losses).all():
         raise AssertionError(f"bf16 ViT training: launches {bf}, want {want_bf}; losses "
                              f"{trainer.step_losses}")
-    del trainer
+    if split_bf["steps"] != 2:
+        raise AssertionError(f"the step timer saw {split_bf['steps'] + 1} bf16 ViT steps")
+    del trainer, timer
+    torch.cuda.empty_cache()
+    m_args = tuple(a.to(dev) for a in mlp_in.pop("args"))
+    got, want = FM.mlp_bwd_cuda(*m_args), FM._mlp_bwd_plain(*m_args)
+    torch.cuda.synchronize()
+    out["errs_bf16"] = {"mlp_bwd": check_grads(
+        got, want, "bf16", ("dx", "dw1", "db1", "dw2", "db2"),
+        f"K9 backward on the first bf16 step's x {tuple(m_args[0].shape)}")}
+    del got, want
+    torch.cuda.empty_cache()
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    bf_ms = {"K9": time_ms(lambda: FM.mlp_cuda(*m_args[:5]), flush, n=5),
+             "K9 backward": time_ms(lambda: FM.mlp_bwd_cuda(*m_args), flush, n=5)}
+    kernels_ms = VIT_BLOCKS * sum(bf_ms.values())
+    print(f"vit train bf16 kernels at the step's shapes (median of 5): " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in bf_ms.items()) + f"; {VIT_BLOCKS} x their sum = "
+        f"{kernels_ms:.1f} ms of the {split_bf['step_ms']:.1f} ms step "
+        f"({kernels_ms / split_bf['step_ms']:.2f})")
+    out["kernel_step_ms_bf16"] = bf_ms
+    del m_args, flush
     torch.cuda.empty_cache()
     return out
 
@@ -2321,7 +2407,8 @@ def vit_train_entries(kern: dict, tr: dict) -> list:
                                     ("mlp_bwd", "mlp_bwd_cuda", MLP_BWD_SOURCE)):
         for prec in ("f32", "bf16"):
             r = kern[f"{kernel}_{prec}"]
-            err = max(r["max_abs_err"], tr["errs"][kernel]) if prec == "f32" else r["max_abs_err"]
+            step_errs = tr["errs"] if prec == "f32" else tr["errs_bf16"]
+            err = max(r["max_abs_err"], step_errs.get(kernel, 0.0))
             entries.append({
                 "name": f"{kernel}_{prec}", "route": "cuda", "source": source,
                 "replaces": VIT_BWD_REPLACES[kernel], "launches": tr["launches"][prec][wrapper],

@@ -23,6 +23,15 @@
 // Staged tiles are row-major, rows of kHd elements plus 16 bytes of
 // padding: ldmatrix's eight 16-byte rows and the f32 loads' (g, t) pattern
 // then fall in 32 different banks.
+//
+// The MLP kernels (K9 in vit_mlp.cu, the K9 backward in vit_mlp_bwd.cu)
+// use the same fragments on tiles of any width (stage_tile, mlp_stride,
+// warp_product below): their depths run to 4,096, their rows may be ragged,
+// and their left factors also come k-major (load_a_km: the weight
+// gradients, whose depth is tokens). An f32 tile read by rows g (load_a,
+// load_b_nk) is padded to a stride of 4 mod 32 words, one read by rows t
+// (load_a_km, load_b_kn_nat) to 8 mod 32, so that each load's 32 lanes hit
+// 32 banks.
 
 #pragma once
 
@@ -109,18 +118,27 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
   return r;
 }
 
-template <int kN>
+// kTrunc (the MLP kernels): big = x with its low 13 mantissa bits cleared
+// and small = x - big (exact), whose low bits the TF32 product ignores: an
+// error of at most 2^-20 |x| in small, and no cvt (the rounding conversions
+// cost the f32 MLP kernels a sixth of their time on the card).
+template <bool kTrunc = false, int kN>
 __device__ __forceinline__ void split_tf32(const float (&x)[kN], uint32_t (&big)[kN],
                                            uint32_t (&small)[kN]) {
 #pragma unroll
   for (int i = 0; i < kN; ++i) {
-    big[i] = to_tf32(x[i]);
-    small[i] = to_tf32(x[i] - __uint_as_float(big[i]));
+    if constexpr (kTrunc) {
+      big[i] = __float_as_uint(x[i]) & 0xffffe000u;
+      small[i] = __float_as_uint(x[i] - __uint_as_float(big[i]));
+    } else {
+      big[i] = to_tf32(x[i]);
+      small[i] = to_tf32(x[i] - __uint_as_float(big[i]));
+    }
   }
 }
 
 // A: rows row0 .. row0 + 15, columns k0 .. k0 + kK - 1 of a staged tile.
-template <int kStride>
+template <int kStride, bool kTrunc = false>
 __device__ __forceinline__ void load_a(const __nv_bfloat16* tile, int row0, int k0,
                                        Frag<__nv_bfloat16>::A& a) {
   const int lane = threadIdx.x & 31;
@@ -130,18 +148,18 @@ __device__ __forceinline__ void load_a(const __nv_bfloat16* tile, int row0, int 
                : "r"(addr));
 }
 
-template <int kStride>
+template <int kStride, bool kTrunc = false>
 __device__ __forceinline__ void load_a(const float* tile, int row0, int k0, Frag<float>::A& a) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const float* p = tile + (row0 + g) * kStride + k0 + t;
   const float x[4] = {p[0], p[8 * kStride], p[4], p[8 * kStride + 4]};
-  split_tf32(x, a.big, a.small);
+  split_tf32<kTrunc>(x, a.big, a.small);
 }
 
 // B[k][n] = tile[n0 + n][k0 + k] for the two n-tiles at n0 and n0 + 8: the
 // right factor of A B^T, its rows staged (K in q K^T, V in dO V^T, Q and dO
 // in K Q^T and V dO^T).
-template <int kStride>
+template <int kStride, bool kTrunc = false>
 __device__ __forceinline__ void load_b_nk(const __nv_bfloat16* tile, int n0, int k0,
                                           Frag<__nv_bfloat16>::B& b0,
                                           Frag<__nv_bfloat16>::B& b1) {
@@ -153,14 +171,14 @@ __device__ __forceinline__ void load_b_nk(const __nv_bfloat16* tile, int n0, int
                : "r"(addr));
 }
 
-template <int kStride>
+template <int kStride, bool kTrunc = false>
 __device__ __forceinline__ void load_b_nk(const float* tile, int n0, int k0, Frag<float>::B& b0,
                                           Frag<float>::B& b1) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const float* p = tile + (n0 + g) * kStride + k0 + t;
   const float x0[2] = {p[0], p[4]}, x1[2] = {p[8 * kStride], p[8 * kStride + 4]};
-  split_tf32(x0, b0.big, b0.small);
-  split_tf32(x1, b1.big, b1.small);
+  split_tf32<kTrunc>(x0, b0.big, b0.small);
+  split_tf32<kTrunc>(x1, b1.big, b1.small);
 }
 
 // B[k][n] = tile[k0 + k][n0 + n] for the two n-tiles at n0 and n0 + 8: a
@@ -187,6 +205,48 @@ __device__ __forceinline__ void load_b_kn(const float* tile, int k0, int n0, Fra
   const float x0[2] = {p[0], p[kStride]}, x1[2] = {p[8], p[kStride + 8]};
   split_tf32(x0, b0.big, b0.small);
   split_tf32(x1, b1.big, b1.small);
+}
+
+// B[k][n] = tile[k0 + k][n0 + n] with k in its natural order (f32: k = t,
+// t + 4 read rows t, t + 4), the right factor of a product whose left
+// factor load_a or load_a_km reads from shared memory; bf16 is load_b_kn.
+template <int kStride, bool kTrunc = false>
+__device__ __forceinline__ void load_b_kn_nat(const __nv_bfloat16* tile, int k0, int n0,
+                                              Frag<__nv_bfloat16>::B& b0,
+                                              Frag<__nv_bfloat16>::B& b1) {
+  load_b_kn<kStride>(tile, k0, n0, b0, b1);
+}
+
+template <int kStride, bool kTrunc = false>
+__device__ __forceinline__ void load_b_kn_nat(const float* tile, int k0, int n0,
+                                              Frag<float>::B& b0, Frag<float>::B& b1) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* p = tile + (k0 + t) * kStride + n0 + g;
+  const float x0[2] = {p[0], p[4 * kStride]}, x1[2] = {p[8], p[4 * kStride + 8]};
+  split_tf32<kTrunc>(x0, b0.big, b0.small);
+  split_tf32<kTrunc>(x1, b1.big, b1.small);
+}
+
+// A[m][k] = tile[k0 + k][row0 + m], m < 16: a left factor stored k-major
+// (x and g in the weight gradients, whose depth is tokens); bf16 through
+// ldmatrix.trans.
+template <int kStride, bool kTrunc = false>
+__device__ __forceinline__ void load_a_km(const __nv_bfloat16* tile, int row0, int k0,
+                                          Frag<__nv_bfloat16>::A& a) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t addr = smem_u32(tile + (k0 + (lane & 7) + ((lane >> 4) & 1) * 8) * kStride +
+                                 row0 + ((lane >> 3) & 1) * 8);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(a.r[0]), "=r"(a.r[1]), "=r"(a.r[2]), "=r"(a.r[3])
+               : "r"(addr));
+}
+
+template <int kStride, bool kTrunc = false>
+__device__ __forceinline__ void load_a_km(const float* tile, int row0, int k0, Frag<float>::A& a) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* p = tile + (k0 + t) * kStride + row0 + g;
+  const float x[4] = {p[0], p[8], p[4 * kStride], p[4 * kStride + 8]};
+  split_tf32<kTrunc>(x, a.big, a.small);
 }
 
 // The left factor of a product's kk-th step from accumulator n-tiles: bf16
@@ -297,6 +357,128 @@ __device__ __forceinline__ void store2(float* dst, float a, float b) {
 
 __device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+
+// Row stride, in elements, of a staged MLP tile kCols wide: bf16 16 bytes
+// of padding; f32 to 4 mod 32 words for a tile read by rows g, 8 mod 32 for
+// one read by rows t (kByT).
+template <typename T, int kCols, bool kByT>
+__host__ __device__ constexpr int mlp_stride() {
+  return sizeof(T) == 2 ? kCols + 8 : kCols + (kByT ? 8 : 4);
+}
+
+// 1 if a row-major matrix at p with leading dimension ld (elements) takes
+// stage_tile's 16-byte copies (p and every row 16-byte aligned), else 0.
+template <typename T>
+inline int vec16_ok(const void* p, long long ld) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
+         ld * static_cast<long long>(sizeof(T)) % 16 == 0;
+}
+
+// Rows r0 .. r0 + kRows - 1, columns c0 .. c0 + kCols - 1 of a row-major
+// matrix with n_rows rows, n_cols columns and leading dimension ld, into a
+// tile of row stride kStride, by kThreads threads. What lies outside the
+// matrix reads 0, except column ones_col (>= 0), which reads 1 on the
+// matrix's rows: the row of ones whose product is a bias gradient. vec16
+// (ld and base 16-byte aligned): cp.async of 16 bytes where a segment lies
+// wholly inside or outside; elsewhere (a ragged width, the ones column)
+// plain loads, so that no shape is refused.
+template <typename T, int kRows, int kCols, int kStride, int kThreads>
+__device__ __forceinline__ void stage_tile(const T* __restrict__ base, long long ld, int r0,
+                                           int c0, int n_rows, int n_cols, bool vec16,
+                                           T* __restrict__ dst, int ones_col = -1) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kSegs = kCols / kVec;
+  constexpr int kTotal = kRows * kSegs;
+  static_assert(kCols % kVec == 0, "whole 16-byte segments");
+  // Unrolled over a trip count known at compile time: a segment's row and
+  // column come from constants, not a division in a runtime loop.
+#pragma unroll
+  for (int u = 0; u < (kTotal + kThreads - 1) / kThreads; ++u) {
+    const int i = threadIdx.x + u * kThreads;
+    if (kTotal % kThreads != 0 && i >= kTotal) break;
+    const int r = i / kSegs, col = c0 + (i % kSegs) * kVec;
+    const long long row = r0 + r;
+    const bool row_ok = row < n_rows;
+    const bool whole = col + kVec <= n_cols;
+    T* d = dst + r * kStride + (i % kSegs) * kVec;
+    if (vec16 && (whole || col >= n_cols) && (ones_col < col || ones_col >= col + kVec)) {
+      const bool valid = row_ok && whole;
+      cp_async16(d, base + (valid ? row * ld + col : 0), valid);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        const int c = col + e;
+        float v = 0.f;
+        if (row_ok) v = c < n_cols ? to_float(base[row * ld + c]) : (c == ones_col ? 1.f : 0.f);
+        d[e] = from_float<T>(v);
+      }
+    }
+  }
+}
+
+// A ring of kStages stages of kStage elements each, through which the MLP
+// kernels stream their slices: load(s, buf) stages slice s (cp.async, one
+// commit group a slice), compute(s, buf) consumes it. One barrier a slice:
+// at the top of slice s, slice s is in and every warp is done with slice s
+// - 1, whose stage the load of slice s + kStages - 1 then takes.
+template <int kStages, int kStage, typename T, typename Load, typename Compute>
+__device__ __forceinline__ void ring_loop(T* ring, int total, Load load, Compute compute) {
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < total) load(s, ring + s * kStage);
+    cp_async_commit();
+  }
+  for (int s = 0; s < total; ++s) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const int next = s + kStages - 1;
+    if (next < total) load(next, ring + (next % kStages) * kStage);
+    cp_async_commit();
+    compute(s, ring + (s % kStages) * kStage);
+  }
+}
+
+// acc (a warp's 16 kMI x 8 kNT product tile) += A B over a staged depth
+// kDepth: A's rows row0 .. row0 + 16 kMI - 1 from a tile stored m-major
+// (load_a) or k-major (kAKMajor, load_a_km), its depth from a_k0; B's
+// columns n0 .. n0 + 8 kNT - 1 from a tile stored n-major (load_b_nk) or
+// k-major (kBKMajor, load_b_kn_nat). Each B fragment feeds kMI products;
+// f32 operands split by truncation (split_tf32<true>).
+// No branch in the loop, so loads and products interleave freely: columns
+// past the matrix are staged as zeros and cost only their products.
+template <typename T, int kMI, int kNT, int kDepth, int kStrideA, int kStrideB, bool kAKMajor,
+          bool kBKMajor>
+__device__ __forceinline__ void warp_product(const T* __restrict__ a_tile, int row0, int a_k0,
+                                             const T* __restrict__ b_tile, int n0,
+                                             float (&acc)[kMI][kNT][4]) {
+  static_assert(kNT % 2 == 0, "n-tiles in pairs");
+#pragma unroll
+  for (int k = 0; k < kDepth; k += Frag<T>::kK) {
+    typename Frag<T>::A a[kMI];
+#pragma unroll
+    for (int i = 0; i < kMI; ++i) {
+      if constexpr (kAKMajor) {
+        load_a_km<kStrideA, true>(a_tile, row0 + 16 * i, a_k0 + k, a[i]);
+      } else {
+        load_a<kStrideA, true>(a_tile, row0 + 16 * i, a_k0 + k, a[i]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kNT; j += 2) {
+      typename Frag<T>::B b0, b1;
+      if constexpr (kBKMajor) {
+        load_b_kn_nat<kStrideB, true>(b_tile, k, n0 + 8 * j, b0, b1);
+      } else {
+        load_b_nk<kStrideB, true>(b_tile, n0 + 8 * j, k, b0, b1);
+      }
+#pragma unroll
+      for (int i = 0; i < kMI; ++i) {
+        mma(acc[i][j], a[i], b0);
+        mma(acc[i][j + 1], a[i], b1);
+      }
+    }
+  }
 }
 
 // Max and sum over the four lanes of a quad (the threads that share a row).

@@ -51,13 +51,14 @@ _API = {
         "vit_attn_bwd_error_string": ([_I32], ctypes.c_char_p),
     },
     "vit_mlp_bwd": {
-        "vit_mlp_backward": ([_VP] * 13 + [_I32] * 6 + [_VP], _I32),
-        "vit_mlp_bwd_splits": ([_I32], _I32),
+        "vit_mlp_backward": ([_VP] * 13 + [_I32] * 7 + [_VP], _I32),
+        "vit_mlp_bwd_splits": ([_I32] * 4, _I32),
         "vit_mlp_bwd_error_string": ([_I32], ctypes.c_char_p),
     },
     "vit_mlp": {
-        "vit_mlp_forward": ([_VP] * 3 + [_F32] + [_VP] * 5 + [_I32, _VP] + [_I32] * 5 + [_VP],
-                            _I32),
+        "vit_mlp_forward": ([_VP] * 6 + [_I32] * 5 + [_VP], _I32),
+        "vit_mlp_block_forward": ([_VP] * 3 + [_F32] + [_VP] * 5 + [_I32, _VP] + [_I32] * 4
+                                  + [_VP], _I32),
         "vit_mlp_int8_forward": ([_VP] * 3 + [_F32] + [_VP] * 3 + [_F32] * 2 + [_VP] * 3
                                  + [_F32] * 2 + [_VP, _I32, _VP] + [_I32] * 4 + [_VP], _I32),
         "vit_mlp_max_out": ([], _I32),

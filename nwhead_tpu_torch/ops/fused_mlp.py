@@ -3,15 +3,17 @@ backward (the K9 backward) and the bf16 and int8 MLP half-blocks (K11).
 
 Port of ``nwhead_tpu/ops/pallas_mlp.py``: ``fused_mlp`` (forward and
 backward), ``fused_mlp_block_bf16`` (``quant=False``) and
-``fused_mlp_int8`` (``quant=True``). The float forwards run one CUDA C++
-kernel for Hopper, ``csrc/vit_mlp.cu`` ``vit_mlp_forward`` (TPU
-``_mlp_kernel`` and ``_mlp_int8_kernel``), in which the hidden activation
-never leaves the chip; K11 adds the optional LayerNorm before fc1 and the
-LayerScale and residual after fc2. K11 int8 is ``vit_mlp_int8_forward`` in
-the same source: both products on int8 codes with calibrated activation
-scales, the hidden chunk requantized on chip. The backward is
-``csrc/vit_mlp_bwd.cu`` ``vit_mlp_backward`` (TPU ``_mlp_bwd_kernel``): h
-recomputed per token tile, dx, then the weight and bias gradients summed
+``fused_mlp_int8`` (``quant=True``). Each runs a CUDA C++ kernel for
+Hopper. K9 is ``csrc/vit_mlp.cu`` ``vit_mlp_forward`` (TPU
+``_mlp_kernel``) on the tensor cores, the hidden activation never leaving
+the chip. K11 is ``vit_mlp_block_forward`` in the same source (TPU
+``_mlp_int8_kernel``, FFMA), which adds the optional LayerNorm before fc1
+and the LayerScale and residual after fc2. K11 int8 is
+``vit_mlp_int8_forward``: both products on int8 codes with calibrated
+activation scales, the hidden chunk requantized on chip. The backward is
+``csrc/vit_mlp_bwd.cu`` ``vit_mlp_backward`` (TPU ``_mlp_bwd_kernel``) on
+the tensor cores: h and dg per tile of tokens and hidden units, g and dh
+written once, rounded; then dx, and the weight and bias gradients summed
 over all tokens in a fixed order.
 
 Each kernel has a wrapper that counts its launches (``.launches``) and a
@@ -159,11 +161,14 @@ def _check_mlp(name: str, x, w1, b1, w2, b2, *extra, wdt=None) -> torch.device:
     return device
 
 
-def _mlp_launch(name: str, x, w1, b1, w2, b2, ln_scale, ln_bias, ln_eps, layerscale,
-                residual, quant=None) -> torch.Tensor:
-    """Check the operands and launch ``vit_mlp_forward`` on the current
-    stream, or with ``quant = (s1, a1, s2, a2)`` (int8 weights, their
-    per-channel scales and the activation scales) ``vit_mlp_int8_forward``."""
+def _mlp_block_launch(name: str, x, w1, b1, w2, b2, ln_scale, ln_bias, ln_eps, layerscale,
+                      residual, quant=None) -> torch.Tensor:
+    """Check a half-block's operands (x bf16) and launch K11
+    (``vit_mlp_block_forward``) on the current stream, or with ``quant =
+    (s1, a1, s2, a2)`` (int8 weights, their per-channel scales and the
+    activation scales) K11 int8 (``vit_mlp_int8_forward``)."""
+    if x.dtype != _BF16:
+        raise ValueError(f"{name} takes bf16, got {x.dtype}")
     extra = []
     if ln_scale is not None:
         extra += [("ln_scale", ln_scale, torch.float32), ("ln_bias", ln_bias, torch.float32)]
@@ -186,10 +191,10 @@ def _mlp_launch(name: str, x, w1, b1, w2, b2, ln_scale, ln_bias, ln_eps, layersc
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         if quant is None:
-            rc = lib.vit_mlp_forward(
+            rc = lib.vit_mlp_block_forward(
                 x.data_ptr(), _ptr(ln_scale), _ptr(ln_bias), float(ln_eps), w1.data_ptr(),
                 b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), _ptr(layerscale), int(residual),
-                out.data_ptr(), M, d_in, d_h, d_out, int(x.dtype == _BF16), stream)
+                out.data_ptr(), M, d_in, d_h, d_out, stream)
         else:
             # The reciprocals in double, rounded once to f32, as the JAX
             # kernel's Python-float ``1.0 / a`` is.
@@ -205,8 +210,22 @@ def _mlp_launch(name: str, x, w1, b1, w2, b2, ln_scale, ln_bias, ln_eps, layersc
 
 
 def mlp_cuda(x, w1, b1, w2, b2) -> torch.Tensor:
-    """Launch K9 (``csrc/vit_mlp.cu``, no folds) on ``(M, D_in)``."""
-    out = _mlp_launch("mlp_cuda", x, w1, b1, w2, b2, None, None, 0.0, None, False)
+    """Launch K9 (``csrc/vit_mlp.cu`` ``vit_mlp_forward``, the tensor cores)
+    on ``(M, D_in)`` x in f32 or bf16, the weights in x's dtype, the
+    biases f32."""
+    device = _check_mlp("mlp_cuda", x, w1, b1, w2, b2)
+    M, d_in = x.shape
+    d_h, d_out = w1.shape[-1], w2.shape[-1]
+    lib = _cuda.load_library("vit_mlp")
+    out = torch.empty((M, d_out), dtype=x.dtype, device=device)
+    with torch.cuda.device(device):
+        rc = lib.vit_mlp_forward(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                                 b2.data_ptr(), out.data_ptr(), M, d_in, d_h, d_out,
+                                 int(x.dtype == _BF16),
+                                 torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"mlp_cuda kernel launch failed: {lib.vit_mlp_error_string(rc).decode()}")
     mlp_cuda.launches += 1
     return out
 
@@ -216,12 +235,10 @@ mlp_cuda.launches = 0
 
 def mlp_block_bf16_cuda(x, w1, b1, w2, b2, ln_scale=None, ln_bias=None, ln_eps=1e-6,
                         layerscale=None, residual=False) -> torch.Tensor:
-    """Launch K11 (``csrc/vit_mlp.cu`` in bf16, with its folds) on ``(M,
-    D_in)`` bf16."""
-    if x.dtype != _BF16:
-        raise ValueError(f"mlp_block_bf16_cuda takes bf16, got {x.dtype}")
-    out = _mlp_launch("mlp_block_bf16_cuda", x, w1, b1, w2, b2, ln_scale, ln_bias, ln_eps,
-                      layerscale, residual)
+    """Launch K11 (``csrc/vit_mlp.cu`` ``vit_mlp_block_forward``, FFMA, with
+    its folds) on ``(M, D_in)`` bf16."""
+    out = _mlp_block_launch("mlp_block_bf16_cuda", x, w1, b1, w2, b2, ln_scale, ln_bias,
+                            ln_eps, layerscale, residual)
     mlp_block_bf16_cuda.launches += 1
     return out
 
@@ -234,10 +251,8 @@ def mlp_block_int8_cuda(x, w1, s1, b1, a1, w2, s2, b2, a2, ln_scale=None, ln_bia
     """Launch K11 int8 (``csrc/vit_mlp.cu``) on ``(M, D_in)`` bf16 with int8
     weights ``w1 (D_in, D_h)``, ``w2 (D_h, D_out)``, their f32 per-channel
     scales and the Python-float activation scales ``a1``, ``a2``."""
-    if x.dtype != _BF16:
-        raise ValueError(f"mlp_block_int8_cuda takes bf16, got {x.dtype}")
-    out = _mlp_launch("mlp_block_int8_cuda", x, w1, b1, w2, b2, ln_scale, ln_bias, ln_eps,
-                      layerscale, residual, quant=(s1, a1, s2, a2))
+    out = _mlp_block_launch("mlp_block_int8_cuda", x, w1, b1, w2, b2, ln_scale, ln_bias,
+                            ln_eps, layerscale, residual, quant=(s1, a1, s2, a2))
     mlp_block_int8_cuda.launches += 1
     return out
 
@@ -255,18 +270,22 @@ def mlp_bwd_cuda(x, w1, b1, w2, b2, dout):
     d_h, d_out = w1.shape[-1], w2.shape[-1]
     f32 = torch.float32
     lib = _cuda.load_library("vit_mlp_bwd")
-    splits = lib.vit_mlp_bwd_splits(M)
+    bf16 = int(x.dtype == _BF16)
+    with torch.cuda.device(device):
+        splits = [lib.vit_mlp_bwd_splits(M, r, n, bf16) for r, n in ((d_in, d_h), (d_h, d_out))]
+    if min(splits) <= 0:
+        raise RuntimeError("vit_mlp_bwd_splits: the device could not be queried")
     dx, g, dh = (torch.empty((M, n), dtype=x.dtype, device=device) for n in (d_in, d_h, d_h))
     dw1, dw2 = torch.empty_like(w1), torch.empty_like(w2)
     db1, db2 = torch.empty_like(b1), torch.empty_like(b2)
-    partials = torch.empty(splits * ((d_in + 1) * d_h + (d_h + 1) * d_out), dtype=f32,
-                           device=device)
+    partials = torch.empty(splits[0] * (d_in + 1) * d_h + splits[1] * (d_h + 1) * d_out,
+                           dtype=f32, device=device)
     with torch.cuda.device(device):
         rc = lib.vit_mlp_backward(
             x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), dout.data_ptr(),
             dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(),
-            g.data_ptr(), dh.data_ptr(), partials.data_ptr(), M, d_in, d_h, d_out, splits,
-            int(x.dtype == _BF16), torch.cuda.current_stream(device).cuda_stream)
+            g.data_ptr(), dh.data_ptr(), partials.data_ptr(), M, d_in, d_h, d_out, *splits,
+            bf16, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"vit_mlp_backward kernel launch failed: "
                            f"{lib.vit_mlp_bwd_error_string(rc).decode()}")

@@ -122,20 +122,27 @@ def test_attention_qkv_plain_matches_jax(shape, prec):
     _check(got, want, prec)
 
 
-@pytest.mark.parametrize("prec", ["f32", "bf16"])
-def test_mlp_plain_matches_jax(prec):
+# (leading shape, D, D_h): M = 26 ragged against every tile, and a ragged M
+# = 37 at ViT-S/14's and ViT-B's widths.
+MLP_WIDTHS = {"": ((2, 13), 64, 256), "vit_s": ((37,), 384, 1536), "vit_b": ((37,), 768, 3072)}
+
+
+@pytest.mark.parametrize("prec,width", [(p, w) for w in MLP_WIDTHS for p in ("f32", "bf16")],
+                         ids=[f"{p}-{w}" if w else p for w in MLP_WIDTHS for p in ("f32", "bf16")])
+def test_mlp_plain_matches_jax(prec, width):
     import jax.numpy as jnp
 
     from nwhead_tpu.ops.pallas_mlp import fused_mlp as jax_mlp
 
-    x, w1, b1, w2, b2 = _mlp_inputs(26, 64, 256)
-    x = x.reshape(2, 13, 64)  # M = 26: ragged against every tile
+    lead, D, Dh = MLP_WIDTHS[width]
+    x, w1, b1, w2, b2 = _mlp_inputs(int(np.prod(lead)), D, Dh)
+    x = x.reshape(*lead, D)
     dt = _jnp_dtype(prec)
     want = jax_mlp(jnp.asarray(x).astype(dt), jnp.asarray(w1), jnp.asarray(b1),
                    jnp.asarray(w2), jnp.asarray(b2))
     got = FM.fused_mlp(torch.from_numpy(x).to(_dtype(prec)), *map(torch.from_numpy,
                                                                    (w1, b1, w2, b2)))
-    assert got.shape == (2, 13, 64) and got.dtype == _dtype(prec)
+    assert got.shape == (*lead, D) and got.dtype == _dtype(prec)
     _check(got, want, prec)
 
 
@@ -348,11 +355,19 @@ def test_cuda_fused_attention_matches_plain(shape, prec):
         FA.fused_attention(q[..., :16], k[..., :16], v[..., :16])
 
 
+# The tile edges of K9 and its backward (64-token blocks of four 16-row
+# warps, 128-unit hidden chunks, 128- to 384-column output blocks, 32-deep
+# slices) with ragged D_h and D_out (bf16 rows of 200 bytes, off cp.async's
+# 16), and the ViT-S/14 training step's M. (M, D, D_h, D_out).
+MLP_EDGE_SHAPES = [(M, 64, 100, 200) for M in (1, 15, 16, 17, 63, 64, 65, 129)] + [
+    (310456, 384, 1536, 384)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("prec", ["f32", "bf16"])
 @pytest.mark.parametrize("shape", [(16448, 384, 1536, 384), (1001, 384, 1536, 384),
                                    (514, 768, 3072, 768), (100, 1024, 4096, 1024),
-                                   (37, 64, 100, 200)])
+                                   (37, 64, 100, 200)] + MLP_EDGE_SHAPES)
 def test_cuda_mlp_matches_plain(shape, prec):
     dev = _need_gpu()
     M, D, Dh, D_out = shape
@@ -394,6 +409,8 @@ def test_cuda_attention_block_bf16_matches_plain(shape, ln, ls, residual):
 @pytest.mark.gpu
 @pytest.mark.parametrize("ln,ls,residual", FOLDS)
 def test_cuda_mlp_block_bf16_matches_plain(ln, ls, residual):
+    """K11 (FFMA, ``vit_mlp_block_forward``), with or without folds, against
+    its plain version; it never launches K9's tensor-core kernel."""
     dev = _need_gpu()
     D = 384
     x = torch.from_numpy(np.random.default_rng(5).standard_normal((8, 257, D), np.float32))
@@ -402,7 +419,7 @@ def test_cuda_mlp_block_bf16_matches_plain(ln, ls, residual):
     xb = x.to(dev, torch.bfloat16)
     kw = dict(ln_scale=ln_s if ln else None, ln_bias=ln_b if ln else None,
               layerscale=gamma if ls else None, residual=residual)
-    before = FM.mlp_block_bf16_cuda.launches
+    before = FM.mlp_block_bf16_cuda.launches, FM.mlp_cuda.launches
     got = FM.fused_mlp_block_bf16(xb, w1, b1, w2, b2, **kw)
     saved = FM.mlp_block_bf16_cuda
     FM.mlp_block_bf16_cuda = FM._mlp_block_bf16_plain
@@ -411,7 +428,7 @@ def test_cuda_mlp_block_bf16_matches_plain(ln, ls, residual):
     finally:
         FM.mlp_block_bf16_cuda = saved
     torch.cuda.synchronize()
-    assert FM.mlp_block_bf16_cuda.launches == before + 1
+    assert (FM.mlp_block_bf16_cuda.launches, FM.mlp_cuda.launches) == (before[0] + 1, before[1])
     _card_check(got, want, "bf16")
 
 
@@ -473,8 +490,10 @@ def test_cuda_attention_qkv_bwd_repeats_bitwise(shape):
 @pytest.mark.parametrize("prec", ["f32", "bf16"])
 @pytest.mark.parametrize("shape", [(16448, 384, 1536, 384), (1001, 384, 1536, 384),
                                    (514, 768, 3072, 768), (100, 1024, 4096, 1024),
-                                   (37, 64, 100, 200)])
+                                   (37, 64, 100, 200)] + MLP_EDGE_SHAPES)
 def test_cuda_mlp_bwd_matches_plain(shape, prec):
+    """The K9 backward against its plain version; run twice it gives the
+    same five gradients bit for bit (fixed-order sums, no atomics)."""
     dev = _need_gpu()
     M, D, Dh, D_out = shape
     x, w1, b1, w2, b2 = (torch.from_numpy(a).to(dev) for a in _mlp_inputs(M, D, Dh, D_out=D_out))
@@ -483,12 +502,14 @@ def test_cuda_mlp_bwd_matches_plain(shape, prec):
     args = (x.to(dt), w1.to(dt), b1, w2.to(dt), b2, g.to(dev, dt))
     before = FM.mlp_bwd_cuda.launches
     got = FM.mlp_bwd_cuda(*args)
+    again = FM.mlp_bwd_cuda(*args)
     want = FM._mlp_bwd_plain(*args)
     torch.cuda.synchronize()
-    assert FM.mlp_bwd_cuda.launches == before + 1
-    for a, b in zip(got, want):
+    assert FM.mlp_bwd_cuda.launches == before + 2
+    for a, b, c in zip(got, want, again):
         assert a.shape == b.shape and a.dtype == b.dtype
         _grad_check(a, b, prec)
+        assert torch.equal(a, c)
 
 
 @pytest.mark.gpu

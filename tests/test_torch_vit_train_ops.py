@@ -123,14 +123,16 @@ def _mlp_case(shape, D, Dh, seed=0):
 
 
 @pytest.mark.parametrize("prec", ["f32", "bf16"])
-@pytest.mark.parametrize("shape", [(37,), (2, 13)])  # ragged 2-D, and 3-D
+@pytest.mark.parametrize("shape", [((37,), 64, 256), ((2, 13), 64, 256),  # ragged 2-D, and 3-D
+                                   ((37,), 384, 1536), ((37,), 768, 3072)])  # ViT-S, ViT-B widths
 def test_mlp_bwd_plain_matches_jax(shape, prec):
     import jax
     import jax.numpy as jnp
 
     from nwhead_tpu.ops.pallas_mlp import fused_mlp
 
-    x, w1, b1, w2, b2, g = _mlp_case(shape, 64, 256)
+    shape, D, Dh = shape
+    x, w1, b1, w2, b2, g = _mlp_case(shape, D, Dh)
     dt, jdt = DTYPES[prec], _jnp_dtype(prec)
     _, vjp = jax.vjp(lambda *a: fused_mlp(*a), jnp.asarray(x).astype(jdt), jnp.asarray(w1),
                      jnp.asarray(b1), jnp.asarray(w2), jnp.asarray(b2))
@@ -145,9 +147,9 @@ def test_mlp_bwd_plain_matches_jax(shape, prec):
         assert a.shape == leaf.shape and a.dtype == leaf.dtype, name
         assert _rel_err(_np(a), _np(b)) <= REL[prec], name
     # The plain version called directly, in the kernel's operand dtypes.
-    flat = (torch.from_numpy(x).to(dt).reshape(-1, 64), torch.from_numpy(w1).to(dt),
+    flat = (torch.from_numpy(x).to(dt).reshape(-1, D), torch.from_numpy(w1).to(dt),
             torch.from_numpy(b1), torch.from_numpy(w2).to(dt), torch.from_numpy(b2))
-    direct = FM._mlp_bwd_plain(*flat, torch.from_numpy(g).to(dt).reshape(-1, 64))
+    direct = FM._mlp_bwd_plain(*flat, torch.from_numpy(g).to(dt).reshape(-1, D))
     assert [t.dtype for t in direct] == [dt, dt, torch.float32, dt, torch.float32]
     torch.testing.assert_close(direct[0].reshape(got[0].shape), got[0], rtol=0, atol=0)
 
