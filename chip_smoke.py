@@ -32,7 +32,9 @@ package beside it. With one, in order:
    bf16 at M=16,448 tokens, D=384, D_h=1,536, at a ragged M and at
    ViT-B/14's width (D=768, D_h=3,072, timed); K10 and K11 (the bf16
    attention and MLP half-blocks) at B=64 with every combination of the
-   LayerNorm, LayerScale and residual folds; each against its plain
+   LayerNorm, LayerScale and residual folds, K11 with no fold against K9
+   bit for bit, and K11 at a ragged M=1,001 with D_h=100 and at ViT-B/14's
+   width (timed), every fold; each against its plain
    version, timed at the serving shape, K7 beside
    ``F.scaled_dot_product_attention`` on the same data, by ``time_ms`` and
    again in turns with it by the labs' harness (L2 flushed by a read);
@@ -44,7 +46,10 @@ package beside it. With one, in order:
    shape;
 7. K10/K11 int8 kernel phase: the int8 attention and MLP half-blocks at
    B=64, N=257, D=384 (M=16,448 tokens) with every combination of the
-   folds, against their plain versions, timed with the serving folds; and
+   folds, against their plain versions, timed with the serving folds, K11
+   int8 bit-equal to its plain version (exact int32 sums) or the phase
+   fails, also at M=1,001, D=388, D_h=100 and at ViT-B/14's width (timed);
+   and
    the plain int8 attention chain with its scores rounded exactly (an f64
    sum) against itself, which shows why K10 int8's attention stage keeps
    the plain version's summation order;
@@ -815,6 +820,12 @@ ATTN_CASES = (  # name, B, N, H, hd; the first is the serving shape, timed
 ) + ATTN_EDGE_CASES
 MLP_CASES = (("vit_s14_b64", VIT_B * VIT_N), ("ragged_m1001", 1001))  # name, M
 VIT_B14_MLP = (768, 3072)  # ViT-B/14's D, D_h: K9 takes two column blocks there
+# K11 and K11 int8 beyond the serving shape, every fold: a ragged M and
+# D_h (K11 int8 also a D_in off the 16-byte row) and ViT-B/14's width,
+# timed with the serving folds. name, M, D, D_h.
+K11_CASES = (("ragged_m1001_dh100", 1001, VIT_D, 100), ("vit_b14_b64", VIT_B * VIT_N) + VIT_B14_MLP)
+K11_INT8_CASES = (("ragged_m1001_din388_dh100", 1001, 388, 100),
+                  ("vit_b14_b64", VIT_B * VIT_N) + VIT_B14_MLP)
 VIT_SERVE_ARGV = ["--dataset", "synthetic_cub", "--arch", "vit_s14", "--batch_size", "64",
                   "--latency_bench"]
 VIT_CONFIGS = (  # name, extra flags, kernels launched 12 times per request, the head's
@@ -889,14 +900,34 @@ def _vit_record(res: dict, key: str, err: float) -> None:
     res[key]["max_abs_err"] = max(res[key]["max_abs_err"], err)
 
 
-def _vit_timed(res, key, flush, kernel, plain, n_bytes, flops, prec, library=None) -> None:
+def _vit_timed(res, key, flush, kernel, plain, n_bytes, flops, prec, library=None,
+               **more_ops) -> None:
     res[key].update(ms=time_ms(kernel, flush), plain_ms=time_ms(plain, flush),
                     library_ms=None if library is None else time_ms(library, flush),
-                    **bound(n_bytes, flops, prec))
+                    **bound(n_bytes, flops, prec, **more_ops))
     r = res[key]
     lib = "" if library is None else f", library {r['library_ms']:.4f} ms"
     print(f"time {key}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms{lib}, "
           f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+def _check_block(res: dict, key: str, kernel, plain, args, label: str, exact=False) -> None:
+    """One half-block call against its plain version within the bf16
+    limits (``exact``, K11 int8's exact int32 sums: also bit-equal 1.0000),
+    printed; its max |err| recorded under ``key``. Raises if it
+    disagrees."""
+    import torch
+
+    got, want = kernel(*args), plain(*args)
+    torch.cuda.synchronize()
+    ok, err, rel, cos = vit_agree(got, want, "bf16")
+    equal = float((got == want).float().mean())
+    ok = ok and (equal == 1.0 or not exact)
+    print(f"{label}: max|err| {err:.3e}, rel {rel:.2e}, cos {cos:.7f}, bit-equal {equal:.4f} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: disagrees with its plain version")
+    _vit_record(res, key, err)
 
 
 def _mlp_vit_b(res: dict, flush, backward: bool) -> None:
@@ -1037,14 +1068,7 @@ def vit_kernel_phase(flush) -> dict:
                 ("attention_block_bf16", FA.attention_block_bf16_cuda,
                  FA._attention_block_bf16_plain, a_args),
                 ("mlp_block_bf16", FM.mlp_block_bf16_cuda, FM._mlp_block_bf16_plain, m_args)):
-            got, want = kernel(*args), plain(*args)
-            torch.cuda.synchronize()
-            ok, err, rel, cos = vit_agree(got, want, "bf16")
-            print(f"{key} B={VIT_B} N={VIT_N} {where}: max|err| {err:.3e}, rel {rel:.2e}, "
-                  f"cos {cos:.7f} {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"{key} disagrees with its plain version: {where}")
-            _vit_record(res, key, err)
+            _check_block(res, key, kernel, plain, args, f"{key} B={VIT_B} N={VIT_N} {where}")
             if ln and ls and resid:  # the serving path's folds
                 if key == "attention_block_bf16":
                     n_bytes = 4 * M * D + 2 * 4 * D * D + 4 * 4 * D + 8 * D + 2 * D
@@ -1054,7 +1078,46 @@ def vit_kernel_phase(flush) -> dict:
                     flops = 4 * M * D * Dh
                 _vit_timed(res, key, flush, lambda k=kernel, a=args: k(*a),
                            lambda p=plain, a=args: p(*a), n_bytes, flops, "bf16")
+    # K11 with every fold off is K9's function on the same products: K9's bits.
+    m_args = (x.reshape(M, D), w1.to(bf), b1, w2.to(bf), b2)
+    same = torch.equal(FM.mlp_block_bf16_cuda(*m_args), FM.mlp_cuda(*m_args))
+    print(f"mlp_block_bf16 B={VIT_B} N={VIT_N} no folds vs K9 (mlp_cuda): bit-equal {same} "
+          f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("K11 with no fold disagrees with K9's bits")
+    for case, Mc, Dc, Dhc in K11_CASES:
+        _k11_case(res, flush, case, Mc, Dc, Dhc)
     return res
+
+
+def _k11_case(res: dict, flush, case: str, M: int, D: int, Dh: int) -> None:
+    """K11 at one more shape, every fold, against its plain version; timed
+    with the serving folds under ``mlp_block_bf16_<case>`` (not part of
+    the kernels line)."""
+    import torch
+
+    from nwhead_tpu_torch.ops import fused_mlp as FM
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    rng = np.random.default_rng(320)
+    w1, b1, w2, b2, ln_s, ln_b, gamma = (torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+        rng.standard_normal((D, Dh)) / np.sqrt(D), 0.1 * rng.standard_normal(Dh),
+        rng.standard_normal((Dh, D)) / np.sqrt(Dh), 0.1 * rng.standard_normal(D),
+        1.0 + 0.2 * rng.standard_normal(D), 0.1 * rng.standard_normal(D),
+        rng.uniform(0.5, 1.5, D)))
+    x = torch.from_numpy(np.random.default_rng(321).standard_normal((M, D), np.float32)).to(dev, bf)
+    key = f"mlp_block_bf16_{case}"
+    for ln, ls, resid in itertools.product([False, True], repeat=3):
+        args = (x, w1.to(bf), b1, w2.to(bf), b2, ln_s if ln else None, ln_b if ln else None,
+                1e-6, gamma.to(bf) if ls else None, resid)
+        _check_block(res, key, FM.mlp_block_bf16_cuda, FM._mlp_block_bf16_plain, args,
+                     f"mlp_block_bf16 {case} (M={M}, D={D}, D_h={Dh}) ln={int(ln)} "
+                     f"ls={int(ls)} residual={int(resid)}")
+        if ln and ls and resid and case.startswith("vit_b14"):
+            _vit_timed(res, key, flush, lambda a=args: FM.mlp_block_bf16_cuda(*a),
+                       lambda a=args: FM._mlp_block_bf16_plain(*a),
+                       4 * M * D + 2 * 2 * D * Dh + 4 * (Dh + D) + 8 * D + 2 * D,
+                       4 * M * D * Dh, "bf16")
 
 
 # ---------------------------------------------------------------------------
@@ -1130,10 +1193,9 @@ def quant_kernel_phase(flush) -> dict:
 def _qdense(rng, din, dout):
     """Random int8 weights quantized per output channel, as quantize_vit
     does, their scales and a bias (numpy)."""
-    w = (rng.standard_normal((din, dout)) / np.sqrt(din)).astype(np.float32)
-    scale = (np.abs(w).max(0) / np.float32(127.0)).astype(np.float32)
-    return (np.clip(np.round(w / scale), -127, 127).astype(np.int8), scale,
-            (0.1 * rng.standard_normal(dout)).astype(np.float32))
+    from nwhead_tpu_torch.labs.mlp_block_lab import qdense
+
+    return qdense(rng, din, dout)
 
 
 def vit_int8_kernel_phase(flush) -> dict:
@@ -1174,30 +1236,20 @@ def vit_int8_kernel_phase(flush) -> dict:
                 ("attention_block_int8", FA.attention_block_int8_cuda,
                  FA._attention_block_int8_plain, a_args),
                 ("mlp_block_int8", FM.mlp_block_int8_cuda, FM._mlp_block_int8_plain, m_args)):
-            got, want = kernel(*args), plain(*args)
-            torch.cuda.synchronize()
-            ok, err, rel, cos = vit_agree(got, want, "bf16")
-            equal = float((got == want).float().mean())
-            print(f"{key} B={VIT_B} N={VIT_N} {where}: max|err| {err:.3e}, rel {rel:.2e}, "
-                  f"cos {cos:.7f}, bit-equal {equal:.4f} {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"{key} disagrees with its plain version: {where}")
-            _vit_record(res, key, err)
+            _check_block(res, key, kernel, plain, args, f"{key} B={VIT_B} N={VIT_N} {where}",
+                         exact=key == "mlp_block_int8")
             if ln and ls and resid:  # the serving path's folds
                 vecs = 4 * 2 * D + 2 * D  # LN affine f32, LayerScale bf16
-                if key == "attention_block_int8":
+                if key == "attention_block_int8":  # the scores and PV in bf16 beside
                     n_bytes = 4 * M * D + 4 * D * D + 4 * 2 * (3 * D + D) + vecs
-                    b = bound(n_bytes, 8 * M * D * D, "int8",
-                              bf16=4 * VIT_B * H * VIT_N * VIT_N * (D // H))
+                    flops, more = 8 * M * D * D, {"bf16": 4 * VIT_B * H * VIT_N * VIT_N * (D // H)}
                 else:
                     n_bytes = 4 * M * D + 2 * D * Dh + 4 * 2 * (Dh + D) + vecs
-                    b = bound(n_bytes, 4 * M * D * Dh, "int8")
-                res[key].update(ms=time_ms(lambda k=kernel, a=args: k(*a), flush),
-                                plain_ms=time_ms(lambda p=plain, a=args: p(*a), flush),
-                                library_ms=None, **b)
-                r = res[key]
-                print(f"time {key}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                      f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+                    flops, more = 4 * M * D * Dh, {}
+                _vit_timed(res, key, flush, lambda k=kernel, a=args: k(*a),
+                           lambda p=plain, a=args: p(*a), n_bytes, flops, "int8", **more)
+    for case, Mc, Dc, Dhc in K11_INT8_CASES:
+        _k11_int8_case(res, flush, case, Mc, Dc, Dhc)
     # Why K10 int8's attention stage sums the scores in cuBLAS's order: the
     # plain chain with its scores rounded exactly (an f64 sum) against the
     # plain chain itself, at the folds without LayerNorm.
@@ -1212,6 +1264,39 @@ def vit_int8_kernel_phase(flush) -> dict:
           f"ls=0 residual=0): max|err| {err:.3e}, rel {rel:.2e}, cos {cos:.7f}, bit-equal "
           f"{float((got == want).float().mean()):.4f} (a kernel is held to 1e-2)")
     return res
+
+
+def _k11_int8_case(res: dict, flush, case: str, M: int, D: int, Dh: int) -> None:
+    """K11 int8 at one more shape, every fold, against its plain version:
+    bit-equal 1.0000 or the phase fails; timed with the serving folds under
+    ``mlp_block_int8_<case>`` (not part of the kernels line)."""
+    import torch
+
+    from nwhead_tpu_torch.ops import fused_attn as FA
+    from nwhead_tpu_torch.ops import fused_mlp as FM
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    rng = np.random.default_rng(1010)
+    to = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    (w1, s1, b1), (w2, s2, b2) = ([to(a) for a in _qdense(rng, i, o)] for i, o in ((D, Dh), (Dh, D)))
+    ln_s, ln_b, gamma = (to(a.astype(np.float32)) for a in (
+        1.0 + 0.2 * rng.standard_normal(D), 0.1 * rng.standard_normal(D),
+        rng.uniform(0.5, 1.5, D)))
+    x = to(np.random.default_rng(1011).standard_normal((M, D), np.float32)).to(bf)
+    key = f"mlp_block_int8_{case}"
+    for ln, ls, resid in itertools.product([False, True], repeat=3):
+        h = FA._layer_norm_f32(x, ln_s, ln_b, 1e-6).to(bf) if ln else x
+        args = (x, w1, s1, b1, float(h.float().abs().max()) / 127.0, w2, s2, b2, 4.0 / 127.0,
+                ln_s if ln else None, ln_b if ln else None, 1e-6, gamma.to(bf) if ls else None,
+                resid)
+        _check_block(res, key, FM.mlp_block_int8_cuda, FM._mlp_block_int8_plain, args,
+                     f"mlp_block_int8 {case} (M={M}, D={D}, D_h={Dh}) ln={int(ln)} "
+                     f"ls={int(ls)} residual={int(resid)}", exact=True)
+        if ln and ls and resid and case.startswith("vit_b14"):
+            _vit_timed(res, key, flush, lambda a=args: FM.mlp_block_int8_cuda(*a),
+                       lambda a=args: FM._mlp_block_int8_plain(*a),
+                       4 * M * D + 2 * D * Dh + 4 * 2 * (Dh + D) + 4 * 2 * D + 2 * D,
+                       4 * M * D * Dh, "int8")
 
 
 def _attention_exact_scores(qkv, num_heads: int, scale: float):
@@ -2032,6 +2117,14 @@ def vit_serving_phase(datasets, configs=VIT_CONFIGS) -> dict:
         del net, serve_fn
         torch.cuda.empty_cache()
     return out
+
+
+def request_split(run: dict, kern: dict, name: str, attn: str, mlp: str) -> None:
+    """A served ViT request's p50 beside its 12 K10 and 12 K11 launches at
+    their kernel-phase times (the serving shape and folds, L2 flushed)."""
+    p50, k10, k11 = run["report"]["p50_ms"], 12 * kern[attn]["ms"], 12 * kern[mlp]["ms"]
+    print(f"vit {name}: p50 {p50:.3f} ms; 12 x K10 {k10:.3f} ms, 12 x K11 {k11:.3f} ms "
+          f"(kernel phase times), the rest {p50 - k10 - k11:.3f} ms")
 
 
 def vit_entries(kern: dict, served: dict) -> list:
@@ -2934,6 +3027,11 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
+    request_split(vit_served["bf16_fused"], vit_kern, "bf16_fused", "attention_block_bf16",
+                  "mlp_block_bf16")
+    for name in ("int8_int8", "int8_int4"):
+        request_split(vit_int8_served[name], vit_int8_kern, name, "attention_block_int8",
+                      "mlp_block_int8")
 
     print(nvidia_smi_line())
     entries = [

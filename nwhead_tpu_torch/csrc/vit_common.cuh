@@ -1,15 +1,16 @@
 // Device code shared by the ViT kernels (vit_attn.cu, vit_attn_bwd.cu,
 // vit_mlp.cu, vit_mlp_bwd.cu): dtype conversion and rounding, warp
 // reductions, the LayerNorm statistics of a row, the exact GELU, the
-// register-tiled FFMA product step of the MLP kernels and of K10's
-// projections, and the int8 kernels' activation codes.
+// register-tiled FFMA product step of K10's projections and K10 int8's
+// attention stage, and the int8 kernels' activation codes.
 //
 // fma_tile's products are f32 FMAs on values widened from the inputs'
 // dtype (f32 or bf16): a bf16 x bf16 product is exact in f32, so those
 // paths differ from the plain PyTorch versions (bf16 values, f32 products
 // and sums) only in the order of the f32 sums, and they run at the card's
 // 67 TFLOP/s f32 rate, not on its tensor cores. The attention kernels (K7,
-// K8) take the tensor cores through vit_mma.cuh.
+// K8) and the MLP kernels (K9, its backward, K11 and K11 int8) take the
+// tensor cores through vit_mma.cuh.
 
 #pragma once
 
@@ -30,6 +31,7 @@ __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m *
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(int8_t x) { return static_cast<float>(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -39,6 +41,9 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
+// An int8 code (an integer in [-127, 127] held as a float).
+template <>
+__device__ __forceinline__ int8_t from_float<int8_t>(float x) { return static_cast<int8_t>(x); }
 
 // x rounded to T and widened back: the rounding points of the JAX kernels
 // (a value cast to the working dtype before the next product).

@@ -24,16 +24,26 @@
 // padding: ldmatrix's eight 16-byte rows and the f32 loads' (g, t) pattern
 // then fall in 32 different banks.
 //
-// The MLP kernels (K9 in vit_mlp.cu, the K9 backward in vit_mlp_bwd.cu)
-// use the same fragments on tiles of any width (stage_tile, mlp_stride,
-// warp_product below): their depths run to 4,096, their rows may be ragged,
-// and their left factors also come k-major (load_a_km: the weight
-// gradients, whose depth is tokens). An f32 tile read by rows g (load_a,
-// load_b_nk) is padded to a stride of 4 mod 32 words, one read by rows t
-// (load_a_km, load_b_kn_nat) to 8 mod 32, so that each load's 32 lanes hit
-// 32 banks.
+// The MLP kernels (K9, K11 and K11 int8 in vit_mlp.cu, the K9 backward in
+// vit_mlp_bwd.cu) use the same fragments on tiles of any width (stage_tile,
+// mlp_stride, warp_product below): their depths run to 4,096, their rows
+// may be ragged, and their left factors also come k-major (load_a_km: the
+// weight gradients, whose depth is tokens). An f32 tile read by rows g
+// (load_a, load_b_nk) is padded to a stride of 4 mod 32 words, one read by
+// rows t (load_a_km, load_b_kn_nat) to 8 mod 32, so that each load's 32
+// lanes hit 32 banks.
+//   * int8 (K11 int8): mma.sync.m16n8k32 (s8 operands, exact s32 sums).
+//     Its A fragment is the bf16 one byte for byte, so a row-major code
+//     tile loads with ldmatrix. Its B fragment wants four consecutive k of
+//     one column in a register, and ldmatrix.trans moves only 16-bit
+//     elements, so a right factor stored k-major (the weights as stored,
+//     (in, out)) loads by 32-bit words and is transposed in registers with
+//     __byte_perm (load_b_kn4), four n-tiles at a time. Rows of 16 mod 128
+//     bytes serve both loads without bank conflicts.
 
 #pragma once
+
+#include <type_traits>
 
 #include "vit_common.cuh"
 
@@ -101,6 +111,7 @@ struct Frag;
 template <>
 struct Frag<__nv_bfloat16> {
   static constexpr int kK = 16;  // depth of one mma
+  using Acc = float;             // the accumulator's element
   struct A { uint32_t r[4]; };
   struct B { uint32_t r[2]; };
 };
@@ -108,8 +119,19 @@ struct Frag<__nv_bfloat16> {
 template <>
 struct Frag<float> {
   static constexpr int kK = 8;
+  using Acc = float;
   struct A { uint32_t big[4], small[4]; };
   struct B { uint32_t big[2], small[2]; };
+};
+
+// Four codes a register: A rows g, g + 8 at k = 4t .. 4t + 3 and 16 + 4t
+// ..; B column g at k = 4t .. and 16 + 4t ...
+template <>
+struct Frag<int8_t> {
+  static constexpr int kK = 32;
+  using Acc = int;
+  struct A { uint32_t r[4]; };
+  struct B { uint32_t r[2]; };
 };
 
 __device__ __forceinline__ uint32_t to_tf32(float x) {
@@ -143,6 +165,16 @@ __device__ __forceinline__ void load_a(const __nv_bfloat16* tile, int row0, int 
                                        Frag<__nv_bfloat16>::A& a) {
   const int lane = threadIdx.x & 31;
   const uint32_t addr = smem_u32(tile + (row0 + (lane & 15)) * kStride + k0 + (lane >> 4) * 8);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(a.r[0]), "=r"(a.r[1]), "=r"(a.r[2]), "=r"(a.r[3])
+               : "r"(addr));
+}
+
+// int8: the same four 8 x 16-byte matrices as bf16, k0 in bytes.
+template <int kStride, bool kTrunc = false>
+__device__ __forceinline__ void load_a(const int8_t* tile, int row0, int k0, Frag<int8_t>::A& a) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t addr = smem_u32(tile + (row0 + (lane & 15)) * kStride + k0 + (lane >> 4) * 16);
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(a.r[0]), "=r"(a.r[1]), "=r"(a.r[2]), "=r"(a.r[3])
                : "r"(addr));
@@ -227,6 +259,43 @@ __device__ __forceinline__ void load_b_kn_nat(const float* tile, int k0, int n0,
   split_tf32<kTrunc>(x1, b1.big, b1.small);
 }
 
+// B[k][n] = tile[k0 + k][n0 + c(j, n)] for the four int8 n-tiles j < 4 of
+// columns n0 .. n0 + 31, whose column n is c(j, n) = 4 n + j: thread (g,
+// t) reads the word of columns n0 + 4g .. + 3 from each of rows k0 + 4t ..
+// + 3 (and k0 + 16 + 4t ..), and the 4 x 4 transpose of those bytes gives
+// its register of each n-tile. So each thread's accumulator elements of
+// the four n-tiles are 8 consecutive columns (acc_col_s8). Threads t >= 2
+// read their rows in the order 2, 3, 0, 1: with a row stride of 16 mod 128
+// bytes each load's 32 lanes then fall in 32 banks.
+template <int kStride>
+__device__ __forceinline__ void load_b_kn4(const int8_t* tile, int k0, int n0,
+                                           Frag<int8_t>::B (&b)[4]) {
+  static_assert(kStride % 128 == 16, "rows of 16 mod 128 bytes");
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int sw = t & 2;
+  // Byte selectors of the last step, for rows read in order or swapped.
+  const uint32_t lo = sw ? 0x1054u : 0x5410u, hi = sw ? 0x3276u : 0x7632u;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int8_t* p = tile + (k0 + 16 * h + 4 * t) * kStride + n0 + 4 * g;
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[i] = *reinterpret_cast<const uint32_t*>(p + (i ^ sw) * kStride);
+    const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140), t1 = __byte_perm(w[0], w[1], 0x7362);
+    const uint32_t t2 = __byte_perm(w[2], w[3], 0x5140), t3 = __byte_perm(w[2], w[3], 0x7362);
+    b[0].r[h] = __byte_perm(t0, t2, lo);
+    b[1].r[h] = __byte_perm(t0, t2, hi);
+    b[2].r[h] = __byte_perm(t1, t3, lo);
+    b[3].r[h] = __byte_perm(t1, t3, hi);
+  }
+}
+
+// Column (within the warp's n0 ..) of accumulator element e of int8
+// n-tile j under load_b_kn4's order: 32 (j / 4) + 8t + 4 (e & 1) + j % 4.
+__device__ __forceinline__ int acc_col_s8(int j, int e) {
+  return 32 * (j >> 2) + 8 * (threadIdx.x & 3) + 4 * (e & 1) + (j & 3);
+}
+
 // A[m][k] = tile[k0 + k][row0 + m], m < 16: a left factor stored k-major
 // (x and g in the weight gradients, whose depth is tokens); bf16 through
 // ldmatrix.trans.
@@ -288,6 +357,16 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// int8 codes, int32 sums (exact: no rounding, any order).
+__device__ __forceinline__ void mma(int (&d)[4], const Frag<int8_t>::A& a,
+                                    const Frag<int8_t>::B& b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "r"(b.r[0]), "r"(b.r[1]));
 }
 
 // 3xTF32: the two small cross terms first, then big * big.
@@ -359,12 +438,12 @@ __device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
 }
 
-// Row stride, in elements, of a staged MLP tile kCols wide: bf16 16 bytes
-// of padding; f32 to 4 mod 32 words for a tile read by rows g, 8 mod 32 for
-// one read by rows t (kByT).
+// Row stride, in elements, of a staged MLP tile kCols wide: int8 and bf16
+// 16 bytes of padding; f32 to 4 mod 32 words for a tile read by rows g, 8
+// mod 32 for one read by rows t (kByT).
 template <typename T, int kCols, bool kByT>
 __host__ __device__ constexpr int mlp_stride() {
-  return sizeof(T) == 2 ? kCols + 8 : kCols + (kByT ? 8 : 4);
+  return sizeof(T) == 1 ? kCols + 16 : sizeof(T) == 2 ? kCols + 8 : kCols + (kByT ? 8 : 4);
 }
 
 // 1 if a row-major matrix at p with leading dimension ld (elements) takes
@@ -444,38 +523,59 @@ __device__ __forceinline__ void ring_loop(T* ring, int total, Load load, Compute
 // (load_a) or k-major (kAKMajor, load_a_km), its depth from a_k0; B's
 // columns n0 .. n0 + 8 kNT - 1 from a tile stored n-major (load_b_nk) or
 // k-major (kBKMajor, load_b_kn_nat). Each B fragment feeds kMI products;
-// f32 operands split by truncation (split_tf32<true>).
+// f32 operands split by truncation (split_tf32<true>). int8 takes A
+// m-major and B k-major only, four n-tiles a load (load_b_kn4: the
+// columns in acc_col_s8's order).
 // No branch in the loop, so loads and products interleave freely: columns
 // past the matrix are staged as zeros and cost only their products.
 template <typename T, int kMI, int kNT, int kDepth, int kStrideA, int kStrideB, bool kAKMajor,
           bool kBKMajor>
 __device__ __forceinline__ void warp_product(const T* __restrict__ a_tile, int row0, int a_k0,
                                              const T* __restrict__ b_tile, int n0,
-                                             float (&acc)[kMI][kNT][4]) {
-  static_assert(kNT % 2 == 0, "n-tiles in pairs");
+                                             typename Frag<T>::Acc (&acc)[kMI][kNT][4]) {
+  if constexpr (std::is_same_v<T, int8_t>) {
+    static_assert(kNT % 4 == 0 && !kAKMajor && kBKMajor, "int8: n-tiles in fours, B k-major");
 #pragma unroll
-  for (int k = 0; k < kDepth; k += Frag<T>::kK) {
-    typename Frag<T>::A a[kMI];
+    for (int k = 0; k < kDepth; k += Frag<T>::kK) {
+      Frag<int8_t>::A a[kMI];
 #pragma unroll
-    for (int i = 0; i < kMI; ++i) {
-      if constexpr (kAKMajor) {
-        load_a_km<kStrideA, true>(a_tile, row0 + 16 * i, a_k0 + k, a[i]);
-      } else {
-        load_a<kStrideA, true>(a_tile, row0 + 16 * i, a_k0 + k, a[i]);
+      for (int i = 0; i < kMI; ++i) load_a<kStrideA>(a_tile, row0 + 16 * i, a_k0 + k, a[i]);
+#pragma unroll
+      for (int j = 0; j < kNT; j += 4) {
+        Frag<int8_t>::B b[4];
+        load_b_kn4<kStrideB>(b_tile, k, n0 + 8 * j, b);
+#pragma unroll
+        for (int i = 0; i < kMI; ++i)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) mma(acc[i][j + q], a[i], b[q]);
       }
     }
+  } else {
+    static_assert(kNT % 2 == 0, "n-tiles in pairs");
 #pragma unroll
-    for (int j = 0; j < kNT; j += 2) {
-      typename Frag<T>::B b0, b1;
-      if constexpr (kBKMajor) {
-        load_b_kn_nat<kStrideB, true>(b_tile, k, n0 + 8 * j, b0, b1);
-      } else {
-        load_b_nk<kStrideB, true>(b_tile, n0 + 8 * j, k, b0, b1);
-      }
+    for (int k = 0; k < kDepth; k += Frag<T>::kK) {
+      typename Frag<T>::A a[kMI];
 #pragma unroll
       for (int i = 0; i < kMI; ++i) {
-        mma(acc[i][j], a[i], b0);
-        mma(acc[i][j + 1], a[i], b1);
+        if constexpr (kAKMajor) {
+          load_a_km<kStrideA, true>(a_tile, row0 + 16 * i, a_k0 + k, a[i]);
+        } else {
+          load_a<kStrideA, true>(a_tile, row0 + 16 * i, a_k0 + k, a[i]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kNT; j += 2) {
+        typename Frag<T>::B b0, b1;
+        if constexpr (kBKMajor) {
+          load_b_kn_nat<kStrideB, true>(b_tile, k, n0 + 8 * j, b0, b1);
+        } else {
+          load_b_nk<kStrideB, true>(b_tile, n0 + 8 * j, k, b0, b1);
+        }
+#pragma unroll
+        for (int i = 0; i < kMI; ++i) {
+          mma(acc[i][j], a[i], b0);
+          mma(acc[i][j + 1], a[i], b1);
+        }
       }
     }
   }

@@ -13,7 +13,9 @@ cpu`` on request, ``--tiny`` for a small size):
 * ``kernel_lab`` (L1): ``fused_variant`` on ``csrc/lab_nw.cu``;
 * ``manual_pipe_lab`` (L3): ``manual_fused`` on ``csrc/lab_nw.cu``;
 * ``prepared_lab``, ``roofline_lab`` (L4's users): K2 beside the stream;
-* ``block_lab`` (L2): ``fused_blocks`` on ``csrc/lab_blocks.cu``.
+* ``block_lab`` (L2): ``fused_blocks`` on ``csrc/lab_blocks.cu``;
+* ``mlp_block_lab``, the port's own: K9, K11 and K11 int8 at ViT-S/14's and
+  ViT-B/14's widths, for this checkout or another (``--tree``).
 
 Nothing here imports jax, the JAX package, ``scripts`` or ``bench.py``;
 nothing is built or launched at import.

@@ -57,11 +57,11 @@ _API = {
     },
     "vit_mlp": {
         "vit_mlp_forward": ([_VP] * 6 + [_I32] * 5 + [_VP], _I32),
-        "vit_mlp_block_forward": ([_VP] * 3 + [_F32] + [_VP] * 5 + [_I32, _VP] + [_I32] * 4
-                                  + [_VP], _I32),
+        "vit_mlp_block_forward": ([_VP] * 3 + [_F32] + [_VP] * 5 + [_I32] + [_VP] * 2
+                                  + [_I32] * 4 + [_VP], _I32),
         "vit_mlp_int8_forward": ([_VP] * 3 + [_F32] + [_VP] * 3 + [_F32] * 2 + [_VP] * 3
-                                 + [_F32] * 2 + [_VP, _I32, _VP] + [_I32] * 4 + [_VP], _I32),
-        "vit_mlp_max_out": ([], _I32),
+                                 + [_F32] * 2 + [_VP, _I32] + [_VP] * 2 + [_I32] * 4 + [_VP],
+                                 _I32),
         "vit_mlp_error_string": ([_I32], ctypes.c_char_p),
     },
     "nw_prepared": {

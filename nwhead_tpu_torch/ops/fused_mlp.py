@@ -7,9 +7,10 @@ backward), ``fused_mlp_block_bf16`` (``quant=False``) and
 Hopper. K9 is ``csrc/vit_mlp.cu`` ``vit_mlp_forward`` (TPU
 ``_mlp_kernel``) on the tensor cores, the hidden activation never leaving
 the chip. K11 is ``vit_mlp_block_forward`` in the same source (TPU
-``_mlp_int8_kernel``, FFMA), which adds the optional LayerNorm before fc1
-and the LayerScale and residual after fc2. K11 int8 is
-``vit_mlp_int8_forward``: both products on int8 codes with calibrated
+``_mlp_int8_kernel``): K9's kernel with the LayerScale and residual after
+fc2 in its epilogue, after a prologue that writes the LayerNorm of x.
+K11 int8 is ``vit_mlp_int8_forward``: the prologue writes x's codes, then
+the same kernel runs both products on int8 ``mma.sync`` with calibrated
 activation scales, the hidden chunk requantized on chip. The backward is
 ``csrc/vit_mlp_bwd.cu`` ``vit_mlp_backward`` (TPU ``_mlp_bwd_kernel``) on
 the tensor cores: h and dg per tile of tokens and hidden units, g and dh
@@ -166,7 +167,9 @@ def _mlp_block_launch(name: str, x, w1, b1, w2, b2, ln_scale, ln_bias, ln_eps, l
     """Check a half-block's operands (x bf16) and launch K11
     (``vit_mlp_block_forward``) on the current stream, or with ``quant =
     (s1, a1, s2, a2)`` (int8 weights, their per-channel scales and the
-    activation scales) K11 int8 (``vit_mlp_int8_forward``)."""
+    activation scales) K11 int8 (``vit_mlp_int8_forward``). Scratch, ``(M,
+    D_in)``: the normalized x in bf16 (K11 with the LayerNorm) or x's int8
+    codes (K11 int8), written by the kernel's prologue."""
     if x.dtype != _BF16:
         raise ValueError(f"{name} takes bf16, got {x.dtype}")
     extra = []
@@ -185,25 +188,25 @@ def _mlp_block_launch(name: str, x, w1, b1, w2, b2, ln_scale, ln_bias, ln_eps, l
     if quant is not None and d_in % 4:
         raise ValueError(f"{name}: needs D_in a multiple of 4, got {d_in}")
     lib = _cuda.load_library("vit_mlp")
-    if d_out > lib.vit_mlp_max_out():
-        raise ValueError(f"{name}: D_out={d_out} is beyond the kernel's {lib.vit_mlp_max_out()}")
     out = torch.empty((M, d_out), dtype=x.dtype, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         if quant is None:
+            xn = torch.empty_like(x) if ln_scale is not None else None
             rc = lib.vit_mlp_block_forward(
                 x.data_ptr(), _ptr(ln_scale), _ptr(ln_bias), float(ln_eps), w1.data_ptr(),
                 b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), _ptr(layerscale), int(residual),
-                out.data_ptr(), M, d_in, d_h, d_out, stream)
+                _ptr(xn), out.data_ptr(), M, d_in, d_h, d_out, stream)
         else:
             # The reciprocals in double, rounded once to f32, as the JAX
             # kernel's Python-float ``1.0 / a`` is.
             s1, a1, s2, a2 = quant
+            codes = torch.empty((M, d_in), dtype=torch.int8, device=device)
             rc = lib.vit_mlp_int8_forward(
                 x.data_ptr(), _ptr(ln_scale), _ptr(ln_bias), float(ln_eps), w1.data_ptr(),
                 s1.data_ptr(), b1.data_ptr(), 1.0 / a1, float(a1), w2.data_ptr(), s2.data_ptr(),
                 b2.data_ptr(), 1.0 / a2, float(a2), _ptr(layerscale), int(residual),
-                out.data_ptr(), M, d_in, d_h, d_out, stream)
+                codes.data_ptr(), out.data_ptr(), M, d_in, d_h, d_out, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: {lib.vit_mlp_error_string(rc).decode()}")
     return out
@@ -235,8 +238,10 @@ mlp_cuda.launches = 0
 
 def mlp_block_bf16_cuda(x, w1, b1, w2, b2, ln_scale=None, ln_bias=None, ln_eps=1e-6,
                         layerscale=None, residual=False) -> torch.Tensor:
-    """Launch K11 (``csrc/vit_mlp.cu`` ``vit_mlp_block_forward``, FFMA, with
-    its folds) on ``(M, D_in)`` bf16."""
+    """Launch K11 (``csrc/vit_mlp.cu`` ``vit_mlp_block_forward``: K9's
+    tensor-core kernel with the half-block's tail, after a LayerNorm
+    prologue) on ``(M, D_in)`` bf16. With no fold it gives ``mlp_cuda``'s
+    bits, without counting as a K9 launch."""
     out = _mlp_block_launch("mlp_block_bf16_cuda", x, w1, b1, w2, b2, ln_scale, ln_bias,
                             ln_eps, layerscale, residual)
     mlp_block_bf16_cuda.launches += 1
@@ -248,9 +253,11 @@ mlp_block_bf16_cuda.launches = 0
 
 def mlp_block_int8_cuda(x, w1, s1, b1, a1, w2, s2, b2, a2, ln_scale=None, ln_bias=None,
                         ln_eps=1e-6, layerscale=None, residual=False) -> torch.Tensor:
-    """Launch K11 int8 (``csrc/vit_mlp.cu``) on ``(M, D_in)`` bf16 with int8
-    weights ``w1 (D_in, D_h)``, ``w2 (D_h, D_out)``, their f32 per-channel
-    scales and the Python-float activation scales ``a1``, ``a2``."""
+    """Launch K11 int8 (``csrc/vit_mlp.cu`` ``vit_mlp_int8_forward``: the
+    codes' prologue, then K9's kernel on int8 ``mma.sync`` with exact int32
+    sums) on ``(M, D_in)`` bf16 with int8 weights ``w1 (D_in, D_h)``, ``w2
+    (D_h, D_out)``, their f32 per-channel scales and the Python-float
+    activation scales ``a1``, ``a2``."""
     out = _mlp_block_launch("mlp_block_int8_cuda", x, w1, b1, w2, b2, ln_scale, ln_bias,
                             ln_eps, layerscale, residual, quant=(s1, a1, s2, a2))
     mlp_block_int8_cuda.launches += 1

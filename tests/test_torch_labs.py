@@ -38,7 +38,8 @@ from nwhead_tpu_torch.ops.fused_nw import prepare_support
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-LABS = ("kernel_lab", "manual_pipe_lab", "prepared_lab", "roofline_lab", "block_lab")
+LABS = ("kernel_lab", "manual_pipe_lab", "prepared_lab", "roofline_lab", "block_lab",
+        "mlp_block_lab")
 
 
 def _script(relpath: str):

@@ -17,8 +17,10 @@ half-blocks (K10 int8, K11 int8), the calibration and quantization of a ViT
   ``tests/test_torch_vit_serve_slice.py``.
 
 The CUDA kernels are tested on the card only (marker ``gpu``), against
-their plain versions within 1e-2 of max|plain| and cosine >= 0.9999, with
-``python -m pytest --noconftest -m gpu tests/test_torch_quant_vit.py``.
+their plain versions within 1e-2 of max|plain| and cosine >= 0.9999; K11
+int8, whose int32 sums are exact, equals its plain version bit for bit and
+repeats bit for bit. They run with ``python -m pytest --noconftest -m gpu
+tests/test_torch_quant_vit.py``.
 """
 
 import itertools
@@ -101,14 +103,24 @@ def test_attention_block_int8_plain_matches_jax(ln, ls, residual):
     assert _rel_err(got, want) <= REL
 
 
-@pytest.mark.parametrize("ln,ls,residual", FOLDS)
-def test_mlp_block_int8_plain_matches_jax(ln, ls, residual):
+# (leading shape, D, D_h) of the MLP half-block cases beyond the folds' (2,
+# 17) tokens at D = 64, D_h = 256: ViT-S/14's width, and a ragged D_h, every
+# fold on. K11 int8 on the card equals these plain versions bit for bit.
+MLP_WIDTHS = {"": ((2, 17), 64, 256), "vit_s": ((37,), 384, 1536), "dh100": ((2, 17), 64, 100)}
+MLP_CASES = [pytest.param(ln, ls, residual, "", id=f"{ln}-{ls}-{residual}")
+             for ln, ls, residual in FOLDS] + [
+    pytest.param(True, True, True, w, id=f"{w}-all_folds") for w in ("vit_s", "dh100")]
+
+
+@pytest.mark.parametrize("ln,ls,residual,width", MLP_CASES)
+def test_mlp_block_int8_plain_matches_jax(ln, ls, residual, width):
     import jax.numpy as jnp
 
     from nwhead_tpu.ops.pallas_mlp import fused_mlp_int8
 
-    p = _block(64, 256)
-    x = _x_bf16((2, 17, 64), seed=2)
+    lead, D, Dh = MLP_WIDTHS[width]
+    p = _block(D, Dh)
+    x = _x_bf16((*lead, D), seed=2)
     want = fused_mlp_int8(jnp.asarray(x, jnp.bfloat16), *_mlp_args(p, jnp.asarray),
                           **_folds(p, ln, ls, residual, jnp.asarray))
     got = FM.fused_mlp_int8(torch.from_numpy(x), *_mlp_args(p, torch.from_numpy),
@@ -171,8 +183,12 @@ def test_cuda_attention_block_int8_matches_plain(shape, ln, ls, residual):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("ln,ls,residual", FOLDS)
-@pytest.mark.parametrize("shape", [(8 * 257, 384, 1536), (1001, 768, 3072), (37, 64, 100)])
+@pytest.mark.parametrize("shape", [(64 * 257, 384, 1536), (8 * 257, 384, 1536), (1001, 768, 3072),
+                                   (37, 64, 100), (1001, 388, 100)])
 def test_cuda_mlp_block_int8_matches_plain(shape, ln, ls, residual):
+    """K11 int8 (int8 ``mma.sync``, exact int32 sums) equals its plain
+    version bit for bit: at the serving shape, eight images, ViT-B's width,
+    a ragged D_h and a D_in off the 16-byte row (388)."""
     dev = _need_gpu()
     M, D, Dh = shape
     p = _block(D, Dh, seed=5)
@@ -190,6 +206,20 @@ def test_cuda_mlp_block_int8_matches_plain(shape, ln, ls, residual):
     torch.cuda.synchronize()
     assert FM.mlp_block_int8_cuda.launches == before + 1
     _card_check(got, want)
+    assert torch.equal(got, want), float((got == want).float().mean())
+
+
+@pytest.mark.gpu
+def test_cuda_mlp_block_int8_repeats_bit_for_bit():
+    """K11 int8 with every fold: two runs, the same bits."""
+    dev = _need_gpu()
+    p = _block(384, 1536, seed=7)
+    to = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    x = to(_x_bf16((1001, 384), seed=8)).to(torch.bfloat16)
+    args, kw = (x, *_mlp_args(p, to)), _folds(p, True, True, True, to)
+    first, second = FM.fused_mlp_int8(*args, **kw), FM.fused_mlp_int8(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 # ---------------------------------------------------------------------------

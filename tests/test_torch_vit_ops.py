@@ -11,7 +11,8 @@ the card.
   JAX kernel's padding to 16 rows.
 * K10 ``fused_attention_block_bf16`` and K11 ``fused_mlp_block_bf16``,
   every combination of the LayerNorm, LayerScale and residual folds, at
-  the same bf16 tolerance (measured 0). The GELU of the port is
+  the same bf16 tolerance (measured 0); K11 also at ViT-S/14's width and a
+  ragged D_h with every fold on. The GELU of the port is
   ``torch.erf``; the JAX kernels' erf approximation (absolute error
   1.5e-7) is inside every tolerance here.
 
@@ -28,6 +29,8 @@ and flips propagate through the half-blocks); K8 and the K9 backward at
 block trained through them against the plain block. K7, K8 and K12 also
 run at the edges of their tiles (``EDGE_SHAPES``: N of 1 to 1,370, every
 head width, one batch row and 64), and K8 in bf16 must repeat bit for
+bit. K11 runs at M of 1 to 2,056, ViT-B's width and a ragged D_h; with
+no fold it gives K9's bits (M of 1,001 and 16,448), and it repeats bit for
 bit. The GPU machine has no jax, so this module imports
 the JAX package inside the tests that compare with it, and the GPU tests run
 there with ``python -m pytest --noconftest -m gpu tests/test_torch_vit_ops.py``.
@@ -172,15 +175,25 @@ def test_attention_block_bf16_plain_matches_jax(ln, ls, residual):
     _check(got, want, "bf16")
 
 
-@pytest.mark.parametrize("ln,ls,residual", FOLDS)
-def test_mlp_block_bf16_plain_matches_jax(ln, ls, residual):
+# (leading shape, D, D_h) of the half-block cases beyond the folds' (2, 13)
+# tokens at D = 64, D_h = 256: ViT-S/14's width, and a ragged D_h, every
+# fold on. The card's kernels (K11, K11 int8) are held to these plain
+# versions.
+BLOCK_WIDTHS = {"": ((2, 13), 64, 256), "vit_s": ((37,), 384, 1536), "dh100": ((2, 13), 64, 100)}
+BLOCK_CASES = [pytest.param(ln, ls, residual, "", id=f"{ln}-{ls}-{residual}")
+               for ln, ls, residual in FOLDS] + [
+    pytest.param(True, True, True, w, id=f"{w}-all_folds") for w in ("vit_s", "dh100")]
+
+
+@pytest.mark.parametrize("ln,ls,residual,width", BLOCK_CASES)
+def test_mlp_block_bf16_plain_matches_jax(ln, ls, residual, width):
     import jax.numpy as jnp
 
     from nwhead_tpu.ops.pallas_mlp import fused_mlp_block_bf16 as jax_block
 
-    D = 64
-    x = np.random.default_rng(5).standard_normal((2, 13, D)).astype(np.float32)
-    w1, b1, w2, b2, ln_s, ln_b, gamma = _block_inputs(D, 4 * D, seed=1)
+    lead, D, Dh = BLOCK_WIDTHS[width]
+    x = np.random.default_rng(5).standard_normal((*lead, D)).astype(np.float32)
+    w1, b1, w2, b2, ln_s, ln_b, gamma = _block_inputs(D, Dh, seed=1)
     want = jax_block(jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(w1), jnp.asarray(b1),
                      jnp.asarray(w2), jnp.asarray(b2),
                      **_fold_kwargs(ln, ls, residual, ln_s, ln_b, gamma, jnp.asarray))
@@ -406,16 +419,25 @@ def test_cuda_attention_block_bf16_matches_plain(shape, ln, ls, residual):
     _card_check(got, want, "bf16")
 
 
+# K11's shapes on the card, (M, D, D_h): the 64-token tiles' edges at
+# ViT-S/14's width, a ragged M, eight images of 257 tokens, ViT-B's width
+# (two column blocks) and a ragged D_h.
+BLOCK_SHAPES = [(1, 384, 1536), (63, 384, 1536), (64, 384, 1536), (65, 384, 1536),
+                (1001, 384, 1536), (8 * 257, 384, 1536), (1001, 768, 3072), (1001, 384, 100)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("ln,ls,residual", FOLDS)
-def test_cuda_mlp_block_bf16_matches_plain(ln, ls, residual):
-    """K11 (FFMA, ``vit_mlp_block_forward``), with or without folds, against
-    its plain version; it never launches K9's tensor-core kernel."""
+@pytest.mark.parametrize("shape", BLOCK_SHAPES)
+def test_cuda_mlp_block_bf16_matches_plain(shape, ln, ls, residual):
+    """K11 (``vit_mlp_block_forward``: K9's tensor-core kernel with the
+    half-block's tail, after the LayerNorm prologue), with or without
+    folds, against its plain version; it never counts as a K9 launch."""
     dev = _need_gpu()
-    D = 384
-    x = torch.from_numpy(np.random.default_rng(5).standard_normal((8, 257, D), np.float32))
+    M, D, Dh = shape
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((M, D), np.float32))
     w1, b1, w2, b2, ln_s, ln_b, gamma = (torch.from_numpy(a).to(dev)
-                                         for a in _block_inputs(D, 4 * D, seed=1))
+                                         for a in _block_inputs(D, Dh, seed=1))
     xb = x.to(dev, torch.bfloat16)
     kw = dict(ln_scale=ln_s if ln else None, ln_bias=ln_b if ln else None,
               layerscale=gamma if ls else None, residual=residual)
@@ -430,6 +452,35 @@ def test_cuda_mlp_block_bf16_matches_plain(ln, ls, residual):
     torch.cuda.synchronize()
     assert (FM.mlp_block_bf16_cuda.launches, FM.mlp_cuda.launches) == (before[0] + 1, before[1])
     _card_check(got, want, "bf16")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [64 * 257, 1001])
+def test_cuda_mlp_block_bf16_without_folds_is_k9(M):
+    """K11 with every fold off is K9's function on the same products: the
+    same bits as ``mlp_cuda``."""
+    dev = _need_gpu()
+    x, w1, b1, w2, b2 = (torch.from_numpy(a).to(dev) for a in _mlp_inputs(M, 384, 1536, seed=3))
+    bf = torch.bfloat16
+    args = (x.to(bf), w1.to(bf), b1, w2.to(bf), b2)
+    got, want = FM.mlp_block_bf16_cuda(*args), FM.mlp_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_mlp_block_bf16_repeats_bit_for_bit():
+    """K11 with every fold sums in a fixed order: two runs, the same bits."""
+    dev = _need_gpu()
+    D = 384
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal((1001, D), np.float32))
+    w1, b1, w2, b2, ln_s, ln_b, gamma = (torch.from_numpy(a).to(dev)
+                                         for a in _block_inputs(D, 4 * D, seed=2))
+    bf = torch.bfloat16
+    args = (x.to(dev, bf), w1.to(bf), b1, w2.to(bf), b2, ln_s, ln_b, 1e-6, gamma.to(bf), True)
+    first, second = FM.mlp_block_bf16_cuda(*args), FM.mlp_block_bf16_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 # The backward kernels against their plain versions: gradients within 1e-3
