@@ -33,9 +33,11 @@ package beside it. With one, in order:
    ViT-B/14's width (D=768, D_h=3,072, timed); K10 and K11 (the bf16
    attention and MLP half-blocks) at B=64 with every combination of the
    LayerNorm, LayerScale and residual folds, K11 with no fold against K9
-   bit for bit, and K11 at a ragged M=1,001 with D_h=100 and at ViT-B/14's
-   width (timed), every fold; each against its plain
-   version, timed at the serving shape, K7 beside
+   bit for bit, K11 at a ragged M=1,001 with D_h=100 and at ViT-B/14's
+   width (timed), and K10 at the edges of its tiles (B=1, N of 1, 63, 64,
+   65 and 129; B=3, N=37, heads of 32) and at ViT-B/14's width (timed),
+   every fold; each against its plain version, timed at the serving shape,
+   K10 also split into its device functions by ``torch.profiler``, K7 beside
    ``F.scaled_dot_product_attention`` on the same data, by ``time_ms`` and
    again in turns with it by the labs' harness (L2 flushed by a read);
 6. K4/K5 kernel phase: the int8 and int4 prepared heads against the plain
@@ -49,7 +51,10 @@ package beside it. With one, in order:
    folds, against their plain versions, timed with the serving folds, K11
    int8 bit-equal to its plain version (exact int32 sums) or the phase
    fails, also at M=1,001, D=388, D_h=100 and at ViT-B/14's width (timed);
-   and
+   K10 int8's qkv stage alone (``qkv_proj_int8_cuda``) bit-equal to
+   ``int8_dense_f32(quantize_act(...))`` at every fold and shape or the
+   phase fails; K10 int8 at K10's extra shapes (ViT-B/14's timed) and split
+   into its device functions; and
    the plain int8 attention chain with its scores rounded exactly (an f64
    sum) against itself, which shows why K10 int8's attention stage keeps
    the plain version's summation order;
@@ -570,7 +575,7 @@ def _time_raw(flush, qn, sn, labels, scale, mode, C, g, prec) -> dict:
 RAW_WRAPPERS = ("nw_fwd_cuda", "nw_bwd_dq_cuda", "nw_bwd_ds_cuda")
 VIT_WRAPPERS = ("attention_qkv_cuda", "attention_block_bf16_cuda", "mlp_cuda",
                 "mlp_block_bf16_cuda", "attention_qkv_bwd_cuda", "mlp_bwd_cuda",
-                "attention_block_int8_cuda", "mlp_block_int8_cuda")
+                "attention_block_int8_cuda", "mlp_block_int8_cuda", "qkv_proj_int8_cuda")
 SEL_WRAPPERS = ("nw_prepared_sel_cuda", "nw_prepared_sel_quant_cuda")
 PARTIALS_WRAPPERS = ("nw_fwd_partials_cuda", "nw_prepared_partials_cuda",
                      "nw_prepared_partials_int8_cuda", "nw_prepared_partials_int4_cuda",
@@ -826,6 +831,12 @@ VIT_B14_MLP = (768, 3072)  # ViT-B/14's D, D_h: K9 takes two column blocks there
 K11_CASES = (("ragged_m1001_dh100", 1001, VIT_D, 100), ("vit_b14_b64", VIT_B * VIT_N) + VIT_B14_MLP)
 K11_INT8_CASES = (("ragged_m1001_din388_dh100", 1001, 388, 100),
                   ("vit_b14_b64", VIT_B * VIT_N) + VIT_B14_MLP)
+# K10 and K10 int8 beyond the serving shape, every fold: the edges of the
+# 64-query tiles and of the projections' 128-row tiles (B = 1, hd = 64),
+# heads of 32 (B = 3, N = 37, D = 64), and ViT-B/14's width, timed with the
+# serving folds. name, B, N, D, H.
+K10_CASES = tuple((f"edge_n{n}", 1, n, VIT_D, VIT_H) for n in (1, 63, 64, 65, 129)) + (
+    ("hd32_b3_n37", 3, 37, 64, 2), ("vit_b14_b64", VIT_B, VIT_N, 768, 12))
 VIT_SERVE_ARGV = ["--dataset", "synthetic_cub", "--arch", "vit_s14", "--batch_size", "64",
                   "--latency_bench"]
 VIT_CONFIGS = (  # name, extra flags, kernels launched 12 times per request, the head's
@@ -921,8 +932,8 @@ def _check_block(res: dict, key: str, kernel, plain, args, label: str, exact=Fal
     got, want = kernel(*args), plain(*args)
     torch.cuda.synchronize()
     ok, err, rel, cos = vit_agree(got, want, "bf16")
-    equal = float((got == want).float().mean())
-    ok = ok and (equal == 1.0 or not exact)
+    equal = float((got == want).double().mean())
+    ok = ok and (torch.equal(got, want) or not exact)
     print(f"{label}: max|err| {err:.3e}, rel {rel:.2e}, cos {cos:.7f}, bit-equal {equal:.4f} "
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
@@ -1071,13 +1082,15 @@ def vit_kernel_phase(flush) -> dict:
             _check_block(res, key, kernel, plain, args, f"{key} B={VIT_B} N={VIT_N} {where}")
             if ln and ls and resid:  # the serving path's folds
                 if key == "attention_block_bf16":
-                    n_bytes = 4 * M * D + 2 * 4 * D * D + 4 * 4 * D + 8 * D + 2 * D
-                    flops = 8 * M * D * D + 4 * VIT_B * VIT_H * VIT_N * VIT_N * (D // VIT_H)
+                    n_bytes, flops, _ = _k10_work(VIT_B, VIT_N, D, VIT_H, int8=False)
                 else:
                     n_bytes = 4 * M * D + 2 * 2 * D * Dh + 4 * (Dh + D) + 8 * D + 2 * D
                     flops = 4 * M * D * Dh
                 _vit_timed(res, key, flush, lambda k=kernel, a=args: k(*a),
                            lambda p=plain, a=args: p(*a), n_bytes, flops, "bf16")
+                if key == "attention_block_bf16":
+                    _print_split(f"{key} B={VIT_B} N={VIT_N} {where}", lambda a=args: kernel(*a),
+                                 flush)
     # K11 with every fold off is K9's function on the same products: K9's bits.
     m_args = (x.reshape(M, D), w1.to(bf), b1, w2.to(bf), b2)
     same = torch.equal(FM.mlp_block_bf16_cuda(*m_args), FM.mlp_cuda(*m_args))
@@ -1087,7 +1100,97 @@ def vit_kernel_phase(flush) -> dict:
         raise AssertionError("K11 with no fold disagrees with K9's bits")
     for case, Mc, Dc, Dhc in K11_CASES:
         _k11_case(res, flush, case, Mc, Dc, Dhc)
+    for case, Bc, Nc, Dc, Hc in K10_CASES:
+        _k10_case(res, flush, case, Bc, Nc, Dc, Hc, int8=False)
     return res
+
+
+def _k10_work(B: int, N: int, D: int, H: int, int8: bool):
+    """(bytes, operations, operations at other precisions) of one K10 or
+    K10 int8 call with every fold: x in and out, the weights, biases (int8:
+    and scales), the LayerNorm and LayerScale vectors; the two projections'
+    products (int8 operations for K10 int8) and the attention's (bf16)."""
+    M, att = B * N, 4 * B * H * N * N * (D // H)
+    if int8:
+        return (4 * M * D + 4 * D * D + 4 * 2 * (3 * D + D) + 4 * 2 * D + 2 * D,
+                8 * M * D * D, {"bf16": att})
+    return 4 * M * D + 2 * 4 * D * D + 4 * 4 * D + 8 * D + 2 * D, 8 * M * D * D + att, {}
+
+
+def _print_split(label: str, fn, flush) -> None:
+    """One call's device functions, each's mean ms (``attn_block_lab``'s
+    ``device_split``: torch.profiler, the L2 zeroed before each call), one
+    line."""
+    from nwhead_tpu_torch.labs.attn_block_lab import device_split, split_line
+
+    print(split_line(label, device_split(fn, flush)))
+
+
+def _qkv_gate(res: dict, label: str, x, wq, sq, bq, a_in: float, ln) -> None:
+    """K10 int8's qkv stage alone (``qkv_proj_int8_cuda``: the codes'
+    prologue, the s8 GEMM, the dequantized sum) against its plain version
+    ``int8_dense_f32(quantize_act(...))``, ``ln`` = (scale, bias, eps) or
+    Nones: bit-equal 1.0000, or the phase fails."""
+    import torch
+
+    from nwhead_tpu_torch.ops import fused_attn as FA
+
+    got = FA.qkv_proj_int8_cuda(x, wq, sq, bq, a_in, *ln)
+    want = FA._qkv_proj_int8_plain(x, wq, sq, bq, a_in, *ln)
+    torch.cuda.synchronize()
+    equal = float((got == want).double().mean())
+    ok = bool(torch.isfinite(got).all()) and torch.equal(got, want)
+    print(f"K10 int8 qkv stage {label} vs int8_dense_f32(quantize_act(...)): bit-equal "
+          f"{equal:.4f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"K10 int8's qkv stage is not bit-equal to its plain version: {label}")
+    _vit_record(res, "qkv_proj_int8", float((got - want).abs().max()))
+
+
+def _k10_case(res: dict, flush, case: str, B: int, N: int, D: int, H: int, int8: bool) -> None:
+    """K10 (or K10 int8) at one more shape, every fold, against its plain
+    version (K10 int8 also its qkv stage alone, bit for bit); timed and
+    split with the serving folds at ViT-B/14's width under
+    ``attention_block_{bf16,int8}_<case>`` (not part of the kernels line)."""
+    import torch
+
+    from nwhead_tpu_torch.ops import fused_attn as FA
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    rng = np.random.default_rng(520)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    ln_s, ln_b, gamma = (to(a.astype(np.float32)) for a in (
+        1.0 + 0.2 * rng.standard_normal(D), 0.1 * rng.standard_normal(D),
+        rng.uniform(0.5, 1.5, D)))
+    if int8:
+        (wq, sq, bq), (wp, sp, bp) = ([to(a) for a in _qdense(rng, D, o)] for o in (3 * D, D))
+        kernel, plain = FA.attention_block_int8_cuda, FA._attention_block_int8_plain
+    else:
+        w_qkv, b_qkv, w_proj, b_proj = (to(a.astype(np.float32)) for a in (
+            rng.standard_normal((D, 3 * D)) / np.sqrt(D), 0.1 * rng.standard_normal(3 * D),
+            rng.standard_normal((D, D)) / np.sqrt(D), 0.1 * rng.standard_normal(D)))
+        w_qkv, w_proj = w_qkv.to(bf), w_proj.to(bf)
+        kernel, plain = FA.attention_block_bf16_cuda, FA._attention_block_bf16_plain
+    x = to(np.random.default_rng(521).standard_normal((B, N, D)).astype(np.float32)).to(bf)
+    scale = (D // H) ** -0.5
+    key = f"attention_block_{'int8' if int8 else 'bf16'}_{case}"
+    for ln, ls, resid in itertools.product([False, True], repeat=3):
+        folds = (ln_s if ln else None, ln_b if ln else None, 1e-6,
+                 gamma.to(bf) if ls else None, resid)
+        where = f"{case} (B={B}, N={N}, D={D}, H={H}) ln={int(ln)} ls={int(ls)} residual={int(resid)}"
+        if int8:
+            h = FA._layer_norm_f32(x, ln_s, ln_b, 1e-6).to(bf) if ln else x
+            a_in = float(h.float().abs().max()) / 127.0
+            _qkv_gate(res, where, x, wq, sq, bq, a_in, folds[:3])
+            args = (x, wq, sq, bq, a_in, wp, sp, bp, 3.0 / 127.0, H, scale) + folds
+        else:
+            args = (x, w_qkv, b_qkv, w_proj, b_proj, H, scale) + folds
+        _check_block(res, key, kernel, plain, args, f"{key[:len(key) - len(case) - 1]} {where}")
+        if ln and ls and resid and case.startswith("vit_b14"):
+            n_bytes, flops, more = _k10_work(B, N, D, H, int8)
+            _vit_timed(res, key, flush, lambda a=args: kernel(*a), lambda a=args: plain(*a),
+                       n_bytes, flops, "int8" if int8 else "bf16", **more)
+            _print_split(f"{key} every fold", lambda a=args: kernel(*a), flush)
 
 
 def _k11_case(res: dict, flush, case: str, M: int, D: int, Dh: int) -> None:
@@ -1232,6 +1335,7 @@ def vit_int8_kernel_phase(flush) -> dict:
         a_args = (x, wq, sq, bq, a_in, wp, sp, bp, a_att, H, scale) + folds
         m_args = (x.reshape(M, D), w1, s1, b1, a_in, w2, s2, b2, a_fc2) + folds
         where = f"ln={int(ln)} ls={int(ls)} residual={int(resid)}"
+        _qkv_gate(res, f"B={VIT_B} N={VIT_N} {where}", x, wq, sq, bq, a_in, folds[:3])
         for key, kernel, plain, args in (
                 ("attention_block_int8", FA.attention_block_int8_cuda,
                  FA._attention_block_int8_plain, a_args),
@@ -1239,17 +1343,21 @@ def vit_int8_kernel_phase(flush) -> dict:
             _check_block(res, key, kernel, plain, args, f"{key} B={VIT_B} N={VIT_N} {where}",
                          exact=key == "mlp_block_int8")
             if ln and ls and resid:  # the serving path's folds
-                vecs = 4 * 2 * D + 2 * D  # LN affine f32, LayerScale bf16
                 if key == "attention_block_int8":  # the scores and PV in bf16 beside
-                    n_bytes = 4 * M * D + 4 * D * D + 4 * 2 * (3 * D + D) + vecs
-                    flops, more = 8 * M * D * D, {"bf16": 4 * VIT_B * H * VIT_N * VIT_N * (D // H)}
+                    n_bytes, flops, more = _k10_work(VIT_B, VIT_N, D, H, int8=True)
                 else:
+                    vecs = 4 * 2 * D + 2 * D  # LN affine f32, LayerScale bf16
                     n_bytes = 4 * M * D + 2 * D * Dh + 4 * 2 * (Dh + D) + vecs
                     flops, more = 4 * M * D * Dh, {}
                 _vit_timed(res, key, flush, lambda k=kernel, a=args: k(*a),
                            lambda p=plain, a=args: p(*a), n_bytes, flops, "int8", **more)
+                if key == "attention_block_int8":
+                    _print_split(f"{key} B={VIT_B} N={VIT_N} {where}",
+                                 lambda a=args: kernel(*a), flush)
     for case, Mc, Dc, Dhc in K11_INT8_CASES:
         _k11_int8_case(res, flush, case, Mc, Dc, Dhc)
+    for case, Bc, Nc, Dc, Hc in K10_CASES:
+        _k10_case(res, flush, case, Bc, Nc, Dc, Hc, int8=True)
     # Why K10 int8's attention stage sums the scores in cuBLAS's order: the
     # plain chain with its scores rounded exactly (an f64 sum) against the
     # plain chain itself, at the folds without LayerNorm.

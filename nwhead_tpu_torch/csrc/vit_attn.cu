@@ -45,35 +45,54 @@
 // launch of fused_attention_block_bf16): [LayerNorm ->] qkv -> attention
 // -> proj [-> * LayerScale] [-> + x], bf16 in and out. One block's (N, 3 D)
 // qkv tensor (592 KB at ViT-S/14) does not fit in shared memory as it fits
-// in VMEM, so K10 runs three stages through device memory:
-//   1. ln_gemm_kernel: LayerNorm in the prologue (f32 statistics, output
-//      rounded to bf16), x W_qkv + b, rounded to bf16 -> qkv scratch;
-//   2. K7's attention_kernel in bf16 -> att scratch (the f32 attention
-//      output rounded to bf16 before proj, as the TPU kernel rounds it);
-//   3. ln_gemm_kernel: att W_proj + b rounded to bf16, then * LayerScale
-//      (rounded to bf16) and + x (rounded to bf16) in the epilogue.
-// Each stage keeps the TPU kernel's bf16 rounding points. Its bound at
-// B = 64: 25.9 GFLOP over 989 TFLOP/s (26 us) in bf16; the projections run
-// on FFMA here, at most 67 TFLOP/s, the attention on the tensor cores.
+// in VMEM, so K10 runs its stages through device memory, each keeping the
+// TPU kernel's bf16 rounding points:
+//   0. with the LayerNorm, vit_block.cuh's prologue (K11's): LN(x) with f32
+//      statistics, rounded to bf16, once per row;
+//   1. proj_tc_kernel: x (or LN(x)) W_qkv + b, rounded to bf16 -> qkv;
+//   2. K7's attention_kernel in bf16 -> att (the f32 attention output
+//      rounded to bf16 before proj, as the TPU kernel rounds it);
+//   3. proj_tc_kernel: att W_proj + b rounded to bf16, then * LayerScale
+//      (rounded to bf16) and + x (rounded to bf16) in its epilogue.
+// proj_tc_kernel is the projections' tensor-core GEMM: a block owns a 128 x
+// 128 output tile, eight warps of 64 x 32, and streams A (M, K) and W (K,
+// n_out), the weights as stored (in, out), in slices 128 bytes deep (64
+// bf16, 128 int8) through vit_mma.cuh's three-stage cp.async ring_loop
+// into warp_product: bf16 on mma.sync m16n8k16, int8 on m16n8k32 with
+// load_b_kn4 transposing the weights' bytes in registers (K11's
+// fragments). K = D is shallow (6 bf16 or 3 int8 slices at ViT-S/14), so
+// the grid is persistent, two blocks to an SM, each running one ring over
+// the slices of all its tiles: the next tile's first slices load under
+// this one's last products and its epilogue. The 128-row tile halves the
+// weights' restaging against K11's 64. Rows past M and columns past n_out
+// are staged as zeros. Its bound at B = 64, N = 257: the projections' 19.4
+// GFLOP over 989 TFLOP/s (20 us), the attention's 6.5 over the same (7
+// us); it runs at about 150 TFLOP/s (PERF.md).
 //
 // K10 int8 replaces the same TPU kernel with quant=True (the launch of
-// fused_attention_qkv_int8): stages 1 and 3 become ln_gemm_i8_kernel, which
-// quantizes its (LayerNorm'd, bf16-rounded) input as it stages it,
-// clip(rint(x * (1/a)), -127, 127), multiplies int8 codes by the int8
-// weights with __dp4a into int32 sums, and dequantizes in the epilogue as
-// acc * (a * w_scale[c]) + bias[c] (two roundings, no FMA, as the TPU
-// kernel computes it), then rounds to bf16; its LayerNorm statistics are
-// row_stats_f64's, which the plain version reproduces exactly, since a
-// normalized value whose bf16 rounding flips can move a code and with it a
-// whole token downstream. Stage 2 is K7's function in bf16 (bf16 score
-// and PV products, f32 softmax), as on the TPU, but on FFMA in the plain
+// fused_attention_qkv_int8): the prologue writes x's codes, clip(rint(x *
+// (1/a)), -127, 127) of x or of its LayerNorm (row_stats_f64's
+// statistics, rounded to bf16); proj_tc_kernel multiplies int8 codes by
+// the int8 weights on s8 mma.sync into int32 sums, exact in any order, and
+// dequantizes in the epilogue as acc * (a * w_scale[c]) + bias[c] (two
+// roundings, no FMA, as the TPU kernel computes it), then rounds to bf16.
+// Its attention stage is K7's function in bf16 (bf16 score and PV
+// products, f32 softmax), as on the TPU, but on FFMA in the plain
 // version's summation order (seq_attention_kernel below): a bf16 flip of
-// the attention output moves its int8 code too. Its bound at B = 64: the
-// projections' 19.4 G int8 operations over 1,979 TOP/s (10 us) and the
-// attention's 6.5 GFLOP over 989 TFLOP/s (7 us); __dp4a and FFMA run far
-// below the tensor cores' rates.
+// the attention output moves its int8 code, and with K7's tensor-core
+// kernel there the int8 stack's limits failed (PERF.md, PR 9). That stage
+// writes the codes of its bf16-rounded output by 1/a_proj itself, so the
+// proj stage reads codes (no pass over the attention output). Every
+// expression of the int8 path is the one the kernels before this design
+// used, so its output keeps their bits. Bound at B = 64: the projections'
+// 19.4 G int8 operations over 1,979 TOP/s (10 us) and the attention's 6.5
+// GFLOP over 989 TFLOP/s (7 us); the FFMA attention stage, 3.2 G FFMA once
+// its scores are kept, runs at the card's 67 TFLOP/s f32 rate at best
+// (about 0.1 ms).
 
-#include "vit_mma.cuh"
+#include <algorithm>
+
+#include "vit_block.cuh"
 
 namespace vit {
 
@@ -222,420 +241,474 @@ cudaError_t attention(cudaStream_t stream, const void* qkv, void* out, int B, in
   return attention<T>(stream, args, B, H, hd);
 }
 
-// K10 int8's attention stage: K7's function on FFMA, the scores summed
-// over the head's columns in order, one fused multiply-add at a time, as
-// the plain version's cuBLAS product sums them. The int8 stack quantizes
-// the attention output to codes, and one bf16 flip of a probability moves
-// a code: with the scores summed in any other order (the tensor cores', or
-// rounded exactly from an f64 sum) the K10 int8 check misses its 1e-2 by
-// 7% and the served int8 features their 0.9999 cosine (PERF.md, PR 9).
-// A block owns 64 queries of one (batch, head), 256 threads, and sweeps
-// the keys twice in chunks of 64 staged as f32 in shared memory (Q and K
-// transposed): sweep 1 keeps each row's running max and sum, sweep 2
-// recomputes the scores, rounds the normalized probabilities to bf16 and
-// accumulates P V, each thread 4 rows x hd / 16 columns.
+// K10 int8's attention stage: K7's function on FFMA in the plain version's
+// summation order, one fused multiply-add at a time. The int8 stack
+// quantizes the attention output to codes, and one bf16 flip of a
+// probability moves a code: with the scores summed in any other order (the
+// tensor cores', or rounded exactly from an f64 sum) the K10 int8 check
+// misses its 1e-2 by 7% and the served int8 features their 0.9999 cosine
+// (PERF.md, PR 9). So these values, and each one's order, are fixed:
+//   * a score q . k is one fmaf chain over d = 0 .. hd - 1 from 0, then
+//     * scale; keys at or past N score kNeg;
+//   * sweep 1, over 64-key chunks in order: each row's max m and running
+//     sum l = l * expf(m_prev - m) + S, S the chunk's sum of expf(s - m)
+//     in the tree of a warp_sum over 32 lanes that each add keys j and j +
+//     32 first;
+//   * sweep 2: p = round_to<bf16>(expf(s - m) / l) (a true division), and
+//     o = one fmaf chain of p v over the keys in order, from 0.
+// Masked keys add exactly 0 to l and o, so the chunk past N runs its PV
+// product over its valid keys only.
+// A block owns 64 queries of one (batch, head), four warps of 16. Thread
+// (tr, tc) = (tid / 16, tid % 16) owns rows 8 tr .. 8 tr + 7 and, in a
+// 64-key chunk, keys tc + 16 m, m < 4: an 8 x 4 score tile in registers
+// (two 16-byte loads of Q^T and one of K^T for 32 FFMA a step, K^T's
+// columns ordered so that those four keys lie side by side). The four keys
+// are the ones warp_sum's tree adds first (j and j + 32, then j ^ 16), so
+// a row's sum takes four shuffles over the 16 lanes of its rows, its max
+// four more. Sweep 1 computes each score once and keeps it in global
+// scratch (16 KB a block and chunk, written and read back by the same
+// thread, coalesced); sweep 2 reads it back in place of computing it again
+// (a third of the FFMA), turns it into probabilities in registers and
+// writes them to its warp's columns of P^T, from which each thread
+// accumulates its 8 rows x hd / 16 output columns. Each chunk of K (V in
+// sweep 2) is fetched into registers with 16-byte loads while the previous
+// chunk computes, then widened to f32 (exact) into shared memory; sweep 2's
+// V and P^T lie over sweep 1's Q^T and K^T (35 KB a block at hd = 64, four
+// blocks an SM). A warp whose 16 queries all lie past N skips its work, and
+// a chunk whose only valid keys are its first four (N = 257's last) spreads
+// their chains over all lanes (score_tile). The output's int8 codes,
+// quantize_i8 of the bf16-rounded value by 1/a_proj, go straight to the
+// proj stage.
 constexpr int kSeqTile = 64;              // queries per block, keys per chunk
-constexpr int kSeqStride = kSeqTile + 4;  // padded row stride (floats) of the staged tiles
+constexpr int kSeqThreads = 128;          // four warps of 16 queries
+constexpr int kSeqStride = kSeqTile + 4;  // row stride (floats) of Q^T, K^T and P^T
 
+// Shared memory: Q^T and K^T in sweep 1; V and P^T, over them, in sweep 2.
 template <int kHd>
 constexpr size_t seq_attention_smem_bytes() {
-  return sizeof(float) * (2 * kHd * kSeqStride      // Q^T, K^T
-                          + kSeqTile * (kHd + 4)     // V
-                          + kSeqTile * kSeqStride    // scores, then p
-                          + 2 * kSeqTile);           // m, l
+  constexpr size_t sweep1 = 2 * kHd * kSeqStride;                        // Q^T, K^T
+  constexpr size_t sweep2 = kSeqTile * (kHd + 4) + kSeqTile * kSeqStride;  // V, P^T
+  return sizeof(float) * (sweep1 > sweep2 ? sweep1 : sweep2);
 }
 
-// Stage keys (and with kWithV values) k0 .. k0 + 63 of one head: K
-// transposed into kt, V into vs; keys past N load as 0.
-template <bool kWithV, typename T, int kHd>
-__device__ __forceinline__ void load_kv(const T* __restrict__ base, size_t row_stride, int D,
-                                        int k0, int N, float* __restrict__ kt,
-                                        float* __restrict__ vs) {
-  for (int idx = threadIdx.x; idx < kSeqTile * kHd; idx += kThreads) {
-    const int j = idx / kHd, d = idx % kHd;
-    const bool valid = k0 + j < N;
-    const T* row = base + (k0 + j) * row_stride;
-    kt[d * kSeqStride + j] = valid ? to_float(row[D + d]) : 0.f;
-    if (kWithV) vs[j * (kHd + 4) + d] = valid ? to_float(row[2 * D + d]) : 0.f;
+// Sweep 1's scores of one block: a chunk's 8 x 4 tiles, 16 KB, as float4
+// (chunk c, row i of the tile) of thread t at [(c * 8 + i) * 128 + t].
+__host__ __device__ constexpr long long seq_scores_per_block(int chunks) {
+  return static_cast<long long>(chunks) * 8 * kSeqThreads;  // float4s
+}
+
+// Rows r0 .. r0 + 63 of one head's (n, kHd) bf16 slab (row r at base + r *
+// row_stride): the thread's 16-byte segments, fetched into registers
+// (rows past n are 0) so that the next chunk's loads run under this one's
+// products, then widened to f32 in shared memory by put_f32. Lanes take
+// consecutive rows, so put_f32's transposed stores hit 32 banks.
+template <int kHd>
+struct Chunk {
+  static constexpr int kSegs = kHd / 8;  // 16-byte segments of a row
+  static constexpr int kPer = kSeqTile * kSegs / kSeqThreads;
+  uint4 w[kPer];
+};
+
+template <int kHd>
+__device__ __forceinline__ void fetch(const __nv_bfloat16* __restrict__ base, size_t row_stride,
+                                      int r0, int n, Chunk<kHd>& c) {
+#pragma unroll
+  for (int u = 0; u < Chunk<kHd>::kPer; ++u) {
+    const int idx = threadIdx.x + u * kSeqThreads;
+    const int r = idx % kSeqTile, seg = idx / kSeqTile;
+    c.w[u] = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < n) {
+      c.w[u] = *reinterpret_cast<const uint4*>(base + (r0 + r) * row_stride + 8 * seg);
+    }
   }
 }
 
-// The staged chunk's scores q.k * scale into ss (row-major, 64 x 64; keys
-// past N score kNeg). Thread (tr, tc) owns rows 4 tr .. and keys 4 tc ...
+// Where put_f32 writes a chunk: Q^T[d][row], K^T[d][key_pos(key)], V[key][d].
+enum class Put { kQ, kK, kV };
+
+// Key j of a chunk's column in K^T: thread tc's four consecutive columns
+// 4 tc .. 4 tc + 3 hold keys tc, tc + 16, tc + 32 and tc + 48, the keys
+// that warp_sum's tree adds first (j, j + 32, then j ^ 16).
+__device__ __forceinline__ int key_pos(int j) { return 4 * (j & 15) + (j >> 4); }
+
+// A fetched chunk widened to f32 (exact), as `where` says.
+template <int kHd, Put kWhere>
+__device__ __forceinline__ void put_f32(const Chunk<kHd>& c, float* __restrict__ dst) {
+#pragma unroll
+  for (int u = 0; u < Chunk<kHd>::kPer; ++u) {
+    const int idx = threadIdx.x + u * kSeqThreads;
+    const int r = idx % kSeqTile, seg = idx / kSeqTile;
+    const uint32_t words[4] = {c.w[u].x, c.w[u].y, c.w[u].z, c.w[u].w};
+    float v[8];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      v[2 * e] = __uint_as_float(words[e] << 16);
+      v[2 * e + 1] = __uint_as_float(words[e] & 0xffff0000u);
+    }
+    if constexpr (kWhere != Put::kV) {
+      const int col = kWhere == Put::kK ? key_pos(r) : r;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) dst[(8 * seg + e) * kSeqStride + col] = v[e];
+    } else {
+      float4* d = reinterpret_cast<float4*>(dst + r * (kHd + 4) + 8 * seg);
+      d[0] = make_float4(v[0], v[1], v[2], v[3]);
+      d[1] = make_float4(v[4], v[5], v[6], v[7]);
+    }
+  }
+}
+
+// The thread's 8 x 4 tile of a chunk's scores q . k * scale, s[i][m] of
+// row 8 tr + i and key k0 + tc + 16 m; keys at or past N score kNeg, and a
+// thread whose four keys all lie past N sums nothing. A chunk whose valid
+// keys are its first four (N = 257's last) spreads the warp's 16 x 4 chains
+// of those keys over its 32 lanes (row lane / 2, keys 2 (lane % 2) and + 1)
+// and gathers them into the lanes tc < 4 by shuffles: the same chains, a
+// sixteenth of the steps.
 template <int kHd>
 __device__ __forceinline__ void score_tile(const float* __restrict__ qt,
                                            const float* __restrict__ kt, int k0, int N,
-                                           float scale, float* __restrict__ ss) {
+                                           float scale, float (&s)[8][4]) {
   const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
-  float s[4][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
+  if (N - k0 <= 4) {
+    const int lane = threadIdx.x & 31;
+    const int r = 16 * (threadIdx.x >> 5) + (lane >> 1), j = 2 * (lane & 1);
+    float t0 = 0.f, t1 = 0.f;
 #pragma unroll 8
-  for (int d = 0; d < kHd; ++d) {
-    float a[4];
-    load_vec<4>(qt + d * kSeqStride + 4 * tr, a);
-    fma_tile<4, 1>(a, kt + d * kSeqStride + 4 * tc, s);
+    for (int d = 0; d < kHd; ++d) {
+      const float q = qt[d * kSeqStride + r];
+      t0 = fmaf(q, kt[d * kSeqStride + key_pos(j)], t0);
+      t1 = fmaf(q, kt[d * kSeqStride + key_pos(j + 1)], t1);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int src = 2 * (8 * (tr & 1) + i) + ((tc >> 1) & 1);
+      const float a = __shfl_sync(0xffffffffu, t0, src), b = __shfl_sync(0xffffffffu, t1, src);
+      s[i][0] = tc & 1 ? b : a;
+    }
+  } else if (k0 + tc < N) {
+#pragma unroll 8
+    for (int d = 0; d < kHd; ++d) {
+      const float4 a0 = *reinterpret_cast<const float4*>(qt + d * kSeqStride + 8 * tr);
+      const float4 a1 = *reinterpret_cast<const float4*>(qt + d * kSeqStride + 8 * tr + 4);
+      const float4 kv = *reinterpret_cast<const float4*>(kt + d * kSeqStride + 4 * tc);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float k[4] = {kv.x, kv.y, kv.z, kv.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[i][c] = fmaf(a[i], k[c], s[i][c]);
+    }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float4 v;
-    v.x = k0 + 4 * tc < N ? s[i][0] * scale : kNeg;
-    v.y = k0 + 4 * tc + 1 < N ? s[i][1] * scale : kNeg;
-    v.z = k0 + 4 * tc + 2 < N ? s[i][2] * scale : kNeg;
-    v.w = k0 + 4 * tc + 3 < N ? s[i][3] * scale : kNeg;
-    *reinterpret_cast<float4*>(ss + (4 * tr + i) * kSeqStride + 4 * tc) = v;
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[i][c] = k0 + tc + 16 * c < N ? s[i][c] * scale : kNeg;
+}
+
+// Sweep 1's step over one chunk for the thread's 8 rows (every lane of a
+// row's 16 holds the same m and l). The sum runs warp_sum's tree over the
+// 32 lanes j that hold keys j and j + 32: here key j's thread adds key j +
+// 32 (s[i][0] + s[i][2], s[i][1] + s[i][3]), then the level 16 (the two
+// sums), then levels 8, 4, 2, 1 over the lanes tc.
+__device__ __forceinline__ void online_stats(const float (&s)[8][4], float (&m)[8],
+                                             float (&l)[8]) {
+  constexpr unsigned kAll = 0xffffffffu;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+#pragma unroll
+    for (int o = 1; o < 16; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(kAll, mx, o));
+    const float m_prev = m[i];
+    const float m_new = fmaxf(m_prev, mx);
+    float e[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) e[c] = expf(s[i][c] - m_new);
+    float sum = (e[0] + e[2]) + (e[1] + e[3]);
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) sum += __shfl_xor_sync(kAll, sum, o);
+    l[i] = l[i] * expf(m_prev - m_new) + sum;
+    m[i] = m_new;
   }
 }
 
-template <typename T, int kHd>
-__global__ void __launch_bounds__(kThreads)
-seq_attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int N, int H, float scale) {
-  constexpr int kCols = kHd / 16;  // output columns per thread
+// grid (ceil(N / 64), H, b), 128 threads, over images b0 .. b0 + b - 1 of
+// qkv (B, N, 3 H kHd) bf16 and codes (B, N, H kHd) int8; scores holds
+// seq_scores_per_block float4s for each block of the grid.
+template <int kHd>
+__global__ void __launch_bounds__(kSeqThreads, kHd >= 128 ? 2 : 4)
+seq_attention_kernel(const __nv_bfloat16* __restrict__ qkv, int8_t* __restrict__ codes,
+                     float4* __restrict__ scores, int b0, int N, int H, float scale,
+                     float inv_a) {
+  constexpr int kC = kHd / 16;  // output columns per thread
   constexpr int kVStride = kHd + 4;
-  constexpr int kRowsPerWarp = kSeqTile / kWarps;
   extern __shared__ float4 smem4[];
-  float* qt = reinterpret_cast<float*>(smem4);
+  float* qt = reinterpret_cast<float*>(smem4);  // sweep 1
   float* kt = qt + kHd * kSeqStride;
-  float* vs = kt + kHd * kSeqStride;
-  float* ss = vs + kSeqTile * kVStride;
-  float* m_row = ss + kSeqTile * kSeqStride;
-  float* l_row = m_row + kSeqTile;
+  float* vs = reinterpret_cast<float*>(smem4);  // sweep 2
+  float* pt = vs + kSeqTile * kVStride;
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int tr = tid >> 4;  // rows 4 tr .. 4 tr + 3
-  const int tc = tid & 15;  // output columns kCols tc ..
+  const int tr = tid >> 4;  // rows 8 tr .. 8 tr + 7 (warp w: rows 16 w ..)
+  const int tc = tid & 15;  // keys tc + 16 m of a chunk; output columns kC tc ..
   const int q0 = blockIdx.x * kSeqTile;
   const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int b = b0 + blockIdx.z;
   const int D = H * kHd;
   const size_t row_stride = 3 * static_cast<size_t>(D);
-  const T* base = qkv + static_cast<size_t>(b) * N * row_stride + h * kHd;
+  const __nv_bfloat16* base = qkv + static_cast<size_t>(b) * N * row_stride + h * kHd;
+  const bool active = q0 + 16 * (tid >> 5) < N;  // warp-uniform: the warp holds a query
+  const int chunks = (N + kSeqTile - 1) / kSeqTile;
+  float4* mine = scores + tid +
+                 ((static_cast<long long>(blockIdx.z) * H + h) * gridDim.x + blockIdx.x) *
+                     seq_scores_per_block(chunks);
 
-  for (int idx = tid; idx < kSeqTile * kHd; idx += kThreads) {
-    const int r = idx / kHd, d = idx % kHd;
-    qt[d * kSeqStride + r] = q0 + r < N ? to_float(base[(q0 + r) * row_stride + d]) : 0.f;
-  }
-  if (tid < kSeqTile) {
-    m_row[tid] = kNeg;
-    l_row[tid] = 0.f;
-  }
-
-  // Sweep 1: each row's max and sum of exp(s - max). The first chunk always
-  // holds a valid key, so m is finite after it and exp(kNeg - m) is 0 for
-  // the initial state and for masked keys.
-  for (int k0 = 0; k0 < N; k0 += kSeqTile) {
-    __syncthreads();  // the previous chunk's K and scores are consumed
-    load_kv<false, T, kHd>(base, row_stride, D, k0, N, kt, vs);
+  Chunk<kHd> kc;  // the next chunk of K (then of V), in flight
+  fetch<kHd>(base, row_stride, q0, N, kc);
+  put_f32<kHd, Put::kQ>(kc, qt);
+  fetch<kHd>(base + D, row_stride, 0, N, kc);
+  // Sweep 1: the scores, kept for sweep 2, and each row's max and sum of
+  // exp(s - max). The first chunk always holds a valid key, so m is finite
+  // after it and exp(kNeg - m) is 0 for the initial state and for masked
+  // keys.
+  float m[8], l[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) m[i] = kNeg, l[i] = 0.f;
+  for (int c = 0; c < chunks; ++c) {
+    const int k0 = c * kSeqTile;
+    __syncthreads();  // Q^T is written; the previous chunk's K^T is consumed
+    put_f32<kHd, Put::kK>(kc, kt);
     __syncthreads();
-    score_tile<kHd>(qt, kt, k0, N, scale, ss);
-    __syncthreads();
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const int r = warp * kRowsPerWarp + rr;
-      const float s0 = ss[r * kSeqStride + lane], s1 = ss[r * kSeqStride + lane + 32];
-      const float m_prev = m_row[r];
-      const float m_new = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
-      const float sum = warp_sum(expf(s0 - m_new) + expf(s1 - m_new));
-      if (lane == 0) {
-        l_row[r] = l_row[r] * expf(m_prev - m_new) + sum;
-        m_row[r] = m_new;
+    // The next chunk of K, or sweep 2's first of V.
+    fetch<kHd>(base + (c + 1 < chunks ? D : 2 * D), row_stride, c + 1 < chunks ? k0 + kSeqTile : 0,
+               N, kc);
+    if (active) {
+      float s[8][4];
+      score_tile<kHd>(qt, kt, k0, N, scale, s);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        mine[(c * 8 + i) * kSeqThreads] = make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
       }
+      online_stats(s, m, l);
     }
   }
 
-  // Sweep 2: the normalized probabilities, rounded to T, times V.
-  float o[4][kCols];
+  // Sweep 2: the normalized probabilities, rounded to bf16, times V.
+  float o[8][kC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) o[i][c] = 0.f;
-  for (int k0 = 0; k0 < N; k0 += kSeqTile) {
-    __syncthreads();  // sweep 1's statistics are written; the previous chunk consumed
-    load_kv<true, T, kHd>(base, row_stride, D, k0, N, kt, vs);
+    for (int c = 0; c < kC; ++c) o[i][c] = 0.f;
+  for (int c = 0; c < chunks; ++c) {
+    const int k0 = c * kSeqTile;
+    __syncthreads();  // sweep 1's K^T, or the previous chunk's V, is consumed
+    put_f32<kHd, Put::kV>(kc, vs);
     __syncthreads();
-    score_tile<kHd>(qt, kt, k0, N, scale, ss);
-    __syncthreads();
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const int r = warp * kRowsPerWarp + rr;
-      const float m = m_row[r], l = fmaxf(l_row[r], 1e-30f);
-      float* row = ss + r * kSeqStride;
-      row[lane] = round_to<T>(expf(row[lane] - m) / l);
-      row[lane + 32] = round_to<T>(expf(row[lane + 32] - m) / l);
+    if (c + 1 < chunks) fetch<kHd>(base + 2 * D, row_stride, k0 + kSeqTile, N, kc);
+    if (!active) continue;
+    float4 st[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) st[i] = mine[(c * 8 + i) * kSeqThreads];
+    // P^T[key][row]: the warp's own rows, read back only by the warp.
+#pragma unroll
+    for (int mk = 0; mk < 4; ++mk) {
+      float p[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float sc = mk == 0 ? st[i].x : mk == 1 ? st[i].y : mk == 2 ? st[i].z : st[i].w;
+        p[i] = round_to<__nv_bfloat16>(expf(sc - m[i]) / fmaxf(l[i], 1e-30f));
+      }
+      float4* dst = reinterpret_cast<float4*>(pt + (tc + 16 * mk) * kSeqStride + 8 * tr);
+      dst[0] = make_float4(p[0], p[1], p[2], p[3]);
+      dst[1] = make_float4(p[4], p[5], p[6], p[7]);
     }
-    __syncthreads();
+    __syncwarp();
+    const int n_keys = min(kSeqTile, N - k0);  // keys past N would add 0
 #pragma unroll 4
-    for (int j = 0; j < kSeqTile; ++j) {
-      float v[kCols];
-      load_vec<kCols>(vs + j * kVStride + kCols * tc, v);
+    for (int j = 0; j < n_keys; ++j) {
+      const float4 p0 = *reinterpret_cast<const float4*>(pt + j * kSeqStride + 8 * tr);
+      const float4 p1 = *reinterpret_cast<const float4*>(pt + j * kSeqStride + 8 * tr + 4);
+      const float p[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+      float v[kC];
+      const float* vrow = vs + j * kVStride + kC * tc;
+      if constexpr (kC % 4 == 0) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = ss[(4 * tr + i) * kSeqStride + j];
+        for (int q = 0; q < kC; q += 4) {
+          const float4 w = *reinterpret_cast<const float4*>(vrow + q);
+          v[q] = w.x, v[q + 1] = w.y, v[q + 2] = w.z, v[q + 3] = w.w;
+        }
+      } else {
+        const float2 w = *reinterpret_cast<const float2*>(vrow);
+        v[0] = w.x, v[1] = w.y;
+      }
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) o[i][c] = fmaf(p, v[c], o[i][c]);
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int q = 0; q < kC; ++q) o[i][q] = fmaf(p[i], v[q], o[i][q]);
+    }
+  }
+  if (!active) return;
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = q0 + 8 * tr + i;
+    if (r >= N) continue;
+    int c8[kC];
+#pragma unroll
+    for (int q = 0; q < kC; ++q) c8[q] = quantize_i8(round_to<__nv_bfloat16>(o[i][q]), inv_a);
+    int8_t* dst = codes + (static_cast<size_t>(b) * N + r) * D + h * kHd + kC * tc;
+    if constexpr (kC == 2) {
+      *reinterpret_cast<int16_t*>(dst) = static_cast<int16_t>(pack4(c8[0], c8[1], 0, 0));
+    } else {
+#pragma unroll
+      for (int q = 0; q < kC; q += 4) {
+        *reinterpret_cast<int*>(dst + q) = pack4(c8[q], c8[q + 1], c8[q + 2], c8[q + 3]);
       }
     }
   }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * tr + i;
-    if (q0 + r >= N) continue;
-    T* dst = out + (static_cast<size_t>(b) * N + q0 + r) * D + h * kHd + kCols * tc;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) dst[c] = from_float<T>(o[i][c]);
-  }
 }
 
-template <typename T, int kHd>
-cudaError_t launch_seq_attention(cudaStream_t stream, const void* qkv, void* out, int B, int N,
-                                 int H, float scale) {
+// Launches over batch slices of `images` images, reusing the scores scratch
+// (vit_seq_scores_bytes(images, N, H) bytes).
+template <int kHd>
+cudaError_t launch_seq_attention(cudaStream_t stream, const void* qkv, void* codes,
+                                 void* scores, int images, int B, int N, int H, float scale,
+                                 float inv_a) {
   const size_t smem = seq_attention_smem_bytes<kHd>();
-  const cudaError_t err = allow_smem(seq_attention_kernel<T, kHd>, smem);
+  const cudaError_t err = allow_smem(seq_attention_kernel<kHd>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + kSeqTile - 1) / kSeqTile, H, B);
-  seq_attention_kernel<T, kHd><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), N, H, scale);
-  return cudaGetLastError();
+  for (int b0 = 0; b0 < B; b0 += images) {
+    const dim3 grid((N + kSeqTile - 1) / kSeqTile, H, std::min(images, B - b0));
+    seq_attention_kernel<kHd><<<grid, kSeqThreads, smem, stream>>>(
+        static_cast<const __nv_bfloat16*>(qkv), static_cast<int8_t*>(codes),
+        static_cast<float4*>(scores), b0, N, H, scale, inv_a);
+    const cudaError_t launched = cudaGetLastError();
+    if (launched != cudaSuccess) return launched;
+  }
+  return cudaSuccess;
 }
 
-inline cudaError_t seq_attention(cudaStream_t stream, const void* qkv, void* out, int B, int N,
-                                 int H, int hd, float scale) {
-  using bf = __nv_bfloat16;
+inline cudaError_t seq_attention(cudaStream_t stream, const void* qkv, void* codes, void* scores,
+                                 int images, int B, int N, int H, int hd, float scale,
+                                 float inv_a) {
   switch (hd) {
-    case 32: return launch_seq_attention<bf, 32>(stream, qkv, out, B, N, H, scale);
-    case 64: return launch_seq_attention<bf, 64>(stream, qkv, out, B, N, H, scale);
-    case 128: return launch_seq_attention<bf, 128>(stream, qkv, out, B, N, H, scale);
+    case 32:
+      return launch_seq_attention<32>(stream, qkv, codes, scores, images, B, N, H, scale, inv_a);
+    case 64:
+      return launch_seq_attention<64>(stream, qkv, codes, scores, images, B, N, H, scale, inv_a);
+    case 128:
+      return launch_seq_attention<128>(stream, qkv, codes, scores, images, B, N, H, scale, inv_a);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// out (M, n_out) = [LN](A) (M, K) W (K, n_out) + bias, rounded to T, then
-// [* ls, rounded] [+ resid, rounded]. A block computes 64 rows x 128
-// columns; each thread 8 rows x 4 columns, from K slices of 16 staged in
-// shared memory (A transposed, with the LayerNorm applied as it loads).
-// ln_g == nullptr: no LayerNorm; ls, resid may be null.
-constexpr int kGemmRows = 64;
-constexpr int kGemmCols = 128;
-constexpr int kGemmK = 16;
-constexpr int kGemmStride = kGemmRows + 4;
+// The projections' GEMM (see the top of this file): out (M, n_out) = A (M,
+// K) W (K, n_out) + bias, then store_tile's epilogue (int8: A and W codes,
+// dequantized with f.a2 and f.s2; kBlock: the half-block's tail). The grid
+// is persistent, two blocks an SM of 256 threads: block b takes output
+// tiles b, b + gridDim.x, ... (tile t is row tile t % ceil(M / 128) of
+// column tile t / ceil(M / 128)), and one ring_loop runs over all their
+// slices, so the next tile's first slices load while this tile's last ones
+// and its epilogue run (a tile is only 3 to 6 slices deep at ViT-S/14).
+// vec: bit 0 A, bit 1 W take 16-byte cp.async.
+constexpr int kProjTm = 128;  // rows of a block's output tile
+constexpr int kProjTn = 128;  // columns
+constexpr int kProjStages = 3;
+constexpr int kProjBlocksPerSm = 2;
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ln_gemm_kernel(const T* __restrict__ A, const float* __restrict__ ln_g,
-               const float* __restrict__ ln_b, float eps, const T* __restrict__ W,
-               const float* __restrict__ bias, const T* __restrict__ ls,
-               const T* __restrict__ resid, T* __restrict__ out, int M, int K, int n_out) {
-  __shared__ __align__(16) float at[kGemmK * kGemmStride];
-  __shared__ __align__(16) float ws[kGemmK * kGemmCols];
-  __shared__ float mean_s[kGemmRows], rstd_s[kGemmRows];
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int m0 = blockIdx.x * kGemmRows;
-  const int n0 = blockIdx.y * kGemmCols;
-  constexpr int kRows = kGemmRows / kWarps;  // 8 rows per thread, one row group per warp
+struct ProjTiles {
+  static constexpr int kDepth = 128 / static_cast<int>(sizeof(T));  // a slice's k
+  static constexpr int kSA = mlp_stride<T, kDepth, false>();          // A slice, 128 x depth
+  static constexpr int kSW = mlp_stride<T, kProjTn, true>();          // W slice, depth x 128
+  static constexpr int kStage = kProjTm * kSA + kDepth * kSW;
+  static constexpr size_t kSmem = sizeof(T) * kProjStages * kStage;
+};
 
-  if (ln_g != nullptr) {
-    for (int rr = 0; rr < kRows; ++rr) {
-      const int r = warp * kRows + rr;
-      float mean = 0.f, rstd = 1.f;
-      if (m0 + r < M) row_stats(A + static_cast<size_t>(m0 + r) * K, K, eps, mean, rstd);
-      if (lane == 0) {
-        mean_s[r] = mean;
-        rstd_s[r] = rstd;
-      }
-    }
-  }
-  float acc[kRows][4];
+template <typename T, typename OutT, bool kBlock>
+__global__ void __launch_bounds__(kThreads, kProjBlocksPerSm)
+proj_tc_kernel(const T* __restrict__ a, const T* __restrict__ w, const float* __restrict__ bias,
+               OutT* __restrict__ out, int M, int K, int n_out, int vec, Folds f) {
+  using Tl = ProjTiles<T>;
+  extern __shared__ float4 smem4[];
+  T* ring = reinterpret_cast<T*>(smem4);
+  const int warp = threadIdx.x >> 5;
+  const int row0 = 64 * (warp & 1), wc = warp >> 1;  // the warp's 64 rows and 32 columns
+  const int m_tiles = (M + kProjTm - 1) / kProjTm;
+  const int tiles = m_tiles * ((n_out + kProjTn - 1) / kProjTn);
+  const int slices = (K + Tl::kDepth - 1) / Tl::kDepth;
+  const int grid = gridDim.x, block = blockIdx.x;
+  const int mine = (tiles - block + grid - 1) / grid;
+  // Output tile of step s: its first row and column.
+  auto origin = [&](int s, int& m0, int& c0) {
+    const int t = block + (s / slices) * grid;
+    m0 = (t % m_tiles) * kProjTm;
+    c0 = (t / m_tiles) * kProjTn;
+  };
+  typename Frag<T>::Acc acc[4][4][4];
+  ring_loop<kProjStages, Tl::kStage>(
+      ring, mine * slices,
+      [&](int s, T* buf) {
+        int m0, c0;
+        origin(s, m0, c0);
+        const int k0 = (s % slices) * Tl::kDepth;
+        stage_tile<T, kProjTm, Tl::kDepth, Tl::kSA, kThreads>(a, K, m0, k0, M, K, vec & 1, buf);
+        stage_tile<T, Tl::kDepth, kProjTn, Tl::kSW, kThreads>(w, n_out, k0, c0, K, n_out,
+                                                              vec & 2, buf + kProjTm * Tl::kSA);
+      },
+      [&](int s, const T* buf) {
+        const int j = s % slices;
+        if (j == 0) {
 #pragma unroll
-  for (int i = 0; i < kRows; ++i)
+          for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kGemmK) {
-    __syncthreads();  // the previous slice is consumed (and the LN statistics written)
+            for (int n = 0; n < 4; ++n)
 #pragma unroll
-    for (int u = 0; u < kGemmRows * kGemmK / kThreads; ++u) {
-      const int idx = tid + u * kThreads;
-      const int r = idx / kGemmK, kk = idx % kGemmK;
-      const int row = m0 + r, k = k0 + kk;
-      float a = 0.f;
-      if (row < M && k < K) {
-        a = to_float(A[static_cast<size_t>(row) * K + k]);
-        if (ln_g != nullptr) a = round_to<T>((a - mean_s[r]) * rstd_s[r] * ln_g[k] + ln_b[k]);
-      }
-      at[kk * kGemmStride + r] = a;
-    }
-#pragma unroll
-    for (int u = 0; u < kGemmK * kGemmCols / kThreads; ++u) {
-      const int idx = tid + u * kThreads;
-      const int kk = idx / kGemmCols, c = idx % kGemmCols;
-      const int k = k0 + kk, col = n0 + c;
-      ws[idx] = k < K && col < n_out ? to_float(W[static_cast<size_t>(k) * n_out + col]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kGemmK; ++kk) {
-      float a[kRows];
-      load_vec<kRows>(at + kk * kGemmStride + warp * kRows, a);
-      fma_tile<kRows, 1>(a, ws + kk * kGemmCols + 4 * lane, acc);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = m0 + warp * kRows + i;
-    if (row >= M) continue;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int col = n0 + 4 * lane + c;
-      if (col >= n_out) continue;
-      const size_t at_out = static_cast<size_t>(row) * n_out + col;
-      float v = round_to<T>(acc[i][c] + bias[col]);
-      if (ls != nullptr) v = round_to<T>(v * to_float(ls[col]));
-      if (resid != nullptr) v = round_to<T>(to_float(resid[at_out]) + v);
-      out[at_out] = from_float<T>(v);
-    }
-  }
-}
-
-// The int8 ln_gemm: out (M, n_out) bf16 = dequant([LN](A) codes W) + bias,
-// then [* ls] [+ resid], each rounded to bf16. A (M, K) bf16, K a multiple
-// of 4; W (K, n_out) int8; w_scale, bias (n_out,) f32. A block computes 64
-// rows x 128 columns, each thread 8 rows x 4 columns in int32, from K slices
-// of 32 staged in shared memory as words of four codes along K: A's rows
-// quantized as they load, W's columns packed from four rows.
-constexpr int kQGemmWords = 8;  // 32-bit words (4 K values each) per staged slice
-
-__global__ void __launch_bounds__(kThreads)
-ln_gemm_i8_kernel(const __nv_bfloat16* __restrict__ A, const float* __restrict__ ln_g,
-                  const float* __restrict__ ln_b, float eps, float inv_a, float a,
-                  const int8_t* __restrict__ W, const float* __restrict__ w_scale,
-                  const float* __restrict__ bias, const __nv_bfloat16* __restrict__ ls,
-                  const __nv_bfloat16* __restrict__ resid, __nv_bfloat16* __restrict__ out,
-                  int M, int K, int n_out) {
-  using bf = __nv_bfloat16;
-  __shared__ __align__(16) int at[kQGemmWords * kGemmStride];
-  __shared__ __align__(16) int ws[kQGemmWords * kGemmCols];
-  __shared__ float mean_s[kGemmRows], rstd_s[kGemmRows];
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int m0 = blockIdx.x * kGemmRows;
-  const int n0 = blockIdx.y * kGemmCols;
-  constexpr int kRows = kGemmRows / kWarps;
-
-  if (ln_g != nullptr) {
-    for (int rr = 0; rr < kRows; ++rr) {
-      const int r = warp * kRows + rr;
-      float mean = 0.f, rstd = 1.f;
-      if (m0 + r < M) row_stats_f64(A + static_cast<size_t>(m0 + r) * K, K, eps, mean, rstd);
-      if (lane == 0) {
-        mean_s[r] = mean;
-        rstd_s[r] = rstd;
-      }
-    }
-  }
-  int acc[kRows][4];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0;
-
-  for (int k0 = 0; k0 < K; k0 += 4 * kQGemmWords) {
-    __syncthreads();  // the previous slice is consumed (and the LN statistics written)
-#pragma unroll
-    for (int u = 0; u < kGemmRows * kQGemmWords / kThreads; ++u) {
-      const int idx = tid + u * kThreads;
-      const int r = idx / kQGemmWords, kw = idx % kQGemmWords;
-      const int row = m0 + r, k = k0 + 4 * kw;
-      int c[4] = {0, 0, 0, 0};
-      if (row < M && k < K) {  // K % 4 == 0: the word is whole
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float v = to_float(A[static_cast<size_t>(row) * K + k + e]);
-          if (ln_g != nullptr) {
-            v = ln_bf16(v, mean_s[r], rstd_s[r], ln_g[k + e], ln_b[k + e]);
-          }
-          c[e] = quantize_i8(v, inv_a);
+              for (int e = 0; e < 4; ++e) acc[i][n][e] = 0;
         }
-      }
-      at[kw * kGemmStride + r] = pack4(c[0], c[1], c[2], c[3]);
-    }
-#pragma unroll
-    for (int u = 0; u < kQGemmWords * kGemmCols / kThreads; ++u) {
-      const int idx = tid + u * kThreads;
-      const int kw = idx / kGemmCols, col = n0 + idx % kGemmCols;
-      const int k = k0 + 4 * kw;
-      int c[4] = {0, 0, 0, 0};
-      if (k < K && col < n_out) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) c[e] = W[static_cast<size_t>(k + e) * n_out + col];
-      }
-      ws[idx] = pack4(c[0], c[1], c[2], c[3]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kw = 0; kw < kQGemmWords; ++kw) {
-      const int4 a0 = *reinterpret_cast<const int4*>(at + kw * kGemmStride + warp * kRows);
-      const int4 a1 = *reinterpret_cast<const int4*>(at + kw * kGemmStride + warp * kRows + 4);
-      const int4 b = *reinterpret_cast<const int4*>(ws + kw * kGemmCols + 4 * lane);
-      const int av[kRows] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        acc[i][0] = __dp4a(av[i], b.x, acc[i][0]);
-        acc[i][1] = __dp4a(av[i], b.y, acc[i][1]);
-        acc[i][2] = __dp4a(av[i], b.z, acc[i][2]);
-        acc[i][3] = __dp4a(av[i], b.w, acc[i][3]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = m0 + warp * kRows + i;
-    if (row >= M) continue;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int col = n0 + 4 * lane + c;
-      if (col >= n_out) continue;
-      const size_t at_out = static_cast<size_t>(row) * n_out + col;
-      const float deq = __fmul_rn(__int2float_rn(acc[i][c]), __fmul_rn(a, w_scale[col]));
-      float v = round_to<bf>(__fadd_rn(deq, bias[col]));
-      if (ls != nullptr) v = round_to<bf>(v * to_float(ls[col]));
-      if (resid != nullptr) v = round_to<bf>(to_float(resid[at_out]) + v);
-      out[at_out] = from_float<bf>(v);
-    }
-  }
+        warp_product<T, 4, 4, Tl::kDepth, Tl::kSA, Tl::kSW, false, true>(
+            buf, row0, 0, buf + kProjTm * Tl::kSA, 32 * wc, acc);
+        if (j == slices - 1) {
+          int m0, c0;
+          origin(s, m0, c0);
+          store_tile<kBlock>(acc, m0 + row0, c0 + 32 * wc, M, n_out, bias, f, out);
+        }
+      });
 }
 
-inline cudaError_t ln_gemm_i8(cudaStream_t stream, const void* A, const void* ln_g,
-                              const void* ln_b, float eps, float inv_a, float a, const void* W,
-                              const void* w_scale, const void* bias, const void* ls,
-                              const void* resid, void* out, int M, int K, int n_out) {
-  using bf = __nv_bfloat16;
-  const dim3 grid((M + kGemmRows - 1) / kGemmRows, (n_out + kGemmCols - 1) / kGemmCols);
-  ln_gemm_i8_kernel<<<grid, kThreads, 0, stream>>>(
-      static_cast<const bf*>(A), static_cast<const float*>(ln_g), static_cast<const float*>(ln_b),
-      eps, inv_a, a, static_cast<const int8_t*>(W), static_cast<const float*>(w_scale),
-      static_cast<const float*>(bias), static_cast<const bf*>(ls), static_cast<const bf*>(resid),
-      static_cast<bf*>(out), M, K, n_out);
+template <typename T, typename OutT, bool kBlock>
+cudaError_t proj_tc(cudaStream_t stream, const void* a, const void* w, const void* bias, void* out,
+                    int M, int K, int n_out, const Folds& f) {
+  using Tl = ProjTiles<T>;
+  const cudaError_t err = allow_smem(proj_tc_kernel<T, OutT, kBlock>, Tl::kSmem);
+  if (err != cudaSuccess) return err;
+  const int vec = vec16_ok<T>(a, K) | vec16_ok<T>(w, n_out) << 1;
+  const long long tiles = static_cast<long long>((M + kProjTm - 1) / kProjTm) *
+                          ((n_out + kProjTn - 1) / kProjTn);
+  const int grid = static_cast<int>(std::min<long long>(tiles, kProjBlocksPerSm * sm_count()));
+  proj_tc_kernel<T, OutT, kBlock><<<grid, kThreads, Tl::kSmem, stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(w), static_cast<const float*>(bias),
+      static_cast<OutT*>(out), M, K, n_out, vec, f);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t ln_gemm(cudaStream_t stream, const void* A, const void* ln_g, const void* ln_b,
-                    float eps, const void* W, const void* bias, const void* ls, const void* resid,
-                    void* out, int M, int K, int n_out) {
-  const dim3 grid((M + kGemmRows - 1) / kGemmRows, (n_out + kGemmCols - 1) / kGemmCols);
-  ln_gemm_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(A), static_cast<const float*>(ln_g), static_cast<const float*>(ln_b),
-      eps, static_cast<const T*>(W), static_cast<const float*>(bias), static_cast<const T*>(ls),
-      static_cast<const T*>(resid), static_cast<T*>(out), M, K, n_out);
-  return cudaGetLastError();
+// K10 int8's qkv stage: x's codes (the prologue, into `codes`), then their
+// product with w_qkv dequantized, + b_qkv, as OutT (bf16 for the
+// half-block, f32 for the stage alone).
+template <typename OutT>
+cudaError_t qkv_int8(cudaStream_t stream, const void* x, const void* ln_g, const void* ln_b,
+                     float eps, const void* w_qkv, const void* s_qkv, const void* b_qkv,
+                     float inv_a, float a, void* codes, void* out, int M, int D, int n_out) {
+  const cudaError_t err = prologue<true>(stream, x, ln_g, ln_b, eps, inv_a, codes, M, D);
+  if (err != cudaSuccess) return err;
+  Folds f{};
+  f.s2 = static_cast<const float*>(s_qkv);
+  f.a2 = a;
+  return proj_tc<int8_t, OutT, std::is_same_v<OutT, __nv_bfloat16>>(stream, codes, w_qkv, b_qkv,
+                                                                     out, M, D, n_out, f);
 }
 
 }  // namespace vit
@@ -688,7 +761,8 @@ int vit_attention_forward_strided(const void* q, const void* k, const void* v, v
 // K10 (bf16): x (B, N, D); ln_g, ln_b (D,) f32 or both null; w_qkv (D, 3D)
 // and w_proj (D, D) bf16; b_qkv (3D,), b_proj (D,) f32; ls (D,) bf16 or
 // null; residual != 0 adds x. qkv (B, N, 3D) and att (B, N, D) bf16
-// scratch; out (B, N, D) bf16. Three launches on `stream`.
+// scratch (att also holds LN(x) until the attention overwrites it); out
+// (B, N, D) bf16. Three launches on `stream`, four with the LayerNorm.
 int vit_attention_block_bf16(const void* x, const void* ln_g, const void* ln_b, float eps,
                              const void* w_qkv, const void* b_qkv, const void* w_proj,
                              const void* b_proj, const void* ls, int residual, void* qkv,
@@ -700,41 +774,78 @@ int vit_attention_block_bf16(const void* x, const void* ln_g, const void* ln_b, 
   using bf = __nv_bfloat16;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * N;
-  cudaError_t err = vit::ln_gemm<bf>(st, x, ln_g, ln_b, eps, w_qkv, b_qkv, nullptr, nullptr, qkv,
-                                     M, D, 3 * D);
+  cudaError_t err = cudaSuccess;
+  if (ln_g != nullptr) err = vit::prologue<false>(st, x, ln_g, ln_b, eps, 0.f, att, M, D);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = vit::proj_tc<bf, bf, true>(st, ln_g != nullptr ? att : x, w_qkv, b_qkv, qkv, M, D, 3 * D,
+                                   vit::Folds{});
   if (err != cudaSuccess) return static_cast<int>(err);
   err = vit::attention<bf>(st, qkv, att, B, N, H, D / H, scale);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(vit::ln_gemm<bf>(st, att, nullptr, nullptr, eps, w_proj, b_proj, ls,
-                                           residual ? x : nullptr, out, M, D, D));
+  vit::Folds f{};
+  f.res = residual ? static_cast<const bf*>(x) : nullptr;
+  f.ls = static_cast<const bf*>(ls);
+  return static_cast<int>(vit::proj_tc<bf, bf, true>(st, att, w_proj, b_proj, out, M, D, D, f));
 }
 
 // K10 int8: x (B, N, D) bf16, D a multiple of 4; ln_g, ln_b (D,) f32 or both
 // null; w_qkv (D, 3D) and w_proj (D, D) int8 with per-column scales s_qkv
 // (3D,) and s_proj (D,) f32; b_qkv (3D,), b_proj (D,) f32; inv_a_* and a_*
 // the activation scales' reciprocals and the scales; ls (D,) bf16 or null;
-// residual != 0 adds x. qkv (B, N, 3D) and att (B, N, D) bf16 scratch; out
-// (B, N, D) bf16. Three launches on `stream`.
+// residual != 0 adds x. qkv (B, N, 3D) bf16 and codes (B, N, D) int8
+// scratch (x's codes, then the attention output's); scores f32 scratch of
+// vit_seq_scores_bytes(images, N, H) bytes, the attention stage's scores
+// for `images` images at a time; out (B, N, D) bf16. Four launches on
+// `stream`, more when images < B.
 int vit_attention_block_int8(const void* x, const void* ln_g, const void* ln_b, float eps,
                              const void* w_qkv, const void* s_qkv, const void* b_qkv,
                              float inv_a_qkv, float a_qkv, const void* w_proj,
                              const void* s_proj, const void* b_proj, float inv_a_proj,
-                             float a_proj, const void* ls, int residual, void* qkv, void* att,
-                             void* out, int B, int N, int D, int H, float scale, void* stream) {
-  if (B <= 0 || N <= 0 || H <= 0 || D % H != 0 || D % 4 != 0 ||
+                             float a_proj, const void* ls, int residual, void* qkv, void* codes,
+                             void* scores, int images, void* out, int B, int N, int D, int H,
+                             float scale, void* stream) {
+  if (B <= 0 || N <= 0 || H <= 0 || D % H != 0 || D % 4 != 0 || images <= 0 ||
       (ln_g == nullptr) != (ln_b == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  using bf = __nv_bfloat16;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * N;
-  cudaError_t err = vit::ln_gemm_i8(st, x, ln_g, ln_b, eps, inv_a_qkv, a_qkv, w_qkv, s_qkv, b_qkv,
-                                    nullptr, nullptr, qkv, M, D, 3 * D);
+  cudaError_t err = vit::qkv_int8<bf>(st, x, ln_g, ln_b, eps, w_qkv, s_qkv, b_qkv, inv_a_qkv,
+                                      a_qkv, codes, qkv, M, D, 3 * D);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = vit::seq_attention(st, qkv, att, B, N, H, D / H, scale);
+  err = vit::seq_attention(st, qkv, codes, scores, images, B, N, H, D / H, scale, inv_a_proj);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(vit::ln_gemm_i8(st, att, nullptr, nullptr, eps, inv_a_proj, a_proj,
-                                          w_proj, s_proj, b_proj, ls, residual ? x : nullptr,
-                                          out, M, D, D));
+  vit::Folds f{};
+  f.res = residual ? static_cast<const bf*>(x) : nullptr;
+  f.ls = static_cast<const bf*>(ls);
+  f.s2 = static_cast<const float*>(s_proj);
+  f.a2 = a_proj;
+  return static_cast<int>(
+      vit::proj_tc<int8_t, bf, true>(st, codes, w_proj, b_proj, out, M, D, D, f));
+}
+
+// Bytes of K10 int8's scores scratch for `images` images of N tokens and H
+// heads: ceil(N / 64)^2 H 16 KB an image.
+long long vit_seq_scores_bytes(int images, int N, int H) {
+  const int tiles = (N + vit::kSeqTile - 1) / vit::kSeqTile;
+  return static_cast<long long>(images) * H * tiles * vit::seq_scores_per_block(tiles) *
+         static_cast<long long>(sizeof(float4));
+}
+
+// K10 int8's qkv stage alone: x (M, D) bf16, D a multiple of 4; ln_g, ln_b,
+// w_qkv (D, n_out) int8, s_qkv and b_qkv (n_out,) f32 as above; codes (M,
+// D) int8 scratch; out (M, n_out) f32, the dequantized product before its
+// rounding to bf16. Two launches on `stream`.
+int vit_qkv_proj_int8(const void* x, const void* ln_g, const void* ln_b, float eps,
+                      const void* w_qkv, const void* s_qkv, const void* b_qkv, float inv_a,
+                      float a, void* codes, void* out, int M, int D, int n_out, void* stream) {
+  if (M <= 0 || D <= 0 || n_out <= 0 || D % 4 != 0 || (ln_g == nullptr) != (ln_b == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(vit::qkv_int8<float>(static_cast<cudaStream_t>(stream), x, ln_g, ln_b,
+                                               eps, w_qkv, s_qkv, b_qkv, inv_a, a, codes, out, M,
+                                               D, n_out));
 }
 
 }  // extern "C"

@@ -1,16 +1,9 @@
 // Device code shared by the ViT kernels (vit_attn.cu, vit_attn_bwd.cu,
 // vit_mlp.cu, vit_mlp_bwd.cu): dtype conversion and rounding, warp
-// reductions, the LayerNorm statistics of a row, the exact GELU, the
-// register-tiled FFMA product step of K10's projections and K10 int8's
-// attention stage, and the int8 kernels' activation codes.
-//
-// fma_tile's products are f32 FMAs on values widened from the inputs'
-// dtype (f32 or bf16): a bf16 x bf16 product is exact in f32, so those
-// paths differ from the plain PyTorch versions (bf16 values, f32 products
-// and sums) only in the order of the f32 sums, and they run at the card's
-// 67 TFLOP/s f32 rate, not on its tensor cores. The attention kernels (K7,
-// K8) and the MLP kernels (K9, its backward, K11 and K11 int8) take the
-// tensor cores through vit_mma.cuh.
+// reductions, the LayerNorm statistics of a row, the exact GELU and the
+// int8 kernels' activation codes. The products run on the tensor cores
+// through vit_mma.cuh, but for K10 int8's FFMA attention stage
+// (vit_attn.cu).
 
 #pragma once
 
@@ -146,52 +139,22 @@ __device__ __forceinline__ float gelu_as(float h) {
   return __fmul_rn(__fmul_rn(0.5f, h), __fadd_rn(1.f, erf));
 }
 
-// kRows consecutive floats from shared memory (16-byte aligned for
-// kRows % 4 == 0, 8-byte for kRows == 2).
-template <int kRows>
-__device__ __forceinline__ void load_vec(const float* __restrict__ p, float (&a)[kRows]) {
-  if constexpr (kRows % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < kRows; i += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(p + i);
-      a[i] = v.x;
-      a[i + 1] = v.y;
-      a[i + 2] = v.z;
-      a[i + 3] = v.w;
-    }
-  } else {
-    static_assert(kRows == 2, "rows per thread: 2 or a multiple of 4");
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    a[0] = v.x;
-    a[1] = v.y;
-  }
-}
-
-// One product step of a register tile: acc[i][4 j + c] += a[i] * b_j[c],
-// where a holds kRows rows of the left factor at one k and the kGroups
-// float4s at b + 128 j hold the right factor's columns 4 lane + 128 j .. +3.
-template <int kRows, int kGroups>
-__device__ __forceinline__ void fma_tile(const float (&a)[kRows], const float* __restrict__ b,
-                                         float (&acc)[kRows][4 * kGroups]) {
-#pragma unroll
-  for (int j = 0; j < kGroups; ++j) {
-    const float4 v = *reinterpret_cast<const float4*>(b + 128 * j);
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      acc[i][4 * j] = fmaf(a[i], v.x, acc[i][4 * j]);
-      acc[i][4 * j + 1] = fmaf(a[i], v.y, acc[i][4 * j + 1]);
-      acc[i][4 * j + 2] = fmaf(a[i], v.z, acc[i][4 * j + 2]);
-      acc[i][4 * j + 3] = fmaf(a[i], v.w, acc[i][4 * j + 3]);
-    }
-  }
-}
-
 // Set the dynamic shared memory a kernel needs above the 48 KB default.
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// The device's streaming multiprocessors, or 1.
+inline int sm_count() {
+  int device = 0, sms = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) {
+    return 1;
+  }
+  return sms > 0 ? sms : 1;
 }
 
 // The device's opt-in shared memory per block, or 0.

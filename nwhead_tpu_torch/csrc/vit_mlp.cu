@@ -38,9 +38,10 @@
 // after fc2's bias (rounded to bf16). It is K9's kernel with that tail
 // compiled into its epilogue (kBlock; the residual reads the un-normalized
 // x). cp.async copies bytes unchanged and cannot normalize x, so with the
-// LayerNorm a prologue kernel (mlp_prologue_kernel, one warp a row) first
-// writes the normalized, rounded x to scratch, which the ring stages as K9
-// stages x: 2 x 2 M D_in bytes more, 25 MB at ViT-S/14 serving. A
+// LayerNorm a prologue kernel (vit_block.cuh's block_prologue_kernel, one
+// warp a row, shared with K10) first writes the normalized, rounded x to
+// scratch, which the ring stages as K9 stages x: 2 x 2 M D_in bytes more,
+// 25 MB at ViT-S/14 serving. A
 // normalized tile kept in shared memory for the block's life instead would
 // take 50 KB at D_in = 384 and 132 KB at 1,024 beside the ring's 167 KB,
 // more than a block has from ViT-B's width on. With every fold off K11 is
@@ -63,7 +64,7 @@
 // us); the weights' stream from the L2 is half of bf16's (1.2 MB for every
 // 64 tokens).
 
-#include "vit_mma.cuh"
+#include "vit_block.cuh"
 
 namespace vit {
 
@@ -95,24 +96,6 @@ struct K9Tiles {
 // The output's dtype: x's; bf16 for K11 int8's codes.
 template <typename T>
 using OutT = std::conditional_t<std::is_same_v<T, int8_t>, __nv_bfloat16, T>;
-
-// The half-blocks' folds after fc2, and K11 int8's scales.
-struct Folds {
-  const __nv_bfloat16* res;  // residual: the un-normalized x (M, d_out), or null
-  const __nv_bfloat16* ls;   // LayerScale (d_out,), or null
-  const float* s1;           // int8: W1's per-column scales (d_h,)
-  const float* s2;           // int8: W2's per-column scales (d_out,)
-  float a1, inv_a2, a2;      // int8: fc1's input scale, the hidden codes' 1 / scale and scale
-};
-
-// The half-block's tail on one output value (f32, before any rounding):
-// rounded to bf16, [times ls, rounded], [plus x, rounded].
-__device__ __forceinline__ float block_tail(float v, const Folds& f, size_t at, int col) {
-  v = round_to<__nv_bfloat16>(v);
-  if (f.ls != nullptr) v = round_to<__nv_bfloat16>(v * to_float(f.ls[col]));
-  if (f.res != nullptr) v = round_to<__nv_bfloat16>(to_float(f.res[at]) + v);
-  return v;
-}
 
 // K9 (T f32 or bf16), K11 (kBlock, T bf16) and K11 int8 (kBlock, T int8: x
 // the codes, out bf16). grid (ceil(M / 64), ceil(d_out / (32 kNT))), 256
@@ -222,53 +205,8 @@ mlp_tc_kernel(const T* __restrict__ x, const T* __restrict__ w1, const float* __
         }
       });
 
-  // Two neighbouring output columns a call: bias (int8: dequantized first),
-  // the half-block's tail, the store.
-  const bool pairs = d_out % 2 == 0;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int i = q >> 1, r = q & 1;
-    const int row = m0 + row0 + 16 * i + g + 8 * r;
-    if (row >= M) continue;
-    const size_t at = static_cast<size_t>(row) * d_out;
-    OutT<T>* dst = out + at;
-    auto emit = [&](int col, Acc a0, Acc a1) {
-      if (col >= d_out) return;
-      const bool second = col + 1 < d_out;
-      float v0, v1;
-      if constexpr (kInt8) {
-        v0 = __fadd_rn(__fmul_rn(__int2float_rn(a0), __fmul_rn(f.a2, f.s2[col])), b2[col]);
-        v1 = second ? __fadd_rn(__fmul_rn(__int2float_rn(a1), __fmul_rn(f.a2, f.s2[col + 1])),
-                                b2[col + 1])
-                    : 0.f;
-      } else {
-        v0 = a0 + b2[col];
-        v1 = a1 + (second ? b2[col + 1] : 0.f);
-      }
-      if constexpr (kBlock) {
-        v0 = block_tail(v0, f, at + col, col);
-        if (second) v1 = block_tail(v1, f, at + col + 1, col + 1);
-      }
-      if (pairs) {
-        store2(dst + col, v0, v1);
-      } else {
-        dst[col] = from_float<OutT<T>>(v0);
-        if (second) dst[col + 1] = from_float<OutT<T>>(v1);
-      }
-    };
-    if constexpr (kInt8) {  // n-tiles n and n + 1 hold neighbouring columns
-#pragma unroll
-      for (int n = 0; n < kNT; n += 2)
-#pragma unroll
-        for (int p = 0; p < 2; ++p)
-          emit(c0 + 8 * kNT * wc + acc_col_s8(n, p), acc[i][n][2 * r + p],
-               acc[i][n + 1][2 * r + p]);
-    } else {
-#pragma unroll
-      for (int n = 0; n < kNT; ++n)
-        emit(c0 + 8 * kNT * wc + 8 * n + 2 * t, acc[i][n][2 * r], acc[i][n][2 * r + 1]);
-    }
-  }
+  // Bias (int8: dequantized first), the half-block's tail, the store.
+  store_tile<kBlock>(acc, m0 + row0, c0 + 8 * kNT * wc, M, d_out, b2, f, out);
 }
 
 template <typename T, int kNT, bool kBlock>
@@ -301,54 +239,6 @@ cudaError_t mlp_tc(cudaStream_t stream, const void* x, const void* w1, const voi
   if (d_out <= 256) return VIT_MLP_TC(8);
   return VIT_MLP_TC(12);
 #undef VIT_MLP_TC
-}
-
-// The half-blocks' prologue, one warp a row of x (M, d_in) bf16. K11:
-// LN(x) with row_stats' f32 statistics, rounded to bf16. K11 int8 (d_in a
-// multiple of 4): x's codes, quantize_i8 by 1/a1 of x or of ln_bf16 with
-// row_stats_f64's statistics, four a 32-bit word.
-template <bool kInt8>
-__global__ void __launch_bounds__(kThreads)
-mlp_prologue_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ ln_g,
-                    const float* __restrict__ ln_b, float eps, float inv_a1,
-                    std::conditional_t<kInt8, int8_t, __nv_bfloat16>* __restrict__ dst, int M,
-                    int d_in) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= M) return;  // a whole warp
-  const __nv_bfloat16* src = x + static_cast<size_t>(row) * d_in;
-  float mean = 0.f, rstd = 1.f;
-  if constexpr (kInt8) {
-    if (ln_g != nullptr) row_stats_f64(src, d_in, eps, mean, rstd);
-    int* codes = reinterpret_cast<int*>(dst + static_cast<size_t>(row) * d_in);
-    for (int kw = lane; kw < d_in / 4; kw += 32) {
-      int c[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int k = 4 * kw + e;
-        float v = to_float(src[k]);
-        if (ln_g != nullptr) v = ln_bf16(v, mean, rstd, ln_g[k], ln_b[k]);
-        c[e] = quantize_i8(v, inv_a1);
-      }
-      codes[kw] = pack4(c[0], c[1], c[2], c[3]);
-    }
-  } else {
-    row_stats(src, d_in, eps, mean, rstd);
-    __nv_bfloat16* xn = dst + static_cast<size_t>(row) * d_in;
-    for (int k = lane; k < d_in; k += 32) {
-      xn[k] = from_float<__nv_bfloat16>((to_float(src[k]) - mean) * rstd * ln_g[k] + ln_b[k]);
-    }
-  }
-}
-
-template <bool kInt8>
-cudaError_t prologue(cudaStream_t stream, const void* x, const void* ln_g, const void* ln_b,
-                     float eps, float inv_a1, void* dst, int M, int d_in) {
-  mlp_prologue_kernel<kInt8><<<(M + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(ln_g),
-      static_cast<const float*>(ln_b), eps, inv_a1,
-      static_cast<std::conditional_t<kInt8, int8_t, __nv_bfloat16>*>(dst), M, d_in);
-  return cudaGetLastError();
 }
 
 }  // namespace vit

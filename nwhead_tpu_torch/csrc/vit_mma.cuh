@@ -25,14 +25,15 @@
 // then fall in 32 different banks.
 //
 // The MLP kernels (K9, K11 and K11 int8 in vit_mlp.cu, the K9 backward in
-// vit_mlp_bwd.cu) use the same fragments on tiles of any width (stage_tile,
+// vit_mlp_bwd.cu) and K10's projections (proj_tc_kernel in vit_attn.cu,
+// bf16 and int8) use the same fragments on tiles of any width (stage_tile,
 // mlp_stride, warp_product below): their depths run to 4,096, their rows
 // may be ragged, and their left factors also come k-major (load_a_km: the
 // weight gradients, whose depth is tokens). An f32 tile read by rows g
 // (load_a, load_b_nk) is padded to a stride of 4 mod 32 words, one read by
 // rows t (load_a_km, load_b_kn_nat) to 8 mod 32, so that each load's 32
 // lanes hit 32 banks.
-//   * int8 (K11 int8): mma.sync.m16n8k32 (s8 operands, exact s32 sums).
+//   * int8 (K11 int8, K10 int8): mma.sync.m16n8k32 (s8 operands, exact s32 sums).
 //     Its A fragment is the bf16 one byte for byte, so a row-major code
 //     tile loads with ldmatrix. Its B fragment wants four consecutive k of
 //     one column in a register, and ldmatrix.trans moves only 16-bit

@@ -15,7 +15,9 @@ cpu`` on request, ``--tiny`` for a small size):
 * ``prepared_lab``, ``roofline_lab`` (L4's users): K2 beside the stream;
 * ``block_lab`` (L2): ``fused_blocks`` on ``csrc/lab_blocks.cu``;
 * ``mlp_block_lab``, the port's own: K9, K11 and K11 int8 at ViT-S/14's and
-  ViT-B/14's widths, for this checkout or another (``--tree``).
+  ViT-B/14's widths, for this checkout or another (``--tree``);
+* ``attn_block_lab``, the port's own: K10 and K10 int8 the same way, with
+  K10 int8's output SHA-256 at every fold and each call's device functions.
 
 Nothing here imports jax, the JAX package, ``scripts`` or ``bench.py``;
 nothing is built or launched at import.

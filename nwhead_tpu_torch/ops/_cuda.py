@@ -43,7 +43,10 @@ _API = {
             _I32),
         "vit_attention_block_int8": (
             [_VP] * 3 + [_F32] + [_VP] * 3 + [_F32] * 2 + [_VP] * 3 + [_F32] * 2 + [_VP, _I32]
-            + [_VP] * 3 + [_I32] * 4 + [_F32, _VP], _I32),
+            + [_VP] * 3 + [_I32, _VP] + [_I32] * 4 + [_F32, _VP], _I32),
+        "vit_seq_scores_bytes": ([_I32] * 3, _I64),
+        "vit_qkv_proj_int8": ([_VP] * 3 + [_F32] + [_VP] * 3 + [_F32] * 2 + [_VP] * 2 + [_I32] * 3
+                              + [_VP], _I32),
         "vit_attn_error_string": ([_I32], ctypes.c_char_p),
     },
     "vit_attn_bwd": {

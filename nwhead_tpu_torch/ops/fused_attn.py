@@ -17,15 +17,22 @@ Hopper, built and loaded by ``ops/_cuda.py``:
   same tensor-core path;
 * K10 ``vit_attention_block_bf16`` (``csrc/vit_attn.cu``, TPU
   ``_attn_int8_kernel`` with ``quant=False``): [LayerNorm ->] qkv ->
-  attention -> proj [-> * LayerScale] [-> + x] in bf16, three launches
-  through device memory;
+  attention -> proj [-> * LayerScale] [-> + x] in bf16 through device
+  memory: the LayerNorm prologue that K11 shares (``csrc/vit_block.cuh``),
+  the projections on a tensor-core GEMM (``proj_tc_kernel``, bf16
+  ``mma.sync``) around K7's kernel;
 * K10 int8 ``vit_attention_block_int8`` (``csrc/vit_attn.cu``, TPU
   ``_attn_int8_kernel`` with ``quant=True``): the same with both
   projections quantize -> int8 product -> dequantize + bias (per-tensor
-  activation scales, per-channel weight scales), the attention in bf16 on
-  FFMA with the scores summed in the plain version's order (the int8 codes
-  of its output flip when the scores are summed in another order, and the
-  int8 stack's limits hold only with that order);
+  activation scales, per-channel weight scales; the prologue writes x's
+  codes, the GEMM runs on s8 ``mma.sync`` with exact int32 sums), the
+  attention in bf16 on FFMA with the scores summed in the plain version's
+  order (the int8 codes of its output flip when the scores are summed in
+  another order, and the int8 stack's limits hold only with that order);
+  that stage keeps its scores in scratch between its two sweeps and writes
+  its output's codes for the proj stage.
+  ``vit_qkv_proj_int8`` runs its qkv stage alone (``qkv_proj_int8_cuda``,
+  f32 out), which equals its plain version bit for bit;
 * K12 ``fused_attention`` (TPU ``_attn_kernel``, ``pallas_attn.py:44``,
   inference only): ``softmax(q k^T * scale) v`` over ``(B, H, N, hd)`` q, k
   and v. On the card K7's kernel through ``vit_attention_forward_strided``,
@@ -36,7 +43,8 @@ Hopper, built and loaded by ``ops/_cuda.py``:
 Each kernel has a wrapper that counts its launches (``.launches``) and a
 plain PyTorch version of the same function (``_attention_qkv_plain``,
 ``_attention_qkv_bwd_plain``, ``_attention_plain``, ``_attention_block_bf16_plain``,
-``_attention_block_int8_plain``, whose integer products are exact) that follows
+``_attention_block_int8_plain``, ``_qkv_proj_int8_plain``, whose integer
+products are exact) that follows
 the TPU kernel's single pass and its rounding points: probabilities
 normalized in f32, then rounded to v's dtype before the PV product (and
 before dV in the backward). ``fused_attention_qkv`` is a
@@ -62,6 +70,10 @@ from nwhead_tpu_torch.ops import _cuda
 
 _BF16 = torch.bfloat16
 _HEAD_DIMS = (32, 64, 128)  # head widths the CUDA kernel is built for
+# K10 int8 keeps its attention stage's f32 scores between its two sweeps in
+# scratch of ceil(N / 64)^2 H 16 KB an image (157 MB at ViT-S/14's 64
+# images of 257 tokens); above this many bytes it runs over batch slices.
+_SCORES_BYTES = 256 << 20
 
 
 def _layer_norm_f32(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -370,6 +382,20 @@ def _attention_block_bf16_plain(
     return out
 
 
+def _qkv_proj_int8_plain(
+    x: torch.Tensor, w_qkv: torch.Tensor, s_qkv: torch.Tensor, b_qkv: torch.Tensor,
+    a_qkv: float, ln_scale: Optional[torch.Tensor], ln_bias: Optional[torch.Tensor],
+    ln_eps: float,
+) -> torch.Tensor:
+    """K10 int8's qkv stage in plain PyTorch: [LN (``_layer_norm_int8``),
+    rounded to bf16 ->] quantize by ``1/a_qkv`` -> int8 product ->
+    dequantize + bias, f32 ``(..., n_out)`` (before its rounding to bf16)."""
+    h = x.to(torch.float32)
+    if ln_scale is not None:
+        h = _layer_norm_int8(h, ln_scale, ln_bias, ln_eps).to(_BF16).to(torch.float32)
+    return int8_dense_f32(quantize_act(h, a_qkv), w_qkv, a_qkv, s_qkv, b_qkv)
+
+
 def _attention_block_int8_plain(
     x: torch.Tensor, w_qkv: torch.Tensor, s_qkv: torch.Tensor, b_qkv: torch.Tensor,
     a_qkv: float, w_proj: torch.Tensor, s_proj: torch.Tensor, b_proj: torch.Tensor,
@@ -377,16 +403,13 @@ def _attention_block_int8_plain(
     ln_bias: Optional[torch.Tensor], ln_eps: float, layerscale: Optional[torch.Tensor],
     residual: bool,
 ) -> torch.Tensor:
-    """K10 int8's function in plain PyTorch: [LN (``_layer_norm_int8``),
-    rounded to bf16 ->] quantize by ``1/a_qkv`` -> int8 qkv product ->
-    dequantize + bias -> bf16 -> the bf16 attention (K7's) -> the output
-    rounded to bf16 -> quantize by ``1/a_proj`` -> int8 proj product ->
-    dequantize + bias -> bf16 [-> * ls] [-> + x], as ``_attn_int8_kernel``
-    rounds them."""
-    h = x.to(torch.float32)
-    if ln_scale is not None:
-        h = _layer_norm_int8(h, ln_scale, ln_bias, ln_eps).to(_BF16).to(torch.float32)
-    qkv = int8_dense_f32(quantize_act(h, a_qkv), w_qkv, a_qkv, s_qkv, b_qkv).to(_BF16)
+    """K10 int8's function in plain PyTorch: the qkv stage
+    (``_qkv_proj_int8_plain``) -> bf16 -> the bf16 attention (K7's) -> the
+    output rounded to bf16 -> quantize by ``1/a_proj`` -> int8 proj product
+    -> dequantize + bias -> bf16 [-> * ls] [-> + x], as
+    ``_attn_int8_kernel`` rounds them."""
+    qkv = _qkv_proj_int8_plain(x, w_qkv, s_qkv, b_qkv, a_qkv, ln_scale, ln_bias,
+                               ln_eps).to(_BF16)
     att = _heads_attention_f32(qkv, num_heads, scale, _BF16).to(_BF16)
     out = int8_dense_f32(quantize_act(att, a_proj), w_proj, a_proj, s_proj, b_proj).to(_BF16)
     if layerscale is not None:
@@ -438,10 +461,12 @@ def attention_block_bf16_cuda(
     ln_bias: Optional[torch.Tensor], ln_eps: float, layerscale: Optional[torch.Tensor],
     residual: bool,
 ) -> torch.Tensor:
-    """Launch K10 (``csrc/vit_attn.cu``) on the current stream: three
-    stages through bf16 scratch ``qkv (B, N, 3D)`` and ``att (B, N, D)``.
-    Takes the operands in the dtypes ``fused_attention_block_bf16`` casts
-    them to; raises on anything else."""
+    """Launch K10 (``csrc/vit_attn.cu``) on the current stream: [the
+    LayerNorm prologue ->] the qkv GEMM -> K7 -> the proj GEMM, through bf16
+    scratch ``qkv (B, N, 3D)`` and ``att (B, N, D)`` (which holds LN(x)
+    until the attention writes it). Takes the operands in the dtypes
+    ``fused_attention_block_bf16`` casts them to; raises on anything
+    else."""
     device = _check_block("attention_block_bf16_cuda", x, num_heads, _BF16, w_qkv, b_qkv,
                           w_proj, b_proj, ln_scale, ln_bias, layerscale)
     B, N, D = x.shape
@@ -469,12 +494,14 @@ def attention_block_int8_cuda(
     ln_bias: Optional[torch.Tensor], ln_eps: float, layerscale: Optional[torch.Tensor],
     residual: bool,
 ) -> torch.Tensor:
-    """Launch K10 int8 (``csrc/vit_attn.cu``) on the current stream: three
-    stages through bf16 scratch ``qkv (B, N, 3D)`` and ``att (B, N, D)``,
-    both projections on int8 codes. Takes the operands in the dtypes
-    ``fused_attention_qkv_int8`` casts them to (int8 weights ``(D, 3D)``,
-    ``(D, D)``, f32 per-channel scales and biases); raises on anything
-    else."""
+    """Launch K10 int8 (``csrc/vit_attn.cu``) on the current stream: x's
+    codes -> the s8 qkv GEMM -> the FFMA attention, which writes its
+    output's codes -> the s8 proj GEMM, through scratch ``qkv (B, N, 3D)``
+    bf16, ``codes (B, N, D)`` int8 (x's codes, then the attention
+    output's) and the attention's f32 scores (``_SCORES_BYTES`` at most, or
+    one image's). Takes the operands in the dtypes ``fused_attention_qkv_int8``
+    casts them to (int8 weights ``(D, 3D)``, ``(D, D)``, f32 per-channel
+    scales and biases); raises on anything else."""
     f32 = torch.float32
     device = _check_block("attention_block_int8_cuda", x, num_heads, torch.int8, w_qkv, b_qkv,
                           w_proj, b_proj, ln_scale, ln_bias, layerscale,
@@ -483,9 +510,12 @@ def attention_block_int8_cuda(
     if D % 4:
         raise ValueError(f"attention_block_int8_cuda: D={D} is not a multiple of 4")
     qkv = torch.empty((B, N, 3 * D), dtype=_BF16, device=device)
-    att = torch.empty((B, N, D), dtype=_BF16, device=device)
-    out = torch.empty_like(x)
+    codes = torch.empty((B, N, D), dtype=torch.int8, device=device)
     lib = _cuda.load_library("vit_attn")
+    per_image = lib.vit_seq_scores_bytes(1, N, num_heads)
+    images = max(1, min(B, _SCORES_BYTES // per_image))
+    scores = torch.empty(images * per_image // 4, dtype=torch.float32, device=device)
+    out = torch.empty_like(x)
     with torch.cuda.device(device):
         # The reciprocals in double, rounded once to f32, as the JAX kernel's
         # Python-float ``1.0 / a`` is.
@@ -493,13 +523,58 @@ def attention_block_int8_cuda(
                 float(ln_eps), w_qkv.data_ptr(), s_qkv.data_ptr(), b_qkv.data_ptr(),
                 1.0 / a_qkv, float(a_qkv), w_proj.data_ptr(), s_proj.data_ptr(),
                 b_proj.data_ptr(), 1.0 / a_proj, float(a_proj), _ptr(layerscale),
-                int(residual), qkv.data_ptr(), att.data_ptr(), out.data_ptr(), B, N, D,
-                num_heads, float(scale), torch.cuda.current_stream(device).cuda_stream)
+                int(residual), qkv.data_ptr(), codes.data_ptr(), scores.data_ptr(), images,
+                out.data_ptr(), B, N, D, num_heads, float(scale),
+                torch.cuda.current_stream(device).cuda_stream)
     attention_block_int8_cuda.launches += 1
     return out
 
 
 attention_block_int8_cuda.launches = 0
+
+
+def qkv_proj_int8_cuda(
+    x: torch.Tensor, w_qkv: torch.Tensor, s_qkv: torch.Tensor, b_qkv: torch.Tensor,
+    a_qkv: float, ln_scale: Optional[torch.Tensor], ln_bias: Optional[torch.Tensor],
+    ln_eps: float,
+) -> torch.Tensor:
+    """Launch K10 int8's qkv stage alone (``csrc/vit_attn.cu``
+    ``vit_qkv_proj_int8``: the codes' prologue, the s8 GEMM, the
+    dequantized sum + bias) on the current stream: x ``(..., D)`` bf16, D a
+    multiple of 4, ``w_qkv (D, n_out)`` int8, f32 ``s_qkv`` and ``b_qkv
+    (n_out,)``; returns f32 ``(..., n_out)``, ``_qkv_proj_int8_plain``'s
+    values bit for bit. Raises on anything else."""
+    name = "qkv_proj_int8_cuda"
+    if x.dim() < 1 or 0 in x.shape or w_qkv.dim() != 2 or w_qkv.shape[0] != x.shape[-1]:
+        raise ValueError(f"{name}: x {tuple(x.shape)} and w_qkv {tuple(w_qkv.shape)} are not "
+                         "(..., D) and (D, n_out)")
+    D, n_out = w_qkv.shape
+    if D % 4:
+        raise ValueError(f"{name}: D={D} is not a multiple of 4")
+    f32 = torch.float32
+    checked = [("x", x, _BF16), ("w_qkv", w_qkv, torch.int8), ("s_qkv", s_qkv, f32),
+               ("b_qkv", b_qkv, f32)]
+    if ln_scale is not None:
+        checked += [("ln_scale", ln_scale, f32), ("ln_bias", ln_bias, f32)]
+    device = _check_cuda(name, checked)
+    for arg, t, n in (("s_qkv", s_qkv, n_out), ("b_qkv", b_qkv, n_out), ("ln_scale", ln_scale, D),
+                      ("ln_bias", ln_bias, D)):
+        if t is not None and tuple(t.shape) != (n,):
+            raise ValueError(f"{name}: {arg} {tuple(t.shape)}: need {(n,)}")
+    M = x.numel() // D
+    codes = torch.empty((M, D), dtype=torch.int8, device=device)
+    out = torch.empty((*x.shape[:-1], n_out), dtype=f32, device=device)
+    lib = _cuda.load_library("vit_attn")
+    with torch.cuda.device(device):
+        _launch(lib, "vit_qkv_proj_int8", x.data_ptr(), _ptr(ln_scale), _ptr(ln_bias),
+                float(ln_eps), w_qkv.data_ptr(), s_qkv.data_ptr(), b_qkv.data_ptr(), 1.0 / a_qkv,
+                float(a_qkv), codes.data_ptr(), out.data_ptr(), M, D, n_out,
+                torch.cuda.current_stream(device).cuda_stream)
+    qkv_proj_int8_cuda.launches += 1
+    return out
+
+
+qkv_proj_int8_cuda.launches = 0
 
 
 def fused_attention_block_bf16(

@@ -17,9 +17,11 @@ half-blocks (K10 int8, K11 int8), the calibration and quantization of a ViT
   ``tests/test_torch_vit_serve_slice.py``.
 
 The CUDA kernels are tested on the card only (marker ``gpu``), against
-their plain versions within 1e-2 of max|plain| and cosine >= 0.9999; K11
-int8, whose int32 sums are exact, equals its plain version bit for bit and
-repeats bit for bit. They run with ``python -m pytest --noconftest -m gpu
+their plain versions within 1e-2 of max|plain| and cosine >= 0.9999, K10
+int8 also at the edges of its tiles; K11 int8 and K10 int8's qkv stage
+alone, whose int32 sums are exact, equal their plain versions bit for bit,
+and K10 int8 and K11 int8 repeat bit for bit. K10 int8's qkv stage's plain
+version is also held to JAX's ``QLayerNorm`` and ``QDense``. They run with ``python -m pytest --noconftest -m gpu
 tests/test_torch_quant_vit.py``.
 """
 
@@ -131,6 +133,46 @@ def test_mlp_block_int8_plain_matches_jax(ln, ls, residual, width):
     assert _rel_err(got, want) <= REL
 
 
+@pytest.mark.parametrize("ln", [False, True])
+def test_qkv_proj_int8_plain_matches_jax(ln):
+    """K10 int8's qkv stage alone (``_qkv_proj_int8_plain``, f32) rounded to
+    bf16 against JAX's ``QDense`` (after its ``QLayerNorm``) on the same
+    weights and scale."""
+    import jax.numpy as jnp
+
+    from nwhead_tpu.models.quantize import QDense, QLayerNorm
+
+    p = _block(64, 256)
+    (wq, sq, bq), a = p["qkv"], p["a"][0]
+    x = _x_bf16((2, 17, 64), seed=9)
+    h = jnp.asarray(x, jnp.bfloat16)
+    if ln:
+        h = QLayerNorm(jnp.asarray(p["ln_s"]), jnp.asarray(p["ln_b"]))(h)
+    want = QDense(jnp.asarray(wq), jnp.asarray(sq), jnp.asarray(bq), jnp.float32(a))(h)
+    to = torch.from_numpy
+    got = FA._qkv_proj_int8_plain(to(x).to(torch.bfloat16), to(wq), to(sq), to(bq), a,
+                                  to(p["ln_s"]) if ln else None, to(p["ln_b"]) if ln else None,
+                                  1e-6)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, 17, 192)
+    want, got = np.asarray(want.astype(jnp.float32)), got.to(torch.bfloat16).float().numpy()
+    print(f"K10 int8 qkv stage plain vs JAX: {np.mean(got == want):.4f} of elements bit-equal")
+    assert _rel_err(got, want) <= REL
+
+
+def test_qkv_proj_int8_cuda_refuses_what_it_cannot_take():
+    """K10 int8's qkv stage alone launches on CUDA tensors of its shapes or
+    raises."""
+    p = _block(64, 256)
+    (wq, sq, bq), to = p["qkv"], torch.from_numpy
+    x = torch.zeros(1, 5, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        FA.qkv_proj_int8_cuda(x, to(wq), to(sq), to(bq), 0.04, None, None, 1e-6)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        FA.qkv_proj_int8_cuda(x[..., :62], to(wq)[:62], to(sq), to(bq), 0.04, None, None, 1e-6)
+    with pytest.raises(ValueError, match="not"):
+        FA.qkv_proj_int8_cuda(x, to(wq)[:32], to(sq), to(bq), 0.04, None, None, 1e-6)
+
+
 def test_int8_wrappers_refuse_cpu_tensors():
     """The K10/K11 int8 wrappers launch on CUDA tensors or raise."""
     p = _block(64, 256)
@@ -158,9 +200,16 @@ def _card_check(got, want):
     assert rel <= REL and cos >= 0.9999, (rel, cos)
 
 
+# K10 int8's shapes on the card, (B, N, D, H): eight images at ViT-S/14's
+# width, ViT-B/14's, heads of 32, and the edges of its 64-query tiles and
+# of its projections' 128-row tiles (one image, heads of 64).
+ATTN_INT8_SHAPES = [(8, 257, 384, 6), (2, 50, 768, 12), (3, 37, 64, 2)] + [
+    (1, n, 384, 6) for n in (1, 63, 64, 65, 129)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("ln,ls,residual", FOLDS)
-@pytest.mark.parametrize("shape", [(8, 257, 384, 6), (2, 50, 768, 12), (3, 37, 64, 2)])
+@pytest.mark.parametrize("shape", ATTN_INT8_SHAPES)
 def test_cuda_attention_block_int8_matches_plain(shape, ln, ls, residual):
     dev = _need_gpu()
     B, N, D, H = shape
@@ -179,6 +228,42 @@ def test_cuda_attention_block_int8_matches_plain(shape, ln, ls, residual):
     torch.cuda.synchronize()
     assert FA.attention_block_int8_cuda.launches == before + 1
     _card_check(got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_attention_block_int8_repeats_bit_for_bit():
+    """K10 int8 with every fold: two runs, the same bits."""
+    dev = _need_gpu()
+    p = _block(384, 1536, seed=10)
+    to = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    x = to(_x_bf16((3, 257, 384), seed=11)).to(torch.bfloat16)
+    args, kw = (x, *_attn_args(p, to), 6), _folds(p, True, True, True, to)
+    first, second = FA.fused_attention_qkv_int8(*args, **kw), FA.fused_attention_qkv_int8(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ln", [False, True])
+@pytest.mark.parametrize("shape", ATTN_INT8_SHAPES[:4] + [(64, 257, 384, 6)])
+def test_cuda_qkv_proj_int8_is_bit_equal_to_plain(shape, ln):
+    """K10 int8's qkv stage alone (the codes' prologue, the s8 ``mma.sync``
+    GEMM with exact int32 sums, the dequantized sum) equals
+    ``int8_dense_f32(quantize_act(...))`` bit for bit."""
+    dev = _need_gpu()
+    B, N, D, _ = shape
+    p = _block(D, 4 * D, seed=12)
+    (wq, sq, bq), a = p["qkv"], p["a"][0]
+    to = lambda t: torch.from_numpy(t).to(dev)  # noqa: E731
+    x = to(_x_bf16((B, N, D), seed=13)).to(torch.bfloat16)
+    ln_args = (to(p["ln_s"]) if ln else None, to(p["ln_b"]) if ln else None, 1e-6)
+    before = FA.qkv_proj_int8_cuda.launches
+    got = FA.qkv_proj_int8_cuda(x, to(wq), to(sq), to(bq), a, *ln_args)
+    want = FA._qkv_proj_int8_plain(x, to(wq), to(sq), to(bq), a, *ln_args)
+    torch.cuda.synchronize()
+    assert FA.qkv_proj_int8_cuda.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (B, N, 3 * D)
+    assert torch.equal(got, want), float((got == want).double().mean())
 
 
 @pytest.mark.gpu

@@ -29,9 +29,10 @@ and flips propagate through the half-blocks); K8 and the K9 backward at
 block trained through them against the plain block. K7, K8 and K12 also
 run at the edges of their tiles (``EDGE_SHAPES``: N of 1 to 1,370, every
 head width, one batch row and 64), and K8 in bf16 must repeat bit for
-bit. K11 runs at M of 1 to 2,056, ViT-B's width and a ragged D_h; with
-no fold it gives K9's bits (M of 1,001 and 16,448), and it repeats bit for
-bit. The GPU machine has no jax, so this module imports
+bit. K10 runs at the edges of its tiles too (``BLOCK_EDGE_SHAPES``) and
+repeats bit for bit. K11 runs at M of 1 to 2,056, ViT-B's width and a
+ragged D_h; with no fold it gives K9's bits (M of 1,001 and 16,448), and
+it repeats bit for bit. The GPU machine has no jax, so this module imports
 the JAX package inside the tests that compare with it, and the GPU tests run
 there with ``python -m pytest --noconftest -m gpu tests/test_torch_vit_ops.py``.
 """
@@ -394,9 +395,15 @@ def test_cuda_mlp_matches_plain(shape, prec):
     _card_check(got, want, prec)
 
 
+# K10's shapes on the card beyond ViT-S/14's and ViT-B/14's, (B, N, D, H):
+# the edges of its 64-query tiles and of its projections' 128-row tiles (one
+# image, heads of 64), and heads of 32.
+BLOCK_EDGE_SHAPES = [(1, n, 384, 6) for n in (1, 63, 64, 65, 129)] + [(3, 37, 64, 2)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("ln,ls,residual", FOLDS)
-@pytest.mark.parametrize("shape", [(8, 257, 384, 6), (2, 50, 768, 12)])
+@pytest.mark.parametrize("shape", [(8, 257, 384, 6), (2, 50, 768, 12)] + BLOCK_EDGE_SHAPES)
 def test_cuda_attention_block_bf16_matches_plain(shape, ln, ls, residual):
     dev = _need_gpu()
     B, N, D, H = shape
@@ -417,6 +424,24 @@ def test_cuda_attention_block_bf16_matches_plain(shape, ln, ls, residual):
     torch.cuda.synchronize()
     assert FA.attention_block_bf16_cuda.launches == before + 1
     _card_check(got, want, "bf16")
+
+
+@pytest.mark.gpu
+def test_cuda_attention_block_bf16_repeats_bit_for_bit():
+    """K10 with every fold sums in a fixed order: two runs, the same bits."""
+    dev = _need_gpu()
+    B, N, D, H = 3, 257, 384, 6
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal((B, N, D), np.float32))
+    w_qkv, b_qkv, _, b_proj, ln_s, ln_b, gamma = (torch.from_numpy(a).to(dev)
+                                                  for a in _block_inputs(D, 3 * D, seed=4))
+    w_proj = torch.from_numpy((np.random.default_rng(8).standard_normal((D, D)) /
+                               np.sqrt(D)).astype(np.float32)).to(dev)
+    bf = torch.bfloat16
+    args = (x.to(dev, bf), w_qkv.to(bf), b_qkv, w_proj.to(bf), b_proj, H, (D // H) ** -0.5,
+            ln_s, ln_b, 1e-6, gamma.to(bf), True)
+    first, second = FA.attention_block_bf16_cuda(*args), FA.attention_block_bf16_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 # K11's shapes on the card, (M, D, D_h): the 64-token tiles' edges at
