@@ -16,8 +16,11 @@ package beside it. With one, in order:
 3. K2 kernel phase: the prepared NW head kernel against its plain PyTorch
    version, all five similarity kernels, f32 and bf16 banks with masked rows,
    at the CUB-200 shape (B=64, S=5994, D=512, C=200), at B=256, at a ragged
-   B=37, at C=10, at the training eval's B=8 and at the ViT-S/14 bank's
-   D=384; times kernel and plain version with CUDA events;
+   B=37, at C=10, at the training eval's B=8, at the ViT-S/14 bank's D=384
+   and at C=1,000 (S=65,536, class-sorted); each called twice for the same
+   bits; times kernel and plain version with CUDA events at the CUB shape
+   and at C=1,000, and prints each timed call's split count, partials bytes
+   and device functions (pass 1, the merge; ``head_split``);
 4. K1/K3 kernel phase: the raw fused forward (K1) and its backward (K3, dq
    and ds) against their plain versions, all five similarity kernels, f32
    and bf16, masked rows holding NaN, at the training episode's shape (B=8,
@@ -76,7 +79,8 @@ package beside it. With one, in order:
    group_b 16). K6 against ``_nw_prepared_sel_plain``; the union's rows,
    its bound, top-1 agreement and the largest probability difference
    against the exact head; K6, its plain version and the full pass (K2, K4
-   or K5) over the same bank timed; at full probe K6 equals the full pass
+   or K5) over the same bank timed, K6 split as the K2 phase splits K2 and
+   called twice for the same bits; at full probe K6 equals the full pass
    within 2e-4;
 9a. partials and K12 kernel phase: K1 ``partials=True`` against its plain
     version, all five kernels, f32 and bf16, masked rows holding NaN and an
@@ -89,7 +93,8 @@ package beside it. With one, in order:
     N=197, timed beside ``F.scaled_dot_product_attention``;
 9b. sharded serving phase, on the K6 phase's bank with its last 48,576
     rows masked, per bank precision: the unsharded full pass and its
-    partials route (held to its plain version); ``ShardedSupportBank`` on
+    partials route (held to its plain version, both split as the K2 phase
+    splits K2); ``ShardedSupportBank`` on
     ``make_mesh(1, 4, devices=[cuda:0] * 4)`` with ``ivf=True``, its full
     predict (four partials launches) against the full pass within 2e-4
     (bf16 2e-3), both timed; its routed predict at ``ivf_n_probe=8`` on the
@@ -232,6 +237,7 @@ KERNEL_CASES = (  # name, B, S, D, C
     ("c10_b64", 64, 5994, 512, 10),
     ("eval_b8", 8, 5800, 512, 200),  # the training run's full-mode eval batch
     ("vit_b64", 64, 5800, 384, 200),  # the ViT-S/14 serving bank
+    ("c1000_b64", 64, 65_536, 512, 1000),  # the million-row bank's class count, timed
 )
 RAW_CASES = (  # name, B, S, D, C, queries copied into the support; the first
     ("episode_b8", 8, 1200, 512, 200, 0),  # is the training episode's shape
@@ -316,9 +322,41 @@ def time_ms(fn, flush, n=30) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in zip(starts, ends)]))
 
 
+def head_split(label: str, fn, flush) -> dict:
+    """One prepared-bank call's split count and partials bytes (the lab's
+    ``SplitSpy``) and its device functions' mean ms (``device_split``:
+    torch.profiler, the L2 zeroed before each call), printed on one line."""
+    from nwhead_tpu_torch.labs.attn_block_lab import device_split, split_line
+    from nwhead_tpu_torch.labs.prepared_head_lab import SplitSpy
+    from nwhead_tpu_torch.ops import fused_nw as F
+
+    spy = SplitSpy(F)
+    try:
+        fn()
+    finally:
+        spy.close()
+    n_splits, n_bytes = spy.last()
+    split = {}
+    for _ in range(3):  # the profiler sometimes records no device time; ask again
+        split = split or device_split(fn, flush)
+    print(f"{split_line(label, split)}; {n_splits} splits, partials {n_bytes / 1e6:.2f} MB")
+    return {"splits": n_splits, "partials_bytes": n_bytes, "split": split}
+
+
+def same_bits(label: str, fn) -> None:
+    """Two calls on the same inputs give the same bits (no float atomics)."""
+    import torch
+
+    a, b = fn(), fn()
+    pairs = zip(a, b) if isinstance(a, tuple) else [(a, b)]
+    if not all(torch.equal(x, y) for x, y in pairs):
+        raise AssertionError(f"{label}: two calls on the same inputs differ")
+
+
 def kernel_phase(flush) -> dict:
-    """K2 vs plain at each case; returns per-precision max |err|, the CUB
-    B=64 euclidean times and that call's bound."""
+    """K2 vs plain at each case, each called twice for the same bits;
+    returns per-precision max |err|, the CUB B=64 euclidean times and that
+    call's bound, and the C=1,000 case's (``c1000``), each with its split."""
     import torch
 
     from nwhead_tpu_torch.ops.fused_nw import (
@@ -327,7 +365,7 @@ def kernel_phase(flush) -> dict:
     from nwhead_tpu_torch.ops.kernels import KERNEL_NAMES
 
     dev = torch.device("cuda")
-    res = {p: {"max_abs_err": 0.0, "ms": None, "plain_ms": None} for p in TOL}
+    res = {p: {"max_abs_err": 0.0, "ms": None, "plain_ms": None, "c1000": {}} for p in TOL}
     for ci, (case, B, S, D, C) in enumerate(KERNEL_CASES):
         rng = np.random.default_rng(ci)
         q = torch.from_numpy(rng.standard_normal((B, D), np.float32)).to(dev)
@@ -343,6 +381,8 @@ def kernel_phase(flush) -> dict:
                 qc = qn.to(prep.s.dtype)
                 got = nw_prepared_cuda(qc, prep, scale, mode, C)
                 want = _nw_prepared_plain(qc, prep, scale, mode, C)
+                same_bits(f"K2 {case} {kernel} {prec}",
+                          lambda: nw_prepared_cuda(qc, prep, scale, mode, C))
                 torch.cuda.synchronize()
                 err = float((got - want).abs().max())
                 ok = bool(torch.isfinite(got).all()) and within(got, want, **TOL[prec])
@@ -351,17 +391,20 @@ def kernel_phase(flush) -> dict:
                 if not ok:
                     raise AssertionError(f"kernel disagrees with plain: {case} {kernel} {prec}")
                 res[prec]["max_abs_err"] = max(res[prec]["max_abs_err"], err)
-                if case == "cub_b64" and kernel == "euclidean":
-                    res[prec]["ms"] = time_ms(
-                        lambda: nw_prepared_cuda(qc, prep, scale, mode, C), flush)
-                    res[prec]["plain_ms"] = time_ms(
+                if case in ("cub_b64", "c1000_b64") and kernel == "euclidean":
+                    r = res[prec] if case == "cub_b64" else res[prec]["c1000"]
+                    r["ms"] = time_ms(lambda: nw_prepared_cuda(qc, prep, scale, mode, C), flush)
+                    r["plain_ms"] = time_ms(
                         lambda: _nw_prepared_plain(qc, prep, scale, mode, C), flush)
                     item = prep.s.element_size()
-                    res[prec].update(bound(
+                    r.update(bound(
                         (B * D + S * D) * item + 4 * (2 * S + 1 + B * C), 2 * B * S * D, prec))
-                    print(f"time {case} {kernel} {prec}: kernel {res[prec]['ms']:.4f} ms, "
-                          f"plain {res[prec]['plain_ms']:.4f} ms, "
-                          f"bound {res[prec]['bound_ms']:.4f} ms ({res[prec]['bound_by']})")
+                    print(f"time {case} {kernel} {prec}: kernel {r['ms']:.4f} ms, "
+                          f"plain {r['plain_ms']:.4f} ms, "
+                          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+                    r.update(head_split(f"K2 {case} {prec}",
+                                        lambda: nw_prepared_cuda(qc, prep, scale, mode, C),
+                                        flush))
     return res
 
 
@@ -1564,6 +1607,7 @@ def ivf_kernel_phase(flush, bank) -> dict:
             args = (qq, ivf.prep, scale, mode, C, qscale)
             got = wrapper(*args, tsel)
             want = F._nw_prepared_sel_plain(*args, tsel)
+            same_bits(f"K6 {prec} {name}", lambda: wrapper(*args, tsel))
             exact = F.nw_fused_from_prepared(q, ivf.prep, C)
             torch.cuda.synchronize()
             routed = got if inv is None else got[inv][:q.shape[0]]
@@ -1587,6 +1631,7 @@ def ivf_kernel_phase(flush, bank) -> dict:
                 raise AssertionError(f"K6 disagrees with plain: {prec} {name}")
             r["max_abs_err"] = max(r["max_abs_err"], err)
             r[name] = {"agreement": agree, "prob_diff": pdiff, **timed, **b}
+            r[name].update(head_split(f"K6 {prec} {name}", lambda: wrapper(*args, tsel), flush))
         # Full probe: every tile, ascending, is the full pass.
         qk, tsel, _ = I._ivf_route(queries["skewed"], ivf, kernel="euclidean",
                                    kernel_params=None, n_probe=n_tiles, group_b=None)
@@ -1952,6 +1997,9 @@ def sharded_serving_phase(flush, bank) -> dict:
                2 * 64 * SHARD_LIVE * Dp, "int8" if qscale is not None else prec,
                fin=lambda: full(*args))
         r["max_abs_err"] = err
+        r["full_split"] = head_split(f"K2 {prec} million-row bank", lambda: full(*args), flush)
+        r["split"] = head_split(f"K2 partials {prec} million-row bank", lambda: wrapper(*args),
+                                flush)
         t0 = time.perf_counter()
         sharded = ShardedSupportBank.build(s[:SHARD_LIVE], sy[:SHARD_LIVE], mesh, C,
                                            precision=prec, use_prepared=True, ivf=True)
@@ -3061,8 +3109,11 @@ def main() -> int:
     print(f"build wall time {time.perf_counter() - t0:.1f}s")
     lib = _cuda.load_library()
     fused = _cuda.load_library("nw_fused")
-    print(f"  shared memory per K2 pass-1 block: {lib.nw_prepared_smem_bytes(200)} bytes "
-          f"(dynamic) at C=200; largest C on this card: {lib.nw_prepared_max_classes(0)}; "
+    print(f"  shared memory per K2/K6 pass-1 block (f32/bf16 banks, 32 queries): "
+          f"{lib.nw_prepared_tc_smem_bytes(32, 200, 0)} bytes (dynamic) at C=200, "
+          f"{lib.nw_prepared_tc_smem_bytes(32, 1000, 0)} at C=1,000; K4/K5 "
+          f"{lib.nw_prepared_smem_bytes(200)} at C=200; largest C on this card: "
+          f"{lib.nw_prepared_max_classes(0)}; "
           f"K3 dq block {fused.nw_fused_smem_bytes(1, 512)} bytes at D=512 (largest D "
           f"{fused.nw_fused_dq_max_features(0)}), ds block {fused.nw_fused_smem_bytes(2, 64)} "
           f"bytes at B=64 (largest B {fused.nw_fused_ds_max_batch(0)})")
@@ -3148,7 +3199,9 @@ def main() -> int:
          "max_abs_err": max(kern[p]["max_abs_err"], sl[p]["served_err"],
                             tr["eval_err"] if p == "f32" else 0.0),
          "ms": kern[p]["ms"], "plain_ms": kern[p]["plain_ms"], "bound_ms": kern[p]["bound_ms"],
-         "bound_by": kern[p]["bound_by"], "library_ms": None}
+         "bound_by": kern[p]["bound_by"], "library_ms": None, "splits": kern[p]["splits"],
+         "c1000_ms": kern[p]["c1000"]["ms"], "c1000_plain_ms": kern[p]["c1000"]["plain_ms"],
+         "c1000_bound_ms": kern[p]["c1000"]["bound_ms"]}
         for p in TOL
     ]
     for k in ("nw_fwd", "nw_bwd_dq", "nw_bwd_ds"):

@@ -13,8 +13,11 @@
 //                   l = l * alpha + sum_j p_j;  acc[y_j] = acc[y_j] * alpha + p_j
 //   out[b, c] = log(acc[c] / max(l, 1e-30) + 1e-12)
 // q and s share one dtype (f32 or bf16); products accumulate in f32 and the
-// softmax state is f32. s2_j is either read from a prepared bank (K2) or
-// computed here from the raw rows in f32 (K1). On raw rows |q|^2 and s2 are
+// softmax state is f32. s2_j is computed here from the raw rows in f32 (K1;
+// the pass-1 template's kRawSupport = false branch, which read a prepared
+// bank's s2, is built by no entry point since K2 moved to nw_prepared.cu's
+// tensor-core kernel). K4/K5 (nw_prepared.cu) share the tile shapes, the
+// block's shared-memory layout and the merge. On raw rows |q|^2 and s2 are
 // summed in the order of the dot products, so a query that is also a
 // support row (common in training episodes) gets a distance of exactly 0,
 // not the square root of rounding residue (about 1e-2 at ResNet-18's
@@ -75,8 +78,8 @@ constexpr int kTileSmemFloats = kQueryTile * kChunkStride     // query chunk
                                 + kSupportTile;                // self-norms s2
 
 // |q_b|^2 in f32 for the queries b0 .. b0 + kQueryTile - 1 (0 past B), one
-// warp per query. The prepared bank's s2 is not summed in tile_dots' order,
-// so the prepared forward takes this faster sum.
+// warp per query: the kRawSupport = false branch of the pass-1 template,
+// whose s2 came summed in another order anyway.
 template <typename T>
 __device__ __forceinline__ void query_norms(const T* __restrict__ q, int b0, int B, int D,
                                             float* __restrict__ q2) {
@@ -235,9 +238,10 @@ inline int max_forward_classes(int device) {
 
 // Forward pass 1: block (x, y) = (query tile, support split). Writes the
 // split's partials (m, l, acc). kRawSupport: s2 computed from the rows here
-// and masked rows loaded as 0 (K1); otherwise s2 read from the prepared
-// bank (K2). Four blocks per SM (64 registers a thread): the blocks do not
-// prefetch, so the ones waiting on memory must be covered by others.
+// and masked rows loaded as 0 (K1); otherwise s2 read from a prepared bank
+// (no entry point builds that instantiation now). Four blocks per SM (64
+// registers a thread): the blocks do not prefetch, so the ones waiting on
+// memory must be covered by others.
 template <typename T, bool kRawSupport>
 __global__ void __launch_bounds__(kThreads, 4)
 nw_partials_kernel(const T* __restrict__ q, const T* __restrict__ s,

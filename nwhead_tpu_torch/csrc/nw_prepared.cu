@@ -1,31 +1,58 @@
 // Fused Nadaraya-Watson head over a prepared support bank, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel nwhead_tpu/ops/pallas_nw.py:_nw_prepared_kernel
-// (f32 and bf16 banks). The pass it computes is written out in
-// nw_common.cuh; here the bank's self-norms s2 come precomputed (1e30 on
-// masked rows) and a bf16 bank takes a bf16 query.
+// K2 replaces the TPU kernel nwhead_tpu/ops/pallas_nw.py:_nw_prepared_kernel
+// (f32 and bf16 banks), and K6 the same kernel with tile_sel over f32 and
+// bf16 banks (below). The pass it computes is written out in nw_common.cuh;
+// here the bank's self-norms s2 come precomputed (1e30 on masked rows) and
+// a bf16 bank takes a bf16 query.
 //
-// What bounds it: at serving batches (B = 64) the bank is read once per
-// query tile, S * D * 4 bytes for f32 (12.3 MB at S = 5994, D = 512), about
-// 4 us at the card's 3.35 TB/s, while the score products are 2 * B * S * D
-// flops (0.39 GFLOP at that shape), about 6 us at the 67 TFLOP/s f32 rate
-// outside the tensor cores. So neither the bytes nor the flops leave room
-// for a pass that keeps few SMs busy. The design:
-//   * Pass 1 runs on a grid of (query tiles of 16) x (support splits); the
-//     wrapper picks the split count so the grid holds about 8 blocks per SM,
-//     which hides the memory latency of blocks that do not prefetch. Each
-//     block streams its rows through shared memory in tiles of 64 rows x 32
-//     features, scores them with f32 FMAs from float4 shared-memory reads
-//     (4 score accumulators per thread), and keeps the per-query (m, l) and
-//     an acc[16][C] in shared memory. It writes partials (m, l, acc) per
-//     split. Query tiles re-read the bank from L2 (50 MB), not from device
-//     memory.
-//   * The label sum writes straight into acc[b][y]: lane (y mod 32) of the
-//     warp that owns query b adds p_j for every row j of the tile, so each
-//     class has one writer. No atomics, and the order of the sum is fixed.
-//   * Pass 2 merges the splits exactly and takes the log.
-// Tensor cores (wgmma) and TMA are left for later: this is the simple first
-// version of the kernel.
+// What bounds it: the bank's bytes and the score products. At the
+// million-row bank (2^20 rows, D = 512) and B = 64 the f32 bank is 2.1 GB,
+// 0.64 ms at the card's 3.35 TB/s, and the products 2 B S D = 69 GFLOP,
+// 0.42 ms at 165 TFLOP/s (three TF32 passes) or 0.07 ms in bf16. Behind
+// them lies what each 64-row tile costs beside its products: the softmax
+// state of every query, acc[b][C] (4 KB a query at C = 1,000), is rescaled
+// as its running max grows and gains p_j at each row's class. The design
+// (nw_prepared_tc_kernel, one template for K2 and K6, f32 and bf16):
+//   * Pass 1 runs on a grid of (query tiles of kQB) x (support splits);
+//     acc[kQB][C] lives in shared memory, so kQB follows C: the wrapper
+//     takes the largest of 32, 16 and 8 whose block fits (32 at the CUB
+//     bank's C = 200 and at C = 1,000, where the L2 serves each bank tile
+//     to two blocks; 8 up to C = 4,768). The split count fills the SMs
+//     once (a block keeps its own loads in flight, so it needs no other
+//     block to cover its waits), since each split costs B x C x 4 bytes of
+//     partials written here and read again by pass 2.
+//   * Slices of 128 bytes of features (32 f32 or 64 bf16) of the block's
+//     query rows and of a 64-row support tile come by the TMA (two boxes of
+//     tensor maps, 128-byte swizzled so that fragment loads hit distinct
+//     banks; zeros past B, the bank and D), the tile's labels and
+//     self-norms with its last slice. Copies by cp.async, 16 bytes a
+//     thread, stalled the warps that issued them: loads, products and
+//     softmax then took their times one after another (1.85 + 1.5 + 0.65
+//     ms of K2 f32's 4.05 on the million-row bank, H100 80GB HBM3).
+//   * Two scoring groups of eight warps take the tiles in turn, each with
+//     its own 3-stage ring, mbarriers and producer warp: one group's
+//     products overlap the other's softmax. Products on the tensor cores:
+//     bf16 mma.sync m16n8k16 with f32 sums (products of bf16 values are
+//     exact), f32 on 3xTF32 m16n8k8. A warp covers 16 queries x 16 rows
+//     over the slice (at kQB <= 16 half the slice's features, the halves'
+//     sums added in a fixed order), its independent accumulators issued in
+//     turn. |q|^2 (l2 mode) is summed from the first tile's staged slices.
+//   * Per tile, in the tile's turn (named barriers between the groups, so
+//     acc, m and l take their terms in row order), each warp owns kQB / 8
+//     queries: l2 or dot scores and the mask, the online softmax with its
+//     m_safe / alpha guards (acc *= alpha skipped when alpha is exactly 1,
+//     which changes no bit), and the label sum with one writer per class
+//     and a fixed order. Up to 8 classes of the tile (one or two in a
+//     class-sorted bank: at C > 128 prepare_support sorts, as the TPU
+//     kernel's class window assumes; a few in an IVF bank's cluster) each
+//     get their p_j summed by a warp reduction in a fixed tree and added
+//     once; the rows of any further classes (banks at C <= 128, keep_order
+//     banks) go by class mod 32 to one lane each, in row order.
+//   * Pass 2 (nw_merge_kernel) merges the splits exactly and takes the log,
+//     or leaves the merged (m, l, acc) unfinalized (partials=True).
+// No float atomics anywhere: two calls on the same inputs give the same
+// bits.
 //
 // K4 and K5 replace the same TPU kernel with quant=True (an int8 bank) and
 // quant4=True (an int4 bank, two codes a byte: byte j of a row holds the
@@ -38,13 +65,14 @@
 //   l2:   score = -sqrt(max(q2 - 2 dot + s2_j, 0)), q2 = sum_k (q8_k qs)^2
 //         (the dequantized query), s2_j the dequantized row's self-norm;
 //   dot:  score = dot.
-// The softmax, label sum, partials and merge are K2's. At the CUB-200 shape
-// (B = 64, S = 5994, D = 512) the int8 bank is 3.1 MB (0.96 us at 3.35
-// TB/s), the int4 bank 1.5 MB, and the products 0.39 G int8 operations;
-// neither bound sets the kernel's time (0.047 ms on an H100 at 700 W, K2
-// f32 0.076), the per-tile staging, softmax and label sum and the
-// synchronizations around them do. A stage holds 128 int8 features of a
-// row where K2's holds 32 floats. The products run on __dp4a over 32-bit
+// The blocks (16 queries), softmax, label sum, partials and merge are
+// those of K1's pass 1 (nw_common.cuh's nw_partials_kernel, which K2 ran
+// before it moved to the tensor cores). At the CUB-200 shape (B = 64, S =
+// 5994, D = 512) the int8 bank is 3.1 MB (0.96 us at 3.35 TB/s), the int4
+// bank 1.5 MB, and the products 0.39 G int8 operations; neither bound sets
+// the kernel's time (0.047 ms on an H100 at 700 W), the per-tile staging,
+// softmax and label sum and the synchronizations around them do. A stage
+// holds 128 int8 features of a row where K1's holds 32 floats. The products run on __dp4a over 32-bit
 // words staged in shared memory (4 int8 products a word, int32 sums); K5
 // unpacks each packed word into two words of int8 codes as it stages the
 // tile, per byte and exactly (__vsub4 borrows nothing across bytes), so
@@ -53,12 +81,14 @@
 //
 // K6 replaces the same TPU kernel with tile_sel (n_sel > 0,
 // nwhead_tpu/ops/pallas_nw.py:850-856, :969-975): the pass of K2 (f32/bf16
-// banks) or K4/K5 (int8/int4 banks) over only the bank tiles a list names,
+// banks, nw_prepared_tc_kernel with kSel) or K4/K5 (int8/int4 banks,
+// nw_sel_partials_kernel) over only the bank tiles a list names,
 // for IVF-pruned serving (nwhead_tpu_torch/ops/ivf.py). The bank is tiled
 // in block_s rows (a multiple of 128); slot r of the list names bank tile
 // tile_sel[r], -1 an empty slot. The list is one row shared by the batch, or
-// one row per group of queries (grouped routing), and a query tile of 16
-// reads row blockIdx.x / qtiles_per_row: the wrapper pads each group to
+// one row per group of queries (grouped routing), and a query tile (16
+// queries on int8/int4 banks, kQB on float ones) reads row blockIdx.x /
+// qtiles_per_row: the wrapper pads each group to
 // whole query tiles. What bounds it is what bounds K2/K4/K5, over the
 // union's rows instead of the bank's. The design is K2's, over slot-order
 // rows: slot-order row v is bank row tile_sel[v / block_s] * block_s +
@@ -70,13 +100,19 @@
 // come first in the list (ascending, -1 padding after them), so split p
 // takes score tiles p, p + n_splits, p + 2 n_splits, ...: a union of any
 // size spreads over every split, where ranges of slots would leave it to
-// the first few. Pass 2 is the same exact merge. K2/K4/K5's own kernels
-// are untouched.
+// the first few; a float bank's block first gathers its non-empty tiles
+// into a list (up to kTcListCap at a time), so that its ring streams only
+// those. Pass 2 is the same exact merge.
 
 #include <climits>
 #include <cstdint>
 
+#include <cuda.h>
+
+#include <type_traits>
+
 #include "nw_common.cuh"
+#include "vit_mma.cuh"
 
 namespace nw {
 
@@ -447,56 +483,873 @@ cudaError_t launch_sel_forward(cudaStream_t stream, const void* q, const void* s
                       l_final);
 }
 
+// ---------------------------------------------------------------------------
+// K2 and K6 on f32/bf16 banks: the tensor-core pass 1 (see the note above).
+// ---------------------------------------------------------------------------
+
+constexpr int kTcThreads = 256;                   // a scoring group's threads
+constexpr int kTcWarps = kTcThreads / 32;
+constexpr int kTcBlock = 2 * kTcThreads + 64;     // two scoring groups and their producers
+constexpr int kTcStages = 3;                      // slices in each scoring group's ring
+constexpr int kTcRowBytes = 128;                  // a staged row: 128 bytes of features
+constexpr int kTcAlign = 1024;                    // the 128-byte swizzle's period
+constexpr int kTcScoreStride = kSupportTile + 4;  // floats a row of the score tile
+constexpr int kTcMaxQuery = 32;                   // the largest query tile
+constexpr int kTcListCap = 512;                   // K6: score tiles a block gathers at a time
+constexpr int kTcMaxClasses = 8;                  // classes of a tile summed by reductions
+
+// Query rows staged a slice (an m-tile holds 16), and the bytes of one ring
+// stage: query rows, 64 support rows, the tile's 64 labels and 64
+// self-norms, padded to the swizzle's period.
+__host__ __device__ constexpr int tc_query_rows(int qb) { return qb < 16 ? 16 : qb; }
+__host__ __device__ constexpr int tc_stage_bytes(int qb) {
+  return (tc_query_rows(qb) + kSupportTile) * kTcRowBytes + kTcAlign;
+}
+
+// Score tiles a scoring group keeps: one, or at qb <= 16 one for each half
+// of the features (the group's two warp halves split each slice's features
+// then, as a tile of 16 queries leaves no second m-tile to give them).
+__host__ __device__ constexpr int tc_score_bufs(int qb) { return qb <= 16 ? 2 : 1; }
+
+// Dynamic shared memory of one block: the alignment slack, the two
+// groups' rings, each group's score tiles, |q|^2 and the queries' running
+// (m, l), K6's tile list and its count, the rings' full and empty
+// barriers, acc[qb][C].
+inline size_t tc_smem_bytes(int qb, int C, bool sel) {
+  return kTcAlign + static_cast<size_t>(2 * kTcStages) * tc_stage_bytes(qb) +
+         sizeof(float) * (2 * tc_score_bufs(qb) * qb * kTcScoreStride + 3 * kTcMaxQuery) +
+         (sel ? sizeof(int) * (kTcListCap + 4) : 0) + 32 * kTcStages +
+         sizeof(float) * static_cast<size_t>(qb) * C;
+}
+
+struct TcArgs {
+  const void* q;  // (B, D) f32 or bf16
+  const void* s;  // the bank, (bank_rows, D) in q's dtype
+  const float* s2;
+  const int* labels;
+  const float* scale;
+  int l2_mode, B, D, C;
+  int tma;                                                  // 0: the rows staged by plain loads
+  int S, rows_per_split;                                    // K2
+  const int* tile_sel;                                      // K6
+  int n_sel, qtiles_per_row, n_tiles, block_s;              // K6
+  float* m_out;
+  float* l_out;
+  float* acc_out;
+};
+
+// The TMA's descriptors of q, the bank, its labels and its self-norms
+// (unused when the rows are staged by plain loads).
+struct TcMaps {
+  CUtensorMap q, s, labels, s2;
+};
+
+// warp_max / warp_sum (nw_common.cuh) of kN values at once: the same
+// butterfly for each, so each gets the same bits, with the trees
+// interleaved.
+template <int kN>
+__device__ __forceinline__ void warp_max_n(float (&v)[kN]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int i = 0; i < kN; ++i) v[i] = fmaxf(v[i], __shfl_xor_sync(0xffffffffu, v[i], o));
+}
+
+template <int kN>
+__device__ __forceinline__ void warp_sum_n(float (&v)[kN]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int i = 0; i < kN; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], o);
+}
+
+// Byte offset of byte b of row r in a staged tile of 128-byte rows under
+// the TMA's 128-byte swizzle: 16-byte chunk c of row r sits at chunk
+// c ^ (r mod 8), so the eight rows of a fragment load fall in distinct
+// banks.
+__device__ __forceinline__ int swz(int r, int b) {
+  return r * kTcRowBytes + ((((b >> 4) ^ r) & 7) << 4) + (b & 15);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(vit::smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   vit::smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(vit::smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(vit::smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// A box of the tensor map at (c0 inner, c1 outer) into shared memory,
+// completing on bar.
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                       uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(vit::smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(vit::smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_1d(void* dst, const CUtensorMap* map, int c0, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2}], [%3];\n" ::"r"(vit::smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(vit::smem_u32(bar))
+      : "memory");
+}
+
+// Rows r0 .. r0 + kRows - 1, features c0 .. of a (n_rows, D) matrix into a
+// swizzled tile by plain loads of one warp (zeros past n_rows and D): the
+// path of a matrix whose rows the TMA cannot address (D * sizeof(T) not a
+// multiple of 16 bytes, or a base off 16 bytes).
+template <typename T, int kRows>
+__device__ __forceinline__ void stage_plain(const T* __restrict__ x, int D, int r0, int c0,
+                                            int n_rows, char* dst) {
+  constexpr int kPerRow = kTcRowBytes / static_cast<int>(sizeof(T));
+  for (int i = threadIdx.x & 31; i < kRows * kPerRow; i += 32) {
+    const int r = i / kPerRow, k = i % kPerRow;
+    T v = vit::from_float<T>(0.f);
+    if (r0 + r < n_rows && c0 + k < D) v = x[static_cast<size_t>(r0 + r) * D + c0 + k];
+    *reinterpret_cast<T*>(dst + swz(r, k * static_cast<int>(sizeof(T)))) = v;
+  }
+}
+
+// x = big + small for 3xTF32, both rounded to TF32 to nearest, ties away
+// from zero: the bits of cvt.rna.tf32.f32 (as vit_mma.cuh's split_tf32),
+// by an integer add and a mask a value instead of two conversions.
+template <int kN>
+__device__ __forceinline__ void split_rna(const float (&x)[kN], uint32_t (&big)[kN],
+                                          uint32_t (&small)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+    big[i] = (__float_as_uint(x[i]) + 0x1000u) & 0xffffe000u;
+    small[i] = (__float_as_uint(x[i] - __uint_as_float(big[i])) + 0x1000u) & 0xffffe000u;
+  }
+}
+
+// acc (16 kMI x 16: kMI m-tiles of two n-tiles) += rows 0 .. 16 kMI - 1 of
+// swizzled tile a times the 16 rows at n0 of swizzled tile b, over the
+// features k0 .. k0 + kDepth - 1: bf16 mma.sync m16n8k16 (ldmatrix), f32
+// 3xTF32 m16n8k8 (per accumulator the terms in vit::mma's order, small x
+// big, big x small, big x big). The f32 operands split by rounding
+// (split_rna: K7's cvt.rna bits), not by truncation as warp_product's, and
+// each call's products sum from zero (the small terms apart) before one
+// round-to-nearest add into acc: truncated operands, and the tensor core's
+// own sums into a long-running accumulator, err the same way on every
+// term, so on features of one sign (a ReLU network's) the errors add up
+// along the dot product instead of cancelling, and |q|^2 - 2 q.s + |s|^2
+// magnifies them. With truncated operands and one accumulator per tile,
+// served ResNet-18 log-probs moved by 4e-3 (H100 80GB HBM3), 20 times the
+// f32 limit; with rounded operands, 2e-3. The fragments of two mma steps are
+// loaded first, then their products are issued accumulator by accumulator
+// in turn, so that no product waits on the one before it.
+template <typename T, int kMI, int kDepth>
+__device__ __forceinline__ void tc_product(const char* a, const char* b, int n0, int k0,
+                                           float (&acc)[kMI][2][4]) {
+  using F = vit::Frag<T>;
+  constexpr int kSteps = kDepth / F::kK;
+  constexpr int kBatch = kSteps < 2 ? kSteps : 2;  // mma steps whose fragments load together
+  const int lane = threadIdx.x & 31;
+  // This call's sums start from zero (f32: big x big apart from the two
+  // small terms) and join acc by round-to-nearest adds at its end.
+  float hi[kMI][2][4] = {}, lo[kMI][2][4] = {};
+#pragma unroll
+  for (int s0 = 0; s0 < kSteps; s0 += kBatch) {
+    typename F::A fa[kBatch][kMI];
+    typename F::B fb[kBatch][2];
+    if constexpr (std::is_same_v<T, float>) {
+      const int g = lane >> 2, t = lane & 3;
+      const float* ar = reinterpret_cast<const float*>(a);
+      const float* br = reinterpret_cast<const float*>(b);
+#pragma unroll
+      for (int s = 0; s < kBatch; ++s) {
+        // byte columns of k + t and k + t + 4
+        const int c0 = 4 * (k0 + 8 * (s0 + s) + t), c1 = c0 + 16;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float x[2] = {br[swz(n0 + 8 * j + g, c0) / 4], br[swz(n0 + 8 * j + g, c1) / 4]};
+          split_rna(x, fb[s][j].big, fb[s][j].small);
+        }
+#pragma unroll
+        for (int i = 0; i < kMI; ++i) {
+          const int r = 16 * i + g;
+          const float x[4] = {ar[swz(r, c0) / 4], ar[swz(r + 8, c0) / 4], ar[swz(r, c1) / 4],
+                              ar[swz(r + 8, c1) / 4]};
+          split_rna(x, fa[s][i].big, fa[s][i].small);
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < kBatch; ++s) {
+#pragma unroll
+        for (int i = 0; i < kMI; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) vit::mma_tf32(lo[i][j], fa[s][i].small, fb[s][j].big);
+#pragma unroll
+        for (int i = 0; i < kMI; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) vit::mma_tf32(lo[i][j], fa[s][i].big, fb[s][j].small);
+#pragma unroll
+        for (int i = 0; i < kMI; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) vit::mma_tf32(hi[i][j], fa[s][i].big, fb[s][j].big);
+      }
+    } else {
+#pragma unroll
+      for (int s = 0; s < kBatch; ++s) {
+        const int k = k0 + 16 * (s0 + s);
+        const uint32_t pb = vit::smem_u32(
+            b + swz(n0 + (lane & 7) + (lane >> 4) * 8, 2 * k + ((lane >> 3) & 1) * 16));
+        asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                     : "=r"(fb[s][0].r[0]), "=r"(fb[s][0].r[1]), "=r"(fb[s][1].r[0]),
+                       "=r"(fb[s][1].r[1])
+                     : "r"(pb));
+#pragma unroll
+        for (int i = 0; i < kMI; ++i) {
+          const uint32_t pa =
+              vit::smem_u32(a + swz(16 * i + (lane & 15), 2 * k + (lane >> 4) * 16));
+          asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                       : "=r"(fa[s][i].r[0]), "=r"(fa[s][i].r[1]), "=r"(fa[s][i].r[2]),
+                         "=r"(fa[s][i].r[3])
+                       : "r"(pa));
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < kBatch; ++s)
+#pragma unroll
+        for (int i = 0; i < kMI; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) vit::mma(hi[i][j], fa[s][i], fb[s][j]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kMI; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] += hi[i][j][e] + lo[i][j][e];
+}
+
+// A barrier of one scoring group's eight warps (named barriers 3 and 4).
+__device__ __forceinline__ void group_sync(int group) {
+  if (group == 0) {
+    asm volatile("bar.sync 3, %0;\n" ::"n"(kTcThreads) : "memory");
+  } else {
+    asm volatile("bar.sync 4, %0;\n" ::"n"(kTcThreads) : "memory");
+  }
+}
+
+// Pass 1 of K2 (kSel false: split blockIdx.y takes rows [y rows_per_split,
+// (y + 1) rows_per_split)) and of K6 (kSel: every gridDim.y-th score tile
+// of the slot-order rows of tile_sel's row blockIdx.x / qtiles_per_row)
+// for the queries blockIdx.x * kQB ..: writes the split's partials (m, l,
+// acc). Two scoring groups of eight warps take the tiles in turn, group
+// (tile mod 2), each with its own ring of kTcStages slices, fed by its own
+// producer warp (16 + group, whose lane 0 asks the TMA for each slice once
+// the group has released its stage): each scores its tile's slices on the
+// tensor cores, then runs the tile's softmax and label sum, each warp for
+// kQB / 8 queries. The softmax steps keep the tiles' order (each group
+// waits for the other's step on the tile before, named barriers 1 and 2),
+// so acc, m and l take their terms in row order, while one group's
+// products overlap the other's softmax. One block an SM (112 registers a
+// thread).
+template <typename T, int kQB, bool kSel>
+__global__ void __launch_bounds__(kTcBlock, 1)
+    nw_prepared_tc_kernel(const TcArgs a, const __grid_constant__ TcMaps maps) {
+  static_assert(kQB % kTcWarps == 0 && kQB <= kTcMaxQuery, "query tile");
+  constexpr int kChunk = kTcRowBytes / static_cast<int>(sizeof(T));  // features a slice
+  constexpr int kQA = tc_query_rows(kQB);
+  constexpr bool kSplitK = tc_score_bufs(kQB) == 2;
+  constexpr int kDepth = kSplitK ? kChunk / 2 : kChunk;  // features a warp takes of a slice
+  constexpr int kOwn = kQB / kTcWarps;                   // queries a warp owns per tile
+  constexpr int kStage = tc_stage_bytes(kQB);
+  constexpr int kSupportOff = kQA * kTcRowBytes;             // the stage's support rows
+  constexpr int kLabelOff = kSupportOff + kSupportTile * kTcRowBytes;
+  constexpr int kQ2Lanes = kTcThreads / kQA;             // threads that sum one |q|^2
+  constexpr int kQ2Feat = kChunk / kQ2Lanes;             // features each takes a slice
+  constexpr int kScores = kQB * kTcScoreStride;
+  constexpr int kGroupScores = tc_score_bufs(kQB) * kScores;
+
+  extern __shared__ float4 smem4[];
+  char* ring = reinterpret_cast<char*>(
+      (reinterpret_cast<uintptr_t>(smem4) + kTcAlign - 1) & ~static_cast<uintptr_t>(kTcAlign - 1));
+  float* q2s = reinterpret_cast<float*>(ring + 2 * kTcStages * kStage);
+  float* m_s = q2s + kTcMaxQuery;  // the queries' running max and sum
+  float* l_s = m_s + kTcMaxQuery;
+  int* list = reinterpret_cast<int*>(l_s + kTcMaxQuery);
+  uint64_t* full = reinterpret_cast<uint64_t*>(list + (kSel ? kTcListCap + 4 : 0));
+  uint64_t* empty = full + 2 * kTcStages;
+  float* sc_all = reinterpret_cast<float*>(empty + 2 * kTcStages);  // 16-byte aligned
+  float* acc = sc_all + 2 * kGroupScores;
+
+  const int lane = threadIdx.x & 31;
+  const bool producer = threadIdx.x >= 2 * kTcThreads;
+  // The scoring group, or the group a producer warp feeds.
+  const int group = producer ? (threadIdx.x - 2 * kTcThreads) / 32 : threadIdx.x / kTcThreads;
+  const int tid = threadIdx.x % kTcThreads;    // the thread within its group
+  const int warp = tid >> 5;
+  const int ws = warp & 3;   // the warp's 16 rows of the support tile
+  const int wh = warp >> 2;  // its m-tile of the queries, or (kSplitK) half of the features
+  float* sc = sc_all + group * kGroupScores;  // the group's score tiles
+  char* gring = ring + group * kTcStages * kStage;  // the group's ring
+  uint64_t* gfull = full + group * kTcStages;
+  uint64_t* gempty = empty + group * kTcStages;
+  const int b0 = blockIdx.x * kQB;
+  const int split = blockIdx.y;
+  const float scale = *a.scale;
+  const bool l2 = a.l2_mode != 0, tma = a.tma != 0;
+  const int C = a.C;
+  const int nK = (a.D + kChunk - 1) / kChunk;  // slices a tile
+
+  for (int i = threadIdx.x; i < kQB * C; i += kTcBlock) acc[i] = 0.f;
+  if (threadIdx.x < kTcMaxQuery) {
+    m_s[threadIdx.x] = kNeg;
+    l_s[threadIdx.x] = 0.f;
+  }
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < 2 * kTcStages; ++k) {
+      mbar_init(full + k, 1);
+      mbar_init(empty + k, kTcWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  float dacc[1][2][4];
+  float q2_sum = 0.f;  // this thread's share of |q|^2 over the first tile's slices
+  int used = 0;        // slices the group's ring has taken (its barriers' phases)
+  int tiles = 0;       // tiles taken before this chunk (whose group, whose turn)
+
+  int r_begin = 0, r_end = 0;
+  const int* sel = nullptr;
+  if constexpr (kSel) {
+    sel = a.tile_sel + static_cast<size_t>(blockIdx.x / a.qtiles_per_row) * a.n_sel;
+  } else {
+    r_begin = split * a.rows_per_split;
+    r_end = min(a.S, r_begin + a.rows_per_split);
+  }
+  int cursor = 0;  // K6 (warp 0): this split's score tiles looked at so far
+  __syncthreads();
+  // Group 0 takes the first softmax turn.
+  if (group == 1 && !producer) asm volatile("bar.arrive 1, %0;\n" ::"n"(2 * kTcThreads));
+
+  for (;;) {
+    int n_tiles;
+    if constexpr (kSel) {
+      // Warp 0 lists the split's next non-empty tiles (bank rows), in order.
+      if (threadIdx.x < 32) {
+        const int n_score = a.n_sel * (a.block_s / kSupportTile);
+        const int n_mine = split < n_score
+                               ? (n_score - split + static_cast<int>(gridDim.y) - 1) /
+                                     static_cast<int>(gridDim.y)
+                               : 0;
+        int n = 0;
+        while (cursor < n_mine && n < kTcListCap) {
+          const int i = cursor + lane;
+          bool ok = false;
+          int t0 = 0;
+          if (i < n_mine) {
+            const int v0 = (split + i * static_cast<int>(gridDim.y)) * kSupportTile;
+            const int id = sel[v0 / a.block_s];
+            ok = id >= 0 && id < a.n_tiles;
+            t0 = id * a.block_s + v0 % a.block_s;
+          }
+          const unsigned bal = __ballot_sync(0xffffffffu, ok);
+          const int pos = n + __popc(bal & ((1u << lane) - 1u));
+          if (ok && pos < kTcListCap) list[pos] = t0;
+          const int room = kTcListCap - n;
+          if (__popc(bal) <= room) {
+            n += __popc(bal);
+            cursor += 32;
+          } else {  // the list is full after the room-th of these: resume past it
+            unsigned rest = bal;
+            for (int k = 1; k < room; ++k) rest &= rest - 1u;
+            cursor += __ffs(rest);
+            n = kTcListCap;
+          }
+        }
+        if (lane == 0) list[kTcListCap] = n;
+      }
+      __syncthreads();
+      n_tiles = list[kTcListCap];
+    } else {
+      n_tiles = (r_end - r_begin + kSupportTile - 1) / kSupportTile;
+    }
+    if (n_tiles == 0) break;
+    const auto origin = [&](int i) { return kSel ? list[i] : r_begin + i * kSupportTile; };
+    const auto row_end = [&](int t0) { return kSel ? t0 + kSupportTile : r_end; };
+
+    // Slice kc of tile i (features kc kChunk ..), the group's q-th, into its
+    // stage, by the group's producer warp: by the TMA (lane 0; zeros past B,
+    // the bank and D), or by plain loads (every lane). The last slice of a
+    // tile brings its labels and self-norms.
+    const auto load = [&](int i, int kc, int q) {
+      const int t0 = origin(i), c0 = kc * kChunk;
+      char* st = gring + (q % kTcStages) * kStage;
+      uint64_t* bar = gfull + q % kTcStages;
+      const bool last = kc == nK - 1;
+      if (tma) {
+        if (lane == 0) {
+          mbar_expect(bar, (kQA + kSupportTile) * kTcRowBytes +
+                               (last ? (l2 ? 2 : 1) * kSupportTile * 4 : 0));
+          tma_2d(st, &maps.q, c0, b0, bar);
+          tma_2d(st + kSupportOff, &maps.s, c0, t0, bar);
+          if (last) {
+            tma_1d(st + kLabelOff, &maps.labels, t0, bar);
+            if (l2) tma_1d(st + kLabelOff + kSupportTile * 4, &maps.s2, t0, bar);
+          }
+        }
+      } else {
+        stage_plain<T, kQA>(static_cast<const T*>(a.q), a.D, b0, c0, min(a.B, b0 + kQB), st);
+        stage_plain<T, kSupportTile>(static_cast<const T*>(a.s), a.D, t0, c0, row_end(t0),
+                                     st + kSupportOff);
+        for (int r = lane; last && r < kSupportTile; r += 32) {
+          const bool ok = t0 + r < row_end(t0);
+          reinterpret_cast<int*>(st + kLabelOff)[r] = ok ? a.labels[t0 + r] : -1;
+          if (l2) reinterpret_cast<float*>(st + kLabelOff)[kSupportTile + r] =
+              ok ? a.s2[t0 + r] : 0.f;
+        }
+        __threadfence_block();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar);
+      }
+    };
+
+    const auto compute = [&](int i, int kc, int q) {
+      const char* st = gring + (q % kTcStages) * kStage;
+      if (kc == 0) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dacc[0][j][e] = 0.f;
+      }
+      tc_product<T, 1, kDepth>(st + (kSplitK ? 0 : swz(16 * wh, 0)), st + kSupportOff, 16 * ws,
+                               kSplitK ? wh * kDepth : 0, dacc);
+      const bool first = tiles + i == 0;  // the block's first tile (group 0's)
+      if (l2 && first) {
+        // |q|^2 in f32: kQ2Lanes threads a query row, a fixed order.
+        const int r = tid / kQ2Lanes, f0 = (tid % kQ2Lanes) * kQ2Feat;
+        float sum = 0.f;
+#pragma unroll
+        for (int k = 0; k < kQ2Feat; ++k) {
+          const float v = vit::to_float(
+              *reinterpret_cast<const T*>(st + swz(r, (f0 + k) * static_cast<int>(sizeof(T)))));
+          sum = fmaf(v, v, sum);
+        }
+#pragma unroll
+        for (int o = kQ2Lanes / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        q2_sum += sum;
+      }
+      if (kc != nK - 1) return;
+
+      // The tile's dot products into the group's score tile (at kSplitK each
+      // half of the features into its own), then, in the tile's turn, its
+      // softmax and label sum.
+      float* scw = sc + (kSplitK ? wh * kScores : 0);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = (kSplitK ? 0 : 16 * wh) + (lane >> 2) + 8 * h;
+          const int col = 16 * ws + 8 * j + 2 * (lane & 3);
+          if (row < kQB) {
+            *reinterpret_cast<float2*>(scw + row * kTcScoreStride + col) =
+                make_float2(dacc[0][j][2 * h], dacc[0][j][2 * h + 1]);
+          }
+        }
+      if (l2 && first && tid % kQ2Lanes == 0 && tid / kQ2Lanes < kQB) {
+        q2s[tid / kQ2Lanes] = q2_sum;
+      }
+      group_sync(group);
+      // The other group's softmax of the tile before is done.
+      if (group == 0) {
+        asm volatile("bar.sync 1, %0;\n" ::"n"(2 * kTcThreads) : "memory");
+      } else {
+        asm volatile("bar.sync 2, %0;\n" ::"n"(2 * kTcThreads) : "memory");
+      }
+
+      const int* lab = reinterpret_cast<const int*>(st + kLabelOff);
+      const float* s2t = reinterpret_cast<const float*>(lab + kSupportTile);
+      const int t0 = origin(i);
+      const int n_valid = min(kSupportTile, row_end(t0) - t0);
+      const int y0 = lane < n_valid ? lab[lane] : -1;
+      const int y1 = lane + 32 < n_valid ? lab[lane + 32] : -1;
+      const float s20 = l2 ? s2t[lane] : 0.f, s21 = l2 ? s2t[lane + 32] : 0.f;
+      // The warp's kOwn queries side by side, so that their shuffle trees
+      // interleave: x holds the scores, then the p_j.
+      float x0[kOwn], x1[kOwn], v[kOwn], alpha[kOwn];
+#pragma unroll
+      for (int o = 0; o < kOwn; ++o) {
+        const int b = warp + kTcWarps * o;
+        const float* row = sc + b * kTcScoreStride;
+        const float d0 = kSplitK ? row[lane] + row[kScores + lane] : row[lane];
+        const float d1 = kSplitK ? row[lane + 32] + row[kScores + lane + 32] : row[lane + 32];
+        const float q2 = l2 ? q2s[b] : 0.f;
+        x0[o] = y0 < 0 ? kNeg : l2 ? -l2_dist(q2, d0, s20) : d0 * scale;
+        x1[o] = y1 < 0 ? kNeg : l2 ? -l2_dist(q2, d1, s21) : d1 * scale;
+        v[o] = fmaxf(x0[o], x1[o]);
+      }
+      warp_max_n(v);
+      float m_new[kOwn];
+#pragma unroll
+      for (int o = 0; o < kOwn; ++o) {
+        const float m_prev = m_s[warp + kTcWarps * o];
+        m_new[o] = fmaxf(m_prev, v[o]);
+        const float m_safe = m_new[o] > kNeg / 2 ? m_new[o] : 0.f;
+        alpha[o] = m_prev > kNeg / 2 ? expf(m_prev - m_safe) : 0.f;
+        x0[o] = x0[o] > kNeg / 2 ? expf(x0[o] - m_safe) : 0.f;
+        x1[o] = x1[o] > kNeg / 2 ? expf(x1[o] - m_safe) : 0.f;
+        v[o] = x0[o] + x1[o];
+      }
+      warp_sum_n(v);
+      __syncwarp();
+      if (lane == 0) {
+#pragma unroll
+        for (int o = 0; o < kOwn; ++o) {
+          const int b = warp + kTcWarps * o;
+          l_s[b] = l_s[b] * alpha[o] + v[o];
+          m_s[b] = m_new[o];
+        }
+      }
+#pragma unroll
+      for (int o = 0; o < kOwn; ++o) {
+        if (alpha[o] != 1.f) {  // x * 1 is x: the sweep would change no bit
+          float* acc_row = acc + (warp + kTcWarps * o) * C;
+          if ((C & 3) == 0) {  // rows of whole float4s: independent 16-byte accesses
+            float4* row4 = reinterpret_cast<float4*>(acc_row);
+#pragma unroll 4
+            for (int c = lane; c < C / 4; c += 32) {
+              float4 x = row4[c];
+              x.x *= alpha[o];
+              x.y *= alpha[o];
+              x.z *= alpha[o];
+              x.w *= alpha[o];
+              row4[c] = x;
+            }
+          } else {
+#pragma unroll 4
+            for (int c = lane; c < C; c += 32) acc_row[c] *= alpha[o];
+          }
+        }
+      }
+      __syncwarp();
+      // The label sum, one writer per class and a fixed order. Up to
+      // kTcMaxClasses classes of the tile (the class of its lowest row not
+      // yet summed, in turn: one or two in a class-sorted bank, a few in a
+      // cluster of an IVF bank) each get their p_j summed in warp_sum's
+      // fixed tree and added once by lane 0. Every warp finds the same
+      // classes.
+      unsigned long long rest =
+          static_cast<unsigned long long>(__ballot_sync(0xffffffffu, y0 >= 0 && y0 < C)) |
+          (static_cast<unsigned long long>(__ballot_sync(0xffffffffu, y1 >= 0 && y1 < C)) << 32);
+      for (int n = 0; n < kTcMaxClasses && rest != 0ull; ++n) {
+        const int r0 = __ffsll(static_cast<long long>(rest)) - 1;
+        const int ya = __shfl_sync(0xffffffffu, y0, r0 & 31);
+        const int yb = __shfl_sync(0xffffffffu, y1, r0 & 31);
+        const int y = r0 < 32 ? ya : yb;
+        const bool in0 = y0 == y, in1 = y1 == y;
+        rest &= ~(static_cast<unsigned long long>(__ballot_sync(0xffffffffu, in0)) |
+                  (static_cast<unsigned long long>(__ballot_sync(0xffffffffu, in1)) << 32));
+#pragma unroll
+        for (int o = 0; o < kOwn; ++o) v[o] = (in0 ? x0[o] : 0.f) + (in1 ? x1[o] : 0.f);
+        warp_sum_n(v);
+        if (lane == 0) {
+#pragma unroll
+          for (int o = 0; o < kOwn; ++o) acc[(warp + kTcWarps * o) * C + y] += v[o];
+        }
+      }
+      if (rest != 0ull) {
+        // The rows of the classes left: rows j and j' whose classes agree
+        // mod 32 form a group (__match_any_sync, within each half of the
+        // tile); its first lane adds the group's p_j in row order, the first
+        // half before the second. So each class has one writer at a time,
+        // and a warp takes as many steps as its largest group, not 64.
+#pragma unroll
+        for (int o = 0; o < kOwn; ++o) {
+          float* row = sc + (warp + kTcWarps * o) * kTcScoreStride;
+          row[lane] = x0[o];
+          row[lane + 32] = x1[o];
+        }
+        __syncwarp();
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int y = h ? y1 : y0;
+          const bool ok = (rest >> (32 * h + lane)) & 1ull;
+          const unsigned grp = __match_any_sync(0xffffffffu, ok ? (y & 31) : 32 + lane);
+          if (ok && lane == __ffs(grp) - 1) {
+            for (unsigned more = grp; more != 0u; more &= more - 1u) {
+              const int j = 32 * h + __ffs(more) - 1;
+              const int yj = lab[j];
+#pragma unroll
+              for (int o = 0; o < kOwn; ++o) {
+                acc[(warp + kTcWarps * o) * C + yj] +=
+                    sc[(warp + kTcWarps * o) * kTcScoreStride + j];
+              }
+            }
+          }
+          __syncwarp();
+        }
+      }
+      // The next tile's turn is the other group's; this group's warps are
+      // all done with its score tile before any writes its next tile's.
+      if (group == 0) {
+        asm volatile("bar.arrive 2, %0;\n" ::"n"(2 * kTcThreads) : "memory");
+      } else {
+        asm volatile("bar.arrive 1, %0;\n" ::"n"(2 * kTcThreads) : "memory");
+      }
+      group_sync(group);
+    };
+
+    // Each group's ring: its q-th slice (counted over its tiles and the
+    // block's chunks) goes to stage q mod kTcStages; full completes when the
+    // slice has landed, empty when the group's eight warps are done with it.
+    // The producer runs up to kTcStages slices ahead of its group.
+    int q = used;
+    for (int i = (tiles + group) % 2; i < n_tiles; i += 2) {
+      for (int kc = 0; kc < nK; ++kc, ++q) {
+        const int u = q / kTcStages;
+        if (producer) {
+          if (u > 0) mbar_wait(gempty + q % kTcStages, (u - 1) & 1);
+          load(i, kc, q);
+        } else {
+          mbar_wait(gfull + q % kTcStages, u & 1);
+          compute(i, kc, q);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(gempty + q % kTcStages);
+        }
+      }
+    }
+    used = q;
+    tiles += n_tiles;
+    if constexpr (!kSel) break;
+    __syncthreads();  // every warp is done with the ring and the list
+  }
+
+  // The group whose turn is next takes the last turn's arrival.
+  if (!producer && group == tiles % 2) {
+    if (group == 0) {
+      asm volatile("bar.sync 1, %0;\n" ::"n"(2 * kTcThreads) : "memory");
+    } else {
+      asm volatile("bar.sync 2, %0;\n" ::"n"(2 * kTcThreads) : "memory");
+    }
+  }
+  __syncthreads();
+  if (producer) return;
+  for (int b = 0; b < kQB && b0 + b < a.B; ++b) {
+    float* dst = a.acc_out + (static_cast<size_t>(split) * a.B + b0 + b) * C;
+    for (int c = threadIdx.x; c < C; c += 2 * kTcThreads) dst[c] = acc[b * C + c];
+  }
+  if (threadIdx.x < kQB && b0 + threadIdx.x < a.B) {
+    a.m_out[static_cast<size_t>(split) * a.B + b0 + threadIdx.x] = m_s[threadIdx.x];
+    a.l_out[static_cast<size_t>(split) * a.B + b0 + threadIdx.x] = l_s[threadIdx.x];
+  }
+}
+
+// cuTensorMapEncodeTiled, fetched from the driver at run time (the library
+// links only the runtime); null when the driver has none.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess) {
+      return static_cast<EncodeTiled>(nullptr);
+    }
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A (rows, cols) row-major matrix as boxes of (box_rows, 128 bytes),
+// 128-byte swizzled (rank 2), or a vector as boxes of 64 (rank 1); zeros
+// past its edges. L2 fetches in 256-byte sectors: a box reads 128 bytes of
+// each row, and the next slice the next 128.
+inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* base,
+                       long long rows, long long cols, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint32_t ones[2] = {1, 1};
+  if (cols == 0) {
+    const cuuint64_t dims[1] = {static_cast<cuuint64_t>(rows)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(rows) * elem};
+    const cuuint32_t box[1] = {static_cast<cuuint32_t>(kSupportTile)};
+    return fn(map, type, 1, const_cast<void*>(base), dims, strides, box, ones,
+              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+              CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  }
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kTcRowBytes / elem),
+                             static_cast<cuuint32_t>(box_rows)};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, ones,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename T, int kQB, bool kSel>
+cudaError_t launch_tc_pass1(cudaStream_t stream, const TcArgs& a, int bank_rows, int n_splits) {
+  const size_t smem = tc_smem_bytes(kQB, a.C, kSel);
+  const cudaError_t err =
+      cudaFuncSetAttribute(nw_prepared_tc_kernel<T, kQB, kSel>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  TcMaps maps{};
+  TcArgs args = a;
+  constexpr CUtensorMapDataType kType =
+      std::is_same_v<T, float> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  constexpr int kElem = static_cast<int>(sizeof(T));
+  // The TMA addresses rows of a multiple of 16 bytes from a 16-byte aligned
+  // base; anything else is staged by plain loads.
+  args.tma = vit::vec16_ok<T>(a.q, a.D) && vit::vec16_ok<T>(a.s, a.D) &&
+             reinterpret_cast<uintptr_t>(a.labels) % 16 == 0 &&
+             (!a.l2_mode || reinterpret_cast<uintptr_t>(a.s2) % 16 == 0) &&
+             encode_map(&maps.q, kType, kElem, a.q, a.B, a.D, tc_query_rows(kQB)) &&
+             encode_map(&maps.s, kType, kElem, a.s, bank_rows, a.D, kSupportTile) &&
+             encode_map(&maps.labels, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, a.labels, bank_rows, 0,
+                        0) &&
+             (!a.l2_mode ||
+              encode_map(&maps.s2, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.s2, bank_rows, 0, 0));
+  const dim3 grid((a.B + kQB - 1) / kQB, n_splits);
+  nw_prepared_tc_kernel<T, kQB, kSel><<<grid, kTcBlock, smem, stream>>>(args, maps);
+  return cudaGetLastError();
+}
+
+// Pass 1 (the tensor-core kernel with kQB = qb) then pass 2 on `stream`.
+template <typename T, bool kSel>
+cudaError_t launch_tc_forward(cudaStream_t stream, int qb, const TcArgs& a, int bank_rows,
+                              int n_splits, bool partials, void* out, void* m_final,
+                              void* l_final) {
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (qb) {
+    case 8: err = launch_tc_pass1<T, 8, kSel>(stream, a, bank_rows, n_splits); break;
+    case 16: err = launch_tc_pass1<T, 16, kSel>(stream, a, bank_rows, n_splits); break;
+    case 32: err = launch_tc_pass1<T, 32, kSel>(stream, a, bank_rows, n_splits); break;
+    default: break;
+  }
+  if (err != cudaSuccess) return err;
+  return launch_merge(stream, partials, a.m_out, a.l_out, a.acc_out, n_splits, a.B, a.C, out,
+                      m_final, l_final);
+}
+
+// Whether the tensor-core pass 1 takes query tiles of qb for C classes on
+// `device`.
+inline bool tc_config_ok(int qb, int C, bool sel, int device) {
+  if (qb != 8 && qb != 16 && qb != 32) return false;
+  int optin = 0;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
+      cudaSuccess) {
+    return false;
+  }
+  return tc_smem_bytes(qb, C, sel) <= static_cast<size_t>(optin);
+}
+
 }  // namespace nw
 
 extern "C" {
 
+// K4/K5's query tile (and K6's on int8/int4 banks); the support tile of all.
 int nw_prepared_query_tile() { return nw::kQueryTile; }
 
 int nw_prepared_support_tile() { return nw::kSupportTile; }
 
-// Dynamic shared memory of one pass-1 block for `n_classes` classes.
+// Dynamic shared memory of one K4/K5 (and K6 int8/int4) pass-1 block for
+// `n_classes` classes.
 int nw_prepared_smem_bytes(int n_classes) {
   return static_cast<int>(nw::partials_smem_bytes(n_classes));
 }
 
-// Largest class count whose accumulator fits the device's shared memory.
+// Largest class count whose K4/K5 accumulator fits the device's shared
+// memory; every prepared-bank entry point refuses more (K2's tensor-core
+// pass 1 would take up to 4,768 at its 8-query tile).
 int nw_prepared_max_classes(int device) { return nw::max_forward_classes(device); }
 
 const char* nw_prepared_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q (B, D), s (S, D) in f32 or bf16 (bf16 != 0); s2 (S,) f32 (l2 mode only,
-// may be null otherwise); labels (S,) int32, -1 = masked; scale (1,) f32;
-// partials m, l (n_splits, B) and acc (n_splits, B, C) f32 scratch; out (B, C)
-// f32. partials != 0: out receives the merged label sums unfinalized and
-// m_final, l_final (B,) f32 the softmax statistics they are relative to
-// (the partials=True route; an all-masked query gives -FLT_MAX, 0, 0);
-// otherwise out receives the log-probs and m_final, l_final may be null.
-// Launches on `stream`, does not synchronize, returns cudaGetLastError().
+// The tensor-core pass 1's dynamic shared memory for query tiles of qb
+// and n_classes classes, with (sel != 0) or without K6's tile list.
+int nw_prepared_tc_smem_bytes(int qb, int n_classes, int sel) {
+  return static_cast<int>(nw::tc_smem_bytes(qb, n_classes, sel != 0));
+}
+
+// The shared memory a block may opt in to on `device`; 0 on error.
+int nw_prepared_smem_optin(int device) {
+  int bytes = 0;
+  return cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) ==
+                 cudaSuccess
+             ? bytes
+             : 0;
+}
+
+// K2: q (B, D), s (S, D) in f32 or bf16 (bf16 != 0); s2 (S,) f32 (l2 mode
+// only, may be null otherwise); labels (S,) int32, -1 = masked; scale (1,)
+// f32; partials m, l (n_splits, B) and acc (n_splits, B, C) f32 scratch;
+// out (B, C) f32; qb the query tile (8, 16 or 32, and its block must fit
+// the device's shared memory). partials != 0: out receives the merged
+// label sums unfinalized and m_final, l_final (B,) f32 the softmax
+// statistics they are relative to (the partials=True route; an all-masked
+// query gives -FLT_MAX, 0, 0); otherwise out receives the log-probs and
+// m_final, l_final may be null. Launches on `stream`, does not
+// synchronize, returns cudaGetLastError().
 int nw_prepared_forward(const void* q, const void* s, const void* s2,
                         const void* labels, const void* scale, void* m_part,
                         void* l_part, void* acc_part, void* out, void* m_final,
                         void* l_final, int B, int S, int D, int C, int l2_mode, int bf16,
-                        int n_splits, int rows_per_split, int partials, void* stream) {
-  if (!nw::forward_args_ok(B, S, D, C, n_splits, rows_per_split) ||
+                        int n_splits, int rows_per_split, int qb, int partials, void* stream) {
+  if (!nw::forward_args_ok(B, S, D, C, n_splits, rows_per_split) || rows_per_split % nw::kSupportTile != 0 ||
       (l2_mode && s2 == nullptr) || (partials && (m_final == nullptr || l_final == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int device = 0;
   const cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (C > nw::max_forward_classes(device)) return static_cast<int>(cudaErrorInvalidValue);
+  if (C > nw::max_forward_classes(device) || !nw::tc_config_ok(qb, C, false, device)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  nw::TcArgs a{};
+  a.q = q;
+  a.s = s;
+  a.s2 = static_cast<const float*>(s2);
+  a.labels = static_cast<const int*>(labels);
+  a.scale = static_cast<const float*>(scale);
+  a.l2_mode = l2_mode;
+  a.B = B;
+  a.D = D;
+  a.C = C;
+  a.S = S;
+  a.rows_per_split = rows_per_split;
+  a.m_out = static_cast<float*>(m_part);
+  a.l_out = static_cast<float*>(l_part);
+  a.acc_out = static_cast<float*>(acc_part);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      bf16 ? nw::launch_forward<__nv_bfloat16, false>(st, q, s, s2, labels, scale, l2_mode, B,
-                                                      S, D, C, n_splits, rows_per_split,
-                                                      m_part, l_part, acc_part, out, m_final,
-                                                      l_final, partials != 0)
-           : nw::launch_forward<float, false>(st, q, s, s2, labels, scale, l2_mode, B, S, D, C,
-                                              n_splits, rows_per_split, m_part, l_part,
-                                              acc_part, out, m_final, l_final, partials != 0));
+      bf16 ? nw::launch_tc_forward<__nv_bfloat16, false>(st, qb, a, S, n_splits, partials != 0,
+                                                         out, m_final, l_final)
+           : nw::launch_tc_forward<float, false>(st, qb, a, S, n_splits, partials != 0, out,
+                                                 m_final, l_final));
 }
 
 // K4 (int4 == 0) and K5 (int4 != 0): q (B, D) int8 codes, D the padded
@@ -536,20 +1389,21 @@ int nw_prepared_quant_forward(const void* q, const void* s, const void* s2, cons
 // nw_prepared_quant_forward (bank 2 int8, 3 int4) over the bank tiles that
 // tile_sel names. The bank has n_tiles * block_s rows, block_s a multiple of
 // 64; tile_sel is (n_rows, n_sel) int32, -1 = empty slot (an id outside
-// [0, n_tiles) is skipped too); query tile i (16 queries) reads row
-// i / qtiles_per_row. scale (1,) f32 goes with a float bank; qcol (B,) and
-// sscale (n_tiles * block_s,) f32 with a quantized one, as in those entry
-// points. n_splits splits share the n_sel * block_s / 64 score tiles of
-// slot-order rows in turn; partials m, l (n_splits, B), acc (n_splits, B,
-// C), out (B, C), m_final, l_final and partials as nw_prepared_forward's
-// (empty slots and masked-only tiles leave a query at -FLT_MAX, 0, 0).
-// Launches on `stream`, does not synchronize, returns cudaGetLastError().
+// [0, n_tiles) is skipped too); query tile i (qb queries: 8, 16 or 32 on
+// a float bank, 16 on a quantized one) reads row i / qtiles_per_row.
+// scale (1,) f32 goes with a float bank; qcol (B,) and sscale (n_tiles *
+// block_s,) f32 with a quantized one, as in those entry points. n_splits
+// splits share the n_sel * block_s / 64 score tiles of slot-order rows in
+// turn; partials m, l (n_splits, B), acc (n_splits, B, C), out (B, C),
+// m_final, l_final and partials as nw_prepared_forward's (empty slots and
+// masked-only tiles leave a query at -FLT_MAX, 0, 0). Launches on
+// `stream`, does not synchronize, returns cudaGetLastError().
 int nw_prepared_sel_forward(const void* q, const void* s, const void* s2, const void* labels,
                             const void* scale, const void* qcol, const void* sscale,
                             const void* tile_sel, void* m_part, void* l_part, void* acc_part,
                             void* out, void* m_final, void* l_final, int B, int D, int C,
                             int l2_mode, int bank, int n_sel, int qtiles_per_row, int n_tiles,
-                            int block_s, int n_splits, int partials, void* stream) {
+                            int block_s, int n_splits, int qb, int partials, void* stream) {
   const bool quant = bank == 2 || bank == 3;
   if (bank < 0 || bank > 3 || B <= 0 || D <= 0 || C <= 0 || n_sel <= 0 || block_s <= 0 ||
       (partials && (m_final == nullptr || l_final == nullptr)) ||
@@ -557,38 +1411,56 @@ int nw_prepared_sel_forward(const void* q, const void* s, const void* s2, const 
       static_cast<long long>(n_sel) * block_s > INT_MAX ||
       static_cast<long long>(n_tiles) * block_s > INT_MAX || n_splits <= 0 ||
       n_splits > 48 * 1024 / static_cast<int>(sizeof(float)) || tile_sel == nullptr || (l2_mode && s2 == nullptr) ||
-      (quant ? (qcol == nullptr || sscale == nullptr || D % (bank == 3 ? 8 : 4) != 0 ||
-                reinterpret_cast<uintptr_t>(q) % 4 != 0 || reinterpret_cast<uintptr_t>(s) % 4 != 0)
+      (quant ? (qb != nw::kQueryTile || qcol == nullptr || sscale == nullptr ||
+                D % (bank == 3 ? 8 : 4) != 0 || reinterpret_cast<uintptr_t>(q) % 4 != 0 ||
+                reinterpret_cast<uintptr_t>(s) % 4 != 0)
              : scale == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int device = 0;
   const cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (C > nw::max_forward_classes(device)) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (bank) {
-    case 0:
-      return static_cast<int>(nw::launch_sel_forward<float, false, false>(
-          st, q, s, s2, labels, scale, qcol, sscale, tile_sel, n_sel, qtiles_per_row, n_tiles,
-          block_s, l2_mode, B, D, C, n_splits, m_part, l_part, acc_part, out, m_final, l_final,
-          partials != 0));
-    case 1:
-      return static_cast<int>(nw::launch_sel_forward<__nv_bfloat16, false, false>(
-          st, q, s, s2, labels, scale, qcol, sscale, tile_sel, n_sel, qtiles_per_row, n_tiles,
-          block_s, l2_mode, B, D, C, n_splits, m_part, l_part, acc_part, out, m_final, l_final,
-          partials != 0));
-    case 2:
-      return static_cast<int>(nw::launch_sel_forward<int8_t, true, false>(
-          st, q, s, s2, labels, scale, qcol, sscale, tile_sel, n_sel, qtiles_per_row, n_tiles,
-          block_s, l2_mode, B, D, C, n_splits, m_part, l_part, acc_part, out, m_final, l_final,
-          partials != 0));
-    default:
-      return static_cast<int>(nw::launch_sel_forward<int8_t, true, true>(
-          st, q, s, s2, labels, scale, qcol, sscale, tile_sel, n_sel, qtiles_per_row, n_tiles,
-          block_s, l2_mode, B, D, C, n_splits, m_part, l_part, acc_part, out, m_final, l_final,
-          partials != 0));
+  if (C > nw::max_forward_classes(device) || (!quant && !nw::tc_config_ok(qb, C, true, device))) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!quant) {
+    nw::TcArgs a{};
+    a.q = q;
+    a.s = s;
+    a.s2 = static_cast<const float*>(s2);
+    a.labels = static_cast<const int*>(labels);
+    a.scale = static_cast<const float*>(scale);
+    a.l2_mode = l2_mode;
+    a.B = B;
+    a.D = D;
+    a.C = C;
+    a.tile_sel = static_cast<const int*>(tile_sel);
+    a.n_sel = n_sel;
+    a.qtiles_per_row = qtiles_per_row;
+    a.n_tiles = n_tiles;
+    a.block_s = block_s;
+    a.m_out = static_cast<float*>(m_part);
+    a.l_out = static_cast<float*>(l_part);
+    a.acc_out = static_cast<float*>(acc_part);
+    const int bank_rows = n_tiles * block_s;
+    return static_cast<int>(
+        bank == 1 ? nw::launch_tc_forward<__nv_bfloat16, true>(st, qb, a, bank_rows, n_splits,
+                                                               partials != 0, out, m_final,
+                                                               l_final)
+                  : nw::launch_tc_forward<float, true>(st, qb, a, bank_rows, n_splits,
+                                                       partials != 0, out, m_final, l_final));
+  }
+  if (bank == 2) {
+    return static_cast<int>(nw::launch_sel_forward<int8_t, true, false>(
+        st, q, s, s2, labels, scale, qcol, sscale, tile_sel, n_sel, qtiles_per_row, n_tiles,
+        block_s, l2_mode, B, D, C, n_splits, m_part, l_part, acc_part, out, m_final, l_final,
+        partials != 0));
+  }
+  return static_cast<int>(nw::launch_sel_forward<int8_t, true, true>(
+      st, q, s, s2, labels, scale, qcol, sscale, tile_sel, n_sel, qtiles_per_row, n_tiles,
+      block_s, l2_mode, B, D, C, n_splits, m_part, l_part, acc_part, out, m_final, l_final,
+      partials != 0));
 }
 
 }  // extern "C"

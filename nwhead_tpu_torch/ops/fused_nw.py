@@ -13,16 +13,19 @@ for Hopper, built and loaded by ``ops/_cuda.py``:
   the scores from ``(m, l)``;
 * K2 ``csrc/nw_prepared.cu`` ``nw_prepared_forward`` (TPU
   ``_nw_prepared_kernel``): the forward over a bank normalized and packed
-  once by ``prepare_support``, f32 or bf16;
+  once by ``prepare_support``, f32 or bf16, its scores on the tensor cores
+  (``nw_prepared_tc_kernel``, whose query tile and split count
+  ``_tc_query_tile`` and ``_tc_splits`` choose);
 * K4 and K5 ``csrc/nw_prepared.cu`` ``nw_prepared_quant_forward`` (TPU
   ``_nw_prepared_kernel`` with ``quant=True`` / ``quant4=True``): the same
   over an int8 bank, or an int4 bank of two codes a byte, against a query
   quantized per row; int32 dot products, dequantized by the query's and the
   row's scales;
 * K6 ``csrc/nw_prepared.cu`` ``nw_prepared_sel_forward`` (TPU
-  ``_nw_prepared_kernel`` with ``tile_sel``): K2/K4/K5's pass over only the
-  bank tiles a list names (IVF-pruned serving, ``ops/ivf.py``), one list for
-  the batch or one per query group.
+  ``_nw_prepared_kernel`` with ``tile_sel``): K2/K4/K5's pass (K2's very
+  kernel on f32/bf16 banks) over only the bank tiles a list names
+  (IVF-pruned serving, ``ops/ivf.py``), one list for the batch or one per
+  query group.
 
 K1 and K2/K4/K5/K6 also run unfinalized (TPU ``partials=True``:
 ``nw_fused_partials``, ``nw_fused_from_prepared(partials=True)``): the same
@@ -531,6 +534,59 @@ def _split_rows(n_rows: int, n_query_tiles: int, n_sms: int, tile: int) -> Tuple
     return rows, math.ceil(n_rows / rows)
 
 
+# The tensor-core pass 1 of K2 and K6 on f32/bf16 banks
+# (``csrc/nw_prepared.cu``: ``nw_prepared_tc_kernel``); these mirror its
+# constants and ``tc_smem_bytes``.
+_TC_QUERY_TILES = (32, 16, 8)  # queries a block, the largest that fits first
+_TC_SUPPORT_TILE = 64
+_TC_STAGES = 3  # slices in each scoring group's ring
+_TC_ROW_BYTES = 128
+_TC_ALIGN = 1024
+_TC_LIST_CAP = 512
+H100_SMEM_OPTIN = 232_448  # shared memory a block may opt in to on an H100 (sm_90)
+
+
+def _tc_smem_bytes(qb: int, n_classes: int, sel: bool) -> int:
+    """Dynamic shared memory of one tensor-core pass-1 block: alignment
+    slack; a ring of slices for each of its two scoring groups (query rows,
+    at least 16, and 64 support rows of 128 bytes, the tile's labels and
+    self-norms, padded to 1 KB); each group's score tile (two at ``qb <=
+    16``); ``|q|^2`` and the running ``(m, l)``; K6's tile list; the rings'
+    full and empty barriers; ``acc[qb][C]``."""
+    stage = (max(qb, 16) + _TC_SUPPORT_TILE) * _TC_ROW_BYTES + _TC_ALIGN
+    scores = 2 * (2 if qb <= 16 else 1) * qb * (_TC_SUPPORT_TILE + 4)
+    return (_TC_ALIGN + 2 * _TC_STAGES * stage + 4 * (scores + 3 * 32)
+            + (4 * (_TC_LIST_CAP + 4) if sel else 0) + 32 * _TC_STAGES + 4 * qb * n_classes)
+
+
+def _tc_query_tile(queries: int, n_classes: int, sel: bool, smem_optin: int) -> int:
+    """The tensor-core pass 1's query tile: the largest of 32, 16 and 8
+    whose block fits ``smem_optin`` bytes, and no larger than the power of
+    two that holds ``queries`` (the batch, or a routing group): 32 at the
+    CUB bank's C = 200 and the million-row bank's C = 1,000."""
+    cap = max(8, 1 << max(0, queries - 1).bit_length())
+    for qb in _TC_QUERY_TILES:
+        if qb <= cap and _tc_smem_bytes(qb, n_classes, sel) <= smem_optin:
+            return qb
+    raise ValueError(f"n_classes={n_classes} is beyond what the kernel's shared-memory "
+                     "accumulator holds on this device")
+
+
+def _tc_splits(n_rows: int, n_query_tiles: int, n_sms: int) -> Tuple[int, int]:
+    """Support rows per split and the split count of the tensor-core pass
+    1, a pure function of static shapes: enough (query tile x split) blocks
+    to fill the SMs once (one block an SM, by its launch bounds; it keeps
+    its own loads in flight, so it needs no other block to cover its
+    waits), and no more, since each split costs ``B x C x 4`` bytes of
+    partials written and read back (pass 2 reads them at about 0.4 TB/s on
+    an H100). Every split holds whole 64-row tiles, none is empty. K6
+    passes its slot-order rows, ``n_sel x block_s``."""
+    tile = _TC_SUPPORT_TILE
+    want = max(1, math.ceil(n_sms / n_query_tiles))
+    rows = _round_up(max(tile, math.ceil(n_rows / want)), tile)
+    return rows, math.ceil(n_rows / rows)
+
+
 def _check_prepared(name: str, q: torch.Tensor, prep: PreparedSupport, scale: torch.Tensor,
                     mode: str, n_classes: int, qscale: Optional[torch.Tensor], bank_dtypes,
                     query_dtype):
@@ -576,6 +632,12 @@ def _check_prepared(name: str, q: torch.Tensor, prep: PreparedSupport, scale: to
     return lib, qcol
 
 
+def _smem_optin(lib, device) -> int:
+    """The shared memory a block may opt in to on the card."""
+    return lib.nw_prepared_smem_optin(
+        device.index if device.index is not None else torch.cuda.current_device())
+
+
 def _partials(n_splits: int, B: int, n_classes: int, device, partials: bool = False):
     """Pass 1's scratch (m, l, acc per split), the output ``(B, C)`` and,
     with ``partials``, the merged statistics ``m, l (B,)``: the six tensors
@@ -601,16 +663,22 @@ def _prepared_launch(name: str, q: torch.Tensor, prep: PreparedSupport, scale: t
     """Check a prepared-bank kernel's operands and launch it on the current
     stream: pass 1 writes per-split partials (m, l, acc), pass 2 merges them
     and takes the log, or with ``partials`` returns the merged ``(m, l,
-    acc)`` unfinalized. ``qscale`` goes with an int8/int4 bank only."""
+    acc)`` unfinalized. ``qscale`` goes with an int8/int4 bank only. A
+    float bank's pass 1 is the tensor-core kernel (``_tc_query_tile``,
+    ``_tc_splits``); a quantized bank's splits follow ``_split_rows``."""
     lib, qcol = _check_prepared(name, q, prep, scale, mode, n_classes, qscale, bank_dtypes,
                                 query_dtype)
     s, labels, s2 = prep.s, prep.labels, prep.s2
     quant, l2 = qcol is not None, mode == "l2"
     (B, D), S = q.shape, s.shape[0]
     q = q.contiguous()
-    n_tiles_q = math.ceil(B / lib.nw_prepared_query_tile())
     n_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    rows, n_splits = _split_rows(S, n_tiles_q, n_sms, lib.nw_prepared_support_tile())
+    if quant:
+        rows, n_splits = _split_rows(S, math.ceil(B / lib.nw_prepared_query_tile()), n_sms,
+                                     lib.nw_prepared_support_tile())
+    else:
+        qb = _tc_query_tile(B, n_classes, False, _smem_optin(lib, q.device))
+        rows, n_splits = _tc_splits(S, math.ceil(B / qb), n_sms)
     bufs, ptrs = _partials(n_splits, B, n_classes, q.device, partials)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
@@ -623,7 +691,7 @@ def _prepared_launch(name: str, q: torch.Tensor, prep: PreparedSupport, scale: t
             rc = lib.nw_prepared_forward(
                 q.data_ptr(), s.data_ptr(), s2.data_ptr() if l2 else None,
                 labels.data_ptr(), scale.data_ptr(), *ptrs, B, S, D, n_classes, int(l2),
-                int(s.dtype == torch.bfloat16), n_splits, rows, int(partials), stream)
+                int(s.dtype == torch.bfloat16), n_splits, rows, qb, int(partials), stream)
     if rc != 0:
         raise RuntimeError(
             f"{name} kernel launch failed: {lib.nw_prepared_error_string(rc).decode()}"
@@ -730,13 +798,15 @@ def _prepared_sel_launch(name: str, q: torch.Tensor, prep: PreparedSupport,
                          scale: torch.Tensor, mode: str, n_classes: int,
                          qscale: Optional[torch.Tensor], tile_sel: torch.Tensor, bank_dtypes,
                          query_dtype, partials: bool = False):
-    """Check K6's operands and launch it on the current stream. A 16-query
-    tile of the kernel reads one ``tile_sel`` row, so under grouped routing
-    each group is padded to whole query tiles with copies of its last query
-    (dropped from the output). The split count comes from ``n_sel``, a
-    static shape, as K2's comes from the bank's rows; the splits take the
-    score tiles in turn, so the union spreads over all of them. Nothing is
-    read back from the card. ``partials`` as in ``_prepared_launch``."""
+    """Check K6's operands and launch it on the current stream. A query
+    tile of the kernel (16 queries on an int8/int4 bank, ``_tc_query_tile``'s
+    on a float one, no larger than a routing group) reads one ``tile_sel``
+    row, so under grouped routing each group is padded to whole query tiles
+    with copies of its last query (dropped from the output). The split
+    count comes from ``n_sel``, a static shape, as K2's comes from the
+    bank's rows; the splits take the score tiles in turn, so the union
+    spreads over all of them. Nothing is read back from the card.
+    ``partials`` as in ``_prepared_launch``."""
     lib, qcol = _check_prepared(name, q, prep, scale, mode, n_classes, qscale, bank_dtypes,
                                 query_dtype)
     tile = lib.nw_prepared_support_tile()
@@ -746,7 +816,11 @@ def _prepared_sel_launch(name: str, q: torch.Tensor, prep: PreparedSupport,
         raise ValueError(f"{name}: tile_sel on {tile_sel.device}, queries on {q.device}")
     sel, group_b = _sel_rows(tile_sel, q.shape[0])
     n_groups, n_sel = sel.shape
-    qt = lib.nw_prepared_query_tile()
+    quant = qcol is not None
+    if quant:
+        qt = lib.nw_prepared_query_tile()
+    else:
+        qt = _tc_query_tile(group_b, n_classes, True, _smem_optin(lib, q.device))
     group_pad = _round_up(group_b, qt) if n_groups > 1 else group_b
     if group_pad != group_b:
         pick = (torch.arange(n_groups, device=q.device)[:, None] * group_b
@@ -758,7 +832,10 @@ def _prepared_sel_launch(name: str, q: torch.Tensor, prep: PreparedSupport,
     n_query_tiles = math.ceil(B / qt)
     qtiles_per_row = group_pad // qt if n_groups > 1 else n_query_tiles
     n_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    _, n_splits = _split_rows(n_sel * prep.block_s, n_query_tiles, n_sms, tile)
+    if quant:
+        _, n_splits = _split_rows(n_sel * prep.block_s, n_query_tiles, n_sms, tile)
+    else:
+        _, n_splits = _tc_splits(n_sel * prep.block_s, n_query_tiles, n_sms)
     bufs, ptrs = _partials(n_splits, B, n_classes, q.device, partials)
     l2 = mode == "l2"
     with torch.cuda.device(q.device):
@@ -767,7 +844,7 @@ def _prepared_sel_launch(name: str, q: torch.Tensor, prep: PreparedSupport,
             prep.labels.data_ptr(), scale.data_ptr(), None if qcol is None else qcol.data_ptr(),
             None if qcol is None else prep.sscale.data_ptr(), sel.data_ptr(), *ptrs, B, D,
             n_classes, int(l2), _SEL_BANK[prep.s.dtype], n_sel, qtiles_per_row,
-            prep.labels.shape[0] // prep.block_s, prep.block_s, n_splits, int(partials),
+            prep.labels.shape[0] // prep.block_s, prep.block_s, n_splits, qt, int(partials),
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(

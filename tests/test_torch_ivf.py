@@ -397,7 +397,8 @@ def test_serve_cli_ivf_on_cpu():
 # On the card: K6 against its plain version.
 # ---------------------------------------------------------------------------
 
-GPU_SHAPES = [(64, 40_000, 512, 200, 1024), (37, 5_000, 509, 150, 128), (24, 3_000, 64, 10, 512)]
+GPU_SHAPES = [(64, 40_000, 512, 200, 1024), (37, 5_000, 509, 150, 128), (24, 3_000, 64, 10, 512),
+              (64, 30_000, 512, 1000, 1024), (37, 6_000, 509, 1000, 128)]
 
 
 @pytest.mark.gpu
@@ -408,7 +409,8 @@ def test_cuda_tile_sel_matches_plain(precision, shape):
     with empty slots and ids past the bank, grouped lists at group_b 8, 16
     and 24 (B not a multiple), an all-empty list; all five kernels, masked
     rows holding NaN; rtol=atol=2e-4 (bf16 atol 2e-3). The identity list
-    equals K2 within 2e-4."""
+    equals K2 within 2e-4. At C > 128 also a ``keep_order=True`` bank and
+    the ``partials=True`` route; two calls give the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (and nvcc to build the kernel)")
     from nwhead_tpu_torch.ops.kernels import KERNEL_NAMES
@@ -423,14 +425,18 @@ def test_cuda_tile_sel_matches_plain(precision, shape):
     valid[0] = True
     s[torch.from_numpy(~valid).to(dev)] = float("nan")
     mask = torch.from_numpy(valid.astype(np.float32))
-    wrapper = (tfused.nw_prepared_sel_cuda if precision in ("f32", "bf16")
-               else tfused.nw_prepared_sel_quant_cuda)
-    for kernel in KERNEL_NAMES:
+    floating = precision in ("f32", "bf16")
+    wrapper = tfused.nw_prepared_sel_cuda if floating else tfused.nw_prepared_sel_quant_cuda
+    partials = (tfused.nw_prepared_sel_partials_cuda if floating
+                else tfused.nw_prepared_sel_partials_quant_cuda)
+    for kernel, keep_order in [(k, False) for k in KERNEL_NAMES] + (
+            [("euclidean", True), ("cosine", True)] if C > 128 else []):
         params = {"logit_scale": torch.tensor(1.3, device=dev)} if kernel == "clip" else {}
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
             prep = tfused.prepare_support(s, sy, C, kernel=kernel, support_mask=mask,
-                                          precision=precision, block_s=block_s)
+                                          precision=precision, block_s=block_s,
+                                          keep_order=keep_order)
         n_tiles = prep.labels.shape[0] // prep.block_s
         qk, scale, mode, qscale = tfused._prepared_query(q, prep, kernel, params)
         shuffled = np.full(2 * n_tiles + 2, -1, np.int32)
@@ -451,6 +457,13 @@ def test_cuda_tile_sel_matches_plain(precision, shape):
             assert wrapper.launches == before + 1
             assert torch.isfinite(got).all()
             torch.testing.assert_close(got, want, **LOG_TOL[precision])
+            if C > 128:
+                assert torch.equal(got, wrapper(qg, prep, scale, mode, C, qs, tsel))
+                tol = LOG_TOL[precision]["atol"]
+                for g, w in zip(partials(qg, prep, scale, mode, C, qs, tsel),
+                                tfused._nw_prepared_sel_plain(qg, prep, scale, mode, C, qs,
+                                                              tsel, partials=True)):
+                    torch.testing.assert_close(g, w, rtol=tol, atol=tol)
         ident = torch.arange(n_tiles, dtype=torch.int32, device=dev)
         dense = tfused.nw_fused_from_prepared(q, prep, C, kernel=kernel, kernel_params=params)
         torch.testing.assert_close(

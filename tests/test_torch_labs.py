@@ -39,7 +39,7 @@ torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LABS = ("kernel_lab", "manual_pipe_lab", "prepared_lab", "roofline_lab", "block_lab",
-        "mlp_block_lab", "attn_block_lab")
+        "mlp_block_lab", "attn_block_lab", "prepared_head_lab")
 
 
 def _script(relpath: str):
