@@ -217,6 +217,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 import numpy as np
 
@@ -1270,11 +1271,13 @@ def _k11_case(res: dict, flush, case: str, M: int, D: int, Dh: int) -> None:
 # The int8 serving stack: K4, K5, K10 int8 and K11 int8.
 # ---------------------------------------------------------------------------
 
-QUANT_CASES = (  # name, B, S, D, C; the first is timed
+QUANT_CASES = (  # name, B, S, D, C; the first and the last are timed
     ("cub_b64", 64, 5994, 512, 200),
     ("vit_b64", 64, 5800, 384, 200),  # the ViT-S/14 serving bank
     ("eval_b8", 8, 5800, 512, 200),  # the training run's full-mode eval batch
     ("ragged_d509", 37, 1001, 509, 150),  # D off the int8 word and the int4 pair
+    ("ragged_d37", 17, 700, 37, 9),  # rows the TMA cannot address: plain staging
+    ("c1000_b64", 64, 65_536, 512, 1000),  # the million-row bank's class count, timed
 )
 QUANT_REPLACES = "nwhead_tpu/ops/pallas_nw.py:820"
 VIT_INT8_REPLACES = {"attention_block_int8": "nwhead_tpu/ops/pallas_attn.py:376",
@@ -1283,8 +1286,10 @@ VIT_INT8_REPLACES = {"attention_block_int8": "nwhead_tpu/ops/pallas_attn.py:376"
 
 def quant_kernel_phase(flush) -> dict:
     """K4 and K5 against the plain version at each case, all five kernels,
-    masked rows holding NaN; times each at the CUB B=64 euclidean case.
-    Returns, per precision, max |err|, kernel and plain ms and the bound."""
+    masked rows holding NaN, each called twice for the same bits; times
+    each at the CUB B=64 euclidean case and at C = 1,000 (``c1000``, 65,536
+    class-sorted rows, with its split). Returns, per precision, max |err|,
+    kernel and plain ms and the bound."""
     import warnings
 
     import torch
@@ -1293,7 +1298,7 @@ def quant_kernel_phase(flush) -> dict:
     from nwhead_tpu_torch.ops.kernels import KERNEL_NAMES
 
     dev = torch.device("cuda")
-    res = {p: {"max_abs_err": 0.0} for p in ("int8", "int4")}
+    res = {p: {"max_abs_err": 0.0, "c1000": {}} for p in ("int8", "int4")}
     for ci, (case, B, S, D, C) in enumerate(QUANT_CASES):
         rng = np.random.default_rng(900 + ci)
         q = torch.from_numpy(rng.standard_normal((B, D), np.float32)).to(dev)
@@ -1314,6 +1319,7 @@ def quant_kernel_phase(flush) -> dict:
                 args = (args[0], prep, args[1], args[2], C, args[3])
                 wrapper = getattr(F, HEAD_WRAPPERS[prec])
                 got, want = wrapper(*args), F._nw_prepared_plain(*args)
+                same_bits(f"K4/K5 {case} {kernel} {prec}", lambda: wrapper(*args))
                 torch.cuda.synchronize()
                 err = float((got - want).abs().max())
                 ok = bool(torch.isfinite(got).all()) and within(got, want, **HEAD_TOL[prec])
@@ -1322,17 +1328,19 @@ def quant_kernel_phase(flush) -> dict:
                 if not ok:
                     raise AssertionError(f"kernel disagrees with plain: {case} {kernel} {prec}")
                 res[prec]["max_abs_err"] = max(res[prec]["max_abs_err"], err)
-                if ci == 0 and kernel == "euclidean":
+                if case in ("cub_b64", "c1000_b64") and kernel == "euclidean":
+                    r = res[prec] if case == "cub_b64" else res[prec]["c1000"]
                     Dp = args[0].shape[1]
-                    res[prec].update(
+                    r.update(
                         ms=time_ms(lambda: wrapper(*args), flush),
                         plain_ms=time_ms(lambda: F._nw_prepared_plain(*args), flush),
                         # q8, the bank, s2, sscale and labels, qscale, out
                         **bound(B * Dp + prep.s.numel() + 12 * S + 4 * B + 4 * B * C,
                                 2 * B * S * Dp, "int8"))
-                    r = res[prec]
                     print(f"time {case} {kernel} {prec}: kernel {r['ms']:.4f} ms, plain "
                           f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+                    r.update(head_split(f"{'K4' if prec == 'int8' else 'K5'} {case} {prec}",
+                                        lambda: wrapper(*args), flush))
     return res
 
 
@@ -1478,7 +1486,9 @@ def quant_entries(quant: dict, vit_int8: dict, served: dict, resnet: dict) -> li
             "replaces": QUANT_REPLACES, "launches": run["launches"][HEAD_WRAPPERS[prec]],
             "max_abs_err": max(r["max_abs_err"], run["logprob_err"], resnet[prec]["served_err"]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None})
+            "bound_by": r["bound_by"], "library_ms": None, "splits": r["splits"],
+            "c1000_ms": r["c1000"]["ms"], "c1000_plain_ms": r["c1000"]["plain_ms"],
+            "c1000_bound_ms": r["c1000"]["bound_ms"]})
     for key, wrapper, source in (("attention_block_int8", "attention_block_int8_cuda",
                                   ATTN_SOURCE),
                                  ("mlp_block_int8", "mlp_block_int8_cuda", MLP_SOURCE)):
@@ -1997,9 +2007,11 @@ def sharded_serving_phase(flush, bank) -> dict:
                2 * 64 * SHARD_LIVE * Dp, "int8" if qscale is not None else prec,
                fin=lambda: full(*args))
         r["max_abs_err"] = err
-        r["full_split"] = head_split(f"K2 {prec} million-row bank", lambda: full(*args), flush)
-        r["split"] = head_split(f"K2 partials {prec} million-row bank", lambda: wrapper(*args),
-                                flush)
+        kname = {"int8": "K4", "int4": "K5"}.get(prec, "K2")
+        r["full_split"] = head_split(f"{kname} {prec} million-row bank", lambda: full(*args),
+                                     flush)
+        r["split"] = head_split(f"{kname} partials {prec} million-row bank",
+                                lambda: wrapper(*args), flush)
         t0 = time.perf_counter()
         sharded = ShardedSupportBank.build(s[:SHARD_LIVE], sy[:SHARD_LIVE], mesh, C,
                                            precision=prec, use_prepared=True, ivf=True)
@@ -2024,6 +2036,10 @@ def sharded_serving_phase(flush, bank) -> dict:
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, {r['bound_by']})")
         if not ok:
             raise AssertionError(f"the sharded bank disagrees with the full pass: {prec}")
+        one = sharded.shards[0][dev].ivf.prep
+        oq, oscale, omode, oqscale = F._prepared_query(q, one)
+        r["shard_split"] = head_split(f"K2/K4/K5 partials {prec} one shard",
+                                      lambda: wrapper(oq, one, oscale, omode, C, oqscale), flush)
         # Routed: each shard's own tiles, K6 partials.
         sel_name = SEL_PARTIALS_WRAPPER[prec]
         _counts(reset=True)
@@ -3109,10 +3125,10 @@ def main() -> int:
     print(f"build wall time {time.perf_counter() - t0:.1f}s")
     lib = _cuda.load_library()
     fused = _cuda.load_library("nw_fused")
-    print(f"  shared memory per K2/K6 pass-1 block (f32/bf16 banks, 32 queries): "
+    print(f"  shared memory per K2/K4/K5 pass-1 block (every bank precision, 32 queries): "
           f"{lib.nw_prepared_tc_smem_bytes(32, 200, 0)} bytes (dynamic) at C=200, "
-          f"{lib.nw_prepared_tc_smem_bytes(32, 1000, 0)} at C=1,000; K4/K5 "
-          f"{lib.nw_prepared_smem_bytes(200)} at C=200; largest C on this card: "
+          f"{lib.nw_prepared_tc_smem_bytes(32, 1000, 0)} at C=1,000, K6 "
+          f"{lib.nw_prepared_tc_smem_bytes(32, 1000, 1)}; largest C on this card: "
           f"{lib.nw_prepared_max_classes(0)}; "
           f"K3 dq block {fused.nw_fused_smem_bytes(1, 512)} bytes at D=512 (largest D "
           f"{fused.nw_fused_dq_max_features(0)}), ds block {fused.nw_fused_smem_bytes(2, 64)} "
@@ -3226,5 +3242,34 @@ def main() -> int:
     return 0
 
 
+class _LastLine:
+    """Standard output that remembers its last complete line, so that a
+    failure names the last check that passed: a device-side assert floods
+    standard error with one line per failing thread, and its traceback names
+    only the call that reported it, not the kernel that failed."""
+
+    def __init__(self, out):
+        self.out, self.last, self._part = out, "", ""
+
+    def write(self, text: str) -> int:
+        lines = (self._part + text).split("\n")
+        self._part = lines[-1]
+        done = [line for line in lines[:-1] if line.strip()]
+        if done:
+            self.last = done[-1]
+        return self.out.write(text)
+
+    def __getattr__(self, name):
+        return getattr(self.out, name)
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.stdout = _LastLine(sys.stdout)
+    try:
+        rc = main()
+    except BaseException:
+        sys.stdout.flush()
+        traceback.print_exc()
+        print(f"chip_smoke: failed after the line: {sys.stdout.last[:300]}", file=sys.stderr)
+        rc = 1
+    sys.exit(rc)

@@ -13,15 +13,14 @@
 //                   l = l * alpha + sum_j p_j;  acc[y_j] = acc[y_j] * alpha + p_j
 //   out[b, c] = log(acc[c] / max(l, 1e-30) + 1e-12)
 // q and s share one dtype (f32 or bf16); products accumulate in f32 and the
-// softmax state is f32. s2_j is computed here from the raw rows in f32 (K1;
-// the pass-1 template's kRawSupport = false branch, which read a prepared
-// bank's s2, is built by no entry point since K2 moved to nw_prepared.cu's
-// tensor-core kernel). K4/K5 (nw_prepared.cu) share the tile shapes, the
-// block's shared-memory layout and the merge. On raw rows |q|^2 and s2 are
-// summed in the order of the dot products, so a query that is also a
-// support row (common in training episodes) gets a distance of exactly 0,
-// not the square root of rounding residue (about 1e-2 at ResNet-18's
-// feature norms, which moved every log-prob of that query by as much).
+// softmax state is f32. The pass 1 here is K1's (nw_fused.cu): s2_j is
+// computed from the raw rows in f32, and |q|^2 and s2 are summed in the
+// order of the dot products, so a query that is also a support row (common
+// in training episodes) gets a distance of exactly 0, not the square root
+// of rounding residue (about 1e-2 at ResNet-18's feature norms, which moved
+// every log-prob of that query by as much). The prepared banks' pass 1
+// (nw_prepared.cu) shares the merge, and its class cap comes from this
+// block's layout (max_forward_classes).
 
 #pragma once
 
@@ -78,8 +77,8 @@ constexpr int kTileSmemFloats = kQueryTile * kChunkStride     // query chunk
                                 + kSupportTile;                // self-norms s2
 
 // |q_b|^2 in f32 for the queries b0 .. b0 + kQueryTile - 1 (0 past B), one
-// warp per query: the kRawSupport = false branch of the pass-1 template,
-// whose s2 came summed in another order anyway.
+// warp per query (the labs' kernels, lab_nw.cu, whose s2 comes summed in
+// another order anyway).
 template <typename T>
 __device__ __forceinline__ void query_norms(const T* __restrict__ q, int b0, int B, int D,
                                             float* __restrict__ q2) {
@@ -236,16 +235,15 @@ inline int max_forward_classes(int device) {
   return static_cast<int>((optin - fixed) / (sizeof(float) * kQueryTile));
 }
 
-// Forward pass 1: block (x, y) = (query tile, support split). Writes the
-// split's partials (m, l, acc). kRawSupport: s2 computed from the rows here
-// and masked rows loaded as 0 (K1); otherwise s2 read from a prepared bank
-// (no entry point builds that instantiation now). Four blocks per SM (64
-// registers a thread): the blocks do not prefetch, so the ones waiting on
-// memory must be covered by others.
-template <typename T, bool kRawSupport>
+// Forward pass 1 (K1): block (x, y) = (query tile, support split). Writes
+// the split's partials (m, l, acc); s2 computed from the raw rows here and
+// masked rows loaded as 0. Four blocks per SM (64 registers a thread): the
+// blocks do not prefetch, so the ones waiting on memory must be covered by
+// others.
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 4)
 nw_partials_kernel(const T* __restrict__ q, const T* __restrict__ s,
-                   const float* __restrict__ s2, const int* __restrict__ labels,
+                   const int* __restrict__ labels,
                    const float* __restrict__ scale_ptr, int l2_mode,
                    int B, int S, int D, int C, int rows_per_split,
                    float* __restrict__ m_out, float* __restrict__ l_out,
@@ -270,7 +268,6 @@ nw_partials_kernel(const T* __restrict__ q, const T* __restrict__ s,
   const float scale = *scale_ptr;
 
   for (int i = tid; i < kQueryTile * C; i += kThreads) acc[i] = 0.f;
-  if (!kRawSupport) query_norms(q, b0, B, D, q2);
   if (tid < kQueryTile) {
     m_run[tid] = kNeg;
     l_run[tid] = 0.f;
@@ -279,13 +276,13 @@ nw_partials_kernel(const T* __restrict__ q, const T* __restrict__ s,
 
   const int tq = tid / kThreadsPerQuery;
   const int tr = tid % kThreadsPerQuery;
-  const bool self_norms = kRawSupport && l2_mode;
+  const bool self_norms = l2_mode != 0;
 
   for (int t0 = r_begin; t0 < r_end; t0 += kSupportTile) {
     load_tile_labels(labels, t0, r_end, tile_labels);
     float dot[kRowsPerThread];
-    tile_dots<kRawSupport>(q, s, b0, B, t0, r_end, D, labels, self_norms,
-                           kRawSupport && t0 == r_begin ? q2 : nullptr, tile, dot);
+    tile_dots<true>(q, s, b0, B, t0, r_end, D, labels, self_norms,
+                    t0 == r_begin ? q2 : nullptr, tile, dot);
 
 #pragma unroll
     for (int r = 0; r < kRowsPerThread; ++r) {
@@ -293,7 +290,7 @@ nw_partials_kernel(const T* __restrict__ q, const T* __restrict__ s,
       float score = kNeg;
       if (tile_labels[j] >= 0) {
         if (l2_mode) {
-          score = -l2_dist(q2[tq], dot[r], kRawSupport ? s2_tile[j] : s2[t0 + j]);
+          score = -l2_dist(q2[tq], dot[r], s2_tile[j]);
         } else {
           score = dot[r] * scale;
         }
@@ -436,9 +433,10 @@ inline cudaError_t launch_merge(cudaStream_t stream, bool partials, const void* 
   return cudaGetLastError();
 }
 
-// Pass 1 then pass 2 of the forward on `stream`; returns cudaGetLastError().
-template <typename T, bool kRawSupport>
-cudaError_t launch_forward(cudaStream_t stream, const void* q, const void* s, const void* s2,
+// K1's pass 1 then pass 2 of the forward on `stream`; returns
+// cudaGetLastError().
+template <typename T>
+cudaError_t launch_forward(cudaStream_t stream, const void* q, const void* s,
                            const void* labels, const void* scale, int l2_mode, int B, int S,
                            int D, int C, int n_splits, int rows_per_split, void* m_part,
                            void* l_part, void* acc_part, void* out, void* m_final,
@@ -447,13 +445,12 @@ cudaError_t launch_forward(cudaStream_t stream, const void* q, const void* s, co
   const size_t smem = partials_smem_bytes(C);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        nw_partials_kernel<T, kRawSupport>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        nw_partials_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  nw_partials_kernel<T, kRawSupport><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(s), static_cast<const float*>(s2),
-      static_cast<const int*>(labels), static_cast<const float*>(scale), l2_mode, B, S, D, C,
+  nw_partials_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(s), static_cast<const int*>(labels), static_cast<const float*>(scale), l2_mode, B, S, D, C,
       rows_per_split, static_cast<float*>(m_part), static_cast<float*>(l_part),
       static_cast<float*>(acc_part));
   const cudaError_t err = cudaGetLastError();

@@ -404,13 +404,12 @@ int nw_fused_forward(const void* q, const void* s, const void* labels, const voi
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      bf16 ? launch_forward<__nv_bfloat16, true>(st, q, s, nullptr, labels, scale, l2_mode, B,
-                                                 S, D, C, n_splits, rows_per_split, m_part,
-                                                 l_part, acc_part, out, m_final, l_final,
-                                                 partials != 0)
-           : launch_forward<float, true>(st, q, s, nullptr, labels, scale, l2_mode, B, S, D, C,
-                                         n_splits, rows_per_split, m_part, l_part, acc_part,
-                                         out, m_final, l_final, partials != 0));
+      bf16 ? launch_forward<__nv_bfloat16>(st, q, s, labels, scale, l2_mode, B, S, D, C,
+                                           n_splits, rows_per_split, m_part, l_part, acc_part,
+                                           out, m_final, l_final, partials != 0)
+           : launch_forward<float>(st, q, s, labels, scale, l2_mode, B, S, D, C, n_splits,
+                                   rows_per_split, m_part, l_part, acc_part, out, m_final,
+                                   l_final, partials != 0));
 }
 
 // K3 dq. u (B, C), r, m, l (B,) f32 from the forward and the upstream

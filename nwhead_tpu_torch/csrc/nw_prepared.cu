@@ -1,8 +1,9 @@
 // Fused Nadaraya-Watson head over a prepared support bank, for Hopper (sm_90a).
 //
+// One pass 1 (nw_prepared_tc_kernel) serves every prepared bank: K2 (f32
+// and bf16 banks), K4 (int8), K5 (int4), and K6 (tile_sel) over all four.
 // K2 replaces the TPU kernel nwhead_tpu/ops/pallas_nw.py:_nw_prepared_kernel
-// (f32 and bf16 banks), and K6 the same kernel with tile_sel over f32 and
-// bf16 banks (below). The pass it computes is written out in nw_common.cuh;
+// on float banks. The pass it computes is written out in nw_common.cuh;
 // here the bank's self-norms s2 come precomputed (1e30 on masked rows) and
 // a bf16 bank takes a bf16 query.
 //
@@ -13,7 +14,7 @@
 // them lies what each 64-row tile costs beside its products: the softmax
 // state of every query, acc[b][C] (4 KB a query at C = 1,000), is rescaled
 // as its running max grows and gains p_j at each row's class. The design
-// (nw_prepared_tc_kernel, one template for K2 and K6, f32 and bf16):
+// (nw_prepared_tc_kernel, one template for K2, K4, K5 and K6):
 //   * Pass 1 runs on a grid of (query tiles of kQB) x (support splits);
 //     acc[kQB][C] lives in shared memory, so kQB follows C: the wrapper
 //     takes the largest of 32, 16 and 8 whose block fits (32 at the CUB
@@ -22,22 +23,24 @@
 //     once (a block keeps its own loads in flight, so it needs no other
 //     block to cover its waits), since each split costs B x C x 4 bytes of
 //     partials written here and read again by pass 2.
-//   * Slices of 128 bytes of features (32 f32 or 64 bf16) of the block's
-//     query rows and of a 64-row support tile come by the TMA (two boxes of
-//     tensor maps, 128-byte swizzled so that fragment loads hit distinct
-//     banks; zeros past B, the bank and D), the tile's labels and
-//     self-norms with its last slice. Copies by cp.async, 16 bytes a
-//     thread, stalled the warps that issued them: loads, products and
-//     softmax then took their times one after another (1.85 + 1.5 + 0.65
-//     ms of K2 f32's 4.05 on the million-row bank, H100 80GB HBM3).
+//   * Slices of 128 bytes of features (32 f32, 64 bf16 or 128 int8) of the
+//     block's query rows and of a 64-row support tile come by the TMA (two
+//     boxes of tensor maps, 128-byte swizzled so that fragment loads hit
+//     distinct banks; zeros past B, the bank and D), the tile's labels,
+//     self-norms and (int8/int4) row scales with its last slice. Copies by
+//     cp.async, 16 bytes a thread, stalled the warps that issued them:
+//     loads, products and softmax then took their times one after another
+//     (1.85 + 1.5 + 0.65 ms of K2 f32's 4.05 on the million-row bank, H100
+//     80GB HBM3).
 //   * Two scoring groups of eight warps take the tiles in turn, each with
 //     its own 3-stage ring, mbarriers and producer warp: one group's
 //     products overlap the other's softmax. Products on the tensor cores:
 //     bf16 mma.sync m16n8k16 with f32 sums (products of bf16 values are
-//     exact), f32 on 3xTF32 m16n8k8. A warp covers 16 queries x 16 rows
-//     over the slice (at kQB <= 16 half the slice's features, the halves'
-//     sums added in a fixed order), its independent accumulators issued in
-//     turn. |q|^2 (l2 mode) is summed from the first tile's staged slices.
+//     exact), f32 on 3xTF32 m16n8k8, int8/int4 on s8 m16n8k32 with int32
+//     sums. A warp covers 16 queries x 16 rows over the slice (at kQB <= 16
+//     half the slice's features, the halves' sums added in a fixed order),
+//     its independent accumulators issued in turn. |q|^2 (l2 mode) is
+//     summed from the first tile's staged slices.
 //   * Per tile, in the tile's turn (named barriers between the groups, so
 //     acc, m and l take their terms in row order), each warp owns kQB / 8
 //     queries: l2 or dot scores and the mask, the online softmax with its
@@ -65,44 +68,45 @@
 //   l2:   score = -sqrt(max(q2 - 2 dot + s2_j, 0)), q2 = sum_k (q8_k qs)^2
 //         (the dequantized query), s2_j the dequantized row's self-norm;
 //   dot:  score = dot.
-// The blocks (16 queries), softmax, label sum, partials and merge are
-// those of K1's pass 1 (nw_common.cuh's nw_partials_kernel, which K2 ran
-// before it moved to the tensor cores). At the CUB-200 shape (B = 64, S =
-// 5994, D = 512) the int8 bank is 3.1 MB (0.96 us at 3.35 TB/s), the int4
-// bank 1.5 MB, and the products 0.39 G int8 operations; neither bound sets
-// the kernel's time (0.047 ms on an H100 at 700 W), the per-tile staging,
-// softmax and label sum and the synchronizations around them do. A stage
-// holds 128 int8 features of a row where K1's holds 32 floats. The products run on __dp4a over 32-bit
-// words staged in shared memory (4 int8 products a word, int32 sums); K5
-// unpacks each packed word into two words of int8 codes as it stages the
-// tile, per byte and exactly (__vsub4 borrows nothing across bytes), so
-// both banks share one inner loop. Tensor-core int8 (mma.sync / wgmma s8)
-// is later work.
+// They run the pass above with T = int8_t; only the product and the score
+// differ. An int8 slice is 128 codes (D = 512 is 4 slices a tile). The
+// int32 sums are exact in any order, so dot_i is the plain version's
+// integer and float(dot_i) its f32 (round to nearest, as .to(float32)):
+// the scores are its bits up to |q|^2's summation order. An int4 slice is
+// 64 packed bytes of each support row (boxes of 64 bytes, the TMA's 64-byte
+// swizzle), the 128 features of the slice's 128 query bytes: a thread's
+// 32-bit load of packed bytes 4t .. 4t + 3 gives both of its B registers,
+// the low nibbles minus 8 for k = 4t .. 4t + 3 and the high nibbles
+// sign-extended for k = 16 + 4t .. 16 + 4t + 3, per byte and exactly
+// (__vsub4 borrows nothing across bytes), so the bank is never widened in
+// memory. The query comes in the matching order (the wrapper permutes its
+// columns once a batch: for each run of 16 packed bytes, their 16 low
+// features, then their 16 high ones), which changes no exact sum. At the
+// million-row bank the int8 bank is 0.54 GB (0.16 ms at 3.35 TB/s; int4
+// 0.08 ms) and the products 69 G int8 operations (0.03 ms at 1,979 TOP/s):
+// the per-tile softmax and label sum are what is left, as for K2 bf16.
 //
 // K6 replaces the same TPU kernel with tile_sel (n_sel > 0,
-// nwhead_tpu/ops/pallas_nw.py:850-856, :969-975): the pass of K2 (f32/bf16
-// banks, nw_prepared_tc_kernel with kSel) or K4/K5 (int8/int4 banks,
-// nw_sel_partials_kernel) over only the bank tiles a list names,
+// nwhead_tpu/ops/pallas_nw.py:850-856, :969-975): the pass of K2/K4/K5
+// (nw_prepared_tc_kernel with kSel) over only the bank tiles a list names,
 // for IVF-pruned serving (nwhead_tpu_torch/ops/ivf.py). The bank is tiled
 // in block_s rows (a multiple of 128); slot r of the list names bank tile
 // tile_sel[r], -1 an empty slot. The list is one row shared by the batch, or
-// one row per group of queries (grouped routing), and a query tile (16
-// queries on int8/int4 banks, kQB on float ones) reads row blockIdx.x /
-// qtiles_per_row: the wrapper pads each group to
-// whole query tiles. What bounds it is what bounds K2/K4/K5, over the
-// union's rows instead of the bank's. The design is K2's, over slot-order
-// rows: slot-order row v is bank row tile_sel[v / block_s] * block_s +
-// v % block_s, and a 64-row score tile never straddles two slots, so an
-// empty slot (or an id past the bank) skips the whole tile,
-// block-uniformly, and leaves the running state as it was. The split
+// one row per group of queries (grouped routing), and a query tile of kQB
+// queries reads row blockIdx.x / qtiles_per_row: the wrapper pads each
+// group to whole query tiles. What bounds it is what bounds K2/K4/K5, over
+// the union's rows instead of the bank's. Slot-order row v is bank row
+// tile_sel[v / block_s] * block_s + v % block_s, and a 64-row score tile
+// never straddles two slots, so an empty slot (or an id past the bank)
+// skips the whole tile and leaves the running state as it was. The split
 // count comes from n_sel, a static shape: nothing is read back to the
 // host, so how many slots hold a tile is known only here. The union's ids
 // come first in the list (ascending, -1 padding after them), so split p
 // takes score tiles p, p + n_splits, p + 2 n_splits, ...: a union of any
 // size spreads over every split, where ranges of slots would leave it to
-// the first few; a float bank's block first gathers its non-empty tiles
-// into a list (up to kTcListCap at a time), so that its ring streams only
-// those. Pass 2 is the same exact merge.
+// the first few; a block first gathers its non-empty tiles into a list (up
+// to kTcListCap at a time), so that its ring streams only those. Pass 2 is
+// the same exact merge.
 
 #include <climits>
 #include <cstdint>
@@ -116,375 +120,8 @@
 
 namespace nw {
 
-// K4/K5's online softmax and label sum of one scored tile: prob (kQueryTile
-// x kSupportTile) holds the scores and is overwritten with p; acc
-// (kQueryTile x C), m_run and l_run are the block's running state. Warp w
-// owns queries w and w + 8. Lane (y mod 32) adds every p_j of class y, so
-// each class has one writer: no atomics, and the order of the sum is fixed.
-// Ends synchronized. nw_partials_kernel (nw_common.cuh) runs the same step
-// inline: calling this function from there made K1 f32 5-6% slower on an
-// H100 (chip_smoke.py's K1/K3 phase, both versions in one run).
-__device__ __forceinline__ void softmax_label_step(float* __restrict__ prob,
-                                                   const int* __restrict__ tile_labels,
-                                                   float* __restrict__ acc, int C,
-                                                   float* __restrict__ m_run,
-                                                   float* __restrict__ l_run) {
-  const int lane = threadIdx.x & 31;
-  for (int b = threadIdx.x >> 5; b < kQueryTile; b += kWarps) {
-    float* row = prob + b * kSupportTile;
-    const float m_prev = m_run[b];
-    const float s0 = row[lane];
-    const float s1 = row[lane + 32];
-    const float m_new = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
-    const float m_safe = m_new > kNeg / 2 ? m_new : 0.f;
-    const float alpha = m_prev > kNeg / 2 ? expf(m_prev - m_safe) : 0.f;
-    const float p0 = s0 > kNeg / 2 ? expf(s0 - m_safe) : 0.f;
-    const float p1 = s1 > kNeg / 2 ? expf(s1 - m_safe) : 0.f;
-    const float p_sum = warp_sum(p0 + p1);
-    row[lane] = p0;
-    row[lane + 32] = p1;
-    __syncwarp();
-    float* acc_row = acc + b * C;
-    for (int c = lane; c < C; c += 32) acc_row[c] *= alpha;
-    for (int j = 0; j < kSupportTile; ++j) {
-      const int y = tile_labels[j];
-      if (y >= 0 && y < C && (y & 31) == lane) acc_row[y] += row[j];
-    }
-    if (lane == 0) {
-      m_run[b] = m_new;
-      l_run[b] = l_run[b] * alpha + p_sum;
-    }
-    __syncwarp();
-  }
-  __syncthreads();
-}
-
-// The block's partials (m, l, acc) for its queries b0 .. b0 + 15 into split
-// `split` of the pass-1 outputs.
-__device__ __forceinline__ void store_partials(const float* __restrict__ acc,
-                                               const float* __restrict__ m_run,
-                                               const float* __restrict__ l_run, int b0, int B,
-                                               int C, int split, float* __restrict__ m_out,
-                                               float* __restrict__ l_out,
-                                               float* __restrict__ acc_out) {
-  const int tid = threadIdx.x;
-  for (int i = tid; i < kQueryTile * C; i += kThreads) {
-    const int b = i / C;
-    if (b0 + b < B) {
-      acc_out[(static_cast<size_t>(split) * B + b0 + b) * C + i % C] = acc[i];
-    }
-  }
-  if (tid < kQueryTile && b0 + tid < B) {
-    m_out[static_cast<size_t>(split) * B + b0 + tid] = m_run[tid];
-    l_out[static_cast<size_t>(split) * B + b0 + tid] = l_run[tid];
-  }
-}
-
-// The integer dot products of one score tile, as tile_dots computes the
-// float ones: thread tid owns query tid / 16 and rows tid % 16 + 16 r. q8 is
-// (B, 4 * q_words) int8 viewed as 32-bit words; the bank row has row_words
-// words: int8 codes (q_words of them), or with kInt4 packed bytes
-// (q_words / 2 of them). A chunk stages 32 words of codes per row: 32 int8
-// words, or 16 packed words unpacked into their 16 low-nibble words
-// (features 4 w ..) and 16 high-nibble words (features D/2 + 4 w ..), with
-// the query's words laid out to match. Words past the row load as 0. Ends
-// synchronized.
-template <bool kInt4>
-__device__ __forceinline__ void quant_tile_dots(const int* __restrict__ q8,
-                                                const unsigned* __restrict__ s, int b0, int B,
-                                                int t0, int r_end, int q_words, int row_words,
-                                                int* __restrict__ smem_tile,
-                                                int (&dot)[kRowsPerThread]) {
-  int* q_chunk = smem_tile;
-  int* s_chunk = q_chunk + kQueryTile * kChunkStride;
-  const int tid = threadIdx.x;
-  const int tq = tid / kThreadsPerQuery;
-  const int tr = tid % kThreadsPerQuery;
-  constexpr int kStep = kInt4 ? kFeatChunk / 2 : kFeatChunk;  // bank words per chunk
-#pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) dot[r] = 0;
-
-  for (int w0 = 0; w0 < row_words; w0 += kStep) {
-#pragma unroll
-    for (int i = 0; i < kQueryTile * kFeatChunk / kThreads; ++i) {
-      const int e = threadIdx.x + i * kThreads;
-      const int b = e / kFeatChunk, p = e % kFeatChunk;
-      // kInt4: words p < 16 are the low half's, p >= 16 the high half's.
-      const int w = kInt4 ? w0 + (p % kStep) : w0 + p;
-      const int src = kInt4 && p >= kStep ? row_words + w : w;
-      int v = 0;
-      if (b0 + b < B && w < row_words) v = q8[static_cast<size_t>(b0 + b) * q_words + src];
-      q_chunk[b * kChunkStride + p] = v;
-    }
-#pragma unroll
-    for (int i = 0; i < kSupportTile * kStep / kThreads; ++i) {
-      const int e = threadIdx.x + i * kThreads;
-      const int j = e / kStep, p = e % kStep;
-      const bool valid = t0 + j < r_end && w0 + p < row_words;
-      const unsigned v = valid ? s[static_cast<size_t>(t0 + j) * row_words + w0 + p] : 0u;
-      if constexpr (kInt4) {
-        // Low nibbles hold code + 8, high nibbles the two's-complement code.
-        const unsigned lo = __vsub4(v & 0x0F0F0F0Fu, 0x08080808u);
-        const unsigned hi = __vsub4(((v >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
-        s_chunk[j * kChunkStride + p] = valid ? static_cast<int>(lo) : 0;
-        s_chunk[j * kChunkStride + kStep + p] = valid ? static_cast<int>(hi) : 0;
-      } else {
-        s_chunk[j * kChunkStride + p] = static_cast<int>(v);
-      }
-    }
-    __syncthreads();
-    const int4* qv = reinterpret_cast<const int4*>(q_chunk + tq * kChunkStride);
-#pragma unroll
-    for (int k4 = 0; k4 < kFeatChunk / 4; ++k4) {
-      const int4 a = qv[k4];
-#pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r) {
-        const int4 c = reinterpret_cast<const int4*>(
-            s_chunk + (tr + kThreadsPerQuery * r) * kChunkStride)[k4];
-        dot[r] = __dp4a(a.x, c.x, dot[r]);
-        dot[r] = __dp4a(a.y, c.y, dot[r]);
-        dot[r] = __dp4a(a.z, c.z, dot[r]);
-        dot[r] = __dp4a(a.w, c.w, dot[r]);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// K4 / K5 pass 1: K2's block layout and shared memory, integer tiles.
-template <bool kInt4>
-__global__ void __launch_bounds__(kThreads, 4)
-nw_quant_partials_kernel(const int8_t* __restrict__ q, const void* __restrict__ s,
-                         const float* __restrict__ s2, const int* __restrict__ labels,
-                         const float* __restrict__ qcol, const float* __restrict__ sscale,
-                         int l2_mode, int B, int S, int D, int C, int rows_per_split,
-                         float* __restrict__ m_out, float* __restrict__ l_out,
-                         float* __restrict__ acc_out) {
-  extern __shared__ float4 smem4[];
-  float* acc = reinterpret_cast<float*>(smem4);
-  int* tile = reinterpret_cast<int*>(acc + kQueryTile * C);
-  float* prob = reinterpret_cast<float*>(tile + kTileSmemFloats);
-  float* q2 = prob + kQueryTile * kSupportTile;
-  float* m_run = q2 + kQueryTile;
-  float* l_run = m_run + kQueryTile;
-  int* tile_labels = reinterpret_cast<int*>(l_run + kQueryTile);
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int b0 = blockIdx.x * kQueryTile;
-  const int split = blockIdx.y;
-  const int r_begin = split * rows_per_split;
-  const int r_end = min(S, r_begin + rows_per_split);
-  const int q_words = D / 4;
-  const int row_words = kInt4 ? D / 8 : D / 4;
-
-  for (int i = tid; i < kQueryTile * C; i += kThreads) acc[i] = 0.f;
-  // |q|^2 of the dequantized queries (l2 mode), one warp per query.
-  for (int b = tid >> 5; b < kQueryTile; b += kWarps) {
-    float sum = 0.f;
-    if (l2_mode && b0 + b < B) {
-      const int8_t* row = q + static_cast<size_t>(b0 + b) * D;
-      const float qs = qcol[b0 + b];
-      for (int k = lane; k < D; k += 32) {
-        const float v = static_cast<float>(row[k]) * qs;
-        sum = fmaf(v, v, sum);
-      }
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) q2[b] = sum;
-  }
-  if (tid < kQueryTile) {
-    m_run[tid] = kNeg;
-    l_run[tid] = 0.f;
-  }
-  __syncthreads();
-
-  const int tq = tid / kThreadsPerQuery;
-  const int tr = tid % kThreadsPerQuery;
-  const float qc = b0 + tq < B ? qcol[b0 + tq] : 0.f;
-
-  for (int t0 = r_begin; t0 < r_end; t0 += kSupportTile) {
-    load_tile_labels(labels, t0, r_end, tile_labels);
-    int dot[kRowsPerThread];
-    quant_tile_dots<kInt4>(reinterpret_cast<const int*>(q), static_cast<const unsigned*>(s), b0,
-                           B, t0, r_end, q_words, row_words, tile, dot);
-#pragma unroll
-    for (int r = 0; r < kRowsPerThread; ++r) {
-      const int j = tr + kThreadsPerQuery * r;
-      float score = kNeg;
-      if (tile_labels[j] >= 0) {
-        // (dot * qcol) * sscale, the TPU kernel's order.
-        const float d = __int2float_rn(dot[r]) * qc * sscale[t0 + j];
-        score = l2_mode ? -l2_dist(q2[tq], d, s2[t0 + j]) : d;
-      }
-      prob[tq * kSupportTile + j] = score;
-    }
-    __syncthreads();
-    softmax_label_step(prob, tile_labels, acc, C, m_run, l_run);
-  }
-  store_partials(acc, m_run, l_run, b0, B, C, split, m_out, l_out, acc_out);
-}
-
-template <bool kInt4>
-cudaError_t launch_quant_forward(cudaStream_t stream, const void* q, const void* s,
-                                 const void* s2, const void* labels, const void* qcol,
-                                 const void* sscale, int l2_mode, int B, int S, int D, int C,
-                                 int n_splits, int rows_per_split, void* m_part, void* l_part,
-                                 void* acc_part, void* out, void* m_final, void* l_final,
-                                 bool partials) {
-  const dim3 grid((B + kQueryTile - 1) / kQueryTile, n_splits);
-  const size_t smem = partials_smem_bytes(C);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        nw_quant_partials_kernel<kInt4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  nw_quant_partials_kernel<kInt4><<<grid, kThreads, smem, stream>>>(
-      static_cast<const int8_t*>(q), s, static_cast<const float*>(s2),
-      static_cast<const int*>(labels), static_cast<const float*>(qcol),
-      static_cast<const float*>(sscale), l2_mode, B, S, D, C, rows_per_split,
-      static_cast<float*>(m_part), static_cast<float*>(l_part), static_cast<float*>(acc_part));
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_merge(stream, partials, m_part, l_part, acc_part, n_splits, B, C, out, m_final,
-                      l_final);
-}
-
-// K6 pass 1: K2's (kQuant false, T float or bf16) or K4/K5's (kQuant true,
-// T int8, kInt4 for the packed bank) block over the selected tiles: split
-// blockIdx.y takes every gridDim.y-th score tile of the slot-order rows
-// (see the note above).
-template <typename T, bool kQuant, bool kInt4>
-__global__ void __launch_bounds__(kThreads, 4)
-nw_sel_partials_kernel(const T* __restrict__ q, const void* __restrict__ s,
-                       const float* __restrict__ s2, const int* __restrict__ labels,
-                       const float* __restrict__ scale_ptr, const float* __restrict__ qcol,
-                       const float* __restrict__ sscale, const int* __restrict__ tile_sel,
-                       int n_sel, int qtiles_per_row, int n_tiles, int block_s, int l2_mode,
-                       int B, int D, int C, float* __restrict__ m_out,
-                       float* __restrict__ l_out, float* __restrict__ acc_out) {
-  extern __shared__ float4 smem4[];
-  float* acc = reinterpret_cast<float*>(smem4);
-  float* tile = acc + kQueryTile * C;
-  float* prob = tile + kTileSmemFloats;
-  float* q2 = prob + kQueryTile * kSupportTile;
-  float* m_run = q2 + kQueryTile;
-  float* l_run = m_run + kQueryTile;
-  int* tile_labels = reinterpret_cast<int*>(l_run + kQueryTile);
-
-  const int tid = threadIdx.x;
-  const int b0 = blockIdx.x * kQueryTile;
-  const int split = blockIdx.y;
-  const int n_score_tiles = n_sel * (block_s / kSupportTile);
-  const int* sel = tile_sel + static_cast<size_t>(blockIdx.x / qtiles_per_row) * n_sel;
-
-  for (int i = tid; i < kQueryTile * C; i += kThreads) acc[i] = 0.f;
-  if constexpr (kQuant) {
-    // |q|^2 of the dequantized queries (l2 mode), one warp per query, as K4.
-    const int lane = tid & 31;
-    for (int b = tid >> 5; b < kQueryTile; b += kWarps) {
-      float sum = 0.f;
-      if (l2_mode && b0 + b < B) {
-        const T* row = q + static_cast<size_t>(b0 + b) * D;
-        const float qs = qcol[b0 + b];
-        for (int k = lane; k < D; k += 32) {
-          const float v = static_cast<float>(row[k]) * qs;
-          sum = fmaf(v, v, sum);
-        }
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) q2[b] = sum;
-    }
-  } else {
-    query_norms(q, b0, B, D, q2);
-  }
-  if (tid < kQueryTile) {
-    m_run[tid] = kNeg;
-    l_run[tid] = 0.f;
-  }
-  __syncthreads();
-
-  const int tq = tid / kThreadsPerQuery;
-  const int tr = tid % kThreadsPerQuery;
-  float mult = 0.f;  // the similarity scale (float banks) or the query's dequant column
-  if constexpr (kQuant) {
-    mult = b0 + tq < B ? qcol[b0 + tq] : 0.f;
-  } else {
-    mult = *scale_ptr;
-  }
-
-  for (int v = split; v < n_score_tiles; v += gridDim.y) {
-    const int v0 = v * kSupportTile;
-    const int id = sel[v0 / block_s];
-    if (id < 0 || id >= n_tiles) continue;  // empty slot: every thread skips the tile
-    const int t0 = id * block_s + v0 % block_s;
-    const int t_end = t0 + kSupportTile;
-    load_tile_labels(labels, t0, t_end, tile_labels);
-    float dot[kRowsPerThread];
-    if constexpr (kQuant) {
-      int idot[kRowsPerThread];
-      quant_tile_dots<kInt4>(reinterpret_cast<const int*>(q), static_cast<const unsigned*>(s),
-                             b0, B, t0, t_end, D / 4, kInt4 ? D / 8 : D / 4,
-                             reinterpret_cast<int*>(tile), idot);
-#pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r) {
-        // (dot * qcol) * sscale, the TPU kernel's order.
-        dot[r] = __int2float_rn(idot[r]) * mult * sscale[t0 + tr + kThreadsPerQuery * r];
-      }
-    } else {
-      tile_dots<false>(q, static_cast<const T*>(s), b0, B, t0, t_end, D, labels, false,
-                       nullptr, tile, dot);
-    }
-#pragma unroll
-    for (int r = 0; r < kRowsPerThread; ++r) {
-      const int j = tr + kThreadsPerQuery * r;
-      float score = kNeg;
-      if (tile_labels[j] >= 0) {
-        if (l2_mode) {
-          score = -l2_dist(q2[tq], dot[r], s2[t0 + j]);
-        } else {
-          score = kQuant ? dot[r] : dot[r] * mult;
-        }
-      }
-      prob[tq * kSupportTile + j] = score;
-    }
-    __syncthreads();
-    softmax_label_step(prob, tile_labels, acc, C, m_run, l_run);
-  }
-  store_partials(acc, m_run, l_run, b0, B, C, split, m_out, l_out, acc_out);
-}
-
-template <typename T, bool kQuant, bool kInt4>
-cudaError_t launch_sel_forward(cudaStream_t stream, const void* q, const void* s, const void* s2,
-                               const void* labels, const void* scale, const void* qcol,
-                               const void* sscale, const void* tile_sel, int n_sel,
-                               int qtiles_per_row, int n_tiles, int block_s, int l2_mode, int B,
-                               int D, int C, int n_splits, void* m_part, void* l_part,
-                               void* acc_part, void* out, void* m_final, void* l_final,
-                               bool partials) {
-  const dim3 grid((B + kQueryTile - 1) / kQueryTile, n_splits);
-  const size_t smem = partials_smem_bytes(C);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        nw_sel_partials_kernel<T, kQuant, kInt4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  nw_sel_partials_kernel<T, kQuant, kInt4><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), s, static_cast<const float*>(s2), static_cast<const int*>(labels),
-      static_cast<const float*>(scale), static_cast<const float*>(qcol),
-      static_cast<const float*>(sscale), static_cast<const int*>(tile_sel), n_sel,
-      qtiles_per_row, n_tiles, block_s, l2_mode, B, D, C, static_cast<float*>(m_part),
-      static_cast<float*>(l_part), static_cast<float*>(acc_part));
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_merge(stream, partials, m_part, l_part, acc_part, n_splits, B, C, out, m_final,
-                      l_final);
-}
-
 // ---------------------------------------------------------------------------
-// K2 and K6 on f32/bf16 banks: the tensor-core pass 1 (see the note above).
+// The tensor-core pass 1 of K2, K4, K5 and K6 (see the note above).
 // ---------------------------------------------------------------------------
 
 constexpr int kTcThreads = 256;                   // a scoring group's threads
@@ -498,9 +135,14 @@ constexpr int kTcMaxQuery = 32;                   // the largest query tile
 constexpr int kTcListCap = 512;                   // K6: score tiles a block gathers at a time
 constexpr int kTcMaxClasses = 8;                  // classes of a tile summed by reductions
 
+// Bytes of a staged support row: a slice's 128 bytes, or of an int4 bank
+// 64 packed bytes (the 128 features of the slice's 128 query bytes).
+__host__ __device__ constexpr int tc_bank_row_bytes(bool int4) { return int4 ? 64 : kTcRowBytes; }
+
 // Query rows staged a slice (an m-tile holds 16), and the bytes of one ring
-// stage: query rows, 64 support rows, the tile's 64 labels and 64
-// self-norms, padded to the swizzle's period.
+// stage: query rows, 64 support rows (room for 128 bytes each), the tile's
+// 64 labels, 64 self-norms and 64 row scales, padded to the swizzle's
+// period.
 __host__ __device__ constexpr int tc_query_rows(int qb) { return qb < 16 ? 16 : qb; }
 __host__ __device__ constexpr int tc_stage_bytes(int qb) {
   return (tc_query_rows(qb) + kSupportTile) * kTcRowBytes + kTcAlign;
@@ -523,12 +165,14 @@ inline size_t tc_smem_bytes(int qb, int C, bool sel) {
 }
 
 struct TcArgs {
-  const void* q;  // (B, D) f32 or bf16
-  const void* s;  // the bank, (bank_rows, D) in q's dtype
+  const void* q;  // (B, D) f32, bf16 or int8 codes (int4 bank: in the bank's k order)
+  const void* s;  // the bank, (bank_rows, ds): q's dtype, or packed int4 bytes
   const float* s2;
   const int* labels;
-  const float* scale;
-  int l2_mode, B, D, C;
+  const float* scale;   // float banks
+  const float* qcol;    // int8/int4 banks: (B,) the query's dequant column
+  const float* sscale;  // int8/int4 banks: (bank_rows,) the rows' scales
+  int l2_mode, B, D, ds, C;
   int tma;                                                  // 0: the rows staged by plain loads
   int S, rows_per_split;                                    // K2
   const int* tile_sel;                                      // K6
@@ -538,10 +182,10 @@ struct TcArgs {
   float* acc_out;
 };
 
-// The TMA's descriptors of q, the bank, its labels and its self-norms
-// (unused when the rows are staged by plain loads).
+// The TMA's descriptors of q, the bank, its labels, self-norms and row
+// scales (unused when the rows are staged by plain loads).
 struct TcMaps {
-  CUtensorMap q, s, labels, s2;
+  CUtensorMap q, s, labels, s2, sscale;
 };
 
 // warp_max / warp_sum (nw_common.cuh) of kN values at once: the same
@@ -569,6 +213,18 @@ __device__ __forceinline__ void warp_sum_n(float (&v)[kN]) {
 // banks.
 __device__ __forceinline__ int swz(int r, int b) {
   return r * kTcRowBytes + ((((b >> 4) ^ r) & 7) << 4) + (b & 15);
+}
+
+// The same for 64-byte rows under the TMA's 64-byte swizzle (an int4
+// bank's staged rows): chunk c of row r sits at chunk c ^ (r / 2 mod 4),
+// so eight rows' 32-bit loads at one offset fall in distinct banks.
+__device__ __forceinline__ int swz64(int r, int b) {
+  return r * 64 + ((((b >> 4) ^ (r >> 1)) & 3) << 4) + (b & 15);
+}
+
+template <int kRowBytes>
+__device__ __forceinline__ int swz_rows(int r, int b) {
+  return kRowBytes == 64 ? swz64(r, b) : swz(r, b);
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
@@ -617,19 +273,20 @@ __device__ __forceinline__ void tma_1d(void* dst, const CUtensorMap* map, int c0
       : "memory");
 }
 
-// Rows r0 .. r0 + kRows - 1, features c0 .. of a (n_rows, D) matrix into a
-// swizzled tile by plain loads of one warp (zeros past n_rows and D): the
-// path of a matrix whose rows the TMA cannot address (D * sizeof(T) not a
-// multiple of 16 bytes, or a base off 16 bytes).
-template <typename T, int kRows>
+// Rows r0 .. r0 + kRows - 1, elements c0 .. of a (n_rows, D) matrix into a
+// swizzled tile of kRowBytes-byte rows by plain loads of one warp (zeros
+// past n_rows and D): the path of a matrix whose rows the TMA cannot
+// address (D * sizeof(T) not a multiple of 16 bytes, or a base off 16
+// bytes).
+template <typename T, int kRows, int kRowBytes = kTcRowBytes>
 __device__ __forceinline__ void stage_plain(const T* __restrict__ x, int D, int r0, int c0,
                                             int n_rows, char* dst) {
-  constexpr int kPerRow = kTcRowBytes / static_cast<int>(sizeof(T));
+  constexpr int kPerRow = kRowBytes / static_cast<int>(sizeof(T));
   for (int i = threadIdx.x & 31; i < kRows * kPerRow; i += 32) {
     const int r = i / kPerRow, k = i % kPerRow;
     T v = vit::from_float<T>(0.f);
     if (r0 + r < n_rows && c0 + k < D) v = x[static_cast<size_t>(r0 + r) * D + c0 + k];
-    *reinterpret_cast<T*>(dst + swz(r, k * static_cast<int>(sizeof(T)))) = v;
+    *reinterpret_cast<T*>(dst + swz_rows<kRowBytes>(r, k * static_cast<int>(sizeof(T)))) = v;
   }
 }
 
@@ -661,17 +318,21 @@ __device__ __forceinline__ void split_rna(const float (&x)[kN], uint32_t (&big)[
 // served ResNet-18 log-probs moved by 4e-3 (H100 80GB HBM3), 20 times the
 // f32 limit; with rounded operands, 2e-3. The fragments of two mma steps are
 // loaded first, then their products are issued accumulator by accumulator
-// in turn, so that no product waits on the one before it.
-template <typename T, int kMI, int kDepth>
+// in turn, so that no product waits on the one before it. int8 (k0 and
+// kDepth in query bytes): s8 m16n8k32 into acc's int32 sums, exact in any
+// order; with kInt4 b holds 64-byte rows of packed bytes, query byte k
+// pairing with packed byte k / 2 (see the note at the top).
+template <typename T, bool kInt4, int kMI, int kDepth>
 __device__ __forceinline__ void tc_product(const char* a, const char* b, int n0, int k0,
-                                           float (&acc)[kMI][2][4]) {
+                                           typename vit::Frag<T>::Acc (&acc)[kMI][2][4]) {
   using F = vit::Frag<T>;
+  using Acc = typename F::Acc;
   constexpr int kSteps = kDepth / F::kK;
   constexpr int kBatch = kSteps < 2 ? kSteps : 2;  // mma steps whose fragments load together
   const int lane = threadIdx.x & 31;
   // This call's sums start from zero (f32: big x big apart from the two
   // small terms) and join acc by round-to-nearest adds at its end.
-  float hi[kMI][2][4] = {}, lo[kMI][2][4] = {};
+  Acc hi[kMI][2][4] = {}, lo[kMI][2][4] = {};
 #pragma unroll
   for (int s0 = 0; s0 < kSteps; s0 += kBatch) {
     typename F::A fa[kBatch][kMI];
@@ -712,20 +373,31 @@ __device__ __forceinline__ void tc_product(const char* a, const char* b, int n0,
 #pragma unroll
           for (int j = 0; j < 2; ++j) vit::mma_tf32(hi[i][j], fa[s][i].big, fb[s][j].big);
       }
-    } else {
+    } else {  // bf16 and int8: 16-byte rows of 8 bf16 or 16 int8 for ldmatrix
 #pragma unroll
       for (int s = 0; s < kBatch; ++s) {
-        const int k = k0 + 16 * (s0 + s);
-        const uint32_t pb = vit::smem_u32(
-            b + swz(n0 + (lane & 7) + (lane >> 4) * 8, 2 * k + ((lane >> 3) & 1) * 16));
-        asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                     : "=r"(fb[s][0].r[0]), "=r"(fb[s][0].r[1]), "=r"(fb[s][1].r[0]),
-                       "=r"(fb[s][1].r[1])
-                     : "r"(pb));
+        const int k = (k0 + F::kK * (s0 + s)) * static_cast<int>(sizeof(T));  // in bytes
+        if constexpr (kInt4) {
+          const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            // Low nibbles hold code + 8, high nibbles the two's-complement code.
+            const uint32_t w =
+                *reinterpret_cast<const uint32_t*>(b + swz64(n0 + 8 * j + g, k / 2 + 4 * t));
+            fb[s][j].r[0] = __vsub4(w & 0x0F0F0F0Fu, 0x08080808u);
+            fb[s][j].r[1] = __vsub4(((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
+          }
+        } else {
+          const uint32_t pb = vit::smem_u32(
+              b + swz(n0 + (lane & 7) + (lane >> 4) * 8, k + ((lane >> 3) & 1) * 16));
+          asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                       : "=r"(fb[s][0].r[0]), "=r"(fb[s][0].r[1]), "=r"(fb[s][1].r[0]),
+                         "=r"(fb[s][1].r[1])
+                       : "r"(pb));
+        }
 #pragma unroll
         for (int i = 0; i < kMI; ++i) {
-          const uint32_t pa =
-              vit::smem_u32(a + swz(16 * i + (lane & 15), 2 * k + (lane >> 4) * 16));
+          const uint32_t pa = vit::smem_u32(a + swz(16 * i + (lane & 15), k + (lane >> 4) * 16));
           asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                        : "=r"(fa[s][i].r[0]), "=r"(fa[s][i].r[1]), "=r"(fa[s][i].r[2]),
                          "=r"(fa[s][i].r[3])
@@ -770,19 +442,24 @@ __device__ __forceinline__ void group_sync(int group) {
 // waits for the other's step on the tile before, named barriers 1 and 2),
 // so acc, m and l take their terms in row order, while one group's
 // products overlap the other's softmax. One block an SM (112 registers a
-// thread).
-template <typename T, int kQB, bool kSel>
+// thread). T = int8_t: K4 (kInt4 false) or K5 (an int4 bank, kInt4).
+template <typename T, int kQB, bool kSel, bool kInt4>
 __global__ void __launch_bounds__(kTcBlock, 1)
     nw_prepared_tc_kernel(const TcArgs a, const __grid_constant__ TcMaps maps) {
   static_assert(kQB % kTcWarps == 0 && kQB <= kTcMaxQuery, "query tile");
+  constexpr bool kQuant = std::is_same_v<T, int8_t>;
+  static_assert(kQuant || !kInt4, "an int4 bank takes int8 queries");
+  using Acc = typename vit::Frag<T>::Acc;  // f32, or exact int32 sums
   constexpr int kChunk = kTcRowBytes / static_cast<int>(sizeof(T));  // features a slice
+  constexpr int kBankRow = tc_bank_row_bytes(kInt4);   // bytes a staged support row
+  constexpr int kBankChunk = kBankRow / static_cast<int>(sizeof(T));  // its elements a slice
   constexpr int kQA = tc_query_rows(kQB);
   constexpr bool kSplitK = tc_score_bufs(kQB) == 2;
   constexpr int kDepth = kSplitK ? kChunk / 2 : kChunk;  // features a warp takes of a slice
   constexpr int kOwn = kQB / kTcWarps;                   // queries a warp owns per tile
   constexpr int kStage = tc_stage_bytes(kQB);
   constexpr int kSupportOff = kQA * kTcRowBytes;             // the stage's support rows
-  constexpr int kLabelOff = kSupportOff + kSupportTile * kTcRowBytes;
+  constexpr int kLabelOff = kSupportOff + kSupportTile * kTcRowBytes;  // labels, s2, scales
   constexpr int kQ2Lanes = kTcThreads / kQA;             // threads that sum one |q|^2
   constexpr int kQ2Feat = kChunk / kQ2Lanes;             // features each takes a slice
   constexpr int kScores = kQB * kTcScoreStride;
@@ -814,10 +491,17 @@ __global__ void __launch_bounds__(kTcBlock, 1)
   uint64_t* gempty = empty + group * kTcStages;
   const int b0 = blockIdx.x * kQB;
   const int split = blockIdx.y;
-  const float scale = *a.scale;
+  const float scale = kQuant ? 1.f : *a.scale;
   const bool l2 = a.l2_mode != 0, tma = a.tma != 0;
   const int C = a.C;
   const int nK = (a.D + kChunk - 1) / kChunk;  // slices a tile
+  // int8/int4: the dequant column of each query this warp owns.
+  float qc[kOwn];
+#pragma unroll
+  for (int o = 0; o < kOwn; ++o) {
+    const int b = b0 + warp + kTcWarps * o;
+    qc[o] = kQuant && !producer && b < a.B ? a.qcol[b] : 0.f;
+  }
 
   for (int i = threadIdx.x; i < kQB * C; i += kTcBlock) acc[i] = 0.f;
   if (threadIdx.x < kTcMaxQuery) {
@@ -831,7 +515,7 @@ __global__ void __launch_bounds__(kTcBlock, 1)
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  float dacc[1][2][4];
+  Acc dacc[1][2][4];
   float q2_sum = 0.f;  // this thread's share of |q|^2 over the first tile's slices
   int used = 0;        // slices the group's ring has taken (its barriers' phases)
   int tiles = 0;       // tiles taken before this chunk (whose group, whose turn)
@@ -900,30 +584,32 @@ __global__ void __launch_bounds__(kTcBlock, 1)
     // the bank and D), or by plain loads (every lane). The last slice of a
     // tile brings its labels and self-norms.
     const auto load = [&](int i, int kc, int q) {
-      const int t0 = origin(i), c0 = kc * kChunk;
+      const int t0 = origin(i), c0 = kc * kChunk, cs = kc * kBankChunk;
       char* st = gring + (q % kTcStages) * kStage;
       uint64_t* bar = gfull + q % kTcStages;
       const bool last = kc == nK - 1;
       if (tma) {
         if (lane == 0) {
-          mbar_expect(bar, (kQA + kSupportTile) * kTcRowBytes +
-                               (last ? (l2 ? 2 : 1) * kSupportTile * 4 : 0));
+          mbar_expect(bar, kQA * kTcRowBytes + kSupportTile * kBankRow +
+                               (last ? (1 + l2 + kQuant) * kSupportTile * 4 : 0));
           tma_2d(st, &maps.q, c0, b0, bar);
-          tma_2d(st + kSupportOff, &maps.s, c0, t0, bar);
+          tma_2d(st + kSupportOff, &maps.s, cs, t0, bar);
           if (last) {
             tma_1d(st + kLabelOff, &maps.labels, t0, bar);
             if (l2) tma_1d(st + kLabelOff + kSupportTile * 4, &maps.s2, t0, bar);
+            if (kQuant) tma_1d(st + kLabelOff + 2 * kSupportTile * 4, &maps.sscale, t0, bar);
           }
         }
       } else {
         stage_plain<T, kQA>(static_cast<const T*>(a.q), a.D, b0, c0, min(a.B, b0 + kQB), st);
-        stage_plain<T, kSupportTile>(static_cast<const T*>(a.s), a.D, t0, c0, row_end(t0),
-                                     st + kSupportOff);
+        stage_plain<T, kSupportTile, kBankRow>(static_cast<const T*>(a.s), a.ds, t0, cs,
+                                               row_end(t0), st + kSupportOff);
         for (int r = lane; last && r < kSupportTile; r += 32) {
           const bool ok = t0 + r < row_end(t0);
-          reinterpret_cast<int*>(st + kLabelOff)[r] = ok ? a.labels[t0 + r] : -1;
-          if (l2) reinterpret_cast<float*>(st + kLabelOff)[kSupportTile + r] =
-              ok ? a.s2[t0 + r] : 0.f;
+          float* tail = reinterpret_cast<float*>(st + kLabelOff);
+          reinterpret_cast<int*>(tail)[r] = ok ? a.labels[t0 + r] : -1;
+          if (l2) tail[kSupportTile + r] = ok ? a.s2[t0 + r] : 0.f;
+          if (kQuant) tail[2 * kSupportTile + r] = ok ? a.sscale[t0 + r] : 0.f;
         }
         __threadfence_block();
         __syncwarp();
@@ -939,17 +625,21 @@ __global__ void __launch_bounds__(kTcBlock, 1)
 #pragma unroll
           for (int e = 0; e < 4; ++e) dacc[0][j][e] = 0.f;
       }
-      tc_product<T, 1, kDepth>(st + (kSplitK ? 0 : swz(16 * wh, 0)), st + kSupportOff, 16 * ws,
-                               kSplitK ? wh * kDepth : 0, dacc);
+      tc_product<T, kInt4, 1, kDepth>(st + (kSplitK ? 0 : swz(16 * wh, 0)), st + kSupportOff,
+                                      16 * ws, kSplitK ? wh * kDepth : 0, dacc);
       const bool first = tiles + i == 0;  // the block's first tile (group 0's)
       if (l2 && first) {
-        // |q|^2 in f32: kQ2Lanes threads a query row, a fixed order.
+        // |q|^2 in f32: kQ2Lanes threads a query row, a fixed order; an
+        // int8 query's dequantized (code x its scale, which l2 mode's
+        // column is).
         const int r = tid / kQ2Lanes, f0 = (tid % kQ2Lanes) * kQ2Feat;
+        const float qs = kQuant && r < kQB && b0 + r < a.B ? a.qcol[b0 + r] : 1.f;
         float sum = 0.f;
 #pragma unroll
         for (int k = 0; k < kQ2Feat; ++k) {
-          const float v = vit::to_float(
+          float v = vit::to_float(
               *reinterpret_cast<const T*>(st + swz(r, (f0 + k) * static_cast<int>(sizeof(T)))));
+          if constexpr (kQuant) v *= qs;
           sum = fmaf(v, v, sum);
         }
 #pragma unroll
@@ -969,8 +659,13 @@ __global__ void __launch_bounds__(kTcBlock, 1)
           const int row = (kSplitK ? 0 : 16 * wh) + (lane >> 2) + 8 * h;
           const int col = 16 * ws + 8 * j + 2 * (lane & 3);
           if (row < kQB) {
-            *reinterpret_cast<float2*>(scw + row * kTcScoreStride + col) =
-                make_float2(dacc[0][j][2 * h], dacc[0][j][2 * h + 1]);
+            if constexpr (kQuant) {  // the integer sums, as they are
+              *reinterpret_cast<int2*>(scw + row * kTcScoreStride + col) =
+                  make_int2(dacc[0][j][2 * h], dacc[0][j][2 * h + 1]);
+            } else {
+              *reinterpret_cast<float2*>(scw + row * kTcScoreStride + col) =
+                  make_float2(dacc[0][j][2 * h], dacc[0][j][2 * h + 1]);
+            }
           }
         }
       if (l2 && first && tid % kQ2Lanes == 0 && tid / kQ2Lanes < kQB) {
@@ -991,6 +686,8 @@ __global__ void __launch_bounds__(kTcBlock, 1)
       const int y0 = lane < n_valid ? lab[lane] : -1;
       const int y1 = lane + 32 < n_valid ? lab[lane + 32] : -1;
       const float s20 = l2 ? s2t[lane] : 0.f, s21 = l2 ? s2t[lane + 32] : 0.f;
+      const float* sst = s2t + kSupportTile;  // int8/int4: the rows' scales
+      const float ss0 = kQuant ? sst[lane] : 0.f, ss1 = kQuant ? sst[lane + 32] : 0.f;
       // The warp's kOwn queries side by side, so that their shuffle trees
       // interleave: x holds the scores, then the p_j.
       float x0[kOwn], x1[kOwn], v[kOwn], alpha[kOwn];
@@ -998,11 +695,23 @@ __global__ void __launch_bounds__(kTcBlock, 1)
       for (int o = 0; o < kOwn; ++o) {
         const int b = warp + kTcWarps * o;
         const float* row = sc + b * kTcScoreStride;
-        const float d0 = kSplitK ? row[lane] + row[kScores + lane] : row[lane];
-        const float d1 = kSplitK ? row[lane + 32] + row[kScores + lane + 32] : row[lane + 32];
+        float d0, d1;
+        if constexpr (kQuant) {
+          // (dot * qcol) * sscale, the TPU kernel's order; the halves'
+          // integer sums add exactly.
+          const int* ri = reinterpret_cast<const int*>(row);
+          const int i0 = kSplitK ? ri[lane] + ri[kScores + lane] : ri[lane];
+          const int i1 = kSplitK ? ri[lane + 32] + ri[kScores + lane + 32] : ri[lane + 32];
+          d0 = __int2float_rn(i0) * qc[o] * ss0;
+          d1 = __int2float_rn(i1) * qc[o] * ss1;
+        } else {
+          d0 = kSplitK ? row[lane] + row[kScores + lane] : row[lane];
+          d1 = kSplitK ? row[lane + 32] + row[kScores + lane + 32] : row[lane + 32];
+        }
         const float q2 = l2 ? q2s[b] : 0.f;
-        x0[o] = y0 < 0 ? kNeg : l2 ? -l2_dist(q2, d0, s20) : d0 * scale;
-        x1[o] = y1 < 0 ? kNeg : l2 ? -l2_dist(q2, d1, s21) : d1 * scale;
+        // int8/int4: the similarity scale rides in the query's column.
+        x0[o] = y0 < 0 ? kNeg : l2 ? -l2_dist(q2, d0, s20) : kQuant ? d0 : d0 * scale;
+        x1[o] = y1 < 0 ? kNeg : l2 ? -l2_dist(q2, d1, s21) : kQuant ? d1 : d1 * scale;
         v[o] = fmaxf(x0[o], x1[o]);
       }
       warp_max_n(v);
@@ -1182,12 +891,13 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A (rows, cols) row-major matrix as boxes of (box_rows, 128 bytes),
-// 128-byte swizzled (rank 2), or a vector as boxes of 64 (rank 1); zeros
-// past its edges. L2 fetches in 256-byte sectors: a box reads 128 bytes of
-// each row, and the next slice the next 128.
+// A (rows, cols) row-major matrix as boxes of (box_rows, box_bytes), under
+// the swizzle of box_bytes (128 or 64) (rank 2), or a vector as boxes of 64
+// (rank 1); zeros past its edges. L2 fetches in 256-byte sectors: a box
+// reads 128 bytes of each row, and the next slice the next 128.
 inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* base,
-                       long long rows, long long cols, int box_rows) {
+                       long long rows, long long cols, int box_rows,
+                       int box_bytes = kTcRowBytes) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint32_t ones[2] = {1, 1};
@@ -1201,56 +911,85 @@ inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type, int elem, con
   }
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kTcRowBytes / elem),
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_bytes / elem),
                              static_cast<cuuint32_t>(box_rows)};
   return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, ones,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_INTERLEAVE_NONE,
+            box_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename T, int kQB, bool kSel>
+template <typename T, int kQB, bool kSel, bool kInt4>
 cudaError_t launch_tc_pass1(cudaStream_t stream, const TcArgs& a, int bank_rows, int n_splits) {
   const size_t smem = tc_smem_bytes(kQB, a.C, kSel);
   const cudaError_t err =
-      cudaFuncSetAttribute(nw_prepared_tc_kernel<T, kQB, kSel>,
+      cudaFuncSetAttribute(nw_prepared_tc_kernel<T, kQB, kSel, kInt4>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
+  constexpr bool kQuant = std::is_same_v<T, int8_t>;
   TcMaps maps{};
   TcArgs args = a;
   constexpr CUtensorMapDataType kType =
-      std::is_same_v<T, float> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+      kQuant ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+             : std::is_same_v<T, float> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   constexpr int kElem = static_cast<int>(sizeof(T));
+  const auto vector_ok = [&](CUtensorMap* map, const void* v) {
+    return reinterpret_cast<uintptr_t>(v) % 16 == 0 &&
+           encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, v, bank_rows, 0, 0);
+  };
   // The TMA addresses rows of a multiple of 16 bytes from a 16-byte aligned
   // base; anything else is staged by plain loads.
-  args.tma = vit::vec16_ok<T>(a.q, a.D) && vit::vec16_ok<T>(a.s, a.D) &&
+  args.tma = vit::vec16_ok<T>(a.q, a.D) && vit::vec16_ok<T>(a.s, a.ds) &&
              reinterpret_cast<uintptr_t>(a.labels) % 16 == 0 &&
-             (!a.l2_mode || reinterpret_cast<uintptr_t>(a.s2) % 16 == 0) &&
              encode_map(&maps.q, kType, kElem, a.q, a.B, a.D, tc_query_rows(kQB)) &&
-             encode_map(&maps.s, kType, kElem, a.s, bank_rows, a.D, kSupportTile) &&
+             encode_map(&maps.s, kType, kElem, a.s, bank_rows, a.ds, kSupportTile,
+                        tc_bank_row_bytes(kInt4)) &&
              encode_map(&maps.labels, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, a.labels, bank_rows, 0,
                         0) &&
-             (!a.l2_mode ||
-              encode_map(&maps.s2, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.s2, bank_rows, 0, 0));
+             (!a.l2_mode || vector_ok(&maps.s2, a.s2)) &&
+             (!kQuant || vector_ok(&maps.sscale, a.sscale));
   const dim3 grid((a.B + kQB - 1) / kQB, n_splits);
-  nw_prepared_tc_kernel<T, kQB, kSel><<<grid, kTcBlock, smem, stream>>>(args, maps);
+  nw_prepared_tc_kernel<T, kQB, kSel, kInt4><<<grid, kTcBlock, smem, stream>>>(args, maps);
   return cudaGetLastError();
 }
 
 // Pass 1 (the tensor-core kernel with kQB = qb) then pass 2 on `stream`.
-template <typename T, bool kSel>
+template <typename T, bool kSel, bool kInt4 = false>
 cudaError_t launch_tc_forward(cudaStream_t stream, int qb, const TcArgs& a, int bank_rows,
                               int n_splits, bool partials, void* out, void* m_final,
                               void* l_final) {
   cudaError_t err = cudaErrorInvalidValue;
   switch (qb) {
-    case 8: err = launch_tc_pass1<T, 8, kSel>(stream, a, bank_rows, n_splits); break;
-    case 16: err = launch_tc_pass1<T, 16, kSel>(stream, a, bank_rows, n_splits); break;
-    case 32: err = launch_tc_pass1<T, 32, kSel>(stream, a, bank_rows, n_splits); break;
+    case 8: err = launch_tc_pass1<T, 8, kSel, kInt4>(stream, a, bank_rows, n_splits); break;
+    case 16: err = launch_tc_pass1<T, 16, kSel, kInt4>(stream, a, bank_rows, n_splits); break;
+    case 32: err = launch_tc_pass1<T, 32, kSel, kInt4>(stream, a, bank_rows, n_splits); break;
     default: break;
   }
   if (err != cudaSuccess) return err;
   return launch_merge(stream, partials, a.m_out, a.l_out, a.acc_out, n_splits, a.B, a.C, out,
                       m_final, l_final);
+}
+
+// Pass 1 and 2 for a bank of `bank` (0 f32, 1 bf16, 2 int8, 3 int4).
+template <bool kSel>
+cudaError_t launch_bank(cudaStream_t stream, int bank, int qb, const TcArgs& a, int bank_rows,
+                        int n_splits, bool partials, void* out, void* m_final, void* l_final) {
+  switch (bank) {
+    case 0:
+      return launch_tc_forward<float, kSel>(stream, qb, a, bank_rows, n_splits, partials, out,
+                                            m_final, l_final);
+    case 1:
+      return launch_tc_forward<__nv_bfloat16, kSel>(stream, qb, a, bank_rows, n_splits, partials,
+                                                    out, m_final, l_final);
+    case 2:
+      return launch_tc_forward<int8_t, kSel, false>(stream, qb, a, bank_rows, n_splits, partials,
+                                                    out, m_final, l_final);
+    case 3:
+      return launch_tc_forward<int8_t, kSel, true>(stream, qb, a, bank_rows, n_splits, partials,
+                                                   out, m_final, l_final);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // Whether the tensor-core pass 1 takes query tiles of qb for C classes on
@@ -1265,24 +1004,53 @@ inline bool tc_config_ok(int qb, int C, bool sel, int device) {
   return tc_smem_bytes(qb, C, sel) <= static_cast<size_t>(optin);
 }
 
+// The checks and arguments every entry point shares: the query is (B, D)
+// (an int8 query for an int4 bank in the bank's k order: D rounded up to
+// 32); d_pad the bank's feature width (int8/int4: a multiple of 4 / 8).
+inline cudaError_t prepared_args(const void* q, const void* s, const void* s2,
+                                 const void* labels, const void* scale, const void* qcol,
+                                 const void* sscale, int B, int d_pad, int C, int l2_mode,
+                                 int bank, int qb, bool sel, bool partials, void* m_final,
+                                 void* l_final, TcArgs* a) {
+  const bool quant = bank == 2 || bank == 3;
+  if (bank < 0 || bank > 3 || B <= 0 || d_pad <= 0 || C <= 0 || q == nullptr ||
+      s == nullptr || labels == nullptr || (l2_mode && s2 == nullptr) ||
+      (partials && (m_final == nullptr || l_final == nullptr)) ||
+      (quant ? (qcol == nullptr || sscale == nullptr || d_pad % (bank == 3 ? 8 : 4) != 0)
+             : scale == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  int device = 0;
+  const cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (C > max_forward_classes(device) || !tc_config_ok(qb, C, sel, device)) {
+    return cudaErrorInvalidValue;
+  }
+  *a = TcArgs{};
+  a->q = q;
+  a->s = s;
+  a->s2 = static_cast<const float*>(s2);
+  a->labels = static_cast<const int*>(labels);
+  a->scale = static_cast<const float*>(scale);
+  a->qcol = static_cast<const float*>(qcol);
+  a->sscale = static_cast<const float*>(sscale);
+  a->l2_mode = l2_mode;
+  a->B = B;
+  a->D = bank == 3 ? (d_pad + 31) / 32 * 32 : d_pad;
+  a->ds = bank == 3 ? d_pad / 2 : d_pad;
+  a->C = C;
+  return cudaSuccess;
+}
+
 }  // namespace nw
 
 extern "C" {
 
-// K4/K5's query tile (and K6's on int8/int4 banks); the support tile of all.
-int nw_prepared_query_tile() { return nw::kQueryTile; }
-
 int nw_prepared_support_tile() { return nw::kSupportTile; }
 
-// Dynamic shared memory of one K4/K5 (and K6 int8/int4) pass-1 block for
-// `n_classes` classes.
-int nw_prepared_smem_bytes(int n_classes) {
-  return static_cast<int>(nw::partials_smem_bytes(n_classes));
-}
-
-// Largest class count whose K4/K5 accumulator fits the device's shared
-// memory; every prepared-bank entry point refuses more (K2's tensor-core
-// pass 1 would take up to 4,768 at its 8-query tile).
+// Largest class count whose K1-layout accumulator fits the device's shared
+// memory (nw_common.cuh); every prepared-bank entry point refuses more,
+// though the tensor-core pass 1 would take up to 4,768 at its 8-query tile.
 int nw_prepared_max_classes(int device) { return nw::max_forward_classes(device); }
 
 const char* nw_prepared_error_string(int code) {
@@ -1319,148 +1087,100 @@ int nw_prepared_forward(const void* q, const void* s, const void* s2,
                         void* l_part, void* acc_part, void* out, void* m_final,
                         void* l_final, int B, int S, int D, int C, int l2_mode, int bf16,
                         int n_splits, int rows_per_split, int qb, int partials, void* stream) {
-  if (!nw::forward_args_ok(B, S, D, C, n_splits, rows_per_split) || rows_per_split % nw::kSupportTile != 0 ||
-      (l2_mode && s2 == nullptr) || (partials && (m_final == nullptr || l_final == nullptr))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  int device = 0;
-  const cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (C > nw::max_forward_classes(device) || !nw::tc_config_ok(qb, C, false, device)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   nw::TcArgs a{};
-  a.q = q;
-  a.s = s;
-  a.s2 = static_cast<const float*>(s2);
-  a.labels = static_cast<const int*>(labels);
-  a.scale = static_cast<const float*>(scale);
-  a.l2_mode = l2_mode;
-  a.B = B;
-  a.D = D;
-  a.C = C;
+  if (!nw::forward_args_ok(B, S, D, C, n_splits, rows_per_split) ||
+      rows_per_split % nw::kSupportTile != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err =
+      nw::prepared_args(q, s, s2, labels, scale, nullptr, nullptr, B, D, C, l2_mode, bf16 ? 1 : 0,
+                        qb, false, partials != 0, m_final, l_final, &a);
+  if (err != cudaSuccess) return static_cast<int>(err);
   a.S = S;
   a.rows_per_split = rows_per_split;
   a.m_out = static_cast<float*>(m_part);
   a.l_out = static_cast<float*>(l_part);
   a.acc_out = static_cast<float*>(acc_part);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      bf16 ? nw::launch_tc_forward<__nv_bfloat16, false>(st, qb, a, S, n_splits, partials != 0,
-                                                         out, m_final, l_final)
-           : nw::launch_tc_forward<float, false>(st, qb, a, S, n_splits, partials != 0, out,
-                                                 m_final, l_final));
+  return static_cast<int>(nw::launch_bank<false>(static_cast<cudaStream_t>(stream), bf16 ? 1 : 0,
+                                                 qb, a, S, n_splits, partials != 0, out, m_final,
+                                                 l_final));
 }
 
-// K4 (int4 == 0) and K5 (int4 != 0): q (B, D) int8 codes, D the padded
-// feature width (a multiple of 4, of 8 for int4); s (S, D) int8 codes, or
-// (S, D / 2) packed int4 bytes; s2 (S,) f32 (l2 mode only, may be null
-// otherwise); labels (S,) int32, -1 = masked; qcol (B,) f32 the query's
-// dequant scale (times the similarity scale in dot mode); sscale (S,) f32
-// the rows' scales; partials, out, m_final, l_final and partials as
-// nw_prepared_forward's. q and s start on 4-byte boundaries. Launches on
-// `stream`, does not synchronize, returns cudaGetLastError().
+// K4 (int4 == 0) and K5 (int4 != 0): D the padded feature width (a
+// multiple of 4, of 8 for int4); s (S, D) int8 codes, or (S, D / 2) packed
+// int4 bytes; q the int8 codes, (B, D) for an int8 bank, or for an int4
+// bank (B, D rounded up to 32) in the bank's k order (see the note at the
+// top); s2 (S,) f32 (l2 mode only, may be null otherwise); labels (S,)
+// int32, -1 = masked; qcol (B,) f32 the query's dequant scale (times the
+// similarity scale in dot mode); sscale (S,) f32 the rows' scales; qb,
+// partials, out, m_final, l_final and partials as nw_prepared_forward's.
+// Launches on `stream`, does not synchronize, returns cudaGetLastError().
 int nw_prepared_quant_forward(const void* q, const void* s, const void* s2, const void* labels,
                               const void* qcol, const void* sscale, void* m_part, void* l_part,
                               void* acc_part, void* out, void* m_final, void* l_final, int B,
                               int S, int D, int C, int l2_mode, int int4, int n_splits,
-                              int rows_per_split, int partials, void* stream) {
-  if (!nw::forward_args_ok(B, S, D, C, n_splits, rows_per_split) || D % (int4 ? 8 : 4) != 0 ||
-      (partials && (m_final == nullptr || l_final == nullptr)) ||
-      (l2_mode && s2 == nullptr) || reinterpret_cast<uintptr_t>(q) % 4 != 0 ||
-      reinterpret_cast<uintptr_t>(s) % 4 != 0) {
+                              int rows_per_split, int qb, int partials, void* stream) {
+  nw::TcArgs a{};
+  if (!nw::forward_args_ok(B, S, D, C, n_splits, rows_per_split) ||
+      rows_per_split % nw::kSupportTile != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int device = 0;
-  const cudaError_t err = cudaGetDevice(&device);
+  const int bank = int4 ? 3 : 2;
+  const cudaError_t err = nw::prepared_args(q, s, s2, labels, nullptr, qcol, sscale, B, D, C,
+                                            l2_mode, bank, qb, false, partials != 0, m_final,
+                                            l_final, &a);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (C > nw::max_forward_classes(device)) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      int4 ? nw::launch_quant_forward<true>(st, q, s, s2, labels, qcol, sscale, l2_mode, B, S, D,
-                                            C, n_splits, rows_per_split, m_part, l_part,
-                                            acc_part, out, m_final, l_final, partials != 0)
-           : nw::launch_quant_forward<false>(st, q, s, s2, labels, qcol, sscale, l2_mode, B, S,
-                                             D, C, n_splits, rows_per_split, m_part, l_part,
-                                             acc_part, out, m_final, l_final, partials != 0));
+  a.S = S;
+  a.rows_per_split = rows_per_split;
+  a.m_out = static_cast<float*>(m_part);
+  a.l_out = static_cast<float*>(l_part);
+  a.acc_out = static_cast<float*>(acc_part);
+  return static_cast<int>(nw::launch_bank<false>(static_cast<cudaStream_t>(stream), bank, qb, a,
+                                                 S, n_splits, partials != 0, out, m_final,
+                                                 l_final));
 }
 
 // K6: the pass of nw_prepared_forward (bank 0 f32, 1 bf16) or
-// nw_prepared_quant_forward (bank 2 int8, 3 int4) over the bank tiles that
-// tile_sel names. The bank has n_tiles * block_s rows, block_s a multiple of
-// 64; tile_sel is (n_rows, n_sel) int32, -1 = empty slot (an id outside
-// [0, n_tiles) is skipped too); query tile i (qb queries: 8, 16 or 32 on
-// a float bank, 16 on a quantized one) reads row i / qtiles_per_row.
-// scale (1,) f32 goes with a float bank; qcol (B,) and sscale (n_tiles *
-// block_s,) f32 with a quantized one, as in those entry points. n_splits
-// splits share the n_sel * block_s / 64 score tiles of slot-order rows in
-// turn; partials m, l (n_splits, B), acc (n_splits, B, C), out (B, C),
-// m_final, l_final and partials as nw_prepared_forward's (empty slots and
-// masked-only tiles leave a query at -FLT_MAX, 0, 0). Launches on
-// `stream`, does not synchronize, returns cudaGetLastError().
+// nw_prepared_quant_forward (bank 2 int8, 3 int4; q and D as there) over
+// the bank tiles that tile_sel names. The bank has n_tiles * block_s rows,
+// block_s a multiple of 64; tile_sel is (n_rows, n_sel) int32, -1 = empty
+// slot (an id outside [0, n_tiles) is skipped too); query tile i (qb
+// queries: 8, 16 or 32) reads row i / qtiles_per_row. scale (1,) f32 goes
+// with a float bank; qcol (B,) and sscale (n_tiles * block_s,) f32 with a
+// quantized one, as in those entry points. n_splits splits share the
+// n_sel * block_s / 64 score tiles of slot-order rows in turn; partials m,
+// l (n_splits, B), acc (n_splits, B, C), out (B, C), m_final, l_final and
+// partials as nw_prepared_forward's (empty slots and masked-only tiles
+// leave a query at -FLT_MAX, 0, 0). Launches on `stream`, does not
+// synchronize, returns cudaGetLastError().
 int nw_prepared_sel_forward(const void* q, const void* s, const void* s2, const void* labels,
                             const void* scale, const void* qcol, const void* sscale,
                             const void* tile_sel, void* m_part, void* l_part, void* acc_part,
                             void* out, void* m_final, void* l_final, int B, int D, int C,
                             int l2_mode, int bank, int n_sel, int qtiles_per_row, int n_tiles,
                             int block_s, int n_splits, int qb, int partials, void* stream) {
-  const bool quant = bank == 2 || bank == 3;
-  if (bank < 0 || bank > 3 || B <= 0 || D <= 0 || C <= 0 || n_sel <= 0 || block_s <= 0 ||
-      (partials && (m_final == nullptr || l_final == nullptr)) ||
-      block_s % nw::kSupportTile != 0 || n_tiles <= 0 || qtiles_per_row <= 0 ||
-      static_cast<long long>(n_sel) * block_s > INT_MAX ||
+  nw::TcArgs a{};
+  if (n_sel <= 0 || block_s <= 0 || block_s % nw::kSupportTile != 0 || n_tiles <= 0 ||
+      qtiles_per_row <= 0 || static_cast<long long>(n_sel) * block_s > INT_MAX ||
       static_cast<long long>(n_tiles) * block_s > INT_MAX || n_splits <= 0 ||
-      n_splits > 48 * 1024 / static_cast<int>(sizeof(float)) || tile_sel == nullptr || (l2_mode && s2 == nullptr) ||
-      (quant ? (qb != nw::kQueryTile || qcol == nullptr || sscale == nullptr ||
-                D % (bank == 3 ? 8 : 4) != 0 || reinterpret_cast<uintptr_t>(q) % 4 != 0 ||
-                reinterpret_cast<uintptr_t>(s) % 4 != 0)
-             : scale == nullptr)) {
+      n_splits > 48 * 1024 / static_cast<int>(sizeof(float)) || tile_sel == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int device = 0;
-  const cudaError_t err = cudaGetDevice(&device);
+  const cudaError_t err = nw::prepared_args(q, s, s2, labels, scale, qcol, sscale, B, D, C,
+                                            l2_mode, bank, qb, true, partials != 0, m_final,
+                                            l_final, &a);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (C > nw::max_forward_classes(device) || (!quant && !nw::tc_config_ok(qb, C, true, device))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!quant) {
-    nw::TcArgs a{};
-    a.q = q;
-    a.s = s;
-    a.s2 = static_cast<const float*>(s2);
-    a.labels = static_cast<const int*>(labels);
-    a.scale = static_cast<const float*>(scale);
-    a.l2_mode = l2_mode;
-    a.B = B;
-    a.D = D;
-    a.C = C;
-    a.tile_sel = static_cast<const int*>(tile_sel);
-    a.n_sel = n_sel;
-    a.qtiles_per_row = qtiles_per_row;
-    a.n_tiles = n_tiles;
-    a.block_s = block_s;
-    a.m_out = static_cast<float*>(m_part);
-    a.l_out = static_cast<float*>(l_part);
-    a.acc_out = static_cast<float*>(acc_part);
-    const int bank_rows = n_tiles * block_s;
-    return static_cast<int>(
-        bank == 1 ? nw::launch_tc_forward<__nv_bfloat16, true>(st, qb, a, bank_rows, n_splits,
-                                                               partials != 0, out, m_final,
-                                                               l_final)
-                  : nw::launch_tc_forward<float, true>(st, qb, a, bank_rows, n_splits,
-                                                       partials != 0, out, m_final, l_final));
-  }
-  if (bank == 2) {
-    return static_cast<int>(nw::launch_sel_forward<int8_t, true, false>(
-        st, q, s, s2, labels, scale, qcol, sscale, tile_sel, n_sel, qtiles_per_row, n_tiles,
-        block_s, l2_mode, B, D, C, n_splits, m_part, l_part, acc_part, out, m_final, l_final,
-        partials != 0));
-  }
-  return static_cast<int>(nw::launch_sel_forward<int8_t, true, true>(
-      st, q, s, s2, labels, scale, qcol, sscale, tile_sel, n_sel, qtiles_per_row, n_tiles,
-      block_s, l2_mode, B, D, C, n_splits, m_part, l_part, acc_part, out, m_final, l_final,
-      partials != 0));
+  a.tile_sel = static_cast<const int*>(tile_sel);
+  a.n_sel = n_sel;
+  a.qtiles_per_row = qtiles_per_row;
+  a.n_tiles = n_tiles;
+  a.block_s = block_s;
+  a.m_out = static_cast<float*>(m_part);
+  a.l_out = static_cast<float*>(l_part);
+  a.acc_out = static_cast<float*>(acc_part);
+  return static_cast<int>(nw::launch_bank<true>(static_cast<cudaStream_t>(stream), bank, qb, a,
+                                                n_tiles * block_s, n_splits, partials != 0, out,
+                                                m_final, l_final));
 }
 
 }  // extern "C"

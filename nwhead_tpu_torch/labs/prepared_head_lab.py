@@ -1,37 +1,41 @@
-"""Prepared-bank head lab: K2 and K6 on f32 and bf16 banks, timed in turns
-on the card and split by device function, for this checkout or another.
+"""Prepared-bank head lab: K2, K4, K5 and K6 on f32, bf16, int8 and int4
+banks, timed in turns on the card and split by device function, for this
+checkout or another.
 
 The port's own lab (no JAX script has it), the sibling of
 ``attn_block_lab``. At B = 64 queries it checks, then times by
 ``labs.timing.interleaved_time`` (in turns, the L2 flushed by a read):
 
-* K2 (``nw_prepared_cuda``) and its partials route
-  (``nw_prepared_partials_cuda``) on the million-row bank: 1,048,576 rows,
-  D = 512, C = 1,000, the last 48,576 masked, drawn as ``chip_smoke.py``
-  draws its ``IVF_BANK`` (class centres N(0, 1), rows a centre plus
-  N(0, 0.5^2) noise, numpy seed 6);
-* K2's partials route on one of four 250,000-row shards of that bank (the
+* the full pass (K2 ``nw_prepared_cuda`` on f32/bf16 banks, K4
+  ``nw_prepared_int8_cuda``, K5 ``nw_prepared_int4_cuda``) and its partials
+  route (``nw_prepared_partials_cuda``, ``..._int8_cuda``,
+  ``..._int4_cuda``) on the million-row bank: 1,048,576 rows, D = 512,
+  C = 1,000, the last 48,576 masked, drawn as ``chip_smoke.py`` draws its
+  ``IVF_BANK`` (class centres N(0, 1), rows a centre plus N(0, 0.5^2)
+  noise, numpy seed 6);
+* the partials route on one of four 250,000-row shards of that bank (the
   sharded full predict runs four);
-* K2 on the CUB bank (S = 5,994, D = 512, C = 200, Gaussian rows, 3%
-  masked) and on the ViT-S/14 serving bank's shape (S = 5,800, D = 384);
-* K6 (``nw_prepared_sel_cuda``) on the million-row bank built by
-  ``prepare_support_ivf`` at 1,024-row tiles (not masked), for the skewed
-  batch (64 queries of 4 classes, n_probe 8, one union) and the diverse one
-  (64 classes, n_probe 4, group_b 16), as ``chip_smoke.py``'s K6 phase,
-  and at full probe (every tile).
+* the full pass on the CUB bank (S = 5,994, D = 512, C = 200, Gaussian
+  rows, 3% masked) and on the ViT-S/14 serving bank's shape (S = 5,800,
+  D = 384);
+* K6 (``nw_prepared_sel_cuda``, ``nw_prepared_sel_quant_cuda``) on the
+  million-row bank built by ``prepare_support_ivf`` at 1,024-row tiles (not
+  masked), for the skewed batch (64 queries of 4 classes, n_probe 8, one
+  union) and the diverse one (64 classes, n_probe 4, group_b 16), as
+  ``chip_smoke.py``'s K6 phase, and at full probe (every tile).
 
-Each at f32 and bf16, held first to its plain version (f32 rtol = atol =
-2e-4, bf16 atol 2e-3), and printed with its split count and the bytes of
-its per-split partials (``(m, l, acc)`` of every split, written by pass 1
-and read by pass 2). On the card each case's device functions are timed by
-``torch.profiler`` (``attn_block_lab.device_split``, the L2 zeroed before
-each call): pass 1 and the merge. ``--tree DIR`` imports
-``nwhead_tpu_torch`` from DIR instead (another commit's checkout, e.g. a
-``git archive`` of it); run the lab by its path then, once per tree and in
-turns (A, B, B, A)::
+Each at every bank precision (``--precisions`` picks some), held first to
+its plain version (f32, int8 and int4 rtol = atol = 2e-4, bf16 atol 2e-3),
+and printed with its split count and the bytes of its per-split partials
+(``(m, l, acc)`` of every split, written by pass 1 and read by pass 2). On
+the card each case's device functions are timed by ``torch.profiler``
+(``attn_block_lab.device_split``, the L2 zeroed before each call): pass 1
+and the merge. ``--tree DIR`` imports ``nwhead_tpu_torch`` from DIR instead
+(another commit's checkout, e.g. a ``git archive`` of it); run the lab by
+its path then, once per tree and in turns (A, B, B, A)::
 
     python -m nwhead_tpu_torch.labs.prepared_head_lab
-    python nwhead_tpu_torch/labs/prepared_head_lab.py --tree DIR
+    python nwhead_tpu_torch/labs/prepared_head_lab.py --tree DIR --precisions int8,int4
     python -m nwhead_tpu_torch.labs.prepared_head_lab --device cpu --tiny
 
 ``--device cpu --tiny`` runs the public entry point
@@ -66,7 +70,20 @@ SEED = 6  # chip_smoke.py's IVF_SEED
 NOISE = 0.5
 BATCHES = (("skewed", 4, 8, None), ("diverse", 64, 4, 16))  # classes, n_probe, group_b
 CYCLES = 9  # rounds of interleaved_time
-TOL = {"f32": dict(rtol=2e-4, atol=2e-4), "bf16": dict(rtol=0.0, atol=2e-3)}
+PRECISIONS = ("f32", "bf16", "int8", "int4")
+# The integer products are exact on both sides, so int8/int4 hold f32's bound.
+TOL = {"f32": dict(rtol=2e-4, atol=2e-4), "bf16": dict(rtol=0.0, atol=2e-3),
+       "int8": dict(rtol=2e-4, atol=2e-4), "int4": dict(rtol=2e-4, atol=2e-4)}
+# Bank precision -> the full pass's name and wrappers: finalizing, partials,
+# tile-selected.
+KERNELS = {
+    "f32": ("K2", "nw_prepared_cuda", "nw_prepared_partials_cuda", "nw_prepared_sel_cuda"),
+    "bf16": ("K2", "nw_prepared_cuda", "nw_prepared_partials_cuda", "nw_prepared_sel_cuda"),
+    "int8": ("K4", "nw_prepared_int8_cuda", "nw_prepared_partials_int8_cuda",
+             "nw_prepared_sel_quant_cuda"),
+    "int4": ("K5", "nw_prepared_int4_cuda", "nw_prepared_partials_int4_cuda",
+             "nw_prepared_sel_quant_cuda"),
+}
 
 
 def _package(tree: Optional[str]):
@@ -144,10 +161,10 @@ class SplitSpy:
         self.F._partials = self.real
 
 
-def cases(F, I, device, tiny: bool):
-    """``[(name, kernel, plain, args, partials)]``: ``kernel`` the counted
+def cases(F, I, device, tiny: bool, precisions=PRECISIONS):
+    """``[(name, kernel, plain, args, prec)]``: ``kernel`` the counted
     wrapper on the card, the public entry point on the CPU; ``plain`` the
-    plain function on the same inputs."""
+    plain function on the same inputs; ``prec`` the bank's precision."""
     import torch
 
     S, D, C, block_s = TINY_BANK if tiny else BANK
@@ -158,27 +175,33 @@ def cases(F, I, device, tiny: bool):
     mask = torch.zeros(S)
     mask[:live] = 1.0
     cpu = device.type == "cpu"
+
+    def entry(qf, **kw):
+        """The public entry point, for the CPU; ``a`` a wrapper's arguments."""
+        return lambda *a: F.nw_fused_from_prepared(qf, a[1], a[4], **kw)
+
+    def prepared(prec, feats, labels, n_classes, qf, **kw):
+        """A wrapper's arguments: the query as the bank takes it, the bank."""
+        prep = F.prepare_support(feats, labels, n_classes, precision=prec, **kw)
+        qq, scale, mode, qscale = F._prepared_query(qf, prep)
+        return (qq, prep, scale, mode, n_classes, qscale)
+
     out = []
-    for prec in ("f32", "bf16"):
-        prep = F.prepare_support(s, sy, C, precision=prec, support_mask=mask)
-        qq, scale, mode, _ = F._prepared_query(q, prep)
-        args = (qq, prep, scale, mode, C)
+    for prec in precisions:
+        kname, full, part, _ = KERNELS[prec]
+        args = prepared(prec, s, sy, C, q, support_mask=mask)
         for partials in (False, True):
-            kernel = (F.nw_prepared_partials_cuda if partials else F.nw_prepared_cuda) \
-                if not cpu else (lambda *a, p=partials, qf=q: F.nw_fused_from_prepared(
-                    qf, a[1], a[4], partials=p))
-            out.append((f"K2 {'partials ' if partials else ''}{prec} million-row bank",
+            kernel = entry(q, partials=partials) if cpu else getattr(F, part if partials else full)
+            out.append((f"{kname} {'partials ' if partials else ''}{prec} million-row bank",
                         kernel, lambda *a, p=partials: F._nw_prepared_plain(*a, partials=p),
-                        args, partials))
+                        args, prec))
     shard = TINY_SHARD if tiny else SHARD
-    for prec in ("f32", "bf16"):
-        prep = F.prepare_support(s[:shard], sy[:shard], C, precision=prec)
-        qq, scale, mode, _ = F._prepared_query(q, prep)
-        kernel = F.nw_prepared_partials_cuda if not cpu else (
-            lambda *a, qf=q: F.nw_fused_from_prepared(qf, a[1], a[4], partials=True))
-        out.append((f"K2 partials {prec} 250,000-row shard", kernel,
+    for prec in precisions:
+        kname, _, part, _ = KERNELS[prec]
+        out.append((f"{kname} partials {prec} 250,000-row shard",
+                    entry(q, partials=True) if cpu else getattr(F, part),
                     lambda *a: F._nw_prepared_plain(*a, partials=True),
-                    (qq, prep, scale, mode, C), True))
+                    prepared(prec, s[:shard], sy[:shard], C, q), prec))
     for bank, (cs, cd, cc) in (("CUB bank", TINY_CUB if tiny else CUB),
                                ("ViT bank", TINY_VIT if tiny else VIT)):
         rng = np.random.default_rng(0)
@@ -186,24 +209,22 @@ def cases(F, I, device, tiny: bool):
         sc = torch.from_numpy(rng.standard_normal((cs, cd), np.float32)).to(device)
         syc = rng.integers(0, cc, size=cs)
         maskc = torch.from_numpy((rng.random(cs) > 0.03).astype(np.float32))
-        for prec in ("f32", "bf16"):
-            prep = F.prepare_support(sc, syc, cc, precision=prec, support_mask=maskc)
-            qq, scale, mode, _ = F._prepared_query(qc, prep)
-            kernel = F.nw_prepared_cuda if not cpu else (
-                lambda *a, qf=qc: F.nw_fused_from_prepared(qf, a[1], a[4]))
-            out.append((f"K2 {prec} {bank}", kernel, F._nw_prepared_plain,
-                        (qq, prep, scale, mode, cc), False))
-    for prec in ("f32", "bf16"):
+        for prec in precisions:
+            kname, full, _, _ = KERNELS[prec]
+            out.append((f"{kname} {prec} {bank}", entry(qc) if cpu else getattr(F, full),
+                        F._nw_prepared_plain,
+                        prepared(prec, sc, syc, cc, qc, support_mask=maskc), prec))
+    for prec in precisions:
+        sel = KERNELS[prec][3]
         ivf = I.prepare_support_ivf(s, sy, C, precision=prec, block_s=block_s)
         full_probe = ("full probe", None, ivf.cents.shape[0], None)
         for name, _, n_probe, group_b in BATCHES + (full_probe,):
             qk, tsel, _ = I._ivf_route(queries.get(name, q), ivf, kernel="euclidean",
                                        kernel_params=None, n_probe=n_probe, group_b=group_b)
-            qq, scale, mode, _ = F._prepared_query(qk, ivf.prep)
-            kernel = F.nw_prepared_sel_cuda if not cpu else (
-                lambda *a, qf=qk: F.nw_fused_from_prepared(qf, a[1], a[4], tile_sel=a[6]))
-            out.append((f"K6 {prec} {name}", kernel, F._nw_prepared_sel_plain,
-                        (qq, ivf.prep, scale, mode, C, None, tsel), False))
+            qq, scale, mode, qscale = F._prepared_query(qk, ivf.prep)
+            out.append((f"K6 {prec} {name}", entry(qk, tile_sel=tsel) if cpu else getattr(F, sel),
+                        F._nw_prepared_sel_plain, (qq, ivf.prep, scale, mode, C, qscale, tsel),
+                        prec))
     return out
 
 
@@ -231,7 +252,12 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--tiny", action="store_true", help="a small bank")
     ap.add_argument("--tree", default=None, help="import nwhead_tpu_torch from this checkout")
+    ap.add_argument("--precisions", default=",".join(PRECISIONS),
+                    help="bank precisions, comma-separated (default: all four)")
     args = ap.parse_args(argv)
+    precisions = tuple(args.precisions.split(","))
+    if set(precisions) - set(PRECISIONS):
+        ap.error(f"--precisions takes {', '.join(PRECISIONS)}")
     F, I, timing, attn_lab = _package(args.tree)
     import torch
 
@@ -246,9 +272,8 @@ def main(argv=None) -> int:
     flush = torch.empty(timing.FLUSH_BYTES // 4, device=device) if device.type == "cuda" else None
     spy = SplitSpy(F)
     try:
-        todo = cases(F, I, device, args.tiny)
-        for name, kernel, plain, a, _ in todo:
-            prec = "bf16" if " bf16 " in f" {name} " else "f32"
+        todo = cases(F, I, device, args.tiny, precisions)
+        for name, kernel, plain, a, prec in todo:
             got = kernel(*a)
             err = check(name, got, plain(*a), prec)
             result["max_abs_err"][name] = err

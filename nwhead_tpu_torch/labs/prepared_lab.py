@@ -11,8 +11,8 @@ numpy seed 0)::
 
 for ``block_s`` 512, 1,024 and 2,048 (f32), bf16 and int8 at 1,024, and B=256
 at f32 and int8. On the card ``block_s`` only pads the bank to whole tiles:
-K2 picks its own splits (``ops/fused_nw.py:_tc_splits``; K4
-``_split_rows``), so the f32 rows differ by their padding. Parity comes
+K2 and K4 pick their own splits (``ops/fused_nw.py:_tc_splits``), so
+the f32 rows differ by their padding. Parity comes
 first, against the raw fused path (K1, the same arithmetic): f32 within
 1e-3, bf16 3e-2, int8 3e-1 of the TPU
 lab's relative error. Each line prints the time and the paired per-cycle

@@ -69,13 +69,11 @@ _API = {
     },
     "nw_prepared": {
         "nw_prepared_forward": ([_VP] * 11 + [_I32] * 10 + [_VP], _I32),
-        "nw_prepared_quant_forward": ([_VP] * 12 + [_I32] * 9 + [_VP], _I32),
+        "nw_prepared_quant_forward": ([_VP] * 12 + [_I32] * 10 + [_VP], _I32),
         "nw_prepared_sel_forward": ([_VP] * 14 + [_I32] * 12 + [_VP], _I32),
         "nw_prepared_tc_smem_bytes": ([_I32] * 3, _I32),
         "nw_prepared_smem_optin": ([_I32], _I32),
-        "nw_prepared_query_tile": ([], _I32),
         "nw_prepared_support_tile": ([], _I32),
-        "nw_prepared_smem_bytes": ([_I32], _I32),
         "nw_prepared_max_classes": ([_I32], _I32),
         "nw_prepared_error_string": ([_I32], ctypes.c_char_p),
     },

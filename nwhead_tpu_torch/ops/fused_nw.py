@@ -18,14 +18,14 @@ for Hopper, built and loaded by ``ops/_cuda.py``:
   ``_tc_query_tile`` and ``_tc_splits`` choose);
 * K4 and K5 ``csrc/nw_prepared.cu`` ``nw_prepared_quant_forward`` (TPU
   ``_nw_prepared_kernel`` with ``quant=True`` / ``quant4=True``): the same
-  over an int8 bank, or an int4 bank of two codes a byte, against a query
-  quantized per row; int32 dot products, dequantized by the query's and the
-  row's scales;
+  kernel over an int8 bank, or an int4 bank of two codes a byte, against a
+  query quantized per row; exact int32 dot products on s8 tensor cores,
+  dequantized by the query's and the row's scales; an int4 bank takes the
+  query's columns in its k order (``_int4_query``);
 * K6 ``csrc/nw_prepared.cu`` ``nw_prepared_sel_forward`` (TPU
-  ``_nw_prepared_kernel`` with ``tile_sel``): K2/K4/K5's pass (K2's very
-  kernel on f32/bf16 banks) over only the bank tiles a list names
-  (IVF-pruned serving, ``ops/ivf.py``), one list for the batch or one per
-  query group.
+  ``_nw_prepared_kernel`` with ``tile_sel``): K2/K4/K5's very kernel over
+  only the bank tiles a list names (IVF-pruned serving, ``ops/ivf.py``),
+  one list for the batch or one per query group.
 
 K1 and K2/K4/K5/K6 also run unfinalized (TPU ``partials=True``:
 ``nw_fused_partials``, ``nw_fused_from_prepared(partials=True)``): the same
@@ -273,6 +273,21 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
     return torch.cat([(b & 0xF) - 8, hi - ((hi & 8) << 1)], dim=1).to(torch.int8)
 
 
+def _int4_query(q8: torch.Tensor) -> torch.Tensor:
+    """An int8 query ``(B, D_pad)`` in the int4 kernel's k order: a 128-byte
+    query slice pairs with 64 packed bytes of each bank row, so for each
+    run of 16 packed bytes come their 16 low-nibble features (``j``), then
+    their 16 high-nibble ones (``j + D_pad / 2``); a last, short run is
+    filled with zeros. ``(B, D_pad rounded up to 32)``, by reshapes on the
+    query's device (no index table to copy over)."""
+    B, width = q8.shape
+    half = width // 2
+    halves = q8.reshape(B, 2, half)
+    if half % 16:
+        halves = torch.nn.functional.pad(halves, (0, _round_up(half, 16) - half))
+    return halves.reshape(B, 2, -1, 16).transpose(1, 2).reshape(B, -1)
+
+
 def bank_codes(prep: PreparedSupport) -> torch.Tensor:
     """The ``(S, D_pad)`` int8 codes of an int8 or int4 bank."""
     return unpack_int4(prep.s) if prep.s.dtype == torch.uint8 else prep.s
@@ -340,14 +355,20 @@ def _softmax_pass_plain(score, labels, n_classes):
     return torch.log(acc / torch.clamp(l, min=1e-30) + LOG_FLOOR), m, l
 
 
+def _quant_dots_plain(q8: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """The integer dot products ``(B, S)`` of int8 queries and bank codes, as
+    f64: exact, since every partial sum is an integer below 2^53."""
+    return torch.matmul(q8.to(torch.float64), codes.to(torch.float64).T)
+
+
 def _quant_scores_plain(q8, qscale, prep, scale, mode):
     """K4/K5's score matrix ``(B, S)``, masked rows ``_NEG_INF``: the int32
-    dot product (exact: an f64 product of integers below 2^53), then
-    ``dot * qcol * sscale`` in f32 with ``qcol = qscale`` (l2) or ``qscale *
-    scale`` (dot: the similarity scale folded into the query's column,
+    dot product (``_quant_dots_plain``, exact), then ``dot * qcol * sscale``
+    in f32 with ``qcol = qscale`` (l2) or ``qscale * scale`` (dot: the
+    similarity scale folded into the query's column,
     ``pallas_nw.py:1334-1344``). l2: ``-sqrt(max(q2 - 2 dot + s2, 0))``
     with ``q2`` the dequantized query's norm."""
-    dot_i = torch.matmul(q8.to(torch.float64), bank_codes(prep).to(torch.float64).T)
+    dot_i = _quant_dots_plain(q8, bank_codes(prep))
     qcol = qscale if mode == "l2" else qscale * scale
     dot = dot_i.to(torch.float32) * qcol[:, None] * prep.sscale[None, :]
     if mode == "l2":
@@ -523,7 +544,7 @@ def _nw_bwd_ds_plain(q, s, labels, u, r, m, l, scale, mode, n_classes) -> torch.
 
 
 def _split_rows(n_rows: int, n_query_tiles: int, n_sms: int, tile: int) -> Tuple[int, int]:
-    """Support rows per split and the split count: enough splits that the
+    """K1's and K3's support rows per split and split count: enough splits that the
     grid (query tiles x splits) holds about 8 blocks per SM, so that blocks
     waiting on memory are covered by others (a block does not prefetch),
     and no split shorter than one tile. On an H100 at the CUB-200 bank this
@@ -534,7 +555,7 @@ def _split_rows(n_rows: int, n_query_tiles: int, n_sms: int, tile: int) -> Tuple
     return rows, math.ceil(n_rows / rows)
 
 
-# The tensor-core pass 1 of K2 and K6 on f32/bf16 banks
+# The tensor-core pass 1 of K2, K4, K5 and K6, every prepared bank
 # (``csrc/nw_prepared.cu``: ``nw_prepared_tc_kernel``); these mirror its
 # constants and ``tc_smem_bytes``.
 _TC_QUERY_TILES = (32, 16, 8)  # queries a block, the largest that fits first
@@ -619,8 +640,6 @@ def _check_prepared(name: str, q: torch.Tensor, prep: PreparedSupport, scale: to
         if qcol.shape != (B,) or prep.sscale.shape != (S,):
             raise ValueError(f"{name}: qscale {tuple(qcol.shape)} / sscale "
                              f"{tuple(prep.sscale.shape)} for B={B}, S={S}")
-        if q.data_ptr() % 4 or s.data_ptr() % 4:
-            raise ValueError(f"{name}: query and bank must start on a 4-byte boundary")
     for arg, t, dt in checked:
         if t.device != q.device or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"{name}: {arg} needs contiguous {dt} on {q.device}, "
@@ -663,22 +682,20 @@ def _prepared_launch(name: str, q: torch.Tensor, prep: PreparedSupport, scale: t
     """Check a prepared-bank kernel's operands and launch it on the current
     stream: pass 1 writes per-split partials (m, l, acc), pass 2 merges them
     and takes the log, or with ``partials`` returns the merged ``(m, l,
-    acc)`` unfinalized. ``qscale`` goes with an int8/int4 bank only. A
-    float bank's pass 1 is the tensor-core kernel (``_tc_query_tile``,
-    ``_tc_splits``); a quantized bank's splits follow ``_split_rows``."""
+    acc)`` unfinalized. ``qscale`` goes with an int8/int4 bank only. Every
+    bank's pass 1 is the tensor-core kernel (``_tc_query_tile``,
+    ``_tc_splits``); an int4 bank takes the query in its k order
+    (``_int4_query``)."""
     lib, qcol = _check_prepared(name, q, prep, scale, mode, n_classes, qscale, bank_dtypes,
                                 query_dtype)
     s, labels, s2 = prep.s, prep.labels, prep.s2
     quant, l2 = qcol is not None, mode == "l2"
     (B, D), S = q.shape, s.shape[0]
-    q = q.contiguous()
+    int4 = s.dtype == torch.uint8
+    q = _int4_query(q) if int4 else q.contiguous()
     n_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    if quant:
-        rows, n_splits = _split_rows(S, math.ceil(B / lib.nw_prepared_query_tile()), n_sms,
-                                     lib.nw_prepared_support_tile())
-    else:
-        qb = _tc_query_tile(B, n_classes, False, _smem_optin(lib, q.device))
-        rows, n_splits = _tc_splits(S, math.ceil(B / qb), n_sms)
+    qb = _tc_query_tile(B, n_classes, False, _smem_optin(lib, q.device))
+    rows, n_splits = _tc_splits(S, math.ceil(B / qb), n_sms)
     bufs, ptrs = _partials(n_splits, B, n_classes, q.device, partials)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
@@ -686,7 +703,7 @@ def _prepared_launch(name: str, q: torch.Tensor, prep: PreparedSupport, scale: t
             rc = lib.nw_prepared_quant_forward(
                 q.data_ptr(), s.data_ptr(), s2.data_ptr() if l2 else None, labels.data_ptr(),
                 qcol.data_ptr(), prep.sscale.data_ptr(), *ptrs, B, S, D, n_classes,
-                int(l2), int(s.dtype == torch.uint8), n_splits, rows, int(partials), stream)
+                int(l2), int(int4), n_splits, rows, qb, int(partials), stream)
         else:
             rc = lib.nw_prepared_forward(
                 q.data_ptr(), s.data_ptr(), s2.data_ptr() if l2 else None,
@@ -799,14 +816,13 @@ def _prepared_sel_launch(name: str, q: torch.Tensor, prep: PreparedSupport,
                          qscale: Optional[torch.Tensor], tile_sel: torch.Tensor, bank_dtypes,
                          query_dtype, partials: bool = False):
     """Check K6's operands and launch it on the current stream. A query
-    tile of the kernel (16 queries on an int8/int4 bank, ``_tc_query_tile``'s
-    on a float one, no larger than a routing group) reads one ``tile_sel``
-    row, so under grouped routing each group is padded to whole query tiles
-    with copies of its last query (dropped from the output). The split
-    count comes from ``n_sel``, a static shape, as K2's comes from the
-    bank's rows; the splits take the score tiles in turn, so the union
-    spreads over all of them. Nothing is read back from the card.
-    ``partials`` as in ``_prepared_launch``."""
+    tile of the kernel (``_tc_query_tile``'s, no larger than a routing
+    group) reads one ``tile_sel`` row, so under grouped routing each group
+    is padded to whole query tiles with copies of its last query (dropped
+    from the output). The split count comes from ``n_sel``, a static shape,
+    as K2's comes from the bank's rows; the splits take the score tiles in
+    turn, so the union spreads over all of them. Nothing is read back from
+    the card. ``partials`` as in ``_prepared_launch``."""
     lib, qcol = _check_prepared(name, q, prep, scale, mode, n_classes, qscale, bank_dtypes,
                                 query_dtype)
     tile = lib.nw_prepared_support_tile()
@@ -816,26 +832,20 @@ def _prepared_sel_launch(name: str, q: torch.Tensor, prep: PreparedSupport,
         raise ValueError(f"{name}: tile_sel on {tile_sel.device}, queries on {q.device}")
     sel, group_b = _sel_rows(tile_sel, q.shape[0])
     n_groups, n_sel = sel.shape
-    quant = qcol is not None
-    if quant:
-        qt = lib.nw_prepared_query_tile()
-    else:
-        qt = _tc_query_tile(group_b, n_classes, True, _smem_optin(lib, q.device))
+    qt = _tc_query_tile(group_b, n_classes, True, _smem_optin(lib, q.device))
     group_pad = _round_up(group_b, qt) if n_groups > 1 else group_b
     if group_pad != group_b:
         pick = (torch.arange(n_groups, device=q.device)[:, None] * group_b
                 + torch.arange(group_pad, device=q.device).clamp(max=group_b - 1)).reshape(-1)
         q = q[pick]
         qcol = None if qcol is None else qcol[pick]
-    q, sel = q.contiguous(), sel.contiguous()
     B, D = q.shape
+    q = _int4_query(q) if prep.s.dtype == torch.uint8 else q.contiguous()
+    sel = sel.contiguous()
     n_query_tiles = math.ceil(B / qt)
     qtiles_per_row = group_pad // qt if n_groups > 1 else n_query_tiles
     n_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    if quant:
-        _, n_splits = _split_rows(n_sel * prep.block_s, n_query_tiles, n_sms, tile)
-    else:
-        _, n_splits = _tc_splits(n_sel * prep.block_s, n_query_tiles, n_sms)
+    _, n_splits = _tc_splits(n_sel * prep.block_s, n_query_tiles, n_sms)
     bufs, ptrs = _partials(n_splits, B, n_classes, q.device, partials)
     l2 = mode == "l2"
     with torch.cuda.device(q.device):

@@ -350,6 +350,34 @@ def test_lab_cli_runs_on_the_cpu(argv, monkeypatch, capsys):
     assert "timing not measured" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("precisions", [None, "int8,int4"])
+def test_prepared_head_lab_covers_every_bank_precision(precisions, capsys):
+    """``prepared_head_lab --device cpu --tiny`` holds every case of every
+    bank precision asked for (all four by default) to its plain version:
+    the million-row bank and its partials route, one shard, the CUB and ViT
+    banks, K6 skewed, diverse and at full probe; K4 names the int8 bank's
+    cases, K5 the int4 bank's."""
+    import json
+
+    from nwhead_tpu_torch.labs import prepared_head_lab
+
+    argv = ["--device", "cpu", "--tiny"] + ([] if precisions is None else
+                                            ["--precisions", precisions])
+    assert prepared_head_lab.main(argv) == 0
+    errs = json.loads(capsys.readouterr().out.strip().splitlines()[-1])["max_abs_err"]
+    want = ("f32", "bf16", "int8", "int4") if precisions is None else ("int8", "int4")
+    names = {"f32": "K2", "bf16": "K2", "int8": "K4", "int4": "K5"}
+    expected = set()
+    for prec in want:
+        k = names[prec]
+        expected |= {f"{k} {prec} million-row bank", f"{k} partials {prec} million-row bank",
+                     f"{k} partials {prec} 250,000-row shard", f"{k} {prec} CUB bank",
+                     f"{k} {prec} ViT bank", f"K6 {prec} skewed", f"K6 {prec} diverse",
+                     f"K6 {prec} full probe"}
+    assert set(errs) == expected
+    assert max(errs.values()) <= 2e-3
+
+
 def test_lab_cli_without_a_card_is_an_error(monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")

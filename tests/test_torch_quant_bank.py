@@ -13,6 +13,7 @@ CUDA kernels are tested on the card only (marker ``gpu``), with
 ``python -m pytest --noconftest -m gpu tests/test_torch_quant_bank.py``.
 """
 
+import contextlib
 import warnings
 
 import numpy as np
@@ -224,8 +225,136 @@ def test_quant_wrappers_refuse_cpu_tensors():
             wrapper(q8, prep, scale, mode, 5, qscale)
 
 
+def _int4_dots_in_kernel_order(q_k: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
+    """The int4 kernel's integer dot products, in its layout: the query in
+    its k order (``_int4_query``) against the packed bank's bytes, run by
+    run, the low nibbles (minus 8) with the run's first 16 query bytes and
+    the high nibbles (sign-extended) with its last 16; bytes past the row
+    read as 0, as the kernel stages them. int64 ``(B, S)``."""
+    S, half = packed.shape
+    b = torch.nn.functional.pad(packed.to(torch.int64), (0, -(-half // 16) * 16 - half))
+    runs = b.reshape(S, -1, 16)
+    low, hi = (runs & 0xF) - 8, (runs >> 4) & 0xF
+    hi = hi - ((hi & 8) << 1)
+    codes = torch.cat([low, hi], dim=2).reshape(S, -1)  # the bank in the kernel's k order
+    return q_k.to(torch.int64) @ codes.T
+
+
+@pytest.mark.parametrize("width", [8, 40, 392, 512])
+def test_int4_query_order_gives_the_exact_products(width):
+    """The int4 kernel's k order (``_int4_query``: per run of 16 packed
+    bytes, their low features, then their high ones) against the packed
+    bank's nibbles in that layout gives q8 . codes exactly, for ragged
+    D_pad too (a last run shorter than 16 bytes, padded with zeros); and
+    one permutation of both operands leaves the integer sums as they are."""
+    rng = np.random.default_rng(width)
+    q8 = torch.from_numpy(rng.integers(-127, 128, (6, width)).astype(np.int8))
+    codes = torch.from_numpy(rng.integers(-7, 8, (50, width)).astype(np.int8))
+    packed = tfused._int4_pack(codes)
+    assert torch.equal(tfused.unpack_int4(packed), codes)
+    want = q8.to(torch.int64) @ codes.to(torch.int64).T
+    q_k = tfused._int4_query(q8)
+    assert q_k.shape == (6, -(-width // 32) * 32) and q_k.dtype == torch.int8
+    assert torch.equal(_int4_dots_in_kernel_order(q_k, packed), want)
+    perm = torch.from_numpy(rng.permutation(width))
+    assert torch.equal(q8[:, perm].to(torch.int64) @ codes[:, perm].to(torch.int64).T, want)
+
+
+@pytest.mark.parametrize("D", [37, 512, 2048])
+def test_plain_quant_dots_are_the_int32_sums(D):
+    """The plain K4/K5 dot products are the exact integer sums, and their
+    f32 is the integer rounded to nearest (``__int2float_rn``), also past
+    2^24 (D = 2,048 at full codes): the bits the kernel must reproduce."""
+    rng = np.random.default_rng(D)
+    q8 = rng.integers(-127, 128, (5, D)).astype(np.int8)
+    codes = rng.integers(-127, 128, (40, D)).astype(np.int8)
+    codes[0] = np.where(q8[0] >= 0, 127, -127)  # |dot| up to 127^2 D
+    q8[0] = np.where(q8[0] >= 0, 127, -127)
+    exact = q8.astype(np.int64) @ codes.astype(np.int64).T
+    got = tfused._quant_dots_plain(torch.from_numpy(q8), torch.from_numpy(codes))
+    assert np.array_equal(got.numpy(), exact.astype(np.float64))
+    assert np.array_equal(got.to(torch.float32).numpy(), exact.astype(np.float32))
+    assert D < 2048 or abs(exact[0, 0]) > 1 << 24
+
+
+class _FakeLibrary:
+    """Records the K4/K5/K6 entry points' arguments instead of launching."""
+
+    def __init__(self):
+        self.calls = []
+
+    def nw_prepared_quant_forward(self, *args):
+        self.calls.append(("quant", args))
+        return 0
+
+    def nw_prepared_sel_forward(self, *args):
+        self.calls.append(("sel", args))
+        return 0
+
+    def nw_prepared_support_tile(self):
+        return 64
+
+
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_quant_launch_takes_the_tensor_core_plan(precision, monkeypatch):
+    """The K4/K5 and K6 int8/int4 wrappers plan as the float banks do: on
+    the million-row bank (2^20 rows, C = 1,000, B = 64, an H100's 132 SMs)
+    32 queries a block and 66 splits; K6 on the skewed batch's union (60
+    tiles of 1,024) 32 queries and ``_tc_splits``' count; an int4 bank gets
+    the query in its k order (D_pad rounded up to 32 columns)."""
+    lib = _FakeLibrary()
+
+    def check(name, q, prep, scale, mode, n_classes, qscale, *rest):
+        return lib, qscale
+
+    class _Props:
+        multi_processor_count = 132
+
+    class _Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(tfused, "_check_prepared", check)
+    monkeypatch.setattr(tfused, "_smem_optin", lambda lib, device: tfused.H100_SMEM_OPTIN)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda device: _Props())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: _Stream())
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    seen = []
+    real = tfused._int4_query
+    monkeypatch.setattr(tfused, "_int4_query", lambda q: seen.append(real(q)) or seen[-1])
+    S, D, C, B = 1 << 20, 512, 1000, 64
+    dtype = torch.int8 if precision == "int8" else torch.uint8
+    width = D if precision == "int8" else D // 2
+    prep = tfused.PreparedSupport(
+        s=torch.empty((S, width), dtype=dtype), s2=torch.empty(S), labels=torch.empty(
+            S, dtype=torch.int32), sscale=torch.empty(S), block_s=1024)
+    q8 = torch.from_numpy(np.random.default_rng(0).integers(-127, 128, (B, D)).astype(np.int8))
+    wrapper = {"int8": tfused.nw_prepared_int8_cuda, "int4": tfused.nw_prepared_int4_cuda}[
+        precision]
+    wrapper(q8, prep, torch.ones(1), "l2", C, torch.ones(B))
+    kind, args = lib.calls[-1]
+    assert kind == "quant"
+    (B_, S_, D_, C_, l2, int4, n_splits, rows, qb, partials) = args[12:22]
+    assert (B_, S_, D_, C_, l2, int4, partials) == (B, S, D, C, 1, int(precision == "int4"), 0)
+    assert (qb, n_splits) == (32, 66) and n_splits * rows >= S > (n_splits - 1) * rows
+    if precision == "int4":
+        assert args[0] == seen[-1].data_ptr() and torch.equal(seen[-1], real(q8))
+    tile_sel = torch.cat([torch.arange(60, dtype=torch.int32), torch.full((4,), -1,
+                                                                          dtype=torch.int32)])
+    tfused.nw_prepared_sel_quant_cuda(q8, prep, torch.ones(1), "l2", C, torch.ones(B), tile_sel)
+    kind, args = lib.calls[-1]
+    assert kind == "sel"
+    (B_, D_, C_, l2, bank, n_sel, per_row, n_tiles, block_s, n_splits, qt, partials) = \
+        args[14:26]
+    assert (B_, D_, bank, n_sel, n_tiles, block_s, qt) == (
+        B, D, 2 if precision == "int8" else 3, 64, 1024, 1024, 32)
+    assert n_splits == tfused._tc_splits(64 * 1024, 2, 132)[1]
+
+
 GPU_SHAPES = [(64, 5994, 512, 200), (8, 5800, 512, 200), (64, 5800, 384, 200),
-              (37, 1001, 509, 150), (1, 1, 3, 1), (17, 65, 33, 129)]
+              (37, 1001, 509, 150), (1, 1, 3, 1), (17, 65, 33, 129),
+              # C = 1,000, class-sorted: query tiles of 8, 16, 32 and 32
+              (8, 20_000, 512, 1000), (16, 20_000, 512, 1000), (32, 20_000, 512, 1000),
+              (64, 20_000, 512, 1000)]
 
 
 @pytest.mark.gpu
@@ -234,8 +363,10 @@ GPU_SHAPES = [(64, 5994, 512, 200), (8, 5800, 512, 200), (64, 5800, 384, 200),
 def test_cuda_quant_kernel_matches_plain(precision, shape):
     """On the card: K4/K5 vs the plain version, all five kernels, masked rows
     holding NaN, at the CUB-200 shape, the training eval's B=8, the ViT-S/14
-    bank's D=384, and ragged ones (D off the word and the chunk, one row,
-    one class); rtol=atol=2e-4."""
+    bank's D=384, ragged ones (D off the word and the chunk, one row, one
+    class) and C = 1,000 at B = 8, 16, 32 and 64 (each query tile);
+    rtol=atol=2e-4. Two calls give the same bits; at C > 128 the
+    ``partials=True`` route holds its plain version too."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (and nvcc to build the kernel)")
     B, S, D, C = shape
@@ -258,12 +389,21 @@ def test_cuda_quant_kernel_matches_plain(precision, shape):
         q8, scale, mode, qscale = tfused._prepared_query(q, prep, kernel, params)
         before = wrapper.launches
         got = wrapper(q8, prep, scale, mode, C, qscale)
+        again = wrapper(q8, prep, scale, mode, C, qscale)
         want = tfused._nw_prepared_plain(q8, prep, scale, mode, C, qscale)
         torch.cuda.synchronize()
-        assert wrapper.launches == before + 1
+        assert wrapper.launches == before + 2
         torch.testing.assert_close(got, want, **TOL)
+        assert torch.equal(got, again)
         torch.testing.assert_close(tfused.nw_fused_from_prepared(q, prep, C, kernel=kernel,
                                                                  kernel_params=params), got)
+        if C > 128:
+            partials = {"int8": tfused.nw_prepared_partials_int8_cuda,
+                        "int4": tfused.nw_prepared_partials_int4_cuda}[precision]
+            for g, w in zip(partials(q8, prep, scale, mode, C, qscale),
+                            tfused._nw_prepared_plain(q8, prep, scale, mode, C, qscale,
+                                                      partials=True)):
+                torch.testing.assert_close(g, w, **TOL)
 
 
 @pytest.mark.gpu
