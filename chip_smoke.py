@@ -25,9 +25,11 @@ package beside it. With one, in order:
    and ds) against their plain versions, all five similarity kernels, f32
    and bf16, masked rows holding NaN, at the training episode's shape (B=8,
    S=1200, D=512, C=200), at B=64, S=5994, at a ragged B=37, S=1001, at
-   C=10 and at the episode's shape with six queries copied into the
-   support, clip's scale gradient included; times each at the episode's
-   shape;
+   C=10 and with six queries copied into the support at the episode's
+   shape and at B=64 (K1 and dq on 8- and 32-query tiles), clip's scale
+   gradient included; K1 and dq each called twice for the same bits;
+   times each at the episode's shape and at B=64, and prints K1's and
+   dq's device functions (pass 1, the merge; ``raw_split``);
 5. ViT kernel phase: K7 (attention off the packed qkv) f32 and bf16 at
    ViT-S/14's B=64, N=257, H=6, hd=64, at a ragged N=197, at N=1370, at
    ViT-B/14's 12 heads and at the edges of its tiles (N of 1, 8, 16, 17,
@@ -85,7 +87,8 @@ package beside it. With one, in order:
 9a. partials and K12 kernel phase: K1 ``partials=True`` against its plain
     version, all five kernels, f32 and bf16, masked rows holding NaN and an
     all-masked support, at the training episode's shape, at B=64, S=5,994
-    and at a streamed chunk's (B=64, 65,536 rows, C=1,000); K2/K4/K5
+    and at a streamed chunk's (B=64, 65,536 rows, C=1,000, labels in row
+    order), each called twice for the same bits; K2/K4/K5
     ``partials=True`` at the CUB shape, every kernel and bank precision, and
     K6 ``partials=True`` there over a list of 1,024-row tiles with empty
     slots; K12 (``fused_attention``, K7's kernel on q, k, v by their
@@ -157,7 +160,8 @@ package beside it. With one, in order:
     block's qkv, proj, fc1 and fc2 weights moved, and holds K8 and the K9
     backward to their plain versions on one block's tensors of the first
     step. It prints the step time split by CUDA events, each featurizer
-    kernel's time at the step's own shapes against the step, and the peak
+    kernel's time at the step's own shapes against the step (K8's beside
+    its bound at that shape), and the peak
     device memory; compares every parameter gradient of the fused featurizer with
     the plain (``xla``) one on a small episode (``--n_way 4 --n_shot 1``);
     then trains 3 steps with ``--bf16``, steps 2-3 timed by CUDA events, the
@@ -247,6 +251,7 @@ RAW_CASES = (  # name, B, S, D, C, queries copied into the support; the first
     ("c10_b8", 8, 1200, 512, 10, 0),
     ("dup_b8", 8, 1200, 512, 200, 6),
     ("episode_d384", 8, 1200, 384, 200, 0),  # the ViT-S/14 training episode
+    ("dup_b64", 64, 5994, 512, 200, 6),  # 32-query tiles: no split-K halves
 )
 PREPARED_SOURCE = "nwhead_tpu_torch/csrc/nw_prepared.cu"
 FUSED_SOURCE = "nwhead_tpu_torch/csrc/nw_fused.cu"
@@ -255,6 +260,12 @@ REPLACES = {
     "nw_fwd": "nwhead_tpu/ops/pallas_nw.py:579",
     "nw_bwd_dq": "nwhead_tpu/ops/pallas_nw.py:1749",
     "nw_bwd_ds": "nwhead_tpu/ops/pallas_nw.py:1788",
+}
+# The raw path's kernels: their source and device functions (pass 1, merge).
+RAW_KERNELS = {
+    "nw_fwd": (PREPARED_SOURCE, "nw_prepared_tc_kernel (raw rows), nw_merge_kernel"),
+    "nw_bwd_dq": (FUSED_SOURCE, "nw_raw_dq_tc_kernel, nw_bwd_dq_merge_kernel"),
+    "nw_bwd_ds": (FUSED_SOURCE, "nw_bwd_ds_kernel"),
 }
 TRAIN_ARGV = [
     "--dataset", "synthetic_cub", "--arch", "resnet18", "--batch_size", "8", "--n_shot", "6",
@@ -499,6 +510,9 @@ def check_raw_kernels(qn, sn, labels, scale, mode, C, g, prec, where: str,
     u = (g * torch.exp(-want[0])).contiguous()
     r = torch.sum(u * (torch.exp(want[0]) - 1e-12), dim=-1, keepdim=True)
     dq = F.nw_bwd_dq_cuda(qn, sn, labels, u, r, want[1], want[2], scale, mode, C)
+    same_bits(f"K1 {where} {prec}", lambda: F.nw_fwd_cuda(qn, sn, labels, scale, mode, C))
+    same_bits(f"K3 dq {where} {prec}", lambda: F.nw_bwd_dq_cuda(
+        qn, sn, labels, u, r, want[1], want[2], scale, mode, C))
     ds = F.nw_bwd_ds_cuda(qn, sn, labels, u, r, want[1], want[2], scale, mode, C)
     dq_p, ds_p = F._nw_bwd_plain(rq, rs, labels, u, r, want[1], want[2], scale, mode, C)
     torch.cuda.synchronize()
@@ -585,7 +599,28 @@ def raw_kernel_phase(flush) -> dict:
                     if ci == 0:
                         for k, v in timed.items():
                             res[k][prec].update(v)
+                    raw_split(f"{case} {prec}", qn, sn, labels, scale, mode, C, g, flush)
     return res
+
+
+def raw_split(label: str, qn, sn, labels, scale, mode, C, g, flush) -> None:
+    """K1's and dq's device functions (pass 1, merge) and their mean ms by
+    ``torch.profiler`` (``attn_block_lab.device_split``), one line each."""
+    import torch
+
+    from nwhead_tpu_torch.labs.attn_block_lab import device_split, split_line
+    from nwhead_tpu_torch.ops import fused_nw as F
+
+    out, m, l = F._nw_fwd_plain(qn, sn, labels, scale, mode, C)
+    u = (g * torch.exp(-out)).contiguous()
+    r = torch.sum(u * (torch.exp(out) - 1e-12), dim=-1, keepdim=True)
+    for name, fn in (("K1", lambda: F.nw_fwd_cuda(qn, sn, labels, scale, mode, C)),
+                     ("K3 dq", lambda: F.nw_bwd_dq_cuda(qn, sn, labels, u, r, m, l, scale,
+                                                        mode, C))):
+        split = {}
+        for _ in range(3):  # the profiler sometimes records no device time; ask again
+            split = split or device_split(fn, flush)
+        print(split_line(f"{name} raw {label}", split))
 
 
 def _time_raw(flush, qn, sn, labels, scale, mode, C, g, prec) -> dict:
@@ -1756,10 +1791,10 @@ def ivf_entries(kern: dict, served: dict) -> list:
 # Support-sharded serving: K1 and K2/K4/K5/K6 partials=True, and K12 over K7.
 # ---------------------------------------------------------------------------
 
-PARTIAL_CASES = (  # name, B, S, D, C, kernels; the last is a streamed chunk's shape, timed
-    ("episode_b8", 8, 1200, 512, 200, None),
-    ("head_raw_b64", 64, 5994, 512, 200, None),
-    ("stream_chunk", 64, 65_536, 512, 1000, ("euclidean",)),
+PARTIAL_CASES = (  # name, B, S, D, C; the last is a streamed chunk's shape, timed
+    ("episode_b8", 8, 1200, 512, 200),
+    ("head_raw_b64", 64, 5994, 512, 200),
+    ("stream_chunk", 64, 65_536, 512, 1000),
 )
 # Partials held to their plain versions: rtol = atol, bf16 as its log-probs.
 PARTIALS_TOL = {"f32": 2e-4, "bf16": 2e-3, "int8": 2e-4, "int4": 2e-4}
@@ -1833,7 +1868,7 @@ def sharded_kernel_phase(flush) -> dict:
            "nw_prepared_partials": {p: {"max_abs_err": 0.0} for p in PARTIALS_WRAPPER},
            "nw_prepared_sel_partials": {p: {"max_abs_err": 0.0} for p in PARTIALS_WRAPPER},
            "fused_attention": {p: {"max_abs_err": 0.0} for p in dtypes}}
-    for ci, (case, B, S, D, C, kernels) in enumerate(PARTIAL_CASES):
+    for ci, (case, B, S, D, C) in enumerate(PARTIAL_CASES):
         rng = np.random.default_rng(1300 + ci)
         q = torch.from_numpy(rng.standard_normal((B, D), np.float32)).to(dev)
         s = torch.from_numpy(rng.standard_normal((S, D), np.float32)).to(dev)
@@ -1841,7 +1876,7 @@ def sharded_kernel_phase(flush) -> dict:
         s[torch.from_numpy(~valid).to(dev)] = float("nan")
         labels = torch.from_numpy(
             np.where(valid, rng.integers(0, C, size=S), -1).astype(np.int32)).to(dev)
-        for kernel in kernels or KERNEL_NAMES:
+        for kernel in KERNEL_NAMES:
             params = {"logit_scale": torch.tensor(1.3, device=dev)} if kernel == "clip" else {}
             for prec, dt in dtypes.items():
                 mode, scale, qn, sn = F._resolve_mode(kernel, params, q.to(dt), s.to(dt))
@@ -1849,6 +1884,8 @@ def sharded_kernel_phase(flush) -> dict:
                 for lab in (labels, torch.full_like(labels, -1)) if ci == 0 else (labels,):
                     args = (qn, sn, lab, scale, mode, C)
                     got, want = F.nw_fwd_partials_cuda(*args), F._nw_fwd_partials_plain(*args)
+                    same_bits(f"K1 partials {case} {kernel} {prec}",
+                              lambda: F.nw_fwd_partials_cuda(*args))
                     torch.cuda.synchronize()
                     ok, err = partials_agree(got, want, prec)
                     where = f"{case} {kernel} {prec}{' all masked' if lab is not labels else ''}"
@@ -2165,7 +2202,8 @@ def sharded_entries(kern: dict, served: dict, mesh: dict) -> list:
     entries = []
     for prec, r in kern["nw_fwd_partials"].items():
         stream = served["f32"]["stream"]
-        entries.append({"name": f"nw_fwd_partials_{prec}", "source": FUSED_SOURCE,
+        entries.append({"name": f"nw_fwd_partials_{prec}", "source": RAW_KERNELS["nw_fwd"][0],
+                        "device_functions": RAW_KERNELS["nw_fwd"][1],
                         "replaces": REPLACES["nw_fwd"],
                         "launches": stream["launches"] if prec == "f32" else 0,
                         "max_abs_err": r["max_abs_err"], **{k: r[k] for k in keys}, **common,
@@ -2552,6 +2590,12 @@ def vit_training_phase(datasets, workdir: str) -> dict:
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
     step_ms = {"K7": time_ms(lambda: FA.attention_qkv_cuda(qkv, H, scale), flush, n=5),
                "K8": time_ms(lambda: FA.attention_qkv_bwd_cuda(qkv, g, H, scale), flush, n=5)}
+    # K8's bound at this shape, as at B=64: five products of 2 N^2 hd a
+    # (batch, head), q, k, v, dO read and dq, dk, dv written once.
+    Bq, Nq = qkv.shape[:2]
+    k8_bound = bound(7 * Bq * Nq * D * qkv.element_size(), 5 * 2 * Bq * Nq * Nq * D, "f32")
+    print(f"vit train K8 at the step's shape (B={Bq}, N={Nq}, D={D}, H={H}): kernel "
+          f"{step_ms['K8']:.4f} ms, bound {k8_bound['bound_ms']:.4f} ms ({k8_bound['bound_by']})")
     del qkv, g
     m_args = tuple(a.to(dev) for a in mlp_in.pop("args"))
     got, want = FM.mlp_bwd_cuda(*m_args), FM._mlp_bwd_plain(*m_args)
@@ -2569,7 +2613,7 @@ def vit_training_phase(datasets, workdir: str) -> dict:
         f"({kernels_ms / split['step_ms']:.2f})")
     out = {"launches": {"f32": launches}, "errs": errs, "split": split, "peak_bytes": peak,
            "ms_per_step": trainer.train_seconds / TRAIN_STEPS, "losses": losses,
-           "kernel_step_ms": step_ms}
+           "kernel_step_ms": step_ms, "k8_step_bound": k8_bound}
     del trainer, net, timer, m_args, watched, before, flush
     torch.cuda.empty_cache()
 
@@ -3130,8 +3174,9 @@ def main() -> int:
           f"{lib.nw_prepared_tc_smem_bytes(32, 1000, 0)} at C=1,000, K6 "
           f"{lib.nw_prepared_tc_smem_bytes(32, 1000, 1)}; largest C on this card: "
           f"{lib.nw_prepared_max_classes(0)}; "
-          f"K3 dq block {fused.nw_fused_smem_bytes(1, 512)} bytes at D=512 (largest D "
-          f"{fused.nw_fused_dq_max_features(0)}), ds block {fused.nw_fused_smem_bytes(2, 64)} "
+          f"K3 dq block {fused.nw_fused_dq_smem_bytes(8, 512)} bytes at 8 queries, D=512 "
+          f"({fused.nw_fused_dq_smem_bytes(32, 512)} at 32; largest D "
+          f"{fused.nw_fused_dq_max_features(0)}), ds block {fused.nw_fused_ds_smem_bytes(64)} "
           f"bytes at B=64 (largest B {fused.nw_fused_ds_max_batch(0)})")
 
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")  # 256 MB > L2
@@ -3225,7 +3270,8 @@ def main() -> int:
             r = raw[k][p]
             err = max(r["max_abs_err"], tr["errs"][k]) if p == "f32" else r["max_abs_err"]
             entries.append({
-                "name": f"{k}_{p}", "route": "cuda", "source": FUSED_SOURCE,
+                "name": f"{k}_{p}", "route": "cuda", "source": RAW_KERNELS[k][0],
+                "device_functions": RAW_KERNELS[k][1],
                 "replaces": REPLACES[k], "launches": tr["launches"][p][f"{k}_cuda"],
                 "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None})

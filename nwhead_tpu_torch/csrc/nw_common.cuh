@@ -1,6 +1,6 @@
 // Device code shared by the fused Nadaraya-Watson kernels (nw_prepared.cu,
-// nw_fused.cu): tile shapes, the score tile, the forward pass over support
-// splits and the exact merge of the splits.
+// nw_fused.cu, lab_nw.cu): tile shapes, the FFMA score tile of K3's ds pass
+// and the labs, and the exact merge of a forward's support splits.
 //
 // A forward pass computes, for each query b, over the support rows j:
 //   l2 mode:  score = -sqrt(max(|q|^2 - 2 q.s_j + s2_j, 0))
@@ -13,14 +13,16 @@
 //                   l = l * alpha + sum_j p_j;  acc[y_j] = acc[y_j] * alpha + p_j
 //   out[b, c] = log(acc[c] / max(l, 1e-30) + 1e-12)
 // q and s share one dtype (f32 or bf16); products accumulate in f32 and the
-// softmax state is f32. The pass 1 here is K1's (nw_fused.cu): s2_j is
-// computed from the raw rows in f32, and |q|^2 and s2 are summed in the
-// order of the dot products, so a query that is also a support row (common
-// in training episodes) gets a distance of exactly 0, not the square root
-// of rounding residue (about 1e-2 at ResNet-18's feature norms, which moved
-// every log-prob of that query by as much). The prepared banks' pass 1
-// (nw_prepared.cu) shares the merge, and its class cap comes from this
-// block's layout (max_forward_classes).
+// softmax state is f32. Every forward's pass 1 is the tensor-core kernel
+// of nw_prepared.cu (K1 over raw rows, K2/K4/K5/K6 over prepared banks);
+// its splits merge here (nw_merge_kernel). Over raw rows a query that is
+// also a support row (common in training episodes) gets a distance of
+// exactly 0, not the square root of rounding residue (about 1e-2 at
+// ResNet-18's feature norms, which moved every log-prob of that query by
+// as much): the tensor-core route takes |q|^2 and s2_j by q.s's own
+// products (nw_tc.cuh), ds's tile_dots below sums all three in one order.
+// The class cap of every forward entry point comes from this file's tile
+// layout (max_forward_classes).
 
 #pragma once
 
@@ -214,7 +216,11 @@ __device__ __forceinline__ float l2_dist(float q2, float dot, float s2) {
   return sqrtf(fmaxf(q2 - 2.f * dot + s2, 0.f));
 }
 
-// Shared memory of one forward pass-1 block for `n_classes` classes.
+// Shared memory of a forward block of the FFMA layout (16 queries' acc[C]
+// beside one score tile's staging) for `n_classes` classes: the measure of
+// max_forward_classes, the class cap every forward entry point has kept
+// since the first port, below the 4,768 the tensor-core pass 1 would take
+// at its 8-query tile.
 inline size_t partials_smem_bytes(int n_classes) {
   return sizeof(float) * (static_cast<size_t>(kQueryTile) * n_classes  // acc
                           + kTileSmemFloats                            // tile staging
@@ -233,114 +239,6 @@ inline int max_forward_classes(int device) {
   const size_t fixed = partials_smem_bytes(0);
   if (static_cast<size_t>(optin) <= fixed) return 0;
   return static_cast<int>((optin - fixed) / (sizeof(float) * kQueryTile));
-}
-
-// Forward pass 1 (K1): block (x, y) = (query tile, support split). Writes
-// the split's partials (m, l, acc); s2 computed from the raw rows here and
-// masked rows loaded as 0. Four blocks per SM (64 registers a thread): the
-// blocks do not prefetch, so the ones waiting on memory must be covered by
-// others.
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 4)
-nw_partials_kernel(const T* __restrict__ q, const T* __restrict__ s,
-                   const int* __restrict__ labels,
-                   const float* __restrict__ scale_ptr, int l2_mode,
-                   int B, int S, int D, int C, int rows_per_split,
-                   float* __restrict__ m_out, float* __restrict__ l_out,
-                   float* __restrict__ acc_out) {
-  extern __shared__ float4 smem4[];
-  float* acc = reinterpret_cast<float*>(smem4);
-  float* tile = acc + kQueryTile * C;
-  float* prob = tile + kTileSmemFloats;
-  float* q2 = prob + kQueryTile * kSupportTile;
-  float* m_run = q2 + kQueryTile;
-  float* l_run = m_run + kQueryTile;
-  int* tile_labels = reinterpret_cast<int*>(l_run + kQueryTile);
-  const float* s2_tile = tile + kQueryTile * kChunkStride + kSupportTile * kChunkStride;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int b0 = blockIdx.x * kQueryTile;
-  const int split = blockIdx.y;
-  const int r_begin = split * rows_per_split;
-  const int r_end = min(S, r_begin + rows_per_split);
-  const float scale = *scale_ptr;
-
-  for (int i = tid; i < kQueryTile * C; i += kThreads) acc[i] = 0.f;
-  if (tid < kQueryTile) {
-    m_run[tid] = kNeg;
-    l_run[tid] = 0.f;
-  }
-  __syncthreads();
-
-  const int tq = tid / kThreadsPerQuery;
-  const int tr = tid % kThreadsPerQuery;
-  const bool self_norms = l2_mode != 0;
-
-  for (int t0 = r_begin; t0 < r_end; t0 += kSupportTile) {
-    load_tile_labels(labels, t0, r_end, tile_labels);
-    float dot[kRowsPerThread];
-    tile_dots<true>(q, s, b0, B, t0, r_end, D, labels, self_norms,
-                    t0 == r_begin ? q2 : nullptr, tile, dot);
-
-#pragma unroll
-    for (int r = 0; r < kRowsPerThread; ++r) {
-      const int j = tr + kThreadsPerQuery * r;
-      float score = kNeg;
-      if (tile_labels[j] >= 0) {
-        if (l2_mode) {
-          score = -l2_dist(q2[tq], dot[r], s2_tile[j]);
-        } else {
-          score = dot[r] * scale;
-        }
-      }
-      prob[tq * kSupportTile + j] = score;
-    }
-    __syncthreads();
-
-    // Online softmax and label sum: warp w owns queries w and w + 8. Lane
-    // (y mod 32) adds every p_j of class y, so each class has one writer:
-    // no atomics, and the order of the sum is fixed.
-    for (int b = warp; b < kQueryTile; b += kWarps) {
-      float* row = prob + b * kSupportTile;
-      const float m_prev = m_run[b];
-      const float s0 = row[lane];
-      const float s1 = row[lane + 32];
-      const float m_new = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
-      const float m_safe = m_new > kNeg / 2 ? m_new : 0.f;
-      const float alpha = m_prev > kNeg / 2 ? expf(m_prev - m_safe) : 0.f;
-      const float p0 = s0 > kNeg / 2 ? expf(s0 - m_safe) : 0.f;
-      const float p1 = s1 > kNeg / 2 ? expf(s1 - m_safe) : 0.f;
-      const float p_sum = warp_sum(p0 + p1);
-      row[lane] = p0;
-      row[lane + 32] = p1;
-      __syncwarp();
-      float* acc_row = acc + b * C;
-      for (int c = lane; c < C; c += 32) acc_row[c] *= alpha;
-      for (int j = 0; j < kSupportTile; ++j) {
-        const int y = tile_labels[j];
-        if (y >= 0 && y < C && (y & 31) == lane) acc_row[y] += row[j];
-      }
-      if (lane == 0) {
-        m_run[b] = m_new;
-        l_run[b] = l_run[b] * alpha + p_sum;
-      }
-      __syncwarp();
-    }
-    __syncthreads();
-  }
-
-  for (int i = tid; i < kQueryTile * C; i += kThreads) {
-    const int b = i / C;
-    if (b0 + b < B) {
-      acc_out[(static_cast<size_t>(split) * B + b0 + b) * C + i % C] = acc[i];
-    }
-  }
-  if (tid < kQueryTile && b0 + tid < B) {
-    m_out[static_cast<size_t>(split) * B + b0 + tid] = m_run[tid];
-    l_out[static_cast<size_t>(split) * B + b0 + tid] = l_run[tid];
-  }
 }
 
 // sum_{p < n} x[p * stride] (times w[p] with kWeighted), added in the order
@@ -431,32 +329,6 @@ inline cudaError_t launch_merge(cudaStream_t stream, bool partials, const void* 
         static_cast<float*>(m_final), static_cast<float*>(l_final));
   }
   return cudaGetLastError();
-}
-
-// K1's pass 1 then pass 2 of the forward on `stream`; returns
-// cudaGetLastError().
-template <typename T>
-cudaError_t launch_forward(cudaStream_t stream, const void* q, const void* s,
-                           const void* labels, const void* scale, int l2_mode, int B, int S,
-                           int D, int C, int n_splits, int rows_per_split, void* m_part,
-                           void* l_part, void* acc_part, void* out, void* m_final,
-                           void* l_final, bool partials) {
-  const dim3 grid((B + kQueryTile - 1) / kQueryTile, n_splits);
-  const size_t smem = partials_smem_bytes(C);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        nw_partials_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  nw_partials_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(s), static_cast<const int*>(labels), static_cast<const float*>(scale), l2_mode, B, S, D, C,
-      rows_per_split, static_cast<float*>(m_part), static_cast<float*>(l_part),
-      static_cast<float*>(acc_part));
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_merge(stream, partials, m_part, l_part, acc_part, n_splits, B, C, out, m_final,
-                      l_final);
 }
 
 // The shape checks both forward entry points share.

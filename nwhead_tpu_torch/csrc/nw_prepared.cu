@@ -1,11 +1,25 @@
-// Fused Nadaraya-Watson head over a prepared support bank, for Hopper (sm_90a).
+// Fused Nadaraya-Watson head's forward pass 1 on the tensor cores, for
+// Hopper (sm_90a), over a prepared support bank or raw support rows.
 //
 // One pass 1 (nw_prepared_tc_kernel) serves every prepared bank: K2 (f32
-// and bf16 banks), K4 (int8), K5 (int4), and K6 (tile_sel) over all four.
+// and bf16 banks), K4 (int8), K5 (int4), and K6 (tile_sel) over all four;
+// and, with kRaw, K1 over raw f32 or bf16 rows (nw_raw_forward, the
+// training path's forward and the raw shards' and host chunks' partials).
 // K2 replaces the TPU kernel nwhead_tpu/ops/pallas_nw.py:_nw_prepared_kernel
-// on float banks. The pass it computes is written out in nw_common.cuh;
-// here the bank's self-norms s2 come precomputed (1e30 on masked rows) and
-// a bf16 bank takes a bf16 query.
+// on float banks, K1 its _nw_fwd_kernel. The pass it computes is written
+// out in nw_common.cuh; a prepared bank's self-norms s2 come precomputed
+// (1e30 on masked rows) and a bf16 bank takes a bf16 query. Raw rows bring
+// no s2 and may hold NaN in masked rows: in l2 mode |q|^2 and |s_j|^2 are
+// diagonals of self-products on the tensor cores, by the very calls that
+// give q.s_j (nw_tc.cuh: raw_slice), so that a query equal to a
+// support row (a query drawn into its own training episode) scores exactly
+// 0, as the TPU kernel's one-order f32 sums give it. s2 is taken in the
+// pass, once a tile per block (at B = 64 the two query tiles' blocks each
+// take it), in the very tc_product call of the warp's 16 x 16 of scores:
+// one more n-tile a warp and slice (two at split-K), whose left factor is
+// the call's own B fragments. It cost K1's pass 1 +35% in f32 and +2% in
+// bf16 over K2's on a 65,536-row chunk (H100 80GB HBM3,
+// labs/raw_head_lab.py); a pre-pass over S would read the rows once more.
 //
 // What bounds it: the bank's bytes and the score products. At the
 // million-row bank (2^20 rows, D = 512) and B = 64 the f32 bank is 2.1 GB,
@@ -40,7 +54,7 @@
 //     sums. A warp covers 16 queries x 16 rows over the slice (at kQB <= 16
 //     half the slice's features, the halves' sums added in a fixed order),
 //     its independent accumulators issued in turn. |q|^2 (l2 mode) is
-//     summed from the first tile's staged slices.
+//     summed from the first tile's staged slices (kRaw: see above).
 //   * Per tile, in the tile's turn (named barriers between the groups, so
 //     acc, m and l take their terms in row order), each warp owns kQB / 8
 //     queries: l2 or dot scores and the mask, the online softmax with its
@@ -51,7 +65,12 @@
 //     kernel's class window assumes; a few in an IVF bank's cluster) each
 //     get their p_j summed by a warp reduction in a fixed tree and added
 //     once; the rows of any further classes (banks at C <= 128, keep_order
-//     banks) go by class mod 32 to one lane each, in row order.
+//     banks, raw rows) go by class mod 32 to one lane each, in row order.
+//     A tile whose first two classes hold fewer than 4 rows (rows in bank
+//     order: about 62 classes in 64 rows at C = 1,000) goes to the lanes
+//     at once: with eight reductions of a row or two each first, K2's
+//     pass 1 on 65,536 such rows took 0.1315 ms against 0.0785 sorted
+//     (bf16, C = 1,000, H100 80GB HBM3, labs/raw_head_lab.py).
 //   * Pass 2 (nw_merge_kernel) merges the splits exactly and takes the log,
 //     or leaves the merged (m, l, acc) unfinalized (partials=True).
 // No float atomics anywhere: two calls on the same inputs give the same
@@ -108,326 +127,9 @@
 // to kTcListCap at a time), so that its ring streams only those. Pass 2 is
 // the same exact merge.
 
-#include <climits>
-#include <cstdint>
-
-#include <cuda.h>
-
-#include <type_traits>
-
-#include "nw_common.cuh"
-#include "vit_mma.cuh"
+#include "nw_tc.cuh"
 
 namespace nw {
-
-// ---------------------------------------------------------------------------
-// The tensor-core pass 1 of K2, K4, K5 and K6 (see the note above).
-// ---------------------------------------------------------------------------
-
-constexpr int kTcThreads = 256;                   // a scoring group's threads
-constexpr int kTcWarps = kTcThreads / 32;
-constexpr int kTcBlock = 2 * kTcThreads + 64;     // two scoring groups and their producers
-constexpr int kTcStages = 3;                      // slices in each scoring group's ring
-constexpr int kTcRowBytes = 128;                  // a staged row: 128 bytes of features
-constexpr int kTcAlign = 1024;                    // the 128-byte swizzle's period
-constexpr int kTcScoreStride = kSupportTile + 4;  // floats a row of the score tile
-constexpr int kTcMaxQuery = 32;                   // the largest query tile
-constexpr int kTcListCap = 512;                   // K6: score tiles a block gathers at a time
-constexpr int kTcMaxClasses = 8;                  // classes of a tile summed by reductions
-
-// Bytes of a staged support row: a slice's 128 bytes, or of an int4 bank
-// 64 packed bytes (the 128 features of the slice's 128 query bytes).
-__host__ __device__ constexpr int tc_bank_row_bytes(bool int4) { return int4 ? 64 : kTcRowBytes; }
-
-// Query rows staged a slice (an m-tile holds 16), and the bytes of one ring
-// stage: query rows, 64 support rows (room for 128 bytes each), the tile's
-// 64 labels, 64 self-norms and 64 row scales, padded to the swizzle's
-// period.
-__host__ __device__ constexpr int tc_query_rows(int qb) { return qb < 16 ? 16 : qb; }
-__host__ __device__ constexpr int tc_stage_bytes(int qb) {
-  return (tc_query_rows(qb) + kSupportTile) * kTcRowBytes + kTcAlign;
-}
-
-// Score tiles a scoring group keeps: one, or at qb <= 16 one for each half
-// of the features (the group's two warp halves split each slice's features
-// then, as a tile of 16 queries leaves no second m-tile to give them).
-__host__ __device__ constexpr int tc_score_bufs(int qb) { return qb <= 16 ? 2 : 1; }
-
-// Dynamic shared memory of one block: the alignment slack, the two
-// groups' rings, each group's score tiles, |q|^2 and the queries' running
-// (m, l), K6's tile list and its count, the rings' full and empty
-// barriers, acc[qb][C].
-inline size_t tc_smem_bytes(int qb, int C, bool sel) {
-  return kTcAlign + static_cast<size_t>(2 * kTcStages) * tc_stage_bytes(qb) +
-         sizeof(float) * (2 * tc_score_bufs(qb) * qb * kTcScoreStride + 3 * kTcMaxQuery) +
-         (sel ? sizeof(int) * (kTcListCap + 4) : 0) + 32 * kTcStages +
-         sizeof(float) * static_cast<size_t>(qb) * C;
-}
-
-struct TcArgs {
-  const void* q;  // (B, D) f32, bf16 or int8 codes (int4 bank: in the bank's k order)
-  const void* s;  // the bank, (bank_rows, ds): q's dtype, or packed int4 bytes
-  const float* s2;
-  const int* labels;
-  const float* scale;   // float banks
-  const float* qcol;    // int8/int4 banks: (B,) the query's dequant column
-  const float* sscale;  // int8/int4 banks: (bank_rows,) the rows' scales
-  int l2_mode, B, D, ds, C;
-  int tma;                                                  // 0: the rows staged by plain loads
-  int S, rows_per_split;                                    // K2
-  const int* tile_sel;                                      // K6
-  int n_sel, qtiles_per_row, n_tiles, block_s;              // K6
-  float* m_out;
-  float* l_out;
-  float* acc_out;
-};
-
-// The TMA's descriptors of q, the bank, its labels, self-norms and row
-// scales (unused when the rows are staged by plain loads).
-struct TcMaps {
-  CUtensorMap q, s, labels, s2, sscale;
-};
-
-// warp_max / warp_sum (nw_common.cuh) of kN values at once: the same
-// butterfly for each, so each gets the same bits, with the trees
-// interleaved.
-template <int kN>
-__device__ __forceinline__ void warp_max_n(float (&v)[kN]) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-#pragma unroll
-    for (int i = 0; i < kN; ++i) v[i] = fmaxf(v[i], __shfl_xor_sync(0xffffffffu, v[i], o));
-}
-
-template <int kN>
-__device__ __forceinline__ void warp_sum_n(float (&v)[kN]) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-#pragma unroll
-    for (int i = 0; i < kN; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], o);
-}
-
-// Byte offset of byte b of row r in a staged tile of 128-byte rows under
-// the TMA's 128-byte swizzle: 16-byte chunk c of row r sits at chunk
-// c ^ (r mod 8), so the eight rows of a fragment load fall in distinct
-// banks.
-__device__ __forceinline__ int swz(int r, int b) {
-  return r * kTcRowBytes + ((((b >> 4) ^ r) & 7) << 4) + (b & 15);
-}
-
-// The same for 64-byte rows under the TMA's 64-byte swizzle (an int4
-// bank's staged rows): chunk c of row r sits at chunk c ^ (r / 2 mod 4),
-// so eight rows' 32-bit loads at one offset fall in distinct banks.
-__device__ __forceinline__ int swz64(int r, int b) {
-  return r * 64 + ((((b >> 4) ^ (r >> 1)) & 3) << 4) + (b & 15);
-}
-
-template <int kRowBytes>
-__device__ __forceinline__ int swz_rows(int r, int b) {
-  return kRowBytes == 64 ? swz64(r, b) : swz(r, b);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(vit::smem_u32(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   vit::smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(vit::smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(vit::smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// A box of the tensor map at (c0 inner, c1 outer) into shared memory,
-// completing on bar.
-__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                       uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(vit::smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(vit::smem_u32(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_1d(void* dst, const CUtensorMap* map, int c0, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.1d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2}], [%3];\n" ::"r"(vit::smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(vit::smem_u32(bar))
-      : "memory");
-}
-
-// Rows r0 .. r0 + kRows - 1, elements c0 .. of a (n_rows, D) matrix into a
-// swizzled tile of kRowBytes-byte rows by plain loads of one warp (zeros
-// past n_rows and D): the path of a matrix whose rows the TMA cannot
-// address (D * sizeof(T) not a multiple of 16 bytes, or a base off 16
-// bytes).
-template <typename T, int kRows, int kRowBytes = kTcRowBytes>
-__device__ __forceinline__ void stage_plain(const T* __restrict__ x, int D, int r0, int c0,
-                                            int n_rows, char* dst) {
-  constexpr int kPerRow = kRowBytes / static_cast<int>(sizeof(T));
-  for (int i = threadIdx.x & 31; i < kRows * kPerRow; i += 32) {
-    const int r = i / kPerRow, k = i % kPerRow;
-    T v = vit::from_float<T>(0.f);
-    if (r0 + r < n_rows && c0 + k < D) v = x[static_cast<size_t>(r0 + r) * D + c0 + k];
-    *reinterpret_cast<T*>(dst + swz_rows<kRowBytes>(r, k * static_cast<int>(sizeof(T)))) = v;
-  }
-}
-
-// x = big + small for 3xTF32, both rounded to TF32 to nearest, ties away
-// from zero: the bits of cvt.rna.tf32.f32 (as vit_mma.cuh's split_tf32),
-// by an integer add and a mask a value instead of two conversions.
-template <int kN>
-__device__ __forceinline__ void split_rna(const float (&x)[kN], uint32_t (&big)[kN],
-                                          uint32_t (&small)[kN]) {
-#pragma unroll
-  for (int i = 0; i < kN; ++i) {
-    big[i] = (__float_as_uint(x[i]) + 0x1000u) & 0xffffe000u;
-    small[i] = (__float_as_uint(x[i] - __uint_as_float(big[i])) + 0x1000u) & 0xffffe000u;
-  }
-}
-
-// acc (16 kMI x 16: kMI m-tiles of two n-tiles) += rows 0 .. 16 kMI - 1 of
-// swizzled tile a times the 16 rows at n0 of swizzled tile b, over the
-// features k0 .. k0 + kDepth - 1: bf16 mma.sync m16n8k16 (ldmatrix), f32
-// 3xTF32 m16n8k8 (per accumulator the terms in vit::mma's order, small x
-// big, big x small, big x big). The f32 operands split by rounding
-// (split_rna: K7's cvt.rna bits), not by truncation as warp_product's, and
-// each call's products sum from zero (the small terms apart) before one
-// round-to-nearest add into acc: truncated operands, and the tensor core's
-// own sums into a long-running accumulator, err the same way on every
-// term, so on features of one sign (a ReLU network's) the errors add up
-// along the dot product instead of cancelling, and |q|^2 - 2 q.s + |s|^2
-// magnifies them. With truncated operands and one accumulator per tile,
-// served ResNet-18 log-probs moved by 4e-3 (H100 80GB HBM3), 20 times the
-// f32 limit; with rounded operands, 2e-3. The fragments of two mma steps are
-// loaded first, then their products are issued accumulator by accumulator
-// in turn, so that no product waits on the one before it. int8 (k0 and
-// kDepth in query bytes): s8 m16n8k32 into acc's int32 sums, exact in any
-// order; with kInt4 b holds 64-byte rows of packed bytes, query byte k
-// pairing with packed byte k / 2 (see the note at the top).
-template <typename T, bool kInt4, int kMI, int kDepth>
-__device__ __forceinline__ void tc_product(const char* a, const char* b, int n0, int k0,
-                                           typename vit::Frag<T>::Acc (&acc)[kMI][2][4]) {
-  using F = vit::Frag<T>;
-  using Acc = typename F::Acc;
-  constexpr int kSteps = kDepth / F::kK;
-  constexpr int kBatch = kSteps < 2 ? kSteps : 2;  // mma steps whose fragments load together
-  const int lane = threadIdx.x & 31;
-  // This call's sums start from zero (f32: big x big apart from the two
-  // small terms) and join acc by round-to-nearest adds at its end.
-  Acc hi[kMI][2][4] = {}, lo[kMI][2][4] = {};
-#pragma unroll
-  for (int s0 = 0; s0 < kSteps; s0 += kBatch) {
-    typename F::A fa[kBatch][kMI];
-    typename F::B fb[kBatch][2];
-    if constexpr (std::is_same_v<T, float>) {
-      const int g = lane >> 2, t = lane & 3;
-      const float* ar = reinterpret_cast<const float*>(a);
-      const float* br = reinterpret_cast<const float*>(b);
-#pragma unroll
-      for (int s = 0; s < kBatch; ++s) {
-        // byte columns of k + t and k + t + 4
-        const int c0 = 4 * (k0 + 8 * (s0 + s) + t), c1 = c0 + 16;
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float x[2] = {br[swz(n0 + 8 * j + g, c0) / 4], br[swz(n0 + 8 * j + g, c1) / 4]};
-          split_rna(x, fb[s][j].big, fb[s][j].small);
-        }
-#pragma unroll
-        for (int i = 0; i < kMI; ++i) {
-          const int r = 16 * i + g;
-          const float x[4] = {ar[swz(r, c0) / 4], ar[swz(r + 8, c0) / 4], ar[swz(r, c1) / 4],
-                              ar[swz(r + 8, c1) / 4]};
-          split_rna(x, fa[s][i].big, fa[s][i].small);
-        }
-      }
-#pragma unroll
-      for (int s = 0; s < kBatch; ++s) {
-#pragma unroll
-        for (int i = 0; i < kMI; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) vit::mma_tf32(lo[i][j], fa[s][i].small, fb[s][j].big);
-#pragma unroll
-        for (int i = 0; i < kMI; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) vit::mma_tf32(lo[i][j], fa[s][i].big, fb[s][j].small);
-#pragma unroll
-        for (int i = 0; i < kMI; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) vit::mma_tf32(hi[i][j], fa[s][i].big, fb[s][j].big);
-      }
-    } else {  // bf16 and int8: 16-byte rows of 8 bf16 or 16 int8 for ldmatrix
-#pragma unroll
-      for (int s = 0; s < kBatch; ++s) {
-        const int k = (k0 + F::kK * (s0 + s)) * static_cast<int>(sizeof(T));  // in bytes
-        if constexpr (kInt4) {
-          const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            // Low nibbles hold code + 8, high nibbles the two's-complement code.
-            const uint32_t w =
-                *reinterpret_cast<const uint32_t*>(b + swz64(n0 + 8 * j + g, k / 2 + 4 * t));
-            fb[s][j].r[0] = __vsub4(w & 0x0F0F0F0Fu, 0x08080808u);
-            fb[s][j].r[1] = __vsub4(((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
-          }
-        } else {
-          const uint32_t pb = vit::smem_u32(
-              b + swz(n0 + (lane & 7) + (lane >> 4) * 8, k + ((lane >> 3) & 1) * 16));
-          asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                       : "=r"(fb[s][0].r[0]), "=r"(fb[s][0].r[1]), "=r"(fb[s][1].r[0]),
-                         "=r"(fb[s][1].r[1])
-                       : "r"(pb));
-        }
-#pragma unroll
-        for (int i = 0; i < kMI; ++i) {
-          const uint32_t pa = vit::smem_u32(a + swz(16 * i + (lane & 15), k + (lane >> 4) * 16));
-          asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                       : "=r"(fa[s][i].r[0]), "=r"(fa[s][i].r[1]), "=r"(fa[s][i].r[2]),
-                         "=r"(fa[s][i].r[3])
-                       : "r"(pa));
-        }
-      }
-#pragma unroll
-      for (int s = 0; s < kBatch; ++s)
-#pragma unroll
-        for (int i = 0; i < kMI; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) vit::mma(hi[i][j], fa[s][i], fb[s][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kMI; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] += hi[i][j][e] + lo[i][j][e];
-}
-
-// A barrier of one scoring group's eight warps (named barriers 3 and 4).
-__device__ __forceinline__ void group_sync(int group) {
-  if (group == 0) {
-    asm volatile("bar.sync 3, %0;\n" ::"n"(kTcThreads) : "memory");
-  } else {
-    asm volatile("bar.sync 4, %0;\n" ::"n"(kTcThreads) : "memory");
-  }
-}
 
 // Pass 1 of K2 (kSel false: split blockIdx.y takes rows [y rows_per_split,
 // (y + 1) rows_per_split)) and of K6 (kSel: every gridDim.y-th score tile
@@ -443,12 +145,16 @@ __device__ __forceinline__ void group_sync(int group) {
 // so acc, m and l take their terms in row order, while one group's
 // products overlap the other's softmax. One block an SM (112 registers a
 // thread). T = int8_t: K4 (kInt4 false) or K5 (an int4 bank, kInt4).
-template <typename T, int kQB, bool kSel, bool kInt4>
+// kRaw (K1, f32 and bf16): the caller's raw rows and labels, no s2 read;
+// in l2 mode |q|^2 and |s|^2 come from the tensor cores by q.s's route
+// (raw_slice, nw_tc.cuh), |s|^2 into the last slice's stage.
+template <typename T, int kQB, bool kSel, bool kInt4, bool kRaw = false>
 __global__ void __launch_bounds__(kTcBlock, 1)
     nw_prepared_tc_kernel(const TcArgs a, const __grid_constant__ TcMaps maps) {
   static_assert(kQB % kTcWarps == 0 && kQB <= kTcMaxQuery, "query tile");
   constexpr bool kQuant = std::is_same_v<T, int8_t>;
   static_assert(kQuant || !kInt4, "an int4 bank takes int8 queries");
+  static_assert(!kRaw || (!kQuant && !kSel), "raw rows: f32 or bf16, no tile list");
   using Acc = typename vit::Frag<T>::Acc;  // f32, or exact int32 sums
   constexpr int kChunk = kTcRowBytes / static_cast<int>(sizeof(T));  // features a slice
   constexpr int kBankRow = tc_bank_row_bytes(kInt4);   // bytes a staged support row
@@ -516,6 +222,7 @@ __global__ void __launch_bounds__(kTcBlock, 1)
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   Acc dacc[1][2][4];
+  float s2d[2], q2d[2] = {};  // kRaw: a lane's diagonals of the self-products
   float q2_sum = 0.f;  // this thread's share of |q|^2 over the first tile's slices
   int used = 0;        // slices the group's ring has taken (its barriers' phases)
   int tiles = 0;       // tiles taken before this chunk (whose group, whose turn)
@@ -591,12 +298,12 @@ __global__ void __launch_bounds__(kTcBlock, 1)
       if (tma) {
         if (lane == 0) {
           mbar_expect(bar, kQA * kTcRowBytes + kSupportTile * kBankRow +
-                               (last ? (1 + l2 + kQuant) * kSupportTile * 4 : 0));
+                               (last ? (1 + (l2 && !kRaw) + kQuant) * kSupportTile * 4 : 0));
           tma_2d(st, &maps.q, c0, b0, bar);
           tma_2d(st + kSupportOff, &maps.s, cs, t0, bar);
           if (last) {
             tma_1d(st + kLabelOff, &maps.labels, t0, bar);
-            if (l2) tma_1d(st + kLabelOff + kSupportTile * 4, &maps.s2, t0, bar);
+            if (l2 && !kRaw) tma_1d(st + kLabelOff + kSupportTile * 4, &maps.s2, t0, bar);
             if (kQuant) tma_1d(st + kLabelOff + 2 * kSupportTile * 4, &maps.sscale, t0, bar);
           }
         }
@@ -608,7 +315,7 @@ __global__ void __launch_bounds__(kTcBlock, 1)
           const bool ok = t0 + r < row_end(t0);
           float* tail = reinterpret_cast<float*>(st + kLabelOff);
           reinterpret_cast<int*>(tail)[r] = ok ? a.labels[t0 + r] : -1;
-          if (l2) tail[kSupportTile + r] = ok ? a.s2[t0 + r] : 0.f;
+          if (l2 && !kRaw) tail[kSupportTile + r] = ok ? a.s2[t0 + r] : 0.f;
           if (kQuant) tail[2 * kSupportTile + r] = ok ? a.sscale[t0 + r] : 0.f;
         }
         __threadfence_block();
@@ -623,12 +330,18 @@ __global__ void __launch_bounds__(kTcBlock, 1)
 #pragma unroll
         for (int j = 0; j < 2; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) dacc[0][j][e] = 0.f;
+          for (int e = 0; e < 4; ++e) dacc[0][j][e] = 0;
+        s2d[0] = s2d[1] = 0.f;
       }
-      tc_product<T, kInt4, 1, kDepth>(st + (kSplitK ? 0 : swz(16 * wh, 0)), st + kSupportOff,
-                                      16 * ws, kSplitK ? wh * kDepth : 0, dacc);
       const bool first = tiles + i == 0;  // the block's first tile (group 0's)
-      if (l2 && first) {
+      if constexpr (kRaw) {  // q.s and, in l2 mode, the self-norms beside it
+        raw_slice<T, kQB>(st, ws, wh, l2, first, dacc, s2d, q2d);
+      } else {
+        tc_product<T, kInt4, 1, kDepth>(st + (kSplitK ? 0 : swz(16 * wh, 0)),
+                                        st + kSupportOff, 16 * ws, kSplitK ? wh * kDepth : 0,
+                                        dacc);
+      }
+      if (!kRaw && l2 && first) {
         // |q|^2 in f32: kQ2Lanes threads a query row, a fixed order; an
         // int8 query's dequantized (code x its scale, which l2 mode's
         // column is).
@@ -668,7 +381,14 @@ __global__ void __launch_bounds__(kTcBlock, 1)
             }
           }
         }
-      if (l2 && first && tid % kQ2Lanes == 0 && tid / kQ2Lanes < kQB) {
+      if constexpr (kRaw) {
+        if (l2) {
+          raw_self_store<kQB>(s2d, q2d, ws, wh, first,
+                              reinterpret_cast<float*>(gring + (q % kTcStages) * kStage +
+                                                       kLabelOff) + kSupportTile,
+                              q2s);
+        }
+      } else if (l2 && first && tid % kQ2Lanes == 0 && tid / kQ2Lanes < kQB) {
         q2s[tid / kQ2Lanes] = q2_sum;
       }
       group_sync(group);
@@ -685,7 +405,11 @@ __global__ void __launch_bounds__(kTcBlock, 1)
       const int n_valid = min(kSupportTile, row_end(t0) - t0);
       const int y0 = lane < n_valid ? lab[lane] : -1;
       const int y1 = lane + 32 < n_valid ? lab[lane + 32] : -1;
-      const float s20 = l2 ? s2t[lane] : 0.f, s21 = l2 ? s2t[lane + 32] : 0.f;
+      // kRaw: the self-norms raw_self_store left in the stage, as halves.
+      const float s20 = !l2 ? 0.f : kRaw ? raw_norm<kQB>(s2t, lane, kSupportTile) : s2t[lane];
+      const float s21 = !l2    ? 0.f
+                        : kRaw ? raw_norm<kQB>(s2t, lane + 32, kSupportTile)
+                               : s2t[lane + 32];
       const float* sst = s2t + kSupportTile;  // int8/int4: the rows' scales
       const float ss0 = kQuant ? sst[lane] : 0.f, ss1 = kQuant ? sst[lane + 32] : 0.f;
       // The warp's kOwn queries side by side, so that their shuffle trees
@@ -708,7 +432,7 @@ __global__ void __launch_bounds__(kTcBlock, 1)
           d0 = kSplitK ? row[lane] + row[kScores + lane] : row[lane];
           d1 = kSplitK ? row[lane + 32] + row[kScores + lane + 32] : row[lane + 32];
         }
-        const float q2 = l2 ? q2s[b] : 0.f;
+        const float q2 = !l2 ? 0.f : kRaw ? raw_norm<kQB>(q2s, b, 16) : q2s[b];
         // int8/int4: the similarity scale rides in the query's column.
         x0[o] = y0 < 0 ? kNeg : l2 ? -l2_dist(q2, d0, s20) : kQuant ? d0 : d0 * scale;
         x1[o] = y1 < 0 ? kNeg : l2 ? -l2_dist(q2, d1, s21) : kQuant ? d1 : d1 * scale;
@@ -763,18 +487,24 @@ __global__ void __launch_bounds__(kTcBlock, 1)
       // yet summed, in turn: one or two in a class-sorted bank, a few in a
       // cluster of an IVF bank) each get their p_j summed in warp_sum's
       // fixed tree and added once by lane 0. Every warp finds the same
-      // classes.
+      // classes. A tile whose first two classes hold fewer than 4 of its
+      // rows has many classes (a bank in row order: about 62 in 64 rows at
+      // C = 1,000), and leaves its rows to the groups below.
       unsigned long long rest =
           static_cast<unsigned long long>(__ballot_sync(0xffffffffu, y0 >= 0 && y0 < C)) |
           (static_cast<unsigned long long>(__ballot_sync(0xffffffffu, y1 >= 0 && y1 < C)) << 32);
-      for (int n = 0; n < kTcMaxClasses && rest != 0ull; ++n) {
+      int summed = 0;  // rows the reductions have taken
+      for (int n = 0; n < kTcMaxClasses && rest != 0ull && (n != 2 || summed >= 4); ++n) {
         const int r0 = __ffsll(static_cast<long long>(rest)) - 1;
         const int ya = __shfl_sync(0xffffffffu, y0, r0 & 31);
         const int yb = __shfl_sync(0xffffffffu, y1, r0 & 31);
         const int y = r0 < 32 ? ya : yb;
         const bool in0 = y0 == y, in1 = y1 == y;
-        rest &= ~(static_cast<unsigned long long>(__ballot_sync(0xffffffffu, in0)) |
-                  (static_cast<unsigned long long>(__ballot_sync(0xffffffffu, in1)) << 32));
+        const unsigned long long taken =
+            static_cast<unsigned long long>(__ballot_sync(0xffffffffu, in0)) |
+            (static_cast<unsigned long long>(__ballot_sync(0xffffffffu, in1)) << 32);
+        summed += __popcll(taken);
+        rest &= ~taken;
 #pragma unroll
         for (int o = 0; o < kOwn; ++o) v[o] = (in0 ? x0[o] : 0.f) + (in1 ? x1[o] : 0.f);
         warp_sum_n(v);
@@ -870,60 +600,11 @@ __global__ void __launch_bounds__(kTcBlock, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, fetched from the driver at run time (the library
-// links only the runtime); null when the driver has none.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess) {
-      return static_cast<EncodeTiled>(nullptr);
-    }
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// A (rows, cols) row-major matrix as boxes of (box_rows, box_bytes), under
-// the swizzle of box_bytes (128 or 64) (rank 2), or a vector as boxes of 64
-// (rank 1); zeros past its edges. L2 fetches in 256-byte sectors: a box
-// reads 128 bytes of each row, and the next slice the next 128.
-inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* base,
-                       long long rows, long long cols, int box_rows,
-                       int box_bytes = kTcRowBytes) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint32_t ones[2] = {1, 1};
-  if (cols == 0) {
-    const cuuint64_t dims[1] = {static_cast<cuuint64_t>(rows)};
-    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(rows) * elem};
-    const cuuint32_t box[1] = {static_cast<cuuint32_t>(kSupportTile)};
-    return fn(map, type, 1, const_cast<void*>(base), dims, strides, box, ones,
-              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-              CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-  }
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_bytes / elem),
-                             static_cast<cuuint32_t>(box_rows)};
-  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, ones,
-            CU_TENSOR_MAP_INTERLEAVE_NONE,
-            box_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-template <typename T, int kQB, bool kSel, bool kInt4>
+template <typename T, int kQB, bool kSel, bool kInt4, bool kRaw>
 cudaError_t launch_tc_pass1(cudaStream_t stream, const TcArgs& a, int bank_rows, int n_splits) {
   const size_t smem = tc_smem_bytes(kQB, a.C, kSel);
   const cudaError_t err =
-      cudaFuncSetAttribute(nw_prepared_tc_kernel<T, kQB, kSel, kInt4>,
+      cudaFuncSetAttribute(nw_prepared_tc_kernel<T, kQB, kSel, kInt4, kRaw>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   constexpr bool kQuant = std::is_same_v<T, int8_t>;
@@ -947,23 +628,27 @@ cudaError_t launch_tc_pass1(cudaStream_t stream, const TcArgs& a, int bank_rows,
                         tc_bank_row_bytes(kInt4)) &&
              encode_map(&maps.labels, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, a.labels, bank_rows, 0,
                         0) &&
-             (!a.l2_mode || vector_ok(&maps.s2, a.s2)) &&
+             (!a.l2_mode || kRaw || vector_ok(&maps.s2, a.s2)) &&
              (!kQuant || vector_ok(&maps.sscale, a.sscale));
   const dim3 grid((a.B + kQB - 1) / kQB, n_splits);
-  nw_prepared_tc_kernel<T, kQB, kSel, kInt4><<<grid, kTcBlock, smem, stream>>>(args, maps);
+  nw_prepared_tc_kernel<T, kQB, kSel, kInt4, kRaw><<<grid, kTcBlock, smem, stream>>>(args, maps);
   return cudaGetLastError();
 }
 
 // Pass 1 (the tensor-core kernel with kQB = qb) then pass 2 on `stream`.
-template <typename T, bool kSel, bool kInt4 = false>
+template <typename T, bool kSel, bool kInt4 = false, bool kRaw = false>
 cudaError_t launch_tc_forward(cudaStream_t stream, int qb, const TcArgs& a, int bank_rows,
                               int n_splits, bool partials, void* out, void* m_final,
                               void* l_final) {
   cudaError_t err = cudaErrorInvalidValue;
   switch (qb) {
-    case 8: err = launch_tc_pass1<T, 8, kSel, kInt4>(stream, a, bank_rows, n_splits); break;
-    case 16: err = launch_tc_pass1<T, 16, kSel, kInt4>(stream, a, bank_rows, n_splits); break;
-    case 32: err = launch_tc_pass1<T, 32, kSel, kInt4>(stream, a, bank_rows, n_splits); break;
+    case 8: err = launch_tc_pass1<T, 8, kSel, kInt4, kRaw>(stream, a, bank_rows, n_splits); break;
+    case 16:
+      err = launch_tc_pass1<T, 16, kSel, kInt4, kRaw>(stream, a, bank_rows, n_splits);
+      break;
+    case 32:
+      err = launch_tc_pass1<T, 32, kSel, kInt4, kRaw>(stream, a, bank_rows, n_splits);
+      break;
     default: break;
   }
   if (err != cudaSuccess) return err;
@@ -1006,15 +691,16 @@ inline bool tc_config_ok(int qb, int C, bool sel, int device) {
 
 // The checks and arguments every entry point shares: the query is (B, D)
 // (an int8 query for an int4 bank in the bank's k order: D rounded up to
-// 32); d_pad the bank's feature width (int8/int4: a multiple of 4 / 8).
+// 32); d_pad the bank's feature width (int8/int4: a multiple of 4 / 8);
+// raw rows (K1) bring no s2.
 inline cudaError_t prepared_args(const void* q, const void* s, const void* s2,
                                  const void* labels, const void* scale, const void* qcol,
                                  const void* sscale, int B, int d_pad, int C, int l2_mode,
                                  int bank, int qb, bool sel, bool partials, void* m_final,
-                                 void* l_final, TcArgs* a) {
+                                 void* l_final, TcArgs* a, bool raw = false) {
   const bool quant = bank == 2 || bank == 3;
   if (bank < 0 || bank > 3 || B <= 0 || d_pad <= 0 || C <= 0 || q == nullptr ||
-      s == nullptr || labels == nullptr || (l2_mode && s2 == nullptr) ||
+      s == nullptr || labels == nullptr || (l2_mode && s2 == nullptr && !raw) ||
       (partials && (m_final == nullptr || l_final == nullptr)) ||
       (quant ? (qcol == nullptr || sscale == nullptr || d_pad % (bank == 3 ? 8 : 4) != 0)
              : scale == nullptr)) {
@@ -1104,6 +790,42 @@ int nw_prepared_forward(const void* q, const void* s, const void* s2,
   return static_cast<int>(nw::launch_bank<false>(static_cast<cudaStream_t>(stream), bf16 ? 1 : 0,
                                                  qb, a, S, n_splits, partials != 0, out, m_final,
                                                  l_final));
+}
+
+// K1 (TPU nwhead_tpu/ops/pallas_nw.py:579 _nw_fwd_kernel) on the
+// tensor-core pass 1 over raw rows (kRaw): q (B, D), s (S, D) in f32 or
+// bf16 (bf16 != 0), any D (rows the TMA cannot address are staged by plain
+// loads); labels (S,) int32, -1 = masked (a masked row may hold anything,
+// NaN included); scale (1,) f32; in l2 mode |q|^2 and |s|^2 from the tensor
+// cores by q.s's route, so a query equal to a support row scores exactly 0.
+// m_final, l_final (B,) f32 always receive the merged softmax statistics;
+// the rest as nw_prepared_forward's. Launches on `stream`, does not
+// synchronize, returns cudaGetLastError().
+int nw_raw_forward(const void* q, const void* s, const void* labels, const void* scale,
+                   void* m_part, void* l_part, void* acc_part, void* out, void* m_final,
+                   void* l_final, int B, int S, int D, int C, int l2_mode, int bf16,
+                   int n_splits, int rows_per_split, int qb, int partials, void* stream) {
+  nw::TcArgs a{};
+  if (!nw::forward_args_ok(B, S, D, C, n_splits, rows_per_split) ||
+      rows_per_split % nw::kSupportTile != 0 || m_final == nullptr || l_final == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err =
+      nw::prepared_args(q, s, nullptr, labels, scale, nullptr, nullptr, B, D, C, l2_mode,
+                        bf16 ? 1 : 0, qb, false, partials != 0, m_final, l_final, &a, true);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  a.S = S;
+  a.rows_per_split = rows_per_split;
+  a.m_out = static_cast<float*>(m_part);
+  a.l_out = static_cast<float*>(l_part);
+  a.acc_out = static_cast<float*>(acc_part);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      bf16 ? nw::launch_tc_forward<__nv_bfloat16, false, false, true>(
+                 st, qb, a, S, n_splits, partials != 0, out, m_final, l_final)
+           : nw::launch_tc_forward<float, false, false, true>(st, qb, a, S, n_splits,
+                                                              partials != 0, out, m_final,
+                                                              l_final));
 }
 
 // K4 (int4 == 0) and K5 (int4 != 0): D the padded feature width (a

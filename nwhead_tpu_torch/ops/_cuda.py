@@ -71,6 +71,7 @@ _API = {
         "nw_prepared_forward": ([_VP] * 11 + [_I32] * 10 + [_VP], _I32),
         "nw_prepared_quant_forward": ([_VP] * 12 + [_I32] * 10 + [_VP], _I32),
         "nw_prepared_sel_forward": ([_VP] * 14 + [_I32] * 12 + [_VP], _I32),
+        "nw_raw_forward": ([_VP] * 10 + [_I32] * 10 + [_VP], _I32),
         "nw_prepared_tc_smem_bytes": ([_I32] * 3, _I32),
         "nw_prepared_smem_optin": ([_I32], _I32),
         "nw_prepared_support_tile": ([], _I32),
@@ -78,15 +79,12 @@ _API = {
         "nw_prepared_error_string": ([_I32], ctypes.c_char_p),
     },
     "nw_fused": {
-        "nw_fused_forward": ([_VP] * 10 + [_I32] * 9 + [_VP], _I32),
-        "nw_fused_bwd_dq": ([_VP] * 11 + [_I32] * 8 + [_VP], _I32),
+        "nw_fused_bwd_dq": ([_VP] * 11 + [_I32] * 9 + [_VP], _I32),
         "nw_fused_bwd_ds": ([_VP] * 9 + [_I32] * 6 + [_VP], _I32),
-        "nw_fused_query_tile": ([], _I32),
-        "nw_fused_support_tile": ([], _I32),
-        "nw_fused_max_classes": ([_I32], _I32),
         "nw_fused_dq_max_features": ([_I32], _I32),
         "nw_fused_ds_max_batch": ([_I32], _I32),
-        "nw_fused_smem_bytes": ([_I32, _I32], _I32),
+        "nw_fused_dq_smem_bytes": ([_I32, _I32], _I32),
+        "nw_fused_ds_smem_bytes": ([_I32], _I32),
         "nw_fused_error_string": ([_I32], ctypes.c_char_p),
     },
     "lab_stream": {

@@ -6,11 +6,17 @@ Port of ``nwhead_tpu/ops/pallas_nw.py``: ``prepare_support``,
 ``nw_fused_from_prepared``. It holds no Pallas: the kernels are CUDA C++
 for Hopper, built and loaded by ``ops/_cuda.py``:
 
-* K1 ``csrc/nw_fused.cu`` ``nw_fused_forward`` (TPU ``_nw_fwd_kernel``):
-  raw features in, log-probs and the softmax statistics ``(m, l)`` out;
+* K1 ``csrc/nw_prepared.cu`` ``nw_raw_forward`` (TPU ``_nw_fwd_kernel``):
+  raw features in, log-probs and the softmax statistics ``(m, l)`` out, on
+  the prepared banks' tensor-core pass 1 (``nw_prepared_tc_kernel`` over
+  raw rows, the same query tile and split rule), ``|q|^2`` and ``|s|^2``
+  from the tensor cores by ``q.s``'s own route, so that a query that is
+  also a support row scores exactly 0;
 * K3 ``csrc/nw_fused.cu`` ``nw_fused_bwd_dq`` / ``nw_fused_bwd_ds`` (TPU
   ``_nw_bwd_dq_kernel`` / ``_nw_bwd_ds_kernel``): the backward, recomputing
-  the scores from ``(m, l)``;
+  the scores from ``(m, l)``; dq on the tensor cores (``nw_raw_dq_tc_kernel``:
+  K1's score route, then ``sum_j t_bj s_j`` on 3xTF32, its query tile from
+  ``_dq_query_tile``);
 * K2 ``csrc/nw_prepared.cu`` ``nw_prepared_forward`` (TPU
   ``_nw_prepared_kernel``): the forward over a bank normalized and packed
   once by ``prepare_support``, f32 or bf16, its scores on the tensor cores
@@ -543,21 +549,9 @@ def _nw_bwd_ds_plain(q, s, labels, u, r, m, l, scale, mode, n_classes) -> torch.
     return _ds_from_weights(qf, sf, t, scale, mode).to(s.dtype)
 
 
-def _split_rows(n_rows: int, n_query_tiles: int, n_sms: int, tile: int) -> Tuple[int, int]:
-    """K1's and K3's support rows per split and split count: enough splits that the
-    grid (query tiles x splits) holds about 8 blocks per SM, so that blocks
-    waiting on memory are covered by others (a block does not prefetch),
-    and no split shorter than one tile. On an H100 at the CUB-200 bank this
-    beat 2 and 4 blocks per SM at B=64 and matched 4 at B=256."""
-    want = max(1, math.ceil(8 * n_sms / n_query_tiles))
-    rows = max(tile, math.ceil(n_rows / want))
-    rows = math.ceil(rows / tile) * tile
-    return rows, math.ceil(n_rows / rows)
-
-
-# The tensor-core pass 1 of K2, K4, K5 and K6, every prepared bank
-# (``csrc/nw_prepared.cu``: ``nw_prepared_tc_kernel``); these mirror its
-# constants and ``tc_smem_bytes``.
+# The tensor-core pass 1 of K2, K4, K5 and K6, every prepared bank, and of
+# K1 over raw rows (``csrc/nw_prepared.cu``: ``nw_prepared_tc_kernel``);
+# these mirror its constants and ``tc_smem_bytes``.
 _TC_QUERY_TILES = (32, 16, 8)  # queries a block, the largest that fits first
 _TC_SUPPORT_TILE = 64
 _TC_STAGES = 3  # slices in each scoring group's ring
@@ -606,6 +600,37 @@ def _tc_splits(n_rows: int, n_query_tiles: int, n_sms: int) -> Tuple[int, int]:
     want = max(1, math.ceil(n_sms / n_query_tiles))
     rows = _round_up(max(tile, math.ceil(n_rows / want)), tile)
     return rows, math.ceil(n_rows / rows)
+
+
+# K3's dq pass 1 (``csrc/nw_fused.cu``: ``nw_raw_dq_tc_kernel``): its ring
+# of slices, each tile streamed twice (scores, then ``t s``).
+_DQ_STAGES = 6
+
+
+def _dq_smem_bytes(qb: int, D: int) -> int:
+    """Dynamic shared memory of one dq block (``dq_tc_smem_bytes``):
+    alignment slack; the ring (query rows, at least 16, and 64 support rows
+    of 128 bytes, the tile's labels and self-norms, padded to 1 KB); the
+    score tile (two at ``qb <= 16``); ``t`` (at least 16 rows); the
+    queries' ``|q|^2`` halves, ``m_safe``, ``max(l, 1e-30)``, ``r`` and
+    ``sum_j t``; the ring's barriers; ``sum_j t s_j``, ``qb x (D + 8)``."""
+    rows = max(qb, 16)
+    stage = (rows + _TC_SUPPORT_TILE) * _TC_ROW_BYTES + _TC_ALIGN
+    stride = _TC_SUPPORT_TILE + 4
+    floats = (2 if qb <= 16 else 1) * qb * stride + rows * stride + 5 * 32
+    return _TC_ALIGN + _DQ_STAGES * stage + 4 * floats + 16 * _DQ_STAGES + 4 * qb * (D + 8)
+
+
+def _dq_query_tile(queries: int, D: int, smem_optin: int) -> int:
+    """The dq pass's query tile: the largest of 32, 16 and 8 whose block
+    fits ``smem_optin`` bytes with ``D`` features, and no larger than the
+    power of two that holds ``queries`` (8 at the training episode's B = 8,
+    32 at B = 64)."""
+    cap = max(8, 1 << max(0, queries - 1).bit_length())
+    for qb in _TC_QUERY_TILES:
+        if qb <= cap and _dq_smem_bytes(qb, D) <= smem_optin:
+            return qb
+    raise ValueError(f"D={D} is beyond the dq pass's shared-memory accumulator")
 
 
 def _check_prepared(name: str, q: torch.Tensor, prep: PreparedSupport, scale: torch.Tensor,
@@ -953,37 +978,32 @@ def _launch(lib, fn: str, *args) -> None:
         raise RuntimeError(f"{fn} kernel launch failed: {lib.nw_fused_error_string(rc).decode()}")
 
 
-def _fused_library(q: torch.Tensor):
-    """The K1/K3 library, the device index and the card's SM count."""
-    lib = _cuda.load_library("nw_fused")
-    n_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    return lib, q.device.index or 0, n_sms
-
-
 def _fwd_launch(name: str, q: torch.Tensor, s: torch.Tensor, labels: torch.Tensor,
                 scale: torch.Tensor, mode: str, n_classes: int, partials: bool):
-    """Check K1's operands and launch it on the current stream: pass 1 over
-    (query tiles x support splits) writes partials, pass 2 merges them into
-    ``(out (B, C), m (B, 1), l (B, 1))``, ``out`` the log-probs, or with
-    ``partials`` the label sums unfinalized."""
+    """Check K1's operands and launch it on the current stream: the
+    tensor-core pass 1 over raw rows (``_tc_query_tile``, ``_tc_splits``)
+    writes per-split partials, pass 2 merges them into ``(out (B, C), m (B,
+    1), l (B, 1))``, ``out`` the log-probs, or with ``partials`` the label
+    sums unfinalized."""
     _check_raw(name, q, s, [("labels", labels, torch.int32), ("scale", scale, torch.float32)])
-    lib, dev, n_sms = _fused_library(q)
-    if n_classes < 1 or n_classes > lib.nw_fused_max_classes(dev):
+    lib = _cuda.load_library()
+    if n_classes < 1 or n_classes > lib.nw_prepared_max_classes(q.device.index or 0):
         raise ValueError(f"n_classes={n_classes} is beyond what the kernel's "
                          "shared-memory accumulator holds on this device")
     (B, D), S = q.shape, s.shape[0]
-    rows, n_splits = _split_rows(S, math.ceil(B / lib.nw_fused_query_tile()), n_sms,
-                                 lib.nw_fused_support_tile())
-    f32 = dict(dtype=torch.float32, device=q.device)
-    m_part, l_part = torch.empty((n_splits, B), **f32), torch.empty((n_splits, B), **f32)
-    acc_part = torch.empty((n_splits, B, n_classes), **f32)
-    out, m, l = torch.empty((B, n_classes), **f32), torch.empty(B, **f32), torch.empty(B, **f32)
+    n_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    qb = _tc_query_tile(B, n_classes, False, _smem_optin(lib, q.device))
+    rows, n_splits = _tc_splits(S, math.ceil(B / qb), n_sms)
+    bufs, ptrs = _partials(n_splits, B, n_classes, q.device, True)
     with torch.cuda.device(q.device):
-        _launch(lib, "nw_fused_forward", q.data_ptr(), s.data_ptr(), labels.data_ptr(),
-                scale.data_ptr(), m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
-                out.data_ptr(), m.data_ptr(), l.data_ptr(), B, S, D, n_classes,
-                int(mode == "l2"), int(s.dtype == torch.bfloat16), n_splits, rows,
-                int(partials), torch.cuda.current_stream(q.device).cuda_stream)
+        rc = lib.nw_raw_forward(
+            q.data_ptr(), s.data_ptr(), labels.data_ptr(), scale.data_ptr(), *ptrs, B, S, D,
+            n_classes, int(mode == "l2"), int(s.dtype == torch.bfloat16), n_splits, rows, qb,
+            int(partials), torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"{name} kernel launch failed: {lib.nw_prepared_error_string(rc).decode()}")
+    out, m, l = bufs[3:]
     return out, m[:, None], l[:, None]
 
 
@@ -991,8 +1011,9 @@ def nw_fwd_cuda(
     q: torch.Tensor, s: torch.Tensor, labels: torch.Tensor, scale: torch.Tensor,
     mode: str, n_classes: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch K1 (``csrc/nw_fused.cu``): ``(out (B, C), m (B, 1), l (B,
-    1))``, the log-probs and the softmax statistics the backward needs."""
+    """Launch K1 (``csrc/nw_prepared.cu``, raw rows): ``(out (B, C), m (B,
+    1), l (B, 1))``, the log-probs and the softmax statistics the backward
+    needs."""
     out = _fwd_launch("nw_fwd_cuda", q, s, labels, scale, mode, n_classes, False)
     nw_fwd_cuda.launches += 1
     return out
@@ -1005,7 +1026,7 @@ def nw_fwd_partials_cuda(
     q: torch.Tensor, s: torch.Tensor, labels: torch.Tensor, scale: torch.Tensor,
     mode: str, n_classes: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch K1 ``partials=True`` (``csrc/nw_fused.cu``, the unfinalized
+    """Launch K1 ``partials=True`` (``csrc/nw_prepared.cu``, the unfinalized
     merge): ``(m (B, 1), l (B, 1), acc (B, C))`` from raw features."""
     acc, m, l = _fwd_launch("nw_fwd_partials_cuda", q, s, labels, scale, mode, n_classes, True)
     nw_fwd_partials_cuda.launches += 1
@@ -1031,17 +1052,19 @@ def nw_bwd_dq_cuda(
     mode: str, n_classes: int,
 ) -> torch.Tensor:
     """Launch K3's dq pass (``csrc/nw_fused.cu``): per-split partials over
-    (query tiles x support splits), then their sum in a fixed order.
-    Returns ``dq (B, D)`` in ``q``'s dtype."""
+    (query tiles x support splits) on the tensor cores (``_dq_query_tile``,
+    ``_tc_splits``), then their sum in a fixed order. Returns ``dq (B, D)``
+    in ``q``'s dtype."""
     per_query = _bwd_tensors(q, u, r, m, l, n_classes)
     _check_raw("nw_bwd_dq_cuda", q, s, [("labels", labels, torch.int32),
                                         ("scale", scale, torch.float32), *per_query])
-    lib, dev, n_sms = _fused_library(q)
+    lib = _cuda.load_library("nw_fused")
     (B, D), S = q.shape, s.shape[0]
-    if D > lib.nw_fused_dq_max_features(dev):
+    if D > lib.nw_fused_dq_max_features(q.device.index or 0):
         raise ValueError(f"D={D} is beyond the dq pass's shared-memory accumulator")
-    rows, n_splits = _split_rows(S, math.ceil(B / lib.nw_fused_query_tile()), n_sms,
-                                 lib.nw_fused_support_tile())
+    n_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    qb = _dq_query_tile(B, D, _smem_optin(_cuda.load_library(), q.device))
+    rows, n_splits = _tc_splits(S, math.ceil(B / qb), n_sms)
     ts = torch.empty((n_splits, B, D), dtype=torch.float32, device=q.device)
     tsum = torch.empty((n_splits, B), dtype=torch.float32, device=q.device)
     dq = torch.empty_like(q)
@@ -1049,7 +1072,7 @@ def nw_bwd_dq_cuda(
         _launch(lib, "nw_fused_bwd_dq", q.data_ptr(), s.data_ptr(), labels.data_ptr(),
                 *(t.data_ptr() for _, t, _ in per_query), scale.data_ptr(), ts.data_ptr(),
                 tsum.data_ptr(), dq.data_ptr(), B, S, D, n_classes, int(mode == "l2"),
-                int(s.dtype == torch.bfloat16), n_splits, rows,
+                int(s.dtype == torch.bfloat16), n_splits, rows, qb,
                 torch.cuda.current_stream(q.device).cuda_stream)
     nw_bwd_dq_cuda.launches += 1
     return dq
@@ -1069,9 +1092,9 @@ def nw_bwd_ds_cuda(
     per_query = _bwd_tensors(q, u, r, m, l, n_classes)
     _check_raw("nw_bwd_ds_cuda", q, s, [("labels", labels, torch.int32),
                                         ("scale", scale, torch.float32), *per_query])
-    lib, dev, _ = _fused_library(q)
+    lib = _cuda.load_library("nw_fused")
     (B, D), S = q.shape, s.shape[0]
-    if B > lib.nw_fused_ds_max_batch(dev):
+    if B > lib.nw_fused_ds_max_batch(q.device.index or 0):
         raise ValueError(f"B={B} is beyond the ds pass's shared-memory buffer")
     ds = torch.empty_like(s)
     with torch.cuda.device(q.device):

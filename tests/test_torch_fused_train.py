@@ -308,19 +308,24 @@ def test_cuda_kernels_match_plain(precision, shape):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 1200, 512, 200), (64, 5994, 512, 200)],
+                         ids=["b8_split_k", "b64"])
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
-def test_cuda_kernels_exact_on_duplicate_rows(precision):
+def test_cuda_kernels_exact_on_duplicate_rows(precision, shape):
     """On the card: six queries copied into the support (a query drawn into
-    its own episode). The kernels sum |q|^2, |s|^2 and q.s in one order, so
-    in l2 mode such a pair scores exactly 0; the f32 plain version leaves
-    rounding residue there, so the reference is the plain version in f64.
-    Tolerances as ``test_cuda_kernels_match_plain``."""
+    its own episode), at B = 8 (K1 and dq on 8-query tiles, each slice's
+    features in two halves) and B = 64 (32-query tiles, whole slices). The
+    kernels take |q|^2, |s|^2 and q.s by one route (K1 and dq: the same
+    tensor-core products; ds: FFMA in one order), so in l2 mode such a
+    pair scores exactly 0; the f32 plain version leaves rounding residue
+    there, so the reference is the plain version in f64. Tolerances as
+    ``test_cuda_kernels_match_plain``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (and nvcc to build the kernels)")
     fwd_tol = {"f32": dict(rtol=2e-4, atol=2e-4), "bf16": dict(rtol=0.0, atol=2e-3)}[precision]
     grad_rel = {"f32": 1e-3, "bf16": 2e-2}[precision]
     dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[precision]
-    B, S, D, C = 8, 1200, 512, 200
+    B, S, D, C = shape
     rng = np.random.default_rng(2)
     dev = torch.device("cuda")
     q = torch.from_numpy(rng.standard_normal((B, D), np.float32)).to(dev)

@@ -39,7 +39,7 @@ torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LABS = ("kernel_lab", "manual_pipe_lab", "prepared_lab", "roofline_lab", "block_lab",
-        "mlp_block_lab", "attn_block_lab", "prepared_head_lab")
+        "mlp_block_lab", "attn_block_lab", "prepared_head_lab", "raw_head_lab")
 
 
 def _script(relpath: str):
@@ -374,6 +374,28 @@ def test_prepared_head_lab_covers_every_bank_precision(precisions, capsys):
                      f"{k} partials {prec} 250,000-row shard", f"{k} {prec} CUB bank",
                      f"{k} {prec} ViT bank", f"K6 {prec} skewed", f"K6 {prec} diverse",
                      f"K6 {prec} full probe"}
+    assert set(errs) == expected
+    assert max(errs.values()) <= 2e-3
+
+
+def test_raw_head_lab_covers_k1_dq_and_the_unsorted_bank(capsys):
+    """``raw_head_lab --device cpu --tiny`` holds every case to its plain
+    version through the public entry points: K1, K1 ``partials`` and dq at
+    the episode's, B = 64's and the streamed chunk's shapes, K2 on the
+    chunk's rows unsorted and sorted, f32 and bf16."""
+    import json
+
+    from nwhead_tpu_torch.labs import raw_head_lab
+
+    assert raw_head_lab.main(["--device", "cpu", "--tiny"]) == 0
+    errs = json.loads(capsys.readouterr().out.strip().splitlines()[-1])["max_abs_err"]
+    expected = set()
+    for prec in ("f32", "bf16"):
+        for shape in ("episode", "B=64 S=5,994", "stream chunk"):
+            expected |= {f"K1 {prec} {shape}", f"K1 partials {prec} {shape}",
+                         f"K3 dq {prec} {shape}"}
+        expected |= {f"K2 {prec} unsorted bank, stream chunk",
+                     f"K2 {prec} sorted bank, stream chunk"}
     assert set(errs) == expected
     assert max(errs.values()) <= 2e-3
 
