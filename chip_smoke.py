@@ -265,7 +265,7 @@ REPLACES = {
 RAW_KERNELS = {
     "nw_fwd": (PREPARED_SOURCE, "nw_prepared_tc_kernel (raw rows), nw_merge_kernel"),
     "nw_bwd_dq": (FUSED_SOURCE, "nw_raw_dq_tc_kernel, nw_bwd_dq_merge_kernel"),
-    "nw_bwd_ds": (FUSED_SOURCE, "nw_bwd_ds_kernel"),
+    "nw_bwd_ds": (FUSED_SOURCE, "nw_raw_ds_tc_kernel"),
 }
 TRAIN_ARGV = [
     "--dataset", "synthetic_cub", "--arch", "resnet18", "--batch_size", "8", "--n_shot", "6",
@@ -514,6 +514,8 @@ def check_raw_kernels(qn, sn, labels, scale, mode, C, g, prec, where: str,
     same_bits(f"K3 dq {where} {prec}", lambda: F.nw_bwd_dq_cuda(
         qn, sn, labels, u, r, want[1], want[2], scale, mode, C))
     ds = F.nw_bwd_ds_cuda(qn, sn, labels, u, r, want[1], want[2], scale, mode, C)
+    same_bits(f"K3 ds {where} {prec}", lambda: F.nw_bwd_ds_cuda(
+        qn, sn, labels, u, r, want[1], want[2], scale, mode, C))
     dq_p, ds_p = F._nw_bwd_plain(rq, rs, labels, u, r, want[1], want[2], scale, mode, C)
     torch.cuda.synchronize()
     l_tol = dict(rtol=2e-3 if prec == "bf16" else 2e-4, atol=1e-6)
@@ -604,8 +606,9 @@ def raw_kernel_phase(flush) -> dict:
 
 
 def raw_split(label: str, qn, sn, labels, scale, mode, C, g, flush) -> None:
-    """K1's and dq's device functions (pass 1, merge) and their mean ms by
-    ``torch.profiler`` (``attn_block_lab.device_split``), one line each."""
+    """K1's and K3's device functions (K1 and dq: pass 1, merge; ds: its
+    one kernel) and their mean ms by ``torch.profiler``
+    (``attn_block_lab.device_split``), one line each."""
     import torch
 
     from nwhead_tpu_torch.labs.attn_block_lab import device_split, split_line
@@ -616,6 +619,8 @@ def raw_split(label: str, qn, sn, labels, scale, mode, C, g, flush) -> None:
     r = torch.sum(u * (torch.exp(out) - 1e-12), dim=-1, keepdim=True)
     for name, fn in (("K1", lambda: F.nw_fwd_cuda(qn, sn, labels, scale, mode, C)),
                      ("K3 dq", lambda: F.nw_bwd_dq_cuda(qn, sn, labels, u, r, m, l, scale,
+                                                        mode, C)),
+                     ("K3 ds", lambda: F.nw_bwd_ds_cuda(qn, sn, labels, u, r, m, l, scale,
                                                         mode, C))):
         split = {}
         for _ in range(3):  # the profiler sometimes records no device time; ask again
@@ -2505,6 +2510,45 @@ def _capture_first(module, name: str, store: dict):
     return restore
 
 
+def step_attention_times(label: str, qkv, g, H: int, scale: float, flush) -> dict:
+    """K7 and K8 at a training step's own shapes (the tensors the step gave
+    K8), median of 5 by ``time_ms``, each beside its bound (as at B=64: K7
+    reads q, k, v and writes the output, 4 B N D elements, and does two
+    products of 2 N^2 hd a (batch, head); K8 reads q, k, v, dO and writes
+    dq, dk, dv, 7 B N D, and does five) and beside SDPA on the same data:
+    ``F.scaled_dot_product_attention`` forward, and its backward by
+    ``torch.autograd.grad``, timed only. Prints one line each."""
+    import torch
+    import torch.nn.functional as TF
+
+    from nwhead_tpu_torch.ops import fused_attn as FA
+
+    B, N = qkv.shape[:2]
+    D = qkv.shape[-1] // 3
+    hd, item = D // H, qkv.element_size()
+    prec = "bf16" if qkv.dtype == torch.bfloat16 else "f32"
+    q, k, v = (t.permute(0, 2, 1, 3).contiguous().requires_grad_(True)
+               for t in qkv.reshape(B, N, 3, H, hd).unbind(2))
+    out = TF.scaled_dot_product_attention(q, k, v)
+    g_heads = g.reshape(B, N, H, hd).permute(0, 2, 1, 3).contiguous()
+    res = {
+        "K7": {"ms": time_ms(lambda: FA.attention_qkv_cuda(qkv, H, scale), flush, n=5),
+               "library_ms": time_ms(lambda: TF.scaled_dot_product_attention(q, k, v), flush,
+                                     n=5),
+               **bound(4 * B * N * D * item, 2 * 2 * B * N * N * D, prec)},
+        "K8": {"ms": time_ms(lambda: FA.attention_qkv_bwd_cuda(qkv, g, H, scale), flush, n=5),
+               "library_ms": time_ms(lambda: torch.autograd.grad(out, (q, k, v), g_heads,
+                                                                 retain_graph=True), flush, n=5),
+               **bound(7 * B * N * D * item, 5 * 2 * B * N * N * D, prec)},
+    }
+    for name, r in res.items():
+        print(f"{label} {name} at the step's shape (B={B}, N={N}, D={D}, H={H}) {prec}: kernel "
+              f"{r['ms']:.4f} ms, SDPA {'backward ' if name == 'K8' else ''}"
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    del q, k, v, out, g_heads
+    return res
+
+
 def vit_training_phase(datasets, workdir: str) -> dict:
     """The ViT training path on the kernels: 10 steps of the ``n_shot 6``
     episode with the fused impls, launch counts, moved weights, K8 and the
@@ -2588,14 +2632,8 @@ def vit_training_phase(datasets, workdir: str) -> dict:
     # Each featurizer kernel's device time at the step's own shapes, times
     # its launches per step, against the step.
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
-    step_ms = {"K7": time_ms(lambda: FA.attention_qkv_cuda(qkv, H, scale), flush, n=5),
-               "K8": time_ms(lambda: FA.attention_qkv_bwd_cuda(qkv, g, H, scale), flush, n=5)}
-    # K8's bound at this shape, as at B=64: five products of 2 N^2 hd a
-    # (batch, head), q, k, v, dO read and dq, dk, dv written once.
-    Bq, Nq = qkv.shape[:2]
-    k8_bound = bound(7 * Bq * Nq * D * qkv.element_size(), 5 * 2 * Bq * Nq * Nq * D, "f32")
-    print(f"vit train K8 at the step's shape (B={Bq}, N={Nq}, D={D}, H={H}): kernel "
-          f"{step_ms['K8']:.4f} ms, bound {k8_bound['bound_ms']:.4f} ms ({k8_bound['bound_by']})")
+    attn = step_attention_times("vit train", qkv, g, H, scale, flush)
+    step_ms = {"K7": attn["K7"]["ms"], "K8": attn["K8"]["ms"]}
     del qkv, g
     m_args = tuple(a.to(dev) for a in mlp_in.pop("args"))
     got, want = FM.mlp_bwd_cuda(*m_args), FM._mlp_bwd_plain(*m_args)
@@ -2613,7 +2651,7 @@ def vit_training_phase(datasets, workdir: str) -> dict:
         f"({kernels_ms / split['step_ms']:.2f})")
     out = {"launches": {"f32": launches}, "errs": errs, "split": split, "peak_bytes": peak,
            "ms_per_step": trainer.train_seconds / TRAIN_STEPS, "losses": losses,
-           "kernel_step_ms": step_ms, "k8_step_bound": k8_bound}
+           "kernel_step_ms": step_ms, "attention_step": attn}
     del trainer, net, timer, m_args, watched, before, flush
     torch.cuda.empty_cache()
 
@@ -2661,13 +2699,15 @@ def vit_training_phase(datasets, workdir: str) -> dict:
     _set_gammas(trainer.net)
     timer = StepTimer(trainer.net.model)
     _counts(reset=True)
-    mlp_in = {}
-    restore = _capture_first(FM, "mlp_bwd_cuda", mlp_in)
+    mlp_in, attn_in = {}, {}
+    restore = [_capture_first(FM, "mlp_bwd_cuda", mlp_in),
+               _capture_first(FA, "attention_qkv_bwd_cuda", attn_in)]
     try:
         trainer.train_epoch(num_steps=3)
         torch.cuda.synchronize()
     finally:
-        restore()
+        for r in restore:
+            r()
     bf = _counts()
     split_bf = timer.split()
     out["launches"]["bf16"] = bf
@@ -2695,7 +2735,13 @@ def vit_training_phase(datasets, workdir: str) -> dict:
     del got, want
     torch.cuda.empty_cache()
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
-    bf_ms = {"K9": time_ms(lambda: FM.mlp_cuda(*m_args[:5]), flush, n=5),
+    qkv, g, H, scale = (a.to(dev) if torch.is_tensor(a) else a for a in attn_in.pop("args"))
+    attn_bf = step_attention_times("vit train bf16", qkv, g, H, scale, flush)
+    out["attention_step_bf16"] = attn_bf
+    del qkv, g
+    torch.cuda.empty_cache()
+    bf_ms = {"K7": attn_bf["K7"]["ms"], "K8": attn_bf["K8"]["ms"],
+             "K9": time_ms(lambda: FM.mlp_cuda(*m_args[:5]), flush, n=5),
              "K9 backward": time_ms(lambda: FM.mlp_bwd_cuda(*m_args), flush, n=5)}
     kernels_ms = VIT_BLOCKS * sum(bf_ms.values())
     print(f"vit train bf16 kernels at the step's shapes (median of 5): " + ", ".join(
@@ -3176,8 +3222,23 @@ def main() -> int:
           f"{lib.nw_prepared_max_classes(0)}; "
           f"K3 dq block {fused.nw_fused_dq_smem_bytes(8, 512)} bytes at 8 queries, D=512 "
           f"({fused.nw_fused_dq_smem_bytes(32, 512)} at 32; largest D "
-          f"{fused.nw_fused_dq_max_features(0)}), ds block {fused.nw_fused_ds_smem_bytes(64)} "
-          f"bytes at B=64 (largest B {fused.nw_fused_ds_max_batch(0)})")
+          f"{fused.nw_fused_dq_max_features(0)})")
+    from nwhead_tpu_torch.ops import fused_nw as F
+
+    optin = F._smem_optin(lib, torch.device("cuda"))
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # The FFMA ds kernel this one replaced kept t for all of B: 12,544 bytes
+    # besides, 4,096 a 16-query tile.
+    ffma_cap = (optin - 12_544) // 4096 * 16
+    for B, S, D, elem in ((8, 1200, 512, 4), (8, 1200, 512, 2), (64, 5994, 512, 4),
+                          (64, 5994, 512, 2)):
+        qb, cl, group = F._ds_plan(B, S, D, elem, optin, n_sms)
+        print(f"  K3 ds plan at B={B}, S={S}, D={D} {'f32' if elem == 4 else 'bf16'}: query "
+              f"tile {qb}, clusters of {cl} on {-(-S // 64)} tiles ({cl * -(-S // 64)} blocks), "
+              f"group {group}, {fused.nw_fused_ds_smem_bytes(qb, cl, group)} bytes a block "
+              f"(largest group {fused.nw_fused_ds_max_group(qb, cl, 0)}, a larger B in groups: "
+              f"no B cap; the FFMA kernel's cap was {ffma_cap}; D cap "
+              f"{fused.nw_fused_dq_max_features(0)}, dq's)")
 
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")  # 256 MB > L2
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' products in full f32

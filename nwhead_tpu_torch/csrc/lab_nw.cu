@@ -129,8 +129,8 @@ inline size_t variant_smem_bytes(int C, bool x3) {
 }
 
 // The dot products of one score tile (queries b0.., rows t0..): thread tid
-// owns query tid / 16 and rows tid % 16 + 16 r, as nw_common.cuh's
-// tile_dots. Masked rows and rows past r_end load as 0. kDistF32 leaves the
+// owns query tid / 16 and rows tid % 16 + 16 r (kThreadsPerQuery,
+// kRowsPerThread of nw_common.cuh). Masked rows and rows past r_end load as 0. kDistF32 leaves the
 // rows' self-norms in s2t (dot order); the others read s2 in the caller.
 template <int kDist, typename TQ, typename TS>
 __device__ __forceinline__ void variant_dots(const TQ* __restrict__ q,

@@ -1,6 +1,6 @@
 // Device code shared by the fused Nadaraya-Watson kernels (nw_prepared.cu,
-// nw_fused.cu, lab_nw.cu): tile shapes, the FFMA score tile of K3's ds pass
-// and the labs, and the exact merge of a forward's support splits.
+// nw_fused.cu, lab_nw.cu): tile shapes, the FFMA helpers of the labs'
+// kernels, and the exact merge of a forward's support splits.
 //
 // A forward pass computes, for each query b, over the support rows j:
 //   l2 mode:  score = -sqrt(max(|q|^2 - 2 q.s_j + s2_j, 0))
@@ -19,8 +19,10 @@
 // also a support row (common in training episodes) gets a distance of
 // exactly 0, not the square root of rounding residue (about 1e-2 at
 // ResNet-18's feature norms, which moved every log-prob of that query by
-// as much): the tensor-core route takes |q|^2 and s2_j by q.s's own
-// products (nw_tc.cuh), ds's tile_dots below sums all three in one order.
+// as much): K1 and both passes of K3 take |q|^2 and s2_j by q.s's own
+// products on the tensor cores (nw_tc.cuh's raw_slice). The FFMA score
+// tile that K3's ds pass kept until it moved to that route is gone; the
+// labs' kernels (lab_nw.cu) keep their own, on the helpers below.
 // The class cap of every forward entry point comes from this file's tile
 // layout (max_forward_classes).
 
@@ -99,53 +101,8 @@ __device__ __forceinline__ void query_norms(const T* __restrict__ q, int b0, int
   }
 }
 
-// Query chunk load: queries b0 .. b0 + 15, features k0 .. k0 + 31, as f32;
-// queries past B and features past D load as 0.
-template <typename T>
-__device__ __forceinline__ void load_query_chunk(const T* __restrict__ q, int b0, int B, int k0,
-                                                 int D, float* __restrict__ q_chunk) {
-#pragma unroll
-  for (int i = 0; i < kQueryTile * kFeatChunk / kThreads; ++i) {
-    const int e = threadIdx.x + i * kThreads;
-    const int b = e / kFeatChunk, k = e % kFeatChunk;
-    float v = 0.f;
-    if (b0 + b < B && k0 + k < D) v = to_float(q[static_cast<size_t>(b0 + b) * D + k0 + k]);
-    q_chunk[b * kChunkStride + k] = v;
-  }
-}
-
-// Support chunk load: rows t0 .. t0 + 63, features k0 .. k0 + 31, as f32.
-// Rows past r_end and features past D load as 0; with kMaskRows, masked
-// rows (label < 0) too, since raw rows may hold NaN there (a prepared bank
-// has zeroed them already, and skips the test).
-template <bool kMaskRows, typename T>
-__device__ __forceinline__ void load_support_chunk(const T* __restrict__ s, int t0, int r_end,
-                                                   int k0, int D, const int* __restrict__ labels,
-                                                   float* __restrict__ s_chunk) {
-#pragma unroll
-  for (int i = 0; i < kSupportTile * kFeatChunk / kThreads; ++i) {
-    const int e = threadIdx.x + i * kThreads;
-    const int j = e / kFeatChunk, k = e % kFeatChunk;
-    float v = 0.f;
-    if (t0 + j < r_end && k0 + k < D && (!kMaskRows || labels[t0 + j] >= 0)) {
-      v = to_float(s[static_cast<size_t>(t0 + j) * D + k0 + k]);
-    }
-    s_chunk[j * kChunkStride + k] = v;
-  }
-}
-
-// Labels of the rows t0 .. t0 + 63 into shared memory (-1 past r_end). The
-// first synchronization of the tile_dots that follows makes them visible.
-__device__ __forceinline__ void load_tile_labels(const int* __restrict__ labels, int t0,
-                                                 int r_end, int* __restrict__ tile_labels) {
-  if (threadIdx.x < kSupportTile) {
-    const int row = t0 + threadIdx.x;
-    tile_labels[threadIdx.x] = row < r_end ? labels[row] : -1;
-  }
-}
-
 // A sum of squares of one shared-memory row chunk, accumulated in feature
-// order: the order tile_dots accumulates q.s in.
+// order: the order the labs' FFMA score tiles (lab_nw.cu) accumulate q.s in.
 __device__ __forceinline__ float chunk_norm(const float* __restrict__ row, float acc) {
   const float4* v = reinterpret_cast<const float4*>(row);
 #pragma unroll
@@ -157,57 +114,6 @@ __device__ __forceinline__ float chunk_norm(const float* __restrict__ row, float
     acc = fmaf(c.w, c.w, acc);
   }
   return acc;
-}
-
-// The dot products of one score tile: queries b0 .. b0 + 15 against support
-// rows t0 .. t0 + 63. Thread tid owns query tq = tid / 16 and rows
-// tr + 16 r (tr = tid % 16, r < 4); dot[r] is q_tq . s_row in f32. With
-// self_norms, the rows' |s_j|^2 (0 for masked rows) land in s2 (shared,
-// kSupportTile floats); with q2 != null, the queries' |q_b|^2 land there.
-// Both sums run in the dot products' order, so a query equal to a support
-// row gets |q|^2 - 2 q.s + |s|^2 = 0 exactly, not rounding residue.
-// kMaskRows as in load_support_chunk. Ends synchronized.
-template <bool kMaskRows, typename T>
-__device__ __forceinline__ void tile_dots(const T* __restrict__ q, const T* __restrict__ s,
-                                          int b0, int B, int t0, int r_end, int D,
-                                          const int* __restrict__ labels, bool self_norms,
-                                          float* __restrict__ q2, float* __restrict__ smem_tile,
-                                          float (&dot)[kRowsPerThread]) {
-  float* q_chunk = smem_tile;
-  float* s_chunk = q_chunk + kQueryTile * kChunkStride;
-  float* s2 = s_chunk + kSupportTile * kChunkStride;
-  const int tid = threadIdx.x;
-  const int tq = tid / kThreadsPerQuery;
-  const int tr = tid % kThreadsPerQuery;
-  float s2_acc = 0.f, q2_acc = 0.f;
-#pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) dot[r] = 0.f;
-
-  for (int k0 = 0; k0 < D; k0 += kFeatChunk) {
-    load_query_chunk(q, b0, B, k0, D, q_chunk);
-    load_support_chunk<kMaskRows>(s, t0, r_end, k0, D, labels, s_chunk);
-    __syncthreads();
-    if (self_norms && tid < kSupportTile) s2_acc = chunk_norm(s_chunk + tid * kChunkStride, s2_acc);
-    if (q2 != nullptr && tid < kQueryTile) q2_acc = chunk_norm(q_chunk + tid * kChunkStride, q2_acc);
-    const float4* qv = reinterpret_cast<const float4*>(q_chunk + tq * kChunkStride);
-#pragma unroll
-    for (int k4 = 0; k4 < kFeatChunk / 4; ++k4) {
-      const float4 a = qv[k4];
-#pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r) {
-        const float4 c = reinterpret_cast<const float4*>(
-            s_chunk + (tr + kThreadsPerQuery * r) * kChunkStride)[k4];
-        dot[r] = fmaf(a.x, c.x, dot[r]);
-        dot[r] = fmaf(a.y, c.y, dot[r]);
-        dot[r] = fmaf(a.z, c.z, dot[r]);
-        dot[r] = fmaf(a.w, c.w, dot[r]);
-      }
-    }
-    __syncthreads();
-  }
-  if (self_norms && tid < kSupportTile) s2[tid] = s2_acc;
-  if (q2 != nullptr && tid < kQueryTile) q2[tid] = q2_acc;
-  if (self_norms || q2 != nullptr) __syncthreads();
 }
 
 // The l2 distance of a score from its dot product (the expanded form the

@@ -5,7 +5,7 @@
 // Replaces the TPU kernels of nwhead_tpu/ops/pallas_nw.py:
 //   K3  _nw_bwd_dq_kernel   -> nw_fused_bwd_dq (nw_raw_dq_tc_kernel, then
 //                              nw_bwd_dq_merge_kernel), and
-//       _nw_bwd_ds_kernel   -> nw_fused_bwd_ds.
+//       _nw_bwd_ds_kernel   -> nw_fused_bwd_ds (nw_raw_ds_tc_kernel).
 // The backward recomputes each score tile from (m, l), flash style:
 //   w_bj = exp(score_bj - m_safe_b) / max(l_b, 1e-30)
 //   dscore_bj = w_bj * (u[b, y_j] - r_b)      (u, r from the upstream gradient)
@@ -20,92 +20,37 @@
 // What bounds them: at the training episode (B = 8, S = 1200, D = 512) each
 // pass does 2 to 4 * B * S * D = 10-20 MFLOP and moves about 2.5 MB of f32,
 // a few microseconds of the card at best; at B = 64, S = 5994 each backward
-// pass needs 0.79 GFLOP (recompute plus product) and 12.3 MB. With B this
-// small there is one query tile, so parallelism comes from the support:
+// pass needs 0.79 GFLOP (recompute plus product) and 12.3 MB. Neither is
+// near the card's rates: what costs time is the chain of feature slices a
+// block walks through its ring (16 f32 or 8 bf16 slices a score tile at
+// D = 512) and how few blocks the small B leaves in flight. Both passes take
+// their score tiles by K1's very route (nw_tc.cuh's raw_slice: the products
+// on the tensor cores, |q|^2 and |s|^2 as diagonals of self-products in the
+// same calls), so a query that is also a support row has dist = 0 and t = 0
+// in dq and ds as in the forward, and their products on the tensor cores
+// with t split as big + small TF32 (two products for bf16 operands, whose
+// values TF32 holds exactly; three for f32). No float atomics: both
+// gradients repeat bit for bit.
 //   * dq splits S across blocks (one wave of (query tile x split) blocks,
-//     as K1's pass 1). Its block recomputes the score tile on the tensor
-//     cores by K1's very route (tc_product and the self-products of
-//     nw_tc.cuh, so a query that is also a support row has t = 0 there as
-//     dist = 0 in the forward), then multiplies t by the tile's rows on the
-//     tensor cores, keeping sum_j t s_j for its queries in shared memory
-//     (kQB x D floats) and writing it with sum_j t as a per-split partial;
-//     a second kernel sums the splits in a fixed order. No float atomics:
-//     the gradient is the same on every run.
-//   * ds gives each block 64 support rows and loops over every query tile,
-//     keeping t for all B queries of its rows in shared memory (B x 64
-//     floats); then it writes its rows' gradient, which no other block
-//     touches. Its score tile (16 queries x 64 rows, f32 FMAs from shared
-//     memory, |q|^2, |s|^2 and q.s summed in one order) is nw_common.cuh's
-//     tile_dots; the tensor cores are later work.
+//     as K1's pass 1); each block multiplies t by its tiles' rows and
+//     writes per-split partials that a second kernel sums in a fixed order.
+//   * ds gives each 64 support rows a thread-block cluster of 1, 2 or 4
+//     blocks (the plan: as many as one wave of the SMs holds), each taking
+//     its share of the feature slices: each block scores its slices of
+//     every query tile, the blocks exchange their partial score tiles and
+//     self-norms through distributed shared memory and add them in rank
+//     order (so every block holds the same bits, and a coincident pair's
+//     q2 - 2 q.s + s2 is still x - 2x + x = 0), keep t for the queries in
+//     shared memory, then stream the query rows once more for t^T q over
+//     their own features. Nothing is shared between clusters, so there is
+//     no merge pass; a batch larger than the t buffer runs in query groups
+//     whose sums meet in an f32 scratch.
+
+#include <cooperative_groups.h>
 
 #include "nw_tc.cuh"
 
 namespace nw {
-
-constexpr int kStatFloats = 4 * kQueryTile;  // |q|^2, m_safe, max(l, 1e-30), r
-
-// The per-query statistics of one query tile after |q|^2 (which tile_dots
-// writes to stats[0 .. 15]): m_safe, max(l, 1e-30) and r (neutral past B).
-// The caller synchronizes.
-__device__ __forceinline__ void load_backward_stats(const float* __restrict__ m,
-                                                    const float* __restrict__ l,
-                                                    const float* __restrict__ r, int b0, int B,
-                                                    float* __restrict__ stats) {
-  const int i = threadIdx.x;
-  if (i < kQueryTile) {
-    const int b = b0 + i;
-    float m_safe = 0.f, l_cl = 1.f, r_b = 0.f;
-    if (b < B) {
-      m_safe = m[b] > kNeg / 2 ? m[b] : 0.f;
-      l_cl = fmaxf(l[b], 1e-30f);
-      r_b = r[b];
-    }
-    stats[kQueryTile + i] = m_safe;
-    stats[2 * kQueryTile + i] = l_cl;
-    stats[3 * kQueryTile + i] = r_b;
-  }
-}
-
-// t (l2 mode) or dscore (dot mode) of one score tile into tbuf[16][64].
-__device__ __forceinline__ void tile_grads(const float (&dot)[kRowsPerThread],
-                                           const int* __restrict__ tile_labels,
-                                           const float* __restrict__ s2_tile,
-                                           const float* __restrict__ stats,
-                                           const float* __restrict__ u, int b0, int B, int C,
-                                           int l2_mode, float scale, float* __restrict__ tbuf) {
-  const int tq = threadIdx.x / kThreadsPerQuery;
-  const int tr = threadIdx.x % kThreadsPerQuery;
-  const int b = b0 + tq;
-#pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) {
-    const int j = tr + kThreadsPerQuery * r;
-    const int y = tile_labels[j];
-    float t = 0.f;
-    if (y >= 0 && b < B) {
-      float score, dist = 0.f;
-      if (l2_mode) {
-        dist = l2_dist(stats[tq], dot[r], s2_tile[j]);
-        score = -dist;
-      } else {
-        score = dot[r] * scale;
-      }
-      const float w = score > kNeg / 2
-                          ? expf(score - stats[kQueryTile + tq]) / stats[2 * kQueryTile + tq]
-                          : 0.f;
-      const float uy = y < C ? u[static_cast<size_t>(b) * C + y] : 0.f;
-      const float dscore = w * (uy - stats[3 * kQueryTile + tq]);
-      t = l2_mode ? (dist > 0.f ? dscore / dist : 0.f) : dscore;
-    }
-    tbuf[tq * kSupportTile + j] = t;
-  }
-}
-
-size_t ds_smem_bytes(int B) {
-  const size_t b_pad = static_cast<size_t>((B + kQueryTile - 1) / kQueryTile) * kQueryTile;
-  return sizeof(float) * (kTileSmemFloats + kStatFloats + kSupportTile  // staging, stats, colsum
-                          + b_pad * kSupportTile)                      // t of all queries
-         + sizeof(int) * kSupportTile;
-}
 
 int optin_smem(int device) {
   int optin = 0;
@@ -424,86 +369,438 @@ nw_bwd_dq_merge_kernel(const T* __restrict__ q, const float* __restrict__ ts,
   }
 }
 
-// ds: one block per 64 support rows, looping over every query tile.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-nw_bwd_ds_kernel(const T* __restrict__ q, const T* __restrict__ s,
-                 const int* __restrict__ labels, const float* __restrict__ u,
-                 const float* __restrict__ r, const float* __restrict__ m,
-                 const float* __restrict__ l, const float* __restrict__ scale_ptr, int l2_mode,
-                 int B, int S, int D, int C, T* __restrict__ ds) {
+// The ds pass's arguments: as nw_fused_bwd_ds's.
+struct DsArgs {
+  const void* q;  // (B, D) f32 or bf16
+  const void* s;  // (S, D), q's dtype
+  const int* labels;
+  const float *u, *r, *m, *l, *scale;
+  int l2_mode, B, S, D, C, group;
+  int tma;         // 0: the rows staged by plain loads
+  float* scratch;  // (S, D) f32: the sums of the earlier query groups (B > group)
+  void* ds;        // (S, D), q's dtype
+};
+
+// The TMA's descriptors of the ds pass: q as a score tile's query rows and
+// as the t^T q product's stage of kDsChunk rows, and the support rows.
+struct DsMaps {
+  CUtensorMap q, qp, s;
+};
+
+constexpr int kDsStages = 6;                   // slices in the ring
+constexpr int kDsBlock = kTcThreads + 32;      // one scoring group and its producer warp
+constexpr int kDsChunk = 64;                   // query rows a stage of t^T q
+constexpr int kDsTStride = kSupportTile + 8;   // floats a row of t: conflict-free A fragments
+constexpr int kDsNorms = 2 * kSupportTile + kTcMaxQuery;  // s2's halves, q2's
+
+// Bytes of a ds ring stage: a score tile's slices (query rows and 64
+// support rows), or the t^T q product's kDsChunk query rows and, on a
+// slice's last stage, its 64 support rows for the epilogue.
+__host__ __device__ constexpr int ds_stage_bytes(int qb) {
+  return tc_stage_bytes(qb) > (kDsChunk + kSupportTile) * kTcRowBytes
+             ? tc_stage_bytes(qb)
+             : (kDsChunk + kSupportTile) * kTcRowBytes;
+}
+
+// Floats of one block's partial score tile(s) and self-norms, and how many
+// of them a block keeps: its own, or in a cluster one from each block for
+// each of two query tiles in turn.
+__host__ __device__ constexpr int ds_partial_floats(int qb) {
+  return tc_score_bufs(qb) * qb * kTcScoreStride + kDsNorms;
+}
+__host__ __device__ constexpr int ds_inbox_count(int cluster) {
+  return cluster > 1 ? 2 * cluster : 1;
+}
+// Rows of t a block keeps: the query group, in whole 32-row steps.
+__host__ __device__ constexpr int ds_t_rows(int group) { return (group + 31) / 32 * 32; }
+
+// Dynamic shared memory of one ds block: the alignment slack, the ring, its
+// full and empty barriers and the two exchange barriers, the partials, t
+// for the query group, sum_b t, the rows' |s|^2 and the tile's labels.
+inline size_t ds_tc_smem_bytes(int qb, int cluster, int group) {
+  return kTcAlign + static_cast<size_t>(kDsStages) * ds_stage_bytes(qb) +
+         8 * (2 * kDsStages + 2) +
+         sizeof(float) * (static_cast<size_t>(ds_inbox_count(cluster)) * ds_partial_floats(qb) +
+                          static_cast<size_t>(ds_t_rows(group)) * kDsTStride + 2 * kSupportTile) +
+         sizeof(int) * kSupportTile;
+}
+
+// One arrival on the mbarrier at bar's offset in the shared memory of the
+// cluster's block `rank`, ordered after this thread's writes (release at
+// cluster scope).
+__device__ __forceinline__ void mbar_arrive_rank(uint64_t* bar, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(vit::smem_u32(bar)), "r"(rank));
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(remote)
+               : "memory");
+}
+
+// mbar_wait that also sees the writes of the cluster's other blocks.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(vit::smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// ds (K3 ds, TPU nwhead_tpu/ops/pallas_nw.py:1788 _nw_bwd_ds_kernel) on the
+// tensor cores: a cluster of n blocks (1, 2 or 4) for each 64-row support
+// tile, block rank r taking feature slices [r nK / n, (r + 1) nK / n) of
+// the nK. One scoring group of eight warps and a producer warp, whose lane
+// 0 asks the TMA for each slice (or whose lanes stage it by plain loads)
+// once the group has released its stage. For each query group (all of B,
+// or `group` queries at a time):
+//   A. for each query tile of kQB, its slices of query and support rows:
+//      the block's partial score tile and self-norms by raw_slice (K1's and
+//      dq's very products; the rows' self-products on the first query tile
+//      only, their sum kept for the others); each block writes them into
+//      every block's inbox (distributed shared memory; two inboxes in turn,
+//      so that a block that runs ahead writes where nobody reads) and
+//      arrives on its exchange barrier; then every block adds the n
+//      partials in rank order and takes t = dscore / dist (0 where dist ==
+//      0), or dscore in dot mode, in f32 as dq does, into t (shared, a row
+//      per query).
+//   B. sum_b t_bj over the group into sum_b t (l2), then for each of the
+//      block's slices the query rows of the group again, kDsChunk a stage
+//      (the last also with the slice's support rows, for the epilogue):
+//      ds[64 rows x slice] = t^T (64 x B) q (B x slice) on the tensor
+//      cores, t split as big + small TF32: with f32 queries 3xTF32, each
+//      stage's big x big and small terms summed from zero and joined to
+//      the slice's sum by one add, in stage order; with bf16 ones two
+//      products straight into the slice's sum.
+// The epilogue writes ds = sum - s_j sum_b t_bj (l2) or scale sum (dot),
+// 0 for masked rows, whose s is never read; with more than one query group
+// the earlier groups' sums wait in the f32 scratch. No float atomics.
+template <typename T, int kQB>
+__global__ void __launch_bounds__(kDsBlock, 1)
+    nw_raw_ds_tc_kernel(const DsArgs a, const __grid_constant__ DsMaps maps) {
+  static_assert(kQB % kTcWarps == 0 && kQB <= kTcMaxQuery, "query tile");
+  static_assert(kDsChunk % kQB == 0, "a stage of t^T q holds whole query tiles");
+  constexpr int kChunk = kTcRowBytes / static_cast<int>(sizeof(T));  // features a slice
+  constexpr int kQA = tc_query_rows(kQB);
+  constexpr bool kSplitK = tc_score_bufs(kQB) == 2;
+  constexpr int kOwn = kQB / kTcWarps;
+  constexpr int kStage = ds_stage_bytes(kQB);
+  constexpr int kScores = kQB * kTcScoreStride;
+  constexpr int kNorms = tc_score_bufs(kQB) * kScores;  // s2's halves, then q2's
+  constexpr int kPart = ds_partial_floats(kQB);
+  // t^T q: warp w keeps m-tile w % 4 (16 support rows) and takes n-tiles
+  // w / 4, w / 4 + 2, .. of the slice's kNT.
+  constexpr int kNT = kChunk / 8;
+  constexpr int kTilesPerWarp = kNT / 2;
+  constexpr bool kF32 = std::is_same_v<T, float>;
+
   extern __shared__ float4 smem4[];
-  float* tile = reinterpret_cast<float*>(smem4);
-  float* q_chunk = tile;
-  const float* s2_tile = tile + kQueryTile * kChunkStride + kSupportTile * kChunkStride;
-  float* stats = tile + kTileSmemFloats;
-  float* colsum = stats + kStatFloats;
-  float* t_all = colsum + kSupportTile;  // [n_qt * 16][64]
-  const int n_qt = (B + kQueryTile - 1) / kQueryTile;
-  int* tile_labels = reinterpret_cast<int*>(t_all + n_qt * kQueryTile * kSupportTile);
+  char* ring = reinterpret_cast<char*>(
+      (reinterpret_cast<uintptr_t>(smem4) + kTcAlign - 1) & ~static_cast<uintptr_t>(kTcAlign - 1));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kDsStages * kStage);
+  uint64_t* empty = full + kDsStages;
+  uint64_t* xbar = empty + kDsStages;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_ranks = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  float* inbox = reinterpret_cast<float*>(xbar + 2);
+  float* tall = inbox + ds_inbox_count(n_ranks) * kPart;
+  float* colsum = tall + ds_t_rows(a.group) * kDsTStride;
+  float* s2sum = colsum + kSupportTile;  // the rows' |s|^2, from the first query tile
+  int* lab = reinterpret_cast<int*>(s2sum + kSupportTile);
 
-  const int tid = threadIdx.x;
-  const int t0 = blockIdx.x * kSupportTile;
-  const int r_end = min(S, t0 + kSupportTile);
-  const float scale = *scale_ptr;
+  const int lane = threadIdx.x & 31;
+  const bool producer = threadIdx.x >= kTcThreads;
+  const int warp = (threadIdx.x >> 5) % kTcWarps;
+  const int ws = warp & 3, wh = warp >> 2;
+  const int g = lane >> 2, tt = lane & 3;
+  const int t0 = (blockIdx.x / n_ranks) * kSupportTile;
+  const bool l2 = a.l2_mode != 0, tma = a.tma != 0;
+  const float scale = *a.scale;
+  const int nK = (a.D + kChunk - 1) / kChunk;
+  const int k_lo = rank * nK / n_ranks, k_hi = (rank + 1) * nK / n_ranks;
+  const int n_groups = (a.B + a.group - 1) / a.group;
 
-  load_tile_labels(labels, t0, r_end, tile_labels);
-  for (int qt = 0; qt < n_qt; ++qt) {
-    const int b0 = qt * kQueryTile;
-    load_backward_stats(m, l, r, b0, B, stats);
-    float dot[kRowsPerThread];
-    // The rows' self-norms are computed on the first query tile and kept.
-    tile_dots<true>(q, s, b0, B, t0, r_end, D, labels, l2_mode != 0 && qt == 0, stats, tile,
-                    dot);
-    tile_grads(dot, tile_labels, s2_tile, stats, u, b0, B, C, l2_mode, scale,
-               t_all + qt * kQueryTile * kSupportTile);
-    __syncthreads();
+  if (threadIdx.x < kSupportTile) {
+    const int row = t0 + threadIdx.x;
+    lab[threadIdx.x] = row < a.S ? a.labels[row] : -1;
+    colsum[threadIdx.x] = 0.f;
   }
-  if (tid < kSupportTile) {
-    float sum = 0.f;
-    if (l2_mode) {
-      for (int b = 0; b < B; ++b) sum += t_all[b * kSupportTile + tid];
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < kDsStages; ++k) {
+      mbar_init(full + k, 1);
+      mbar_init(empty + k, kTcWarps);
     }
-    colsum[tid] = sum;
+    mbar_init(xbar, n_ranks);
+    mbar_init(xbar + 1, n_ranks);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  if (n_ranks > 1) cluster.sync();  // every block's barriers exist before anyone arrives
 
-  // ds[j][k] = sum_b t_bj q_bk (- s_jk colsum_j): thread -> rows tid/32 + 8 i,
-  // feature lane; q streams through shared memory 16 queries at a time.
-  constexpr int kOut = kSupportTile * kFeatChunk / kThreads;  // 8
-  for (int k0 = 0; k0 < D; k0 += kFeatChunk) {
-    float acc[kOut];
-#pragma unroll
-    for (int i = 0; i < kOut; ++i) acc[i] = 0.f;
-    for (int qt = 0; qt < n_qt; ++qt) {
-      load_query_chunk(q, qt * kQueryTile, B, k0, D, q_chunk);
-      __syncthreads();
-      const float* t_qt = t_all + qt * kQueryTile * kSupportTile;
-#pragma unroll
-      for (int i = 0; i < kOut; ++i) {
-        const int e = tid + i * kThreads;
-        const int j = e / kFeatChunk, kk = e % kFeatChunk;
-#pragma unroll
-        for (int bb = 0; bb < kQueryTile; ++bb) {
-          acc[i] = fmaf(t_qt[bb * kSupportTile + j], q_chunk[bb * kChunkStride + kk], acc[i]);
+  if (producer) {
+    int q = 0;  // the ring's sequence of stages
+    for (int grp = 0; grp < n_groups; ++grp) {
+      const int gb0 = grp * a.group, gb1 = min(a.B, gb0 + a.group);
+      const int n_qt = (gb1 - gb0 + kQB - 1) / kQB, n_pc = (gb1 - gb0 + kDsChunk - 1) / kDsChunk;
+      for (int i = 0; i < n_qt * (k_hi - k_lo) + (k_hi - k_lo) * n_pc; ++i, ++q) {
+        const bool scores = i < n_qt * (k_hi - k_lo);
+        const int j = scores ? i : i - n_qt * (k_hi - k_lo);
+        // A: query tile j / (slices), slice k_lo + j % (slices); B: slice
+        // k_lo + j / n_pc, stage j % n_pc, the last with the support rows.
+        const int kc = scores ? k_lo + j % (k_hi - k_lo) : k_lo + j / n_pc;
+        const bool rows = !scores && j % n_pc == n_pc - 1;
+        const int b0 = scores ? gb0 + (j / (k_hi - k_lo)) * kQB : gb0 + (j % n_pc) * kDsChunk;
+        const int c0 = kc * kChunk;
+        char* st = ring + (q % kDsStages) * kStage;
+        uint64_t* bar = full + q % kDsStages;
+        if (q >= kDsStages) mbar_wait(empty + q % kDsStages, (q / kDsStages - 1) & 1);
+        if (tma) {
+          if (lane == 0) {
+            if (scores) {
+              mbar_expect(bar, (kQA + kSupportTile) * kTcRowBytes);
+              tma_2d(st, &maps.q, c0, b0, bar);
+              tma_2d(st + kQA * kTcRowBytes, &maps.s, c0, t0, bar);
+            } else {
+              mbar_expect(bar, (kDsChunk + (rows ? kSupportTile : 0)) * kTcRowBytes);
+              tma_2d(st, &maps.qp, c0, b0, bar);
+              if (rows) tma_2d(st + kDsChunk * kTcRowBytes, &maps.s, c0, t0, bar);
+            }
+          }
+        } else {
+          if (scores) {
+            stage_plain<T, kQA>(static_cast<const T*>(a.q), a.D, b0, c0, min(gb1, b0 + kQB), st);
+            stage_plain<T, kSupportTile>(static_cast<const T*>(a.s), a.D, t0, c0, a.S,
+                                         st + kQA * kTcRowBytes);
+          } else {
+            stage_plain<T, kDsChunk>(static_cast<const T*>(a.q), a.D, b0, c0, gb1, st);
+            if (rows) {
+              stage_plain<T, kSupportTile>(static_cast<const T*>(a.s), a.D, t0, c0, a.S,
+                                           st + kDsChunk * kTcRowBytes);
+            }
+          }
+          __threadfence_block();
+          __syncwarp();
+          if (lane == 0) mbar_arrive(bar);
         }
       }
-      __syncthreads();
     }
+    return;
+  }
+
+  int q = 0, x = 0;  // the ring's sequence of stages; the exchanges so far
+  for (int grp = 0; grp < n_groups; ++grp) {
+    const int gb0 = grp * a.group, gb1 = min(a.B, gb0 + a.group);
+    const int n_qt = (gb1 - gb0 + kQB - 1) / kQB, n_pc = (gb1 - gb0 + kDsChunk - 1) / kDsChunk;
+    for (int qt = 0; qt < n_qt; ++qt, ++x) {  // A
+      const int b0 = gb0 + qt * kQB;
+      // The warp's queries' m_safe, max(l, 1e-30), r and u[b, y_j], loaded
+      // now so that they arrive while the slices are scored.
+      float m_safe[kOwn], l_cl[kOwn], r_b[kOwn], uy[kOwn][2];
 #pragma unroll
-    for (int i = 0; i < kOut; ++i) {
-      const int e = tid + i * kThreads;
-      const int j = e / kFeatChunk, kk = e % kFeatChunk;
-      const int row = t0 + j, k = k0 + kk;
-      if (row < r_end && k < D) {
-        const size_t at = static_cast<size_t>(row) * D + k;
-        float v = 0.f;
-        if (tile_labels[j] >= 0) {
-          v = l2_mode ? acc[i] - to_float(s[at]) * colsum[j] : scale * acc[i];
+      for (int o = 0; o < kOwn; ++o) {
+        const int bq = b0 + warp + kTcWarps * o;
+        const bool live = bq < gb1;
+        const float mb = live ? a.m[bq] : 0.f;
+        m_safe[o] = mb > kNeg / 2 ? mb : 0.f;
+        l_cl[o] = live ? fmaxf(a.l[bq], 1e-30f) : 1.f;
+        r_b[o] = live ? a.r[bq] : 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int y = lab[lane + 32 * h];
+          uy[o][h] = live && y >= 0 && y < a.C ? a.u[static_cast<size_t>(bq) * a.C + y] : 0.f;
         }
-        ds[at] = from_float<T>(v);
       }
+      float dacc[1][2][4] = {}, s2d[2] = {}, q2d[2] = {};
+      // The block's slices; the rows' self-products on the first tile only.
+      const auto slices = [&](auto rows) {
+        for (int kc = k_lo; kc < k_hi; ++kc, ++q) {
+          mbar_wait(full + q % kDsStages, (q / kDsStages) & 1);
+          raw_slice<T, kQB, decltype(rows)::value>(ring + (q % kDsStages) * kStage, ws, wh, l2,
+                                                    true, dacc, s2d, q2d);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty + q % kDsStages);
+        }
+      };
+      if (x == 0) {
+        slices(std::true_type{});
+      } else {
+        slices(std::false_type{});
+      }
+      // This block's partials into inbox `rank` of the pair's half `par`,
+      // in every block of the cluster.
+      const int par = n_ranks > 1 ? x & 1 : 0;
+      for (int dst = 0; dst < n_ranks; ++dst) {
+        float* p = inbox + (par * n_ranks + rank) * kPart;
+        if (n_ranks > 1) p = cluster.map_shared_rank(p, dst);
+        float* scw = p + (kSplitK ? wh * kScores : 0);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = (kSplitK ? 0 : 16 * wh) + g + 8 * h;
+            const int col = 16 * ws + 8 * j + 2 * tt;
+            if (row < kQB) {
+              *reinterpret_cast<float2*>(scw + row * kTcScoreStride + col) =
+                  make_float2(dacc[0][j][2 * h], dacc[0][j][2 * h + 1]);
+            }
+          }
+        if (l2) {
+          raw_self_store<kQB>(s2d, q2d, ws, wh, true, p + kNorms, p + kNorms + 2 * kSupportTile);
+        }
+      }
+      if (n_ranks > 1) {
+        asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
+        group_sync(0);
+        if (threadIdx.x == 0) {
+          for (int dst = 0; dst < n_ranks; ++dst) mbar_arrive_rank(xbar + par, dst);
+        }
+        mbar_wait_cluster(xbar + par, (x >> 1) & 1);
+      } else {
+        group_sync(0);  // the score tile and the self-norms are whole
+      }
+      // t of the tile's queries: the partials added in rank order, each
+      // rank's split-K halves first (q.s, |q|^2 and |s|^2 alike; |s|^2 on
+      // the first tile, then kept).
+      const float* parts = inbox + par * n_ranks * kPart;
+      float s2c[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2 && l2; ++h) {
+        const int j = lane + 32 * h;
+        if (x == 0) {
+          for (int rr = 0; rr < n_ranks; ++rr) {
+            s2c[h] += raw_norm<kQB>(parts + rr * kPart + kNorms, j, kSupportTile);
+          }
+          if (warp == 0) s2sum[j] = s2c[h];
+        } else {
+          s2c[h] = s2sum[j];
+        }
+      }
+#pragma unroll
+      for (int o = 0; o < kOwn; ++o) {
+        const int b = warp + kTcWarps * o, bq = b0 + b;
+        const bool live = bq < gb1;
+        float q2 = 0.f;
+        if (l2) {
+          for (int rr = 0; rr < n_ranks; ++rr) {
+            q2 += raw_norm<kQB>(parts + rr * kPart + kNorms + 2 * kSupportTile, b, 16);
+          }
+        }
+        float t[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int j = lane + 32 * h, y = lab[j];
+          t[h] = 0.f;
+          if (y >= 0 && live) {
+            float d = 0.f;
+            for (int rr = 0; rr < n_ranks; ++rr) {
+              const float* row = parts + rr * kPart + b * kTcScoreStride;
+              d += kSplitK ? row[j] + row[kScores + j] : row[j];
+            }
+            const float dist = l2 ? l2_dist(q2, d, s2c[h]) : 0.f;
+            const float score = l2 ? -dist : d * scale;
+            const float w = score > kNeg / 2 ? expf(score - m_safe[o]) / l_cl[o] : 0.f;
+            const float dscore = w * (uy[o][h] - r_b[o]);
+            t[h] = l2 ? (dist > 0.f ? dscore / dist : 0.f) : dscore;
+          }
+        }
+        tall[(bq - gb0) * kDsTStride + lane] = t[0];
+        tall[(bq - gb0) * kDsTStride + lane + 32] = t[1];
+      }
+      group_sync(0);  // t is whole; the inbox may be written again
     }
+    if (l2 && threadIdx.x < kSupportTile) {
+      float c = colsum[threadIdx.x];
+      for (int b = 0; b < gb1 - gb0; ++b) c += tall[b * kDsTStride + threadIdx.x];
+      colsum[threadIdx.x] = c;
+    }
+    group_sync(0);  // sum_b t is whole
+
+    // B: ds over the block's slices, t^T q on the tensor cores.
+    const int mi = warp & 3, nh = warp >> 2;
+    const bool last = grp == n_groups - 1;
+    for (int kc = k_lo; kc < k_hi; ++kc) {
+      float acc[kTilesPerWarp][4] = {};
+      const char* st = ring;
+      for (int pc = 0; pc < n_pc; ++pc, ++q) {
+        st = ring + (q % kDsStages) * kStage;
+        mbar_wait(full + q % kDsStages, (q / kDsStages) & 1);
+        const int n_ks = (min(kDsChunk, gb1 - gb0 - pc * kDsChunk) + 7) / 8;
+        // f32: this stage's big x big and small terms apart from zero;
+        // bf16: both products straight into the slice's sum.
+        float hi[kF32 ? kTilesPerWarp : 1][4] = {}, lo[kF32 ? kTilesPerWarp : 1][4] = {};
+#pragma unroll
+        for (int ks = 0; ks < kDsChunk / 8; ++ks) {
+          if (ks >= n_ks) break;
+          // A: t^T's rows 16 mi + g (+ 8) at queries 8 ks + tt (+ 4).
+          const float* ta = tall + (pc * kDsChunk + 8 * ks + tt) * kDsTStride + 16 * mi + g;
+          const float xa[4] = {ta[0], ta[8], ta[4 * kDsTStride], ta[4 * kDsTStride + 8]};
+          uint32_t abig[4], asmall[4];
+          split_rna(xa, abig, asmall);
+          const int k0 = 8 * ks + tt, k1 = k0 + 4;
+#pragma unroll
+          for (int v = 0; v < kTilesPerWarp; ++v) {
+            const int ni = nh + 2 * v;
+            const int byte = (8 * ni + g) * static_cast<int>(sizeof(T));
+            float xb[2] = {vit::to_float(*reinterpret_cast<const T*>(st + swz(k0, byte))),
+                           vit::to_float(*reinterpret_cast<const T*>(st + swz(k1, byte)))};
+            uint32_t bbig[2], bsmall[2];
+            if constexpr (kF32) {
+              split_rna(xb, bbig, bsmall);
+              vit::mma_tf32(lo[v], asmall, bbig);
+              vit::mma_tf32(lo[v], abig, bsmall);
+              vit::mma_tf32(hi[v], abig, bbig);
+            } else {  // a bf16 value is a TF32 value: no small part
+              bbig[0] = __float_as_uint(xb[0]);
+              bbig[1] = __float_as_uint(xb[1]);
+              vit::mma_tf32(acc[v], asmall, bbig);
+              vit::mma_tf32(acc[v], abig, bbig);
+            }
+          }
+        }
+        if constexpr (kF32) {
+#pragma unroll
+          for (int v = 0; v < kTilesPerWarp; ++v)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[v][e] += hi[v][e] + lo[v][e];
+        }
+        if (pc < n_pc - 1) {  // the last stage holds the epilogue's support rows
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty + q % kDsStages);
+        }
+      }
+      const char* srows = st + kDsChunk * kTcRowBytes;
+#pragma unroll
+      for (int v = 0; v < kTilesPerWarp; ++v)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = 16 * mi + g + 8 * (e >> 1);
+          const int f = kc * kChunk + 8 * (nh + 2 * v) + 2 * tt + (e & 1);
+          if (t0 + j >= a.S || f >= a.D) continue;
+          const size_t at = static_cast<size_t>(t0 + j) * a.D + f;
+          float sum = acc[v][e];
+          if (grp > 0) sum += a.scratch[at];
+          if (!last) {
+            a.scratch[at] = sum;
+          } else {
+            float out = 0.f;
+            if (lab[j] >= 0) {
+              const int byte = (f - kc * kChunk) * static_cast<int>(sizeof(T));
+              out = l2 ? sum - vit::to_float(*reinterpret_cast<const T*>(srows + swz(j, byte))) *
+                                   colsum[j]
+                       : scale * sum;
+            }
+            static_cast<T*>(a.ds)[at] = from_float<T>(out);
+          }
+        }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + (q - 1) % kDsStages);
+    }
+    group_sync(0);  // t is read: the next group may write it
   }
 }
 
@@ -552,23 +849,52 @@ cudaError_t launch_dq(cudaStream_t stream, const DqArgs& a, int qb, int n_splits
   return cudaGetLastError();
 }
 
+// The TMA's maps of the ds pass; false (the rows staged by plain loads)
+// where the TMA cannot address them.
 template <typename T>
-cudaError_t launch_ds(cudaStream_t stream, const void* q, const void* s, const void* labels,
-                      const void* u, const void* r, const void* m, const void* l,
-                      const void* scale, int l2_mode, int B, int S, int D, int C, void* ds) {
-  const size_t smem = ds_smem_bytes(B);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        nw_bwd_ds_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+bool ds_maps(const DsArgs& a, int qb, DsMaps* maps) {
+  constexpr CUtensorMapDataType kType = std::is_same_v<T, float> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                                                 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  constexpr int kElem = static_cast<int>(sizeof(T));
+  return vit::vec16_ok<T>(a.q, a.D) && vit::vec16_ok<T>(a.s, a.D) &&
+         encode_map(&maps->q, kType, kElem, a.q, a.B, a.D, tc_query_rows(qb)) &&
+         encode_map(&maps->qp, kType, kElem, a.q, a.B, a.D, kDsChunk) &&
+         encode_map(&maps->s, kType, kElem, a.s, a.S, a.D, kSupportTile);
+}
+
+// ds with query tiles of kQB and clusters of `cluster` blocks on `stream`.
+template <typename T, int kQB>
+cudaError_t launch_ds_tc(cudaStream_t stream, DsArgs a, int cluster) {
+  const size_t smem = ds_tc_smem_bytes(kQB, cluster, a.group);
+  const cudaError_t err =
+      cudaFuncSetAttribute(nw_raw_ds_tc_kernel<T, kQB>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  DsMaps maps{};
+  a.tma = ds_maps<T>(a, kQB, &maps);
+  cudaLaunchAttribute dims{};
+  dims.id = cudaLaunchAttributeClusterDimension;
+  dims.val.clusterDim.x = static_cast<unsigned>(cluster);
+  dims.val.clusterDim.y = 1;
+  dims.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(static_cast<unsigned>((a.S + kSupportTile - 1) / kSupportTile * cluster));
+  cfg.blockDim = dim3(kDsBlock);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &dims;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, nw_raw_ds_tc_kernel<T, kQB>, a, maps);
+}
+
+template <typename T>
+cudaError_t launch_ds(cudaStream_t stream, const DsArgs& a, int qb, int cluster) {
+  switch (qb) {
+    case 8: return launch_ds_tc<T, 8>(stream, a, cluster);
+    case 16: return launch_ds_tc<T, 16>(stream, a, cluster);
+    case 32: return launch_ds_tc<T, 32>(stream, a, cluster);
+    default: return cudaErrorInvalidValue;
   }
-  nw_bwd_ds_kernel<T><<<(S + kSupportTile - 1) / kSupportTile, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(s), static_cast<const int*>(labels),
-      static_cast<const float*>(u), static_cast<const float*>(r),
-      static_cast<const float*>(m), static_cast<const float*>(l),
-      static_cast<const float*>(scale), l2_mode, B, S, D, C, static_cast<T*>(ds));
-  return cudaGetLastError();
 }
 
 bool current_device(int* device) { return cudaGetDevice(device) == cudaSuccess; }
@@ -591,16 +917,21 @@ int nw_fused_dq_max_features(int device) {
   return optin > fixed ? static_cast<int>((optin - fixed) / (sizeof(float) * 8)) : 0;
 }
 
-// Largest batch the ds pass's t buffer (B x 64 floats) allows.
-int nw_fused_ds_max_batch(int device) {
-  const size_t fixed = ds_smem_bytes(0);
-  const size_t optin = static_cast<size_t>(optin_smem(device));
-  if (optin <= fixed) return 0;
-  const size_t per_tile = sizeof(float) * kQueryTile * kSupportTile;
-  return static_cast<int>((optin - fixed) / per_tile) * kQueryTile;
+// The ds block's dynamic shared memory for query tiles of qb, clusters of
+// `cluster` blocks and query groups of `group`.
+int nw_fused_ds_smem_bytes(int qb, int cluster, int group) {
+  return static_cast<int>(ds_tc_smem_bytes(qb, cluster, group));
 }
 
-int nw_fused_ds_smem_bytes(int B) { return static_cast<int>(ds_smem_bytes(B)); }
+// The largest query group (a multiple of 64) whose t the ds block keeps
+// with that plan on the device; a larger batch runs in groups of it.
+int nw_fused_ds_max_group(int qb, int cluster, int device) {
+  const size_t fixed = ds_tc_smem_bytes(qb, cluster, 0);
+  const size_t optin = static_cast<size_t>(optin_smem(device));
+  if (optin <= fixed) return 0;
+  const size_t rows = (optin - fixed) / (sizeof(float) * kDsTStride);
+  return static_cast<int>(rows / kDsChunk * kDsChunk);
+}
 
 const char* nw_fused_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -648,20 +979,42 @@ int nw_fused_bwd_dq(const void* q, const void* s, const void* labels, const void
                                : launch_dq<float>(st, a, qb, n_splits, dq));
 }
 
-// K3 ds. Inputs as nw_fused_bwd_dq; ds (S, D) in the input dtype.
+// K3 ds. Inputs as nw_fused_bwd_dq; qb the query tile (8, 16 or 32);
+// clusters of `cluster` blocks (1, 2 or 4, no more than D's slices of 128
+// bytes) on each 64 support rows; query groups of `group` (all of B, or a
+// multiple of 64 through scratch (S, D) f32); ds (S, D) in the input dtype.
 int nw_fused_bwd_ds(const void* q, const void* s, const void* labels, const void* u,
-                    const void* r, const void* m, const void* l, const void* scale, void* ds,
-                    int B, int S, int D, int C, int l2_mode, int bf16, void* stream) {
+                    const void* r, const void* m, const void* l, const void* scale,
+                    void* scratch, void* ds, int B, int S, int D, int C, int l2_mode, int bf16,
+                    int qb, int cluster, int group, void* stream) {
   int device = 0;
-  if (B <= 0 || S <= 0 || D <= 0 || C <= 0 || !current_device(&device) ||
-      B > nw_fused_ds_max_batch(device)) {
+  const int slices = (D * (bf16 ? 2 : 4) + kTcRowBytes - 1) / kTcRowBytes;
+  if (B <= 0 || S <= 0 || D <= 0 || C <= 0 || (qb != 8 && qb != 16 && qb != 32) ||
+      (cluster != 1 && cluster != 2 && cluster != 4) || cluster > slices || group <= 0 ||
+      (group < B && (group % kDsChunk != 0 || scratch == nullptr)) || !current_device(&device) ||
+      ds_tc_smem_bytes(qb, cluster, group) > static_cast<size_t>(optin_smem(device))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  DsArgs a{};
+  a.q = q;
+  a.s = s;
+  a.labels = static_cast<const int*>(labels);
+  a.u = static_cast<const float*>(u);
+  a.r = static_cast<const float*>(r);
+  a.m = static_cast<const float*>(m);
+  a.l = static_cast<const float*>(l);
+  a.scale = static_cast<const float*>(scale);
+  a.l2_mode = l2_mode;
+  a.B = B;
+  a.S = S;
+  a.D = D;
+  a.C = C;
+  a.group = group;
+  a.scratch = static_cast<float*>(scratch);
+  a.ds = ds;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      bf16 ? launch_ds<__nv_bfloat16>(st, q, s, labels, u, r, m, l, scale, l2_mode, B, S, D, C,
-                                      ds)
-           : launch_ds<float>(st, q, s, labels, u, r, m, l, scale, l2_mode, B, S, D, C, ds));
+  return static_cast<int>(bf16 ? launch_ds<__nv_bfloat16>(st, a, qb, cluster)
+                               : launch_ds<float>(st, a, qb, cluster));
 }
 
 }  // extern "C"

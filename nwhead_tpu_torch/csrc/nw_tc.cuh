@@ -1,9 +1,10 @@
 // Building blocks of the tensor-core pass 1 (nw_prepared.cu:
-// nw_prepared_tc_kernel, K1/K2/K4/K5/K6) and of K3's dq pass (nw_fused.cu:
-// nw_raw_dq_tc_kernel): the staged slices' layout and shared-memory sizes,
-// the TMA and its mbarriers, the plain-load staging path, the products on
-// the tensor cores, and the self-products that give a query coincident
-// with a support row a distance of exactly 0.
+// nw_prepared_tc_kernel, K1/K2/K4/K5/K6) and of K3's dq and ds passes
+// (nw_fused.cu: nw_raw_dq_tc_kernel, nw_raw_ds_tc_kernel): the staged
+// slices' layout and shared-memory sizes, the TMA and its mbarriers, the
+// plain-load staging path, the products on the tensor cores, and the
+// self-products that give a query coincident with a support row a
+// distance of exactly 0.
 
 #pragma once
 
@@ -367,38 +368,41 @@ __device__ __forceinline__ void tc_product(const char* a, const char* b, int n0,
   tc_product_impl<T, kInt4, kMI, kDepth, kNJ, 0>(a, b, n0, k0, acc, none, 0);
 }
 
-// The raw-row route's slice of a score tile (K1 on raw rows, K3's dq pass:
-// one device function for both). A query that is also a support row must
-// get a distance of exactly 0, so in l2 mode |q_b|^2 and |s_j|^2 come from
-// the tensor cores by the route q.s_j takes: the same instructions over
-// the same slices (at kSplitK the same feature halves, added half 0 + half
-// 1), each the diagonal of a self-product. Then a coincident pair's q2 -
-// 2 dot + s2 is three equal numbers, x - 2x + x = 0, provided the tensor
-// core's sum of an output does not depend on where in the tile the output
-// sits (on an H100 it does not: chip_smoke.py's duplicate-row cases hold
-// m == 0 exactly, at 8- and 32-query tiles, f32 and bf16). A NaN in a
-// masked support row reaches only that row's column and its own diagonal,
-// which the label sets aside.
+// The raw-row route's slice of a score tile (K1 on raw rows, K3's dq and ds
+// passes: one device function for the three). A query that is also a
+// support row must get a distance of exactly 0, so in l2 mode |q_b|^2 and
+// |s_j|^2 come from the tensor cores by the route q.s_j takes: the same
+// instructions over the same slices (at kSplitK the same feature halves,
+// added half 0 + half 1), each the diagonal of a self-product. Then a
+// coincident pair's q2 - 2 dot + s2 is three equal numbers, x - 2x + x =
+// 0, provided the tensor core's sum of an output does not depend on where
+// in the tile the output sits (on an H100 it does not: chip_smoke.py's
+// duplicate-row cases hold m == 0 exactly, at 8- and 32-query tiles, f32
+// and bf16). A NaN in a masked support row reaches only that row's column
+// and its own diagonal, which the label sets aside.
 //
 // Per slice, each warp (ws, wh) of a scoring group (ws: its 16 support
 // rows, wh: its query m-tile, or at kSplitK its half of the slice's
 // features) takes its 16 queries x 16 rows of q.s into dacc and, beside
-// them in the same tc_product (l2 mode), s2 as its 16 rows times
+// them in the same tc_product (l2 mode, kRows), s2 as its 16 rows times
 // themselves: at kSplitK both n-tiles of that 16 x 16 block over its half,
 // else the n-tile wh, whose diagonal is rows 8 wh .. 8 wh + 7 of the 16.
-// q2 the same over the query rows on the block's first tile (warps ws = 0,
-// and at kQB = 32 also ws = 1, which take the two n-tiles of m-tile wh).
-// st is the slice's stage: the query rows, then 64 support rows, 128 bytes
-// each. A lane keeps only its diagonal element of each self n-tile, s2d[j]
-// and q2d[j] (j: the n-tile at kSplitK, else 0), summed over the slices as
-// tc_product sums acc: each slice's products from zero, then one add (0 +
-// x is x).
+// Without kRows q.s alone (ds, whose support rows stay while its query
+// tiles change, takes s2 on its first query tile only; each accumulator's
+// terms come in the same order with or without the self-products, so q.s
+// keeps its bits). q2 the same over the query rows on the block's first
+// tile (`first`; ds on every tile) (warps ws = 0, and at kQB = 32 also
+// ws = 1, which take the two n-tiles of m-tile wh). st is the slice's
+// stage: the query rows, then 64 support rows, 128 bytes each. A lane
+// keeps only its diagonal element of each self n-tile, s2d[j] and q2d[j]
+// (j: the n-tile at kSplitK, else 0), summed over the slices as tc_product
+// sums acc: each slice's products from zero, then one add (0 + x is x).
 __device__ __forceinline__ float diag_of(const float (&c)[4], bool upper) {
   const int lane = threadIdx.x & 31, e = (lane >> 2) - 2 * (lane & 3);
   return upper ? (e == 1 ? c[3] : c[2]) : (e == 1 ? c[1] : c[0]);
 }
 
-template <typename T, int kQB>
+template <typename T, int kQB, bool kRows = true>
 __device__ __forceinline__ void raw_slice(const char* st, int ws, int wh, bool l2, bool first,
                                           float (&dacc)[1][2][4], float (&s2d)[2],
                                           float (&q2d)[2]) {
@@ -412,13 +416,17 @@ __device__ __forceinline__ void raw_slice(const char* st, int ws, int wh, bool l
     tc_product<T, false, 1, kDepth>(qa, s, 16 * ws, k0, dacc);
     return;
   }
-  float x[2][4] = {};
-  tc_product_impl<T, false, 1, kDepth, 2, kSplitK ? 2 : 1>(qa, s, 16 * ws, k0, dacc, x, wh);
-  if constexpr (kSplitK) {
-    s2d[0] += diag_of(x[0], false);
-    s2d[1] += diag_of(x[1], true);
+  if constexpr (kRows) {
+    float x[2][4] = {};
+    tc_product_impl<T, false, 1, kDepth, 2, kSplitK ? 2 : 1>(qa, s, 16 * ws, k0, dacc, x, wh);
+    if constexpr (kSplitK) {
+      s2d[0] += diag_of(x[0], false);
+      s2d[1] += diag_of(x[1], true);
+    } else {
+      s2d[0] += diag_of(x[0], wh == 1);
+    }
   } else {
-    s2d[0] += diag_of(x[0], wh == 1);
+    tc_product<T, false, 1, kDepth>(qa, s, 16 * ws, k0, dacc);
   }
   if (first && ws < (kSplitK ? 1 : 2)) {
     float y[1][2][4] = {};

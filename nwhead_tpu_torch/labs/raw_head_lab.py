@@ -1,6 +1,6 @@
-"""Raw-feature head lab: K1 (finalizing and ``partials``) and K3's dq pass
-on raw support rows, and K2 on an unsorted bank, timed in turns on the
-card and split by device function, for this checkout or another.
+"""Raw-feature head lab: K1 (finalizing and ``partials``) and K3's dq and
+ds passes on raw support rows, and K2 on an unsorted bank, timed in turns
+on the card and split by device function, for this checkout or another.
 
 The port's own lab (no JAX script has it), the sibling of
 ``prepared_head_lab``. Each case draws its query and support rows N(0, 1)
@@ -13,17 +13,20 @@ l2 mode (``euclidean``), f32 and bf16, it checks, then times by
 * K1 ``nw_fwd_cuda`` (finalizing), K1 ``nw_fwd_partials_cuda`` and K3's dq
   pass ``nw_bwd_dq_cuda`` at the training episode (B = 8, S = 1,200,
   D = 512, C = 200), at B = 64 over the CUB bank's S = 5,994, and at a
-  streamed chunk (B = 64, 65,536 rows, D = 512, C = 1,000);
+  streamed chunk (B = 64, 65,536 rows, D = 512, C = 1,000); K3's ds pass
+  ``nw_bwd_ds_cuda`` at the episode and at B = 64 (the training paths';
+  with ``--ds_plans``, on this checkout's kernel, also at each query tile
+  and cluster size its plan chooses among, ``fused_nw._ds_launch``);
 * K2 ``nw_prepared_cuda`` on that chunk's rows prepared with
   ``keep_order=True`` (labels left unsorted, as a raw chunk's) and sorted
   by class (``prepare_support``'s default at C > 128): the label sum's
   cost on unsorted tiles beside sorted ones.
 
 Each case is held first to its plain version (log-probs and partials f32
-rtol = atol = 2e-4, bf16 atol 2e-3; dq within 1e-3 (f32) or 2e-2 (bf16)
-of max|plain|). On the card each case's device functions are timed by
+rtol = atol = 2e-4, bf16 atol 2e-3; dq and ds within 1e-3 (f32) or 2e-2
+(bf16) of max|plain|). On the card each case's device functions are timed by
 ``torch.profiler`` (``attn_block_lab.device_split``, the L2 zeroed before
-each call): pass 1 and the merge of K1, K2 and dq. ``--tree DIR`` imports
+each call): pass 1 and the merge of K1, K2 and dq, ds's one kernel. ``--tree DIR`` imports
 ``nwhead_tpu_torch`` from DIR instead (another commit's checkout, e.g. a
 ``git archive`` of it; only entry points that every tree has are called);
 run the lab by its path then, once per tree and in turns (A, B, B, A)::
@@ -31,6 +34,7 @@ run the lab by its path then, once per tree and in turns (A, B, B, A)::
     python -m nwhead_tpu_torch.labs.raw_head_lab
     python nwhead_tpu_torch/labs/raw_head_lab.py --tree DIR
     python -m nwhead_tpu_torch.labs.raw_head_lab --device cpu --tiny
+    python -m nwhead_tpu_torch.labs.raw_head_lab --ds_plans
 
 ``--device cpu --tiny`` runs the public entry points (``nw_fused_log_probs``
 and its gradient, ``nw_fused_partials``, ``nw_fused_from_prepared``, which
@@ -101,11 +105,17 @@ def draw(seed: int, B: int, S: int, D: int, C: int, device):
     return q, s, labels, torch.from_numpy(valid), g
 
 
-def cases(F, device, tiny: bool, precisions=PRECISIONS):
+# ds's plans compared by --ds_plans: (query tile, cluster size) per shape.
+DS_PLANS = {"episode": ((8, 1), (8, 2), (8, 4)),
+            "B=64 S=5,994": ((16, 1), (16, 2), (16, 4), (32, 1), (32, 2), (32, 4))}
+
+
+def cases(F, device, tiny: bool, precisions=PRECISIONS, ds_plans: bool = False):
     """``[(name, kernel, plain, args, prec, kind)]``: ``kernel`` the counted
     wrapper on the card, the public entry point on the CPU; ``plain`` the
     plain function on the same inputs; ``kind`` how they are compared
-    (``log_probs``, ``partials`` or ``grad``)."""
+    (``log_probs``, ``partials`` or ``grad``). With ``ds_plans`` (on the
+    card), ds at each plan of ``DS_PLANS`` too."""
     import torch
 
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -137,6 +147,11 @@ def cases(F, device, tiny: bool, precisions=PRECISIONS):
                 lp = F.nw_fused_log_probs(qg, sn, sy, C, support_mask=mask)
                 return torch.autograd.grad(lp, qg, g.to(lp.dtype))[0]
 
+            def ds(*a, qn=qn, sn=sn, sy=sy, mask=mask, C=C, g=g):
+                sg = sn.detach().clone().requires_grad_(True)
+                lp = F.nw_fused_log_probs(qn, sg, sy, C, support_mask=mask)
+                return torch.autograd.grad(lp, sg, g.to(lp.dtype))[0]
+
             out += [
                 (f"K1 {prec} {shape}", k1 if cpu else F.nw_fwd_cuda,
                  lambda *a: F._nw_fwd_plain(*a)[0], fwd, prec, "log_probs"),
@@ -145,6 +160,13 @@ def cases(F, device, tiny: bool, precisions=PRECISIONS):
                 (f"K3 dq {prec} {shape}", dq if cpu else F.nw_bwd_dq_cuda, F._nw_bwd_dq_plain,
                  bwd, prec, "grad"),
             ]
+            if shape in DS_PLANS:
+                out.append((f"K3 ds {prec} {shape}", ds if cpu else F.nw_bwd_ds_cuda,
+                            F._nw_bwd_ds_plain, bwd, prec, "grad"))
+            for qb, cl in DS_PLANS.get(shape, ()) if ds_plans and not cpu else ():
+                out.append((f"K3 ds {prec} {shape} qb {qb} cluster {cl}",
+                            lambda *a, qb=qb, cl=cl: F._ds_launch(*a, plan=(qb, cl, a[0].shape[0])),
+                            F._nw_bwd_ds_plain, bwd, prec, "grad"))
             if shape == "stream chunk":
                 for order, keep in (("unsorted", True), ("sorted", False)):
                     prep = F.prepare_support(s.to(dt), labels.clamp(min=0).cpu().numpy(), C,
@@ -190,6 +212,8 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--tiny", action="store_true", help="small shapes")
     ap.add_argument("--tree", default=None, help="import nwhead_tpu_torch from this checkout")
+    ap.add_argument("--ds_plans", action="store_true",
+                    help="also time ds at each query tile and cluster size (this checkout)")
     args = ap.parse_args(argv)
     F, timing, attn_lab = _package(args.tree)
     import torch
@@ -202,7 +226,7 @@ def main(argv=None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
     result: dict = {"tree": tree, "card": card, "ms": {}, "split": {}, "max_abs_err": {}}
     flush = torch.empty(timing.FLUSH_BYTES // 4, device=device) if device.type == "cuda" else None
-    todo = cases(F, device, args.tiny)
+    todo = cases(F, device, args.tiny, ds_plans=args.ds_plans)
     for name, kernel, plain, a, prec, kind in todo:
         err = check(name, kernel(*a), plain(*a), prec, kind)
         result["max_abs_err"][name] = err

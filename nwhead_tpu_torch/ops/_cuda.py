@@ -80,11 +80,11 @@ _API = {
     },
     "nw_fused": {
         "nw_fused_bwd_dq": ([_VP] * 11 + [_I32] * 9 + [_VP], _I32),
-        "nw_fused_bwd_ds": ([_VP] * 9 + [_I32] * 6 + [_VP], _I32),
+        "nw_fused_bwd_ds": ([_VP] * 10 + [_I32] * 9 + [_VP], _I32),
         "nw_fused_dq_max_features": ([_I32], _I32),
-        "nw_fused_ds_max_batch": ([_I32], _I32),
+        "nw_fused_ds_max_group": ([_I32] * 3, _I32),
         "nw_fused_dq_smem_bytes": ([_I32, _I32], _I32),
-        "nw_fused_ds_smem_bytes": ([_I32], _I32),
+        "nw_fused_ds_smem_bytes": ([_I32] * 3, _I32),
         "nw_fused_error_string": ([_I32], ctypes.c_char_p),
     },
     "lab_stream": {

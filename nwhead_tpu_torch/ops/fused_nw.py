@@ -16,7 +16,10 @@ for Hopper, built and loaded by ``ops/_cuda.py``:
   ``_nw_bwd_dq_kernel`` / ``_nw_bwd_ds_kernel``): the backward, recomputing
   the scores from ``(m, l)``; dq on the tensor cores (``nw_raw_dq_tc_kernel``:
   K1's score route, then ``sum_j t_bj s_j`` on 3xTF32, its query tile from
-  ``_dq_query_tile``);
+  ``_dq_query_tile``) and ds too (``nw_raw_ds_tc_kernel``: a thread-block
+  cluster on each 64 support rows, its blocks' partial score tiles added
+  in rank order through distributed shared memory, then ``t^T q`` on
+  3xTF32; its query tile, cluster and query group from ``_ds_plan``);
 * K2 ``csrc/nw_prepared.cu`` ``nw_prepared_forward`` (TPU
   ``_nw_prepared_kernel``): the forward over a bank normalized and packed
   once by ``prepare_support``, f32 or bf16, its scores on the tensor cores
@@ -633,6 +636,59 @@ def _dq_query_tile(queries: int, D: int, smem_optin: int) -> int:
     raise ValueError(f"D={D} is beyond the dq pass's shared-memory accumulator")
 
 
+# K3's ds pass (``csrc/nw_fused.cu``: ``nw_raw_ds_tc_kernel``): a cluster
+# of blocks on each 64 support rows, t for a query group in shared memory.
+_DS_STAGES = 6
+_DS_CHUNK = 64  # query rows a stage of t^T q
+_DS_T_STRIDE = _TC_SUPPORT_TILE + 8
+_DS_CLUSTERS = (4, 2, 1)
+
+
+def _ds_smem_bytes(qb: int, cluster: int, group: int) -> int:
+    """Dynamic shared memory of one ds block (``ds_tc_smem_bytes``):
+    alignment slack; the ring (query rows, at least 16, and 64 support rows
+    of 128 bytes, padded to 1 KB, or 64 query rows and 64 support rows for
+    ``t^T q``, whichever is larger) and its barriers with the two exchange
+    barriers; the partial score tile(s) (two at ``qb <= 16``) and
+    self-norms, one set, or in a cluster one from each block for each of
+    two query tiles; t, ``group`` rows in 32-row steps of 64 + 8 floats;
+    ``sum_b t`` and the rows' ``|s|^2``; the tile's labels."""
+    stage = max((max(qb, 16) + _TC_SUPPORT_TILE) * _TC_ROW_BYTES + _TC_ALIGN,
+                (_DS_CHUNK + _TC_SUPPORT_TILE) * _TC_ROW_BYTES)
+    part = (2 if qb <= 16 else 1) * qb * (_TC_SUPPORT_TILE + 4) + 2 * _TC_SUPPORT_TILE + 32
+    inbox = 2 * cluster if cluster > 1 else 1
+    floats = inbox * part + _round_up(group, 32) * _DS_T_STRIDE + 2 * _TC_SUPPORT_TILE
+    return (_TC_ALIGN + _DS_STAGES * stage + 8 * (2 * _DS_STAGES + 2) + 4 * floats
+            + 4 * _TC_SUPPORT_TILE)
+
+
+def _ds_plan(queries: int, n_rows: int, D: int, elem: int, smem_optin: int,
+             n_sms: int) -> Tuple[int, int, int]:
+    """The ds pass's plan, a pure function of static shapes: ``(qb,
+    cluster, group)``. The query tile is 8 for up to 8 queries, else 16
+    (at 32 queries the f32 kernel spills 372 bytes and ran 28% slower at
+    B = 64 on an H100); each 64-row support tile gets the
+    largest cluster of 4, 2 or 1 blocks that keeps every block's share of
+    the feature slices (128 bytes each) non-empty and the whole grid
+    within one wave of ``n_sms`` (4 at the training episode's 19 tiles, 1
+    at B = 64 over S = 5,994's 94); ``group`` is ``queries`` where its t
+    fits the block, else the largest multiple of 64 that does (the batch
+    then runs in groups, with no cap). D is held to dq's cap, the
+    backward's (``nw_fused_dq_max_features``): past it the plan raises."""
+    cap = (smem_optin - _dq_smem_bytes(8, 0)) // (4 * 8)
+    if D > cap:
+        raise ValueError(f"D={D} is beyond the backward's cap of {cap} features "
+                         "(dq's shared-memory accumulator)")
+    qb = 8 if queries <= 8 else 16
+    slices = math.ceil(D * elem / _TC_ROW_BYTES)
+    tiles = math.ceil(n_rows / _TC_SUPPORT_TILE)
+    cluster = next(c for c in _DS_CLUSTERS if c == 1 or (c <= slices and tiles * c <= n_sms))
+    if _ds_smem_bytes(qb, cluster, queries) <= smem_optin:
+        return qb, cluster, queries
+    fixed = _ds_smem_bytes(qb, cluster, 0)
+    return qb, cluster, (smem_optin - fixed) // (4 * _DS_T_STRIDE) // _DS_CHUNK * _DS_CHUNK
+
+
 def _check_prepared(name: str, q: torch.Tensor, prep: PreparedSupport, scale: torch.Tensor,
                     mode: str, n_classes: int, qscale: Optional[torch.Tensor], bank_dtypes,
                     query_dtype):
@@ -1081,27 +1137,42 @@ def nw_bwd_dq_cuda(
 nw_bwd_dq_cuda.launches = 0
 
 
-def nw_bwd_ds_cuda(
-    q: torch.Tensor, s: torch.Tensor, labels: torch.Tensor, u: torch.Tensor,
-    r: torch.Tensor, m: torch.Tensor, l: torch.Tensor, scale: torch.Tensor,
-    mode: str, n_classes: int,
-) -> torch.Tensor:
-    """Launch K3's ds pass (``csrc/nw_fused.cu``): one block per 64 support
-    rows, each looping over every query tile. Returns ``ds (S, D)`` in
-    ``s``'s dtype."""
+def _ds_launch(q: torch.Tensor, s: torch.Tensor, labels: torch.Tensor, u: torch.Tensor,
+               r: torch.Tensor, m: torch.Tensor, l: torch.Tensor, scale: torch.Tensor,
+               mode: str, n_classes: int, plan: Optional[Tuple[int, int, int]] = None):
+    """Check K3 ds's operands and launch it on the current stream, with
+    ``_ds_plan``'s plan or the given ``(qb, cluster, group)``. Returns
+    ``ds (S, D)`` in ``s``'s dtype."""
     per_query = _bwd_tensors(q, u, r, m, l, n_classes)
     _check_raw("nw_bwd_ds_cuda", q, s, [("labels", labels, torch.int32),
                                         ("scale", scale, torch.float32), *per_query])
     lib = _cuda.load_library("nw_fused")
     (B, D), S = q.shape, s.shape[0]
-    if B > lib.nw_fused_ds_max_batch(q.device.index or 0):
-        raise ValueError(f"B={B} is beyond the ds pass's shared-memory buffer")
+    n_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    qb, cluster, group = plan or _ds_plan(B, S, D, s.element_size(),
+                                          _smem_optin(_cuda.load_library(), q.device), n_sms)
+    scratch = (torch.empty((S, D), dtype=torch.float32, device=q.device) if group < B
+               else None)
     ds = torch.empty_like(s)
     with torch.cuda.device(q.device):
         _launch(lib, "nw_fused_bwd_ds", q.data_ptr(), s.data_ptr(), labels.data_ptr(),
-                *(t.data_ptr() for _, t, _ in per_query), scale.data_ptr(), ds.data_ptr(),
-                B, S, D, n_classes, int(mode == "l2"), int(s.dtype == torch.bfloat16),
+                *(t.data_ptr() for _, t, _ in per_query), scale.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), ds.data_ptr(), B, S, D,
+                n_classes, int(mode == "l2"), int(s.dtype == torch.bfloat16), qb, cluster, group,
                 torch.cuda.current_stream(q.device).cuda_stream)
+    return ds
+
+
+def nw_bwd_ds_cuda(
+    q: torch.Tensor, s: torch.Tensor, labels: torch.Tensor, u: torch.Tensor,
+    r: torch.Tensor, m: torch.Tensor, l: torch.Tensor, scale: torch.Tensor,
+    mode: str, n_classes: int,
+) -> torch.Tensor:
+    """Launch K3's ds pass (``csrc/nw_fused.cu``): on the tensor cores, a
+    cluster of blocks on each 64 support rows by ``_ds_plan``, each block
+    scoring its share of the feature slices of every query tile, then t^T
+    q over its features. Returns ``ds (S, D)`` in ``s``'s dtype."""
+    ds = _ds_launch(q, s, labels, u, r, m, l, scale, mode, n_classes)
     nw_bwd_ds_cuda.launches += 1
     return ds
 

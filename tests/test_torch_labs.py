@@ -381,8 +381,8 @@ def test_prepared_head_lab_covers_every_bank_precision(precisions, capsys):
 def test_raw_head_lab_covers_k1_dq_and_the_unsorted_bank(capsys):
     """``raw_head_lab --device cpu --tiny`` holds every case to its plain
     version through the public entry points: K1, K1 ``partials`` and dq at
-    the episode's, B = 64's and the streamed chunk's shapes, K2 on the
-    chunk's rows unsorted and sorted, f32 and bf16."""
+    the episode's, B = 64's and the streamed chunk's shapes, ds at the
+    first two, K2 on the chunk's rows unsorted and sorted, f32 and bf16."""
     import json
 
     from nwhead_tpu_torch.labs import raw_head_lab
@@ -394,6 +394,8 @@ def test_raw_head_lab_covers_k1_dq_and_the_unsorted_bank(capsys):
         for shape in ("episode", "B=64 S=5,994", "stream chunk"):
             expected |= {f"K1 {prec} {shape}", f"K1 partials {prec} {shape}",
                          f"K3 dq {prec} {shape}"}
+            if shape != "stream chunk":
+                expected.add(f"K3 ds {prec} {shape}")
         expected |= {f"K2 {prec} unsorted bank, stream chunk",
                      f"K2 {prec} sorted bank, stream chunk"}
     assert set(errs) == expected
