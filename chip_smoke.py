@@ -174,14 +174,16 @@ package beside it. With one, in order:
     3.35 TB/s; the 12,288-row bank also unflushed, L2-resident),
     failing if the flushed 403 MB read runs above 1.05 x 3.35 TB/s or the
     touch_only reduce takes under 0.9 of the full one (either means bytes
-    were skipped); L1 ``fused_variant`` (``csrc/lab_nw.cu``) at the CUB
-    shape, the f32, f32s2, x3, split and bf16 variants, against its plain
-    version and the naive op, timed beside K1; L3 ``manual_fused`` at B=64
-    and B=8, f32 and bf16 banks, block_s 1,024 and 2,048, against its plain
-    version and timed in turns with K2 on the same bank; L2 ``fused_blocks``
-    (``csrc/lab_blocks.cu``) at (64, 56, 56, 64) bf16, two blocks, against
-    its plain version and the port's ``BasicBlock``s, timed beside cuDNN's
-    bf16 layer1;
+    were skipped); L1 ``fused_variant`` (``csrc/lab_nw.cu``, on the
+    forward's tensor-core pass 1) at the CUB shape, the f32, f32s2, x3,
+    split and bf16 variants, against its plain version and the naive op,
+    timed at the lab's block_s and at K1's split count beside K1 f32 and
+    bf16; L3 ``manual_fused`` at B=64 and B=8, f32 and bf16 banks, block_s
+    1,024 and 2,048, against its plain version and timed in turns with K2
+    on the same bank; L2 ``fused_blocks`` (``csrc/lab_blocks.cu``, implicit
+    GEMMs on bf16 ``mma.sync``) at (64, 56, 56, 64) bf16, two blocks, at its
+    planned tile and at tiles 8, 12 and 16, against its plain version and
+    the port's ``BasicBlock``s, timed beside cuDNN's bf16 layer1;
 17. lab phase: ``python -m nwhead_tpu_torch.labs.<lab>`` for ``kernel_lab
     --quick``, ``manual_pipe_lab``, ``prepared_lab``, ``roofline_lab`` and
     ``block_lab`` (their ``main``, in this process), each exiting 0, every
@@ -2796,6 +2798,7 @@ LAB_CYCLES = 15
 MANUAL_CASES = tuple((prec, b, bs) for prec in ("f32", "bf16") for b in (64, 8)
                      for bs in (1024, 2048))  # the first of each precision is the entry's
 BLOCKS_SHAPE = (64, 56, 56, 64)  # ResNet-18's layer1 at B=64
+BLOCKS_TILES = (8, 12, 14, 16)  # the tiles timed beside the plan's
 LAB_RUNS = (("kernel_lab", ["--quick"]), ("manual_pipe_lab", []), ("prepared_lab", []),
             ("roofline_lab", []), ("block_lab", []))
 
@@ -2915,14 +2918,17 @@ def _flush_methods(flush, name: str, fn, before_ms: float, read_ms: float) -> fl
 
 def variant_phase(flush, stream_gbps: float) -> dict:
     """L1 ``fused_variant`` at the CUB shape (B=64, S=5,994, D=512, C=200),
-    each variant of ``kernel_lab.DECOMPOSITION`` at its block_s and the
+    each variant of ``kernel_lab.DECOMPOSITION`` at its block_s, at the
+    block_s of K1's own split count (``kernel_lab.k1_block_s``) and the
     f32s2 variant also at 512, against its plain version (f32 rtol=atol
-    2e-4, bf16 atol 2e-3) and the naive op; the variants, their plain
-    versions and K1 on the same features timed in one ``lab_times`` loop,
-    with ``frac_vs_stream``; K1 also by ``time_ms``, before and after."""
+    2e-4, bf16 atol 2e-3) and the naive op; the variants at both block_s,
+    their plain versions and K1 (f32 and bf16) on the same features timed
+    in one ``lab_times`` loop, with ``frac_vs_stream``; K1 also by
+    ``time_ms``, before and after."""
     import torch
 
     from nwhead_tpu_torch.labs import kernel_lab as KL
+    from nwhead_tpu_torch.ops import _cuda
     from nwhead_tpu_torch.ops import fused_nw as F
     from nwhead_tpu_torch.ops.nw import nw_log_probs
 
@@ -2938,14 +2944,20 @@ def variant_phase(flush, stream_gbps: float) -> dict:
     def k1():
         return F.nw_fwd_cuda(q, bank, sy, scale, "l2", C)
 
+    qb16, bank16 = q.bfloat16(), bank.bfloat16()
+    k1_bs = KL.k1_block_s(B, S, C, torch.cuda.get_device_properties(dev).multi_processor_count,
+                          _cuda.load_library("lab_nw").lab_optin_smem(0))
+    print(f"lab fused_variant: K1's split count at this shape is block_s {k1_bs} "
+          f"({-(-S // k1_bs)} splits); the lab's block_s 2,048 gives {-(-S // 2048)}")
     k1_before = time_ms(k1, flush)
-    res, cases, sizes = {}, [("K1", k1)], {}
+    res, cases, sizes = {"k1_block_s": k1_bs}, [
+        ("K1", k1), ("K1 bf16", lambda: F.nw_fwd_cuda(qb16, bank16, sy, scale, "l2", C))], {}
     for name, (dist, agg, cast, block_s) in lab_variants().items():
         r = res[name] = {"max_abs_err": 0.0}
-        qc, sc = (q, bank) if cast == "f32" else (q.bfloat16(), bank.bfloat16())
+        qc, sc = (q, bank) if cast == "f32" else (qb16, bank16)
         x = KL.variant_inputs(qc, sc, dist)
         want = KL._fused_variant_plain(qc, sc, sy, C, dist, agg)
-        for bs in ((block_s, 512) if name == "f32s2" else (block_s,)):
+        for bs in ((block_s, 512, k1_bs) if name == "f32s2" else (block_s, k1_bs)):
             got = KL.fused_variant_cuda(x, sy, C, dist, agg, bs)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
@@ -2958,6 +2970,8 @@ def variant_phase(flush, stream_gbps: float) -> dict:
             r["max_abs_err"] = max(r["max_abs_err"], err)
         cases += [(name, lambda x=x, v=(dist, agg, block_s): KL.fused_variant_cuda(
                       x, sy, C, v[0], v[1], v[2])),
+                  (f"{name} k1", lambda x=x, v=(dist, agg, k1_bs): KL.fused_variant_cuda(
+                      x, sy, C, v[0], v[1], v[2])),
                   (f"{name} plain", lambda a=(qc, sc, sy, C, dist, agg): KL._fused_variant_plain(
                       *a))]
         item = 2 if cast == "bf16" else 4
@@ -2965,16 +2979,20 @@ def variant_phase(flush, stream_gbps: float) -> dict:
                        2 * B * S * D * (3 if dist == "x3" else 1),
                        "bf16" if cast == "bf16" or dist == "x3" else "f32")
     t = lab_times(cases)
-    res["k1_ms"] = t["K1"]
+    res["k1_ms"], res["k1_bf16_ms"] = t["K1"], t["K1 bf16"]
     res["k1_zero_flush_ms"] = _flush_methods(flush, "K1 f32 at the CUB shape", k1, k1_before,
                                              t["K1"])
     for name, (n_bytes, n_ops, prec) in sizes.items():
         r = res[name]
-        r.update(ms=t[name], plain_ms=t[f"{name} plain"], **bound(n_bytes, n_ops, prec))
+        r.update(ms=t[name], k1_splits_ms=t[f"{name} k1"], plain_ms=t[f"{name} plain"],
+                 **bound(n_bytes, n_ops, prec))
         r["frac_vs_stream"] = S * D * 4 / (stream_gbps * 1e9) / (r["ms"] * 1e-3)
-        print(f"lab fused_variant {name}: kernel {r['ms']:.4f} ms (K1 {res['k1_ms']:.4f} ms), "
-              f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-              f"frac_vs_stream {r['frac_vs_stream']:.3f}")
+        k1_ms = res["k1_bf16_ms"] if name == "bf16" else res["k1_ms"]
+        print(f"lab fused_variant {name}: kernel {r['ms']:.4f} ms at block_s 2,048, "
+              f"{r['k1_splits_ms']:.4f} ms at K1's split count ({r['k1_splits_ms'] / k1_ms:.2f} x "
+              f"K1 {'bf16 ' if name == 'bf16' else ''}{k1_ms:.4f} ms), plain {r['plain_ms']:.4f} "
+              f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), frac_vs_stream "
+              f"{r['frac_vs_stream']:.3f}")
     return res
 
 
@@ -3044,13 +3062,15 @@ def blocks_phase() -> dict:
     plain version (1e-2 of max|plain|, cosine 0.9999) on random folded
     weights, and on the port's ``BasicBlock``s folded by
     ``fold_basic_block`` against the blocks themselves in bf16 (2e-2, as the
-    lab); timed by ``lab_times`` beside its plain version and cuDNN running
-    those two blocks (bf16, channels_last)."""
+    lab), at ``tile_plan``'s tile and at ``BLOCKS_TILES``; timed by
+    ``lab_times`` beside its plain version and cuDNN running those two
+    blocks (bf16, channels_last), every tile in the same loop."""
     import copy
 
     import torch
 
     from nwhead_tpu_torch.labs import block_lab as BL
+    from nwhead_tpu_torch.ops import _cuda
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(9)
@@ -3060,34 +3080,51 @@ def blocks_phase() -> dict:
     blocks = BL.random_blocks(C, 2, rng, dev)
     w, b = BL.pack_weights([f for blk in blocks for f in BL.fold_basic_block(blk)])
     w, b = w.to(dev), b.to(dev)
-    got, want = BL.fused_blocks_cuda(x, w, b), BL._fused_blocks_plain(x, w, b)
+    plan = BL.tile_plan(B, H, W, C, 2, smem_optin=_cuda.load_library(
+        "lab_blocks").lab_blocks_smem_optin(0), n_sms=torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+    print(f"lab fused_blocks plan: {plan}")
+    want = BL._fused_blocks_plain(x, w, b)
     bf_blocks = [copy.deepcopy(blk).to(torch.bfloat16) for blk in blocks]
     with torch.no_grad():
         ref = BL.layer_reference(bf_blocks, x)
-    torch.cuda.synchronize()
-    gf, wf = got.float().flatten(), want.float().flatten()
-    rel, ref_rel = BL.rel_to_max(got, want), BL.rel_to_max(got, ref)
-    cos = float(torch.nn.functional.cosine_similarity(gf, wf, dim=0))
-    ok = bool(torch.isfinite(gf).all()) and rel <= 1e-2 and cos >= 0.9999 and ref_rel <= 2e-2
-    print(f"lab fused_blocks {BLOCKS_SHAPE}: vs plain {rel:.3e} of max, cosine {cos:.7f}; vs the "
-          f"port's BasicBlocks in bf16 {ref_rel:.3e} {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError("fused_blocks disagrees with its plain version or the BasicBlocks")
+    wf = want.float().flatten()
+    r = {"max_abs_err": 0.0, "tile": plan.tile, "smem_bytes": plan.smem_bytes}
+    for tile in (None,) + tuple(tt for tt in BLOCKS_TILES if tt != plan.tile):
+        got = BL.fused_blocks_cuda(x, w, b, tile=tile)
+        torch.cuda.synchronize()
+        gf = got.float().flatten()
+        rel, ref_rel = BL.rel_to_max(got, want), BL.rel_to_max(got, ref)
+        cos = float(torch.nn.functional.cosine_similarity(gf, wf, dim=0))
+        ok = bool(torch.isfinite(gf).all()) and rel <= 1e-2 and cos >= 0.9999 and ref_rel <= 2e-2
+        print(f"lab fused_blocks {BLOCKS_SHAPE} tile {tile or plan.tile}: vs plain {rel:.3e} of "
+              f"max, cosine {cos:.7f}; vs the port's BasicBlocks in bf16 {ref_rel:.3e} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("fused_blocks disagrees with its plain version or the BasicBlocks")
+        if tile is None:
+            r.update(max_abs_err=float((gf - wf).abs().max()), rel_to_max=rel, cosine=cos,
+                     ref_rel=ref_rel)
 
     def cudnn():
         with torch.no_grad():
             return BL.layer_reference(bf_blocks, x)
 
-    t = lab_times([("kernel", lambda: BL.fused_blocks_cuda(x, w, b)),
-                   ("plain", lambda: BL._fused_blocks_plain(x, w, b)), ("cudnn", cudnn)])
+    cases = [("kernel", lambda: BL.fused_blocks_cuda(x, w, b)),
+             ("plain", lambda: BL._fused_blocks_plain(x, w, b)), ("cudnn", cudnn)]
+    cases += [(f"tile {tt}", lambda tt=tt: BL.fused_blocks_cuda(x, w, b, tile=tt))
+              for tt in BLOCKS_TILES if tt != plan.tile]
+    t = lab_times(cases)
     convs = 4 * 2 * B * H * W * 9 * C * C
-    r = {"max_abs_err": float((gf - wf).abs().max()), "rel_to_max": rel, "cosine": cos,
-         "ref_rel": ref_rel, "ms": t["kernel"], "plain_ms": t["plain"],
-         "cudnn_layer1_ms": t["cudnn"],
-         **bound(2 * 2 * B * H * W * C + w.numel() * 2 + b.numel() * 4, convs, "bf16")}
-    print(f"lab fused_blocks: kernel {r['ms']:.4f} ms, cuDNN layer1 {r['cudnn_layer1_ms']:.4f} "
-          f"ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-          f"{convs / (r['ms'] * 1e-3) / 1e12:.1f} TFLOP/s")
+    r.update(ms=t["kernel"], plain_ms=t["plain"], cudnn_layer1_ms=t["cudnn"],
+             tiles_ms={plan.tile: t["kernel"], **{tt: t[f"tile {tt}"] for tt in BLOCKS_TILES
+                                                  if tt != plan.tile}},
+             **bound(2 * 2 * B * H * W * C + w.numel() * 2 + b.numel() * 4, convs, "bf16"))
+    print(f"lab fused_blocks: kernel {r['ms']:.4f} ms (tile {plan.tile}), cuDNN layer1 "
+          f"{r['cudnn_layer1_ms']:.4f} ms ({r['cudnn_layer1_ms'] / r['ms']:.2f} x the kernel), "
+          f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+          f"{convs / (r['ms'] * 1e-3) / 1e12:.1f} TFLOP/s; by tile: "
+          + ", ".join(f"{tt} {ms:.4f} ms" for tt, ms in sorted(r["tiles_ms"].items())))
     return r
 
 
@@ -3168,8 +3205,9 @@ def lab_entries(kern: dict, labs: dict) -> list:
                         "replaces": LAB_REPLACES["fused_variant"],
                         "launches": labs["by_variant"]["fused_variant"].get(variant_key(*v[:3]), 0),
                         "max_abs_err": r["max_abs_err"], **{k: r[k] for k in keys},
-                        "library_ms": None, "k1_ms": fv["k1_ms"],
+                        "library_ms": None, "k1_ms": fv["k1_ms"], "k1_bf16_ms": fv["k1_bf16_ms"],
                         "k1_zero_flush_ms": fv["k1_zero_flush_ms"],
+                        "k1_block_s": fv["k1_block_s"], "k1_splits_ms": r["k1_splits_ms"],
                         "frac_vs_stream": r["frac_vs_stream"]})
     for prec, r in kern["manual_fused"].items():
         entries.append({"name": f"manual_fused_{prec}", "route": "cuda", "source": LAB_NW_SOURCE,
@@ -3185,7 +3223,8 @@ def lab_entries(kern: dict, labs: dict) -> list:
                     "replaces": LAB_REPLACES["fused_blocks"],
                     "launches": labs["launches"]["fused_blocks"], "max_abs_err": r["max_abs_err"],
                     **{k: r[k] for k in keys}, "library_ms": None,
-                    "cudnn_layer1_ms": r["cudnn_layer1_ms"]})
+                    "cudnn_layer1_ms": r["cudnn_layer1_ms"], "tile": r["tile"],
+                    "tiles_ms": r["tiles_ms"]})
     return entries
 
 

@@ -2,54 +2,64 @@
 // manual_fused. Both compute the l2 Nadaraya-Watson forward written out in
 // nw_common.cuh (masked rows score NEG, online softmax, label sum, then
 // log(acc / max(l, 1e-30) + 1e-12)) and merge their support splits with
-// its nw_merge_kernel<true>, used unchanged; nw_common.cuh itself is not
-// edited.
+// its nw_merge_kernel<true>, used unchanged.
 //
 // L1 fused_variant replaces scripts/kernel_lab.py:fused_variant (its
 // _make_kernel): the raw forward with the lab's options, on raw features.
-//   * dist 0 "f32": dot products and the rows' self-norms s2 from the raw
-//     rows (s2 summed in the dot products' order, per tile);
-//     dist 1 "f32s2": the same dots, s2 computed once outside the kernel;
-//     dist 2 "x3": the query (f32) split here into bf16 hi and lo, the bank
-//     arriving split (hi, lo bf16, kernel_lab.py:328-336), and the three
-//     products qh.sh, ql.sh, qh.sl each summed in f32, then added; s2
+// It runs on the forward's tensor-core pass 1, nw_prepared_tc_kernel
+// (nw_pass1.cuh), the pass K1, K2, K4, K5 and K6 share: TMA rings, two
+// scoring groups on mma.sync, one block a (query tile x split). Each
+// option is a route or a template flag of that pass:
+//   * dist 0 "f32": K1's raw route as it stands (kRaw): |q|^2 and the rows'
+//     self-norms as diagonals of self-products on the tensor cores, q.s on
+//     3xTF32 (bf16 rows: bf16 products, f32 sums);
+//     dist 1 "f32s2": s2 computed once outside the kernel, read by the
+//     pass's s2 map, over raw rows: the rows are not zeroed and a masked
+//     row (label -1) may hold anything, NaN included, since the pass masks
+//     by the label, never by s2 (a NaN reaches only its own column);
+//     dist 2 "x3": the query (f32) split in registers into bf16 hi and lo,
+//     the bank arriving split (hi, lo bf16, kernel_lab.py:328-336) as two
+//     64-byte boxes a slice, qh.sh + ql.sh + qh.sl on bf16 mma.sync
+//     (nw_tc.cuh: x3_product, which states the order of the sums); s2
 //     precomputed from the f32 rows.
-//   * agg "split": p replaced by f32(bf16(p)) + f32(bf16(p - bf16(p)))
-//     before the label sum (kernel_lab.py:279-283); l keeps the unsplit p.
+//   * agg "split" (kSplitP): p replaced by f32(bf16(p)) + f32(bf16(p -
+//     bf16(p))) before the label sum (kernel_lab.py:279-283); l keeps the
+//     unsplit p.
 //   * The TPU's label layouts (wide, wide_u8, compact) are one int32 label
 //     array here, -1 masked.
-//   * block_s is the rows a block streams: the grid is (query groups of
-//     block_b, rounded to 16) x (splits of block_s rows). A block runs its
-//     16-query tiles one after another over its split, each a pass of 64-row
-//     score tiles through shared memory (32 features a stage, f32 FMAs from
-//     float4 reads), as K1 does (nw_common.cuh). Products are full f32: the
-//     lab's mm_prec / agg_prec have no counterpart (JAX's "highest").
-//   What bounds it: operations, 2 B S D products (x3: three times that) at
-//   67 TFLOP/s outside the tensor cores; at the CUB shape (B = 64, S =
-//   5994) the grid holds (B / block_b) x (S / block_s) blocks, 12 at the
-//   lab's block_s = 2048, so the lab's block-size sweep moves the SMs in use.
+//   * block_s is the rows a split streams, rounded up to the pass's 64-row
+//     tiles; block_b picks the pass's query tile (32, 16 or 8, as C
+//     allows). So the lab's block-size sweep still moves the blocks in use:
+//     at the CUB shape (B = 64, S = 5,994, C = 200) block_s = 2,048 gives 3
+//     splits of 2 query tiles, 6 blocks on 132 SMs; K1's own plan (64-row
+//     multiples that fill the SMs once) is block_s = 128, 47 splits.
+//   What bounds it: the bank's bytes, 12.3 MB f32 at the CUB shape (3.7 us
+//   at 3.35 TB/s; bf16 1.9 us), above the products (2 B S D = 0.39 GFLOP:
+//   2.4 us at 165 TFLOP/s on 3xTF32, 0.4 us in bf16, x3's three bf16
+//   products 1.2 us); below a few hundred blocks, what one block streams.
 //
 // L3 manual_fused replaces scripts/manual_pipe_lab.py:manual_fused: the l2
 // forward over a prepared f32 or bf16 bank (prepare_support with block_s:
 // whole tiles of block_s rows, zeroed masked rows, s2 = 1e30 on them,
 // labels -1), the query in the bank's dtype. The lab tests a hypothesis:
-// K2 (nw_prepared.cu) hides memory latency with occupancy, about 8 blocks a
-// SM that do not prefetch; manual_fused hides it by prefetching. Its grid is
-// (query tiles of 16) x (splits of whole block_s tiles), one tile a split,
-// not the TPU's one program per 128 queries. Each block keeps its 16
-// queries in shared memory as f32 and streams its split through a
-// two-stage ring of 64-row x 64-feature bank sub-tiles copied with cp.async
-// (commit_group / wait_group 1): the copy of the next sub-tile is in flight
-// while this one is scored. The scores read the stage in the bank's dtype,
-// 8 features (16 bytes of bf16, two float4 of f32) a step.
+// a kernel that hides memory latency with occupancy (many blocks a SM that
+// do not prefetch, K2's first design) against one that hides it by
+// prefetching. Its grid is (query tiles of 16) x (splits of whole block_s
+// tiles), one tile a split, not the TPU's one program per 128 queries.
+// Each block keeps its 16 queries in shared memory as f32 and streams its
+// split through a two-stage ring of 64-row x 64-feature bank sub-tiles
+// copied with cp.async (commit_group / wait_group 1): the copy of the next
+// sub-tile is in flight while this one is scored. The scores read the
+// stage in the bank's dtype, 8 features (16 bytes of bf16, two float4 of
+// f32) a step, FFMA.
 //   What bounds it: at B = 64 operations (2 B S D at 67 TFLOP/s, 6 us), at
 //   B = 8 the bank's bytes (12.3 MB f32, 3.7 us at 3.35 TB/s); with one
 //   block_s tile a split the grid is 4 x 6 blocks at B = 64, block_s =
-//   1024, which is what the lab measures against K2's ~1,000.
+//   1024, which is what the lab measures against K2 (one wave of blocks).
 
 #include <cstdint>
 
-#include "nw_common.cuh"
+#include "nw_pass1.cuh"
 
 namespace lab {
 
@@ -63,17 +73,9 @@ using nw::kThreads;
 using nw::kThreadsPerQuery;
 using nw::kWarps;
 
-enum Dist { kDistF32 = 0, kDistF32S2 = 1, kDistX3 = 2 };
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
 // Online softmax and label sum of one scored tile (nw_common.cuh's step,
-// inline there): prob holds the scores and is overwritten with p. kSplit:
-// the label sum takes f32(bf16(p)) + f32(bf16(p - bf16(p))), l the unsplit
-// p. Ends synchronized.
-template <bool kSplit>
+// inline there): prob holds the scores and is overwritten with p. Ends
+// synchronized.
 __device__ __forceinline__ void softmax_label_step(float* __restrict__ prob,
                                                    const int* __restrict__ tile_labels,
                                                    float* __restrict__ acc, int C,
@@ -88,14 +90,9 @@ __device__ __forceinline__ void softmax_label_step(float* __restrict__ prob,
     const float m_new = fmaxf(m_prev, nw::warp_max(fmaxf(s0, s1)));
     const float m_safe = m_new > kNeg / 2 ? m_new : 0.f;
     const float alpha = m_prev > kNeg / 2 ? expf(m_prev - m_safe) : 0.f;
-    float p0 = s0 > kNeg / 2 ? expf(s0 - m_safe) : 0.f;
-    float p1 = s1 > kNeg / 2 ? expf(s1 - m_safe) : 0.f;
+    const float p0 = s0 > kNeg / 2 ? expf(s0 - m_safe) : 0.f;
+    const float p1 = s1 > kNeg / 2 ? expf(s1 - m_safe) : 0.f;
     const float p_sum = nw::warp_sum(p0 + p1);
-    if (kSplit) {
-      const float h0 = bf16_round(p0), h1 = bf16_round(p1);
-      p0 = h0 + bf16_round(p0 - h0);
-      p1 = h1 + bf16_round(p1 - h1);
-    }
     row[lane] = p0;
     row[lane + 32] = p1;
     __syncwarp();
@@ -115,237 +112,17 @@ __device__ __forceinline__ void softmax_label_step(float* __restrict__ prob,
 }
 
 // ---------------------------------------------------------------------------
-// L1 fused_variant
+// L1 fused_variant: the forward's tensor-core pass 1 (kRaw for "f32", the
+// s2 route for "f32s2" and the bf16 cast, kX3 for "x3"; kSplitP for
+// agg="split"), then the merge.
 
-// Shared memory of one fused_variant block, in bytes.
-inline size_t variant_smem_bytes(int C, bool x3) {
-  const int stage = kQueryTile * kChunkStride + kSupportTile * kChunkStride;
-  return sizeof(float) * (static_cast<size_t>(kQueryTile) * C  // acc
-                          + (x3 ? 2 : 1) * stage               // q, s chunks (hi, lo)
-                          + kSupportTile                       // s2 of the tile
-                          + kQueryTile * kSupportTile          // scores, then p
-                          + 3 * kQueryTile)                    // |q|^2, m, l
-         + sizeof(int) * kSupportTile;                         // tile labels
-}
-
-// The dot products of one score tile (queries b0.., rows t0..): thread tid
-// owns query tid / 16 and rows tid % 16 + 16 r (kThreadsPerQuery,
-// kRowsPerThread of nw_common.cuh). Masked rows and rows past r_end load as 0. kDistF32 leaves the
-// rows' self-norms in s2t (dot order); the others read s2 in the caller.
-template <int kDist, typename TQ, typename TS>
-__device__ __forceinline__ void variant_dots(const TQ* __restrict__ q,
-                                             const TS* __restrict__ s,
-                                             const __nv_bfloat16* __restrict__ s_lo, int b0,
-                                             int B, int t0, int r_end, int D,
-                                             const int* __restrict__ tile_labels,
-                                             float* __restrict__ stage, float* __restrict__ s2t,
-                                             float (&dot)[kRowsPerThread]) {
-  constexpr bool kX3 = kDist == kDistX3;
-  float* q_hi = stage;
-  float* s_hi = q_hi + kQueryTile * kChunkStride;
-  float* q_lo = s_hi + kSupportTile * kChunkStride;  // x3 only
-  float* s_lo_c = q_lo + kQueryTile * kChunkStride;  // x3 only
-  const int tid = threadIdx.x;
-  const int tq = tid / kThreadsPerQuery;
-  const int tr = tid % kThreadsPerQuery;
-  float lh[kRowsPerThread], hl[kRowsPerThread];
-  float s2_acc = 0.f;
-#pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) dot[r] = lh[r] = hl[r] = 0.f;
-
-  for (int k0 = 0; k0 < D; k0 += kFeatChunk) {
-#pragma unroll
-    for (int i = 0; i < kQueryTile * kFeatChunk / kThreads; ++i) {
-      const int e = tid + i * kThreads;
-      const int b = e / kFeatChunk, k = e % kFeatChunk;
-      float v = 0.f;
-      if (b0 + b < B && k0 + k < D) v = nw::to_float(q[static_cast<size_t>(b0 + b) * D + k0 + k]);
-      if (kX3) {
-        const float h = bf16_round(v);
-        q_hi[b * kChunkStride + k] = h;
-        q_lo[b * kChunkStride + k] = bf16_round(v - h);
-      } else {
-        q_hi[b * kChunkStride + k] = v;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kSupportTile * kFeatChunk / kThreads; ++i) {
-      const int e = tid + i * kThreads;
-      const int j = e / kFeatChunk, k = e % kFeatChunk;
-      float v = 0.f, lo = 0.f;
-      if (t0 + j < r_end && k0 + k < D && tile_labels[j] >= 0) {
-        const size_t at = static_cast<size_t>(t0 + j) * D + k0 + k;
-        v = nw::to_float(s[at]);
-        if (kX3) lo = __bfloat162float(s_lo[at]);
-      }
-      s_hi[j * kChunkStride + k] = v;
-      if (kX3) s_lo_c[j * kChunkStride + k] = lo;
-    }
-    __syncthreads();
-    if (kDist == kDistF32 && tid < kSupportTile) {
-      s2_acc = nw::chunk_norm(s_hi + tid * kChunkStride, s2_acc);
-    }
-    const float4* qv = reinterpret_cast<const float4*>(q_hi + tq * kChunkStride);
-    const float4* qlv = reinterpret_cast<const float4*>(q_lo + tq * kChunkStride);
-#pragma unroll
-    for (int k4 = 0; k4 < kFeatChunk / 4; ++k4) {
-      const float4 a = qv[k4];
-      float4 al;
-      if (kX3) al = qlv[k4];
-#pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r) {
-        const int row = (tr + kThreadsPerQuery * r) * kChunkStride;
-        const float4 c = reinterpret_cast<const float4*>(s_hi + row)[k4];
-        dot[r] = fmaf(a.x, c.x, dot[r]);
-        dot[r] = fmaf(a.y, c.y, dot[r]);
-        dot[r] = fmaf(a.z, c.z, dot[r]);
-        dot[r] = fmaf(a.w, c.w, dot[r]);
-        if (kX3) {
-          const float4 cl = reinterpret_cast<const float4*>(s_lo_c + row)[k4];
-          lh[r] = fmaf(al.x, c.x, lh[r]);
-          lh[r] = fmaf(al.y, c.y, lh[r]);
-          lh[r] = fmaf(al.z, c.z, lh[r]);
-          lh[r] = fmaf(al.w, c.w, lh[r]);
-          hl[r] = fmaf(a.x, cl.x, hl[r]);
-          hl[r] = fmaf(a.y, cl.y, hl[r]);
-          hl[r] = fmaf(a.z, cl.z, hl[r]);
-          hl[r] = fmaf(a.w, cl.w, hl[r]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  if (kX3) {
-#pragma unroll
-    for (int r = 0; r < kRowsPerThread; ++r) dot[r] = (dot[r] + lh[r]) + hl[r];
-  }
-  if (kDist == kDistF32) {
-    if (tid < kSupportTile) s2t[tid] = s2_acc;
-    __syncthreads();
-  }
-}
-
-// Pass 1: block (x, y) = (query group x, split y of block_s rows). Query
-// tiles of 16 run one after another; each writes its split's partials.
-template <int kDist, bool kSplit, typename TQ, typename TS>
-__global__ void __launch_bounds__(kThreads, 2)
-variant_partials_kernel(const TQ* __restrict__ q, const TS* __restrict__ s,
-                        const __nv_bfloat16* __restrict__ s_lo, const float* __restrict__ s2,
-                        const int* __restrict__ labels, int B, int S, int D, int C,
-                        int block_s, int qtiles_per_block, float* __restrict__ m_out,
-                        float* __restrict__ l_out, float* __restrict__ acc_out) {
-  constexpr bool kX3 = kDist == kDistX3;
-  extern __shared__ float4 smem4[];
-  float* acc = reinterpret_cast<float*>(smem4);
-  float* stage = acc + kQueryTile * C;
-  float* s2t = stage + (kX3 ? 2 : 1) * (kQueryTile + kSupportTile) * kChunkStride;
-  float* prob = s2t + kSupportTile;
-  float* q2 = prob + kQueryTile * kSupportTile;
-  float* m_run = q2 + kQueryTile;
-  float* l_run = m_run + kQueryTile;
-  int* tile_labels = reinterpret_cast<int*>(l_run + kQueryTile);
-
-  const int tid = threadIdx.x;
-  const int tq = tid / kThreadsPerQuery;
-  const int tr = tid % kThreadsPerQuery;
-  const int split = blockIdx.y;
-  const int r_begin = split * block_s;
-  const int r_end = min(S, r_begin + block_s);
-
-  for (int qt = 0; qt < qtiles_per_block; ++qt) {
-    const int b0 = (blockIdx.x * qtiles_per_block + qt) * kQueryTile;
-    if (b0 >= B) break;
-    for (int i = tid; i < kQueryTile * C; i += kThreads) acc[i] = 0.f;
-    nw::query_norms(q, b0, B, D, q2);
-    if (tid < kQueryTile) {
-      m_run[tid] = kNeg;
-      l_run[tid] = 0.f;
-    }
-    __syncthreads();
-
-    for (int t0 = r_begin; t0 < r_end; t0 += kSupportTile) {
-      if (tid < kSupportTile) {
-        tile_labels[tid] = t0 + tid < r_end ? labels[t0 + tid] : -1;
-      }
-      __syncthreads();
-      float dot[kRowsPerThread];
-      variant_dots<kDist>(q, s, s_lo, b0, B, t0, r_end, D, tile_labels, stage, s2t, dot);
-#pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r) {
-        const int j = tr + kThreadsPerQuery * r;
-        float score = kNeg;
-        if (tile_labels[j] >= 0) {
-          score = -nw::l2_dist(q2[tq], dot[r], kDist == kDistF32 ? s2t[j] : s2[t0 + j]);
-        }
-        prob[tq * kSupportTile + j] = score;
-      }
-      __syncthreads();
-      softmax_label_step<kSplit>(prob, tile_labels, acc, C, m_run, l_run);
-    }
-
-    for (int i = tid; i < kQueryTile * C; i += kThreads) {
-      const int b = i / C;
-      if (b0 + b < B) acc_out[(static_cast<size_t>(split) * B + b0 + b) * C + i % C] = acc[i];
-    }
-    if (tid < kQueryTile && b0 + tid < B) {
-      m_out[static_cast<size_t>(split) * B + b0 + tid] = m_run[tid];
-      l_out[static_cast<size_t>(split) * B + b0 + tid] = l_run[tid];
-    }
-    __syncthreads();  // acc, m_run and l_run are reset for the next query tile
-  }
-}
-
-template <int kDist, bool kSplit, typename TQ, typename TS>
-cudaError_t launch_variant(cudaStream_t stream, const void* q, const void* s, const void* s_lo,
-                           const void* s2, const void* labels, int B, int S, int D, int C,
-                           int block_s, int qtiles_per_block, void* m_part, void* l_part,
-                           void* acc_part, void* out) {
-  const int n_splits = (S + block_s - 1) / block_s;
-  const int per_block = qtiles_per_block * kQueryTile;
-  const dim3 grid((B + per_block - 1) / per_block, n_splits);
-  const size_t smem = variant_smem_bytes(C, kDist == kDistX3);
-  auto kernel = variant_partials_kernel<kDist, kSplit, TQ, TS>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TS*>(s),
-      static_cast<const __nv_bfloat16*>(s_lo), static_cast<const float*>(s2),
-      static_cast<const int*>(labels), B, S, D, C, block_s, qtiles_per_block,
-      static_cast<float*>(m_part), static_cast<float*>(l_part), static_cast<float*>(acc_part));
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return nw::launch_merge(stream, false, m_part, l_part, acc_part, n_splits, B, C, out, nullptr,
-                          nullptr);
-}
-
-template <bool kSplit>
-cudaError_t dispatch_variant(cudaStream_t st, int dist, int bf16, const void* q, const void* s,
-                             const void* s_lo, const void* s2, const void* labels, int B, int S,
-                             int D, int C, int block_s, int qtiles_per_block, void* m_part,
-                             void* l_part, void* acc_part, void* out) {
-  using bf = __nv_bfloat16;
-  if (dist == kDistX3) {
-    return launch_variant<kDistX3, kSplit, float, bf>(st, q, s, s_lo, s2, labels, B, S, D, C,
-                                                      block_s, qtiles_per_block, m_part, l_part,
-                                                      acc_part, out);
-  }
-  if (dist == kDistF32S2) {
-    return bf16 ? launch_variant<kDistF32S2, kSplit, bf, bf>(st, q, s, s_lo, s2, labels, B, S, D,
-                                                             C, block_s, qtiles_per_block,
-                                                             m_part, l_part, acc_part, out)
-                : launch_variant<kDistF32S2, kSplit, float, float>(
-                      st, q, s, s_lo, s2, labels, B, S, D, C, block_s, qtiles_per_block, m_part,
-                      l_part, acc_part, out);
-  }
-  return bf16 ? launch_variant<kDistF32, kSplit, bf, bf>(st, q, s, s_lo, s2, labels, B, S, D, C,
-                                                         block_s, qtiles_per_block, m_part,
-                                                         l_part, acc_part, out)
-              : launch_variant<kDistF32, kSplit, float, float>(st, q, s, s_lo, s2, labels, B, S,
-                                                               D, C, block_s, qtiles_per_block,
-                                                               m_part, l_part, acc_part, out);
+template <typename T, bool kRaw, bool kX3>
+cudaError_t variant_forward(cudaStream_t stream, bool split, int qb, const nw::TcArgs& a,
+                            int n_splits, void* out) {
+  return split ? nw::launch_tc_forward<T, false, false, kRaw, kX3, true>(
+                     stream, qb, a, a.S, n_splits, false, out, nullptr, nullptr)
+               : nw::launch_tc_forward<T, false, false, kRaw, kX3, false>(
+                     stream, qb, a, a.S, n_splits, false, out, nullptr, nullptr);
 }
 
 // ---------------------------------------------------------------------------
@@ -507,7 +284,7 @@ manual_pipe_kernel(const T* __restrict__ q, const T* __restrict__ s, const float
         dot[r] = 0.f;
       }
       __syncthreads();
-      softmax_label_step<false>(prob, tile_labels, acc, C, m_run, l_run);
+      softmax_label_step(prob, tile_labels, acc, C, m_run, l_run);
     }
     __syncthreads();  // this stage is refilled by the copy issued next step
   }
@@ -559,56 +336,77 @@ inline int optin_smem(int device) {
 
 extern "C" {
 
-int lab_nw_query_tile() { return nw::kQueryTile; }
-
 const char* lab_nw_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Dynamic shared memory of a fused_variant block (x3 != 0: the split
-// staging) and of a manual_fused block (elem_bytes 4 or 2), in bytes.
-int lab_variant_smem_bytes(int C, int x3) {
-  return static_cast<int>(lab::variant_smem_bytes(C, x3 != 0));
-}
-
+// Dynamic shared memory of a manual_fused block (elem_bytes 4 or 2), in
+// bytes.
 int lab_manual_smem_bytes(int C, int D, int elem_bytes) {
   return static_cast<int>(lab::pipe_smem_bytes(C, D, elem_bytes));
 }
 
 int lab_optin_smem(int device) { return lab::optin_smem(device); }
 
-// L1 fused_variant. dist 0 (f32) / 1 (f32s2): q (B, D), s (S, D) in f32 or
-// bf16 (bf16 != 0); dist 2 (x3): q (B, D) f32, s and s_lo (S, D) bf16, the
-// bank's hi and lo halves. s2 (S,) f32 for dist 1 and 2 (may be null for
-// dist 0); labels (S,) int32, -1 = masked; split != 0: the split-p label
-// sum. The grid is ceil(B / (16 qtiles_per_block)) x ceil(S / block_s);
-// m_part, l_part (n_splits, B), acc_part (n_splits, B, C) f32 scratch, out
-// (B, C) f32 log-probs. Launches on `stream`, does not synchronize, returns
+// L1 fused_variant on the tensor-core pass 1. dist 0 (f32) / 1 (f32s2):
+// q (B, D), s (S, D) in f32 or bf16 (bf16 != 0); dist 2 (x3): q (B, D)
+// f32, s and s_lo (S, D) bf16, the bank's hi and lo halves. s2 (S,) f32
+// for dist 1 and 2 (may be null for dist 0, and hold anything on masked
+// rows); labels (S,) int32, -1 = masked; scale (1,) f32 (read, unused in
+// l2 mode); split != 0: the split-p label sum. n_splits splits of
+// rows_per_split rows (a multiple of 64) over query tiles of qb (8, 16 or
+// 32, and its block must fit the device's shared memory); m_part, l_part
+// (n_splits, B), acc_part (n_splits, B, C) f32 scratch, out (B, C) f32
+// log-probs. Launches on `stream`, does not synchronize, returns
 // cudaGetLastError().
 int lab_fused_variant(const void* q, const void* s, const void* s_lo, const void* s2,
-                      const void* labels, void* m_part, void* l_part, void* acc_part, void* out,
-                      int B, int S, int D, int C, int dist, int split, int bf16, int block_s,
-                      int qtiles_per_block, void* stream) {
-  const int n_splits = block_s > 0 ? (S + block_s - 1) / block_s : 0;
-  if (B <= 0 || S <= 0 || D <= 0 || C <= 0 || block_s <= 0 || qtiles_per_block <= 0 ||
-      dist < 0 || dist > 2 || (dist != 0 && s2 == nullptr) || (dist == 2 && s_lo == nullptr) ||
-      (dist == 2 && bf16) || n_splits > 48 * 1024 / static_cast<int>(sizeof(float))) {
+                      const void* labels, const void* scale, void* m_part, void* l_part,
+                      void* acc_part, void* out, int B, int S, int D, int C, int dist, int split,
+                      int bf16, int n_splits, int rows_per_split, int qb, void* stream) {
+  if (!nw::forward_args_ok(B, S, D, C, n_splits, rows_per_split) ||
+      rows_per_split % nw::kSupportTile != 0 || q == nullptr || s == nullptr ||
+      labels == nullptr || scale == nullptr || dist < 0 || dist > 2 ||
+      (dist != 0 && s2 == nullptr) || (dist == 2 && (s_lo == nullptr || bf16))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  const cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (lab::variant_smem_bytes(C, dist == 2) > static_cast<size_t>(lab::optin_smem(device))) {
+  if (C > nw::max_forward_classes(device) || !nw::tc_config_ok(qb, C, false, device)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  nw::TcArgs a{};
+  a.q = q;
+  a.s = s;
+  a.s_lo = s_lo;
+  a.s2 = static_cast<const float*>(s2);
+  a.labels = static_cast<const int*>(labels);
+  a.scale = static_cast<const float*>(scale);
+  a.l2_mode = 1;
+  a.B = B;
+  a.D = a.ds = D;
+  a.C = C;
+  a.S = S;
+  a.rows_per_split = rows_per_split;
+  a.m_out = static_cast<float*>(m_part);
+  a.l_out = static_cast<float*>(l_part);
+  a.acc_out = static_cast<float*>(acc_part);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = split ? lab::dispatch_variant<true>(st, dist, bf16, q, s, s_lo, s2, labels, B, S, D, C,
-                                            block_s, qtiles_per_block, m_part, l_part, acc_part,
-                                            out)
-              : lab::dispatch_variant<false>(st, dist, bf16, q, s, s_lo, s2, labels, B, S, D, C,
-                                             block_s, qtiles_per_block, m_part, l_part, acc_part,
-                                             out);
-  return static_cast<int>(err);
+  using bf = __nv_bfloat16;
+  const bool sp = split != 0;
+  switch (dist) {
+    case 0:  // K1's raw route
+      return static_cast<int>(
+          bf16 ? lab::variant_forward<bf, true, false>(st, sp, qb, a, n_splits, out)
+               : lab::variant_forward<float, true, false>(st, sp, qb, a, n_splits, out));
+    case 1:  // s2 by its map, over raw rows
+      return static_cast<int>(
+          bf16 ? lab::variant_forward<bf, false, false>(st, sp, qb, a, n_splits, out)
+               : lab::variant_forward<float, false, false>(st, sp, qb, a, n_splits, out));
+    default:  // x3
+      return static_cast<int>(
+          lab::variant_forward<float, false, true>(st, sp, qb, a, n_splits, out));
+  }
 }
 
 // L3 manual_fused: q (B, D) and s (S, D) in f32 or bf16 (bf16 != 0), D a

@@ -14,7 +14,8 @@
 //   out[b, c] = log(acc[c] / max(l, 1e-30) + 1e-12)
 // q and s share one dtype (f32 or bf16); products accumulate in f32 and the
 // softmax state is f32. Every forward's pass 1 is the tensor-core kernel
-// of nw_prepared.cu (K1 over raw rows, K2/K4/K5/K6 over prepared banks);
+// of nw_pass1.cuh (K1 over raw rows, K2/K4/K5/K6 over prepared banks, the
+// lab's L1 fused_variant);
 // its splits merge here (nw_merge_kernel). Over raw rows a query that is
 // also a support row (common in training episodes) gets a distance of
 // exactly 0, not the square root of rounding residue (about 1e-2 at
@@ -22,7 +23,7 @@
 // as much): K1 and both passes of K3 take |q|^2 and s2_j by q.s's own
 // products on the tensor cores (nw_tc.cuh's raw_slice). The FFMA score
 // tile that K3's ds pass kept until it moved to that route is gone; the
-// labs' kernels (lab_nw.cu) keep their own, on the helpers below.
+// lab's L3 manual_fused (lab_nw.cu) keeps its own, on the helpers below.
 // The class cap of every forward entry point comes from this file's tile
 // layout (max_forward_classes).
 

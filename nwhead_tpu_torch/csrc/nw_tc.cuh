@@ -1,5 +1,6 @@
-// Building blocks of the tensor-core pass 1 (nw_prepared.cu:
-// nw_prepared_tc_kernel, K1/K2/K4/K5/K6) and of K3's dq and ds passes
+// Building blocks of the tensor-core pass 1 (nw_pass1.cuh:
+// nw_prepared_tc_kernel, K1/K2/K4/K5/K6 and the lab's L1 fused_variant,
+// whose x3 products are x3_product here) and of K3's dq and ds passes
 // (nw_fused.cu: nw_raw_dq_tc_kernel, nw_raw_ds_tc_kernel): the staged
 // slices' layout and shared-memory sizes, the TMA and its mbarriers, the
 // plain-load staging path, the products on the tensor cores, and the
@@ -30,6 +31,7 @@ constexpr int kTcScoreStride = kSupportTile + 4;  // floats a row of the score t
 constexpr int kTcMaxQuery = 32;                   // the largest query tile
 constexpr int kTcListCap = 512;                   // K6: score tiles a block gathers at a time
 constexpr int kTcMaxClasses = 8;                  // classes of a tile summed by reductions
+constexpr int kX3RowBytes = 64;                   // x3: a slice's 32 bf16 of a hi or lo row
 
 // Bytes of a staged support row: a slice's 128 bytes, or of an int4 bank
 // 64 packed bytes (the 128 features of the slice's 128 query bytes).
@@ -62,7 +64,8 @@ inline size_t tc_smem_bytes(int qb, int C, bool sel) {
 
 struct TcArgs {
   const void* q;  // (B, D) f32, bf16 or int8 codes (int4 bank: in the bank's k order)
-  const void* s;  // the bank, (bank_rows, ds): q's dtype, or packed int4 bytes
+  const void* s;  // the bank, (bank_rows, ds): q's dtype, or packed int4 bytes (x3: bf16 hi)
+  const void* s_lo;     // x3: the bank's bf16 lo half, s - hi
   const float* s2;
   const int* labels;
   const float* scale;   // float banks
@@ -79,9 +82,10 @@ struct TcArgs {
 };
 
 // The TMA's descriptors of q, the bank, its labels, self-norms and row
-// scales (unused when the rows are staged by plain loads).
+// scales, and x3's lo half of the bank (unused when the rows are staged by
+// plain loads).
 struct TcMaps {
-  CUtensorMap q, s, labels, s2, sscale;
+  CUtensorMap q, s, labels, s2, sscale, s_lo;
 };
 
 // warp_max / warp_sum (nw_common.cuh) of kN values at once: the same
@@ -366,6 +370,70 @@ __device__ __forceinline__ void tc_product(const char* a, const char* b, int n0,
                                            typename vit::Frag<T>::Acc (&acc)[kMI][2][4]) {
   float none[2][4];
   tc_product_impl<T, kInt4, kMI, kDepth, kNJ, 0>(a, b, n0, k0, acc, none, 0);
+}
+
+// x3, the kernel lab's f32 mode of three bf16 products: acc (16 queries x
+// the two n-tiles at n0) += qh.sh + ql.sh + qh.sl over the features k0 ..
+// k0 + kDepth - 1 of a slice of 32, on bf16 mma.sync m16n8k16 with f32
+// sums. The query's f32 rows (a: swizzled 128-byte rows) split in
+// registers into qh = bf16(q) and ql = bf16(q - qh), round to nearest
+// even, as the lab splits the bank; the bank arrives split, its hi rows at
+// b and its lo rows at b + 64 rows (64-byte rows of 32 bf16 under the
+// 64-byte swizzle), 32-bit loads of the B fragments. The order of the sums,
+// per call as tc_product's 3xTF32: the two small products (ql.sh, then
+// qh.sl) from zero into one accumulator, qh.sh from zero into another,
+// then acc += hi + lo (labs/kernel_lab.py: _fused_variant_plain states the
+// same order).
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int kDepth>
+__device__ __forceinline__ void x3_product(const char* a, const char* b, int n0, int k0,
+                                           float (&acc)[1][2][4]) {
+  using F = vit::Frag<__nv_bfloat16>;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const char* b_lo = b + kSupportTile * kX3RowBytes;
+  float hi[2][4] = {}, lo[2][4] = {};
+#pragma unroll
+  for (int s = 0; s < kDepth / F::kK; ++s) {
+    const int k = k0 + F::kK * s;
+    F::A ah, al;  // rows g, g + 8 at k + 2t, 2t + 1 (r[0], r[1]), then at k + 8 + 2t ..
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = *reinterpret_cast<const float2*>(
+          a + swz(g + 8 * (i & 1), 4 * (k + 2 * t + 8 * (i >> 1))));
+      const __nv_bfloat162 h = __floats2bfloat162_rn(x.x, x.y);
+      const float2 hf = __bfloat1622float2(h);
+      ah.r[i] = bf16x2_bits(h);
+      al.r[i] = bf16x2_bits(__floats2bfloat162_rn(x.x - hf.x, x.y - hf.y));
+    }
+    F::B bh[2], bl[2];  // column g of each n-tile at k + 2t, 2t + 1, then k + 8 + 2t ..
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int off = swz64(n0 + 8 * j + g, 2 * (k + 2 * t + 8 * h));
+        bh[j].r[h] = *reinterpret_cast<const uint32_t*>(b + off);
+        bl[j].r[h] = *reinterpret_cast<const uint32_t*>(b_lo + off);
+      }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) vit::mma(lo[j], al, bh[j]);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) vit::mma(lo[j], ah, bl[j]);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) vit::mma(hi[j], ah, bh[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[0][j][e] += hi[j][e] + lo[j][e];
+}
+
+// The kernel lab's split p: f32(bf16(p)) + f32(bf16(p - bf16(p))).
+__device__ __forceinline__ float bf16_pair(float p) {
+  const float h = __bfloat162float(__float2bfloat16(p));
+  return h + __bfloat162float(__float2bfloat16(p - h));
 }
 
 // The raw-row route's slice of a score tile (K1 on raw rows, K3's dq and ds

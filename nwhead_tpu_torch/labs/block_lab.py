@@ -7,7 +7,9 @@ activations ``(B, H, W, C)``, the JAX package's public layout: per block,
 ``h = bf16(relu(conv3x3(x, w1) + b1))`` and ``bf16(relu(conv3x3(h, w2) + b2 +
 x))``, each conv 3x3 with zero padding 1 on bf16 weights, summed in f32,
 plus an f32 bias. CUDA tensors run the kernel ``csrc/lab_blocks.cu`` (one
-block per 8 x 8 output tile of an image, the halo recomputed; see there),
+block per T x T output tile of an image, ``tile_plan``'s T, the halo
+recomputed; each conv an implicit GEMM on the bf16 tensor cores, ``wgmma``
+at C = 64 and ``mma.sync`` below; see there),
 CPU tensors the plain version ``_fused_blocks_plain``.
 
 ``fold_bn`` is the lab's numpy fold (eps 1e-5); ``pack_weights`` packs the
@@ -31,8 +33,9 @@ BasicBlocks in bf16, channels_last, at B=64.
 from __future__ import annotations
 
 import argparse
+import math
 import sys
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +46,72 @@ from nwhead_tpu_torch.ops import _cuda
 
 Folded = Tuple[np.ndarray, np.ndarray]  # (w (3, 3, C_in, C_out) HWIO, b (C_out,))
 TIMED_BATCH = 64  # the TPU lab's B
+CHANNELS = (8, 16, 32, 64)
+H100_SMEM_OPTIN = 232_448  # shared memory a block may opt in to on an H100 (sm_90)
+H100_SMS = 132
+# The kernel's constants (csrc/lab_blocks.cu): taps a conv, the weights'
+# alignment slack, and who takes the tasks of m-tiles (16 output pixels):
+# at C = 64 (wgmma) two warpgroups, four m-tiles a task; otherwise
+# (mma.sync) eight warps, two m-tiles a task.
+_TAPS, _ALIGN = 9, 1024
+_WORKERS = {64: (2, 4)}
+_WARP_TASKS = (8, 2)
+
+
+class BlockPlan(NamedTuple):
+    """A launch of ``fused_blocks``: output tiles of ``tile`` x ``tile``
+    pixels; the block's shared memory: the region buffers X (side ``tile +
+    4 n_blocks``) and H (two pixels less), a conv's nine taps of weights (C
+    x C bf16 each) and 1 KB of slack that aligns them."""
+
+    tile: int
+    x_bytes: int
+    h_bytes: int
+    weight_bytes: int
+    smem_bytes: int
+    cost: int  # m-tiles on a block's critical path x waves of blocks
+
+
+def _plan_for(B: int, H: int, W: int, C: int, n_blocks: int, tile: int, smem_optin: int,
+              n_sms: int) -> Optional[BlockPlan]:
+    """The plan at ``tile``, or None when its buffers and a conv's weights
+    do not fit ``smem_optin``."""
+    side = tile + 4 * n_blocks
+    x_bytes, h_bytes = side * side * C * 2, (side - 2) ** 2 * C * 2
+    weight_bytes = _TAPS * C * C * 2
+    smem_bytes = _ALIGN + x_bytes + h_bytes + weight_bytes
+    if smem_bytes > smem_optin:
+        return None
+    workers, task_mtiles = _WORKERS.get(C, _WARP_TASKS)
+    rounds = 0
+    for k in range(1, 2 * n_blocks + 1):  # conv k's output region has side side - 2k
+        tasks = math.ceil(math.ceil((side - 2 * k) ** 2 / 16) / task_mtiles)
+        rounds += math.ceil(tasks / workers) * task_mtiles
+    waves = math.ceil(B * math.ceil(H / tile) * math.ceil(W / tile) / n_sms)
+    return BlockPlan(tile, x_bytes, h_bytes, weight_bytes, smem_bytes, rounds * waves)
+
+
+def tile_plan(B: int, H: int, W: int, C: int, n_blocks: int, *,
+              smem_optin: int = H100_SMEM_OPTIN, n_sms: int = H100_SMS,
+              tile: Optional[int] = None) -> BlockPlan:
+    """The kernel's launch plan for a ``(B, H, W, C)`` input: the given
+    ``tile``, or the T whose m-tiles on a block's critical path (rounds of
+    tasks, each of all of K, summed over the convs) times the waves of
+    blocks on ``n_sms`` SMs are fewest, the larger T on a tie: 14 at
+    ResNet-18's layer1, (64, 56, 56, 64) with two blocks. Raises
+    ``ValueError`` when no tile fits the block's shared memory."""
+    if tile is not None:
+        plan = _plan_for(B, H, W, C, n_blocks, tile, smem_optin, n_sms)
+        if plan is None:
+            raise ValueError(f"a {tile} x {tile} tile of {n_blocks} blocks at C={C} is beyond a "
+                             f"block's {smem_optin} bytes of shared memory")
+        return plan
+    plans = [p for t in range(1, max(H, W) + 1)
+             if (p := _plan_for(B, H, W, C, n_blocks, t, smem_optin, n_sms)) is not None]
+    if not plans:
+        raise ValueError(f"{n_blocks} blocks at C={C} are beyond a block's {smem_optin} bytes "
+                         "of shared memory at any tile")
+    return min(plans, key=lambda p: (p.cost, -p.tile))
 
 
 def fold_bn(w_hwio, scale, bias, mean, var, eps=1e-5) -> Folded:
@@ -61,7 +130,8 @@ def pack_weights(folded: Sequence[Folded]) -> Tuple[torch.Tensor, torch.Tensor]:
     C = folded[0][0].shape[-1]
     w = np.stack([np.asarray(wi, np.float32).reshape(9, C, C) for wi, _ in folded])
     b = np.stack([np.asarray(bi, np.float32) for _, bi in folded])
-    return torch.from_numpy(w).to(torch.bfloat16), torch.from_numpy(b)
+    return (torch.from_numpy(w).to(torch.bfloat16).contiguous(),
+            torch.from_numpy(b).contiguous())
 
 
 def fold_flax_blocks(variables_list) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -126,23 +196,29 @@ def _check(x, w, b, n_blocks) -> None:
 
 
 def fused_blocks_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                      n_blocks: int = 2) -> torch.Tensor:
-    """Launch L2 ``fused_blocks`` (``csrc/lab_blocks.cu``)."""
+                      n_blocks: int = 2, tile: Optional[int] = None) -> torch.Tensor:
+    """Launch L2 ``fused_blocks`` (``csrc/lab_blocks.cu``) with
+    ``tile_plan``'s tile, or the given ``tile`` (the lab's comparison)."""
     _check(x, w, b, n_blocks)
     if x.device.type != "cuda":
         raise ValueError(f"fused_blocks_cuda needs CUDA tensors, got {x.device}")
     B, H, W, C = x.shape
-    if C not in (8, 16, 32, 64):
+    if C not in CHANNELS:
         raise ValueError(f"fused_blocks_cuda takes C in 8, 16, 32, 64, got {C}")
     x, w, b = x.contiguous(), w.contiguous(), b.contiguous()
     for arg, t in (("weights", w), ("bias", b)):
         if t.device != x.device:
             raise ValueError(f"fused_blocks_cuda: {arg} on {t.device}, x on {x.device}")
-    lib = _cuda.load_library("lab_blocks")  # refuses a tile beyond a block's shared memory
+    lib = _cuda.load_library("lab_blocks")
+    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    plan = tile_plan(B, H, W, C, n_blocks, smem_optin=lib.lab_blocks_smem_optin(dev),
+                     n_sms=torch.cuda.get_device_properties(x.device).multi_processor_count,
+                     tile=tile)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         rc = lib.lab_fused_blocks(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), B, H,
-                                  W, C, n_blocks, torch.cuda.current_stream(x.device).cuda_stream)
+                                  W, C, n_blocks, plan.tile,
+                                  torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_blocks_cuda kernel launch failed: "
                            f"{lib.lab_blocks_error_string(rc).decode()}")

@@ -19,22 +19,26 @@ the time and ``frac_vs_stream``, the bank's f32 bytes over the measured
 stream rate, divided by the time. A CPU run checks the plain versions and
 times nothing.
 
-``fused_variant`` runs the kernel ``csrc/lab_nw.cu`` (see there for the
-design) on CUDA tensors and ``_fused_variant_plain`` on CPU tensors. Ported
-semantics, not the TPU's layouts:
+``fused_variant`` runs ``csrc/lab_nw.cu`` on CUDA tensors: the forward's
+tensor-core pass 1 that K1 and K2 run (``csrc/nw_pass1.cuh``; see
+``lab_nw.cu`` for how each option maps onto it), and
+``_fused_variant_plain`` on CPU tensors. Ported semantics, not the TPU's
+layouts:
 
 * ``labels`` ``wide``, ``wide_u8`` and ``compact`` were three label layouts
   of one function: all three take int32 labels, ``-1`` masked;
-* ``dist`` ``f32`` (dot products and self-norms from the raw rows),
-  ``f32s2`` (the self-norms computed once outside the kernel), ``x3`` (q and
-  s split into bf16 hi and lo, ``qh.sh + ql.sh + qh.sl`` each summed in
-  f32); ``agg`` ``f32`` or ``split`` (p replaced by ``f32(bf16(p)) +
-  f32(bf16(p - bf16(p)))`` before the label sum); ``cast="bf16"`` rounds q
-  and s to bf16 first;
-* ``block_s`` is the rows a block streams, the split unit; ``block_b`` the
-  queries a block holds, rounded up to the kernel's 16-query tile;
-* ``mm_prec`` and ``agg_prec`` are accepted and change nothing: the kernel's
-  products are full f32 (JAX's ``highest``).
+* ``dist`` ``f32`` (dot products and self-norms from the raw rows: K1's
+  route), ``f32s2`` (the self-norms computed once outside the kernel),
+  ``x3`` (q and s split into bf16 hi and lo, ``qh.sh + ql.sh + qh.sl`` on
+  bf16 tensor cores, f32 sums); ``agg`` ``f32`` or ``split`` (p replaced
+  by ``f32(bf16(p)) + f32(bf16(p - bf16(p)))`` before the label sum);
+  ``cast="bf16"`` rounds q and s to bf16 first;
+* ``block_s`` is the rows a split streams, rounded up to the pass's 64-row
+  tiles; ``block_b`` picks the pass's query tile (32, 16 or 8 as C allows,
+  ``variant_plan``); ``k1_block_s`` is the block_s of K1's own split count;
+* ``mm_prec`` and ``agg_prec`` are accepted and change nothing: the
+  kernel's f32 products are 3xTF32 (about JAX's ``highest``), x3's are
+  exact bf16 products summed in f32.
 
 The lab's timing probes (``labels="none"``: synthetic labels, no mask;
 ``dist="skip"``: no distance product; ``agg="skip"``: no label sum) compute
@@ -55,6 +59,7 @@ import torch
 from nwhead_tpu_torch.labs import stream as lab_stream
 from nwhead_tpu_torch.labs.timing import card_line, interleaved_time, lab_device
 from nwhead_tpu_torch.ops import _cuda
+from nwhead_tpu_torch.ops import fused_nw as F
 from nwhead_tpu_torch.ops.nw import LOG_FLOOR
 
 _NEG_INF = float(torch.finfo(torch.float32).min)
@@ -151,16 +156,23 @@ def _bf16_split(x: torch.Tensor):
     return hi, (x - hi).to(torch.bfloat16).to(torch.float32)
 
 
+def _x3_dot(qf: torch.Tensor, sf: torch.Tensor) -> torch.Tensor:
+    """x3's dot products in the kernel's order of the three sums
+    (``csrc/nw_tc.cuh``: ``x3_product``): the small products ``ql.sh`` and
+    ``qh.sl`` added first, then ``qh.sh``."""
+    qh, ql = _bf16_split(qf)
+    sh, sl = _bf16_split(sf)
+    return qh @ sh.T + (ql @ sh.T + qh @ sl.T)
+
+
 def _fused_variant_plain(q: torch.Tensor, s: torch.Tensor, labels: torch.Tensor,
                          n_classes: int, dist: str = "f32", agg: str = "f32") -> torch.Tensor:
     """``fused_variant``'s function in plain PyTorch, on ``q``, ``s`` after
-    the cast and int32 ``labels`` (-1 masked): full f32 products, the
-    softmax taken at once. ``(B, C)`` f32 log-probs."""
+    the cast and int32 ``labels`` (-1 masked): full f32 products (x3:
+    ``_x3_dot``), the softmax taken at once. ``(B, C)`` f32 log-probs."""
     qf, sf = q.to(torch.float32), s.to(torch.float32)
     if dist == "x3":
-        qh, ql = _bf16_split(qf)
-        sh, sl = _bf16_split(sf)
-        dot = (qh @ sh.T + ql @ sh.T) + qh @ sl.T
+        dot = _x3_dot(qf, sf)
     else:
         dot = qf @ sf.T
     valid = labels >= 0
@@ -181,12 +193,37 @@ def _fused_variant_plain(q: torch.Tensor, s: torch.Tensor, labels: torch.Tensor,
     return torch.log(acc / torch.clamp(l, min=1e-30) + LOG_FLOOR)
 
 
+def variant_plan(B: int, S: int, n_classes: int, block_s: int, block_b: Optional[int] = None,
+                 smem_optin: int = F.H100_SMEM_OPTIN):
+    """The tensor-core pass 1's launch for the lab's tile options: ``(qb,
+    rows, n_splits)``, the query tile (``block_b``, or the batch, rounded
+    to 32, 16 or 8 as the classes' accumulator allows: ``_tc_query_tile``),
+    the rows a split streams (``block_s`` rounded up to the pass's 64-row
+    tiles) and the split count."""
+    qb = F._tc_query_tile(block_b or B, n_classes, False, smem_optin)
+    rows = F._round_up(block_s, F._TC_SUPPORT_TILE)
+    return qb, rows, math.ceil(S / rows)
+
+
+def k1_block_s(B: int, S: int, n_classes: int, n_sms: int,
+               smem_optin: int = F.H100_SMEM_OPTIN) -> int:
+    """The block_s that gives K1's own split count at this shape
+    (``_tc_splits``: one wave of (query tile x split) blocks on ``n_sms``
+    SMs): 128 at the CUB shape on an H100's 132 SMs, 47 splits."""
+    qb = F._tc_query_tile(B, n_classes, False, smem_optin)
+    return F._tc_splits(S, math.ceil(B / qb), n_sms)[0]
+
+
+_ONES = {}  # device -> the (1,) f32 scale the pass reads (unused in l2 mode)
+
+
 def fused_variant_cuda(x: VariantInputs, labels: torch.Tensor, n_classes: int, dist: str,
                        agg: str, block_s: int, block_b: Optional[int] = None) -> torch.Tensor:
     """Launch L1 ``fused_variant`` (``csrc/lab_nw.cu``) on operands from
-    ``variant_inputs``: pass 1 over (query groups x ``block_s`` splits),
-    then the exact merge and the log. Counts launches in ``.launches`` and
-    per variant in ``.by_variant`` (``variant_key``)."""
+    ``variant_inputs``: the tensor-core pass 1 over (query tiles x
+    ``block_s`` splits, ``variant_plan``), then the exact merge and the
+    log. Counts launches in ``.launches`` and per variant in
+    ``.by_variant`` (``variant_key``)."""
     q, s = x.q, x.s
     if q.device.type != "cuda":
         raise ValueError(f"fused_variant_cuda needs CUDA tensors, got {q.device}")
@@ -211,11 +248,13 @@ def fused_variant_cuda(x: VariantInputs, labels: torch.Tensor, n_classes: int, d
             raise ValueError(f"fused_variant_cuda: {arg} needs contiguous {dt} {shape} on "
                              f"{q.device}")
     lib = _cuda.load_library("lab_nw")
-    if lib.lab_variant_smem_bytes(n_classes, int(x3)) > lib.lab_optin_smem(q.device.index or 0):
+    if n_classes < 1 or n_classes > _cuda.load_library().nw_prepared_max_classes(
+            q.device.index or 0):
         raise ValueError(f"n_classes={n_classes} is beyond the kernel's shared-memory accumulator")
-    tile = lib.lab_nw_query_tile()
-    qtiles = math.ceil((block_b or tile) / tile)
-    n_splits = math.ceil(S / block_s)
+    qb, rows, n_splits = variant_plan(B, S, n_classes, block_s, block_b,
+                                      lib.lab_optin_smem(q.device.index or 0))
+    if q.device not in _ONES:
+        _ONES[q.device] = torch.ones(1, dtype=torch.float32, device=q.device)
     f32 = dict(dtype=torch.float32, device=q.device)
     m_part, l_part = torch.empty((n_splits, B), **f32), torch.empty((n_splits, B), **f32)
     acc_part = torch.empty((n_splits, B, n_classes), **f32)
@@ -223,10 +262,11 @@ def fused_variant_cuda(x: VariantInputs, labels: torch.Tensor, n_classes: int, d
     with torch.cuda.device(q.device):
         rc = lib.lab_fused_variant(
             q.data_ptr(), s.data_ptr(), None if x.s_lo is None else x.s_lo.data_ptr(),
-            None if x.s2 is None else x.s2.data_ptr(), labels.data_ptr(), m_part.data_ptr(),
-            l_part.data_ptr(), acc_part.data_ptr(), out.data_ptr(), B, S, D, n_classes,
-            _DIST_CODE[dist], int(agg == "split"), int(s.dtype == torch.bfloat16 and not x3),
-            block_s, qtiles, torch.cuda.current_stream(q.device).cuda_stream)
+            None if x.s2 is None else x.s2.data_ptr(), labels.data_ptr(),
+            _ONES[q.device].data_ptr(), m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
+            out.data_ptr(), B, S, D, n_classes, _DIST_CODE[dist], int(agg == "split"),
+            int(s.dtype == torch.bfloat16 and not x3), n_splits, rows, qb,
+            torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_variant_cuda kernel launch failed: "
                            f"{lib.lab_nw_error_string(rc).decode()}")

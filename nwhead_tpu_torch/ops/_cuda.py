@@ -93,16 +93,15 @@ _API = {
         "lab_stream_error_string": ([_I32], ctypes.c_char_p),
     },
     "lab_nw": {
-        "lab_fused_variant": ([_VP] * 9 + [_I32] * 9 + [_VP], _I32),
+        "lab_fused_variant": ([_VP] * 10 + [_I32] * 10 + [_VP], _I32),
         "lab_manual_fused": ([_VP] * 8 + [_I32] * 6 + [_VP], _I32),
-        "lab_nw_query_tile": ([], _I32),
-        "lab_variant_smem_bytes": ([_I32, _I32], _I32),
         "lab_manual_smem_bytes": ([_I32] * 3, _I32),
         "lab_optin_smem": ([_I32], _I32),
         "lab_nw_error_string": ([_I32], ctypes.c_char_p),
     },
     "lab_blocks": {
-        "lab_fused_blocks": ([_VP] * 4 + [_I32] * 5 + [_VP], _I32),
+        "lab_fused_blocks": ([_VP] * 4 + [_I32] * 6 + [_VP], _I32),
+        "lab_blocks_smem_optin": ([_I32], _I32),
         "lab_blocks_error_string": ([_I32], ctypes.c_char_p),
     },
 }

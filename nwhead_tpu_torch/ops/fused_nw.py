@@ -553,7 +553,7 @@ def _nw_bwd_ds_plain(q, s, labels, u, r, m, l, scale, mode, n_classes) -> torch.
 
 
 # The tensor-core pass 1 of K2, K4, K5 and K6, every prepared bank, and of
-# K1 over raw rows (``csrc/nw_prepared.cu``: ``nw_prepared_tc_kernel``);
+# K1 over raw rows (``csrc/nw_pass1.cuh``: ``nw_prepared_tc_kernel``);
 # these mirror its constants and ``tc_smem_bytes``.
 _TC_QUERY_TILES = (32, 16, 8)  # queries a block, the largest that fits first
 _TC_SUPPORT_TILE = 64

@@ -33,6 +33,7 @@ import torch
 from nwhead_tpu_torch import labs
 from nwhead_tpu_torch.labs import block_lab, kernel_lab, manual_pipe_lab
 from nwhead_tpu_torch.labs import stream as lab_stream
+from nwhead_tpu_torch.ops import fused_nw as F
 from nwhead_tpu_torch.ops.fused_nw import prepare_support
 
 torch.set_num_threads(1)
@@ -213,6 +214,77 @@ def test_fused_variant_inputs_and_refusals():
         kernel_lab.fused_variant(qt, st, sy, C, mm_prec="fastest")
 
 
+# The fused_variant kernel runs on the forward's tensor-core pass 1: its
+# block_s and block_b map onto that pass's split length and query tile.
+
+
+@pytest.mark.parametrize("block_s,rows,n_splits", [(2048, 2048, 3), (512, 512, 12),
+                                                   (100, 128, 47), (1, 64, 94)])
+def test_variant_plan_maps_block_s_to_whole_tiles(block_s, rows, n_splits):
+    assert kernel_lab.variant_plan(64, 5994, 200, block_s) == (32, rows, n_splits)
+
+
+@pytest.mark.parametrize("block_b,C,qb", [(None, 200, 32), (8, 200, 8), (16, 200, 16),
+                                          (20, 200, 32), (64, 200, 32), (None, 1000, 32),
+                                          (None, 4000, 8), (5, 7, 8)])
+def test_variant_plan_rounds_block_b_to_the_query_tile(block_b, C, qb):
+    """The query tile follows block_b (the batch without it), rounded up
+    to 8, 16 or 32 and cut to what the classes' accumulator leaves room
+    for, as K1's and K2's."""
+    assert kernel_lab.variant_plan(64, 5994, C, 2048, block_b)[0] == qb
+    if block_b is None:
+        assert qb == F._tc_query_tile(64, C, False, F.H100_SMEM_OPTIN)
+
+
+def test_variant_plan_refuses_too_many_classes():
+    with pytest.raises(ValueError, match="n_classes"):
+        kernel_lab.variant_plan(64, 5994, 6000, 2048)
+
+
+@pytest.mark.parametrize("B,S,C,block_s", [(64, 5994, 200, 128), (8, 1200, 200, 64),
+                                           (64, 65536, 1000, 1024)])
+def test_k1_block_s_gives_k1_split_count(B, S, C, block_s):
+    """At the CUB shape K1 runs 47 splits of 128 rows on an H100's 132
+    SMs; the lab's block_s of that split length gives the same grid."""
+    assert kernel_lab.k1_block_s(B, S, C, 132) == block_s
+    qb, rows, n_splits = kernel_lab.variant_plan(B, S, C, block_s)
+    assert (rows, n_splits) == F._tc_splits(S, -(-B // qb), 132)
+
+
+def test_x3_dot_sums_in_the_kernel_order():
+    """``_x3_dot`` is ``qh.sh + (ql.sh + qh.sl)``, the kernel's order, bit
+    for bit, each term of the split in bf16; it stays within f32 rounding
+    of the f64 product of the split operands."""
+    rng = np.random.default_rng(11)
+    q = torch.from_numpy(rng.standard_normal((9, 96)).astype(np.float32))
+    s = torch.from_numpy(rng.standard_normal((70, 96)).astype(np.float32))
+    got = kernel_lab._x3_dot(q, s)
+    qh, ql = kernel_lab._bf16_split(q)
+    sh, sl = kernel_lab._bf16_split(s)
+    for x in (qh, ql, sh, sl):
+        torch.testing.assert_close(x, x.bfloat16().float(), rtol=0, atol=0)
+    torch.testing.assert_close(got, qh @ sh.T + (ql @ sh.T + qh @ sl.T), rtol=0, atol=0)
+    want = (qh.double() @ sh.double().T + ql.double() @ sh.double().T
+            + qh.double() @ sl.double().T)
+    torch.testing.assert_close(got.double(), want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("agg", ["f32", "split"])
+def test_fused_variant_x3_order_matches_kernel_lab(interpret, agg):
+    """x3 in the kernel's order of the three sums against the JAX lab's
+    variant in interpret mode, at ``kernel_lab --tiny``'s shape with masked
+    rows and at the lab's block_s 2,048 (one block over the whole bank)."""
+    import jax.numpy as jnp
+
+    lab = _script("scripts/kernel_lab.py")
+    q, s, sy, C = _nw_inputs(seed=3, B=8, S=700, D=64, C=12)
+    opts = dict(labels="compact", dist="x3", agg=agg, block_s=2048)
+    want = _np(lab.fused_variant(jnp.asarray(q), jnp.asarray(s), jnp.asarray(sy), C, **opts))
+    got = kernel_lab.fused_variant(torch.from_numpy(q), torch.from_numpy(s), torch.from_numpy(sy),
+                                   C, **opts).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
+
+
 # --- L3 manual_fused ---------------------------------------------------------
 
 
@@ -332,6 +404,43 @@ def test_fold_basic_block_folds_the_port_block():
         block_lab.fused_blocks_cuda(x, w, b)
 
 
+@pytest.mark.parametrize("shape,n_blocks,tile", [
+    ((64, 56, 56, 64), 2, 14), ((64, 56, 56, 8), 2, 28), ((3, 20, 13, 32), 2, 10)])
+def test_block_tile_plan_fits_a_block(shape, n_blocks, tile):
+    """The kernel's tile at layer1's width (14: 56 = 4 x 14), at C = 8 and
+    on a ragged image: its two region buffers, a conv's nine taps of
+    weights and their alignment's 1 KB within an H100 block's 227 KB."""
+    B, H, W, C = shape
+    plan = block_lab.tile_plan(B, H, W, C, n_blocks)
+    side = tile + 4 * n_blocks
+    assert plan.tile == tile
+    assert plan.x_bytes == side * side * C * 2 and plan.h_bytes == (side - 2) ** 2 * C * 2
+    assert plan.weight_bytes == 9 * C * C * 2
+    assert plan.smem_bytes == 1024 + plan.x_bytes + plan.h_bytes + plan.weight_bytes
+    assert plan.smem_bytes <= block_lab.H100_SMEM_OPTIN
+    if shape == (64, 56, 56, 64):
+        assert (plan.x_bytes, plan.h_bytes, plan.weight_bytes) == (61_952, 51_200, 73_728)
+
+
+def test_block_tile_plan_takes_the_fewest_rounds():
+    """At layer1, tile 14's m-tiles on a block's critical path times waves
+    of blocks are fewer than every other tile's that fits (8: the FFMA
+    kernel's, 12, 16);
+    a given tile is taken as it is; what fits no block is refused."""
+    plan = block_lab.tile_plan(64, 56, 56, 64, 2)
+    for tile in (8, 12, 16):
+        other = block_lab.tile_plan(64, 56, 56, 64, 2, tile=tile)
+        assert other.tile == tile and other.cost > plan.cost
+    with pytest.raises(ValueError, match="shared memory"):
+        block_lab.tile_plan(64, 56, 56, 64, 2, tile=20)
+    with pytest.raises(ValueError, match="shared memory"):
+        block_lab.tile_plan(1, 56, 56, 64, 8)
+    x = torch.zeros((1, 8, 8, 64), dtype=torch.bfloat16)
+    w, b = torch.zeros((4, 9, 64, 64), dtype=torch.bfloat16), torch.zeros((4, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        block_lab.fused_blocks_cuda(x, w, b, tile=14)
+
+
 # --- the lab CLIs -----------------------------------------------------------
 
 
@@ -435,20 +544,51 @@ def test_cuda_stream_matches_plain(rows, D):
                                    rtol=1e-5, atol=1e-4)
 
 
+# Every DECOMPOSITION variant, and beside them query tiles of 32 and 8 on
+# x3 with the split label sum, K1's own split length (block_s 128) on the
+# bf16 raw route, and x3 on a bf16 cast (its lo half all zeros).
+CUDA_VARIANTS = kernel_lab.DECOMPOSITION + (
+    dict(labels="wide", dist="x3", agg="split", block_s=512, block_b=64),
+    dict(labels="compact", dist="x3", agg="split", block_s=128, block_b=8),
+    dict(labels="compact", dist="f32", agg="split", block_s=128, cast="bf16"),
+    dict(labels="compact", dist="x3", agg="f32", block_s=1024, cast="bf16"),
+)
+
+
+def _cuda_variant_case(dev, variant, B, S, D, C, nan_masked=False):
+    """``fused_variant`` on the card and its plain version on the same
+    inputs (masked rows NaN with ``nan_masked``)."""
+    q, s, sy, _ = _nw_inputs(B=B, S=S, D=D, C=C)
+    if nan_masked:
+        s[sy < 0] = np.nan
+    qt, st = torch.from_numpy(q).to(dev), torch.from_numpy(s).to(dev)
+    got = kernel_lab.fused_variant(qt, st, torch.from_numpy(sy), C, **variant)
+    cast = variant.get("cast", "f32")
+    qc, sc = (qt, st) if cast == "f32" else (qt.bfloat16(), st.bfloat16())
+    want = kernel_lab._fused_variant_plain(qc, sc, torch.from_numpy(sy).to(dev), C,
+                                           variant["dist"], variant["agg"])
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-4 if cast == "f32" else 2e-3)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("variant", kernel_lab.DECOMPOSITION + (
-    dict(labels="wide", dist="x3", agg="split", block_s=512, block_b=64),))
+@pytest.mark.parametrize("variant", CUDA_VARIANTS)
 def test_cuda_fused_variant_matches_plain(variant):
     with _card() as dev:
         for B, S, D, C in ((64, 5994, 512, 200), (5, 1100, 40, 7)):
-            q, s, sy, _ = _nw_inputs(B=B, S=S, D=D, C=C)
-            qt, st = torch.from_numpy(q).to(dev), torch.from_numpy(s).to(dev)
-            got = kernel_lab.fused_variant(qt, st, torch.from_numpy(sy), C, **variant)
-            cast = variant.get("cast", "f32")
-            qc, sc = (qt, st) if cast == "f32" else (qt.bfloat16(), st.bfloat16())
-            want = kernel_lab._fused_variant_plain(qc, sc, torch.from_numpy(sy).to(dev), C,
-                                                   variant["dist"], variant["agg"])
-            torch.testing.assert_close(got, want, rtol=0, atol=2e-4 if cast == "f32" else 2e-3)
+            _cuda_variant_case(dev, variant, B, S, D, C)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("agg", ["f32", "split"])
+@pytest.mark.parametrize("dist", ["f32s2", "x3"])
+def test_cuda_fused_variant_masks_nan_rows(dist, agg):
+    """The s2 and x3 routes read raw, unprepared rows: a masked row (label
+    -1) that holds NaN, and so a NaN self-norm, changes nothing."""
+    with _card() as dev:
+        for B, S, D, C in ((64, 5994, 512, 200), (5, 1100, 40, 7)):
+            _cuda_variant_case(dev, dict(labels="compact", dist=dist, agg=agg, block_s=512), B,
+                               S, D, C, nan_masked=True)
 
 
 @pytest.mark.gpu
@@ -468,15 +608,24 @@ def test_cuda_manual_fused_matches_plain(precision, block_s):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape,n_blocks", [((4, 56, 56, 64), 2), ((2, 56, 56, 16), 1),
-                                            ((3, 20, 13, 32), 2)])
-def test_cuda_fused_blocks_matches_plain(shape, n_blocks):
+@pytest.mark.parametrize("shape,n_blocks,tile", [
+    ((4, 56, 56, 64), 2, None), ((2, 56, 56, 16), 1, None), ((3, 20, 13, 32), 2, None),
+    ((2, 56, 56, 8), 2, None), ((2, 24, 24, 8), 1, None), ((2, 21, 19, 8), 3, None),
+    ((2, 56, 56, 64), 1, None), ((2, 30, 30, 64), 3, None), ((2, 17, 23, 16), 3, None),
+    ((2, 56, 56, 64), 2, 8), ((2, 56, 56, 64), 2, 16), ((1, 13, 29, 64), 2, 14)])
+def test_cuda_fused_blocks_matches_plain(shape, n_blocks, tile):
+    """Every channel count, one to three blocks, ragged images, and the
+    tile timed beside the plan's (8 and 16 at layer1's width)."""
     with _card() as dev:
         rng = np.random.default_rng(7)
         x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)
         w, b = block_lab.pack_weights([block_lab.fold_bn(*c)
                                        for c in _block_weights(rng, shape[-1], n_blocks)])
         w, b = w.to(dev), b.to(dev)
-        got = block_lab.fused_blocks_cuda(x, w, b, n_blocks)
+        got = block_lab.fused_blocks_cuda(x, w, b, n_blocks, tile=tile)
         want = block_lab._fused_blocks_plain(x, w, b, n_blocks)
+        assert bool(torch.isfinite(got.float()).all())
         assert block_lab.rel_to_max(got, want) <= 1e-2
+        cos = torch.nn.functional.cosine_similarity(got.float().flatten(),
+                                                    want.float().flatten(), dim=0)
+        assert float(cos) >= 0.9999
