@@ -178,10 +178,13 @@ package beside it. With one, in order:
     forward's tensor-core pass 1) at the CUB shape, the f32, f32s2, x3,
     split and bf16 variants, against its plain version and the naive op,
     timed at the lab's block_s and at K1's split count beside K1 f32 and
-    bf16; L3 ``manual_fused`` at B=64 and B=8, f32 and bf16 banks, block_s
-    1,024 and 2,048, against its plain version and timed in turns with K2
-    on the same bank; L2 ``fused_blocks`` (``csrc/lab_blocks.cu``, implicit
-    GEMMs on bf16 ``mma.sync``) at (64, 56, 56, 64) bf16, two blocks, at its
+    bf16; L3 ``manual_fused`` (K2's route of the same pass, one block_s
+    tile a split) at B=64 and B=8, f32 and bf16 banks, block_s 1,024 at
+    every ring depth of ``MANUAL_STAGES``, 2,048 and K2's own split count
+    at 3 stages, against its plain version and timed in turns with K2 on
+    the same bank, each case with its read rate per block; L2
+    ``fused_blocks`` (``csrc/lab_blocks.cu``, implicit GEMMs on bf16
+    ``mma.sync``) at (64, 56, 56, 64) bf16, two blocks, at its
     planned tile and at tiles 8, 12 and 16, against its plain version and
     the port's ``BasicBlock``s, timed beside cuDNN's bf16 layer1;
 17. lab phase: ``python -m nwhead_tpu_torch.labs.<lab>`` for ``kernel_lab
@@ -2795,8 +2798,12 @@ STREAM_RATE_LIMIT = 1.05 * HBM_BYTES_PER_S
 TOUCH_FULL_MIN = 0.9
 LAB_B, LAB_S, LAB_D, LAB_C = 64, 5994, 512, 200  # the labs' CUB shape
 LAB_CYCLES = 15
-MANUAL_CASES = tuple((prec, b, bs) for prec in ("f32", "bf16") for b in (64, 8)
-                     for bs in (1024, 2048))  # the first of each precision is the entry's
+MANUAL_STAGES = (3, 2, 4, 6, 7)  # L3's ring depths (manual_pipe_lab.MANUAL_STAGES), K2's first
+# prec, B, block_s, stages, at K2's split count: the depths at block_s 1,024
+# only; the first of each precision is the entry's.
+MANUAL_CASES = tuple((prec, b, bs, st, k2) for prec in ("f32", "bf16") for b in (64, 8)
+                     for bs, st, k2 in [(1024, st, False) for st in MANUAL_STAGES]
+                     + [(2048, 3, False), (1024, 3, True)])
 BLOCKS_SHAPE = (64, 56, 56, 64)  # ResNet-18's layer1 at B=64
 BLOCKS_TILES = (8, 12, 14, 16)  # the tiles timed beside the plan's
 LAB_RUNS = (("kernel_lab", ["--quick"]), ("manual_pipe_lab", []), ("prepared_lab", []),
@@ -2997,17 +3004,29 @@ def variant_phase(flush, stream_gbps: float) -> dict:
 
 
 def manual_phase(flush, stream_gbps: float) -> dict:
-    """L3 ``manual_fused`` at the CUB shape, B=64 and B=8, f32 and bf16
-    banks prepared with block_s 1,024 and 2,048: against its plain version
-    (``TOL``); every case beside K2 on the same bank, and the plain version
-    at each precision's first case, timed in one ``lab_times`` loop, with
-    ``frac_vs_stream``; K2 of the first case also by ``time_ms``."""
+    """L3 ``manual_fused`` at the CUB shape, every case of ``MANUAL_CASES``
+    (B=64 and B=8, f32 and bf16 banks prepared with block_s 1,024 at every
+    ring depth, 2,048 and K2's own split count at 3 stages): its shared
+    memory by the library against ``manual_plan``'s, its output finite and
+    against its plain version (``TOL``); every case beside K2 on the same
+    bank, and the plain version at each precision's first case, timed in
+    one ``lab_times`` loop, with ``frac_vs_stream``, the blocks, the read
+    rate per block (the bank's bytes over the splits, over the time) and
+    the bytes a block's rings keep in flight; K2 of the first case also by
+    ``time_ms``."""
     import torch
 
     from nwhead_tpu_torch.labs import manual_pipe_lab as MP
+    from nwhead_tpu_torch.ops import _cuda
     from nwhead_tpu_torch.ops import fused_nw as F
 
+    if sorted(MANUAL_STAGES) != sorted(MP.MANUAL_STAGES):
+        raise AssertionError(f"MANUAL_STAGES {MANUAL_STAGES} are not the library's "
+                             f"{MP.MANUAL_STAGES}")
     dev = torch.device("cuda")
+    lab = _cuda.load_library("lab_nw")
+    optin = lab.lab_optin_smem(0)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rng = np.random.default_rng(0)
     B, S, D, C = LAB_B, LAB_S, LAB_D, LAB_C
     q = torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32)).to(dev)
@@ -3015,39 +3034,64 @@ def manual_phase(flush, stream_gbps: float) -> dict:
     sy = rng.integers(0, C, size=S).astype(np.int32)
     scale = torch.ones(1, device=dev)
     res = {prec: {"max_abs_err": 0.0, "cases": {}} for prec in TOL}
-    cases, first = [], {}
-    for prec, b, block_s in MANUAL_CASES:
+    cases, first, preps, plains, k2_banks = [], {}, {}, {}, set()
+    for prec, b, block_s, stages, k2 in MANUAL_CASES:
         r = res[prec]
-        prep = F.prepare_support(bank, sy, C, precision=prec, block_s=block_s)
+        if (prec, block_s) not in preps:
+            preps[(prec, block_s)] = F.prepare_support(bank, sy, C, precision=prec,
+                                                       block_s=block_s)
+        prep = preps[(prec, block_s)]
+        S_pad = prep.s.shape[0]
         qc = q[:b].to(prep.s.dtype).contiguous()
-        got, want = MP.manual_fused_cuda(qc, prep, C), MP._manual_fused_plain(qc, prep, C)
+        rows = None
+        if k2:
+            qt = MP.manual_plan(b, S_pad, block_s, C, stages, optin)[0]
+            rows = F._tc_splits(S_pad, -(-b // qt), n_sms)[0]
+        qt, split_rows, n_splits, smem = MP.manual_plan(b, S_pad, rows or prep.block_s, C, stages,
+                                                         optin)
+        if lab.lab_manual_smem_bytes(qt, C, stages) != smem:
+            raise AssertionError(f"manual_plan's {smem} bytes at {stages} stages are not the "
+                                 f"library's {lab.lab_manual_smem_bytes(qt, C, stages)}")
+        if (prec, b, block_s) not in plains:
+            plains[(prec, b, block_s)] = MP._manual_fused_plain(qc, prep, C)
+        want = plains[(prec, b, block_s)]
+        got = MP.manual_fused_cuda(qc, prep, C, stages, block_s=rows)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         ok = bool(torch.isfinite(got).all()) and within(got, want, **TOL[prec])
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        print(f"lab manual_fused {prec} B={b} block_s={block_s}: max|err| {err:.3e} "
-              f"{'ok' if ok else 'FAIL'}")
+        key = f"b{b}_{'k2_rows' if k2 else 'bs'}{split_rows}_st{stages}"
+        print(f"lab manual_fused {prec} {key} ({n_splits} splits, {smem} bytes of shared memory): "
+              f"max|err| {err:.3e} {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"manual_fused disagrees with its plain version: {prec} B={b}")
-        key = f"b{b}_bs{block_s}"
-        args = (qc, prep)
-        cases += [((prec, key), lambda a=args: MP.manual_fused_cuda(*a, C)),
-                  ((prec, key, "K2"), lambda a=args: F.nw_prepared_cuda(*a, scale, "l2", C))]
+            raise AssertionError(f"manual_fused disagrees with its plain version: {prec} {key}")
+        bank_key = (prec, f"b{b}_bs{block_s}", "K2")
+        cases.append(((prec, key), lambda a=(qc, prep, C, stages, rows): MP.manual_fused_cuda(*a)))
+        if bank_key not in k2_banks:
+            k2_banks.add(bank_key)
+            cases.append((bank_key, lambda a=(qc, prep): F.nw_prepared_cuda(*a, scale, "l2", C)))
         if prec not in first:
             first[prec] = key
-            cases.append(((prec, "plain"), lambda a=args: MP._manual_fused_plain(*a, C)))
+            cases.append(((prec, "plain"), lambda a=(qc, prep): MP._manual_fused_plain(*a, C)))
             r.update(bound(b * D * prep.s.element_size() + prep.s.numel() * prep.s.element_size()
-                           + 4 * (2 * S + b * C), 2 * b * S * D, prec))
-        r["cases"][key] = {"bank_bytes": prep.s.numel() * prep.s.element_size()}
-    k2_first = dict(cases)[("f32", first["f32"], "K2")]
+                           + 4 * (2 * S_pad + b * C), 2 * b * S * D, prec),
+                     stages=stages, block_s=block_s)
+        r["cases"][key] = {"bank_bytes": prep.s.numel() * prep.s.element_size(), "K2": bank_key,
+                           "blocks": -(-b // qt) * n_splits, "splits": n_splits,
+                           "stages": stages, "in_flight_bytes": MP.ring_bytes(stages)}
+    k2_first = dict(cases)[("f32", f"b{B}_bs{MANUAL_CASES[0][2]}", "K2")]
     k2_before = time_ms(k2_first, flush)
     t = lab_times(cases)
     for prec, r in res.items():
         for key, c in r["cases"].items():
-            c.update(ms=t[(prec, key)], k2_ms=t[(prec, key, "K2")])
-            c["frac_vs_stream"] = c.pop("bank_bytes") / (stream_gbps * 1e9) / (c["ms"] * 1e-3)
+            bank_bytes = c.pop("bank_bytes")
+            c.update(ms=t[(prec, key)], k2_ms=t[c.pop("K2")])
+            c["frac_vs_stream"] = bank_bytes / (stream_gbps * 1e9) / (c["ms"] * 1e-3)
+            c["block_gbps"] = bank_bytes / c["splits"] / (c["ms"] * 1e-3) / 1e9
             print(f"lab manual_fused {prec} {key}: {c['ms']:.4f} ms, K2 on the same bank "
-                  f"{c['k2_ms']:.4f} ms, frac_vs_stream {c['frac_vs_stream']:.3f}")
+                  f"{c['k2_ms']:.4f} ms ({c['ms'] / c['k2_ms']:.3f} x), frac_vs_stream "
+                  f"{c['frac_vs_stream']:.3f}, {c['blocks']} blocks, per block "
+                  f"{c['block_gbps']:.2f} GB/s, {c['in_flight_bytes']} bytes in flight")
         c = r["cases"][first[prec]]
         r.update(ms=c["ms"], k2_ms=c["k2_ms"], frac_vs_stream=c["frac_vs_stream"],
                  plain_ms=t[(prec, "plain")])
@@ -3214,7 +3258,8 @@ def lab_entries(kern: dict, labs: dict) -> list:
                         "replaces": LAB_REPLACES["manual_fused"],
                         "launches": labs["by_variant"]["manual_fused"].get(prec, 0),
                         "max_abs_err": r["max_abs_err"], **{k: r[k] for k in keys},
-                        "library_ms": None, "k2_ms": r["k2_ms"],
+                        "library_ms": None, "pass": "nw_prepared_tc_kernel, K2's route",
+                        "stages": r["stages"], "block_s": r["block_s"], "k2_ms": r["k2_ms"],
                         "frac_vs_stream": r["frac_vs_stream"], "cases": r["cases"],
                         **({"k2_zero_flush_ms": r["k2_zero_flush_ms"]}
                            if "k2_zero_flush_ms" in r else {})})

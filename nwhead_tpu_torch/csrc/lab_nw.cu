@@ -41,21 +41,23 @@
 // L3 manual_fused replaces scripts/manual_pipe_lab.py:manual_fused: the l2
 // forward over a prepared f32 or bf16 bank (prepare_support with block_s:
 // whole tiles of block_s rows, zeroed masked rows, s2 = 1e30 on them,
-// labels -1), the query in the bank's dtype. The lab tests a hypothesis:
-// a kernel that hides memory latency with occupancy (many blocks a SM that
-// do not prefetch, K2's first design) against one that hides it by
-// prefetching. Its grid is (query tiles of 16) x (splits of whole block_s
-// tiles), one tile a split, not the TPU's one program per 128 queries.
-// Each block keeps its 16 queries in shared memory as f32 and streams its
-// split through a two-stage ring of 64-row x 64-feature bank sub-tiles
-// copied with cp.async (commit_group / wait_group 1): the copy of the next
-// sub-tile is in flight while this one is scored. The scores read the
-// stage in the bank's dtype, 8 features (16 bytes of bf16, two float4 of
-// f32) a step, FFMA.
-//   What bounds it: at B = 64 operations (2 B S D at 67 TFLOP/s, 6 us), at
-//   B = 8 the bank's bytes (12.3 MB f32, 3.7 us at 3.35 TB/s); with one
-//   block_s tile a split the grid is 4 x 6 blocks at B = 64, block_s =
-//   1024, which is what the lab measures against K2 (one wave of blocks).
+// labels -1), the query in the bank's dtype, on a grid of (query tiles) x
+// (one block_s tile a split). The TPU lab asked whether a kernel that
+// prefetches its own bank tiles reaches the stream rate; here it runs K2's
+// prepared-bank route of the same pass 1 (s2 by its map, masked by the
+// label), so that its few blocks (12 at B = 64, block_s = 1,024; 6 at
+// B = 8) each stream a whole split through their rings alone, and its
+// variable is what a block keeps in flight: the depth of each scoring
+// group's ring, kStages slices of 64 rows x 128 bytes (kManualStages: 2,
+// the TPU lab's double buffer; 3, K2's depth; 4 and 6; and 7, the deepest
+// whose block fits the 232,448 bytes an H100 block may opt in to at the CUB
+// shape's 32-query tile and C = 200). Every other user of the pass keeps
+// kTcStages.
+//   What bounds it: the bank's bytes (12.6 MB f32 prepared at the CUB
+//   shape, 3.8 us at 3.35 TB/s; bf16 1.9 us), above the products (0.39
+//   GFLOP); with 12 blocks on 132 SMs, what one block streams: the rate a
+//   block reaches with its ring's bytes in flight, which the depth sweep
+//   measures.
 
 #include <cstdint>
 
@@ -63,52 +65,43 @@
 
 namespace lab {
 
-using nw::kChunkStride;
-using nw::kFeatChunk;
-using nw::kNeg;
-using nw::kQueryTile;
-using nw::kRowsPerThread;
-using nw::kSupportTile;
-using nw::kThreads;
-using nw::kThreadsPerQuery;
-using nw::kWarps;
+// The pass's arguments for an l2 forward over q (B, D) and rows s (S, D),
+// n_splits splits of rows_per_split rows writing m_part, l_part, acc_part.
+inline nw::TcArgs pass_args(const void* q, const void* s, const void* s2, const void* labels,
+                            const void* scale, void* m_part, void* l_part, void* acc_part, int B,
+                            int S, int D, int C, int rows_per_split) {
+  nw::TcArgs a{};
+  a.q = q;
+  a.s = s;
+  a.s2 = static_cast<const float*>(s2);
+  a.labels = static_cast<const int*>(labels);
+  a.scale = static_cast<const float*>(scale);
+  a.l2_mode = 1;
+  a.B = B;
+  a.D = a.ds = D;
+  a.C = C;
+  a.S = S;
+  a.rows_per_split = rows_per_split;
+  a.m_out = static_cast<float*>(m_part);
+  a.l_out = static_cast<float*>(l_part);
+  a.acc_out = static_cast<float*>(acc_part);
+  return a;
+}
 
-// Online softmax and label sum of one scored tile (nw_common.cuh's step,
-// inline there): prob holds the scores and is overwritten with p. Ends
-// synchronized.
-__device__ __forceinline__ void softmax_label_step(float* __restrict__ prob,
-                                                   const int* __restrict__ tile_labels,
-                                                   float* __restrict__ acc, int C,
-                                                   float* __restrict__ m_run,
-                                                   float* __restrict__ l_run) {
-  const int lane = threadIdx.x & 31;
-  for (int b = threadIdx.x >> 5; b < kQueryTile; b += kWarps) {
-    float* row = prob + b * kSupportTile;
-    const float m_prev = m_run[b];
-    const float s0 = row[lane];
-    const float s1 = row[lane + 32];
-    const float m_new = fmaxf(m_prev, nw::warp_max(fmaxf(s0, s1)));
-    const float m_safe = m_new > kNeg / 2 ? m_new : 0.f;
-    const float alpha = m_prev > kNeg / 2 ? expf(m_prev - m_safe) : 0.f;
-    const float p0 = s0 > kNeg / 2 ? expf(s0 - m_safe) : 0.f;
-    const float p1 = s1 > kNeg / 2 ? expf(s1 - m_safe) : 0.f;
-    const float p_sum = nw::warp_sum(p0 + p1);
-    row[lane] = p0;
-    row[lane + 32] = p1;
-    __syncwarp();
-    float* acc_row = acc + b * C;
-    for (int c = lane; c < C; c += 32) acc_row[c] *= alpha;
-    for (int j = 0; j < kSupportTile; ++j) {
-      const int y = tile_labels[j];
-      if (y >= 0 && y < C && (y & 31) == lane) acc_row[y] += row[j];
-    }
-    if (lane == 0) {
-      m_run[b] = m_new;
-      l_run[b] = l_run[b] * alpha + p_sum;
-    }
-    __syncwarp();
+// Whether the pass takes these splits and a query tile of qb for C classes
+// with rings of `stages` slices on the current device.
+inline cudaError_t pass_ok(int B, int S, int D, int C, int n_splits, int rows_per_split, int qb,
+                           int stages) {
+  if (!nw::forward_args_ok(B, S, D, C, n_splits, rows_per_split) ||
+      rows_per_split % nw::kSupportTile != 0) {
+    return cudaErrorInvalidValue;
   }
-  __syncthreads();
+  int device = 0;
+  const cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  return C > nw::max_forward_classes(device) || !nw::tc_config_ok(qb, C, false, device, stages)
+             ? cudaErrorInvalidValue
+             : cudaSuccess;
 }
 
 // ---------------------------------------------------------------------------
@@ -126,201 +119,29 @@ cudaError_t variant_forward(cudaStream_t stream, bool split, int qb, const nw::T
 }
 
 // ---------------------------------------------------------------------------
-// L3 manual_fused
+// L3 manual_fused: K2's route of the pass with rings of kStages slices,
+// then the merge.
 
-constexpr int kPipeFeat = 64;  // features of a bank sub-tile (a ring stage)
+// The ring depths L3 is built for, manual_forward's cases.
+constexpr int kManualStages[] = {2, 3, 4, 6, 7};
 
-template <typename T>
-struct Pipe {
-  // Row stride of a stage in elements: 16-byte aligned rows whose 4-word
-  // offset mod 32 banks makes the 16-byte reads of 8 consecutive rows
-  // conflict-free.
-  static constexpr int kStride = kPipeFeat + 16 / sizeof(T);
-  static constexpr int kStageElems = kSupportTile * kStride;
-  static constexpr int kSegs = kPipeFeat * sizeof(T) / 16;  // 16-byte copies a row
-  static constexpr int kElemsPerSeg = 16 / sizeof(T);
-};
-
-inline size_t pipe_smem_bytes(int C, int D, int elem_bytes) {
-  const int stride = kPipeFeat + 16 / elem_bytes;
-  return sizeof(float) * (static_cast<size_t>(kQueryTile) * D  // the query tile, f32
-                          + static_cast<size_t>(kQueryTile) * C  // acc
-                          + kQueryTile * kSupportTile            // scores, then p
-                          + 3 * kQueryTile)                      // |q|^2, m, l
-         + static_cast<size_t>(2) * kSupportTile * stride * elem_bytes  // the ring
-         + sizeof(int) * kSupportTile;                                  // tile labels
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool valid) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const int src_bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(gmem),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
-// Issue the copy of sub-tile `step` (64 rows from t0, features k0 ..
-// k0 + 63) into a stage; rows past r_end and features past D fill with 0.
-template <typename T>
-__device__ __forceinline__ void issue_subtile(const T* __restrict__ s, int t0, int r_end, int k0,
-                                              int D, T* __restrict__ stage) {
-  using P = Pipe<T>;
-  for (int e = threadIdx.x; e < kSupportTile * P::kSegs; e += kThreads) {
-    const int j = e / P::kSegs, g = e % P::kSegs;
-    const int k = k0 + g * P::kElemsPerSeg;
-    const bool valid = t0 + j < r_end && k < D;
-    const T* src = valid ? s + static_cast<size_t>(t0 + j) * D + k : s;
-    cp_async16_zfill(stage + j * P::kStride + g * P::kElemsPerSeg, src, valid);
-  }
+template <typename T, int kStages>
+cudaError_t manual_at(cudaStream_t stream, int qb, const nw::TcArgs& a, int n_splits, void* out) {
+  return nw::launch_tc_forward<T, false, false, false, false, false, kStages>(
+      stream, qb, a, a.S, n_splits, false, out, nullptr, nullptr);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-manual_pipe_kernel(const T* __restrict__ q, const T* __restrict__ s, const float* __restrict__ s2,
-                   const int* __restrict__ labels, int B, int S, int D, int C,
-                   int rows_per_split, float* __restrict__ m_out, float* __restrict__ l_out,
-                   float* __restrict__ acc_out) {
-  using P = Pipe<T>;
-  extern __shared__ float4 smem4[];
-  T* ring = reinterpret_cast<T*>(smem4);  // 2 stages, 16-byte aligned
-  float* q_tile = reinterpret_cast<float*>(ring + 2 * P::kStageElems);
-  float* acc = q_tile + kQueryTile * D;
-  float* prob = acc + kQueryTile * C;
-  float* q2 = prob + kQueryTile * kSupportTile;
-  float* m_run = q2 + kQueryTile;
-  float* l_run = m_run + kQueryTile;
-  int* tile_labels = reinterpret_cast<int*>(l_run + kQueryTile);
-
-  const int tid = threadIdx.x;
-  const int tq = tid / kThreadsPerQuery;
-  const int tr = tid % kThreadsPerQuery;
-  const int b0 = blockIdx.x * kQueryTile;
-  const int split = blockIdx.y;
-  const int r_begin = split * rows_per_split;
-  const int r_end = min(S, r_begin + rows_per_split);
-  const int n_kc = (D + kPipeFeat - 1) / kPipeFeat;
-  const int n_steps = (r_end - r_begin + kSupportTile - 1) / kSupportTile * n_kc;
-
-  if (n_steps > 0) issue_subtile(s, r_begin, r_end, 0, D, ring);
-  cp_async_commit();
-
-  for (int i = tid; i < kQueryTile * D; i += kThreads) {
-    const int b = i / D;
-    q_tile[i] = b0 + b < B ? nw::to_float(q[static_cast<size_t>(b0) * D + i]) : 0.f;
+cudaError_t manual_forward(cudaStream_t stream, int stages, int qb, const nw::TcArgs& a,
+                           int n_splits, void* out) {
+  switch (stages) {
+    case 2: return manual_at<T, 2>(stream, qb, a, n_splits, out);
+    case 3: return manual_at<T, 3>(stream, qb, a, n_splits, out);
+    case 4: return manual_at<T, 4>(stream, qb, a, n_splits, out);
+    case 6: return manual_at<T, 6>(stream, qb, a, n_splits, out);
+    case 7: return manual_at<T, 7>(stream, qb, a, n_splits, out);
+    default: return cudaErrorInvalidValue;
   }
-  for (int i = tid; i < kQueryTile * C; i += kThreads) acc[i] = 0.f;
-  nw::query_norms(q, b0, B, D, q2);
-  if (tid < kQueryTile) {
-    m_run[tid] = kNeg;
-    l_run[tid] = 0.f;
-  }
-
-  float dot[kRowsPerThread];
-#pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) dot[r] = 0.f;
-  for (int step = 0; step < n_steps; ++step) {
-    const int kc = step % n_kc;
-    const int t0 = r_begin + (step / n_kc) * kSupportTile;
-    if (step + 1 < n_steps) {
-      const int kn = (step + 1) % n_kc;
-      const int tn = r_begin + ((step + 1) / n_kc) * kSupportTile;
-      issue_subtile(s, tn, r_end, kn * kPipeFeat, D, ring + ((step + 1) & 1) * P::kStageElems);
-    }
-    cp_async_commit();  // empty on the last step: wait_group 1 stays exact
-    if (kc == 0 && tid < kSupportTile) {
-      tile_labels[tid] = t0 + tid < r_end ? labels[t0 + tid] : -1;
-    }
-    cp_async_wait<1>();
-    __syncthreads();
-
-    const T* cur = ring + (step & 1) * P::kStageElems;
-    const int k0 = kc * kPipeFeat;
-    const int kn = min(kPipeFeat, D - k0);
-    const float* qrow = q_tile + tq * D + k0;
-    for (int k8 = 0; k8 < kn; k8 += 8) {
-      float a[8];
-      load8(qrow + k8, a);
-#pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r) {
-        float c[8];
-        load8(cur + (tr + kThreadsPerQuery * r) * P::kStride + k8, c);
-#pragma unroll
-        for (int u = 0; u < 8; ++u) dot[r] = fmaf(a[u], c[u], dot[r]);
-      }
-    }
-    if (kc == n_kc - 1) {
-#pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r) {
-        const int j = tr + kThreadsPerQuery * r;
-        prob[tq * kSupportTile + j] =
-            tile_labels[j] >= 0 ? -nw::l2_dist(q2[tq], dot[r], s2[t0 + j]) : kNeg;
-        dot[r] = 0.f;
-      }
-      __syncthreads();
-      softmax_label_step(prob, tile_labels, acc, C, m_run, l_run);
-    }
-    __syncthreads();  // this stage is refilled by the copy issued next step
-  }
-  cp_async_wait<0>();
-
-  for (int i = tid; i < kQueryTile * C; i += kThreads) {
-    const int b = i / C;
-    if (b0 + b < B) acc_out[(static_cast<size_t>(split) * B + b0 + b) * C + i % C] = acc[i];
-  }
-  if (tid < kQueryTile && b0 + tid < B) {
-    m_out[static_cast<size_t>(split) * B + b0 + tid] = m_run[tid];
-    l_out[static_cast<size_t>(split) * B + b0 + tid] = l_run[tid];
-  }
-}
-
-template <typename T>
-cudaError_t launch_manual(cudaStream_t stream, const void* q, const void* s, const void* s2,
-                          const void* labels, int B, int S, int D, int C, int block_s,
-                          void* m_part, void* l_part, void* acc_part, void* out) {
-  const int n_splits = (S + block_s - 1) / block_s;
-  const dim3 grid((B + kQueryTile - 1) / kQueryTile, n_splits);
-  const size_t smem = pipe_smem_bytes(C, D, sizeof(T));
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        manual_pipe_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  manual_pipe_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(s), static_cast<const float*>(s2),
-      static_cast<const int*>(labels), B, S, D, C, block_s, static_cast<float*>(m_part),
-      static_cast<float*>(l_part), static_cast<float*>(acc_part));
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return nw::launch_merge(stream, false, m_part, l_part, acc_part, n_splits, B, C, out, nullptr,
-                          nullptr);
 }
 
 inline int optin_smem(int device) {
@@ -340,10 +161,10 @@ const char* lab_nw_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Dynamic shared memory of a manual_fused block (elem_bytes 4 or 2), in
-// bytes.
-int lab_manual_smem_bytes(int C, int D, int elem_bytes) {
-  return static_cast<int>(lab::pipe_smem_bytes(C, D, elem_bytes));
+// Dynamic shared memory of a manual_fused block: query tiles of qb, C
+// classes, rings of `stages` slices, in bytes.
+int lab_manual_smem_bytes(int qb, int C, int stages) {
+  return static_cast<int>(nw::tc_smem_bytes(qb, C, false, stages));
 }
 
 int lab_optin_smem(int device) { return lab::optin_smem(device); }
@@ -363,34 +184,15 @@ int lab_fused_variant(const void* q, const void* s, const void* s_lo, const void
                       const void* labels, const void* scale, void* m_part, void* l_part,
                       void* acc_part, void* out, int B, int S, int D, int C, int dist, int split,
                       int bf16, int n_splits, int rows_per_split, int qb, void* stream) {
-  if (!nw::forward_args_ok(B, S, D, C, n_splits, rows_per_split) ||
-      rows_per_split % nw::kSupportTile != 0 || q == nullptr || s == nullptr ||
-      labels == nullptr || scale == nullptr || dist < 0 || dist > 2 ||
-      (dist != 0 && s2 == nullptr) || (dist == 2 && (s_lo == nullptr || bf16))) {
+  if (q == nullptr || s == nullptr || labels == nullptr || scale == nullptr || dist < 0 ||
+      dist > 2 || (dist != 0 && s2 == nullptr) || (dist == 2 && (s_lo == nullptr || bf16))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int device = 0;
-  const cudaError_t err = cudaGetDevice(&device);
+  const cudaError_t err = lab::pass_ok(B, S, D, C, n_splits, rows_per_split, qb, nw::kTcStages);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (C > nw::max_forward_classes(device) || !nw::tc_config_ok(qb, C, false, device)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  nw::TcArgs a{};
-  a.q = q;
-  a.s = s;
+  nw::TcArgs a = lab::pass_args(q, s, s2, labels, scale, m_part, l_part, acc_part, B, S, D, C,
+                                rows_per_split);
   a.s_lo = s_lo;
-  a.s2 = static_cast<const float*>(s2);
-  a.labels = static_cast<const int*>(labels);
-  a.scale = static_cast<const float*>(scale);
-  a.l2_mode = 1;
-  a.B = B;
-  a.D = a.ds = D;
-  a.C = C;
-  a.S = S;
-  a.rows_per_split = rows_per_split;
-  a.m_out = static_cast<float*>(m_part);
-  a.l_out = static_cast<float*>(l_part);
-  a.acc_out = static_cast<float*>(acc_part);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   using bf = __nv_bfloat16;
   const bool sp = split != 0;
@@ -409,34 +211,34 @@ int lab_fused_variant(const void* q, const void* s, const void* s_lo, const void
   }
 }
 
-// L3 manual_fused: q (B, D) and s (S, D) in f32 or bf16 (bf16 != 0), D a
-// multiple of 8, both 16-byte aligned; s2 (S,) f32 (1e30 on masked rows);
-// labels (S,) int32, -1 = masked; block_s the rows of a split. m_part,
-// l_part (n_splits, B), acc_part (n_splits, B, C) f32 scratch, n_splits =
-// ceil(S / block_s); out (B, C) f32 log-probs. Launches on `stream`, does
-// not synchronize, returns cudaGetLastError().
+// L3 manual_fused: q (B, D) and s (S, D) in f32 or bf16 (bf16 != 0), any
+// D (rows the TMA cannot address are staged by plain loads); s2 (S,) f32
+// (1e30 on masked rows); labels (S,) int32, -1 = masked; scale (1,) f32
+// (read, unused in l2 mode); n_splits splits of rows_per_split rows (a
+// multiple of 64: the bank's block_s) over query tiles of qb (8, 16 or
+// 32), each scoring group's ring `stages` slices deep (2, 3, 4, 6 or 7;
+// the block must fit the device's shared memory); m_part, l_part
+// (n_splits, B), acc_part (n_splits, B, C) f32 scratch, out (B, C) f32
+// log-probs. Launches on `stream`, does not synchronize, returns
+// cudaGetLastError().
 int lab_manual_fused(const void* q, const void* s, const void* s2, const void* labels,
-                     void* m_part, void* l_part, void* acc_part, void* out, int B, int S, int D,
-                     int C, int bf16, int block_s, void* stream) {
-  const int n_splits = block_s > 0 ? (S + block_s - 1) / block_s : 0;
-  if (B <= 0 || S <= 0 || D <= 0 || D % 8 != 0 || C <= 0 || block_s <= 0 || s2 == nullptr ||
-      reinterpret_cast<uintptr_t>(q) % 16 != 0 || reinterpret_cast<uintptr_t>(s) % 16 != 0 ||
-      n_splits > 48 * 1024 / static_cast<int>(sizeof(float))) {
+                     const void* scale, void* m_part, void* l_part, void* acc_part, void* out,
+                     int B, int S, int D, int C, int bf16, int n_splits, int rows_per_split,
+                     int qb, int stages, void* stream) {
+  bool known = false;
+  for (const int k : lab::kManualStages) known = known || k == stages;
+  if (!known || q == nullptr || s == nullptr || s2 == nullptr || labels == nullptr ||
+      scale == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  const cudaError_t err = lab::pass_ok(B, S, D, C, n_splits, rows_per_split, qb, stages);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (lab::pipe_smem_bytes(C, D, bf16 ? 2 : 4) >
-      static_cast<size_t>(lab::optin_smem(device))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const nw::TcArgs a = lab::pass_args(q, s, s2, labels, scale, m_part, l_part, acc_part, B, S, D,
+                                      C, rows_per_split);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = bf16 ? lab::launch_manual<__nv_bfloat16>(st, q, s, s2, labels, B, S, D, C, block_s,
-                                                 m_part, l_part, acc_part, out)
-             : lab::launch_manual<float>(st, q, s, s2, labels, B, S, D, C, block_s, m_part,
-                                         l_part, acc_part, out);
-  return static_cast<int>(err);
+  return static_cast<int>(
+      bf16 ? lab::manual_forward<__nv_bfloat16>(st, stages, qb, a, n_splits, out)
+           : lab::manual_forward<float>(st, stages, qb, a, n_splits, out));
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 // Device code shared by the fused Nadaraya-Watson kernels (nw_prepared.cu,
-// nw_fused.cu, lab_nw.cu): tile shapes, the FFMA helpers of the labs'
-// kernels, and the exact merge of a forward's support splits.
+// nw_fused.cu, lab_nw.cu): tile shapes, small helpers, and the exact merge
+// of a forward's support splits.
 //
 // A forward pass computes, for each query b, over the support rows j:
 //   l2 mode:  score = -sqrt(max(|q|^2 - 2 q.s_j + s2_j, 0))
@@ -15,17 +15,16 @@
 // q and s share one dtype (f32 or bf16); products accumulate in f32 and the
 // softmax state is f32. Every forward's pass 1 is the tensor-core kernel
 // of nw_pass1.cuh (K1 over raw rows, K2/K4/K5/K6 over prepared banks, the
-// lab's L1 fused_variant);
+// labs' L1 fused_variant and L3 manual_fused);
 // its splits merge here (nw_merge_kernel). Over raw rows a query that is
 // also a support row (common in training episodes) gets a distance of
 // exactly 0, not the square root of rounding residue (about 1e-2 at
 // ResNet-18's feature norms, which moved every log-prob of that query by
 // as much): K1 and both passes of K3 take |q|^2 and s2_j by q.s's own
-// products on the tensor cores (nw_tc.cuh's raw_slice). The FFMA score
-// tile that K3's ds pass kept until it moved to that route is gone; the
-// lab's L3 manual_fused (lab_nw.cu) keeps its own, on the helpers below.
-// The class cap of every forward entry point comes from this file's tile
-// layout (max_forward_classes).
+// products on the tensor cores (nw_tc.cuh's raw_slice). No kernel keeps an
+// FFMA score tile any more (K3's ds moved to that route, L3 manual_fused
+// to the pass); the class cap of every forward entry point still comes
+// from that tile's layout (max_forward_classes).
 
 #pragma once
 
@@ -41,18 +40,11 @@ constexpr int kQueryTile = 16;                 // queries per score tile
 constexpr int kSupportTile = 64;               // support rows per score tile
 constexpr int kFeatChunk = 32;                 // features per shared-memory chunk
 constexpr int kChunkStride = kFeatChunk + 4;   // padded row stride in floats
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kThreadsPerQuery = kThreads / kQueryTile;           // 16
-constexpr int kRowsPerThread = kSupportTile / kThreadsPerQuery;   // 4
 constexpr int kMergeThreads = 128;
 constexpr float kNeg = -FLT_MAX;  // jnp.finfo(float32).min, the JAX kernels' "-inf"
 constexpr float kLogFloor = 1e-12f;
 
 static_assert(kSupportTile == 64, "the softmax step gives each lane two columns");
-static_assert((kQueryTile * kFeatChunk) % kThreads == 0, "query chunk load");
-static_assert((kSupportTile * kFeatChunk) % kThreads == 0, "support chunk load");
-static_assert(kChunkStride % 4 == 0, "float4 reads need 16-byte aligned rows");
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -71,51 +63,11 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Shared memory of one score tile's staging buffers, in floats.
+// Shared memory of one FFMA score tile's staging buffers, in floats (the
+// measure of max_forward_classes below).
 constexpr int kTileSmemFloats = kQueryTile * kChunkStride     // query chunk
                                 + kSupportTile * kChunkStride  // support chunk
                                 + kSupportTile;                // self-norms s2
-
-// |q_b|^2 in f32 for the queries b0 .. b0 + kQueryTile - 1 (0 past B), one
-// warp per query (the labs' kernels, lab_nw.cu, whose s2 comes summed in
-// another order anyway).
-template <typename T>
-__device__ __forceinline__ void query_norms(const T* __restrict__ q, int b0, int B, int D,
-                                            float* __restrict__ q2) {
-  const int lane = threadIdx.x & 31;
-  for (int b = threadIdx.x >> 5; b < kQueryTile; b += kWarps) {
-    float sum = 0.f;
-    if (b0 + b < B) {
-      const T* row = q + static_cast<size_t>(b0 + b) * D;
-      for (int k = lane; k < D; k += 32) {
-        const float v = to_float(row[k]);
-        sum = fmaf(v, v, sum);
-      }
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) q2[b] = sum;
-  }
-}
-
-// A sum of squares of one shared-memory row chunk, accumulated in feature
-// order: the order the labs' FFMA score tiles (lab_nw.cu) accumulate q.s in.
-__device__ __forceinline__ float chunk_norm(const float* __restrict__ row, float acc) {
-  const float4* v = reinterpret_cast<const float4*>(row);
-#pragma unroll
-  for (int k4 = 0; k4 < kFeatChunk / 4; ++k4) {
-    const float4 c = v[k4];
-    acc = fmaf(c.x, c.x, acc);
-    acc = fmaf(c.y, c.y, acc);
-    acc = fmaf(c.z, c.z, acc);
-    acc = fmaf(c.w, c.w, acc);
-  }
-  return acc;
-}
 
 // The l2 distance of a score from its dot product (the expanded form the
 // plain PyTorch versions use, clamped at 0 before the sqrt).

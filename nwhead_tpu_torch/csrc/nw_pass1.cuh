@@ -14,7 +14,7 @@ namespace nw {
 // of the slot-order rows of tile_sel's row blockIdx.x / qtiles_per_row)
 // for the queries blockIdx.x * kQB ..: writes the split's partials (m, l,
 // acc). Two scoring groups of eight warps take the tiles in turn, group
-// (tile mod 2), each with its own ring of kTcStages slices, fed by its own
+// (tile mod 2), each with its own ring of kStages slices, fed by its own
 // producer warp (16 + group, whose lane 0 asks the TMA for each slice once
 // the group has released its stage): each scores its tile's slices on the
 // tensor cores, then runs the tile's softmax and label sum, each warp for
@@ -31,9 +31,11 @@ namespace nw {
 // float) scores an f32 query against a bank split into bf16 hi and lo rows
 // by x3_product (nw_tc.cuh), each slice's 32 features as two 64-byte
 // boxes; kSplitP sums f32(bf16(p)) + f32(bf16(p - bf16(p))) into the
-// classes in place of p_j, while l keeps the unsplit p.
+// classes in place of p_j, while l keeps the unsplit p. kStages, the
+// slices of each group's ring, is kTcStages for every kernel but the lab's
+// L3 manual_fused, which sweeps it (lab_nw.cu).
 template <typename T, int kQB, bool kSel, bool kInt4, bool kRaw = false, bool kX3 = false,
-          bool kSplitP = false>
+          bool kSplitP = false, int kStages = kTcStages>
 __global__ void __launch_bounds__(kTcBlock, 1)
     nw_prepared_tc_kernel(const TcArgs a, const __grid_constant__ TcMaps maps) {
   static_assert(kQB % kTcWarps == 0 && kQB <= kTcMaxQuery, "query tile");
@@ -41,6 +43,7 @@ __global__ void __launch_bounds__(kTcBlock, 1)
   static_assert(kQuant || !kInt4, "an int4 bank takes int8 queries");
   static_assert(!kRaw || (!kQuant && !kSel), "raw rows: f32 or bf16, no tile list");
   static_assert(!kX3 || (std::is_same_v<T, float> && !kRaw && !kSel), "x3: an f32 query");
+  static_assert(kStages >= 2, "a ring of at least two slices");
   using Acc = typename vit::Frag<T>::Acc;  // f32, or exact int32 sums
   using TS = std::conditional_t<kX3, __nv_bfloat16, T>;  // the bank's element
   constexpr int kChunk = kTcRowBytes / static_cast<int>(sizeof(T));  // features a slice
@@ -63,13 +66,13 @@ __global__ void __launch_bounds__(kTcBlock, 1)
   extern __shared__ float4 smem4[];
   char* ring = reinterpret_cast<char*>(
       (reinterpret_cast<uintptr_t>(smem4) + kTcAlign - 1) & ~static_cast<uintptr_t>(kTcAlign - 1));
-  float* q2s = reinterpret_cast<float*>(ring + 2 * kTcStages * kStage);
+  float* q2s = reinterpret_cast<float*>(ring + 2 * kStages * kStage);
   float* m_s = q2s + kTcMaxQuery;  // the queries' running max and sum
   float* l_s = m_s + kTcMaxQuery;
   int* list = reinterpret_cast<int*>(l_s + kTcMaxQuery);
   uint64_t* full = reinterpret_cast<uint64_t*>(list + (kSel ? kTcListCap + 4 : 0));
-  uint64_t* empty = full + 2 * kTcStages;
-  float* sc_all = reinterpret_cast<float*>(empty + 2 * kTcStages);  // 16-byte aligned
+  uint64_t* empty = full + 2 * kStages;
+  float* sc_all = reinterpret_cast<float*>(empty + 2 * kStages);  // 16-byte aligned
   float* acc = sc_all + 2 * kGroupScores;
 
   const int lane = threadIdx.x & 31;
@@ -81,9 +84,9 @@ __global__ void __launch_bounds__(kTcBlock, 1)
   const int ws = warp & 3;   // the warp's 16 rows of the support tile
   const int wh = warp >> 2;  // its m-tile of the queries, or (kSplitK) half of the features
   float* sc = sc_all + group * kGroupScores;  // the group's score tiles
-  char* gring = ring + group * kTcStages * kStage;  // the group's ring
-  uint64_t* gfull = full + group * kTcStages;
-  uint64_t* gempty = empty + group * kTcStages;
+  char* gring = ring + group * kStages * kStage;  // the group's ring
+  uint64_t* gfull = full + group * kStages;
+  uint64_t* gempty = empty + group * kStages;
   const int b0 = blockIdx.x * kQB;
   const int split = blockIdx.y;
   const float scale = kQuant ? 1.f : *a.scale;
@@ -104,7 +107,7 @@ __global__ void __launch_bounds__(kTcBlock, 1)
     l_s[threadIdx.x] = 0.f;
   }
   if (threadIdx.x == 0) {
-    for (int k = 0; k < 2 * kTcStages; ++k) {
+    for (int k = 0; k < 2 * kStages; ++k) {
       mbar_init(full + k, 1);
       mbar_init(empty + k, kTcWarps);
     }
@@ -181,8 +184,8 @@ __global__ void __launch_bounds__(kTcBlock, 1)
     // tile brings its labels and self-norms.
     const auto load = [&](int i, int kc, int q) {
       const int t0 = origin(i), c0 = kc * kChunk, cs = kc * kBankChunk;
-      char* st = gring + (q % kTcStages) * kStage;
-      uint64_t* bar = gfull + q % kTcStages;
+      char* st = gring + (q % kStages) * kStage;
+      uint64_t* bar = gfull + q % kStages;
       const bool last = kc == nK - 1;
       if (tma) {
         if (lane == 0) {
@@ -220,7 +223,7 @@ __global__ void __launch_bounds__(kTcBlock, 1)
     };
 
     const auto compute = [&](int i, int kc, int q) {
-      const char* st = gring + (q % kTcStages) * kStage;
+      const char* st = gring + (q % kStages) * kStage;
       if (kc == 0) {
 #pragma unroll
         for (int j = 0; j < 2; ++j)
@@ -282,7 +285,7 @@ __global__ void __launch_bounds__(kTcBlock, 1)
       if constexpr (kRaw) {
         if (l2) {
           raw_self_store<kQB>(s2d, q2d, ws, wh, first,
-                              reinterpret_cast<float*>(gring + (q % kTcStages) * kStage +
+                              reinterpret_cast<float*>(gring + (q % kStages) * kStage +
                                                        kLabelOff) + kSupportTile,
                               q2s);
         }
@@ -461,21 +464,25 @@ __global__ void __launch_bounds__(kTcBlock, 1)
     };
 
     // Each group's ring: its q-th slice (counted over its tiles and the
-    // block's chunks) goes to stage q mod kTcStages; full completes when the
-    // slice has landed, empty when the group's eight warps are done with it.
-    // The producer runs up to kTcStages slices ahead of its group.
+    // block's chunks) goes to stage q mod kStages, its u-th use, u = q /
+    // kStages: full completes when the slice has landed, empty when the
+    // group's eight warps are done with it, once a use, so use u waits on
+    // phase parity u & 1 of full and the producer on (u - 1) & 1 of empty
+    // (the use before), at any depth. The producer runs up to kStages
+    // slices ahead of its group; each group's ring is its own, so no depth
+    // ties one group's producer to the other group's softmax turn.
     int q = used;
     for (int i = (tiles + group) % 2; i < n_tiles; i += 2) {
       for (int kc = 0; kc < nK; ++kc, ++q) {
-        const int u = q / kTcStages;
+        const int u = q / kStages;
         if (producer) {
-          if (u > 0) mbar_wait(gempty + q % kTcStages, (u - 1) & 1);
+          if (u > 0) mbar_wait(gempty + q % kStages, (u - 1) & 1);
           load(i, kc, q);
         } else {
-          mbar_wait(gfull + q % kTcStages, u & 1);
+          mbar_wait(gfull + q % kStages, u & 1);
           compute(i, kc, q);
           __syncwarp();
-          if (lane == 0) mbar_arrive(gempty + q % kTcStages);
+          if (lane == 0) mbar_arrive(gempty + q % kStages);
         }
       }
     }
@@ -506,10 +513,10 @@ __global__ void __launch_bounds__(kTcBlock, 1)
 }
 
 template <typename T, int kQB, bool kSel, bool kInt4, bool kRaw, bool kX3 = false,
-          bool kSplitP = false>
+          bool kSplitP = false, int kStages = kTcStages>
 cudaError_t launch_tc_pass1(cudaStream_t stream, const TcArgs& a, int bank_rows, int n_splits) {
-  const size_t smem = tc_smem_bytes(kQB, a.C, kSel);
-  const auto kernel = nw_prepared_tc_kernel<T, kQB, kSel, kInt4, kRaw, kX3, kSplitP>;
+  const size_t smem = tc_smem_bytes(kQB, a.C, kSel, kStages);
+  const auto kernel = nw_prepared_tc_kernel<T, kQB, kSel, kInt4, kRaw, kX3, kSplitP, kStages>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -549,20 +556,23 @@ cudaError_t launch_tc_pass1(cudaStream_t stream, const TcArgs& a, int bank_rows,
 
 // Pass 1 (the tensor-core kernel with kQB = qb) then pass 2 on `stream`.
 template <typename T, bool kSel, bool kInt4 = false, bool kRaw = false, bool kX3 = false,
-          bool kSplitP = false>
+          bool kSplitP = false, int kStages = kTcStages>
 cudaError_t launch_tc_forward(cudaStream_t stream, int qb, const TcArgs& a, int bank_rows,
                               int n_splits, bool partials, void* out, void* m_final,
                               void* l_final) {
   cudaError_t err = cudaErrorInvalidValue;
   switch (qb) {
     case 8:
-      err = launch_tc_pass1<T, 8, kSel, kInt4, kRaw, kX3, kSplitP>(stream, a, bank_rows, n_splits);
+      err = launch_tc_pass1<T, 8, kSel, kInt4, kRaw, kX3, kSplitP, kStages>(stream, a, bank_rows,
+                                                                       n_splits);
       break;
     case 16:
-      err = launch_tc_pass1<T, 16, kSel, kInt4, kRaw, kX3, kSplitP>(stream, a, bank_rows, n_splits);
+      err = launch_tc_pass1<T, 16, kSel, kInt4, kRaw, kX3, kSplitP, kStages>(stream, a, bank_rows,
+                                                                        n_splits);
       break;
     case 32:
-      err = launch_tc_pass1<T, 32, kSel, kInt4, kRaw, kX3, kSplitP>(stream, a, bank_rows, n_splits);
+      err = launch_tc_pass1<T, 32, kSel, kInt4, kRaw, kX3, kSplitP, kStages>(stream, a, bank_rows,
+                                                                        n_splits);
       break;
     default: break;
   }
@@ -571,15 +581,15 @@ cudaError_t launch_tc_forward(cudaStream_t stream, int qb, const TcArgs& a, int 
                       m_final, l_final);
 }
 
-// Whether the tensor-core pass 1 takes query tiles of qb for C classes on
-// `device`.
-inline bool tc_config_ok(int qb, int C, bool sel, int device) {
+// Whether the tensor-core pass 1 takes query tiles of qb for C classes,
+// with rings of `stages` slices, on `device`.
+inline bool tc_config_ok(int qb, int C, bool sel, int device, int stages = kTcStages) {
   if (qb != 8 && qb != 16 && qb != 32) return false;
   int optin = 0;
   if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
       cudaSuccess) {
     return false;
   }
-  return tc_smem_bytes(qb, C, sel) <= static_cast<size_t>(optin);
+  return tc_smem_bytes(qb, C, sel, stages) <= static_cast<size_t>(optin);
 }
 }  // namespace nw

@@ -24,7 +24,7 @@ namespace nw {
 constexpr int kTcThreads = 256;                   // a scoring group's threads
 constexpr int kTcWarps = kTcThreads / 32;
 constexpr int kTcBlock = 2 * kTcThreads + 64;     // two scoring groups and their producers
-constexpr int kTcStages = 3;                      // slices in each scoring group's ring
+constexpr int kTcStages = 3;                      // slices in each group's ring, by default
 constexpr int kTcRowBytes = 128;                  // a staged row: 128 bytes of features
 constexpr int kTcAlign = 1024;                    // the 128-byte swizzle's period
 constexpr int kTcScoreStride = kSupportTile + 4;  // floats a row of the score tile
@@ -51,14 +51,14 @@ __host__ __device__ constexpr int tc_stage_bytes(int qb) {
 // then, as a tile of 16 queries leaves no second m-tile to give them).
 __host__ __device__ constexpr int tc_score_bufs(int qb) { return qb <= 16 ? 2 : 1; }
 
-// Dynamic shared memory of one block: the alignment slack, the two
-// groups' rings, each group's score tiles, |q|^2 and the queries' running
-// (m, l), K6's tile list and its count, the rings' full and empty
-// barriers, acc[qb][C].
-inline size_t tc_smem_bytes(int qb, int C, bool sel) {
-  return kTcAlign + static_cast<size_t>(2 * kTcStages) * tc_stage_bytes(qb) +
+// Dynamic shared memory of one block whose rings hold `stages` slices
+// each: the alignment slack, the two groups' rings, each group's score
+// tiles, |q|^2 and the queries' running (m, l), K6's tile list and its
+// count, the rings' full and empty barriers, acc[qb][C].
+inline size_t tc_smem_bytes(int qb, int C, bool sel, int stages = kTcStages) {
+  return kTcAlign + static_cast<size_t>(2 * stages) * tc_stage_bytes(qb) +
          sizeof(float) * (2 * tc_score_bufs(qb) * qb * kTcScoreStride + 3 * kTcMaxQuery) +
-         (sel ? sizeof(int) * (kTcListCap + 4) : 0) + 32 * kTcStages +
+         (sel ? sizeof(int) * (kTcListCap + 4) : 0) + 32 * static_cast<size_t>(stages) +
          sizeof(float) * static_cast<size_t>(qb) * C;
 }
 
@@ -88,8 +88,8 @@ struct TcMaps {
   CUtensorMap q, s, labels, s2, sscale, s_lo;
 };
 
-// warp_max / warp_sum (nw_common.cuh) of kN values at once: the same
-// butterfly for each, so each gets the same bits, with the trees
+// A warp's max and warp_sum (nw_common.cuh) of kN values at once: the
+// same butterfly for each, so each gets the same bits, with the trees
 // interleaved.
 template <int kN>
 __device__ __forceinline__ void warp_max_n(float (&v)[kN]) {

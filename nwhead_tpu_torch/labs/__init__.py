@@ -11,13 +11,16 @@ cpu`` on request, ``--tiny`` for a small size):
 * ``stream`` (K13 ``bench.py:_stream_case``, L4 and L1 ``stream_reduce``):
   ``stream``, ``stream_reduce`` and ``stream_case`` on ``csrc/lab_stream.cu``;
 * ``kernel_lab`` (L1): ``fused_variant`` on ``csrc/lab_nw.cu``;
-* ``manual_pipe_lab`` (L3): ``manual_fused`` on ``csrc/lab_nw.cu``;
+* ``manual_pipe_lab`` (L3): ``manual_fused`` on ``csrc/lab_nw.cu``, K2's
+  route of the forward's tensor-core pass 1 with the ring depth swept;
 * ``prepared_lab``, ``roofline_lab`` (L4's users): K2 beside the stream;
 * ``block_lab`` (L2): ``fused_blocks`` on ``csrc/lab_blocks.cu``;
 * ``mlp_block_lab``, the port's own: K9, K11 and K11 int8 at ViT-S/14's and
   ViT-B/14's widths, for this checkout or another (``--tree``);
 * ``attn_block_lab``, the port's own: K10 and K10 int8 the same way, with
-  K10 int8's output SHA-256 at every fold and each call's device functions.
+  K10 int8's output SHA-256 at every fold and each call's device functions;
+* ``build_diff``, the port's own: two checkouts' builds compared kernel by
+  kernel, SASS and ``ptxas`` registers and spills.
 
 Nothing here imports jax, the JAX package, ``scripts`` or ``bench.py``;
 nothing is built or launched at import.

@@ -94,7 +94,7 @@ _API = {
     },
     "lab_nw": {
         "lab_fused_variant": ([_VP] * 10 + [_I32] * 10 + [_VP], _I32),
-        "lab_manual_fused": ([_VP] * 8 + [_I32] * 6 + [_VP], _I32),
+        "lab_manual_fused": ([_VP] * 9 + [_I32] * 9 + [_VP], _I32),
         "lab_manual_smem_bytes": ([_I32] * 3, _I32),
         "lab_optin_smem": ([_I32], _I32),
         "lab_nw_error_string": ([_I32], ctypes.c_char_p),

@@ -564,17 +564,22 @@ _TC_LIST_CAP = 512
 H100_SMEM_OPTIN = 232_448  # shared memory a block may opt in to on an H100 (sm_90)
 
 
-def _tc_smem_bytes(qb: int, n_classes: int, sel: bool) -> int:
+def _tc_stage_bytes(qb: int) -> int:
+    """One slice of a ring (``tc_stage_bytes``): query rows, at least 16,
+    and 64 support rows of 128 bytes, the tile's labels and self-norms,
+    padded to 1 KB."""
+    return (max(qb, 16) + _TC_SUPPORT_TILE) * _TC_ROW_BYTES + _TC_ALIGN
+
+
+def _tc_smem_bytes(qb: int, n_classes: int, sel: bool, stages: int = _TC_STAGES) -> int:
     """Dynamic shared memory of one tensor-core pass-1 block: alignment
-    slack; a ring of slices for each of its two scoring groups (query rows,
-    at least 16, and 64 support rows of 128 bytes, the tile's labels and
-    self-norms, padded to 1 KB); each group's score tile (two at ``qb <=
-    16``); ``|q|^2`` and the running ``(m, l)``; K6's tile list; the rings'
-    full and empty barriers; ``acc[qb][C]``."""
-    stage = (max(qb, 16) + _TC_SUPPORT_TILE) * _TC_ROW_BYTES + _TC_ALIGN
+    slack; a ring of ``stages`` slices for each of its two scoring groups;
+    each group's score tile (two at ``qb <= 16``); ``|q|^2`` and the
+    running ``(m, l)``; K6's tile list; the rings' full and empty barriers;
+    ``acc[qb][C]``."""
     scores = 2 * (2 if qb <= 16 else 1) * qb * (_TC_SUPPORT_TILE + 4)
-    return (_TC_ALIGN + 2 * _TC_STAGES * stage + 4 * (scores + 3 * 32)
-            + (4 * (_TC_LIST_CAP + 4) if sel else 0) + 32 * _TC_STAGES + 4 * qb * n_classes)
+    return (_TC_ALIGN + 2 * stages * _tc_stage_bytes(qb) + 4 * (scores + 3 * 32)
+            + (4 * (_TC_LIST_CAP + 4) if sel else 0) + 32 * stages + 4 * qb * n_classes)
 
 
 def _tc_query_tile(queries: int, n_classes: int, sel: bool, smem_optin: int) -> int:

@@ -318,6 +318,138 @@ def test_manual_fused_refuses_untiled_banks_and_cpu_launches():
         manual_pipe_lab.manual_fused_cuda(torch.from_numpy(q), prep, C)
 
 
+# manual_fused runs K2's route of the tensor-core pass 1 over one block_s
+# tile a split, with the rings' depth as its variable: its launch plan and
+# shared memory are pure functions of the shapes.
+
+
+@pytest.mark.parametrize("S,block_s,n_splits", [
+    (1500, 512, 3), (1500, 1024, 2), (1500, 2048, 1),
+    (5994, 512, 12), (5994, 1024, 6), (5994, 2048, 3)])
+def test_manual_plan_splits_whole_tiles(S, block_s, n_splits):
+    """One split a prepared ``block_s`` tile, ``ceil(S_pad / block_s)``
+    of them, each whole 64-row tiles (``prepare_support`` rounds
+    ``block_s`` to 128 and cuts it to the padded bank); the query tiles
+    are the pass's own: 2 of 32 at B=64 (12 blocks at block_s 1,024), 1 of
+    8 at B=8."""
+    rng = np.random.default_rng(4)
+    prep = prepare_support(torch.from_numpy(rng.standard_normal((S, 8)).astype(np.float32)),
+                           rng.integers(0, 200, size=S).astype(np.int32), 200, block_s=block_s)
+    S_pad = prep.s.shape[0]
+    for B, qb in ((64, 32), (8, 8)):
+        got = manual_pipe_lab.manual_plan(B, S_pad, prep.block_s, 200, 3)
+        assert got[:3] == (qb, prep.block_s, n_splits)
+        assert n_splits == -(-S_pad // prep.block_s) and prep.block_s % 64 == 0
+        assert S_pad == n_splits * prep.block_s
+    # Any split length is rounded up to whole tiles; K2's own at B=64 is 128.
+    assert manual_pipe_lab.manual_plan(64, 6144, 100, 200, 3)[1:3] == (128, 48)
+    assert manual_pipe_lab.manual_plan(64, 6144, 128, 200, 3)[1:3] == F._tc_splits(6144, 2, 132)
+
+
+@pytest.mark.parametrize("B,C", [(64, 200), (16, 200), (8, 200), (5, 9), (64, 1000)])
+def test_manual_plan_smem_matches_tc_smem_bytes(B, C):
+    """At 3 stages the block is K2's (``_tc_smem_bytes``); each stage more
+    adds one slice to each group's ring and its two barriers. At the CUB
+    shape's 32-query tile and C = 200 the deepest ring, 7 stages, takes
+    231,008 of the 232,448 bytes."""
+    plan = manual_pipe_lab.manual_plan
+    fits = [st for st in manual_pipe_lab.MANUAL_STAGES
+            if F._tc_smem_bytes(F._tc_query_tile(B, C, False, F.H100_SMEM_OPTIN), C, False,
+                                st) <= F.H100_SMEM_OPTIN]
+    qb, _, _, smem3 = plan(B, 6144, 1024, C, 3)
+    assert smem3 == F._tc_smem_bytes(qb, C, False)
+    assert F._tc_stage_bytes(qb) == {32: 13312, 16: 11264, 8: 11264}[qb]
+    for st in fits:
+        assert plan(B, 6144, 1024, C, st)[3] == smem3 + (st - 3) * (2 * F._tc_stage_bytes(qb) + 32)
+    if (B, C) == (64, 200):
+        assert fits == list(manual_pipe_lab.MANUAL_STAGES)
+        assert plan(B, 6144, 1024, C, 7)[3] == 231008
+
+
+def test_manual_plan_refuses_a_ring_that_does_not_fit():
+    plan = manual_pipe_lab.manual_plan
+    for stages in (8, 5, 1, 0):  # not built, and 8 would not fit at qb = 32, C = 200
+        with pytest.raises(ValueError, match="built for"):
+            plan(64, 6144, 1024, 200, stages)
+    assert F._tc_smem_bytes(32, 200, False, 8) > F.H100_SMEM_OPTIN
+    with pytest.raises(ValueError, match="shared memory"):
+        plan(64, 6144, 1024, 300, 7)  # 243,808 bytes
+    assert plan(8, 6144, 1024, 300, 7)[0] == 8  # the 8-query tile's block fits
+    with pytest.raises(ValueError, match="shared memory"):
+        plan(64, 6144, 1024, 200, 7, smem_optin=231007)
+
+
+def test_manual_stages_are_the_library_build():
+    """``MANUAL_STAGES`` names the depths ``csrc/lab_nw.cu`` instantiates,
+    each a case of its ``manual_forward``."""
+    src = open(os.path.join(REPO, "nwhead_tpu_torch", "csrc", "lab_nw.cu")).read()
+    built = src.split("constexpr int kManualStages[] = {")[1].split("}")[0]
+    assert tuple(int(x) for x in built.split(",")) == manual_pipe_lab.MANUAL_STAGES
+    for st in manual_pipe_lab.MANUAL_STAGES:
+        assert f"case {st}: return manual_at<T, {st}>" in src
+
+
+def test_manual_fused_plain_ignores_stages():
+    """On the CPU every depth takes the plain version: the same bits."""
+    q, s, sy, C = _nw_inputs(seed=5, B=6, S=700, D=24, C=9)
+    for precision in ("f32", "bf16"):
+        prep = prepare_support(torch.from_numpy(s), np.maximum(sy, 0), C, precision=precision,
+                               block_s=256)
+        outs = [manual_pipe_lab.manual_fused(torch.from_numpy(q), prep, C, st)
+                for st in manual_pipe_lab.MANUAL_STAGES]
+        assert all(torch.equal(o, outs[0]) for o in outs)
+        torch.testing.assert_close(outs[0], manual_pipe_lab.manual_fused(torch.from_numpy(q), prep,
+                                                                          C), rtol=0, atol=0)
+        with pytest.raises(ValueError, match="built for"):
+            manual_pipe_lab.manual_fused(torch.from_numpy(q), prep, C, 5)
+
+
+# --- build_diff: two checkouts' kernels, SASS and ptxas ----------------------
+
+_SASS = """
+Fatbin elf code:
+================
+arch = sm_90a
+
+	code for sm_90a
+		Function : _Z1kILi3EEvv
+	.headerflags	@"EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   EXIT ;
+		..........
+
+		Function : _Z1gv
+        /*0000*/                   EXIT ;
+"""
+_PTXAS = """ptxas info    : Compiling entry function '_Z1kILi3EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z1kILi3EEvv
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers
+ptxas info    : Compiling entry function '_Z1gv' for 'sm_90a'
+ptxas info    : Function properties for _Z1gv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 12 registers
+"""
+
+
+def test_build_diff_reads_sass_and_ptxas():
+    from nwhead_tpu_torch.labs import build_diff
+
+    sass = build_diff.sass_functions(_SASS)
+    assert sorted(sass) == ["_Z1gv", "_Z1kILi3EEvv"]
+    assert "LDC R1" in sass["_Z1kILi3EEvv"] and "LDC" not in sass["_Z1gv"]
+    assert build_diff.ptxas_report(_PTXAS) == {"_Z1kILi3EEvv": (96, 4, 12), "_Z1gv": (12, 0, 0)}
+
+
+def test_build_diff_compares_renamed_kernels():
+    from nwhead_tpu_torch.labs import build_diff
+
+    parent = {"_Z1kIvv": "a", "_Z1gv": "b", "_Z1hv": "c"}
+    change = build_diff._renamed({"_Z1kILi3EEvv": "a", "_Z1gv": "x", "_Z1nv": "d"},
+                                 [("ILi3EEvv", "Ivv")])
+    assert build_diff.compare(parent, change) == (["_Z1kIvv"], ["_Z1gv"], ["_Z1hv"], ["_Z1nv"])
+
+
 # --- L2 fused_blocks ---------------------------------------------------------
 
 
@@ -592,17 +724,28 @@ def test_cuda_fused_variant_masks_nan_rows(dist, agg):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("stages", manual_pipe_lab.MANUAL_STAGES)
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
-@pytest.mark.parametrize("block_s", [1024, 2048])
-def test_cuda_manual_fused_matches_plain(precision, block_s):
+@pytest.mark.parametrize("block_s", [512, 1024, 2048, "k2"])
+def test_cuda_manual_fused_matches_plain(precision, block_s, stages):
+    """Every ring depth, with split tile counts that are no multiple of it
+    (16 tiles of 16 f32 slices at block_s 1,024; 8 tiles of 3 slices at
+    S = 1,500, D = 72, block_s 512), and ``"k2"``: the 1,024-row bank at
+    K2's own split count (``_tc_splits``), several splits a block_s tile."""
     with _card() as dev:
+        n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
         for B, S, D, C in ((64, 5994, 512, 200), (8, 5994, 512, 200), (5, 1500, 72, 9)):
             q, s, sy, _ = _nw_inputs(B=B, S=S, D=D, C=C)
             prep = prepare_support(torch.from_numpy(s).to(dev), sy, C, precision=precision,
-                                   block_s=block_s)
+                                   block_s=1024 if block_s == "k2" else block_s)
             qc = torch.from_numpy(q).to(dev, prep.s.dtype)
-            got = manual_pipe_lab.manual_fused_cuda(qc, prep, C)
+            rows = None
+            if block_s == "k2":
+                qb = manual_pipe_lab.manual_plan(B, prep.s.shape[0], prep.block_s, C, stages)[0]
+                rows = F._tc_splits(prep.s.shape[0], -(-B // qb), n_sms)[0]
+            got = manual_pipe_lab.manual_fused_cuda(qc, prep, C, stages, block_s=rows)
             want = manual_pipe_lab._manual_fused_plain(qc, prep, C)
+            assert bool(torch.isfinite(got).all())
             torch.testing.assert_close(got, want, rtol=0,
                                        atol=2e-4 if precision == "f32" else 2e-3)
 
