@@ -140,9 +140,10 @@ package beside it. With one, in order:
 14. training phase: ``python -m nwhead_tpu_torch.train --dataset
     synthetic_cub --arch resnet18 --batch_size 8 --n_shot 6 --lr 1e-2
     --num_epochs 1 --num_steps_per_epoch 10 --num_val_steps_per_epoch 10``
-    through the module's functions (eval in the random and full modes, then
-    10 steps on 1,208-image batches). It checks that K1, dq and ds launched
-    once per step and K2 in the full-mode eval, that every loss is finite
+    through the module's functions (eval in the random, full and cluster
+    modes, one centroid a class, then 10 steps on 1,208-image batches). It
+    checks that K1, dq and ds launched once per step and K2 in the
+    full-mode eval, that every loss is finite
     and the weights moved, that the first step's head through the kernels
     equals the plain versions on the same features, and that K2 at the
     eval's batch of 8 equals its plain version. It prints the time of the
@@ -151,6 +152,19 @@ package beside it. With one, in order:
     and 3 steps of the
     canonical ``--n_way 10 --n_shot 1`` recipe, which is too small for the
     fused head and must launch no K1;
+14a. eval CLI phase: two training steps of the same configuration write a
+    checkpoint, then ``python -m nwhead_tpu_torch.eval --dataset
+    synthetic_cub --arch resnet18 --batch_size 8 --modes random full cluster
+    ivf --n_shot_cluster 6 --fit_temperature --influence_queries 8
+    --num_val_steps 10 --ckpt ...`` runs in process (its ``main``, the
+    phase's datasets). It checks each mode's launches (cluster: K1 once a
+    batch on the 1,200-row cluster bank; full: K2; ivf: K6; random: none),
+    one cluster batch against the plain head and one full batch against
+    the plain prepared head (2e-4), the device k-means built again to the
+    same bits and against its CPU run from the same kmeans++ init (1e-4 of
+    max|centroid|), and support influence on the card against the CPU
+    (1e-5); it prints each mode's seconds, acc/nll/ece, T and holdout NLL,
+    and the k-means seconds (C=200, k=6, D=512);
 15. ViT training phase: ``--arch vit_s14`` with the same episode (``--lr
     1e-3``, 10 steps, 3 eval batches) through ``train.setup(...,
     featurizer_kwargs={"attn_impl": "fused", "mlp_impl": "fused"})`` and
@@ -877,6 +891,147 @@ def training_phase(datasets, workdir: str) -> dict:
     if naive["nw_fwd_cuda"] != 0 or not np.isfinite(trainer.step_losses).all():
         raise AssertionError("the n_way 10 recipe launched K1 or lost finiteness")
     del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The evaluation CLI: cluster mode on K1, full mode on K2, ivf on K6.
+# ---------------------------------------------------------------------------
+
+EVAL_ARGV = ["--dataset", "synthetic_cub", "--arch", "resnet18", "--batch_size", "8",
+             "--modes", "random", "full", "cluster", "ivf", "--n_shot_cluster", "6",
+             "--fit_temperature", "--influence_queries", "8", "--num_val_steps", "10"]
+EVAL_BATCHES = 10
+EVAL_CLUSTER_ROWS = 200 * 6  # at least fused_min_support (1,024): the K1 route
+# Which wrapper each mode must launch once a batch (random's 200-row
+# episodes take the naive head).
+EVAL_KERNELS = {"random": None, "full": "nw_prepared_cuda", "cluster": "nw_fwd_cuda",
+                "ivf": "nw_prepared_sel_cuda"}
+KMEANS_REL = 1e-4  # device vs CPU Lloyd from one init, of max|centroid|
+INFLUENCE_TOL = 1e-5  # card vs CPU on the same probabilities and weights
+
+
+def eval_phase(datasets, workdir: str) -> dict:
+    """``python -m nwhead_tpu_torch.eval`` at ResNet-18's full width on the
+    CUB-scale bank, in process (``main`` with the phase's datasets), on a
+    checkpoint that two training steps write: ``--modes random full cluster
+    ivf --n_shot_cluster 6`` (200 x 6 = 1,200 cluster rows: K1),
+    ``--fit_temperature --influence_queries 8``, 10 batches of 8 a mode.
+    Each mode's seconds and launches come from ``evaluate_mode`` wrapped for
+    the call; afterwards one cluster batch is held to the plain head, the
+    device k-means to its CPU run from the same init, and the influences on
+    the card to their CPU run."""
+    from unittest import mock
+
+    import torch
+
+    from nwhead_tpu_torch import eval as eval_cli
+    from nwhead_tpu_torch import train
+    from nwhead_tpu_torch.ops import kmeans as K
+    from nwhead_tpu_torch.ops import nw as nw_ops
+    from nwhead_tpu_torch.ops.influence import support_influence
+    from nwhead_tpu_torch.train.checkpoint import save_checkpoint
+
+    args, trainer, _ = train.setup(TRAIN_ARGV + ["--models_dir", workdir, "--log_interval",
+                                                 "1000"], datasets=datasets)
+    trainer.train_epoch(num_steps=2)
+    ckpt = save_checkpoint(1, trainer.state_dict(), args.ckpt_dir)
+    del trainer
+    torch.cuda.empty_cache()
+
+    modes, seen = {}, {}
+    evaluate = eval_cli.evaluate_mode
+
+    def timed(net, val_ds, mode, batch_size, num_steps):
+        torch.cuda.synchronize()
+        before, t0 = _counts(), time.perf_counter()
+        out = evaluate(net, val_ds, mode, batch_size, num_steps)
+        torch.cuda.synchronize()
+        after = _counts()
+        modes[mode] = {"seconds": time.perf_counter() - t0,
+                       "launches": {n: after[n] - before[n] for n in after
+                                    if after[n] != before[n]}}
+        seen["net"] = net
+        return out
+
+    _counts(reset=True)
+    t0 = time.perf_counter()
+    with mock.patch.object(eval_cli, "evaluate_mode", timed):
+        results = eval_cli.main(EVAL_ARGV + ["--ckpt", ckpt], datasets=datasets)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    net, val_ds = seen["net"], datasets[1]
+    for mode, r in results.items():
+        m = modes[mode]
+        print(f"eval {mode}: {m['seconds']:.2f}s for {EVAL_BATCHES} batches of 8; acc "
+              f"{r['acc']:.3f} nll {r['nll']:.4f} ece {r['ece']:.3f}; T {r['temperature']:.4f}, "
+              f"holdout nll {r['nll_holdout_raw']:.4f} -> {r['nll_holdout_cal']:.4f}; launches "
+              f"{m['launches']}")
+        kernel = EVAL_KERNELS[mode]
+        want = {kernel: EVAL_BATCHES} if kernel else {}
+        if m["launches"] != want:
+            raise AssertionError(f"eval {mode} launched {m['launches']}, not {want}")
+        if r["n"] != 8 * EVAL_BATCHES or not all(np.isfinite(v) for v in r.values()):
+            raise AssertionError(f"eval {mode}: {r}")
+    print(f"eval CLI: {wall:.2f}s in all (checkpoint load, bank, clusters, {len(results)} "
+          f"modes, temperature fits, influence); launches "
+          f"{ {n: c for n, c in launches.items() if c} }")
+
+    # One cluster batch and one full batch against the plain heads.
+    sfeat, sy = net.support_eval.get_support("cluster")
+    x = torch.from_numpy(val_ds.gather(np.arange(8))).to(net.device)
+    with torch.inference_mode():
+        feats = net._featurize_eval(x)
+        got = net.model.head(feats, sfeat, sy)
+        plain = nw_ops.nw_log_probs(feats, sfeat, sy, net.n_classes)
+        full, full_plain = net.predict(x, "full"), plain_head(net, feats)
+    torch.cuda.synchronize()
+    cluster_err = float((got - plain).abs().max())
+    full_err = float((full - full_plain).abs().max())
+    print(f"eval cluster batch: bank {tuple(sfeat.shape)}, K1 vs the plain head max|err| "
+          f"{cluster_err:.3e}; full batch K2 vs plain {full_err:.3e}")
+    if (sfeat.shape[0] != EVAL_CLUSTER_ROWS or not net.model.head.takes_fused(feats, sfeat)
+            or not within(got, plain, **TOL["f32"]) or not within(full, full_plain, **TOL["f32"])):
+        raise AssertionError("the eval CLI's cluster or full batch disagrees with the plain head")
+
+    # The k-means at the cluster bank's size: built again (seconds), then
+    # the device Lloyd against its CPU run from the same init.
+    bank, bank_y = net.support_eval.full_feat, net.support_eval._full_y_np
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again, _ = K.compute_clusters(bank, bank_y, 6)
+    torch.cuda.synchronize()
+    km_s = time.perf_counter() - t0
+    x3, mask, classes = K.pad_by_class(bank, bank_y)
+    init = K.kmeanspp_init(x3, mask, 6, torch.Generator().manual_seed(0))
+    on_card = K.batched_kmeans(x3, mask, 6, init=init)
+    on_cpu = K.batched_kmeans(x3.cpu(), mask.cpu(), 6, init=init.cpu())
+    km_err = float((on_card.cpu() - on_cpu).abs().max() / on_cpu.abs().max())
+    print(f"k-means C={len(classes)} k=6 D={bank.shape[1]} over {bank.shape[0]} rows (25 Lloyd "
+          f"steps, kmeans++): {km_s:.3f}s on the card; same bits as the bank's build "
+          f"{torch.equal(again, sfeat)}; card vs CPU from one init max|err| / max|c| "
+          f"{km_err:.3e}")
+    if not torch.equal(again, sfeat) or km_err > KMEANS_REL:
+        raise AssertionError("the device k-means is not repeatable or disagrees with the CPU")
+
+    # Support influence on the card against the CPU, same inputs.
+    y = torch.as_tensor(val_ds.targets[:8]).to(net.device)
+    with torch.inference_mode():
+        probs, weights = net.model.head.probs_and_weights(feats, bank, net.support_eval.full_y)
+        infl = support_influence(probs, y, weights, net.support_eval.full_y)
+    ref = support_influence(probs.cpu(), y.cpu(), weights.cpu(), net.support_eval.full_y.cpu())
+    fin = torch.isfinite(ref)
+    infl_err = float((infl.cpu()[fin] - ref[fin]).abs().max())
+    print(f"influence (8, {bank.shape[0]}): card vs CPU max|err| {infl_err:.3e} over "
+          f"{int(fin.sum())} finite entries ({int((~fin).sum())} not finite on both)")
+    if (not torch.equal(torch.isfinite(infl.cpu()), fin)
+            or infl_err > INFLUENCE_TOL * max(1.0, float(ref[fin].abs().max()))):
+        raise AssertionError("support influence on the card disagrees with the CPU")
+    out = {"modes": modes, "results": results, "launches": launches, "kmeans_s": km_s,
+           "cluster_err": cluster_err, "full_err": full_err}
+    del net, seen
     torch.cuda.empty_cache()
     return out
 
@@ -3387,6 +3542,9 @@ def main() -> int:
         tr = training_phase(datasets, workdir)
         phase_s["ResNet training"] = time.perf_counter() - t0
         t0 = time.perf_counter()
+        ev = eval_phase(datasets, workdir)
+        phase_s["eval CLI"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         vit_tr = vit_training_phase(datasets, workdir)
         phase_s["ViT training"] = time.perf_counter() - t0
     finally:
@@ -3401,9 +3559,11 @@ def main() -> int:
     print(nvidia_smi_line())
     entries = [
         {"name": f"nw_prepared_{p}", "route": "cuda", "source": PREPARED_SOURCE,
-         "replaces": REPLACES["nw_prepared"], "launches": sl[p]["launches"],
+         "replaces": REPLACES["nw_prepared"],
+         "launches": sl[p]["launches"] + (ev["launches"]["nw_prepared_cuda"] if p == "f32" else 0),
          "max_abs_err": max(kern[p]["max_abs_err"], sl[p]["served_err"],
-                            tr["eval_err"] if p == "f32" else 0.0),
+                            tr["eval_err"] if p == "f32" else 0.0,
+                            ev["full_err"] if p == "f32" else 0.0),
          "ms": kern[p]["ms"], "plain_ms": kern[p]["plain_ms"], "bound_ms": kern[p]["bound_ms"],
          "bound_by": kern[p]["bound_by"], "library_ms": None, "splits": kern[p]["splits"],
          "c1000_ms": kern[p]["c1000"]["ms"], "c1000_plain_ms": kern[p]["c1000"]["plain_ms"],
@@ -3414,10 +3574,14 @@ def main() -> int:
         for p in TOL:
             r = raw[k][p]
             err = max(r["max_abs_err"], tr["errs"][k]) if p == "f32" else r["max_abs_err"]
+            launches = tr["launches"][p][f"{k}_cuda"]
+            if k == "nw_fwd" and p == "f32":  # the eval CLI's cluster mode
+                err = max(err, ev["cluster_err"])
+                launches += ev["launches"]["nw_fwd_cuda"]
             entries.append({
                 "name": f"{k}_{p}", "route": "cuda", "source": RAW_KERNELS[k][0],
                 "device_functions": RAW_KERNELS[k][1],
-                "replaces": REPLACES[k], "launches": tr["launches"][p][f"{k}_cuda"],
+                "replaces": REPLACES[k], "launches": launches,
                 "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None})
     entries += vit_entries(vit_kern, vit_served)

@@ -18,6 +18,9 @@ becomes a torchvision-named ``state_dict``.
 * ``block{i}/...`` -> ``blocks.{i}....``; ``cls_token``, ``pos_embed``,
   ``ls1_gamma`` and ``ls2_gamma`` as named.
 
+``jax_to_torch_relation`` converts the JAX ``RelationNetwork``'s convs,
+BatchNorms (with their statistics) and Dense layers.
+
 ``jax_to_torch_nwmodel`` converts a whole ``NWModel`` tree: the featurizer
 (a ResNet with its ``batch_stats``, or a ViT, which has none), the optional
 ``proj`` Dense layer and the head's ``logit_scale``.
@@ -126,6 +129,30 @@ def jax_to_torch_head(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     kernels) as a ``state_dict`` for ``nwhead_tpu_torch.nw.head.NWHead``."""
     return {k: torch.tensor(np.asarray(v, np.float32)) for k, v in params_np.items()
             if k == "logit_scale"}
+
+
+def jax_to_torch_relation(variables_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX ``RelationNetwork``'s flax tree ``{'params', 'batch_stats'}``
+    (``Conv_0``, ``BatchNorm_0``, ``Conv_1``, ``BatchNorm_1``, ``Dense_0``,
+    ``Dense_1``; numpy leaves) -> ``state_dict`` for
+    ``nwhead_tpu_torch.ops.kernels.RelationNetwork``. The first Dense
+    layer's rows are in NHWC order on both sides."""
+    params, stats = variables_np["params"], variables_np.get("batch_stats", {})
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(2):
+        conv = params[f"Conv_{i}"]
+        sd[f"convs.{i}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(np.asarray(conv["kernel"]).transpose(3, 2, 0, 1)))
+        sd[f"convs.{i}.bias"] = torch.from_numpy(np.asarray(conv["bias"]).copy())
+        _norm(sd, f"norms.{i}", params[f"BatchNorm_{i}"])
+        bn = stats.get(f"BatchNorm_{i}", {})
+        for leaf, stat in (("mean", "running_mean"), ("var", "running_var")):
+            if leaf in bn:
+                sd[f"norms.{i}.{stat}"] = torch.from_numpy(np.asarray(bn[leaf]).copy())
+        sd[f"norms.{i}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    _dense(sd, "fc1", params["Dense_0"])
+    _dense(sd, "fc2", params["Dense_1"])
+    return sd
 
 
 def jax_to_torch_nwmodel(variables_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

@@ -5,7 +5,9 @@ Port of ``nwhead_tpu/nw/head.py``. The head is the op from
 and gives the network one place to choose between the naive op, the fused
 raw-feature path (kernels K1/K3, differentiable: the training forward) and
 the fused serving path over a prepared bank (K2, K4 or K5 by the bank's
-precision, ``from_prepared``).
+precision, ``from_prepared``). ``probs_and_weights`` and ``scores`` give the
+naive op's class probabilities with the per-support softmax weights, and
+the raw scores, for support influence and neighbour rankings.
 """
 
 from __future__ import annotations
@@ -84,4 +86,21 @@ class NWHead(nn.Module):
         return nw_fused_from_prepared(
             qfeat, prepared, self.n_classes, kernel=self.kernel_type,
             kernel_params=self.kernel_params(),
+        )
+
+    def probs_and_weights(self, qfeat: torch.Tensor, sfeat: torch.Tensor, sy: torch.Tensor,
+                          support_mask: Optional[torch.Tensor] = None):
+        """``(probs (B, C), softmax weights (B, S))`` by the naive op at f32,
+        as the JAX head gives them (for ``support_influence``)."""
+        return nw_ops.nw_probs_and_weights(
+            qfeat, sfeat, sy, self.n_classes, kernel=self.kernel_type,
+            kernel_params=self.kernel_params(), support_mask=support_mask,
+        )
+
+    def scores(self, qfeat: torch.Tensor, sfeat: torch.Tensor,
+               support_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Raw similarity scores ``(B, 1, S)`` of 2-D queries (the naive op)."""
+        return nw_ops.nw_scores(
+            qfeat, sfeat, kernel=self.kernel_type, kernel_params=self.kernel_params(),
+            support_mask=support_mask,
         )

@@ -5,19 +5,23 @@ optional projection, head) as an ``nn.Module``; its ``forward`` is the
 episodic training forward, query and support in one featurizer batch so
 that BatchNorm sees both and gradients reach the support features.
 ``NWNet`` is the host-side orchestrator: it samples training episodes
-(``support_train``, ``forward``), builds the full-mode support bank
-(``precompute``), prepares it for the fused head when it is large enough
-(f32/bf16: K2; ``head_precision`` int8/int4: K4/K5), and predicts
-(``predict``, ``make_serving_fn``) in the ``random`` and ``full`` modes and
-in mode ``ivf``, over the bank tiles a batch routes to (``ops/ivf.py``, K6;
-``calibrate_ivf`` sets its knobs). ``fuse_featurizer`` swaps the eval and
+(``support_train``, ``forward``), builds the full-mode support bank and
+its per-class k-means cluster bank (``precompute``), prepares the full bank
+for the fused head when it is large enough (f32/bf16: K2; ``head_precision``
+int8/int4: K4/K5), and predicts (``predict``, ``make_serving_fn``) in the
+``random``, ``full`` and ``cluster`` modes (the head over the cluster bank:
+K1 from ``fused_min_support`` rows on) and in mode ``ivf``, over the bank
+tiles a batch routes to (``ops/ivf.py``, K6; ``calibrate_ivf`` sets its
+knobs). ``get_neighbors`` ranks the full bank by score and
+``support_influence`` gives each support item's leave-one-out influence
+(``ops/influence.py``). ``fuse_featurizer`` swaps the eval and
 serving featurizer of a ViT for the bf16 fused-serving graph (K10/K11),
 ``quantize_featurizer`` for the int8 one (K10/K11 int8). With a ``mesh``
 (``parallel/mesh.py``), ``precompute`` splits the bank over the mesh's
 support axis instead (``parallel.ShardedSupportBank``) and modes ``full``
-and ``ivf`` serve from the shards. The cluster, ensemble, knn and hnsw
-modes and incremental bank edits are later slices (ROADMAP.md queue 1,
-items 4, 6 and 9).
+and ``ivf`` serve from the shards. The ensemble, knn and hnsw modes and
+incremental bank edits are later slices (ROADMAP.md queue 1, items 6 and
+9).
 
 Numerics: on a CUDA device ``NWNet`` turns TF32 off for the process
 (``torch.backends.cudnn.allow_tf32`` and
@@ -39,6 +43,7 @@ from torch import nn
 from nwhead_tpu_torch.nw.head import NWHead
 from nwhead_tpu_torch.nw.support import SupportSetEval, SupportSetTrain
 from nwhead_tpu_torch.ops.fused_nw import PreparedSupport, prepare_support
+from nwhead_tpu_torch.ops.influence import support_influence as _influence_op
 from nwhead_tpu_torch.ops.ivf import (
     IVFAutoConfig,
     IVFPrepared,
@@ -106,7 +111,9 @@ class NWNet:
     for the fused head (K2) when ``use_fused`` and it holds at least
     ``fused_min_support`` rows; otherwise full mode runs the head over the
     raw bank features. ``seed`` seeds the episodic samplers (as in the JAX
-    package) and the projection's init. ``ivf_n_probe`` (an int, or
+    package) and the projection's init. ``n_shot_cluster`` centroids per
+    class make the cluster bank, fitted by ``cluster_impl`` (``"device"`` or
+    ``"sklearn"``, ``ops/kmeans.py``). ``ivf_n_probe`` (an int, or
     ``"auto"``: calibrated on the first ``ivf`` batch or by
     ``calibrate_ivf``), ``ivf_n_clusters`` and ``ivf_group_b`` are the knobs
     of mode ``ivf`` (``ops/ivf.py``). ``mesh`` shards the full bank over its
@@ -129,6 +136,8 @@ class NWNet:
         n_shot: int = 1,
         n_shot_random: int = 1,
         n_shot_full: int = 100,
+        n_shot_cluster: int = 1,
+        cluster_impl: str = "device",
         env_array: Optional[Sequence[int]] = None,
         debug_mode: bool = False,
         use_fused: bool = True,
@@ -169,8 +178,8 @@ class NWNet:
                 seed=seed,
             )
             self.support_eval = SupportSetEval(
-                targets, n_classes, n_shot_random, n_shot_full, env_array=env_array,
-                seed=seed,
+                targets, n_classes, n_shot_random, n_shot_full, n_shot_cluster,
+                env_array=env_array, seed=seed, cluster_impl=cluster_impl,
             )
         self._prepared_full: Optional[PreparedSupport] = None
         self._prepared_pos: Optional[np.ndarray] = None  # bank row -> prepared row
@@ -480,9 +489,11 @@ class NWNet:
         """Log-probs for a batch of images, in eval mode. ``random``: the
         head over an episode drawn from the bank; ``full``: the prepared
         bank (K2, K4 or K5) when there is one, else the head over the whole
-        bank; ``ivf``: the IVF-pruned head (K6) over the tiles the batch
-        routes to. Under a mesh both go through the sharded bank (its
-        shards' partials, K1 or K2/K4/K5/K6 ``partials=True``)."""
+        bank; ``cluster``: the head over the cluster bank (K1 when it has at
+        least ``fused_min_support`` rows); ``ivf``: the IVF-pruned head (K6)
+        over the tiles the batch routes to. Under a mesh full and ivf go
+        through the sharded bank (its shards' partials, K1 or K2/K4/K5/K6
+        ``partials=True``)."""
         self.model.eval()
         if mode == "ivf":
             return self._ivf_predict(x)
@@ -493,3 +504,31 @@ class NWNet:
         if mode == "full" and self._prepared_full is not None:
             return self.model.predict_from_prepared(qfeat, self._prepared_full)
         return self.model.head(qfeat, *support)
+
+    # -- explainability --------------------------------------------------------
+
+    @torch.inference_mode()
+    def get_neighbors(self, x) -> np.ndarray:
+        """Full-bank row indices ``(B, S)`` by descending score for each
+        image of ``x``; among equal scores the larger index comes first
+        (the JAX package's stable ascending sort, reversed)."""
+        self.model.eval()
+        qfeat = self._featurize_eval(torch.as_tensor(x).to(self.device))
+        scores = self.model.head.scores(qfeat, self.support_eval.full_feat)[:, 0, :]
+        return torch.argsort(scores, dim=-1, stable=True).flip(-1).cpu().numpy()
+
+    @torch.inference_mode()
+    def support_influence(self, x, y, mode: str = "full") -> np.ndarray:
+        """Leave-one-out influence ``(B, S)`` of each support item of
+        ``mode`` on the images ``x`` with labels ``y``, from the naive
+        head's probabilities and softmax weights."""
+        if mode == "ensemble":
+            raise ValueError(
+                "support_influence is per-support-set; run it per environment (mode='full' "
+                "on a net whose support is one environment) instead of 'ensemble'")
+        self.model.eval()
+        qfeat = self._featurize_eval(torch.as_tensor(x).to(self.device))
+        sfeat, sy = self.support_eval.get_support(mode)
+        probs, weights = self.model.head.probs_and_weights(qfeat, sfeat, sy)
+        y = torch.as_tensor(np.asarray(y), device=self.device)
+        return _influence_op(probs, y, weights, sy).cpu().numpy()

@@ -3,10 +3,11 @@
 Port of ``nwhead_tpu/nw/support.py``: the label buckets, the class-balanced
 ``FullDataset`` bank indices, the environment bookkeeping, the episodic
 sampler, ``SupportSetTrain`` (random and IRM episodes) and
-``SupportSetEval`` with the full bank and the random mode's sampler over
-it. Numpy, as in the JAX package, with the same seeding chain, so the same
-indices come out in the same order. The cluster, ensemble, knn and hnsw
-eval modes are later slices (ROADMAP.md queue 1, items 4 and 6).
+``SupportSetEval`` with the full bank, the random mode's sampler over it
+and the cluster mode's per-class k-means bank (``ops/kmeans.py``). Numpy,
+as in the JAX package, with the same seeding chain, so the same indices
+come out in the same order. The ensemble, knn and hnsw eval modes are a
+later slice (ROADMAP.md queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from nwhead_tpu_torch.ops.kmeans import compute_clusters
 
 
 def get_separated_indices(vals: Sequence[int]) -> List[List[int]]:
@@ -212,9 +215,12 @@ class SupportSetTrain:
 
 class SupportSetEval:
     """Inference-time support artifacts: per-environment balanced bank
-    indices, and once ``build_infer_iters`` ran, the featurized full bank
-    and the random mode's episodic sampler over it (rebuilt from ``seed`` at
-    every ``build_infer_iters``, as the JAX package does)."""
+    indices, and once ``build_infer_iters`` ran, the featurized full bank,
+    the random mode's episodic sampler over it (rebuilt from ``seed`` at
+    every ``build_infer_iters``, as the JAX package does) and the cluster
+    bank: ``n_shot_cluster`` k-means centroids per class of the full bank
+    (``cluster_impl`` ``"device"``, on the bank's device, or ``"sklearn"``,
+    the reference's host fit, bit-identical with the JAX package's)."""
 
     def __init__(
         self,
@@ -222,14 +228,18 @@ class SupportSetEval:
         n_classes: int,
         n_shot_random: int = 1,
         n_shot_full: int = 100,
+        n_shot_cluster: int = 3,
         env_array: Optional[Sequence[int]] = None,
         seed: Optional[int] = None,
+        cluster_impl: str = "device",
     ) -> None:
         self.envs = Environments.build(targets_or_list, env_array)
         self.n_classes = n_classes
         self.n_shot_random = n_shot_random
         self.n_shot_full = n_shot_full
+        self.n_shot_cluster = n_shot_cluster
         self.seed = seed
+        self.cluster_impl = cluster_impl
         self.full_bank_indices: List[np.ndarray] = []
         for e in self.envs.env_ids:
             idx = self.envs.env_indices(e)
@@ -238,18 +248,23 @@ class SupportSetEval:
 
     def build_infer_iters(self, sfeat: torch.Tensor, sy: np.ndarray) -> None:
         """Install the featurized full bank (rows in the order of the
-        concatenated ``full_bank_indices``); ``sfeat`` stays on its device."""
+        concatenated ``full_bank_indices``; ``sfeat`` stays on its device)
+        and build the cluster bank from it (k-means seed 0, as the JAX
+        package). Under a mesh this is the whole bank, before it is
+        sharded."""
         self.full_feat = sfeat
         self._full_y_np = np.asarray(sy)
         self.full_y = torch.as_tensor(self._full_y_np, dtype=torch.int64, device=sfeat.device)
+        self.cluster_feat, self.cluster_y = compute_clusters(
+            sfeat, self._full_y_np, self.n_shot_cluster, impl=self.cluster_impl)
         self.random_sampler = EpisodicSampler(self._full_y_np, self.n_shot_random, seed=self.seed)
 
     def get_support(self, mode: str):
         """Support features and labels for an inference mode."""
-        if mode not in ("random", "full"):
+        if mode not in ("random", "full", "cluster"):
             raise NotImplementedError(
-                f"mode {mode!r} has no support set here: cluster is ROADMAP.md queue 1, "
-                "item 4; knn, hnsw and ensemble item 6; ivf is NWNet.predict(mode='ivf')"
+                f"mode {mode!r} has no support set here: knn, hnsw and ensemble are "
+                "ROADMAP.md queue 1, item 6; ivf is NWNet.predict(mode='ivf')"
             )
         if not hasattr(self, "full_feat"):
             raise AttributeError("Did you run precompute()?")
@@ -257,4 +272,6 @@ class SupportSetEval:
             idx, _ = self.random_sampler.sample()
             idx_t = torch.as_tensor(idx, device=self.full_feat.device)
             return self.full_feat[idx_t], self.full_y[idx_t]
+        if mode == "cluster":
+            return self.cluster_feat, self.cluster_y
         return self.full_feat, self.full_y

@@ -3,10 +3,10 @@
 Port of the root ``train.py`` of the JAX package for the ``nwhead`` method
 on in-memory datasets: build the datasets and the network, then the
 eval-before-train epoch loop, with periodic checkpoints and ``--resume``.
-Weights are random, from ``--seed``. Each epoch evaluates in the random and
-full modes (cluster mode is not ported yet). The CUB-scale episode that
-reaches the fused kernels K1/K3 (every one of the 200 classes, 6 shots:
-1,200 support rows)::
+Weights are random, from ``--seed``. Each epoch evaluates in the random,
+full and cluster modes (one centroid a class, as the JAX CLI). The
+CUB-scale episode that reaches the fused kernels K1/K3 (every one of the
+200 classes, 6 shots: 1,200 support rows)::
 
     python -m nwhead_tpu_torch.train --dataset synthetic_cub --arch resnet18 \\
         --batch_size 8 --n_shot 6 --lr 1e-2

@@ -56,8 +56,7 @@ class Parser(argparse.ArgumentParser):
     def __init__(self):
         super().__init__(
             description="NW head training (PyTorch/CUDA port). Each epoch evaluates "
-                        "first, in the random and full modes (cluster mode is not "
-                        "ported yet), then trains.")
+                        "first, in the random, full and cluster modes, then trains.")
         # I/O
         self.add_argument("--models_dir", default="./", type=str)
         self.add_argument("--data_dir", default="./", type=str)

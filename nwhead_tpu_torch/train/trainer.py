@@ -13,10 +13,11 @@ Port of ``NWTrainer`` from ``nwhead_tpu/train/trainer.py``:
 * an in-memory, transform-free training set lives on the device and a step
   ships only indices; other datasets go through pinned-buffer prefetch;
 * loss and accuracy stay on the device and are read once per epoch;
-* eval per mode over the validation set, its tail batch padded (row 0 on
-  the device path, zero images on the host path, as in the JAX package), ECE over
-  the epoch's concatenated probabilities x100; ``eval_all_modes`` returns
-  full-mode accuracy, the best-checkpoint key.
+* eval per mode (random, full and cluster by default) over the validation
+  set, its tail batch padded (row 0 on the device path, zero images on the
+  host path, as in the JAX package), ECE over the epoch's concatenated
+  probabilities x100; ``eval_all_modes`` returns full-mode accuracy, the
+  best-checkpoint key.
 
 ``freeze_featurizer`` takes the featurizer's parameters out of the
 optimizer and out of autograd: they get no update at all, weight decay
@@ -92,7 +93,7 @@ class NWTrainer:
         gamma: float = 0.1,
         weight_decay: float = 1e-4,
         freeze_featurizer: bool = False,
-        eval_modes: Sequence[str] = ("random", "full"),
+        eval_modes: Sequence[str] = ("random", "full", "cluster"),
         seed: int = 0,
     ) -> None:
         self.net = net
