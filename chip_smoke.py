@@ -155,16 +155,41 @@ package beside it. With one, in order:
 14a. eval CLI phase: two training steps of the same configuration write a
     checkpoint, then ``python -m nwhead_tpu_torch.eval --dataset
     synthetic_cub --arch resnet18 --batch_size 8 --modes random full cluster
-    ivf --n_shot_cluster 6 --fit_temperature --influence_queries 8
-    --num_val_steps 10 --ckpt ...`` runs in process (its ``main``, the
-    phase's datasets). It checks each mode's launches (cluster: K1 once a
-    batch on the 1,200-row cluster bank; full: K2; ivf: K6; random: none),
+    ivf ensemble knn hnsw --n_shot_cluster 6 --fit_temperature
+    --influence_queries 8 --num_val_steps 10 --ckpt ...`` runs in process
+    (its ``main``, the phase's datasets). It checks each mode's launches
+    (cluster: K1 once a batch on the 1,200-row cluster bank; full: K2; ivf:
+    K6; ensemble: K1 once a batch over the one environment's 5,800 rows;
+    random, knn and hnsw: none, their 200- and 80-row supports take the
+    naive head),
     one cluster batch against the plain head and one full batch against
     the plain prepared head (2e-4), the device k-means built again to the
     same bits and against its CPU run from the same kmeans++ init (1e-4 of
     max|centroid|), and support influence on the card against the CPU
     (1e-5); it prints each mode's seconds, acc/nll/ece, T and holdout NLL,
     and the k-means seconds (C=200, k=6, D=512);
+14b. retrieval phase: ResNet-18 (random weights from seed 0) over
+    ``synthetic_cub`` with the training images in three environments
+    (``default_rng(0).integers(0, 3, 5994)``), ``train_type="irm"``,
+    ``n_neighbors=20`` and ``fused_min_support=512`` (the environments'
+    balanced banks hold 600, 600 and 800 rows), precomputed; then for 3
+    batches of 64 validation images: ``predict`` in ensemble (K1 three
+    times a batch over the stacked banks, padding masked), knn and hnsw (K1
+    once a batch over the 1,280-row union), launches counted around each
+    call alone; on the same features the ensemble held to the plain
+    per-environment loop, each union's head to the plain head (2e-4), the
+    knn ids to a CPU stable sort of the card's own distances and, as a set,
+    to an f64 CPU search up to the f32 distances' rounding bound, hnsw's
+    recall@20 against exact (at least 0.8; with ``ef_search`` the bank's
+    rows every row returned within the rounding bound of the exact k-th).
+    On ``make_mesh(1, 4, devices=[cuda:0] * 4)`` a second net with the same
+    featurizer serves ensemble through the sharded environments (K1
+    ``partials=True`` 4 x 3 times a batch), held to the unsharded
+    ensemble, and ``sharded_knn_predict_fn`` over the raw bank is held to
+    the single-device knn (2e-4; to the plain head over its own union
+    where the shards' distances round a near tie the other way). It prints
+    each mode's host seconds a batch, the HNSW build seconds and the knn
+    search ms;
 15. ViT training phase: ``--arch vit_s14`` with the same episode (``--lr
     1e-3``, 10 steps, 3 eval batches) through ``train.setup(...,
     featurizer_kwargs={"attn_impl": "fused", "mlp_impl": "fused"})`` and
@@ -900,14 +925,17 @@ def training_phase(datasets, workdir: str) -> dict:
 # ---------------------------------------------------------------------------
 
 EVAL_ARGV = ["--dataset", "synthetic_cub", "--arch", "resnet18", "--batch_size", "8",
-             "--modes", "random", "full", "cluster", "ivf", "--n_shot_cluster", "6",
+             "--modes", "random", "full", "cluster", "ivf", "ensemble", "knn", "hnsw",
+             "--n_shot_cluster", "6",
              "--fit_temperature", "--influence_queries", "8", "--num_val_steps", "10"]
 EVAL_BATCHES = 10
 EVAL_CLUSTER_ROWS = 200 * 6  # at least fused_min_support (1,024): the K1 route
 # Which wrapper each mode must launch once a batch (random's 200-row
-# episodes take the naive head).
+# episodes and knn's and hnsw's 80-row unions take the naive head; the one
+# environment's ensemble bank, 5,800 rows, takes K1).
 EVAL_KERNELS = {"random": None, "full": "nw_prepared_cuda", "cluster": "nw_fwd_cuda",
-                "ivf": "nw_prepared_sel_cuda"}
+                "ivf": "nw_prepared_sel_cuda", "ensemble": "nw_fwd_cuda", "knn": None,
+                "hnsw": None}
 KMEANS_REL = 1e-4  # device vs CPU Lloyd from one init, of max|centroid|
 INFLUENCE_TOL = 1e-5  # card vs CPU on the same probabilities and weights
 
@@ -921,7 +949,8 @@ def eval_phase(datasets, workdir: str) -> dict:
     Each mode's seconds and launches come from ``evaluate_mode`` wrapped for
     the call; afterwards one cluster batch is held to the plain head, the
     device k-means to its CPU run from the same init, and the influences on
-    the card to their CPU run."""
+    the card to their CPU run. The ensemble, knn and hnsw modes are checked
+    as the others."""
     from unittest import mock
 
     import torch
@@ -1032,6 +1061,223 @@ def eval_phase(datasets, workdir: str) -> dict:
     out = {"modes": modes, "results": results, "launches": launches, "kmeans_s": km_s,
            "cluster_err": cluster_err, "full_err": full_err}
     del net, seen
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The retrieval modes: ensemble on K1 (sharded: K1 partials), knn and hnsw.
+# ---------------------------------------------------------------------------
+
+RETRIEVAL_ENVS = 3
+RETRIEVAL_B = 64
+RETRIEVAL_K = 20
+RETRIEVAL_BATCHES = 3
+# The environments' balanced banks hold 600, 600 and 800 rows (the smallest
+# class of an environment has 3 or 4 images): below the default 1,024, so
+# the phase lowers the fused head's threshold to put them on K1.
+RETRIEVAL_MIN_SUPPORT = 512
+# HNSW recall@20 against exact at the reference's parameters (M=16,
+# ef_construction=100, ef_search=64): on these features of 200 tight
+# classes it reads 0.853, and the JAX package's index returns the same ids
+# on them (PERF.md), so the gate is set to catch a broken graph, not at the
+# 0.9 of JAX's Gaussian test bank. With ef_search the bank's rows the search
+# must reach every true neighbour (the graph is whole): each row it returns
+# within the f32 rounding bound of the exact k-th distance.
+HNSW_RECALL_MIN = 0.8
+F32_EPS = float(np.finfo(np.float32).eps)
+
+
+def _batch_ms(fn, n: int = 10) -> float:
+    """Median of ``n`` calls' CUDA-event times (host queueing included)."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def retrieval_phase(datasets) -> dict:
+    """The ensemble, knn and hnsw modes of ``NWNet.predict`` at ResNet-18's
+    width on ``synthetic_cub`` in three environments, each mode's launches
+    counted around its call alone, then held to its plain version on the
+    same features; the sharded ensemble and knn on four shards of the card.
+    Returns launches, errors and times."""
+    import torch
+
+    from nwhead_tpu_torch.models import load_model
+    from nwhead_tpu_torch.nw.net import NWNet
+    from nwhead_tpu_torch.ops import nw as nw_ops
+    from nwhead_tpu_torch.ops.kernels import pairwise_sqdist
+    from nwhead_tpu_torch.parallel import make_mesh, sharded_knn_predict_fn
+
+    train_ds, val_ds = datasets
+    dev = torch.device("cuda")
+    env = np.random.default_rng(0).integers(0, RETRIEVAL_ENVS, len(train_ds))
+    featurizer = load_model("resnet18", device=dev, generator=torch.Generator().manual_seed(0))
+
+    def build(mesh=None):
+        net = NWNet(featurizer, train_ds.num_classes, support_dataset=train_ds, device=dev,
+                    feat_dim=featurizer.feat_dim, train_type="irm", env_array=env,
+                    n_neighbors=RETRIEVAL_K, fused_min_support=RETRIEVAL_MIN_SUPPORT, mesh=mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.precompute()
+        torch.cuda.synchronize()
+        return net, time.perf_counter() - t0
+
+    net, bank_s = build()
+    se, C, k = net.support_eval, net.n_classes, RETRIEVAL_K
+    sizes = [len(f) for f in se.full_feat_sep]
+    print(f"retrieval: bank {tuple(se.full_feat.shape)} in {RETRIEVAL_ENVS} environments of "
+          f"{sizes} rows, precomputed in {bank_s:.2f}s")
+    if len(sizes) != RETRIEVAL_ENVS or min(sizes) < RETRIEVAL_MIN_SUPPORT:
+        raise AssertionError(f"environment banks {sizes} do not all take K1")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = se.hnsw  # the graph is built at its first use
+    hnsw_build_s = time.perf_counter() - t0
+    print(f"HNSW graph over {len(index)} rows (D={index.dim}, M=16, ef_construction=100) built "
+          f"in {hnsw_build_s:.2f}s on the host")
+    mesh = make_mesh(1, 4, devices=[dev] * 4)
+    mesh_net, mesh_bank_s = build(mesh)
+    bank, labels = se.full_feat, se.full_y
+    knn_sharded = sharded_knn_predict_fn(mesh, bank, labels, torch.ones(len(labels), device=dev),
+                                         C, k)
+
+    want_launches = {"ensemble": {"nw_fwd_cuda": RETRIEVAL_ENVS}, "knn": {"nw_fwd_cuda": 1},
+                     "hnsw": {"nw_fwd_cuda": 1},
+                     "sharded ensemble": {"nw_fwd_partials_cuda": 4 * RETRIEVAL_ENVS}}
+    launches = {m: {} for m in want_launches}
+    seconds = {m: [] for m in want_launches}
+    errs = {m: 0.0 for m in ("ensemble", "knn", "hnsw", "sharded ensemble", "sharded knn")}
+    recalls, exact_ids, worst_tie, swapped, whole = [], 0, 0.0, 0, -np.inf
+    for b in range(RETRIEVAL_BATCHES):
+        x = torch.from_numpy(val_ds.gather(np.arange(b * RETRIEVAL_B,
+                                                     (b + 1) * RETRIEVAL_B))).to(dev)
+        outs = {}
+        for mode, runner in (("ensemble", net), ("knn", net), ("hnsw", net),
+                             ("sharded ensemble", mesh_net)):
+            torch.cuda.synchronize()
+            _counts(reset=True)
+            t0 = time.perf_counter()
+            outs[mode] = runner.predict(x, mode.split()[-1])
+            torch.cuda.synchronize()
+            seconds[mode].append(time.perf_counter() - t0)
+            got = {n: c for n, c in _counts().items() if c}
+            if got != want_launches[mode]:
+                raise AssertionError(f"retrieval {mode} launched {got}, not {want_launches[mode]}")
+            for n, c in got.items():
+                launches[mode][n] = launches[mode].get(n, 0) + c
+            if (tuple(outs[mode].shape) != (RETRIEVAL_B, C)
+                    or not bool(torch.isfinite(outs[mode]).all())):
+                raise AssertionError(f"retrieval {mode}: not finite (B, C) log-probs")
+        with torch.inference_mode():
+            qfeat = net._featurize_eval(x)
+            ens = se.get_support("ensemble")
+            got = net._ensemble_from_feats(qfeat, *ens)
+            plain = torch.log(sum(torch.exp(nw_ops.nw_log_probs(qfeat, f, y, C, support_mask=m))
+                                  for f, y, m in zip(*ens)) / RETRIEVAL_ENVS)
+            errs["ensemble"] = max(errs["ensemble"], float((got - plain).abs().max()))
+            if not within(got, plain, **TOL["f32"]):
+                raise AssertionError("the ensemble through K1 disagrees with the plain loop")
+            sharded = mesh_net._ensemble_sharded(qfeat)
+            errs["sharded ensemble"] = max(errs["sharded ensemble"],
+                                           float((sharded - got).abs().max()))
+            if not within(sharded, got, **TOL["f32"]):
+                raise AssertionError("the sharded ensemble disagrees with the unsharded one")
+            ids = se.knn.indices(qfeat)
+            d2 = pairwise_sqdist(qfeat, bank)
+            if not torch.equal(ids.cpu(), torch.sort(d2.cpu(), dim=1, stable=True)[1][:, :k]):
+                raise AssertionError("the knn ids differ from a CPU stable sort of their distances")
+            # Against the exact (f64) search the f32 expansion |q|^2 - 2 q.s +
+            # |s|^2 may swap rows whose exact distances lie within twice its
+            # rounding bound, gamma_D (|q| + |s|)^2 (D products a dot): a
+            # selected row must be no farther than the exact k-th plus that.
+            q64, b64 = qfeat.cpu().double(), bank.cpu().double()
+            d64 = pairwise_sqdist(q64, b64)
+            ref = torch.sort(d64, dim=1, stable=True)[1][:, :k]
+            exact_ids += int((torch.sort(ids.cpu(), 1)[0] == torch.sort(ref, 1)[0]).all(1).sum())
+            kth = torch.sort(d64, 1)[0][:, k - 1:k]
+            gamma = bank.shape[1] * F32_EPS / (1 - bank.shape[1] * F32_EPS)
+            slack = 2 * gamma * (q64.norm(dim=1, keepdim=True) + b64.norm(dim=1).max()) ** 2
+
+            def beyond(sel):
+                """How far the selected rows' largest exact distance lies past
+                the exact k-th, in units of the rounding bound."""
+                return float(((torch.gather(d64, 1, torch.as_tensor(sel)) - kth) / slack).max())
+
+            excess = beyond(ids.cpu())
+            worst_tie = max(worst_tie, excess)
+            if excess > 1.0:
+                raise AssertionError("the knn search missed a neighbour by more than the f32 "
+                                     f"distances' rounding bound ({excess:.3f} of it)")
+            for mode in ("knn", "hnsw"):
+                sf, sy = se.get_support(mode, x=qfeat)
+                if sf.shape[0] != RETRIEVAL_B * k or not net.model.head.takes_fused(qfeat, sf):
+                    raise AssertionError(f"the {mode} union does not take K1")
+                got_u = net.model.head(qfeat, sf, sy)
+                plain_u = nw_ops.nw_log_probs(qfeat, sf, sy, C)
+                errs[mode] = max(errs[mode], float((got_u - plain_u).abs().max()))
+                if not within(got_u, plain_u, **TOL["f32"]):
+                    raise AssertionError(f"the {mode} union's K1 disagrees with the plain head")
+                if mode == "knn":
+                    # The shards' own distances (the same products at a
+                    # shard's shape) select the sharded union; where cuBLAS
+                    # rounds them otherwise than the whole bank's, a near
+                    # tie may swap, and the sharded knn is held to the
+                    # plain head over its own union instead.
+                    loc = len(labels) // 4
+                    d2_sh = torch.cat([pairwise_sqdist(qfeat, bank[j * loc:(j + 1) * loc])
+                                       for j in range(4)], 1)
+                    ids_sh = torch.sort(d2_sh, dim=1, stable=True)[1][:, :k]
+                    swapped += int((ids_sh != ids).sum())
+                    want_sh = got_u if torch.equal(ids_sh, ids) else nw_ops.nw_log_probs(
+                        qfeat, bank[ids_sh.reshape(-1)], labels[ids_sh.reshape(-1)], C)
+                    sharded_knn = knn_sharded(qfeat)
+                    errs["sharded knn"] = max(errs["sharded knn"],
+                                              float((sharded_knn - want_sh).abs().max()))
+                    if not within(sharded_knn, want_sh, **TOL["f32"]):
+                        raise AssertionError("the sharded knn disagrees with the single-device "
+                                             f"knn ({swapped} ids swapped by the shards)")
+            hnsw_ids = index.knn_query(qfeat)
+            recalls.append(np.mean([len(set(h) & set(e)) / k for h, e in
+                                    zip(hnsw_ids.tolist(), ids.cpu().tolist())]))
+            index.ef_search = len(labels)  # the search visits every row it can reach
+            whole = max(whole, beyond(index.knn_query(qfeat)))
+            index.ef_search = max(64, k)
+    recall = float(np.mean(recalls))
+    with torch.inference_mode():
+        search_ms = _batch_ms(lambda: se.knn.indices(qfeat))
+        hnsw_ms = _batch_ms(lambda: index.knn_query(qfeat))
+    per_batch = {m: float(np.median(v)) for m, v in seconds.items()}
+    print(f"retrieval on {nvidia_smi_line()}: host seconds a batch of 64 (median of 3, "
+          "featurizer included): " + ", ".join(f"{m} {v:.4f}" for m, v in per_batch.items())
+          + f"; launches {launches}")
+    print(f"retrieval checks: max|err| vs plain {errs}; knn ids equal to the f64 CPU search in "
+          f"{exact_ids} of {RETRIEVAL_B * RETRIEVAL_BATCHES} queries (the rest within "
+          f"{worst_tie:.4f} of the f32 rounding bound of the k-th distance); sharded knn "
+          f"union: {swapped} ids differ from the single-device one; "
+          f"hnsw recall@{k} {recall:.4f} (with ef_search {len(labels)} its farthest row "
+          f"{whole:.4f} bounds past the exact k-th); knn search "
+          f"{search_ms:.4f} ms (B=64 over "
+          f"{len(labels)} rows), hnsw search {hnsw_ms:.4f} ms on the host; the mesh net's bank "
+          f"{mesh_bank_s:.2f}s")
+    if recall < HNSW_RECALL_MIN or whole > 1.0:
+        raise AssertionError(f"hnsw recall@{k} {recall:.4f} (< {HNSW_RECALL_MIN}?) or a row "
+                             f"{whole:.4f} bounds past the k-th with ef_search over the bank")
+    out = {"launches": launches, "errs": errs, "seconds": per_batch, "recall": recall,
+           "recall_whole": whole,
+           "hnsw_build_s": hnsw_build_s, "knn_search_ms": search_ms, "hnsw_search_ms": hnsw_ms,
+           "bank_s": bank_s, "sizes": sizes, "exact_ids": exact_ids, "swapped": swapped}
+    del net, mesh_net, index, knn_sharded
     torch.cuda.empty_cache()
     return out
 
@@ -2354,9 +2600,10 @@ def mesh_serving_phase(datasets) -> dict:
     return out
 
 
-def sharded_entries(kern: dict, served: dict, mesh: dict) -> list:
+def sharded_entries(kern: dict, served: dict, mesh: dict, retrieval: dict) -> list:
     """The ``kernels`` JSON entries of K1 ``partials=True`` (launches: the
-    streaming run; times at a streamed chunk's shape), K2/K4/K5
+    streaming run and the retrieval phase's sharded ensemble; times at a
+    streamed chunk's shape), K2/K4/K5
     ``partials=True`` (launches: the sharded bank's full predict and the
     ``--mesh 1,1`` serving runs; times at the CUB shape), K6
     ``partials=True`` (launches: the routed sharded predict; times on one
@@ -2370,8 +2617,11 @@ def sharded_entries(kern: dict, served: dict, mesh: dict) -> list:
         entries.append({"name": f"nw_fwd_partials_{prec}", "source": RAW_KERNELS["nw_fwd"][0],
                         "device_functions": RAW_KERNELS["nw_fwd"][1],
                         "replaces": REPLACES["nw_fwd"],
-                        "launches": stream["launches"] if prec == "f32" else 0,
-                        "max_abs_err": r["max_abs_err"], **{k: r[k] for k in keys}, **common,
+                        "launches": stream["launches"] + retrieval["launches"][
+                            "sharded ensemble"]["nw_fwd_partials_cuda"] if prec == "f32" else 0,
+                        "max_abs_err": max(r["max_abs_err"], retrieval["errs"]["sharded ensemble"]
+                                           if prec == "f32" else 0.0),
+                        **{k: r[k] for k in keys}, **common,
                         "fin_ms": r["fin_ms"], "head_raw_b64_ms": r["head_raw_b64"]["ms"],
                         "head_raw_b64_fin_ms": r["head_raw_b64"]["fin_ms"]})
     for prec, r in kern["nw_prepared_partials"].items():
@@ -3545,6 +3795,9 @@ def main() -> int:
         ev = eval_phase(datasets, workdir)
         phase_s["eval CLI"] = time.perf_counter() - t0
         t0 = time.perf_counter()
+        ret = retrieval_phase(datasets)
+        phase_s["retrieval"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         vit_tr = vit_training_phase(datasets, workdir)
         phase_s["ViT training"] = time.perf_counter() - t0
     finally:
@@ -3575,9 +3828,11 @@ def main() -> int:
             r = raw[k][p]
             err = max(r["max_abs_err"], tr["errs"][k]) if p == "f32" else r["max_abs_err"]
             launches = tr["launches"][p][f"{k}_cuda"]
-            if k == "nw_fwd" and p == "f32":  # the eval CLI's cluster mode
-                err = max(err, ev["cluster_err"])
-                launches += ev["launches"]["nw_fwd_cuda"]
+            if k == "nw_fwd" and p == "f32":  # the eval CLI's cluster and ensemble, retrieval
+                err = max(err, ev["cluster_err"], ret["errs"]["ensemble"], ret["errs"]["knn"],
+                          ret["errs"]["hnsw"])
+                launches += ev["launches"]["nw_fwd_cuda"] + sum(
+                    ret["launches"][m]["nw_fwd_cuda"] for m in ("ensemble", "knn", "hnsw"))
             entries.append({
                 "name": f"{k}_{p}", "route": "cuda", "source": RAW_KERNELS[k][0],
                 "device_functions": RAW_KERNELS[k][1],
@@ -3588,7 +3843,7 @@ def main() -> int:
     entries += vit_train_entries(vit_train_kern, vit_tr)
     entries += quant_entries(quant, vit_int8_kern, vit_int8_served, sl)
     entries += ivf_entries(ivf_kern, ivf_served)
-    entries += sharded_entries(sharded_kern, sharded_served, mesh_served)
+    entries += sharded_entries(sharded_kern, sharded_served, mesh_served, ret)
     entries += lab_entries(lab_kern, labs)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,10 @@
 Port of the root ``eval.py`` of the JAX package: load a checkpoint of the
 training CLI (``--ckpt``, a ``model.NNNN`` file of ``train/checkpoint.py``),
 precompute the support bank, evaluate any of the modes ``random``,
-``full``, ``cluster`` and ``ivf``, print each mode's accuracy, NLL and ECE,
+``full``, ``cluster``, ``ensemble``, ``knn``, ``hnsw`` and ``ivf``
+(``--n_neighbors`` a query in knn and hnsw, whose support is the union of
+the batch's neighbours, the tail batch's zero-image padding rows
+included, as in the JAX CLI), print each mode's accuracy, NLL and ECE,
 and as the last line the results as JSON. ``--fit_temperature`` fits a
 temperature on a seeded random half of each mode's predictions and reports
 the other half's NLL and ECE raw and calibrated; ``--influence_queries N``
@@ -43,7 +46,6 @@ from nwhead_tpu_torch.train.config import FILE_DATASETS
 from nwhead_tpu_torch.train.trainer import _host_eval_batches
 
 MODES = ("random", "full", "cluster", "ensemble", "knn", "hnsw", "ivf")
-UNPORTED_MODES = ("ensemble", "knn", "hnsw")
 
 
 def parse_args(argv=None):
@@ -61,7 +63,8 @@ def parse_args(argv=None):
     p.add_argument("--n_shot_random", type=int, default=1)
     p.add_argument("--n_shot_cluster", type=int, default=1)
     p.add_argument("--n_neighbors", type=int, default=10,
-                   help="knn/hnsw neighbours (those modes are not ported yet)")
+                   help="modes knn and hnsw: neighbours a query; the head's support is the "
+                        "union of the batch's neighbours")
     p.add_argument("--ivf_group_b", type=int, default=None,
                    help="mode ivf: route-sort the batch and give each block of this many "
                         "queries its own tile union (default: one union per batch)")
@@ -112,9 +115,6 @@ def check_ported(args) -> None:
     value the port does not run yet; the featurizer flags are checked by
     ``serve.featurizer_options``."""
     refused = {
-        f"--modes {' '.join(m for m in args.modes if m in UNPORTED_MODES)} (the ensemble, "
-        "knn and hnsw modes; ROADMAP.md queue 1, item 6)":
-            any(m in UNPORTED_MODES for m in args.modes),
         "--bank_cache (the cached feature bank; ROADMAP.md queue 1, item 11)": args.bank_cache,
         "--workers/--decoder (image-file decoding; ROADMAP.md queue 1, item 11)":
             args.workers != 8 or args.decoder != "native",
@@ -133,7 +133,7 @@ def build_net(args, train_ds) -> NWNet:
     """The network on ``--device``: the backbone (random weights from
     ``--seed``, then ``--ckpt``'s), the featurizer fused or quantized as
     asked, and the support bank precomputed (full, cluster; prepared or
-    sharded for the fused head)."""
+    sharded for the fused head; the HNSW graph at the first hnsw batch)."""
     device = torch.device(args.device)
     featurizer = load_model(args.arch, device=device,
                             generator=torch.Generator().manual_seed(args.seed),
@@ -142,7 +142,8 @@ def build_net(args, train_ds) -> NWNet:
         featurizer, train_ds.num_classes, support_dataset=train_ds, device=device,
         feat_dim=featurizer.feat_dim, proj_dim=args.proj_dim, kernel_type=args.kernel_type,
         n_shot_full=args.n_shot_full, n_shot_random=args.n_shot_random,
-        n_shot_cluster=args.n_shot_cluster, head_precision=args.head_precision,
+        n_shot_cluster=args.n_shot_cluster, n_neighbors=args.n_neighbors,
+        head_precision=args.head_precision,
         ivf_n_probe=args.ivf_n_probe, ivf_group_b=args.ivf_group_b, seed=args.seed,
         mesh=build_mesh(args, device),
     )

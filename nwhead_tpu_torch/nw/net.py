@@ -14,14 +14,19 @@ K1 from ``fused_min_support`` rows on) and in mode ``ivf``, over the bank
 tiles a batch routes to (``ops/ivf.py``, K6; ``calibrate_ivf`` sets its
 knobs). ``get_neighbors`` ranks the full bank by score and
 ``support_influence`` gives each support item's leave-one-out influence
-(``ops/influence.py``). ``fuse_featurizer`` swaps the eval and
-serving featurizer of a ViT for the bf16 fused-serving graph (K10/K11),
-``quantize_featurizer`` for the int8 one (K10/K11 int8). With a ``mesh``
-(``parallel/mesh.py``), ``precompute`` splits the bank over the mesh's
-support axis instead (``parallel.ShardedSupportBank``) and modes ``full``
-and ``ivf`` serve from the shards. The ensemble, knn and hnsw modes and
-incremental bank edits are later slices (ROADMAP.md queue 1, items 6 and
-9).
+(``ops/influence.py``). Mode ``ensemble`` averages in probability space
+the heads over the environments' banks (each a K1 launch from
+``fused_min_support`` rows, padding rows masked), ``knn`` and ``hnsw``
+run the head over the union of the batch's neighbours, exact
+(``ops/knn.py``) or from the HNSW graph (``native/hnsw.py``).
+``fuse_featurizer`` swaps the eval and serving featurizer of a ViT for the
+bf16 fused-serving graph (K10/K11), ``quantize_featurizer`` for the int8
+one (K10/K11 int8). With a ``mesh`` (``parallel/mesh.py``), ``precompute``
+splits the bank over the mesh's support axis instead
+(``parallel.ShardedSupportBank``) and modes ``full`` and ``ivf`` serve from
+the shards, as do ``ensemble`` (each environment's bank split the same way)
+and, over raw shards, ``knn``. Incremental bank edits are a later slice
+(ROADMAP.md queue 1, item 9).
 
 Numerics: on a CUDA device ``NWNet`` turns TF32 off for the process
 (``torch.backends.cudnn.allow_tf32`` and
@@ -52,7 +57,7 @@ from nwhead_tpu_torch.ops.ivf import (
     prepare_support_ivf,
 )
 from nwhead_tpu_torch.ops.kernels import KERNEL_NAMES
-from nwhead_tpu_torch.parallel import Mesh, ShardedSupportBank
+from nwhead_tpu_torch.parallel import Mesh, ShardedSupportBank, sharded_ensemble_predict_fn
 
 
 class NWModel(nn.Module):
@@ -113,10 +118,12 @@ class NWNet:
     raw bank features. ``seed`` seeds the episodic samplers (as in the JAX
     package) and the projection's init. ``n_shot_cluster`` centroids per
     class make the cluster bank, fitted by ``cluster_impl`` (``"device"`` or
-    ``"sklearn"``, ``ops/kmeans.py``). ``ivf_n_probe`` (an int, or
-    ``"auto"``: calibrated on the first ``ivf`` batch or by
-    ``calibrate_ivf``), ``ivf_n_clusters`` and ``ivf_group_b`` are the knobs
-    of mode ``ivf`` (``ops/ivf.py``). ``mesh`` shards the full bank over its
+    ``"sklearn"``, ``ops/kmeans.py``). ``n_neighbors`` is the knn and hnsw
+    modes' neighbours a query; ``return_mask`` makes ``predict`` return an
+    all-True mask beside the log-probs, as the reference does.
+    ``ivf_n_probe`` (an int, or ``"auto"``: calibrated on the first ``ivf``
+    batch or by ``calibrate_ivf``), ``ivf_n_clusters`` and ``ivf_group_b``
+    are the knobs of mode ``ivf`` (``ops/ivf.py``). ``mesh`` shards the full bank over its
     support axis: no single-device prepared bank is built then, and the
     batch of a full or ivf predict splits over its data axis.
     """
@@ -138,8 +145,10 @@ class NWNet:
         n_shot_full: int = 100,
         n_shot_cluster: int = 1,
         cluster_impl: str = "device",
+        n_neighbors: int = 10,
         env_array: Optional[Sequence[int]] = None,
         debug_mode: bool = False,
+        return_mask: bool = False,
         use_fused: bool = True,
         fused_min_support: int = 1024,
         head_precision: str = "f32",
@@ -159,6 +168,7 @@ class NWNet:
         self.n_classes = n_classes
         self.kernel_type = kernel_type
         self.debug_mode = debug_mode
+        self.return_mask = return_mask
         self.support_dataset = support_dataset
         self.precompute_batch = precompute_batch
         self.ivf_n_probe = ivf_n_probe
@@ -179,7 +189,8 @@ class NWNet:
             )
             self.support_eval = SupportSetEval(
                 targets, n_classes, n_shot_random, n_shot_full, n_shot_cluster,
-                env_array=env_array, seed=seed, cluster_impl=cluster_impl,
+                n_neighbors=n_neighbors, env_array=env_array, seed=seed,
+                cluster_impl=cluster_impl,
             )
         self._prepared_full: Optional[PreparedSupport] = None
         self._prepared_pos: Optional[np.ndarray] = None  # bank row -> prepared row
@@ -189,9 +200,23 @@ class NWNet:
         # The support-sharded bank (with a mesh) and its full-mode predict.
         self.sharded_bank: Optional[ShardedSupportBank] = None
         self._sharded_predict = None
+        # Under a mesh: (the bank it was built over, predict) of knn and
+        # ensemble, built at their first use.
+        self._sharded_knn_cache = None
+        self._sharded_ensemble_cache = None
         # Eval/serving featurizer set by fuse_featurizer or quantize_featurizer
         # (None: the model's).
         self.serving_featurizer: Optional[nn.Module] = None
+
+    def process_support_eval(self, support_dataset, **kwargs) -> None:
+        """Swap in a new eval support dataset (the reference's
+        ``nw.py:107-116``): a new ``SupportSetEval`` over its targets with
+        ``kwargs``; every bank built from the old one is dropped until the
+        next ``precompute``."""
+        self.support_dataset = support_dataset
+        self.support_eval = SupportSetEval(np.asarray(support_dataset.targets),
+                                           self.n_classes, **kwargs)
+        self._drop_serving_banks()
 
     # -- training forward ------------------------------------------------------
 
@@ -270,15 +295,22 @@ class NWNet:
 
     @torch.inference_mode()
     def precompute(self) -> None:
-        """Featurize the full support bank (device-resident, eval mode) and
-        prepare it for the fused head when it is large enough."""
+        """Featurize the full support bank environment by environment
+        (device-resident, eval mode), install it with its environment split
+        (the environments' rows are views of the one bank), and prepare it
+        for the fused head when it is large enough."""
         self.model.eval()
-        feats, ys = [], []
+        feats, ys, metas = [], [], []
         envs = self.support_eval.envs
-        for bank_idx in self.support_eval.full_bank_indices:
+        for e, bank_idx in zip(envs.env_ids, self.support_eval.full_bank_indices):
             feats.append(self._featurize_bank(bank_idx))
             ys.append(envs.targets[bank_idx])
-        self.support_eval.build_infer_iters(torch.cat(feats), np.concatenate(ys))
+            metas.append(np.full(len(bank_idx), e))
+        full = torch.cat(feats)
+        del feats
+        self.support_eval.build_infer_iters(
+            full, np.concatenate(ys), np.concatenate(metas),
+            list(full.split([len(y) for y in ys])), ys, metas)
         self._build_serving_banks()
 
     def _featurize_bank(self, bank_idx: np.ndarray) -> torch.Tensor:
@@ -298,10 +330,11 @@ class NWNet:
 
     def _drop_serving_banks(self) -> None:
         """Forget every bank built from the current features (prepared,
-        IVF, sharded): a featurizer swap or a new ``precompute`` replaces
-        them."""
+        IVF, sharded, the sharded knn and ensemble predicts): a featurizer
+        swap or a new ``precompute`` replaces them."""
         self._prepared_full = self._prepared_pos = self._ivf_cache = None
         self.sharded_bank = self._sharded_predict = None
+        self._sharded_knn_cache = self._sharded_ensemble_cache = None
 
     def _build_serving_banks(self) -> None:
         """Prepare the full bank for the fused head when ``use_fused`` and it
@@ -485,25 +518,95 @@ class NWNet:
         return serve
 
     @torch.inference_mode()
-    def predict(self, x, mode: str = "random") -> torch.Tensor:
-        """Log-probs for a batch of images, in eval mode. ``random``: the
-        head over an episode drawn from the bank; ``full``: the prepared
+    def predict(self, x, mode: str = "random"):
+        """Log-probs for a batch of images, in eval mode, and with
+        ``return_mask`` an all-True mask ``(B,)`` beside them. ``random``:
+        the head over an episode drawn from the bank; ``full``: the prepared
         bank (K2, K4 or K5) when there is one, else the head over the whole
-        bank; ``cluster``: the head over the cluster bank (K1 when it has at
-        least ``fused_min_support`` rows); ``ivf``: the IVF-pruned head (K6)
-        over the tiles the batch routes to. Under a mesh full and ivf go
-        through the sharded bank (its shards' partials, K1 or K2/K4/K5/K6
-        ``partials=True``)."""
+        bank; ``cluster``: the head over the cluster bank; ``ensemble``: the
+        mean in probability space of the heads over each environment's bank;
+        ``knn`` / ``hnsw``: the head over the union of the batch's
+        ``n_neighbors`` nearest bank rows, exact or from the HNSW graph (a
+        row several queries share counts several times); ``ivf``: the
+        IVF-pruned head (K6) over the tiles the batch routes to. The head
+        takes K1 over a support of at least ``fused_min_support`` rows.
+        Under a mesh full and ivf go through the sharded bank (its shards'
+        partials, K1 or K2/K4/K5/K6 ``partials=True``), ensemble through
+        each environment's shards (K1 ``partials=True``), and knn through
+        raw shards when each holds at least ``n_neighbors`` rows (otherwise
+        the exact search over the device's bank). The dispatch order is the
+        JAX package's."""
         self.model.eval()
+        out = self._predict(x, mode)
+        if self.return_mask:
+            return out, np.full((len(x),), True)
+        return out
+
+    def _predict(self, x, mode: str) -> torch.Tensor:
         if mode == "ivf":
             return self._ivf_predict(x)
-        support = self.support_eval.get_support(mode)  # raises for modes not ported
         qfeat = self._featurize_eval(torch.as_tensor(x).to(self.device))
         if mode == "full" and self._sharded_predict is not None:
             return self._sharded_predict(qfeat)
         if mode == "full" and self._prepared_full is not None:
             return self.model.predict_from_prepared(qfeat, self._prepared_full)
+        bank = self.sharded_bank
+        k = self.support_eval.n_neighbors
+        if (mode == "knn" and bank is not None and not bank.prepared and k <= bank.local
+                and k <= len(self.support_eval.full_y)):
+            return self._knn_sharded(qfeat)
+        if mode == "ensemble" and self.mesh is not None:
+            return self._ensemble_sharded(qfeat)
+        support = self.support_eval.get_support(mode, x=qfeat)
+        if mode == "ensemble":
+            return self._ensemble_from_feats(qfeat, *support)
         return self.model.head(qfeat, *support)
+
+    def _ensemble_from_feats(self, qfeat: torch.Tensor, ens_feat: torch.Tensor,
+                             ens_y: torch.Tensor, ens_mask: torch.Tensor) -> torch.Tensor:
+        """The mean in probability space of the heads over the stacked
+        environment banks (``nw.py:143-154``): for each environment in
+        order, the head over its padded bank with its mask (K1 from
+        ``fused_min_support`` rows), then ``log(sum of exp / E)``."""
+        total = None
+        for f, y, m in zip(ens_feat, ens_y, ens_mask):
+            p = torch.exp(self.model.head(qfeat, f, y, m))
+            total = p if total is None else total + p
+        return torch.log(total / ens_feat.shape[0])
+
+    def _knn_sharded(self, qfeat: torch.Tensor) -> torch.Tensor:
+        """The sharded exact k-NN predict over the raw sharded bank, built
+        once per bank."""
+        cached = self._sharded_knn_cache
+        if cached is None or cached[0] is not self.sharded_bank:
+            fn = self.sharded_bank.knn_predict_fn(self.support_eval.n_neighbors,
+                                                  kernel_params=self.model.head.kernel_params())
+            cached = self._sharded_knn_cache = (self.sharded_bank, fn)
+        return cached[1](qfeat)
+
+    def _ensemble_sharded(self, qfeat: torch.Tensor) -> torch.Tensor:
+        """The ensemble over the mesh: each environment's bank padded to a
+        common length, a multiple of the shard count, stacked on the host
+        and split over the support axis (no single device holds the stack),
+        built once per installed bank (``parallel.sharded_ensemble_predict_fn``)."""
+        sep = self.support_eval.full_feat_sep
+        cached = self._sharded_ensemble_cache
+        if cached is None or cached[0] is not sep:
+            n_shards = self.mesh.shape["support"]
+            s_pad = -(-max(len(f) for f in sep) // n_shards) * n_shards
+            D = sep[0].shape[1]
+            ens_feat = torch.zeros((len(sep), s_pad, D), dtype=torch.float32)
+            ens_y = torch.zeros((len(sep), s_pad), dtype=torch.int32)
+            ens_mask = torch.zeros((len(sep), s_pad), dtype=torch.float32)
+            for e, (f, y) in enumerate(zip(sep, self.support_eval.full_y_sep)):
+                ens_feat[e, :len(f)] = f.to("cpu", torch.float32)
+                ens_y[e, :len(y)] = torch.as_tensor(y)
+                ens_mask[e, :len(f)] = 1.0
+            fn = sharded_ensemble_predict_fn(self.mesh, ens_feat, ens_y, ens_mask,
+                                             self.n_classes, kernel=self.kernel_type,
+                                             kernel_params=self.model.head.kernel_params())
+            cached = self._sharded_ensemble_cache = (sep, fn)
+        return cached[1](qfeat)
 
     # -- explainability --------------------------------------------------------
 
@@ -528,7 +631,7 @@ class NWNet:
                 "on a net whose support is one environment) instead of 'ensemble'")
         self.model.eval()
         qfeat = self._featurize_eval(torch.as_tensor(x).to(self.device))
-        sfeat, sy = self.support_eval.get_support(mode)
+        sfeat, sy = self.support_eval.get_support(mode, x=qfeat)
         probs, weights = self.model.head.probs_and_weights(qfeat, sfeat, sy)
         y = torch.as_tensor(np.asarray(y), device=self.device)
         return _influence_op(probs, y, weights, sy).cpu().numpy()

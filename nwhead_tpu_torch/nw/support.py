@@ -3,11 +3,14 @@
 Port of ``nwhead_tpu/nw/support.py``: the label buckets, the class-balanced
 ``FullDataset`` bank indices, the environment bookkeeping, the episodic
 sampler, ``SupportSetTrain`` (random and IRM episodes) and
-``SupportSetEval`` with the full bank, the random mode's sampler over it
-and the cluster mode's per-class k-means bank (``ops/kmeans.py``). Numpy,
-as in the JAX package, with the same seeding chain, so the same indices
-come out in the same order. The ensemble, knn and hnsw eval modes are a
-later slice (ROADMAP.md queue 1, item 6).
+``SupportSetEval`` with the support of every inference mode: the full bank,
+the random mode's sampler over it, the cluster mode's per-class k-means
+bank (``ops/kmeans.py``), the ensemble mode's per-environment banks
+stacked and masked, and the knn and hnsw modes' neighbour unions
+(``ops/knn.py``, ``native/hnsw.py``). Numpy, as in the JAX package, with the
+same seeding chain, so the same indices come out in the same order. The
+incremental bank edits (``extend_bank``, ``remove_bank_items``) are a later
+slice (ROADMAP.md queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 from nwhead_tpu_torch.ops.kmeans import compute_clusters
+from nwhead_tpu_torch.ops.knn import ExactKNN
 
 
 def get_separated_indices(vals: Sequence[int]) -> List[List[int]]:
@@ -215,12 +219,18 @@ class SupportSetTrain:
 
 class SupportSetEval:
     """Inference-time support artifacts: per-environment balanced bank
-    indices, and once ``build_infer_iters`` ran, the featurized full bank,
-    the random mode's episodic sampler over it (rebuilt from ``seed`` at
-    every ``build_infer_iters``, as the JAX package does) and the cluster
-    bank: ``n_shot_cluster`` k-means centroids per class of the full bank
-    (``cluster_impl`` ``"device"``, on the bank's device, or ``"sklearn"``,
-    the reference's host fit, bit-identical with the JAX package's)."""
+    indices, and once ``build_infer_iters`` ran, the featurized full bank
+    with its per-environment parts, and from it the random mode's episodic
+    sampler (rebuilt from ``seed`` at every ``build_infer_iters``, as the JAX
+    package does), the cluster bank (``n_shot_cluster`` k-means centroids per
+    class, ``cluster_impl`` ``"device"``, on the bank's device, or
+    ``"sklearn"``, the reference's host fit, bit-identical with the JAX
+    package's), the ensemble mode's stacked environment banks (built at its
+    first use: they copy the bank), the exact k-NN search and the HNSW index
+    (``n_neighbors`` a query; the graph is built at the first hnsw use, from
+    the installed bank, where the JAX package builds it at every
+    ``build_infer_iters``: a bank that no hnsw call reads, such as every
+    training eval's and serving's, pays nothing for it)."""
 
     def __init__(
         self,
@@ -229,6 +239,7 @@ class SupportSetEval:
         n_shot_random: int = 1,
         n_shot_full: int = 100,
         n_shot_cluster: int = 3,
+        n_neighbors: int = 20,
         env_array: Optional[Sequence[int]] = None,
         seed: Optional[int] = None,
         cluster_impl: str = "device",
@@ -238,6 +249,7 @@ class SupportSetEval:
         self.n_shot_random = n_shot_random
         self.n_shot_full = n_shot_full
         self.n_shot_cluster = n_shot_cluster
+        self.n_neighbors = n_neighbors
         self.seed = seed
         self.cluster_impl = cluster_impl
         self.full_bank_indices: List[np.ndarray] = []
@@ -246,26 +258,79 @@ class SupportSetEval:
             local = balanced_full_indices(self.envs.targets[idx], n_shot_full)
             self.full_bank_indices.append(idx[local])
 
-    def build_infer_iters(self, sfeat: torch.Tensor, sy: np.ndarray) -> None:
+    def build_infer_iters(
+        self,
+        sfeat: torch.Tensor,
+        sy: np.ndarray,
+        smeta: Optional[np.ndarray] = None,
+        sfeat_env: Optional[Sequence[torch.Tensor]] = None,
+        sy_env: Optional[Sequence[np.ndarray]] = None,
+        smeta_env: Optional[Sequence[np.ndarray]] = None,
+    ) -> None:
         """Install the featurized full bank (rows in the order of the
-        concatenated ``full_bank_indices``; ``sfeat`` stays on its device)
-        and build the cluster bank from it (k-means seed 0, as the JAX
-        package). Under a mesh this is the whole bank, before it is
-        sharded."""
+        concatenated ``full_bank_indices``; ``sfeat`` stays on its device),
+        each row's environment ``smeta``, and the same bank split by
+        environment (``sfeat_env``, ``sy_env``, ``smeta_env``; views of
+        ``sfeat`` serve), then build the artifacts that need the whole bank:
+        the cluster bank (k-means seed 0, as the JAX package), the random
+        mode's sampler and the exact k-NN search. Without the environment
+        lists the bank is one environment, id 0. Under a mesh this is the
+        whole bank, before it is sharded."""
+        if sfeat_env is None:
+            smeta = np.zeros(len(sy), np.int64) if smeta is None else smeta
+            sfeat_env, sy_env, smeta_env = [sfeat], [sy], [smeta]
         self.full_feat = sfeat
         self._full_y_np = np.asarray(sy)
         self.full_y = torch.as_tensor(self._full_y_np, dtype=torch.int64, device=sfeat.device)
+        self.full_meta = np.asarray(smeta)
+        self.full_feat_sep = list(sfeat_env)
+        self.full_y_sep = [np.asarray(y) for y in sy_env]
+        self.full_meta_sep = [np.asarray(m) for m in smeta_env]
+        self._ensemble_cache = None
+        self._hnsw = None
         self.cluster_feat, self.cluster_y = compute_clusters(
             sfeat, self._full_y_np, self.n_shot_cluster, impl=self.cluster_impl)
         self.random_sampler = EpisodicSampler(self._full_y_np, self.n_shot_random, seed=self.seed)
+        self.knn = ExactKNN(sfeat, self.full_y, self.n_neighbors)
 
-    def get_support(self, mode: str):
-        """Support features and labels for an inference mode."""
-        if mode not in ("random", "full", "cluster"):
+    @property
+    def hnsw(self):
+        """The HNSW index over the installed bank (``native/hnsw.py``), built
+        at its first use; a build that fails raises."""
+        if not hasattr(self, "full_feat"):
+            raise AttributeError("Did you run precompute()?")
+        if self._hnsw is None:
+            from nwhead_tpu_torch.native.hnsw import HNSWIndex
+
+            self._hnsw = HNSWIndex(self.full_feat, self.full_y, self.n_neighbors)
+        return self._hnsw
+
+    def _ensemble_banks(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The environments' banks padded to the longest and stacked on the
+        bank's device: ``(E, S_max, D)`` features, ``(E, S_max)`` int64
+        labels and ``(E, S_max)`` f32 mask (0 = padding row), built once per
+        installed bank."""
+        if self._ensemble_cache is None:
+            feats = self.full_feat_sep
+            dev, D = self.full_feat.device, self.full_feat.shape[1]
+            s_max = max(len(f) for f in feats)
+            ens_feat = torch.zeros((len(feats), s_max, D), dtype=self.full_feat.dtype, device=dev)
+            ens_y = torch.zeros((len(feats), s_max), dtype=torch.int64, device=dev)
+            ens_mask = torch.zeros((len(feats), s_max), dtype=torch.float32, device=dev)
+            for e, (f, y) in enumerate(zip(feats, self.full_y_sep)):
+                ens_feat[e, :len(f)] = f
+                ens_y[e, :len(y)] = torch.as_tensor(y, device=dev)
+                ens_mask[e, :len(f)] = 1.0
+            self._ensemble_cache = (ens_feat, ens_y, ens_mask)
+        return self._ensemble_cache
+
+    def get_support(self, mode: str, x: Optional[torch.Tensor] = None):
+        """Support features and labels for an inference mode; ``ensemble``
+        gives the stacked banks with their mask, ``knn`` and ``hnsw`` the
+        union of the neighbours of the query features ``x``."""
+        if mode not in ("random", "full", "cluster", "ensemble", "knn", "hnsw"):
             raise NotImplementedError(
-                f"mode {mode!r} has no support set here: knn, hnsw and ensemble are "
-                "ROADMAP.md queue 1, item 6; ivf is NWNet.predict(mode='ivf')"
-            )
+                f"mode {mode!r} has no support set here (ivf is NWNet.predict(mode='ivf'))")
         if not hasattr(self, "full_feat"):
             raise AttributeError("Did you run precompute()?")
         if mode == "random":
@@ -274,4 +339,10 @@ class SupportSetEval:
             return self.full_feat[idx_t], self.full_y[idx_t]
         if mode == "cluster":
             return self.cluster_feat, self.cluster_y
+        if mode == "ensemble":
+            return self._ensemble_banks()
+        if mode == "knn":
+            return self.knn(x)
+        if mode == "hnsw":
+            return self.hnsw(x)
         return self.full_feat, self.full_y

@@ -2,7 +2,8 @@
 ``support`` axis, each shard's online-softmax partials merged exactly.
 
 Port of ``nwhead_tpu/parallel/sharded_bank.py`` (``nw_partials``,
-``merge_partials``, ``ShardedSupportBank``). Each shard computes, over its
+``merge_partials``, ``sharded_ensemble_predict_fn``,
+``sharded_knn_predict_fn``, ``ShardedSupportBank``). Each shard computes, over its
 own rows, the running max ``m``, the normalizer ``l`` and the label sums
 ``acc`` (both relative to ``m``), and the shards combine as
 
@@ -18,12 +19,18 @@ device, the sums in shard order.
 
 On the card a raw shard runs K1 ``partials=True`` (``nw_fused_partials``),
 a prepared one K2/K4/K5 ``partials=True`` and, routed, K6 ``partials=True``
-(``ops/fused_nw.py``); on the CPU they run their plain versions. The TPU's
-widening of the class window across shards (``concat_prepared``) is a
-Mosaic layout matter and has no counterpart. ``remove_rows`` and the row
-map wait for the bank edits (ROADMAP.md queue 1, item 9), the sharded
-ensemble and knn predicts for those modes (item 6), the mesh's AOT export
-for item 13.
+(``ops/fused_nw.py``); on the CPU they run their plain versions. The
+ensemble mode shards each environment's bank the same way and merges each
+environment's partials before the mean in probability space (K1
+``partials=True`` once per shard and environment). The knn mode takes each
+shard's local k nearest, the global k nearest among every shard's
+candidates for the whole batch, then the head over the union with each
+row's multiplicity folded into its score (plain torch, as in the JAX
+package). JAX's ``all_gather`` over the mesh is a concatenation in shard
+order here. The TPU's widening of the class window across shards
+(``concat_prepared``) is a Mosaic layout matter and has no counterpart.
+``remove_rows`` and the row map wait for the bank edits (ROADMAP.md queue
+1, item 9), the mesh's AOT export for item 13.
 """
 
 from __future__ import annotations
@@ -44,7 +51,8 @@ from nwhead_tpu_torch.ops.fused_nw import (
     prepare_support,
 )
 from nwhead_tpu_torch.ops.ivf import IVFPrepared, _tile_centroids, nw_fused_ivf_log_probs
-from nwhead_tpu_torch.ops.kernels import get_kernel
+from nwhead_tpu_torch.ops.kernels import get_kernel, pairwise_sqdist
+from nwhead_tpu_torch.ops.knn import f32_products
 from nwhead_tpu_torch.ops.nw import LOG_FLOOR
 from nwhead_tpu_torch.parallel.mesh import Mesh
 
@@ -95,6 +103,177 @@ def merge_partials(parts: Sequence[Partials]) -> torch.Tensor:
         l_g = l * w if l_g is None else l_g + l * w
         acc_g = acc * w if acc_g is None else acc_g + acc * w
     return torch.log(acc_g / torch.clamp(l_g, min=1e-30) + LOG_FLOOR)
+
+
+# One support shard's raw rows on one device: (features, labels, mask).
+RawShard = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _place(mesh: Mesh, arrays: Sequence[torch.Tensor],
+           axis: int) -> List[Dict[torch.device, RawShard]]:
+    """``arrays`` split into ``n_support`` equal pieces along ``axis`` (its
+    length a multiple of the shard count), piece ``k`` on every distinct
+    device of support column ``k``."""
+    devices = mesh.devices[:, :, 0]
+    n_shards = mesh.shape["support"]
+    size = arrays[0].shape[axis]
+    if size % n_shards:
+        raise ValueError(f"{size} support rows do not split over {n_shards} shards: pad them "
+                         "to a multiple with masked rows")
+    loc = size // n_shards
+    return [{dev: tuple(a.narrow(axis, k * loc, loc).to(dev) for a in arrays)
+             for dev in dict.fromkeys(devices[:, k])} for k in range(n_shards)]
+
+
+def _data_rows(mesh: Mesh, qfeat: torch.Tensor) -> List[torch.Tensor]:
+    """The batch split over the mesh's data rows."""
+    n_data = mesh.shape["data"]
+    B = qfeat.shape[0]
+    if B % n_data:
+        raise ValueError(f"a batch of {B} queries does not split over the mesh's "
+                         f"{n_data} data rows")
+    rows = B // n_data
+    return [qfeat[d * rows:(d + 1) * rows] for d in range(n_data)]
+
+
+def sharded_ensemble_predict_fn(
+    mesh: Mesh,
+    ens_feat: torch.Tensor,
+    ens_y: torch.Tensor,
+    ens_mask: torch.Tensor,
+    n_classes: int,
+    *,
+    kernel: str = "euclidean",
+    kernel_params: Optional[Dict[str, Any]] = None,
+    use_fused: Optional[bool] = None,
+):
+    """Support-sharded ensemble predict: the mean in probability space of
+    the environments' heads (``nw.py:143-154``) over banks split over the
+    mesh's ``support`` axis. ``ens_feat (E, S_pad, D)``, ``ens_y (E,
+    S_pad)`` and ``ens_mask (E, S_pad)`` (0 = padding) are the stacked
+    environment banks, ``S_pad`` a multiple of the shard count; shard ``k``
+    takes rows ``[k * S_pad / n, (k + 1) * S_pad / n)`` of every
+    environment onto the devices of its column. Each data row's queries run
+    ``nw_partials`` (K1 ``partials=True`` on the card) on every shard for
+    each environment in order, merge each environment's partials exactly,
+    and add its probabilities. Returns ``qfeat (B, D) -> (B, C)`` log-probs."""
+    shards = _place(mesh, (ens_feat, ens_y, ens_mask), axis=1)
+    n_envs = ens_feat.shape[0]
+    devices = mesh.devices[:, :, 0]
+
+    @torch.inference_mode()
+    def predict(qfeat: torch.Tensor) -> torch.Tensor:
+        outs = []
+        for d, q in enumerate(_data_rows(mesh, qfeat)):
+            home = devices[d, 0]
+            total = None
+            for e in range(n_envs):
+                parts = []
+                for k, copies in enumerate(shards):
+                    dev = devices[d, k]
+                    f, y, m = copies[dev]
+                    part = nw_partials(q.to(dev), f[e], y[e], m[e], n_classes, kernel=kernel,
+                                       kernel_params=kernel_params, use_fused=use_fused)
+                    parts.append(tuple(t.to(home) for t in part))
+                # Each environment's log-probs carry the 1e-12 floor, as in
+                # the single-device ensemble; the mean is in probability space.
+                p = torch.exp(merge_partials(parts))
+                total = p if total is None else total + p
+            outs.append(torch.log(total / n_envs).to(qfeat.device))
+        return torch.cat(outs)
+
+    return predict
+
+
+def _knn_predict_fn(mesh: Mesh, shards: List[Dict[torch.device, RawShard]], n_classes: int,
+                    n_neighbors: int, kernel: str,
+                    kernel_params: Optional[Dict[str, Any]]):
+    """``sharded_knn_predict_fn`` over shards already placed on the mesh."""
+    kernel_fn, init_params = get_kernel(kernel)
+    kparams = kernel_params if kernel_params is not None else init_params
+    devices = mesh.devices[:, :, 0]
+    k = n_neighbors
+    loc = next(iter(shards[0].values()))[0].shape[0]
+    if not 1 <= k <= loc:
+        raise ValueError(f"n_neighbors={k} must be at least 1 and at most the {loc} rows "
+                         "of a shard")
+
+    @torch.inference_mode()
+    def predict(qfeat: torch.Tensor) -> torch.Tensor:
+        qs = _data_rows(mesh, qfeat)
+        first = devices[0, 0]
+        # Stage 1: each shard's k nearest (L2 whatever the head's kernel, as
+        # the reference's index), ties by the lowest row; then the k nearest
+        # of each query among every shard's candidates, the batch's data
+        # rows gathered in order (the union is over the whole batch).
+        cand_s, cand_i = [], []
+        for d, q in enumerate(qs):
+            for j, copies in enumerate(shards):
+                dev = devices[d, j]
+                f, _, m = copies[dev]
+                with f32_products():
+                    d2 = pairwise_sqdist(q.to(dev, torch.float32), f.to(torch.float32))
+                neg = torch.where(m[None, :] > 0, -d2, float("-inf"))
+                s_, i_ = torch.sort(neg, dim=1, descending=True, stable=True)
+                cand_s.append(s_[:, :k].to(first))
+                cand_i.append((i_[:, :k] + j * loc).to(first))
+        n_s = len(shards)
+        per_q_s = torch.cat([torch.cat(cand_s[d * n_s:(d + 1) * n_s], 1) for d in range(len(qs))])
+        per_q_i = torch.cat([torch.cat(cand_i[d * n_s:(d + 1) * n_s], 1) for d in range(len(qs))])
+        top_s, pos = torch.sort(per_q_s, dim=1, descending=True, stable=True)
+        union = torch.gather(per_q_i, 1, pos[:, :k]).reshape(-1)
+        # A shard with fewer than k valid rows fills its candidates with
+        # masked ones at -inf; where the whole bank is short of k they would
+        # survive the second selection, so they are dropped by score.
+        union_ok = (top_s[:, :k] > float("-inf")).reshape(-1)
+
+        # Stage 2: the head over the union rows, each row's multiplicity c
+        # folded in as + ln c (c exp(s) = exp(s + ln c)), per shard, then
+        # the exact merge.
+        outs = []
+        for d, q in enumerate(qs):
+            home = devices[d, 0]
+            parts = []
+            for j, copies in enumerate(shards):
+                dev = devices[d, j]
+                f, y, _ = copies[dev]
+                rows = union.to(dev) - j * loc
+                valid = (rows >= 0) & (rows < loc) & union_ok.to(dev)
+                counts = torch.zeros(loc, dtype=torch.float32, device=dev).index_add_(
+                    0, rows.clamp(0, loc - 1), valid.to(torch.float32))
+                with f32_products():
+                    scores = kernel_fn(kparams, q.to(dev), f)
+                adj = torch.where(counts[None, :] > 0,
+                                  scores + torch.log(counts.clamp(min=1.0))[None, :], _NEG_INF)
+                part = _softmax_partials_plain(adj, y, n_classes)
+                parts.append(tuple(t.to(home) for t in part))
+            outs.append(merge_partials(parts).to(qfeat.device))
+        return torch.cat(outs)
+
+    return predict
+
+
+def sharded_knn_predict_fn(
+    mesh: Mesh,
+    feat: torch.Tensor,
+    labels: torch.Tensor,
+    mask: torch.Tensor,
+    n_classes: int,
+    n_neighbors: int,
+    *,
+    kernel: str = "euclidean",
+    kernel_params: Optional[Dict[str, Any]] = None,
+):
+    """Support-sharded exact k-NN predict: the reference's knn mode
+    (``nwhead/utils.py:178-193`` and the head's shared 2-D support,
+    ``nw.py:277-289``), its union with duplicates kept. ``feat (S_pad, D)``,
+    ``labels (S_pad,)`` and ``mask (S_pad,)`` split over the ``support``
+    axis as ``ShardedSupportBank`` splits them (``S_pad`` a multiple of the
+    shard count, ``n_neighbors`` at most a shard's rows). No feature row
+    leaves its shard: only the candidates' scores and ids, and the union's
+    ids, move. Returns ``qfeat (B, D) -> (B, C)`` log-probs."""
+    shards = _place(mesh, (feat, labels, mask), axis=0)
+    return _knn_predict_fn(mesh, shards, n_classes, n_neighbors, kernel, kernel_params)
 
 
 # The JAX package's default tile size of a prepared bank (``pallas_nw.py``
@@ -276,18 +455,11 @@ class ShardedSupportBank:
                 raise ValueError("ivf_n_probe needs a routing index — build the sharded "
                                  "bank with ivf=True")
         devices = self.mesh.devices[:, :, 0]
-        n_data = self.mesh.shape["data"]
 
         @torch.inference_mode()
         def predict(qfeat: torch.Tensor) -> torch.Tensor:
-            B = qfeat.shape[0]
-            if B % n_data:
-                raise ValueError(f"a batch of {B} queries does not split over the mesh's "
-                                 f"{n_data} data rows")
-            rows = B // n_data
             outs = []
-            for d in range(n_data):
-                q = qfeat[d * rows:(d + 1) * rows]
+            for d, q in enumerate(_data_rows(self.mesh, qfeat)):
                 home = devices[d, 0]
                 parts = []
                 for k, copies in enumerate(self.shards):
@@ -299,3 +471,14 @@ class ShardedSupportBank:
             return torch.cat(outs)
 
         return predict
+
+    def knn_predict_fn(self, n_neighbors: int, kernel_params: Optional[Dict[str, Any]] = None):
+        """``sharded_knn_predict_fn`` over this bank's raw shards (a prepared
+        bank keeps no raw rows to search)."""
+        if self.prepared:
+            raise ValueError("the sharded knn predict searches raw rows: build the bank "
+                             "with use_prepared=False")
+        shards = [{dev: (s.feat, s.labels, s.mask) for dev, s in copies.items()}
+                  for copies in self.shards]
+        return _knn_predict_fn(self.mesh, shards, self.n_classes, n_neighbors, self.kernel,
+                               kernel_params)

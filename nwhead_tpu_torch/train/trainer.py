@@ -13,7 +13,8 @@ Port of ``NWTrainer`` from ``nwhead_tpu/train/trainer.py``:
 * an in-memory, transform-free training set lives on the device and a step
   ships only indices; other datasets go through pinned-buffer prefetch;
 * loss and accuracy stay on the device and are read once per epoch;
-* eval per mode (random, full and cluster by default) over the validation
+* eval per mode (random, full and cluster by default; any of
+  ``NWNet.predict``'s modes, ensemble, knn and hnsw included) over the validation
   set, its tail batch padded (row 0 on the device path, zero images on the
   host path, as in the JAX package), ECE over the epoch's concatenated
   probabilities x100; ``eval_all_modes`` returns full-mode accuracy, the

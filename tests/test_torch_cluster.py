@@ -166,8 +166,8 @@ def test_support_eval_cluster_bank_matches_jax(monkeypatch, impl):
     np.testing.assert_allclose(got_f.numpy(), np.asarray(want_f), rtol=0,
                                atol=0 if impl == "sklearn" else KM_TOL)
     np.testing.assert_array_equal(got_y.numpy(), np.asarray(want_y))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tse.get_support("knn")
+    with pytest.raises(NotImplementedError, match="ivf"):
+        tse.get_support("ivf")
 
 
 @pytest.mark.parametrize("fused_min_support", [1024, 8])

@@ -28,6 +28,7 @@ MODULES = (
     "nwhead_tpu_torch.models.vit", "nwhead_tpu_torch.models.serving_vit",
     "nwhead_tpu_torch.parallel", "nwhead_tpu_torch.parallel.mesh",
     "nwhead_tpu_torch.parallel.sharded_bank", "nwhead_tpu_torch.nw.streaming",
+    "nwhead_tpu_torch.ops.knn", "nwhead_tpu_torch.native.hnsw",
     "nwhead_tpu_torch.labs", "nwhead_tpu_torch.labs.timing", "nwhead_tpu_torch.labs.stream",
     "nwhead_tpu_torch.labs.kernel_lab", "nwhead_tpu_torch.labs.manual_pipe_lab",
     "nwhead_tpu_torch.labs.prepared_lab", "nwhead_tpu_torch.labs.roofline_lab",

@@ -63,10 +63,10 @@ def test_serving_fn_matches_jax(kernel, precision):
     assert got.shape == (16, 4) and np.isfinite(got).all()
     np.testing.assert_allclose(got, want, atol=2e-3)
     np.testing.assert_array_equal(got.argmax(1), want.argmax(1))
-    # predict('full') is the same prepared path; cluster/ensemble/knn/hnsw are not ported.
+    # predict('full') is the same prepared path; a mode without a support set raises.
     np.testing.assert_allclose(torch.exp(tnet.predict(x, mode="full")).numpy(), got, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tnet.predict(x, mode="knn")
+    with pytest.raises(NotImplementedError, match="no support set"):
+        tnet.predict(x, mode="nearest")
     # normalize=(mean, std) on uint8 pixels == the float path on (x/255 - mean)/std.
     pix = (np.arange(16 * 32 * 32 * 3) % 251).astype(np.uint8).reshape(16, 32, 32, 3)
     mean, std = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
