@@ -230,8 +230,36 @@ package beside it. With one, in order:
     --quick``, ``manual_pipe_lab``, ``prepared_lab``, ``roofline_lab`` and
     ``block_lab`` (their ``main``, in this process), each exiting 0, every
     lab kernel and variant launched;
-18. prints the nvidia-smi line, a JSON line of per-kernel results, and as the
-    last line ``{"ok": true, "device": {...}}``.
+17a. zoo kernel phase: K2 (f32, bf16) and K4 (int8) at the zoo's serving
+    banks (B=64, S=5,800, C=200 at ResNet-50's D=2,048, DenseNet-121's
+    1,024 and DenseNet-161's 2,208, 34.5 bf16 slices of 128 bytes), K1, dq
+    and ds (f32, bf16) at the training episodes (B=8 over 400, 800 and
+    1,200 rows at D=2,048, 1,024 and 2,208) and at B=64 over 1,200 rows at
+    D=2,048 (dq's 16-query tile), all five kernels, masked rows holding
+    NaN, against their plain versions, each shape's plan printed; K2 and
+    K4 timed at ResNet-50's and DenseNet-121's banks, K1, dq and ds at
+    training runs 1 and 2's episodes;
+17b. zoo serving phase: ``python -m nwhead_tpu_torch.serve --dataset
+    synthetic_cub --batch_size 64 --latency_bench`` through the serve
+    module's functions with ``--arch resnet50 --pretrained_path`` (a
+    torchvision-named state dict the phase writes from the port's own
+    ResNet-50, with an ``fc`` the loader ignores) and an f32 and a bf16
+    head, ``--arch resnet50 --bf16`` and ``--arch densenet121
+    --head_precision int8``, every backbone's BatchNorm statistics
+    calibrated on 64 training images first: the served weights equal the
+    file's, one K2 or K4 launch a request, the served log-probs against the
+    plain head; p50, p95, queries/s, the bank's seconds, peak memory;
+17c. zoo training phase: ``train.setup`` and ``NWTrainer``, 3 steps each
+    on ``synthetic_cub`` at 224 px, B=8: ResNet-50 f32 at ``--n_shot 2``
+    (400 rows, the head's ``fused_min_support`` 256), ResNet-50 ``--bf16
+    --head_precision bf16`` at ``--n_shot 4`` (800 rows, 512) and
+    DenseNet-121 with ``memory_efficient=True`` at ``--n_shot 6`` (1,200
+    rows): K1, dq and ds once a step, the first step's head against the
+    plain versions, finite losses, moved weights, the step time (CUDA
+    events from hooks, steps 2-3) and peak memory;
+18. prints the nvidia-smi line, a JSON line of per-kernel results (the
+    zoo phases' launches added to K1-K4, their times as ``d2048_*`` and
+    ``d1024_*``), and as the last line ``{"ok": true, "device": {...}}``.
 
 Kernel times are device times: CUDA events around each call, queued behind
 a spin kernel so that the host's overhead does not count, L2 flushed before
@@ -3678,6 +3706,386 @@ def lab_entries(kern: dict, labs: dict) -> list:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# The featurizer zoo: ResNet-50 and DenseNet-121 served (K2, K4) and trained
+# (K1, K3) at feature widths 2,048 and 1,024.
+# ---------------------------------------------------------------------------
+
+ZOO_KERNEL_CASES = (  # name, B, S, D, C; the first is timed (f32, bf16 and int8)
+    ("r50_b64", 64, 5800, 2048, 200),  # ResNet-50's serving bank
+    ("d121_b64", 64, 5800, 1024, 200),  # DenseNet-121's
+    ("d161_b64", 64, 5800, 2208, 200),  # DenseNet-161's: 34.5 bf16 slices of 128 bytes
+)
+ZOO_RAW_CASES = (  # name, B, S, D, C; the first two are timed (training runs 1 and 2)
+    ("r50_episode", 8, 400, 2048, 200),
+    ("r50_bf16_episode", 8, 800, 2048, 200),
+    ("d121_episode", 8, 1200, 1024, 200),
+    ("d161_episode", 8, 1200, 2208, 200),
+    ("r50_b64", 64, 1200, 2048, 200),  # dq's 16-query tile at D = 2,048
+)
+ZOO_SERVE_ARGV = ["--dataset", "synthetic_cub", "--batch_size", "64", "--latency_bench",
+                  "--bench_batches", "20"]
+ZOO_SERVE_CONFIGS = (  # name, flags, serves the written checkpoint, head precision
+    ("r50_pretrained_f32", ["--arch", "resnet50"], True, "f32"),
+    ("r50_pretrained_bf16_head", ["--arch", "resnet50", "--head_precision", "bf16"], True, "bf16"),
+    ("r50_bf16_backbone", ["--arch", "resnet50", "--bf16"], False, "f32"),
+    ("d121_int8_head", ["--arch", "densenet121", "--head_precision", "int8"], False, "int8"),
+)
+ZOO_CKPT_SEED = 21
+ZOO_TRAIN_ARGV = ["--dataset", "synthetic_cub", "--batch_size", "8", "--lr", "1e-2",
+                  "--num_epochs", "1", "--num_steps_per_epoch", "3",
+                  "--num_val_steps_per_epoch", "1", "--log_interval", "1000"]
+# name, flags, the head's fused_min_support (None: the default 1,024),
+# load_model options, the head's precision. The episode sizes come from
+# activation memory: 400, 800 and 1,200 support rows (ResNet-50 cannot hold
+# the recipe's 1,208-image episode on an 80 GB card; DenseNet-121 holds it
+# only with its dense layers checkpointed).
+ZOO_TRAIN_RUNS = (
+    ("r50_f32", ["--arch", "resnet50", "--n_shot", "2"], 256, {}, "f32"),
+    ("r50_bf16", ["--arch", "resnet50", "--n_shot", "4", "--bf16", "--head_precision", "bf16"],
+     512, {}, "bf16"),
+    ("d121_checkpointed", ["--arch", "densenet121", "--n_shot", "6"], None,
+     {"memory_efficient": True}, "f32"),
+)
+ZOO_TRAIN_STEPS = 3
+
+
+def zoo_kernel_phase(flush) -> dict:
+    """K2 (f32, bf16) and K4 (int8) at the zoo's serving banks, K1 and K3 at
+    its training episodes and at B=64 with D = 2,048, all five kernels,
+    masked rows holding NaN, each against its plain version; K2 called
+    twice for the same bits. Times K2 and K4 at ResNet-50's and
+    DenseNet-121's banks and K1, dq and ds at training runs 1 and 2's
+    episodes, each with its bound. Prints each shape's plan (query tiles,
+    ds clusters)."""
+    import torch
+
+    from nwhead_tpu_torch.ops import fused_nw as F
+    from nwhead_tpu_torch.ops._cuda import load_library
+    from nwhead_tpu_torch.ops.kernels import KERNEL_NAMES
+
+    dev = torch.device("cuda")
+    optin = F._smem_optin(load_library(), dev)
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    res = {"prepared": {p: {"max_abs_err": 0.0, "timed": {}} for p in ("f32", "bf16", "int8")},
+           "raw": {k: {p: {"max_abs_err": 0.0} for p in TOL} for k in RAW_KERNELS}}
+    for ci, (case, B, S, D, C) in enumerate(ZOO_KERNEL_CASES):
+        rng = np.random.default_rng(2100 + ci)
+        q = torch.from_numpy(rng.standard_normal((B, D), np.float32)).to(dev)
+        s = torch.from_numpy(rng.standard_normal((S, D), np.float32)).to(dev)
+        sy = rng.integers(0, C, size=S)
+        valid = rng.random(S) > 0.03
+        valid[0] = True
+        s[torch.from_numpy(~valid).to(dev)] = float("nan")
+        mask = torch.from_numpy(valid.astype(np.float32))
+        print(f"zoo plan {case}: K2 query tile {F._tc_query_tile(B, C, False, optin)}")
+        for kernel in KERNEL_NAMES:
+            params = {"logit_scale": torch.tensor(1.3, device=dev)} if kernel == "clip" else {}
+            for prec, r in res["prepared"].items():
+                prep = F.prepare_support(s, sy, C, kernel=kernel, support_mask=mask,
+                                         precision=prec)
+                args = F._prepared_query(q, prep, kernel, params)
+                args = (args[0], prep, args[1], args[2], C, args[3])
+                wrapper = getattr(F, HEAD_WRAPPERS[prec])
+                got, want = wrapper(*args), F._nw_prepared_plain(*args)
+                same_bits(f"zoo {case} {kernel} {prec}", lambda: wrapper(*args))
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                ok = bool(torch.isfinite(got).all()) and within(got, want, **HEAD_TOL[prec])
+                print(f"zoo kernel {case} D={D} {kernel} {prec}: max|err| {err:.3e} "
+                      f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"kernel disagrees with plain: zoo {case} {kernel} {prec}")
+                r["max_abs_err"] = max(r["max_abs_err"], err)
+                if kernel == "euclidean" and ci < 2:
+                    Dp, item = args[0].shape[1], prep.s.element_size()
+                    t = {"ms": time_ms(lambda: wrapper(*args), flush),
+                         "plain_ms": time_ms(lambda: F._nw_prepared_plain(*args), flush),
+                         # the query, the bank, s2 (and int8's sscale), labels, out
+                         **bound(B * Dp * item + prep.s.numel() * item
+                                 + (12 if prec == "int8" else 8) * S + 4 * B * C,
+                                 2 * B * S * Dp, prec)}
+                    r["timed"][case] = t
+                    print(f"time zoo {case} D={D} {prec}: kernel {t['ms']:.4f} ms, plain "
+                          f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    for ci, (case, B, S, D, C) in enumerate(ZOO_RAW_CASES):
+        rng = np.random.default_rng(2200 + ci)
+        q = torch.from_numpy(rng.standard_normal((B, D), np.float32)).to(dev)
+        s = torch.from_numpy(rng.standard_normal((S, D), np.float32)).to(dev)
+        valid = rng.random(S) > 0.03
+        valid[0] = True
+        s[torch.from_numpy(~valid).to(dev)] = float("nan")
+        labels = torch.from_numpy(
+            np.where(valid, rng.integers(0, C, size=S), -1).astype(np.int32)).to(dev)
+        g = torch.from_numpy(rng.standard_normal((B, C), np.float32)).to(dev)
+        for prec in TOL:
+            qb, cl, group = F._ds_plan(B, S, D, 4 if prec == "f32" else 2, optin, n_sms)
+            print(f"zoo plan {case} {prec}: K1 query tile {F._tc_query_tile(B, C, False, optin)}, "
+                  f"dq query tile {F._dq_query_tile(B, D, optin)}, ds query tile {qb}, clusters "
+                  f"of {cl}, group {group}")
+        for kernel in KERNEL_NAMES:
+            params = {"logit_scale": torch.tensor(1.3, device=dev)} if kernel == "clip" else {}
+            for prec in TOL:
+                mode, scale, qn, sn = F._resolve_mode(kernel, params, q.to(dtypes[prec]),
+                                                      s.to(dtypes[prec]))
+                qn, sn = qn.to(sn.dtype).contiguous(), sn.contiguous()
+                errs = check_raw_kernels(qn, sn, labels, scale, mode, C, g, prec,
+                                         f"zoo {case} D={D} {kernel}",
+                                         check_dscale=kernel == "clip")
+                for k, e in errs.items():
+                    res["raw"][k][prec]["max_abs_err"] = max(res["raw"][k][prec]["max_abs_err"], e)
+                if kernel == "euclidean" and (ci, prec) in ((0, "f32"), (1, "bf16")):
+                    timed = _time_raw(flush, qn, sn, labels, scale, mode, C, g, prec)
+                    print(f"time zoo raw {case} D={D} {prec}: " + ", ".join(
+                        f"{k} kernel {v['ms']:.4f} ms / plain {v['plain_ms']:.4f} ms / "
+                        f"bound {v['bound_ms']:.4f} ms ({v['bound_by']})"
+                        for k, v in timed.items()))
+                    for k, v in timed.items():
+                        res["raw"][k][prec]["timed"] = {"case": case, **v}
+    return res
+
+
+ZOO_CALIB_IMAGES = 64
+
+
+def calibrate_batchnorm(model, images) -> None:
+    """Every BatchNorm's running statistics set to those of one train-mode
+    pass over ``images`` (momentum 1, no gradient), as a trained model's
+    are. At random init they are (0, 1), and eval-mode features blow up
+    with depth (ResNet-50's pooled features reach a norm of about 640,
+    DenseNet-121's about 1.6e8; ResNet-18's stay near 16), where f32
+    distances round by more than the head's tolerance."""
+    import torch
+
+    norms = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    momenta = [m.momentum for m in norms]
+    for m in norms:
+        m.momentum = 1.0
+    device = next(model.parameters()).device
+    model.train()
+    with torch.no_grad():
+        model(torch.as_tensor(images).to(device))
+    model.eval()
+    for m, momentum in zip(norms, momenta):
+        m.momentum = momentum
+
+
+def write_zoo_checkpoint(path: str, images) -> dict:
+    """A torchvision-named ResNet-50 state dict from the port's own model
+    under a fixed generator, its BatchNorm statistics calibrated on
+    ``images`` on the card, plus an ``fc`` classifier the loader must
+    ignore, saved at ``path``. Returns the state dict (CPU tensors)."""
+    import torch
+
+    from nwhead_tpu_torch.models import load_model
+
+    g = torch.Generator().manual_seed(ZOO_CKPT_SEED)
+    model = load_model("resnet50", device="cuda", generator=g)
+    calibrate_batchnorm(model, images)
+    sd = {k: v.cpu() for k, v in model.state_dict().items()}
+    sd["fc.weight"] = torch.randn(1000, 2048, generator=g) * 0.01
+    sd["fc.bias"] = torch.zeros(1000)
+    torch.save(sd, path)
+    return sd
+
+
+def zoo_serving_phase(datasets, workdir: str) -> dict:
+    """The serve module's path for ``ZOO_SERVE_CONFIGS`` on the CUB-scale
+    bank at B=64: ResNet-50 from a written torchvision-format checkpoint
+    (``--pretrained_path``) with an f32 and a bf16 head (K2 at D = 2,048),
+    ResNet-50 with the bf16 backbone (``--bf16``), DenseNet-121 with an int8
+    head (K4 at D = 1,024); every backbone's BatchNorm statistics calibrated
+    on the first 64 training images (``calibrate_batchnorm``). Checks the
+    served featurizer holds the file's weights, one launch of the head's
+    kernel per request (and none of any other), and the served log-probs
+    against the plain head on the same features; prints p50, p95,
+    queries/s, the bank's seconds and peak device memory."""
+    import os
+
+    import torch
+
+    from nwhead_tpu_torch import serve
+
+    train_ds, val_ds = datasets
+    calib = train_ds.gather(np.arange(ZOO_CALIB_IMAGES))
+    path = os.path.join(workdir, "resnet50_torchvision.pth")
+    t0 = time.perf_counter()
+    sd = write_zoo_checkpoint(path, calib)
+    print(f"zoo: wrote {path} ({len(sd)} tensors, fc.* included) in "
+          f"{time.perf_counter() - t0:.1f}s")
+    out = {}
+    for name, flags, pretrained, prec in ZOO_SERVE_CONFIGS:
+        args = serve.parse_args(ZOO_SERVE_ARGV + flags
+                                + (["--pretrained_path", path] if pretrained else []))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # The checkpoint's statistics were calibrated when it was written;
+        # a random-init backbone's are calibrated here, before the bank.
+        net = serve.build_server(args, train_ds, edit=None if pretrained else (
+            lambda n: calibrate_batchnorm(n.model.featurizer, calib)))
+        featurizer = net.model.featurizer
+        if pretrained:
+            state = featurizer.state_dict()
+            same = all(torch.equal(v.cpu(), sd[k]) for k, v in state.items()
+                       if not k.endswith("num_batches_tracked"))
+            print(f"zoo {name}: served featurizer holds the file's {len(state)} tensors: {same}")
+            if not same:
+                raise AssertionError(f"{name}: the served weights are not the file's")
+        head = HEAD_WRAPPERS[prec]
+        serve_fn = net.make_serving_fn()
+        x = val_ds.gather(np.arange(args.batch_size))
+        _counts(reset=True)
+        served = serve_fn(x)
+        torch.cuda.synchronize()
+        per_request = _counts()
+        _counts(reset=True)
+        report = serve.latency_bench(net, val_ds, args)
+        torch.cuda.synchronize()
+        launches = _counts()
+        peak = torch.cuda.max_memory_allocated()
+        requests = report["batches"] + 3  # the latency run's warm-up requests count too
+        expect = {n: 0 for n in WRAPPERS}
+        expect[head] = 1
+        if per_request != expect or launches != {n: c * requests for n, c in expect.items()}:
+            raise AssertionError(f"{name}: launches {per_request} per request, {launches} over "
+                                 f"{requests} requests; want one {head} a request")
+        with torch.inference_mode():
+            feats = net._featurize_eval(torch.from_numpy(x).to(net.device))
+            plain = plain_head(net, feats)
+        torch.cuda.synchronize()
+        prep = net._prepared_full
+        err = float((served - plain).abs().max())
+        ok = (tuple(served.shape) == (args.batch_size, net.n_classes)
+              and bool(torch.isfinite(served).all()) and within(served, plain, **HEAD_TOL[prec]))
+        print(f"zoo {name}: {type(featurizer).__name__} dtype {featurizer.dtype}, features "
+              f"(B={feats.shape[0]}, D={feats.shape[1]}, mean norm "
+              f"{float(feats.norm(dim=1).mean()):.2f}); {head} {per_request[head]} a request, "
+              f"{launches[head]} over {requests} requests; served vs the plain head max|err| "
+              f"{err:.3e} {'ok' if ok else 'FAIL'}; bank S={prep.s.shape[0]} {prep.s.dtype} "
+              f"prepared in {net.precompute_seconds:.2f}s; p50 {report['p50_ms']:.3f} ms, p95 "
+              f"{report['p95_ms']:.3f} ms, {report['queries_per_sec']:.1f} q/s; peak device "
+              f"memory {peak / 2**30:.2f} GiB")
+        if not ok:
+            raise AssertionError(f"{name}: served log-probs disagree with the plain head")
+        out[name] = {"launches": launches, "head": head, "prec": prec, "report": report,
+                     "served_err": err, "precompute_s": net.precompute_seconds,
+                     "peak_bytes": peak}
+        del net, serve_fn, featurizer
+        torch.cuda.empty_cache()
+    return out
+
+
+def zoo_training_phase(datasets, workdir: str) -> dict:
+    """``ZOO_TRAIN_RUNS`` through ``train.setup`` and ``NWTrainer``, 3 steps
+    each on the CUB-scale data at 224 px: ResNet-50 f32 (K1, dq, ds at
+    D = 2,048 on 400 support rows), ResNet-50 with the bf16 backbone and a
+    bf16 head (their bf16 route, 800 rows) and DenseNet-121 with its dense
+    layers checkpointed (D = 1,024, the recipe's 1,200 rows). Checks one K1,
+    dq and ds launch a step, the first step's head against the plain
+    versions (``check_raw_kernels``), finite losses and moved weights;
+    prints the step time (CUDA events from hooks in the steps, steps 2-3)
+    and the peak device memory."""
+    import torch
+
+    from nwhead_tpu_torch import train
+    from nwhead_tpu_torch.ops import fused_nw as F
+
+    out = {}
+    for name, flags, min_support, options, prec in ZOO_TRAIN_RUNS:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        args, trainer, _ = train.setup(ZOO_TRAIN_ARGV + flags + ["--models_dir", workdir],
+                                       datasets=datasets, featurizer_kwargs=options)
+        net = trainer.net
+        if min_support is not None:
+            net.model.head.fused_min_support = min_support
+        captured = {}
+
+        def capture(module, inputs, output):
+            if "q" not in captured and torch.is_grad_enabled() and inputs[1].dim() == 2:
+                captured.update(q=inputs[0].detach().clone(), s=inputs[1].detach().clone(),
+                                sy=inputs[2].detach().clone())
+
+        handle = net.model.head.register_forward_hook(capture)
+        timer = StepTimer(net.model)
+        before = {n: p.detach().clone() for n, p in net.model.named_parameters()}
+        _counts(reset=True)
+        trainer.train_epoch(num_steps=ZOO_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        launches = _counts()
+        peak = torch.cuda.max_memory_allocated()
+        handle.remove()
+        split = timer.split()
+        losses = trainer.step_losses
+        moved = sum(not torch.equal(p.detach(), before[n]) for n, p in net.model.named_parameters())
+        S = captured["s"].shape[0]
+        print(f"zoo train {name}: {type(net.model.featurizer).__name__} dtype "
+              f"{net.model.featurizer.dtype}, head {prec}, episode: query "
+              f"{tuple(captured['q'].shape)}, support {tuple(captured['s'].shape)} "
+              f"(fused_min_support {net.model.head.fused_min_support}); launches "
+              f"{ {n: launches[n] for n in RAW_WRAPPERS} }; losses {['%.4f' % v for v in losses]}; "
+              f"{moved} of {len(before)} parameter tensors moved; step {split['step_ms']:.1f} ms "
+              f"(featurizer fwd+bwd {split['featurizer_ms']:.1f} ms, head fwd+bwd "
+              f"{split['head_ms']:.3f} ms; CUDA events, median of steps 2-{ZOO_TRAIN_STEPS}); "
+              f"peak device memory {peak / 2**30:.2f} GiB")
+        if any(launches[n] != ZOO_TRAIN_STEPS for n in RAW_WRAPPERS):
+            raise AssertionError(f"{name}: K1/K3 launched {launches} in {ZOO_TRAIN_STEPS} steps")
+        if len(losses) != ZOO_TRAIN_STEPS or not np.isfinite(losses).all() or moved == 0:
+            raise AssertionError(f"{name}: losses {losses}, {moved} tensors moved")
+        if S != net.support_train.support_size() or not net.model.head.takes_fused(
+                captured["q"], captured["s"]):
+            raise AssertionError(f"{name}: the episode ({S} rows) did not take the fused head")
+        # The first step's head through the kernels against the plain
+        # versions; queries drawn into their own episode make the plain
+        # reference f64 (as in the training phase).
+        dtype = torch.bfloat16 if prec == "bf16" else torch.float32
+        mode, scale, qn, sn = F._resolve_mode(net.kernel_type, net.model.head.kernel_params(),
+                                              captured["q"].to(dtype), captured["s"].to(dtype))
+        qn, sn = qn.to(sn.dtype).contiguous(), sn.contiguous()
+        dups = torch.nonzero((qn[:, None, :] == sn[None, :, :]).all(-1).any(1)).flatten()
+        g = torch.from_numpy(np.random.default_rng(7).standard_normal(
+            (qn.shape[0], net.n_classes), np.float32)).to(net.device)
+        errs = check_raw_kernels(qn, sn, captured["sy"].to(torch.int32), scale.detach(), mode,
+                                 net.n_classes, g, prec, f"zoo first-step {name}",
+                                 dup_queries=dups)
+        out[name] = {"launches": launches, "prec": prec, "errs": errs, "split": split,
+                     "peak_bytes": peak, "losses": losses, "support": S,
+                     "dim": int(captured["q"].shape[1])}
+        del trainer, net, captured, timer, before
+        torch.cuda.empty_cache()
+    return out
+
+
+def zoo_update_entries(entries: list, kern: dict, served: dict, trained: dict) -> None:
+    """The zoo phases' launches and errors added to the K1, K2, K3 and K4
+    entries of the ``kernels`` line, with the D = 2,048 times beside the
+    earlier ones (``d2048_*``; K4's at DenseNet-121's D = 1,024,
+    ``d1024_*``)."""
+    by_name = {e["name"]: e for e in entries}
+    for prec, r in kern["prepared"].items():
+        e = by_name[f"nw_prepared_{prec}"]
+        runs = [s for s in served.values() if s["prec"] == prec]
+        e["launches"] += sum(s["launches"][s["head"]] for s in runs)
+        e["max_abs_err"] = max([e["max_abs_err"], r["max_abs_err"]]
+                               + [s["served_err"] for s in runs])
+        key, case = ("d1024", "d121_b64") if prec == "int8" else ("d2048", "r50_b64")
+        t = r["timed"][case]
+        e.update({f"{key}_ms": t["ms"], f"{key}_plain_ms": t["plain_ms"],
+                  f"{key}_bound_ms": t["bound_ms"], f"{key}_bound_by": t["bound_by"]})
+    for k, by_prec in kern["raw"].items():
+        for prec, r in by_prec.items():
+            e = by_name[f"{k}_{prec}"]
+            runs = [t for t in trained.values() if t["prec"] == prec]
+            e["launches"] += sum(t["launches"][f"{k}_cuda"] for t in runs)
+            e["max_abs_err"] = max([e["max_abs_err"], r["max_abs_err"]]
+                                   + [t["errs"][k] for t in runs])
+            t = r["timed"]
+            e.update({"d2048_case": t["case"], "d2048_ms": t["ms"], "d2048_plain_ms": t["plain_ms"],
+                      "d2048_bound_ms": t["bound_ms"], "d2048_bound_by": t["bound_by"]})
+
+
 def main() -> int:
     import torch
 
@@ -3736,6 +4144,9 @@ def main() -> int:
     kern = kernel_phase(flush)
     raw = raw_kernel_phase(flush)
     phase_s["K1-K3 kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    zoo_kern = zoo_kernel_phase(flush)
+    phase_s["zoo kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     vit_kern = vit_kernel_phase(flush)
     phase_s["ViT kernels"] = time.perf_counter() - t0
@@ -3800,6 +4211,12 @@ def main() -> int:
         t0 = time.perf_counter()
         vit_tr = vit_training_phase(datasets, workdir)
         phase_s["ViT training"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        zoo_served = zoo_serving_phase(datasets, workdir)
+        phase_s["zoo serving"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        zoo_trained = zoo_training_phase(datasets, workdir)
+        phase_s["zoo training"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
@@ -3845,6 +4262,7 @@ def main() -> int:
     entries += ivf_entries(ivf_kern, ivf_served)
     entries += sharded_entries(sharded_kern, sharded_served, mesh_served, ret)
     entries += lab_entries(lab_kern, labs)
+    zoo_update_entries(entries, zoo_kern, zoo_served, zoo_trained)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

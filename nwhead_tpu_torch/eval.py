@@ -19,9 +19,11 @@ weights are random, from ``--seed``. For example::
         --fit_temperature --influence_queries 8
 
 The featurizer and head flags are the serve CLI's (``--head_precision``,
-``--fused_inference``, ``--featurizer_precision bf16_fused|int8`` and
-``--bf16`` on ViTs, ``--mesh``). Flag values the port does not run yet
-raise ``NotImplementedError`` naming their ROADMAP.md item. ``--device``
+``--fused_inference`` and ``--featurizer_precision bf16_fused|int8`` on
+ViTs, ``--bf16``, ``--pretrained_path``, ``--mesh``); ``--arch resnet18``
+and ``densenet121`` build their CIFAR models on CIFAR, as the JAX CLI
+does. Flag values the port does not run yet raise
+``NotImplementedError`` naming their ROADMAP.md item. ``--device``
 defaults to ``cuda``; with no CUDA device that is an error, and the CPU
 must be asked for (``--device cpu``).
 """
@@ -42,7 +44,7 @@ from nwhead_tpu_torch.ops.calibrate import apply_temperature, fit_temperature
 from nwhead_tpu_torch.serve import build_mesh, featurizer_options
 from nwhead_tpu_torch.train import build_datasets
 from nwhead_tpu_torch.train.checkpoint import load_checkpoint
-from nwhead_tpu_torch.train.config import FILE_DATASETS
+from nwhead_tpu_torch.train.config import FILE_DATASETS, cifar_name
 from nwhead_tpu_torch.train.trainer import _host_eval_batches
 
 MODES = ("random", "full", "cluster", "ensemble", "knn", "hnsw", "ivf")
@@ -80,7 +82,7 @@ def parse_args(argv=None):
                    help="fit a temperature per mode on a seeded random half of the val "
                         "predictions and report the other half's nll/ece raw vs calibrated")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--bf16", action="store_true", help="compute a ViT featurizer in bf16")
+    p.add_argument("--bf16", action="store_true", help="compute the featurizer in bf16")
     p.add_argument("--head_precision", type=str, default="f32",
                    choices=["f32", "bf16", "int8", "int4"],
                    help="the full mode's prepared bank: f32/bf16 (K2), int8 (K4), int4 (K5)")
@@ -96,7 +98,9 @@ def parse_args(argv=None):
                    help="image-file decode threads (image-file datasets are not ported)")
     p.add_argument("--decoder", type=str, default="native",
                    choices=["native", "native_fused", "pil"])
-    p.add_argument("--pretrained_path", type=str, default=None)
+    p.add_argument("--pretrained_path", type=str, default=None,
+                   help="a local torchvision- or DINOv2-format checkpoint merged into the "
+                        "backbone before --ckpt")
     p.add_argument("--mesh", type=str, default=None,
                    help="'N_DATA,N_SUPPORT[,N_MODEL]': a bank sharded over N_SUPPORT devices "
                         "for the full and ivf modes")
@@ -120,8 +124,6 @@ def check_ported(args) -> None:
             args.workers != 8 or args.decoder != "native",
         f"--dataset {args.dataset} (image-file datasets need a download and "
         "data/transforms.py; ROADMAP.md queue 1, item 11)": args.dataset in FILE_DATASETS,
-        "--pretrained_path (a local checkpoint file; ROADMAP.md queue 1, item 7)":
-            args.pretrained_path,
     }
     for flag, hit in refused.items():
         if hit:
@@ -130,12 +132,13 @@ def check_ported(args) -> None:
 
 
 def build_net(args, train_ds) -> NWNet:
-    """The network on ``--device``: the backbone (random weights from
-    ``--seed``, then ``--ckpt``'s), the featurizer fused or quantized as
+    """The network on ``--device``: the backbone (``cifar_name(--arch,
+    --dataset)``, random weights from ``--seed``, ``--pretrained_path``'s
+    merged in, then ``--ckpt``'s), the featurizer fused or quantized as
     asked, and the support bank precomputed (full, cluster; prepared or
     sharded for the fused head; the HNSW graph at the first hnsw batch)."""
     device = torch.device(args.device)
-    featurizer = load_model(args.arch, device=device,
+    featurizer = load_model(cifar_name(args.arch, args.dataset), device=device,
                             generator=torch.Generator().manual_seed(args.seed),
                             **featurizer_options(args))
     net = NWNet(

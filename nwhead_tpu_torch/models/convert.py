@@ -1,14 +1,22 @@
 """Carry weights from the JAX package's trees into the port's modules.
 
 The inverse of ``nwhead_tpu/models/torch_import.py:convert_state_dict`` for
-ResNets: a Flax ``{'params', 'batch_stats'}`` featurizer tree (numpy leaves)
-becomes a torchvision-named ``state_dict``.
+the CNNs: a Flax ``{'params', 'batch_stats'}`` featurizer tree (numpy leaves)
+becomes a ``state_dict`` in the port's (torchvision's) names.
 
 * conv kernels HWIO -> OIHW;
 * BatchNorm ``scale``/``bias`` -> ``weight``/``bias``, ``batch_stats``
   ``mean``/``var`` -> ``running_mean``/``running_var``;
-* ``layerK_i/{conv1,bn1,conv2,bn2,ds_conv,ds_bn}`` ->
-  ``layerK.i.{conv1,bn1,conv2,bn2,downsample.0,downsample.1}``.
+* ResNets (``jax_to_torch_resnet``):
+  ``layerK_i/{conv1,bn1,conv2,bn2,conv3,bn3,ds_conv,ds_bn,shortcut}`` ->
+  ``layerK.i.{conv1,bn1,conv2,bn2,conv3,bn3,downsample.0,downsample.1,
+  shortcut.0}``;
+* ImageNet DenseNets (``jax_to_torch_densenet``): ``conv0``, ``norm0``,
+  ``norm5``, ``denseblockK/denselayerJ/{norm1,conv1,norm2,conv2}`` and
+  ``transitionK/{norm,conv}`` under ``features.``;
+* the CIFAR DenseNet (``jax_to_torch_cifar_densenet``): ``conv1``,
+  ``d{i}_{j}_{bn1,conv1,bn2,conv2}`` -> ``dense{i+1}.{j}.*``,
+  ``t{i}_{bn,conv}`` -> ``trans{i+1}.*``, ``bn_final`` -> ``bn``.
 
 ``jax_to_torch_vit`` does the same for the flax ``VisionTransformer``:
 
@@ -22,8 +30,9 @@ becomes a torchvision-named ``state_dict``.
 BatchNorms (with their statistics) and Dense layers.
 
 ``jax_to_torch_nwmodel`` converts a whole ``NWModel`` tree: the featurizer
-(a ResNet with its ``batch_stats``, or a ViT, which has none), the optional
-``proj`` Dense layer and the head's ``logit_scale``.
+(a ResNet, a DenseNet or a CIFAR DenseNet with its ``batch_stats``, or a
+ViT, which has none), the optional ``proj`` Dense layer and the head's
+``logit_scale``.
 
 ``jax_to_torch_quantized_vit`` carries a JAX ``QuantizedViT``
 (``nwhead_tpu/models/quantize.py``: int8 kernels ``(in, out)`` as they are,
@@ -36,21 +45,40 @@ imports nothing of the JAX package.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Callable, Dict, Mapping
 
 import numpy as np
 import torch
 
-_SUB = {"ds_conv": "downsample.0", "ds_bn": "downsample.1"}
+_SUB = {"ds_conv": "downsample.0", "ds_bn": "downsample.1", "shortcut": "shortcut.0"}
 
 
-def _module_name(path: str) -> str:
+def _resnet_module(path: str) -> str:
     m = re.fullmatch(r"layer(\d)_(\d+)/(\w+)", path)
     if m:
         return f"layer{m.group(1)}.{m.group(2)}.{_SUB.get(m.group(3), m.group(3))}"
     if path in ("conv1", "bn1"):
         return path
     raise KeyError(f"not a ResNet module path: {path!r}")
+
+
+def _densenet_module(path: str) -> str:
+    if re.fullmatch(r"conv0|norm0|norm5|denseblock\d+/denselayer\d+/(norm|conv)[12]"
+                    r"|transition\d+/(norm|conv)", path):
+        return "features." + path.replace("/", ".")
+    raise KeyError(f"not a DenseNet module path: {path!r}")
+
+
+def _cifar_densenet_module(path: str) -> str:
+    m = re.fullmatch(r"d(\d+)_(\d+)_(bn1|conv1|bn2|conv2)", path)
+    if m:
+        return f"dense{int(m.group(1)) + 1}.{m.group(2)}.{m.group(3)}"
+    m = re.fullmatch(r"t(\d+)_(bn|conv)", path)
+    if m:
+        return f"trans{int(m.group(1)) + 1}.{m.group(2)}"
+    if path in ("conv1", "bn_final"):
+        return {"conv1": "conv1", "bn_final": "bn"}[path]
+    raise KeyError(f"not a CIFAR DenseNet module path: {path!r}")
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = ""):
@@ -61,13 +89,14 @@ def _flatten(tree: Mapping[str, Any], prefix: str = ""):
             yield f"{prefix}{k}", np.asarray(v)
 
 
-def jax_to_torch_resnet(variables_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax ResNet ``{'params': ..., 'batch_stats': ...}`` -> ``state_dict``
-    for ``nwhead_tpu_torch.models.resnet.ResNet``."""
+def _cnn_state_dict(variables_np: Mapping[str, Any],
+                    module_name: Callable[[str], str]) -> Dict[str, torch.Tensor]:
+    """A flax CNN tree -> ``state_dict``, each module path renamed by
+    ``module_name``."""
     sd: Dict[str, torch.Tensor] = {}
     for path, arr in _flatten(variables_np["params"]):
         mod, leaf = path.rsplit("/", 1)
-        name = _module_name(mod)
+        name = module_name(mod)
         if leaf == "kernel":
             sd[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(arr.transpose(3, 2, 0, 1)))
         elif leaf == "scale":
@@ -78,11 +107,44 @@ def jax_to_torch_resnet(variables_np: Mapping[str, Any]) -> Dict[str, torch.Tens
             raise KeyError(f"unhandled parameter {path!r}")
     for path, arr in _flatten(variables_np.get("batch_stats", {})):
         mod, leaf = path.rsplit("/", 1)
-        name = _module_name(mod)
+        name = module_name(mod)
         stat = {"mean": "running_mean", "var": "running_var"}[leaf]
         sd[f"{name}.{stat}"] = torch.from_numpy(arr.copy())
         sd.setdefault(f"{name}.num_batches_tracked", torch.tensor(0, dtype=torch.long))
     return sd
+
+
+def jax_to_torch_resnet(variables_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ResNet or CIFAR ResNet ``{'params': ..., 'batch_stats': ...}``
+    -> ``state_dict`` for ``nwhead_tpu_torch.models.resnet.ResNet`` or
+    ``CIFAR_ResNet``."""
+    return _cnn_state_dict(variables_np, _resnet_module)
+
+
+def jax_to_torch_densenet(variables_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ImageNet ``DenseNet`` tree -> ``state_dict`` for
+    ``nwhead_tpu_torch.models.densenet.DenseNet``."""
+    return _cnn_state_dict(variables_np, _densenet_module)
+
+
+def jax_to_torch_cifar_densenet(variables_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ``CIFAR_DenseNetModule`` tree -> ``state_dict`` for
+    ``nwhead_tpu_torch.models.densenet.CIFAR_DenseNetModule``."""
+    return _cnn_state_dict(variables_np, _cifar_densenet_module)
+
+
+def jax_to_torch_featurizer(variables_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Any JAX backbone's tree, its family told by its top-level names: a
+    ViT (``patch_embed``), an ImageNet DenseNet (``conv0``), the CIFAR
+    DenseNet (``bn_final``) or a ResNet."""
+    params = variables_np["params"]
+    if "patch_embed" in params:
+        return jax_to_torch_vit(variables_np)
+    if "conv0" in params:
+        return jax_to_torch_densenet(variables_np)
+    if "bn_final" in params:
+        return jax_to_torch_cifar_densenet(variables_np)
+    return jax_to_torch_resnet(variables_np)
 
 
 def _dense(sd: Dict[str, torch.Tensor], name: str, p: Mapping[str, Any]) -> None:
@@ -158,16 +220,13 @@ def jax_to_torch_relation(variables_np: Mapping[str, Any]) -> Dict[str, torch.Te
 def jax_to_torch_nwmodel(variables_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """A JAX ``NWModel`` tree ``{'params': {featurizer, proj?, head?},
     'batch_stats': {featurizer}}`` -> ``state_dict`` for
-    ``nwhead_tpu_torch.nw.net.NWModel``; a ViT featurizer has no
-    ``batch_stats``."""
+    ``nwhead_tpu_torch.nw.net.NWModel``, for any featurizer
+    (``jax_to_torch_featurizer``); a ViT has no ``batch_stats``."""
     params = variables_np["params"]
-    if "patch_embed" in params["featurizer"]:
-        feat = jax_to_torch_vit({"params": params["featurizer"]})
-    else:
-        feat = jax_to_torch_resnet({
-            "params": params["featurizer"],
-            "batch_stats": variables_np.get("batch_stats", {}).get("featurizer", {}),
-        })
+    feat = jax_to_torch_featurizer({
+        "params": params["featurizer"],
+        "batch_stats": variables_np.get("batch_stats", {}).get("featurizer", {}),
+    })
     sd = {f"featurizer.{k}": v for k, v in feat.items()}
     if "proj" in params:
         _dense(sd, "proj", params["proj"])

@@ -261,9 +261,9 @@ class NWNet:
         if not isinstance(self.model.featurizer, VisionTransformer):
             raise NotImplementedError(
                 "fuse_featurizer is the ViT bf16 fused-serving path; a "
-                f"{type(self.model.featurizer).__name__} backbone has none (its int8 "
-                "PTQ through quantize_featurizer is not ported yet: ROADMAP.md queue 1, "
-                "item 8)")
+                f"{type(self.model.featurizer).__name__} backbone has none: it computes in "
+                "bf16 with load_model(..., dtype=torch.bfloat16) (its int8 PTQ through "
+                "quantize_featurizer is not ported yet: ROADMAP.md queue 1, item 8)")
         self.serving_featurizer = fuse_vit_serving(self.model.featurizer)
         self._drop_serving_banks()
 

@@ -16,13 +16,18 @@ random, from ``--seed``. Run as::
         --serve_mode ivf --ivf_probe auto --batch_size 64 --latency_bench
     python -m nwhead_tpu_torch.serve --dataset synthetic_cub --arch resnet18 \
         --mesh 1,1 --batch_size 64 --latency_bench
+    python -m nwhead_tpu_torch.serve --dataset synthetic_cub --arch resnet50 \
+        --pretrained_path resnet50.pth --head_precision bf16 --batch_size 64 --latency_bench
 
 ``--featurizer_precision bf16_fused`` serves a ViT through the bf16
 fused-serving graph (K10/K11 per block); ``--featurizer_precision int8``
 through the int8 post-training-quantized one (K10 int8 and K11 int8 per
 block), calibrated on the first ``--calib_images`` training images before
 the bank is built; ``--fused_inference`` runs a ViT's attention and MLP on
-K7 and K9; ``--bf16`` computes a ViT in bf16. ``--head_precision`` picks the
+K7 and K9; ``--bf16`` computes the featurizer in bf16 (a ViT, or a CNN with
+its BatchNorm statistics in f32); ``--pretrained_path`` merges a local
+torchvision- or DINOv2-format checkpoint into the backbone (``--arch`` takes
+any registry name: ``resnet50``, ``densenet121``, ...). ``--head_precision`` picks the
 prepared bank: f32 or bf16 (K2), int8 (K4) or int4 (K5). ``--serve_mode ivf``
 serves through the IVF-pruned head (``ops/ivf.py``, K6 over the bank tiles
 each batch routes to): ``--ivf_probe`` tiles per query (``auto``: calibrated
@@ -87,9 +92,10 @@ def device_info(device: torch.device) -> dict:
 
 
 def featurizer_options(args) -> dict:
-    """``load_model`` options from the featurizer flags; refuses what is
-    not ported or does not apply (the JAX CLI's message for
-    ``--fused_inference`` on a CNN)."""
+    """``load_model`` options from the featurizer flags (``--bf16``: any
+    backbone in bf16; ``--pretrained_path``: a local checkpoint merged at
+    build time); refuses what is not ported or does not apply (the JAX
+    CLI's message for ``--fused_inference`` on a CNN)."""
     vit = args.arch in VIT_NAMES
     if args.featurizer_precision == "int8" and not vit:
         raise NotImplementedError(
@@ -97,19 +103,18 @@ def featurizer_options(args) -> dict:
             "(ROADMAP.md queue 1, item 8); the ViTs' is")
     if args.featurizer_precision == "bf16_fused" and not vit:
         raise NotImplementedError(
-            "--featurizer_precision bf16_fused is the ViT fused-serving graph; a ResNet's "
-            "int8 path is not ported yet (ROADMAP.md queue 1, item 8)")
+            f"--featurizer_precision bf16_fused with --arch {args.arch}: the bf16 "
+            "fused-serving graph is ViT-only, as in the JAX package; a CNN computes in bf16 "
+            "with --bf16")
     if args.fused_inference and not vit:
         raise SystemExit("--fused_inference applies to ViT archs only")
-    if args.bf16 and not vit:
-        raise NotImplementedError(
-            "--bf16 on a ResNet (the bf16 backbone) is not ported yet (ROADMAP.md queue 1, "
-            "item 7)")
     opts = {}
     if args.bf16:
         opts["dtype"] = torch.bfloat16
     if args.fused_inference:
         opts.update(attn_impl="fused", mlp_impl="fused")
+    if args.pretrained_path:
+        opts["pretrained"] = args.pretrained_path
     return opts
 
 
@@ -222,6 +227,7 @@ def latency_bench(net: NWNet, val_ds, args) -> dict:
         "featurizer_precision": args.featurizer_precision,
         "fused_inference": bool(args.fused_inference),
         "bf16": bool(args.bf16),
+        "pretrained_path": args.pretrained_path,
         "head_precision": args.head_precision,
         "serve_mode": args.serve_mode,
         "mesh": None if net.mesh is None else net.mesh.shape,
@@ -249,7 +255,12 @@ def parse_args(argv=None):
                    help="training images that calibrate --featurizer_precision int8")
     p.add_argument("--fused_inference", action="store_true",
                    help="a ViT's attention and MLP on the fused kernels K7 and K9")
-    p.add_argument("--bf16", action="store_true", help="compute a ViT featurizer in bf16")
+    p.add_argument("--bf16", action="store_true",
+                   help="compute the featurizer in bf16 (flax's mixed precision: f32 "
+                        "parameters, BatchNorm statistics in f32)")
+    p.add_argument("--pretrained_path", default=None,
+                   help="a local torchvision- or DINOv2-format checkpoint (.pth/.pt/.npz) "
+                        "merged into the backbone at build time")
     p.add_argument("--serve_mode", default="full", choices=["full", "ivf"],
                    help="the head per request: 'full' streams the whole prepared bank "
                         "(exact); 'ivf' routes each batch to its top tiles and streams only "

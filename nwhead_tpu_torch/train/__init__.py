@@ -3,13 +3,24 @@
 Port of the root ``train.py`` of the JAX package for the ``nwhead`` method
 on in-memory datasets: build the datasets and the network, then the
 eval-before-train epoch loop, with periodic checkpoints and ``--resume``.
-Weights are random, from ``--seed``. Each epoch evaluates in the random,
+Weights are random, from ``--seed``, or ``--pretrained_path``'s (a local
+torchvision- or DINOv2-format file, merged at build time; ``--resume``
+overrides them). Each epoch evaluates in the random,
 full and cluster modes (one centroid a class, as the JAX CLI). The
 CUB-scale episode that reaches the fused kernels K1/K3 (every one of the
 200 classes, 6 shots: 1,200 support rows)::
 
     python -m nwhead_tpu_torch.train --dataset synthetic_cub --arch resnet18 \\
         --batch_size 8 --n_shot 6 --lr 1e-2
+
+``--arch`` takes the JAX CLI's archs (``config.featurizer_name``):
+``resnet10``, ``resnet18``, ``resnet34``, ``resnet50``, ``densenet121``
+(``CIFAR_ResNet18`` and ``CIFAR_DenseNet121`` on CIFAR) and the ViTs; a CNN
+computes in bf16 with ``--bf16`` (flax's mixed precision). ResNet-50 on the
+CUB-scale data, from a torchvision file::
+
+    python -m nwhead_tpu_torch.train --dataset synthetic_cub --arch resnet50 \\
+        --pretrained_path resnet50.pth --batch_size 8 --n_shot 2 --bf16
 
 ``--arch vit_s14`` (``dinov2_vits14``, ``vit_s16``) trains the ViT on its
 plain ``xla`` impls, as the JAX CLI does, optionally in bf16 (``--bf16``).
@@ -34,7 +45,7 @@ from nwhead_tpu_torch.train.checkpoint import (
     latest_checkpoint, load_checkpoint, load_sampler_state, save_checkpoint,
     save_sampler_state,
 )
-from nwhead_tpu_torch.train.config import Parser
+from nwhead_tpu_torch.train.config import Parser, featurizer_name
 from nwhead_tpu_torch.train.trainer import NWTrainer, multistep_lr
 
 
@@ -58,19 +69,22 @@ def build_datasets(args):
 
 
 def build_network(args, train_dataset, **featurizer_kwargs) -> NWNet:
-    """The backbone, with random weights from ``--seed``, and the NW
+    """The backbone ``featurizer_name(--arch, --dataset)``, with random
+    weights from ``--seed`` and ``--pretrained_path`` merged in, and the NW
     network on ``--device``. ``featurizer_kwargs`` go to ``load_model`` (a
     ViT's ``attn_impl='fused', mlp_impl='fused'`` trains on K7/K8 and the
-    K9 forward and backward); ``--bf16`` adds ``dtype=torch.bfloat16``."""
+    K9 forward and backward; a DenseNet's ``memory_efficient=True``
+    checkpoints its dense layers); ``--bf16`` adds
+    ``dtype=torch.bfloat16``."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is visible "
                          "(pass --device cpu to run on the CPU)")
     if args.bf16:
         featurizer_kwargs = {"dtype": torch.bfloat16, **featurizer_kwargs}
-    featurizer = load_model(args.arch, device=device,
+    featurizer = load_model(featurizer_name(args.arch, args.dataset), device=device,
                             generator=torch.Generator().manual_seed(args.seed),
-                            **featurizer_kwargs)
+                            pretrained=args.pretrained_path or False, **featurizer_kwargs)
     return NWNet(
         featurizer, train_dataset.num_classes, support_dataset=train_dataset, device=device,
         feat_dim=featurizer.feat_dim, proj_dim=args.proj_dim, kernel_type=args.kernel_type,
@@ -139,6 +153,7 @@ def main(argv=None) -> NWTrainer:
 
 
 __all__ = [
-    "NWTrainer", "Parser", "build_datasets", "build_network", "latest_checkpoint",
+    "NWTrainer", "Parser", "build_datasets", "build_network", "featurizer_name",
+    "latest_checkpoint",
     "load_checkpoint", "main", "multistep_lr", "run_epochs", "save_checkpoint", "setup",
 ]

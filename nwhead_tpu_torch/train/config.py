@@ -2,8 +2,8 @@
 (``nwhead_tpu/train/config.py``), ``--x/--no_x`` boolean pairs, ``key=value``
 kwargs, the hyperparameter-encoding run directory and its ``args.txt``,
 plus ``--device``. ``check_ported`` refuses, naming the ROADMAP item, every
-flag value this port does not run yet, and the ViTs the JAX CLI does not
-train (``vit_b14``, ``vit_l14``).
+flag value this port does not run yet, and every ``--arch`` outside the JAX
+CLI's map (``featurizer_name``).
 """
 
 from __future__ import annotations
@@ -13,15 +13,36 @@ import json
 import os
 from pprint import pprint
 
-from nwhead_tpu_torch.models import VIT_NAMES
-
 # Datasets read from image files; they need a download and the image
 # transforms, neither of which the port has yet.
 FILE_DATASETS = ("bird", "dog", "flower", "aircraft", "cifar10", "cifar100")
 ARRAY_DATASETS = ("synthetic", "synthetic_cub", "digits")
-# The ViTs the JAX training CLI builds (train.py:126); it refuses the rest.
-TRAINED_VITS = ("vit_s14", "dinov2_vits14", "vit_s16")
-UNTRAINED_VITS = tuple(n for n in VIT_NAMES if n not in TRAINED_VITS)
+CIFAR_DATASETS = ("cifar10", "cifar100")
+# The archs the JAX training CLI builds as they are named (train.py:121-129);
+# resnet18 and densenet121 are mapped to their CIFAR models on CIFAR.
+TRAIN_ARCHS = ("resnet18", "densenet121", "resnet50", "resnet34", "resnet10", "dinov2_vits14",
+               "vit_s14", "vit_s16")
+
+
+def cifar_name(arch: str, dataset: str) -> str:
+    """``resnet18`` -> ``CIFAR_ResNet18`` and ``densenet121`` ->
+    ``CIFAR_DenseNet121`` on CIFAR, any other name as it is: the JAX eval
+    CLI's map (``eval.py:106-108``)."""
+    if dataset in CIFAR_DATASETS:
+        return {"resnet18": "CIFAR_ResNet18", "densenet121": "CIFAR_DenseNet121"}.get(arch, arch)
+    return arch
+
+
+def featurizer_name(arch: str, dataset: str) -> str:
+    """The registry name the training CLI builds for ``--arch`` on
+    ``--dataset``, as the JAX CLI maps it (``train.py:121-129``):
+    ``resnet18`` -> ``CIFAR_ResNet18`` and ``densenet121`` ->
+    ``CIFAR_DenseNet121`` on CIFAR; any other arch outside ``TRAIN_ARCHS``
+    raises ``NotImplementedError``."""
+    if arch not in TRAIN_ARCHS:
+        raise NotImplementedError(f"--arch {arch}: the training CLI builds {TRAIN_ARCHS}, "
+                                  "as the JAX CLI does")
+    return cifar_name(arch, dataset)
 
 
 def parse_bool(v: str) -> bool:
@@ -87,7 +108,9 @@ class Parser(argparse.ArgumentParser):
                           help="the JAX CLI's backend flag; 'cpu' is --device cpu")
         self.add_argument("--weight_decay", type=float, default=1e-4)
         self.add_argument("--arch", type=str, default="resnet18")
-        self.add_argument("--pretrained_path", type=str, default=None)
+        self.add_argument("--pretrained_path", type=str, default=None,
+                          help="a local torchvision- or DINOv2-format checkpoint (.pth/.pt/"
+                               ".npz) merged into the backbone at build time")
         self.add_argument("--mesh", type=str, default=None)
         self.add_argument("--train_method", default="nwhead")
         self.add_bool_arg("freeze_featurizer", False)
@@ -147,10 +170,6 @@ def check_ported(args) -> None:
     value the port does not run yet; none is ignored."""
     refused = {
         "--mesh (data-parallel training; ROADMAP.md queue 1, item 14)": args.mesh,
-        "--pretrained_path (a local checkpoint file; ROADMAP.md queue 1, item 7)":
-            args.pretrained_path,
-        f"--bf16 with --arch {args.arch} (the bf16 BatchNorm backbone; ROADMAP.md queue 1, "
-        "item 7)": args.bf16 and args.arch not in VIT_NAMES,
         "--train_method fchead (nw/fc.py and FCTrainer; ROADMAP.md queue 1, item 10)":
             args.train_method != "nwhead",
         "--use_wandb (ROADMAP.md queue 1, item 13)": args.use_wandb,
@@ -162,9 +181,7 @@ def check_ported(args) -> None:
     for flag, hit in refused.items():
         if hit:
             raise NotImplementedError(f"{flag} is not ported yet")
-    if args.arch in UNTRAINED_VITS:
-        raise NotImplementedError(f"--arch {args.arch}: the training CLI takes the ViTs "
-                                  f"{TRAINED_VITS}, as the JAX CLI does")
+    featurizer_name(args.arch, args.dataset)
     if args.dataset not in ARRAY_DATASETS:
         raise NotImplementedError(f"dataset {args.dataset!r} is not ported "
                                   f"(ported: {', '.join(ARRAY_DATASETS)})")

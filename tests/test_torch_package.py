@@ -19,6 +19,8 @@ MODULES = (
     "nwhead_tpu_torch", "nwhead_tpu_torch.ops.kernels", "nwhead_tpu_torch.ops.nw",
     "nwhead_tpu_torch.ops.fused_nw", "nwhead_tpu_torch.ops._cuda",
     "nwhead_tpu_torch.models", "nwhead_tpu_torch.models.convert",
+    "nwhead_tpu_torch.models.resnet", "nwhead_tpu_torch.models.densenet",
+    "nwhead_tpu_torch.models.pretrained",
     "nwhead_tpu_torch.nw.head", "nwhead_tpu_torch.nw.net", "nwhead_tpu_torch.nw.support",
     "nwhead_tpu_torch.data.datasets", "nwhead_tpu_torch.serve",
     "nwhead_tpu_torch.ops.metrics", "nwhead_tpu_torch.data.pipeline",

@@ -73,8 +73,8 @@ def test_seeded_init_and_registry():
     # Kaiming-normal fan-out: std = sqrt(2 / (out_channels * k * k)).
     w = a.layer4[0].conv1.weight.detach()
     assert abs(float(w.std()) - (2.0 / (512 * 9)) ** 0.5) < 2e-3
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_model("resnet50", device="cpu")
+    with pytest.raises(KeyError, match="Unknown model"):
+        load_model("resnet51", device="cpu")
     assert jax_to_torch_head({}) == {}
     head = jax_to_torch_head({"logit_scale": np.float32(2.5)})
     assert float(head["logit_scale"]) == 2.5

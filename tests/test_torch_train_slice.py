@@ -241,9 +241,9 @@ def test_cli_on_cpu(tmp_path):
         assert proc.returncode != 0 and "no CUDA device" in proc.stderr
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "2,2"], ["--bf16"], ["--train_method", "fchead"],
-                                   ["--use_wandb"], ["--workers", "4"],
-                                   ["--pretrained_path", "weights.npz"]])
+@pytest.mark.parametrize("flags", [["--mesh", "2,2"], ["--decoder", "pil"],
+                                   ["--train_method", "fchead"], ["--use_wandb"],
+                                   ["--workers", "4"], ["--dataset", "cifar10"]])
 def test_cli_refuses_what_is_not_ported(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_setup(["--device", "cpu", *CLI, "--models_dir", str(tmp_path), *flags])

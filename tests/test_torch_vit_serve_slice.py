@@ -111,8 +111,9 @@ def test_serve_builds_the_fused_inference_server_on_cpu():
      "queue 1, item 8"),
     (["--fused_inference", "--arch", "resnet10"], SystemExit, "ViT archs only"),
     (["--featurizer_precision", "bf16_fused", "--arch", "resnet10"], NotImplementedError,
-     "ViT"),
-    (["--bf16", "--arch", "resnet10"], NotImplementedError, "queue 1, item 7"),
+     "graph is ViT-only"),
+    (["--bf16", "--featurizer_precision", "int8", "--arch", "resnet10"], NotImplementedError,
+     "queue 1, item 8"),
 ])
 def test_serve_refuses_what_is_not_ported(argv, error, match):
     args = serve.parse_args(["--device", "cpu", "--dataset", "synthetic", "--latency_bench"]
