@@ -257,9 +257,26 @@ package beside it. With one, in order:
     rows): K1, dq and ds once a step, the first step's head against the
     plain versions, finite losses, moved weights, the step time (CUDA
     events from hooks, steps 2-3) and peak memory;
+17d. grouped int8 conv routes (after the zoo kernel phase): ResNeXt-50
+    32x4d's grouped 3x3 convs at layer1 and layer4, B=64, on the
+    block-diagonal GEMM (``ops/int8_conv.py``'s route) and on one padded
+    GEMM a group, both bit-equal to the plain version, timed beside
+    cuDNN's bf16 grouped conv;
+17e. int8 CNN serving phase: ``--featurizer_precision int8`` through the
+    serve module at B=64, ResNet-50 from a written file (its statistics
+    by three train-mode passes) with f32 and int8 heads, ResNeXt-50,
+    DenseNet-121 with an int8 head, ResNet-18 with an int4 head: one head
+    launch and one ``int8_conv2d_cuda`` launch a quantized conv per
+    request, the served log-probs against the plain head, the features
+    bit-equal to the route's plain version on the card and against the
+    f32 model at JAX's gates; p50, p95, queries/s, calibration and bank
+    seconds, peak memory, a featurizer call split by CUDA events, beside
+    the zoo phase's ResNet-50 f32 and ``--bf16`` p50s; the zoo phase's file
+    quantized for an ungated agreement line;
 18. prints the nvidia-smi line, a JSON line of per-kernel results (the
     zoo phases' launches added to K1-K4, their times as ``d2048_*`` and
-    ``d1024_*``), and as the last line ``{"ok": true, "device": {...}}``.
+    ``d1024_*``; the int8 CNN phase's launches and errors added to K2, K4
+    and K5), and as the last line ``{"ok": true, "device": {...}}``.
 
 Kernel times are device times: CUDA events around each call, queued behind
 a spin kernel so that the host's overhead does not count, L2 flushed before
@@ -3732,6 +3749,7 @@ ZOO_SERVE_CONFIGS = (  # name, flags, serves the written checkpoint, head precis
     ("d121_int8_head", ["--arch", "densenet121", "--head_precision", "int8"], False, "int8"),
 )
 ZOO_CKPT_SEED = 21
+ZOO_CKPT_FILE = "resnet50_torchvision.pth"  # written by zoo_serving_phase
 ZOO_TRAIN_ARGV = ["--dataset", "synthetic_cub", "--batch_size", "8", "--lr", "1e-2",
                   "--num_epochs", "1", "--num_steps_per_epoch", "3",
                   "--num_val_steps_per_epoch", "1", "--log_interval", "1000"]
@@ -3871,10 +3889,11 @@ def calibrate_batchnorm(model, images) -> None:
         m.momentum = momentum
 
 
-def write_zoo_checkpoint(path: str, images) -> dict:
+def write_zoo_checkpoint(path: str, images, statistics=calibrate_batchnorm) -> dict:
     """A torchvision-named ResNet-50 state dict from the port's own model
-    under a fixed generator, its BatchNorm statistics calibrated on
-    ``images`` on the card, plus an ``fc`` classifier the loader must
+    under a fixed generator, its BatchNorm statistics set on ``images`` on
+    the card by ``statistics`` (``calibrate_batchnorm``, or
+    ``trained_like_batchnorm``), plus an ``fc`` classifier the loader must
     ignore, saved at ``path``. Returns the state dict (CPU tensors)."""
     import torch
 
@@ -3882,7 +3901,7 @@ def write_zoo_checkpoint(path: str, images) -> dict:
 
     g = torch.Generator().manual_seed(ZOO_CKPT_SEED)
     model = load_model("resnet50", device="cuda", generator=g)
-    calibrate_batchnorm(model, images)
+    statistics(model, images)
     sd = {k: v.cpu() for k, v in model.state_dict().items()}
     sd["fc.weight"] = torch.randn(1000, 2048, generator=g) * 0.01
     sd["fc.bias"] = torch.zeros(1000)
@@ -3909,7 +3928,7 @@ def zoo_serving_phase(datasets, workdir: str) -> dict:
 
     train_ds, val_ds = datasets
     calib = train_ds.gather(np.arange(ZOO_CALIB_IMAGES))
-    path = os.path.join(workdir, "resnet50_torchvision.pth")
+    path = os.path.join(workdir, ZOO_CKPT_FILE)
     t0 = time.perf_counter()
     sd = write_zoo_checkpoint(path, calib)
     print(f"zoo: wrote {path} ({len(sd)} tensors, fc.* included) in "
@@ -4086,6 +4105,328 @@ def zoo_update_entries(entries: list, kern: dict, served: dict, trained: dict) -
                       "d2048_bound_ms": t["bound_ms"], "d2048_bound_by": t["bound_by"]})
 
 
+# ---------------------------------------------------------------------------
+# The int8 CNN featurizers: ResNet-50 (from the zoo's written checkpoint),
+# ResNeXt-50, DenseNet-121 and ResNet-18 served through the int8 conv route
+# (ops/int8_conv.py) into K2, K4 and K5.
+# ---------------------------------------------------------------------------
+
+# name, flags, serves a written checkpoint (--pretrained_path), head
+# precision, the backbone's int8 convs a request, the feature gates against
+# the f32 model (max|d| / max|f|, min cosine; None: no gate): JAX's
+# (tests/test_quantize.py: resnet10's for the ResNets, resnext50_32x4d's,
+# densenet121's).
+INT8_CNN_CONFIGS = (
+    ("r50_int8_f32", ["--arch", "resnet50"], True, "f32", 16 * 3 + 4, (0.05, 0.995)),
+    ("r50_int8_int8", ["--arch", "resnet50", "--head_precision", "int8"], True, "int8",
+     16 * 3 + 4, (0.05, 0.995)),
+    ("rx50_int8_f32", ["--arch", "resnext50_32x4d"], False, "f32", 16 * 3 + 4, (0.06, None)),
+    ("d121_int8_int8", ["--arch", "densenet121", "--head_precision", "int8"], False, "int8",
+     (6 + 12 + 24 + 16) * 2 + 3, (0.08, 0.99)),
+    ("r18_int8_int4", ["--arch", "resnet18", "--head_precision", "int4"], False, "int4",
+     8 * 2 + 3, (0.05, 0.995)),
+)
+INT8_CKPT_FILE = "resnet50_trained_like.pth"
+INT8_CALIB_SHOWN = 64  # the first calibration images, their agreement printed
+# ResNeXt-50 32x4d's grouped 3x3 convs (B, H, channels, stride) timed on the
+# block-diagonal route and on one K- and N-padded GEMM per group.
+GROUPED_CASES = (("rx50_layer1", 64, 56, 128, 1), ("rx50_layer4", 64, 7, 1024, 1))
+
+
+def trained_like_batchnorm(model, images, passes: int = 3) -> None:
+    """Every BatchNorm's running statistics moved from the init's (0, 1)
+    by ``passes`` train-mode passes over ``images`` at the model's momentum
+    (0.1), no gradient: the JAX package's ``_init_trained_like``
+    (``tests/test_quantize.py``), where its int8 feature gates were set.
+    ``calibrate_batchnorm``'s exact batch statistics leave channels of
+    near-zero variance, which ``1 / sqrt(var + eps)`` turns into outlier
+    channels of a random network; one such channel sets a per-tensor
+    activation scale for all (PTQ of a trained network does not meet them:
+    its BatchNorm scales are small there)."""
+    import torch
+
+    device = next(model.parameters()).device
+    x = torch.as_tensor(images).to(device)
+    model.train()
+    with torch.no_grad():
+        for _ in range(passes):
+            model(x)
+    model.eval()
+
+
+def _event_split(fn, parts: dict, reps: int = 5) -> dict:
+    """``fn()`` timed by CUDA events, and inside it the calls of each
+    ``parts`` entry (label -> (module, attribute)), each wrapped to record
+    events around itself: the median over ``reps`` calls of the total and of
+    each part's summed ms, and the GEMM's operations and bytes (the
+    unpadded problem's) a call."""
+    import torch
+
+    spans = {k: [] for k in parts}
+    work = {"gemm_ops": 0, "gemm_bytes": 0}
+    saved = {k: getattr(m, a) for k, (m, a) in parts.items()}
+
+    def wrap(label, orig):
+        def wrapped(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = orig(*args, **kwargs)
+            end.record()
+            spans[label].append((start, end))
+            if label == "int_mm":
+                (M, K), N = args[0].shape, args[1].shape[0]
+                work["gemm_ops"] += 2 * M * K * N
+                work["gemm_bytes"] += M * K + N * K + 4 * M * N
+            return out
+        return wrapped
+
+    rows = []
+    try:
+        for k, (m, a) in parts.items():
+            setattr(m, a, wrap(k, saved[k]))
+        for _ in range(reps):
+            for v in spans.values():
+                v.clear()
+            work.update(gemm_ops=0, gemm_bytes=0)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            rows.append({"total_ms": start.elapsed_time(end),
+                         **{k: sum(s.elapsed_time(e) for s, e in v) for k, v in spans.items()},
+                         "calls": {k: len(v) for k, v in spans.items()}})
+    finally:
+        for k, (m, a) in parts.items():
+            setattr(m, a, saved[k])
+    out = {k: float(np.median([r[k] for r in rows])) for k in ["total_ms", *parts]}
+    out["rest_ms"] = out["total_ms"] - sum(out[k] for k in parts)
+    out.update(calls=rows[-1]["calls"], **work)
+    return out
+
+
+def _grouped_per_group(codes, wq, stride: int, padding: int, groups: int):
+    """A grouped conv as one ``_gemm`` per group, each group's K and N
+    zero-padded to 8 inside ``_gemm``: the other exact route, timed beside
+    the block-diagonal one."""
+    import torch
+
+    from nwhead_tpu_torch.ops import int8_conv as IC
+
+    kh, kw, cpg, cout = wq.shape
+    opg = cout // groups
+    a, (B, Ho, Wo) = IC._im2col(codes, kh, kw, stride, padding)
+    a = a.view(-1, kh * kw, groups, cpg)
+    outs = []
+    for g in range(groups):
+        w_g = wq[..., g * opg:(g + 1) * opg].reshape(kh * kw * cpg, opg).t().contiguous()
+        outs.append(IC._gemm(a[:, :, g, :].reshape(-1, kh * kw * cpg), w_g))
+    return torch.cat(outs, dim=1).reshape(B, Ho, Wo, cout)
+
+
+def grouped_route_phase(flush) -> dict:
+    """ResNeXt-50's grouped 3x3 convs (``GROUPED_CASES``) on the two exact
+    routes: the block-diagonal dense weight in one GEMM (the route) and one
+    K- and N-padded GEMM per group; both bit-equal to the plain version,
+    timed (``time_ms``), the dense route's GEMM weight made once as
+    ``QConv`` keeps it."""
+    import torch
+
+    from nwhead_tpu_torch.ops import int8_conv as IC
+
+    out = {}
+    for name, B, H, C, stride in GROUPED_CASES:
+        rng = np.random.default_rng(2300)
+        codes = torch.from_numpy(rng.integers(-127, 128, (B, H, H, C)).astype(np.int8)).cuda()
+        wq = torch.from_numpy(rng.integers(-127, 128, (3, 3, C // 32, C)).astype(np.int8)).cuda()
+        w_gemm = IC.gemm_weight(wq, 32)
+        dense = IC.int8_conv2d_cuda(codes, wq, stride, 1, 32, w_gemm)
+        per_group = _grouped_per_group(codes, wq, stride, 1, 32)
+        want = IC._int8_conv2d_plain(codes, wq, stride, 1, 32)
+        torch.cuda.synchronize()
+        if not (torch.equal(dense, want) and torch.equal(per_group, want)):
+            raise AssertionError(f"grouped conv {name}: a route differs from the plain version")
+        r = {"block_diagonal_ms": time_ms(lambda: IC.int8_conv2d_cuda(codes, wq, stride, 1, 32,
+                                                                         w_gemm), flush),
+             "per_group_ms": time_ms(lambda: _grouped_per_group(codes, wq, stride, 1, 32), flush),
+             "cudnn_bf16_grouped_ms": time_ms(lambda: torch.nn.functional.conv2d(
+                 codes.permute(0, 3, 1, 2).to(torch.bfloat16),
+                 wq.permute(3, 2, 0, 1).to(torch.bfloat16), stride=stride, padding=1, groups=32),
+                 flush)}
+        print(f"grouped int8 conv {name} (B={B}, {H}x{H}, {C} channels, 32 groups of {C // 32}): "
+              f"block-diagonal {r['block_diagonal_ms']:.4f} ms, one padded GEMM a group "
+              f"{r['per_group_ms']:.4f} ms, cuDNN bf16 grouped conv (a yardstick, not the same "
+              f"function) {r['cudnn_bf16_grouped_ms']:.4f} ms; both routes bit-equal to plain")
+        out[name] = r
+    return out
+
+
+def _feature_agreement(q, model, x) -> tuple:
+    """``(max|d| / max|f|, min cosine)`` of the quantized features against
+    the f32 model's on the images ``x``."""
+    import torch
+
+    with torch.inference_mode():
+        got, want = q(x), model(x)
+    rel = float((got - want).abs().max() / want.abs().max())
+    cos = float(torch.nn.functional.cosine_similarity(got.double(), want.double(), dim=1).min())
+    return rel, cos, bool(torch.isfinite(got).all())
+
+
+def int8_cnn_serving_phase(datasets, workdir: str, zoo_served: dict) -> dict:
+    """``INT8_CNN_CONFIGS`` through the serve module at B=64 on
+    ``synthetic_cub`` with ``--featurizer_precision int8`` (256 calibration
+    images): ResNet-50 from a written torchvision-format checkpoint
+    (``--pretrained_path``) with an f32 and an int8 head (K2 at D = 2,048,
+    K4), ResNeXt-50 32x4d (the grouped route), DenseNet-121 with an int8
+    head (K4 at D = 1,024) and ResNet-18 with an int4 head (K5); every
+    backbone's BatchNorm statistics set by ``trained_like_batchnorm`` on 64
+    training images first (the checkpoint's when it is written). Checks,
+    per request, one launch of the head's kernel (no other) and as many
+    ``int8_conv2d_cuda`` launches as the backbone has int8 convs; the
+    served log-probs against the plain head on the same features; the
+    features bit-equal to the same featurizer on the int8 route's plain
+    version on the card; the served batch's features against the f32
+    model's at JAX's gates (the agreement on the first 64 calibration
+    images, where JAX's test reads its gates, is printed beside it). Every
+    config runs before the phase fails on any check. Prints p50, p95, queries/s, the calibration's and the bank's
+    seconds, peak memory, one featurizer call split by CUDA events (im2col,
+    ``_int_mm``, the bf16 stem, the rest: the quantize and dequantize
+    chains, ReLUs, residual adds, concatenations, pools), and the zoo
+    phase's ResNet-50 f32 and ``--bf16`` p50s beside them. Also prints,
+    with no gate, the int8 features' agreement on the zoo phase's
+    checkpoint, whose statistics ``calibrate_batchnorm`` set."""
+    import os
+
+    import torch
+
+    from nwhead_tpu_torch import serve
+    from nwhead_tpu_torch.models import load_model
+    from nwhead_tpu_torch.models import quantize as TQ
+    from nwhead_tpu_torch.ops import int8_conv as IC
+
+    train_ds, val_ds = datasets
+    calib = train_ds.gather(np.arange(ZOO_CALIB_IMAGES))
+    path = os.path.join(workdir, INT8_CKPT_FILE)
+    write_zoo_checkpoint(path, calib, trained_like_batchnorm)
+    cli = serve.parse_args(ZOO_SERVE_ARGV)
+    dev, n_cal = torch.device(cli.device), cli.calib_images
+    calib_x = torch.from_numpy(train_ds.gather(np.arange(INT8_CALIB_SHOWN))).to(dev)
+    zoo_model = load_model("resnet50", device=dev, pretrained=os.path.join(workdir, ZOO_CKPT_FILE))
+    zoo_q = TQ.quantize_featurizer(zoo_model, train_ds.gather(np.arange(n_cal)))
+    zoo_rel, zoo_cos, _ = _feature_agreement(zoo_q, zoo_model, calib_x)
+    print(f"int8 cnn finding (no gate): ResNet-50 of the zoo phase's checkpoint "
+          f"(calibrate_batchnorm's statistics) quantized on {n_cal} images: features vs the "
+          f"f32 model on the first {INT8_CALIB_SHOWN} of them max|d|/max|f| {zoo_rel:.4f}, "
+          f"min cosine {zoo_cos:.5f}")
+    del zoo_model, zoo_q
+    out = {"zoo_checkpoint": {"feature_rel": zoo_rel, "feature_cos": zoo_cos}}
+    failed = []
+    for name, flags, pretrained, prec, n_convs, (rel_gate, cos_gate) in INT8_CNN_CONFIGS:
+        args = serve.parse_args(ZOO_SERVE_ARGV + flags + ["--featurizer_precision", "int8"]
+                                + (["--pretrained_path", path] if pretrained else []))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        net = serve.build_server(args, train_ds, edit=None if pretrained else (
+            lambda n: trained_like_batchnorm(n.model.featurizer, calib)))
+        q = net.serving_featurizer
+        have = sum(isinstance(m, TQ.QConv) for m in q.modules())
+        if have != n_convs:
+            raise AssertionError(f"{name}: {type(q).__name__} holds {have} int8 convs, want "
+                                 f"{n_convs}")
+        head = HEAD_WRAPPERS[prec]
+        serve_fn = net.make_serving_fn()
+        x = val_ds.gather(np.arange(args.batch_size))
+        _counts(reset=True)
+        IC.int8_conv2d_cuda.launches = 0
+        served = serve_fn(x)
+        torch.cuda.synchronize()
+        per_request = {**_counts(), "int8_conv2d_cuda": IC.int8_conv2d_cuda.launches}
+        _counts(reset=True)
+        IC.int8_conv2d_cuda.launches = 0
+        report = serve.latency_bench(net, val_ds, args)
+        torch.cuda.synchronize()
+        launches = {**_counts(), "int8_conv2d_cuda": IC.int8_conv2d_cuda.launches}
+        peak = torch.cuda.max_memory_allocated()
+        requests = report["batches"] + 3  # the latency run's warm-up requests count too
+        expect = {n: 0 for n in WRAPPERS}
+        expect.update({head: 1, "int8_conv2d_cuda": n_convs})
+        if per_request != expect or launches != {n: c * requests for n, c in expect.items()}:
+            raise AssertionError(f"{name}: launches {per_request} per request, {launches} over "
+                                 f"{requests} requests; want {expect} a request")
+        xt = torch.from_numpy(x).to(net.device)
+        with torch.inference_mode():
+            feats = net._featurize_eval(xt)
+            plain = plain_head(net, feats)
+            saved = IC.int8_conv2d_cuda
+            IC.int8_conv2d_cuda = lambda c, w, s, p, g=1, w_gemm=None: IC._int8_conv2d_plain(
+                c, w, s, p, g)
+            try:
+                plain_route = q(xt)
+            finally:
+                IC.int8_conv2d_cuda = saved
+        torch.cuda.synchronize()
+        err = float((served - plain).abs().max())
+        head_ok = (tuple(served.shape) == (args.batch_size, net.n_classes)
+                   and bool(torch.isfinite(served).all()) and within(served, plain, **HEAD_TOL[prec]))
+        same = bool(torch.equal(feats, plain_route))
+        rel, cos, finite = _feature_agreement(q, net.model.featurizer, xt)
+        cal_rel, cal_cos, _ = _feature_agreement(q, net.model.featurizer, calib_x)
+        feats_ok = finite and rel < rel_gate and (cos_gate is None or cos > cos_gate)
+        split = _event_split(lambda: q(xt), {"im2col": (IC, "_im2col"), "int_mm": (IC, "_gemm"),
+                                             "stem": (TQ, "stem_conv_bf16")})
+        gemm_bound = bound(split["gemm_bytes"], split["gemm_ops"], "int8")
+        print(f"int8 cnn {name}: {type(q).__name__} (D={feats.shape[1]}), {n_convs} int8 convs; "
+              f"a request: {head} {per_request[head]}, int8_conv2d_cuda "
+              f"{per_request['int8_conv2d_cuda']} ({launches['int8_conv2d_cuda']} over {requests} "
+              f"requests); served vs the plain head max|err| {err:.3e} "
+              f"{'ok' if head_ok else 'FAIL'}; features vs the plain route on the card bit-equal: "
+              f"{same}; vs the f32 model max|d|/max|f| {rel:.4f} (gate {rel_gate}), min cosine "
+              f"{cos:.5f} (gate {cos_gate}) {'ok' if feats_ok else 'FAIL'}, on the first "
+              f"{INT8_CALIB_SHOWN} calibration images {cal_rel:.4f} / {cal_cos:.5f}; "
+              f"calibration {net.calibration_seconds:.2f}s, bank S={net._prepared_full.s.shape[0]} "
+              f"{net._prepared_full.s.dtype} in {net.precompute_seconds:.2f}s; p50 "
+              f"{report['p50_ms']:.3f} ms, p95 {report['p95_ms']:.3f} ms, "
+              f"{report['queries_per_sec']:.1f} q/s; peak device memory {peak / 2**30:.2f} GiB")
+        print(f"split int8 cnn {name} featurizer (B=64, CUDA events, median of 5): total "
+              f"{split['total_ms']:.3f} ms = im2col {split['im2col']:.3f} ms ({split['calls']['im2col']}"
+              f" calls) + _int_mm {split['int_mm']:.3f} ms ({split['calls']['int_mm']} calls; "
+              f"{split['gemm_ops'] / 1e9:.1f} G int8 ops, {split['gemm_bytes'] / 1e6:.1f} MB, bound "
+              f"{gemm_bound['bound_ms']:.3f} ms by {gemm_bound['bound_by']}) + bf16 stem "
+              f"{split['stem']:.3f} ms + the rest {split['rest_ms']:.3f} ms")
+        failed += [f"{name}: {what}" for what, ok in (
+            ("served log-probs disagree with the plain head", head_ok),
+            ("the int8 route's features differ from its plain version", same),
+            (f"int8 features off the f32 model's ({rel}, {cos})", feats_ok)) if not ok]
+        out[name] = {"launches": launches, "head": head, "prec": prec, "report": report,
+                     "served_err": err, "calibration_s": net.calibration_seconds,
+                     "precompute_s": net.precompute_seconds, "peak_bytes": peak,
+                     "feature_rel": rel, "feature_cos": cos, "calib_rel": cal_rel,
+                     "calib_cos": cal_cos, "split": split}
+        del net, serve_fn, q
+        torch.cuda.empty_cache()
+    beside = {k: zoo_served[k]["report"]["p50_ms"] for k in ("r50_pretrained_f32",
+                                                             "r50_bf16_backbone")}
+    print(f"ResNet-50 p50 at B=64 in this run: int8 featurizer {out['r50_int8_f32']['report']['p50_ms']:.3f}"
+          f" ms (f32 head), f32 backbone {beside['r50_pretrained_f32']:.3f} ms, --bf16 backbone "
+          f"{beside['r50_bf16_backbone']:.3f} ms")
+    if failed:
+        raise AssertionError("int8 CNN serving: " + "; ".join(failed))
+    return out
+
+
+def int8_cnn_update_entries(entries: list, served: dict) -> None:
+    """The int8 CNN phase's launches and errors added to the K2, K4 and K5
+    entries of the ``kernels`` line."""
+    by_name = {e["name"]: e for e in entries}
+    for run in served.values():
+        if "prec" not in run:
+            continue
+        e = by_name[f"nw_prepared_{run['prec']}"]
+        e["launches"] += run["launches"][run["head"]]
+        e["max_abs_err"] = max(e["max_abs_err"], run["served_err"])
+
+
 def main() -> int:
     import torch
 
@@ -4147,6 +4488,9 @@ def main() -> int:
     t0 = time.perf_counter()
     zoo_kern = zoo_kernel_phase(flush)
     phase_s["zoo kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grouped_route_phase(flush)
+    phase_s["grouped int8 conv routes"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     vit_kern = vit_kernel_phase(flush)
     phase_s["ViT kernels"] = time.perf_counter() - t0
@@ -4217,6 +4561,9 @@ def main() -> int:
         t0 = time.perf_counter()
         zoo_trained = zoo_training_phase(datasets, workdir)
         phase_s["zoo training"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        int8_cnn_served = int8_cnn_serving_phase(datasets, workdir, zoo_served)
+        phase_s["int8 CNN serving"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
@@ -4263,6 +4610,7 @@ def main() -> int:
     entries += sharded_entries(sharded_kern, sharded_served, mesh_served, ret)
     entries += lab_entries(lab_kern, labs)
     zoo_update_entries(entries, zoo_kern, zoo_served, zoo_trained)
+    int8_cnn_update_entries(entries, int8_cnn_served)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

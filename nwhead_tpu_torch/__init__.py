@@ -19,7 +19,9 @@ nwhead_tpu_torch.train``: ResNet or ViT featurizer -> ``NWModel.forward``
 K7/K8 and the K9 forward and backward) and serving (``NWNet.precompute`` ->
 ``prepare_support`` -> ``NWNet.make_serving_fn``, K2) with a ResNet or a ViT
 featurizer (``--fused_inference``: K7/K9; ``NWNet.fuse_featurizer``, the
-bf16 serving graph: K10/K11), int8/int4 banks (K4/K5) and IVF-pruned
+bf16 serving graph: K10/K11; ``NWNet.quantize_featurizer``, the int8
+featurizers: a ViT's K10/K11 int8, a ResNet's, ResNeXt's or DenseNet's int8
+convs on ``ops/int8_conv.py``), int8/int4 banks (K4/K5) and IVF-pruned
 serving (``ops/ivf.py``, ``--serve_mode ivf``: K6 over the bank tiles a
 batch routes to), support-sharded serving (``parallel``: a bank split over
 a mesh's devices, each shard's partials merged exactly; ``NWNet(mesh=...)``,

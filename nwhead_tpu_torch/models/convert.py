@@ -34,12 +34,14 @@ BatchNorms (with their statistics) and Dense layers.
 ViT, which has none), the optional ``proj`` Dense layer and the head's
 ``logit_scale``.
 
-``jax_to_torch_quantized_vit`` carries a JAX ``QuantizedViT``
-(``nwhead_tpu/models/quantize.py``: int8 kernels ``(in, out)`` as they are,
-their scales, the activation scales as floats, the bf16 HWIO patch kernel
-to OIHW) into the port's ``QuantizedViT``, so that both run on identical
-int8 weights and scales. It reads the arrays with ``np.asarray`` and
-imports nothing of the JAX package.
+``jax_to_torch_quantized_vit``, ``jax_to_torch_quantized_resnet`` and
+``jax_to_torch_quantized_densenet`` carry a JAX ``QuantizedViT``,
+``QuantizedResNet`` or ``QuantizedDenseNet`` (``nwhead_tpu/models/quantize.py``:
+int8 Dense kernels ``(in, out)`` and int8 HWIO conv kernels as they are,
+their scales and biases, the activation scales as floats, the BatchNorm
+affines, the bf16 HWIO stem or patch kernel to OIHW) into the port's, so
+that both run on identical int8 weights and scales. They read the arrays
+with ``np.asarray`` and import nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -259,3 +261,50 @@ def jax_to_torch_quantized_vit(q: Any):
     return QuantizedViT(torch.from_numpy(patch_w), _np32(q.patch_b), _np32(q.cls_token),
                         _np32(q.pos_embed), _np32(q.final_norm.scale), _np32(q.final_norm.bias),
                         int(q.patch_size), int(q.num_heads), blocks).eval()
+
+
+def _qconv(qc):
+    """A JAX ``QConv`` (int8 HWIO ``wq``, ``w_scale``, ``bias``,
+    ``act_scale``, ``stride``, ``padding``, ``groups``) as the port's."""
+    from nwhead_tpu_torch.models.quantize import QConv, _padding
+
+    return QConv(torch.from_numpy(np.asarray(qc.wq, np.int8).copy()), _np32(qc.w_scale),
+                 _np32(qc.bias), float(np.asarray(qc.act_scale, np.float32)), int(qc.stride),
+                 _padding(qc.padding), int(qc.groups))
+
+
+def _oihw32(w) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(w, np.float32).transpose(3, 2, 0, 1)))
+
+
+def jax_to_torch_quantized_resnet(q: Any):
+    """A JAX ``QuantizedResNet`` (``stem_w`` HWIO bf16, ``stem_b``,
+    ``stem_stride``, ``stem_padding``, ``blocks`` of ``QBlock``) ->
+    ``nwhead_tpu_torch.models.quantize.QuantizedResNet`` on the CPU."""
+    from nwhead_tpu_torch.models.quantize import QBlock, QuantizedResNet, _padding
+
+    blocks = [QBlock(b.kind, [_qconv(c) for c in b.convs],
+                     None if b.downsample is None else _qconv(b.downsample)) for b in q.blocks]
+    return QuantizedResNet(_oihw32(q.stem_w), _np32(q.stem_b), int(q.stem_stride),
+                           _padding(q.stem_padding), blocks).eval()
+
+
+def jax_to_torch_quantized_densenet(q: Any):
+    """A JAX ``QuantizedDenseNet`` (``stem_w`` HWIO bf16, ``bn0``, ``blocks``
+    of ``QDenseLayer``, ``transitions`` of ``(QAffine, QConv)`` or None for
+    the last block, ``final_bn``) ->
+    ``nwhead_tpu_torch.models.quantize.QuantizedDenseNet`` on the CPU."""
+    from nwhead_tpu_torch.models.quantize import (
+        QAffine, QDenseLayer, QTransition, QuantizedDenseNet,
+    )
+
+    def affine(a) -> QAffine:
+        return QAffine(_np32(a.scale), _np32(a.shift))
+
+    blocks = [[QDenseLayer(affine(layer.bn1), _qconv(layer.conv1), affine(layer.bn2),
+                           _qconv(layer.conv2)) for layer in block] for block in q.blocks]
+    if any(t is None for t in q.transitions[:-1]) or q.transitions[-1] is not None:
+        raise ValueError("a DenseNet has a transition after every dense block but the last")
+    transitions = [QTransition(affine(t[0]), _qconv(t[1])) for t in q.transitions[:-1]]
+    return QuantizedDenseNet(_oihw32(q.stem_w), affine(q.bn0), blocks, transitions,
+                             affine(q.final_bn)).eval()

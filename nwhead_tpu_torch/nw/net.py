@@ -20,8 +20,11 @@ the heads over the environments' banks (each a K1 launch from
 run the head over the union of the batch's neighbours, exact
 (``ops/knn.py``) or from the HNSW graph (``native/hnsw.py``).
 ``fuse_featurizer`` swaps the eval and serving featurizer of a ViT for the
-bf16 fused-serving graph (K10/K11), ``quantize_featurizer`` for the int8
-one (K10/K11 int8). With a ``mesh`` (``parallel/mesh.py``), ``precompute``
+bf16 fused-serving graph (K10/K11), ``quantize_featurizer`` that of a ViT,
+ResNet/ResNeXt or DenseNet for the int8 one (K10/K11 int8; the CNNs' int8
+convs, ``ops/int8_conv.py``); either remembers the weights it was built
+from, and the eval and serving paths refuse to run once those changed
+(``_check_serving_source``). With a ``mesh`` (``parallel/mesh.py``), ``precompute``
 splits the bank over the mesh's support axis instead
 (``parallel.ShardedSupportBank``) and modes ``full`` and ``ivf`` serve from
 the shards, as do ``ensemble`` (each environment's bank split the same way)
@@ -205,8 +208,9 @@ class NWNet:
         self._sharded_knn_cache = None
         self._sharded_ensemble_cache = None
         # Eval/serving featurizer set by fuse_featurizer or quantize_featurizer
-        # (None: the model's).
+        # (None: the model's), and what it was built from (_record_source).
         self.serving_featurizer: Optional[nn.Module] = None
+        self._source = self._source_fp = None
 
     def process_support_eval(self, support_dataset, **kwargs) -> None:
         """Swap in a new eval support dataset (the reference's
@@ -260,34 +264,94 @@ class NWNet:
 
         if not isinstance(self.model.featurizer, VisionTransformer):
             raise NotImplementedError(
-                "fuse_featurizer is the ViT bf16 fused-serving path; a "
-                f"{type(self.model.featurizer).__name__} backbone has none: it computes in "
-                "bf16 with load_model(..., dtype=torch.bfloat16) (its int8 PTQ through "
-                "quantize_featurizer is not ported yet: ROADMAP.md queue 1, item 8)")
+                "fuse_featurizer is the ViT bf16 fused-serving path; for a "
+                f"{type(self.model.featurizer).__name__} backbone use quantize_featurizer (int8) "
+                "or load_model(..., dtype=torch.bfloat16)")
         self.serving_featurizer = fuse_vit_serving(self.model.featurizer)
+        self._record_source()
         self._drop_serving_banks()
 
     def quantize_featurizer(self, calib_images, calib_batch: int = 64) -> None:
         """Swap the eval and serving featurizer for the int8 post-training-
-        quantized one (``models/quantize.py``: K10 int8 and K11 int8 per ViT
-        block), its activation scales calibrated on ``calib_images`` (NHWC,
-        post-transform) from the current weights. ``proj`` still applies.
-        Training (``forward``) keeps the float featurizer. The prepared bank
-        is dropped: run ``precompute`` after this, so that the bank is built
-        from the same quantized features as the queries. ViTs only so far
-        (a ResNet raises); serving only."""
+        quantized one (``models/quantize.py``: a ViT's K10 int8 and K11 int8
+        per block; a ResNet/ResNeXt's BN-folded int8 convs, a DenseNet's
+        int8 convs between BatchNorm affines, both through
+        ``ops/int8_conv.py``), its activation scales calibrated on
+        ``calib_images`` (NHWC, post-transform) from the current weights.
+        ``proj`` still applies. Training (``forward``) keeps the float
+        featurizer. The prepared bank is dropped: run ``precompute`` after
+        this, so that the bank is built from the same quantized features as
+        the queries. The CIFAR models raise; serving only."""
         from nwhead_tpu_torch.models.quantize import quantize_featurizer
 
         self.serving_featurizer = quantize_featurizer(self.model.featurizer, calib_images,
                                                       calib_batch)
+        self._record_source()
         self._drop_serving_banks()
+
+    def _source_tensors(self):
+        return list(self.model.featurizer.parameters()) + list(self.model.featurizer.buffers())
+
+    @staticmethod
+    def _versions(tensors):
+        """Each tensor's in-place version counter (None for an inference
+        tensor, which keeps none)."""
+        return tuple(None if t.is_inference() else t._version for t in tensors)
+
+    @staticmethod
+    def _fingerprint(tensors):
+        """Content fingerprint of the featurizer's weights, JAX's
+        ``_variables_fingerprint``: (shape, dtype, sum) of the 4 smallest
+        and the 4 largest tensors (small ones catch a BatchNorm or bias
+        edit, large ones a swapped backbone), the sums read back at once."""
+        by_size = sorted(tensors, key=lambda t: t.numel())
+        picked = list({id(t): t for t in by_size[:4] + by_size[-4:]}.values())
+        with torch.no_grad():
+            sums = torch.stack([t.detach().to(torch.float64).sum() for t in picked]).tolist()
+        return tuple((tuple(t.shape), str(t.dtype), s) for t, s in zip(picked, sums))
+
+    def _record_source(self) -> None:
+        """Remember the weights the serving featurizer was built from: the
+        tensors themselves (held, so that their ids cannot be reused),
+        their version counters and a content fingerprint."""
+        tensors = self._source_tensors()
+        self._source = (tensors, self._versions(tensors))
+        self._source_fp = self._fingerprint(tensors)
+
+    def _check_serving_source(self) -> None:
+        """Raise if the featurizer's weights changed since the serving
+        featurizer was built from them (it bakes them in), as JAX's
+        ``_check_quantized_variables``. Fast path, no device work: the same
+        tensor objects with the same version counters. Every in-place write
+        bumps a tensor's counter (``load_state_dict``'s ``copy_``, an
+        optimizer step, a BatchNorm's running statistics), and a replaced
+        tensor is another object, so an unchanged pair means unchanged
+        content. Otherwise (or for inference tensors, which keep no
+        counter) the content fingerprint decides: equal content, as a reload
+        of the same weights gives, is adopted; other content raises."""
+        if self.serving_featurizer is None:
+            return
+        tensors = self._source_tensors()
+        held, versions = self._source
+        if (len(tensors) == len(held) and all(a is b for a, b in zip(tensors, held))
+                and None not in versions and self._versions(tensors) == versions):
+            return
+        if self._fingerprint(tensors) != self._source_fp:
+            raise RuntimeError(
+                "the featurizer's weights changed since the serving featurizer was built from "
+                "them (its weights are baked in at quantize_featurizer() / fuse_featurizer() "
+                "time); re-run quantize_featurizer(calib_images) or fuse_featurizer() after "
+                "loading new weights")
+        self._source = (tensors, self._versions(tensors))
 
     def _featurize_eval(self, x: torch.Tensor) -> torch.Tensor:
         """Features of the eval and serving paths: the fused or quantized
-        serving featurizer when there is one (then ``proj``), else the
-        model's."""
+        serving featurizer when there is one (then ``proj``), after the
+        check that the weights it was built from are still the model's;
+        else the model's."""
         if self.serving_featurizer is None:
             return self.model.featurize(x)
+        self._check_serving_source()
         f = self.serving_featurizer(x)
         return f if self.model.proj is None else self.model.proj(f)
 
@@ -472,6 +536,7 @@ class NWNet:
         so a later ``precompute`` reaches existing serving callables."""
         if mode not in ("full", "ivf"):
             raise ValueError(f"make_serving_fn serves modes 'full' and 'ivf', got {mode!r}")
+        self._check_serving_source()
         if self.mesh is not None:
             if self._sharded_predict is None:
                 raise ValueError("make_serving_fn under a mesh needs the sharded bank: run "

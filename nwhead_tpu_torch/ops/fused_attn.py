@@ -105,7 +105,12 @@ def _layer_norm_int8(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 def quantize_act(x: torch.Tensor, act_scale: float) -> torch.Tensor:
     """Activation codes as the JAX int8 kernels compute them, in f32:
     ``clip(round(x * (1 / a)), -127, 127)``, a multiply by the reciprocal
-    (rounded once to f32), rounding half to even."""
+    (rounded once to f32), rounding half to even. The reciprocal taken in
+    double and rounded to f32 equals the f32 division ``f32(1) / f32(a)``
+    that ``quantize.py``'s conv chain takes: for an f32 ``a``, ``1 / a`` lies
+    either on an f32 midpoint (never: ``a`` would be a power of two) or at
+    least 2^-49 of itself away from one, so the double's rounding never
+    crosses it."""
     return torch.clamp(torch.round(x.to(torch.float32) * (1.0 / act_scale)), -127, 127)
 
 
@@ -115,6 +120,14 @@ def int8_dense_f32(codes: torch.Tensor, wq: torch.Tensor, act_scale: float,
     product of integers below 2^53), then ``acc * (a * w_scale) + bias`` in
     f32, the product of scales first (``pallas_attn.py:419-426``)."""
     acc = torch.matmul(codes.to(torch.float64), wq.to(torch.float64)).to(torch.float32)
+    return int8_epilogue(acc, act_scale, w_scale, bias)
+
+
+def int8_epilogue(acc: torch.Tensor, act_scale: float, w_scale: torch.Tensor,
+                  bias: torch.Tensor) -> torch.Tensor:
+    """Dequantize an int8 layer's f32 sums: ``acc * (a * w_scale) + bias``
+    in f32, the product of scales first, as the JAX int8 layers compute it
+    (``pallas_attn.py:419-426``, ``quantize.py:156``)."""
     return acc * (act_scale * w_scale.to(torch.float32)) + bias.to(torch.float32)
 
 

@@ -18,12 +18,15 @@ random, from ``--seed``. Run as::
         --mesh 1,1 --batch_size 64 --latency_bench
     python -m nwhead_tpu_torch.serve --dataset synthetic_cub --arch resnet50 \
         --pretrained_path resnet50.pth --head_precision bf16 --batch_size 64 --latency_bench
+    python -m nwhead_tpu_torch.serve --dataset synthetic_cub --arch resnet50 \
+        --featurizer_precision int8 --head_precision int8 --batch_size 64 --latency_bench
 
 ``--featurizer_precision bf16_fused`` serves a ViT through the bf16
 fused-serving graph (K10/K11 per block); ``--featurizer_precision int8``
-through the int8 post-training-quantized one (K10 int8 and K11 int8 per
-block), calibrated on the first ``--calib_images`` training images before
-the bank is built; ``--fused_inference`` runs a ViT's attention and MLP on
+through the int8 post-training-quantized one (a ViT's K10 int8 and K11 int8
+per block; an ImageNet ResNet's, ResNeXt's or DenseNet's int8 convs,
+``ops/int8_conv.py``, around a bf16 stem), calibrated on the first
+``--calib_images`` training images before the bank is built; ``--fused_inference`` runs a ViT's attention and MLP on
 K7 and K9; ``--bf16`` computes the featurizer in bf16 (a ViT, or a CNN with
 its BatchNorm statistics in f32); ``--pretrained_path`` merges a local
 torchvision- or DINOv2-format checkpoint into the backbone (``--arch`` takes
@@ -97,10 +100,6 @@ def featurizer_options(args) -> dict:
     build time); refuses what is not ported or does not apply (the JAX
     CLI's message for ``--fused_inference`` on a CNN)."""
     vit = args.arch in VIT_NAMES
-    if args.featurizer_precision == "int8" and not vit:
-        raise NotImplementedError(
-            "--featurizer_precision int8 of a ResNet (its int8 PTQ) is not ported yet "
-            "(ROADMAP.md queue 1, item 8); the ViTs' is")
     if args.featurizer_precision == "bf16_fused" and not vit:
         raise NotImplementedError(
             f"--featurizer_precision bf16_fused with --arch {args.arch}: the bf16 "
@@ -249,8 +248,9 @@ def parse_args(argv=None):
     p.add_argument("--head_precision", default="f32", choices=["f32", "bf16", "int8", "int4"],
                    help="the prepared bank: f32/bf16 (K2), int8 (K4) or int4 (K5)")
     p.add_argument("--featurizer_precision", default="f32", choices=["f32", "int8", "bf16_fused"],
-                   help="int8: a ViT's int8 post-training-quantized graph (K10/K11 int8); "
-                        "bf16_fused: a ViT's bf16 fused-serving graph (K10/K11)")
+                   help="int8: the int8 post-training-quantized featurizer (a ViT's K10/K11 "
+                        "int8, a ResNet's, ResNeXt's or DenseNet's int8 convs); bf16_fused: a "
+                        "ViT's bf16 fused-serving graph (K10/K11)")
     p.add_argument("--calib_images", type=int, default=256,
                    help="training images that calibrate --featurizer_precision int8")
     p.add_argument("--fused_inference", action="store_true",

@@ -111,8 +111,7 @@ def test_trainer_default_modes_include_cluster():
 @pytest.mark.parametrize("flags,item", [
     (["--bank_cache", "/nonexistent"], "item 11"),
     (["--workers", "4"], "item 11"), (["--decoder", "pil"], "item 11"),
-    (["--bf16", "--featurizer_precision", "int8"], "item 8"),
-    (["--featurizer_precision", "int8"], "item 8"),
+    (["--dataset", "bird"], "item 11"),
 ])
 def test_eval_cli_refusals_name_their_items(flags, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -34,7 +34,8 @@ MODULES = (
     "nwhead_tpu_torch.labs", "nwhead_tpu_torch.labs.timing", "nwhead_tpu_torch.labs.stream",
     "nwhead_tpu_torch.labs.kernel_lab", "nwhead_tpu_torch.labs.manual_pipe_lab",
     "nwhead_tpu_torch.labs.prepared_lab", "nwhead_tpu_torch.labs.roofline_lab",
-    "nwhead_tpu_torch.labs.block_lab",
+    "nwhead_tpu_torch.labs.block_lab", "nwhead_tpu_torch.models.quantize",
+    "nwhead_tpu_torch.ops.int8_conv",
 )
 
 

@@ -468,10 +468,65 @@ def test_serve_builds_the_int8_stack_on_cpu():
             FA.attention_block_int8_cuda.launches) == before  # plain versions on the CPU
 
 
-def test_quantize_featurizer_refuses_a_resnet():
+@pytest.mark.parametrize("arch,kw", [("CIFAR_ResNet10", {}), ("CIFAR_DenseNet121", {})])
+def test_quantize_featurizer_refuses_the_cifar_models(arch, kw):
+    """JAX refuses the CIFAR ResNets and DenseNet; so does the port."""
     from nwhead_tpu_torch.models import load_model
     from nwhead_tpu_torch.nw.net import NWNet
 
-    net = NWNet(load_model("resnet10", device="cpu"), 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+    net = NWNet(load_model(arch, device="cpu", **kw), 4, device="cpu")
+    with pytest.raises(NotImplementedError, match="CIFAR"):
         net.quantize_featurizer(np.zeros((2, 32, 32, 3), np.float32))
+    assert net.serving_featurizer is None
+
+
+def test_quantize_featurizer_refuses_the_s2d_stem():
+    from nwhead_tpu_torch.models import load_model
+    from nwhead_tpu_torch.nw.net import NWNet
+
+    net = NWNet(load_model("resnet10", device="cpu", stem="s2d"), 4, device="cpu")
+    with pytest.raises(NotImplementedError, match="conv7"):
+        net.quantize_featurizer(np.zeros((2, 32, 32, 3), np.float32))
+
+
+def _served_net(arch, swap):
+    """A CPU ``NWNet`` over a small synthetic bank, its featurizer swapped by
+    ``swap`` (``quantize_featurizer`` or ``fuse_featurizer``)."""
+    from nwhead_tpu_torch.data.datasets import make_synthetic_dataset
+    from nwhead_tpu_torch.models import load_model
+    from nwhead_tpu_torch.nw.net import NWNet
+
+    ds = make_synthetic_dataset(n=24, n_classes=3, size=32, seed=0)
+    model = load_model(arch, device="cpu", generator=torch.Generator().manual_seed(0))
+    net = NWNet(model, 3, support_dataset=ds, device="cpu", n_shot_full=4, fused_min_support=1)
+    if swap == "quantize_featurizer":
+        net.quantize_featurizer(ds.gather(np.arange(8)))
+    else:
+        net.fuse_featurizer()
+    return net, ds.gather(np.arange(4))
+
+
+@pytest.mark.parametrize("arch,swap", [("resnet10", "quantize_featurizer"),
+                                       ("vit_s16", "fuse_featurizer")])
+def test_serving_featurizer_refuses_stale_weights(arch, swap):
+    """The serving featurizer bakes in the weights it was built from, as in
+    JAX (``_check_quantized_variables``): after ``load_state_dict`` of
+    equal weights precompute, predict and the serving function run on;
+    after other weights they raise, naming ``quantize_featurizer``."""
+    net, x = _served_net(arch, swap)
+    net.precompute()
+    want = net.predict(x, "full")
+    same = {k: v.clone() for k, v in net.model.state_dict().items()}
+    net.model.load_state_dict(same)
+    assert torch.equal(net.predict(x, "full"), want)
+    net.precompute()
+    serve = net.make_serving_fn()
+    assert torch.equal(serve(x), want)
+    net.model.load_state_dict({k: v + 1 for k, v in same.items()})
+    for call in (net.precompute, lambda: net.predict(x, "full"), lambda: serve(x),
+                 net.make_serving_fn):
+        with pytest.raises(RuntimeError, match="quantize_featurizer"):
+            call()
+    getattr(net, swap)(*([x] if swap == "quantize_featurizer" else []))
+    net.precompute()
+    assert torch.isfinite(net.predict(x, "full")).all()

@@ -107,13 +107,9 @@ def test_serve_builds_the_fused_inference_server_on_cpu():
 
 
 @pytest.mark.parametrize("argv,error,match", [
-    (["--featurizer_precision", "int8", "--arch", "resnet10"], NotImplementedError,
-     "queue 1, item 8"),
     (["--fused_inference", "--arch", "resnet10"], SystemExit, "ViT archs only"),
     (["--featurizer_precision", "bf16_fused", "--arch", "resnet10"], NotImplementedError,
      "graph is ViT-only"),
-    (["--bf16", "--featurizer_precision", "int8", "--arch", "resnet10"], NotImplementedError,
-     "queue 1, item 8"),
 ])
 def test_serve_refuses_what_is_not_ported(argv, error, match):
     args = serve.parse_args(["--device", "cpu", "--dataset", "synthetic", "--latency_bench"]
@@ -122,6 +118,23 @@ def test_serve_refuses_what_is_not_ported(argv, error, match):
         serve.main(["--device", "cpu", "--dataset", "synthetic", "--latency_bench"] + argv)
     with pytest.raises(error, match=match):
         serve.featurizer_options(args)
+
+
+@pytest.mark.parametrize("argv", [[], ["--bf16"]], ids=["f32", "bf16"])
+def test_serve_takes_an_int8_cnn_featurizer(argv):
+    """``--featurizer_precision int8`` on a ResNet, with or without
+    ``--bf16`` (the quantizer reads the parameters in f32, as JAX's does):
+    the options pass and the server holds the quantized featurizer."""
+    from nwhead_tpu_torch.models.quantize import QuantizedResNet
+
+    args = serve.parse_args(["--device", "cpu", "--dataset", "synthetic", "--latency_bench",
+                             "--arch", "resnet10", "--featurizer_precision", "int8",
+                             "--calib_images", "8"] + argv)
+    assert serve.featurizer_options(args) == ({"dtype": torch.bfloat16} if argv else {})
+    net = serve.build_server(args, serve.build_datasets(args)[0])
+    assert isinstance(net.serving_featurizer, QuantizedResNet)
+    out = net.make_serving_fn()(serve.build_datasets(args)[1].gather(np.arange(4)))
+    assert out.shape == (4, 4) and bool(torch.isfinite(out).all())
 
 
 def test_fuse_featurizer_refuses_a_resnet():
