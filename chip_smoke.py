@@ -106,6 +106,11 @@ package beside it. With one, in order:
     list held to its plain version); at f32, ``nw_streaming_log_probs`` over
     the same rows from the host in 16 chunks of 65,536 (K1 ``partials=True``
     16 times) against the full pass;
+9c. million-row bank edits, on the same bank at int8: the last 65,536 rows
+    prepared by ``prepare_for_concat`` and joined by ``concat_prepared``
+    onto the rest, and 10,000 rows tombstoned by ``mask_prepared_rows``,
+    each served through K4 against a whole ``prepare_support`` (with the
+    rows masked) through K4, and timed beside that whole prepare;
 10. ResNet serving phase: ``python -m nwhead_tpu_torch.serve --dataset
    synthetic_cub --arch resnet18 --batch_size 64 --latency_bench``, through the serve
    module's functions, with an f32, a bf16, an int8 and an int4 head. It
@@ -120,6 +125,21 @@ package beside it. With one, in order:
     head: one K2 or K4 ``partials=True`` launch per request and no
     finalizing head, the served log-probs against the plain partials on the
     one shard, merged;
+11a. bank-edit phase: the same ResNet-18 serving bank (S=5,800, C=200),
+    a serving callable made before the edits, then ``add_support`` of 256
+    validation images, ``remove_support`` of 64 rows (tombstones), of
+    enough more to pass a quarter of the prepared rows (a compaction) and
+    ``add_support`` of 64 images to a new environment, with f32, bf16
+    (K2), int8 (K4) and int4 (K5) heads: after each edit the callable's
+    log-probs against the plain head over the rows left and against a
+    fresh ``restore_bank`` of them through the kernel, and the path taken
+    (the old rows kept, the features untouched, the dead count). Then the
+    IVF bank grown by the same adds (two ``concat_ivf`` calls and no
+    rebuild; routed against the plain selected head, every tile against
+    full mode) and a tombstone removal on four shards of the card (four K2
+    ``partials=True`` launches a request, against a rebuilt sharded bank).
+    It prints each edit's seconds beside ``precompute`` and
+    ``restore_bank``, and the launches of the edited banks' serving calls;
 12. ViT serving phase: ``python -m nwhead_tpu_torch.serve --dataset
     synthetic_cub --arch vit_s14 --batch_size 64 --latency_bench`` with
     ``--featurizer_precision bf16_fused``, with ``--fused_inference`` and
@@ -276,7 +296,8 @@ package beside it. With one, in order:
 18. prints the nvidia-smi line, a JSON line of per-kernel results (the
     zoo phases' launches added to K1-K4, their times as ``d2048_*`` and
     ``d1024_*``; the int8 CNN phase's launches and errors added to K2, K4
-    and K5), and as the last line ``{"ok": true, "device": {...}}``.
+    and K5; the bank-edit phases' to K2, K4, K5, K6 and K2 ``partials``),
+    and as the last line ``{"ok": true, "device": {...}}``.
 
 Kernel times are device times: CUDA events around each call, queued behind
 a spin kernel so that the host's overhead does not count, L2 flushed before
@@ -4427,6 +4448,332 @@ def int8_cnn_update_entries(entries: list, served: dict) -> None:
         e["max_abs_err"] = max(e["max_abs_err"], run["served_err"])
 
 
+# ---------------------------------------------------------------------------
+# Bank edits: NWNet.add_support / remove_support / restore_bank on the CUB
+# serving bank (K2, K4, K5, K6 and K2 partials), and concat / mask on the
+# million-row bank (K4).
+# ---------------------------------------------------------------------------
+
+EDIT_ARGV = ["--dataset", "synthetic_cub", "--arch", "resnet18", "--batch_size", "64"]
+EDIT_ADD, EDIT_REMOVE, EDIT_ENV_ADD = 256, 64, 64  # rows added, tombstoned, added to env 1
+EDIT_PROBE = 2  # the IVF leg's n_probe; the grown bank is also probed whole
+BIG_ADD, BIG_MASK = 65_536, 10_000  # million-row bank: rows concatenated, rows tombstoned
+
+
+def _synced(fn):
+    """``(result, seconds)`` of ``fn()`` by the host's clock, the card
+    synchronized before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _edit_net(base, prec: str, **kw):
+    """A net on ``base``'s featurizer (the same module) and dataset at head
+    precision ``prec``, its bank installed from ``base``'s features by
+    ``restore_bank`` (no featurizer pass); returns it and the seconds."""
+    from nwhead_tpu_torch.nw.net import NWNet
+
+    net = NWNet(base.model.featurizer, base.n_classes, support_dataset=base.support_dataset,
+                device=base.device, kernel_type=base.kernel_type,
+                n_shot_full=base.support_eval.n_shot_full, head_precision=prec,
+                fused_min_support=1, **kw)
+    _, seconds = _synced(lambda: net.restore_bank(base.full_feat, base.full_y,
+                                                  meta=base.support_eval.full_meta))
+    return net, seconds
+
+
+def _served_with_features(net, fn, x):
+    """``fn(x)`` (a serving callable of ``net``) and the features it used."""
+    tap = _FeatureTap(net.model.featurizer)
+    try:
+        out = fn(x)
+    finally:
+        tap.handle.remove()
+    return out, tap.out
+
+
+def bank_edit_phase(datasets) -> dict:
+    """``NWNet.add_support`` / ``remove_support`` on the CUB serving bank
+    (ResNet-18, D=512, S=5,800, C=200): a serving callable made first, then
+    ``add_support`` of 256 validation images (the O(new) concat),
+    ``remove_support`` of 64 rows (tombstones), of enough more to pass 25%
+    of the prepared rows (a compaction), and ``add_support`` of 64 images
+    to a new environment, at each head precision (f32 and bf16 K2, int8
+    K4, int4 K5). After each edit the callable's log-probs are held to the
+    plain head over the rows left and to a fresh ``restore_bank`` of them
+    served through the kernel. Then the IVF bank grown by the same adds
+    (K6; ``concat_ivf`` counted, no rebuild; every tile probed equals full
+    mode) and a tombstone removal on four shards of the card (K2
+    ``partials=True``) held to a rebuilt sharded bank. Prints the seconds
+    of each edit beside the rebuild it replaces, and the launches of the
+    edited banks' serving calls."""
+    import torch
+
+    import nwhead_tpu_torch.nw.net as N
+    from nwhead_tpu_torch import serve
+    from nwhead_tpu_torch.ops import fused_nw as F
+    from nwhead_tpu_torch.ops import ivf as I
+    from nwhead_tpu_torch.parallel import ShardedSupportBank, make_mesh
+
+    train_ds, val_ds = datasets
+    t_phase = time.perf_counter()
+    base = serve.build_server(serve.parse_args(EDIT_ARGV), train_ds)
+    precompute_s = base.precompute_seconds
+    x = val_ds.gather(np.arange(64))
+    pool = np.arange(64, 64 + EDIT_ADD + EDIT_ENV_ADD)
+    images, labels = val_ds.gather(pool), np.asarray(val_ds.targets)[pool]
+    S0 = len(base.full_y)
+    print(f"bank edits: precompute of the {S0}-row bank {precompute_s:.4f}s (featurizer pass "
+          f"over every image, then the prepare); each edit below beside a restore_bank of its "
+          f"rows (no featurizer pass)")
+    out = {"launches": {}, "errs": {}, "seconds": {"precompute": precompute_s}}
+
+    def serve_counted(net, fn, key):
+        _counts(reset=True)
+        served, feats = _served_with_features(net, fn, x)
+        torch.cuda.synchronize()
+        for name, n in _counts().items():
+            if n:
+                out["launches"][(key, name)] = out["launches"].get((key, name), 0) + n
+        return served, feats
+
+    for prec in ("f32", "bf16", "int8", "int4"):
+        net, restore_s = _edit_net(base, prec)
+        serve_fn = net.make_serving_fn()
+        n_compact = int(N.NWNet._COMPACT_DEAD_FRAC * (S0 + EDIT_ADD)) - EDIT_REMOVE + 1
+        rng = np.random.default_rng(IVF_SEED)
+        steps = (
+            ("add", lambda: net.add_support(images[:EDIT_ADD], labels[:EDIT_ADD])),
+            ("tombstone", lambda: net.remove_support(rng.choice(S0 + EDIT_ADD, EDIT_REMOVE,
+                                                                replace=False))),
+            ("compact", lambda: net.remove_support(rng.choice(len(net.full_y), n_compact,
+                                                              replace=False))),
+            ("env add", lambda: net.add_support(images[EDIT_ADD:], labels[EDIT_ADD:],
+                                                env_id=1)),
+        )
+        errs, line = [], []
+        for step, edit in steps:
+            prep, rows = net._prepared_full, net._prepared_full.labels.shape[0]
+            _, seconds = _synced(edit)
+            ref, ref_s = _edit_net(net, prec)
+            served, feats = serve_counted(net, serve_fn, prec)
+            with torch.inference_mode():
+                oracle = ref.model.predict_from_prepared(feats, ref._prepared_full)
+                plain = plain_head(ref, feats)
+            torch.cuda.synchronize()
+            err = max(float((served - plain).abs().max()), float((served - oracle).abs().max()))
+            ok = (tuple(served.shape) == (64, net.n_classes) and bool(torch.isfinite(served).all())
+                  and within(served, plain, **HEAD_TOL[prec])
+                  and within(served, oracle, **HEAD_TOL[prec]))
+            new = net._prepared_full
+            path_ok = {
+                "add": new.labels.shape[0] > rows and torch.equal(new.s[:rows], prep.s),
+                "tombstone": new.s is prep.s and net._prepared_dead == EDIT_REMOVE,
+                "compact": net._prepared_dead == 0 and new.labels.shape[0] == len(net.full_y),
+                "env add": new.labels.shape[0] > rows and torch.equal(new.s[:rows], prep.s),
+            }[step]
+            out["seconds"][(prec, step)] = seconds
+            out["seconds"][(prec, step, "restore")] = ref_s
+            errs.append(err)
+            line.append(f"{step} {seconds:.4f}s (restore_bank {ref_s:.4f}s) S={len(net.full_y)} "
+                        f"max|err| {err:.2e}{'' if ok and path_ok else ' FAIL'}")
+            del ref
+            if not (ok and path_ok):
+                raise AssertionError(f"bank edit {prec} {step}: "
+                                     + ("wrong path" if ok else "served log-probs disagree"))
+        out["errs"][prec] = max(errs)
+        print(f"bank edits {prec}: first restore_bank {restore_s:.4f}s; " + "; ".join(line))
+        del net, serve_fn
+        torch.cuda.empty_cache()
+
+    # IVF growth (K6): the adds join a chunk of the new rows by concat_ivf.
+    net, _ = _edit_net(base, "f32", ivf_n_probe=EDIT_PROBE)
+    net._ivf_bank()
+    serve_ivf = net.make_serving_fn(mode="ivf")
+    calls = {"concat_ivf": 0, "prepare_support_ivf": 0}
+    real = {name: getattr(N, name) for name in calls}
+
+    def counted(name):
+        def call(*a, **k):
+            calls[name] += 1
+            return real[name](*a, **k)
+        return call
+
+    try:
+        for name in calls:
+            setattr(N, name, counted(name))
+        _, add_s = _synced(lambda: net.add_support(images[:EDIT_ADD], labels[:EDIT_ADD]))
+        _, env_s = _synced(lambda: net.add_support(images[EDIT_ADD:], labels[EDIT_ADD:],
+                                                   env_id=1))
+        ivf = net._ivf_bank()
+    finally:
+        for name, fn in real.items():
+            setattr(N, name, fn)
+    served, feats = serve_counted(net, serve_ivf, "ivf")
+    n_tiles = ivf.cents.shape[0]
+    with torch.inference_mode():
+        params = net.model.head.kernel_params()
+        qk, tsel, _ = I._ivf_route(feats, ivf, kernel=net.kernel_type, kernel_params=params,
+                                   n_probe=EDIT_PROBE, group_b=None)
+        q, scale, mode, qscale = F._prepared_query(qk, ivf.prep, net.kernel_type, params)
+        plain = F._nw_prepared_sel_plain(q, ivf.prep, scale, mode, net.n_classes, qscale, tsel)
+        every = net._ivf_head(feats, ivf, n_tiles, None)
+        full = net.model.predict_from_prepared(feats, net._prepared_full)
+    torch.cuda.synchronize()
+    err = float((served - plain).abs().max())
+    full_err = float((every.exp() - full.exp()).abs().max())
+    ok = (calls == {"concat_ivf": 2, "prepare_support_ivf": 2}
+          and net._ivf_cache[0] is net.full_feat
+          and within(served, plain, **HEAD_TOL["f32"]) and full_err < 1e-5)
+    print(f"bank edits ivf: {n_tiles} tiles of {ivf.prep.block_s} after the adds "
+          f"(add {add_s:.4f}s, env add {env_s:.4f}s; calls {calls}); routed (n_probe "
+          f"{EDIT_PROBE}) vs plain max|err| {err:.2e}; every tile vs full mode max|dp| "
+          f"{full_err:.2e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("bank edits ivf: the IVF bank was not grown by concat_ivf, or "
+                             "its head disagrees")
+    out["errs"]["ivf"] = err
+    out["seconds"]["ivf add"] = add_s
+    del net, serve_ivf, ivf
+    torch.cuda.empty_cache()
+
+    # Sharded removal: four shards of the card, tombstoned (K2 partials).
+    mesh = make_mesh(1, SHARDS, devices=[base.device] * SHARDS)
+    net, _ = _edit_net(base, "f32", mesh=mesh)
+    serve_sh = net.make_serving_fn()
+    bank = net.sharded_bank
+    drop = np.random.default_rng(IVF_SEED + 2).choice(S0, EDIT_REMOVE, replace=False)
+    _, rm_s = _synced(lambda: net.remove_support(drop))
+    served, feats = serve_counted(net, serve_sh, "sharded")
+    with torch.inference_mode():
+        rebuilt, build_s = _synced(lambda: ShardedSupportBank.build(
+            net.full_feat, net.full_y, mesh, net.n_classes, precision="f32", ivf=True))
+        want = rebuilt.predict_fn()(feats)
+        fresh = F.prepare_support(net.full_feat, net.full_y, net.n_classes)
+        q, scale, mode, _ = F._prepared_query(feats, fresh, net.kernel_type)
+        plain = F._nw_prepared_plain(q, fresh, scale, mode, net.n_classes)
+    torch.cuda.synchronize()
+    new = net.sharded_bank
+    err = max(float((served - want).abs().max()), float((served - plain).abs().max()))
+    ok = (new.dead == EDIT_REMOVE and new.capacity == bank.capacity
+          and out["launches"].get(("sharded", "nw_prepared_partials_cuda")) == SHARDS
+          and within(served, want, **HEAD_TOL["f32"]) and within(served, plain, **HEAD_TOL["f32"]))
+    print(f"bank edits sharded ({SHARDS} shards of the card): remove_support of {EDIT_REMOVE} "
+          f"rows {rm_s:.4f}s (tombstones; a rebuilt sharded bank {build_s:.4f}s), dead "
+          f"{new.dead} of {new.capacity} rows; vs rebuilt and plain max|err| {err:.2e} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("bank edits sharded: the tombstoned bank disagrees or rebuilt")
+    out["errs"]["sharded"] = err
+    del net, serve_sh, bank, new, rebuilt, base
+    torch.cuda.empty_cache()
+    totals = {}
+    for (_, name), n in out["launches"].items():
+        totals[name] = totals.get(name, 0) + n
+    out["totals"] = totals
+    print(f"bank edit launches (the edited banks' serving calls): {json.dumps(totals)}; phase "
+          f"{time.perf_counter() - t_phase:.1f}s")
+    return out
+
+
+def bigbank_edit_phase(bank) -> dict:
+    """``concat_prepared`` and ``mask_prepared_rows`` on the K6 phase's
+    million-row bank (2^20 x 512, C=1,000) at int8, each against a whole
+    ``prepare_support`` through K4: the last 65,536 rows prepared by
+    ``prepare_for_concat`` and concatenated onto the first 983,040 (against
+    the whole bank prepared at once), and 10,000 rows tombstoned (against
+    the bank prepared with them masked). Seconds by the host's clock, the
+    card synchronized, median of 3; each bank freed before the next."""
+    import torch
+
+    from nwhead_tpu_torch.ops import fused_nw as F
+
+    s, sy, cents = bank
+    S, C = s.shape[0], IVF_BANK[2]
+    N = S - BIG_ADD
+    q = _ivf_queries(cents, s.device)["skewed"]
+
+    def median_s(fn):
+        times = []
+        for _ in range(3):
+            res, t = _synced(fn)
+            times.append(t)
+            del res
+        return float(np.median(times))
+
+    def k4(prep):
+        _counts(reset=True)
+        got = F.nw_fused_from_prepared(q, prep, C)
+        torch.cuda.synchronize()
+        return got, _counts()["nw_prepared_int8_cuda"]
+
+    whole_s = median_s(lambda: F.prepare_support(s, sy, C, precision="int8"))
+    whole, order = F.prepare_support(s, sy, C, precision="int8", return_order=True)
+    with torch.inference_mode():
+        want = F.nw_fused_from_prepared(q, whole, C)
+    old = F.prepare_support(s[:N], sy[:N], C, precision="int8")
+    concat_s = median_s(lambda: F.concat_prepared(
+        [old, F.prepare_for_concat(s[N:], sy[N:], C, old, precision="int8")]))
+    cat = F.concat_prepared([old, F.prepare_for_concat(s[N:], sy[N:], C, old, precision="int8")])
+    del old
+    got, n_cat = k4(cat)
+    cat_err = float((got - want).abs().max())
+    cat_ok = within(got, want, **HEAD_TOL["int8"])
+    del cat, got
+    torch.cuda.empty_cache()
+    drop = np.random.default_rng(IVF_SEED + 3).choice(S, BIG_MASK, replace=False)
+    rows = F.inverse_order(order)[drop]
+    mask_s = median_s(lambda: F.mask_prepared_rows(whole, rows))
+    masked = F.mask_prepared_rows(whole, rows)
+    got, n_mask = k4(masked)
+    del masked, whole
+    torch.cuda.empty_cache()
+    keep = torch.ones(S, dtype=torch.float32, device=s.device)
+    keep[torch.as_tensor(drop, device=s.device)] = 0.0
+    oracle = F.prepare_support(s, sy, C, precision="int8", support_mask=keep)
+    with torch.inference_mode():
+        want_m = F.nw_fused_from_prepared(q, oracle, C)
+    del oracle
+    torch.cuda.empty_cache()
+    mask_err = float((got - want_m).abs().max())
+    ok = cat_ok and within(got, want_m, **HEAD_TOL["int8"]) and n_cat == n_mask == 1
+    print(f"bank edits million-row int8 ({S} x {s.shape[1]}, C={C}): whole prepare_support "
+          f"{whole_s:.4f}s; prepare_for_concat + concat_prepared of {BIG_ADD} rows "
+          f"{concat_s:.4f}s, K4 vs whole max|err| {cat_err:.2e}; mask_prepared_rows of "
+          f"{BIG_MASK} rows {mask_s:.4f}s, K4 vs masked prepare max|err| {mask_err:.2e}; K4 "
+          f"launches {n_cat + n_mask} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("bank edits million-row: an edited bank disagrees with the whole "
+                             "prepare")
+    return {"launches": n_cat + n_mask, "err": max(cat_err, mask_err), "whole_s": whole_s,
+            "concat_s": concat_s, "mask_s": mask_s}
+
+
+def bank_edit_update_entries(entries: list, edits: dict, big: dict) -> None:
+    """The bank-edit phases' launches and errors added to the K2, K4, K5, K6
+    and K2 ``partials`` entries of the ``kernels`` line."""
+    by_name = {e["name"]: e for e in entries}
+    for (key, wrapper), n in edits["launches"].items():
+        name = {"nw_prepared_cuda": f"nw_prepared_{key}",
+                "nw_prepared_int8_cuda": "nw_prepared_int8",
+                "nw_prepared_int4_cuda": "nw_prepared_int4",
+                "nw_prepared_sel_cuda": "nw_prepared_sel_f32",
+                "nw_prepared_partials_cuda": "nw_prepared_partials_f32"}.get(wrapper)
+        if name is None:
+            raise AssertionError(f"bank edits: unexpected launches of {wrapper}")
+        e = by_name[name]
+        e["launches"] += n
+        e["max_abs_err"] = max(e["max_abs_err"], edits["errs"][key])
+    e = by_name["nw_prepared_int8"]
+    e["launches"] += big["launches"]
+    e["max_abs_err"] = max(e["max_abs_err"], big["err"])
+
+
 def main() -> int:
     import torch
 
@@ -4515,6 +4862,9 @@ def main() -> int:
     sharded_served = sharded_serving_phase(flush, bank)
     phase_s["sharded serving and streaming"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    big_edits = bigbank_edit_phase(bank)
+    phase_s["million-row bank edits"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     lab_kern = lab_kernel_phase(flush)
     phase_s["lab kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -4535,6 +4885,9 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh_served = mesh_serving_phase(datasets)
     phase_s["--mesh 1,1 serving"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    edits = bank_edit_phase(datasets)
+    phase_s["bank edits"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     vit_served = vit_serving_phase(datasets)
     phase_s["ViT serving"] = time.perf_counter() - t0
@@ -4611,6 +4964,7 @@ def main() -> int:
     entries += lab_entries(lab_kern, labs)
     zoo_update_entries(entries, zoo_kern, zoo_served, zoo_trained)
     int8_cnn_update_entries(entries, int8_cnn_served)
+    bank_edit_update_entries(entries, edits, big_edits)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

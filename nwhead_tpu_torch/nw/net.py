@@ -28,8 +28,18 @@ from, and the eval and serving paths refuse to run once those changed
 splits the bank over the mesh's support axis instead
 (``parallel.ShardedSupportBank``) and modes ``full`` and ``ivf`` serve from
 the shards, as do ``ensemble`` (each environment's bank split the same way)
-and, over raw shards, ``knn``. Incremental bank edits are a later slice
-(ROADMAP.md queue 1, item 9).
+and, over raw shards, ``knn``.
+
+The installed bank is edited live, without a new featurizer pass over it
+(JAX ``net.py:672-806``): ``add_support`` featurizes only the new images,
+prepares only them and appends them to the prepared bank
+(``concat_prepared``: O(new) work and one copy of the bank), and grows an
+IVF bank by a chunk of the new rows (``concat_ivf``); ``remove_support``
+tombstones rows in the prepared or sharded bank (``mask_prepared_rows``,
+``ShardedSupportBank.remove_rows``: O(removed)) until a quarter of its
+rows are dead, then prepares the bank again; ``restore_bank`` installs a
+featurized bank. Serving callables read the bank at call time, so they
+serve the edited bank.
 
 Numerics: on a CUDA device ``NWNet`` turns TF32 off for the process
 (``torch.backends.cudnn.allow_tf32`` and
@@ -50,11 +60,20 @@ from torch import nn
 
 from nwhead_tpu_torch.nw.head import NWHead
 from nwhead_tpu_torch.nw.support import SupportSetEval, SupportSetTrain
-from nwhead_tpu_torch.ops.fused_nw import PreparedSupport, prepare_support
+from nwhead_tpu_torch.ops.fused_nw import (
+    PreparedSupport,
+    _round_up,
+    concat_prepared,
+    inverse_order,
+    mask_prepared_rows,
+    prepare_for_concat,
+    prepare_support,
+)
 from nwhead_tpu_torch.ops.influence import support_influence as _influence_op
 from nwhead_tpu_torch.ops.ivf import (
     IVFAutoConfig,
     IVFPrepared,
+    concat_ivf,
     ivf_auto_config,
     nw_fused_ivf_log_probs,
     prepare_support_ivf,
@@ -197,8 +216,9 @@ class NWNet:
             )
         self._prepared_full: Optional[PreparedSupport] = None
         self._prepared_pos: Optional[np.ndarray] = None  # bank row -> prepared row
+        self._prepared_dead = 0  # rows tombstoned since the bank was last prepared whole
         # (full_feat it was built from, IVF bank): rebuilt when precompute
-        # replaces the bank features.
+        # replaces the bank features, grown by add_support.
         self._ivf_cache = None
         # The support-sharded bank (with a mesh) and its full-mode predict.
         self.sharded_bank: Optional[ShardedSupportBank] = None
@@ -378,17 +398,27 @@ class NWNet:
         self._build_serving_banks()
 
     def _featurize_bank(self, bank_idx: np.ndarray) -> torch.Tensor:
-        """Featurizer pass over the bank in batches of ``precompute_batch``
-        images gathered one batch at a time; the last batch is zero-padded
-        to the same shape and its padding rows dropped."""
+        """Featurizer pass over the bank, its images gathered one batch at a
+        time (``_featurize_batches``)."""
+        return self._featurize_batches(
+            len(bank_idx), lambda lo, hi: self.support_dataset.gather(bank_idx[lo:hi]))
+
+    def _featurize_array(self, images) -> torch.Tensor:
+        """Featurizer pass over an array of images (numpy or a tensor)."""
+        return self._featurize_batches(len(images), lambda lo, hi: images[lo:hi])
+
+    def _featurize_batches(self, n_images: int, batch) -> torch.Tensor:
+        """Eval features of ``n_images`` images, ``batch(lo, hi)`` giving
+        each ``precompute_batch`` of them; the last batch is zero-padded to
+        the same shape and its padding rows dropped, so an image gets the
+        same features from every caller."""
         bs = self.precompute_batch
         out = []
-        for start in range(0, len(bank_idx), bs):
-            imgs = np.asarray(self.support_dataset.gather(bank_idx[start:start + bs]), np.float32)
-            n = len(imgs)
+        for start in range(0, n_images, bs):
+            x = torch.as_tensor(batch(start, start + bs)).to(self.device, torch.float32)
+            n = x.shape[0]
             if n < bs:
-                imgs = np.concatenate([imgs, np.zeros((bs - n, *imgs.shape[1:]), np.float32)])
-            x = torch.from_numpy(imgs).to(self.device)
+                x = torch.cat([x, x.new_zeros((bs - n, *x.shape[1:]))])
             out.append(self._featurize_eval(x)[:n])
         return torch.cat(out)
 
@@ -397,44 +427,189 @@ class NWNet:
         IVF, sharded, the sharded knn and ensemble predicts): a featurizer
         swap or a new ``precompute`` replaces them."""
         self._prepared_full = self._prepared_pos = self._ivf_cache = None
+        self._prepared_dead = 0
         self.sharded_bank = self._sharded_predict = None
         self._sharded_knn_cache = self._sharded_ensemble_cache = None
 
-    def _build_serving_banks(self) -> None:
+    def _build_serving_banks(self, new_rows=None, keep_prepared=None, keep_sharded=None) -> None:
         """Prepare the full bank for the fused head when ``use_fused`` and it
         holds at least ``fused_min_support`` rows, and map each bank row to
         its prepared row (``prepare_support`` may sort rows by class). With
         a mesh, build the sharded bank instead (JAX ``net.py:641-670``):
         prepared at the head's precision with a routing index a shard when
-        the kernel is a fused one, else raw f32."""
+        the kernel is a fused one, else raw f32.
+
+        The bank edits pass what they keep (JAX ``net.py:485-670``):
+        ``new_rows=(feats, labels, rows)`` (``add_support``, ``rows`` the new
+        rows' positions in the grown bank) prepares only the new rows and
+        appends them to the live prepared bank, and grows a live IVF bank
+        by a chunk of them (meshless); ``keep_prepared=(prep, pos, dead)``
+        and ``keep_sharded`` (``remove_support``) install a tombstoned
+        bank."""
         self.full_feat = self.support_eval.full_feat
         self.full_y = self.support_eval.full_y
+        prev_prep, prev_pos = self._prepared_full, self._prepared_pos
+        prev_dead = self._prepared_dead
+        prev_ivf = self._ivf_cache
         self._drop_serving_banks()
         head = self.model.head
         if self.mesh is not None:
-            fused_ok = head.use_fused and self.kernel_type in KERNEL_NAMES
-            self.sharded_bank = ShardedSupportBank.build(
-                self.full_feat, self.full_y, self.mesh, self.n_classes,
-                kernel=self.kernel_type, precision=head.precision if fused_ok else "f32",
-                use_prepared=None if fused_ok else False, ivf=fused_ok)
+            if keep_sharded is None:
+                fused_ok = head.use_fused and self.kernel_type in KERNEL_NAMES
+                keep_sharded = ShardedSupportBank.build(
+                    self.full_feat, self.full_y, self.mesh, self.n_classes,
+                    kernel=self.kernel_type, precision=head.precision if fused_ok else "f32",
+                    use_prepared=None if fused_ok else False, ivf=fused_ok)
+            self.sharded_bank = keep_sharded
             # Trained kernel parameters (clip's logit_scale) ride along.
             self._sharded_predict = self.sharded_bank.predict_fn(
                 kernel_params=head.kernel_params())
             return
+        if new_rows is not None and prev_ivf is not None:
+            self._ivf_cache = self._grown_ivf(prev_ivf[1], *new_rows[:2])
         S = len(self.full_y)
         if not (head.use_fused and S >= head.fused_min_support
                 and self.kernel_type in KERNEL_NAMES):
             return
-        self._prepared_full, order = prepare_support(
-            self.full_feat, self.full_y, self.n_classes,
-            kernel=self.kernel_type, precision=head.precision, return_order=True,
-        )
-        if order is None:
-            self._prepared_pos = np.arange(S, dtype=np.int64)
+        if keep_prepared is not None:
+            self._prepared_full, self._prepared_pos, self._prepared_dead = keep_prepared
+        elif prev_prep is not None and new_rows is not None:
+            feats, labels, rows = new_rows
+            inc, order = prepare_for_concat(feats, labels, self.n_classes, prev_prep,
+                                            kernel=self.kernel_type, precision=head.precision,
+                                            return_order=True)
+            self._prepared_full = concat_prepared([prev_prep, inc])
+            self._prepared_dead = prev_dead
+            # Old rows keep their prepared rows; the k-th new row is the k-th
+            # input row of the new part (JAX net.py:603-626).
+            new_pos = np.arange(len(labels), dtype=np.int64)
+            if order is not None:
+                new_pos = inverse_order(order)[:len(labels)]
+            pos = np.empty(S, np.int64)
+            is_new = np.zeros(S, bool)
+            is_new[rows] = True
+            pos[~is_new] = prev_pos
+            pos[is_new] = prev_prep.labels.shape[0] + new_pos
+            self._prepared_pos = pos
         else:
-            inv = np.empty(S, np.int64)
-            inv[order] = np.arange(S, dtype=np.int64)
-            self._prepared_pos = inv
+            self._prepared_full, order = prepare_support(
+                self.full_feat, self.full_y, self.n_classes,
+                kernel=self.kernel_type, precision=head.precision, return_order=True,
+            )
+            self._prepared_pos = np.arange(S, dtype=np.int64) if order is None \
+                else inverse_order(order)
+
+    def _grown_ivf(self, old: IVFPrepared, feats: torch.Tensor, labels: np.ndarray):
+        """The IVF cache after an add (JAX ``net.py:533-571``): the new rows
+        prepared as one chunk by ``prepare_support_ivf``, padded with masked
+        rows to the live bank's tile, and appended by ``concat_ivf``, keyed
+        on the grown ``full_feat``; or None (a rebuild at the next ivf use)
+        when the chunk does not concatenate."""
+        blk = old.prep.block_s
+        n = len(labels)
+        pad = _round_up(n, blk) - n
+        mask = torch.zeros(n + pad, dtype=torch.float32, device=feats.device)
+        mask[:n] = 1.0
+        inc = prepare_support_ivf(
+            torch.nn.functional.pad(feats, (0, 0, 0, pad)),
+            np.concatenate([labels, np.zeros(pad, np.int64)]), self.n_classes,
+            kernel=self.kernel_type, precision=self.model.head.precision, support_mask=mask,
+            block_s=blk)
+        try:
+            return (self.full_feat, concat_ivf([old, inc]))
+        except ValueError:
+            return None
+
+    def _check_labels(self, labels) -> np.ndarray:
+        labels = np.asarray(labels, dtype=np.int64)
+        if labels.size and (labels.min() < 0 or labels.max() >= self.n_classes):
+            raise ValueError(f"labels must lie in [0, {self.n_classes}); got "
+                             f"[{labels.min()}, {labels.max()}]")
+        return labels
+
+    # -- bank edits ------------------------------------------------------------
+
+    # The tombstoned share of a prepared or sharded bank's rows past which a
+    # removal prepares the bank again: dead rows still stream through the
+    # kernel, so past this the O(S) rebuild pays for itself (JAX net.py:711).
+    _COMPACT_DEAD_FRAC = 0.25
+
+    @torch.inference_mode()
+    def add_support(self, images, labels, env_id: int = 0) -> None:
+        """Add support items at serving time: ``images`` (NHWC, as
+        ``precompute`` takes them) with ``labels`` in ``[0, n_classes)``, to
+        environment ``env_id``. Only the new images go through the
+        featurizer; the eval artifacts are rebuilt from the cached features
+        (``SupportSetEval.extend_bank``), the prepared bank grows by the new
+        rows alone (``concat_prepared``) and a live IVF bank by a chunk of
+        them (``concat_ivf``); under a mesh the sharded bank is built again.
+        Serving callables see the grown bank at their next call."""
+        self._check_serving_source()
+        labels = self._check_labels(labels)
+        if labels.size == 0:
+            return
+        self.model.eval()
+        feats = self._featurize_array(images)
+        self.support_eval.extend_bank(feats, labels, env_id=env_id)
+        # The new rows end their environment's segment, in input order.
+        rows = np.nonzero(self.support_eval.full_meta == env_id)[0][-len(labels):]
+        self._build_serving_banks(new_rows=(feats, labels, rows))
+
+    @torch.inference_mode()
+    def remove_support(self, indices) -> None:
+        """Drop support items by their rows in the current bank order (as
+        ``get_neighbors`` and ``support_influence`` number them); nothing is
+        featurized. The prepared bank (or under a mesh the sharded one)
+        tombstones the rows (``mask_prepared_rows``, ``remove_rows``) while
+        its dead rows stay within ``_COMPACT_DEAD_FRAC`` of the rows it
+        holds; past that it is prepared again from the rows kept. The
+        port's full-mode bank is untiled, so it holds no padding rows that
+        JAX's would count."""
+        self._check_serving_source()
+        idx = np.unique(np.asarray(indices, dtype=np.int64))
+        prep, pos, dead, bank = (self._prepared_full, self._prepared_pos, self._prepared_dead,
+                                 self.sharded_bank)
+        n_before = len(getattr(self.support_eval, "full_y", ()))
+        # Checks the indices before any bank is touched.
+        self.support_eval.remove_bank_items(idx)
+        if bank is not None and len(bank.rowmap) == n_before:
+            if bank.dead + idx.size <= self._COMPACT_DEAD_FRAC * bank.capacity:
+                self._build_serving_banks(keep_sharded=bank.remove_rows(idx))
+                return
+        elif prep is not None and len(pos) == n_before:
+            dead += int(idx.size)
+            if dead <= self._COMPACT_DEAD_FRAC * prep.labels.shape[0]:
+                keep = np.ones(n_before, bool)
+                keep[idx] = False
+                self._build_serving_banks(
+                    keep_prepared=(mask_prepared_rows(prep, pos[idx]), pos[keep], dead))
+                return
+        self._build_serving_banks()
+
+    @torch.inference_mode()
+    def restore_bank(self, feats, labels, meta=None) -> None:
+        """Install a featurized support bank in place of ``precompute``:
+        ``feats (S, D)``, ``labels (S,)`` and each row's environment
+        ``meta`` (default one environment, 0). Rows are grouped by
+        environment in the order the ids first appear, as ``precompute``
+        lays them out; every eval and serving artifact is built as after
+        ``precompute``."""
+        self._check_serving_source()
+        feats = torch.as_tensor(feats).to(self.device, torch.float32)
+        labels = self._check_labels(torch.as_tensor(labels).cpu())
+        meta = np.zeros(len(labels), np.int64) if meta is None else np.asarray(meta)
+        if not len(feats) == len(labels) == len(meta):
+            raise ValueError(f"bank size mismatch: {len(feats)} feats, {len(labels)} labels, "
+                             f"{len(meta)} meta")
+        envs = list(dict.fromkeys(meta.tolist()))
+        order = np.concatenate([np.nonzero(meta == e)[0] for e in envs])
+        if not np.array_equal(order, np.arange(len(order))):
+            feats = feats[torch.as_tensor(order, device=self.device)]
+        ys = [labels[meta == e] for e in envs]
+        metas = [meta[meta == e] for e in envs]
+        self.support_eval.build_infer_iters(feats, labels[order], meta[order],
+                                            list(feats.split([len(y) for y in ys])), ys, metas)
+        self._build_serving_banks()
 
     # -- inference -------------------------------------------------------------
 
@@ -533,7 +708,8 @@ class NWNet:
         Accepts numpy arrays or tensors on any device and returns a tensor
         on ``self.device``. ``normalize=(mean, std)`` applies ``(x/255 -
         mean)/std`` first (for uint8 pixels). The bank is read at call time,
-        so a later ``precompute`` reaches existing serving callables."""
+        so a later ``precompute`` or bank edit reaches existing serving
+        callables."""
         if mode not in ("full", "ivf"):
             raise ValueError(f"make_serving_fn serves modes 'full' and 'ivf', got {mode!r}")
         self._check_serving_source()
@@ -545,7 +721,12 @@ class NWNet:
                 self._sharded_ivf_fn()  # errors come early
 
             def head(qfeat):
-                # Read at call time, so a later precompute reaches this callable.
+                # Read at call time, so a later precompute or edit reaches
+                # this callable.
+                if self._sharded_predict is None:
+                    raise ValueError("the sharded serving bank is gone (a featurizer swap or a "
+                                     "new support set dropped it): run precompute() and "
+                                     "rebuild the serving fn")
                 if mode == "ivf":
                     return self._sharded_ivf_fn()(qfeat)
                 return self._sharded_predict(qfeat)
@@ -565,7 +746,7 @@ class NWNet:
                              "precompute() with use_fused and at least fused_min_support rows")
         else:
             def head(qfeat):
-                return self.model.predict_from_prepared(qfeat, self._prepared_full)
+                return self.model.predict_from_prepared(qfeat, self._live_prepared())
         mean = std = None
         if normalize is not None:
             mean = torch.as_tensor(normalize[0], dtype=torch.float32, device=self.device)
@@ -581,6 +762,18 @@ class NWNet:
             return head(self._featurize_eval(x))
 
         return serve
+
+    def _live_prepared(self) -> PreparedSupport:
+        """The prepared bank a full-mode serving callable reads at call time
+        (JAX ``net.py:1044``): a loud error where an edit or a swap left
+        none."""
+        if self._prepared_full is None:
+            raise ValueError(
+                "the prepared serving bank no longer exists (the bank shrank below "
+                "fused_min_support, the support set was swapped, or the featurizer was "
+                "re-quantized): run precompute() / restore_bank() and rebuild via "
+                "make_serving_fn")
+        return self._prepared_full
 
     @torch.inference_mode()
     def predict(self, x, mode: str = "random"):

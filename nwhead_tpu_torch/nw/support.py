@@ -8,9 +8,16 @@ the random mode's sampler over it, the cluster mode's per-class k-means
 bank (``ops/kmeans.py``), the ensemble mode's per-environment banks
 stacked and masked, and the knn and hnsw modes' neighbour unions
 (``ops/knn.py``, ``native/hnsw.py``). Numpy, as in the JAX package, with the
-same seeding chain, so the same indices come out in the same order. The
-incremental bank edits (``extend_bank``, ``remove_bank_items``) are a later
-slice (ROADMAP.md queue 1, item 9).
+same seeding chain, so the same indices come out in the same order.
+
+``SupportSetEval`` also edits its installed bank in place of a new
+featurizer pass: ``extend_bank`` appends rows to an environment (or adds
+one), ``remove_bank_items`` drops rows. Each builds the bank anew on its
+device from the rows it keeps (one copy of the bank, no read back to the
+host) and rebuilds what depends on the whole bank: the cluster bank (a
+k-means over every row), the random sampler and the exact k-NN search.
+An HNSW graph already built grows by online insertion; a removal drops it
+and the next hnsw use builds it again.
 """
 
 from __future__ import annotations
@@ -275,23 +282,97 @@ class SupportSetEval:
         the cluster bank (k-means seed 0, as the JAX package), the random
         mode's sampler and the exact k-NN search. Without the environment
         lists the bank is one environment, id 0. Under a mesh this is the
-        whole bank, before it is sharded."""
+        whole bank, before it is sharded. ``bank_is_canonical`` says that
+        row ``i`` is still the ``i``-th of ``full_bank_indices``; an edit
+        clears it."""
         if sfeat_env is None:
             smeta = np.zeros(len(sy), np.int64) if smeta is None else smeta
             sfeat_env, sy_env, smeta_env = [sfeat], [sy], [smeta]
-        self.full_feat = sfeat
-        self._full_y_np = np.asarray(sy)
-        self.full_y = torch.as_tensor(self._full_y_np, dtype=torch.int64, device=sfeat.device)
+        self._install_bank(sfeat, sy, smeta, sfeat_env, sy_env, smeta_env)
+        self.bank_is_canonical = True
+
+    def _install_bank(self, sfeat, sy, smeta, sfeat_env, sy_env, smeta_env, hnsw=None) -> None:
+        """Build the artifacts of a bank, then install it with them: a build
+        that fails leaves the installed bank as it was."""
+        full_y_np = np.asarray(sy)
+        full_y = torch.as_tensor(full_y_np, dtype=torch.int64, device=sfeat.device)
+        clusters = compute_clusters(sfeat, full_y_np, self.n_shot_cluster, impl=self.cluster_impl)
+        sampler = EpisodicSampler(full_y_np, self.n_shot_random, seed=self.seed)
+        self.full_feat, self._full_y_np, self.full_y = sfeat, full_y_np, full_y
         self.full_meta = np.asarray(smeta)
         self.full_feat_sep = list(sfeat_env)
         self.full_y_sep = [np.asarray(y) for y in sy_env]
         self.full_meta_sep = [np.asarray(m) for m in smeta_env]
         self._ensemble_cache = None
-        self._hnsw = None
-        self.cluster_feat, self.cluster_y = compute_clusters(
-            sfeat, self._full_y_np, self.n_shot_cluster, impl=self.cluster_impl)
-        self.random_sampler = EpisodicSampler(self._full_y_np, self.n_shot_random, seed=self.seed)
-        self.knn = ExactKNN(sfeat, self.full_y, self.n_neighbors)
+        self._hnsw = hnsw
+        self.cluster_feat, self.cluster_y = clusters
+        self.random_sampler = sampler
+        self.knn = ExactKNN(sfeat, full_y, self.n_neighbors)
+
+    def extend_bank(self, new_feat: torch.Tensor, new_y, env_id: int = 0) -> None:
+        """Append featurized rows to environment ``env_id``, at the end of
+        its segment (a new id appends an environment), and rebuild the
+        artifacts over the grown bank (``support.py:350``). An HNSW graph
+        that was built grows by ``add_items`` once the install succeeded,
+        so a failed install leaves it matching the bank still installed;
+        one not yet built stays unbuilt."""
+        if not hasattr(self, "full_feat"):
+            raise AttributeError("Did you run precompute()?")
+        new_feat = torch.as_tensor(new_feat).to(self.full_feat.device, self.full_feat.dtype)
+        new_y = np.asarray(new_y)
+        if len(new_feat) != len(new_y):
+            raise ValueError(f"{len(new_feat)} features vs {len(new_y)} labels")
+        pieces = [[f] for f in self.full_feat_sep]
+        ys, metas = list(self.full_y_sep), list(self.full_meta_sep)
+        env_order = [int(m[0]) for m in metas]
+        new_meta = np.full(len(new_y), env_id, dtype=np.int64)
+        if env_id in env_order:
+            e = env_order.index(env_id)
+            pieces[e].append(new_feat)
+            ys[e] = np.concatenate([ys[e], new_y])
+            metas[e] = np.concatenate([metas[e], new_meta])
+        else:
+            pieces.append([new_feat])
+            ys.append(new_y)
+            metas.append(new_meta)
+        full = torch.cat([f for env in pieces for f in env])
+        hnsw = self._hnsw
+        self._install_bank(full, np.concatenate(ys), np.concatenate(metas),
+                           full.split([len(y) for y in ys]), ys, metas, hnsw=hnsw)
+        if hnsw is not None:
+            hnsw.add_items(new_feat, new_y)
+        self.bank_is_canonical = False
+
+    def remove_bank_items(self, indices) -> None:
+        """Drop rows (indices into the current bank order) and rebuild the
+        artifacts over the rows kept (``support.py:393``), gathered on the
+        bank's device. An environment left empty is dropped (an all-masked
+        environment would give the ensemble NaN); so is the HNSW graph,
+        which has no deletion. Out-of-range indices raise ``IndexError``,
+        removing every row ``ValueError``."""
+        if not hasattr(self, "full_feat"):
+            raise AttributeError("Did you run precompute()?")
+        n = len(self._full_y_np)
+        idx = np.asarray(indices, dtype=np.int64)
+        if idx.size and (idx.min() < 0 or idx.max() >= n):
+            raise IndexError(f"indices out of range for bank of {n}")
+        keep = np.ones(n, dtype=bool)
+        keep[idx] = False
+        if not keep.any():
+            raise ValueError("cannot remove every support item: an empty bank has no valid "
+                             "predictions; swap the support set instead")
+        # The bank is environment-contiguous, and so are the rows it keeps.
+        kept = self.full_feat[torch.as_tensor(np.nonzero(keep)[0], device=self.full_feat.device)]
+        ys, metas = [], []
+        rest = keep
+        for y, m in zip(self.full_y_sep, self.full_meta_sep):
+            sel, rest = rest[:len(y)], rest[len(y):]
+            if sel.any():
+                ys.append(y[sel])
+                metas.append(m[sel])
+        self._install_bank(kept, np.concatenate(ys), np.concatenate(metas),
+                           kept.split([len(y) for y in ys]), ys, metas)
+        self.bank_is_canonical = False
 
     @property
     def hnsw(self):

@@ -56,6 +56,11 @@ rows) and stores the labels with ``-1`` for masked rows. Every call then
 streams the bank once: score -> online softmax -> label sum ->
 ``log(acc/l + 1e-12)``.
 
+A prepared bank is edited without preparing it again (``NWNet.add_support``
+/ ``remove_support``): ``prepare_for_concat`` prepares only new rows and
+``concat_prepared`` appends them (O(new) work and one copy of the bank);
+``mask_prepared_rows`` tombstones rows by their labels (O(removed)).
+
 Each kernel has a wrapper that counts its launches (``.launches``) and a
 plain PyTorch version of the same function (``_nw_fwd_plain``,
 ``_nw_bwd_dq_plain``, ``_nw_bwd_ds_plain``, or both passes at once in
@@ -244,6 +249,107 @@ def prepare_support(
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
+
+
+def inverse_order(order: np.ndarray) -> np.ndarray:
+    """The inverse of ``prepare_support``'s ``order``: input row ``i`` is
+    stored at prepared row ``inverse_order(order)[i]``."""
+    inv = np.empty(len(order), np.int64)
+    inv[order] = np.arange(len(order), dtype=np.int64)
+    return inv
+
+
+def prepare_for_concat(
+    sfeat: torch.Tensor,
+    sy,
+    n_classes: int,
+    like: PreparedSupport,
+    *,
+    kernel: str = "euclidean",
+    precision: str = "f32",
+    support_mask: Optional[torch.Tensor] = None,
+    return_order: bool = False,
+):
+    """Prepare new rows so that ``concat_prepared`` takes them after
+    ``like`` (``pallas_nw.py:414``). An untiled ``like`` needs nothing
+    more than ``prepare_support``. A tiled one (an IVF bank or shard) has
+    the new rows padded with masked rows to a multiple of ``like.block_s``
+    and prepared at that tile size: ``prepare_support`` would otherwise
+    shrink the tile to ``round_up(S, 128)`` for a small add, and the concat
+    would be refused. Pass the ``kernel`` and ``precision`` ``like`` was
+    built with; ``concat_prepared`` checks the dtype and widths, not the
+    kernel."""
+    n = int(sfeat.shape[0])
+    if n == 0:
+        raise ValueError("prepare_for_concat needs at least one row")
+    block_s = like.block_s
+    if block_s is not None:
+        pad = _round_up(n, block_s) - n
+        sy = np.concatenate([np.asarray(torch.as_tensor(sy).cpu()), np.zeros(pad, np.int64)])
+        mask = torch.ones(n, dtype=torch.float32) if support_mask is None \
+            else torch.as_tensor(support_mask).to("cpu", torch.float32)
+        support_mask = torch.nn.functional.pad(mask, (0, pad))
+        sfeat = torch.nn.functional.pad(sfeat, (0, 0, 0, pad))
+    return prepare_support(sfeat, sy, n_classes, kernel=kernel, support_mask=support_mask,
+                           precision=precision, block_s=block_s, return_order=return_order)
+
+
+def concat_prepared(preps) -> PreparedSupport:
+    """One prepared bank of several, by concatenating their fields
+    (``pallas_nw.py:452``): every field is per row, and every int8/int4 row
+    is quantized on its own, so the result holds the same rows, codes and
+    scales as one bank prepared whole, in another order (the head does
+    not depend on the order). Banks of another dtype, feature width or
+    tile size (a tiled bank beside an untiled one too), or with ``s2`` or
+    ``sscale`` where the first has none or the reverse, raise
+    ``ValueError``. JAX's class windows, which the port does not have, are
+    the only step left out: no concat here loses them, so none rebuilds."""
+    preps = list(preps)
+    if not preps:
+        raise ValueError("concat_prepared needs at least one bank")
+    ref = preps[0]
+    for p in preps[1:]:
+        if p.s.dtype != ref.s.dtype:
+            raise ValueError(f"precision mismatch: {p.s.dtype} vs {ref.s.dtype}")
+        if p.s.shape[1] != ref.s.shape[1]:
+            raise ValueError(f"feature width mismatch: {p.s.shape[1]} vs {ref.s.shape[1]}")
+        if p.block_s != ref.block_s:
+            raise ValueError(f"tile size (block_s) mismatch: {p.block_s} vs {ref.block_s}")
+        for name in ("s2", "sscale"):
+            if (getattr(p, name) is None) != (getattr(ref, name) is None):
+                raise ValueError(f"{name} presence mismatch (different kernel mode or precision)")
+    if len(preps) == 1:
+        return ref
+
+    def cat(field):
+        return None if getattr(ref, field) is None else torch.cat([getattr(p, field)
+                                                                    for p in preps])
+
+    return PreparedSupport(s=cat("s"), s2=cat("s2"), labels=cat("labels"), sscale=cat("sscale"),
+                           block_s=ref.block_s)
+
+
+def mask_prepared_rows(prep: PreparedSupport, rows) -> PreparedSupport:
+    """Tombstone prepared rows (``pallas_nw.py:537``): their labels become
+    -1 and, in l2 mode, their self-norms ``_MASK_S2``, which is how
+    ``prepare_support`` masks a row. Pass 1 drops every row with a negative
+    label in every mode, so features and scales stay where they are. A
+    new bank is returned, with new ``labels`` (and ``s2``); ``prep`` is
+    left as it was, since serving callables and a shard's copies may share
+    it. ``rows`` are prepared positions (``prepare_support(...,
+    return_order=True)`` gives them: it class-sorts when C > 128); an empty
+    list returns ``prep`` itself, a row outside the bank raises
+    ``IndexError``. The device work is one copy of the labels (and
+    self-norms)."""
+    rows = np.asarray(rows, dtype=np.int64)
+    if rows.size == 0:
+        return prep
+    n = prep.labels.shape[0]
+    if rows.min() < 0 or rows.max() >= n:
+        raise IndexError(f"prepared-row index out of range for {n} rows")
+    idx = torch.as_tensor(rows, device=prep.labels.device)
+    s2 = None if prep.s2 is None else prep.s2.index_fill(0, idx, _MASK_S2)
+    return prep._replace(labels=prep.labels.index_fill(0, idx, -1), s2=s2)
 
 
 def _quantize_bank(s: torch.Tensor, precision: str):

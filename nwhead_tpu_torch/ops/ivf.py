@@ -24,8 +24,13 @@ The k-means draws its randomness in two small functions,
 ``_fit_sample`` (the fit subsample) and ``_kmeans_pp_init`` (the
 k-means++ seeding), from a ``torch.Generator`` seeded by ``seed``; the
 JAX package draws them from ``jax.random``, so the two packages build the
-same bank from the same draws only. ``concat_ivf`` waits for the bank
-edits (``concat_prepared``, ROADMAP.md queue 1, item 9).
+same bank from the same draws only.
+
+``concat_ivf`` joins IVF banks built apart (each chunk class- or
+cluster-sorted on its own) into one routable bank: ``concat_prepared`` of
+their banks and the concatenation of their routing indices, O(bytes).
+``NWNet.add_support`` grows a live IVF bank this way, by a chunk of only
+the new rows.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from nwhead_tpu_torch.ops.fused_nw import (
     PreparedSupport,
     _resolve_mode,
     _round_up,
+    concat_prepared,
     nw_fused_from_prepared,
     prepare_support,
 )
@@ -196,6 +202,28 @@ def prepare_support_ivf(
     _, _, _, sn_s = _resolve_mode(kernel, {"logit_scale": 0.0}, sfeat_s[:1], sfeat_s)
     cents, c2, cvalid = _tile_centroids(sn_s, mask_s, n_tiles, block_s)
     return IVFPrepared(prep=prep, cents=cents, c2=c2, cvalid=cvalid)
+
+
+def concat_ivf(ivfs) -> IVFPrepared:
+    """One IVF bank of several (``ivf.py:293``): ``concat_prepared`` of
+    their banks (same tile size, precision and width, or ``ValueError``)
+    and their tiles' centroids, self-norms and validity flags in the same
+    order. Routing ranks every tile of every part, so a class split over
+    parts owns tiles in each; at worst a part adds one partly filled tile
+    a class. Routing widths that differ raise ``ValueError``."""
+    ivfs = list(ivfs)
+    if not ivfs:
+        raise ValueError("concat_ivf needs at least one bank")
+    width = ivfs[0].cents.shape[1]
+    for v in ivfs[1:]:
+        if v.cents.shape[1] != width:
+            raise ValueError(f"routing width mismatch: {v.cents.shape[1]} vs {width}")
+    if len(ivfs) == 1:
+        return ivfs[0]
+    return IVFPrepared(prep=concat_prepared([v.prep for v in ivfs]),
+                       cents=torch.cat([v.cents for v in ivfs]),
+                       c2=torch.cat([v.c2 for v in ivfs]),
+                       cvalid=torch.cat([v.cvalid for v in ivfs]))
 
 
 def _dedup_rows(ids: torch.Tensor, n_tiles: int, n_sel: int) -> torch.Tensor:

@@ -29,13 +29,19 @@ row's multiplicity folded into its score (plain torch, as in the JAX
 package). JAX's ``all_gather`` over the mesh is a concatenation in shard
 order here. The TPU's widening of the class window across shards
 (``concat_prepared``) is a Mosaic layout matter and has no counterpart.
-``remove_rows`` and the row map wait for the bank edits (ROADMAP.md queue
-1, item 9), the mesh's AOT export for item 13.
+
+``remove_rows`` tombstones rows of a built bank in O(removed): ``build``
+keeps a row map from each live input row to its position in the
+shard-concatenated arrays (input order for raw shards; a prepared or IVF
+shard's class sort and tile padding), and a removal masks those positions
+in every copy of their shard (raw: the mask; prepared and IVF:
+``mask_prepared_rows``), shapes unchanged, the routing index as it was.
+The mesh's AOT export waits for ROADMAP.md queue 1, item 13.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field, replace
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -46,6 +52,8 @@ from nwhead_tpu_torch.ops.fused_nw import (
     PreparedSupport,
     _resolve_mode,
     _softmax_partials_plain,
+    inverse_order,
+    mask_prepared_rows,
     nw_fused_from_prepared,
     nw_fused_partials,
     prepare_support,
@@ -313,12 +321,32 @@ class Shard(NamedTuple):
 
         return Shard(*(move(v) for v in self))
 
+    @property
+    def bank(self) -> Optional[PreparedSupport]:
+        """The prepared bank (of the IVF index too), or None for raw rows."""
+        return self.ivf.prep if self.ivf is not None else self.prepared
+
+    @property
+    def rows(self) -> int:
+        """Array rows, live and masked (a tiled bank's padding too)."""
+        return int(self.mask.shape[0] if self.bank is None else self.bank.labels.shape[0])
+
+    def masked(self, rows: np.ndarray) -> "Shard":
+        """This shard with its array rows ``rows`` tombstoned; a new shard,
+        this one untouched."""
+        if self.ivf is not None:
+            return Shard(ivf=self.ivf._replace(prep=mask_prepared_rows(self.ivf.prep, rows)))
+        if self.prepared is not None:
+            return Shard(prepared=mask_prepared_rows(self.prepared, rows))
+        idx = torch.as_tensor(rows, device=self.mask.device)
+        return self._replace(mask=self.mask.index_fill(0, idx, 0.0))
+
 
 def _ivf_shard(f: torch.Tensor, lab: np.ndarray, m: np.ndarray, n_classes: int, kernel: str,
-               precision: str) -> IVFPrepared:
+               precision: str) -> Tuple[IVFPrepared, np.ndarray]:
     """A shard class-sorted (stably, masked rows last) and prepared in that
     order at the JAX package's tile size, with its tiles' centroids
-    (``sharded_bank.py:365-395``)."""
+    (``sharded_bank.py:365-395``), and the sort."""
     perm = np.argsort(np.where(m > 0, lab, n_classes), kind="stable")
     perm_t = torch.as_tensor(perm, device=f.device)
     f, lab, m = f[perm_t], lab[perm], m[perm]
@@ -329,7 +357,7 @@ def _ivf_shard(f: torch.Tensor, lab: np.ndarray, m: np.ndarray, n_classes: int, 
     _, _, _, sn = _resolve_mode(kernel, {"logit_scale": 0.0}, f[:1], f)
     cents, c2, cvalid = _tile_centroids(sn, mask, prep.labels.shape[0] // prep.block_s,
                                         prep.block_s)
-    return IVFPrepared(prep=prep, cents=cents, c2=c2, cvalid=cvalid)
+    return IVFPrepared(prep=prep, cents=cents, c2=c2, cvalid=cvalid), perm
 
 
 @dataclass
@@ -342,7 +370,9 @@ class ShardedSupportBank:
     card); prepared mode one ``prepare_support`` bank a shard at f32, bf16,
     int8 or int4 (K2/K4/K5 ``partials=True``), and with ``ivf=True`` a
     tile-routing index a shard (K6 ``partials=True`` over the tiles each
-    shard routes to)."""
+    shard routes to). ``rowmap[i]`` is live row ``i``'s position in the
+    shards' arrays laid end to end; ``dead`` counts the rows tombstoned
+    since ``build``."""
 
     mesh: Mesh
     n_classes: int
@@ -350,6 +380,8 @@ class ShardedSupportBank:
     kernel: str = "euclidean"
     precision: str = "f32"
     local: int = 0  # rows a shard, padding included
+    rowmap: Optional[np.ndarray] = field(default=None, repr=False)
+    dead: int = 0
 
     @staticmethod
     def build(
@@ -381,6 +413,8 @@ class ShardedSupportBank:
         S, D = feats.shape
         local = -(-S // n_shards)
         shards = []
+        rowmap = np.empty(S, np.int64)
+        offset = 0
         for k in range(n_shards):
             lo, hi = min(S, k * local), min(S, (k + 1) * local)
             home = devices[0, k]
@@ -390,19 +424,26 @@ class ShardedSupportBank:
             lab[:hi - lo] = labels_np[lo:hi]
             m = np.zeros(local, np.float32)
             m[:hi - lo] = 1.0
+            order = None
             if ivf and use_prepared:
-                shard = Shard(ivf=_ivf_shard(f, lab, m, n_classes, kernel, precision))
+                shard_ivf, order = _ivf_shard(f, lab, m, n_classes, kernel, precision)
+                shard = Shard(ivf=shard_ivf)
             elif use_prepared:
-                shard = Shard(prepared=prepare_support(
+                prep, order = prepare_support(
                     f, lab, n_classes, kernel=kernel, precision=precision,
-                    support_mask=torch.as_tensor(m, device=home)))
+                    support_mask=torch.as_tensor(m, device=home), return_order=True)
+                shard = Shard(prepared=prep)
             else:
                 shard = Shard(feat=f, labels=torch.as_tensor(lab.astype(np.int32), device=home),
                               mask=torch.as_tensor(m, device=home))
+            # Live row lo + r sits at the shard's row inv[r] (its sort).
+            live = np.arange(hi - lo, dtype=np.int64)
+            rowmap[lo:hi] = offset + (live if order is None else inverse_order(order)[live])
+            offset += shard.rows
             shards.append({dev: shard if dev == home else shard.to(dev)
                            for dev in dict.fromkeys(devices[:, k])})
         return ShardedSupportBank(mesh=mesh, n_classes=n_classes, shards=shards, kernel=kernel,
-                                  precision=precision, local=local)
+                                  precision=precision, local=local, rowmap=rowmap)
 
     @property
     def prepared(self) -> bool:
@@ -417,14 +458,38 @@ class ShardedSupportBank:
 
     @property
     def capacity(self) -> int:
-        """Array rows over all shards (live and padding, tiles' padding
-        included)."""
-        total = 0
+        """Array rows over all shards (live, tombstoned and padding, tiles'
+        padding included)."""
+        return sum(next(iter(copies.values())).rows for copies in self.shards)
+
+    def remove_rows(self, live_idx) -> "ShardedSupportBank":
+        """Tombstone live rows (indices in the order ``build`` received,
+        less earlier removals): their positions in every copy of their
+        shard are masked, O(removed), shapes unchanged, the IVF routing
+        index carried over as it was (a dead row in a routed tile weighs
+        exactly 0). Returns a new bank with the row map of the rows left;
+        this one and every untouched shard stay as they are. An empty list
+        returns this bank; an index outside the live rows raises
+        ``IndexError`` (JAX ``sharded_bank.py:485-540``)."""
+        if self.rowmap is None:
+            raise ValueError("this bank carries no row map (not built by build())")
+        live_idx = np.unique(np.asarray(live_idx, dtype=np.int64))
+        if live_idx.size == 0:
+            return self
+        if live_idx.min() < 0 or live_idx.max() >= len(self.rowmap):
+            raise IndexError(f"row index out of range for bank of {len(self.rowmap)}")
+        pos = self.rowmap[live_idx]
+        shards, offset = [], 0
         for copies in self.shards:
-            shard = next(iter(copies.values()))
-            bank = shard.ivf.prep if shard.ivf is not None else shard.prepared
-            total += int(shard.mask.shape[0] if bank is None else bank.labels.shape[0])
-        return total
+            n = next(iter(copies.values())).rows
+            rows = pos[(pos >= offset) & (pos < offset + n)] - offset
+            shards.append({dev: shard.masked(rows) for dev, shard in copies.items()}
+                          if rows.size else copies)
+            offset += n
+        keep = np.ones(len(self.rowmap), bool)
+        keep[live_idx] = False
+        return replace(self, shards=shards, rowmap=self.rowmap[keep],
+                       dead=self.dead + int(live_idx.size))
 
     def _shard_partials(self, q: torch.Tensor, shard: Shard, kernel_params,
                         ivf_n_probe: Optional[int]) -> Partials:
@@ -432,7 +497,7 @@ class ShardedSupportBank:
             return nw_fused_ivf_log_probs(q, shard.ivf, self.n_classes, kernel=self.kernel,
                                           kernel_params=kernel_params, n_probe=ivf_n_probe,
                                           partials=True)
-        bank = shard.ivf.prep if shard.ivf is not None else shard.prepared
+        bank = shard.bank
         if bank is not None:
             return nw_fused_from_prepared(q, bank, self.n_classes, kernel=self.kernel,
                                           kernel_params=kernel_params, partials=True)
