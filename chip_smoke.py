@@ -293,11 +293,33 @@ package beside it. With one, in order:
     seconds, peak memory, a featurizer call split by CUDA events, beside
     the zoo phase's ResNet-50 f32 and ``--bf16`` p50s; the zoo phase's file
     quantized for an ungated agreement line;
+17f. data and FC phase (last): CIFAR-100-shaped ``.npy`` files (10,000 /
+    2,000 images of 32 x 32 x 3 uint8, 100 classes, cut from 50,000 /
+    10,000) written to the work directory; ``python -m
+    nwhead_tpu_torch.train --train_method fchead --dataset cifar100 --arch
+    resnet18`` (CIFAR_ResNet18, D=512, C=100, B=128, the CIFAR transforms on
+    the host) through ``train.setup`` / ``run_epochs``: an eval and 10 steps,
+    the first step's log-probs held to the same weights on the CPU (1e-3),
+    then ``--resume`` for a second epoch, step ms and peak memory printed;
+    ``--train_method nwhead --n_shot 11`` on the same files (1,100-row
+    episodes: K1, dq and ds once a step, K2 in the full-mode eval, the first
+    step's head held to the plain versions); the eval CLI ``--modes full
+    --bank_cache DIR`` on that run's checkpoint twice (the first saves, the
+    second restores: equal acc, NLL and ECE, K2 launched, restore seconds
+    beside ``precompute``'s, the restored bank's K2 against the plain head);
+    the serve CLI ``--latency_bench --bank_cache`` twice (its own tagged
+    cache, as the eval CLI's carries no tag: one K2 launch a request on the
+    restored bank, p50, served against the plain head); and
+    ``device_normalize_fn`` on a 64 x 224 x 224 x 3 uint8 batch against
+    numpy's ``normalize`` (1e-6). The card's machine has Pillow but not
+    libjpeg's headers, so the JPEG decoders are held on the CPU only
+    (``tests/test_torch_data.py``);
 18. prints the nvidia-smi line, a JSON line of per-kernel results (the
     zoo phases' launches added to K1-K4, their times as ``d2048_*`` and
     ``d1024_*``; the int8 CNN phase's launches and errors added to K2, K4
-    and K5; the bank-edit phases' to K2, K4, K5, K6 and K2 ``partials``),
-    and as the last line ``{"ok": true, "device": {...}}``.
+    and K5; the bank-edit phases' to K2, K4, K5, K6 and K2 ``partials``;
+    the data phase's to K1, dq, ds and K2 f32), and as the last line
+    ``{"ok": true, "device": {...}}``.
 
 Kernel times are device times: CUDA events around each call, queued behind
 a spin kernel so that the host's overhead does not count, L2 flushed before
@@ -863,6 +885,45 @@ class StepTimer:
                 "step_ms": float(step_ms), "steps": len(rows)}
 
 
+def first_step_head(net, captured: dict, where: str) -> dict:
+    """The first training step's head (its query and support features and
+    labels, ``captured`` by a forward hook on the head) through K1, dq and
+    ds against their plain versions; raises unless the episode took the
+    fused head. A query drawn into its own episode has the same features as
+    its support row, so the reference is the plain version in f64."""
+    import torch
+
+    from nwhead_tpu_torch.ops import fused_nw as F
+
+    S = captured["s"].shape[0]
+    if S != net.support_train.support_size() or not net.model.head.takes_fused(
+            captured["q"], captured["s"]):
+        raise AssertionError(f"the episode ({S} rows) did not take the fused head")
+    mode, scale, qn, sn = F._resolve_mode(net.kernel_type, net.model.head.kernel_params(),
+                                          captured["q"], captured["s"])
+    qn, sn = qn.contiguous(), sn.contiguous()
+    dups = torch.nonzero((qn[:, None, :] == sn[None, :, :]).all(-1).any(1)).flatten()
+    g = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (qn.shape[0], net.n_classes), np.float32)).to(net.device)
+    return check_raw_kernels(qn, sn, captured["sy"].to(torch.int32), scale.detach(), mode,
+                             net.n_classes, g, "f32", where, dup_queries=dups)
+
+
+def capture_head_inputs(net) -> tuple:
+    """A forward hook on the head that keeps the first training step's
+    query and support features and labels: ``(captured, handle)``."""
+    import torch
+
+    captured = {}
+
+    def capture(module, inputs, output):
+        if "q" not in captured and torch.is_grad_enabled() and inputs[1].dim() == 2:
+            captured.update(q=inputs[0].detach().clone(), s=inputs[1].detach().clone(),
+                            sy=inputs[2].detach().clone())
+
+    return captured, net.model.head.register_forward_hook(capture)
+
+
 def training_phase(datasets, workdir: str) -> dict:
     """The training CLI's path at the slice configuration; then a bf16 head
     and the canonical n_way 10 recipe. Returns launch counts, parity errors
@@ -875,14 +936,7 @@ def training_phase(datasets, workdir: str) -> dict:
     argv = TRAIN_ARGV + ["--models_dir", workdir, "--log_interval", "1000"]
     args, trainer, start = train.setup(argv, datasets=datasets)
     net = trainer.net
-    captured = {}
-
-    def capture(module, inputs, output):
-        if "q" not in captured and torch.is_grad_enabled() and inputs[1].dim() == 2:
-            captured.update(q=inputs[0].detach().clone(), s=inputs[1].detach().clone(),
-                            sy=inputs[2].detach().clone())
-
-    handle = net.model.head.register_forward_hook(capture)
+    captured, handle = capture_head_inputs(net)
     timer = StepTimer(net.model)
     before = {n: p.detach().clone() for n, p in net.model.named_parameters()}
     torch.cuda.synchronize()
@@ -917,24 +971,9 @@ def training_phase(datasets, workdir: str) -> dict:
     moved = sum(not torch.equal(p.detach(), before[n]) for n, p in net.model.named_parameters())
     if moved == 0:
         raise AssertionError("no parameter changed in training")
-    S = captured["s"].shape[0]
     print(f"first step: query {tuple(captured['q'].shape)}, support {tuple(captured['s'].shape)}; "
           f"{moved} of {len(before)} parameter tensors moved")
-    if S != net.support_train.support_size() or not net.model.head.takes_fused(
-            captured["q"], captured["s"]):
-        raise AssertionError(f"the episode ({S} rows) did not take the fused head")
-
-    # The first step's head, through the kernels and the plain versions. A
-    # query drawn into its own episode has the same features as its support
-    # row, so the reference is the plain version in f64.
-    mode, scale, qn, sn = F._resolve_mode(net.kernel_type, net.model.head.kernel_params(),
-                                          captured["q"], captured["s"])
-    qn, sn = qn.contiguous(), sn.contiguous()
-    dups = torch.nonzero((qn[:, None, :] == sn[None, :, :]).all(-1).any(1)).flatten()
-    g = torch.from_numpy(np.random.default_rng(7).standard_normal(
-        (qn.shape[0], net.n_classes), np.float32)).to(net.device)
-    errs = check_raw_kernels(qn, sn, captured["sy"].to(torch.int32), scale.detach(), mode,
-                             net.n_classes, g, "f32", "first-step", dup_queries=dups)
+    errs = first_step_head(net, captured, "first-step")
 
     # K2 at the full-mode eval's batch against its plain version.
     x = trainer.val_dataset.gather(np.arange(trainer.batch_size))
@@ -4774,6 +4813,365 @@ def bank_edit_update_entries(entries: list, edits: dict, big: dict) -> None:
     e["max_abs_err"] = max(e["max_abs_err"], big["err"])
 
 
+# ---------------------------------------------------------------------------
+# The data layer and the FC baseline: CIFAR-100-shaped .npy files through the
+# training CLI (fchead, then nwhead on K1/K3), the eval CLI's --bank_cache
+# (K2), the serve CLI on its own cache (K2), and device_normalize_fn.
+# ---------------------------------------------------------------------------
+
+DATA_TRAIN, DATA_TEST = 10_000, 2_000  # CIFAR-100 has 50,000 / 10,000
+DATA_SEED = 24
+FC_ARGV = ["--dataset", "cifar100", "--arch", "resnet18", "--train_method", "fchead",
+           "--batch_size", "128", "--lr", "0.01", "--num_steps_per_epoch", "10",
+           "--num_val_steps_per_epoch", "5", "--log_interval", "1"]
+FC_STEPS = 10
+FC_CPU_TOL = 1e-3  # the first step's log-probs, card vs CPU, same weights (both f32)
+NW_CIFAR_ARGV = ["--dataset", "cifar100", "--arch", "resnet18", "--batch_size", "8",
+                 "--n_shot", "11", "--lr", "1e-2", "--num_epochs", "1",
+                 "--num_steps_per_epoch", "5", "--num_val_steps_per_epoch", "3",
+                 "--log_interval", "1"]
+NW_CIFAR_STEPS = 5
+CACHE_EVAL_ARGV = ["--dataset", "cifar100", "--arch", "resnet18", "--batch_size", "64",
+                   "--modes", "full", "--num_val_steps", "10"]
+CACHE_SERVE_ARGV = ["--dataset", "cifar100", "--arch", "CIFAR_ResNet18", "--batch_size", "64",
+                    "--latency_bench", "--bench_batches", "30"]
+NORMALIZE_SHAPE = (64, 224, 224, 3)
+NORMALIZE_TOL = 1e-6
+
+
+def write_cifar100(data_dir: str) -> None:
+    """CIFAR-100-shaped ``.npy`` files (32 x 32 x 3 uint8, labels 0-99):
+    each class a fixed random pattern plus noise, from ``DATA_SEED``."""
+    import os
+
+    rng = np.random.default_rng(DATA_SEED)
+    base = os.path.join(data_dir, "cifar100")
+    os.makedirs(base, exist_ok=True)
+    patterns = rng.integers(0, 256, (100, 32, 32, 3)).astype(np.int16)
+    for split, n in (("train", DATA_TRAIN), ("test", DATA_TEST)):
+        labels = np.arange(n) % 100
+        noise = rng.integers(-64, 64, (n, 32, 32, 3), dtype=np.int16)
+        images = np.clip(patterns[labels] // 2 + 64 + noise, 0, 255).astype(np.uint8)
+        np.save(os.path.join(base, f"{split}_images.npy"), images)
+        np.save(os.path.join(base, f"{split}_labels.npy"), labels)
+
+
+def fc_phase(data_dir: str, workdir: str) -> dict:
+    """``python -m nwhead_tpu_torch.train --train_method fchead`` on the
+    files (CIFAR_ResNet18, D=512, C=100, B=128): an eval and 10 steps, the
+    first step's log-probs held to the same weights on the CPU; then
+    ``--resume`` for a second epoch (no sampler sidecar, the step count
+    carried on)."""
+    import os
+
+    import torch
+
+    from nwhead_tpu_torch import train
+    from nwhead_tpu_torch.models import load_model
+    from nwhead_tpu_torch.nw.fc import FCNet
+    from nwhead_tpu_torch.train.config import featurizer_name
+    from nwhead_tpu_torch.train.trainer import FCTrainer
+
+    argv = FC_ARGV + ["--data_dir", data_dir, "--models_dir", os.path.join(workdir, "fc")]
+    args, trainer, start = train.setup(argv + ["--num_epochs", "1"])
+    if not isinstance(trainer, FCTrainer):
+        raise AssertionError("--train_method fchead did not build an FCTrainer")
+    first = {}
+
+    def pre(module, inputs):
+        if module.training and "x" not in first:
+            first.update(x=inputs[0].detach().clone(),
+                         state={k: v.detach().cpu().clone()
+                                for k, v in module.state_dict().items()})
+
+    def post(module, inputs, output):
+        if module.training and "out" not in first:
+            first["out"] = output.detach().clone()
+
+    hooks = [trainer.model.register_forward_pre_hook(pre),
+             trainer.model.register_forward_hook(post)]
+    _counts(reset=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train.run_epochs(args, trainer, start)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    for h in hooks:
+        h.remove()
+    launches = {k: v for k, v in _counts().items() if v}
+    losses = trainer.step_losses
+    if len(losses) != FC_STEPS or not np.isfinite(losses).all() or trainer.step != FC_STEPS:
+        raise AssertionError(f"fchead: {trainer.step} steps, losses {losses}")
+    ckpt = train.latest_checkpoint(args.ckpt_dir)
+    if not ckpt.endswith("model.0001") or os.path.exists(ckpt + ".sampler.json"):
+        raise AssertionError(f"fchead checkpoint {ckpt}")
+
+    cpu = FCNet(load_model(featurizer_name(args.arch, args.dataset), device="cpu"), 100)
+    cpu.load_state_dict(first["state"])
+    with torch.no_grad():
+        want = cpu.train()(first["x"].cpu())
+    got = first["out"].cpu()
+    cpu_err = float((got - want).abs().max())
+    print(f"fchead: batch {tuple(first['x'].shape)}, log-probs {tuple(got.shape)}; card vs CPU "
+          f"(same weights, train mode) max|err| {cpu_err:.3e} (tolerance {FC_CPU_TOL:g})")
+    if (tuple(got.shape) != (args.batch_size, 100)
+            or not within(got, want, FC_CPU_TOL, FC_CPU_TOL)):
+        raise AssertionError("the card's FC step disagrees with the CPU")
+    first_ms = trainer.train_seconds / FC_STEPS * 1e3
+    del trainer, cpu
+    torch.cuda.empty_cache()
+
+    args, trainer, start = train.setup(argv + ["--num_epochs", "2", "--resume"])
+    if start != 2 or trainer.step != FC_STEPS:
+        raise AssertionError(f"resume: start epoch {start}, step {trainer.step}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    train.run_epochs(args, trainer, start)
+    torch.cuda.synchronize()
+    resumed_peak = torch.cuda.max_memory_allocated()
+    ms = trainer.train_seconds / FC_STEPS * 1e3
+    ckpt = train.latest_checkpoint(args.ckpt_dir)
+    if (trainer.step != 2 * FC_STEPS or not ckpt.endswith("model.0002")
+            or not np.isfinite(trainer.step_losses).all()):
+        raise AssertionError(f"resumed fchead: step {trainer.step}, {ckpt}")
+    # Where a step's time goes: the host's gather and CIFAR transform of one
+    # batch, and the step on a batch already on the card (CUDA events).
+    ds, bs = trainer.train_dataset, args.batch_size
+    t0 = time.perf_counter()
+    img = ds.gather(np.arange(bs))
+    gather_ms = (time.perf_counter() - t0) * 1e3
+    x = torch.from_numpy(img).cuda()
+    y = torch.from_numpy(np.asarray(ds.targets[:bs], np.int64)).cuda()
+    for _ in range(3):
+        trainer.train_step(x, y)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(FC_STEPS):
+        trainer.train_step(x, y)
+    end.record()
+    torch.cuda.synchronize()
+    device_ms = start.elapsed_time(end) / FC_STEPS
+    print(f"fchead: {FC_STEPS} steps of {bs} in {first_ms:.2f} ms/step (host clock, first "
+          f"step included), resumed epoch {ms:.2f} ms/step; a step on a batch on the card "
+          f"{device_ms:.2f} ms (CUDA events, {FC_STEPS} in a row); the host's gather + CIFAR "
+          f"transform of {bs} images {gather_ms:.2f} ms; eval + train {wall:.2f}s; peak device "
+          f"memory {peak / 2**30:.2f} GiB (resumed {resumed_peak / 2**30:.2f}); losses "
+          f"{['%.4f' % v for v in losses]}; library launches {launches or 'none'} (cuDNN "
+          f"convs, cuBLAS linear)")
+    out = {"ms_per_step": ms, "first_ms_per_step": first_ms, "device_ms": device_ms,
+           "gather_ms": gather_ms, "peak_bytes": peak, "cpu_err": cpu_err}
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def nw_cifar_phase(data_dir: str, workdir: str) -> dict:
+    """The training CLI's ``nwhead`` path on the same files: episodes of
+    100 classes x 11 shots (1,100 rows: K1, dq and ds once a step), the
+    full-mode eval on K2; the first step's head held to the plain
+    versions."""
+    import os
+
+    import torch
+
+    from nwhead_tpu_torch import train
+
+    argv = NW_CIFAR_ARGV + ["--data_dir", data_dir, "--models_dir", os.path.join(workdir, "nw")]
+    args, trainer, start = train.setup(argv)
+    net = trainer.net
+    captured, handle = capture_head_inputs(net)
+    _counts(reset=True)
+    t0 = time.perf_counter()
+    train.run_epochs(args, trainer, start)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    handle.remove()
+    print(f"nwhead on cifar100 files: episode {tuple(captured['s'].shape)}, launches "
+          f"{ {k: v for k, v in launches.items() if v} }; {NW_CIFAR_STEPS} steps "
+          f"{trainer.train_seconds / NW_CIFAR_STEPS * 1e3:.1f} ms/step (host clock, first step "
+          f"included); eval + train {wall:.2f}s; losses "
+          f"{['%.4f' % v for v in trainer.step_losses]}")
+    for name in RAW_WRAPPERS:
+        if launches[name] != NW_CIFAR_STEPS:
+            raise AssertionError(f"{name} launched {launches[name]} times in "
+                                 f"{NW_CIFAR_STEPS} steps on the cifar100 files")
+    if launches["nw_prepared_cuda"] == 0 or not np.isfinite(trainer.step_losses).all():
+        raise AssertionError("the cifar100 NW run launched no K2 or lost finiteness")
+    errs = first_step_head(net, captured, "cifar100 first-step")
+    out = {"launches": launches, "errs": errs, "ckpt": train.latest_checkpoint(args.ckpt_dir)}
+    del trainer, net, captured
+    torch.cuda.empty_cache()
+    return out
+
+
+def bank_cache_phase(data_dir: str, workdir: str, ckpt: str) -> dict:
+    """``python -m nwhead_tpu_torch.eval --modes full --bank_cache DIR`` on
+    the NW run's checkpoint, twice, in process: the first run saves the
+    bank, the second restores it; their results must be equal and each
+    must launch K2."""
+    import os
+    from unittest import mock
+
+    import torch
+
+    from nwhead_tpu_torch import eval as eval_cli
+
+    cache = os.path.join(workdir, "eval_bank")
+    argv = CACHE_EVAL_ARGV + ["--data_dir", data_dir, "--ckpt", ckpt, "--bank_cache", cache]
+    install = eval_cli.install_bank
+    runs = []
+
+    def recording(net, cache_dir=None):
+        install(net, cache_dir)
+        runs[-1].update(seconds=net.bank_seconds, rows=len(net.full_y), net=net)
+
+    for what in ("saved", "restored"):
+        runs.append({"what": what})
+        _counts(reset=True)
+        with mock.patch.object(eval_cli, "install_bank", recording):
+            runs[-1]["results"] = eval_cli.main(argv)["full"]
+        torch.cuda.synchronize()
+        runs[-1]["launches"] = _counts()["nw_prepared_cuda"]
+    saved, restored = runs
+    # One batch of the restored bank through K2 against the plain head.
+    net = restored.pop("net")
+    saved.pop("net")
+    x = net.support_dataset.gather(np.arange(64))  # any 64 images: the train set's
+    got = net.predict(x, "full")
+    with torch.inference_mode():
+        plain = plain_head(net, net.model.featurize(torch.from_numpy(x).to(net.device)))
+    torch.cuda.synchronize()
+    err = float((got - plain).abs().max())
+    print(f"eval --bank_cache: precompute {saved['seconds']:.3f}s, restore "
+          f"{restored['seconds']:.3f}s ({restored['rows']} rows, reading the files included); "
+          f"K2 launches {saved['launches']} / {restored['launches']}; saved {saved['results']}, "
+          f"restored {restored['results']}; restored K2 vs plain max|err| {err:.3e}")
+    if saved["results"] != restored["results"]:
+        raise AssertionError("the restored bank's results differ from the saved run's")
+    if min(saved["launches"], restored["launches"]) == 0:
+        raise AssertionError("the eval CLI's full mode launched no K2")
+    if not within(got, plain, **TOL["f32"]):
+        raise AssertionError("K2 over the restored bank disagrees with the plain head")
+    del net
+    torch.cuda.empty_cache()
+    return {"launches": saved["launches"] + restored["launches"], "err": err,
+            "precompute_s": saved["seconds"], "restore_s": restored["seconds"]}
+
+
+def cache_serving_phase(data_dir: str, workdir: str) -> dict:
+    """``python -m nwhead_tpu_torch.serve --latency_bench --bank_cache DIR``
+    on the files, twice through the serve module's functions: the first
+    server featurizes and saves the bank with its tag, the second restores
+    it and is timed; one K2 launch a request, the served log-probs against
+    the plain head. (The eval CLI's cache carries no tag, as JAX's, so the
+    server refuses it.)"""
+    import os
+
+    import torch
+
+    from nwhead_tpu_torch import serve
+
+    cache = os.path.join(workdir, "serve_bank")
+    args = serve.parse_args(CACHE_SERVE_ARGV + ["--data_dir", data_dir, "--bank_cache", cache])
+    train_ds, val_ds = serve.build_datasets(args)
+    first = serve.build_server(args, train_ds)
+    precompute_s = first.precompute_seconds
+    del first
+    torch.cuda.empty_cache()
+    _counts(reset=True)
+    net = serve.build_server(args, train_ds)
+    if not net.bank_restored:
+        raise AssertionError("the second server did not restore the cached bank")
+    torch.cuda.synchronize()
+    built = _counts()["nw_prepared_cuda"]
+    report = serve.latency_bench(net, val_ds, args)
+    torch.cuda.synchronize()
+    requests = report["batches"] + 3  # the bench's three warm-up requests
+    launches = _counts()["nw_prepared_cuda"] - built
+    x = val_ds.gather(np.arange(args.batch_size))
+    served = net.make_serving_fn()(x)
+    with torch.inference_mode():
+        plain = plain_head(net, net.model.featurize(torch.from_numpy(x).to(net.device)))
+    torch.cuda.synchronize()
+    err = float((served - plain).abs().max())
+    print(f"serve --bank_cache: precompute {precompute_s:.3f}s, restore "
+          f"{net.precompute_seconds:.3f}s ({len(net.full_y)} rows); {launches} K2 launches in "
+          f"{requests} requests; p50 {report['p50_ms']:.3f} ms, p95 {report['p95_ms']:.3f} ms, "
+          f"{report['queries_per_sec']:.1f} q/s ({report['pixels']} pixels); served vs plain "
+          f"max|err| {err:.3e}")
+    if launches != requests:
+        raise AssertionError(f"{launches} K2 launches for {requests} requests")
+    if not bool(torch.isfinite(served).all()) or not within(served, plain, **TOL["f32"]):
+        raise AssertionError("served log-probs over the restored bank disagree with the plain head")
+    out = {"launches": launches, "err": err, "report": report, "precompute_s": precompute_s,
+           "restore_s": net.precompute_seconds}
+    del net
+    torch.cuda.empty_cache()
+    return out
+
+
+def normalize_phase() -> dict:
+    """``device_normalize_fn`` on a 64 x 224 x 224 x 3 uint8 batch on the
+    card against numpy's ``normalize(to_float(x))``; timed by CUDA events
+    beside its bound (1 byte in, 4 out, per value)."""
+    import torch
+
+    from nwhead_tpu_torch.data import transforms as T
+
+    u8 = np.random.default_rng(DATA_SEED).integers(0, 256, NORMALIZE_SHAPE, dtype=np.uint8)
+    fn = T.device_normalize_fn()
+    x = torch.from_numpy(u8).cuda()
+    got = fn(x)
+    want = T.normalize(T.to_float(u8), T.IMAGENET_MEAN, T.IMAGENET_STD)
+    torch.cuda.synchronize()
+    err = float(np.abs(got.cpu().numpy() - want).max())
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    ms = time_ms(lambda: fn(x), flush)
+    del flush
+    bound = u8.size * 5 / HBM_BYTES_PER_S * 1e3
+    print(f"device_normalize_fn {NORMALIZE_SHAPE}: max|err| vs numpy {err:.3e} (tolerance "
+          f"{NORMALIZE_TOL:g}); {ms:.4f} ms, bound {bound:.4f} ms (bytes)")
+    if got.dtype != torch.float32 or tuple(got.shape) != NORMALIZE_SHAPE or err > NORMALIZE_TOL:
+        raise AssertionError("device_normalize_fn disagrees with numpy's normalize")
+    return {"err": err, "ms": ms, "bound_ms": bound}
+
+
+def data_fc_phase(workdir: str) -> dict:
+    """The data layer and the FC baseline at CIFAR-100's shape (see the
+    functions it calls)."""
+    import os
+
+    data_dir = os.path.join(workdir, "data")
+    t0 = time.perf_counter()
+    write_cifar100(data_dir)
+    print(f"cifar100 .npy files: {DATA_TRAIN:,} / {DATA_TEST:,} images of 32 x 32 x 3 uint8, 100 "
+          f"classes (cut from CIFAR-100's 50,000 / 10,000), written in "
+          f"{time.perf_counter() - t0:.1f}s")
+    out = {"fc": fc_phase(data_dir, workdir)}
+    out["nw"] = nw_cifar_phase(data_dir, workdir)
+    out["cache"] = bank_cache_phase(data_dir, workdir, out["nw"]["ckpt"])
+    out["serve"] = cache_serving_phase(data_dir, workdir)
+    out["normalize"] = normalize_phase()
+    return out
+
+
+def data_update_entries(entries: list, data: dict) -> None:
+    """The data phase's launches and errors added to the K1, dq, ds and K2
+    f32 entries of the ``kernels`` line."""
+    by_name = {e["name"]: e for e in entries}
+    for k in ("nw_fwd", "nw_bwd_dq", "nw_bwd_ds"):
+        e = by_name[f"{k}_f32"]
+        e["launches"] += data["nw"]["launches"][f"{k}_cuda"]
+        e["max_abs_err"] = max(e["max_abs_err"], data["nw"]["errs"][k])
+    e = by_name["nw_prepared_f32"]
+    e["launches"] += (data["nw"]["launches"]["nw_prepared_cuda"] + data["cache"]["launches"]
+                      + data["serve"]["launches"])
+    e["max_abs_err"] = max(e["max_abs_err"], data["cache"]["err"], data["serve"]["err"])
+
+
 def main() -> int:
     import torch
 
@@ -4917,6 +5315,10 @@ def main() -> int:
         t0 = time.perf_counter()
         int8_cnn_served = int8_cnn_serving_phase(datasets, workdir, zoo_served)
         phase_s["int8 CNN serving"] = time.perf_counter() - t0
+        del datasets
+        t0 = time.perf_counter()
+        data = data_fc_phase(workdir)
+        phase_s["data and FC"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
@@ -4965,6 +5367,7 @@ def main() -> int:
     zoo_update_entries(entries, zoo_kern, zoo_served, zoo_trained)
     int8_cnn_update_entries(entries, int8_cnn_served)
     bank_edit_update_entries(entries, edits, big_edits)
+    data_update_entries(entries, data)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,7 +26,11 @@ serving (``ops/ivf.py``, ``--serve_mode ivf``: K6 over the bank tiles a
 batch routes to), support-sharded serving (``parallel``: a bank split over
 a mesh's devices, each shard's partials merged exactly; ``NWNet(mesh=...)``,
 ``--mesh``) and a host-resident bank streamed in chunks
-(``nw/streaming.py``).
+(``nw/streaming.py``). The FC baseline (``nw/fc.py``, ``FCTrainer``) trains
+beside the NW head, and the data layer (``data/transforms.py``, the
+image-file and CIFAR datasets, the C++ libjpeg decode pool
+``native/decode.py``, the featurized bank on disk
+``data/embedding_cache.py``) feeds the three CLIs.
 
 The kernel labs and the HBM yardstick (``labs``, loaded on first use:
 ``python -m nwhead_tpu_torch.labs.<lab>``) run K13/L4 ``stream`` and L1

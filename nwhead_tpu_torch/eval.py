@@ -11,8 +11,14 @@ and as the last line the results as JSON. ``--fit_temperature`` fits a
 temperature on a seeded random half of each mode's predictions and reports
 the other half's NLL and ECE raw and calibrated; ``--influence_queries N``
 prints the five most helpful full-bank items of each of the first N
-validation images by leave-one-out influence. Without ``--ckpt`` the
-weights are random, from ``--seed``. For example::
+validation images by leave-one-out influence. ``--bank_cache DIR`` saves
+the featurized bank there after ``precompute`` (``FeatureBankCache``), or,
+when DIR holds one, restores it (``NWNet.restore_bank``) instead of
+featurizing the support set; as in the JAX CLI the cache carries no tag,
+so it is the caller's to keep it with the weights that wrote it, and it is
+refused with the fused or quantized featurizers. The datasets are the
+training CLI's (``--data_dir``, ``--workers``, ``--decoder``). Without
+``--ckpt`` the weights are random, from ``--seed``. For example::
 
     python -m nwhead_tpu_torch.eval --dataset digits --arch resnet10 \\
         --ckpt <run_dir>/checkpoints/model.0008 --modes random full cluster \\
@@ -32,10 +38,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import time
 
 import numpy as np
 import torch
 
+from nwhead_tpu_torch.data.embedding_cache import FeatureBankCache
 from nwhead_tpu_torch.data.pipeline import prefetch_to_device
 from nwhead_tpu_torch.models import load_model
 from nwhead_tpu_torch.nw.net import NWNet
@@ -44,7 +52,7 @@ from nwhead_tpu_torch.ops.calibrate import apply_temperature, fit_temperature
 from nwhead_tpu_torch.serve import build_mesh, featurizer_options
 from nwhead_tpu_torch.train import build_datasets
 from nwhead_tpu_torch.train.checkpoint import load_checkpoint
-from nwhead_tpu_torch.train.config import FILE_DATASETS, cifar_name
+from nwhead_tpu_torch.train.config import cifar_name
 from nwhead_tpu_torch.train.trainer import _host_eval_batches
 
 MODES = ("random", "full", "cluster", "ensemble", "knn", "hnsw", "ivf")
@@ -75,7 +83,8 @@ def parse_args(argv=None):
                         "is exact full mode); 'auto' calibrates on the first batch")
     p.add_argument("--num_val_steps", type=int, default=10**9)
     p.add_argument("--bank_cache", type=str, default=None,
-                   help="a directory for the featurized bank (not ported yet)")
+                   help="a directory to save the featurized bank to, or to restore it from "
+                        "when it holds one")
     p.add_argument("--influence_queries", type=int, default=0,
                    help="print support-influence rankings for the first N queries")
     p.add_argument("--fit_temperature", action="store_true",
@@ -94,8 +103,7 @@ def parse_args(argv=None):
                    help="training images that calibrate --featurizer_precision int8")
     p.add_argument("--fused_inference", action="store_true",
                    help="a ViT's attention and MLP on the fused kernels K7 and K9")
-    p.add_argument("--workers", type=int, default=8,
-                   help="image-file decode threads (image-file datasets are not ported)")
+    p.add_argument("--workers", type=int, default=8, help="image-file decode threads")
     p.add_argument("--decoder", type=str, default="native",
                    choices=["native", "native_fused", "pil"])
     p.add_argument("--pretrained_path", type=str, default=None,
@@ -115,20 +123,15 @@ def parse_args(argv=None):
 
 
 def check_ported(args) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item for every flag
-    value the port does not run yet; the featurizer flags are checked by
-    ``serve.featurizer_options``."""
-    refused = {
-        "--bank_cache (the cached feature bank; ROADMAP.md queue 1, item 11)": args.bank_cache,
-        "--workers/--decoder (image-file decoding; ROADMAP.md queue 1, item 11)":
-            args.workers != 8 or args.decoder != "native",
-        f"--dataset {args.dataset} (image-file datasets need a download and "
-        "data/transforms.py; ROADMAP.md queue 1, item 11)": args.dataset in FILE_DATASETS,
-    }
-    for flag, hit in refused.items():
-        if hit:
-            raise NotImplementedError(f"{flag} is not ported yet")
+    """Refuse what the CLI does not run: the featurizer flags are checked
+    by ``serve.featurizer_options``; ``--bank_cache`` with a fused or
+    quantized featurizer exits as the JAX CLI does (cached float features
+    would mix with the other featurizer's query features)."""
     featurizer_options(args)
+    if args.bank_cache and args.featurizer_precision in ("int8", "bf16_fused"):
+        raise SystemExit(f"--bank_cache cannot be combined with --featurizer_precision "
+                         f"{args.featurizer_precision}: cached float bank features would mix "
+                         "with its query features; precompute fresh")
 
 
 def build_net(args, train_ds) -> NWNet:
@@ -136,7 +139,8 @@ def build_net(args, train_ds) -> NWNet:
     --dataset)``, random weights from ``--seed``, ``--pretrained_path``'s
     merged in, then ``--ckpt``'s), the featurizer fused or quantized as
     asked, and the support bank precomputed (full, cluster; prepared or
-    sharded for the fused head; the HNSW graph at the first hnsw batch)."""
+    sharded for the fused head; the HNSW graph at the first hnsw batch), or
+    restored from ``--bank_cache`` (``install_bank``)."""
     device = torch.device(args.device)
     featurizer = load_model(cifar_name(args.arch, args.dataset), device=device,
                             generator=torch.Generator().manual_seed(args.seed),
@@ -160,8 +164,31 @@ def build_net(args, train_ds) -> NWNet:
     elif args.featurizer_precision == "bf16_fused":
         net.fuse_featurizer()
         print("Fused featurizer (bf16 serving graph, LN/residual folded)")
-    net.precompute()
+    install_bank(net, args.bank_cache)
     return net
+
+
+def install_bank(net: NWNet, cache_dir=None) -> None:
+    """The support bank: ``restore_bank`` from ``cache_dir`` when it holds
+    a cache, else ``precompute`` (then saved there, features and labels,
+    when ``cache_dir`` is given). ``net.bank_seconds`` keeps the host
+    seconds either took, the device synchronized."""
+    cache = FeatureBankCache(cache_dir) if cache_dir else None
+    t0 = time.perf_counter()
+    if cache is not None and cache.exists():
+        emb, lbl, meta = cache.load()
+        net.restore_bank(emb, lbl, meta)
+        what = f"Loaded cached bank from {cache_dir} ({len(lbl)} items)"
+    else:
+        net.precompute()
+        what = "Precomputed the bank"
+        if cache is not None:
+            cache.save(net.full_feat.cpu().numpy(), net.full_y.cpu().numpy())
+            what = f"Saved bank to {cache_dir}"
+    if net.device.type == "cuda":
+        torch.cuda.synchronize(net.device)
+    net.bank_seconds = time.perf_counter() - t0
+    print(f"{what}, {net.bank_seconds:.3f}s")
 
 
 def evaluate_mode(net: NWNet, val_ds, mode: str, batch_size: int, num_steps: int):

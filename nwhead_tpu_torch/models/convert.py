@@ -34,6 +34,10 @@ BatchNorms (with their statistics) and Dense layers.
 ViT, which has none), the optional ``proj`` Dense layer and the head's
 ``logit_scale``.
 
+``jax_to_torch_fcnet`` converts a JAX ``FCNet`` tree: the featurizer as
+above and ``classifier/fc``'s ``(D, C)`` kernel to ``classifier.fc``'s
+``(C, D)`` weight, with its bias.
+
 ``jax_to_torch_quantized_vit``, ``jax_to_torch_quantized_resnet`` and
 ``jax_to_torch_quantized_densenet`` carry a JAX ``QuantizedViT``,
 ``QuantizedResNet`` or ``QuantizedDenseNet`` (``nwhead_tpu/models/quantize.py``:
@@ -233,6 +237,20 @@ def jax_to_torch_nwmodel(variables_np: Mapping[str, Any]) -> Dict[str, torch.Ten
     if "proj" in params:
         _dense(sd, "proj", params["proj"])
     sd.update({f"head.{k}": v for k, v in jax_to_torch_head(params.get("head", {})).items()})
+    return sd
+
+
+def jax_to_torch_fcnet(variables_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX ``FCNet`` tree ``{'params': {featurizer, classifier: {fc}},
+    'batch_stats': {featurizer}}`` -> ``state_dict`` for
+    ``nwhead_tpu_torch.nw.fc.FCNet``."""
+    params = variables_np["params"]
+    feat = jax_to_torch_featurizer({
+        "params": params["featurizer"],
+        "batch_stats": variables_np.get("batch_stats", {}).get("featurizer", {}),
+    })
+    sd = {f"featurizer.{k}": v for k, v in feat.items()}
+    _dense(sd, "classifier.fc", params["classifier"]["fc"])
     return sd
 
 

@@ -1,8 +1,17 @@
 """NW-head serving CLI of the port: build the server, time requests.
 
 Port of the serving path of the root ``serve.py`` (``build_server``,
-``latency_bench``) with the synthetic datasets of ``train.py``. Weights are
-random, from ``--seed``. Run as::
+``latency_bench``) with the datasets of the training CLI (``--data_dir``,
+``--workers``, ``--decoder``, by default ``native_fused``: the C++ libjpeg
+pool decodes, crops and resizes in one pass). Weights are random, from
+``--seed``. The image-file datasets' requests ship uint8 pixels, normalized
+on the device inside the serving callable (``make_serving_fn(normalize=)``);
+CIFAR's and the in-memory sets' ship float32. ``--bank_cache DIR`` saves
+the featurized bank with a tag of what computed it, and a later server
+with the same tag restores it instead of featurizing the support set; a
+server with another tag refuses the cache. The tag is the JAX server's
+plus ``"package"``, so a cache the JAX server wrote (other weights from
+the same seed) is refused. Run as::
 
     python -m nwhead_tpu_torch.serve --dataset synthetic_cub --arch resnet18 \
         --batch_size 64 --latency_bench
@@ -20,6 +29,8 @@ random, from ``--seed``. Run as::
         --pretrained_path resnet50.pth --head_precision bf16 --batch_size 64 --latency_bench
     python -m nwhead_tpu_torch.serve --dataset synthetic_cub --arch resnet50 \
         --featurizer_precision int8 --head_precision int8 --batch_size 64 --latency_bench
+    python -m nwhead_tpu_torch.serve --dataset cifar100 --data_dir data \
+        --arch CIFAR_ResNet18 --bank_cache bank_dir --batch_size 64 --latency_bench
 
 ``--featurizer_precision bf16_fused`` serves a ViT through the bf16
 fused-serving graph (K10/K11 per block); ``--featurizer_precision int8``
@@ -57,27 +68,48 @@ import time
 import numpy as np
 import torch
 
-from nwhead_tpu_torch.data.datasets import make_synthetic_dataset
+from nwhead_tpu_torch.data import transforms as T
+from nwhead_tpu_torch.data.datasets import ImageFileDataset
+from nwhead_tpu_torch.data.embedding_cache import FeatureBankCache
 from nwhead_tpu_torch.models import VIT_NAMES, load_model
 from nwhead_tpu_torch.nw.net import NWNet
 from nwhead_tpu_torch.parallel import make_mesh
+from nwhead_tpu_torch.train import build_datasets  # (train, val), as the training CLI's
+from nwhead_tpu_torch.train.config import DATASETS
 
 
-def build_datasets(args):
-    """(train, val) for ``--dataset``: ``synthetic`` (64/32 images of 32 px,
-    4 classes) or ``synthetic_cub`` (the CUB-200 recipe's scale: 5994/1000
-    images of 224 px, 200 classes, about 3.6 GB of f32)."""
-    if args.dataset == "synthetic":
-        return (make_synthetic_dataset(n=64, n_classes=4, size=32, seed=args.seed),
-                make_synthetic_dataset(n=32, n_classes=4, size=32, seed=args.seed + 1))
-    if args.dataset == "synthetic_cub":
-        return (make_synthetic_dataset(n=5994, n_classes=200, size=224, seed=args.seed,
-                                       class_patterns=0.25),
-                make_synthetic_dataset(n=1000, n_classes=200, size=224, seed=args.seed + 1,
-                                       class_patterns=0.25))
-    raise NotImplementedError(
-        f"dataset {args.dataset!r} is not ported yet (ROADMAP.md queue 1, item 11)"
-    )
+def uint8_requests(ds):
+    """The dataset's images as a server receives them: for an image-file
+    dataset the same files through the imagenet eval transform stopped
+    before normalizing (uint8), with ``(mean, std)`` for the device;
+    ``(ds, None)`` for any other."""
+    if not isinstance(ds, ImageFileDataset):
+        return ds, None
+    return (ImageFileDataset(ds.paths, ds.targets, ds.num_classes,
+                             transform=T.imagenet_eval_transform(device_normalize=True),
+                             workers=ds.workers, decoder=ds.decoder),
+            (T.IMAGENET_MEAN, T.IMAGENET_STD))
+
+
+def bank_tag(args) -> dict:
+    """What a cached bank's features depend on: the JAX server's tag (this
+    CLI has no ``--ckpt`` and no ``--proj_dim``: the weights come from
+    ``--seed``) plus the package, since the two packages draw different
+    weights from one seed."""
+    return {
+        "dataset": args.dataset,
+        "arch": args.arch,
+        "ckpt": "",
+        "pretrained_path": args.pretrained_path or "",
+        "seed": str(args.seed),
+        "featurizer_precision": args.featurizer_precision,
+        "bf16": str(bool(args.bf16)),
+        "fused_inference": str(bool(args.fused_inference)),
+        "calib_images": str(args.calib_images),
+        "proj_dim": "0",
+        "n_shot_full": str(args.n_shot_full),
+        "package": "nwhead_tpu_torch",
+    }
 
 
 def device_info(device: torch.device) -> dict:
@@ -144,9 +176,13 @@ def build_server(args, train_ds, edit=None, val_ds=None) -> NWNet:
     head whatever its size (the JAX serving CLI's ``fused_min_support=1``).
     ``edit(net)``, when given, runs before the featurizer is fused or
     quantized and the bank built (``chip_smoke.py`` sets the LayerScale
-    gammas there). The calibration's and the bank's seconds are kept in
+    gammas there). With ``--bank_cache`` the bank is restored from the
+    cache when it holds one with this server's ``bank_tag`` (another tag
+    exits), else featurized and saved there with the tag. The
+    calibration's and the bank's seconds are kept in
     ``net.calibration_seconds`` (0 without calibration) and
-    ``net.precompute_seconds``. ``--serve_mode ivf --ivf_probe auto``
+    ``net.precompute_seconds`` (the restore's, reading the files included,
+    when ``net.bank_restored``). ``--serve_mode ivf --ivf_probe auto``
     calibrates the IVF knobs on the first ``min(256, len(val_ds))``
     validation images. ``--mesh`` attaches a mesh: the bank is sharded over
     its support axis."""
@@ -180,14 +216,29 @@ def build_server(args, train_ds, edit=None, val_ds=None) -> NWNet:
     elif args.featurizer_precision == "bf16_fused":
         net.fuse_featurizer()
         print("Fused featurizer (bf16 serving graph, LN/residual folded)")
+    cache = FeatureBankCache(args.bank_cache) if args.bank_cache else None
+    tag = bank_tag(args)
+    net.bank_restored = cache is not None and cache.exists()
     t0 = time.perf_counter()
-    net.precompute()
+    if net.bank_restored:
+        saved = cache.load_tag()
+        if saved != tag:
+            raise SystemExit(f"--bank_cache {args.bank_cache} was built with {saved}, this "
+                             f"server is {tag}; use a fresh cache dir")
+        net.restore_bank(*cache.load())
+    else:
+        net.precompute()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     net.precompute_seconds = time.perf_counter() - t0
+    if cache is not None and not net.bank_restored:
+        cache.save(net.full_feat.cpu().numpy(), net.full_y.cpu().numpy(),
+                   metadata=net.support_eval.full_meta, tag=tag)
+        print(f"Saved bank to {args.bank_cache}")
     sharded = "" if mesh is None else f" in {mesh.shape['support']} shards on mesh {mesh.shape}"
-    print(f"Support bank prepared: {len(net.full_y)} items{sharded}, "
-          f"{net.precompute_seconds:.1f}s (one-time)")
+    how = f"restored from {args.bank_cache}" if net.bank_restored else "prepared"
+    print(f"Support bank {how}: {len(net.full_y)} items{sharded}, "
+          f"{net.precompute_seconds:.3f}s (one-time)")
     if args.serve_mode == "ivf" and args.ivf_probe == "auto":
         # Before any serving callable fixes the knobs (make_serving_fn
         # raises on an unresolved 'auto').
@@ -201,10 +252,12 @@ def build_server(args, train_ds, edit=None, val_ds=None) -> NWNet:
 
 def latency_bench(net: NWNet, val_ds, args) -> dict:
     """Wall-clock latency per request of ``--batch_size`` images, host
-    arrays in, log-probs back on the host: the time a caller sees."""
+    arrays in (uint8 for an image-file dataset, normalized on the device),
+    log-probs back on the host: the time a caller sees."""
     bs = args.batch_size
     n = min(args.bench_batches, max(1, len(val_ds) // bs))
-    serve = net.make_serving_fn(mode=args.serve_mode)
+    val_ds, stats = uint8_requests(val_ds)
+    serve = net.make_serving_fn(normalize=stats, mode=args.serve_mode)
     warm = val_ds.gather(np.arange(bs) % len(val_ds))
     for _ in range(3):
         serve(warm).cpu()
@@ -229,6 +282,8 @@ def latency_bench(net: NWNet, val_ds, args) -> dict:
         "pretrained_path": args.pretrained_path,
         "head_precision": args.head_precision,
         "serve_mode": args.serve_mode,
+        "pixels": "float32" if stats is None else "uint8",
+        "bank_restored": bool(getattr(net, "bank_restored", False)),
         "mesh": None if net.mesh is None else net.mesh.shape,
         "device": device_info(net.device),
     }
@@ -240,7 +295,17 @@ def latency_bench(net: NWNet, val_ds, args) -> dict:
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="NW head serving (PyTorch/CUDA port)")
-    p.add_argument("--dataset", required=True, choices=["synthetic", "synthetic_cub"])
+    p.add_argument("--dataset", required=True,
+                   help=f"one of {', '.join(DATASETS)} (the training CLI's datasets)")
+    p.add_argument("--data_dir", default="./")
+    p.add_argument("--workers", type=int, default=8, help="image-file decode threads")
+    p.add_argument("--decoder", default="native_fused", choices=["native", "native_fused", "pil"],
+                   help="image-file decoder: the C++ libjpeg pool (native_fused also crops "
+                        "and resizes in it) or PIL")
+    p.add_argument("--bank_cache", default=None,
+                   help="a directory to save the featurized bank to (tagged with what "
+                        "computed it), or to restore it from when it holds one with this "
+                        "server's tag; another tag is refused")
     p.add_argument("--arch", default="resnet18")
     p.add_argument("--batch_size", type=int, default=64)
     p.add_argument("--kernel_type", default="euclidean")

@@ -2,8 +2,8 @@
 (``nwhead_tpu/train/config.py``), ``--x/--no_x`` boolean pairs, ``key=value``
 kwargs, the hyperparameter-encoding run directory and its ``args.txt``,
 plus ``--device``. ``check_ported`` refuses, naming the ROADMAP item, every
-flag value this port does not run yet, and every ``--arch`` outside the JAX
-CLI's map (``featurizer_name``).
+flag value this port does not run yet (``--mesh``, ``--use_wandb``), and
+every ``--arch`` outside the JAX CLI's map (``featurizer_name``).
 """
 
 from __future__ import annotations
@@ -13,11 +13,11 @@ import json
 import os
 from pprint import pprint
 
-# Datasets read from image files; they need a download and the image
-# transforms, neither of which the port has yet.
-FILE_DATASETS = ("bird", "dog", "flower", "aircraft", "cifar10", "cifar100")
-ARRAY_DATASETS = ("synthetic", "synthetic_cub", "digits")
 CIFAR_DATASETS = ("cifar10", "cifar100")
+# In memory, then read from --data_dir: image trees (CUB-200, Stanford Dogs,
+# Flowers-102, FGVC-Aircraft) and CIFAR's .npy arrays.
+DATASETS = ("synthetic", "synthetic_cub", "digits", "bird", "dog", "flower",
+            "aircraft") + CIFAR_DATASETS
 # The archs the JAX training CLI builds as they are named (train.py:121-129);
 # resnet18 and densenet121 are mapped to their CIFAR models on CIFAR.
 TRAIN_ARCHS = ("resnet18", "densenet121", "resnet50", "resnet34", "resnet10", "dinov2_vits14",
@@ -83,16 +83,19 @@ class Parser(argparse.ArgumentParser):
         self.add_argument("--data_dir", default="./", type=str)
         self.add_argument("--log_interval", type=int, default=25)
         self.add_argument("--workers", type=int, default=8,
-                          help="image-file decode threads (image-file datasets are not "
-                               "ported: any other value than 8 is refused)")
+                          help="image-file decode threads")
         self.add_argument("--decoder", type=str, default="native",
                           choices=["native", "native_fused", "pil"],
-                          help="image-file decoder (not ported: only the default is taken)")
+                          help="image-file decoder: the C++ libjpeg pool (native; "
+                               "native_fused also crops and resizes in it) or PIL")
         self.add_bool_arg("debug_mode", False)
 
         # ML
         self.add_argument("--dataset", type=str, required=True,
-                          help=f"ported: {', '.join(ARRAY_DATASETS)}")
+                          help=f"one of {', '.join(DATASETS)}; bird, dog, flower and "
+                               "aircraft read their image trees under --data_dir, cifar10 "
+                               "and cifar100 <data_dir>/<name>/{train,test}_{images,labels}"
+                               ".npy")
         self.add_argument("--lr", type=float, default=1e-3)
         self.add_argument("--batch_size", type=int, default=1)
         self.add_argument("--num_steps_per_epoch", type=int, default=10000000)
@@ -112,7 +115,7 @@ class Parser(argparse.ArgumentParser):
                           help="a local torchvision- or DINOv2-format checkpoint (.pth/.pt/"
                                ".npz) merged into the backbone at build time")
         self.add_argument("--mesh", type=str, default=None)
-        self.add_argument("--train_method", default="nwhead")
+        self.add_argument("--train_method", default="nwhead", help="nwhead or fchead")
         self.add_bool_arg("freeze_featurizer", False)
         self.add_bool_arg("resume", False)
         self.add_bool_arg("bf16", False)
@@ -170,18 +173,9 @@ def check_ported(args) -> None:
     value the port does not run yet; none is ignored."""
     refused = {
         "--mesh (data-parallel training; ROADMAP.md queue 1, item 14)": args.mesh,
-        "--train_method fchead (nw/fc.py and FCTrainer; ROADMAP.md queue 1, item 10)":
-            args.train_method != "nwhead",
         "--use_wandb (ROADMAP.md queue 1, item 13)": args.use_wandb,
-        f"--dataset {args.dataset} (image-file datasets need a download and "
-        "data/transforms.py; ROADMAP.md queue 1, item 11)": args.dataset in FILE_DATASETS,
-        "--workers/--decoder (image-file decoding; ROADMAP.md queue 1, item 11)":
-            args.workers != 8 or args.decoder != "native",
     }
     for flag, hit in refused.items():
         if hit:
             raise NotImplementedError(f"{flag} is not ported yet")
     featurizer_name(args.arch, args.dataset)
-    if args.dataset not in ARRAY_DATASETS:
-        raise NotImplementedError(f"dataset {args.dataset!r} is not ported "
-                                  f"(ported: {', '.join(ARRAY_DATASETS)})")

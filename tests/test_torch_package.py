@@ -35,7 +35,9 @@ MODULES = (
     "nwhead_tpu_torch.labs.kernel_lab", "nwhead_tpu_torch.labs.manual_pipe_lab",
     "nwhead_tpu_torch.labs.prepared_lab", "nwhead_tpu_torch.labs.roofline_lab",
     "nwhead_tpu_torch.labs.block_lab", "nwhead_tpu_torch.models.quantize",
-    "nwhead_tpu_torch.ops.int8_conv",
+    "nwhead_tpu_torch.ops.int8_conv", "nwhead_tpu_torch.nw.fc",
+    "nwhead_tpu_torch.data.transforms", "nwhead_tpu_torch.data.embedding_cache",
+    "nwhead_tpu_torch.native.decode", "nwhead_tpu_torch.eval",
 )
 
 

@@ -241,12 +241,37 @@ def test_cli_on_cpu(tmp_path):
         assert proc.returncode != 0 and "no CUDA device" in proc.stderr
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "2,2"], ["--decoder", "pil"],
-                                   ["--train_method", "fchead"], ["--use_wandb"],
-                                   ["--workers", "4"], ["--dataset", "cifar10"]])
+@pytest.mark.parametrize("flags", [["--mesh", "2,2"], ["--use_wandb"]])
 def test_cli_refuses_what_is_not_ported(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_setup(["--device", "cpu", *CLI, "--models_dir", str(tmp_path), *flags])
+
+
+@pytest.mark.parametrize("flags", [["--decoder", "pil"], ["--train_method", "fchead"],
+                                   ["--workers", "4"], ["--dataset", "cifar10"]])
+def test_cli_takes_what_it_refused_before_the_data_layer(tmp_path, flags):
+    """The flags the CLI refused until the FC baseline and the data layer
+    were ported: each now sets up a trainer and trains a step."""
+    from nwhead_tpu_torch.train.trainer import FCTrainer
+
+    data_dir = tmp_path / "data"
+    if "cifar10" in flags:
+        rng = np.random.default_rng(0)
+        os.makedirs(data_dir / "cifar10")
+        for split, n in (("train", 16), ("test", 8)):
+            np.save(data_dir / "cifar10" / f"{split}_images.npy",
+                    rng.integers(0, 256, (n, 32, 32, 3), dtype=np.uint8))
+            np.save(data_dir / "cifar10" / f"{split}_labels.npy", np.arange(n) % 10)
+    args, trainer, start = train_setup(["--device", "cpu", *CLI, "--models_dir",
+                                        str(tmp_path), "--data_dir", str(data_dir), *flags])
+    assert start == 1 and (args.workers, args.decoder) == (
+        4 if "4" in flags else 8, "pil" if "pil" in flags else "native")
+    assert isinstance(trainer, FCTrainer if "fchead" in flags else NWTrainer)
+    if "cifar10" in flags:
+        assert trainer.train_dataset.num_classes == 10
+        assert trainer.train_dataset.transform.kind == "cifar_train"
+    trainer.train_epoch(num_steps=1)
+    assert trainer.step == 1 and np.isfinite(trainer.step_losses).all()
 
 
 def test_resume_equals_uninterrupted_run(tmp_path):
