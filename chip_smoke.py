@@ -293,7 +293,7 @@ package beside it. With one, in order:
     seconds, peak memory, a featurizer call split by CUDA events, beside
     the zoo phase's ResNet-50 f32 and ``--bf16`` p50s; the zoo phase's file
     quantized for an ungated agreement line;
-17f. data and FC phase (last): CIFAR-100-shaped ``.npy`` files (10,000 /
+17f. data and FC phase: CIFAR-100-shaped ``.npy`` files (10,000 /
     2,000 images of 32 x 32 x 3 uint8, 100 classes, cut from 50,000 /
     10,000) written to the work directory; ``python -m
     nwhead_tpu_torch.train --train_method fchead --dataset cifar100 --arch
@@ -309,16 +309,41 @@ package beside it. With one, in order:
     beside ``precompute``'s, the restored bank's K2 against the plain head);
     the serve CLI ``--latency_bench --bank_cache`` twice (its own tagged
     cache, as the eval CLI's carries no tag: one K2 launch a request on the
-    restored bank, p50, served against the plain head); and
+    restored bank, p50, served against the plain head; the restored server
+    is kept for 17g); and
     ``device_normalize_fn`` on a 64 x 224 x 224 x 3 uint8 batch against
     numpy's ``normalize`` (1e-6). The card's machine has Pillow but not
     libjpeg's headers, so the JPEG decoders are held on the CPU only
     (``tests/test_torch_data.py``);
+17g. serving-surface phase (last): the serve module's actions at
+    ResNet-18 / ``synthetic_cub`` (D=512, S=5,800, C=200), B=64, f32 head,
+    on the eval CLI phase's checkpoint (``--ckpt``: the tag carries the
+    path; served log-probs against the plain head): ``--queries`` on 70
+    written JPEGs (480 x 640 mosaics, ``--decoder pil``, a ragged second
+    chunk) with ``--topk 5 --temperature 1.5``, each top-5 equal to the
+    argsort of the serving callable on the same decoded chunk and K2 once
+    a chunk, then ``--explain 3`` on 8 of them (3 neighbours a query,
+    weights descending; the explainer's log-probs against the plain head);
+    ``--latency_bench`` (20 requests, one client) and ``--microbatch_bench
+    --concurrency 16 --bench_batches 2`` (every request's row against a
+    direct B=64 call holding that image, K2 once a dispatched batch; qps
+    beside the single client's, request p50/p95, mean occupancy); the HTTP
+    daemon (``build_http_server``, port 0, on a thread): ``/healthz``, one
+    ``/predict`` and a burst of 64 one-image predicts from 16 threads, 3
+    rounds of ``/add_support`` of 8 images and ``/remove_support`` of those
+    rows while 4 threads keep predicting (every response a 200 with finite
+    probabilities), ``/stats``, K2 once a dispatched batch; one
+    ``images_b64`` ``/predict`` of 8 PIL-encoded JPEGs on the data phase's
+    restored CIFAR-100 server; ``--jpeg_bench --decoder pil --workers 8
+    --bench_batches 4`` (stage rates, ``bound_by``, the JPEG source: no
+    sklearn there, so mosaics) and the ``pil`` leg of
+    ``labs/pipeline_bench`` at 8 workers on 64 JPEGs;
 18. prints the nvidia-smi line, a JSON line of per-kernel results (the
     zoo phases' launches added to K1-K4, their times as ``d2048_*`` and
     ``d1024_*``; the int8 CNN phase's launches and errors added to K2, K4
     and K5; the bank-edit phases' to K2, K4, K5, K6 and K2 ``partials``;
-    the data phase's to K1, dq, ds and K2 f32), and as the last line
+    the data phase's to K1, dq, ds and K2 f32, the serving-surface
+    phase's to K2 f32), and as the last line
     ``{"ok": true, "device": {...}}``.
 
 Kernel times are device times: CUDA events around each call, queued behind
@@ -346,6 +371,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import io
 import itertools
 import json
 import shutil
@@ -1164,7 +1190,7 @@ def eval_phase(datasets, workdir: str) -> dict:
             or infl_err > INFLUENCE_TOL * max(1.0, float(ref[fin].abs().max()))):
         raise AssertionError("support influence on the card disagrees with the CPU")
     out = {"modes": modes, "results": results, "launches": launches, "kmeans_s": km_s,
-           "cluster_err": cluster_err, "full_err": full_err}
+           "cluster_err": cluster_err, "full_err": full_err, "ckpt": ckpt}
     del net, seen
     torch.cuda.empty_cache()
     return out
@@ -5106,11 +5132,11 @@ def cache_serving_phase(data_dir: str, workdir: str) -> dict:
         raise AssertionError(f"{launches} K2 launches for {requests} requests")
     if not bool(torch.isfinite(served).all()) or not within(served, plain, **TOL["f32"]):
         raise AssertionError("served log-probs over the restored bank disagree with the plain head")
-    out = {"launches": launches, "err": err, "report": report, "precompute_s": precompute_s,
-           "restore_s": net.precompute_seconds}
-    del net
-    torch.cuda.empty_cache()
-    return out
+    # The restored server stays up for the serving-surface phase's
+    # images_b64 request.
+    return {"launches": launches, "err": err, "report": report, "precompute_s": precompute_s,
+            "restore_s": net.precompute_seconds, "net": net, "args": args,
+            "datasets": (train_ds, val_ds)}
 
 
 def normalize_phase() -> dict:
@@ -5170,6 +5196,419 @@ def data_update_entries(entries: list, data: dict) -> None:
     e["launches"] += (data["nw"]["launches"]["nw_prepared_cuda"] + data["cache"]["launches"]
                       + data["serve"]["launches"])
     e["max_abs_err"] = max(e["max_abs_err"], data["cache"]["err"], data["serve"]["err"])
+
+
+# ---------------------------------------------------------------------------
+# The serving surface: --ckpt, --queries/--explain, --microbatch_bench, the
+# HTTP daemon with live bank edits, --jpeg_bench and the decoder benchmark.
+# ---------------------------------------------------------------------------
+
+SURFACE_ARGV = ["--dataset", "synthetic_cub", "--arch", "resnet18", "--batch_size", "64",
+                "--decoder", "pil", "--workers", "8"]
+SURFACE_QUERIES = 70  # a chunk of 64 and a ragged one of 6
+SURFACE_EXPLAIN = 8  # files explained, 3 neighbours each
+HTTP_BURST, HTTP_THREADS = 64, 16  # one-image predicts, client threads
+HTTP_EDIT_ROUNDS, HTTP_EDIT_ROWS, HTTP_EDIT_CLIENTS = 3, 8, 4
+JPEG_BENCH_ARGS = dict(workers=8, bench_batches=4)
+DECODE_BENCH_N = 64  # JPEGs of the pipeline_bench leg
+
+
+def _http(url: str, body: bytes = None, ctype: str = "application/json"):
+    """``(status, JSON reply)`` of one request (GET without a body)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, headers={"Content-Type": ctype})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _finite_predictions(reply: dict, n: int) -> bool:
+    preds = reply.get("predictions", [])
+    probs = [t["prob"] for p in preds for t in p["topk"]]
+    return len(preds) == n and bool(np.isfinite(probs).all())
+
+
+def _surface_plain(net, x) -> "torch.Tensor":
+    """The plain prepared head on the net's features of host images."""
+    import torch
+
+    with torch.inference_mode():
+        return plain_head(net, net._featurize_eval(torch.as_tensor(x).to(net.device)))
+
+
+def _k2_between(fn) -> tuple:
+    """``(fn(), K2 launches during it)``: every count set to 0 just before
+    the call and K2's read just after, the card synchronized."""
+    import torch
+
+    torch.cuda.synchronize()
+    _counts(reset=True)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, _counts()["nw_prepared_cuda"]
+
+
+def surface_queries(net, train_ds, args, workdir: str) -> dict:
+    """``--queries`` with ``--topk 5 --temperature 1.5`` on 70 written
+    JPEGs, then ``--explain 3`` on 8 of them (see the phase)."""
+    import glob
+    import os
+
+    import torch
+
+    from nwhead_tpu_torch import serve
+    from nwhead_tpu_torch.data import transforms as T
+    from nwhead_tpu_torch.data.datasets import ImageFileDataset
+    from nwhead_tpu_torch.ops.calibrate import apply_temperature
+    from nwhead_tpu_torch.utils.pipeline import synth_photo_jpegs
+
+    qdir = os.path.join(workdir, "queries")
+    os.makedirs(qdir)
+    paths = synth_photo_jpegs(SURFACE_QUERIES, seed=DATA_SEED, dir=qdir)
+    pattern = os.path.join(os.path.dirname(paths[0]), "*.jpg")
+    args.queries, args.topk, args.temperature, args.explain = pattern, 5, 1.5, 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):  # a JSON line a file
+        results, k2 = _k2_between(lambda: serve.answer_queries(net, train_ds, args))
+    seconds = time.perf_counter() - t0
+    chunks = -(-SURFACE_QUERIES // args.batch_size)
+    # The same files decoded as answer_queries decodes them, through the
+    # serving callable chunk by chunk.
+    files = sorted(glob.glob(pattern))
+    qds = ImageFileDataset(files, np.zeros(len(files), np.int64), train_ds.num_classes,
+                           transform=T.imagenet_eval_transform(device_normalize=True),
+                           workers=args.workers, decoder=args.decoder)
+    fn = serve.serving_fn(net, uint8_normalize=True)
+    mismatch, prob_err = 0, 0.0
+    for start in range(0, len(files), args.batch_size):
+        n = min(args.batch_size, len(files) - start)
+        imgs = qds.gather(np.arange(start, start + n))
+        imgs = np.concatenate([imgs, np.zeros((args.batch_size - n,) + imgs.shape[1:],
+                                              imgs.dtype)])
+        lp = apply_temperature(fn(imgs).cpu()[:n], args.temperature).numpy()
+        top = np.argsort(-lp, axis=-1)[:, :args.topk]
+        for r, row, t in zip(results[start:start + n], lp, top):
+            mismatch += [c["class"] for c in r["topk"]] != [int(c) for c in t]
+            prob_err = max(prob_err, max(abs(c["prob"] - float(np.exp(row[c["class"]])))
+                                         for c in r["topk"]))
+    print(f"serve --queries: {len(results)} files (480 x 640 JPEGs, pil) in {chunks} chunks of "
+          f"{args.batch_size} (the last {SURFACE_QUERIES % args.batch_size} padded), "
+          f"{seconds:.2f}s; K2 launches {k2}; top-5 vs the serving callable's argsort: "
+          f"{mismatch} differ, max|prob err| {prob_err:.2e} (printed to 4 places)")
+    if len(results) != SURFACE_QUERIES or k2 != chunks or mismatch or prob_err > 1e-4:
+        raise AssertionError("--queries disagrees with the serving callable")
+
+    # --explain 3 on 8 of the files.
+    args.queries = os.path.join(os.path.dirname(paths[0]), "[0-7].jpg")
+    args.temperature, args.explain = 1.0, 3
+    with contextlib.redirect_stdout(io.StringIO()):
+        explained, k2_explain = _k2_between(lambda: serve.answer_queries(net, train_ds, args))
+    ok = len(explained) == SURFACE_EXPLAIN
+    for r in explained:
+        e = r["explain"]
+        ws = [nb["weight"] for nb in e["neighbors"]]
+        ok &= (len(ws) == 3 and ws == sorted(ws, reverse=True)
+               and e["predicted_class"] == r["topk"][0]["class"]
+               and all("dataset_index" in nb for nb in e["neighbors"]))
+    hds = ImageFileDataset(sorted(glob.glob(args.queries)), np.zeros(SURFACE_EXPLAIN, np.int64),
+                           train_ds.num_classes, transform=T.imagenet_eval_transform(),
+                           workers=args.workers, decoder=args.decoder)
+    imgs = hds.gather(np.arange(SURFACE_EXPLAIN))
+    lp, _ = serve._build_explainer(net, train_ds)(imgs, 3)
+    plain = _surface_plain(net, imgs)
+    torch.cuda.synchronize()
+    lp = torch.from_numpy(lp).to(plain.device)
+    err = float((lp - plain).abs().max())
+    print(f"serve --queries --explain 3: {len(explained)} files, 3 neighbours each (weights "
+          f"descending, the predicted class on top: {ok}); the explainer's f32 head over the raw "
+          f"bank vs the plain prepared head max|err| {err:.3e}; K2 launches {k2_explain}")
+    if not ok or not within(lp, plain, **TOL["f32"]) or k2_explain != 0:
+        raise AssertionError("--explain disagrees with the plain head or is malformed")
+    args.queries, args.explain = None, 0
+    return {"launches": k2, "err": err}
+
+
+def surface_microbatch(net, val_ds, args) -> dict:
+    """``--latency_bench`` (one client) and ``--microbatch_bench
+    --concurrency 16 --bench_batches 2``: each request's row against a
+    direct B=64 call that holds its image."""
+    from unittest import mock
+
+    import torch
+
+    from nwhead_tpu_torch import serve
+    from nwhead_tpu_torch.utils.batching import MicroBatcher
+
+    # latency_bench's one client at B=64, the yardstick of the batcher's qps.
+    args.bench_batches = 20
+    with contextlib.redirect_stdout(io.StringIO()):
+        single, k2_single = _k2_between(lambda: serve.latency_bench(net, val_ds, args))
+    if k2_single != single["batches"] + 3:
+        raise AssertionError(f"--latency_bench: {k2_single} K2 launches")
+    args.concurrency, args.bench_batches = 16, 2
+    sent = []
+    submit = MicroBatcher.submit
+
+    def recording(self, item):
+        f = submit(self, item)
+        sent.append((item, f))
+        return f
+
+    with mock.patch.object(MicroBatcher, "submit", recording):
+        report, k2 = _k2_between(lambda: serve.microbatch_bench(net, val_ds, args))
+    fn = serve.serving_fn(net)
+    got, want = [], []
+    for start in range(0, len(sent), args.batch_size):
+        part = sent[start:start + args.batch_size]
+        x = np.stack([item for item, _ in part])
+        if len(x) < args.batch_size:
+            x = np.concatenate([x, np.zeros((args.batch_size - len(x),) + x.shape[1:], x.dtype)])
+        want.append(fn(x).cpu().numpy()[:len(part)])
+        got.append(np.stack([f.result() for _, f in part]))
+    got, want = torch.from_numpy(np.concatenate(got)), torch.from_numpy(np.concatenate(want))
+    err = float((got - want).abs().max())
+    rel_ok = within(got, want, **TOL["f32"])
+    print(f"serve --microbatch_bench: {report['requests']} one-image requests from "
+          f"{report['concurrency']} clients, {report['achieved_qps']:.1f} q/s, request p50 "
+          f"{report['request_p50_ms']:.3f} ms, p95 {report['request_p95_ms']:.3f} ms, mean "
+          f"occupancy {report['mean_batch_occupancy']:.2f} of {args.batch_size} over "
+          f"{report['batches_dispatched']} batches; K2 launches {k2} (the warm-up and one a "
+          f"batch); every row vs a direct B=64 call max|err| {err:.3e}; --latency_bench in "
+          f"this process: p50 {single['p50_ms']:.3f} ms, {single['queries_per_sec']:.1f} q/s "
+          f"(the batcher reaches {report['achieved_qps'] / single['queries_per_sec']:.3f} of it)")
+    if (k2 != report["batches_dispatched"] + 1 or len(sent) != report["requests"]
+            or not rel_ok):
+        raise AssertionError("--microbatch_bench: rows or launches disagree")
+    return {"launches": k2 + k2_single, "err": err, "report": report, "latency": single}
+
+
+def surface_http(net, train_ds, val_ds, args) -> dict:
+    """The HTTP daemon on port 0 on a thread (see the phase)."""
+    import threading
+
+    import torch
+
+    from nwhead_tpu_torch import serve
+
+    args.http = 0
+    server = serve.build_http_server(net, train_ds, val_ds, args)
+    url = f"http://127.0.0.1:{server.port}"
+    imgs = val_ds.gather(np.arange(16))
+    direct = serve.serving_fn(net)(imgs[:2]).cpu().numpy()  # before the counted window
+    bodies = [json.dumps({"inputs": [imgs[i].tolist()]}).encode() for i in range(8)]
+    replies, lock = [], threading.Lock()
+
+    def predict(body: bytes):
+        code, reply = _http(f"{url}/predict", body)
+        with lock:
+            replies.append((code, reply))
+
+    _counts(reset=True)
+    server.start()
+    t0 = time.perf_counter()
+    health = _http(f"{url}/healthz")[1]
+    code, one = _http(f"{url}/predict", json.dumps({"inputs": imgs[:2].tolist()}).encode())
+    labels_ok = code == 200 and [p["label"] for p in one["predictions"]] == \
+        [int(i) for i in direct.argmax(1)]
+
+    def burst(c: int) -> None:
+        for r in range(HTTP_BURST // HTTP_THREADS):
+            predict(bodies[(c + r) % len(bodies)])
+
+    threads = [threading.Thread(target=burst, args=(c,)) for c in range(HTTP_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    burst_s = time.perf_counter() - t0
+    # Live edits while 4 clients keep predicting.
+    stop = threading.Event()
+
+    def keep_predicting(c: int) -> None:
+        while not stop.is_set():
+            predict(bodies[c])
+
+    add = json.dumps({"inputs": imgs[8:8 + HTTP_EDIT_ROWS].tolist(),
+                      "labels": [int(y) for y in val_ds.targets[8:8 + HTTP_EDIT_ROWS]]}).encode()
+    clients = [threading.Thread(target=keep_predicting, args=(c,))
+               for c in range(HTTP_EDIT_CLIENTS)]
+    edits, edit_s, rows0 = [], [], health["bank_rows"]
+    for t in clients:
+        t.start()
+    try:
+        for _ in range(HTTP_EDIT_ROUNDS):
+            t1 = time.perf_counter()
+            code_a, added = _http(f"{url}/add_support", add)
+            n = added.get("bank_rows", 0)
+            rows = list(range(n - HTTP_EDIT_ROWS, n))
+            code_r, removed = _http(f"{url}/remove_support", json.dumps({"rows": rows}).encode())
+            edit_s.append(time.perf_counter() - t1)
+            edits.append((code_a, n, code_r, removed.get("bank_rows")))
+            time.sleep(0.2)  # predictions on the edited bank before the next round
+    finally:
+        stop.set()
+        for t in clients:
+            t.join(timeout=600)
+    stats = _http(f"{url}/stats")[1]
+    server.shutdown()
+    server.batcher.close()
+    torch.cuda.synchronize()
+    k2 = _counts()["nw_prepared_cuda"]
+    dispatches = server.batcher.dispatches
+    codes = [c for c, _ in replies] + [code]
+    bad = [c for c in codes if c != 200]
+    finite = all(_finite_predictions(r, 1) for c, r in replies if c == 200)
+    edits_ok = all(e == (200, rows0 + HTTP_EDIT_ROWS, 200, rows0) for e in edits)
+    lat = stats.get("latency_ms", {})
+    print(f"serve --http: /healthz {health}; one /predict of 2 images, labels as the direct "
+          f"call {labels_ok}; a burst of {HTTP_BURST} one-image predicts from {HTTP_THREADS} "
+          f"threads and {len(replies) - HTTP_BURST} more during {HTTP_EDIT_ROUNDS} rounds of "
+          f"/add_support {HTTP_EDIT_ROWS} + /remove_support {HTTP_EDIT_ROWS} "
+          f"({', '.join(f'{s:.2f}' for s in edit_s)} s a round) from {HTTP_EDIT_CLIENTS} "
+          f"threads: {len(codes)} responses, {len(bad)} not 200 ({sum(c >= 500 for c in bad)} "
+          f"5xx), finite {finite}; burst {burst_s:.2f}s; /stats requests {stats['requests']}, "
+          f"items {stats['items']}, errors {stats['errors']}, edits {stats['support_edits']}, "
+          f"p50 {lat.get('p50')} ms, p95 {lat.get('p95')} ms, p99 {lat.get('p99')} ms, "
+          f"{stats.get('device_batches')} batches, mean occupancy "
+          f"{stats.get('mean_batch_occupancy')}; K2 launches {k2} in {dispatches} batches")
+    if (bad or not finite or not labels_ok or not edits_ok or stats["errors"]
+            or stats["requests"] != len(codes) or stats["support_edits"] != 2 * HTTP_EDIT_ROUNDS
+            or not stats.get("mean_batch_occupancy") or k2 != dispatches):
+        raise AssertionError("the HTTP daemon failed a request, an edit or a count")
+    return {"launches": k2, "stats": stats, "burst_s": burst_s, "edit_s": edit_s,
+            "responses": len(codes)}
+
+
+def surface_cifar_b64(cifar: dict, data_dir: str) -> dict:
+    """One ``images_b64`` ``/predict`` of 8 PIL-encoded JPEGs of the CIFAR
+    test images on the data phase's restored server, against the serving
+    callable on the same decoded images."""
+    import base64
+    import os
+
+    import torch
+    from PIL import Image
+
+    from nwhead_tpu_torch import serve
+
+    net, args = cifar["net"], cifar["args"]
+    train_ds, val_ds = cifar["datasets"]
+    args.http = 0
+    server = serve.build_http_server(net, train_ds, val_ds, args)
+    raw = np.load(os.path.join(data_dir, "cifar100", "test_images.npy"))[:8]
+    jpegs = []
+    for img in raw:
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, format="JPEG", quality=90)
+        jpegs.append(buf.getvalue())
+    decoded = np.stack([server.decode_query(b) for b in jpegs])
+    x = np.concatenate([decoded, np.zeros((args.batch_size - 8,) + decoded.shape[1:],
+                                          decoded.dtype)])
+    direct = serve.serving_fn(net)(x).cpu().numpy()[:8]
+    _counts(reset=True)
+    server.start()
+    code, reply = _http(f"http://127.0.0.1:{server.port}/predict",
+                        json.dumps({"images_b64": [base64.b64encode(b).decode()
+                                                   for b in jpegs]}).encode())
+    server.shutdown()
+    server.batcher.close()
+    torch.cuda.synchronize()
+    k2 = _counts()["nw_prepared_cuda"]
+    preds = reply.get("predictions", [])
+    err = max((abs(p["topk"][0]["prob"] - float(np.exp(row.max())))
+               for p, row in zip(preds, direct)), default=float("inf"))
+    labels_ok = [p["label"] for p in preds] == [int(i) for i in direct.argmax(1)]
+    print(f"serve --http on the restored CIFAR-100 server ({args.arch}, {len(net.full_y)} "
+          f"rows): one images_b64 /predict of 8 PIL JPEGs -> {code}, labels as the serving "
+          f"callable on the same decoded images {labels_ok}, top prob max|err| {err:.2e}; K2 "
+          f"launches {k2} in {server.batcher.dispatches} batches")
+    if code != 200 or not labels_ok or err > 1e-4 or k2 != server.batcher.dispatches:
+        raise AssertionError("the images_b64 predict disagrees with the serving callable")
+    return {"launches": k2}
+
+
+def surface_jpeg(net, train_ds, args, workdir: str) -> dict:
+    """``--jpeg_bench --decoder pil --workers 8 --bench_batches 4``, then the
+    ``pil`` leg of ``labs/pipeline_bench`` at 8 workers on 64 JPEGs."""
+    import os
+
+    from nwhead_tpu_torch import serve
+    from nwhead_tpu_torch.labs import pipeline_bench
+    from nwhead_tpu_torch.utils.pipeline import photo_jpegs
+
+    args.workers, args.bench_batches = JPEG_BENCH_ARGS["workers"], JPEG_BENCH_ARGS["bench_batches"]
+    report, k2 = _k2_between(lambda: serve.jpeg_bench(net, train_ds, args))
+    print(f"jpeg source: {report['jpeg_source']}")
+    print(f"serve --jpeg_bench (pil, {args.workers} workers, {args.bench_batches} batches of "
+          f"{args.batch_size}, {report['jpeg_hw']}): decode {report['decode_img_per_sec']} img/s, "
+          f"copy {report['transfer_img_per_sec']} img/s ({report['transfer_mb_per_sec']} MB/s), "
+          f"device {report['device_wall_qps']} q/s, pipelined {report['e2e_qps_from_jpeg']} q/s, "
+          f"bound by {report['bound_by']}; K2 launches {k2}")
+    if k2 != 2 * args.bench_batches + 1 or report["e2e_qps_from_jpeg"] <= 0:
+        raise AssertionError("--jpeg_bench launched K2 other than once a batch")
+    ddir = os.path.join(workdir, "decode_bench")
+    os.makedirs(ddir)
+    paths, source = photo_jpegs(DECODE_BENCH_N, dir=ddir)
+    dec = pipeline_bench.time_decoder(paths, "pil", 8)
+    print(f"pipeline_bench pil workers=8 ({source} 480 x 640 JPEGs): {dec['ms_per_batch']:.1f} "
+          f"ms/batch{DECODE_BENCH_N} ({dec['img_per_sec']:,.0f} img/s)")
+    return {"launches": k2, "report": report, "decode": dec}
+
+
+def serving_surface_phase(datasets, workdir: str, ckpt: str, cifar: dict) -> dict:
+    """The serve module's actions on the eval CLI phase's checkpoint (see
+    17g in the module's docstring); the K2 launches and the largest error
+    against the plain head, for the kernels line."""
+    import os
+
+    import torch
+
+    from nwhead_tpu_torch import serve
+
+    train_ds, val_ds = datasets
+    args = serve.parse_args(SURFACE_ARGV + ["--ckpt", ckpt, "--latency_bench"])
+    t0 = time.perf_counter()
+    net = serve.build_server(args, train_ds, val_ds=val_ds)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    tag = serve.bank_tag(args)
+    x = val_ds.gather(np.arange(args.batch_size))
+    served, k2 = _k2_between(lambda: serve.serving_fn(net)(x))
+    plain = _surface_plain(net, x)
+    torch.cuda.synchronize()
+    err = float((served - plain).abs().max())
+    print(f"serve --ckpt {os.path.basename(ckpt)}: built in {build_s:.2f}s (S={len(net.full_y)}, "
+          f"D={net.full_feat.shape[1]}, C={net.n_classes}); tag ckpt {tag['ckpt'] == ckpt}, "
+          f"seed {tag['seed']!r}; served vs plain max|err| {err:.3e}; K2 launches {k2}")
+    if (tag["ckpt"] != ckpt or tag["seed"] != "" or k2 != 1
+            or not bool(torch.isfinite(served).all()) or not within(served, plain, **TOL["f32"])):
+        raise AssertionError("the --ckpt server disagrees with the plain head")
+    out = {"launches": k2, "err": err}
+    steps = (("queries", lambda: surface_queries(net, train_ds, args, workdir)),
+             ("microbatch", lambda: surface_microbatch(net, val_ds, args)),
+             ("http", lambda: surface_http(net, train_ds, val_ds, args)),
+             ("cifar", lambda: surface_cifar_b64(cifar, os.path.join(workdir, "data"))),
+             ("jpeg", lambda: surface_jpeg(net, train_ds, args, workdir)))
+    for name, step in steps:
+        r = step()
+        out[name] = r
+        out["launches"] += r["launches"]
+        out["err"] = max(out["err"], r.get("err", 0.0))
+    del net, cifar["net"]
+    torch.cuda.empty_cache()
+    return out
+
+
+def surface_update_entries(entries: list, surface: dict) -> None:
+    """The serving-surface phase's K2 launches and errors added to the K2
+    f32 entry of the ``kernels`` line."""
+    e = next(e for e in entries if e["name"] == "nw_prepared_f32")
+    e["launches"] += surface["launches"]
+    e["max_abs_err"] = max(e["max_abs_err"], surface["err"])
 
 
 def main() -> int:
@@ -5315,10 +5754,13 @@ def main() -> int:
         t0 = time.perf_counter()
         int8_cnn_served = int8_cnn_serving_phase(datasets, workdir, zoo_served)
         phase_s["int8 CNN serving"] = time.perf_counter() - t0
-        del datasets
         t0 = time.perf_counter()
         data = data_fc_phase(workdir)
         phase_s["data and FC"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        surface = serving_surface_phase(datasets, workdir, ev["ckpt"], data["serve"])
+        phase_s["serving surface"] = time.perf_counter() - t0
+        del datasets
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
@@ -5368,6 +5810,7 @@ def main() -> int:
     int8_cnn_update_entries(entries, int8_cnn_served)
     bank_edit_update_entries(entries, edits, big_edits)
     data_update_entries(entries, data)
+    surface_update_entries(entries, surface)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

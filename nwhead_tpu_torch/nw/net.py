@@ -445,66 +445,76 @@ class NWNet:
         appends them to the live prepared bank, and grows a live IVF bank
         by a chunk of them (meshless); ``keep_prepared=(prep, pos, dead)``
         and ``keep_sharded`` (``remove_support``) install a tombstoned
-        bank."""
-        self.full_feat = self.support_eval.full_feat
-        self.full_y = self.support_eval.full_y
-        prev_prep, prev_pos = self._prepared_full, self._prepared_pos
-        prev_dead = self._prepared_dead
-        prev_ivf = self._ivf_cache
-        self._drop_serving_banks()
+        bank.
+
+        Every serving artifact is built aside and then installed by one
+        assignment of each attribute, with no ``None`` in between, so a
+        request served on another thread while a bank is edited or prepared
+        again reads the old bank or the new one, never neither (JAX's
+        ``net.py:525`` drops them first). The sharded knn and ensemble
+        predicts, which no serving callable reads, are dropped and rebuilt
+        at their next use."""
+        full_feat, full_y = self.support_eval.full_feat, self.support_eval.full_y
         head = self.model.head
+        self._sharded_knn_cache = self._sharded_ensemble_cache = None
         if self.mesh is not None:
             if keep_sharded is None:
                 fused_ok = head.use_fused and self.kernel_type in KERNEL_NAMES
                 keep_sharded = ShardedSupportBank.build(
-                    self.full_feat, self.full_y, self.mesh, self.n_classes,
+                    full_feat, full_y, self.mesh, self.n_classes,
                     kernel=self.kernel_type, precision=head.precision if fused_ok else "f32",
                     use_prepared=None if fused_ok else False, ivf=fused_ok)
-            self.sharded_bank = keep_sharded
             # Trained kernel parameters (clip's logit_scale) ride along.
-            self._sharded_predict = self.sharded_bank.predict_fn(
-                kernel_params=head.kernel_params())
+            predict = keep_sharded.predict_fn(kernel_params=head.kernel_params())
+            self.full_feat, self.full_y = full_feat, full_y
+            self.sharded_bank, self._sharded_predict = keep_sharded, predict
+            self._ivf_cache = None  # the routed predict of the old bank
             return
-        if new_rows is not None and prev_ivf is not None:
-            self._ivf_cache = self._grown_ivf(prev_ivf[1], *new_rows[:2])
-        S = len(self.full_y)
-        if not (head.use_fused and S >= head.fused_min_support
+        ivf = None
+        if new_rows is not None and self._ivf_cache is not None:
+            grown = self._grown_ivf(self._ivf_cache[1], *new_rows[:2])
+            ivf = None if grown is None else (full_feat, grown)
+        prep, pos, dead = None, None, 0
+        S = len(full_y)
+        if (head.use_fused and S >= head.fused_min_support
                 and self.kernel_type in KERNEL_NAMES):
-            return
-        if keep_prepared is not None:
-            self._prepared_full, self._prepared_pos, self._prepared_dead = keep_prepared
-        elif prev_prep is not None and new_rows is not None:
-            feats, labels, rows = new_rows
-            inc, order = prepare_for_concat(feats, labels, self.n_classes, prev_prep,
-                                            kernel=self.kernel_type, precision=head.precision,
-                                            return_order=True)
-            self._prepared_full = concat_prepared([prev_prep, inc])
-            self._prepared_dead = prev_dead
-            # Old rows keep their prepared rows; the k-th new row is the k-th
-            # input row of the new part (JAX net.py:603-626).
-            new_pos = np.arange(len(labels), dtype=np.int64)
-            if order is not None:
-                new_pos = inverse_order(order)[:len(labels)]
-            pos = np.empty(S, np.int64)
-            is_new = np.zeros(S, bool)
-            is_new[rows] = True
-            pos[~is_new] = prev_pos
-            pos[is_new] = prev_prep.labels.shape[0] + new_pos
-            self._prepared_pos = pos
-        else:
-            self._prepared_full, order = prepare_support(
-                self.full_feat, self.full_y, self.n_classes,
-                kernel=self.kernel_type, precision=head.precision, return_order=True,
-            )
-            self._prepared_pos = np.arange(S, dtype=np.int64) if order is None \
-                else inverse_order(order)
+            prev_prep = self._prepared_full
+            if keep_prepared is not None:
+                prep, pos, dead = keep_prepared
+            elif prev_prep is not None and new_rows is not None:
+                feats, labels, rows = new_rows
+                inc, order = prepare_for_concat(feats, labels, self.n_classes, prev_prep,
+                                                kernel=self.kernel_type,
+                                                precision=head.precision, return_order=True)
+                prep = concat_prepared([prev_prep, inc])
+                dead = self._prepared_dead
+                # Old rows keep their prepared rows; the k-th new row is the
+                # k-th input row of the new part (JAX net.py:603-626).
+                new_pos = np.arange(len(labels), dtype=np.int64)
+                if order is not None:
+                    new_pos = inverse_order(order)[:len(labels)]
+                pos = np.empty(S, np.int64)
+                is_new = np.zeros(S, bool)
+                is_new[rows] = True
+                pos[~is_new] = self._prepared_pos
+                pos[is_new] = prev_prep.labels.shape[0] + new_pos
+            else:
+                prep, order = prepare_support(
+                    full_feat, full_y, self.n_classes,
+                    kernel=self.kernel_type, precision=head.precision, return_order=True,
+                )
+                pos = np.arange(S, dtype=np.int64) if order is None else inverse_order(order)
+        self.full_feat, self.full_y = full_feat, full_y
+        self._ivf_cache = ivf
+        self._prepared_full, self._prepared_pos, self._prepared_dead = prep, pos, dead
 
-    def _grown_ivf(self, old: IVFPrepared, feats: torch.Tensor, labels: np.ndarray):
-        """The IVF cache after an add (JAX ``net.py:533-571``): the new rows
+    def _grown_ivf(self, old: IVFPrepared, feats: torch.Tensor,
+                   labels: np.ndarray) -> Optional[IVFPrepared]:
+        """The IVF bank after an add (JAX ``net.py:533-571``): the new rows
         prepared as one chunk by ``prepare_support_ivf``, padded with masked
-        rows to the live bank's tile, and appended by ``concat_ivf``, keyed
-        on the grown ``full_feat``; or None (a rebuild at the next ivf use)
-        when the chunk does not concatenate."""
+        rows to the live bank's tile, and appended by ``concat_ivf``; or
+        None (a rebuild at the next ivf use) when the chunk does not
+        concatenate."""
         blk = old.prep.block_s
         n = len(labels)
         pad = _round_up(n, blk) - n
@@ -516,7 +526,7 @@ class NWNet:
             kernel=self.kernel_type, precision=self.model.head.precision, support_mask=mask,
             block_s=blk)
         try:
-            return (self.full_feat, concat_ivf([old, inc]))
+            return concat_ivf([old, inc])
         except ValueError:
             return None
 

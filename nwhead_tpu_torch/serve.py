@@ -1,20 +1,48 @@
-"""NW-head serving CLI of the port: build the server, time requests.
+"""NW-head serving CLI of the port: build the server, then answer queries,
+serve HTTP or time requests.
 
-Port of the serving path of the root ``serve.py`` (``build_server``,
-``latency_bench``) with the datasets of the training CLI (``--data_dir``,
-``--workers``, ``--decoder``, by default ``native_fused``: the C++ libjpeg
-pool decodes, crops and resizes in one pass). Weights are random, from
-``--seed``. The image-file datasets' requests ship uint8 pixels, normalized
-on the device inside the serving callable (``make_serving_fn(normalize=)``);
-CIFAR's and the in-memory sets' ship float32. ``--bank_cache DIR`` saves
-the featurized bank with a tag of what computed it, and a later server
-with the same tag restores it instead of featurizing the support set; a
-server with another tag refuses the cache. The tag is the JAX server's
-plus ``"package"``, so a cache the JAX server wrote (other weights from
-the same seed) is refused. Run as::
+Port of the root ``serve.py`` with the datasets of the training CLI
+(``--data_dir``, ``--workers``, ``--decoder``, by default ``native_fused``:
+the C++ libjpeg pool decodes, crops and resizes in one pass; ``pil`` where
+there is no libjpeg). The weights are random, from ``--seed``, or a
+checkpoint of the port's training CLI (``--ckpt``, loaded before any
+quantize or fuse), with an optional ``--proj_dim`` projection. The
+image-file datasets' requests ship uint8 pixels, normalized on the device
+inside the serving callable (``make_serving_fn(normalize=)``); CIFAR's and
+the in-memory sets' ship float32. ``--bank_cache DIR`` saves the featurized
+bank with a tag of what computed it, and a later server with the same tag
+restores it instead of featurizing the support set; a server with another
+tag refuses the cache. The tag is the JAX server's plus ``"package"``, so a
+cache the JAX server wrote (other weights from the same seed) is refused.
+
+The actions (any of them in one run, or ``--http`` alone):
+
+* ``--latency_bench``: B = ``--batch_size`` requests, one client, p50/p95;
+* ``--microbatch_bench``: ``--concurrency`` clients send one image a
+  request through ``utils.batching.MicroBatcher`` (``--microbatch_wait_ms``):
+  qps, request p50/p95 and the batches' mean occupancy;
+* ``--jpeg_bench``: JPEG files in, answers out, by stage
+  (``utils.pipeline.jpeg_stage_rates``: decode, copy, device, pipelined);
+* ``--queries GLOB``: classify image files (``--topk``, ``--temperature``),
+  with ``--explain K`` each answer's K heaviest support rows and its most
+  helpful and most harmful rows by leave-one-out influence;
+* ``--http PORT``: the JSON-over-HTTP daemon (``utils.httpd``): predict,
+  add and remove support rows live, health and stats.
+
+``--export_artifact`` and ``--serve_artifact`` are ROADMAP.md item 13 and
+raise. Run as::
 
     python -m nwhead_tpu_torch.serve --dataset synthetic_cub --arch resnet18 \
         --batch_size 64 --latency_bench
+    python -m nwhead_tpu_torch.serve --dataset synthetic_cub --arch resnet18 \
+        --ckpt run/checkpoints/model.0001 --queries 'photos/*.jpg' --topk 3 --explain 5 \
+        --decoder pil
+    python -m nwhead_tpu_torch.serve --dataset synthetic_cub --arch resnet18 \
+        --microbatch_bench --concurrency 16 --bench_batches 2
+    python -m nwhead_tpu_torch.serve --dataset synthetic_cub --arch resnet18 \
+        --jpeg_bench --decoder pil --workers 8 --bench_batches 4
+    python -m nwhead_tpu_torch.serve --dataset cifar100 --data_dir data \
+        --arch CIFAR_ResNet18 --http 8080
     python -m nwhead_tpu_torch.serve --dataset synthetic_cub --arch vit_s14 \
         --featurizer_precision bf16_fused --batch_size 64 --latency_bench
     python -m nwhead_tpu_torch.serve --dataset synthetic_cub --arch vit_s14 \
@@ -60,9 +88,12 @@ the CPU must be asked for (``--device cpu``).
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import math
 import subprocess
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -73,9 +104,19 @@ from nwhead_tpu_torch.data.datasets import ImageFileDataset
 from nwhead_tpu_torch.data.embedding_cache import FeatureBankCache
 from nwhead_tpu_torch.models import VIT_NAMES, load_model
 from nwhead_tpu_torch.nw.net import NWNet
+from nwhead_tpu_torch.ops.calibrate import apply_temperature
+from nwhead_tpu_torch.ops.influence import support_influence
+from nwhead_tpu_torch.ops.kernels import KERNEL_NAMES
 from nwhead_tpu_torch.parallel import make_mesh
 from nwhead_tpu_torch.train import build_datasets  # (train, val), as the training CLI's
-from nwhead_tpu_torch.train.config import DATASETS
+from nwhead_tpu_torch.train.checkpoint import load_checkpoint
+from nwhead_tpu_torch.train.config import CIFAR_DATASETS, DATASETS
+from nwhead_tpu_torch.utils.batching import MicroBatcher
+from nwhead_tpu_torch.utils.httpd import NWHttpServer
+from nwhead_tpu_torch.utils.pipeline import jpeg_stage_rates, photo_jpegs
+
+# The image-file datasets: their requests ship uint8 pixels (JAX serve.py:441).
+IMAGE_DATASETS = ("bird", "dog", "flower", "aircraft")
 
 
 def uint8_requests(ds):
@@ -92,21 +133,21 @@ def uint8_requests(ds):
 
 
 def bank_tag(args) -> dict:
-    """What a cached bank's features depend on: the JAX server's tag (this
-    CLI has no ``--ckpt`` and no ``--proj_dim``: the weights come from
-    ``--seed``) plus the package, since the two packages draw different
-    weights from one seed."""
+    """What a cached bank's features depend on: the JAX server's tag
+    (``ckpt`` the checkpoint's path, ``seed`` empty with one, as JAX
+    ``serve.py:107-112``) plus the package, since the two packages draw
+    different weights from one seed."""
     return {
         "dataset": args.dataset,
         "arch": args.arch,
-        "ckpt": "",
+        "ckpt": args.ckpt or "",
         "pretrained_path": args.pretrained_path or "",
-        "seed": str(args.seed),
+        "seed": "" if args.ckpt else str(args.seed),
         "featurizer_precision": args.featurizer_precision,
         "bf16": str(bool(args.bf16)),
         "fused_inference": str(bool(args.fused_inference)),
         "calib_images": str(args.calib_images),
-        "proj_dim": "0",
+        "proj_dim": str(args.proj_dim),
         "n_shot_full": str(args.n_shot_full),
         "package": "nwhead_tpu_torch",
     }
@@ -169,7 +210,10 @@ def build_mesh(args, device: torch.device):
 
 
 def build_server(args, train_ds, edit=None, val_ds=None) -> NWNet:
-    """An ``NWNet`` with random weights from ``--seed``, its featurizer
+    """An ``NWNet`` with random weights from ``--seed`` (a ``--proj_dim``
+    projection too) or, with ``--ckpt``, a checkpoint of the port's
+    training CLI loaded over them (its ``"model"`` state, as the eval CLI
+    loads it), its featurizer
     fused for ``--featurizer_precision bf16_fused`` or quantized and
     calibrated on the first ``--calib_images`` training images for
     ``int8``, its full support bank featurized and prepared for the fused
@@ -197,10 +241,14 @@ def build_server(args, train_ds, edit=None, val_ds=None) -> NWNet:
                             **featurizer_options(args))
     net = NWNet(
         featurizer, train_ds.num_classes, support_dataset=train_ds, device=device,
+        feat_dim=featurizer.feat_dim, proj_dim=args.proj_dim,
         kernel_type=args.kernel_type, n_shot_full=args.n_shot_full,
-        head_precision=args.head_precision, fused_min_support=1,
+        head_precision=args.head_precision, fused_min_support=1, seed=args.seed,
         ivf_n_probe=args.ivf_probe, ivf_group_b=args.ivf_group, mesh=mesh,
     )
+    if args.ckpt:
+        net.model.load_state_dict(load_checkpoint(args.ckpt)["model"])
+        print(f"Loaded checkpoint {args.ckpt}")
     if edit is not None:
         edit(net)
     net.calibration_seconds = 0.0
@@ -250,6 +298,33 @@ def build_server(args, train_ds, edit=None, val_ds=None) -> NWNet:
     return net
 
 
+def serving_fn(net: NWNet, uint8_normalize: bool = False, mode: str = "full"):
+    """The per-request callable ``(B, H, W, C) -> (B, C)`` log-probs on the
+    net's device. A kernel of ``KERNEL_NAMES`` serves through
+    ``net.make_serving_fn`` (normalize, featurize, the prepared or sharded
+    bank's kernel; ``mode="ivf"`` the IVF-pruned head), whose errors
+    propagate; any other kernel (``relation``), which has no fused route in
+    either package, through ``net.predict(x, "full")``.
+    ``uint8_normalize``: the requests are uint8 pixels, normalized on the
+    device with the imagenet statistics."""
+    if net.kernel_type in KERNEL_NAMES:
+        stats = (T.IMAGENET_MEAN, T.IMAGENET_STD) if uint8_normalize else None
+        return net.make_serving_fn(normalize=stats, mode=mode)
+    if mode != "full":
+        raise ValueError(f"--serve_mode {mode} needs a fused kernel ({', '.join(KERNEL_NAMES)}), "
+                         f"not {net.kernel_type!r}")
+    norm = T.device_normalize_fn() if uint8_normalize else None
+
+    def serve(x) -> torch.Tensor:
+        x = torch.as_tensor(x).to(net.device)
+        if norm is not None and x.dtype == torch.uint8:
+            x = norm(x)
+        out = net.predict(x, "full")
+        return out[0] if isinstance(out, tuple) else out
+
+    return serve
+
+
 def latency_bench(net: NWNet, val_ds, args) -> dict:
     """Wall-clock latency per request of ``--batch_size`` images, host
     arrays in (uint8 for an image-file dataset, normalized on the device),
@@ -257,7 +332,7 @@ def latency_bench(net: NWNet, val_ds, args) -> dict:
     bs = args.batch_size
     n = min(args.bench_batches, max(1, len(val_ds) // bs))
     val_ds, stats = uint8_requests(val_ds)
-    serve = net.make_serving_fn(normalize=stats, mode=args.serve_mode)
+    serve = serving_fn(net, uint8_normalize=stats is not None, mode=args.serve_mode)
     warm = val_ds.gather(np.arange(bs) % len(val_ds))
     for _ in range(3):
         serve(warm).cpu()
@@ -293,6 +368,283 @@ def latency_bench(net: NWNet, val_ds, args) -> dict:
     return report
 
 
+def microbatch_bench(net: NWNet, val_ds, args) -> dict:
+    """One image a request through the ``MicroBatcher``: ``--concurrency``
+    client threads each send ``max(2, --bench_batches) * max(4, B // 2)``
+    single images in a closed loop (B = ``--batch_size``, the batch the
+    device serves, ``--microbatch_wait_ms`` the batcher's wait). Reports the
+    achieved queries/s, each request's latency (submit to result: the wait
+    to fill a batch, the device, the readback) and the batches' mean
+    occupancy from the batcher's own counters: how well one-image traffic
+    fills the batch."""
+    bs = args.batch_size
+    val_ds, stats = uint8_requests(val_ds)
+    serve = serving_fn(net, uint8_normalize=stats is not None, mode=args.serve_mode)
+    imgs = val_ds.gather(np.arange(min(64, len(val_ds))))
+    serve(np.repeat(imgs[:1], bs, axis=0)).cpu()  # warm at the batch shape
+    requests = max(2, args.bench_batches) * max(4, bs // 2)
+    lat, lat_lock = [], threading.Lock()
+    with MicroBatcher(serve, max_batch=bs, max_wait_ms=args.microbatch_wait_ms) as mb:
+        def client(c: int) -> None:
+            mine = []
+            for r in range(requests):
+                x = imgs[(c + r) % len(imgs)]
+                t0 = time.perf_counter()
+                mb.submit(x).result(timeout=120)
+                mine.append(time.perf_counter() - t0)
+            with lat_lock:
+                lat.extend(mine)
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(args.concurrency)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+    if len(lat) != args.concurrency * requests:
+        raise RuntimeError(f"{len(lat)} of {args.concurrency * requests} requests were "
+                           "answered (a client thread failed)")
+    lat_ms = np.asarray(lat) * 1e3
+    report = {
+        "concurrency": args.concurrency,
+        "compiled_batch": bs,
+        "max_wait_ms": args.microbatch_wait_ms,
+        "requests": len(lat),
+        "achieved_qps": len(lat) / wall,
+        "request_p50_ms": float(np.percentile(lat_ms, 50)),
+        "request_p95_ms": float(np.percentile(lat_ms, 95)),
+        "mean_batch_occupancy": mb.dispatched_items / mb.dispatches,
+        "batches_dispatched": mb.dispatches,
+        "pixels": "float32" if stats is None else "uint8",
+        "device": device_info(net.device),
+    }
+    print(json.dumps(report))
+    return report
+
+
+def jpeg_bench(net: NWNet, train_ds, args) -> dict:
+    """Images in, answers out, from JPEG files: ``--queries``' files, or
+    ``min(256, --bench_batches * B)`` photo-sized JPEGs written for the run
+    (``utils.pipeline.photo_jpegs``: photographs where sklearn is
+    installed, else mosaics; removed afterwards), decoded by ``--decoder``
+    with ``--workers`` threads through the eval transform (uint8 pixels,
+    normalized on the device; CIFAR's floats) and served by the serving
+    callable. The stages are timed alone and pipelined
+    (``utils.pipeline.jpeg_stage_rates``), so the one that binds is
+    named."""
+    bs, nb = args.batch_size, args.bench_batches
+    is_cifar = args.dataset in CIFAR_DATASETS
+    t_eval = (T.cifar_eval_transform() if is_cifar
+              else T.imagenet_eval_transform(device_normalize=True))
+    with tempfile.TemporaryDirectory(prefix="nw_jpeg_bench_") as tmp:
+        if args.queries:
+            paths, source = sorted(glob.glob(args.queries)), "user files"
+            if not paths:
+                raise SystemExit(f"no files match {args.queries!r}")
+        else:
+            paths, source = photo_jpegs(min(256, nb * bs), dir=tmp)
+        ds = ImageFileDataset(paths, np.zeros(len(paths), np.int64), train_ds.num_classes,
+                              transform=t_eval, workers=args.workers, decoder=args.decoder)
+
+        def batch(i):
+            return ds.gather((np.arange(bs) + i * bs) % len(ds))
+
+        serve = serving_fn(net, uint8_normalize=not is_cifar, mode=args.serve_mode)
+        rates = jpeg_stage_rates(batch, serve, nb, bs, net.device)
+    report = {
+        "batch_size": bs,
+        "batches": nb,
+        "jpeg_hw": "user files" if args.queries else "480x640",
+        "jpeg_source": source,
+        "decode_workers": args.workers,
+        "decoder": args.decoder,
+        "pixel_transfer": "f32" if is_cifar else "uint8",
+        **rates,
+        "featurizer_precision": args.featurizer_precision,
+        "head_precision": args.head_precision,
+        "device": device_info(net.device),
+    }
+    print(json.dumps(report))
+    return report
+
+
+def answer_queries(net: NWNet, train_ds, args) -> list:
+    """Classify the files of ``--queries`` in chunks of ``--batch_size``:
+    each file's ``--topk`` classes with their probabilities (after
+    ``--temperature``), one JSON line each. Every chunk is padded to the
+    batch with zero images (one batch shape; under ``--mesh`` the batch
+    must divide the data axis) and the padding rows dropped. With
+    ``--explain K`` the answers come from the exact f32 head over the raw
+    bank on host-normalized pixels, with each query's explanation
+    (``_build_explainer``); otherwise from the serving callable on uint8
+    pixels (CIFAR's floats)."""
+    paths = sorted(glob.glob(args.queries))
+    if not paths:
+        raise SystemExit(f"no files match {args.queries!r}")
+    is_cifar = args.dataset in CIFAR_DATASETS
+    explain = args.explain
+    t_eval = (T.cifar_eval_transform() if is_cifar
+              else T.imagenet_eval_transform(device_normalize=not explain))
+    qds = ImageFileDataset(paths, np.zeros(len(paths), np.int64), train_ds.num_classes,
+                           transform=t_eval, workers=args.workers, decoder=args.decoder)
+    if explain:
+        if args.head_precision != "f32":
+            print(f"note: --explain answers use the exact f32 raw head; the "
+                  f"{args.head_precision} prepared bank serves only unexplained paths",
+                  flush=True)
+        explain_fn = _build_explainer(net, train_ds)
+    else:
+        serve = serving_fn(net, uint8_normalize=not is_cifar, mode=args.serve_mode)
+    results = []
+    for start in range(0, len(paths), args.batch_size):
+        chunk = paths[start:start + args.batch_size]
+        imgs = qds.gather(np.arange(start, start + len(chunk)))
+        pad = args.batch_size - len(chunk)
+        if pad > 0:
+            imgs = np.concatenate([imgs, np.zeros((pad,) + imgs.shape[1:], imgs.dtype)])
+        explanations = None
+        if explain:
+            out, explanations = explain_fn(imgs, explain)
+            out, explanations = out[:len(chunk)], explanations[:len(chunk)]
+        else:
+            out = serve(imgs).cpu().numpy()[:len(chunk)]
+        if args.temperature != 1.0:
+            # Post-hoc calibration: the probabilities change, the order does not.
+            out = apply_temperature(out, args.temperature).numpy()
+        top = np.argsort(-out, axis=-1)[:, :args.topk]
+        for i, (p, t, lp) in enumerate(zip(chunk, top, out)):
+            entry = {"file": p,
+                     "topk": [{"class": int(c), "prob": round(float(np.exp(lp[c])), 4)}
+                              for c in t]}
+            if explanations is not None:
+                entry["explain"] = explanations[i]
+            results.append(entry)
+            print(json.dumps(entry))
+    return results
+
+
+def _build_explainer(net: NWNet, train_ds):
+    """Explanations from the NW head's own weights (the reference's
+    neighbours, ``nw.py:245-249``, and leave-one-out influence,
+    ``util/metric.py:23-50``): a callable ``(imgs, k) -> (log_probs,
+    [explanation])``. One featurizer pass and the naive f32 head over the
+    whole bank (``NWHead.probs_and_weights``) give the answer,
+    ``log(probs + 1e-12)``, and its explanation: the ``k`` bank rows of
+    largest softmax weight, the (at most ``k``) rows of largest positive
+    influence on the predicted class, and the row of most negative
+    influence when one is negative (``ops/influence.support_influence``).
+    A row carries its bank index and label and, while the bank is in
+    ``precompute``'s order (``bank_is_canonical``: an edit clears it), its
+    index in the support dataset (and the file's path for an image-file
+    dataset)."""
+    bank_to_ds = np.concatenate(net.support_eval.full_bank_indices)
+    if (not getattr(net.support_eval, "bank_is_canonical", False)
+            or len(bank_to_ds) != len(net.full_y)):
+        bank_to_ds = None
+    spaths = getattr(train_ds, "paths", None)
+    sy = torch.as_tensor(net.full_y, device=net.device)
+    sy_np = sy.cpu().numpy()
+
+    def item(row, value, key):
+        d = {"support_index": int(row), "label": int(sy_np[row]), key: round(float(value), 6)}
+        if bank_to_ds is not None:
+            ds_idx = int(bank_to_ds[row])
+            d["dataset_index"] = ds_idx
+            if spaths is not None:
+                d["path"] = str(spaths[ds_idx])
+        return d
+
+    @torch.inference_mode()
+    def run(imgs, k):
+        net.model.eval()
+        qfeat = net._featurize_eval(torch.as_tensor(imgs).to(net.device, torch.float32))
+        probs, weights = net.model.head.probs_and_weights(qfeat, net.full_feat, sy)
+        pred = probs.argmax(dim=-1)
+        # Positive: the row pushed toward this answer (removing it would hurt).
+        infl = support_influence(probs, pred, weights, sy).cpu().numpy()
+        probs, weights, pred = probs.cpu().numpy(), weights.cpu().numpy(), pred.cpu().numpy()
+        out = []
+        for b in range(len(probs)):
+            by_weight = np.argsort(-weights[b])[:k]
+            # Only rows that helped: a plain top k would pad with the least
+            # harmful opposing rows when fewer than k helped.
+            by_help = [int(r) for r in np.argsort(-infl[b])[:k] if infl[b][r] > 0]
+            harmful = int(np.argmin(infl[b]))
+            entry = {
+                "predicted_class": int(pred[b]),
+                "neighbors": [item(r, weights[b][r], "weight") for r in by_weight],
+                "helpful": [item(r, infl[b][r], "influence") for r in by_help],
+            }
+            if infl[b][harmful] < 0:
+                entry["most_harmful"] = item(harmful, infl[b][harmful], "influence")
+            out.append(entry)
+        return np.log(probs + 1e-12), out
+
+    return run
+
+
+def _decode_image(data: bytes, transform) -> np.ndarray:
+    """One encoded image (JPEG, PNG, ...) through PIL and ``transform``."""
+    from io import BytesIO
+
+    from PIL import Image
+
+    with Image.open(BytesIO(data)) as im:
+        return transform(np.asarray(im.convert("RGB")))
+
+
+def build_http_server(net: NWNet, train_ds, val_ds, args) -> NWHttpServer:
+    """The HTTP daemon of ``--http PORT`` on ``--http_host``, not yet
+    serving (``start()`` serves on a thread, ``serve_forever()`` on this
+    one), its ``MicroBatcher`` over the serving callable attached
+    (``--batch_size``, ``--microbatch_wait_ms``). On the image-file datasets
+    and CIFAR, ``images_b64`` and raw image bodies are decoded by PIL, to
+    uint8 224 px pixels (normalized on the device) or CIFAR's floats for a
+    prediction, to host-normalized floats for ``/add_support``; the other
+    datasets take JSON ``inputs`` of their own item shape only."""
+    is_cifar = args.dataset in CIFAR_DATASETS
+    image_ds = args.dataset in IMAGE_DATASETS
+    decode_query = decode_support = None
+    if image_ds or is_cifar:
+        t_query = (T.cifar_eval_transform() if is_cifar
+                   else T.imagenet_eval_transform(device_normalize=True))
+        t_support = T.cifar_eval_transform() if is_cifar else T.imagenet_eval_transform()
+
+        def decode_query(b):
+            return _decode_image(b, t_query)
+
+        def decode_support(b):
+            return _decode_image(b, t_support)
+
+        input_shape = (224, 224, 3) if image_ds else (32, 32, 3)
+    else:
+        input_shape = tuple(val_ds.gather(np.arange(1)).shape[1:])
+    serve = serving_fn(net, uint8_normalize=image_ds, mode=args.serve_mode)
+    server = NWHttpServer(net, None, input_shape=input_shape, decode_query=decode_query,
+                          decode_support=decode_support, topk=args.topk,
+                          temperature=args.temperature, host=args.http_host, port=args.http)
+    server.batcher = MicroBatcher(serve, max_batch=args.batch_size,
+                                  max_wait_ms=args.microbatch_wait_ms)
+    return server
+
+
+def http_serve(net: NWNet, train_ds, val_ds, args) -> NWHttpServer:
+    """``--http PORT``: print the address and ``/healthz``, then serve until
+    interrupted (``build_http_server``)."""
+    server = build_http_server(net, train_ds, val_ds, args)
+    print(json.dumps({"serving": f"http://{args.http_host}:{server.port}",
+                      **server.healthz()}), flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.httpd.server_close()
+        server.batcher.close()
+    return server
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="NW head serving (PyTorch/CUDA port)")
     p.add_argument("--dataset", required=True,
@@ -307,8 +659,13 @@ def parse_args(argv=None):
                         "computed it), or to restore it from when it holds one with this "
                         "server's tag; another tag is refused")
     p.add_argument("--arch", default="resnet18")
+    p.add_argument("--ckpt", default=None,
+                   help="a checkpoint of the port's training CLI (model.NNNN or model.best), "
+                        "loaded over the seeded weights before any quantize or fuse")
     p.add_argument("--batch_size", type=int, default=64)
     p.add_argument("--kernel_type", default="euclidean")
+    p.add_argument("--proj_dim", type=int, default=0,
+                   help="a linear projection of the features to this width (0: none)")
     p.add_argument("--n_shot_full", type=int, default=100)
     p.add_argument("--head_precision", default="f32", choices=["f32", "bf16", "int8", "int4"],
                    help="the prepared bank: f32/bf16 (K2), int8 (K4) or int4 (K5)")
@@ -342,7 +699,37 @@ def parse_args(argv=None):
                         "N_SUPPORT devices, the batch split over N_DATA (N_MODEL must be 1)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--latency_bench", action="store_true")
+    p.add_argument("--microbatch_bench", action="store_true",
+                   help="one image a request through the MicroBatcher from --concurrency "
+                        "clients: qps, request latency, batch occupancy")
+    p.add_argument("--concurrency", type=int, default=16)
+    p.add_argument("--microbatch_wait_ms", type=float, default=5.0,
+                   help="the MicroBatcher's wait before a batch that is not full dispatches "
+                        "(--microbatch_bench, --http)")
+    p.add_argument("--jpeg_bench", action="store_true",
+                   help="JPEG files in, answers out: decode, copy and device stages alone "
+                        "and pipelined")
     p.add_argument("--bench_batches", type=int, default=50)
+    p.add_argument("--queries", default=None, help="a glob of image files to classify")
+    p.add_argument("--topk", type=int, default=5)
+    p.add_argument("--temperature", type=float, default=1.0,
+                   help="post-hoc calibration temperature of the reported probabilities "
+                        "(fit by the eval CLI's --fit_temperature)")
+    p.add_argument("--explain", type=int, default=0, metavar="K",
+                   help="with --queries: each answer's K heaviest support rows by softmax "
+                        "weight and its most helpful and harmful rows by leave-one-out "
+                        "influence; these answers come from the exact f32 head over the raw "
+                        "bank, so under another --head_precision their probabilities can "
+                        "differ slightly from the served ones")
+    p.add_argument("--http", type=int, default=None, metavar="PORT",
+                   help="serve JSON over HTTP on PORT (0: any free port): /predict through "
+                        "the MicroBatcher, /add_support and /remove_support live bank edits, "
+                        "/healthz, /stats")
+    p.add_argument("--http_host", default="127.0.0.1")
+    p.add_argument("--export_artifact", default=None, metavar="DIR",
+                   help="not ported: the AOT serving artifact is ROADMAP.md item 13")
+    p.add_argument("--serve_artifact", default=None, metavar="DIR",
+                   help="not ported: the AOT serving artifact is ROADMAP.md item 13")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' (default) fails without a GPU")
     return p.parse_args(argv)
@@ -350,12 +737,31 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if not args.latency_bench:
-        raise SystemExit("pass --latency_bench")
+    if args.export_artifact or args.serve_artifact:
+        raise NotImplementedError(
+            "--export_artifact / --serve_artifact: the AOT serving artifact is ROADMAP.md "
+            "item 13, not ported yet")
+    if not (args.latency_bench or args.microbatch_bench or args.jpeg_bench or args.queries
+            or args.http is not None):
+        raise SystemExit("pass --latency_bench, --microbatch_bench, --jpeg_bench, --queries "
+                         "and/or --http")
     featurizer_options(args)  # refuse before the datasets are drawn
     train_ds, val_ds = build_datasets(args)
     net = build_server(args, train_ds, val_ds=val_ds)
-    return {"latency": latency_bench(net, val_ds, args)}
+    if args.http is not None:
+        return http_serve(net, train_ds, val_ds, args)
+    out = {}
+    if args.latency_bench:
+        out["latency"] = latency_bench(net, val_ds, args)
+    if args.microbatch_bench:
+        out["microbatch"] = microbatch_bench(net, val_ds, args)
+    if args.jpeg_bench:
+        out["jpeg"] = jpeg_bench(net, train_ds, args)
+    if args.queries:
+        # With --jpeg_bench the same files were the bench's input; they are
+        # still classified.
+        out["queries"] = answer_queries(net, train_ds, args)
+    return out
 
 
 if __name__ == "__main__":

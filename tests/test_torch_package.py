@@ -38,6 +38,9 @@ MODULES = (
     "nwhead_tpu_torch.ops.int8_conv", "nwhead_tpu_torch.nw.fc",
     "nwhead_tpu_torch.data.transforms", "nwhead_tpu_torch.data.embedding_cache",
     "nwhead_tpu_torch.native.decode", "nwhead_tpu_torch.eval",
+    "nwhead_tpu_torch.utils", "nwhead_tpu_torch.utils.batching",
+    "nwhead_tpu_torch.utils.httpd", "nwhead_tpu_torch.utils.pipeline",
+    "nwhead_tpu_torch.labs.pipeline_bench", "nwhead_tpu_torch.visualize",
 )
 
 
@@ -50,7 +53,7 @@ def test_import_pulls_in_no_jax():
         "p.parallel, p.make_mesh, p.ShardedSupportBank, p.labs\n"
         "print(json.dumps(sorted(m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'nwhead_tpu', 'sklearn', 'triton',"
-        " 'scripts', 'bench', 'timing'))))\n"
+        " 'scripts', 'bench', 'timing', 'matplotlib'))))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
