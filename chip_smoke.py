@@ -338,12 +338,29 @@ package beside it. With one, in order:
     --bench_batches 4`` (stage rates, ``bound_by``, the JPEG source: no
     sklearn there, so mosaics) and the ``pil`` leg of
     ``labs/pipeline_bench`` at 8 workers on 64 JPEGs;
-18. prints the nvidia-smi line, a JSON line of per-kernel results (the
+18. the AOT artifact phase (``utils/aot.py``, the serving kernels as
+    ``torch.library`` custom ops): ResNet-18 at B=64, 224 px, uint8 pixels
+    with the normalization folded in, over the ``synthetic_cub`` bank,
+    exported six ways (the f32 head, K2; the int8 head, K4; ``--serve_mode
+    ivf`` at probe 2, K6; ViT-S/14 ``bf16_fused``, K10/K11; the int8 ViT
+    stack, K10/K11 int8 and K4; a (1, 4) mesh on the one card, K2
+    ``partials`` x 4), each live callable's launches a request counted;
+    all six loaded in one fresh process that imports only
+    ``nwhead_tpu_torch.utils.aot`` (no JAX, no model-building module), each
+    answering the saved batch 3 times within 1e-6 of its live callable,
+    the same argmax, its launches 3 x one request's; the serve CLI's
+    ``--export_artifact`` then ``--serve_artifact --latency_bench
+    --queries`` (70 JPEGs, PIL) in a fresh process, its p50 beside the live
+    ``--latency_bench`` p50 and the
+    live callable's on the same uint8 batch, each artifact's size on disk
+    and load seconds (measurements, not gates);
+19. prints the nvidia-smi line, a JSON line of per-kernel results (the
     zoo phases' launches added to K1-K4, their times as ``d2048_*`` and
     ``d1024_*``; the int8 CNN phase's launches and errors added to K2, K4
     and K5; the bank-edit phases' to K2, K4, K5, K6 and K2 ``partials``;
     the data phase's to K1, dq, ds and K2 f32, the serving-surface
-    phase's to K2 f32), and as the last line
+    phase's to K2 f32, the artifact phase's fresh process's to K2, K4, K6,
+    K10/K11, K10/K11 int8 and K2 ``partials``), and as the last line
     ``{"ok": true, "device": {...}}``.
 
 Kernel times are device times: CUDA events around each call, queued behind
@@ -5611,6 +5628,276 @@ def surface_update_entries(entries: list, surface: dict) -> None:
     e["max_abs_err"] = max(e["max_abs_err"], surface["err"])
 
 
+# ---------------------------------------------------------------------------
+# The AOT serving artifact: six serving callables exported, loaded in a
+# fresh process, held to their live callables; the CLI both ways.
+# ---------------------------------------------------------------------------
+
+ARTIFACT_ARGV = ["--dataset", "synthetic_cub", "--arch", "resnet18", "--batch_size", "64"]
+ARTIFACT_VIT = (  # name, the ViT serve flags
+    ("vit_bf16_fused", ["--featurizer_precision", "bf16_fused"]),
+    ("vit_int8", ["--featurizer_precision", "int8", "--head_precision", "int8"]))
+ARTIFACT_PROBE = 2  # --serve_mode ivf's tiles a query
+ARTIFACT_DEVICE = "cuda"  # the card (the (1, 4) mesh's four times)
+ARTIFACT_CALLS = 3  # calls of each artifact in the fresh process whose launches count
+ARTIFACT_TIMED = 20  # timed calls of each artifact in the fresh process
+ARTIFACT_BENCH = 50  # --bench_batches of the CLI's and the live latency benches
+ARTIFACT_QUERIES = 70  # JPEGs the CLI answers from the artifact: a chunk of 64, one of 6
+ARTIFACT_TOL = 1e-6  # max |log-prob| difference of an artifact and its live callable
+# Per artifact: its ops (``ops/library.py``) and their launches a request.
+ARTIFACT_LAUNCHES = {
+    "f32": {"nw_prepared": 1},
+    "ivf": {"nw_prepared_sel": 1},
+    "int8_head": {"nw_prepared_int8": 1},
+    "vit_bf16_fused": {"attention_block_bf16": 12, "mlp_block_bf16": 12, "nw_prepared": 1},
+    "vit_int8": {"attention_block_int8": 12, "mlp_block_int8": 12, "nw_prepared_int8": 1},
+    "mesh_1x4": {"nw_prepared_partials": SHARDS},
+}
+# The fresh process: loads every artifact with ``utils.aot`` alone, answers
+# the saved batch, counts its ops' launches, times it, and names any
+# model-building or JAX module it imported.
+ARTIFACT_LOADER = """
+import json, sys, time
+import numpy as np
+import torch
+from nwhead_tpu_torch.utils import aot
+
+cases, calls, timed = json.loads(sys.argv[1]), int(sys.argv[3]), int(sys.argv[4])
+q = np.load(sys.argv[2])
+out = {}
+for name, art in cases.items():
+    t0 = time.perf_counter()
+    fn = aot.load_any_serving_artifact(art["dir"])
+    load_s = time.perf_counter() - t0
+    before = aot.library.launches()
+    for _ in range(calls):
+        got = fn(q)
+    torch.cuda.synchronize()
+    after = aot.library.launches()
+    got = got.cpu().numpy()
+    want = np.load(art["want"])
+    lat = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        fn(q).cpu()
+        lat.append(time.perf_counter() - t0)
+    out[name] = {"load_s": load_s, "err": float(np.abs(got - want).max()),
+                 "argmax_equal": bool((got.argmax(1) == want.argmax(1)).all()),
+                 "finite": bool(np.isfinite(got).all()), "shape": list(got.shape),
+                 "launches": {k: after[k] - before[k] for k in after if after[k] != before[k]},
+                 "p50_ms": float(np.percentile(np.asarray(lat) * 1e3, 50))}
+mods = [m for m in ("jax", "nwhead_tpu", "nwhead_tpu_torch.nw.net", "nwhead_tpu_torch.models",
+                    "nwhead_tpu_torch.data") if m in sys.modules]
+print(json.dumps({"cases": out, "modules": mods}))
+"""
+
+
+def _op_counts(reset: bool = False) -> dict:
+    """Each custom op's launches (its wrapper's count), then set to 0 with
+    ``reset``."""
+    from nwhead_tpu_torch.ops import library
+
+    out = library.launches()
+    if reset:
+        for module, attr in library.WRAPPERS.values():
+            getattr(module, attr).launches = 0
+    return out
+
+
+def _dir_bytes(path: str) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def _p50_ms(fn, x, n: int) -> float:
+    """The host-clock p50 of ``fn(x)`` with its readback, after 3 warm calls."""
+    for _ in range(3):
+        fn(x).cpu()
+    lat = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn(x).cpu()
+        lat.append(time.perf_counter() - t0)
+    return float(np.percentile(np.asarray(lat) * 1e3, 50))
+
+
+def _export_case(name: str, fn, export, q, workdir: str, live: dict) -> None:
+    """One live callable: its launches on one request (held to
+    ``ARTIFACT_LAUNCHES``), its log-probs saved, and its artifact exported
+    (timed) into ``workdir/name``."""
+    import os
+
+    import torch
+
+    _op_counts(reset=True)
+    want = fn(q)
+    torch.cuda.synchronize()
+    per_request = {k: v for k, v in _op_counts().items() if v}
+    if per_request != ARTIFACT_LAUNCHES[name]:
+        raise AssertionError(f"artifact {name}: the live callable launched {per_request} a "
+                             f"request, want {ARTIFACT_LAUNCHES[name]}")
+    want = want.cpu().numpy()
+    if want.shape != (q.shape[0], want.shape[1]) or not np.isfinite(want).all():
+        raise AssertionError(f"artifact {name}: live log-probs {want.shape} not finite")
+    art = os.path.join(workdir, name)
+    t0 = time.perf_counter()
+    meta = export(art)
+    export_s = time.perf_counter() - t0
+    np.save(os.path.join(workdir, f"{name}_want.npy"), want)
+    live[name] = {"dir": art, "want": os.path.join(workdir, f"{name}_want.npy"),
+                  "export_s": export_s, "bytes": _dir_bytes(art),
+                  "n_operand_leaves": meta["n_operand_leaves"]}
+    print(f"artifact {name}: live launches a request {per_request}; exported in "
+          f"{export_s:.2f}s, {meta['n_operand_leaves']} stored tensors, "
+          f"{live[name]['bytes'] / 2**20:.1f} MiB on disk ({meta['device']} "
+          f"{meta['capability']})")
+
+
+def artifact_phase(datasets, workdir: str) -> dict:
+    """The AOT serving artifact on the card (see the module docstring, 18):
+    six artifacts exported from live callables, loaded in one fresh
+    process and held there to the live log-probs and launch counts; the
+    CLI's export and ``--serve_artifact --latency_bench``. Returns each
+    artifact's fresh-process launches and the CLI's figures."""
+    import os
+
+    import torch
+
+    from nwhead_tpu_torch import serve
+    from nwhead_tpu_torch.data import transforms as T
+    from nwhead_tpu_torch.parallel.mesh import make_mesh
+    from nwhead_tpu_torch.utils.aot import (
+        export_mesh_serving_artifact, export_serving_artifact,
+    )
+
+    train_ds, val_ds = datasets
+    stats = (T.IMAGENET_MEAN, T.IMAGENET_STD)
+    art_dir = os.path.join(workdir, "artifacts")
+    os.makedirs(art_dir)
+    args = serve.parse_args(ARTIFACT_ARGV + ["--latency_bench", "--bench_batches",
+                                             str(ARTIFACT_BENCH)])
+    B = args.batch_size
+    hw = val_ds.gather(np.arange(1)).shape[1:3]
+    q = np.random.default_rng(IVF_SEED).integers(0, 256, size=(B, *hw, 3)).astype(np.uint8)
+    live = {}
+
+    def single(fn):
+        return lambda art: export_serving_artifact(fn, q, art)
+
+    base = serve.build_server(args, train_ds)
+    fn = serve.serving_fn(base, uint8_normalize=True)
+    _export_case("f32", fn, single(fn), q, art_dir, live)
+    live_bench = serve.latency_bench(base, val_ds, args)
+    live_uint8_p50 = _p50_ms(fn, q, ARTIFACT_BENCH)
+    base.ivf_n_probe = ARTIFACT_PROBE
+    fn = serve.serving_fn(base, uint8_normalize=True, mode="ivf")
+    _export_case("ivf", fn, single(fn), q, art_dir, live)
+    net, _ = _edit_net(base, "int8")
+    fn = serve.serving_fn(net, uint8_normalize=True)
+    _export_case("int8_head", fn, single(fn), q, art_dir, live)
+    mesh = make_mesh(1, SHARDS, devices=[torch.device(ARTIFACT_DEVICE)] * SHARDS)
+    net, _ = _edit_net(base, "f32", mesh=mesh)
+    _export_case("mesh_1x4", net.make_serving_fn(normalize=stats),
+                 lambda art: export_mesh_serving_artifact(net, q, art, normalize=stats),
+                 q, art_dir, live)
+    del base, net, fn
+    torch.cuda.empty_cache()
+    for name, flags in ARTIFACT_VIT:
+        vargs = serve.parse_args(VIT_SERVE_ARGV + flags)
+        vnet = serve.build_server(vargs, train_ds, edit=_set_gammas)
+        fn = serve.serving_fn(vnet, uint8_normalize=True)
+        _export_case(name, fn, single(fn), q, art_dir, live)
+        del vnet, fn
+        torch.cuda.empty_cache()
+
+    # One fresh process loads all six and answers the saved batch.
+    np.save(os.path.join(art_dir, "q.npy"), q)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", ARTIFACT_LOADER,
+         json.dumps({k: {"dir": v["dir"], "want": v["want"]} for k, v in live.items()}),
+         os.path.join(art_dir, "q.npy"), str(ARTIFACT_CALLS), str(ARTIFACT_TIMED)],
+        cwd=repo, env={**os.environ, "PYTHONPATH": repo}, capture_output=True, text=True,
+        timeout=900)
+    fresh_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the artifact loader failed:\n{proc.stderr[-4000:]}")
+    fresh = json.loads(proc.stdout.strip().splitlines()[-1])
+    if fresh["modules"]:
+        raise AssertionError(f"the artifact loader imported {fresh['modules']}")
+    ok = True
+    for name, r in fresh["cases"].items():
+        want = {k: v * ARTIFACT_CALLS for k, v in ARTIFACT_LAUNCHES[name].items()}
+        good = (r["err"] <= ARTIFACT_TOL and r["argmax_equal"] and r["finite"]
+                and r["shape"][0] == B and r["launches"] == want)
+        ok &= good
+        print(f"artifact {name} (fresh process): loaded in {r['load_s']:.2f}s; {ARTIFACT_CALLS} "
+              f"calls launched {r['launches']} (want {want}); max|d| vs live {r['err']:.3e}, "
+              f"argmax equal {r['argmax_equal']} {'ok' if good else 'FAIL'}; p50 "
+              f"{r['p50_ms']:.3f} ms over {ARTIFACT_TIMED} calls")
+    print(f"artifact loader: one fresh process, {fresh_s:.1f}s, imported no JAX and no "
+          "model-building module")
+    if not ok:
+        raise AssertionError("an artifact disagrees with its live callable or its launches")
+
+    # The CLI both ways: export, then serve in a fresh process: the latency
+    # bench and JPEG files (PIL: no libjpeg on the card's machine).
+    from nwhead_tpu_torch.utils.pipeline import photo_jpegs
+
+    cli_dir = os.path.join(workdir, "cli_artifact")
+    rep = serve.main(ARTIFACT_ARGV + ["--export_artifact", cli_dir])
+    jpeg_dir = os.path.join(workdir, "artifact_jpegs")
+    os.makedirs(jpeg_dir)
+    jpegs, _ = photo_jpegs(ARTIFACT_QUERIES, dir=jpeg_dir)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "nwhead_tpu_torch.serve", "--dataset", "synthetic_cub",
+         "--serve_artifact", cli_dir, "--latency_bench", "--bench_batches", str(ARTIFACT_BENCH),
+         "--queries", os.path.join(os.path.dirname(jpegs[0]), "*.jpg"), "--decoder", "pil",
+         "--topk", "5"],
+        cwd=repo, env={**os.environ, "PYTHONPATH": repo}, capture_output=True, text=True,
+        timeout=900)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"--serve_artifact failed:\n{proc.stderr[-4000:]}")
+    lines = [json.loads(line) for line in proc.stdout.strip().splitlines()
+             if line.startswith("{")]
+    cli = next(r for r in lines if "p50_ms" in r)
+    answers = [r for r in lines if "topk" in r]
+    if (cli["batch_size"] != B or not cli["queries_per_sec"] > 0
+            or cli["backend"] != torch.device(ARTIFACT_DEVICE).type
+            or sorted(a["file"] for a in answers) != sorted(jpegs)
+            or any(len(a["topk"]) != min(5, rep["n_classes"])
+                   or not 0 < sum(t["prob"] for t in a["topk"]) <= 1.001
+                   for a in answers)):
+        raise AssertionError(f"--serve_artifact report {cli}, {len(answers)} answers")
+    print(f"artifact CLI: --export_artifact {rep['input_shape']} {rep['input_dtype']}, "
+          f"{_dir_bytes(cli_dir) / 2**20:.1f} MiB on disk; --serve_artifact --latency_bench "
+          f"(fresh process, {cli_s:.1f}s in all): p50 {cli['p50_ms']:.3f} ms, p95 "
+          f"{cli['p95_ms']:.3f} ms, {cli['queries_per_sec']:.1f} q/s on uint8 pixels, "
+          f"--queries {len(answers)} JPEGs answered (top-5 each); the live "
+          f"--latency_bench p50 {live_bench['p50_ms']:.3f} ms on float32 pixels, the live "
+          f"callable's p50 {live_uint8_p50:.3f} ms on the same uint8 batch "
+          f"({nvidia_smi_line()})")
+    return {"launches": {k: r["launches"] for k, r in fresh["cases"].items()},
+            "cli": cli, "live_p50_ms": live_bench["p50_ms"], "live_uint8_p50_ms": live_uint8_p50,
+            "cases": fresh["cases"], "export": live}
+
+
+def artifact_update_entries(entries: list, art: dict) -> None:
+    """The artifact phase's fresh-process launches added to the entries of
+    the ``kernels`` line of the kernels they ran (the f32 bank's ops to the
+    ``_f32`` entries)."""
+    by_name = {e["name"]: e for e in entries}
+    for launches in art["launches"].values():
+        for op, n in launches.items():
+            key = f"{op}_f32" if op in ("nw_prepared", "nw_prepared_sel",
+                                        "nw_prepared_partials") else op
+            by_name[key]["launches"] += n
+
+
 def main() -> int:
     import torch
 
@@ -5760,6 +6047,9 @@ def main() -> int:
         t0 = time.perf_counter()
         surface = serving_surface_phase(datasets, workdir, ev["ckpt"], data["serve"])
         phase_s["serving surface"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        artifacts = artifact_phase(datasets, workdir)
+        phase_s["AOT artifacts"] = time.perf_counter() - t0
         del datasets
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -5811,6 +6101,7 @@ def main() -> int:
     bank_edit_update_entries(entries, edits, big_edits)
     data_update_entries(entries, data)
     surface_update_entries(entries, surface)
+    artifact_update_entries(entries, artifacts)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

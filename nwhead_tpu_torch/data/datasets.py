@@ -322,3 +322,13 @@ def make_synthetic_dataset(
         if pat is not None:
             chunk += pat[targets[start:start + rows]]
     return ArrayDataset(images, targets, num_classes=n_classes)
+
+
+def draw_init_sample(dataset, batch_size: int) -> None:
+    """Draw and drop the first ``min(batch_size, len(dataset))`` items, as
+    the JAX package draws its ``net.init`` sample (JAX ``serve.py:76``,
+    ``eval.py:134``, ``train/trainer.py:142``, ``:416``). The port needs no
+    init sample, but a dataset with a seeded random transform advances its
+    generators by this draw, so the draws that follow (the bank's crops, a
+    trainer's first batch) equal JAX's at the same seed."""
+    dataset.gather(np.arange(min(batch_size, len(dataset))))

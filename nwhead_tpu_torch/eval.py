@@ -43,6 +43,7 @@ import time
 import numpy as np
 import torch
 
+from nwhead_tpu_torch.data.datasets import draw_init_sample
 from nwhead_tpu_torch.data.embedding_cache import FeatureBankCache
 from nwhead_tpu_torch.data.pipeline import prefetch_to_device
 from nwhead_tpu_torch.models import load_model
@@ -154,6 +155,7 @@ def build_net(args, train_ds) -> NWNet:
         ivf_n_probe=args.ivf_n_probe, ivf_group_b=args.ivf_group_b, seed=args.seed,
         mesh=build_mesh(args, device),
     )
+    draw_init_sample(train_ds, args.batch_size)
     if args.ckpt:
         net.model.load_state_dict(load_checkpoint(args.ckpt)["model"])
         print(f"Loaded checkpoint {args.ckpt}")

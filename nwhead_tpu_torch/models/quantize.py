@@ -369,7 +369,7 @@ class QuantizedResNet(nn.Module):
     def feat_dim(self) -> int:
         return self.blocks[-1].convs[-1].wq.shape[-1]
 
-    @torch.inference_mode()
+    @torch.no_grad()  # not inference_mode: torch.export traces it
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = _max_pool(stem_conv_bf16(x, self.stem_w, self.stem_stride, self.stem_padding))
         x = F.relu(x + self.stem_b.to(_BF16))
@@ -594,7 +594,7 @@ class QuantizedDenseNet(nn.Module):
     def feat_dim(self) -> int:
         return self.final_bn.scale.shape[0]
 
-    @torch.inference_mode()
+    @torch.no_grad()  # not inference_mode: torch.export traces it
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = _max_pool(F.relu(self.bn0(stem_conv_bf16(x, self.stem_w, 2, 3))))
         for i, block in enumerate(self.blocks):

@@ -96,7 +96,7 @@ class ServingViT(nn.Module):
     def feat_dim(self) -> int:
         return self.patch_w.shape[0]
 
-    @torch.inference_mode()
+    @torch.no_grad()  # not inference_mode: torch.export traces it
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, H, W, _ = x.shape
         gh, gw = H // self.patch_size, W // self.patch_size

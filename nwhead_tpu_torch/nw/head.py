@@ -8,6 +8,11 @@ the fused serving path over a prepared bank (K2, K4 or K5 by the bank's
 precision, ``from_prepared``). ``probs_and_weights`` and ``scores`` give the
 naive op's class probabilities with the per-support softmax weights, and
 the raw scores, for support influence and neighbour rankings.
+
+``PreparedHead`` and ``IVFHead`` are the serving heads over one bank as
+modules, the bank's tensors and the kernel's parameters held as buffers:
+the heads of an exported serving program (``NWNet.serving_module``,
+``utils/aot.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from nwhead_tpu_torch.ops import nw as nw_ops
 from nwhead_tpu_torch.ops.fused_nw import (
     PreparedSupport, nw_fused_from_prepared, nw_fused_log_probs,
 )
+from nwhead_tpu_torch.ops.ivf import IVFPrepared, nw_fused_ivf_log_probs
 from nwhead_tpu_torch.ops.kernels import KERNEL_NAMES
 
 
@@ -104,3 +110,51 @@ class NWHead(nn.Module):
             qfeat, sfeat, kernel=self.kernel_type, kernel_params=self.kernel_params(),
             support_mask=support_mask,
         )
+
+
+class PreparedHead(nn.Module):
+    """The fused serving head over one prepared bank (K2, K4 or K5 by its
+    precision) as a module: the bank's ``s``, ``s2``, ``labels`` and
+    ``sscale`` and the kernel's parameters (clip's ``logit_scale``) copied
+    into buffers. A snapshot: later edits of the bank do not reach it."""
+
+    def __init__(self, prepared: PreparedSupport, n_classes: int, kernel: str,
+                 kernel_params: Optional[dict] = None) -> None:
+        super().__init__()
+        self.n_classes, self.kernel, self.block_s = n_classes, kernel, prepared.block_s
+        for name in ("s", "s2", "labels", "sscale"):
+            self.register_buffer(f"bank_{name}", getattr(prepared, name))
+        self.param_names = sorted(kernel_params or {})
+        for name in self.param_names:
+            self.register_buffer(name, torch.as_tensor(kernel_params[name]).detach().clone())
+
+    def bank(self) -> PreparedSupport:
+        return PreparedSupport(self.bank_s, self.bank_s2, self.bank_labels, self.bank_sscale,
+                               self.block_s)
+
+    def kernel_params(self) -> dict:
+        return {name: getattr(self, name) for name in self.param_names}
+
+    def forward(self, qfeat: torch.Tensor) -> torch.Tensor:
+        return nw_fused_from_prepared(qfeat, self.bank(), self.n_classes, kernel=self.kernel,
+                                      kernel_params=self.kernel_params())
+
+
+class IVFHead(PreparedHead):
+    """The IVF-pruned serving head (K6 over the routed tiles) as a module:
+    ``PreparedHead``'s buffers over the IVF bank's tiled bank, its routing
+    index (``cents``, ``c2``, ``cvalid``) as buffers, and ``n_probe`` and
+    ``group_b`` fixed; every shape is static (``ops/ivf.py``)."""
+
+    def __init__(self, ivf: IVFPrepared, n_classes: int, kernel: str,
+                 kernel_params: Optional[dict], n_probe: int, group_b: Optional[int]) -> None:
+        super().__init__(ivf.prep, n_classes, kernel, kernel_params)
+        for name in ("cents", "c2", "cvalid"):
+            self.register_buffer(name, getattr(ivf, name))
+        self.n_probe, self.group_b = min(n_probe, ivf.cents.shape[0]), group_b
+
+    def forward(self, qfeat: torch.Tensor) -> torch.Tensor:
+        ivf = IVFPrepared(self.bank(), self.cents, self.c2, self.cvalid)
+        return nw_fused_ivf_log_probs(qfeat, ivf, self.n_classes, kernel=self.kernel,
+                                      kernel_params=self.kernel_params(), n_probe=self.n_probe,
+                                      group_b=self.group_b)

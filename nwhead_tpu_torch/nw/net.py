@@ -41,6 +41,11 @@ rows are dead, then prepares the bank again; ``restore_bank`` installs a
 featurized bank. Serving callables read the bank at call time, so they
 serve the edited bank.
 
+``serving_module`` and ``mesh_serving_module`` build a serving callable's
+pipeline as one ``ServingModule`` over a snapshot of the bank, for
+``utils/aot.py``'s ``torch.export`` artifacts (a single-device callable
+carries the hook, ``export_module``).
+
 Numerics: on a CUDA device ``NWNet`` turns TF32 off for the process
 (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``), for the backward convolutions
@@ -123,6 +128,32 @@ class NWModel(nn.Module):
 
     def predict_from_prepared(self, qfeat: torch.Tensor, prepared: PreparedSupport) -> torch.Tensor:
         return self.head.from_prepared(qfeat, prepared)
+
+
+class ServingModule(nn.Module):
+    """A serving callable's pipeline as one module, for ``torch.export``
+    (``utils/aot.py``): [``(x / 255 - mean) / std`` ->] the eval featurizer
+    [-> ``proj``] -> ``head`` (``PreparedHead``, ``IVFHead`` or, over a
+    mesh, ``parallel.ShardedHead``). The normalization's statistics are
+    buffers; the featurizer, the projection and the head are submodules,
+    so their weights and the bank are stored tensors of an exported
+    program, not constants of its graph (JAX ``aot.py:16-24``). Takes its
+    input on the featurizer's device."""
+
+    def __init__(self, featurizer: nn.Module, proj: Optional[nn.Module], head: nn.Module,
+                 normalize=None, device=None) -> None:
+        super().__init__()
+        self.featurizer, self.proj, self.head = featurizer, proj, head
+        stats = (None, None) if normalize is None else (
+            torch.as_tensor(v, dtype=torch.float32, device=device) for v in normalize)
+        for name, t in zip(("mean", "std"), stats):
+            self.register_buffer(name, t)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.mean is not None:
+            x = (x.to(torch.float32) * (1.0 / 255.0) - self.mean) / self.std
+        f = self.featurizer(x)
+        return self.head(f if self.proj is None else self.proj(f))
 
 
 class NWNet:
@@ -364,16 +395,20 @@ class NWNet:
                 "loading new weights")
         self._source = (tensors, self._versions(tensors))
 
-    def _featurize_eval(self, x: torch.Tensor) -> torch.Tensor:
-        """Features of the eval and serving paths: the fused or quantized
-        serving featurizer when there is one (then ``proj``), after the
-        check that the weights it was built from are still the model's;
-        else the model's."""
-        if self.serving_featurizer is None:
-            return self.model.featurize(x)
+    def _eval_featurizer(self):
+        """``(featurizer, proj)`` of the eval and serving paths: the fused or
+        quantized serving featurizer when there is one, after the check that
+        the weights it was built from are still the model's; else the
+        model's."""
         self._check_serving_source()
-        f = self.serving_featurizer(x)
-        return f if self.model.proj is None else self.model.proj(f)
+        featurizer = self.serving_featurizer
+        return featurizer if featurizer is not None else self.model.featurizer, self.model.proj
+
+    def _featurize_eval(self, x: torch.Tensor) -> torch.Tensor:
+        """Features of the eval and serving paths (``_eval_featurizer``)."""
+        featurizer, proj = self._eval_featurizer()
+        f = featurizer(x)
+        return f if proj is None else proj(f)
 
     # -- precompute ------------------------------------------------------------
 
@@ -719,10 +754,13 @@ class NWNet:
         on ``self.device``. ``normalize=(mean, std)`` applies ``(x/255 -
         mean)/std`` first (for uint8 pixels). The bank is read at call time,
         so a later ``precompute`` or bank edit reaches existing serving
-        callables."""
+        callables. Without a mesh the callable carries ``export_module``,
+        which builds this pipeline as a ``ServingModule`` over the bank of
+        the moment (``serving_module``), for ``utils/aot.py``."""
         if mode not in ("full", "ivf"):
             raise ValueError(f"make_serving_fn serves modes 'full' and 'ivf', got {mode!r}")
         self._check_serving_source()
+        n_probe, group_b = self.ivf_n_probe, self.ivf_group_b
         if self.mesh is not None:
             if self._sharded_predict is None:
                 raise ValueError("make_serving_fn under a mesh needs the sharded bank: run "
@@ -747,7 +785,6 @@ class NWNet:
                     "ivf_n_probe='auto' is unresolved: call calibrate_ivf(x=...) on "
                     "representative traffic before make_serving_fn(mode='ivf') (the serving "
                     "callable fixes the knobs)")
-            n_probe, group_b = self.ivf_n_probe, self.ivf_group_b
 
             def head(qfeat):
                 return self._ivf_head(qfeat, self._ivf_bank(), n_probe, group_b)
@@ -771,7 +808,55 @@ class NWNet:
                 x = (x.to(torch.float32) * (1.0 / 255.0) - mean) / std
             return head(self._featurize_eval(x))
 
+        if self.mesh is None:
+            # The AOT-export hook (utils/aot.py, JAX's ``fn._export_parts``):
+            # this pipeline as a module over the bank of the moment.
+            serve.export_module = lambda: self.serving_module(normalize, mode, n_probe,
+                                                              group_b)
         return serve
+
+    def serving_module(self, normalize=None, mode: str = "full", n_probe=None,
+                       group_b=None) -> ServingModule:
+        """``make_serving_fn``'s pipeline as a ``ServingModule`` over a
+        snapshot of the current bank, in eval mode: the prepared bank's
+        ``PreparedHead`` (``mode="full"``) or the IVF bank's ``IVFHead``
+        (``"ivf"``, ``n_probe`` / ``group_b`` default the net's knobs; an
+        unresolved ``"auto"`` raises). Single-device nets only; a mesh's
+        is ``mesh_serving_module``."""
+        from nwhead_tpu_torch.nw.head import IVFHead, PreparedHead
+
+        if self.mesh is not None:
+            raise ValueError("serving_module is single-device; under a mesh use "
+                             "mesh_serving_module")
+        featurizer, proj = self._eval_featurizer()
+        params = self.model.head.kernel_params()
+        if mode == "ivf":
+            n_probe = self.ivf_n_probe if n_probe is None else n_probe
+            group_b = self.ivf_group_b if group_b is None else group_b
+            if n_probe == "auto":
+                raise ValueError("ivf_n_probe='auto' is unresolved: call calibrate_ivf(x=...) "
+                                 "before exporting mode='ivf'")
+            head = IVFHead(self._ivf_bank(), self.n_classes, self.kernel_type, params, n_probe,
+                           group_b)
+        elif mode == "full":
+            head = PreparedHead(self._live_prepared(), self.n_classes, self.kernel_type, params)
+        else:
+            raise ValueError(f"serving_module serves modes 'full' and 'ivf', got {mode!r}")
+        return ServingModule(featurizer, proj, head, normalize, self.device).eval()
+
+    def mesh_serving_module(self, normalize=None) -> ServingModule:
+        """The mesh's full-mode pipeline as a ``ServingModule``: the eval
+        featurizer on the net's device, then ``parallel.ShardedHead`` over a
+        prepared snapshot of the sharded bank (a raw-mode bank's live rows
+        prepared at export, JAX ``aot.py:177-191``), in eval mode."""
+        from nwhead_tpu_torch.parallel.sharded_bank import ShardedHead
+
+        if self.mesh is None or self.sharded_bank is None:
+            raise ValueError("mesh_serving_module needs a NWNet built with mesh= and a "
+                             "precomputed sharded bank: run precompute() first")
+        featurizer, proj = self._eval_featurizer()
+        head = ShardedHead(self.sharded_bank, self.model.head.kernel_params())
+        return ServingModule(featurizer, proj, head, normalize, self.device).eval()
 
     def _live_prepared(self) -> PreparedSupport:
         """The prepared bank a full-mode serving callable reads at call time

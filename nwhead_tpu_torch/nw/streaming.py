@@ -7,7 +7,7 @@ online-softmax partials ``(m, l, acc)``, so device memory holds one chunk,
 never the bank or a ``(B, S)`` score matrix. On the card each chunk runs
 K1 ``partials=True`` (``parallel.nw_partials``). The chunks are copied
 plainly, as the JAX package copies them; pinned staging is ROADMAP.md
-queue 1, item 13.
+queue 1, item 13b.
 
 Banks that fit the device go through the prepared head
 (``ops/fused_nw.py``); banks split over several devices through

@@ -206,6 +206,14 @@ def _qkv_shape(name: str, qkv: torch.Tensor, num_heads: int):
     return qkv.shape[0], qkv.shape[1], hd
 
 
+def library():
+    """``ops/library.py``, the custom ops (imported at first use: it imports
+    this module)."""
+    from nwhead_tpu_torch.ops import library as L
+
+    return L
+
+
 def _launch(lib, fn: str, *args) -> None:
     rc = getattr(lib, fn)(*args)
     if rc != 0:
@@ -341,9 +349,7 @@ class _AttentionQKV(torch.autograd.Function):
     def forward(ctx, qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
         ctx.save_for_backward(qkv)
         ctx.num_heads, ctx.scale = num_heads, scale
-        if qkv.device.type == "cpu":
-            return _attention_qkv_plain(qkv, num_heads, scale)
-        return attention_qkv_cuda(qkv, num_heads, scale)
+        return library().attention_qkv(qkv, num_heads, scale)
 
     @staticmethod
     def backward(ctx, dout: torch.Tensor):
@@ -609,9 +615,7 @@ def fused_attention_block_bf16(
             float(scale) if scale is not None else 1.0 / math.sqrt(D // num_heads),
             _vec(ln_scale, f32), _vec(ln_bias, f32), float(ln_eps), _vec(layerscale, _BF16),
             bool(residual))
-    if x.device.type == "cpu":
-        return _attention_block_bf16_plain(*args)
-    return attention_block_bf16_cuda(*args)
+    return library().attention_block_bf16(*args)
 
 
 def fused_attention_qkv_int8(
@@ -636,6 +640,4 @@ def fused_attention_qkv_int8(
             float(scale) if scale is not None else 1.0 / math.sqrt(D // num_heads),
             _vec(ln_scale, f32), _vec(ln_bias, f32), float(ln_eps), _vec(layerscale, _BF16),
             bool(residual))
-    if x.device.type == "cpu":
-        return _attention_block_int8_plain(*args)
-    return attention_block_int8_cuda(*args)
+    return library().attention_block_int8(*args)

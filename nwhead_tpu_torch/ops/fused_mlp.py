@@ -40,7 +40,8 @@ import torch
 
 from nwhead_tpu_torch.ops import _cuda
 from nwhead_tpu_torch.ops.fused_attn import (
-    _check_cuda, _layer_norm_f32, _layer_norm_int8, _ptr, _vec, int8_dense_f32, quantize_act,
+    _check_cuda, _layer_norm_f32, _layer_norm_int8, _ptr, _vec, int8_dense_f32, library,
+    quantize_act,
 )
 
 _BF16 = torch.bfloat16
@@ -310,7 +311,7 @@ class _MLP(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2):
         ctx.save_for_backward(x, w1, b1, w2, b2)
-        return (_mlp_plain if x.device.type == "cpu" else mlp_cuda)(x, w1, b1, w2, b2)
+        return library().mlp(x, w1, b1, w2, b2)
 
     @staticmethod
     def backward(ctx, dout):
@@ -350,7 +351,7 @@ def fused_mlp_block_bf16(
     args = (_flat(x, _BF16), w1.to(_BF16).contiguous(), _vec(b1, f32), w2.to(_BF16).contiguous(),
             _vec(b2, f32), _vec(ln_scale, f32), _vec(ln_bias, f32), float(ln_eps),
             _vec(layerscale, _BF16), bool(residual))
-    out = (_mlp_block_bf16_plain if x.device.type == "cpu" else mlp_block_bf16_cuda)(*args)
+    out = library().mlp_block_bf16(*args)
     return out.reshape(*x.shape[:-1], w2.shape[-1])
 
 
@@ -372,5 +373,5 @@ def fused_mlp_int8(
             float(act_scale1), wq2.to(torch.int8).contiguous(), _vec(w2_scale, f32), _vec(b2, f32),
             float(act_scale2), _vec(ln_scale, f32), _vec(ln_bias, f32), float(ln_eps),
             _vec(layerscale, _BF16), bool(residual))
-    out = (_mlp_block_int8_plain if x.device.type == "cpu" else mlp_block_int8_cuda)(*args)
+    out = library().mlp_block_int8(*args)
     return out.reshape(*x.shape[:-1], wq2.shape[-1])

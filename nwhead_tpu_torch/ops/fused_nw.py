@@ -1405,28 +1405,35 @@ def nw_fused_from_prepared(
     l (B, 1), acc (B, C))`` unfinalized, for a merge across support shards
     (``parallel/sharded_bank.py``): ``m`` the largest score, ``l`` and
     ``acc`` relative to it; a query that meets no valid row gets
-    ``(_NEG_INF, 0, 0)``."""
+    ``(_NEG_INF, 0, 0)``.
+
+    Every kernel but K6 ``partials`` runs through its custom op
+    (``ops/library.py``): the plain version on the CPU, the kernel on a
+    card, and a shape for ``torch.export``."""
+    from nwhead_tpu_torch.ops import library as L
+
     q, scale, mode, qscale = _prepared_query(qfeat, prepared, kernel, kernel_params)
+    p = prepared
     if tile_sel is not None:
-        if q.device.type == "cpu":
-            return _nw_prepared_sel_plain(q, prepared, scale, mode, n_classes, qscale, tile_sel,
-                                          partials)
-        if partials:
+        if partials:  # the host-routed sharded predict's, not a serving op
+            if q.device.type == "cpu":
+                return _nw_prepared_sel_plain(q, p, scale, mode, n_classes, qscale, tile_sel,
+                                              True)
             wrapper = (nw_prepared_sel_partials_cuda if qscale is None
                        else nw_prepared_sel_partials_quant_cuda)
-        else:
-            wrapper = nw_prepared_sel_cuda if qscale is None else nw_prepared_sel_quant_cuda
-        return wrapper(q, prepared, scale, mode, n_classes, qscale, tile_sel)
-    if q.device.type == "cpu":
-        return _nw_prepared_plain(q, prepared, scale, mode, n_classes, qscale, partials)
+            return wrapper(q, p, scale, mode, n_classes, qscale, tile_sel)
+        if p.block_s is None:
+            raise ValueError("tile_sel needs a bank prepared with block_s")
+        op = L.nw_prepared_sel if qscale is None else L.nw_prepared_sel_quant
+        return op(q, p.s, p.s2, p.labels, p.sscale, scale, qscale, tile_sel, p.block_s, mode,
+                  n_classes)
     if partials:
-        wrapper = {torch.int8: nw_prepared_partials_int8_cuda,
-                   torch.uint8: nw_prepared_partials_int4_cuda}.get(prepared.s.dtype,
-                                                                    nw_prepared_partials_cuda)
+        op = {torch.int8: L.nw_prepared_partials_int8,
+              torch.uint8: L.nw_prepared_partials_int4}.get(p.s.dtype, L.nw_prepared_partials)
     else:
-        wrapper = {torch.int8: nw_prepared_int8_cuda,
-                   torch.uint8: nw_prepared_int4_cuda}.get(prepared.s.dtype, nw_prepared_cuda)
-    return wrapper(q, prepared, scale, mode, n_classes, qscale)
+        op = {torch.int8: L.nw_prepared_int8,
+              torch.uint8: L.nw_prepared_int4}.get(p.s.dtype, L.nw_prepared)
+    return op(q, p.s, p.s2, p.labels, p.sscale, scale, qscale, mode, n_classes)
 
 
 @torch.no_grad()

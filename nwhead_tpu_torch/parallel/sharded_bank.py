@@ -36,7 +36,8 @@ shard-concatenated arrays (input order for raw shards; a prepared or IVF
 shard's class sort and tile padding), and a removal masks those positions
 in every copy of their shard (raw: the mask; prepared and IVF:
 ``mask_prepared_rows``), shapes unchanged, the routing index as it was.
-The mesh's AOT export waits for ROADMAP.md queue 1, item 13.
+``ShardedHead`` is the full-mode head over a prepared snapshot of the bank
+as a module, the mesh serving artifact's head (``utils/aot.py``).
 """
 
 from __future__ import annotations
@@ -111,6 +112,80 @@ def merge_partials(parts: Sequence[Partials]) -> torch.Tensor:
         l_g = l * w if l_g is None else l_g + l * w
         acc_g = acc * w if acc_g is None else acc_g + acc * w
     return torch.log(acc_g / torch.clamp(l_g, min=1e-30) + LOG_FLOOR)
+
+
+def _shard_partials(q: torch.Tensor, shard: "Shard", n_classes: int, kernel: str,
+                    kernel_params, ivf_n_probe: Optional[int]) -> Partials:
+    """One shard's partials for ``q`` on its device: K6 ``partials`` over
+    its routed tiles, K2/K4/K5 ``partials`` over its prepared bank, or K1
+    ``partials`` (``nw_partials``) over its raw rows."""
+    if shard.ivf is not None and ivf_n_probe is not None:
+        return nw_fused_ivf_log_probs(q, shard.ivf, n_classes, kernel=kernel,
+                                      kernel_params=kernel_params, n_probe=ivf_n_probe,
+                                      partials=True)
+    bank = shard.bank
+    if bank is not None:
+        return nw_fused_from_prepared(q, bank, n_classes, kernel=kernel,
+                                      kernel_params=kernel_params, partials=True)
+    return nw_partials(q, shard.feat, shard.labels, shard.mask, n_classes, kernel=kernel,
+                       kernel_params=kernel_params)
+
+
+def sharded_predict(mesh: Mesh, shards, qfeat: torch.Tensor, n_classes: int, kernel: str,
+                    kernel_params=None, ivf_n_probe: Optional[int] = None) -> torch.Tensor:
+    """``qfeat (B, D) -> (B, C)`` log-probs on ``qfeat``'s device over
+    ``shards`` (``ShardedSupportBank.shards``' layout): the batch split over
+    the mesh's data rows, each row running every shard on that shard's
+    device, its partials merged on the row's first device. The live
+    predict (``ShardedSupportBank.predict_fn``) and the exported mesh
+    program (``ShardedHead``) both run this."""
+    devices = mesh.devices[:, :, 0]
+    outs = []
+    for d, q in enumerate(_data_rows(mesh, qfeat)):
+        home = devices[d, 0]
+        parts = []
+        for k, copies in enumerate(shards):
+            dev = devices[d, k]
+            part = _shard_partials(q.to(dev), copies[dev], n_classes, kernel, kernel_params,
+                                   ivf_n_probe)
+            parts.append(tuple(t.to(home) for t in part))
+        outs.append(merge_partials(parts).to(qfeat.device))
+    return torch.cat(outs)
+
+
+class ShardedHead(torch.nn.Module):
+    """The full-mode head over a prepared sharded bank as a module, for
+    ``utils/aot.py``'s mesh program: every copy of every shard's bank
+    tensors a buffer on its device (``shard{k}_{j}_{s,s2,labels,sscale}``,
+    ``j`` the copy), the kernel's parameters buffers, the mesh a plain
+    attribute; ``forward`` is ``sharded_predict`` over them (K2/K4/K5
+    ``partials`` a shard). A snapshot: later edits of the bank do not reach
+    it."""
+
+    def __init__(self, bank: "ShardedSupportBank", kernel_params=None) -> None:
+        super().__init__()
+        bank = bank.prepared_snapshot()
+        self.mesh, self.n_classes, self.kernel = bank.mesh, bank.n_classes, bank.kernel
+        self.layout = []  # per shard: [(device, block_s)] of its copies
+        for k, copies in enumerate(bank.shards):
+            row = []
+            for j, (dev, shard) in enumerate(copies.items()):
+                prep = shard.bank
+                for name in ("s", "s2", "labels", "sscale"):
+                    self.register_buffer(f"shard{k}_{j}_{name}", getattr(prep, name))
+                row.append((dev, prep.block_s))
+            self.layout.append(row)
+        self.param_names = sorted(kernel_params or {})
+        for name in self.param_names:
+            self.register_buffer(name, torch.as_tensor(kernel_params[name]).detach().clone())
+
+    def forward(self, qfeat: torch.Tensor) -> torch.Tensor:
+        shards = [{dev: Shard(prepared=PreparedSupport(
+            *(getattr(self, f"shard{k}_{j}_{n}") for n in ("s", "s2", "labels", "sscale")),
+            block_s=block_s)) for j, (dev, block_s) in enumerate(row)}
+            for k, row in enumerate(self.layout)]
+        params = {name: getattr(self, name) for name in self.param_names}
+        return sharded_predict(self.mesh, shards, qfeat, self.n_classes, self.kernel, params)
 
 
 # One support shard's raw rows on one device: (features, labels, mask).
@@ -491,18 +566,20 @@ class ShardedSupportBank:
         return replace(self, shards=shards, rowmap=self.rowmap[keep],
                        dead=self.dead + int(live_idx.size))
 
-    def _shard_partials(self, q: torch.Tensor, shard: Shard, kernel_params,
-                        ivf_n_probe: Optional[int]) -> Partials:
-        if shard.ivf is not None and ivf_n_probe is not None:
-            return nw_fused_ivf_log_probs(q, shard.ivf, self.n_classes, kernel=self.kernel,
-                                          kernel_params=kernel_params, n_probe=ivf_n_probe,
-                                          partials=True)
-        bank = shard.bank
-        if bank is not None:
-            return nw_fused_from_prepared(q, bank, self.n_classes, kernel=self.kernel,
-                                          kernel_params=kernel_params, partials=True)
-        return nw_partials(q, shard.feat, shard.labels, shard.mask, self.n_classes,
-                           kernel=self.kernel, kernel_params=kernel_params)
+    def prepared_snapshot(self) -> "ShardedSupportBank":
+        """This bank when its shards are prepared; for a raw-mode bank, a
+        prepared bank built from its live rows (the masked ones dropped, in
+        shard order) at its precision, as JAX's mesh export builds one
+        (``aot.py:177-191``)."""
+        if self.prepared:
+            return self
+        copies = [next(iter(c.values())) for c in self.shards]
+        keep = [s.mask > 0 for s in copies]
+        feats = torch.cat([s.feat[k].cpu() for s, k in zip(copies, keep)])
+        labels = torch.cat([s.labels[k].cpu() for s, k in zip(copies, keep)])
+        return ShardedSupportBank.build(feats, labels, self.mesh, self.n_classes,
+                                        kernel=self.kernel, precision=self.precision,
+                                        use_prepared=True)
 
     def predict_fn(self, kernel_params: Optional[Dict[str, Any]] = None,
                    ivf_n_probe: Optional[int] = None):
@@ -519,21 +596,11 @@ class ShardedSupportBank:
             if not self.ivf:
                 raise ValueError("ivf_n_probe needs a routing index — build the sharded "
                                  "bank with ivf=True")
-        devices = self.mesh.devices[:, :, 0]
 
         @torch.inference_mode()
         def predict(qfeat: torch.Tensor) -> torch.Tensor:
-            outs = []
-            for d, q in enumerate(_data_rows(self.mesh, qfeat)):
-                home = devices[d, 0]
-                parts = []
-                for k, copies in enumerate(self.shards):
-                    dev = devices[d, k]
-                    part = self._shard_partials(q.to(dev), copies[dev], kernel_params,
-                                                ivf_n_probe)
-                    parts.append(tuple(t.to(home) for t in part))
-                outs.append(merge_partials(parts).to(qfeat.device))
-            return torch.cat(outs)
+            return sharded_predict(self.mesh, self.shards, qfeat, self.n_classes, self.kernel,
+                                   kernel_params, ivf_n_probe)
 
         return predict
 

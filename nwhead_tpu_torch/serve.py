@@ -29,8 +29,12 @@ The actions (any of them in one run, or ``--http`` alone):
 * ``--http PORT``: the JSON-over-HTTP daemon (``utils.httpd``): predict,
   add and remove support rows live, health and stats.
 
-``--export_artifact`` and ``--serve_artifact`` are ROADMAP.md item 13 and
-raise. Run as::
+``--export_artifact DIR`` exports the serving callable as an AOT artifact
+(``utils/aot.py``: a ``torch.export`` program with its weights and bank,
+uint8 pixels in with the imagenet normalization folded in, CIFAR's floats;
+under ``--mesh`` the mesh program) and exits; ``--serve_artifact DIR``
+loads one with no model build and no dataset and answers
+``--latency_bench`` and ``--queries``. Run as::
 
     python -m nwhead_tpu_torch.serve --dataset synthetic_cub --arch resnet18 \
         --batch_size 64 --latency_bench
@@ -59,6 +63,10 @@ raise. Run as::
         --featurizer_precision int8 --head_precision int8 --batch_size 64 --latency_bench
     python -m nwhead_tpu_torch.serve --dataset cifar100 --data_dir data \
         --arch CIFAR_ResNet18 --bank_cache bank_dir --batch_size 64 --latency_bench
+    python -m nwhead_tpu_torch.serve --dataset synthetic_cub --arch resnet18 \
+        --batch_size 64 --export_artifact art_dir
+    python -m nwhead_tpu_torch.serve --dataset synthetic_cub --serve_artifact art_dir \
+        --latency_bench
 
 ``--featurizer_precision bf16_fused`` serves a ViT through the bf16
 fused-serving graph (K10/K11 per block); ``--featurizer_precision int8``
@@ -100,7 +108,7 @@ import numpy as np
 import torch
 
 from nwhead_tpu_torch.data import transforms as T
-from nwhead_tpu_torch.data.datasets import ImageFileDataset
+from nwhead_tpu_torch.data.datasets import ImageFileDataset, draw_init_sample
 from nwhead_tpu_torch.data.embedding_cache import FeatureBankCache
 from nwhead_tpu_torch.models import VIT_NAMES, load_model
 from nwhead_tpu_torch.nw.net import NWNet
@@ -246,6 +254,7 @@ def build_server(args, train_ds, edit=None, val_ds=None) -> NWNet:
         head_precision=args.head_precision, fused_min_support=1, seed=args.seed,
         ivf_n_probe=args.ivf_probe, ivf_group_b=args.ivf_group, mesh=mesh,
     )
+    draw_init_sample(train_ds, args.batch_size)
     if args.ckpt:
         net.model.load_state_dict(load_checkpoint(args.ckpt)["model"])
         print(f"Loaded checkpoint {args.ckpt}")
@@ -584,6 +593,123 @@ def _build_explainer(net: NWNet, train_ds):
     return run
 
 
+def export_artifact(net: NWNet, train_ds, val_ds, args) -> dict:
+    """``--export_artifact DIR`` (JAX ``serve.py:491-537``): the serving
+    callable exported to DIR (``utils/aot.py``) at ``--batch_size``, uint8
+    pixels in with the imagenet normalization folded in, except CIFAR's
+    pre-normalized floats; under ``--mesh`` the mesh program (full mode).
+    The metadata names the arch, dataset, classes, precisions and, for
+    ``--serve_mode ivf``, the resolved ``ivf_probe``. The ``relation``
+    kernel, which has no fused route, is refused."""
+    from nwhead_tpu_torch.utils.aot import (
+        export_mesh_serving_artifact, export_serving_artifact,
+    )
+
+    if net.kernel_type not in KERNEL_NAMES:
+        raise ValueError(f"--export_artifact: the {net.kernel_type!r} kernel has no fused "
+                         f"serving route to export (the fused kernels: {', '.join(KERNEL_NAMES)})")
+    is_cifar = args.dataset in CIFAR_DATASETS
+    sample = np.asarray(val_ds.gather(np.arange(1)))
+    h, w = sample.shape[1:3]
+    spec = np.zeros((args.batch_size, h, w, 3), sample.dtype if is_cifar else np.uint8)
+    metadata = {
+        "arch": args.arch,
+        "dataset": args.dataset,
+        "n_classes": int(train_ds.num_classes),
+        "featurizer_precision": args.featurizer_precision,
+        "head_precision": args.head_precision,
+        "normalize": "none (pre-normalized floats)" if is_cifar
+        else "imagenet uint8 (folded into the program)",
+    }
+    stats = None if is_cifar else (T.IMAGENET_MEAN, T.IMAGENET_STD)
+    if net.mesh is not None:
+        if args.serve_mode != "full":
+            raise ValueError("--export_artifact under --mesh exports full mode only, as the "
+                             "JAX package does")
+        meta = export_mesh_serving_artifact(net, spec, args.export_artifact, normalize=stats,
+                                            metadata=metadata)
+    else:
+        if args.serve_mode != "full":
+            # The knob calibrate_ivf resolved in build_server ('auto' never reaches here).
+            metadata.update(serve_mode=args.serve_mode, ivf_probe=net.ivf_n_probe)
+        fn = serving_fn(net, uint8_normalize=not is_cifar, mode=args.serve_mode)
+        meta = export_serving_artifact(fn, spec, args.export_artifact, metadata=metadata)
+    report = {"exported": args.export_artifact, **meta}
+    print(json.dumps(report))
+    return report
+
+
+def artifact_serve(args) -> dict:
+    """``--serve_artifact DIR`` (JAX ``serve.py:540-620``): load the artifact
+    (``utils/aot.load_any_serving_artifact``: no model code, no dataset, no
+    bank pass) and answer ``--latency_bench`` (random pixels of its input
+    shape and dtype, ``--bench_batches`` timed requests after 3 warm ones,
+    log-probs back on the host: ``batch_size``, ``p50_ms``, ``p95_ms``,
+    ``queries_per_sec``, ``backend`` the device type) and ``--queries``
+    (image files through the imagenet eval transform at the artifact's
+    height, 224 px for every image-file dataset, uint8 artifacts only; each
+    file's ``--topk``)."""
+    from nwhead_tpu_torch.utils.aot import load_any_serving_artifact
+
+    if not (args.latency_bench or args.queries):
+        raise SystemExit("--serve_artifact: pass --latency_bench and/or --queries")
+    t0 = time.perf_counter()
+    serve = load_any_serving_artifact(args.serve_artifact)
+    load_s = time.perf_counter() - t0
+    meta = serve.meta
+    B, H, W, _ = meta["input_shape"]
+    dtype = np.dtype(meta["input_dtype"])
+    out = {"artifact": args.serve_artifact, "meta": meta, "load_seconds": load_s}
+    if args.latency_bench:
+        rng = np.random.default_rng(0)
+        imgs = (rng.integers(0, 256, size=(B, H, W, 3)).astype(dtype) if dtype == np.uint8
+                else rng.standard_normal((B, H, W, 3)).astype(dtype))
+        for _ in range(3):
+            serve(imgs).cpu()
+        lat = []
+        for _ in range(max(1, args.bench_batches)):
+            t0 = time.perf_counter()
+            serve(imgs).cpu()  # readback: the request is complete
+            lat.append(time.perf_counter() - t0)
+        lat_ms = np.asarray(lat) * 1e3
+        report = {
+            "batch_size": B,
+            "p50_ms": float(np.percentile(lat_ms, 50)),
+            "p95_ms": float(np.percentile(lat_ms, 95)),
+            "queries_per_sec": B / float(np.median(lat)),
+            "backend": meta["device"],
+            "device": device_info(torch.device(meta["device"])),
+        }
+        print(json.dumps(report))
+        out["latency"] = report
+    if args.queries:
+        paths = sorted(glob.glob(args.queries))
+        if not paths:
+            raise SystemExit(f"no files match {args.queries!r}")
+        if dtype != np.uint8:
+            raise SystemExit("--queries against a float-input artifact is unsupported (export "
+                             "with a uint8 pipeline for image files)")
+        qds = ImageFileDataset(paths, np.zeros(len(paths), np.int64), meta.get("n_classes", 0),
+                               transform=T.imagenet_eval_transform(H, device_normalize=True),
+                               workers=args.workers, decoder=args.decoder)
+        results = []
+        for start in range(0, len(paths), B):
+            chunk = paths[start:start + B]
+            imgs = qds.gather(np.arange(start, start + len(chunk)))
+            pad = B - len(chunk)
+            if pad > 0:
+                imgs = np.concatenate([imgs, np.zeros((pad,) + imgs.shape[1:], imgs.dtype)])
+            lp = serve(imgs).cpu().numpy()[:len(chunk)]
+            top = np.argsort(-lp, axis=-1)[:, :args.topk]
+            for p, t, row in zip(chunk, top, lp):
+                entry = {"file": p, "topk": [{"class": int(c), "prob": round(float(np.exp(row[c])), 4)}
+                                             for c in t]}
+                results.append(entry)
+                print(json.dumps(entry))
+        out["queries"] = results
+    return out
+
+
 def _decode_image(data: bytes, transform) -> np.ndarray:
     """One encoded image (JPEG, PNG, ...) through PIL and ``transform``."""
     from io import BytesIO
@@ -727,9 +853,13 @@ def parse_args(argv=None):
                         "/healthz, /stats")
     p.add_argument("--http_host", default="127.0.0.1")
     p.add_argument("--export_artifact", default=None, metavar="DIR",
-                   help="not ported: the AOT serving artifact is ROADMAP.md item 13")
+                   help="build the server, export the serving callable (a torch.export "
+                        "program with its weights and bank) to DIR, and exit; serve it later "
+                        "with --serve_artifact DIR (no model code, dataset or bank pass "
+                        "needed at load)")
     p.add_argument("--serve_artifact", default=None, metavar="DIR",
-                   help="not ported: the AOT serving artifact is ROADMAP.md item 13")
+                   help="serve from an artifact written by --export_artifact instead of "
+                        "building the model; supports --latency_bench and --queries")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' (default) fails without a GPU")
     return p.parse_args(argv)
@@ -737,17 +867,17 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.export_artifact or args.serve_artifact:
-        raise NotImplementedError(
-            "--export_artifact / --serve_artifact: the AOT serving artifact is ROADMAP.md "
-            "item 13, not ported yet")
+    if args.serve_artifact:
+        return artifact_serve(args)
     if not (args.latency_bench or args.microbatch_bench or args.jpeg_bench or args.queries
-            or args.http is not None):
-        raise SystemExit("pass --latency_bench, --microbatch_bench, --jpeg_bench, --queries "
-                         "and/or --http")
+            or args.http is not None or args.export_artifact):
+        raise SystemExit("pass --latency_bench, --microbatch_bench, --jpeg_bench, --queries, "
+                         "--http and/or --export_artifact")
     featurizer_options(args)  # refuse before the datasets are drawn
     train_ds, val_ds = build_datasets(args)
     net = build_server(args, train_ds, val_ds=val_ds)
+    if args.export_artifact:
+        return export_artifact(net, train_ds, val_ds, args)
     if args.http is not None:
         return http_serve(net, train_ds, val_ds, args)
     out = {}

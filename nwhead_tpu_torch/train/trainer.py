@@ -11,7 +11,10 @@ Port of ``NWTrainer`` and ``FCTrainer`` from ``nwhead_tpu/train/trainer.py``:
 * NLL loss on the log-probs, each step one featurizer batch of query and
   support (``NWModel.forward``);
 * an in-memory, transform-free training set lives on the device and a step
-  ships only indices; other datasets go through pinned-buffer prefetch;
+  ships only indices; other datasets go through pinned-buffer prefetch
+  (``FCTrainer``: gathered on the calling thread, as JAX's);
+* each trainer draws and drops the JAX init sample first
+  (``draw_init_sample``), so a seeded random transform gives JAX's crops;
 * loss and accuracy stay on the device and are read once per epoch;
 * eval per mode (random, full and cluster by default; any of
   ``NWNet.predict``'s modes, ensemble, knn and hnsw included) over the validation
@@ -41,6 +44,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from nwhead_tpu_torch.data.datasets import draw_init_sample
 from nwhead_tpu_torch.data.pipeline import EpisodicBatcher, device_images, prefetch_to_device
 from nwhead_tpu_torch.nw.fc import FCNet
 from nwhead_tpu_torch.nw.net import NWNet
@@ -158,6 +162,7 @@ class NWTrainer:
         self.rng = np.random.default_rng(seed)
         self.steps_per_epoch = max(1, len(train_dataset) // batch_size)
         self.step = 0
+        draw_init_sample(train_dataset, batch_size)
         self.lr_schedule = multistep_lr(lr, milestones, gamma, self.steps_per_epoch)
         if freeze_featurizer:
             net.model.featurizer.requires_grad_(False)
@@ -297,6 +302,7 @@ class FCTrainer:
         self.rng = np.random.default_rng(seed)
         self.steps_per_epoch = max(1, len(train_dataset) // batch_size)
         self.step = 0
+        draw_init_sample(train_dataset, batch_size)
         self.lr_schedule = multistep_lr(lr, milestones, gamma, self.steps_per_epoch)
         if freeze_featurizer:
             model.featurizer.requires_grad_(False)
@@ -330,11 +336,13 @@ class FCTrainer:
         acc = torch.mean((torch.argmax(log_probs.detach(), -1) == label).to(torch.float32))
         return loss.detach(), acc
 
-    def _batches(self, num_steps: Optional[int], prefetch: int):
+    def _batches(self, num_steps: Optional[int]):
         """The epoch's minibatches on the device: a permutation from the
         trainer's generator, the remainder dropped; indices into the
         device-resident images, or images gathered (and transformed) on the
-        host and prefetched."""
+        host one batch at a time on the calling thread, as JAX's
+        ``FCTrainer`` gathers them: a seeded random transform then draws
+        each batch from the generator the init sample drew from."""
         ds, device, bs = self.train_dataset, self.device, self.batch_size
         order = self.rng.permutation(len(ds))
         n_steps = len(ds) // bs
@@ -348,16 +356,16 @@ class FCTrainer:
                 label = torch.from_numpy(np.asarray(ds.targets[idx], np.int64)).to(device)
                 yield images[idx_t], label
             return
-        yield from prefetch_to_device(
-            ((np.asarray(ds.gather(idx), np.float32), np.asarray(ds.targets[idx], np.int64))
-             for idx in batches), device, size=prefetch)
+        for idx in batches:
+            img = torch.from_numpy(np.asarray(ds.gather(idx), np.float32)).to(device)
+            yield img, torch.from_numpy(np.asarray(ds.targets[idx], np.int64)).to(device)
 
-    def train_epoch(self, num_steps: Optional[int] = None, prefetch: int = 2) -> None:
+    def train_epoch(self, num_steps: Optional[int] = None) -> None:
         t0 = time.perf_counter()
         losses: List[torch.Tensor] = []
         accs: List[torch.Tensor] = []
         sizes: List[int] = []
-        for img, label in self._batches(num_steps, prefetch):
+        for img, label in self._batches(num_steps):
             loss, acc = self.train_step(img, label)
             losses.append(loss)
             accs.append(acc)

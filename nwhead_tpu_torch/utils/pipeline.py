@@ -9,7 +9,7 @@ them), the copy on a thread of its own, and compute is launched on the
 caller's thread, where CUDA runs it asynchronously: the steady rate
 approaches the slowest stage rather than the sum of the three. The copy
 is ``torch.as_tensor(x).to(device)`` from pageable memory; pinned staging
-and copies on a side stream are ROADMAP.md item 13. Every ``sync`` is a
+and copies on a side stream are ROADMAP.md item 13b. Every ``sync`` is a
 host readback, which waits for the device.
 """
 

@@ -281,9 +281,10 @@ def test_fchead_cli_epoch_checkpoint_and_resume(tmp_path, monkeypatch):
             return super().gather(idx)
 
     jds = Recording(x.astype(np.float32), y, 10)
+    # Both trainers draw the init sample first (JAX's for net.init), then
+    # the three steps' batches.
     jtr = JFCTrainer(JFCNet(featurizer=jload("resnet10"), num_classes=10), jds, jds,
                      batch_size=4, seed=2)
-    jax_drawn.clear()  # the init's sample batch
     jtr._train_step = lambda p, b, o, img, label: (p, b, o, jnp.float32(0), jnp.float32(0))
     jtr.train_epoch(num_steps=3)
-    assert drawn == jax_drawn and len(drawn) == 3
+    assert drawn == jax_drawn and len(drawn) == 4

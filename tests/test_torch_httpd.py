@@ -113,13 +113,10 @@ def servers(tmp_path_factory):
     ptrain, pval = pserve.build_datasets(pargs)
     state = jax_to_torch_nwmodel(variables)
 
-    def same_weights_and_draws(net):
+    def same_weights(net):
         net.model.load_state_dict(state)
-        # JAX's build_server draws its init sample from the training
-        # transform (serve.py:76) before it featurizes the bank.
-        ptrain.gather(np.arange(8))
 
-    pnet = pserve.build_server(pargs, ptrain, edit=same_weights_and_draws, val_ds=pval)
+    pnet = pserve.build_server(pargs, ptrain, edit=same_weights, val_ds=pval)
     psrv = pserve.build_http_server(pnet, ptrain, pval, pargs)
     raw = np.load(root / "cifar10" / "test_images.npy")
     jsrv.start()

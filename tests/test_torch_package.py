@@ -41,6 +41,7 @@ MODULES = (
     "nwhead_tpu_torch.utils", "nwhead_tpu_torch.utils.batching",
     "nwhead_tpu_torch.utils.httpd", "nwhead_tpu_torch.utils.pipeline",
     "nwhead_tpu_torch.labs.pipeline_bench", "nwhead_tpu_torch.visualize",
+    "nwhead_tpu_torch.ops.library", "nwhead_tpu_torch.utils.aot",
 )
 
 

@@ -14,8 +14,9 @@ dataset (64 / 32 images of 32 px, 4 classes), the CPU.
   and the bank cache's tag carries the path and no seed, as JAX's.
 * ``--microbatch_bench`` and ``--jpeg_bench`` run and carry JAX's report
   keys (``device`` in place of ``backend``).
-* No action is refused; the artifact flags name ROADMAP.md item 13;
-  ``serving_fn`` lets ``make_serving_fn``'s errors through.
+* No action is refused; ``--serve_artifact`` refuses no action and a
+  directory with no artifact; ``serving_fn`` lets ``make_serving_fn``'s
+  errors through.
 """
 
 import argparse
@@ -176,12 +177,16 @@ def test_jpeg_bench_carries_jaxs_report():
     assert rep["jpeg_source"] in ("real", "synthetic")
 
 
-def test_refusals():
+def test_refusals(tmp_path):
     with pytest.raises(SystemExit, match="latency_bench.*microbatch_bench.*http"):
         pserve.main(["--dataset", "synthetic", "--arch", "resnet10", "--device", "cpu"])
-    for flag in ("--serve_artifact", "--export_artifact"):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            pserve.main(["--dataset", "synthetic", flag, "art", "--latency_bench"])
+    # --serve_artifact (ported since): an action is needed, and a directory
+    # that holds no artifact is refused before anything is served.
+    with pytest.raises(SystemExit, match="--latency_bench and/or --queries"):
+        pserve.main(["--dataset", "synthetic", "--serve_artifact", str(tmp_path)])
+    with pytest.raises(FileNotFoundError, match="meta.json"):
+        pserve.main(["--dataset", "synthetic", "--serve_artifact", str(tmp_path),
+                     "--latency_bench"])
 
 
 def test_serving_fn_lets_make_serving_fns_errors_through():
