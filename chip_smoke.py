@@ -27,9 +27,11 @@ package beside it. With one, in order:
    S=1200, D=512, C=200), at B=64, S=5994, at a ragged B=37, S=1001, at
    C=10 and with six queries copied into the support at the episode's
    shape and at B=64 (K1 and dq on 8- and 32-query tiles), clip's scale
-   gradient included; K1 and dq each called twice for the same bits;
-   times each at the episode's shape and at B=64, and prints K1's and
-   dq's device functions (pass 1, the merge; ``raw_split``);
+   gradient included, and at a data shard's share of the episode over a
+   data axis of 2 (B=4, S=1200); K1 and dq each called twice for the same
+   bits; times each at the episode's shape, the shard's and B=64, and
+   prints K1's and dq's device functions (pass 1, the merge;
+   ``raw_split``);
 5. ViT kernel phase: K7 (attention off the packed qkv) f32 and bf16 at
    ViT-S/14's B=64, N=257, H=6, hd=64, at a ragged N=197, at N=1370, at
    ViT-B/14's 12 heads and at the edges of its tiles (N of 1, 8, 16, 17,
@@ -113,7 +115,10 @@ package beside it. With one, in order:
     rows masked) through K4, and timed beside that whole prepare;
 10. ResNet serving phase: ``python -m nwhead_tpu_torch.serve --dataset
    synthetic_cub --arch resnet18 --batch_size 64 --latency_bench``, through the serve
-   module's functions, with an f32, a bf16, an int8 and an int4 head. It
+   module's functions, with an f32, a bf16, an int8 and an int4 head (the
+   first featurizes the bank and saves it with ``--bank_cache``; the other
+   heads, the IVF and the ``--mesh 1,1`` serving phases restore it and
+   prepare it at their own precision). It
    checks that the bank's kernel (K2, K4 or K5) was launched, and that the
    served log-probs equal the plain head's on the same features;
 11. IVF serving phase: the same command with ``--serve_mode ivf``, with
@@ -159,9 +164,9 @@ package beside it. With one, in order:
     calibration's and the bank's seconds and peak device memory;
 14. training phase: ``python -m nwhead_tpu_torch.train --dataset
     synthetic_cub --arch resnet18 --batch_size 8 --n_shot 6 --lr 1e-2
-    --num_epochs 1 --num_steps_per_epoch 10 --num_val_steps_per_epoch 10``
+    --num_epochs 1 --num_steps_per_epoch 5 --num_val_steps_per_epoch 10``
     through the module's functions (eval in the random, full and cluster
-    modes, one centroid a class, then 10 steps on 1,208-image batches). It
+    modes, one centroid a class, then 5 steps on 1,208-image batches). It
     checks that K1, dq and ds launched once per step and K2 in the
     full-mode eval, that every loss is finite
     and the weights moved, that the first step's head through the kernels
@@ -172,6 +177,29 @@ package beside it. With one, in order:
     and 3 steps of the
     canonical ``--n_way 10 --n_shot 1`` recipe, which is too small for the
     fused head and must launch no K1;
+14m. mesh training phase (``NWTrainer(mesh=)``): ``train --mesh 1,1`` of
+    the same configuration (3 steps, 2 eval batches) through the module's
+    functions, K1, dq and ds once a step and the full-mode eval on the
+    sharded bank's K2 ``partials``; then the trainer over a (2, 2) mesh of
+    the one card (``make_mesh(2, 2, devices=[cuda:0] * 4)``, set up by the
+    same functions) beside the meshless trainer, from the same weights:
+    3 steps each from the same state (the mesh trainer takes the meshless
+    weights, statistics, momentum and generators before each step, so
+    both draw the same episode): the losses within rtol 1e-4, the update
+    within 1% of the meshless one's in norm, the first step's gradients
+    against the f64 step's (the mesh's worst tensor within 1.5 times the
+    meshless step's own worst); then 3 free-running steps each, K1, dq and
+    ds twice a step in the mesh run (one data replica of 4 queries each,
+    against all 1,200 support rows, BatchNorm synced over the two
+    replicas), the first step's loss within rtol 1e-4 (the later steps
+    part by f32 rounding that grows at lr 1e-2: their drift is printed
+    beside a second meshless run's); the first step's per-shard head (B=4,
+    S=1,200) through K1, dq and ds against the plain versions; distributed
+    precompute (each 128-image batch in 4 pieces) against the meshless
+    features (1e-5 of max); the full-mode eval on the sharded bank's K2
+    ``partials`` (4 a batch), a batch against the meshless prepared head
+    (2e-4); it prints each run's ms a step and peak device memory beside
+    the nvidia-smi line;
 14a. eval CLI phase: two training steps of the same configuration write a
     checkpoint, then ``python -m nwhead_tpu_torch.eval --dataset
     synthetic_cub --arch resnet18 --batch_size 8 --modes random full cluster
@@ -211,7 +239,7 @@ package beside it. With one, in order:
     each mode's host seconds a batch, the HNSW build seconds and the knn
     search ms;
 15. ViT training phase: ``--arch vit_s14`` with the same episode (``--lr
-    1e-3``, 10 steps, 3 eval batches) through ``train.setup(...,
+    1e-3``, 5 steps, 3 eval batches) through ``train.setup(...,
     featurizer_kwargs={"attn_impl": "fused", "mlp_impl": "fused"})`` and
     ``train.run_epochs``, LayerScale gammas of order 1. It checks that K8,
     the K9 backward, K1, dq and ds launched 12, 12, 1, 1 and 1 times per
@@ -325,11 +353,11 @@ package beside it. With one, in order:
     a chunk, then ``--explain 3`` on 8 of them (3 neighbours a query,
     weights descending; the explainer's log-probs against the plain head);
     ``--latency_bench`` (20 requests, one client) and ``--microbatch_bench
-    --concurrency 16 --bench_batches 2`` (every request's row against a
+    --concurrency 16 --bench_batches 1`` (every request's row against a
     direct B=64 call holding that image, K2 once a dispatched batch; qps
     beside the single client's, request p50/p95, mean occupancy); the HTTP
     daemon (``build_http_server``, port 0, on a thread): ``/healthz``, one
-    ``/predict`` and a burst of 64 one-image predicts from 16 threads, 3
+    ``/predict`` and a burst of 32 one-image predicts from 16 threads, 2
     rounds of ``/add_support`` of 8 images and ``/remove_support`` of those
     rows while 4 threads keep predicting (every response a 200 with finite
     probabilities), ``/stats``, K2 once a dispatched batch; one
@@ -354,13 +382,23 @@ package beside it. With one, in order:
     ``--latency_bench`` p50 and the
     live callable's on the same uint8 batch, each artifact's size on disk
     and load seconds (measurements, not gates);
+18p. profiling phase, in the artifact loader's fresh process (late in
+    this one ``torch.profiler`` has recorded no device time): the f32
+    artifact (ResNet-18, K2) answers 10 B=64 requests inside
+    ``utils.profiling.trace``, each in an ``annotate`` span and a
+    ``StepTimer(block=True)`` phase; the trace file must hold every span
+    and K2's ``nw_prepared_tc_kernel`` events; the timer's p50 is printed
+    beside CUDA events around the same request;
 19. prints the nvidia-smi line, a JSON line of per-kernel results (the
     zoo phases' launches added to K1-K4, their times as ``d2048_*`` and
     ``d1024_*``; the int8 CNN phase's launches and errors added to K2, K4
     and K5; the bank-edit phases' to K2, K4, K5, K6 and K2 ``partials``;
     the data phase's to K1, dq, ds and K2 f32, the serving-surface
     phase's to K2 f32, the artifact phase's fresh process's to K2, K4, K6,
-    K10/K11, K10/K11 int8 and K2 ``partials``), and as the last line
+    K10/K11, K10/K11 int8 and K2 ``partials``; the mesh training
+    phase's to K1, dq, ds and K2 ``partials`` f32, the shard's times as
+    ``shard_ms``, ``shard_plain_ms`` and ``shard_bound_ms``), and as the
+    last line
     ``{"ok": true, "device": {...}}``.
 
 Kernel times are device times: CUDA events around each call, queued behind
@@ -421,6 +459,7 @@ KERNEL_CASES = (  # name, B, S, D, C
 )
 RAW_CASES = (  # name, B, S, D, C, queries copied into the support; the first
     ("episode_b8", 8, 1200, 512, 200, 0),  # is the training episode's shape
+    ("shard_b4", 4, 1200, 512, 200, 0),  # a data shard's of it over a data axis of 2, timed
     ("head_raw_b64", 64, 5994, 512, 200, 0),
     ("ragged_b37", 37, 1001, 512, 200, 0),
     ("c10_b8", 8, 1200, 512, 10, 0),
@@ -444,10 +483,10 @@ RAW_KERNELS = {
 }
 TRAIN_ARGV = [
     "--dataset", "synthetic_cub", "--arch", "resnet18", "--batch_size", "8", "--n_shot", "6",
-    "--lr", "1e-2", "--num_epochs", "1", "--num_steps_per_epoch", "10",
+    "--lr", "1e-2", "--num_epochs", "1", "--num_steps_per_epoch", "5",
     "--num_val_steps_per_epoch", "10",
 ]
-TRAIN_STEPS = 10
+TRAIN_STEPS = 5
 # H100 SXM published peaks (NVIDIA data sheet; dense, 700 W); f32 as three
 # TF32 passes (495 TFLOP/s / 3), the 3xTF32 route to f32-exact products.
 HBM_BYTES_PER_S = 3.35e12
@@ -614,17 +653,18 @@ def plain_head(net, feats):
     return F._nw_prepared_plain(q, prep, scale, mode, net.n_classes, qscale)
 
 
-def slice_phase(datasets) -> dict:
+def slice_phase(datasets, bank_cache: str) -> dict:
     """The serving CLI's path at the CUB recipe's scale with an f32, bf16,
-    int8 and int4 head. Returns the bank kernel's launch count and the
-    latency report per head."""
+    int8 and int4 head, the featurized bank saved to ``bank_cache`` by the
+    first and restored by the others (``--bank_cache``). Returns the bank
+    kernel's launch count and the latency report per head."""
     import torch
 
     from nwhead_tpu_torch import serve
 
     args = serve.parse_args([
         "--dataset", "synthetic_cub", "--arch", "resnet18", "--batch_size", "64",
-        "--latency_bench",
+        "--latency_bench", "--bank_cache", bank_cache,
     ])
     train_ds, val_ds = datasets
     out = {}
@@ -767,16 +807,19 @@ def raw_kernel_phase(flush) -> dict:
                                          dup_queries=dups)
                 for k, e in errs.items():
                     res[k][prec]["max_abs_err"] = max(res[k][prec]["max_abs_err"], e)
-                if kernel == "euclidean" and ci < 2:
+                if kernel == "euclidean" and ci < 3:
                     timed = _time_raw(flush, qn, sn, labels, scale, mode, C, g, prec)
                     print(f"time raw {case} {prec}: " + ", ".join(
                         f"{k} kernel {v['ms']:.4f} ms / plain {v['plain_ms']:.4f} ms / "
                         f"bound {v['bound_ms']:.4f} ms ({v['bound_by']})"
                         for k, v in timed.items()))
-                    if ci == 0:
-                        for k, v in timed.items():
+                    for k, v in timed.items():
+                        if ci == 0:
                             res[k][prec].update(v)
-                    raw_split(f"{case} {prec}", qn, sn, labels, scale, mode, C, g, flush)
+                        elif case == "shard_b4":
+                            res[k][prec]["shard"] = v
+                    if case != "shard_b4":
+                        raw_split(f"{case} {prec}", qn, sn, labels, scale, mode, C, g, flush)
     return res
 
 
@@ -2265,10 +2308,11 @@ class _FeatureTap:
         self.out = output
 
 
-def ivf_serving_phase(datasets) -> dict:
+def ivf_serving_phase(datasets, bank_cache: str) -> dict:
     """``python -m nwhead_tpu_torch.serve --dataset synthetic_cub --arch
-    resnet18 --serve_mode ivf --latency_bench`` through the serve module's
-    functions, once per ``IVF_CONFIGS`` entry. Counts K6's launches over the
+    resnet18 --serve_mode ivf --latency_bench --bank_cache DIR`` through the
+    serve module's functions, once per ``IVF_CONFIGS`` entry, the bank
+    restored from the slice phase's cache. Counts K6's launches over the
     run (bank, calibration and requests), checks the served log-probs
     against the plain selected head on the features the request used, and
     prints p50 / p95 / queries/s and the resolved knobs."""
@@ -2281,7 +2325,7 @@ def ivf_serving_phase(datasets) -> dict:
     train_ds, val_ds = datasets
     out = {}
     for name, flags in IVF_CONFIGS:
-        args = serve.parse_args(IVF_SERVE_ARGV + flags)
+        args = serve.parse_args(IVF_SERVE_ARGV + flags + ["--bank_cache", bank_cache])
         t0 = time.perf_counter()
         _counts(reset=True)
         net = serve.build_server(args, train_ds, val_ds=val_ds)
@@ -2695,10 +2739,11 @@ def sharded_serving_phase(flush, bank) -> dict:
     return res
 
 
-def mesh_serving_phase(datasets) -> dict:
+def mesh_serving_phase(datasets, bank_cache: str) -> dict:
     """``python -m nwhead_tpu_torch.serve --dataset synthetic_cub --arch
-    resnet18 --batch_size 64 --mesh 1,1 --latency_bench`` through the serve
-    module's functions with an f32 and an int8 head: one prepared partials
+    resnet18 --batch_size 64 --mesh 1,1 --latency_bench --bank_cache DIR``
+    through the serve module's functions with an f32 and an int8 head (the
+    bank restored from the slice phase's cache): one prepared partials
     launch (K2 or K4 ``partials=True``) per request and no finalizing head,
     the served log-probs against the plain head's partials on the shard,
     merged, on the features the request used."""
@@ -2711,7 +2756,7 @@ def mesh_serving_phase(datasets) -> dict:
     train_ds, val_ds = datasets
     out = {}
     for prec, flags in MESH_CONFIGS:
-        args = serve.parse_args(MESH_SERVE_ARGV + flags)
+        args = serve.parse_args(MESH_SERVE_ARGV + flags + ["--bank_cache", bank_cache])
         _counts(reset=True)
         net = serve.build_server(args, train_ds)
         report = serve.latency_bench(net, val_ds, args)
@@ -2943,7 +2988,7 @@ ATTN_BWD_CASES = ATTN_CASES[:2] + (  # name, B, N, H, hd; the first is timed
 FUSED = {"attn_impl": "fused", "mlp_impl": "fused"}
 VIT_TRAIN_ARGV = [
     "--dataset", "synthetic_cub", "--arch", "vit_s14", "--batch_size", "8", "--n_shot", "6",
-    "--lr", "1e-3", "--num_epochs", "1", "--num_steps_per_epoch", "10",
+    "--lr", "1e-3", "--num_epochs", "1", "--num_steps_per_epoch", "5",
     "--num_val_steps_per_epoch", "3",
 ]
 VIT_BLOCKS = 12
@@ -3108,7 +3153,7 @@ def step_attention_times(label: str, qkv, g, H: int, scale: float, flush) -> dic
 
 
 def vit_training_phase(datasets, workdir: str) -> dict:
-    """The ViT training path on the kernels: 10 steps of the ``n_shot 6``
+    """The ViT training path on the kernels: 5 steps of the ``n_shot 6``
     episode with the fused impls, launch counts, moved weights, K8 and the
     K9 backward on the first step's tensors, the step split and peak
     memory; then the fused featurizer's gradients against the plain one's
@@ -3314,7 +3359,7 @@ def vit_training_phase(datasets, workdir: str) -> dict:
 
 def vit_train_entries(kern: dict, tr: dict) -> list:
     """The ``kernels`` JSON entries of K8 and the K9 backward: launches from
-    the ViT training runs (f32: 10 steps, bf16: 3)."""
+    the ViT training runs (f32: 5 steps, bf16: 3)."""
     entries = []
     for kernel, wrapper, source in (("attention_qkv_bwd", "attention_qkv_bwd_cuda", ATTN_BWD_SOURCE),
                                     ("mlp_bwd", "mlp_bwd_cuda", MLP_BWD_SOURCE)):
@@ -5224,8 +5269,8 @@ SURFACE_ARGV = ["--dataset", "synthetic_cub", "--arch", "resnet18", "--batch_siz
                 "--decoder", "pil", "--workers", "8"]
 SURFACE_QUERIES = 70  # a chunk of 64 and a ragged one of 6
 SURFACE_EXPLAIN = 8  # files explained, 3 neighbours each
-HTTP_BURST, HTTP_THREADS = 64, 16  # one-image predicts, client threads
-HTTP_EDIT_ROUNDS, HTTP_EDIT_ROWS, HTTP_EDIT_CLIENTS = 3, 8, 4
+HTTP_BURST, HTTP_THREADS = 32, 16  # one-image predicts, client threads
+HTTP_EDIT_ROUNDS, HTTP_EDIT_ROWS, HTTP_EDIT_CLIENTS = 2, 8, 4
 JPEG_BENCH_ARGS = dict(workers=8, bench_batches=4)
 DECODE_BENCH_N = 64  # JPEGs of the pipeline_bench leg
 
@@ -5351,7 +5396,7 @@ def surface_queries(net, train_ds, args, workdir: str) -> dict:
 
 def surface_microbatch(net, val_ds, args) -> dict:
     """``--latency_bench`` (one client) and ``--microbatch_bench
-    --concurrency 16 --bench_batches 2``: each request's row against a
+    --concurrency 16 --bench_batches 1``: each request's row against a
     direct B=64 call that holds its image."""
     from unittest import mock
 
@@ -5366,7 +5411,7 @@ def surface_microbatch(net, val_ds, args) -> dict:
         single, k2_single = _k2_between(lambda: serve.latency_bench(net, val_ds, args))
     if k2_single != single["batches"] + 3:
         raise AssertionError(f"--latency_bench: {k2_single} K2 launches")
-    args.concurrency, args.bench_batches = 16, 2
+    args.concurrency, args.bench_batches = 16, 1
     sent = []
     submit = MicroBatcher.submit
 
@@ -5640,8 +5685,8 @@ ARTIFACT_VIT = (  # name, the ViT serve flags
 ARTIFACT_PROBE = 2  # --serve_mode ivf's tiles a query
 ARTIFACT_DEVICE = "cuda"  # the card (the (1, 4) mesh's four times)
 ARTIFACT_CALLS = 3  # calls of each artifact in the fresh process whose launches count
-ARTIFACT_TIMED = 20  # timed calls of each artifact in the fresh process
-ARTIFACT_BENCH = 50  # --bench_batches of the CLI's and the live latency benches
+ARTIFACT_TIMED = 10  # timed calls of each artifact in the fresh process
+ARTIFACT_BENCH = 20  # --bench_batches of the CLI's and the live latency benches
 ARTIFACT_QUERIES = 70  # JPEGs the CLI answers from the artifact: a chunk of 64, one of 6
 ARTIFACT_TOL = 1e-6  # max |log-prob| difference of an artifact and its live callable
 # Per artifact: its ops (``ops/library.py``) and their launches a request.
@@ -5655,19 +5700,24 @@ ARTIFACT_LAUNCHES = {
 }
 # The fresh process: loads every artifact with ``utils.aot`` alone, answers
 # the saved batch, counts its ops' launches, times it, and names any
-# model-building or JAX module it imported.
+# model-building or JAX module it imported. Then the profiling phase:
+# ``PROFILE_REQUESTS`` requests of the f32 artifact (ResNet-18, K2) inside
+# ``utils.profiling.trace``, each in an ``annotate`` span and a
+# ``StepTimer(block=True)`` phase; the same request by CUDA events; the
+# trace file read back for the spans and K2's kernel.
 ARTIFACT_LOADER = """
-import json, sys, time
+import glob, json, os, sys, time
 import numpy as np
 import torch
 from nwhead_tpu_torch.utils import aot
 
 cases, calls, timed = json.loads(sys.argv[1]), int(sys.argv[3]), int(sys.argv[4])
 q = np.load(sys.argv[2])
-out = {}
+logdir, n_prof = sys.argv[5], int(sys.argv[6])
+out, fns = {}, {}
 for name, art in cases.items():
     t0 = time.perf_counter()
-    fn = aot.load_any_serving_artifact(art["dir"])
+    fn = fns[name] = aot.load_any_serving_artifact(art["dir"])
     load_s = time.perf_counter() - t0
     before = aot.library.launches()
     for _ in range(calls):
@@ -5686,9 +5736,43 @@ for name, art in cases.items():
                  "finite": bool(np.isfinite(got).all()), "shape": list(got.shape),
                  "launches": {k: after[k] - before[k] for k in after if after[k] != before[k]},
                  "p50_ms": float(np.percentile(np.asarray(lat) * 1e3, 50))}
+
+from nwhead_tpu_torch.utils.profiling import StepTimer, annotate, trace
+
+fn, marker = fns["f32"], torch.empty(1, device="cuda")
+before = aot.library.launches()["nw_prepared"]
+timer = StepTimer()
+with trace(logdir):
+    for _ in range(n_prof):
+        with annotate("serving_request"), timer.phase("request", result=marker, block=True):
+            got = fn(q)
+launches = aot.library.launches()["nw_prepared"] - before
+starts = [torch.cuda.Event(enable_timing=True) for _ in range(n_prof)]
+ends = [torch.cuda.Event(enable_timing=True) for _ in range(n_prof)]
+for s, e in zip(starts, ends):
+    s.record()
+    fn(q)
+    e.record()
+torch.cuda.synchronize()
+files = glob.glob(os.path.join(logdir, "*.json"))
+with open(files[0]) as f:
+    events = json.load(f)["traceEvents"]
+spans = [e for e in events if e.get("name") == "serving_request"
+         and e.get("cat") == "user_annotation"]
+gpu_spans = [e for e in events if e.get("name") == "serving_request"
+             and e.get("cat") == "gpu_user_annotation"]
+k2 = [e for e in events if "nw_prepared_tc_kernel" in str(e.get("name"))
+      and e.get("cat") == "kernel"]
+profile = {
+    "files": len(files), "spans": len(spans), "gpu_spans": len(gpu_spans),
+    "k2_events": len(k2), "launches": launches,
+    "k2_us": float(np.median([e["dur"] for e in k2])) if k2 else None,
+    "shape": list(got.shape), "finite": bool(torch.isfinite(got).all()),
+    "summary": timer.summary()["request"],
+    "event_p50_ms": float(np.median([s.elapsed_time(e) for s, e in zip(starts, ends)]))}
 mods = [m for m in ("jax", "nwhead_tpu", "nwhead_tpu_torch.nw.net", "nwhead_tpu_torch.models",
                     "nwhead_tpu_torch.data") if m in sys.modules]
-print(json.dumps({"cases": out, "modules": mods}))
+print(json.dumps({"cases": out, "modules": mods, "profile": profile}))
 """
 
 
@@ -5758,9 +5842,11 @@ def artifact_phase(datasets, workdir: str) -> dict:
     """The AOT serving artifact on the card (see the module docstring, 18):
     six artifacts exported from live callables, loaded in one fresh
     process and held there to the live log-probs and launch counts; the
-    CLI's export and ``--serve_artifact --latency_bench``. Returns each
-    artifact's fresh-process launches and the CLI's figures."""
+    CLI's export (in process, on the phase's datasets) and
+    ``--serve_artifact --latency_bench``. Returns each artifact's
+    fresh-process launches and the CLI's figures."""
     import os
+    from unittest import mock
 
     import torch
 
@@ -5818,7 +5904,8 @@ def artifact_phase(datasets, workdir: str) -> dict:
     proc = subprocess.run(
         [sys.executable, "-c", ARTIFACT_LOADER,
          json.dumps({k: {"dir": v["dir"], "want": v["want"]} for k, v in live.items()}),
-         os.path.join(art_dir, "q.npy"), str(ARTIFACT_CALLS), str(ARTIFACT_TIMED)],
+         os.path.join(art_dir, "q.npy"), str(ARTIFACT_CALLS), str(ARTIFACT_TIMED),
+         os.path.join(workdir, "profile"), str(PROFILE_REQUESTS)],
         cwd=repo, env={**os.environ, "PYTHONPATH": repo}, capture_output=True, text=True,
         timeout=900)
     fresh_s = time.perf_counter() - t0
@@ -5841,13 +5928,15 @@ def artifact_phase(datasets, workdir: str) -> dict:
           "model-building module")
     if not ok:
         raise AssertionError("an artifact disagrees with its live callable or its launches")
+    profile = check_profile(fresh["profile"], B)
 
     # The CLI both ways: export, then serve in a fresh process: the latency
     # bench and JPEG files (PIL: no libjpeg on the card's machine).
     from nwhead_tpu_torch.utils.pipeline import photo_jpegs
 
     cli_dir = os.path.join(workdir, "cli_artifact")
-    rep = serve.main(ARTIFACT_ARGV + ["--export_artifact", cli_dir])
+    with mock.patch.object(serve, "build_datasets", lambda a: datasets):  # the same arrays
+        rep = serve.main(ARTIFACT_ARGV + ["--export_artifact", cli_dir])
     jpeg_dir = os.path.join(workdir, "artifact_jpegs")
     os.makedirs(jpeg_dir)
     jpegs, _ = photo_jpegs(ARTIFACT_QUERIES, dir=jpeg_dir)
@@ -5882,7 +5971,7 @@ def artifact_phase(datasets, workdir: str) -> dict:
           f"callable's p50 {live_uint8_p50:.3f} ms on the same uint8 batch "
           f"({nvidia_smi_line()})")
     return {"launches": {k: r["launches"] for k, r in fresh["cases"].items()},
-            "cli": cli, "live_p50_ms": live_bench["p50_ms"], "live_uint8_p50_ms": live_uint8_p50,
+            "profile": profile, "cli": cli, "live_p50_ms": live_bench["p50_ms"], "live_uint8_p50_ms": live_uint8_p50,
             "cases": fresh["cases"], "export": live}
 
 
@@ -5896,6 +5985,337 @@ def artifact_update_entries(entries: list, art: dict) -> None:
             key = f"{op}_f32" if op in ("nw_prepared", "nw_prepared_sel",
                                         "nw_prepared_partials") else op
             by_name[key]["launches"] += n
+
+
+# ---------------------------------------------------------------------------
+# Data-parallel training over a mesh (NWTrainer(mesh=), sync BatchNorm,
+# distributed precompute, the sharded full-mode eval) and the profiling
+# hooks (utils/profiling.py) in a fresh process.
+# ---------------------------------------------------------------------------
+
+MESH_SHORT = ["--num_steps_per_epoch", "3", "--num_val_steps_per_epoch", "2"]
+MESH_CLI_STEPS = 3  # train --mesh 1,1 through the CLI's functions
+MESH_SHAPE = (2, 2)  # data x support over [cuda:0] * 4: two data replicas of 4 queries
+MESH_STEPS = 3
+# The CPU tests' tolerances (tests/test_torch_mesh_train.py): a step's loss
+# from the same state; its update within 1% of the meshless step's (in norm
+# here: at ResNet-18's width single tensors' f32 gradients sit up to 4% of
+# their largest entry from the f64 step's, in the meshless step as in the
+# mesh one, so each tensor is held instead to the meshless step's own
+# distance from f64, MESH_F64_SLACK times); distributed precompute's
+# features.
+MESH_LOSS_RTOL = 1e-4
+MESH_STATE_REL = 1e-2
+MESH_F64_SLACK = 1.5
+MESH_FEAT_REL = 1e-5
+
+
+def _epoch_on_card(trainer, steps: int) -> dict:
+    """One epoch of ``steps`` steps from counts at 0: its launches, seconds
+    (host clock, the card synchronized) and peak device memory."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _counts(reset=True)
+    t0 = time.perf_counter()
+    trainer.train_epoch(num_steps=steps)
+    torch.cuda.synchronize()
+    return {"launches": _counts(), "seconds": time.perf_counter() - t0,
+            "peak_bytes": torch.cuda.max_memory_allocated(), "losses": trainer.step_losses}
+
+
+def _sync_trainer(dst, src) -> None:
+    """``dst`` takes ``src``'s weights, running statistics, momentum, step
+    and generators, so that its next step is ``src``'s on the same
+    episode."""
+    dst.net.model.load_state_dict(src.net.model.state_dict())
+    # A copy: load_state_dict keeps tensors already on the right device and
+    # dtype, so both optimizers would step one momentum buffer.
+    dst.optimizer.load_state_dict(copy.deepcopy(src.optimizer.state_dict()))
+    dst.step = src.step
+    dst.rng.bit_generator.state = src.rng.bit_generator.state
+    dst.net.support_train.set_rng_state(src.net.support_train.rng_state())
+
+
+def _f64_gradients(model, episode) -> dict:
+    """The gradient of one step's loss in f64 (the model copied, the naive
+    head) on the episode ``(qimg, qy, simg, sy)``."""
+    import torch
+
+    from nwhead_tpu_torch.ops import metrics as M
+
+    ref = copy.deepcopy(model).double().train()
+    ref.head.use_fused = False
+    qimg, qy, simg, sy = episode
+    loss = M.nll_loss(ref(qimg.double(), simg.double(), sy), qy)
+    names = [n for n, p in ref.named_parameters() if p.requires_grad]
+    grads = torch.autograd.grad(loss, [p for p in ref.parameters() if p.requires_grad])
+    out = {n: g.float() for n, g in zip(names, grads)}
+    del ref, grads, loss
+    torch.cuda.empty_cache()
+    return out
+
+
+def _stepwise(base, meshed) -> dict:
+    """``MESH_STEPS`` steps of the meshless and the mesh trainer, each from
+    the same state (the mesh trainer synced to the meshless one before each
+    step) on the same episode: the losses (rtol ``MESH_LOSS_RTOL``), each
+    step's update against the meshless one (in norm, ``MESH_STATE_REL``;
+    each tensor's share of its move and its gradient's max |d| / max are
+    printed), and the first step's gradients of both against the f64
+    step's (the mesh's worst tensor within ``MESH_F64_SLACK`` times the
+    meshless one's)."""
+    import torch
+
+    episodes = []
+    train_step = base.train_step
+
+    def recording(*batch):
+        episodes.append(tuple(t.detach().clone() for t in batch))
+        return train_step(*batch)
+
+    failed, rows = [], []
+    for i in range(MESH_STEPS):
+        _sync_trainer(meshed, base)
+        start = {k: v.clone() for k, v in base.net.model.state_dict().items()}
+        ref_model = copy.deepcopy(base.net.model) if i == 0 else None
+        base.train_step = recording
+        base.train_epoch(num_steps=1)
+        base.train_step = train_step
+        meshed.train_epoch(num_steps=1)
+        losses = (meshed.step_losses[0], base.step_losses[0])
+        if not np.isclose(*losses, rtol=MESH_LOSS_RTOL, atol=0.0):
+            failed.append(f"step {i + 1}'s loss {losses}")
+        gm = {n: p.grad for n, p in meshed.net.model.named_parameters() if p.grad is not None}
+        gb = {n: p.grad for n, p in base.net.model.named_parameters() if p.grad is not None}
+        grad_rel = {n: rel_err(gm[n], g) for n, g in gb.items()}
+        want, got = base.net.model.state_dict(), meshed.net.model.state_dict()
+        keys = [k for k, v in want.items() if v.is_floating_point()]
+        move = torch.cat([(want[k] - start[k]).flatten() for k in keys])
+        diff = torch.cat([(got[k] - want[k]).flatten() for k in keys])
+        update_rel = float(diff.norm() / move.norm())
+        if update_rel > MESH_STATE_REL:
+            failed.append(f"step {i + 1}'s update, {update_rel:.3e} of its norm")
+        if any(not torch.equal(got[k], v) for k, v in want.items() if k not in keys):
+            failed.append(f"step {i + 1}'s batch counts")
+        frac = max((float((got[k] - want[k]).abs().max())
+                    / max(float((want[k] - start[k]).abs().max()), 1e-12), k) for k in keys)
+        worst_grad = max((v, n) for n, v in grad_rel.items())
+        rows.append({"losses": losses, "update_rel": update_rel, "tensor_frac": frac[0],
+                     "grad_rel": worst_grad[0]})
+        print(f"step {i + 1} from the same state: loss {losses[0]:.6f} (mesh) / "
+              f"{losses[1]:.6f}; the update's norm differs by {update_rel:.3e}; the farthest "
+              f"tensor by {frac[0]:.3e} of its step's move ({frac[1]}); gradients, each "
+              f"tensor's max |d| / max: worst {worst_grad[0]:.3e} ({worst_grad[1]}), median "
+              f"{float(np.median(list(grad_rel.values()))):.3e}")
+        if ref_model is not None:
+            g64 = _f64_gradients(ref_model, episodes[0])
+            del ref_model
+            e_mesh = {n: rel_err(gm[n], g) for n, g in g64.items()}
+            e_base = {n: rel_err(gb[n], g) for n, g in g64.items()}
+            wm, wb = max(e_mesh.values()), max(e_base.values())
+            if wm > MESH_F64_SLACK * wb:
+                failed.append(f"step 1's gradients, {wm:.3e} from f64 against the meshless "
+                              f"step's {wb:.3e}")
+            print(f"step 1 against the f64 step, each tensor's max |d| / max: mesh worst "
+                  f"{wm:.3e}, median {float(np.median(list(e_mesh.values()))):.3e}; meshless "
+                  f"worst {wb:.3e}, median {float(np.median(list(e_base.values()))):.3e}; the "
+                  f"mesh nearer f64 on {sum(e_mesh[n] <= e_base[n] for n in g64)} of "
+                  f"{len(g64)} tensors")
+            rows[0].update(f64_mesh=wm, f64_meshless=wb)
+    return {"failed": failed, "stepwise": rows, "episode": episodes[0]}
+
+
+def mesh_training_phase(datasets, workdir: str) -> dict:
+    """The mesh's training half at the slice configuration (ResNet-18,
+    ``synthetic_cub``, B=8, 1,200 support rows): ``train --mesh 1,1``
+    through the CLI's functions, then ``NWTrainer`` over a (2, 2) mesh of
+    the one card against the meshless trainer from the same weights and
+    episodes: K1, dq and ds twice a step, losses, parameters and running
+    statistics, the first step's per-shard head (B=4, S=1,200) against the
+    plain versions, distributed precompute's features, the full-mode eval
+    through the sharded bank's partials."""
+    import torch
+    from unittest import mock
+
+    from nwhead_tpu_torch import serve, train
+    from nwhead_tpu_torch.parallel import make_mesh
+
+    argv = TRAIN_ARGV + ["--models_dir", workdir, "--log_interval", "1000"] + MESH_SHORT
+    args, trainer, start = train.setup(argv + ["--mesh", "1,1"], datasets=datasets)
+    if trainer.mesh is None or trainer.mesh.size != 1 or trainer.net.mesh is not trainer.mesh:
+        raise AssertionError("train --mesh 1,1 built no mesh trainer")
+    _counts(reset=True)
+    t0 = time.perf_counter()
+    train.run_epochs(args, trainer, start)
+    torch.cuda.synchronize()
+    cli = _counts()
+    print(f"train --mesh 1,1 (CLI): {MESH_CLI_STEPS} steps and the eval in "
+          f"{time.perf_counter() - t0:.2f}s; launches {cli}; losses "
+          f"{['%.4f' % v for v in trainer.step_losses]}")
+    if any(cli[n] != MESH_CLI_STEPS for n in RAW_WRAPPERS):
+        raise AssertionError(f"train --mesh 1,1 did not launch K1/K3 once a step: {cli}")
+    if cli["nw_prepared_partials_cuda"] == 0 or cli["nw_prepared_cuda"] != 0:
+        raise AssertionError("the --mesh 1,1 full-mode eval did not run on the sharded "
+                             "bank's partials")
+    if trainer.net.sharded_bank is None or not np.isfinite(trainer.step_losses).all():
+        raise AssertionError(f"--mesh 1,1: losses {trainer.step_losses}")
+    out = {"cli_launches": cli}
+    del trainer
+    torch.cuda.empty_cache()
+
+    _, base, _ = train.setup(argv, datasets=datasets)
+    mesh = make_mesh(*MESH_SHAPE, devices=[torch.device("cuda", 0)] * 4)
+    with mock.patch.object(serve, "build_mesh", lambda a, d: mesh):
+        _, meshed, _ = train.setup(argv + ["--mesh", ",".join(map(str, MESH_SHAPE))],
+                                   datasets=datasets)
+    if meshed.mesh is not mesh:
+        raise AssertionError("the mesh trainer is not over the (2, 2) mesh")
+    before = {k: v.clone() for k, v in base.net.model.state_dict().items()}
+    got = meshed.net.model.state_dict()
+    if any(not torch.equal(got[k], v) for k, v in before.items()):
+        raise AssertionError("the mesh and meshless trainers start from other weights")
+    n_data = MESH_SHAPE[0]
+    captured, handle = capture_head_inputs(meshed.net)
+    stepwise = _stepwise(base, meshed)
+    handle.remove()
+    failed = stepwise.pop("failed")
+    episode = stepwise.pop("episode")
+
+    # Free-running from one state: launches, time and memory; the runs part
+    # step by step by f32 rounding that grows at lr 1e-2, beside a second
+    # meshless run's drift (the card's own nondeterminism).
+    _, again, _ = train.setup(argv, datasets=datasets)
+    for t in (meshed, again):
+        _sync_trainer(t, base)
+    plain = _epoch_on_card(base, MESH_STEPS)
+    meshed_run = _epoch_on_card(meshed, MESH_STEPS)
+    again_run = _epoch_on_card(again, MESH_STEPS)
+    del again
+    print(nvidia_smi_line())
+    for name, r in (("meshless", plain), (f"mesh {MESH_SHAPE}", meshed_run)):
+        print(f"train {name}: {MESH_STEPS} steps in {r['seconds']:.2f}s "
+              f"({r['seconds'] / MESH_STEPS * 1e3:.1f} ms/step, first step included), peak "
+              f"device memory {r['peak_bytes'] / 2**30:.2f} GiB; launches "
+              f"{ {n: r['launches'][n] for n in RAW_WRAPPERS} }; losses "
+              f"{['%.6f' % v for v in r['losses']]}")
+    for n in RAW_WRAPPERS:
+        if meshed_run["launches"][n] != n_data * MESH_STEPS:
+            raise AssertionError(f"{n} launched {meshed_run['launches'][n]} times in "
+                                 f"{MESH_STEPS} mesh steps, want {n_data} a step")
+    drift = {name: [abs(a - b) / abs(b) for a, b in zip(r["losses"], plain["losses"])]
+             for name, r in (("mesh", meshed_run), ("meshless again", again_run))}
+    print("free-running loss drift from the meshless run, a step: " + "; ".join(
+        f"{k} {['%.2e' % v for v in d]}" for k, d in drift.items()))
+    if drift["mesh"][0] > MESH_LOSS_RTOL:
+        failed.append("the free-running first step's loss")
+    # A step on an episode already on the card (the host gather of the
+    # 1,208 images left out: under a mesh they come from the host, as JAX's).
+    step_ms = {}
+    for name, t in (("meshless", base), ("mesh", meshed)):
+        t.train_step(*episode)
+        lat = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.train_step(*episode)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        step_ms[name] = float(np.median(lat))
+    print(f"a step on a device-resident episode (host clock, card synchronized, median of "
+          f"3): meshless {step_ms['meshless']:.1f} ms, mesh {MESH_SHAPE} "
+          f"{step_ms['mesh']:.1f} ms")
+    if captured["q"].shape[0] != 8 // n_data:
+        raise AssertionError(f"the first head call took {tuple(captured['q'].shape)} queries")
+    errs = first_step_head(meshed.net, captured, f"mesh shard B={captured['q'].shape[0]}")
+    out.update(launches=meshed_run["launches"], errs=errs, steps=MESH_STEPS,
+               ms_per_step=meshed_run["seconds"] / MESH_STEPS * 1e3,
+               meshless_ms_per_step=plain["seconds"] / MESH_STEPS * 1e3,
+               peak_bytes=meshed_run["peak_bytes"], meshless_peak_bytes=plain["peak_bytes"],
+               drift=drift, device_step_ms=step_ms, **stepwise)
+
+    # Distributed precompute and the sharded full-mode eval, from the same weights.
+    meshed.net.model.load_state_dict(base.net.model.state_dict())
+    calls = []
+    hook = meshed.net.model.featurizer.register_forward_hook(
+        lambda m, i, o: calls.append(i[0].shape[0]))
+    t0 = time.perf_counter()
+    meshed.net.precompute()
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    hook.remove()
+    t0 = time.perf_counter()
+    base.net.precompute()
+    torch.cuda.synchronize()
+    base_s = time.perf_counter() - t0
+    feat_err = rel_err(meshed.net.full_feat, base.net.full_feat)
+    pieces = meshed.net.precompute_batch // mesh.size
+    print(f"distributed precompute: {meshed.net.full_feat.shape[0]} rows in {mesh_s:.2f}s "
+          f"({len(calls)} featurizer calls of {sorted(set(calls))} images) vs meshless "
+          f"{base_s:.2f}s; features rel err {feat_err:.2e}")
+    if set(calls) != {pieces} or feat_err > MESH_FEAT_REL:
+        raise AssertionError("distributed precompute did not split or disagrees")
+    _counts(reset=True)
+    meshed.eval_epoch("full", num_steps=2)
+    torch.cuda.synchronize()
+    ev = _counts()
+    x = meshed.val_dataset.gather(np.arange(meshed.batch_size))
+    got, want = meshed.net.predict(x, "full"), base.net.predict(x, "full")
+    eval_err = float((got - want).abs().max())
+    print(f"mesh full-mode eval: 2 batches, launches K2 partials "
+          f"{ev['nw_prepared_partials_cuda']}, K2 {ev['nw_prepared_cuda']}; a batch vs the "
+          f"meshless prepared bank max|err| {eval_err:.3e}")
+    if (ev["nw_prepared_partials_cuda"] != 2 * mesh.size or ev["nw_prepared_cuda"] != 0
+            or not within(got, want, **TOL["f32"])):
+        raise AssertionError("the mesh full-mode eval did not run on the sharded bank's "
+                             "partials or disagrees")
+    out.update(feat_err=feat_err, eval_launches=ev, eval_err=eval_err)
+    del base, meshed
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"the mesh step disagrees with the meshless one: {failed}")
+    return out
+
+
+def mesh_update_entries(entries: list, mesh: dict) -> None:
+    """The mesh phase's launches and errors added to the K1, dq, ds and K2
+    ``partials`` f32 entries of the ``kernels`` line, its per-shard head's
+    times (B=4, S=1,200) as ``shard_*``."""
+    by_name = {e["name"]: e for e in entries}
+    for k in ("nw_fwd", "nw_bwd_dq", "nw_bwd_ds"):
+        e = by_name[f"{k}_f32"]
+        e["launches"] += mesh["cli_launches"][f"{k}_cuda"] + mesh["launches"][f"{k}_cuda"]
+        e["max_abs_err"] = max(e["max_abs_err"], mesh["errs"][k])
+    e = by_name["nw_prepared_partials_f32"]
+    e["launches"] += (mesh["cli_launches"]["nw_prepared_partials_cuda"]
+                      + mesh["eval_launches"]["nw_prepared_partials_cuda"])
+    e["max_abs_err"] = max(e["max_abs_err"], mesh["eval_err"])
+
+
+PROFILE_REQUESTS = 10
+
+
+def check_profile(r: dict, batch: int) -> dict:
+    """The profiling phase's results (``utils/profiling.py`` on the card, in
+    the artifact loader's fresh process: late in this one
+    ``torch.profiler`` has recorded no device time): the trace file holds
+    the ``annotate`` span of every request and K2's kernel events; the
+    ``StepTimer(block=True)`` p50 is printed beside CUDA events on the same
+    request."""
+    s = r["summary"]
+    print(f"profiling (the artifact loader's fresh process): {r['files']} trace file, "
+          f"{r['spans']} 'serving_request' spans on the host and {r['gpu_spans']} on the "
+          f"card's timeline, {r['k2_events']} nw_prepared_tc_kernel events (median "
+          f"{r['k2_us']} us) for {r['launches']} K2 launches; StepTimer(block=True) p50 "
+          f"{s['p50_ms']:.3f} ms (mean {s['mean_ms']:.3f}, p95 {s['p95_ms']:.3f}, n "
+          f"{s['count']}) vs CUDA events {r['event_p50_ms']:.3f} ms a B={batch} request "
+          f"of the f32 artifact")
+    if (r["files"] != 1 or r["spans"] != PROFILE_REQUESTS or r["launches"] != PROFILE_REQUESTS
+            or r["k2_events"] < PROFILE_REQUESTS or not r["finite"] or r["shape"][0] != batch
+            or s["count"] != PROFILE_REQUESTS):
+        raise AssertionError(f"the profiling trace lacks the span or K2's kernel: {r}")
+    return r
 
 
 def main() -> int:
@@ -6000,15 +6420,21 @@ def main() -> int:
     args = train.Parser().parse_args(TRAIN_ARGV)
     datasets = train.build_datasets(args)
     print(f"datasets built in {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    sl = slice_phase(datasets)
-    phase_s["ResNet serving"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ivf_served = ivf_serving_phase(datasets)
-    phase_s["IVF serving"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    mesh_served = mesh_serving_phase(datasets)
-    phase_s["--mesh 1,1 serving"] = time.perf_counter() - t0
+    # The ResNet-18 serving phases featurize the bank once (the first slice
+    # configuration) and restore it from this cache.
+    bank_cache = tempfile.mkdtemp(prefix="chip_smoke_bank_")
+    try:
+        t0 = time.perf_counter()
+        sl = slice_phase(datasets, bank_cache)
+        phase_s["ResNet serving"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ivf_served = ivf_serving_phase(datasets, bank_cache)
+        phase_s["IVF serving"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mesh_served = mesh_serving_phase(datasets, bank_cache)
+        phase_s["--mesh 1,1 serving"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(bank_cache, ignore_errors=True)
     t0 = time.perf_counter()
     edits = bank_edit_phase(datasets)
     phase_s["bank edits"] = time.perf_counter() - t0
@@ -6023,6 +6449,9 @@ def main() -> int:
         t0 = time.perf_counter()
         tr = training_phase(datasets, workdir)
         phase_s["ResNet training"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mesh_tr = mesh_training_phase(datasets, workdir)
+        phase_s["mesh training"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         ev = eval_phase(datasets, workdir)
         phase_s["eval CLI"] = time.perf_counter() - t0
@@ -6102,6 +6531,12 @@ def main() -> int:
     data_update_entries(entries, data)
     surface_update_entries(entries, surface)
     artifact_update_entries(entries, artifacts)
+    mesh_update_entries(entries, mesh_tr)
+    for k in ("nw_fwd", "nw_bwd_dq", "nw_bwd_ds"):
+        for p in TOL:
+            e = next(e for e in entries if e["name"] == f"{k}_{p}")
+            e.update({f"shard_{key}": raw[k][p]["shard"][key]
+                      for key in ("ms", "plain_ms", "bound_ms")})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -52,14 +52,16 @@ def _options(name: str) -> tuple:
     fields: a ViT ``attn_impl``, ``mlp_impl``, ``dtype`` and
     ``layerscale_init``; an ImageNet ResNet ``dtype``, ``zero_init_residual``
     and ``stem``; an ImageNet DenseNet ``dtype``, ``memory_efficient`` and
-    ``drop_rate``; the CIFAR models ``dtype``."""
+    ``drop_rate``; the CIFAR models ``dtype``; every CNN ``bn_axis_name``
+    (sync BatchNorm over that axis's data-parallel replicas,
+    ``resnet.set_bn_axis_name``)."""
     if name in VIT_NAMES:
         return ("attn_impl", "mlp_impl", "dtype", "layerscale_init")
     if name.startswith("CIFAR_"):
-        return ("dtype",)
+        return ("dtype", "bn_axis_name")
     if name.startswith("densenet"):
-        return ("dtype", "memory_efficient", "drop_rate")
-    return ("dtype", "zero_init_residual", "stem")
+        return ("dtype", "memory_efficient", "drop_rate", "bn_axis_name")
+    return ("dtype", "zero_init_residual", "stem", "bn_axis_name")
 
 
 def _build(name: str, kwargs: dict, generator: Optional[torch.Generator] = None) -> nn.Module:
@@ -71,7 +73,11 @@ def _build(name: str, kwargs: dict, generator: Optional[torch.Generator] = None)
                          f"(it takes {list(_options(name))})")
     if kwargs.get("dtype") not in (None, torch.bfloat16):
         raise ValueError(f"dtype {kwargs['dtype']}: use None (f32) or torch.bfloat16")
-    return _REGISTRY[name](generator=generator, **kwargs)
+    kwargs = dict(kwargs)
+    axis_name = kwargs.pop("bn_axis_name", None)
+    model = _REGISTRY[name](generator=generator, **kwargs)
+    _resnet.set_bn_axis_name(model, axis_name)
+    return model
 
 
 def load_model(

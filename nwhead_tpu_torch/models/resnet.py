@@ -24,12 +24,25 @@ kernel in bf16 and gives bf16 (``Conv2d``); BatchNorm computes its batch
 statistics in f32 from the bf16 input as E[x^2] - E[x]^2 and normalizes in
 f32, giving bf16 (``BatchNorm2d``, flax 0.12's ``_compute_stats`` and
 ``_normalize``); the final pool runs in f32.
+
+Sync BatchNorm, flax's ``BatchNorm(axis_name=...)`` (the JAX models'
+``bn_axis_name``): when data-parallel replicas of a model run in lockstep
+threads (``parallel/data_parallel.py``, one ``ReplicaGroup``), a train-mode
+``BatchNorm2d`` whose ``axis_name`` is the group's (or every one, with the
+group's ``sync_all``) adds each replica's per-channel (count, sum x, sum
+x^2) across the replicas and normalizes every replica by the global E[x]
+and E[x^2] - E[x]^2, in f32 for either dtype. The cross-replica sums are
+``.to(device)`` and ``+``, so autograd carries the backward reduction; no
+barrier waits in a backward. The first replica updates the running
+statistics once, from the global mean and biased variance.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Sequence
+import threading
+from functools import reduce
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -89,6 +102,88 @@ class _MixedBatchNorm(torch.autograd.Function):
         return dx.to(x.dtype), sum_gx, sum_g, None, None
 
 
+class ReplicaGroup:
+    """The data-parallel replicas of one forward, one thread each, that
+    sync BatchNorm statistics over: ``n`` replicas, the ``axis_name`` their
+    BatchNorms must carry to sync (every train-mode ``BatchNorm2d`` with
+    ``sync_all``; the others keep per-replica statistics). ``all_sum`` is the
+    lockstep: each replica posts its tensors, waits for the others, and
+    gets the sums in replica order on its own device."""
+
+    def __init__(self, n: int, axis_name: Optional[str] = "data", sync_all: bool = False) -> None:
+        self.n, self.axis_name, self.sync_all = n, axis_name, sync_all
+        self._barrier = threading.Barrier(n)
+        self._slots: List = [None] * n
+
+    def syncs(self, bn: "BatchNorm2d") -> bool:
+        return self.sync_all or (bn.axis_name is not None and bn.axis_name == self.axis_name)
+
+    def all_sum(self, rank: int, tensors: Sequence[torch.Tensor],
+                device: torch.device) -> List[torch.Tensor]:
+        self._slots[rank] = tuple(tensors)
+        self._barrier.wait()
+        posted = list(self._slots)
+        self._barrier.wait()  # every replica has read the slots before the next layer writes
+        return [reduce(torch.add, (p[i].to(device) for p in posted)) for i in range(len(tensors))]
+
+    def abort(self) -> None:
+        """Release the replicas waiting in ``all_sum`` (with
+        ``threading.BrokenBarrierError``): one replica failed."""
+        self._barrier.abort()
+
+
+_replica = threading.local()
+
+
+@contextlib.contextmanager
+def replica_context(group: ReplicaGroup, rank: int):
+    """This thread runs replica ``rank`` of ``group``."""
+    _replica.ctx = (group, rank)
+    try:
+        yield
+    finally:
+        _replica.ctx = None
+
+
+def _replica_ctx():
+    return getattr(_replica, "ctx", None)
+
+
+class _LocalMoments(torch.autograd.Function):
+    """Per-channel sums of x and x^2 over (N, H, W), in f32 whatever x's
+    dtype; saves only x."""
+
+    @staticmethod
+    def forward(ctx, x):
+        x32 = x.float()
+        ctx.save_for_backward(x)
+        return x32.sum((0, 2, 3)), x32.square().sum((0, 2, 3))
+
+    @staticmethod
+    def backward(ctx, g1, g2):
+        (x,) = ctx.saved_tensors
+        return (_channel(g1) + 2.0 * x.float() * _channel(g2)).to(x.dtype)
+
+
+class _Normalize(torch.autograd.Function):
+    """``(x - mean) * mul + bias`` per channel in f32, cast to ``out_dtype``
+    (flax's ``_normalize``); saves x, mean and mul."""
+
+    @staticmethod
+    def forward(ctx, x, mean, mul, bias, out_dtype):
+        ctx.save_for_backward(x, mean, mul)
+        return ((x.float() - _channel(mean)) * _channel(mul) + _channel(bias)).to(out_dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, mean, mul = ctx.saved_tensors
+        dims = (0, 2, 3)
+        g = grad.float()
+        gm = g * _channel(mul)
+        dmul = (g * (x.float() - _channel(mean))).sum(dims)
+        return gm.to(x.dtype), -gm.sum(dims), dmul, g.sum(dims), None
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose train mode updates ``running_var`` with the
     biased batch variance, as flax's ``BatchNorm`` does (torch's own update
@@ -100,18 +195,32 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     ``dtype`` (None or ``torch.bfloat16``, set by ``set_compute_dtype``) is
     flax's compute dtype: the statistics and the affine in f32
-    (``_MixedBatchNorm`` in train mode), the result in ``dtype``."""
+    (``_MixedBatchNorm`` in train mode), the result in ``dtype``.
+
+    ``axis_name`` (None, or set by ``set_bn_axis_name``) is flax's: under a
+    ``ReplicaGroup`` of that axis, train mode syncs the statistics across
+    the replicas (``_sync_forward``); outside one it changes nothing. Under
+    a group that does not sync it, each replica normalizes by its own
+    statistics and only the first updates the running statistics."""
 
     dtype: Optional[torch.dtype] = None
+    axis_name: Optional[str] = None
     stats_frozen = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         train = self.training and self.track_running_stats
+        update = not self.stats_frozen
+        ctx = _replica_ctx() if train else None
+        if ctx is not None:
+            group, rank = ctx
+            if group.syncs(self):
+                return self._sync_forward(x, group, rank)
+            update = update and rank == 0
         if self.dtype is None:
             if not train:
                 return super().forward(x)
             out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
-            if not self.stats_frozen:
+            if update:
                 with torch.no_grad():
                     var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
                     self._update(mean, var)
@@ -121,15 +230,36 @@ class BatchNorm2d(nn.BatchNorm2d):
             y = (x.float() - _channel(self.running_mean)) * _channel(invstd * self.weight)
             return (y + _channel(self.bias)).to(self.dtype)
         out, mean, var = _MixedBatchNorm.apply(x, self.weight, self.bias, self.eps, self.dtype)
-        if not self.stats_frozen:
+        if update:
             with torch.no_grad():
                 self._update(mean, var)
         return out
 
+    def _sync_forward(self, x: torch.Tensor, group: ReplicaGroup, rank: int) -> torch.Tensor:
+        """Train mode over the replicas' joint batch: the global statistics
+        from every replica's (count, sum x, sum x^2), each replica's x
+        normalized by them, the running statistics updated once."""
+        s1, s2 = _LocalMoments.apply(x)
+        count = torch.full((1,), x.numel() // x.shape[1], dtype=torch.float32, device=x.device)
+        n, s1, s2 = group.all_sum(rank, (count, s1, s2), x.device)
+        mean = s1 / n
+        var = torch.clamp_min(s2 / n - mean.square(), 0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        out = _Normalize.apply(x, mean, mul, self.bias, self.dtype or x.dtype)
+        if rank == 0:
+            with torch.no_grad():
+                self._update(mean.detach(), var.detach())
+        return out
+
     def _update(self, mean: torch.Tensor, var: torch.Tensor) -> None:
-        self.running_mean.lerp_(mean, self.momentum)
-        self.running_var.lerp_(var, self.momentum)
-        self.num_batches_tracked.add_(1)
+        """The running statistics' step, on the model's own BatchNorm when
+        this one is a data-parallel replica on another device
+        (``parallel.data_parallel.replicate`` sets ``_master``)."""
+        bn = self.__dict__.get("_master", self)
+        dev = bn.running_mean.device
+        bn.running_mean.lerp_(mean.to(dev), bn.momentum)
+        bn.running_var.lerp_(var.to(dev), bn.momentum)
+        bn.num_batches_tracked.add_(1)
 
 
 class Conv2d(nn.Conv2d):
@@ -152,6 +282,15 @@ def set_compute_dtype(model: nn.Module, dtype: Optional[torch.dtype]) -> None:
     for m in model.modules():
         if isinstance(m, (Conv2d, BatchNorm2d)):
             m.dtype = dtype
+
+
+def set_bn_axis_name(model: nn.Module, axis_name: Optional[str]) -> None:
+    """Every ``BatchNorm2d`` of ``model`` syncs its train-mode statistics
+    over the replicas of ``axis_name`` (the JAX models' ``bn_axis_name``;
+    None: per-replica statistics)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.axis_name = axis_name
 
 
 @torch.no_grad()

@@ -446,16 +446,47 @@ class NWNet:
         """Eval features of ``n_images`` images, ``batch(lo, hi)`` giving
         each ``precompute_batch`` of them; the last batch is zero-padded to
         the same shape and its padding rows dropped, so an image gets the
-        same features from every caller."""
+        same features from every caller. With a mesh whose size divides
+        ``precompute_batch``, each batch splits evenly over all the mesh's
+        devices (distributed precompute, JAX ``net.py:838-865``), each piece
+        featurized on its device by a replica of the eval featurizer, and
+        the rows are gathered in order on the net's device."""
         bs = self.precompute_batch
+        split = self._featurize_split() if self.mesh is not None else None
         out = []
         for start in range(0, n_images, bs):
             x = torch.as_tensor(batch(start, start + bs)).to(self.device, torch.float32)
             n = x.shape[0]
             if n < bs:
                 x = torch.cat([x, x.new_zeros((bs - n, *x.shape[1:]))])
-            out.append(self._featurize_eval(x)[:n])
+            if split is None:
+                out.append(self._featurize_eval(x)[:n])
+            else:
+                out.append(torch.cat([
+                    fn(piece.to(dev)).to(self.device)
+                    for (fn, dev), piece in zip(split, x.chunk(len(split)))])[:n])
         return torch.cat(out)
+
+    def _featurize_split(self):
+        """``[(featurize, device)]`` a mesh device, or None when the mesh's
+        size does not divide ``precompute_batch`` (JAX then featurizes
+        unsplit too)."""
+        from nwhead_tpu_torch.parallel.data_parallel import replicate
+
+        devices = list(self.mesh.devices.flat)
+        if self.precompute_batch % len(devices):
+            return None
+        featurizer, proj = self._eval_featurizer()
+        replicas = {}
+
+        def on(dev):
+            if str(dev) not in replicas:
+                f = replicate(featurizer, dev)
+                p = None if proj is None else replicate(proj, dev)
+                replicas[str(dev)] = (lambda x: f(x)) if p is None else (lambda x: p(f(x)))
+            return replicas[str(dev)]
+
+        return [(on(dev), dev) for dev in devices]
 
     def _drop_serving_banks(self) -> None:
         """Forget every bank built from the current features (prepared,

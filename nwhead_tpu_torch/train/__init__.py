@@ -40,6 +40,19 @@ The library path ``setup(argv, featurizer_kwargs={"attn_impl": "fused",
 backward, as JAX's ``load_model(name, attn_impl="fused", mlp_impl="fused")``
 does.
 
+``--mesh N_DATA,N_SUPPORT[,N_MODEL]`` trains data-parallel over the first
+n CUDA devices (``serve.build_mesh``; n copies of the CPU with ``--device
+cpu``): each step the query batch splits over the data axis, BatchNorm
+syncs over it, and full-mode eval runs over the support-sharded bank
+(``NWTrainer(mesh=)``; ``--train_method nwhead`` only, as in JAX)::
+
+    python -m nwhead_tpu_torch.train --device cpu --dataset synthetic \
+        --arch resnet10 --batch_size 4 --mesh 2,2 --num_epochs 1
+
+``--use_wandb`` starts a W&B run after the set-up (``initialize_wandb``; an
+``ImportError`` naming ``--no_use_wandb`` where wandb is not installed) and
+logs the train and validation metrics every epoch, as the JAX CLI does.
+
 ``--device`` defaults to ``cuda``; with no CUDA device that is an error, and
 the CPU must be asked for (``--device cpu``).
 """
@@ -63,7 +76,9 @@ from nwhead_tpu_torch.train.checkpoint import (
     latest_checkpoint, load_checkpoint, load_sampler_state, save_checkpoint,
     save_sampler_state,
 )
-from nwhead_tpu_torch.train.config import CIFAR_DATASETS, Parser, featurizer_name
+from nwhead_tpu_torch.train.config import (
+    CIFAR_DATASETS, Parser, featurizer_name, initialize_wandb,
+)
 from nwhead_tpu_torch.train.trainer import FCTrainer, NWTrainer, multistep_lr
 
 
@@ -124,17 +139,23 @@ def _load_cifar(data_dir: str, name: str, t_train, t_test):
 def build_network(args, train_dataset, **featurizer_kwargs):
     """The backbone ``featurizer_name(--arch, --dataset)``, with random
     weights from ``--seed`` and ``--pretrained_path`` merged in, and the NW
-    network (``--train_method nwhead``) or ``FCNet`` (``fchead``, its
-    classifier drawn from ``--seed``) on ``--device``.
+    network (``--train_method nwhead``, over ``--mesh``'s mesh when it is
+    set) or ``FCNet`` (``fchead``, its classifier drawn from ``--seed``) on
+    ``--device``.
     ``featurizer_kwargs`` go to ``load_model`` (a
     ViT's ``attn_impl='fused', mlp_impl='fused'`` trains on K7/K8 and the
     K9 forward and backward; a DenseNet's ``memory_efficient=True``
     checkpoints its dense layers); ``--bf16`` adds
     ``dtype=torch.bfloat16``."""
+    from nwhead_tpu_torch.serve import build_mesh  # serve imports this module
+
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is visible "
                          "(pass --device cpu to run on the CPU)")
+    if args.mesh and args.train_method == "fchead":
+        raise NotImplementedError("--mesh supports --train_method nwhead only")
+    mesh = build_mesh(args, device)
     if args.bf16:
         featurizer_kwargs = {"dtype": torch.bfloat16, **featurizer_kwargs}
     featurizer = load_model(featurizer_name(args.arch, args.dataset), device=device,
@@ -150,14 +171,17 @@ def build_network(args, train_dataset, **featurizer_kwargs):
         feat_dim=featurizer.feat_dim, proj_dim=args.proj_dim, kernel_type=args.kernel_type,
         train_type=args.train_type, n_shot=args.n_shot, n_way=args.n_way,
         debug_mode=args.debug_mode, head_precision=args.head_precision, seed=args.seed,
+        mesh=mesh,
     )
 
 
 def setup(argv=None, datasets=None, featurizer_kwargs=None):
     """Parse the flags, build datasets (unless ``datasets=(train, val)``
     gives them), network (``featurizer_kwargs`` go to ``load_model``) and
-    trainer (``NWTrainer`` or ``FCTrainer``), and resume from the newest
-    checkpoint with ``--resume``: ``(args, trainer, start_epoch)``. An FC
+    trainer (``NWTrainer`` or ``FCTrainer``; an ``NWTrainer`` over the
+    network's mesh), resume from the newest checkpoint with
+    ``--resume``, and start W&B with ``--use_wandb``: ``(args, trainer,
+    start_epoch)``. An FC
     run resumes as the JAX CLI's does: weights, optimizer and step, not the
     trainer's generator, so its next epoch draws a fresh generator's
     permutation."""
@@ -173,7 +197,7 @@ def setup(argv=None, datasets=None, featurizer_kwargs=None):
     if args.train_method == "fchead":
         trainer = FCTrainer(network, train_ds, val_ds, **common)
     else:
-        trainer = NWTrainer(network, train_ds, val_ds, **common)
+        trainer = NWTrainer(network, train_ds, val_ds, mesh=network.mesh, **common)
     start_epoch = 1
     path = latest_checkpoint(args.ckpt_dir) if args.resume else None
     if path:
@@ -186,13 +210,16 @@ def setup(argv=None, datasets=None, featurizer_kwargs=None):
             trainer.rng.bit_generator.state = sampler["trainer"]
             print("Restored sampler RNG state")
         print(f"Resumed from {path} at epoch {start_epoch}")
+    if args.use_wandb:
+        initialize_wandb(args)
     return args, trainer, start_epoch
 
 
 def run_epochs(args, trainer, start_epoch: int = 1):
     """The epoch loop: evaluate (every mode of an NW net, the FC net once),
     train an epoch, checkpoint every ``--log_interval`` epochs (an NW run
-    with the sampler sidecar), print metrics."""
+    with the sampler sidecar), print metrics (and log them to W&B with
+    ``--use_wandb``)."""
     best_acc1 = 0.0
     nw = isinstance(trainer, NWTrainer)
     for epoch in range(start_epoch, args.num_epochs + 1):
@@ -215,6 +242,11 @@ def run_epochs(args, trainer, start_epoch: int = 1):
             trainer.metrics["loss:train"].result(), trainer.metrics["acc:train"].result()))
         for k, m in sorted(trainer.val_metrics.items()):
             print(f"{k}={m.result():.6f}")
+        if args.use_wandb:
+            import wandb
+
+            wandb.log({k: v.result() for k, v in trainer.metrics.items()})
+            wandb.log({k: v.result() for k, v in trainer.val_metrics.items()})
         trainer.reset_metrics()
     return trainer
 
@@ -225,6 +257,6 @@ def main(argv=None):
 
 __all__ = [
     "FCTrainer", "NWTrainer", "Parser", "build_datasets", "build_network", "featurizer_name",
-    "latest_checkpoint",
+    "initialize_wandb", "latest_checkpoint",
     "load_checkpoint", "main", "multistep_lr", "run_epochs", "save_checkpoint", "setup",
 ]

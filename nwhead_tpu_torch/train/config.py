@@ -1,9 +1,10 @@
 """The training CLI's flags: the JAX package's surface
 (``nwhead_tpu/train/config.py``), ``--x/--no_x`` boolean pairs, ``key=value``
 kwargs, the hyperparameter-encoding run directory and its ``args.txt``,
-plus ``--device``. ``check_ported`` refuses, naming the ROADMAP item, every
-flag value this port does not run yet (``--mesh``, ``--use_wandb``), and
-every ``--arch`` outside the JAX CLI's map (``featurizer_name``).
+plus ``--device``. ``parse`` refuses every ``--arch`` outside the JAX
+CLI's map (``featurizer_name``) before anything is built.
+``initialize_wandb`` is the JAX package's optional W&B start
+(``--use_wandb``).
 """
 
 from __future__ import annotations
@@ -114,7 +115,9 @@ class Parser(argparse.ArgumentParser):
         self.add_argument("--pretrained_path", type=str, default=None,
                           help="a local torchvision- or DINOv2-format checkpoint (.pth/.pt/"
                                ".npz) merged into the backbone at build time")
-        self.add_argument("--mesh", type=str, default=None)
+        self.add_argument("--mesh", type=str, default=None,
+                          help="N_DATA,N_SUPPORT[,N_MODEL]: data-parallel training over the "
+                               "first n CUDA devices (n copies of the CPU with --device cpu)")
         self.add_argument("--train_method", default="nwhead", help="nwhead or fchead")
         self.add_bool_arg("freeze_featurizer", False)
         self.add_bool_arg("resume", False)
@@ -144,12 +147,12 @@ class Parser(argparse.ArgumentParser):
         self.set_defaults(**{name: default})
 
     def parse(self, argv=None):
-        """Parse, refuse what is not ported, make the run directory and
-        write ``args.txt``."""
+        """Parse, refuse an ``--arch`` the training CLI does not build, make
+        the run directory and write ``args.txt``."""
         args = self.parse_args(argv)
         if args.platform == "cpu":
             args.device = "cpu"
-        check_ported(args)
+        featurizer_name(args.arch, args.dataset)
         args.run_dir = os.path.join(
             args.models_dir,
             "method{method}_dataset{dataset}_arch{arch}_lr{lr}_bs{bs}_projdim{proj}"
@@ -168,14 +171,17 @@ class Parser(argparse.ArgumentParser):
         return args
 
 
-def check_ported(args) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item for every flag
-    value the port does not run yet; none is ignored."""
-    refused = {
-        "--mesh (data-parallel training; ROADMAP.md queue 1, item 14)": args.mesh,
-        "--use_wandb (ROADMAP.md queue 1, item 13)": args.use_wandb,
-    }
-    for flag, hit in refused.items():
-        if hit:
-            raise NotImplementedError(f"{flag} is not ported yet")
-    featurizer_name(args.arch, args.dataset)
+def initialize_wandb(config) -> None:
+    """Optional W&B start (the reference's ``util/utils.py:70-76``, JAX
+    ``train/config.py:142-153``): the import is gated, since wandb may be
+    absent; the API key is read from ``wandb_api_key_path``, then
+    ``wandb.init(**wandb_kwargs)`` and the run's config."""
+    try:
+        import wandb
+    except ImportError as e:
+        raise ImportError("wandb is not installed; run with --no_use_wandb") from e
+    if config.wandb_api_key_path is not None:
+        with open(config.wandb_api_key_path) as f:
+            os.environ["WANDB_API_KEY"] = f.read().strip()
+    wandb.init(**config.wandb_kwargs)
+    wandb.config.update(config)

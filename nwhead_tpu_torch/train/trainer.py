@@ -29,6 +29,22 @@ trainer's generator, the remainder dropped, so it picks the JAX package's
 indices in its order; eval is one pass over the validation set (loss,
 accuracy x100 and ECE x100).
 
+With a ``mesh`` (``parallel/mesh.py``; pass the same mesh to the
+``NWNet``), ``NWTrainer`` trains data-parallel and computes the JAX
+package's global step, which GSPMD makes equal to the meshless one: each
+data replica (the first device of its row of the mesh; the ``support`` and
+``model`` axes would repeat the same values, so each data shard runs once)
+featurizes its queries and a share of the support rows in one batch, every
+BatchNorm synced over the replicas (``models.resnet.ReplicaGroup``), so
+the statistics are those of the joint ``[q; s]`` batch; the support
+features are gathered to every replica, which runs the head on its
+queries against all S rows (K1, and K3 in the backward, once a replica
+from ``fused_min_support`` rows on); the replicas' NLL sums are added and
+divided by B, and autograd sums every replica's gradients into the one
+set of parameters (``parallel/data_parallel.py``). Episodes come from the
+host (no device-resident images, as in JAX), from the same batcher seeds.
+The checkpoint is the meshless one.
+
 ``freeze_featurizer`` takes the featurizer's parameters out of the
 optimizer and out of autograd: they get no update at all, weight decay
 included (the JAX package's optimizer still decays them, ROADMAP.md queue
@@ -39,16 +55,21 @@ the JAX package.
 from __future__ import annotations
 
 import time
+from functools import reduce
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from nwhead_tpu_torch.data.datasets import draw_init_sample
 from nwhead_tpu_torch.data.pipeline import EpisodicBatcher, device_images, prefetch_to_device
+from nwhead_tpu_torch.models.resnet import BatchNorm2d, ReplicaGroup
 from nwhead_tpu_torch.nw.fc import FCNet
 from nwhead_tpu_torch.nw.net import NWNet
 from nwhead_tpu_torch.ops import metrics as M
+from nwhead_tpu_torch.parallel.data_parallel import replicate, run_replicas
+from nwhead_tpu_torch.parallel.mesh import Mesh
 
 
 def multistep_lr(base_lr: float, milestones: Sequence[int], gamma: float,
@@ -153,7 +174,12 @@ class NWTrainer:
         freeze_featurizer: bool = False,
         eval_modes: Sequence[str] = ("random", "full", "cluster"),
         seed: int = 0,
+        mesh: Optional[Mesh] = None,
     ) -> None:
+        """``mesh``: optional mesh whose ``data`` axis splits the query
+        batches (module docstring); full-mode eval runs over the
+        support-sharded bank of the ``NWNet`` built with the same mesh.
+        ``batch_size`` must divide the data axis."""
         self.net = net
         self.train_dataset = train_dataset
         self.val_dataset = val_dataset
@@ -162,6 +188,11 @@ class NWTrainer:
         self.rng = np.random.default_rng(seed)
         self.steps_per_epoch = max(1, len(train_dataset) // batch_size)
         self.step = 0
+        self.mesh = mesh
+        if mesh is not None:
+            if batch_size % mesh.shape["data"]:
+                raise AssertionError("batch_size must divide the data mesh axis")
+            _check_sync_batchnorm(net.model, mesh.shape["data"])
         draw_init_sample(train_dataset, batch_size)
         self.lr_schedule = multistep_lr(lr, milestones, gamma, self.steps_per_epoch)
         if freeze_featurizer:
@@ -198,20 +229,50 @@ class NWTrainer:
         detached loss and accuracy (no host read)."""
         model = self.net.model
         model.train()
-        log_probs = model(qimg, simg, sy)
-        loss = M.nll_loss(log_probs, qy)
+        if self.mesh is None:
+            log_probs = model(qimg, simg, sy)
+            loss = M.nll_loss(log_probs, qy)
+        else:
+            loss, log_probs = self._mesh_loss(qimg, qy, simg, sy)
         _sgd_step(self.optimizer, self.lr_schedule(self.step), loss)
         self.step += 1
         acc = torch.mean((torch.argmax(log_probs.detach(), -1) == qy).to(torch.float32))
         return loss.detach(), acc
+
+    def _mesh_loss(self, qimg: torch.Tensor, qy: torch.Tensor, simg: torch.Tensor,
+                   sy: torch.Tensor):
+        """The data-parallel step's mean NLL over all B queries, on the
+        first replica's device, and the log-probs gathered there (detached):
+        replica d featurizes ``[q_d; s_d]`` under synced BatchNorm, every
+        replica's head sees all S support features."""
+        if simg.dim() != qimg.dim():
+            raise NotImplementedError("a mesh trains on a shared support (S, H, W, C), "
+                                      "not per-query support")
+        n = self.mesh.shape["data"]
+        devices = [self.mesh.devices[d, 0, 0] for d in range(n)]
+        home = devices[0]
+        replicas = [replicate(self.net.model, dev) for dev in devices]
+        qs, ss = qimg.chunk(n), simg.tensor_split(n)
+        feats = run_replicas(
+            lambda m, x: m.featurize(x), replicas,
+            [(torch.cat([q.to(dev), s.to(dev)]),) for q, s, dev in zip(qs, ss, devices)],
+            devices, ReplicaGroup(n, sync_all=True))
+        b = qimg.shape[0] // n
+        sfeat = torch.cat([f[b:].to(home) for f in feats])
+        nll, log_probs = [], []
+        for m, f, y, dev in zip(replicas, feats, qy.chunk(n), devices):
+            lp = m.head(f[:b], sfeat.to(dev), sy.to(dev))
+            nll.append((M.nll_loss(lp, y) * b).to(home))
+            log_probs.append(lp.detach().to(home))
+        return reduce(torch.add, nll) / qimg.shape[0], torch.cat(log_probs)
 
     def train_epoch(self, num_steps: Optional[int] = None, prefetch: int = 2) -> None:
         """One epoch of episodes. The batcher is seeded from the trainer's
         generator, as in the JAX package, so both draw the same episodes."""
         batcher = EpisodicBatcher(self.train_dataset, self.net.support_train, self.batch_size,
                                   seed=int(self.rng.integers(0, 2**31 - 1)))
-        device = self.net.device
-        images = device_images(self.train_dataset, device)
+        device = self.net.device if self.mesh is None else self.mesh.devices.flat[0]
+        images = None if self.mesh is not None else device_images(self.train_dataset, device)
         t0 = time.perf_counter()
         losses: List[torch.Tensor] = []
         accs: List[torch.Tensor] = []
@@ -271,6 +332,18 @@ class NWTrainer:
     def reset_metrics(self) -> None:
         for m in (*self.metrics.values(), *self.val_metrics.values()):
             m.reset_state()
+
+
+def _check_sync_batchnorm(model: nn.Module, n_data: int) -> None:
+    """The mesh step needs every BatchNorm to sync over the data replicas:
+    refuse one of another class (it would normalize each replica alone)."""
+    if n_data == 1:
+        return
+    other = [name for name, m in model.named_modules()
+             if isinstance(m, nn.modules.batchnorm._NormBase) and not isinstance(m, BatchNorm2d)]
+    if other:
+        raise ValueError(f"a data axis of {n_data} syncs BatchNorm statistics only in "
+                         f"models.resnet.BatchNorm2d; {other[:3]} are another class")
 
 
 class FCTrainer:

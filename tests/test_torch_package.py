@@ -42,6 +42,8 @@ MODULES = (
     "nwhead_tpu_torch.utils.httpd", "nwhead_tpu_torch.utils.pipeline",
     "nwhead_tpu_torch.labs.pipeline_bench", "nwhead_tpu_torch.visualize",
     "nwhead_tpu_torch.ops.library", "nwhead_tpu_torch.utils.aot",
+    "nwhead_tpu_torch.parallel.data_parallel", "nwhead_tpu_torch.utils.profiling",
+    "nwhead_tpu_torch.nw.samplers",
 )
 
 
@@ -79,6 +81,24 @@ def test_package_import_stays_light():
     before, shape, loaded = json.loads(proc.stdout.strip().splitlines()[-1])
     assert before == [] and loaded
     assert shape == {"data": 1, "support": 2, "model": 1}
+
+
+def test_artifact_loaders_import_no_model_code():
+    """What a loaded serving artifact imports (``utils.aot``, and for a mesh
+    artifact ``parallel``) pulls in no model-building module: the parallel
+    package leaves ``data_parallel`` (which needs the models) to be
+    imported by itself."""
+    code = (
+        "import json, sys\n"
+        "import nwhead_tpu_torch.utils.aot, nwhead_tpu_torch.parallel\n"
+        "from nwhead_tpu_torch.parallel.mesh import make_mesh\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.startswith(("
+        "'nwhead_tpu_torch.models', 'nwhead_tpu_torch.nw.net', 'nwhead_tpu_torch.data')))))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
 def test_capabilities_report_no_gpu_on_a_cpu_host():

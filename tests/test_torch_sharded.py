@@ -213,8 +213,9 @@ def test_make_mesh_resolves_axes_as_jax():
         got = make_mesh(*axes, devices=CPU8)
         assert got.shape == dict(want.shape) and got.size == 8
         assert got.devices.shape == (got.shape["data"], got.shape["support"], 1)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        make_mesh(2, 2, n_model=2, devices=CPU8)
+    # The model axis, as JAX resolves it (ported with data-parallel training).
+    got, want = make_mesh(2, 2, n_model=2, devices=CPU8), j_make_mesh(2, 2, n_model=2)
+    assert got.shape == dict(want.shape) == {"data": 2, "support": 2, "model": 2}
     with pytest.raises(ValueError):
         make_mesh(3, 2, devices=CPU8)
     if not torch.cuda.is_available():
@@ -414,7 +415,8 @@ def test_nwnet_mesh_ivf_needs_a_routing_index():
 def test_serve_cli_mesh_on_cpu():
     """``serve --device cpu --mesh 2,2`` serves from two shards, the batch
     split over two data rows, and names the mesh in its report; a model
-    axis is refused."""
+    axis (``--mesh 1,2,2``) serves from the first device of each model
+    row."""
     from nwhead_tpu_torch import serve
 
     argv = ["--device", "cpu", "--dataset", "synthetic", "--arch", "resnet10",
@@ -422,8 +424,9 @@ def test_serve_cli_mesh_on_cpu():
     report = serve.main(argv)["latency"]
     assert report["mesh"] == {"data": 2, "support": 2, "model": 1}
     assert report["batches"] == 2 and report["p50_ms"] > 0
-    with pytest.raises(NotImplementedError, match="item 14"):
-        serve.main(argv[:-1] + ["1,2,2"])
+    report = serve.main(argv[:-1] + ["1,2,2"])["latency"]
+    assert report["mesh"] == {"data": 1, "support": 2, "model": 2}
+    assert report["batches"] == 2 and report["p50_ms"] > 0
 
 
 # ---------------------------------------------------------------------------

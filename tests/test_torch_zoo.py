@@ -171,7 +171,7 @@ def test_zero_init_residual_and_options():
     assert float(real.bn1.weight.min()) == 1.0
     for name, bad in (("CIFAR_ResNet18", "stem"), ("resnet50", "memory_efficient"),
                       ("densenet121", "zero_init_residual"), ("resnet18", "attn_impl"),
-                      ("densenet121", "bn_axis_name")):
+                      ("vit_s14", "bn_axis_name")):
         with pytest.raises(ValueError, match="takes no"):
             load_model(name, device="meta", **{bad: True})
     with pytest.raises(ValueError, match="dtype"):
