@@ -389,6 +389,28 @@ package beside it. With one, in order:
     ``StepTimer(block=True)`` phase; the trace file must hold every span
     and K2's ``nw_prepared_tc_kernel`` events; the timer's p50 is printed
     beside CUDA events around the same request;
+18q. the big-bank lab phase (after the lab phase): ``labs/bigbank_lab.py``'s
+    ``run`` in this process four times at its full width (D=512, C=1,000):
+    the defaults (the four prepared heads against the streaming oracle at
+    131,072 rows, the million-row bank at every precision timed at B=64,
+    int8 and int4 at B=256, beside K13 at 403 MB) with ``--hnsw --hnsw_s
+    8192``, ``--giant 8000000`` (int8, chunk by chunk), ``--giant 8000000
+    --giant_ivf`` (the routed gate, K6) and ``--stream_host 1048576`` (16
+    host chunks through K1 ``partials``); every head the lab times held to
+    its plain version at both batches (K2, K4, K5 over the million-row and
+    8M-row banks, the plain version over 1M-row chunks; K6 over its routed
+    tiles); every gate the lab returns ok, each leg's kernels launched
+    (K2's f32 and bf16 banks booked on the f32 entry); ms/batch, q/s,
+    ``frac_vs_stream`` and
+    ``frac_vs_peak``, the HNSW build seconds, q/s and recall@10, the
+    resident GB and the host link's MB/s printed;
+18r. the endurance phase (last): gate 2, ``labs/endurance_run.py``'s
+    ``run`` on CIFAR-100-shaped files (``write_endurance_cifar100``: 1,100
+    / 400 images whose accuracy moves), CIFAR_ResNet18, 1,100-row
+    episodes, 6 epochs of 24 steps, a checkpoint every 2, killed when epoch
+    4 starts and resumed; each phase of the training CLI a process that
+    prints its K1, dq, ds and K2 launches when it ends; all five checks OK,
+    and the state phase B restored bit-equal to its checkpoint (digests);
 19. prints the nvidia-smi line, a JSON line of per-kernel results (the
     zoo phases' launches added to K1-K4, their times as ``d2048_*`` and
     ``d1024_*``; the int8 CNN phase's launches and errors added to K2, K4
@@ -397,8 +419,10 @@ package beside it. With one, in order:
     phase's to K2 f32, the artifact phase's fresh process's to K2, K4, K6,
     K10/K11, K10/K11 int8 and K2 ``partials``; the mesh training
     phase's to K1, dq, ds and K2 ``partials`` f32, the shard's times as
-    ``shard_ms``, ``shard_plain_ms`` and ``shard_bound_ms``), and as the
-    last line
+    ``shard_ms``, ``shard_plain_ms`` and ``shard_bound_ms``; the big-bank
+    phase's to K1 ``partials``, K2 f32, K4, K5, K6 int8 and K13, its figures
+    as ``bigbank``; the endurance phase's to K1, dq, ds and K2 f32), and as
+    the last line
     ``{"ok": true, "device": {...}}``.
 
 Kernel times are device times: CUDA events around each call, queued behind
@@ -6293,6 +6317,237 @@ def mesh_update_entries(entries: list, mesh: dict) -> None:
     e["max_abs_err"] = max(e["max_abs_err"], mesh["eval_err"])
 
 
+# ---------------------------------------------------------------------------
+# The last two lab scripts: the big-bank lab (labs/bigbank_lab.py: K1 partials,
+# K2, K4, K5, K6, K13) at its full width, and gate 2's kill-and-resume run
+# (labs/endurance_run.py: K1, dq, ds, K2 in the training CLI's processes) on
+# CIFAR-100-shaped files whose accuracy moves.
+# ---------------------------------------------------------------------------
+
+BIGBANK_RUNS = (  # name, argv, the gates it returns (every one ok)
+    # 4 oracle gates and 4 plain checks at 131,072 rows, 8 plain checks at
+    # 1,000,000 (4 precisions x B=64, 256)
+    ("scale", ["--hnsw", "--hnsw_s", "8192"], 16),
+    ("giant", ["--giant", "8000000"], 3),  # centroid, plain at B=64 and 256
+    ("giant_ivf", ["--giant", "8000000", "--giant_ivf"], 6),  # + routed, its plain x 2
+    ("stream_host", ["--stream_host", "1048576"], 1),  # finite
+)
+# K2's launches over f32 and bf16 banks count together (one wrapper): the
+# phase books them on the f32 entry.
+BIGBANK_KERNELS = ("nw_fwd_partials_cuda", "nw_prepared_cuda", "nw_prepared_int8_cuda",
+                   "nw_prepared_int4_cuda", "nw_prepared_sel_quant_cuda")
+ENDURANCE_SEED = 28
+ENDURANCE_DATA = (1100, 400)  # train / test images: 11 a class, the episode's whole support
+ENDURANCE_SIGNAL = 0.5  # the class pattern's weight beside unit noise
+ENDURANCE_ARGV = ["--dataset", "cifar100", "--arch", "resnet18", "--n_way", "0", "--n_shot", "11",
+                  "--epochs", "6", "--kill_at", "4", "--log_interval", "2",
+                  "--num_steps_per_epoch", "24", "--num_val_steps_per_epoch", "50",
+                  "--poll_s", "0.25"]
+ENDURANCE_KERNELS = ("nw_fwd_cuda", "nw_bwd_dq_cuda", "nw_bwd_ds_cuda", "nw_prepared_cuda")
+# The training CLI in a process that prints, on a resume, the digest of the
+# state it restored, and its kernel launches when it ends, by an interrupt
+# too (SIGINT raises KeyboardInterrupt through ``run_epochs``).
+COUNTING_TRAIN = """
+import json, sys
+from chip_smoke import state_digest
+from nwhead_tpu_torch import train
+from nwhead_tpu_torch.ops import fused_nw as F
+try:
+    args, trainer, start = train.setup(sys.argv[1:])
+    if args.resume:
+        print("restored state digest: " + state_digest(trainer.state_dict()), flush=True)
+    train.run_epochs(args, trainer, start)
+finally:
+    print("kernel launches: " + json.dumps({n: getattr(F, n).launches for n in %r}), flush=True)
+""" % (ENDURANCE_KERNELS,)
+
+
+def state_digest(state) -> str:
+    """SHA-256 of a trainer state (nested dicts and lists of tensors and
+    numbers) in key order: the same for the same values on any device."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+
+    def add(x):
+        if isinstance(x, dict):
+            for k in sorted(x, key=repr):
+                h.update(repr(k).encode())
+                add(x[k])
+        elif isinstance(x, (list, tuple)):
+            h.update(b"[")
+            for v in x:
+                add(v)
+            h.update(b"]")
+        elif isinstance(x, torch.Tensor):
+            t = x.detach().cpu().contiguous()
+            h.update(f"{t.dtype}{tuple(t.shape)}".encode())
+            h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+        else:
+            h.update(repr(x).encode())
+
+    add(state)
+    return h.hexdigest()
+
+
+def bigbank_phase() -> dict:
+    """``python -m nwhead_tpu_torch.labs.bigbank_lab`` as a user runs it,
+    its ``run`` in this process so that the launches count: the defaults
+    (S = 1,000,000, ``S_check`` 131,072, D = 512, C = 1,000) with ``--hnsw
+    --hnsw_s 8192``, ``--giant 8000000`` (int8), ``--giant 8000000
+    --giant_ivf`` and ``--stream_host 1048576`` (16 host chunks). Every
+    head the lab times is held to its plain version there. A run that
+    returns a failed gate or fewer gates than ``BIGBANK_RUNS`` names, or
+    launches no kernel of its legs, fails the phase."""
+    import torch
+
+    from nwhead_tpu_torch.labs import bigbank_lab, lab_wrapper
+
+    out = {"launches": {}, "seconds": {}}
+    stream = lab_wrapper("stream")
+    for name, argv, n_gates in BIGBANK_RUNS:
+        print(f"--- python -m nwhead_tpu_torch.labs.bigbank_lab {' '.join(argv)}", flush=True)
+        _counts(BIGBANK_KERNELS, reset=True)
+        stream.launches = 0
+        t0 = time.perf_counter()
+        res = bigbank_lab.run(argv)
+        torch.cuda.synchronize()
+        out["seconds"][name] = time.perf_counter() - t0
+        launches = {**_counts(BIGBANK_KERNELS), "stream_cuda": stream.launches}
+        out["launches"][name], out[name] = launches, res
+        failed = [g for g, ok in res["gates"] if not ok]
+        if not res["ok"] or failed or len(res["gates"]) != n_gates:
+            raise AssertionError(f"bigbank_lab {argv}: {len(res['gates'])} gates of {n_gates}, "
+                                 f"failed {failed}")
+        print(f"bigbank_lab {name}: {n_gates} gates ok, launches {launches}, "
+              f"{out['seconds'][name]:.1f}s", flush=True)
+    want = {"scale": ("nw_fwd_partials_cuda", "nw_prepared_cuda", "nw_prepared_int8_cuda",
+                      "nw_prepared_int4_cuda", "stream_cuda"),
+            "giant": ("nw_prepared_int8_cuda", "stream_cuda"),
+            "giant_ivf": ("nw_prepared_int8_cuda", "nw_prepared_sel_quant_cuda", "stream_cuda"),
+            "stream_host": ("nw_fwd_partials_cuda",)}
+    missing = [f"{run} {k}" for run, ks in want.items() for k in ks
+               if not out["launches"][run][k]]
+    if missing:
+        raise AssertionError(f"the big-bank lab launched no {missing}")
+    sc, g, gi, sh = (out[k] for k in ("scale", "giant", "giant_ivf", "stream_host"))
+    times = {**sc["scale"]["times"], **g["giant"]["times"], **gi["giant"]["times"]}
+    print("bigbank figures: " + "; ".join(
+        f"{k} {v['ms']:.4f} ms" + (f" {v['qps']:.0f} q/s" if "qps" in v else
+                                   f" {v['gbps']:.1f} GB/s")
+        + (f" frac_vs_stream {v['frac_vs_stream']:.3f} frac_vs_peak {v['frac_vs_peak']:.3f}"
+           if "frac_vs_peak" in v else "") for k, v in times.items()), flush=True)
+    print(f"bigbank: HNSW over {sc['hnsw']['rows']} rows built in {sc['hnsw']['build_s']:.1f}s, "
+          f"{sc['hnsw']['qps']:.0f} q/s, recall@10 {sc['hnsw']['recall']:.3f} (exact int8 head "
+          f"{sc['hnsw']['int8_head_qps']:.0f} q/s); resident GB "
+          f"{ {k: round(v, 3) for k, v in sc['resident_gb'].items()} }, giant "
+          f"{g['giant']['gbytes']:.3f} / IVF {gi['giant']['gbytes']:.3f}; host link "
+          f"{sh['stream_host']['link_mbps']:.1f} MB/s ({sh['stream_host']['chunks']} chunks)",
+          flush=True)
+    return out
+
+
+def write_endurance_cifar100(data_dir: str, signal: float = ENDURANCE_SIGNAL) -> None:
+    """CIFAR-100-shaped ``.npy`` files whose full-mode accuracy moves with
+    training: each class a fixed pattern of 4 x 4 blocks of 8 px at
+    ``signal`` beside unit per-pixel noise, from ``ENDURANCE_SEED``. A
+    random network reads them at a few points; the weaker the signal, the
+    more steps training takes to read it. The full-mode bank is featurized
+    through the training transform (a crop of up to 4 px and a flip), so
+    the patterns are mirror-symmetric and their blocks wider than the
+    crop: two draws of the transform then give nearly the same bank, and
+    the same weights nearly the same accuracy (gate 2's check 4)."""
+    import os
+
+    rng = np.random.default_rng(ENDURANCE_SEED)
+    base = os.path.join(data_dir, "cifar100")
+    os.makedirs(base, exist_ok=True)
+    half = rng.standard_normal((100, 4, 2, 3))
+    patterns = np.kron(np.concatenate([half, half[:, :, ::-1]], axis=2), np.ones((1, 8, 8, 1)))
+    for split, n in zip(("train", "test"), ENDURANCE_DATA):
+        labels = np.arange(n) % 100
+        noise = rng.standard_normal((n, 32, 32, 3))
+        images = 128 + 40 * (signal * patterns[labels] + noise)
+        np.save(os.path.join(base, f"{split}_images.npy"),
+                np.clip(images, 0, 255).astype(np.uint8))
+        np.save(os.path.join(base, f"{split}_labels.npy"), labels)
+
+
+def endurance_phase(workdir: str) -> dict:
+    """``python -m nwhead_tpu_torch.labs.endurance_run`` on the files of
+    ``write_endurance_cifar100`` (CIFAR_ResNet18, 1,100-row episodes: K1,
+    dq and ds once a step; K2 in the full-mode evals), its ``run`` in this
+    process, each phase of the training CLI in a process of its own that
+    prints its launches when it ends. Every check must be OK, and every
+    kernel must launch. Check 4 reads accuracy, which a partial restore
+    (the BatchNorm statistics or the momentum left out) could keep within
+    its tolerance: phase B's digest of the state it restored must also
+    equal the digest of the checkpoint it resumed from, bit for bit."""
+    import os
+    import re
+
+    from nwhead_tpu_torch.labs import endurance_run
+    from nwhead_tpu_torch.train.checkpoint import load_checkpoint
+
+    data_dir = os.path.join(workdir, "endurance_data")
+    write_endurance_cifar100(data_dir)
+    args = endurance_run.parser().parse_args(
+        ENDURANCE_ARGV + ["--data_dir", data_dir, "--models_dir",
+                          os.path.join(workdir, "endurance")])
+    res = endurance_run.run(args, train_cmd=[sys.executable, "-c", COUNTING_TRAIN])
+    with open(res["log"]) as f:
+        text = f.read()
+    counts = [json.loads(m) for m in re.findall(r"^kernel launches: (.*)$", text, re.M)]
+    launches = {k: sum(c[k] for c in counts) for k in ENDURANCE_KERNELS}
+    restored = re.findall(r"^restored state digest: (\w+)$", text, re.M)
+    ckpt = load_checkpoint(os.path.join(res["ckpt_dir"], f"model.{res['resumed_at'] - 1:04d}"))
+    del ckpt["epoch"]
+    want = state_digest(ckpt)
+    same_state = restored == [want]
+    print(f"  {'OK  ' if same_state else 'FAIL'} restored state: phase B's digest {restored} vs "
+          f"model.{res['resumed_at'] - 1:04d}'s {want}", flush=True)
+    print(f"endurance: {len(counts)} training processes, launches {launches}; phase A "
+          f"{res['phase_a_s']:.1f}s, phase B {res['phase_b_s']:.1f}s", flush=True)
+    with open(res["summary"]) as f:
+        print("endurance summary:\n" + f.read().rstrip(), flush=True)
+    if not res["ok"] or not same_state or len(counts) != 2 or not all(launches.values()):
+        raise AssertionError(f"the endurance run failed a check ({res['ok']}, restored state "
+                             f"{same_state}) or launched no kernel ({launches}, {len(counts)} "
+                             "processes reported)")
+    return {**res, "launches": launches, "same_state": same_state}
+
+
+def bigbank_update_entries(entries: list, big: dict, endurance: dict) -> None:
+    """The big-bank phase's launches added to K1 ``partials``, K2 (f32 and
+    bf16 banks on the f32 entry), K4, K5, K6 int8 and K13; the endurance
+    run's to K1, dq, ds and K2 f32; each entry's big-bank figures under
+    ``bigbank``."""
+    by_name = {e["name"]: e for e in entries}
+    runs = big["launches"].values()
+    add = {"nw_fwd_partials_f32": sum(r["nw_fwd_partials_cuda"] for r in runs),
+           "nw_prepared_int8": sum(r["nw_prepared_int8_cuda"] for r in runs),
+           "nw_prepared_int4": sum(r["nw_prepared_int4_cuda"] for r in runs),
+           "nw_prepared_sel_int8": sum(r["nw_prepared_sel_quant_cuda"] for r in runs),
+           "stream_f32": sum(r["stream_cuda"] for r in runs),
+           "nw_fwd_f32": endurance["launches"]["nw_fwd_cuda"],
+           "nw_bwd_dq_f32": endurance["launches"]["nw_bwd_dq_cuda"],
+           "nw_bwd_ds_f32": endurance["launches"]["nw_bwd_ds_cuda"],
+           "nw_prepared_f32": (sum(r["nw_prepared_cuda"] for r in runs)
+                               + endurance["launches"]["nw_prepared_cuda"])}
+    for name, n in add.items():
+        by_name[name]["launches"] += n
+    times = {**big["scale"]["scale"]["times"], **big["giant"]["giant"]["times"],
+             **big["giant_ivf"]["giant"]["times"]}
+    for name, key in (("nw_prepared_f32", "head B=64 f32"), ("nw_prepared_bf16", "head B=64 bf16"),
+                      ("nw_prepared_int8", "giant B=64 int8"), ("nw_prepared_int4", "head B=64 int4"),
+                      ("nw_prepared_sel_int8", "giant ivf-p4 B=64 int8 skew")):
+        by_name[name]["bigbank"] = {"case": key, **{k: v for k, v in times[key].items()
+                                                    if k != "bytes"}}
+    by_name["stream_f32"]["bigbank"] = {"case": "stream 402.7MB", **times["stream 402.7MB"]}
+
+
 PROFILE_REQUESTS = 10
 
 
@@ -6417,6 +6672,10 @@ def main() -> int:
     del flush, bank
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    big = bigbank_phase()
+    phase_s["big-bank lab"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     args = train.Parser().parse_args(TRAIN_ARGV)
     datasets = train.build_datasets(args)
     print(f"datasets built in {time.perf_counter() - t0:.1f}s")
@@ -6480,6 +6739,10 @@ def main() -> int:
         artifacts = artifact_phase(datasets, workdir)
         phase_s["AOT artifacts"] = time.perf_counter() - t0
         del datasets
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        endurance = endurance_phase(workdir)
+        phase_s["endurance (kill and resume)"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
@@ -6532,6 +6795,7 @@ def main() -> int:
     surface_update_entries(entries, surface)
     artifact_update_entries(entries, artifacts)
     mesh_update_entries(entries, mesh_tr)
+    bigbank_update_entries(entries, big, endurance)
     for k in ("nw_fwd", "nw_bwd_dq", "nw_bwd_ds"):
         for p in TOL:
             e = next(e for e in entries if e["name"] == f"{k}_{p}")

@@ -1437,6 +1437,50 @@ def nw_fused_from_prepared(
 
 
 @torch.no_grad()
+def nw_prepared_plain(
+    qfeat: torch.Tensor,
+    prepared: PreparedSupport,
+    n_classes: int,
+    *,
+    kernel: str = "euclidean",
+    kernel_params: Optional[Dict[str, Any]] = None,
+    tile_sel: Optional[torch.Tensor] = None,
+    row_chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """``nw_fused_from_prepared``'s log-probs from the kernels' plain
+    version on any device (``_nw_prepared_plain``; with ``tile_sel``
+    ``_nw_prepared_sel_plain``): the reference K2, K4, K5 and K6 are held
+    to. ``row_chunk`` bounds the rows of one plain pass, whose score matrix
+    is ``(B, rows)``: the bank goes through in chunks of rows whose partials
+    merge exactly (``parallel.merge_partials``)."""
+    from nwhead_tpu_torch.parallel.sharded_bank import merge_partials
+
+    q, scale, mode, qscale = _prepared_query(qfeat, prepared, kernel, kernel_params)
+    if tile_sel is not None:
+        return _nw_prepared_sel_plain(q, prepared, scale, mode, n_classes, qscale, tile_sel)
+    S = prepared.labels.shape[0]
+    if not row_chunk or row_chunk >= S:
+        return _nw_prepared_plain(q, prepared, scale, mode, n_classes, qscale)
+    parts = []
+    for i in range(0, S, row_chunk):
+        rows = PreparedSupport(*(None if f is None else f[i:i + row_chunk]
+                                 for f in prepared[:4]))
+        parts.append(_nw_prepared_plain(q, rows, scale, mode, n_classes, qscale, partials=True))
+    return merge_partials(parts)
+
+
+def query_tile(queries: int, n_classes: int, device=None) -> int:
+    """The prepared head's query tile (``_tc_query_tile``) for a batch of
+    ``queries`` over ``n_classes`` on ``device``: the batch streams the
+    bank once per tile. A card's shared memory sets it; off a card, an
+    H100's."""
+    device = torch.device("cpu" if device is None else device)
+    optin = (_smem_optin(_cuda.load_library(), device) if device.type == "cuda"
+             else H100_SMEM_OPTIN)
+    return _tc_query_tile(queries, n_classes, False, optin)
+
+
+@torch.no_grad()
 def nw_fused_partials(
     qfeat: torch.Tensor,
     sfeat: torch.Tensor,

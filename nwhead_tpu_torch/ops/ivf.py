@@ -46,6 +46,7 @@ from nwhead_tpu_torch.ops.fused_nw import (
     _round_up,
     concat_prepared,
     nw_fused_from_prepared,
+    nw_prepared_plain,
     prepare_support,
 )
 
@@ -328,6 +329,27 @@ def nw_fused_ivf_log_probs(
                               n_probe=n_probe, group_b=group_b)
     out = nw_fused_from_prepared(q, ivf.prep, n_classes, kernel=kernel,
                                  kernel_params=kernel_params, tile_sel=tsel, partials=partials)
+    return out if inv is None else out[inv][:B]
+
+
+def nw_ivf_plain(
+    qfeat: torch.Tensor,
+    ivf: IVFPrepared,
+    n_classes: int,
+    *,
+    kernel: str = "euclidean",
+    kernel_params: Optional[Dict[str, Any]] = None,
+    n_probe: int = 32,
+    group_b: Optional[int] = None,
+) -> torch.Tensor:
+    """``nw_fused_ivf_log_probs``'s log-probs from the plain version over
+    the tiles the same router selects (``nw_prepared_plain``): the
+    reference K6 is held to."""
+    B = qfeat.shape[0]
+    q, tsel, inv = _ivf_route(qfeat, ivf, kernel=kernel, kernel_params=kernel_params,
+                              n_probe=n_probe, group_b=group_b)
+    out = nw_prepared_plain(q, ivf.prep, n_classes, kernel=kernel, kernel_params=kernel_params,
+                            tile_sel=tsel)
     return out if inv is None else out[inv][:B]
 
 

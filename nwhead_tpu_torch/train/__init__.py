@@ -216,12 +216,14 @@ def setup(argv=None, datasets=None, featurizer_kwargs=None):
 
 
 def run_epochs(args, trainer, start_epoch: int = 1):
-    """The epoch loop: evaluate (every mode of an NW net, the FC net once),
-    train an epoch, checkpoint every ``--log_interval`` epochs (an NW run
+    """The epoch loop: log the schedule's steps an epoch
+    (``steps_per_epoch=N``), then each epoch evaluate (every mode of an NW
+    net, the FC net once), train an epoch, checkpoint every ``--log_interval`` epochs (an NW run
     with the sampler sidecar), print metrics (and log them to W&B with
     ``--use_wandb``)."""
     best_acc1 = 0.0
     nw = isinstance(trainer, NWTrainer)
+    print(f"steps_per_epoch={trainer.steps_per_epoch}")  # the lr schedule's epoch
     for epoch in range(start_epoch, args.num_epochs + 1):
         print("Epoch:", epoch)
         print(f"lr={trainer.lr_schedule(trainer.step):.6g}")

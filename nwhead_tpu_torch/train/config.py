@@ -153,15 +153,7 @@ class Parser(argparse.ArgumentParser):
         if args.platform == "cpu":
             args.device = "cpu"
         featurizer_name(args.arch, args.dataset)
-        args.run_dir = os.path.join(
-            args.models_dir,
-            "method{method}_dataset{dataset}_arch{arch}_lr{lr}_bs{bs}_projdim{proj}"
-            "_nshot{nshot}_nway{nway}_wd{wd}_seed{seed}".format(
-                method=args.train_method, dataset=args.dataset, arch=args.arch, lr=args.lr,
-                bs=args.batch_size, proj=args.proj_dim, nshot=args.n_shot, nway=args.n_way,
-                wd=args.weight_decay, seed=args.seed,
-            ),
-        )
+        args.run_dir = run_dir(args)
         args.ckpt_dir = os.path.join(args.run_dir, "checkpoints")
         os.makedirs(args.ckpt_dir, exist_ok=True)
         print("Arguments:")
@@ -169,6 +161,21 @@ class Parser(argparse.ArgumentParser):
         with open(os.path.join(args.run_dir, "args.txt"), "w") as f:
             json.dump(vars(args), f, indent=4)
         return args
+
+
+def run_dir(args) -> str:
+    """The run directory under ``--models_dir``, named by the
+    hyperparameters as the JAX CLI names it; checkpoints go to its
+    ``checkpoints``."""
+    return os.path.join(
+        args.models_dir,
+        "method{method}_dataset{dataset}_arch{arch}_lr{lr}_bs{bs}_projdim{proj}"
+        "_nshot{nshot}_nway{nway}_wd{wd}_seed{seed}".format(
+            method=args.train_method, dataset=args.dataset, arch=args.arch, lr=args.lr,
+            bs=args.batch_size, proj=args.proj_dim, nshot=args.n_shot, nway=args.n_way,
+            wd=args.weight_decay, seed=args.seed,
+        ),
+    )
 
 
 def initialize_wandb(config) -> None:

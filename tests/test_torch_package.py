@@ -43,7 +43,8 @@ MODULES = (
     "nwhead_tpu_torch.labs.pipeline_bench", "nwhead_tpu_torch.visualize",
     "nwhead_tpu_torch.ops.library", "nwhead_tpu_torch.utils.aot",
     "nwhead_tpu_torch.parallel.data_parallel", "nwhead_tpu_torch.utils.profiling",
-    "nwhead_tpu_torch.nw.samplers",
+    "nwhead_tpu_torch.nw.samplers", "nwhead_tpu_torch.labs.bigbank_lab",
+    "nwhead_tpu_torch.labs.endurance_run",
 )
 
 
